@@ -1,0 +1,20 @@
+"""bigdl_tpu_torch — the PyTorch/CUDA port of `bigdl_tpu`.
+
+A second package beside the JAX one, with the same layout and names so
+each module's counterpart is easy to find (every module's docstring
+names the file it ports). It imports `torch` and numpy only, never
+`jax` or `bigdl_tpu`; the host-side pure-Python modules it needs are
+copied, not imported.
+
+Entry points run on `cuda` unless the caller passes `device="cpu"`
+(`utils.device.resolve_device`). Every TPU kernel on a ported path is a
+hand-written Hopper kernel behind an `impl=` switch whose `"torch"`
+value is the plain PyTorch version; on a CPU tensor the switch takes
+the plain version, on a CUDA tensor it launches the kernel or raises.
+
+Ported so far: the serving path of the Transformer-LM — paged KV
+prefill/decode through `serving.InferenceEngine`, with the CUDA
+paged-decode kernel (`ops/csrc/paged_decode.cu`).
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,273 @@
+"""Decoder-only Transformer language model — the serving half.
+
+Ports bigdl_tpu/models/transformer.py: `TransformerConfig` and the
+paged serving trio of `TransformerLM` (`init_block_pool`,
+`prefill_paged`, `decode_step_paged`) with `init_params`,
+`serving_params` and the tied `head`. Same architecture: pre-LayerNorm
+residual blocks, GELU MLP (the tanh approximation, which is what
+`jax.nn.gelu` computes by default), learned positional embedding,
+output head tied to the embedding.
+
+The parameter tree keeps the JAX package's names, shapes and layouts,
+so weights carry across unchanged (models/convert.py): `Linear`
+weights are `(in, out)`; `blocks` holds `wq, wk, wv, wo, bq, bk, bv,
+bo, ln1_g, ln1_b, ln2_g, ln2_b, w1, b1, w2, b2`, stacked `(L, ...)`;
+top-level leaves are `embed`, `pos`, `lnf_g`, `lnf_b` (and `head` when
+the embedding is untied). As in the JAX package the model object holds
+the configuration and the methods take the parameters as an argument,
+so one model serves any number of weight sets.
+
+Not in this slice: the training forward (`apply`, `loss`), the dense
+per-slot cache, mixture-of-experts FFNs, tensor and sequence
+parallelism and rematerialisation — asking for any of them raises
+NotImplementedError.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Dict, Optional, Sequence, Tuple
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from bigdl_tpu_torch.models.convert import tree_map
+from bigdl_tpu_torch.nn.normalization import layer_norm
+from bigdl_tpu_torch.ops.kv_cache import (block_attention,
+                                          gather_block_cache,
+                                          init_block_pool,
+                                          write_decode_blocks,
+                                          write_prompt_blocks)
+from bigdl_tpu_torch.ops.paged_decode import paged_decode_attention
+from bigdl_tpu_torch.utils.device import DeviceLike, resolve_device
+
+Pools = Tuple[Dict[str, torch.Tensor], ...]
+
+
+@dataclass
+class TransformerConfig:
+    vocab_size: int = 256
+    max_len: int = 512
+    dim: int = 128
+    num_heads: int = 4
+    num_layers: int = 2
+    mlp_ratio: int = 4
+    dropout: float = 0.0
+    causal: bool = True
+    tie_embeddings: bool = True
+    # kept so a JAX configuration maps field for field; only the
+    # defaults are ported
+    remat: bool = False
+    moe_experts: int = 0
+
+    def __post_init__(self):
+        if self.remat:
+            raise NotImplementedError(
+                "remat is part of the training slice, not ported yet")
+        if self.moe_experts:
+            raise NotImplementedError(
+                "mixture-of-experts FFNs are not ported yet")
+        if self.dim % self.num_heads:
+            raise ValueError("dim must be divisible by num_heads")
+
+
+class TransformerLM(nn.Module):
+    """The Transformer-LM's serving surface on `device` (None → the
+    GPU, utils/device.py). `sp_axis` / `tp_axis` exist to refuse the
+    JAX package's parallel variants explicitly."""
+
+    def __init__(self, config: TransformerConfig,
+                 device: DeviceLike = None,
+                 sp_axis: Optional[str] = None,
+                 tp_axis: Optional[str] = None):
+        super().__init__()
+        if sp_axis is not None or tp_axis is not None:
+            raise NotImplementedError(
+                "sequence and tensor parallelism are not ported yet")
+        if not config.causal:
+            raise ValueError("incremental decode requires causal=True")
+        self.cfg = config
+        self.device = resolve_device(device)
+        self.head_dim = config.dim // config.num_heads
+
+    # ------------------------------------------------------------ params
+    def init_params(self, generator: Optional[torch.Generator] = None
+                    ) -> Dict[str, Any]:
+        """A fresh stacked parameter tree on the model's device, drawn
+        from `generator` — a CPU `torch.Generator`, so the weights of a
+        seed are the same whatever the device (default: seed 0). Same
+        distributions as the JAX package: N(0, 1) * fan_in**-0.5 for
+        the gemm weights, 0.02 * N(0, 1) for `embed` and `pos`, ones
+        and zeros for the norms and biases. The draws differ from
+        `jax.random`'s; weights carry across with models/convert.py."""
+        g = generator if generator is not None \
+            else torch.Generator().manual_seed(0)
+        c = self.cfg
+        e, f, n = c.dim, c.dim * c.mlp_ratio, c.num_layers
+
+        def norm(shape, fan_in):
+            return torch.randn(shape, generator=g) * fan_in ** -0.5
+
+        blocks = {
+            "ln1_g": torch.ones(n, e), "ln1_b": torch.zeros(n, e),
+            "wq": norm((n, e, e), e), "wk": norm((n, e, e), e),
+            "wv": norm((n, e, e), e), "wo": norm((n, e, e), e),
+            "bq": torch.zeros(n, e), "bk": torch.zeros(n, e),
+            "bv": torch.zeros(n, e), "bo": torch.zeros(n, e),
+            "ln2_g": torch.ones(n, e), "ln2_b": torch.zeros(n, e),
+            "w1": norm((n, e, f), e), "b1": torch.zeros(n, f),
+            "w2": norm((n, f, e), f), "b2": torch.zeros(n, e),
+        }
+        p = {
+            "embed": torch.randn(c.vocab_size, e, generator=g) * 0.02,
+            "pos": torch.randn(c.max_len, e, generator=g) * 0.02,
+            "blocks": blocks,
+            "lnf_g": torch.ones(e), "lnf_b": torch.zeros(e),
+        }
+        if not c.tie_embeddings:
+            p["head"] = norm((e, c.vocab_size), e)
+        return tree_map(lambda t: t.to(self.device), p)
+
+    @staticmethod
+    def _params(variables: Dict[str, Any]) -> Dict[str, Any]:
+        return variables["params"] if "params" in variables else variables
+
+    def serving_params(self, variables: Dict[str, Any]) -> Dict[str, Any]:
+        """The per-layer serving layout: `blocks` becomes a tuple of L
+        dicts (views into the stacked leaves, no copy); a tree already
+        in that layout passes through. Leaves move to the model's
+        device."""
+        p = self._params(variables)
+        out = dict(p)
+        out["blocks"] = self._layer_blocks(p)
+        return tree_map(lambda t: t.to(self.device), out)
+
+    def _layer_blocks(self, p: Dict[str, Any]) -> Sequence[Dict]:
+        blocks = p["blocks"]
+        if isinstance(blocks, (tuple, list)):
+            return tuple(blocks)
+        return tuple({k: v[i] for k, v in blocks.items()}
+                     for i in range(self.cfg.num_layers))
+
+    def head(self, variables: Dict[str, Any]) -> torch.Tensor:
+        """The (E, V) output projection: `embed.T` when tied."""
+        p = self._params(variables)
+        return p["embed"].T if self.cfg.tie_embeddings else p["head"]
+
+    # ----------------------------------------------------------- helpers
+    def _split_heads(self, x: torch.Tensor, heads: int) -> torch.Tensor:
+        b, s, _ = x.shape
+        return x.reshape(b, s, heads, self.head_dim).transpose(1, 2)
+
+    @staticmethod
+    def _dense_ffn(y: torch.Tensor, bp: Dict[str, torch.Tensor]
+                   ) -> torch.Tensor:
+        y = F.gelu(y @ bp["w1"] + bp["b1"], approximate="tanh")
+        return y @ bp["w2"] + bp["b2"]
+
+    # ------------------------------------------------------- paged KV
+    def init_block_pool(self, num_blocks: int, block_size: int,
+                        dtype: torch.dtype = torch.float32) -> Pools:
+        """Per-layer paged KV pools on the model's device: a tuple of L
+        dicts {'k', 'v'}, each (num_blocks, H, block_size, D). Block 0
+        is the reserved scratch block (ops/kv_cache.py)."""
+        c = self.cfg
+        return tuple(
+            dict(zip(("k", "v"), init_block_pool(
+                num_blocks, c.num_heads, block_size, self.head_dim,
+                dtype, self.device)))
+            for _ in range(c.num_layers))
+
+    def prefill_paged(self, variables: Dict[str, Any],
+                      tokens: torch.Tensor, pools: Pools,
+                      table: torch.Tensor, block_ids: torch.Tensor,
+                      start: int) -> Pools:
+        """Prefill ONE request's suffix into the paged pools, in place:
+        tokens (1, bucket) right-padded suffix at global positions
+        [start, start + bucket); `table` (1, max_blocks) the slot's
+        whole block table (reused prefix blocks, then the fresh
+        `block_ids` (nb,) this call writes); `start` the block-aligned
+        cached-prefix length (0 = cold). Returns the pools; the engine
+        takes the first token by re-decoding the last prompt token, so
+        no head runs here.
+
+        Suffix queries attend through the gathered table over the FULL
+        table extent with mask j <= start + i, so the written KV is
+        bitwise the same whether a position is computed cold or warm
+        (ops/kv_cache.py)."""
+        p = self._params(variables)
+        bsz, s = tokens.shape
+        if bsz != 1:
+            raise ValueError("prefill_paged fills one request (batch "
+                             f"1), got batch {bsz}")
+        start = int(start)
+        if start < 0 or start + s > self.cfg.max_len:
+            raise ValueError(f"positions [{start}, {start + s}) exceed "
+                             f"the positional table ({self.cfg.max_len})")
+        d = self.head_dim
+        dev = tokens.device
+        x = p["embed"][tokens.long()] + p["pos"][start:start + s]
+        bs = pools[0]["k"].shape[2]
+        jpos = torch.arange(table.shape[1] * bs, device=dev)
+        ipos = start + torch.arange(s, device=dev)
+        visible = jpos[None, None, :] <= ipos[None, :, None]  # (1, s, S)
+        valid = jpos[None, :] < start + s                     # (1, S)
+        for bp, pl in zip(self._layer_blocks(p), pools):
+            h = bp["wq"].shape[-1] // d
+            y = layer_norm(x, bp["ln1_g"], bp["ln1_b"])
+            q = self._split_heads(y @ bp["wq"] + bp["bq"], h)
+            k = self._split_heads(y @ bp["wk"] + bp["bk"], h)
+            v = self._split_heads(y @ bp["wv"] + bp["bv"], h)
+            write_prompt_blocks(pl["k"], pl["v"], k, v, block_ids)
+            kc = gather_block_cache(pl["k"], table)     # (1, H, S, D)
+            vc = gather_block_cache(pl["v"], table)
+            a = block_attention(q, kc, vc, visible, valid)
+            a = a.transpose(1, 2).reshape(bsz, s, h * d)
+            x = x + a @ bp["wo"] + bp["bo"]
+            x = x + self._dense_ffn(
+                layer_norm(x, bp["ln2_g"], bp["ln2_b"]), bp)
+        return pools
+
+    def decode_step_paged(self, variables: Dict[str, Any],
+                          tokens: torch.Tensor, pos: torch.Tensor,
+                          pools: Pools, table: torch.Tensor,
+                          attn_impl: Optional[str] = None
+                          ) -> Tuple[torch.Tensor, Pools]:
+        """One incremental step over the paged pools: tokens (B,) the
+        current token per row, written at the row clocks pos (B,)
+        int32, i.e. at (table[pos // bs], pos % bs) — always an
+        exclusive block (copy-on-write) — then attended through the
+        table. Returns (logits (B, V) for the NEXT token, pools), the
+        pools updated in place. Every op is per row, so a non-finite
+        row contaminates only its own logits and its own blocks.
+
+        `attn_impl` selects the decode attention
+        (ops/paged_decode.py): None → the CUDA kernel for CUDA
+        tensors, the plain version for CPU tensors; "cuda" or
+        "torch" explicitly."""
+        p = self._params(variables)
+        bsz = tokens.shape[0]
+        d = self.head_dim
+        bs = pools[0]["k"].shape[2]
+        pos_l = pos.long()
+        rows = torch.arange(bsz, device=tokens.device)
+        block_ids = table.long()[rows, pos_l // bs]          # (B,)
+        offsets = pos_l % bs
+        x = p["embed"][tokens.long()] + p["pos"][pos_l]      # (B, E)
+        for bp, pl in zip(self._layer_blocks(p), pools):
+            h = bp["wq"].shape[-1] // d
+            y = layer_norm(x, bp["ln1_g"], bp["ln1_b"])[:, None, :]
+            q = self._split_heads(y @ bp["wq"] + bp["bq"], h)  # (B,h,1,D)
+            k = self._split_heads(y @ bp["wk"] + bp["bk"], h)
+            v = self._split_heads(y @ bp["wv"] + bp["bv"], h)
+            write_decode_blocks(pl["k"], pl["v"], k, v, block_ids,
+                                offsets)
+            a = paged_decode_attention(q.contiguous(), pl["k"], pl["v"],
+                                       table, pos, impl=attn_impl)
+            a = a.reshape(bsz, h * d)
+            x = x + a @ bp["wo"] + bp["bo"]
+            x = x + self._dense_ffn(
+                layer_norm(x, bp["ln2_g"], bp["ln2_b"]), bp)
+        hid = layer_norm(x, p["lnf_g"], p["lnf_b"])
+        return hid @ self.head(p), pools

@@ -1,0 +1,3 @@
+"""Tensor ops and hand-written CUDA kernels of the port (counterpart:
+bigdl_tpu/ops/). Kernel sources live in `csrc/` and build at first use
+(`_build.py`), never at import."""

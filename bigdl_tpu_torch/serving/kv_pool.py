@@ -1,0 +1,160 @@
+"""Host-side block accounting for the paged KV cache — a copy of
+bigdl_tpu/serving/kv_pool.py (pure Python and numpy; the port keeps its
+own copy because it imports nothing of the JAX package). The notes
+below are the original's; the device half lives in the port's
+ops/kv_cache.py.
+
+No reference counterpart: the reference's serving surface is batch
+Predictor.scala. This is the allocator half of the paged-cache spine —
+the DEVICE half (the per-layer `(num_blocks, H, block_size, D)` pools
+and the block-table gather/scatter ops) lives in ops/kv_cache.py; the
+content-addressed reuse half (the radix tree that decides WHICH blocks
+a new prompt can share) lives in serving/prefix_cache.py. This module
+only moves integers:
+
+* a free list (block 0 is reserved as the device scratch block and is
+  never handed out);
+* per-block ref-counts — one ref per ACTIVE request using the block
+  (a freshly allocated block starts at 1; a prefix hit bumps every
+  shared block; copy-on-write discipline is the engine's: a request
+  only ever WRITES blocks it allocated itself, so refcount > 1 implies
+  read-only);
+* the "cached" state: a block whose refcount dropped to 0 but whose
+  content is still registered in the prefix tree stays OUT of the free
+  list — it costs nothing to keep and may save a whole prefill. Under
+  pool pressure the prefix tree evicts its LRU leaves back to the free
+  list (RadixPrefixCache.evict_one).
+
+Everything here is deterministic: the free list is LIFO over an
+initially ascending range, eviction order comes from the tree's
+logical-clock stamps, and no wall clock or RNG is consulted — the
+serve_prefix drill replays bit-identically.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Iterable, List, Optional
+
+import numpy as np
+
+
+class BlockPool:
+    """Integer bookkeeping for one engine's paged KV pool.
+
+    `num_blocks` INCLUDES the reserved scratch block 0, matching the
+    device pools' leading dimension; `capacity` (= num_blocks - 1) is
+    what traffic can actually use."""
+
+    def __init__(self, num_blocks: int, block_size: int):
+        if num_blocks < 2:
+            raise ValueError("num_blocks must be >= 2 (block 0 is the "
+                             "reserved scratch block)")
+        if block_size < 2:
+            # Q=1 gemms lower to different kernels than Q>=2 on some
+            # backends (ops/kv_cache.py bit-identity contract): a
+            # 1-token block would let a 1-token suffix prefill violate
+            # the extent-invariance the prefix cache relies on
+            raise ValueError("block_size must be >= 2")
+        self.num_blocks = num_blocks
+        self.block_size = block_size
+        self._ref = np.zeros(num_blocks, np.int32)
+        # LIFO free list over an ascending range: pop() yields
+        # 1, 2, 3, ... — fully deterministic allocation order
+        self._free: List[int] = list(range(num_blocks - 1, 0, -1))
+        self._cached: set = set()   # refcount-0 blocks the tree owns
+        # blocks with ref > 0 whose content the tree ALSO knows
+        # (inserted at prefill while the prefiller still held them)
+        self._tree_refd: set = set()
+
+    # ------------------------------------------------------------ views
+    @property
+    def capacity(self) -> int:
+        return self.num_blocks - 1
+
+    @property
+    def free_count(self) -> int:
+        return len(self._free)
+
+    @property
+    def active_count(self) -> int:
+        """Blocks referenced by at least one live request."""
+        return self.capacity - len(self._free) - len(self._cached)
+
+    @property
+    def cached_count(self) -> int:
+        return len(self._cached)
+
+    def refcount(self, block: int) -> int:
+        return int(self._ref[block])
+
+    def in_tree(self, block: int) -> bool:
+        """True if the prefix tree holds this block's content (whether
+        or not a request is also using it right now)."""
+        return block in self._cached or block in self._tree_refd
+
+    def stats(self) -> Dict[str, int]:
+        return {"total": self.capacity, "free": self.free_count,
+                "active": self.active_count,
+                "cached": self.cached_count}
+
+    # ------------------------------------------------------- lifecycle
+    def alloc(self, n: int) -> Optional[List[int]]:
+        """Take `n` blocks off the free list at refcount 1, or None if
+        the free list is short (the caller evicts prefix-tree LRU
+        leaves and retries, or backs off)."""
+        if n < 0:
+            raise ValueError("alloc of negative block count")
+        if len(self._free) < n:
+            return None
+        ids = [self._free.pop() for _ in range(n)]
+        self._ref[ids] = 1
+        return ids
+
+    def ref(self, blocks: Iterable[int]) -> None:
+        """Bump live refs on shared (prefix-hit) blocks; a cached
+        refcount-0 block comes back to life without touching the
+        device pool."""
+        for b in blocks:
+            if self._ref[b] == 0:
+                self._cached.discard(b)
+                self._tree_refd.add(b)
+            self._ref[b] += 1
+
+    def unref(self, blocks: Iterable[int]) -> List[int]:
+        """Drop one ref per block. A block reaching 0 either parks as
+        "cached" (the prefix tree owns its content) or returns to the
+        free list; returns the ids that were actually FREED (the
+        caller scrubs poisoned content among them)."""
+        freed: List[int] = []
+        for b in blocks:
+            if self._ref[b] <= 0:
+                raise ValueError(f"unref of unreferenced block {b}")
+            self._ref[b] -= 1
+            if self._ref[b] == 0:
+                if b in self._tree_refd:
+                    self._tree_refd.discard(b)
+                    self._cached.add(b)
+                else:
+                    self._free.append(b)
+                    freed.append(b)
+        return freed
+
+    def mark_cached(self, block: int) -> None:
+        """Prefix-tree insert: this (currently ref'd) block's content
+        is now addressable by token prefix — when its refs drop it
+        parks instead of freeing."""
+        if self._ref[block] <= 0:
+            raise ValueError(f"mark_cached on unreferenced block "
+                             f"{block} (insert happens at prefill, "
+                             "while the prefiller still holds it)")
+        self._tree_refd.add(block)
+
+    def release_cached(self, block: int) -> None:
+        """Prefix-tree eviction (or forget): the tree no longer claims
+        this block. A parked block returns to the free list; a block
+        still ref'd by live requests just loses its parking claim."""
+        if block in self._cached:
+            self._cached.discard(block)
+            self._free.append(block)
+        else:
+            self._tree_refd.discard(block)

@@ -1,0 +1,382 @@
+"""Content-hashed radix prefix cache over paged KV blocks — a copy of
+bigdl_tpu/serving/prefix_cache.py over the port's serving/kv_pool.py
+(pure Python; the port imports nothing of the JAX package). The host
+spill tier below comes along with the copy; the port's engine does not
+use it yet. The notes are the original's.
+
+No reference counterpart: BigDL 2.0's Cluster Serving (arXiv
+2204.01715) argues the serving win at scale comes from reusing work
+across the request stream; the original paper's "data stays put,
+compute moves" principle (arXiv 1804.05839) maps onto KV blocks —
+keep computed KV resident, route new requests to it. This module is
+the routing table: a radix tree whose edges are BLOCK-ALIGNED token
+chunks (`block_size` tokens each, addressed by a rolling content hash
+with exact-token verification, so hash collisions cannot alias two
+prompts) and whose nodes each own one pool block of already-computed
+KV.
+
+Contracts (the engine relies on all three):
+
+* **Match is capped by the caller** at `(len(prompt) - 1) //
+  block_size` full blocks — the re-decoded last prompt token, and
+  everything generated after it, must land in an exclusive block
+  (copy-on-write; see ops/kv_cache.py on why decode-written positions
+  are never shareable bitwise).
+* **Insert happens at prefill time** with the prefiller still holding
+  a ref on every inserted block, so a tree node's block can never be
+  on the free list; the tree marks them `cached` in the BlockPool and
+  from then on owns their refcount-0 parking.
+* **Eviction is LRU over refcount-0 LEAVES only** — interior nodes
+  wait for their subtree, so a cached chain never dangles. Order is a
+  logical clock (no wall time), making eviction bit-deterministic
+  (graftlint nondeterministic-drill clean by construction).
+
+Host-RAM spill tier: with `host_blocks > 0` the tree spans
+TWO tiers. A node either owns a device pool block (`block` set,
+registered in `_by_block`) or parks its block's BYTES in host numpy
+arrays (`host` set, `block` None — the HandoffPackage per-layer
+{'k','v'} layout, one (H, block_size, D) row per array). Spilled
+blocks are bytes, never recomputation, so the warm==cold bit-identity
+contract extends verbatim across a spill/re-admit round trip. The LRU
+ordering is ONE logical clock spanning both tiers: under pool
+pressure the engine spills the LRU refcount-0 DEVICE node to host
+(device evicts to host — the node stays in the tree, so mid-chain
+nodes are fair game), and a full host tier evicts its LRU CHILDLESS
+node to oblivion (host evicts to oblivion — childless-only, because a
+detached interior node would orphan its subtree). Re-admission on a
+prefix hit (`readmit`) is pure placement: a fresh device block plus a
+host→device transfer the ENGINE performs — this module never touches
+the device (all methods stay pure host bookkeeping).
+"""
+
+from __future__ import annotations
+
+import itertools
+from typing import Dict, List, Optional, Sequence, Tuple
+
+from bigdl_tpu_torch.serving.kv_pool import BlockPool
+
+# rolling polynomial hash over a block's token ids — cheap, stable
+# across processes (no PYTHONHASHSEED dependence), collision-checked
+# against the stored tokens on every hit
+_HASH_BASE = 1_000_003
+_HASH_MOD = (1 << 61) - 1
+
+
+def chunk_hash(tokens: Sequence[int], prev: int = 0) -> int:
+    """Rolling content hash of one block-aligned chunk, chained on the
+    parent's hash so equal chunks under different prefixes never
+    collide structurally."""
+    h = prev
+    for t in tokens:
+        h = (h * _HASH_BASE + int(t) + 1) % _HASH_MOD
+    return h
+
+
+class _Node:
+    __slots__ = ("tokens", "hash", "block", "parent", "children",
+                 "stamp", "host")
+
+    def __init__(self, tokens: Tuple[int, ...], h: int,
+                 block: Optional[int],
+                 parent: Optional["_Node"]):
+        self.tokens = tokens
+        self.hash = h
+        self.block = block          # device pool block id, or None
+        self.parent = parent
+        self.children: Dict[int, "_Node"] = {}
+        self.stamp = 0
+        # host-tier payload: the block's bytes in the
+        # HandoffPackage per-layer {'k','v'} layout — set exactly when
+        # `block` is None
+        self.host = None
+
+
+class RadixPrefixCache:
+    """Radix tree over block-aligned token prefixes → pool blocks.
+
+    All methods are pure host bookkeeping — no device work, no wall
+    clock, no RNG (hot-path names lookup/insert/evict are pinned
+    sync-free by graftlint hidden-device-sync)."""
+
+    def __init__(self, pool: BlockPool, host_blocks: int = 0):
+        self.pool = pool
+        self.block_size = pool.block_size
+        # host-tier capacity in blocks: 0 disables the
+        # spill tier entirely — a CONSTRUCTOR arg via the engine's
+        # `host_blocks=`, never env (graftlint trace-env-read)
+        self.host_blocks = int(host_blocks)
+        self._root = _Node((), 0, 0, None)
+        self._clock = itertools.count(1)
+        self._by_block: Dict[int, _Node] = {}
+        # host-tier nodes by identity; insertion-ordered dict, so
+        # LRU tie-breaks are deterministic (like _by_block's scan)
+        self._host: Dict[int, _Node] = {}
+
+    # ------------------------------------------------------------ views
+    @property
+    def num_blocks(self) -> int:
+        """Device blocks currently addressable through the tree."""
+        return len(self._by_block)
+
+    @property
+    def host_in_use(self) -> int:
+        """Host-tier blocks currently parked."""
+        return len(self._host)
+
+    # ----------------------------------------------------------- lookup
+    def _walk(self, tokens: Sequence[int], max_blocks: int
+              ) -> List[_Node]:
+        """Longest cached block-aligned prefix chain of `tokens` —
+        root-first nodes from EITHER tier, at most `max_blocks` (the
+        caller's COW cap). Pure read: no stamps touched."""
+        bs = self.block_size
+        out: List[_Node] = []
+        node = self._root
+        for i in range(max_blocks):
+            chunk = tuple(int(t) for t in tokens[i * bs:(i + 1) * bs])
+            if len(chunk) < bs:
+                break
+            h = chunk_hash(chunk, node.hash)
+            child = node.children.get(h)
+            if child is None or child.tokens != chunk:
+                break                      # miss (or hash collision)
+            out.append(child)
+            node = child
+        return out
+
+    def lookup_nodes(self, tokens: Sequence[int], max_blocks: int
+                     ) -> List[_Node]:
+        """Longest cached block-aligned prefix of `tokens` as NODES
+        (both tiers — a host-tier node carries bytes, not a device
+        block), at most `max_blocks` (the caller's COW cap), root
+        first, LRU-touching the matched chain. Does NOT take refs or
+        re-admit — the engine commits exactly the chain it keeps
+        (after its bucket/table feasibility trim) via its
+        _readmit_chain."""
+        out = self._walk(tokens, max_blocks)
+        node = out[-1] if out else self._root
+        stamp = next(self._clock)
+        n = node
+        while n is not self._root:          # touch leaf→root; one
+            n.stamp = stamp                 # stamp per lookup keeps
+            n = n.parent                    # eviction order stable
+        return out
+
+    def lookup(self, tokens: Sequence[int], max_blocks: int
+               ) -> List[int]:
+        """Device-resident block ids of the matched prefix — the
+        pre-spill-tier surface: the chain STOPS at the first host-tier
+        node (a block id cannot name parked bytes). Tier-aware callers
+        use lookup_nodes."""
+        out: List[int] = []
+        for n in self.lookup_nodes(tokens, max_blocks):
+            if n.block is None:
+                break
+            out.append(n.block)
+        return out
+
+    def peek_blocks(self, tokens: Sequence[int], max_blocks: int
+                    ) -> int:
+        """Matched-prefix length in blocks across BOTH tiers, without
+        touching LRU stamps — the router's affinity probe:
+        probing every engine must not perturb any engine's eviction
+        order."""
+        return len(self._walk(tokens, max_blocks))
+
+    # ----------------------------------------------------------- insert
+    def insert(self, tokens: Sequence[int], blocks: Sequence[int]
+               ) -> List[int]:
+        """Register a just-prefilled prompt's full blocks: `tokens`
+        truncated to len(blocks) * block_size, `blocks` the slot's
+        block-table prefix in position order (shared hit blocks first
+        — those nodes already exist and are skipped — then the fresh
+        ones this prefill wrote). Returns the block ids that became
+        tree-owned NOW (the engine marks them cached in the pool).
+        Idempotent: re-inserting an existing chain is a no-op."""
+        bs = self.block_size
+        owned: List[int] = []
+        node = self._root
+        stamp = next(self._clock)
+        for i, block in enumerate(blocks):
+            chunk = tuple(int(t) for t in tokens[i * bs:(i + 1) * bs])
+            if len(chunk) < bs:
+                break
+            h = chunk_hash(chunk, node.hash)
+            child = node.children.get(h)
+            if child is not None and child.tokens == chunk:
+                # already cached (our own hit blocks, or a racing
+                # identical prompt) — keep the existing owner
+                child.stamp = stamp
+                node = child
+                continue
+            if child is not None:
+                # true hash collision: keep the incumbent, don't
+                # register ours (it stays a plain exclusive block)
+                break
+            child = _Node(chunk, h, int(block), node)
+            child.stamp = stamp
+            node.children[h] = child
+            self._by_block[int(block)] = child
+            owned.append(int(block))
+            node = child
+        return owned
+
+    # ---------------------------------------------------------- evict
+    def evict_one(self) -> Optional[int]:
+        """Evict the least-recently-used refcount-0 LEAF back to the
+        free list; returns its block id (for the caller's counters) or
+        None when nothing is evictable. O(nodes) scan — pools are
+        hundreds of blocks, and eviction only runs under pressure.
+        `node.children` includes host-tier children, so a device node
+        whose subtree spilled is still interior — never detached."""
+        best: Optional[_Node] = None
+        for node in self._by_block.values():
+            if node.children or self.pool.refcount(node.block) > 0:
+                continue
+            if best is None or node.stamp < best.stamp:
+                best = node
+        if best is None:
+            return None
+        self._detach(best)
+        self.pool.release_cached(best.block)
+        return best.block
+
+    # ------------------------------------------------- host tier
+    def spill_victims(self, k: int, protect: frozenset = frozenset()
+                      ) -> List[_Node]:
+        """Up to `k` LRU refcount-0 DEVICE nodes to spill, stamp order
+        (insertion-order tie-break — deterministic). Unlike eviction,
+        spill has NO leaf-only constraint: a spilled node STAYS in the
+        tree (its bytes park on host), so detach safety never applies
+        — and a leaf-only rule would jam the cascade, since a spilled
+        leaf remains a child forever. `protect` excludes the chain an
+        in-flight re-admission holds. Selection only — `park` commits
+        each victim after the engine fetched its bytes."""
+        cands = [(node.stamp, i, node)
+                 for i, node in enumerate(self._by_block.values())
+                 if node not in protect
+                 and self.pool.refcount(node.block) == 0]
+        cands.sort(key=lambda t: t[:2])
+        return [n for _, _, n in cands[:k]]
+
+    def park(self, node: _Node, host_data) -> int:
+        """Move one spill victim to the host tier: its device block
+        returns to the free list, its bytes (`host_data`, already
+        fetched by the engine) park on the node. Returns the freed
+        device block id."""
+        block = node.block
+        del self._by_block[block]
+        self.pool.release_cached(block)
+        node.block = None
+        node.host = host_data
+        self._host[id(node)] = node
+        return block
+
+    def evict_host_one(self, protect: frozenset = frozenset()
+                       ) -> bool:
+        """Evict the LRU CHILDLESS host-tier node to oblivion
+        (childless-only: detaching an interior node would orphan its
+        subtree — progress is still guaranteed, because the deepest
+        node of any chain is childless and lives in one tier or the
+        other). False when no host node is evictable."""
+        best: Optional[_Node] = None
+        for node in self._host.values():
+            if node.children or node in protect:
+                continue
+            if best is None or node.stamp < best.stamp:
+                best = node
+        if best is None:
+            return False
+        self._detach(best)
+        return True
+
+    def readmit(self, node: _Node, block: int):
+        """Re-admission bookkeeping for a host-tier node granted a
+        fresh device block: returns the parked bytes (the ENGINE
+        scatters them — placement, not compute) and moves the node
+        back to the device tier. The caller already holds the block at
+        refcount 1 and marks it cached."""
+        data = node.host
+        node.host = None
+        node.block = int(block)
+        del self._host[id(node)]
+        self._by_block[node.block] = node
+        return data
+
+    # ------------------------------------------------ migration
+    def export_entries(self) -> List[Tuple[List[int], _Node]]:
+        """Every tree node with the full prefix tokens from the root,
+        parents before children (preorder over insertion-ordered
+        children — deterministic). Content is immutable once inserted
+        (the COW discipline: tree blocks are never written after
+        prefill), so export is safe regardless of refcounts."""
+        out: List[Tuple[List[int], _Node]] = []
+
+        def walk(node: _Node, toks: List[int]) -> None:
+            for child in node.children.values():
+                ctoks = toks + list(child.tokens)
+                out.append((ctoks, child))
+                walk(child, ctoks)
+
+        walk(self._root, [])
+        return out
+
+    def graft_host(self, tokens: Sequence[int], host_data) -> bool:
+        """Seed one migrated chain node into THIS tree's host tier:
+        `tokens` is the full prefix from the root (a whole number of
+        chunks; the last chunk is the node being grafted), `host_data`
+        its block's bytes. Ancestors must already exist (import
+        parents first — export_entries orders them so); an incumbent
+        at the graft point keeps its content. Host capacity applies —
+        the LRU childless host node makes room, and the graft fails
+        (False) when the tier cannot fit it."""
+        bs = self.block_size
+        if self.host_blocks <= 0 or len(tokens) % bs:
+            return False
+        node = self._root
+        n_chunks = len(tokens) // bs
+        for i in range(n_chunks - 1):
+            chunk = tuple(int(t) for t in tokens[i * bs:(i + 1) * bs])
+            h = chunk_hash(chunk, node.hash)
+            child = node.children.get(h)
+            if child is None or child.tokens != chunk:
+                return False               # orphaned entry: parent gone
+            node = child
+        chunk = tuple(int(t)
+                      for t in tokens[(n_chunks - 1) * bs:
+                                      n_chunks * bs])
+        h = chunk_hash(chunk, node.hash)
+        if h in node.children:
+            return False                   # incumbent wins (or collision)
+        while len(self._host) >= self.host_blocks:
+            if not self.evict_host_one():
+                return False
+        child = _Node(chunk, h, None, node)
+        child.host = host_data
+        child.stamp = next(self._clock)
+        node.children[h] = child
+        self._host[id(child)] = child
+        return True
+
+    def forget_block(self, block: int) -> bool:
+        """Drop one block's node from the tree if it is a LEAF (the
+        poisoned-eviction hygiene path: the engine forgets a poisoned
+        request's exclusive tree nodes before scrubbing them — and,
+        per the drill contract, never touches a shared refcount>1
+        block, which by definition has live users and simply keeps
+        its node). Returns True if the node was removed."""
+        node = self._by_block.get(block)
+        if node is None or node.children:
+            return False
+        self._detach(node)
+        self.pool.release_cached(block)
+        return True
+
+    def _detach(self, node: _Node) -> None:
+        del node.parent.children[node.hash]
+        if node.block is not None:
+            del self._by_block[node.block]
+        else:
+            del self._host[id(node)]
+            node.host = None

@@ -1,0 +1,51 @@
+"""The PyTorch port stands alone: no file under bigdl_tpu_torch/, and not
+chip_smoke.py, imports `jax` or the JAX package `bigdl_tpu` (static
+AST scan), and importing the port's modules loads neither (a fresh
+interpreter)."""
+
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT_FILES = sorted((ROOT / "bigdl_tpu_torch").rglob("*.py")) \
+    + [ROOT / "chip_smoke.py"]
+BANNED = ("jax", "jaxlib", "bigdl_tpu")
+
+
+def _imported(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+def test_port_files_exist():
+    assert len(PORT_FILES) > 10
+    assert all(p.exists() for p in PORT_FILES)
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_imports(path):
+    bad = [m for m in _imported(path)
+           if m.split(".")[0] in BANNED]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_port_import_loads_no_jax():
+    code = ("import sys, bigdl_tpu_torch.serving, "
+            "bigdl_tpu_torch.models.transformer, "
+            "bigdl_tpu_torch.models.convert, "
+            "bigdl_tpu_torch.ops.paged_decode; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            f"{BANNED!r}]; "
+            "assert not bad, bad")
+    subprocess.run([sys.executable, "-c", code], check=True, cwd=ROOT,
+                   timeout=120)
