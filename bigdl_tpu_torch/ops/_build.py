@@ -19,7 +19,6 @@ import os
 import shutil
 import subprocess
 import threading
-import time
 from pathlib import Path
 from typing import Dict, Sequence
 
@@ -28,11 +27,9 @@ BUILD_DIR = Path(__file__).resolve().parent / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# name → loaded library, and name → nvcc/ptxas report and build seconds
-# (0.0 when an up-to-date library was found on disk)
+# name → loaded library, and name → nvcc/ptxas report of its build
 _LIBS: Dict[str, ctypes.CDLL] = {}
 BUILD_LOG: Dict[str, str] = {}
-BUILD_SECONDS: Dict[str, float] = {}
 _LOCK = threading.Lock()
 
 
@@ -65,11 +62,9 @@ def build(names: Sequence[str]) -> Dict[str, ctypes.CDLL]:
     with _LOCK:
         todo = [n for n in names if n not in _LIBS]
         procs = {}
-        t0 = time.perf_counter()
         for name in todo:
             so = _target(name)
             if so.exists():
-                BUILD_SECONDS[name] = 0.0
                 continue
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             tmp = so.with_suffix(f".{os.getpid()}.tmp")
@@ -82,7 +77,6 @@ def build(names: Sequence[str]) -> Dict[str, ctypes.CDLL]:
         for name, (proc, tmp, so) in procs.items():
             log, _ = proc.communicate()
             BUILD_LOG[name] = log
-            BUILD_SECONDS[name] = time.perf_counter() - t0
             if proc.returncode != 0:
                 failed.append(f"{name}: nvcc exited {proc.returncode}\n"
                               f"{log}")

@@ -33,7 +33,7 @@ from bigdl_tpu_torch.ops.kv_cache import paged_attention
 IMPLS = ("cuda", "torch")
 # shared memory one CTA may use on Hopper (227 KB, opt-in above 48 KB)
 MAX_SHARED_BYTES = 232448
-_WARPS = 4                     # csrc/paged_decode.cu kWarps
+_WARPS = 16                    # csrc/paged_decode.cu kWarps
 
 launches = 0
 
@@ -52,7 +52,8 @@ def _lib() -> ctypes.CDLL:
 
 def shared_bytes(num_blocks: int, block_size: int, head_dim: int) -> int:
     """Dynamic shared memory one CTA of the kernel takes."""
-    return 4 * (_WARPS + _WARPS * head_dim + num_blocks * block_size)
+    return 4 * (_WARPS + _WARPS * head_dim + num_blocks * block_size
+                + num_blocks)
 
 
 def _check(q, k_pool, v_pool, table, pos) -> None:

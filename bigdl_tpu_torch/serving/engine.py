@@ -45,8 +45,9 @@ this engine's decode steps made.
 Not in this slice (later ones, see ROADMAP.md): the step watchdog and
 retries, deadlines and cancellation, the shed overload policies, the
 host spill tier, disaggregated prefill (`role`) and handoff, tensor
-parallelism, int8 weights, tenancy quotas, telemetry events and
-metrics, and weight hot-swap.
+parallelism, int8 weights and bf16 caches, a cache shorter than the
+positional table, switching the prefix cache off, tenancy quotas,
+telemetry events and metrics, and weight hot-swap.
 """
 
 from __future__ import annotations
@@ -68,13 +69,13 @@ from bigdl_tpu_torch.serving.sampler import row_generator, sample_logits
 from bigdl_tpu_torch.utils.anomaly import rows_finite
 from bigdl_tpu_torch.utils.device import DeviceLike, resolve_device
 
-# terminal request statuses (GenerationResult.status)
-STATUSES = ("done", "poisoned")
-OVERLOAD_POLICIES = ("reject",)
+# admissions a request may fail for want of pool blocks before it
+# finishes 'pool_exhausted' instead of cycling through the queue forever
+ADMIT_REQUEUE_BUDGET = 64
 
 
 class OverloadError(RuntimeError):
-    """submit() with a full queue under overload_policy='reject'."""
+    """submit() with `max_queue` requests already queued."""
 
 
 @dataclass
@@ -116,22 +117,17 @@ class InferenceEngine:
     the plain path on the host); it must be the model's device.
     `attn_impl`: None → "cuda" on a CUDA device, "torch" on the CPU.
     Paged-cache knobs as in the JAX engine: `block_size` (>= 2; the
-    cache length must divide by it), `pool_blocks` (including the
-    scratch block 0; default slots * cache_len // block_size + 1),
-    `prefix_cache` (False: every admission prefills cold).
+    model's max_len must divide by it), `pool_blocks` (including the
+    scratch block 0; default slots * max_len // block_size + 1). The
+    cache is fp32 and spans the model's whole positional table.
     `max_queue` bounds the queue; a submission beyond it raises
-    OverloadError (`overload_policy="reject"`)."""
+    OverloadError (the JAX engine's overload_policy='reject')."""
 
     def __init__(self, model, variables: Dict[str, Any], slots: int = 4,
-                 max_len: Optional[int] = None,
                  prefill_buckets: Optional[Sequence[int]] = None,
-                 cache_dtype: torch.dtype = torch.float32,
                  block_size: int = 16,
                  pool_blocks: Optional[int] = None,
-                 prefix_cache: bool = True,
-                 admit_requeue_budget: int = 64,
                  max_queue: Optional[int] = None,
-                 overload_policy: str = "reject",
                  attn_impl: Optional[str] = None,
                  device: DeviceLike = None):
         self.device = resolve_device(device)
@@ -149,11 +145,7 @@ class InferenceEngine:
         self.model = model
         self._params = model.serving_params(variables)
         self.slots = slots
-        self.cache_len = max_len if max_len is not None \
-            else model.cfg.max_len
-        if self.cache_len > model.cfg.max_len:
-            raise ValueError(f"cache length {self.cache_len} exceeds the "
-                             f"positional table {model.cfg.max_len}")
+        self.cache_len = model.cfg.max_len
         if block_size < 2:
             raise ValueError("block_size must be >= 2 (a 1-token suffix "
                              "prefill would break warm == cold)")
@@ -170,14 +162,8 @@ class InferenceEngine:
                 f"full-length sequence ({self.blocks_per_slot} blocks "
                 "+ scratch)")
         self.pool_blocks = pool_blocks
-        self.prefix_cache_enabled = bool(prefix_cache)
-        if admit_requeue_budget < 1:
-            raise ValueError("admit_requeue_budget must be >= 1")
-        self.admit_requeue_budget = admit_requeue_budget
         self._admit_fails: Dict[int, int] = {}
-        self.cache_dtype = cache_dtype
-        self.pool = model.init_block_pool(pool_blocks, block_size,
-                                          cache_dtype)
+        self.pool = model.init_block_pool(pool_blocks, block_size)
         self._pool_mgr = BlockPool(pool_blocks, block_size)
         self._prefix = RadixPrefixCache(self._pool_mgr)
         self.buckets = tuple(sorted(
@@ -186,14 +172,9 @@ class InferenceEngine:
         if max(self.buckets) > self.cache_len:
             raise ValueError(f"bucket {max(self.buckets)} exceeds cache "
                              f"length {self.cache_len}")
-        if overload_policy not in OVERLOAD_POLICIES:
-            raise NotImplementedError(
-                f"overload_policy {overload_policy!r}: only 'reject' is "
-                "ported so far")
         if max_queue is not None and max_queue < 1:
             raise ValueError("max_queue must be >= 1 (or None)")
         self.max_queue = max_queue
-        self.overload_policy = overload_policy
         self._stats: Dict[str, int] = {
             "prefill_calls": 0, "decode_steps": 0, "requests_done": 0,
             "rejected": 0, "poisoned": 0, "prefix_hits": 0,
@@ -253,7 +234,7 @@ class InferenceEngine:
             self._stats["rejected"] += 1
             raise OverloadError(
                 f"queue full ({self.max_queue}); request {request.id} "
-                "rejected (overload_policy='reject')")
+                "rejected")
         self._queue.append(request)
         return request.id
 
@@ -287,7 +268,7 @@ class InferenceEngine:
                 # of times — a pool that never frees must not spin the
                 # request through the queue forever
                 fails = self._admit_fails.pop(req.id, 0) + 1
-                if fails > self.admit_requeue_budget:
+                if fails > ADMIT_REQUEUE_BUDGET:
                     self._stats["admit_requeue_exhausted"] += 1
                     self._stats["requests_done"] += 1
                     self.completed[req.id] = GenerationResult(
@@ -305,15 +286,13 @@ class InferenceEngine:
         prompt = list(req.prompt)
         n = len(prompt)
         bs = self.block_size
-        hit: List[int] = []
-        if self.prefix_cache_enabled:
-            # reuse at most the full blocks strictly before the
-            # re-decoded last prompt token (copy-on-write cap)
-            hit = self._prefix.lookup(prompt, (n - 1) // bs)
-            # the suffix bucket must fit the table
-            while hit and len(hit) * bs + bucket_for(
-                    n - len(hit) * bs, self.buckets) > self.cache_len:
-                hit.pop()
+        # reuse at most the full blocks strictly before the re-decoded
+        # last prompt token (copy-on-write cap)
+        hit = self._prefix.lookup(prompt, (n - 1) // bs)
+        # the suffix bucket must fit the table
+        while hit and len(hit) * bs + bucket_for(
+                n - len(hit) * bs, self.buckets) > self.cache_len:
+            hit.pop()
         start = len(hit) * bs
         suffix = prompt[start:]
         b = bucket_for(len(suffix), self.buckets)
@@ -339,16 +318,15 @@ class InferenceEngine:
             self._stats["prefix_hits"] += 1
             self._stats["prefix_blocks_reused"] += len(hit)
             self._stats["prefix_tokens_saved"] += start
-        if self.prefix_cache_enabled:
-            # the prompt's full blocks before the cap become cacheable
-            # now: their content is written (later readers run after
-            # this prefill on the same stream); the hit chain is skipped
-            cap_blocks = (n - 1) // bs
-            if cap_blocks:
-                owned = self._prefix.insert(
-                    prompt, [int(x) for x in row[:cap_blocks]])
-                for bid in owned:
-                    self._pool_mgr.mark_cached(bid)
+        # the prompt's full blocks before the cap become cacheable now:
+        # their content is written (later readers run after this
+        # prefill on the same stream); the hit chain is skipped
+        cap_blocks = (n - 1) // bs
+        if cap_blocks:
+            owned = self._prefix.insert(
+                prompt, [int(x) for x in row[:cap_blocks]])
+            for bid in owned:
+                self._pool_mgr.mark_cached(bid)
         self._req[slot] = req
         self._gen[slot] = []
         self._slot_blocks[slot] = [list(hit), list(new)]

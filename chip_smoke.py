@@ -2,6 +2,7 @@
 """Run the PyTorch/CUDA port's serving path on one NVIDIA GPU and check it.
 
     python3 chip_smoke.py          # from the repository root, one CUDA card
+    python3 chip_smoke.py --profile  # also: where a decode step's time goes
 
 It drives `bigdl_tpu_torch` only (never JAX or the JAX package):
 
@@ -57,6 +58,7 @@ CONTEXT, NEW_TOKENS, SLOTS, BLOCK = 512, 64, 8, 16
 MAX_LEN = CONTEXT + NEW_TOKENS + 8
 MAX_LEN += (-MAX_LEN) % BLOCK                       # 592
 PROMPT_LENS = (CONTEXT, CONTEXT // 2 - 3, CONTEXT - 17, CONTEXT // 3)
+ENGINE_KNOBS = dict(slots=SLOTS, prefill_buckets=(CONTEXT // 2, CONTEXT))
 
 KERNEL_TOL = 2e-5
 LOGIT_TOL = 1e-4
@@ -296,8 +298,7 @@ def phase_engine(model, params):
     from bigdl_tpu_torch.ops import paged_decode
     from bigdl_tpu_torch.serving import InferenceEngine, Request
 
-    knobs = dict(slots=SLOTS, max_len=MAX_LEN,
-                 prefill_buckets=(CONTEXT // 2, CONTEXT))
+    knobs = ENGINE_KNOBS
     eng = InferenceEngine(model, params, **knobs)
     check(eng.attn_impl == "cuda", "engine default attn_impl is not cuda")
     eng.run([Request(**r) for r in _wave(0)])              # warm-up
@@ -355,6 +356,72 @@ def phase_engine(model, params):
     return launches
 
 
+def phase_profile(model, params):
+    """Where a steady decode step's time goes (`--profile` only): 32
+    steps with all 8 slots decoding (no admissions), once timed on the
+    host clock, once under torch.profiler for the device kernel time by
+    kernel. The busy share is device kernel time over the unprofiled
+    wall time of the same kind of window."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from bigdl_tpu_torch.serving import InferenceEngine, Request
+
+    eng = InferenceEngine(model, params, **ENGINE_KNOBS)
+    eng.run([Request(**r) for r in _wave(0)])              # warm-up
+    steps = 32
+
+    def window(seed, prof=None):
+        for r in _wave(seed):
+            eng.submit(Request(**r))
+        for _ in range(4):              # the 8 admissions land in step 1
+            eng.step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if prof is None:
+            for _ in range(steps):
+                eng.step()
+            torch.cuda.synchronize()
+        else:
+            with prof:
+                for _ in range(steps):
+                    eng.step()
+                torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        eng.run()                                         # drain
+        return dt
+
+    wall = window(300)
+    prof = profile(activities=[ProfilerActivity.CPU,
+                               ProfilerActivity.CUDA])
+    wall_prof = window(301, prof)
+    # device-side rows only (kernels, copies): a CPU op's row repeats the
+    # time of the kernels it launched
+    rows = [(e.self_device_time_total, e.count, e.key)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    rows.sort(reverse=True)
+    dev_ms = sum(r[0] for r in rows) / 1e3
+    OUT_DIR.mkdir(exist_ok=True)
+    prof.export_chrome_trace(str(OUT_DIR / "decode_trace.json"))
+    if not rows:
+        emit("profile", steps=steps, wall_ms_per_step=wall / steps * 1e3,
+             device_ms_per_step="not measured")
+        return
+    pd_us = sum(r[0] for r in rows if "paged_decode" in r[2])
+    emit("profile", steps=steps, wall_ms_per_step=wall / steps * 1e3,
+         profiled_wall_ms_per_step=wall_prof / steps * 1e3,
+         device_ms_per_step=dev_ms / steps,
+         device_busy_share=dev_ms / (wall * 1e3),
+         paged_decode_ms_per_step=pd_us / 1e3 / steps,
+         kernels_per_step=sum(r[1] for r in rows) / steps,
+         top=[{"name": k[:80], "calls_per_step": c / steps,
+               "ms_per_step": us / 1e3 / steps}
+              for us, c, k in rows[:10]])
+
+
 def main() -> int:
     import torch
 
@@ -381,6 +448,8 @@ def main() -> int:
     model, params = _model()
     phase_model(model, params)
     launches = phase_engine(model, params)
+    if "--profile" in sys.argv[1:]:
+        phase_profile(model, params)
     fp32 = kern["fp32"]
     kernels = [{
         "name": "paged_decode", "route": "cuda",

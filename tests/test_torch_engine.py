@@ -152,8 +152,6 @@ def test_overload_reject(models):
         eng.submit(Request(prompt=[5, 6]))
     assert eng.stats["rejected"] == 1
     assert len(eng.run()) == 2
-    with pytest.raises(NotImplementedError):
-        _engine(tm, params, overload_policy="shed-oldest")
 
 
 def test_no_device_means_the_gpu(models):

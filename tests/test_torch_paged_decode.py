@@ -138,5 +138,7 @@ def test_import_builds_nothing():
 
 
 def test_shared_memory_estimate_matches_kernel_layout():
-    # 4 reduction slots + 4 partial rows of D + one score per key
-    assert paged_decode.shared_bytes(37, 16, 64) == 4 * (4 + 256 + 592)
+    # 16 reduction slots + 16 partial rows of D + one score per key +
+    # the staged table row
+    assert paged_decode.shared_bytes(37, 16, 64) == \
+        4 * (16 + 16 * 64 + 592 + 37)
