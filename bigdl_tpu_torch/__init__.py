@@ -12,9 +12,16 @@ hand-written Hopper kernel behind an `impl=` switch whose `"torch"`
 value is the plain PyTorch version; on a CPU tensor the switch takes
 the plain version, on a CUDA tensor it launches the kernel or raises.
 
-Ported so far: the serving path of the Transformer-LM — paged KV
-prefill/decode through `serving.InferenceEngine`, with the CUDA
-paged-decode kernel (`ops/csrc/paged_decode.cu`).
+Ported so far, slice by slice:
+
+1. serving — the Transformer-LM's paged KV prefill/decode through
+   `serving.InferenceEngine`, with the CUDA paged-decode kernel
+   (`ops/csrc/paged_decode.cu`);
+2. training — `optim.Optimizer(...).optimize()` (`LocalOptimizer`,
+   SGD/Adam, schedules, triggers, mixed precision) over
+   `dataset.DataSet.array`, with `nn.ChunkedSoftmaxCE` fused into the
+   Transformer-LM (`ops/losses.py`) and flash attention forward and
+   backward in the CUDA kernels of `ops/csrc/flash_attention.cu`.
 """
 
 __version__ = "0.1.0"

@@ -9,7 +9,7 @@ imports JAX: the input is the JAX tree fetched to host arrays.
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict
+from typing import Any, Callable, Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -17,13 +17,48 @@ import torch
 from bigdl_tpu_torch.utils.device import DeviceLike, resolve_device
 
 
-def tree_map(fn: Callable[[Any], Any], tree: Any) -> Any:
-    """Apply `fn` to every leaf of nested dicts/lists/tuples."""
+def tree_map(fn: Callable[..., Any], tree: Any, *rest: Any) -> Any:
+    """Apply `fn` to every leaf of nested dicts/lists/tuples; with more
+    trees of the same structure, to the matching leaves together."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, v) for v in tree)
-    return fn(tree)
+        return type(tree)(tree_map(fn, v, *(r[i] for r in rest))
+                          for i, v in enumerate(tree))
+    return fn(tree, *rest)
+
+
+def tree_leaves_with_path(tree: Any, path: Tuple = ()
+                          ) -> List[Tuple[Tuple, Any]]:
+    """(key path, leaf) pairs in `jax.tree_util`'s order — dict keys
+    sorted — so a flattened port tree lines up with the flattened JAX
+    tree leaf for leaf."""
+    if isinstance(tree, dict):
+        return [pair for k in sorted(tree)
+                for pair in tree_leaves_with_path(tree[k], path + (k,))]
+    if isinstance(tree, (list, tuple)):
+        return [pair for i, v in enumerate(tree)
+                for pair in tree_leaves_with_path(v, path + (i,))]
+    return [(path, tree)]
+
+
+def tree_leaves(tree: Any) -> List[Any]:
+    """The leaves of a tree in `jax.tree_util` order."""
+    return [leaf for _, leaf in tree_leaves_with_path(tree)]
+
+
+def params_to_numpy(tree: Any) -> Any:
+    """The same tree with every tensor leaf as a float32/int host numpy
+    array (bf16 leaves are widened to float32) — the form the JAX
+    package takes, for carrying port weights back and for tests."""
+    def host(t):
+        t = t.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            t = t.float()
+        return t.numpy()
+
+    return tree_map(host, tree)
 
 
 def _to_tensor(a: Any, device: torch.device) -> torch.Tensor:

@@ -1,32 +1,56 @@
 #!/usr/bin/env python3
-"""Run the PyTorch/CUDA port's serving path on one NVIDIA GPU and check it.
+"""Run the PyTorch/CUDA port's serving and training paths on one NVIDIA
+GPU and check them.
 
-    python3 chip_smoke.py          # from the repository root, one CUDA card
-    python3 chip_smoke.py --profile  # also: where a decode step's time goes
+    python3 chip_smoke.py            # from the repository root, one CUDA card
+    python3 chip_smoke.py --profile  # also: where decode and train steps go
 
 It drives `bigdl_tpu_torch` only (never JAX or the JAX package):
 
 1. device — the card's name and `nvidia-smi` name/power limit;
-2. build  — compiles every CUDA kernel of the path from the sources in
-   the checkout (`bigdl_tpu_torch/ops/_build.py`, nvcc for sm_90a);
+2. build  — compiles every CUDA kernel from the sources in the checkout
+   (`bigdl_tpu_torch/ops/_build.py`: one nvcc per source for sm_90a, all
+   started together) and reports ptxas registers/spills;
 3. kernel — the paged-decode kernel against its plain PyTorch version
    at the engine's shape (B=8, H=8, 37 blocks of 16, D=64) with
    shuffled tables, ragged clocks including 0 and S-1 and a NaN
    scratch block 0, for fp32 and bf16 pools (max abs err <= 2e-5);
    each row of a B=8 launch must be BITWISE the same row launched
    alone; times with CUDA events, L2 flushed before each launch;
-4. model  — the 43M Transformer-LM at full width: `decode_step_paged`
+4. flash  — the flash-attention kernels (forward; backward = dk/dv +
+   dq launches) against their plain versions on FLASH_CASES: the
+   training shape (BH=64, S=2048, D=64, causal), a long sequence
+   (BH=8, S=8192), ragged lengths with Sq != Sk and fully masked rows,
+   D = 32/128, no mask, sm_scale = 0; fp32 and bf16; bf16 also element
+   by element (in bf16 ulps) against the plain versions that round
+   where the kernels round, while the same versions without the
+   roundings must fail that check; two backward runs bitwise equal;
+   gradients through both outputs of flash_attention_with_lse, kernels
+   vs plain; kernel, plain and SDPA (library yardstick) times at the
+   first two;
+5. model  — the 43M Transformer-LM at full width: `decode_step_paged`
    through the kernel against the plain version on the same pools and
    tokens for 8 steps (logits max abs diff <= 1e-4);
-5. engine — the main path: `InferenceEngine.run` serves a warm-up wave
-   and then a timed wave of 16 ragged greedy requests (prompts of
+6. engine — the serving path: `InferenceEngine.run` serves a warm-up
+   wave and then a timed wave of 16 ragged greedy requests (prompts of
    512/253/495/170 tokens, 64 new tokens each, 8 slots, prefill buckets
    256/512 — the repository's serving benchmark configuration). The
    kernel's launch count is set to 0 just before the timed wave and
    read just after; it must equal decode steps x layers. Reported, not
    gated: token agreement with a plain-attention engine and whether a
    warm (prefix-cache) admission decodes bitwise like a cold one;
-6. kernels — one JSON line per the port's kernel table.
+7. train_model — one fp32 loss-and-grad step of the 43M LM at B=8,
+   S=2048 through the flash kernels against the same step through the
+   plain versions (|dloss| <= 1e-4, gradients <= 1e-3 relative);
+8. trainer — the training path: `Optimizer(model, DataSet.array(...),
+   nn.ChunkedSoftmaxCE(), batch_size=8).set_optim_method(Adam(3e-4))
+   .set_precision("bf16").optimize()` on the repository's 43M training
+   benchmark configuration (remat "attn_saved", synthetic next-token
+   data). The flash launch counts are set to 0 after 2 warm-up steps
+   and read after 10 timed steps: forward launches == steps x layers,
+   backward == steps x layers x 2; losses finite and falling; train
+   tokens/s, ms a step and the model-flops share;
+9. kernels — one JSON line per the port's kernel table.
 
 Every phase prints one JSON line; any failed check raises and the
 script exits non-zero. The last lines are the `nvidia-smi` name/power
@@ -62,6 +86,60 @@ ENGINE_KNOBS = dict(slots=SLOTS, prefill_buckets=(CONTEXT // 2, CONTEXT))
 
 KERNEL_TOL = 2e-5
 LOGIT_TOL = 1e-4
+
+KERNEL_SOURCES = ("paged_decode", "flash_attention")
+BF16_FLOPS_PER_S = 989e12       # dense tensor-core bf16 peak (data sheet)
+
+# flash-attention cases: (name, BH, Sq, Sk, D, causal, sm_scale or None).
+# "train" is the trainer's shape (B=8 x H=8, S=2048, D=64); "long" a long
+# sequence, the JAX package's split-backward route; the rest ragged
+# lengths (not multiples of the 64-row tile), Sq > Sk with fully masked
+# rows, D = 32/128, no causal mask, and sm_scale == 0.
+FLASH_CASES = (
+    ("train", 64, 2048, 2048, 64, True, None),
+    ("long", 8, 8192, 8192, 64, True, None),
+    ("ragged", 6, 1000, 1500, 128, True, None),
+    ("masked_rows", 4, 1500, 1000, 32, True, None),
+    ("noncausal", 4, 777, 777, 64, False, None),
+    ("zero_scale", 2, 300, 300, 64, True, 0.0),
+)
+FLASH_TIMED = ("train", "long")
+# kernel vs plain: forward out (max abs), lse (fp32, max abs), backward
+# (max abs relative to each gradient's max)
+FLASH_TOL = {"fp32": {"out": 2e-5, "lse": 2e-5, "grad": 1e-4},
+             "bf16": {"out": 2e-2, "lse": 2e-5, "grad": 5e-2}}
+# bf16, element by element: the kernels against the tiled plain versions
+# that round where the kernels round (ops.flash_attention.
+# flash_forward_tiled / flash_backward_tiled, fp32 results). At most
+# BF16_MISMATCH_TOL of the elements may differ from the plain value
+# rounded once to bf16, and every element lies within BF16_ULP_TOL bf16
+# ulps of it. The ulp is that of max(|value|, its row's RMS, 2^-8 of
+# the tensor's RMS): near-zero elements of a row that cancels, and rows
+# that are zero in exact arithmetic (dq of a query that sees one key),
+# are measured on a scale their fp32 noise cannot reach. The ulp limit
+# leaves room for one p or ds that the two fp32 sums round to
+# neighbouring bf16 values: in a row of few terms that moves the result
+# by up to about two ulps. The control is the same plain versions
+# without the roundings: wherever a rounding changes a value (every
+# case but zero_scale) its mismatch share must exceed
+# BF16_MISMATCH_TOL, or the check could not see a rounding left out.
+BF16_ULP_TOL, BF16_MISMATCH_TOL = 4.0, 0.02
+# fp32 gradients through both outputs of flash_attention_with_lse,
+# kernels vs plain, relative to each gradient's max (FLASH_TOL "grad")
+WITH_LSE_CASES = ("ragged", "masked_rows")
+
+# the trainer: the repository's 43M training benchmark configuration
+# (bench.py bench_lm(512, 8, 8, 8, 2048, ..., "43m")) — batch 8 x 2048
+# tokens, remat "attn_saved", Adam(3e-4), ChunkedSoftmaxCE, bf16 compute
+TRAIN_CONFIG = dict(vocab_size=VOCAB, max_len=2048, dim=DIM,
+                    num_heads=HEADS, num_layers=LAYERS, remat=True,
+                    remat_policy="attn_saved")
+TRAIN_BATCH, TRAIN_SEQ = 8, 2048
+TRAIN_WARMUP, TRAIN_STEPS = 2, 10
+# fp32 full-model step, kernels vs plain: |loss diff| and the largest
+# gradient difference relative to that gradient's max
+TRAIN_LOSS_TOL, TRAIN_GRAD_TOL = 1e-4, 1e-3
+TRAIN_GRAD_FLOOR = 1e-3
 
 RESULTS: dict = {}
 
@@ -111,14 +189,14 @@ def phase_build():
     from bigdl_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    _build.build(["paged_decode"])
+    _build.build(KERNEL_SOURCES)             # one nvcc per source, together
     seconds = time.perf_counter() - t0
-    ptxas = [ln.strip() for ln in _build.BUILD_LOG.get("paged_decode",
-                                                       "").splitlines()
-             if "registers" in ln or "spill" in ln]
+    ptxas = {name: [ln.strip() for ln in _build.BUILD_LOG.get(
+        name, "").splitlines() if "registers" in ln or "spill" in ln]
+        for name in KERNEL_SOURCES}
     RESULTS["build_log"] = _build.BUILD_LOG
-    emit("build", seconds=seconds, kernels=["paged_decode"],
-         ptxas_lines=len(ptxas), ptxas_sample=ptxas[:4])
+    emit("build", seconds=seconds, kernels=list(KERNEL_SOURCES),
+         ptxas={name: lines[:8] for name, lines in ptxas.items()})
 
 
 def _decode_case(pool_dtype, dev, B=SLOTS, H=HEADS, nb=MAX_LEN // BLOCK,
@@ -214,6 +292,241 @@ def phase_kernel(flush):
                           "bs": BLOCK, "D": DIM // HEADS},
          tolerance=KERNEL_TOL, **out)
     return out
+
+
+def _visible_pairs(seq_q: int, seq_k: int, causal: bool) -> int:
+    """(query, key) pairs the mask leaves visible, per batch-head."""
+    if not causal:
+        return seq_q * seq_k
+    off = seq_k - seq_q
+    return sum(min(max(i + off + 1, 0), seq_k) for i in range(seq_q))
+
+
+def _flash_bound(bh, seq_q, seq_k, d, causal, itemsize, backward):
+    """Least time for the work: each input read once, each output
+    written once; the products over the visible pairs only (2 flops a
+    multiply-add: QK and PV forward; QK, dO.V, P^T.dO, dS^T.Q and dS.K
+    backward) at the fp32 SIMT peak, or the dense bf16 tensor-core peak
+    for bf16."""
+    rows_q, rows_k = bh * seq_q * d, bh * seq_k * d
+    if backward:   # q, k, v, o, do, lse in; dq, dk, dv out
+        nbytes = (3 * rows_q + 2 * rows_k) * itemsize + bh * seq_q * 4 \
+            + (rows_q + 2 * rows_k) * itemsize
+        flops = 10 * d * bh * _visible_pairs(seq_q, seq_k, causal)
+    else:          # q, k, v in; out, lse out
+        nbytes = (2 * rows_q + 2 * rows_k) * itemsize + bh * seq_q * 4
+        flops = 4 * d * bh * _visible_pairs(seq_q, seq_k, causal)
+    peak = FP32_FLOPS_PER_S if itemsize == 4 else BF16_FLOPS_PER_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "flops": flops}
+
+
+def _rel_err(got, ref) -> float:
+    scale = float(ref.float().abs().max())
+    return float((got.float() - ref.float()).abs().max()) / max(scale,
+                                                                 1e-30)
+
+
+def _ulp_stats(got, ref) -> dict:
+    """got (bf16) against ref (fp32): the largest error in bf16 ulps of
+    max(|ref|, the RMS of ref's row, 2^-8 of ref's RMS), and the share
+    of elements unequal to ref rounded to bf16."""
+    import torch
+
+    r = ref.float()
+    mag = torch.maximum(r.abs(), r.pow(2).mean(-1, keepdim=True).sqrt())
+    mag = torch.maximum(mag, 2.0 ** -8 * r.pow(2).mean().sqrt())
+    ulp = torch.exp2(torch.floor(torch.log2(mag.clamp_min(1e-30))) - 7)
+    return {"max_ulps": float(((got.float() - r).abs() / ulp).max()),
+            "mismatch": float((got != r.to(got.dtype)).float().mean())}
+
+
+def _bf16_rounding(fa, where, q, k, v, o, lse, do, grads, causal, scale,
+                   gate_control: bool) -> dict:
+    """The bf16 kernels' out and dq/dk/dv against the tiled plain
+    versions with the kernels' roundings ("matched") and without them
+    ("control"), on the same inputs (the backward's o and lse are the
+    kernel's)."""
+    res = {}
+    for label, rounded in (("matched", True), ("control", False)):
+        fo, _ = fa.flash_forward_tiled(q, k, v, causal, scale,
+                                       round_operands=rounded)
+        fg = fa.flash_backward_tiled(q, k, v, o, lse, do, causal, scale,
+                                     round_operands=rounded)
+        res[label] = {n: _ulp_stats(a, b) for n, a, b in zip(
+            ("out", "dq", "dk", "dv"), (o, *grads), (fo, *fg))}
+    for n, st in res["matched"].items():
+        check(st["max_ulps"] <= BF16_ULP_TOL,
+              f"{where}: {n} {st['max_ulps']} bf16 ulps from the plain "
+              f"version with the kernel's roundings")
+        check(st["mismatch"] <= BF16_MISMATCH_TOL,
+              f"{where}: {n} differs from the plain version with the "
+              f"kernel's roundings in a share {st['mismatch']}")
+    if gate_control:
+        for names in (("out",), ("dq", "dk", "dv")):
+            worst = max(res["control"][n]["mismatch"] for n in names)
+            check(worst > BF16_MISMATCH_TOL,
+                  f"{where}: the control without the kernel's roundings "
+                  f"passes the mismatch limit ({names}: {worst})")
+    return res
+
+
+def _with_lse_grads(fa, q, k, v, causal, scale) -> dict:
+    """Gradients of a loss on both outputs of flash_attention_with_lse,
+    kernels ("cuda") against the plain path ("torch"), relative to each
+    gradient's max; fully masked rows (LSE -1e30) stay out of the
+    loss."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(11)
+    wo = torch.randn(q.shape, device="cuda", generator=g)
+    wl = torch.randn(q.shape[:2], device="cuda", generator=g)
+    out = {}
+    for impl in ("cuda", "torch"):
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        o, lse = fa.flash_attention_with_lse(*leaves, causal=causal,
+                                             sm_scale=scale, impl=impl)
+        live = torch.where(lse > fa.NEG_INF / 2, lse, 0.0)
+        loss = (o.float() * wo).sum() + (live * wl).sum()
+        out[impl] = torch.autograd.grad(loss, leaves)
+    return {n: _rel_err(a, b) for n, a, b in zip(
+        ("dq", "dk", "dv"), out["cuda"], out["torch"])}
+
+
+def phase_flash(flush):
+    """The flash-attention kernels against their plain versions on every
+    case of FLASH_CASES, fp32 and bf16; in bf16 also element by element
+    against the plain versions that round where the kernels round, with
+    the unrounded control; two backward runs bitwise equal; fully
+    masked rows exactly zero with LSE -1e30; gradients through
+    flash_attention_with_lse on WITH_LSE_CASES; times of the cases in
+    FLASH_TIMED (kernel, plain version, and SDPA as the library
+    yardstick: its forward, and its backward alone through
+    `torch.autograd.grad` on a saved graph)."""
+    import torch
+    import torch.nn.functional as F
+
+    from bigdl_tpu_torch.ops import flash_attention as fa
+
+    out = {}
+    for name, bh, sq, sk, d, causal, scale in FLASH_CASES:
+        scale = 1.0 / math.sqrt(d) if scale is None else scale
+        for dname, dtype in (("fp32", torch.float32),
+                             ("bf16", torch.bfloat16)):
+            g = torch.Generator(device="cuda").manual_seed(sq * 7 + sk)
+            q, do = (torch.randn(bh, sq, d, device="cuda", generator=g,
+                                 dtype=dtype) for _ in range(2))
+            k, v = (torch.randn(bh, sk, d, device="cuda", generator=g,
+                                dtype=dtype) for _ in range(2))
+            o, lse = fa.flash_fwd_cuda(q, k, v, causal, scale)
+            ro, rlse = fa.attention_reference(q, k, v, causal, scale,
+                                              return_lse=True)
+            grads = fa.flash_bwd_cuda(q, k, v, o, lse, do, causal, scale)
+            again = fa.flash_bwd_cuda(q, k, v, o, lse, do, causal, scale)
+            refs = fa.flash_attention_backward_reference(
+                q, k, v, o, lse, do, causal, scale)
+            torch.cuda.synchronize()
+            tol = FLASH_TOL[dname]
+            res = {
+                "out_max_abs_err": float((o.float() - ro.float()).abs()
+                                         .max()),
+                "lse_max_abs_err": float((lse - rlse).abs().max()),
+                "grad_rel_err": {n: _rel_err(a, b) for n, a, b in zip(
+                    ("dq", "dk", "dv"), grads, refs)},
+                "grad_max_abs_err": max(float((a.float() - b.float())
+                                              .abs().max())
+                                        for a, b in zip(grads, refs)),
+            }
+            where = f"flash {name} {dname}"
+            check(all(bool(torch.isfinite(t).all())
+                      for t in (o, lse, *grads)), f"{where}: not finite")
+            check(res["out_max_abs_err"] <= tol["out"],
+                  f"{where}: out err {res['out_max_abs_err']}")
+            if "lse" in tol:
+                check(res["lse_max_abs_err"] <= tol["lse"],
+                      f"{where}: lse err {res['lse_max_abs_err']}")
+            for n, e in res["grad_rel_err"].items():
+                check(e <= tol["grad"], f"{where}: {n} rel err {e}")
+            check(all(torch.equal(a, b) for a, b in zip(grads, again)),
+                  f"{where}: two backward runs differ")
+            masked = max(sq - sk, 0) if causal else 0
+            if masked:
+                check(bool((o[:, :masked] == 0).all())
+                      and bool((lse[:, :masked] == fa.NEG_INF).all())
+                      and bool((grads[0][:, :masked] == 0).all()),
+                      f"{where}: fully masked rows not zero / -1e30")
+            res["fully_masked_rows"] = masked
+            if dname == "bf16":
+                res["rounding"] = _bf16_rounding(
+                    fa, where, q, k, v, o, lse, do, grads, causal, scale,
+                    gate_control=name != "zero_scale")
+            elif name in WITH_LSE_CASES:
+                res["with_lse_grad_rel_err"] = _with_lse_grads(
+                    fa, q, k, v, causal, scale)
+                for n, e in res["with_lse_grad_rel_err"].items():
+                    check(e <= tol["grad"],
+                          f"{where}: with_lse {n} rel err {e}")
+            if name in FLASH_TIMED:
+                res.update(_flash_times(fa, F, flush, q, k, v, o, lse, do,
+                                        causal, scale))
+                res["fwd"] = _flash_bound(bh, sq, sk, d, causal,
+                                          q.element_size(), False)
+                res["bwd"] = _flash_bound(bh, sq, sk, d, causal,
+                                          q.element_size(), True)
+            out[f"{name}/{dname}"] = res
+            del q, k, v, do, o, lse, ro, rlse, grads, again, refs
+    torch.cuda.empty_cache()
+    summary = {key: {k: r[k] for k in (
+        "out_max_abs_err", "lse_max_abs_err", "grad_rel_err",
+        "with_lse_grad_rel_err", "fwd_ms", "bwd_ms", "plain_fwd_ms",
+        "plain_bwd_ms", "sdpa_fwd_ms", "sdpa_bwd_ms") if k in r}
+        for key, r in out.items()}
+    for key, r in out.items():
+        if "rounding" in r:      # the worst tensor of each reading
+            summary[key]["rounding"] = {
+                label: {st: max(x[st] for x in r["rounding"][label]
+                                .values())
+                        for st in ("max_ulps", "mismatch")}
+                for label in ("matched", "control")}
+    emit("flash", cases={c[0]: dict(zip(("BH", "Sq", "Sk", "D", "causal"),
+                                        c[1:6])) for c in FLASH_CASES},
+         tolerance=FLASH_TOL, bitwise_backward=True,
+         bf16_rounding_tolerance={"max_ulps": BF16_ULP_TOL,
+                                  "mismatch": BF16_MISMATCH_TOL},
+         summary=summary)
+    RESULTS["flash_detail"] = out
+    return out
+
+
+def _flash_times(fa, F, flush, q, k, v, o, lse, do, causal, scale):
+    import torch
+
+    bh, sq, d = q.shape
+    heads = 8 if bh % 8 == 0 else 1
+    q4, k4, v4 = (t.reshape(bh // heads, heads, t.shape[1], d).detach()
+                  .requires_grad_() for t in (q, k, v))
+    so = F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal,
+                                        scale=scale)
+    do4 = do.reshape(q4.shape)
+    reps = dict(reps=10, warmup=2)
+    return {
+        "fwd_ms": cuda_ms(lambda: fa.flash_fwd_cuda(q, k, v, causal, scale),
+                          flush, **reps),
+        "bwd_ms": cuda_ms(lambda: fa.flash_bwd_cuda(
+            q, k, v, o, lse, do, causal, scale), flush, **reps),
+        "plain_fwd_ms": cuda_ms(lambda: fa.attention_reference(
+            q, k, v, causal, scale, return_lse=True), flush, **reps),
+        "plain_bwd_ms": cuda_ms(
+            lambda: fa.flash_attention_backward_reference(
+                q, k, v, o, lse, do, causal, scale), flush, **reps),
+        # yardstick only, never called by the port
+        "sdpa_fwd_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, is_causal=causal, scale=scale), flush, **reps),
+        "sdpa_bwd_ms": cuda_ms(lambda: torch.autograd.grad(
+            so, (q4, k4, v4), do4, retain_graph=True), flush, **reps),
+    }
 
 
 def _model():
@@ -422,6 +735,200 @@ def phase_profile(model, params):
               for us, c, k in rows[:10]])
 
 
+def _train_model(attn_impl=None):
+    """The trainer's 43M LM (TRAIN_CONFIG) on the card."""
+    from bigdl_tpu_torch.models.transformer import (TransformerConfig,
+                                                    TransformerLM)
+
+    return TransformerLM(TransformerConfig(**TRAIN_CONFIG),
+                         attn_impl=attn_impl)
+
+
+def phase_train_model():
+    """One fp32 loss-and-grad step of the full-width LM through the
+    flash kernels against the same step through the plain versions,
+    from the same params and batch (FULL_PRECISION, TF32 off)."""
+    import numpy as np
+    import torch
+
+    from bigdl_tpu_torch.dataset.text import synthetic_next_token
+    from bigdl_tpu_torch.models.convert import (tree_leaves,
+                                                tree_leaves_with_path,
+                                                tree_map)
+    from bigdl_tpu_torch.nn import ChunkedSoftmaxCE
+    from bigdl_tpu_torch.ops import flash_attention as fa
+    from bigdl_tpu_torch.ops.losses import build_train_loss
+    from bigdl_tpu_torch.utils.precision import FULL_PRECISION
+
+    batch = synthetic_next_token(TRAIN_BATCH, VOCAB, TRAIN_SEQ, seed=3)
+    x = torch.as_tensor(np.stack([b.feature for b in batch])).cuda()
+    y = torch.as_tensor(np.stack([b.label for b in batch])).cuda()
+    params = None
+    out = {}
+    for impl in ("cuda", "torch"):
+        model = _train_model(impl)
+        if params is None:
+            params = model.init_params(torch.Generator().manual_seed(0))
+        p = tree_map(lambda t: t.detach().requires_grad_(), params)
+        loss_call = build_train_loss(model, ChunkedSoftmaxCE(),
+                                     FULL_PRECISION)
+        f0, b0 = fa.fwd_launches, fa.bwd_launches
+        loss, _ = loss_call(p, {}, x, y, None)
+        grads = torch.autograd.grad(loss, tree_leaves(p))
+        torch.cuda.synchronize()
+        out[impl] = (float(loss.detach()), grads,
+                     fa.fwd_launches - f0, fa.bwd_launches - b0)
+    dloss = abs(out["cuda"][0] - out["torch"][0])
+    # each leaf's difference relative to its own max, floored at
+    # TRAIN_GRAD_FLOOR of the largest gradient: the key bias's gradient
+    # is zero in exact arithmetic (softmax is shift-invariant), so both
+    # paths return rounding noise there
+    top = max(float(b.abs().max()) for b in out["torch"][1])
+    rels = {".".join(map(str, path)): float((a - b).abs().max()) / max(
+        float(b.abs().max()), TRAIN_GRAD_FLOOR * top)
+        for (path, _), a, b in zip(tree_leaves_with_path(params),
+                                   out["cuda"][1], out["torch"][1])}
+    rel = max(rels.values())
+    check(math.isfinite(out["cuda"][0]), "train-model loss not finite")
+    check(dloss <= TRAIN_LOSS_TOL, f"train-model |dloss| {dloss}")
+    check(rel <= TRAIN_GRAD_TOL, f"train-model grad rel diff {rel}")
+    layers = TRAIN_CONFIG["num_layers"]
+    check(out["cuda"][2:] == (layers, layers * fa.BWD_LAUNCHES),
+          f"train-model cuda step launched {out['cuda'][2:]} kernels")
+    check(out["torch"][2:] == (0, 0), "the plain step launched kernels")
+    emit("train_model", loss_cuda=out["cuda"][0], loss_torch=out["torch"][0],
+         loss_abs_diff=dloss, grad_max_rel_diff=rel,
+         tolerance={"loss": TRAIN_LOSS_TOL, "grad_rel": TRAIN_GRAD_TOL},
+         grad_rel_diff_by_leaf=rels, grad_floor=TRAIN_GRAD_FLOOR,
+         launches={"fwd": out["cuda"][2], "bwd": out["cuda"][3]},
+         params=int(sum(t.numel() for t in tree_leaves(params))))
+
+
+def _trainer(steps: int, watch):
+    """The main path: Optimizer(...).optimize() on the bench
+    configuration for `steps` steps (Trigger.max_iteration);
+    `watch(train_state)` sees the state before every step and at the
+    end."""
+    import torch
+
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.dataset import DataSet
+    from bigdl_tpu_torch.dataset.text import synthetic_next_token
+    from bigdl_tpu_torch.optim import Adam, Optimizer, Trigger
+
+    model = _train_model()
+    model.build(torch.Generator().manual_seed(0))
+    samples = synthetic_next_token(TRAIN_BATCH * steps, VOCAB, TRAIN_SEQ)
+    stop = Trigger.max_iteration(steps)
+
+    def end_when(state):
+        watch(state)
+        return stop(state)
+
+    Optimizer(model, DataSet.array(samples), nn.ChunkedSoftmaxCE(),
+              batch_size=TRAIN_BATCH).set_optim_method(Adam(3e-4)) \
+        .set_precision("bf16").set_end_when(Trigger(end_when)).optimize()
+    return model
+
+
+def phase_trainer():
+    """TRAIN_WARMUP steps, then TRAIN_STEPS timed steps whose flash
+    launches are counted from zero; losses read after the run."""
+    import torch
+
+    from bigdl_tpu_torch.models.transformer import (
+        TransformerConfig, lm_train_matmul_flops_per_token)
+    from bigdl_tpu_torch.ops import flash_attention as fa
+
+    losses, marks = [], {}
+
+    def on_step(state):
+        if state["loss"] is not None:
+            losses.append(state["loss"])
+        n = state["neval"]
+        if n == TRAIN_WARMUP:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            fa.fwd_launches = fa.bwd_launches = 0  # main path starts here
+            marks["t0"] = time.perf_counter()
+        elif n == TRAIN_WARMUP + TRAIN_STEPS:
+            torch.cuda.synchronize()
+            marks["t1"] = time.perf_counter()
+            marks["launches"] = (fa.fwd_launches,  # main path ends here
+                                 fa.bwd_launches)
+
+    _trainer(TRAIN_WARMUP + TRAIN_STEPS, on_step)
+    losses = [float(v) for v in losses]
+    dt = marks["t1"] - marks["t0"]
+    fwd, bwd = marks["launches"]
+    layers = TRAIN_CONFIG["num_layers"]
+    check(len(losses) == TRAIN_WARMUP + TRAIN_STEPS
+          and all(math.isfinite(v) for v in losses),
+          f"trainer losses not all finite: {losses}")
+    check(losses[-1] < losses[0], f"trainer loss did not fall: {losses}")
+    check(fwd == TRAIN_STEPS * layers,
+          f"forward launches {fwd} != {TRAIN_STEPS} steps x {layers}")
+    check(bwd == TRAIN_STEPS * layers * fa.BWD_LAUNCHES,
+          f"backward launches {bwd} != {TRAIN_STEPS} x {layers} x "
+          f"{fa.BWD_LAUNCHES}")
+    tokens = TRAIN_STEPS * TRAIN_BATCH * TRAIN_SEQ
+    flops = lm_train_matmul_flops_per_token(
+        TransformerConfig(**TRAIN_CONFIG)) * tokens
+    emit("trainer", steps=TRAIN_STEPS, warmup_steps=TRAIN_WARMUP,
+         batch=TRAIN_BATCH, seq=TRAIN_SEQ, seconds=dt,
+         step_ms=dt / TRAIN_STEPS * 1e3, tokens_per_sec=tokens / dt,
+         model_flops_share=flops / dt / BF16_FLOPS_PER_S,
+         peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+         launches={"fwd": fwd, "bwd": bwd}, losses=losses)
+    return fwd, bwd
+
+
+def phase_train_profile():
+    """Where a training step's device time goes (`--profile` only): two
+    steps after two warm-up steps under torch.profiler; the flash
+    kernels' share of the device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    prof = profile(activities=[ProfilerActivity.CPU,
+                               ProfilerActivity.CUDA])
+    marks = {}
+
+    def on_step(state):
+        if state["neval"] == 2:
+            torch.cuda.synchronize()
+            prof.start()
+            marks["t0"] = time.perf_counter()
+        elif state["neval"] == 4:
+            torch.cuda.synchronize()
+            marks["t1"] = time.perf_counter()
+            prof.stop()
+
+    _trainer(4, on_step)
+    rows = [(e.self_device_time_total, e.count, e.key)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    rows.sort(reverse=True)
+    OUT_DIR.mkdir(exist_ok=True)
+    prof.export_chrome_trace(str(OUT_DIR / "train_trace.json"))
+    if not rows:
+        emit("train_profile", device_ms_per_step="not measured")
+        return
+    dev_ms = sum(r[0] for r in rows) / 1e3 / 2
+    flash_ms = sum(r[0] for r in rows if any(
+        n in r[2] for n in ("fa_fwd_kernel", "fa_dkdv_kernel",
+                            "fa_dq_kernel"))) / 1e3 / 2
+    emit("train_profile", steps=2,
+         profiled_wall_ms_per_step=(marks["t1"] - marks["t0"]) / 2 * 1e3,
+         device_ms_per_step=dev_ms, flash_ms_per_step=flash_ms,
+         flash_share_of_device=flash_ms / dev_ms,
+         kernels_per_step=sum(r[1] for r in rows) / 2,
+         top=[{"name": k[:80], "calls_per_step": c / 2,
+               "ms_per_step": us / 1e3 / 2} for us, c, k in rows[:12]])
+
+
 def main() -> int:
     import torch
 
@@ -444,13 +951,24 @@ def main() -> int:
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32,
                         device="cuda")
     kern = phase_kernel(flush)
+    flash = phase_flash(flush)
     del flush
     model, params = _model()
     phase_model(model, params)
     launches = phase_engine(model, params)
     if "--profile" in sys.argv[1:]:
         phase_profile(model, params)
+    del model, params
+    torch.cuda.empty_cache()
+    phase_train_model()
+    torch.cuda.empty_cache()
+    fwd_launches, bwd_launches = phase_trainer()
+    if "--profile" in sys.argv[1:]:
+        torch.cuda.empty_cache()
+        phase_train_profile()
     fp32 = kern["fp32"]
+    # the flash rows: the trainer's shape in its compute dtype (bf16)
+    row = flash["train/bf16"]
     kernels = [{
         "name": "paged_decode", "route": "cuda",
         "source": "bigdl_tpu_torch/ops/csrc/paged_decode.cu",
@@ -461,6 +979,26 @@ def main() -> int:
         "ms": fp32["kernel_ms"], "plain_ms": fp32["torch_ms"],
         "bound_ms": fp32["bound_ms"], "bound_by": fp32["bound_by"],
         "library_ms": fp32["library_ms"],
+    }, {
+        "name": "flash_attention_fwd", "route": "cuda",
+        "source": "bigdl_tpu_torch/ops/csrc/flash_attention.cu",
+        "replaces": "bigdl_tpu/ops/flash_attention.py:118",
+        "launches": fwd_launches,
+        "max_abs_err": row["out_max_abs_err"],
+        "ms": row["fwd_ms"], "plain_ms": row["plain_fwd_ms"],
+        "bound_ms": row["fwd"]["bound_ms"],
+        "bound_by": row["fwd"]["bound_by"],
+        "library_ms": row["sdpa_fwd_ms"],
+    }, {
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": "bigdl_tpu_torch/ops/csrc/flash_attention.cu",
+        "replaces": "bigdl_tpu/ops/flash_attention.py:450 :341 :374",
+        "launches": bwd_launches,
+        "max_abs_err": row["grad_max_abs_err"],
+        "ms": row["bwd_ms"], "plain_ms": row["plain_bwd_ms"],
+        "bound_ms": row["bwd"]["bound_ms"],
+        "bound_by": row["bwd"]["bound_by"],
+        "library_ms": row["sdpa_bwd_ms"],
     }]
     for k in kernels:
         check(all(isinstance(v, str) or math.isfinite(v)

@@ -43,7 +43,11 @@ def test_port_import_loads_no_jax():
     code = ("import sys, bigdl_tpu_torch.serving, "
             "bigdl_tpu_torch.models.transformer, "
             "bigdl_tpu_torch.models.convert, "
-            "bigdl_tpu_torch.ops.paged_decode; "
+            "bigdl_tpu_torch.ops.paged_decode, "
+            "bigdl_tpu_torch.ops.flash_attention, "
+            "bigdl_tpu_torch.ops.losses, bigdl_tpu_torch.nn, "
+            "bigdl_tpu_torch.optim, bigdl_tpu_torch.dataset, "
+            "bigdl_tpu_torch.utils.precision; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{BANNED!r}]; "
             "assert not bad, bad")

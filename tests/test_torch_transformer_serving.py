@@ -86,7 +86,8 @@ def test_unported_variants_raise():
     with pytest.raises(NotImplementedError):
         TransformerConfig(moe_experts=4)
     with pytest.raises(NotImplementedError):
-        TransformerConfig(remat=True)
+        TransformerLM(TransformerConfig(**CFG), device="cpu",
+                      sp_axis="seq")
     with pytest.raises(NotImplementedError):
         TransformerLM(TransformerConfig(**CFG), device="cpu",
                       tp_axis="model")
