@@ -21,7 +21,13 @@ Ported so far, slice by slice:
    SGD/Adam, schedules, triggers, mixed precision) over
    `dataset.DataSet.array`, with `nn.ChunkedSoftmaxCE` fused into the
    Transformer-LM (`ops/losses.py`) and flash attention forward and
-   backward in the CUDA kernels of `ops/csrc/flash_attention.cu`.
+   backward in the CUDA kernels of `ops/csrc/flash_attention.cu`;
+3. recurrent — `models/rnn.py` (BiLSTM sentiment classifier, LSTM LM,
+   simple RNN) on the `nn` layers it needs (containers, embedding,
+   linear, activations, criteria, `nn/recurrent.py`), trained through
+   the same `Optimizer`, with the LSTM time loop — one or two
+   directions, forward and backward — in the persistent CUDA kernels of
+   `ops/csrc/fused_rnn.cu`.
 """
 
 __version__ = "0.1.0"

@@ -1,1 +1,5 @@
-"""Models of the port (counterpart: bigdl_tpu/models/)."""
+"""Models of the port (counterpart: bigdl_tpu/models/):
+`transformer` (the Transformer-LM), `rnn` (`simple_rnn`, `lstm_lm`,
+`bilstm_sentiment`) and `convert` (parameter trees across packages and
+devices). Import them as submodules; this package imports none of
+them, since `nn` itself uses `convert`."""

@@ -74,17 +74,19 @@ def params_from_jax(tree: Dict[str, Any],
                     device: DeviceLike = None) -> Dict[str, Any]:
     """The port's parameters from the JAX package's `variables["params"]`
     (or the whole `variables` dict), given as host arrays — e.g.
-    `jax.device_get(variables["params"])`. `blocks` may be stacked
-    `(L, ...)` leaves or a per-layer list of dicts (the serving layout);
-    the result is always stacked, the port's canonical layout, on
-    `device` (None → the GPU, see utils/device.py)."""
+    `jax.device_get(variables["params"])` — on `device` (None → the
+    GPU, see utils/device.py). Any tree of nested dicts of arrays
+    carries across unchanged (the `Sequential` trees of models/rnn.py,
+    say). A Transformer-LM's `blocks` may be stacked `(L, ...)` leaves
+    or a per-layer list of dicts (the serving layout); it comes out
+    stacked, the port's canonical layout."""
     dev = resolve_device(device)
     if "params" in tree:
         tree = tree["params"]
-    out = {k: v for k, v in tree.items() if k != "blocks"}
-    blocks = tree["blocks"]
+    out = dict(tree)
+    blocks = out.get("blocks")
     if isinstance(blocks, (list, tuple)):
-        blocks = {k: np.stack([np.asarray(layer[k]) for layer in blocks])
-                  for k in blocks[0]}
-    out["blocks"] = blocks
+        out["blocks"] = {k: np.stack([np.asarray(layer[k])
+                                      for layer in blocks])
+                         for k in blocks[0]}
     return tree_map(lambda a: _to_tensor(a, dev), out)

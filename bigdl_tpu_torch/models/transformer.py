@@ -188,6 +188,12 @@ class TransformerLM(Module):
             p["head"] = norm((e, c.vocab_size), e)
         return tree_map(lambda t: t.to(self.device), p)
 
+    def init(self, generator: Optional[torch.Generator] = None,
+             device: DeviceLike = None) -> Dict[str, Any]:
+        """As `Module.init`, on the model's device unless told another."""
+        return super().init(generator,
+                            self.device if device is None else device)
+
     @staticmethod
     def _params(variables: Dict[str, Any]) -> Dict[str, Any]:
         return variables["params"] if "params" in variables else variables

@@ -1,5 +1,26 @@
 """Layers and criteria of the port (counterpart: bigdl_tpu/nn/)."""
 
 from bigdl_tpu_torch.nn.module import Criterion, Module
-from bigdl_tpu_torch.nn.criterion import ChunkedSoftmaxCE
+from bigdl_tpu_torch.nn.activation import (Abs, Clamp, ELU, Exp, GELU,
+                                           HardSigmoid, HardTanh, LeakyReLU,
+                                           Log, LogSoftMax, Mish, Power,
+                                           ReLU, ReLU6, Sigmoid, SoftMax,
+                                           SoftPlus, SoftSign, Sqrt, Square,
+                                           Swish, Tanh)
+from bigdl_tpu_torch.nn.container import Container, Sequential
+from bigdl_tpu_torch.nn.criterion import (ChunkedSoftmaxCE,
+                                          ClassNLLCriterion,
+                                          CrossEntropyCriterion,
+                                          TimeDistributedCriterion)
+from bigdl_tpu_torch.nn.embedding import LookupTable
+from bigdl_tpu_torch.nn.initialization import (ConstInitMethod,
+                                               InitializationMethod,
+                                               MsraFiller, Ones,
+                                               RandomNormal, RandomUniform,
+                                               Xavier, Zeros)
+from bigdl_tpu_torch.nn.linear import Linear
 from bigdl_tpu_torch.nn.normalization import layer_norm
+from bigdl_tpu_torch.nn.recurrent import (BiRecurrent, Cell,
+                                          ConvLSTMPeephole, GRU, LSTM,
+                                          LSTMPeephole, Recurrent, RnnCell,
+                                          TimeDistributed)

@@ -1,15 +1,87 @@
-"""Loss functions — the chunked LM criterion.
+"""Loss functions.
 
-Ports `ChunkedSoftmaxCE` from bigdl_tpu/nn/criterion.py (the other
-criteria of that file come with the slices that use them). Class
-targets are 0-based integers, as in the JAX package.
+Ports `ClassNLLCriterion`, `CrossEntropyCriterion`,
+`TimeDistributedCriterion` and `ChunkedSoftmaxCE` from
+bigdl_tpu/nn/criterion.py (reference: nn/ClassNLLCriterion.scala,
+nn/CrossEntropyCriterion.scala, nn/TimeDistributedCriterion.scala), with
+the JAX package's `size_average` semantics. Class targets are 0-based
+integers, as in the JAX package. The file's other criteria come with
+the slices that use them (ROADMAP.md queue A.4).
 """
 
 from __future__ import annotations
 
+
 import torch
 
 from bigdl_tpu_torch.nn.module import Criterion
+
+
+def _reduce(x: torch.Tensor, size_average: bool) -> torch.Tensor:
+    return x.mean() if size_average else x.sum()
+
+
+class ClassNLLCriterion(Criterion):
+    """Negative log-likelihood over log-probabilities (N, C) against
+    (N,) int class ids; `weights` (C,) weight each class, and with
+    `size_average` the weighted sum is divided by the picked weights'
+    sum. `logProbAsInput=False` takes probabilities (clamped at 1e-8
+    before the log)."""
+
+    def __init__(self, weights=None, size_average: bool = True,
+                 logProbAsInput: bool = True):
+        self.weights = None if weights is None else torch.as_tensor(weights)
+        self.size_average = size_average
+        self.log_prob_as_input = logProbAsInput
+
+    def forward(self, input, target):
+        logp = input if self.log_prob_as_input \
+            else torch.log(input.clamp_min(1e-8))
+        target = target.long()
+        picked = logp.gather(1, target[:, None])[:, 0]
+        if self.weights is not None:
+            w = self.weights.to(device=logp.device, dtype=logp.dtype)[target]
+            loss = -(w * picked)
+            return loss.sum() / w.sum() if self.size_average \
+                else loss.sum()
+        return _reduce(-picked, self.size_average)
+
+
+class CrossEntropyCriterion(Criterion):
+    """LogSoftMax + ClassNLL fused: (N, C) logits, (N,) int ids."""
+
+    def __init__(self, weights=None, size_average: bool = True):
+        self.weights = weights
+        self.size_average = size_average
+
+    def forward(self, input, target):
+        return ClassNLLCriterion(self.weights, self.size_average).forward(
+            torch.log_softmax(input, dim=-1), target)
+
+
+class TimeDistributedCriterion(Criterion):
+    """Apply a criterion at every timestep of (N, T, ...) input: the
+    reference's sum over t of the inner loss, divided by T when
+    `size_average` — with an inner criterion that averages over N * T
+    rows the result is corrected to match."""
+
+    def __init__(self, criterion: Criterion, size_average: bool = False,
+                 dimension: int = 2):
+        self.criterion = criterion
+        self.size_average = size_average
+        self.dimension = dimension
+
+    def forward(self, input, target):
+        n, t = input.shape[0], input.shape[1]
+        loss = self.criterion.forward(
+            input.reshape((n * t,) + tuple(input.shape[2:])),
+            target.reshape((n * t,) + tuple(target.shape[2:])))
+        inner_avg = getattr(self.criterion, "size_average", True)
+        if inner_avg and not self.size_average:
+            loss = loss * t
+        elif not inner_avg and self.size_average:
+            loss = loss / t
+        return loss
 
 
 class ChunkedSoftmaxCE(Criterion):

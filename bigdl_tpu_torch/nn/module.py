@@ -12,8 +12,12 @@ respect to them), `state` the non-trainable buffers. The names, shapes
 and layouts of the JAX package's trees are kept, so weights carry
 across unchanged (models/convert.py). JAX's PRNG keys become
 `torch.Generator`s: `init`/`build` take one (default: seed 0, on the
-CPU, so the weights of a seed do not depend on the device) and `rng`
-in `apply` is one.
+CPU, so the weights of a seed do not depend on the device) and a
+`device` for the result (None: the card, utils/device.resolve_device);
+`rng` in `apply` is one, and containers derive each child's generator
+with `_fold_rng`, the counterpart of `jax.random.fold_in`. Container
+keys use `key_name()` (the `set_name` name, else the class name), as
+in the JAX package.
 
 The base is `torch.nn.Module` only so that a port model passes
 `isinstance` checks and can carry hooks and submodules. The rest of
@@ -39,9 +43,27 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
-from bigdl_tpu_torch.models.convert import tree_leaves_with_path
+from bigdl_tpu_torch.models.convert import tree_leaves_with_path, tree_map
+from bigdl_tpu_torch.utils.device import DeviceLike, resolve_device
 
 _id_counter = itertools.count()
+_MASK64 = (1 << 64) - 1
+
+
+def _fold_rng(rng: Optional[torch.Generator], i: int
+              ) -> Optional[torch.Generator]:
+    """A generator derived from `rng` and `i`, on rng's device: a pure
+    function of rng's seed and i (splitmix64 of the pair), as
+    `jax.random.fold_in` is of the key — folding the same generator
+    with the same i twice gives the same stream, and draws already
+    taken from `rng` do not change it. None stays None."""
+    if rng is None:
+        return None
+    x = (rng.initial_seed() * 0x9E3779B97F4A7C15 + i + 1) & _MASK64
+    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & _MASK64
+    x ^= x >> 31
+    return torch.Generator(device=rng.device).manual_seed(x >> 1)
 
 
 class Module(torch.nn.Module):
@@ -52,6 +74,7 @@ class Module(torch.nn.Module):
 
     def __init__(self, name: Optional[str] = None):
         super().__init__()
+        self._explicit_name = name is not None
         self.name = name or f"{type(self).__name__}_{next(_id_counter)}"
         self._variables: Optional[Dict[str, Any]] = None
 
@@ -63,11 +86,17 @@ class Module(torch.nn.Module):
     def init_state(self) -> Dict[str, Any]:
         return {}
 
-    def init(self, generator: Optional[torch.Generator] = None
-             ) -> Dict[str, Any]:
-        """The full variable tree: {'params': ..., 'state': ...}."""
-        return {"params": self.init_params(generator),
-                "state": self.init_state()}
+    def init(self, generator: Optional[torch.Generator] = None,
+             device: DeviceLike = None) -> Dict[str, Any]:
+        """The full variable tree {'params': ..., 'state': ...}, drawn
+        from `generator` (a CPU generator; default seed 0) and placed on
+        `device` (None: the card)."""
+        dev = resolve_device(device)
+        g = generator if generator is not None \
+            else torch.Generator().manual_seed(0)
+        return tree_map(lambda t: t.to(dev),
+                        {"params": self.init_params(g),
+                         "state": self.init_state()})
 
     def apply(self, variables: Dict[str, Any], *inputs,
               training: bool = False,
@@ -86,10 +115,10 @@ class Module(torch.nn.Module):
                 for path, leaf in tree_leaves_with_path(variables["params"])]
 
     # --------------------------------------------------------------- eager
-    def build(self, generator: Optional[torch.Generator] = None
-              ) -> "Module":
+    def build(self, generator: Optional[torch.Generator] = None,
+              device: DeviceLike = None) -> "Module":
         """Materialize variables on this object (`variables`)."""
-        self._variables = self.init(generator)
+        self._variables = self.init(generator, device)
         return self
 
     @property
@@ -101,6 +130,18 @@ class Module(torch.nn.Module):
     @variables.setter
     def variables(self, v: Dict[str, Any]) -> None:
         self._variables = v
+
+    def set_name(self, name: str) -> "Module":
+        self.name = name
+        self._explicit_name = True
+        return self
+
+    def key_name(self) -> str:
+        """The name a container keys this module's variables by: the
+        explicit name if one was set, else the bare class name (never
+        the auto-generated, counter-carrying `name`), so two builds of
+        one architecture give the same tree keys."""
+        return self.name if self._explicit_name else type(self).__name__
 
     def _apply(self, fn, recurse=True):
         # behind .to/.cuda/.cpu/.float/...: they would move no variable

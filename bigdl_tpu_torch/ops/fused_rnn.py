@@ -1,0 +1,410 @@
+"""Persistent-RNN scans: the CUDA LSTM kernels and their plain versions.
+
+Ports bigdl_tpu/ops/fused_rnn.py. There the whole LSTM time loop runs
+in one Pallas launch: `_lstm_fwd_kernel` / `_lstm_fwd_infer_kernel` and
+`_lstm_bwd_kernel` for one direction (K6/K7), `_bilstm_fwd_kernel` /
+`_bilstm_fwd_infer_kernel` and `_bilstm_bwd_kernel` for both directions
+in one launch (K8/K9). Here all of them are the two templated kernels
+of `csrc/fused_rnn.cu`: one forward (with or without residuals) and one
+backward, each running one or two directions per launch — the reverse
+direction walks time backwards over true-time slots, so nothing is
+flipped and both outputs come back in true time order.
+
+Public functions keep the JAX signatures and the (N, T, .) layouts:
+`lstm_scan(zx, w_hh)`, `bilstm_scan(zx_f, zx_b, w_f, w_b)`, and
+`gru_scan(...)`, which has only its plain version (K10/K11, the GRU
+kernels, are the next slice: ROADMAP.md queue B). zx is the hoisted
+input projection including bias, (N, T, 4H); w_hh is (H, 4H), gates in
+the order i, f, g, o.
+
+`impl`: None picks `"cuda"` for CUDA tensors and `"torch"` for CPU
+tensors; `"torch"` is the plain version on whatever device; `"cuda"`
+launches the kernels and raises on CPU tensors and on any failure to
+build or launch — there is no fallback. The JAX package's `block_n`
+sizes a TPU grid cell; here the kernels' batch tile is fixed at
+`BLOCK_N` rows per CTA, and `block_n` is accepted for signature parity
+only as None or `BLOCK_N`. There is no `impl="xla"` and no hidden-size
+eligibility gate: above `MAX_HIDDEN` the kernels raise.
+
+Gradients go through one `torch.autograd.Function` per call (kernels
+or plain versions alike). Its forward runs the training variant, which
+saves ys, c and the activated gates, only when autograd records and an
+input requires grad; otherwise the inference variant writes ys alone,
+as the JAX `custom_vjp` primal does. The backward sums the per-tile
+fp32 dW in a fixed order and casts it to W's dtype.
+
+The plain versions (`lstm_forward_reference`, `lstm_backward_reference`)
+round where the kernels round: h and c carries in fp32, h rounded to
+W's dtype before h . W, ys/c/gates stored in zx's dtype, h_prev and
+c_prev read back from the stored sequences, dz in fp32 stored as dzx in
+zx's dtype and rounded to W's dtype for both products, dc in fp32.
+With `round_operands=False` they keep everything in fp32: the control
+that shows a bf16 check can tell the roundings from their absence.
+
+`fwd_train_launches`, `fwd_infer_launches` and `bwd_launches` count
+kernel launches (plain ints, incremented only where a kernel launches).
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import List, Optional, Sequence, Tuple
+
+import torch
+
+from bigdl_tpu_torch.ops import _build
+
+IMPLS = ("cuda", "torch")
+MAX_HIDDEN = 512            # kMaxHidden of csrc/fused_rnn.cu (the JAX cap)
+BLOCK_N = 4                 # kBlockN of csrc/fused_rnn.cu: rows per CTA
+
+fwd_train_launches = 0
+fwd_infer_launches = 0
+bwd_launches = 0
+
+
+def _resolve_impl(x: torch.Tensor, impl: Optional[str]) -> str:
+    if impl is None:
+        return "cuda" if x.is_cuda else "torch"
+    if impl not in IMPLS:
+        raise ValueError(f"fused_rnn impl {impl!r}: expected None or one "
+                         f"of {IMPLS}")
+    return impl
+
+
+# ------------------------------------------------------------ plain
+def _steps(n_t: int, reverse: bool):
+    """(t, prev, live) in a direction's own time order."""
+    for s in range(n_t):
+        t = n_t - 1 - s if reverse else s
+        prev = t + 1 if reverse else t - 1
+        yield t, prev, 0 <= prev < n_t
+
+
+def lstm_forward_reference(zx: torch.Tensor, w: torch.Tensor,
+                           reverse: bool = False,
+                           round_operands: bool = True
+                           ) -> Tuple[torch.Tensor, torch.Tensor,
+                                      torch.Tensor]:
+    """One direction of the forward kernel in plain PyTorch: (ys, c,
+    gates), (N, T, H), (N, T, H), (N, T, 4H) in zx's dtype (fp32 with
+    round_operands=False). `reverse` runs time from T-1 down to 0 and
+    keeps the true-time slots."""
+    n, n_t, h4 = zx.shape
+    hidden = h4 // 4
+    out_dtype = zx.dtype if round_operands else torch.float32
+    w32 = w.float()
+    h = torch.zeros(n, hidden, device=zx.device)
+    c = torch.zeros(n, hidden, device=zx.device)
+    ys = torch.empty(n, n_t, hidden, dtype=out_dtype, device=zx.device)
+    cs = torch.empty(n, n_t, hidden, dtype=out_dtype, device=zx.device)
+    gs = torch.empty(n, n_t, h4, dtype=out_dtype, device=zx.device)
+    for t, _, _ in _steps(n_t, reverse):
+        op = h.to(w.dtype).float() if round_operands else h
+        z = zx[:, t].float() + op @ w32
+        i = torch.sigmoid(z[:, :hidden])
+        f = torch.sigmoid(z[:, hidden:2 * hidden])
+        g = torch.tanh(z[:, 2 * hidden:3 * hidden])
+        o = torch.sigmoid(z[:, 3 * hidden:])
+        c = f * c + i * g
+        h = o * torch.tanh(c)
+        ys[:, t] = h
+        cs[:, t] = c
+        gs[:, t] = torch.cat([i, f, g, o], dim=-1)
+    return ys, cs, gs
+
+
+def lstm_backward_reference(w: torch.Tensor, ys: torch.Tensor,
+                            c_seq: torch.Tensor, gates: torch.Tensor,
+                            dy: torch.Tensor, reverse: bool = False,
+                            round_operands: bool = True
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One direction of the backward kernel in plain PyTorch, from the
+    forward's residuals: (dzx in the residuals' dtype — fp32 with
+    round_operands=False — and dW fp32 (H, 4H)), a reversed sweep with
+    dh/dc carries in fp32."""
+    n, n_t, h4 = gates.shape
+    hidden = h4 // 4
+    w32 = w.float()
+
+    def operand(x):
+        return x.to(w.dtype).float() if round_operands else x
+
+    dh_carry = torch.zeros(n, hidden, device=gates.device)
+    dc_carry = torch.zeros(n, hidden, device=gates.device)
+    dw = torch.zeros(hidden, h4, device=gates.device)
+    dzx = torch.empty(n, n_t, h4, device=gates.device,
+                      dtype=gates.dtype if round_operands else torch.float32)
+    for t, prev, live in reversed(list(_steps(n_t, reverse))):
+        g32 = gates[:, t].float()
+        i = g32[:, :hidden]
+        f = g32[:, hidden:2 * hidden]
+        g = g32[:, 2 * hidden:3 * hidden]
+        o = g32[:, 3 * hidden:]
+        c = c_seq[:, t].float()
+        zero = torch.zeros_like(c)
+        c_prev = c_seq[:, prev].float() if live else zero
+        h_prev = ys[:, prev].float() if live else zero
+        dh = dy[:, t].float() + dh_carry
+        tc = torch.tanh(c)
+        do_pre = dh * tc * o * (1.0 - o)
+        dc = dc_carry + dh * o * (1.0 - tc * tc)
+        dz = torch.cat([dc * g * i * (1.0 - i),
+                        dc * c_prev * f * (1.0 - f),
+                        dc * i * (1.0 - g * g), do_pre], dim=-1)
+        dzx[:, t] = dz
+        dzn = operand(dz)
+        dh_carry = dzn @ w32.T
+        dc_carry = dc * f
+        dw = dw + operand(h_prev).T @ dzn
+    return dzx, dw
+
+
+def _forward_plain(zxs, ws, reverses):
+    return [lstm_forward_reference(zx, w, rev)
+            for zx, w, rev in zip(zxs, ws, reverses)]
+
+
+def _backward_plain(ws, res, dys, reverses):
+    out = [lstm_backward_reference(w, ys, c, g, dy, rev)
+           for w, (ys, c, g), dy, rev in zip(ws, res, dys, reverses)]
+    return [o[0] for o in out], [o[1][None] for o in out]
+
+
+# ------------------------------------------------------------- CUDA
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("fused_rnn")
+    if lib.bigdl_lstm_fwd.argtypes is None:
+        lib.bigdl_lstm_fwd.argtypes = (
+            [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+        lib.bigdl_lstm_fwd.restype = ctypes.c_int
+        lib.bigdl_lstm_bwd.argtypes = (
+            [ctypes.c_void_p] * 14 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+        lib.bigdl_lstm_bwd.restype = ctypes.c_int
+        lib.bigdl_lstm_error_string.argtypes = [ctypes.c_int]
+        lib.bigdl_lstm_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check(zxs: Sequence[torch.Tensor], ws: Sequence[torch.Tensor]
+           ) -> None:
+    """What the kernels take: CUDA tensors on one device, zx (N, T, 4H)
+    and W (H, 4H) alike in fp32 or bf16, H <= MAX_HIDDEN."""
+    ref = zxs[0]
+    n, n_t, h4 = ref.shape
+    hidden = h4 // 4
+    for name, t in [*(("zx", z) for z in zxs), *(("w_hh", w) for w in ws)]:
+        if not t.is_cuda or t.device != ref.device:
+            raise ValueError(f"fused_rnn impl='cuda': {name} must be a "
+                             f"CUDA tensor on {ref.device}, got {t.device}")
+        if t.dtype != ref.dtype or t.dtype not in (torch.float32,
+                                                   torch.bfloat16):
+            raise ValueError(f"fused_rnn impl='cuda' takes zx and w_hh in "
+                             f"one dtype, float32 or bfloat16; got "
+                             f"{[x.dtype for x in (*zxs, *ws)]}")
+    for z in zxs:
+        if z.shape != ref.shape:
+            raise ValueError(f"fused_rnn: zx shapes differ {tuple(z.shape)}"
+                             f" vs {tuple(ref.shape)}")
+    for w in ws:
+        if w.shape != (hidden, h4):
+            raise ValueError(f"fused_rnn: w_hh {tuple(w.shape)} does not "
+                             f"match zx {tuple(ref.shape)}: expected "
+                             f"({hidden}, {h4})")
+    if h4 % 4 or not 1 <= hidden <= MAX_HIDDEN:
+        raise ValueError(f"fused_rnn impl='cuda' takes hidden sizes 1.."
+                         f"{MAX_HIDDEN} (zx last dim 4H), got zx "
+                         f"{tuple(ref.shape)}")
+    if n < 1 or n_t < 1:
+        raise ValueError(f"fused_rnn: empty batch or sequence "
+                         f"{tuple(ref.shape)}")
+
+
+def _raise_on(err: int, lib: ctypes.CDLL, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(
+            f"fused_rnn {what} kernel launch failed: "
+            f"{lib.bigdl_lstm_error_string(err).decode()} (cudaError {err})")
+
+
+def _pair(xs: Sequence[Optional[torch.Tensor]]) -> List[int]:
+    ptrs = [0 if x is None else x.data_ptr() for x in xs]
+    return ptrs + [ptrs[0]] * (2 - len(ptrs))
+
+
+def lstm_fwd_cuda(zxs: Sequence[torch.Tensor], ws: Sequence[torch.Tensor],
+                  reverses: Sequence[bool], save: bool):
+    """One forward launch over len(zxs) (1 or 2) directions. Returns a
+    list of (ys, c, gates) per direction; c and gates are None when
+    `save` is False (the inference variant)."""
+    global fwd_train_launches, fwd_infer_launches
+    zxs = [z.contiguous() for z in zxs]
+    ws = [w.contiguous() for w in ws]
+    _check(zxs, ws)
+    n, n_t, h4 = zxs[0].shape
+    hidden = h4 // 4
+    ys = [zx.new_empty(n, n_t, hidden) for zx in zxs]
+    cs = [zx.new_empty(n, n_t, hidden) if save else None for zx in zxs]
+    gs = [torch.empty_like(zx) if save else None for zx in zxs]
+    revs = [int(r) for r in reverses] + [0] * (2 - len(zxs))
+    lib = _lib()
+    with torch.cuda.device(zxs[0].device):
+        stream = torch.cuda.current_stream(zxs[0].device).cuda_stream
+        err = lib.bigdl_lstm_fwd(
+            *_pair(zxs), *_pair(ws), *_pair(ys), *_pair(cs), *_pair(gs),
+            *revs, len(zxs), n, n_t, hidden, int(save),
+            int(zxs[0].dtype == torch.bfloat16), stream)
+    _raise_on(err, lib, "forward")
+    if save:
+        fwd_train_launches += 1
+    else:
+        fwd_infer_launches += 1
+    return list(zip(ys, cs, gs))
+
+
+def lstm_bwd_cuda(ws: Sequence[torch.Tensor], res, dys: Sequence[torch.Tensor],
+                  reverses: Sequence[bool]):
+    """One backward launch over the directions of `res` ((ys, c, gates)
+    per direction). Returns (dzx per direction, dW per direction as
+    (tiles, H, 4H) fp32 — one slice per batch tile)."""
+    global bwd_launches
+    ws = [w.contiguous() for w in ws]
+    res = [tuple(x.contiguous() for x in r) for r in res]
+    dys = [dy.to(res[0][0].dtype).contiguous() for dy in dys]
+    gates = [r[2] for r in res]
+    _check(gates, ws)
+    n, n_t, h4 = gates[0].shape
+    hidden = h4 // 4
+    for (ys, c, _), dy in zip(res, dys):
+        for name, t in (("ys", ys), ("c", c), ("dy", dy)):
+            if t.shape != (n, n_t, hidden) or t.dtype != gates[0].dtype:
+                raise ValueError(f"fused_rnn backward: {name} "
+                                 f"{tuple(t.shape)} {t.dtype} does not "
+                                 f"match gates {tuple(gates[0].shape)}")
+    wts = [w.t().contiguous() for w in ws]     # (4H, H) for dz . W^T
+    tiles = (n + BLOCK_N - 1) // BLOCK_N
+    dzxs = [torch.empty_like(g) for g in gates]
+    dws = [torch.empty(tiles, hidden, h4, dtype=torch.float32,
+                       device=g.device) for g in gates]
+    revs = [int(r) for r in reverses] + [0] * (2 - len(gates))
+    lib = _lib()
+    with torch.cuda.device(gates[0].device):
+        stream = torch.cuda.current_stream(gates[0].device).cuda_stream
+        err = lib.bigdl_lstm_bwd(
+            *_pair(wts), *_pair([r[0] for r in res]),
+            *_pair([r[1] for r in res]), *_pair(gates), *_pair(dys),
+            *_pair(dzxs), *_pair(dws), *revs, len(gates), n, n_t, hidden,
+            int(gates[0].dtype == torch.bfloat16), stream)
+    _raise_on(err, lib, "backward")
+    bwd_launches += 1
+    return dzxs, dws
+
+
+# ------------------------------------------------------- autograd
+def _forward(impl, zxs, ws, reverses, save):
+    if impl == "torch":
+        out = _forward_plain(zxs, ws, reverses)
+        return out if save else [(o[0], None, None) for o in out]
+    return lstm_fwd_cuda(zxs, ws, reverses, save)
+
+
+class _LSTMScan(torch.autograd.Function):
+    """ys per direction, differentiable in every zx and w_hh. Forward
+    saves (w, ys, c, gates) per direction, as `_lstm_core_fwd` /
+    `_bilstm_core_fwd` do; backward is one backward launch (or the
+    plain backward) and a fixed-order sum of the per-tile dW."""
+
+    @staticmethod
+    def forward(ctx, impl, reverses, *tensors):
+        ndir = len(reverses)
+        zxs, ws = tensors[:ndir], tensors[ndir:]
+        res = _forward(impl, zxs, ws, reverses, True)
+        ctx.save_for_backward(*ws, *(x for r in res for x in r))
+        ctx.impl, ctx.reverses = impl, reverses
+        ctx.set_materialize_grads(False)
+        return tuple(r[0] for r in res)
+
+    @staticmethod
+    def backward(ctx, *dys):
+        ndir = len(ctx.reverses)
+        saved = ctx.saved_tensors
+        ws, flat = saved[:ndir], saved[ndir:]
+        res = [tuple(flat[3 * i:3 * i + 3]) for i in range(ndir)]
+        dys = [torch.zeros_like(r[0]) if dy is None else dy
+               for dy, r in zip(dys, res)]
+        if ctx.impl == "torch":
+            dzxs, dws = _backward_plain(ws, res, dys, ctx.reverses)
+        else:
+            dzxs, dws = lstm_bwd_cuda(ws, res, dys, ctx.reverses)
+        dws = [dw.sum(dim=0).to(w.dtype) for dw, w in zip(dws, ws)]
+        return (None, None, *dzxs, *dws)
+
+
+def _scan(zxs, ws, reverses, impl, block_n):
+    impl = _resolve_impl(zxs[0], impl)
+    if block_n not in (None, BLOCK_N):
+        raise ValueError(f"fused_rnn block_n {block_n}: the kernels' batch "
+                         f"tile is fixed at {BLOCK_N} rows (pass None)")
+    tensors = (*zxs, *ws)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        return _LSTMScan.apply(impl, tuple(reverses), *tensors)
+    return tuple(r[0] for r in _forward(impl, zxs, ws, reverses, False))
+
+
+def lstm_scan(zx: torch.Tensor, w_hh: torch.Tensor,
+              impl: Optional[str] = None,
+              block_n: Optional[int] = None) -> torch.Tensor:
+    """The whole LSTM time loop in one launch. zx: (N, T, 4H) hoisted
+    input projections including bias (`precompute_inputs`); w_hh:
+    (H, 4H). Returns the hidden-state sequence (N, T, H) in zx's dtype,
+    differentiable in both."""
+    return _scan((zx,), (w_hh,), (False,), impl, block_n)[0]
+
+
+def bilstm_scan(zx_f: torch.Tensor, zx_b: torch.Tensor, w_f: torch.Tensor,
+                w_b: torch.Tensor, impl: Optional[str] = None,
+                block_n: Optional[int] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Both LSTM directions in one launch. zx_f / zx_b: (N, T, 4H)
+    projections of the same, unflipped input through each direction's
+    weights. Returns (ys_fwd, ys_bwd), both in true time order (ys_bwd[t]
+    is the reverse pass's state after consuming x[T-1..t])."""
+    ys_f, ys_b = _scan((zx_f, zx_b), (w_f, w_b), (False, True), impl,
+                       block_n)
+    return ys_f, ys_b
+
+
+# ------------------------------------------------------------- GRU
+def _gru_scan_plain(zg: torch.Tensor, zc: torch.Tensor, wg: torch.Tensor,
+                    wc: torch.Tensor) -> torch.Tensor:
+    """The GRU recurrence of `_gru_scan_xla` (nn/recurrent.GRU.
+    step_precomputed): zr = sigmoid(zg_t + h . W_g), cand = tanh(zc_t +
+    (r * h) . W_c), h' = (1 - z) h + z cand; autograd differentiates it."""
+    n, n_t, h2 = zg.shape
+    hidden = h2 // 2
+    h = zg.new_zeros(n, hidden)
+    ys = []
+    for t in range(n_t):
+        zr = torch.sigmoid(zg[:, t] + h @ wg)
+        z, r = zr[:, :hidden], zr[:, hidden:]
+        cand = torch.tanh(zc[:, t] + (r * h) @ wc)
+        h = (1.0 - z) * h + z * cand
+        ys.append(h)
+    return torch.stack(ys, dim=1)
+
+
+def gru_scan(zx_gates: torch.Tensor, zx_cand: torch.Tensor,
+             w_g: torch.Tensor, w_c: torch.Tensor,
+             impl: Optional[str] = None,
+             block_n: Optional[int] = None) -> torch.Tensor:
+    """GRU scan. zx_gates: (N, T, 2H) hoisted (z, r) projections
+    (+bias); zx_cand: (N, T, H); w_g: (H, 2H); w_c: (H, H). Returns
+    (N, T, H). Only the plain version exists: the GRU kernels are not
+    ported yet, and `impl="cuda"` (or None on CUDA tensors) raises."""
+    if _resolve_impl(zx_gates, impl) == "cuda":
+        raise NotImplementedError(
+            "gru_scan: the GRU kernels (K10 _gru_fwd_kernel / K11 "
+            "_gru_bwd_kernel of bigdl_tpu/ops/fused_rnn.py) are not "
+            "ported to CUDA yet (ROADMAP.md queue B); impl='torch', or "
+            "Recurrent(GRU(...), fused=False), is the plain route")
+    return _gru_scan_plain(zx_gates, zx_cand, w_g, w_c)

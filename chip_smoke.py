@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Run the PyTorch/CUDA port's serving and training paths on one NVIDIA
-GPU and check them.
+"""Run the PyTorch/CUDA port's serving, training and recurrent paths on
+one NVIDIA GPU and check them.
 
     python3 chip_smoke.py            # from the repository root, one CUDA card
     python3 chip_smoke.py --profile  # also: where decode and train steps go
@@ -50,7 +50,32 @@ It drives `bigdl_tpu_torch` only (never JAX or the JAX package):
    and read after 10 timed steps: forward launches == steps x layers,
    backward == steps x layers x 2; losses finite and falling; train
    tokens/s, ms a step and the model-flops share;
-9. kernels — one JSON line per the port's kernel table.
+9. rnn    — the persistent-LSTM kernels (forward with and without
+   residuals, backward; one or two directions a launch) against their
+   plain versions on RNN_CASES: the BiLSTM trainer's shape (N = T = H =
+   128) with one and two directions, the LSTM LM's shape (N = 32, T =
+   64, one direction), a ragged batch of 37 rows, T = 1, H = 512 and
+   H = 200; fp32 (forward <= 2e-5 abs, gradients <= 1e-4 relative) and
+   bf16 element by element against the plain versions that round where
+   the kernels round (<= 4 ulps, <= 2% off; the unrounded control must
+   exceed 2% wherever T > 1), with bf16 dW also held to the plain
+   backward's dW (RNN_BF16_DW_TOL relative); two backward runs bitwise
+   equal; kernel, plain and cuDNN (`torch.nn.LSTM`, library yardstick)
+   times at the trainer's and the LM's shapes;
+10. rnn_model — one fp32 loss-and-grad step of the full-width BiLSTM
+   classifier (vocab 20000, 128/128, batch 128 x 128) and of a 2-layer
+   LSTM LM (vocab 10000, batch 32 x 64) through the kernels against the
+   same step through the plain versions;
+11. rnn_trainer — the recurrent path: `Optimizer(bilstm_sentiment(20000,
+   128, 128), DataSet.array(...), nn.ClassNLLCriterion(), batch_size=
+   128).set_optim_method(Adam(1e-3)).set_precision("bf16").optimize()`
+   on learnable token data, 2 warm-up + 10 timed steps (kernel launches
+   counted from zero: 10 forward, 10 backward; losses finite and
+   falling; samples/s), an inference pass under torch.no_grad() over 4
+   batches (4 no-residual forward launches; accuracy), and the 2-layer
+   LSTM LM through the same loop (2 launches a step each way);
+   `--profile` adds a torch.profiler breakdown of one BiLSTM step;
+12. kernels — one JSON line per the port's kernel table.
 
 Every phase prints one JSON line; any failed check raises and the
 script exits non-zero. The last lines are the `nvidia-smi` name/power
@@ -87,7 +112,7 @@ ENGINE_KNOBS = dict(slots=SLOTS, prefill_buckets=(CONTEXT // 2, CONTEXT))
 KERNEL_TOL = 2e-5
 LOGIT_TOL = 1e-4
 
-KERNEL_SOURCES = ("paged_decode", "flash_attention")
+KERNEL_SOURCES = ("paged_decode", "flash_attention", "fused_rnn")
 BF16_FLOPS_PER_S = 989e12       # dense tensor-core bf16 peak (data sheet)
 
 # flash-attention cases: (name, BH, Sq, Sk, D, causal, sm_scale or None).
@@ -140,6 +165,50 @@ TRAIN_WARMUP, TRAIN_STEPS = 2, 10
 # gradient difference relative to that gradient's max
 TRAIN_LOSS_TOL, TRAIN_GRAD_TOL = 1e-4, 1e-3
 TRAIN_GRAD_FLOOR = 1e-3
+
+# the persistent-LSTM kernels (ops/csrc/fused_rnn.cu). Cases: (name, N, T,
+# H, directions). "train_bi" is the BiLSTM trainer's shape (bench.py
+# bench_bilstm: batch 128 x 128 tokens, hidden 128), "train_uni" one
+# direction of it; "lm_uni" the LSTM LM trainer's shape (LM_BATCH x
+# LM_SEQ, one direction: where the main path launches K6/K7); then a
+# ragged batch (37 rows, not a tile multiple), T = 1 (init and emit in
+# one step), the hidden-size cap H = 512, and H = 200 (not a multiple of
+# 128). fp32 and bf16 each.
+RNN_CASES = (
+    ("train_bi", 128, 128, 128, 2),
+    ("train_uni", 128, 128, 128, 1),
+    ("lm_uni", 32, 64, 128, 1),
+    ("ragged", 37, 50, 128, 2),
+    ("t1", 16, 1, 64, 2),
+    ("h512", 32, 16, 512, 2),
+    ("h200", 24, 20, 200, 1),
+)
+RNN_TIMED = ("train_bi", "train_uni", "lm_uni")
+# kernel vs plain in fp32: forward max abs (ys, c, gates), gradients max
+# abs relative to each gradient's max; bf16 element by element as the
+# flash phase (BF16_ULP_TOL, BF16_MISMATCH_TOL), against the plain
+# versions that round where the kernels round, with the unrounded
+# control required to fail wherever a rounding changes a value (T > 1)
+RNN_TOL = {"fwd": 2e-5, "grad": 1e-4}
+# bf16 dW against the plain backward's dW (lstm_backward_reference from
+# the kernel's residuals), max abs difference relative to its max. The
+# element check holds dW to the plain product of the kernel's own dzx;
+# this one holds the whole dW path to an independent backward. On an
+# H100 the kernels read 1.4e-4 to 5.9e-4 over RNN_CASES, and the same
+# check against the unrounded plain backward 1.25e-3 to 1.54e-3.
+RNN_BF16_DW_TOL = 1e-3
+
+# the BiLSTM trainer: BASELINE config 4 at bench.py's shape
+# (bench_bilstm, called with batch 128 x seq 128 on the chip): vocab
+# 20000, embed 128, hidden 128, Adam(1e-3), ClassNLLCriterion, bf16
+# compute with fp32 masters
+RNN_VOCAB, RNN_EMBED, RNN_HIDDEN = 20000, 128, 128
+RNN_BATCH, RNN_SEQ = 128, 128
+RNN_INFER_BATCHES = 4
+SENTIMENT_TOKENS = 64           # token ids per class in the trainer's data
+# the LSTM language model (the PTB vocabulary), 2 layers, batch 32 x 64
+LM_VOCAB, LM_LAYERS, LM_BATCH, LM_SEQ = 10000, 2, 32, 64
+LM_WARMUP, LM_STEPS = 2, 4
 
 RESULTS: dict = {}
 
@@ -929,6 +998,559 @@ def phase_train_profile():
                "ms_per_step": us / 1e3 / 2} for us, c, k in rows[:12]])
 
 
+# ------------------------------------------------------ persistent LSTM
+def _rnn_bound(n, t, h, ndir, itemsize, kind):
+    """Least time for one launch's work: each input read once, each
+    output written once; the recurrent products (2 flops a multiply-add:
+    h . W forward; dz . W^T and h_prev^T . dz backward) at the fp32 SIMT
+    peak, or the dense bf16 tensor-core peak for bf16. The backward's
+    output is one fp32 dW a direction (what the function returns), not
+    the per-tile partials this design writes."""
+    seq, seq4, w = n * t * h, n * t * 4 * h, h * 4 * h
+    if kind == "bwd":   # W, ys, c, gates, dy in; dzx and one fp32 dW out
+        nbytes = ndir * ((w + 3 * seq + seq4 + seq4) * itemsize + w * 4)
+        flops = ndir * 2 * 2 * n * t * w
+    else:               # zx, W in; ys (+ c, gates when training) out
+        out = seq + (seq + seq4 if kind == "train" else 0)
+        nbytes = ndir * (seq4 + w + out) * itemsize
+        flops = ndir * 2 * n * t * w
+    peak = FP32_FLOPS_PER_S if itemsize == 4 else BF16_FLOPS_PER_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "flops": flops}
+
+
+def _rnn_inputs(n, t, h, ndir, dtype, seed):
+    import torch
+
+    # the scales the models give: W_hh the recurrent half of an LSTM
+    # cell's Xavier-uniform (D + H, 4H) weight with D = H, zx = x . W_x
+    # of unit-variance inputs (std sqrt(D) times W's)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    a = (6.0 / (6 * h)) ** 0.5
+    zxs = [(torch.randn(n, t, 4 * h, device="cuda", generator=g)
+            * (h / 3) ** 0.5 * a).to(dtype) for _ in range(ndir)]
+    ws = [((torch.rand(h, 4 * h, device="cuda", generator=g) * 2 - 1) * a)
+          .to(dtype) for _ in range(ndir)]
+    dys = [torch.randn(n, t, h, device="cuda", generator=g).to(dtype)
+           for _ in range(ndir)]
+    return zxs, ws, dys, [d == 1 for d in range(ndir)]
+
+
+def phase_rnn(flush):
+    """The persistent-LSTM kernels against their plain versions on every
+    case of RNN_CASES, fp32 and bf16: forward (training variant: ys, c,
+    gates; the inference variant's ys bitwise the training variant's)
+    and backward (dzx, dW summed over the batch tiles) from the kernel's
+    own residuals; two backward runs bitwise equal; in bf16 element by
+    element against the plain versions that round where the kernels
+    round, with the unrounded control, and bf16 dW against the plain
+    backward's dW; times at RNN_TIMED (kernel, plain, cuDNN's
+    torch.nn.LSTM as the library yardstick)."""
+    import torch
+
+    from bigdl_tpu_torch.ops import fused_rnn as fr
+
+    out = {}
+    for name, n, t, h, ndir in RNN_CASES:
+        for dname, dtype in (("fp32", torch.float32),
+                             ("bf16", torch.bfloat16)):
+            where = f"rnn {name} {dname}"
+            zxs, ws, dys, revs = _rnn_inputs(n, t, h, ndir, dtype,
+                                             n * 31 + t + h)
+            res = fr.lstm_fwd_cuda(zxs, ws, revs, save=True)
+            infer = fr.lstm_fwd_cuda(zxs, ws, revs, save=False)
+            dzx, dw = fr.lstm_bwd_cuda(ws, res, dys, revs)
+            dzx2, dw2 = fr.lstm_bwd_cuda(ws, res, dys, revs)
+            torch.cuda.synchronize()
+            dw = [x.sum(dim=0) for x in dw]
+            plain_f = [fr.lstm_forward_reference(z, w, r)
+                       for z, w, r in zip(zxs, ws, revs)]
+            plain_b = [fr.lstm_backward_reference(w, *rk, dy, r)
+                       for w, rk, dy, r in zip(ws, res, dys, revs)]
+            check(all(bool(torch.isfinite(x).all()) for r in res for x in r)
+                  and all(bool(torch.isfinite(x).all())
+                          for x in (*dzx, *dw)), f"{where}: not finite")
+            check(all(torch.equal(a[0], b[0]) for a, b in zip(res, infer)),
+                  f"{where}: inference ys differ from the training ys")
+            check(all(torch.equal(a, b) for a, b in zip(dzx, dzx2))
+                  and all(torch.equal(a.sum(0), b)
+                          for a, b in zip(dw2, dw)),
+                  f"{where}: two backward runs differ")
+            r = {
+                "fwd_max_abs_err": max(float((a.float() - b.float()).abs()
+                                             .max())
+                                       for rk, rp in zip(res, plain_f)
+                                       for a, b in zip(rk, rp)),
+                "grad_rel_err": {
+                    "dzx": max(_rel_err(a, b[0])
+                               for a, b in zip(dzx, plain_b)),
+                    "dw": max(_rel_err(a, b[1])
+                              for a, b in zip(dw, plain_b))},
+                "grad_max_abs_err": max(
+                    max(float((a.float() - b[0].float()).abs().max()),
+                        float((c - b[1]).abs().max()))
+                    for a, c, b in zip(dzx, dw, plain_b)),
+            }
+            if dname == "fp32":
+                check(r["fwd_max_abs_err"] <= RNN_TOL["fwd"],
+                      f"{where}: forward err {r['fwd_max_abs_err']}")
+                for k, e in r["grad_rel_err"].items():
+                    check(e <= RNN_TOL["grad"], f"{where}: {k} rel err {e}")
+            else:
+                r["rounding"] = _rnn_rounding(fr, where, zxs, ws, dys, revs,
+                                              res, dzx, dw, gate=t > 1)
+            if name in RNN_TIMED:
+                r.update(_rnn_times(fr, flush, zxs, ws, dys, revs, res))
+                for kind in ("train", "infer", "bwd"):
+                    r[f"{kind}_bound"] = _rnn_bound(n, t, h, ndir,
+                                                    zxs[0].element_size(),
+                                                    kind)
+            out[f"{name}/{dname}"] = r
+            del zxs, ws, dys, res, infer, dzx, dw, dzx2, dw2, plain_f, \
+                plain_b
+    torch.cuda.empty_cache()
+    summary = {key: {k: v for k, v in r.items()
+                     if k not in ("rounding",) and not k.endswith("_bound")}
+               for key, r in out.items()}
+    for key, r in out.items():
+        if "rounding" in r:
+            summary[key]["rounding"] = {
+                label: {st: max(x[st] for x in r["rounding"][label]
+                                .values()) for st in ("max_ulps",
+                                                      "mismatch")}
+                for label in ("matched", "control")}
+            summary[key]["dw_rel_err"] = r["rounding"]["dw_rel_err"]
+    emit("rnn", cases={c[0]: dict(zip(("N", "T", "H", "dirs"), c[1:]))
+                       for c in RNN_CASES},
+         tolerance=RNN_TOL, block_n=fr.BLOCK_N, bitwise_backward=True,
+         bf16_rounding_tolerance={"max_ulps": BF16_ULP_TOL,
+                                  "mismatch": BF16_MISMATCH_TOL},
+         bf16_dw_rel_tolerance=RNN_BF16_DW_TOL,
+         summary=summary)
+    RESULTS["rnn_detail"] = out
+    return out
+
+
+def _dw_of(dzx, ys, reverse):
+    """dW = sum over (row, t) of h_prev^T . dz in fp32, from given dz and
+    the stored h sequence (h_prev zero at the direction's first step)."""
+    import torch
+
+    hp = torch.zeros_like(ys, dtype=torch.float32)
+    if reverse:
+        hp[:, :-1] = ys[:, 1:].float()
+    else:
+        hp[:, 1:] = ys[:, :-1].float()
+    return torch.einsum("ntk,ntj->kj", hp, dzx.float())
+
+
+def _rnn_rounding(fr, where, zxs, ws, dys, revs, res, dzx, dw, gate):
+    """bf16 kernel outputs against the plain versions with the kernels'
+    roundings ("matched") and without them ("control"); the backward's
+    references start from the kernel's residuals. dW sums N x T products,
+    so the one-ulp dz flips that the dh recurrence carries (within the
+    dzx limit) move it by more than summation order does: it is held to
+    the plain product of the kernel's own dzx instead, rounded once; and
+    as a whole, relative to its max, to the plain backward's dW
+    (RNN_BF16_DW_TOL; the control's reading is reported beside it)."""
+    out, dw_rel = {}, {}
+    for label, rounded in (("matched", True), ("control", False)):
+        st = {}
+        for d, (z, w, dy, rev) in enumerate(zip(zxs, ws, dys, revs)):
+            pf = fr.lstm_forward_reference(z, w, rev,
+                                           round_operands=rounded)
+            pdz, pdw_ref = fr.lstm_backward_reference(
+                w, *res[d], dy, rev, round_operands=rounded)
+            pdw = _dw_of(dzx[d] if rounded else pdz, res[d][0], rev)
+            for nm, a, b in zip(("ys", "c", "gates", "dzx", "dw"),
+                                (*res[d], dzx[d], dw[d].to(w.dtype)),
+                                (*pf, pdz, pdw)):
+                st[f"{nm}{d}"] = _ulp_stats(a, b)
+            dw_rel[label] = max(dw_rel.get(label, 0.0),
+                                _rel_err(dw[d], pdw_ref))
+        out[label] = st
+    out["dw_rel_err"] = dw_rel
+    check(dw_rel["matched"] <= RNN_BF16_DW_TOL,
+          f"{where}: dW {dw_rel['matched']} relative from the plain "
+          f"backward's dW")
+    for nm, s in out["matched"].items():
+        check(s["max_ulps"] <= BF16_ULP_TOL,
+              f"{where}: {nm} {s['max_ulps']} bf16 ulps from the plain "
+              "version with the kernel's roundings")
+        check(s["mismatch"] <= BF16_MISMATCH_TOL,
+              f"{where}: {nm} differs from the plain version with the "
+              f"kernel's roundings in a share {s['mismatch']}")
+    if gate:
+        for names in (("ys",), ("dzx",)):
+            worst = max(s["mismatch"] for nm, s in out["control"].items()
+                        if nm.rstrip("01") in names)
+            check(worst > BF16_MISMATCH_TOL,
+                  f"{where}: the control without the kernel's roundings "
+                  f"passes the mismatch limit ({names}: {worst})")
+    return out
+
+
+def _rnn_times(fr, flush, zxs, ws, dys, revs, res):
+    """Kernel and plain times at a timed case, and cuDNN's LSTM over the
+    same batch (its input projection included) as the yardstick."""
+    import torch
+
+    reps = dict(reps=10, warmup=2)
+    times = {
+        "fwd_ms": cuda_ms(lambda: fr.lstm_fwd_cuda(zxs, ws, revs, True),
+                          flush, **reps),
+        "infer_ms": cuda_ms(lambda: fr.lstm_fwd_cuda(zxs, ws, revs, False),
+                            flush, **reps),
+        "bwd_ms": cuda_ms(lambda: fr.lstm_bwd_cuda(ws, res, dys, revs),
+                          flush, **reps),
+        "plain_fwd_ms": cuda_ms(lambda: [fr.lstm_forward_reference(z, w, r)
+                                         for z, w, r in zip(zxs, ws, revs)],
+                                flush, reps=5, warmup=1),
+        "plain_bwd_ms": cuda_ms(
+            lambda: [fr.lstm_backward_reference(w, *rk, dy, r)
+                     for w, rk, dy, r in zip(ws, res, dys, revs)],
+            flush, reps=5, warmup=1),
+    }
+    n, t, h4 = zxs[0].shape
+    h = h4 // 4
+    lib = None
+    for dtype in (zxs[0].dtype, torch.float32):
+        try:        # yardstick only, never called by the port
+            lstm = torch.nn.LSTM(h, h, batch_first=True,
+                                 bidirectional=len(zxs) == 2).cuda().to(
+                                     dtype)
+            lstm.flatten_parameters()
+            x = torch.randn(n, t, h, device="cuda", dtype=dtype,
+                            requires_grad=True)
+            y, _ = lstm(x)
+            dy = torch.randn_like(y)
+            params = [x, *lstm.parameters()]
+            torch.autograd.grad(y, params, dy, retain_graph=True)
+            torch.cuda.synchronize()
+        except RuntimeError as err:   # cuDNN without this dtype
+            times.setdefault("cudnn_refused", []).append(
+                f"{dtype}: {str(err)[:120]}")
+            continue
+
+        def fwd_bwd():
+            yy, _ = lstm(x)
+            torch.autograd.grad(yy, params, dy)
+
+        lib = {"cudnn_dtype": str(dtype).replace("torch.", ""),
+               "cudnn_fwd_ms": cuda_ms(lambda: lstm(x), flush, **reps),
+               "cudnn_bwd_ms": cuda_ms(lambda: torch.autograd.grad(
+                   y, params, dy, retain_graph=True), flush, **reps),
+               "cudnn_fwd_bwd_ms": cuda_ms(fwd_bwd, flush, **reps)}
+        break
+    times.update(lib or {"cudnn_fwd_ms": None, "cudnn_bwd_ms": None,
+                         "cudnn_fwd_bwd_ms": None})
+    return times
+
+
+def _rnn_model(key, impl):
+    """The full-width BiLSTM classifier ("bilstm") or the 2-layer LSTM
+    LM ("lstm_lm") on the card, recurrences forced to `impl` ("cuda" or
+    "torch")."""
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.models import rnn
+
+    if key == "bilstm":
+        return rnn.bilstm_sentiment(RNN_VOCAB, RNN_EMBED, RNN_HIDDEN,
+                                    fused=impl)
+    lm = rnn.lstm_lm(LM_VOCAB, RNN_EMBED, RNN_HIDDEN, num_layers=LM_LAYERS)
+    for layer in lm:
+        if isinstance(layer, nn.Recurrent):
+            layer.fused = impl
+    return lm
+
+
+def phase_rnn_model():
+    """One fp32 loss-and-grad step of the full-width BiLSTM classifier
+    (batch 128 x 128) and of the 2-layer LSTM LM (batch 32 x 64) through
+    the kernels against the same step through the plain versions, from
+    the same params and batch."""
+    import numpy as np
+    import torch
+
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.models.convert import (tree_leaves,
+                                                tree_leaves_with_path,
+                                                tree_map)
+    from bigdl_tpu_torch.ops import fused_rnn as fr
+    from bigdl_tpu_torch.ops.losses import build_train_loss
+    from bigdl_tpu_torch.utils.precision import FULL_PRECISION
+
+    rng = np.random.RandomState(3)
+    batches = {
+        "bilstm": (rng.randint(0, RNN_VOCAB, (RNN_BATCH, RNN_SEQ)),
+                   rng.randint(0, 2, RNN_BATCH)),
+        "lstm_lm": (rng.randint(0, LM_VOCAB, (LM_BATCH, LM_SEQ)),
+                    rng.randint(0, LM_VOCAB, (LM_BATCH, LM_SEQ)))}
+    crits = {"bilstm": nn.ClassNLLCriterion(),
+             "lstm_lm": nn.TimeDistributedCriterion(
+                 nn.ClassNLLCriterion(), size_average=True)}
+    report = {}
+    for key in ("bilstm", "lstm_lm"):
+        x, y = (torch.as_tensor(a.astype(np.int32)).cuda()
+                for a in batches[key])
+        params, out = None, {}
+        for impl in ("cuda", "torch"):
+            model = _rnn_model(key, impl)
+            if params is None:
+                params = model.init(torch.Generator().manual_seed(0))[
+                    "params"]
+            p = tree_map(lambda t: t.detach().requires_grad_(), params)
+            loss_call = build_train_loss(model, crits[key], FULL_PRECISION)
+            counts0 = (fr.fwd_train_launches, fr.bwd_launches)
+            loss, _ = loss_call(p, model.init_state(), x, y, None)
+            grads = torch.autograd.grad(loss, tree_leaves(p))
+            torch.cuda.synchronize()
+            out[impl] = (float(loss.detach()), grads,
+                         (fr.fwd_train_launches - counts0[0],
+                          fr.bwd_launches - counts0[1]))
+        dloss = abs(out["cuda"][0] - out["torch"][0])
+        top = max(float(b.abs().max()) for b in out["torch"][1])
+        rels = {".".join(map(str, path)): float((a - b).abs().max()) / max(
+            float(b.abs().max()), TRAIN_GRAD_FLOOR * top)
+            for (path, _), a, b in zip(tree_leaves_with_path(params),
+                                       out["cuda"][1], out["torch"][1])}
+        rel = max(rels.values())
+        where = f"rnn_model {key}"
+        launches = 1 if key == "bilstm" else LM_LAYERS
+        check(math.isfinite(out["cuda"][0]), f"{where}: loss not finite")
+        check(dloss <= TRAIN_LOSS_TOL, f"{where}: |dloss| {dloss}")
+        check(rel <= TRAIN_GRAD_TOL, f"{where}: grad rel diff {rel}")
+        check(out["cuda"][2] == (launches, launches),
+              f"{where}: the kernel step launched {out['cuda'][2]}")
+        check(out["torch"][2] == (0, 0), f"{where}: the plain step launched "
+              "kernels")
+        report[key] = dict(
+            loss_cuda=out["cuda"][0], loss_torch=out["torch"][0],
+            loss_abs_diff=dloss, grad_max_rel_diff=rel,
+            grad_rel_diff_by_leaf=rels,
+            launches={"fwd": out["cuda"][2][0], "bwd": out["cuda"][2][1]},
+            params=int(sum(t.numel() for t in tree_leaves(params))))
+        del params, out
+        torch.cuda.empty_cache()
+    emit("rnn_model", tolerance={"loss": TRAIN_LOSS_TOL,
+                                 "grad_rel": TRAIN_GRAD_TOL},
+         grad_floor=TRAIN_GRAD_FLOOR,
+         shapes={"bilstm": [RNN_BATCH, RNN_SEQ], "lstm_lm": [LM_BATCH,
+                                                             LM_SEQ]},
+         **report)
+
+
+def _sentiment_samples(n, seed):
+    """Learnable sentiment data in the style of models/train.py: class y
+    draws its RNN_SEQ tokens from its own block of SENTIMENT_TOKENS ids
+    (of the full vocabulary), so a few steps already separate them."""
+    import numpy as np
+
+    from bigdl_tpu_torch.dataset.sample import Sample
+
+    rng = np.random.RandomState(seed)
+    k = SENTIMENT_TOKENS
+    return [Sample(rng.randint(y * k, (y + 1) * k,
+                               RNN_SEQ).astype(np.int32), np.int32(y))
+            for y in rng.randint(0, 2, n)]
+
+
+def _rnn_trainer(model, samples, criterion, batch, steps, watch):
+    """Optimizer(...).optimize() with Adam(1e-3) in bf16 for `steps`
+    steps; `watch(train_state)` sees the state before every step."""
+    from bigdl_tpu_torch.dataset import DataSet
+    from bigdl_tpu_torch.optim import Adam, Optimizer, Trigger
+
+    stop = Trigger.max_iteration(steps)
+
+    def end_when(state):
+        watch(state)
+        return stop(state)
+
+    Optimizer(model, DataSet.array(samples), criterion,
+              batch_size=batch).set_optim_method(Adam(1e-3)) \
+        .set_precision("bf16").set_end_when(Trigger(end_when)).optimize()
+    return model
+
+
+def _timed_watch(losses, marks, warmup, steps, counters):
+    """A watch that zeroes the kernels' counts after `warmup` steps and
+    reads them after `steps` more (the main path's window)."""
+    import torch
+
+    from bigdl_tpu_torch.ops import fused_rnn as fr
+
+    def on_step(state):
+        if state["loss"] is not None:
+            losses.append(state["loss"])
+        if state["neval"] == warmup:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            for c in counters:                  # main path starts here
+                setattr(fr, c, 0)
+            marks["t0"] = time.perf_counter()
+        elif state["neval"] == warmup + steps:
+            torch.cuda.synchronize()
+            marks["t1"] = time.perf_counter()
+            marks["launches"] = {c: getattr(fr, c)   # main path ends here
+                                 for c in counters}
+    return on_step
+
+
+def phase_rnn_trainer():
+    """The slice's main path: the BiLSTM classifier (BASELINE config 4)
+    trained through Optimizer(...).optimize() at the bench shape for
+    TRAIN_WARMUP + TRAIN_STEPS steps, launches counted over the timed
+    steps; then an inference pass over RNN_INFER_BATCHES batches under
+    torch.no_grad() (the no-residual kernel); then the 2-layer LSTM LM
+    through the same loop (one direction: the K6/K7 launches)."""
+    import numpy as np
+    import torch
+
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.models import rnn
+    from bigdl_tpu_torch.ops import fused_rnn as fr
+    from bigdl_tpu_torch.utils.precision import DEFAULT_MIXED
+
+    counters = ("fwd_train_launches", "fwd_infer_launches", "bwd_launches")
+    losses, marks = [], {}
+    model = rnn.bilstm_sentiment(RNN_VOCAB, RNN_EMBED, RNN_HIDDEN)
+    model.build(torch.Generator().manual_seed(0))
+    steps = TRAIN_WARMUP + TRAIN_STEPS
+    _rnn_trainer(model, _sentiment_samples(RNN_BATCH * steps, 11),
+                 nn.ClassNLLCriterion(), RNN_BATCH, steps,
+                 _timed_watch(losses, marks, TRAIN_WARMUP, TRAIN_STEPS,
+                              counters))
+    losses = [float(v) for v in losses]
+    dt = marks["t1"] - marks["t0"]
+    launches = marks["launches"]
+    check(len(losses) == steps and all(math.isfinite(v) for v in losses),
+          f"rnn trainer losses not all finite: {losses}")
+    check(losses[-1] < losses[0], f"rnn trainer loss did not fall: {losses}")
+    check(launches["fwd_train_launches"] == TRAIN_STEPS
+          and launches["bwd_launches"] == TRAIN_STEPS
+          and launches["fwd_infer_launches"] == 0,
+          f"rnn trainer launches {launches} != {TRAIN_STEPS} forward and "
+          f"{TRAIN_STEPS} backward")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    # inference: the trained weights in the compute dtype, no autograd
+    variables = DEFAULT_MIXED.cast_to_compute(model.variables)
+    held_out = _sentiment_samples(RNN_BATCH * RNN_INFER_BATCHES, 12)
+    correct = 0
+    torch.cuda.synchronize()
+    fr.fwd_infer_launches = fr.fwd_train_launches = 0   # inference path
+    t_inf = time.perf_counter()
+    with torch.no_grad():
+        for b in range(RNN_INFER_BATCHES):
+            chunk = held_out[b * RNN_BATCH:(b + 1) * RNN_BATCH]
+            x = torch.as_tensor(np.stack([s.feature for s in chunk])).cuda()
+            y = torch.as_tensor(np.stack([s.label for s in chunk])).cuda()
+            logp, _ = model.apply(variables, x)
+            correct += int((logp.argmax(-1) == y.long()).sum())
+    torch.cuda.synchronize()
+    t_inf = time.perf_counter() - t_inf
+    infer = (fr.fwd_infer_launches, fr.fwd_train_launches)  # path ends
+    check(infer == (RNN_INFER_BATCHES, 0),
+          f"inference launches (infer, train) {infer} != "
+          f"({RNN_INFER_BATCHES}, 0)")
+    accuracy = correct / (RNN_BATCH * RNN_INFER_BATCHES)
+
+    # the LSTM LM: one direction per layer
+    lm_losses, lm_marks = [], {}
+    lm = rnn.lstm_lm(LM_VOCAB, RNN_EMBED, RNN_HIDDEN, num_layers=LM_LAYERS)
+    lm.build(torch.Generator().manual_seed(0))
+    rng = np.random.RandomState(13)
+    from bigdl_tpu_torch.dataset.sample import Sample
+
+    period = rng.randint(0, LM_VOCAB, 16)         # a learnable sequence
+    lm_samples = []
+    for _ in range(LM_BATCH * (LM_WARMUP + LM_STEPS)):
+        s = rng.randint(0, 16)
+        toks = period[(s + np.arange(LM_SEQ + 1)) % 16].astype(np.int32)
+        lm_samples.append(Sample(toks[:-1], toks[1:]))
+    _rnn_trainer(lm, lm_samples, nn.TimeDistributedCriterion(
+        nn.ClassNLLCriterion(), size_average=True), LM_BATCH,
+        LM_WARMUP + LM_STEPS,
+        _timed_watch(lm_losses, lm_marks, LM_WARMUP, LM_STEPS, counters))
+    lm_losses = [float(v) for v in lm_losses]
+    lm_launches = lm_marks["launches"]
+    check(all(math.isfinite(v) for v in lm_losses)
+          and lm_losses[-1] < lm_losses[0],
+          f"LM trainer losses not finite and falling: {lm_losses}")
+    check(lm_launches["fwd_train_launches"] == LM_STEPS * LM_LAYERS
+          and lm_launches["bwd_launches"] == LM_STEPS * LM_LAYERS,
+          f"LM trainer launches {lm_launches} != {LM_STEPS} steps x "
+          f"{LM_LAYERS} layers")
+    lm_dt = lm_marks["t1"] - lm_marks["t0"]
+    emit("rnn_trainer", steps=TRAIN_STEPS, warmup_steps=TRAIN_WARMUP,
+         batch=RNN_BATCH, seq=RNN_SEQ, seconds=dt,
+         step_ms=dt / TRAIN_STEPS * 1e3,
+         samples_per_sec=TRAIN_STEPS * RNN_BATCH / dt,
+         tokens_per_sec=TRAIN_STEPS * RNN_BATCH * RNN_SEQ / dt,
+         peak_mem_gib=peak, launches=launches, losses=losses,
+         infer={"batches": RNN_INFER_BATCHES, "seconds": t_inf,
+                "launches": infer[0], "accuracy": accuracy},
+         lm={"steps": LM_STEPS, "batch": LM_BATCH, "seq": LM_SEQ,
+             "layers": LM_LAYERS, "step_ms": lm_dt / LM_STEPS * 1e3,
+             "tokens_per_sec": LM_STEPS * LM_BATCH * LM_SEQ / lm_dt,
+             "launches": lm_launches, "losses": lm_losses})
+    return {"bi": launches, "infer": infer[0], "uni": lm_launches}
+
+
+def phase_rnn_profile():
+    """Where one BiLSTM trainer step's device time goes (`--profile`
+    only): the step after two warm-up steps under torch.profiler; the
+    LSTM kernels' share of the device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.models import rnn
+
+    prof = profile(activities=[ProfilerActivity.CPU,
+                               ProfilerActivity.CUDA])
+    marks = {}
+
+    def on_step(state):
+        if state["neval"] == 2:
+            torch.cuda.synchronize()
+            prof.start()
+            marks["t0"] = time.perf_counter()
+        elif state["neval"] == 3:
+            torch.cuda.synchronize()
+            marks["t1"] = time.perf_counter()
+            prof.stop()
+
+    model = rnn.bilstm_sentiment(RNN_VOCAB, RNN_EMBED, RNN_HIDDEN)
+    model.build(torch.Generator().manual_seed(0))
+    _rnn_trainer(model, _sentiment_samples(RNN_BATCH * 3, 14),
+                 nn.ClassNLLCriterion(), RNN_BATCH, 3, on_step)
+    rows = [(e.self_device_time_total, e.count, e.key)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    rows.sort(reverse=True)
+    OUT_DIR.mkdir(exist_ok=True)
+    prof.export_chrome_trace(str(OUT_DIR / "rnn_train_trace.json"))
+    if not rows:
+        emit("rnn_profile", device_ms_per_step="not measured")
+        return
+    dev_ms = sum(r[0] for r in rows) / 1e3
+    lstm_ms = sum(r[0] for r in rows if "lstm_" in r[2]) / 1e3
+    wall_ms = (marks["t1"] - marks["t0"]) * 1e3
+    emit("rnn_profile", steps=1, profiled_wall_ms_per_step=wall_ms,
+         device_ms_per_step=dev_ms, lstm_kernels_ms_per_step=lstm_ms,
+         lstm_share_of_device=lstm_ms / dev_ms,
+         device_busy_share=dev_ms / wall_ms,
+         kernels_per_step=sum(r[1] for r in rows),
+         top=[{"name": k[:80], "calls": c, "ms": us / 1e3}
+              for us, c, k in rows[:12]])
+
+
 def main() -> int:
     import torch
 
@@ -966,6 +1588,18 @@ def main() -> int:
     if "--profile" in sys.argv[1:]:
         torch.cuda.empty_cache()
         phase_train_profile()
+    torch.cuda.empty_cache()
+    flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32,
+                        device="cuda")
+    rnn = phase_rnn(flush)
+    del flush
+    torch.cuda.empty_cache()
+    phase_rnn_model()
+    torch.cuda.empty_cache()
+    rnn_launches = phase_rnn_trainer()
+    if "--profile" in sys.argv[1:]:
+        torch.cuda.empty_cache()
+        phase_rnn_profile()
     fp32 = kern["fp32"]
     # the flash rows: the trainer's shape in its compute dtype (bf16)
     row = flash["train/bf16"]
@@ -1000,9 +1634,43 @@ def main() -> int:
         "bound_by": row["bwd"]["bound_by"],
         "library_ms": row["sdpa_bwd_ms"],
     }]
+    # the LSTM rows, each at the shape its main path gives it, in the
+    # compute dtype (bf16): K6/K7 at the LSTM LM's (N = 32, T = 64, one
+    # direction), K8/K9 at the BiLSTM trainer's (N = T = 128, two); errors
+    # are the fp32 cases' largest; K6/K8 launches count the training
+    # variant (the inference variant's are in the rnn_trainer phase)
+    src = "bigdl_tpu_torch/ops/csrc/fused_rnn.cu"
+    err_fwd = max(r["fwd_max_abs_err"] for k, r in rnn.items()
+                  if k.endswith("/fp32"))
+    err_bwd = max(r["grad_max_abs_err"] for k, r in rnn.items()
+                  if k.endswith("/fp32"))
+    for num, case, kind, launch in (
+            ("K6", "lm_uni", "fwd", rnn_launches["uni"]
+             ["fwd_train_launches"]),
+            ("K7", "lm_uni", "bwd", rnn_launches["uni"]["bwd_launches"]),
+            ("K8", "train_bi", "fwd", rnn_launches["bi"]
+             ["fwd_train_launches"]),
+            ("K9", "train_bi", "bwd", rnn_launches["bi"]["bwd_launches"])):
+        r = rnn[f"{case}/bf16"]
+        bound = r["train_bound" if kind == "fwd" else "bwd_bound"]
+        kernels.append({
+            "name": ("bilstm_" if case == "train_bi" else "lstm_") + kind,
+            "route": "cuda", "source": src,
+            "replaces": {"K6": "bigdl_tpu/ops/fused_rnn.py:189 :200",
+                         "K7": "bigdl_tpu/ops/fused_rnn.py:211",
+                         "K8": "bigdl_tpu/ops/fused_rnn.py:375 :392",
+                         "K9": "bigdl_tpu/ops/fused_rnn.py:406"}[num],
+            "launches": launch,
+            "max_abs_err": err_fwd if kind == "fwd" else err_bwd,
+            "ms": r[f"{kind}_ms"], "plain_ms": r[f"plain_{kind}_ms"],
+            "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
+            "library_ms": r[f"cudnn_{kind}_ms"],
+        })
     for k in kernels:
-        check(all(isinstance(v, str) or math.isfinite(v)
-                  for v in k.values()), f"{k['name']}: non-finite field")
+        check(all(isinstance(v, str) or v is None and n == "library_ms"
+                  or math.isfinite(v) for n, v in k.items()),
+              f"{k['name']}: non-finite field")
+        check(k["launches"] > 0, f"{k['name']}: no launch on its main path")
     RESULTS["kernels"] = kernels
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(RESULTS, indent=1))

@@ -26,9 +26,17 @@ def _imported(path: Path):
             yield node.module or ""
 
 
+NEW_IN_SLICE_3 = ("nn/initialization.py", "nn/container.py",
+                  "nn/embedding.py", "nn/linear.py", "nn/activation.py",
+                  "nn/recurrent.py", "ops/fused_rnn.py", "models/rnn.py")
+
+
 def test_port_files_exist():
     assert len(PORT_FILES) > 10
     assert all(p.exists() for p in PORT_FILES)
+    scanned = {str(p.relative_to(ROOT / "bigdl_tpu_torch"))
+               for p in PORT_FILES if "bigdl_tpu_torch" in p.parts}
+    assert set(NEW_IN_SLICE_3) <= scanned
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -47,7 +55,9 @@ def test_port_import_loads_no_jax():
             "bigdl_tpu_torch.ops.flash_attention, "
             "bigdl_tpu_torch.ops.losses, bigdl_tpu_torch.nn, "
             "bigdl_tpu_torch.optim, bigdl_tpu_torch.dataset, "
-            "bigdl_tpu_torch.utils.precision; "
+            "bigdl_tpu_torch.utils.precision, "
+            "bigdl_tpu_torch.ops.fused_rnn, bigdl_tpu_torch.nn.recurrent, "
+            "bigdl_tpu_torch.models.rnn; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{BANNED!r}]; "
             "assert not bad, bad")
