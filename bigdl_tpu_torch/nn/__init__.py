@@ -24,3 +24,4 @@ from bigdl_tpu_torch.nn.recurrent import (BiRecurrent, Cell,
                                           ConvLSTMPeephole, GRU, LSTM,
                                           LSTMPeephole, Recurrent, RnnCell,
                                           TimeDistributed)
+from bigdl_tpu_torch.nn.table_ops import Max, Mean, Min, Sum

@@ -29,11 +29,13 @@ name, tensor), and `apply(variables, ...)` is the forward, not torch's
 (`zero_grad`, `clip_grad_norm_(m.parameters())`, `m.apply(init_fn)`)
 do not work on a port model, and `.to()`/`.cuda()`/`.cpu()` raise
 rather than return a module whose variables stayed where they were:
-move the variables with `models.convert.tree_map`. Not ported:
-constructor capture for the
-module serializer, `save_module`/`load_module`, the graph `__call__`,
-`get_parameters` and the eager `forward`/`training()`/`evaluate()`/
-`predict()` facade (torch's own `training` flag is left alone).
+move the variables with `models.convert.tree_map`. `evaluate(dataset,
+methods)`, `predict(dataset)` and `predict_class(dataset)` run
+optim/evaluator.py over the stored variables. Not ported: constructor
+capture for the module serializer, `save_module`/`load_module`, the
+graph `__call__`, `get_parameters` and the eager `forward`/
+`training()` facade with the no-argument `evaluate()` that switches it
+to eval mode (torch's own `training` flag is left alone).
 """
 
 from __future__ import annotations
@@ -130,6 +132,26 @@ class Module(torch.nn.Module):
     @variables.setter
     def variables(self, v: Dict[str, Any]) -> None:
         self._variables = v
+
+    def evaluate(self, dataset, methods, batch_size: int = 32):
+        """{method name: ValidationResult} over `dataset` (reference:
+        AbstractModule.evaluate(rdd, methods))."""
+        from bigdl_tpu_torch.optim.evaluator import Evaluator
+
+        return Evaluator(self).test(dataset, methods, batch_size=batch_size)
+
+    def predict(self, dataset, batch_size: int = 32) -> torch.Tensor:
+        """Batch inference over a dataset: the outputs stacked along the
+        batch axis (reference: AbstractModule.predict)."""
+        from bigdl_tpu_torch.optim.evaluator import Predictor
+
+        return Predictor(self, batch_size=batch_size).predict(dataset)
+
+    def predict_class(self, dataset, batch_size: int = 32) -> torch.Tensor:
+        """Argmax class ids (reference: AbstractModule.predictClass)."""
+        from bigdl_tpu_torch.optim.evaluator import Predictor
+
+        return Predictor(self, batch_size=batch_size).predict_class(dataset)
 
     def set_name(self, name: str) -> "Module":
         self.name = name

@@ -20,8 +20,9 @@ plain version on CPU tensors), a string forces that `impl` ("cuda" or
 "torch"). `fused=False` runs the per-step loop, the JAX package's own
 `lax.scan` route, as does `return_state=True` (the kernels do not emit
 the final carry). `BiRecurrent` of two equal-sized LSTMs runs both
-directions in one `bilstm_scan` launch. GRU has no kernel yet: on a
-CUDA tensor its fused route raises NotImplementedError (K10/K11).
+directions in one `bilstm_scan` launch; any other pair, a GRU pair
+included, runs one `Recurrent` per direction, the backward one on
+time-flipped input, as the JAX package does (two `gru_scan` launches).
 `unroll` is accepted for signature parity and has no effect (a Python
 loop has nothing to unroll). Per-step `rng` folding is kept
 (`_fold_rng`), though no ported cell draws from it.
@@ -241,8 +242,9 @@ class GRU(Cell):
 
     # ---- persistent-kernel protocol -----------------------------------
     def fused_scan(self, params, zx, impl=None):
-        """ops/fused_rnn.gru_scan: the plain version on CPU tensors; on
-        CUDA tensors it raises until the GRU kernels are ported."""
+        """The whole time loop over the hoisted feed in one
+        ops/fused_rnn.gru_scan call (kernel or plain version by
+        `impl`)."""
         d, h = self.input_size, self.hidden_size
         return fused_rnn.gru_scan(
             zx[..., :2 * h], zx[..., 2 * h:],

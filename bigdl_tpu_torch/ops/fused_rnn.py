@@ -1,21 +1,27 @@
-"""Persistent-RNN scans: the CUDA LSTM kernels and their plain versions.
+"""Persistent-RNN scans: the CUDA LSTM and GRU kernels and their plain
+versions.
 
-Ports bigdl_tpu/ops/fused_rnn.py. There the whole LSTM time loop runs
-in one Pallas launch: `_lstm_fwd_kernel` / `_lstm_fwd_infer_kernel` and
-`_lstm_bwd_kernel` for one direction (K6/K7), `_bilstm_fwd_kernel` /
-`_bilstm_fwd_infer_kernel` and `_bilstm_bwd_kernel` for both directions
-in one launch (K8/K9). Here all of them are the two templated kernels
-of `csrc/fused_rnn.cu`: one forward (with or without residuals) and one
-backward, each running one or two directions per launch — the reverse
-direction walks time backwards over true-time slots, so nothing is
-flipped and both outputs come back in true time order.
+Ports bigdl_tpu/ops/fused_rnn.py. There the whole time loop runs in one
+Pallas launch: `_lstm_fwd_kernel` / `_lstm_fwd_infer_kernel` and
+`_lstm_bwd_kernel` for one LSTM direction (K6/K7),
+`_bilstm_fwd_kernel` / `_bilstm_fwd_infer_kernel` and
+`_bilstm_bwd_kernel` for both directions in one launch (K8/K9),
+`_gru_fwd_kernel` / `_gru_fwd_infer_kernel` and `_gru_bwd_kernel` for
+one GRU direction (K10/K11). Here they are the templated kernels of
+`csrc/fused_rnn.cu`: for the LSTM one forward (with or without
+residuals) and one backward, each running one or two directions per
+launch — the reverse direction walks time backwards over true-time
+slots, so nothing is flipped and both outputs come back in true time
+order; for the GRU one forward (with or without residuals) and one
+backward, one direction a launch.
 
 Public functions keep the JAX signatures and the (N, T, .) layouts:
-`lstm_scan(zx, w_hh)`, `bilstm_scan(zx_f, zx_b, w_f, w_b)`, and
-`gru_scan(...)`, which has only its plain version (K10/K11, the GRU
-kernels, are the next slice: ROADMAP.md queue B). zx is the hoisted
-input projection including bias, (N, T, 4H); w_hh is (H, 4H), gates in
-the order i, f, g, o.
+`lstm_scan(zx, w_hh)`, `bilstm_scan(zx_f, zx_b, w_f, w_b)` and
+`gru_scan(zx_gates, zx_cand, w_g, w_c)`. zx is the hoisted input
+projection including bias, (N, T, 4H); w_hh is (H, 4H), gates in the
+order i, f, g, o. zx_gates (N, T, 2H) holds the z and r gates' hoisted
+projections, zx_cand (N, T, H) the candidate's; w_g is (H, 2H), w_c
+(H, H).
 
 `impl`: None picks `"cuda"` for CUDA tensors and `"torch"` for CPU
 tensors; `"torch"` is the plain version on whatever device; `"cuda"`
@@ -28,21 +34,30 @@ eligibility gate: above `MAX_HIDDEN` the kernels raise.
 
 Gradients go through one `torch.autograd.Function` per call (kernels
 or plain versions alike). Its forward runs the training variant, which
-saves ys, c and the activated gates, only when autograd records and an
-input requires grad; otherwise the inference variant writes ys alone,
-as the JAX `custom_vjp` primal does. The backward sums the per-tile
-fp32 dW in a fixed order and casts it to W's dtype.
+saves the residuals (LSTM: ys, c and the activated gates; GRU: ys, zr
+and cand), only when autograd records and an input requires grad;
+otherwise the inference variant writes ys alone, as the JAX
+`custom_vjp` primal does. The backward sums the per-tile fp32 dW in a
+fixed order and casts it to W's dtype.
 
-The plain versions (`lstm_forward_reference`, `lstm_backward_reference`)
-round where the kernels round: h and c carries in fp32, h rounded to
-W's dtype before h . W, ys/c/gates stored in zx's dtype, h_prev and
-c_prev read back from the stored sequences, dz in fp32 stored as dzx in
-zx's dtype and rounded to W's dtype for both products, dc in fp32.
-With `round_operands=False` they keep everything in fp32: the control
-that shows a bf16 check can tell the roundings from their absence.
+The plain versions round where the kernels round. LSTM
+(`lstm_forward_reference`, `lstm_backward_reference`): h and c carries
+in fp32, h rounded to W's dtype before h . W, ys/c/gates stored in zx's
+dtype, h_prev and c_prev read back from the stored sequences, dz in
+fp32 stored as dzx in zx's dtype and rounded to W's dtype for both
+products, dc in fp32. GRU (`gru_forward_reference`,
+`gru_backward_reference`): the h carry in fp32, h and r * h rounded to
+W's dtype before their products, zr/cand/ys stored in zg's dtype, h_prev
+read back from the stored ys, dcand_pre and dzr in fp32, stored as
+dzc/dzg in zg's dtype and rounded to W's dtype for the products, dh in
+fp32. With `round_operands=False` they keep everything in fp32: the
+control that shows a bf16 check can tell the roundings from their
+absence.
 
-`fwd_train_launches`, `fwd_infer_launches` and `bwd_launches` count
-kernel launches (plain ints, incremented only where a kernel launches).
+`fwd_train_launches`, `fwd_infer_launches` and `bwd_launches` (LSTM),
+`gru_fwd_train_launches`, `gru_fwd_infer_launches` and
+`gru_bwd_launches` (GRU) count kernel launches (plain ints, incremented
+only where a kernel launches).
 """
 
 from __future__ import annotations
@@ -61,6 +76,9 @@ BLOCK_N = 4                 # kBlockN of csrc/fused_rnn.cu: rows per CTA
 fwd_train_launches = 0
 fwd_infer_launches = 0
 bwd_launches = 0
+gru_fwd_train_launches = 0
+gru_fwd_infer_launches = 0
+gru_bwd_launches = 0
 
 
 def _resolve_impl(x: torch.Tensor, impl: Optional[str]) -> str:
@@ -181,6 +199,12 @@ def _lib() -> ctypes.CDLL:
         lib.bigdl_lstm_bwd.argtypes = (
             [ctypes.c_void_p] * 14 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
         lib.bigdl_lstm_bwd.restype = ctypes.c_int
+        lib.bigdl_gru_fwd.argtypes = (
+            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+        lib.bigdl_gru_fwd.restype = ctypes.c_int
+        lib.bigdl_gru_bwd.argtypes = (
+            [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+        lib.bigdl_gru_bwd.restype = ctypes.c_int
         lib.bigdl_lstm_error_string.argtypes = [ctypes.c_int]
         lib.bigdl_lstm_error_string.restype = ctypes.c_char_p
     return lib
@@ -340,11 +364,15 @@ class _LSTMScan(torch.autograd.Function):
         return (None, None, *dzxs, *dws)
 
 
-def _scan(zxs, ws, reverses, impl, block_n):
-    impl = _resolve_impl(zxs[0], impl)
+def _check_block_n(block_n: Optional[int]) -> None:
     if block_n not in (None, BLOCK_N):
         raise ValueError(f"fused_rnn block_n {block_n}: the kernels' batch "
                          f"tile is fixed at {BLOCK_N} rows (pass None)")
+
+
+def _scan(zxs, ws, reverses, impl, block_n):
+    impl = _resolve_impl(zxs[0], impl)
+    _check_block_n(block_n)
     tensors = (*zxs, *ws)
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         return _LSTMScan.apply(impl, tuple(reverses), *tensors)
@@ -374,37 +402,225 @@ def bilstm_scan(zx_f: torch.Tensor, zx_b: torch.Tensor, w_f: torch.Tensor,
     return ys_f, ys_b
 
 
+
+
 # ------------------------------------------------------------- GRU
-def _gru_scan_plain(zg: torch.Tensor, zc: torch.Tensor, wg: torch.Tensor,
-                    wc: torch.Tensor) -> torch.Tensor:
-    """The GRU recurrence of `_gru_scan_xla` (nn/recurrent.GRU.
-    step_precomputed): zr = sigmoid(zg_t + h . W_g), cand = tanh(zc_t +
-    (r * h) . W_c), h' = (1 - z) h + z cand; autograd differentiates it."""
+def gru_forward_reference(zg: torch.Tensor, zc: torch.Tensor,
+                          wg: torch.Tensor, wc: torch.Tensor,
+                          round_operands: bool = True
+                          ) -> Tuple[torch.Tensor, torch.Tensor,
+                                     torch.Tensor]:
+    """The GRU forward kernel in plain PyTorch: (ys, zr, cand), (N, T, H),
+    (N, T, 2H), (N, T, H) in zg's dtype (fp32 with round_operands=False).
+    zr = sigmoid(zg_t + h . W_g), cand = tanh(zc_t + (r h) . W_c),
+    h' = (1 - z) h + z cand, the h carry in fp32."""
     n, n_t, h2 = zg.shape
     hidden = h2 // 2
-    h = zg.new_zeros(n, hidden)
-    ys = []
+    out_dtype = zg.dtype if round_operands else torch.float32
+    wg32, wc32 = wg.float(), wc.float()
+
+    def operand(x, w):
+        return x.to(w.dtype).float() if round_operands else x
+
+    h = torch.zeros(n, hidden, device=zg.device)
+    ys = torch.empty(n, n_t, hidden, dtype=out_dtype, device=zg.device)
+    zrs = torch.empty(n, n_t, h2, dtype=out_dtype, device=zg.device)
+    cands = torch.empty(n, n_t, hidden, dtype=out_dtype, device=zg.device)
     for t in range(n_t):
-        zr = torch.sigmoid(zg[:, t] + h @ wg)
+        zr = torch.sigmoid(zg[:, t].float() + operand(h, wg) @ wg32)
         z, r = zr[:, :hidden], zr[:, hidden:]
-        cand = torch.tanh(zc[:, t] + (r * h) @ wc)
+        cand = torch.tanh(zc[:, t].float() + operand(r * h, wc) @ wc32)
         h = (1.0 - z) * h + z * cand
-        ys.append(h)
-    return torch.stack(ys, dim=1)
+        ys[:, t] = h
+        zrs[:, t] = zr
+        cands[:, t] = cand
+    return ys, zrs, cands
+
+
+def gru_backward_reference(wg: torch.Tensor, wc: torch.Tensor,
+                           ys: torch.Tensor, zr: torch.Tensor,
+                           cand: torch.Tensor, dy: torch.Tensor,
+                           round_operands: bool = True
+                           ) -> Tuple[torch.Tensor, torch.Tensor,
+                                      torch.Tensor, torch.Tensor]:
+    """The GRU backward kernel in plain PyTorch, from the forward's
+    residuals: (dzg, dzc in zr's dtype — fp32 with round_operands=False —
+    and dW_g (H, 2H), dW_c (H, H) in fp32), a reversed sweep with the dh
+    carry in fp32 and h_prev read back from the stored ys."""
+    n, n_t, h2 = zr.shape
+    hidden = h2 // 2
+    out_dtype = zr.dtype if round_operands else torch.float32
+    wg32, wc32 = wg.float(), wc.float()
+
+    def operand(x, w):
+        return x.to(w.dtype).float() if round_operands else x
+
+    dev = zr.device
+    dh_carry = torch.zeros(n, hidden, device=dev)
+    dwg = torch.zeros(hidden, h2, device=dev)
+    dwc = torch.zeros(hidden, hidden, device=dev)
+    dzg = torch.empty(n, n_t, h2, dtype=out_dtype, device=dev)
+    dzc = torch.empty(n, n_t, hidden, dtype=out_dtype, device=dev)
+    for t in reversed(range(n_t)):
+        zr32 = zr[:, t].float()
+        z, r = zr32[:, :hidden], zr32[:, hidden:]
+        c = cand[:, t].float()
+        hp = ys[:, t - 1].float() if t > 0 else torch.zeros_like(c)
+        dh = dy[:, t].float() + dh_carry
+        dz = dh * (c - hp)
+        dcp = dh * z * (1.0 - c * c)
+        dzc[:, t] = dcp
+        dcn = operand(dcp, wc)
+        drh = dcn @ wc32.T
+        dh_prev = dh * (1.0 - z) + drh * r
+        dzr = torch.cat([dz * z * (1.0 - z), drh * hp * r * (1.0 - r)], -1)
+        dzg[:, t] = dzr
+        dzrn = operand(dzr, wg)
+        dh_carry = dh_prev + dzrn @ wg32.T
+        dwg = dwg + operand(hp, wg).T @ dzrn
+        dwc = dwc + operand(r * hp, wc).T @ dcn
+    return dzg, dzc, dwg, dwc
+
+
+def _gru_check(zg: torch.Tensor, zc: torch.Tensor, wg: torch.Tensor,
+               wc: torch.Tensor) -> None:
+    """What the GRU kernels take: CUDA tensors on one device, alike in
+    fp32 or bf16, zg (N, T, 2H), zc (N, T, H), W_g (H, 2H), W_c (H, H),
+    H <= MAX_HIDDEN."""
+    named = (("zx_gates", zg), ("zx_cand", zc), ("w_g", wg), ("w_c", wc))
+    for name, t in named:
+        if not t.is_cuda or t.device != zg.device:
+            raise ValueError(f"gru_scan impl='cuda': {name} must be a CUDA "
+                             f"tensor on {zg.device}, got {t.device}")
+        if t.dtype != zg.dtype or t.dtype not in (torch.float32,
+                                                  torch.bfloat16):
+            raise ValueError(f"gru_scan impl='cuda' takes its inputs in one "
+                             f"dtype, float32 or bfloat16; got "
+                             f"{[x.dtype for _, x in named]}")
+    n, n_t, h2 = zg.shape
+    hidden = h2 // 2
+    want = [(n, n_t, 2 * hidden), (n, n_t, hidden), (hidden, 2 * hidden),
+            (hidden, hidden)]
+    shapes = [tuple(t.shape) for _, t in named]
+    if h2 % 2 or shapes != want:
+        raise ValueError(f"gru_scan: shapes {shapes} do not match (N, T, 2H),"
+                         f" (N, T, H), (H, 2H), (H, H)")
+    if not 1 <= hidden <= MAX_HIDDEN or n < 1 or n_t < 1:
+        raise ValueError(f"gru_scan impl='cuda' takes hidden sizes 1.."
+                         f"{MAX_HIDDEN} and a non-empty batch and "
+                         f"sequence, got zx_gates {tuple(zg.shape)}")
+
+
+def gru_fwd_cuda(zg: torch.Tensor, zc: torch.Tensor, wg: torch.Tensor,
+                 wc: torch.Tensor, save: bool):
+    """One GRU forward launch. Returns (ys, zr, cand); zr and cand are
+    None when `save` is False (the inference variant)."""
+    global gru_fwd_train_launches, gru_fwd_infer_launches
+    zg, zc, wg, wc = (x.contiguous() for x in (zg, zc, wg, wc))
+    _gru_check(zg, zc, wg, wc)
+    n, n_t, h2 = zg.shape
+    ys = zg.new_empty(n, n_t, h2 // 2)
+    zr = torch.empty_like(zg) if save else None
+    cand = torch.empty_like(zc) if save else None
+    lib = _lib()
+    with torch.cuda.device(zg.device):
+        stream = torch.cuda.current_stream(zg.device).cuda_stream
+        err = lib.bigdl_gru_fwd(
+            zg.data_ptr(), zc.data_ptr(), wg.data_ptr(), wc.data_ptr(),
+            ys.data_ptr(), *_pair([zr, cand]), n, n_t, h2 // 2, int(save),
+            int(zg.dtype == torch.bfloat16), stream)
+    _raise_on(err, lib, "GRU forward")
+    if save:
+        gru_fwd_train_launches += 1
+    else:
+        gru_fwd_infer_launches += 1
+    return ys, zr, cand
+
+
+def gru_bwd_cuda(wg: torch.Tensor, wc: torch.Tensor, ys: torch.Tensor,
+                 zr: torch.Tensor, cand: torch.Tensor, dy: torch.Tensor):
+    """One GRU backward launch from the forward's residuals. Returns
+    (dzg, dzc, dW_g as (tiles, H, 2H) fp32, dW_c as (tiles, H, H) fp32 —
+    one slice per batch tile)."""
+    global gru_bwd_launches
+    ys, zr, cand = (x.contiguous() for x in (ys, zr, cand))
+    dy = dy.to(ys.dtype).contiguous()
+    _gru_check(zr, cand, wg, wc)
+    if ys.shape != cand.shape or dy.shape != cand.shape \
+            or ys.dtype != zr.dtype:
+        raise ValueError(f"gru_scan backward: ys {tuple(ys.shape)} "
+                         f"{ys.dtype} and dy {tuple(dy.shape)} do not match "
+                         f"cand {tuple(cand.shape)} {zr.dtype}")
+    n, n_t, h2 = zr.shape
+    hidden = h2 // 2
+    wgt, wct = wg.t().contiguous(), wc.t().contiguous()
+    tiles = (n + BLOCK_N - 1) // BLOCK_N
+    dzg, dzc = torch.empty_like(zr), torch.empty_like(cand)
+    dwg = torch.empty(tiles, hidden, h2, dtype=torch.float32,
+                      device=zr.device)
+    dwc = torch.empty(tiles, hidden, hidden, dtype=torch.float32,
+                      device=zr.device)
+    lib = _lib()
+    with torch.cuda.device(zr.device):
+        stream = torch.cuda.current_stream(zr.device).cuda_stream
+        err = lib.bigdl_gru_bwd(
+            wgt.data_ptr(), wct.data_ptr(), ys.data_ptr(), zr.data_ptr(),
+            cand.data_ptr(), dy.data_ptr(), dzg.data_ptr(), dzc.data_ptr(),
+            dwg.data_ptr(), dwc.data_ptr(), n, n_t, hidden,
+            int(zr.dtype == torch.bfloat16), stream)
+    _raise_on(err, lib, "GRU backward")
+    gru_bwd_launches += 1
+    return dzg, dzc, dwg, dwc
+
+
+def _gru_forward(impl, zg, zc, wg, wc, save):
+    if impl == "torch":
+        out = gru_forward_reference(zg, zc, wg, wc)
+        return out if save else (out[0], None, None)
+    return gru_fwd_cuda(zg, zc, wg, wc, save)
+
+
+class _GRUScan(torch.autograd.Function):
+    """ys, differentiable in zg, zc, W_g and W_c. Forward saves (W_g,
+    W_c, ys, zr, cand), as `_gru_core_fwd` does; backward is one backward
+    launch (or the plain backward) and a fixed-order sum of the per-tile
+    dW."""
+
+    @staticmethod
+    def forward(ctx, impl, zg, zc, wg, wc):
+        ys, zr, cand = _gru_forward(impl, zg, zc, wg, wc, True)
+        ctx.save_for_backward(wg, wc, ys, zr, cand)
+        ctx.impl = impl
+        ctx.set_materialize_grads(False)
+        return ys
+
+    @staticmethod
+    def backward(ctx, dy):
+        if dy is None:
+            return None, None, None, None, None
+        wg, wc, ys, zr, cand = ctx.saved_tensors
+        if ctx.impl == "torch":
+            dzg, dzc, dwg, dwc = gru_backward_reference(
+                wg, wc, ys, zr, cand, dy.to(ys.dtype))
+            dwg, dwc = dwg[None], dwc[None]
+        else:
+            dzg, dzc, dwg, dwc = gru_bwd_cuda(wg, wc, ys, zr, cand, dy)
+        return (None, dzg, dzc, dwg.sum(dim=0).to(wg.dtype),
+                dwc.sum(dim=0).to(wc.dtype))
 
 
 def gru_scan(zx_gates: torch.Tensor, zx_cand: torch.Tensor,
              w_g: torch.Tensor, w_c: torch.Tensor,
              impl: Optional[str] = None,
              block_n: Optional[int] = None) -> torch.Tensor:
-    """GRU scan. zx_gates: (N, T, 2H) hoisted (z, r) projections
-    (+bias); zx_cand: (N, T, H); w_g: (H, 2H); w_c: (H, H). Returns
-    (N, T, H). Only the plain version exists: the GRU kernels are not
-    ported yet, and `impl="cuda"` (or None on CUDA tensors) raises."""
-    if _resolve_impl(zx_gates, impl) == "cuda":
-        raise NotImplementedError(
-            "gru_scan: the GRU kernels (K10 _gru_fwd_kernel / K11 "
-            "_gru_bwd_kernel of bigdl_tpu/ops/fused_rnn.py) are not "
-            "ported to CUDA yet (ROADMAP.md queue B); impl='torch', or "
-            "Recurrent(GRU(...), fused=False), is the plain route")
-    return _gru_scan_plain(zx_gates, zx_cand, w_g, w_c)
+    """The whole GRU time loop in one launch. zx_gates: (N, T, 2H)
+    hoisted (z, r) gate projections including bias; zx_cand: (N, T, H)
+    hoisted candidate projection including bias; w_g: (H, 2H); w_c:
+    (H, H). Returns the hidden-state sequence (N, T, H) in zx_gates'
+    dtype, differentiable in all four."""
+    impl = _resolve_impl(zx_gates, impl)
+    _check_block_n(block_n)
+    tensors = (zx_gates, zx_cand, w_g, w_c)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        return _GRUScan.apply(impl, *tensors)
+    return _gru_forward(impl, *tensors, False)[0]

@@ -21,10 +21,16 @@ the host never waits on the card mid-loop.
 
 Ported: `set_optim_method`, `set_end_when`, `set_precision`,
 `set_constant_gradient_clipping`, `set_gradient_clipping_by_l2_norm`,
-`optimize`. Validation, checkpoints and resume, gradient
+`set_validation` and `optimize`. When the validation trigger fires
+after a step, the loop runs the model over the validation set under
+`torch.no_grad()` in the compute dtype (outputs cast back to the
+output dtype), logs each method's result, keeps the first method's
+value in `train_state["score"]` (a schedule with `on_metric` sees it)
+and all of them, by method name, in `train_state["validation"]` —
+where an end trigger can read them. Checkpoints and resume, gradient
 accumulation, the anomaly guard and fault plans, summaries and obs
-telemetry, and `set_mesh` raise NotImplementedError; ROADMAP.md
-queues them.
+telemetry, and `set_mesh` raise NotImplementedError; ROADMAP.md queues
+them.
 """
 
 from __future__ import annotations
@@ -32,7 +38,7 @@ from __future__ import annotations
 import itertools
 import logging
 import time
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import torch
 
@@ -45,6 +51,8 @@ from bigdl_tpu_torch.ops.losses import build_train_loss
 from bigdl_tpu_torch.optim.metrics import Metrics, Timer
 from bigdl_tpu_torch.optim.optim_method import OptimMethod, SGD
 from bigdl_tpu_torch.optim.trigger import Trigger
+from bigdl_tpu_torch.optim.validation import (ValidationMethod,
+                                              ValidationResult)
 from bigdl_tpu_torch.utils.precision import DEFAULT_MIXED, Policy
 
 logger = logging.getLogger("bigdl_tpu_torch.optim")
@@ -96,6 +104,10 @@ class Optimizer:
         self.grad_clip_const: Optional[tuple] = None
         self.grad_clip_norm: Optional[float] = None
         self.precision: Optional[Policy] = None  # None → full fp32
+        self.validation_trigger: Optional[Trigger] = None
+        self.validation_dataset: Optional[AbstractDataSet] = None
+        self.validation_methods: List[ValidationMethod] = []
+        self.validation_batch_size: Optional[int] = None
 
     # ------------------------------------------------------- builder surface
     def set_optim_method(self, method: OptimMethod) -> "Optimizer":
@@ -127,8 +139,14 @@ class Optimizer:
         self.grad_clip_norm = clip_norm
         return self
 
-    def set_validation(self, *args, **kwargs) -> "Optimizer":
-        _not_ported("validation (set_validation, Evaluator)")
+    def set_validation(self, trigger: Trigger, dataset: AbstractDataSet,
+                       methods: Sequence[ValidationMethod],
+                       batch_size: Optional[int] = None) -> "Optimizer":
+        self.validation_trigger = trigger
+        self.validation_dataset = dataset
+        self.validation_methods = list(methods)
+        self.validation_batch_size = batch_size or self.batch_size
+        return self
 
     def set_checkpoint(self, *args, **kwargs) -> "Optimizer":
         _not_ported("checkpointing (set_checkpoint)")
@@ -243,12 +261,38 @@ class LocalOptimizer:
                             time.perf_counter() - epoch_start)
                 epoch_start = time.perf_counter()
 
+            if (o.validation_trigger is not None
+                    and o.validation_trigger(train_state)):
+                res = self._validate(params, variables["state"])
+                for name, r in res.items():
+                    v, n = r.result()
+                    logger.info("validation %s = %.6f (%d)", name, v, n)
+                train_state["validation"] = res
+                first = next(iter(res.values()), None)
+                if first is not None:
+                    train_state["score"] = first.result()[0]
+                    sched = o.optim_method.schedule
+                    if hasattr(sched, "on_metric"):
+                        sched.on_metric(train_state["score"])
+
         if pending is not None:
             self._emit(pending)
         o.model.variables = {"params": tree_map(lambda t: t.detach(),
                                                 params),
                              "state": variables["state"]}
         return o.model
+
+    def _validate(self, params, mod_state
+                  ) -> Dict[str, ValidationResult]:
+        """The validation methods over the validation set, the forward
+        under torch.no_grad() in the compute dtype."""
+        # imported here: the evaluator imports this module's batching
+        from bigdl_tpu_torch.optim.evaluator import evaluate
+
+        o = self.o
+        return evaluate(o.model, o.validation_dataset, o.validation_methods,
+                        o.validation_batch_size,
+                        {"params": params, "state": mod_state}, o.precision)
 
     def _emit(self, pending) -> None:
         """The log line of an already-enqueued step; `float(loss)` here

@@ -75,7 +75,36 @@ It drives `bigdl_tpu_torch` only (never JAX or the JAX package):
    batches (4 no-residual forward launches; accuracy), and the 2-layer
    LSTM LM through the same loop (2 launches a step each way);
    `--profile` adds a torch.profiler breakdown of one BiLSTM step;
-12. kernels — one JSON line per the port's kernel table.
+12. gru    — the persistent-GRU kernels (forward with and without
+   residuals, backward; one direction a launch) against their plain
+   versions on GRU_CASES: the BiGRU trainer's shape (N = T = H = 128),
+   T = 1, a ragged batch of 37 rows, H = 100 and H = 512; fp32 (forward
+   <= 2e-5 abs: ys, zr, cand; gradients <= 1e-4 relative: dzg, dzc,
+   dW_g, dW_c) and bf16 element by element against the plain versions
+   that round where the kernels round: driven by the kernel's own
+   stored carries (<= 4 ulps, <= 2% off), free-running and summed in
+   fp64 (<= 8% off; the unrounded control must exceed 8% wherever
+   T > 1), bf16 dW also held to the plain backward's dW
+   (RNN_BF16_DW_TOL relative); the inference variant's ys bitwise the
+   training variant's; two backward runs bitwise equal; kernel and
+   plain times at the trainer's shape, with cuDNN's torch.nn.GRU timed
+   as a yardstick of a different function;
+13. gru_model — one fp32 loss-and-grad step of the full-width BiGRU
+   classifier (LookupTable(20000, 128) -> BiRecurrent(GRU(128, 128)) ->
+   Mean(2) -> Linear(256, 2) -> LogSoftMax, batch 128 x 128) through
+   the kernels against the same step through the plain versions (2
+   forward and 2 backward launches);
+14. gru_trainer — the slice's main path: `Optimizer(bigru, DataSet.
+   array(...), nn.ClassNLLCriterion(), batch_size=128).set_optim_method(
+   Adam(1e-3)).set_precision("bf16").set_validation(Trigger.
+   several_iteration(6), held-out data, [Top1Accuracy(), Loss(...)])
+   .optimize()`, 2 warm-up + 10 timed steps (launches counted from
+   zero: 2 training forwards and 2 backwards a step, 2 inference
+   forwards a validation batch; validation time kept apart from the
+   step time), then `Predictor.predict` over 4 batches (2 inference
+   forwards a batch) and `predict_class`, then one step under
+   torch.profiler (device busy share, where the step's time goes);
+15. kernels — one JSON line per the port's kernel table.
 
 Every phase prints one JSON line; any failed check raises and the
 script exits non-zero. The last lines are the `nvidia-smi` name/power
@@ -209,6 +238,37 @@ SENTIMENT_TOKENS = 64           # token ids per class in the trainer's data
 # the LSTM language model (the PTB vocabulary), 2 layers, batch 32 x 64
 LM_VOCAB, LM_LAYERS, LM_BATCH, LM_SEQ = 10000, 2, 32, 64
 LM_WARMUP, LM_STEPS = 2, 4
+
+# the persistent-GRU kernels (ops/csrc/fused_rnn.cu), one direction a
+# launch. Cases: (name, N, T, H). "train" is the BiGRU trainer's shape
+# (batch 128 x 128 tokens, hidden 128: each direction of
+# BiRecurrent(GRU)); then T = 1 (init and emit in one step), a ragged
+# batch (37 rows, not a tile multiple), H = 100 (not a multiple of 32)
+# and the hidden-size cap H = 512. fp32 and bf16 each, held as the LSTM
+# kernels are (RNN_TOL, BF16_ULP_TOL, BF16_MISMATCH_TOL,
+# RNN_BF16_DW_TOL).
+GRU_CASES = (
+    ("train", 128, 128, 128),
+    ("t1", 16, 1, 64),
+    ("ragged", 37, 50, 128),
+    ("h100", 24, 20, 100),
+    ("h512", 32, 16, 512),
+)
+GRU_TIMED = ("train",)
+# The GRU's bf16 outputs are also held to the free-running plain
+# versions, which carry their own state: there a one-ulp difference in a
+# stored value feeds the next step, so the order of a product's sums
+# alone moves the readings, most over the H = 512 reversed sweep. On an
+# H100 (700 W) the kernels read at most 3.9% of the elements mismatched
+# there (dzg) and the unrounded control at least 14.5% (ys); the limit
+# lies between, and the control must fail it too. The same outputs
+# against an fp64 rendering of the plain versions (the same roundings,
+# products summed in fp64) are held to this limit as well, and the fp32
+# plain versions' own distance from it is reported beside the kernel's.
+GRU_BF16_FREE_MISMATCH_TOL = 0.08
+# the BiGRU trainer (the BiLSTM trainer's configuration with a GRU cell)
+# validates every GRU_VALID_EVERY steps over GRU_VALID_BATCHES batches
+GRU_VALID_EVERY, GRU_VALID_BATCHES = 6, 2
 
 RESULTS: dict = {}
 
@@ -999,18 +1059,30 @@ def phase_train_profile():
 
 
 # ------------------------------------------------------ persistent LSTM
-def _rnn_bound(n, t, h, ndir, itemsize, kind):
+def _rnn_bound(n, t, h, ndir, itemsize, kind, cell="lstm"):
     """Least time for one launch's work: each input read once, each
     output written once; the recurrent products (2 flops a multiply-add:
     h . W forward; dz . W^T and h_prev^T . dz backward) at the fp32 SIMT
     peak, or the dense bf16 tensor-core peak for bf16. The backward's
     output is one fp32 dW a direction (what the function returns), not
-    the per-tile partials this design writes."""
-    seq, seq4, w = n * t * h, n * t * 4 * h, h * 4 * h
-    if kind == "bwd":   # W, ys, c, gates, dy in; dzx and one fp32 dW out
+    the per-tile partials this design writes. A GRU (`cell="gru"`) has
+    W_g (H, 2H) and W_c (H, H): 6 N T H^2 flops forward, 12 backward."""
+    seq = n * t * h
+    if cell == "gru":
+        w = 3 * h * h
+        if kind == "bwd":   # W_g, W_c, zr, cand, ys, dy in; dzg, dzc, dW out
+            nbytes = ndir * ((w + 5 * seq + 3 * seq) * itemsize + w * 4)
+            flops = ndir * 12 * n * t * h * h
+        else:               # zg, zc, W in; ys (+ zr, cand training) out
+            out = seq + (3 * seq if kind == "train" else 0)
+            nbytes = ndir * (3 * seq + w + out) * itemsize
+            flops = ndir * 6 * n * t * h * h
+    elif kind == "bwd":  # W, ys, c, gates, dy in; dzx and one fp32 dW out
+        seq4, w = 4 * seq, h * 4 * h
         nbytes = ndir * ((w + 3 * seq + seq4 + seq4) * itemsize + w * 4)
         flops = ndir * 2 * 2 * n * t * w
     else:               # zx, W in; ys (+ c, gates when training) out
+        seq4, w = 4 * seq, h * 4 * h
         out = seq + (seq + seq4 if kind == "train" else 0)
         nbytes = ndir * (seq4 + w + out) * itemsize
         flops = ndir * 2 * n * t * w
@@ -1551,6 +1623,565 @@ def phase_rnn_profile():
               for us, c, k in rows[:12]])
 
 
+# ------------------------------------------------------- persistent GRU
+def _gru_inputs(n, t, h, dtype, seed):
+    import torch
+
+    # the scales the models give: W_g / W_c the recurrent halves of a GRU
+    # cell's Xavier-uniform (D + H, 2H) / (D + H, H) weights with D = H,
+    # zg / zc = x . W_x of unit-variance inputs (std sqrt(D) times W's)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    a_g, a_c = (6.0 / (4 * h)) ** 0.5, (6.0 / (3 * h)) ** 0.5
+    zg = (torch.randn(n, t, 2 * h, device="cuda", generator=g)
+          * (h / 3) ** 0.5 * a_g).to(dtype)
+    zc = (torch.randn(n, t, h, device="cuda", generator=g)
+          * (h / 3) ** 0.5 * a_c).to(dtype)
+    wg = ((torch.rand(h, 2 * h, device="cuda", generator=g) * 2 - 1)
+          * a_g).to(dtype)
+    wc = ((torch.rand(h, h, device="cuda", generator=g) * 2 - 1)
+          * a_c).to(dtype)
+    dy = torch.randn(n, t, h, device="cuda", generator=g).to(dtype)
+    return zg, zc, wg, wc, dy
+
+
+def phase_gru(flush):
+    """The persistent-GRU kernels against their plain versions on every
+    case of GRU_CASES, fp32 and bf16: forward (training variant: ys, zr,
+    cand; the inference variant's ys bitwise the training variant's) and
+    backward (dzg, dzc, dW_g and dW_c summed over the batch tiles) from
+    the kernel's own residuals; two backward runs bitwise equal; in bf16
+    element by element against the plain versions that round where the
+    kernels round, with the unrounded control, and bf16 dW against the
+    plain backward's dW; kernel and plain times at GRU_TIMED."""
+    import torch
+
+    from bigdl_tpu_torch.ops import fused_rnn as fr
+
+    out = {}
+    for name, n, t, h in GRU_CASES:
+        for dname, dtype in (("fp32", torch.float32),
+                             ("bf16", torch.bfloat16)):
+            where = f"gru {name} {dname}"
+            zg, zc, wg, wc, dy = _gru_inputs(n, t, h, dtype,
+                                             n * 37 + t + h)
+            res = fr.gru_fwd_cuda(zg, zc, wg, wc, save=True)
+            infer = fr.gru_fwd_cuda(zg, zc, wg, wc, save=False)
+            grads = fr.gru_bwd_cuda(wg, wc, *res, dy)
+            again = fr.gru_bwd_cuda(wg, wc, *res, dy)
+            torch.cuda.synchronize()
+            check(torch.equal(res[0], infer[0]),
+                  f"{where}: inference ys differ from the training ys")
+            check(all(torch.equal(a, b) for a, b in zip(grads, again)),
+                  f"{where}: two backward runs differ")
+            dzg, dzc, dwg, dwc = (*grads[:2], grads[2].sum(0),
+                                  grads[3].sum(0))
+            check(all(bool(torch.isfinite(x).all())
+                      for x in (*res, dzg, dzc, dwg, dwc)),
+                  f"{where}: not finite")
+            pf = fr.gru_forward_reference(zg, zc, wg, wc)
+            pb = fr.gru_backward_reference(wg, wc, *res, dy)
+            r = {
+                "fwd_max_abs_err": max(float((a.float() - b.float()).abs()
+                                             .max())
+                                       for a, b in zip(res, pf)),
+                "grad_rel_err": {k: _rel_err(a, b) for k, a, b in zip(
+                    ("dzg", "dzc", "dwg", "dwc"), (dzg, dzc, dwg, dwc), pb)},
+                "grad_max_abs_err": max(
+                    float((a.float() - b.float()).abs().max())
+                    for a, b in zip((dzg, dzc, dwg, dwc), pb)),
+            }
+            if dname == "fp32":
+                check(r["fwd_max_abs_err"] <= RNN_TOL["fwd"],
+                      f"{where}: forward err {r['fwd_max_abs_err']}")
+                for k, e in r["grad_rel_err"].items():
+                    check(e <= RNN_TOL["grad"], f"{where}: {k} rel err {e}")
+            else:
+                r["rounding"] = _gru_rounding(fr, where, zg, zc, wg, wc, dy,
+                                              res, grads, gate=t > 1)
+            if name in GRU_TIMED:
+                r.update(_gru_times(fr, flush, zg, zc, wg, wc, dy, res))
+                for kind in ("train", "infer", "bwd"):
+                    r[f"{kind}_bound"] = _rnn_bound(n, t, h, 1,
+                                                    zg.element_size(), kind,
+                                                    cell="gru")
+            out[f"{name}/{dname}"] = r
+            del zg, zc, wg, wc, dy, res, infer, grads, again, pf, pb
+    torch.cuda.empty_cache()
+    summary = {key: {k: v for k, v in r.items()
+                     if k != "rounding" and not k.endswith("_bound")}
+               for key, r in out.items()}
+    for key, r in out.items():
+        if "rounding" in r:
+            summary[key]["rounding"] = {
+                label: {st: max(x[st] for x in r["rounding"][label]
+                                .values()) for st in ("max_ulps",
+                                                      "mismatch")}
+                for label in ("matched", "control", "free_running",
+                              "fp64_kernel", "fp64_plain")}
+            summary[key]["dw_rel_err"] = r["rounding"]["dw_rel_err"]
+    emit("gru", cases={c[0]: dict(zip(("N", "T", "H"), c[1:]))
+                       for c in GRU_CASES},
+         tolerance=RNN_TOL, block_n=fr.BLOCK_N, bitwise_backward=True,
+         bf16_rounding_tolerance={"max_ulps": BF16_ULP_TOL,
+                                  "mismatch": BF16_MISMATCH_TOL},
+         bf16_dw_rel_tolerance=RNN_BF16_DW_TOL,
+         gru_bf16_free_mismatch_tolerance=GRU_BF16_FREE_MISMATCH_TOL,
+         summary=summary)
+    RESULTS["gru_detail"] = out
+    return out
+
+
+def _gru_dw_of(dzg, dzc, ys, zr, rounded=True):
+    """(dW_g, dW_c) = sums over (row, t) of h_prev^T . dzg and (r
+    h_prev)^T . dzc in fp32 (r h_prev rounded to ys' dtype when
+    `rounded`), from given dzg / dzc and the stored sequences (h_prev
+    zero at t = 0)."""
+    import torch
+
+    h = ys.shape[-1]
+    hp = torch.zeros_like(ys, dtype=torch.float32)
+    hp[:, 1:] = ys[:, :-1].float()
+    rh = zr[..., h:].float() * hp
+    if rounded:
+        rh = rh.to(ys.dtype).float()
+    return (torch.einsum("ntk,ntj->kj", hp, dzg.float()),
+            torch.einsum("ntk,ntj->kj", rh, dzc.float()))
+
+
+def _gru_fwd_plain(zg, zc, wg, wc, ys_k=None, acc=None):
+    """gru_forward_reference's arithmetic with the products and the carry
+    in `acc` (fp32 by default), returning (ys, zr, cand) in `acc`. With
+    `ys_k`, the kernel's stored ys, the operand of h . W_g is taken from
+    it — that operand exactly, h rounded to the weights' dtype — so a
+    one-ulp difference in a stored h is not carried on by the
+    reference's own recurrence; the carry and r * h stay the
+    reference's."""
+    import torch
+
+    acc = acc or torch.float32
+    n, n_t, h2 = zg.shape
+    h = h2 // 2
+    wga, wca = wg.to(acc), wc.to(acc)
+    carry = torch.zeros(n, h, device=zg.device, dtype=acc)
+    out = [torch.empty(n, n_t, k, device=zg.device, dtype=acc)
+           for k in (h, h2, h)]
+    for t in range(n_t):
+        if ys_k is None:
+            op = carry.to(wg.dtype).to(acc)
+        else:
+            op = ys_k[:, t - 1].to(acc) if t > 0 else torch.zeros_like(carry)
+        zr = torch.sigmoid(zg[:, t].to(acc) + op @ wga)
+        z, r = zr[:, :h], zr[:, h:]
+        cand = torch.tanh(zc[:, t].to(acc)
+                          + (r * carry).to(wc.dtype).to(acc) @ wca)
+        carry = (1.0 - z) * carry + z * cand
+        for seq, v in zip(out, (carry, zr, cand)):
+            seq[:, t] = v
+    return out
+
+
+def _gru_bwd_plain(wg, wc, ys, zr, cand, dy, carried=None, acc=None):
+    """gru_backward_reference's (dzg, dzc) with the products and the dh
+    carry in `acc` (fp32 by default), returned in `acc`. With `carried`,
+    the kernel's own stored (dzg, dzc), each step's drh and dh carry take
+    the kernel's rounded dzr and dcand_pre, so a one-ulp difference in a
+    stored value is not carried on by the reference's own sweep and
+    every step is held to its own arithmetic."""
+    import torch
+
+    acc = acc or torch.float32
+    n, n_t, h2 = zr.shape
+    h = h2 // 2
+    wga, wca = wg.to(acc), wc.to(acc)
+    dh_carry = torch.zeros(n, h, device=zr.device, dtype=acc)
+    dzg = torch.empty(n, n_t, h2, device=zr.device, dtype=acc)
+    dzc = torch.empty(n, n_t, h, device=zr.device, dtype=acc)
+    for t in reversed(range(n_t)):
+        z, r = zr[:, t, :h].to(acc), zr[:, t, h:].to(acc)
+        c = cand[:, t].to(acc)
+        hp = ys[:, t - 1].to(acc) if t > 0 else torch.zeros_like(c)
+        dh = dy[:, t].to(acc) + dh_carry
+        dzc[:, t] = dh * z * (1.0 - c * c)
+        dcn = dzc[:, t] if carried is None else carried[1][:, t]
+        drh = dcn.to(wc.dtype).to(acc) @ wca.T
+        dzg[:, t] = torch.cat([dh * (c - hp) * z * (1.0 - z),
+                               drh * hp * r * (1.0 - r)], -1)
+        dzr = dzg[:, t] if carried is None else carried[0][:, t]
+        dh_carry = dh * (1.0 - z) + drh * r + dzr.to(wg.dtype).to(acc) @ wga.T
+    return dzg, dzc
+
+
+def _gru_rounding(fr, where, zg, zc, wg, wc, dy, res, grads, gate):
+    """bf16 kernel outputs against the plain versions with the kernels'
+    roundings and without them ("control"); the backward's references
+    start from the kernel's residuals. Three matched references:
+    "matched", whose carried products take the kernel's own stored
+    outputs (the stored ys as the operand of h . W_g; the stored dzc /
+    dzg in drh and the dh carry), so each step is held to its own
+    arithmetic at the flash phase's limits (BF16_ULP_TOL,
+    BF16_MISMATCH_TOL); "free_running", gru_forward_reference /
+    gru_backward_reference carrying their own state, and "fp64_kernel",
+    the same arithmetic summed in fp64, both held to
+    GRU_BF16_FREE_MISMATCH_TOL ("fp64_plain", the fp32 plain versions
+    against the fp64 ones, is reported: how far summation alone moves two
+    sound versions). Each dW is held element by element to the plain
+    product of the kernel's own dzg / dzc, rounded once, and as a whole,
+    relative to its max, to the dW of the kernel-driven and of the
+    free-running plain backward (RNN_BF16_DW_TOL; the control's reading
+    is reported beside them)."""
+    import torch
+
+    dws = (grads[2].sum(0), grads[3].sum(0))
+    pf = fr.gru_forward_reference(zg, zc, wg, wc)
+    pb = fr.gru_backward_reference(wg, wc, *res, dy)
+    forced_f = _gru_fwd_plain(zg, zc, wg, wc, ys_k=res[0])
+    forced = _gru_bwd_plain(wg, wc, *res, dy, carried=grads[:2])
+    f64 = torch.float64
+    exact = (*_gru_fwd_plain(zg, zc, wg, wc, acc=f64),
+             *_gru_bwd_plain(wg, wc, *res, dy, acc=f64))
+    cf = fr.gru_forward_reference(zg, zc, wg, wc, round_operands=False)
+    cb = fr.gru_backward_reference(wg, wc, *res, dy, round_operands=False)
+    names = ("ys", "zr", "cand", "dzg", "dzc", "dwg", "dwc")
+    got = (*res, *grads[:2], *(d.to(wg.dtype) for d in dws))
+    out = {
+        "matched": {nm: _ulp_stats(a, b) for nm, a, b in zip(
+            names, got, (*forced_f, *forced,
+                         *_gru_dw_of(*grads[:2], res[0], res[1])))},
+        "free_running": {nm: _ulp_stats(a, b) for nm, a, b in zip(
+            names[:5], got[:5], (*pf, *pb[:2]))},
+        "fp64_kernel": {nm: _ulp_stats(a, b) for nm, a, b in zip(
+            names[:5], got[:5], exact)},
+        "fp64_plain": {nm: _ulp_stats(a, b) for nm, a, b in zip(
+            names[:5], (*pf, *pb[:2]), exact)},
+        "control": {nm: _ulp_stats(a, b) for nm, a, b in zip(
+            names, got, (*cf, *cb[:2], *_gru_dw_of(
+                *cb[:2], res[0], res[1], rounded=False)))},
+    }
+    forced_dw = _gru_dw_of(*(d.to(wg.dtype) for d in forced),
+                           res[0], res[1])
+    dw_rel = {label: max(_rel_err(a, b) for a, b in zip(dws, ref))
+              for label, ref in (("matched", forced_dw),
+                                 ("free_running", pb[2:]),
+                                 ("control", cb[2:]))}
+    out["dw_rel_err"] = dw_rel
+    for label in ("matched", "free_running"):
+        check(dw_rel[label] <= RNN_BF16_DW_TOL,
+              f"{where}: dW {dw_rel[label]} relative from the dW of the "
+              f"{label} plain backward")
+    for nm, s in out["matched"].items():
+        check(s["max_ulps"] <= BF16_ULP_TOL,
+              f"{where}: {nm} {s['max_ulps']} bf16 ulps from the plain "
+              "version with the kernel's roundings")
+        check(s["mismatch"] <= BF16_MISMATCH_TOL,
+              f"{where}: {nm} differs from the plain version with the "
+              f"kernel's roundings in a share {s['mismatch']}")
+    for label in ("free_running", "fp64_kernel"):
+        for nm, s in out[label].items():
+            check(s["mismatch"] <= GRU_BF16_FREE_MISMATCH_TOL,
+                  f"{where}: {nm} differs from the {label} plain version "
+                  f"in a share {s['mismatch']}")
+    if gate:
+        for names in (("ys",), ("dzg", "dzc")):
+            worst = max(out["control"][nm]["mismatch"] for nm in names)
+            check(worst > GRU_BF16_FREE_MISMATCH_TOL,
+                  f"{where}: the control without the kernel's roundings "
+                  f"passes the mismatch limits ({names}: {worst})")
+    return out
+
+
+def _gru_times(fr, flush, zg, zc, wg, wc, dy, res):
+    """Kernel and plain times at a timed case; cuDNN's torch.nn.GRU
+    over the same batch as a yardstick of a different function (it
+    applies r after the recurrent product, BigDL before it)."""
+    import torch
+
+    reps = dict(reps=10, warmup=2)
+    times = {
+        "fwd_ms": cuda_ms(lambda: fr.gru_fwd_cuda(zg, zc, wg, wc, True),
+                          flush, **reps),
+        "infer_ms": cuda_ms(lambda: fr.gru_fwd_cuda(zg, zc, wg, wc, False),
+                            flush, **reps),
+        "bwd_ms": cuda_ms(lambda: fr.gru_bwd_cuda(wg, wc, *res, dy),
+                          flush, **reps),
+        "plain_fwd_ms": cuda_ms(
+            lambda: fr.gru_forward_reference(zg, zc, wg, wc), flush,
+            reps=5, warmup=1),
+        "plain_bwd_ms": cuda_ms(
+            lambda: fr.gru_backward_reference(wg, wc, *res, dy), flush,
+            reps=5, warmup=1),
+    }
+    n, t, h = dy.shape
+    for dtype in (zg.dtype, torch.float32):
+        try:        # yardstick only, never called by the port
+            gru = torch.nn.GRU(h, h, batch_first=True).cuda().to(dtype)
+            x = torch.randn(n, t, h, device="cuda", dtype=dtype,
+                            requires_grad=True)
+            params = [x, *gru.parameters()]
+
+            def fwd_bwd():
+                y, _ = gru(x)
+                torch.autograd.grad(y, params, torch.ones_like(y))
+
+            fwd_bwd()
+            torch.cuda.synchronize()
+        except RuntimeError as err:   # cuDNN without this dtype
+            times.setdefault("cudnn_refused", []).append(
+                f"{dtype}: {str(err)[:120]}")
+            continue
+        times["cudnn_gru_other_function"] = {
+            "dtype": str(dtype).replace("torch.", ""),
+            "fwd_ms": cuda_ms(lambda: gru(x), flush, **reps),
+            "fwd_bwd_ms": cuda_ms(fwd_bwd, flush, **reps)}
+        break
+    return times
+
+
+def _bigru(impl=None):
+    """The BiGRU sentiment classifier at config 4's widths, composed
+    from the port's layers as models/rnn.bilstm_sentiment composes the
+    BiLSTM; `impl` forces the recurrences' route ("cuda" or "torch")."""
+    from bigdl_tpu_torch import nn
+
+    return nn.Sequential(
+        nn.LookupTable(RNN_VOCAB, RNN_EMBED).set_name("embedding"),
+        nn.BiRecurrent(nn.GRU(RNN_EMBED, RNN_HIDDEN), fused=impl)
+        .set_name("bigru"),
+        nn.Mean(2),
+        nn.Linear(2 * RNN_HIDDEN, 2).set_name("cls"),
+        nn.LogSoftMax())
+
+
+def phase_gru_model():
+    """One fp32 loss-and-grad step of the full-width BiGRU classifier
+    (batch 128 x 128) through the kernels against the same step through
+    the plain versions, from the same params and batch: two training
+    forwards and two backwards (one a direction) through the kernels,
+    none through the plain versions."""
+    import numpy as np
+    import torch
+
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.models.convert import (tree_leaves,
+                                                tree_leaves_with_path,
+                                                tree_map)
+    from bigdl_tpu_torch.ops import fused_rnn as fr
+    from bigdl_tpu_torch.ops.losses import build_train_loss
+    from bigdl_tpu_torch.utils.precision import FULL_PRECISION
+
+    rng = np.random.RandomState(4)
+    x = torch.as_tensor(rng.randint(0, RNN_VOCAB, (RNN_BATCH, RNN_SEQ))
+                        .astype(np.int32)).cuda()
+    y = torch.as_tensor(rng.randint(0, 2, RNN_BATCH).astype(np.int32)).cuda()
+    params, out = None, {}
+    for impl in ("cuda", "torch"):
+        model = _bigru(impl)
+        if params is None:
+            params = model.init(torch.Generator().manual_seed(0))["params"]
+        p = tree_map(lambda t: t.detach().requires_grad_(), params)
+        loss_call = build_train_loss(model, nn.ClassNLLCriterion(),
+                                     FULL_PRECISION)
+        counts0 = (fr.gru_fwd_train_launches, fr.gru_bwd_launches)
+        loss, _ = loss_call(p, model.init_state(), x, y, None)
+        grads = torch.autograd.grad(loss, tree_leaves(p))
+        torch.cuda.synchronize()
+        out[impl] = (float(loss.detach()), grads,
+                     (fr.gru_fwd_train_launches - counts0[0],
+                      fr.gru_bwd_launches - counts0[1]))
+    dloss = abs(out["cuda"][0] - out["torch"][0])
+    top = max(float(b.abs().max()) for b in out["torch"][1])
+    rels = {".".join(map(str, path)): float((a - b).abs().max()) / max(
+        float(b.abs().max()), TRAIN_GRAD_FLOOR * top)
+        for (path, _), a, b in zip(tree_leaves_with_path(params),
+                                   out["cuda"][1], out["torch"][1])}
+    rel = max(rels.values())
+    check(math.isfinite(out["cuda"][0]), "gru_model: loss not finite")
+    check(dloss <= TRAIN_LOSS_TOL, f"gru_model: |dloss| {dloss}")
+    check(rel <= TRAIN_GRAD_TOL, f"gru_model: grad rel diff {rel}")
+    check(out["cuda"][2] == (2, 2),
+          f"gru_model: the kernel step launched {out['cuda'][2]}")
+    check(out["torch"][2] == (0, 0),
+          "gru_model: the plain step launched kernels")
+    emit("gru_model", tolerance={"loss": TRAIN_LOSS_TOL,
+                                 "grad_rel": TRAIN_GRAD_TOL},
+         grad_floor=TRAIN_GRAD_FLOOR, shape=[RNN_BATCH, RNN_SEQ],
+         loss_cuda=out["cuda"][0], loss_torch=out["torch"][0],
+         loss_abs_diff=dloss, grad_max_rel_diff=rel,
+         grad_rel_diff_by_leaf=rels,
+         launches={"fwd": out["cuda"][2][0], "bwd": out["cuda"][2][1]},
+         params=int(sum(t.numel() for t in tree_leaves(params))))
+
+
+def _profile_gru_step(model, samples):
+    """One BiGRU trainer step, after two warm-up steps, under
+    torch.profiler: (profiled wall ms, device ms, GRU kernels' ms,
+    kernel count, top rows)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from bigdl_tpu_torch import nn
+
+    prof = profile(activities=[ProfilerActivity.CPU,
+                               ProfilerActivity.CUDA])
+    marks = {}
+
+    def on_step(state):
+        if state["neval"] == 2:
+            torch.cuda.synchronize()
+            prof.start()
+            marks["t0"] = time.perf_counter()
+        elif state["neval"] == 3:
+            torch.cuda.synchronize()
+            marks["t1"] = time.perf_counter()
+            prof.stop()
+
+    _rnn_trainer(model, samples, nn.ClassNLLCriterion(), RNN_BATCH, 3,
+                 on_step)
+    rows = sorted(((e.self_device_time_total, e.count, e.key)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and e.self_device_time_total > 0), reverse=True)
+    OUT_DIR.mkdir(exist_ok=True)
+    prof.export_chrome_trace(str(OUT_DIR / "gru_train_trace.json"))
+    return ((marks["t1"] - marks["t0"]) * 1e3,
+            sum(r[0] for r in rows) / 1e3,
+            sum(r[0] for r in rows if "gru_" in r[2]) / 1e3,
+            sum(r[1] for r in rows), rows[:12])
+
+
+def phase_gru_trainer():
+    """The slice's main path: the BiGRU classifier trained through
+    Optimizer(...).set_validation(...).optimize() at the bench shape
+    (bf16, Adam(1e-3)) for TRAIN_WARMUP + TRAIN_STEPS steps, validating
+    (Top1Accuracy, Loss) after every GRU_VALID_EVERY steps over
+    GRU_VALID_BATCHES held-out batches, launches counted over the timed
+    steps; then Predictor.predict / predict_class over RNN_INFER_BATCHES
+    batches; then one profiled step (where the step's time goes, device
+    busy share)."""
+    import numpy as np
+    import torch
+
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.dataset import DataSet
+    from bigdl_tpu_torch.ops import fused_rnn as fr
+    from bigdl_tpu_torch.optim import (Adam, Loss, Optimizer, Predictor,
+                                       Top1Accuracy, Trigger)
+
+    counters = ("gru_fwd_train_launches", "gru_fwd_infer_launches",
+                "gru_bwd_launches")
+    steps = TRAIN_WARMUP + TRAIN_STEPS
+    losses, marks, validations = [], {"val_s": []}, []
+    every = Trigger.several_iteration(GRU_VALID_EVERY)
+
+    def validate_now(state):
+        fire = every(state)
+        if fire and "t0" in marks and "t1" not in marks:
+            torch.cuda.synchronize()        # validation time, kept apart
+            marks["v0"] = time.perf_counter()
+        return fire
+
+    def end_when(state):
+        if "v0" in marks:
+            torch.cuda.synchronize()
+            marks["val_s"].append(time.perf_counter() - marks.pop("v0"))
+        res = state.get("validation")
+        if res is not None and res is not marks.get("seen"):
+            marks["seen"] = res                 # a validation just ran
+            validations.append((state["neval"], {
+                k: v.result() for k, v in res.items()}))
+        if state["loss"] is not None:
+            losses.append(state["loss"])
+        if state["neval"] == TRAIN_WARMUP:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            for c in counters:                  # main path starts here
+                setattr(fr, c, 0)
+            marks["t0"] = time.perf_counter()
+        elif state["neval"] == steps:
+            torch.cuda.synchronize()
+            marks["t1"] = time.perf_counter()
+            marks["launches"] = {c: getattr(fr, c)   # main path ends here
+                                 for c in counters}
+        return state["neval"] >= steps
+
+    model = _bigru()
+    model.build(torch.Generator().manual_seed(0))
+    held_out = DataSet.array(_sentiment_samples(
+        RNN_BATCH * GRU_VALID_BATCHES, 15))
+    Optimizer(model, DataSet.array(_sentiment_samples(RNN_BATCH * steps,
+                                                      11)),
+              nn.ClassNLLCriterion(), batch_size=RNN_BATCH) \
+        .set_optim_method(Adam(1e-3)).set_precision("bf16") \
+        .set_validation(Trigger(validate_now), held_out,
+                        [Top1Accuracy(), Loss(nn.ClassNLLCriterion())]) \
+        .set_end_when(Trigger(end_when)).optimize()
+    losses = [float(v) for v in losses]
+    launches = marks["launches"]
+    fired = sum(k % GRU_VALID_EVERY == 0      # validations in the window
+                for k in range(TRAIN_WARMUP + 1, steps + 1))
+    dt = marks["t1"] - marks["t0"] - sum(marks["val_s"])
+    check(len(losses) == steps and all(math.isfinite(v) for v in losses),
+          f"gru trainer losses not all finite: {losses}")
+    check(losses[-1] < losses[0], f"gru trainer loss did not fall: {losses}")
+    check(len(validations) == steps // GRU_VALID_EVERY and all(
+        math.isfinite(r["Loss"][0]) and r["Top1Accuracy"][1]
+        == RNN_BATCH * GRU_VALID_BATCHES for _, r in validations),
+        f"gru trainer validations {validations}")
+    want = {"gru_fwd_train_launches": 2 * TRAIN_STEPS,
+            "gru_bwd_launches": 2 * TRAIN_STEPS,
+            "gru_fwd_infer_launches": 2 * GRU_VALID_BATCHES * fired}
+    check(launches == want, f"gru trainer launches {launches} != {want}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    # Predictor over held-out batches: the trained fp32 weights, no
+    # autograd, the inference variant only
+    held = _sentiment_samples(RNN_BATCH * RNN_INFER_BATCHES, 12)
+    labels = torch.as_tensor(np.stack([s.label for s in held])).cuda()
+    torch.cuda.synchronize()
+    for c in counters:                          # predict path starts here
+        setattr(fr, c, 0)
+    t_pred = time.perf_counter()
+    predictor = Predictor(model, batch_size=RNN_BATCH)
+    scores = predictor.predict(DataSet.array(held))
+    torch.cuda.synchronize()
+    t_pred = time.perf_counter() - t_pred
+    pred_launches = {c: getattr(fr, c) for c in counters}  # path ends
+    check(pred_launches == {"gru_fwd_train_launches": 0,
+                            "gru_bwd_launches": 0,
+                            "gru_fwd_infer_launches": 2 * RNN_INFER_BATCHES},
+          f"predict launches {pred_launches}")
+    classes = predictor.predict_class(DataSet.array(held))
+    check(tuple(scores.shape) == (RNN_BATCH * RNN_INFER_BATCHES, 2)
+          and bool(torch.isfinite(scores).all())
+          and torch.equal(classes, scores.argmax(-1)),
+          "predict: scores not finite or classes not their argmax")
+    accuracy = float((classes == labels.long()).float().mean())
+
+    wall, dev, gru_ms, kernels, top = _profile_gru_step(
+        _bigru().build(torch.Generator().manual_seed(0)),
+        _sentiment_samples(RNN_BATCH * 3, 14))
+    emit("gru_trainer", steps=TRAIN_STEPS, warmup_steps=TRAIN_WARMUP,
+         batch=RNN_BATCH, seq=RNN_SEQ, seconds=dt,
+         validation_seconds=marks["val_s"],   # each, in the window
+         step_ms=dt / TRAIN_STEPS * 1e3,
+         samples_per_sec=TRAIN_STEPS * RNN_BATCH / dt,
+         tokens_per_sec=TRAIN_STEPS * RNN_BATCH * RNN_SEQ / dt,
+         peak_mem_gib=peak, launches=launches, losses=losses,
+         validations=[{"neval": n, **{k: {"value": v, "count": c}
+                                     for k, (v, c) in r.items()}}
+                      for n, r in validations],
+         predict={"batches": RNN_INFER_BATCHES, "seconds": t_pred,
+                  "launches": pred_launches, "accuracy": accuracy},
+         profile={"profiled_wall_ms": wall, "device_ms": dev,
+                  "gru_kernels_ms": gru_ms,
+                  "gru_share_of_device": gru_ms / dev if dev else None,
+                  "device_busy_share": dev / wall if dev else None,
+                  "kernels": kernels,
+                  "top": [{"name": k[:80], "calls": c, "ms": us / 1e3}
+                          for us, c, k in top]})
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1600,6 +2231,15 @@ def main() -> int:
     if "--profile" in sys.argv[1:]:
         torch.cuda.empty_cache()
         phase_rnn_profile()
+    torch.cuda.empty_cache()
+    flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32,
+                        device="cuda")
+    gru = phase_gru(flush)
+    del flush
+    torch.cuda.empty_cache()
+    phase_gru_model()
+    torch.cuda.empty_cache()
+    gru_launches = phase_gru_trainer()
     fp32 = kern["fp32"]
     # the flash rows: the trainer's shape in its compute dtype (bf16)
     row = flash["train/bf16"]
@@ -1665,6 +2305,28 @@ def main() -> int:
             "ms": r[f"{kind}_ms"], "plain_ms": r[f"plain_{kind}_ms"],
             "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
             "library_ms": r[f"cudnn_{kind}_ms"],
+        })
+    # the GRU rows (K10/K11) at the BiGRU trainer's shape (N = T = H =
+    # 128, one direction a launch) in bf16; K10's launches count the
+    # training variant (the inference variant's are in the gru_trainer
+    # phase); no library call computes BigDL's GRU (cuDNN's applies r
+    # after the recurrent product), so library_ms is null
+    r = gru["train/bf16"]
+    for num, kind, launch in (
+            ("K10", "fwd", gru_launches["gru_fwd_train_launches"]),
+            ("K11", "bwd", gru_launches["gru_bwd_launches"])):
+        bound = r["train_bound" if kind == "fwd" else "bwd_bound"]
+        kernels.append({
+            "name": "gru_" + kind, "route": "cuda", "source": src,
+            "replaces": {"K10": "bigdl_tpu/ops/fused_rnn.py:611 :637",
+                         "K11": "bigdl_tpu/ops/fused_rnn.py:643"}[num],
+            "launches": launch,
+            "max_abs_err": max(
+                g["fwd_max_abs_err" if kind == "fwd" else "grad_max_abs_err"]
+                for k, g in gru.items() if k.endswith("/fp32")),
+            "ms": r[f"{kind}_ms"], "plain_ms": r[f"plain_{kind}_ms"],
+            "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
+            "library_ms": None,
         })
     for k in kernels:
         check(all(isinstance(v, str) or v is None and n == "library_ms"

@@ -29,6 +29,8 @@ def _imported(path: Path):
 NEW_IN_SLICE_3 = ("nn/initialization.py", "nn/container.py",
                   "nn/embedding.py", "nn/linear.py", "nn/activation.py",
                   "nn/recurrent.py", "ops/fused_rnn.py", "models/rnn.py")
+NEW_IN_SLICE_4 = ("nn/table_ops.py", "optim/validation.py",
+                  "optim/evaluator.py")
 
 
 def test_port_files_exist():
@@ -36,7 +38,7 @@ def test_port_files_exist():
     assert all(p.exists() for p in PORT_FILES)
     scanned = {str(p.relative_to(ROOT / "bigdl_tpu_torch"))
                for p in PORT_FILES if "bigdl_tpu_torch" in p.parts}
-    assert set(NEW_IN_SLICE_3) <= scanned
+    assert set(NEW_IN_SLICE_3) | set(NEW_IN_SLICE_4) <= scanned
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -57,7 +59,9 @@ def test_port_import_loads_no_jax():
             "bigdl_tpu_torch.optim, bigdl_tpu_torch.dataset, "
             "bigdl_tpu_torch.utils.precision, "
             "bigdl_tpu_torch.ops.fused_rnn, bigdl_tpu_torch.nn.recurrent, "
-            "bigdl_tpu_torch.models.rnn; "
+            "bigdl_tpu_torch.models.rnn, bigdl_tpu_torch.nn.table_ops, "
+            "bigdl_tpu_torch.optim.validation, "
+            "bigdl_tpu_torch.optim.evaluator; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{BANNED!r}]; "
             "assert not bad, bad")

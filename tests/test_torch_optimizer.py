@@ -104,7 +104,6 @@ def test_optimize_trajectory_matches_jax(name):
 
 
 @pytest.mark.parametrize("setter, args, what", [
-    ("set_validation", (None, None, []), "validation"),
     ("set_checkpoint", ("/nonexistent", None), "checkpoint"),
     ("resume_from_checkpoint", (), "resume"),
     ("set_train_summary", ("logs",), "train summaries"),
