@@ -25,6 +25,15 @@ fp32 scores, masked probabilities exactly 0, so a fully masked row
 gives zero output and LSE -1e30; the LSE returned is the natural-log
 LSE.
 
+The kernels take fp32 or bf16. bf16 runs its products on the tensor
+cores (wgmma, operands streamed into swizzled shared memory by
+cp.async); fp32 runs on the SIMT cores, since the tensor cores would
+round its operands to TF32. Both keep the conventions above and tiles
+of KERNEL_BLOCK_K keys, whose width decides where the bf16 forward
+rounds p. The bf16 kernels' asynchronous copies read 16-byte rows, so
+`_check` refuses a bf16 operand whose data does not start on a 16-byte
+boundary.
+
 `impl`, in `flash_attention` and `flash_attention_with_lse` alike:
 None picks `"cuda"` for CUDA tensors and `"torch"` for CPU tensors;
 `"torch"` runs the plain version on whatever device the tensors are
@@ -263,8 +272,9 @@ def _lib() -> ctypes.CDLL:
 
 
 def _check(**tensors: torch.Tensor) -> None:
-    """Devices, dtypes and shapes the kernels take: (BH, S, D), one
-    CUDA device, fp32 or bf16 throughout, D in HEAD_DIMS."""
+    """Devices, dtypes, alignment and shapes the kernels take: (BH, S,
+    D), one CUDA device, fp32 or bf16 throughout, bf16 data starting on
+    a 16-byte boundary, D in HEAD_DIMS."""
     q = tensors["q"]
     for name, t in tensors.items():
         if not t.is_cuda or t.device != q.device:
@@ -273,6 +283,10 @@ def _check(**tensors: torch.Tensor) -> None:
         if t.dim() != 3:
             raise ValueError(f"flash_attention impl='cuda': {name} must be "
                              f"(BH, S, D), got {tuple(t.shape)}")
+        if t.dtype == torch.bfloat16 and t.data_ptr() % 16:
+            raise ValueError(f"flash_attention impl='cuda': {name} must "
+                             f"start on a 16-byte boundary (data_ptr "
+                             f"{t.data_ptr():#x})")
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError("flash_attention impl='cuda' takes float32 or "
                          f"bfloat16, got {q.dtype}")

@@ -10,7 +10,11 @@ It drives `bigdl_tpu_torch` only (never JAX or the JAX package):
 1. device — the card's name and `nvidia-smi` name/power limit;
 2. build  — compiles every CUDA kernel from the sources in the checkout
    (`bigdl_tpu_torch/ops/_build.py`: one nvcc per source for sm_90a, all
-   started together) and reports ptxas registers/spills;
+   started together) and reports ptxas registers/spills; for each flash
+   kernel also its tensor-core instructions in the built SASS
+   (`cuobjdump -sass`: HGMMA for wgmma, HMMA for mma.sync). Fails if a
+   flash kernel spills or a bf16 flash kernel has no tensor-core
+   instruction;
 3. kernel — the paged-decode kernel against its plain PyTorch version
    at the engine's shape (B=8, H=8, 37 blocks of 16, D=64) with
    shuffled tables, ragged clocks including 0 and S-1 and a NaN
@@ -21,7 +25,9 @@ It drives `bigdl_tpu_torch` only (never JAX or the JAX package):
    dq launches) against their plain versions on FLASH_CASES: the
    training shape (BH=64, S=2048, D=64, causal), a long sequence
    (BH=8, S=8192), ragged lengths with Sq != Sk and fully masked rows,
-   D = 32/128, no mask, sm_scale = 0; fp32 and bf16; bf16 also element
+   D = 32/128, no mask, sm_scale = 0, one query over 65 keys, and 129
+   rows and keys at D = 128 (one past the bf16 forward's 128-row CTA);
+   fp32 and bf16 (bf16 on the tensor cores); bf16 also element
    by element (in bf16 ulps) against the plain versions that round
    where the kernels round, while the same versions without the
    roundings must fail that check; two backward runs bitwise equal;
@@ -117,6 +123,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -148,7 +155,9 @@ BF16_FLOPS_PER_S = 989e12       # dense tensor-core bf16 peak (data sheet)
 # "train" is the trainer's shape (B=8 x H=8, S=2048, D=64); "long" a long
 # sequence, the JAX package's split-backward route; the rest ragged
 # lengths (not multiples of the 64-row tile), Sq > Sk with fully masked
-# rows, D = 32/128, no causal mask, and sm_scale == 0.
+# rows, D = 32/128, no causal mask, sm_scale == 0, one query over two kv
+# tiles (the second holding one key), and one row and one key past the
+# 128-row tile of the bf16 forward's CTA at D = 128.
 FLASH_CASES = (
     ("train", 64, 2048, 2048, 64, True, None),
     ("long", 8, 8192, 8192, 64, True, None),
@@ -156,8 +165,18 @@ FLASH_CASES = (
     ("masked_rows", 4, 1500, 1000, 32, True, None),
     ("noncausal", 4, 777, 777, 64, False, None),
     ("zero_scale", 2, 300, 300, 64, True, 0.0),
+    ("one_query", 3, 1, 65, 64, True, None),
+    ("tile_edge", 5, 129, 129, 128, True, None),
 )
 FLASH_TIMED = ("train", "long")
+# the designs of the K2 and K3 rows of the kernels line
+FLASH_DESIGN = {
+    "fwd": "bf16: wgmma (S = Q.K^T from shared memory, P.V with P from "
+           "registers), 2-stage cp.async K/V ring, CTA of 2 warpgroups x "
+           "64 query rows, mask on edge tiles only, exp2f; fp32: SIMT",
+    "bwd": "bf16: dk/dv + dq kernels, wgmma (S, dP from shared memory; "
+           "dV, dK, dQ with P / dS from registers; p taken while dP "
+           "computes), 2-stage cp.async ring, no atomics; fp32: SIMT"}
 # kernel vs plain: forward out (max abs), lse (fp32, max abs), backward
 # (max abs relative to each gradient's max)
 FLASH_TOL = {"fp32": {"out": 2e-5, "lse": 2e-5, "grad": 1e-4},
@@ -314,8 +333,63 @@ def cuda_ms(fn, flush, reps: int = 30, warmup: int = 5) -> float:
 
 
 # ------------------------------------------------------------- phases
-def phase_build():
+def _kernel_label(mangled: str) -> str:
+    """`fa_fwd_bf16_kernel<64>` from a flash kernel's mangled name
+    (other names pass through)."""
+    m = re.search(r"(fa_\w*?_kernel)I((?:Li\d+E)+)E", mangled)
+    if not m:
+        return mangled
+    return f"{m.group(1)}<{','.join(re.findall(r'Li(\d+)E', m.group(2)))}>"
+
+
+def _ptxas_report(log: str) -> dict:
+    """Registers and spilled bytes (stores + loads) of each kernel in
+    an `nvcc -Xptxas -v` log."""
+    out, name = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            name = _kernel_label(m.group(1))
+            out[name] = {}
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m and name:
+            out[name]["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name:
+            out[name]["registers"] = int(m.group(1))
+    return out
+
+
+def _tensor_core_counts(so: Path) -> dict:
+    """Tensor-core instructions of each kernel in a built library, from
+    its SASS (`cuobjdump -sass`): HGMMA is wgmma, HMMA mma.sync."""
     from bigdl_tpu_torch.ops import _build
+
+    tool = Path(_build.nvcc_path()).parent / "cuobjdump"
+    sass = subprocess.run([str(tool), "-sass", str(so)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    out, name = {}, None
+    for ln in sass.splitlines():
+        m = re.search(r"Function : (\w+)", ln)
+        if m:
+            name = _kernel_label(m.group(1))
+            out[name] = {"HGMMA": 0, "HMMA": 0}
+        elif name and "HGMMA" in ln:
+            out[name]["HGMMA"] += 1
+        elif name and "HMMA" in ln:
+            out[name]["HMMA"] += 1
+    return out
+
+
+def phase_build():
+    """Build every kernel source; report ptxas registers and spills, and
+    for the flash kernels their tensor-core instructions. Fails if a
+    flash kernel spills or a bf16 flash kernel has no tensor-core
+    instruction."""
+    from bigdl_tpu_torch.ops import _build
+    from bigdl_tpu_torch.ops import flash_attention as fa
 
     t0 = time.perf_counter()
     _build.build(KERNEL_SOURCES)             # one nvcc per source, together
@@ -323,9 +397,27 @@ def phase_build():
     ptxas = {name: [ln.strip() for ln in _build.BUILD_LOG.get(
         name, "").splitlines() if "registers" in ln or "spill" in ln]
         for name in KERNEL_SOURCES}
+    regs = _ptxas_report(_build.BUILD_LOG["flash_attention"])
+    flash = {name: {**regs.get(name, {}), **tc} for name, tc in
+             _tensor_core_counts(_build.library_path("flash_attention"))
+             .items() if name.startswith("fa_")}
+    for kind in ("fwd", "dkdv", "dq"):
+        for dtype in ("", "_bf16"):
+            for d in fa.HEAD_DIMS:
+                label = f"fa_{kind}{dtype}_kernel<{d}"
+                check(any(n.startswith(label) for n in flash),
+                      f"no {label}...> in the library's SASS")
+    for name, r in flash.items():
+        check(r.get("spill_bytes") == 0,
+              f"{name} spills ({r.get('spill_bytes')} bytes) or has no "
+              f"ptxas report")
+        if "bf16" in name:
+            check(r["HGMMA"] + r["HMMA"] > 0,
+                  f"{name} has no tensor-core instruction")
     RESULTS["build_log"] = _build.BUILD_LOG
     emit("build", seconds=seconds, kernels=list(KERNEL_SOURCES),
-         ptxas={name: lines[:8] for name, lines in ptxas.items()})
+         ptxas={name: lines[:8] for name, lines in ptxas.items()},
+         flash_kernels=flash)
 
 
 def _decode_case(pool_dtype, dev, B=SLOTS, H=HEADS, nb=MAX_LEN // BLOCK,
@@ -1046,13 +1138,19 @@ def phase_train_profile():
         emit("train_profile", device_ms_per_step="not measured")
         return
     dev_ms = sum(r[0] for r in rows) / 1e3 / 2
-    flash_ms = sum(r[0] for r in rows if any(
-        n in r[2] for n in ("fa_fwd_kernel", "fa_dkdv_kernel",
-                            "fa_dq_kernel"))) / 1e3 / 2
+    # fa_{fwd,dkdv,dq}_kernel (fp32) and fa_{fwd,dkdv,dq}_bf16_kernel
+    flash = re.compile(r"fa_(fwd|dkdv|dq)_(bf16_)?kernel")
+    flash_ms = sum(r[0] for r in rows if flash.search(r[2])) / 1e3 / 2
+    wall_ms = (marks["t1"] - marks["t0"]) / 2 * 1e3
     emit("train_profile", steps=2,
-         profiled_wall_ms_per_step=(marks["t1"] - marks["t0"]) / 2 * 1e3,
-         device_ms_per_step=dev_ms, flash_ms_per_step=flash_ms,
+         profiled_wall_ms_per_step=wall_ms,
+         device_ms_per_step=dev_ms, busy_share=dev_ms / wall_ms,
+         flash_ms_per_step=flash_ms,
          flash_share_of_device=flash_ms / dev_ms,
+         flash_launches_per_step=sum(r[1] for r in rows
+                                     if flash.search(r[2])) / 2,
+         flash_ms_by_kernel={flash.search(k).group(0): us / 1e3 / 2
+                             for us, _, k in rows if flash.search(k)},
          kernels_per_step=sum(r[1] for r in rows) / 2,
          top=[{"name": k[:80], "calls_per_step": c / 2,
                "ms_per_step": us / 1e3 / 2} for us, c, k in rows[:12]])
@@ -2256,6 +2354,7 @@ def main() -> int:
     }, {
         "name": "flash_attention_fwd", "route": "cuda",
         "source": "bigdl_tpu_torch/ops/csrc/flash_attention.cu",
+        "design": FLASH_DESIGN["fwd"],
         "replaces": "bigdl_tpu/ops/flash_attention.py:118",
         "launches": fwd_launches,
         "max_abs_err": row["out_max_abs_err"],
@@ -2266,6 +2365,7 @@ def main() -> int:
     }, {
         "name": "flash_attention_bwd", "route": "cuda",
         "source": "bigdl_tpu_torch/ops/csrc/flash_attention.cu",
+        "design": FLASH_DESIGN["bwd"],
         "replaces": "bigdl_tpu/ops/flash_attention.py:450 :341 :374",
         "launches": bwd_launches,
         "max_abs_err": row["grad_max_abs_err"],

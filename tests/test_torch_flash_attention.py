@@ -9,6 +9,7 @@ matmuls and exps summing in different orders. Fully masked rows
 -1e30 in both packages. The CUDA kernels cannot run here (no nvcc, no
 card): chip_smoke.py holds them to this plain path on the H100."""
 
+import functools
 import importlib
 
 import jax
@@ -17,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from bigdl_tpu_torch.ops import flash_attention as tfa
 
 jfa = importlib.import_module("bigdl_tpu.ops.flash_attention")
@@ -55,9 +57,9 @@ def _rel(a, b):
 def test_forward_and_lse_match_jax(case):
     bh, sq, sk, d, causal = case
     q, k, v, _ = _inputs(bh, sq, sk, d)
-    jo, jl = jfa.flash_attention_with_lse(
-        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
-        impl="interpret")
+    jo, jl = jax.jit(lambda q, k, v: jfa.flash_attention_with_lse(
+        q, k, v, causal=causal, impl="interpret"))(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
     to, tl = tfa.attention_reference(*_t(q, k, v), causal=causal,
                                      return_lse=True)
     np.testing.assert_allclose(to.numpy(), np.asarray(jo), rtol=0,
@@ -85,13 +87,17 @@ def test_plain_backward_matches_pallas_backward(case, form):
     bh, sq, sk, d, causal = case
     q, k, v, do = _inputs(bh, sq, sk, d, seed=1)
     scale = 0.25
-    jq, jk, jv, jdo = map(jnp.asarray, (q, k, v, do))
-    o, lse = jfa._flash_fwd_pallas(jq, jk, jv, causal, scale, 16, 16,
-                                   interpret=True)
     kern = (jfa._flash_bwd_pallas_fused if form == "fused"
             else jfa._flash_bwd_pallas_split)
-    jg = kern(jq, jk, jv, o, lse, jdo, causal, scale, 16, 16,
-              interpret=True)
+
+    @jax.jit
+    def fwd_bwd(q, k, v, do):
+        o, lse = jfa._flash_fwd_pallas(q, k, v, causal, scale, 16, 16,
+                                       interpret=True)
+        return o, lse, kern(q, k, v, o, lse, do, causal, scale, 16, 16,
+                            interpret=True)
+
+    o, lse, jg = fwd_bwd(*map(jnp.asarray, (q, k, v, do)))
     tg = tfa.flash_attention_backward_reference(
         *_t(q, k, v, np.asarray(o), np.asarray(lse), do), causal=causal,
         sm_scale=scale)
@@ -108,9 +114,9 @@ def test_grads_through_autograd_match_jax_grad(layout, causal):
     shape = (2, 3, 48, 16) if layout == "bhsd" else (4, 48, 16)
     rng = np.random.RandomState(2)
     q, k, v, w = (rng.randn(*shape).astype(np.float32) for _ in range(4))
-    jg = jax.grad(lambda q, k, v: (jfa.flash_attention(
+    jg = jax.jit(jax.grad(lambda q, k, v: (jfa.flash_attention(
         q, k, v, causal=causal, impl="interpret") * w).sum(),
-        argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+        argnums=(0, 1, 2)))(*map(jnp.asarray, (q, k, v)))
     tq, tk, tv = (t.requires_grad_() for t in _t(q, k, v))
     out = tfa.flash_attention(tq, tk, tv, causal=causal)
     assert out.shape == shape
@@ -123,11 +129,14 @@ def test_zero_scale_backward_matches_jax():
     """sm_scale == 0: uniform probabilities, ds exactly zero — the
     Pallas backward's degenerate branch."""
     q, k, v, do = _inputs(2, 32, 32, 16, seed=3)
-    jq, jk, jv, jdo = map(jnp.asarray, (q, k, v, do))
-    o, lse = jfa._flash_fwd_pallas(jq, jk, jv, True, 0.0, 16, 16,
-                                   interpret=True)
-    jg = jfa._flash_bwd_pallas_fused(jq, jk, jv, o, lse, jdo, True, 0.0,
-                                     16, 16, interpret=True)
+    @jax.jit
+    def fwd_bwd(q, k, v, do):
+        o, lse = jfa._flash_fwd_pallas(q, k, v, True, 0.0, 16, 16,
+                                       interpret=True)
+        return o, jfa._flash_bwd_pallas_fused(q, k, v, o, lse, do, True,
+                                              0.0, 16, 16, interpret=True)
+
+    o, jg = fwd_bwd(*map(jnp.asarray, (q, k, v, do)))
     to, tl = tfa.attention_reference(*_t(q, k, v), causal=True,
                                      sm_scale=0.0, return_lse=True)
     np.testing.assert_allclose(to.numpy(), np.asarray(o), atol=OUT_ATOL)
@@ -164,7 +173,8 @@ def test_with_lse_grads_match_jax(case):
         o, l = jfa.flash_attention_with_lse(q, k, v, causal=causal)
         return (o * w).sum() + (jnp.where(l > NEG / 2, l, 0.0) * wl).sum()
 
-    jg = jax.grad(loss_j, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+    jg = jax.jit(jax.grad(loss_j, argnums=(0, 1, 2)))(
+        *map(jnp.asarray, (q, k, v)))
     tq, tk, tv = (t.requires_grad_() for t in _t(q, k, v))
     o, l = tfa.flash_attention_with_lse(tq, tk, tv, causal=causal)
     ((o * torch.from_numpy(w)).sum() + (torch.where(l > NEG / 2, l, 0.0)
@@ -264,3 +274,80 @@ def test_unknown_impl_raises():
     q, k, v, _ = _t(*_inputs(1, 8, 8, 8))
     with pytest.raises(ValueError, match="impl"):
         tfa.flash_attention(q, k, v, impl="pallas")
+
+
+# ------------------------------------------------ bf16, the working dtype
+# The bf16 kernels on the card are held to flash_forward_tiled /
+# flash_backward_tiled (chip_smoke.py's flash phase). Here those oracles,
+# rounded once to bf16, are held to the JAX package's bf16 Pallas kernels
+# in interpret mode at the card's tile width (64 keys; 64 query rows),
+# with chip_smoke's own measure: per tensor at most BF16_MISMATCH_TOL of
+# the elements differ and every one lies within BF16_ULP_TOL bf16 ulps.
+# The two sides sum in different orders, which moves an odd rounding of
+# p or ds by one ulp; a different kv tile width moves p's running max,
+# and so ~10% of the outputs (the control).
+BF16_CASES = [(2, 200, 200, 64, True), (2, 160, 96, 64, True),
+              (2, 77, 131, 64, False)]
+BF16_IDS = ["causal", "masked_rows", "ragged_noncausal"]
+
+
+def _bf16_inputs(bh, sq, sk, d, seed):
+    rng = np.random.RandomState(seed)
+    return [rng.randn(*shape).astype(np.float32)
+            for shape in ((bh, sq, d), (bh, sk, d), (bh, sk, d),
+                          (bh, sq, d))]
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_bf16(case):
+    """JAX's bf16 (out, lse) and the gradients of sum(out * do), through
+    the Pallas kernels in interpret mode at 64 x 64 tiles, as numpy."""
+    bh, sq, sk, d, causal = case
+    q, k, v, do = (jnp.asarray(a, jnp.bfloat16)
+                   for a in _bf16_inputs(bh, sq, sk, d, seed=10))
+    blocks = dict(causal=causal, block_q=64, block_k=64, impl="interpret")
+
+    @jax.jit   # one compilation for the forward and the gradients
+    def run(q, k, v, do):
+        o, lse = jfa.flash_attention_with_lse(q, k, v, **blocks)
+        grads = jax.grad(lambda q, k, v: (jfa.flash_attention(
+            q, k, v, bwd_block_k=64, **blocks).astype(jnp.float32)
+            * do.astype(jnp.float32)).sum(), argnums=(0, 1, 2))(q, k, v)
+        return o, lse, *grads
+
+    return tuple(np.asarray(t.astype(jnp.float32))
+                 for t in run(q, k, v, do))
+
+
+def _port_bf16(case):
+    """The port's oracles on the same bf16 inputs: fp32 (out, lse) and
+    fp32 (dq, dk, dv) from the forward's out rounded to bf16."""
+    bh, sq, sk, d, causal = case
+    q, k, v, do = (t.bfloat16() for t in _t(*_bf16_inputs(bh, sq, sk, d,
+                                                          seed=10)))
+    o, lse = tfa.flash_forward_tiled(q, k, v, causal)
+    grads = tfa.flash_backward_tiled(q, k, v, o.bfloat16(), lse, do, causal)
+    return o, lse, grads
+
+
+@pytest.mark.parametrize("case", BF16_CASES, ids=BF16_IDS)
+def test_bf16_oracles_match_jax_pallas(case):
+    jo, jl, *jg = _jax_bf16(case)
+    o, lse, grads = _port_bf16(case)
+    np.testing.assert_allclose(lse.numpy(), jl, rtol=0, atol=OUT_ATOL)
+    for name, got, ref in zip(("out", "dq", "dk", "dv"), (jo, *jg),
+                              (o, *grads)):
+        st = chip_smoke._ulp_stats(torch.tensor(got).bfloat16(), ref)
+        assert st["mismatch"] <= chip_smoke.BF16_MISMATCH_TOL, (name, st)
+        assert st["max_ulps"] <= chip_smoke.BF16_ULP_TOL, (name, st)
+
+
+def test_bf16_oracle_sees_the_kv_tile_width(monkeypatch):
+    """The control: the same forward over 128-key tiles fails the limit
+    that the 64-key oracle passes."""
+    case = BF16_CASES[0]
+    jo = _jax_bf16(case)[0]
+    monkeypatch.setattr(tfa, "KERNEL_BLOCK_K", 128)
+    o, _, _ = _port_bf16(case)
+    st = chip_smoke._ulp_stats(torch.tensor(jo).bfloat16(), o)
+    assert st["mismatch"] > chip_smoke.BF16_MISMATCH_TOL, st
