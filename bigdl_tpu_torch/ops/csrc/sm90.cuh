@@ -1,6 +1,7 @@
 // PTX wrappers for Hopper (sm_90a): cp.async, wgmma and the swizzled
-// shared-memory tiles that wgmma's descriptors read. Used by
-// flash_attention.cu's bf16 kernels.
+// shared-memory tiles that wgmma's descriptors read, mma.sync and
+// ldmatrix. Used by flash_attention.cu's bf16 kernels, paged_decode.cu
+// (cp.async) and fused_rnn.cu's GRU backward.
 //
 // Tile layout. A tile of R rows x D bf16 columns (row-major in device
 // memory, D = 32, 64 or 128) is held in shared memory as D / 64 sub-tiles
@@ -234,6 +235,44 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[16],
 }
 
 #undef SM90_ACC8
+
+// ---------------------------------------------------------- mma.sync
+// d (16 x 8 fp32) += a (16 x 16 bf16, row-major) . b (16 x 8 bf16,
+// column-major), one warp. With g = lane / 4 and q = lane % 4: a holds
+// {a[g][2q, 2q+1], a[g+8][2q, 2q+1], a[g][2q+8, 2q+9], a[g+8][2q+8, 2q+9]},
+// b {b[2q, 2q+1][g], b[2q+8, 2q+9][g]}, the lower column or row in the
+// low half; d {d[g][2q], d[g][2q+1], d[g+8][2q], d[g+8][2q+1]}.
+__device__ __forceinline__ void mma_bf16_16816(float (&d)[4],
+                                               const uint32_t (&a)[4],
+                                               uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Four 8 x 8 bf16 matrices from shared memory: lane l gives the address
+// of row l % 8 of matrix l / 8 (16 contiguous bytes), and r[i] receives
+// {m_i[g][2q], m_i[g][2q+1]} (g = lane / 4, q = lane % 4).
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// Four 8 x 8 bf16 matrices from shared memory, transposed: lane l gives
+// the address of row l % 8 of matrix l / 8 (16 contiguous bytes), and
+// r[i] receives {m_i[2q][g], m_i[2q+1][g]} (g = lane / 4, q = lane % 4).
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
 
 // two fp32 values rounded to bf16 and packed, the first in the low half
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {

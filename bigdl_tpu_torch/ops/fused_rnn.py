@@ -37,8 +37,9 @@ or plain versions alike). Its forward runs the training variant, which
 saves the residuals (LSTM: ys, c and the activated gates; GRU: ys, zr
 and cand), only when autograd records and an input requires grad;
 otherwise the inference variant writes ys alone, as the JAX
-`custom_vjp` primal does. The backward sums the per-tile fp32 dW in a
-fixed order and casts it to W's dtype.
+`custom_vjp` primal does. The LSTM backward sums the per-tile fp32 dW
+in a fixed order; the GRU backward's kernels return dW summed. Either
+is cast to W's dtype.
 
 The plain versions round where the kernels round. LSTM
 (`lstm_forward_reference`, `lstm_backward_reference`): h and c carries
@@ -539,9 +540,10 @@ def gru_fwd_cuda(zg: torch.Tensor, zc: torch.Tensor, wg: torch.Tensor,
 
 def gru_bwd_cuda(wg: torch.Tensor, wc: torch.Tensor, ys: torch.Tensor,
                  zr: torch.Tensor, cand: torch.Tensor, dy: torch.Tensor):
-    """One GRU backward launch from the forward's residuals. Returns
-    (dzg, dzc, dW_g as (tiles, H, 2H) fp32, dW_c as (tiles, H, H) fp32 —
-    one slice per batch tile)."""
+    """One GRU backward call from the forward's residuals: the sweep and
+    the dW GEMM, two launches on the current stream, counted as one.
+    Returns (dzg, dzc, dW_g (H, 2H) fp32, dW_c (H, H) fp32), dW summed
+    over the batch."""
     global gru_bwd_launches
     ys, zr, cand = (x.contiguous() for x in (ys, zr, cand))
     dy = dy.to(ys.dtype).contiguous()
@@ -553,21 +555,22 @@ def gru_bwd_cuda(wg: torch.Tensor, wc: torch.Tensor, ys: torch.Tensor,
                          f"cand {tuple(cand.shape)} {zr.dtype}")
     n, n_t, h2 = zr.shape
     hidden = h2 // 2
-    wgt, wct = wg.t().contiguous(), wc.t().contiguous()
-    tiles = (n + BLOCK_N - 1) // BLOCK_N
+    bf16 = zr.dtype == torch.bfloat16
+    # the bf16 tensor-core products read W as stored (K-major), the fp32
+    # SIMT products one column of W^T per thread
+    wg, wc = ((w.contiguous() if bf16 else w.t().contiguous())
+              for w in (wg, wc))
     dzg, dzc = torch.empty_like(zr), torch.empty_like(cand)
-    dwg = torch.empty(tiles, hidden, h2, dtype=torch.float32,
-                      device=zr.device)
-    dwc = torch.empty(tiles, hidden, hidden, dtype=torch.float32,
-                      device=zr.device)
+    dwg = torch.empty(hidden, h2, dtype=torch.float32, device=zr.device)
+    dwc = torch.empty(hidden, hidden, dtype=torch.float32, device=zr.device)
     lib = _lib()
     with torch.cuda.device(zr.device):
         stream = torch.cuda.current_stream(zr.device).cuda_stream
         err = lib.bigdl_gru_bwd(
-            wgt.data_ptr(), wct.data_ptr(), ys.data_ptr(), zr.data_ptr(),
+            wg.data_ptr(), wc.data_ptr(), ys.data_ptr(), zr.data_ptr(),
             cand.data_ptr(), dy.data_ptr(), dzg.data_ptr(), dzc.data_ptr(),
-            dwg.data_ptr(), dwc.data_ptr(), n, n_t, hidden,
-            int(zr.dtype == torch.bfloat16), stream)
+            dwg.data_ptr(), dwc.data_ptr(), n, n_t, hidden, int(bf16),
+            stream)
     _raise_on(err, lib, "GRU backward")
     gru_bwd_launches += 1
     return dzg, dzc, dwg, dwc
@@ -583,8 +586,8 @@ def _gru_forward(impl, zg, zc, wg, wc, save):
 class _GRUScan(torch.autograd.Function):
     """ys, differentiable in zg, zc, W_g and W_c. Forward saves (W_g,
     W_c, ys, zr, cand), as `_gru_core_fwd` does; backward is one backward
-    launch (or the plain backward) and a fixed-order sum of the per-tile
-    dW."""
+    call (or the plain backward), whose fp32 dW, summed over the batch,
+    is cast to W's dtype."""
 
     @staticmethod
     def forward(ctx, impl, zg, zc, wg, wc):
@@ -602,11 +605,9 @@ class _GRUScan(torch.autograd.Function):
         if ctx.impl == "torch":
             dzg, dzc, dwg, dwc = gru_backward_reference(
                 wg, wc, ys, zr, cand, dy.to(ys.dtype))
-            dwg, dwc = dwg[None], dwc[None]
         else:
             dzg, dzc, dwg, dwc = gru_bwd_cuda(wg, wc, ys, zr, cand, dy)
-        return (None, dzg, dzc, dwg.sum(dim=0).to(wg.dtype),
-                dwc.sum(dim=0).to(wc.dtype))
+        return None, dzg, dzc, dwg.to(wg.dtype), dwc.to(wc.dtype)
 
 
 def gru_scan(zx_gates: torch.Tensor, zx_cand: torch.Tensor,

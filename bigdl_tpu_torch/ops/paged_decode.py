@@ -2,9 +2,12 @@
 
 Ports bigdl_tpu/ops/paged_decode.py. There the kernel is the Pallas
 `_pd_kernel`, whose grid streams table-routed pool blocks through VMEM;
-here it is the hand-written CUDA kernel `csrc/paged_decode.cu` (one CTA
-per (row, head), which loads its own table row and clock). The plain
-version is `ops/kv_cache.paged_attention`, gather-then-attend.
+here it is the hand-written CUDA kernel `csrc/paged_decode.cu`: each
+(row, head) gets a thread-block cluster of `split_plan(...)[0]` CTAs,
+each streaming its own contiguous range of keys through shared memory
+with an online softmax, and rank 0 combines the ranks' partial results
+through distributed shared memory. The plain version is
+`ops/kv_cache.paged_attention`, gather-then-attend.
 
 `impl`: None picks `"cuda"` for CUDA tensors and `"torch"` for CPU
 tensors; `"torch"` runs the plain version on whatever device the
@@ -12,8 +15,9 @@ tensors are on; `"cuda"` launches the kernel and raises on CPU tensors
 and on any failure to build or launch — there is no fallback.
 
 The Pallas kernel's dup-batch trick (a workaround for XLA on the CPU)
-and its tile knobs have no counterpart: the CUDA kernel's bits do not
-depend on the batch extent, and it has no tiles to choose.
+and its tile knobs have no counterpart: the CUDA kernel's split plan
+depends on the table extent alone, so its bits do not depend on the
+batch extent or the clocks, and it has no tiles to choose.
 
 `launches` counts kernel launches (a plain int, incremented only where
 the kernel is launched), so a run can show that its decode path went
@@ -33,7 +37,13 @@ from bigdl_tpu_torch.ops.kv_cache import paged_attention
 IMPLS = ("cuda", "torch")
 # shared memory one CTA may use on Hopper (227 KB, opt-in above 48 KB)
 MAX_SHARED_BYTES = 232448
-_WARPS = 16                    # csrc/paged_decode.cu kWarps
+# csrc/paged_decode.cu: threads a CTA, ring stages, the portable cluster
+# size (kThreads, kStages, kMaxSplits)
+_THREADS, _STAGES, MAX_SPLITS = 128, 4, 8
+# a (row, head) is split only into ranges of at least SPLIT_MIN_KEYS
+# keys, each a multiple of SPLIT_ALIGN keys (a 16-key page at the
+# engine's block size)
+SPLIT_MIN_KEYS, SPLIT_ALIGN = 64, 16
 
 launches = 0
 
@@ -42,7 +52,7 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("paged_decode")
     fn = lib.bigdl_paged_decode
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [
             ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         lib.bigdl_cuda_error_string.argtypes = [ctypes.c_int]
@@ -50,10 +60,40 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def shared_bytes(num_blocks: int, block_size: int, head_dim: int) -> int:
-    """Dynamic shared memory one CTA of the kernel takes."""
-    return 4 * (_WARPS + _WARPS * head_dim + num_blocks * block_size
-                + num_blocks)
+def split_plan(num_blocks: int, block_size: int) -> tuple:
+    """(splits, span): the CTAs a (row, head) takes, one cluster, and the
+    keys each takes — CTA `rank` the range [rank * span, (rank + 1) *
+    span) of the table extent S = num_blocks * block_size. A function of
+    S alone, so a row's bits depend neither on B nor on the clocks: up to
+    MAX_SPLITS ranges of at least SPLIT_MIN_KEYS keys, span a multiple of
+    SPLIT_ALIGN, the last range non-empty."""
+    seq = num_blocks * block_size
+    splits = max(1, min(MAX_SPLITS, -(-seq // SPLIT_MIN_KEYS)))
+    span = -(-seq // splits)
+    span = -(-span // SPLIT_ALIGN) * SPLIT_ALIGN
+    return -(-seq // span), span
+
+
+def _stage_keys(head_dim: int, itemsize: int) -> int:
+    """Keys a ring stage holds (csrc/paged_decode.cu's Geo kSK): a key
+    row is head_dim * itemsize / 16 chunks of 16 bytes, read by the
+    largest power of two <= 32 threads dividing that count; each group
+    of threads takes 2 keys a stage (1 when a thread reads > 2 chunks)."""
+    chunks = head_dim * itemsize // 16
+    group = next(g for g in (32, 16, 8, 4) if chunks % g == 0)
+    return _THREADS // group * (2 if chunks // group <= 2 else 1)
+
+
+def shared_bytes(num_blocks: int, block_size: int, head_dim: int,
+                 itemsize: int) -> int:
+    """Dynamic shared memory one CTA of the kernel takes: its result
+    (m, l and D floats, padded to 16 bytes), the ring of K and V stages
+    in the pools' dtype, and its slice of the table row."""
+    _, span = split_plan(num_blocks, block_size)
+    return (4 * (head_dim + 4)
+            + itemsize * _STAGES * 2 * _stage_keys(head_dim, itemsize)
+            * head_dim
+            + 4 * (-(-span // block_size) + 1))
 
 
 def _check(q, k_pool, v_pool, table, pos) -> None:
@@ -93,7 +133,7 @@ def _check(q, k_pool, v_pool, table, pos) -> None:
     if d % 32 or d > 256:
         raise ValueError(f"paged_decode impl='cuda' needs head_dim a "
                          f"multiple of 32 and <= 256, got {d}")
-    smem = shared_bytes(table.shape[1], bs, d)
+    smem = shared_bytes(table.shape[1], bs, d, k_pool.element_size())
     if smem > MAX_SHARED_BYTES:
         raise ValueError(f"paged_decode impl='cuda': a table extent of "
                          f"{table.shape[1] * bs} keys needs {smem} bytes "
@@ -108,14 +148,15 @@ def _paged_decode_cuda(q, k_pool, v_pool, table, pos,
     out = torch.empty_like(q)
     if b == 0:
         return out
+    splits, span = split_plan(table.shape[1], k_pool.shape[2])
     lib = _lib()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.bigdl_paged_decode(
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
             table.data_ptr(), pos.data_ptr(), out.data_ptr(), b, h,
-            table.shape[1], k_pool.shape[2], d, float(sm_scale),
-            int(k_pool.dtype == torch.bfloat16), stream)
+            table.shape[1], k_pool.shape[2], d, splits, span,
+            float(sm_scale), int(k_pool.dtype == torch.bfloat16), stream)
     if err != 0:
         raise RuntimeError(
             "paged_decode kernel launch failed: "

@@ -10,17 +10,21 @@ It drives `bigdl_tpu_torch` only (never JAX or the JAX package):
 1. device — the card's name and `nvidia-smi` name/power limit;
 2. build  — compiles every CUDA kernel from the sources in the checkout
    (`bigdl_tpu_torch/ops/_build.py`: one nvcc per source for sm_90a, all
-   started together) and reports ptxas registers/spills; for each flash
-   kernel also its tensor-core instructions in the built SASS
-   (`cuobjdump -sass`: HGMMA for wgmma, HMMA for mma.sync). Fails if a
-   flash kernel spills or a bf16 flash kernel has no tensor-core
+   started together) and reports ptxas registers/spills; for each flash,
+   paged-decode and GRU kernel also its tensor-core instructions in the
+   built SASS (`cuobjdump -sass`: HGMMA for wgmma, HMMA for mma.sync).
+   Fails if one of those kernels spills, or a bf16 flash kernel, bf16
+   GRU backward sweep or bf16 GRU dW kernel has no tensor-core
    instruction;
 3. kernel — the paged-decode kernel against its plain PyTorch version
-   at the engine's shape (B=8, H=8, 37 blocks of 16, D=64) with
-   shuffled tables, ragged clocks including 0 and S-1 and a NaN
-   scratch block 0, for fp32 and bf16 pools (max abs err <= 2e-5);
-   each row of a B=8 launch must be BITWISE the same row launched
-   alone; times with CUDA events, L2 flushed before each launch;
+   on DECODE_CASES: the engine's shape (B=8, H=8, 37 blocks of 16,
+   D=64) with ragged clocks including 0 and S-1, one key, and a 4096-key
+   extent at D=128 with clocks 0, 2047 and 4095 (ranks of a cluster see
+   no key); shuffled tables, a NaN scratch block 0 and NaN rows past
+   each clock inside its last page; fp32 and bf16 pools (max abs err
+   <= 2e-5); each row of a launch must be BITWISE the same row launched
+   alone; times at the engine's shape with CUDA events, L2 flushed
+   before each launch;
 4. flash  — the flash-attention kernels (forward; backward = dk/dv +
    dq launches) against their plain versions on FLASH_CASES: the
    training shape (BH=64, S=2048, D=64, causal), a long sequence
@@ -147,6 +151,24 @@ ENGINE_KNOBS = dict(slots=SLOTS, prefill_buckets=(CONTEXT // 2, CONTEXT))
 
 KERNEL_TOL = 2e-5
 LOGIT_TOL = 1e-4
+# paged-decode cases: (name, B, blocks, block size, D, clocks or None for
+# ragged clocks with 0 and S - 1). "engine" is the engine's shape, the
+# timed one; "one_key" a table of one block with clock 0; "long" a 4096-
+# key extent at D = 128 with clocks 0, 2047 and 4095, so that ranks of a
+# cluster see no key. Every case has the NaN scratch block and NaN rows
+# past each clock inside its last page.
+DECODE_CASES = (
+    ("engine", SLOTS, MAX_LEN // BLOCK, BLOCK, DIM // HEADS, None),
+    ("one_key", 1, 1, BLOCK, DIM // HEADS, (0,)),
+    ("long", 3, 4096 // BLOCK, BLOCK, 128, (0, 2047, 4095)),
+)
+# the design of the K1 row of the kernels line
+DECODE_DESIGN = ("S split over a thread-block cluster (split_plan: <= 8 "
+                 "CTAs a (row, head), by the table extent alone), pages "
+                 "through a 4-stage cp.async ring, 16-byte shared-memory "
+                 "reads by groups of threads, one online-softmax sweep over "
+                 "K and V, groups combined in order, ranks combined by rank "
+                 "0 through distributed shared memory; no atomics")
 
 KERNEL_SOURCES = ("paged_decode", "flash_attention", "fused_rnn")
 BF16_FLOPS_PER_S = 989e12       # dense tensor-core bf16 peak (data sheet)
@@ -274,6 +296,16 @@ GRU_CASES = (
     ("h512", 32, 16, 512),
 )
 GRU_TIMED = ("train",)
+# the design of the K11 row of the kernels line
+GRU_BWD_DESIGN = ("sweep: bf16 step products on mma.sync m16n8k16 (M = "
+                  "units, N = 4 rows + 4 zero rows, A = W as stored, in "
+                  "registers at H <= 128, streamed from L2 above), each "
+                  "thread owning its (row, unit) pairs' carries, residuals "
+                  "prefetched two steps ahead with cp.async, 2 barriers a "
+                  "step; fp32 SIMT products. dW: one GEMM over all (t, row) "
+                  "pairs after the sweep (bf16 mma.sync with ldmatrix, fp32 "
+                  "SIMT), split over a cluster, reduced in rank order "
+                  "through distributed shared memory; no atomics")
 # The GRU's bf16 outputs are also held to the free-running plain
 # versions, which carry their own state: there a one-ulp difference in a
 # stored value feeds the next step, so the order of a product's sums
@@ -288,6 +320,10 @@ GRU_BF16_FREE_MISMATCH_TOL = 0.08
 # the BiGRU trainer (the BiLSTM trainer's configuration with a GRU cell)
 # validates every GRU_VALID_EVERY steps over GRU_VALID_BATCHES batches
 GRU_VALID_EVERY, GRU_VALID_BATCHES = 6, 2
+
+# cuda_ms's device-side spin before each timed call, in clock cycles
+# (~0.3 ms at the H100's clocks): longer than a wrapper's host work
+HOST_COVER_CYCLES = 500_000
 
 RESULTS: dict = {}
 
@@ -314,7 +350,10 @@ def cuda_ms(fn, flush, reps: int = 30, warmup: int = 5) -> float:
     """Median device time of one call, from CUDA events around it, with
     the 50 MB L2 flushed (a 256 MB write) before every call — between
     two launches of one layer the engine streams the other layers'
-    pools and weights, so the real caller finds L2 cold."""
+    pools and weights, so the real caller finds L2 cold. A device-side
+    spin (HOST_COVER_CYCLES) follows the flush, so that the call's host
+    work (argument checks, allocation, the launch) is done before the
+    start event fires and only device time lies between the events."""
     import torch
 
     for _ in range(warmup):
@@ -322,6 +361,7 @@ def cuda_ms(fn, flush, reps: int = 30, warmup: int = 5) -> float:
     times = []
     for _ in range(reps):
         flush.zero_()
+        torch.cuda._sleep(HOST_COVER_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -333,13 +373,25 @@ def cuda_ms(fn, flush, reps: int = 30, warmup: int = 5) -> float:
 
 
 # ------------------------------------------------------------- phases
+_TEMPLATE_ARG = re.compile(r"Li(\d+)E|Lb([01])E|13__nv_bfloat16|f")
+
+
 def _kernel_label(mangled: str) -> str:
-    """`fa_fwd_bf16_kernel<64>` from a flash kernel's mangled name
-    (other names pass through)."""
-    m = re.search(r"(fa_\w*?_kernel)I((?:Li\d+E)+)E", mangled)
+    """`fa_fwd_bf16_kernel<64>`, `gru_dw_kernel<bf16>`,
+    `paged_decode_kernel<float,64>` from a kernel's mangled name (other
+    names pass through)."""
+    m = re.search(r"\d+((?:fa|gru|lstm|paged)_\w*?kernel)I(\w+)", mangled)
     if not m:
         return mangled
-    return f"{m.group(1)}<{','.join(re.findall(r'Li(\d+)E', m.group(2)))}>"
+    args, rest = [], m.group(2)
+    while rest and rest[0] != "E":
+        t = _TEMPLATE_ARG.match(rest)
+        if not t:
+            return mangled
+        args.append(t.group(1) or {"1": "true", "0": "false"}.get(
+            t.group(2)) or ("bf16" if t.group(0) != "f" else "float"))
+        rest = rest[t.end():]
+    return f"{m.group(1)}<{','.join(args)}>"
 
 
 def _ptxas_report(log: str) -> dict:
@@ -385,9 +437,10 @@ def _tensor_core_counts(so: Path) -> dict:
 
 def phase_build():
     """Build every kernel source; report ptxas registers and spills, and
-    for the flash kernels their tensor-core instructions. Fails if a
-    flash kernel spills or a bf16 flash kernel has no tensor-core
-    instruction."""
+    for the flash, paged-decode and GRU kernels their tensor-core
+    instructions. Fails if a flash, paged-decode or GRU kernel spills, or
+    a bf16 flash kernel, bf16 GRU backward sweep or bf16 dW kernel has no
+    tensor-core instruction."""
     from bigdl_tpu_torch.ops import _build
     from bigdl_tpu_torch.ops import flash_attention as fa
 
@@ -414,18 +467,40 @@ def phase_build():
         if "bf16" in name:
             check(r["HGMMA"] + r["HMMA"] > 0,
                   f"{name} has no tensor-core instruction")
+    # the paged-decode and GRU kernels: no spills; the bf16 GRU backward
+    # sweeps and dW GEMM on the tensor cores
+    others = {}
+    for src, prefix in (("paged_decode", "paged_decode_"),
+                        ("fused_rnn", "gru_")):
+        tc = _tensor_core_counts(_build.library_path(src))
+        others.update({name: {**r, **tc.get(name, {})} for name, r in
+                       _ptxas_report(_build.BUILD_LOG[src]).items()
+                       if name.startswith(prefix)})
+    for name in ("paged_decode_kernel<float,64>",
+                 "paged_decode_kernel<bf16,64>", "gru_bwd_mma_kernel<1>",
+                 "gru_bwd_mma_kernel<4>", "gru_bwd_simt_kernel<float>",
+                 "gru_dw_kernel<bf16>", "gru_dw_kernel<float>"):
+        check(name in others, f"no {name} in the ptxas report")
+    for name, r in others.items():
+        check(r.get("spill_bytes") == 0,
+              f"{name} spills ({r.get('spill_bytes')} bytes) or has no "
+              f"ptxas report")
+        if name.startswith(("gru_bwd_mma_kernel", "gru_dw_kernel<bf16")):
+            check(r.get("HGMMA", 0) + r.get("HMMA", 0) > 0,
+                  f"{name} has no tensor-core instruction")
     RESULTS["build_log"] = _build.BUILD_LOG
     emit("build", seconds=seconds, kernels=list(KERNEL_SOURCES),
          ptxas={name: lines[:8] for name, lines in ptxas.items()},
-         flash_kernels=flash)
+         flash_kernels=flash, decode_and_gru_kernels=others)
 
 
 def _decode_case(pool_dtype, dev, B=SLOTS, H=HEADS, nb=MAX_LEN // BLOCK,
-                 bs=BLOCK, D=DIM // HEADS, seed=0):
-    """Engine-shaped paged-decode inputs on the card: every row's table
-    a shuffled chain of pool blocks, entries past the row's clock
-    pointing at the NaN scratch block 0, ragged clocks with 0 and
-    S - 1 among them."""
+                 bs=BLOCK, D=DIM // HEADS, clocks=None, seed=0):
+    """Paged-decode inputs on the card: every row's table a shuffled
+    chain of pool blocks, entries past the row's clock pointing at the
+    NaN scratch block 0, and NaN in the rows past each clock inside its
+    last page (a poisoned former occupant); `clocks`, or ragged clocks
+    with 0 and S - 1 among them."""
     import torch
 
     g = torch.Generator().manual_seed(seed)
@@ -436,10 +511,16 @@ def _decode_case(pool_dtype, dev, B=SLOTS, H=HEADS, nb=MAX_LEN // BLOCK,
     v[0] = float("nan")
     table = (torch.randperm(n - 1, generator=g)[:B * nb] + 1).reshape(B, nb)
     seq = nb * bs
-    pos = torch.randint(0, seq, (B,), generator=g)
-    pos[0], pos[1] = 0, seq - 1
+    if clocks is None:
+        pos = torch.randint(0, seq, (B,), generator=g)
+        pos[0], pos[1] = 0, seq - 1
+    else:
+        pos = torch.tensor(clocks)
     for r in range(B):
-        table[r, int(pos[r]) // bs + 1:] = 0
+        last, off = int(pos[r]) // bs, int(pos[r]) % bs
+        k[table[r, last], :, off + 1:] = float("nan")
+        v[table[r, last], :, off + 1:] = float("nan")
+        table[r, last + 1:] = 0
     q = torch.randn(B, H, 1, D, generator=g)
     return (q.to(dev), k.to(dev, pool_dtype), v.to(dev, pool_dtype),
             table.to(dev, torch.int32), pos.to(dev, torch.int32))
@@ -466,52 +547,70 @@ def _bound(q, k, table, pos):
 
 
 def phase_kernel(flush):
+    """The paged-decode kernel against its plain version on DECODE_CASES,
+    fp32 and bf16 pools: finite, max abs err <= KERNEL_TOL, each row of a
+    launch bitwise the same row launched alone; kernel, plain and SDPA
+    (library yardstick) times at the engine's shape."""
     import torch
     import torch.nn.functional as F
 
     from bigdl_tpu_torch.ops.kv_cache import gather_block_cache
-    from bigdl_tpu_torch.ops.paged_decode import paged_decode_attention
+    from bigdl_tpu_torch.ops.paged_decode import (paged_decode_attention,
+                                                  split_plan)
 
-    out = {}
-    for name, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
-        q, k, v, table, pos = _decode_case(dtype, flush.device)
-        got = paged_decode_attention(q, k, v, table, pos, impl="cuda")
-        ref = paged_decode_attention(q, k, v, table, pos, impl="torch")
-        torch.cuda.synchronize()
-        check(bool(torch.isfinite(got).all()),
-              f"{name}: kernel output not finite")
-        err = float((got - ref).abs().max())
-        check(err <= KERNEL_TOL, f"{name}: max abs err {err} > "
-              f"{KERNEL_TOL}")
-        for r in range(q.shape[0]):
-            alone = paged_decode_attention(
-                q[r:r + 1], k, v, table[r:r + 1].contiguous(),
-                pos[r:r + 1].contiguous(), impl="cuda")
-            check(torch.equal(alone, got[r:r + 1]),
-                  f"{name}: row {r} alone differs from the B=8 launch")
-        kc = gather_block_cache(k, table).float()
-        vc = gather_block_cache(v, table).float()
-        seq = kc.shape[-2]
-        mask = (torch.arange(seq, device=q.device)[None, :]
-                <= pos.long()[:, None])[:, None, None, :]
-        res = {
-            "max_abs_err": err, "row_alone_bitwise": True,
-            "kernel_ms": cuda_ms(lambda: paged_decode_attention(
-                q, k, v, table, pos, impl="cuda"), flush),
-            "torch_ms": cuda_ms(lambda: paged_decode_attention(
-                q, k, v, table, pos, impl="torch"), flush),
-            # yardstick only, never called by the port: SDPA over the
-            # cache gathered beforehand (the gather is not timed)
-            "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
-                q, kc, vc, attn_mask=mask), flush),
-            "clocks": [int(x) for x in pos.tolist()],
-        }
-        res.update(_bound(q, k, table, pos))
-        res["bound_us"] = res["bound_ms"] * 1e3
-        out[name] = res
+    out, cases = {}, {}
+    for case, B, nb, bs, D, clocks in DECODE_CASES:
+        for name, dtype in (("fp32", torch.float32),
+                            ("bf16", torch.bfloat16)):
+            where = f"paged_decode {case} {name}"
+            q, k, v, table, pos = _decode_case(dtype, flush.device, B=B,
+                                               nb=nb, bs=bs, D=D,
+                                               clocks=clocks)
+            got = paged_decode_attention(q, k, v, table, pos, impl="cuda")
+            ref = paged_decode_attention(q, k, v, table, pos, impl="torch")
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(got).all()),
+                  f"{where}: kernel output not finite")
+            err = float((got - ref).abs().max())
+            check(err <= KERNEL_TOL, f"{where}: max abs err {err} > "
+                  f"{KERNEL_TOL}")
+            for r in range(q.shape[0]):
+                alone = paged_decode_attention(
+                    q[r:r + 1], k, v, table[r:r + 1].contiguous(),
+                    pos[r:r + 1].contiguous(), impl="cuda")
+                check(torch.equal(alone, got[r:r + 1]),
+                      f"{where}: row {r} alone differs from the B={B} "
+                      "launch")
+            cases[f"{case}/{name}"] = {
+                "B": B, "H": HEADS, "nb": nb, "bs": bs, "D": D,
+                "split_plan": split_plan(nb, bs), "max_abs_err": err,
+                "row_alone_bitwise": True,
+                "clocks": [int(x) for x in pos.tolist()]}
+            if case != "engine":
+                continue
+            kc = gather_block_cache(k, table).float()
+            vc = gather_block_cache(v, table).float()
+            seq = kc.shape[-2]
+            mask = (torch.arange(seq, device=q.device)[None, :]
+                    <= pos.long()[:, None])[:, None, None, :]
+            res = {
+                "max_abs_err": err, "row_alone_bitwise": True,
+                "kernel_ms": cuda_ms(lambda: paged_decode_attention(
+                    q, k, v, table, pos, impl="cuda"), flush),
+                "torch_ms": cuda_ms(lambda: paged_decode_attention(
+                    q, k, v, table, pos, impl="torch"), flush),
+                # yardstick only, never called by the port: SDPA over the
+                # cache gathered beforehand (the gather is not timed)
+                "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+                    q, kc, vc, attn_mask=mask), flush),
+                "clocks": [int(x) for x in pos.tolist()],
+            }
+            res.update(_bound(q, k, table, pos))
+            res["bound_us"] = res["bound_ms"] * 1e3
+            out[name] = res
     emit("kernel", shape={"B": SLOTS, "H": HEADS, "nb": MAX_LEN // BLOCK,
                           "bs": BLOCK, "D": DIM // HEADS},
-         tolerance=KERNEL_TOL, **out)
+         tolerance=KERNEL_TOL, cases=cases, **out)
     return out
 
 
@@ -1746,8 +1845,8 @@ def phase_gru(flush):
     """The persistent-GRU kernels against their plain versions on every
     case of GRU_CASES, fp32 and bf16: forward (training variant: ys, zr,
     cand; the inference variant's ys bitwise the training variant's) and
-    backward (dzg, dzc, dW_g and dW_c summed over the batch tiles) from
-    the kernel's own residuals; two backward runs bitwise equal; in bf16
+    backward (dzg, dzc, dW_g and dW_c, which the kernels sum) from the
+    kernel's own residuals; two backward runs bitwise equal; in bf16
     element by element against the plain versions that round where the
     kernels round, with the unrounded control, and bf16 dW against the
     plain backward's dW; kernel and plain times at GRU_TIMED."""
@@ -1771,8 +1870,7 @@ def phase_gru(flush):
                   f"{where}: inference ys differ from the training ys")
             check(all(torch.equal(a, b) for a, b in zip(grads, again)),
                   f"{where}: two backward runs differ")
-            dzg, dzc, dwg, dwc = (*grads[:2], grads[2].sum(0),
-                                  grads[3].sum(0))
+            dzg, dzc, dwg, dwc = grads
             check(all(bool(torch.isfinite(x).all())
                       for x in (*res, dzg, dzc, dwg, dwc)),
                   f"{where}: not finite")
@@ -1929,7 +2027,7 @@ def _gru_rounding(fr, where, zg, zc, wg, wc, dy, res, grads, gate):
     is reported beside them)."""
     import torch
 
-    dws = (grads[2].sum(0), grads[3].sum(0))
+    dws = grads[2:]
     pf = fr.gru_forward_reference(zg, zc, wg, wc)
     pb = fr.gru_backward_reference(wg, wc, *res, dy)
     forced_f = _gru_fwd_plain(zg, zc, wg, wc, ys_k=res[0])
@@ -2344,6 +2442,7 @@ def main() -> int:
     kernels = [{
         "name": "paged_decode", "route": "cuda",
         "source": "bigdl_tpu_torch/ops/csrc/paged_decode.cu",
+        "design": DECODE_DESIGN,
         "replaces": "bigdl_tpu/ops/paged_decode.py:95",
         "launches": launches,
         "max_abs_err": max(kern["fp32"]["max_abs_err"],
@@ -2418,6 +2517,7 @@ def main() -> int:
         bound = r["train_bound" if kind == "fwd" else "bwd_bound"]
         kernels.append({
             "name": "gru_" + kind, "route": "cuda", "source": src,
+            **({"design": GRU_BWD_DESIGN} if kind == "bwd" else {}),
             "replaces": {"K10": "bigdl_tpu/ops/fused_rnn.py:611 :637",
                          "K11": "bigdl_tpu/ops/fused_rnn.py:643"}[num],
             "launches": launch,

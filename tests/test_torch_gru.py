@@ -83,6 +83,25 @@ def test_forward_and_grads_fp32_match_pallas_interpret(n, t, h):
         np.testing.assert_allclose(_np(a), _np(b), **FP32_GRAD)
 
 
+@pytest.mark.parametrize("n,t,h", [(4, 6, 8), (5, 3, 16)])
+def test_impl_torch_grads_match_pallas_interpret(n, t, h):
+    """gru_scan(impl="torch") through _GRUScan, whose backward returns dW
+    summed over the batch (as the CUDA backward now does), against JAX's
+    gru_scan in interpret mode: the gradients of all four inputs in their
+    shapes and dtype, fp32."""
+    args = _inputs(n, t, h, seed=11)
+    cot = np.random.RandomState(12).randn(n, t, h).astype(np.float32)
+    jg = jax.jit(jax.grad(
+        lambda *a: jnp.sum(jrnn.gru_scan(*a, impl="interpret") * cot),
+        argnums=(0, 1, 2, 3)))(*map(_j, args))
+    leaves = [_t(a, grad=True) for a in args]
+    out = trnn.gru_scan(*leaves, impl="torch")
+    tg = torch.autograd.grad((out * torch.tensor(cot)).sum(), leaves)
+    for a, b, leaf in zip(tg, jg, leaves):
+        assert a.shape == leaf.shape and a.dtype == torch.float32
+        np.testing.assert_allclose(_np(a), _np(b), **FP32_GRAD)
+
+
 @pytest.mark.parametrize("n,t,h", [(5, 7, 8), (3, 1, 16)])
 def test_bf16_forward_and_grads_match_pallas_interpret(n, t, h):
     """Both packages round where the kernels round: the h carry fp32, h

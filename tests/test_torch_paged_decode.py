@@ -138,7 +138,89 @@ def test_import_builds_nothing():
 
 
 def test_shared_memory_estimate_matches_kernel_layout():
-    # 16 reduction slots + 16 partial rows of D + one score per key +
-    # the staged table row
-    assert paged_decode.shared_bytes(37, 16, 64) == \
-        4 * (16 + 16 * 64 + 592 + 37)
+    # csrc/paged_decode.cu's layout at the engine shape (37 blocks of 16,
+    # D = 64, split 8 x 80 keys): the CTA's result (m, l and D floats,
+    # from float 4 on), a ring of 4 stages of (16 K rows, 16 V rows) of
+    # D fp32 (16 threads a key, 2 keys a group of 8) or (32 K, 32 V) of D
+    # bf16 (8 threads a key), and the table slice of 80 / 16 + 1 pages
+    assert paged_decode.split_plan(37, 16) == (8, 80)
+    assert paged_decode.shared_bytes(37, 16, 64, 4) == \
+        4 * (64 + 4) + 4 * 4 * 2 * 16 * 64 + 4 * (80 // 16 + 1)
+    assert paged_decode.shared_bytes(37, 16, 64, 2) == \
+        4 * (64 + 4) + 2 * 4 * 2 * 32 * 64 + 4 * (80 // 16 + 1)
+
+
+@pytest.mark.parametrize("nb,bs", [(1, 1), (1, 16), (3, 4), (37, 16),
+                                   (40, 16), (256, 16), (9, 4), (5, 8),
+                                   (1000, 1), (64, 64)])
+def test_split_plan_covers_each_key_once(nb, bs):
+    splits, span = paged_decode.split_plan(nb, bs)
+    seq = nb * bs
+    assert 1 <= splits <= paged_decode.MAX_SPLITS
+    assert span % paged_decode.SPLIT_ALIGN == 0
+    covered = [j for r in range(splits)
+               for j in range(r * span, min((r + 1) * span, seq))]
+    assert covered == list(range(seq))            # once each, in order
+    assert (splits - 1) * span < seq              # no empty last rank
+    for d in range(32, 257, 32):
+        for itemsize in (2, 4):
+            assert paged_decode.shared_bytes(nb, bs, d, itemsize) \
+                <= paged_decode.MAX_SHARED_BYTES
+
+
+def test_split_plan_depends_on_the_extent_alone():
+    # the plan takes the table extent and nothing else, so a row's bits
+    # cannot depend on its co-batch (B) or on the clocks; the engine's
+    # shape gets 8 CTAs a (row, head), 512 at B = H = 8
+    import inspect
+    assert list(inspect.signature(paged_decode.split_plan).parameters) \
+        == ["num_blocks", "block_size"]
+    assert paged_decode.split_plan(592 // 16, 16) == (8, 80)
+    assert paged_decode.split_plan(1, 16) == (1, 16)
+    assert paged_decode.split_plan(256, 16) == (8, 512)
+
+
+@pytest.mark.parametrize("nb,bs,pos", [(37, 16, [0, 591, 300, 79, 80]),
+                                       (9, 4, [35, 0, 17]),
+                                       (256, 16, [0, 2047, 4095])])
+def test_split_online_softmax_combine_matches_plain(nb, bs, pos):
+    """The kernel's arithmetic over the split plan in plain PyTorch: each
+    rank's online softmax over its visible keys (-inf / 0 / nothing when
+    it has none), combined in rank order, equals the plain version, with
+    NaN in the rows past each clock and in the scratch block."""
+    b, h, d = len(pos), 2, 32
+    q, k, v, table, pos = map(torch.from_numpy, _case(
+        b, h, nb, bs, d, seed=5, pos=pos, poison=True))
+    for r in range(b):
+        blk = table[r, int(pos[r]) // bs]
+        k[blk, :, int(pos[r]) % bs + 1:] = float("nan")
+        v[blk, :, int(pos[r]) % bs + 1:] = float("nan")
+        table[r, int(pos[r]) // bs + 1:] = 0
+    scale = d ** -0.5
+    splits, span = paged_decode.split_plan(nb, bs)
+    out = torch.empty(b, h, 1, d)
+    for r in range(b):
+        n = int(pos[r]) + 1
+        for hh in range(h):
+            parts = []
+            for rank in range(splits):
+                m, l, acc = float("-inf"), 0.0, torch.zeros(d)
+                for j in range(rank * span, min((rank + 1) * span, n)):
+                    blk = int(table[r, j // bs])
+                    s = float(q[r, hh, 0] @ k[blk, hh, j % bs]) * scale
+                    mn = max(m, s)
+                    corr = np.exp(m - mn) if m != float("-inf") else 0.0
+                    p = np.exp(s - mn)
+                    l = l * corr + p
+                    acc = acc * corr + p * v[blk, hh, j % bs]
+                    m = mn
+                parts.append((m, l, acc))
+            fm = max(pm for pm, _, _ in parts)
+            live = [(pm, pl, pa) for pm, pl, pa in parts
+                    if pm != float("-inf")]
+            fl = sum(pl * np.exp(pm - fm) for pm, pl, _ in live)
+            out[r, hh, 0] = sum(pa * float(np.exp(pm - fm))
+                                for pm, _, pa in live) / fl
+    ref = paged_decode_attention(q, k, v, table, pos, impl="torch")
+    assert torch.isfinite(out).all()
+    np.testing.assert_allclose(out.numpy(), ref.numpy(), **FP32_TOL)
