@@ -1,13 +1,14 @@
 // Persistent LSTM and GRU scans, forward and backward, for Hopper (sm_90a).
 // The GRU kernels (K10/K11) follow the LSTM ones; their own note is at
-// gru_fwd_kernel below.
+// the GRU section below.
 //
 // Replaces the Pallas kernels of bigdl_tpu/ops/fused_rnn.py:
 //   * lstm_fwd_kernel<T, SAVE=true>  <- _lstm_fwd_kernel (K6) and
 //     _bilstm_fwd_kernel (K8);
 //   * lstm_fwd_kernel<T, SAVE=false> <- _lstm_fwd_infer_kernel and
 //     _bilstm_fwd_infer_kernel (the no-residual variants);
-//   * lstm_bwd_kernel<T>             <- _lstm_bwd_kernel (K7) and
+//   * lstm_bwd_mma_kernel<kMT> (bf16) / lstm_bwd_simt_kernel<float>
+//     (fp32), then rnn_dw_kernel<T>  <- _lstm_bwd_kernel (K7) and
 //     _bilstm_bwd_kernel (K9).
 // The step bodies are those of _lstm_fwd_dir / _lstm_bwd_dir /
 // _lstm_gate_math. One launch runs one or two directions: the grid is
@@ -17,8 +18,9 @@
 //
 // Layout (the public (N, T, .) layout, no transposes): zx, gates, dzx
 // (N, T, 4H); ys, c, dy (N, T, H); w (H, 4H) row-major, gates in the
-// order i, f, g, o; wt = w transposed, (4H, H); dw (tiles, H, 4H) fp32.
-// zx, w and every sequence share one dtype T (fp32 or bf16).
+// order i, f, g, o (the fp32 backward takes its transpose, (4H, H)); dw
+// (H, 4H) fp32, summed over the batch. zx, w and every sequence share
+// one dtype T (fp32 or bf16).
 //
 // Numerics (kept from the Pallas kernels, and by the plain versions in
 // bigdl_tpu_torch/ops/fused_rnn.py):
@@ -34,27 +36,26 @@
 // bf16, two directions) the forward moves ~34 MB (zx in; ys, c, gates
 // out) and does 2 * 4H * H * N * T * 2 = 4.3 GFLOP of recurrent products;
 // the backward moves ~50 MB and does twice the products. At the card's
-// rates both are a few to ~15 us of work. The real limit is the
-// recurrence: T dependent steps, each a small (BN, H) x (H, 4H) product
-// with a barrier, so a step's latency, not the card's rate, sets the
-// time. This first design keeps it simple:
-// * one CTA of 512 threads owns kBlockN = 4 batch rows of one direction
-//   for the whole sequence (tiles of 8 and 16 rows were slower: fewer
-//   CTAs for the same per-step latency; PERF.md). Rows never mix, so no grid-wide barrier is needed;
-//   the h/c (dh/dc) carries live in shared memory;
-// * W (H x 4H) does not fit in shared memory at H = 128 in fp32
-//   (256 KB), so each step streams it from L2 (coalesced along the 4H
-//   columns); splitting W across CTAs or a cluster is later work;
-// * forward step: each thread computes whole gate-columns of z for the
-//   BN rows (h broadcast from shared memory as float4), then each thread
-//   applies the gate math to (row, unit) pairs;
-// * backward step: the gate-derivative chain over (row, unit) pairs,
-//   then dh = dz . W^T with the 4H reduction split over up to 4 thread
-//   groups and summed in a fixed order; after the sweep, the same CTA
-//   computes its tile's dW = sum_t h_prev^T . dz from the dzx it wrote,
-//   in shared-memory-staged blocks;
-// * every sum runs in a fixed order and dW has no atomics: two runs
-//   give the same bits. Rows past N are masked, never read or written.
+// rates both are a few to ~30 us of work. The real limit is the
+// recurrence: T dependent steps, each a small (BN, H) x (H, 4H) product,
+// so a step's latency, not the card's rate, sets the time.
+// * The forward (first design): one CTA of 512 threads owns kBlockN = 4
+//   batch rows of one direction for the whole sequence (tiles of 8 and
+//   16 rows were slower: fewer CTAs for the same per-step latency;
+//   PERF.md); rows never mix, so no grid-wide barrier is needed; the h/c
+//   carries live in shared memory; W is streamed from L2 every step; each
+//   thread computes whole gate-columns of z for the BN rows, then each
+//   thread applies the gate math to (row, unit) pairs.
+// * The backward keeps the batch tile and takes the recipe of the GRU
+//   backward (below): the bf16 step product on the tensor cores with W
+//   in registers, each thread owning its (row, unit) pairs' dc carry and
+//   running the gate-derivative chain as the product's epilogue,
+//   residuals prefetched two steps ahead by a per-thread cp.async plan,
+//   one barrier a step; fp32 keeps SIMT products with the same staging.
+//   dW is a second kernel after the sweep: one GEMM over all (t, row)
+//   pairs of a direction, reading the stored dzx and ys.
+// * Every sum runs in a fixed order and dW has no atomics: two runs give
+//   the same bits. Rows past N are masked, never read or written.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -76,8 +77,6 @@ constexpr int kThreads = 512;
 constexpr int kBlockN = 4;  // batch rows per CTA
 constexpr int kMaxSmem = 232448;  // bytes a block may opt in to (H100)
 constexpr int kMaxHidden = 512;
-constexpr int kDwRows = 32;  // (t, row) pairs per staged dW block
-constexpr int kDwK = 32;     // h_prev columns per staged dW block
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -105,6 +104,13 @@ __device__ __forceinline__ float sigmoid(float x) {
   return 1.f / (1.f + expf(-x));
 }
 
+// sigmoid with a fast reciprocal (__fdividef: 2 ulps, no slow path to
+// branch to; 0 where 1 + e^-x overflows): lets an epilogue's entries
+// interleave. For the bf16 sweeps, whose results are rounded to bf16.
+__device__ __forceinline__ float sigmoid_fast(float x) {
+  return __fdividef(1.f, 1.f + expf(-x));
+}
+
 template <typename T>
 struct FwdDir {
   const T* zx;
@@ -123,7 +129,7 @@ struct FwdArgs {
 
 template <typename T>
 struct BwdDir {
-  const T* wt;
+  const T* w;  // bf16: W (H, 4H) as stored; fp32: transposed, (4H, H)
   const T* ys;
   const T* c;
   const T* g;
@@ -153,6 +159,264 @@ __device__ __forceinline__ void fma_rows(float* acc, const float* hk,
     acc[4 * q + 2] += v.z * w;
     acc[4 * q + 3] += v.w * w;
   }
+}
+
+
+// ------------------------------------------------------------ helpers
+// Staging, tensor-core and copy-out pieces shared by the sweeps below.
+
+constexpr int kMmaWarps = 8;  // warps of an mma.sync sweep (one K part)
+constexpr int kMmaThreads = 32 * kMmaWarps;
+
+template <typename K>
+cudaError_t set_smem(K kernel, size_t smem) {
+  if (smem > (size_t)kMaxSmem) return cudaErrorInvalidValue;
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+// elements a staged row of H takes: H rounded up to whole 16-byte pieces
+template <typename T>
+__host__ __device__ __forceinline__ int stage_row(int h) {
+  constexpr int e = 16 / (int)sizeof(T);
+  return (h + e - 1) / e * e;
+}
+
+// Copy n elements device -> shared by threads tid of nthr, asynchronously
+// in 16- or 4-byte pieces where both ends allow, else with plain loads
+// and stores; either way visible to the block after the waiting thread's
+// cp_async_wait and the next barrier.
+template <typename T>
+__device__ __forceinline__ void copy_async(T* dst, const T* src, int n,
+                                           int tid, int nthr) {
+  const int bytes = n * (int)sizeof(T);
+  const uintptr_t a = reinterpret_cast<uintptr_t>(src) | (uintptr_t)bytes;
+  const char* s = reinterpret_cast<const char*>(src);
+  const uint32_t d = sm90::smem_u32(dst);
+  if ((a & 15) == 0) {
+    for (int i = tid; i < bytes / 16; i += nthr)
+      sm90::cp_async16(d + 16 * i, s + 16 * i, true);
+  } else if ((a & 3) == 0) {
+    for (int i = tid; i < bytes / 4; i += nthr)
+      sm90::cp_async4(d + 4 * i, s + 4 * i, true);
+  } else {
+    for (int i = tid; i < n; i += nthr) dst[i] = src[i];
+  }
+}
+
+// A step's staged copies, planned once per thread, for sweeps whose
+// staged rows are whole numbers of 16-byte pieces: thread tid of nthr
+// copies pieces tid, tid + nthr, ... (at most kMaxC) of a stage, and a
+// step's copy is one cp.async a piece, from the piece's source advanced
+// by t rows. `piece(c, src, rb, dst, prev)` describes piece c: its source
+// at t = 0, the bytes a row of its tensor, its byte offset in a stage,
+// and whether it is a neighbouring step's row (h_prev, c_prev), copied
+// only where that step exists (zeros else).
+template <int kMaxC>
+struct CopyPlan {
+  const char* src[kMaxC];
+  int rb[kMaxC];
+  uint32_t dst[kMaxC];
+  unsigned prev = 0;  // bit k: piece k is a neighbouring step's row
+  int n = 0;
+
+  template <typename Piece>
+  __device__ __forceinline__ void init(int total, int tid, int nthr,
+                                       Piece piece) {
+#pragma unroll
+    for (int k = 0; k < kMaxC; ++k) {
+      const int c = tid + k * nthr;
+      src[k] = nullptr;
+      rb[k] = 0;
+      dst[k] = 0;
+      if (c >= total) continue;
+      n = k + 1;
+      bool pv = false;
+      piece(c, src[k], rb[k], dst[k], pv);
+      if (pv) prev |= 1u << k;
+    }
+  }
+
+  // step t's pieces into the stage at shared address st; commits a group
+  __device__ __forceinline__ void issue(uint32_t st, int t,
+                                        bool prev_live) const {
+#pragma unroll
+    for (int k = 0; k < kMaxC; ++k)
+      if (k < n) {
+        const bool live = !(prev >> k & 1) || prev_live;
+        sm90::cp_async16(st + dst[k],
+                         src[k] + (live ? (ptrdiff_t)t * rb[k] : 0), live);
+      }
+    sm90::cp_async_commit();
+  }
+};
+
+// 16-byte copies of a step's rows from a shared bf16 tile to a sequence
+// (N, T, C), C % 8 == 0: thread tid of nthr copies pieces tid, tid +
+// nthr, ... (at most kMaxC) of the tile's nr rows; piece e of row r sits
+// at element off(r, e) of the tile.
+template <int kMaxC>
+struct OutPlan {
+  int s[kMaxC];     // element offset in the tile (-1: none)
+  uint4* g[kMaxC];  // the piece at t = 0
+  int step = 0;     // pieces a time step
+
+  template <typename Off>
+  __device__ __forceinline__ void init(void* seq, int C, int nt, int n0,
+                                       int nr, int tid, int nthr, Off off) {
+    const int pr = C / 8;
+    step = pr;
+#pragma unroll
+    for (int k = 0; k < kMaxC; ++k) {
+      const int c = tid + k * nthr, r = c / pr, e = c - r * pr;
+      const bool on = c < nr * pr;
+      s[k] = on ? off(r, e) : -1;
+      g[k] = reinterpret_cast<uint4*>(seq) +
+             (on ? (size_t)(n0 + r) * nt * pr + e : 0);
+    }
+  }
+
+  __device__ __forceinline__ void copy(const unsigned short* tile,
+                                       int t) const {
+#pragma unroll
+    for (int k = 0; k < kMaxC; ++k)
+      if (s[k] >= 0)
+        g[k][(size_t)t * step] =
+            *reinterpret_cast<const uint4*>(tile + s[k]);
+  }
+};
+
+// Element copies of a step's rows from a shared bf16 tile to a sequence
+// (N, T, C), for rows that are not whole 16-byte pieces: element e of row
+// r < nr sits at element off(r, e) of the tile.
+template <typename Off>
+__device__ __forceinline__ void copy_rows(__nv_bfloat16* seq,
+                                          const unsigned short* tile, int C,
+                                          int nt, int n0, int nr, int t,
+                                          int tid, int nthr, Off off) {
+  for (int i = tid; i < nr * C; i += nthr) {
+    const int r = i / C, e = i - r * C;
+    seq[((size_t)(n0 + r) * nt + t) * C + e] =
+        __ushort_as_bfloat16(tile[off(r, e)]);
+  }
+}
+
+// rows of an mma.sync B tile in shared memory: the N = 8 of m16n8k16.
+// Rows kBlockN .. 7 are never read (the products take them from 16 zero
+// bytes); epilogue lanes that own no pair store there, so a step has no
+// branch on ownership.
+constexpr int kTileRows = 8;
+
+__device__ __forceinline__ unsigned short bf16_bits(float x) {
+  return __bfloat16_as_ushort(__float2bfloat16(x));
+}
+
+// The padded unit count of an mma.sync sweep: 128 where W stays resident
+// in registers (H <= 128, fixed k-steps), else H rounded up to 16.
+__host__ __device__ __forceinline__ int mma_hp(int h) {
+  return h <= 16 * kMmaWarps ? 16 * kMmaWarps : (h + 15) / 16 * 16;
+}
+
+// An A fragment of mma.sync m16n8k16 (rows m0 .. m0 + 15, columns kb ..
+// kb + 15), at(m, k) giving the bf16 bits of A's element (m, k).
+template <typename At>
+__device__ __forceinline__ void load_frag(uint32_t (&f)[4], int m0, int kb,
+                                          At at) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int m = m0 + g + 8 * (i & 1), k = kb + 2 * q + 8 * (i >> 1);
+    f[i] = (uint32_t)at(m, k) | (uint32_t)at(m, k + 1) << 16;
+  }
+}
+
+// This lane's ldmatrix address into a B tile of bf16 rows (the batch
+// rows, K contiguous, `ld` elements a row), and the bytes it advances a
+// pair of k-steps: matrix m = lane / 8 of a pair is k-step m / 2, columns
+// 8 (m % 2) .. + 7, row lane % 8 — rows past the tile's kBlockN read the
+// 16 zero bytes at `zero` and do not advance.
+__device__ __forceinline__ uint2 b_lane(const unsigned short* tile, int ld,
+                                        const void* zero) {
+  const int lane = threadIdx.x & 31, mi = lane >> 3, ri = lane & 7;
+  if (ri >= kBlockN) return make_uint2(sm90::smem_u32(zero), 0u);
+  return make_uint2(
+      sm90::smem_u32(tile + ri * ld + 16 * (mi >> 1) + 8 * (mi & 1)), 64u);
+}
+
+// acc[n] = A_n . B for NT (1 or 2) row tiles that share one B (K = 16
+// KS): A_n's fragments w[n] held in registers, B fragments read with
+// ldmatrix from b = b_lane(...) (x: address, y: bytes a pair of k-steps).
+// Four accumulator chains in all: k-step ks of tile n goes to chain ks %
+// (4 / NT) of the tile's; a tile's chains are added in a fixed order.
+template <int NT, int KS>
+__device__ __forceinline__ void mma_res(float (&acc)[NT][4],
+                                        const uint32_t (&w)[NT][KS][4],
+                                        uint2 b) {
+  constexpr int CH = 4 / NT;
+  float c[NT][CH][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int x = 0; x < CH; ++x)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) c[n][x][j] = 0.f;
+#pragma unroll
+  for (int pk = 0; pk < KS / 2; ++pk) {
+    uint32_t r4[4];
+    sm90::ldmatrix_x4(r4, b.x + b.y * pk);
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      sm90::mma_bf16_16816(c[n][(2 * pk) % CH], w[n][2 * pk], r4[0], r4[1]);
+      sm90::mma_bf16_16816(c[n][(2 * pk + 1) % CH], w[n][2 * pk + 1], r4[2],
+                           r4[3]);
+    }
+  }
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      acc[n][j] = CH == 4 ? (c[n][0][j] + c[n][1][j]) +
+                                (c[n][2 % CH][j] + c[n][3 % CH][j])
+                          : c[n][0][j] + c[n][1 % CH][j];
+}
+
+// acc = A . B over ks_n k-steps with A's fragments streamed from device
+// memory by load(f, ks) (the next k-step's loaded while the current one
+// multiplies) and B read as 32-bit words from this lane's row `pb` of a
+// shared B tile (null: a zero row past the tile's); k-step ks goes to
+// accumulator chain ks % 8, the chains added in a fixed order (short
+// chains: the tensor cores' fp32 accumulation truncates, and the long K
+// of the H > 128 sweeps carried that into the gradients).
+template <typename Load>
+__device__ __forceinline__ void mma_stream(float (&acc)[4], int ks_n,
+                                           const unsigned short* pb,
+                                           Load load) {
+  float c[8][4];
+#pragma unroll
+  for (int x = 0; x < 8; ++x)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) c[x][j] = 0.f;
+  auto bfrag = [&](int ks, uint32_t& b0, uint32_t& b1) {
+    b0 = pb ? *reinterpret_cast<const uint32_t*>(pb + 16 * ks) : 0u;
+    b1 = pb ? *reinterpret_cast<const uint32_t*>(pb + 16 * ks + 8) : 0u;
+  };
+  uint32_t fa[4], fb[4];
+  load(fa, 0);
+  for (int ks = 0; ks < ks_n; ks += 2) {
+    uint32_t b0, b1;
+    if (ks + 1 < ks_n) load(fb, ks + 1);
+    bfrag(ks, b0, b1);
+    sm90::mma_bf16_16816(c[ks & 7], fa, b0, b1);
+    if (ks + 1 < ks_n) {
+      if (ks + 2 < ks_n) load(fa, ks + 2);
+      bfrag(ks + 1, b0, b1);
+      sm90::mma_bf16_16816(c[(ks + 1) & 7], fb, b0, b1);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    acc[j] = ((c[0][j] + c[1][j]) + (c[2][j] + c[3][j])) +
+             ((c[4][j] + c[5][j]) + (c[6][j] + c[7][j]));
 }
 
 // Forward. Shared memory: hop (H, BN) the h operand rounded to T,
@@ -218,59 +482,155 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// Groups the 4H reduction of dh = dz . W^T splits over (fixed order).
+// Groups the K terms of a SIMT product split over (fixed order).
 __host__ __device__ __forceinline__ int dh_parts(int h) {
   return h <= kThreads / 4 ? 4 : (h <= kThreads / 2 ? 2 : 1);
 }
 
-// Backward. Shared memory: dzs (4H, BN) dz rounded to T, dhs and dcs
-// (BN, H) the carries, red (parts, BN, H) dh partial sums when the 4H
-// reduction is split, hs (kDwRows, kDwK) the staged h_prev block of dW.
+// ------------------------------------------------------- LSTM backward
+// A step's residuals staged in shared memory: rows g (4H), then c,
+// c_prev and dy (H each) of the tile's kBlockN rows; each H-run padded
+// to lr = stage_row<T>(H) elements, so gate k of unit u of row r sits at
+// r * 4 lr + k lr + u, c at (4 BN + r) lr + u, c_prev at (5 BN + r) lr +
+// u, dy at (6 BN + r) lr + u.
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    lstm_bwd_kernel(BwdArgs<T> a) {
+__host__ __device__ __forceinline__ int lstm_stage_elems(int h) {
+  return kBlockN * 7 * stage_row<T>(h);
+}
+
+// step t's residuals of rows n0 .. n0 + nr - 1 into `st` by plain loads
+// and stores (rows that are not whole 16-byte pieces), c_prev zero where
+// the direction has no previous step; commits an empty cp.async group so
+// the callers' waits count alike. Out of line, so the sweeps stay small.
+template <typename T>
+__device__ __noinline__ void lstm_stage(T* st, const BwdDir<T>& d, int H,
+                                        int nt, int n0, int nr, int t,
+                                        int tid, int nthr) {
+  const int lr = stage_row<T>(H), prev = d.reverse ? t + 1 : t - 1;
+  const bool live = prev >= 0 && prev < nt;
+  for (int i = tid; i < nr * 7 * H; i += nthr) {
+    const int r = i / (7 * H), e = i - r * 7 * H;
+    const size_t row = (size_t)(n0 + r) * nt + t;
+    if (e < 4 * H) {
+      const int k = e / H;
+      st[r * 4 * lr + k * lr + e - k * H] = d.g[row * 4 * H + e];
+    } else {
+      const int w = (e - 4 * H) / H, u = e - 4 * H - w * H;
+      const T v = w == 0   ? d.c[row * H + u]
+                  : w == 2 ? d.dy[row * H + u]
+                  : live   ? d.c[(row + prev - t) * H + u]
+                           : from_f32<T>(0.f);
+      st[((4 + w) * kBlockN + r) * lr + u] = v;
+    }
+  }
+  sm90::cp_async_commit();
+}
+
+// the per-thread cp.async plan of lstm_stage's copies (H * sizeof(T) a
+// multiple of 16, so lr == H)
+template <typename T, int kMaxC>
+__device__ __forceinline__ void lstm_bwd_plan(CopyPlan<kMaxC>& plan,
+                                              const BwdDir<T>& d, int H,
+                                              int nt, int n0, int nr,
+                                              int tid, int nthr) {
+  const int pr = H * (int)sizeof(T) / 16;  // pieces a row of H
+  const ptrdiff_t shift = d.reverse ? H : -H;
+  plan.init(nr * 7 * pr, tid, nthr,
+            [&](int c, const char*& src, int& rb, uint32_t& dst, bool& pv) {
+              const int r = c / (7 * pr), rest = c - r * 7 * pr;
+              const size_t row0 = (size_t)(n0 + r) * nt;
+              const T* base;
+              int piece, elems;
+              uint32_t off;
+              if (rest < 4 * pr) {
+                base = d.g + row0 * 4 * H;
+                piece = rest;
+                elems = 4 * H;
+                off = r * 4 * H;
+              } else {
+                const int w = (rest - 4 * pr) / pr;
+                piece = rest - 4 * pr - w * pr;
+                base = w == 2 ? d.dy + row0 * H
+                              : d.c + (ptrdiff_t)(row0 * H) +
+                                    (w == 1 ? shift : 0);
+                elems = H;
+                off = ((4 + w) * kBlockN + r) * H;
+                pv = w == 1;
+              }
+              src = reinterpret_cast<const char*>(base) + 16 * piece;
+              rb = elems * (int)sizeof(T);
+              dst = off * (uint32_t)sizeof(T) + 16 * piece;
+            });
+}
+
+// Backward sweep, fp32: SIMT products (dz . W^T over W^T, one column a
+// thread, the 4H terms split into dh_parts(H) ranges whose partial sums
+// the next step's epilogue adds in order). Shared memory: dzs (4H, BN)
+// dz, dcs (BN, H) the dc carry, red (parts, BN, H) the partial sums of
+// dh, then two residual stages (step s + 1's copied while step s runs).
+// Two barriers a step. dW follows as a separate GEMM (rnn_dw_kernel).
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 1)
+    lstm_bwd_simt_kernel(BwdArgs<T> a) {
   constexpr int BN = kBlockN;
-  BwdDir<T> d = a.d[0];
-  if (blockIdx.y == 1) d = a.d[1];
-  const int H = a.h, H4 = 4 * a.h, nt = a.t;
+  const BwdDir<T> d = blockIdx.y == 1 ? a.d[1] : a.d[0];
+  const int H = a.h, H4 = 4 * a.h, nt = a.t, lr = stage_row<T>(a.h);
   const int n0 = blockIdx.x * BN;
   const int nr = min(BN, a.n - n0);
-  const int parts = dh_parts(H);
+  const int parts = dh_parts(H), se = lstm_stage_elems<T>(H);
   extern __shared__ __align__(16) float smem[];
   float* dzs = smem;
-  float* dhs = dzs + H4 * BN;
-  float* dcs = dhs + BN * H;
-  float* hs = dcs + BN * H;
-  float* red = hs + kDwRows * kDwK;
-  for (int i = threadIdx.x; i < H4 * BN; i += kThreads) dzs[i] = 0.f;
-  for (int i = threadIdx.x; i < BN * H; i += kThreads) {
-    dhs[i] = 0.f;
-    dcs[i] = 0.f;
-  }
+  float* dcs = dzs + H4 * BN;
+  float* red = dcs + BN * H;
+  T* stages = reinterpret_cast<T*>(red + parts * BN * H);
+  for (int i = threadIdx.x; i < BN * H; i += kThreads) dcs[i] = 0.f;
+  const bool planned = H * (int)sizeof(T) % 16 == 0;
+  CopyPlan<7> plan;
+  if (planned) lstm_bwd_plan(plan, d, H, nt, n0, nr, threadIdx.x, kThreads);
+  const uint32_t st0 = sm90::smem_u32(stages);
+  const uint32_t sb = se * (uint32_t)sizeof(T);
+  // forward direction: t = T-1-s, previous step t-1; reverse direction:
+  // its time runs T-1 -> 0, so t = s, previous step t+1
+  auto time_of = [&](int s) { return d.reverse ? s : nt - 1 - s; };
+  auto stage = [&](int s) {
+    if (s >= nt) {
+      sm90::cp_async_commit();
+      return;
+    }
+    const int t = time_of(s);
+    if (planned)
+      plan.issue(st0 + (s & 1) * sb, t, d.reverse ? t < nt - 1 : t > 0);
+    else
+      lstm_stage(stages + (s & 1) * se, d, H, nt, n0, nr, t, threadIdx.x,
+                 kThreads);
+  };
+  stage(0);
+  sm90::cp_async_wait<0>();
   __syncthreads();
   for (int s = 0; s < nt; ++s) {
-    // forward direction: t = T-1-s, previous step t-1; reverse
-    // direction: its time runs T-1 -> 0, so t = s, previous step t+1
-    const int t = d.reverse ? s : nt - 1 - s;
-    const int prev = d.reverse ? t + 1 : t - 1;
-    const bool live = d.reverse ? (t < nt - 1) : (t > 0);
+    const int t = time_of(s);
+    const T* st = stages + (s & 1) * se;
+    stage(s + 1);
     for (int p = threadIdx.x; p < nr * H; p += kThreads) {
       const int r = p / H, u = p - r * H;
-      const size_t row = (size_t)(n0 + r) * nt + t;
-      const T* g = d.g + row * H4;
-      const float gi = to_f32(g[u]), gf = to_f32(g[H + u]);
-      const float gg = to_f32(g[2 * H + u]), go = to_f32(g[3 * H + u]);
-      const float c = to_f32(d.c[row * H + u]);
-      const float cp =
-          live ? to_f32(d.c[((size_t)(n0 + r) * nt + prev) * H + u]) : 0.f;
-      const float dh = to_f32(d.dy[row * H + u]) + dhs[r * H + u];
+      const T* gr = st + r * 4 * lr + u;
+      const float gi = to_f32(gr[0]), gf = to_f32(gr[lr]);
+      const float gg = to_f32(gr[2 * lr]), go = to_f32(gr[3 * lr]);
+      const float c = to_f32(st[(4 * BN + r) * lr + u]);
+      const float cp = to_f32(st[(5 * BN + r) * lr + u]);
+      float carry = 0.f;
+      if (s > 0) {
+        carry = red[r * H + u];
+        for (int q = 1; q < parts; ++q) carry += red[(q * BN + r) * H + u];
+      }
+      const float dh = to_f32(st[(6 * BN + r) * lr + u]) + carry;
       const float tc = tanhf(c);
       const float do_pre = dh * tc * go * (1.f - go);
       const float dc = dcs[r * H + u] + dh * go * (1.f - tc * tc);
       const float di_pre = dc * gg * gi * (1.f - gi);
       const float df_pre = dc * cp * gf * (1.f - gf);
       const float dg_pre = dc * gi * (1.f - gg * gg);
-      T* dz = d.dzx + row * H4;
+      T* dz = d.dzx + ((size_t)(n0 + r) * nt + t) * H4;
       dz[u] = from_f32<T>(di_pre);
       dz[H + u] = from_f32<T>(df_pre);
       dz[2 * H + u] = from_f32<T>(dg_pre);
@@ -281,10 +641,11 @@ __global__ void __launch_bounds__(kThreads)
       dzs[(3 * H + u) * BN + r] = round_to<T>(do_pre);
       dcs[r * H + u] = dc * gf;
     }
+    sm90::cp_async_wait<0>();  // step s + 1's stage, published below
     __syncthreads();
-    // dh carry = dz . W^T: column k of W^T per thread, the 4H terms
-    // split into `parts` contiguous ranges
-    {
+    if (s + 1 < nt) {
+      // dh carry = dz . W^T: column k of W^T per thread, the 4H terms
+      // split into `parts` contiguous ranges
       const int per = kThreads / parts;
       const int part = threadIdx.x / per;
       const int span = H4 / parts;
@@ -292,78 +653,221 @@ __global__ void __launch_bounds__(kThreads)
         float acc[BN];
 #pragma unroll
         for (int r = 0; r < BN; ++r) acc[r] = 0.f;
-        const T* wcol = d.wt + k;
+        const T* wcol = d.w + k;
 #pragma unroll 4
         for (int j = part * span; j < (part + 1) * span; ++j)
           fma_rows<BN>(acc, dzs + j * BN, to_f32(wcol[(size_t)j * H]));
-        float* dst = parts > 1 ? red + part * BN * H : dhs;
 #pragma unroll
-        for (int r = 0; r < BN; ++r) dst[r * H + k] = acc[r];
-      }
-    }
-    __syncthreads();
-    if (parts > 1) {
-      for (int i = threadIdx.x; i < BN * H; i += kThreads) {
-        float v = red[i];
-        for (int q = 1; q < parts; ++q) v += red[q * BN * H + i];
-        dhs[i] = v;
+        for (int r = 0; r < BN; ++r) red[(part * BN + r) * H + k] = acc[r];
       }
       __syncthreads();
     }
   }
-  // this tile's dW = sum over (t, row) of h_prev^T . dz, read back from
-  // the dzx this block wrote (visible to the block after the barrier)
-  float* dw = d.dw + (size_t)blockIdx.x * H * H4;
-  const int m_total = nt * nr;
-  for (int j0 = 0; j0 < H4; j0 += kThreads) {
-    const int j = j0 + threadIdx.x;
-    for (int k0 = 0; k0 < H; k0 += kDwK) {
-      float acc[kDwK];
+}
+
+// Backward sweep, bf16, on the tensor cores. The step product dh^T (H,
+// BN) = W (H, 4H) . dz^T (4H, BN) is mma.sync m16n8k16 with M = the H
+// output units (16-unit tiles), N = 8 batch rows (the tile's 4 rows and
+// 4 zero rows), K = 4H over [i | f | g | o] gate blocks each padded to
+// hp = mma_hp(H) units (zero columns), A = W as stored (row-major, so
+// K-major), B = dz rounded to bf16 in shared memory. A thread's
+// accumulator holds units (u, u + 8) of rows (2q, 2q + 1): lanes with q <
+// 2 own those 4 (row, unit) pairs for the whole sweep, keep their dc
+// carry in registers and run the gate-derivative chain as the product's
+// epilogue, writing the pair's four dz to the next B tile. The B tile is
+// double-buffered, so a step has one barrier; dzx leaves the B tile
+// (which holds exactly its bf16 values) as 16-byte pieces when H % 8 ==
+// 0. kMT = 1 (H <= 128): W (64 K elements) stays in registers for the
+// whole sweep, warp w holding the 32 k-steps of unit tile w (128
+// registers a thread; PERF.md: the layouts measured). kMT = 4 (H <=
+// 512): each warp takes unit tiles w, w + 8, ... and streams their
+// fragments from L2. Shared memory: 16 zero bytes, two B tiles
+// (kTileRows, 4 hp + 8) as bf16 bits (rows padded against bank
+// conflicts), three residual stages (step s + 2's copied while step s
+// runs).
+template <int kMT>
+__global__ void __launch_bounds__(kMmaThreads, 1)
+    lstm_bwd_mma_kernel(BwdArgs<__nv_bfloat16> a) {
+  using T = __nv_bfloat16;
+  constexpr int BN = kBlockN;
+  constexpr bool kRes = kMT == 1;  // W resident: hp = 128, 32 k-steps
+  const BwdDir<T> d = blockIdx.y == 1 ? a.d[1] : a.d[0];
+  const int H = a.h, H4 = 4 * a.h, nt = a.t, lr = stage_row<T>(a.h);
+  const int hp = mma_hp(H), ld = 4 * hp + 8;
+  const int n0 = blockIdx.x * BN;
+  const int nr = min(BN, a.n - n0);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, q = lane & 3;
+  const int se = lstm_stage_elems<T>(H);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  uint4* zero16 = reinterpret_cast<uint4*>(smem_raw);  // rows 4..7 of B
+  unsigned short* op = reinterpret_cast<unsigned short*>(zero16 + 1);
+  T* stages = reinterpret_cast<T*>(op + 2 * kTileRows * ld);
+  const unsigned short* w = reinterpret_cast<const unsigned short*>(d.w);
+  // A = W at padded column k (gate k / hp, unit k % hp)
+  auto at_w = [&](int u, int k) -> unsigned short {
+    const int gt = k / hp, v = k - gt * hp;
+    return u < H && v < H ? w[(size_t)u * H4 + gt * H + v] : 0;
+  };
+  for (int i = threadIdx.x; i < 2 * kTileRows * ld; i += kMmaThreads)
+    op[i] = 0;
+  if (threadIdx.x == 0) *zero16 = make_uint4(0, 0, 0, 0);
+  const bool planned = H % 8 == 0;
+  CopyPlan<kRes ? 2 : 7> plan;
+  if (planned) lstm_bwd_plan(plan, d, H, nt, n0, nr, threadIdx.x, kMmaThreads);
+  const uint32_t st0 = sm90::smem_u32(stages);
+  const uint32_t sb = se * (uint32_t)sizeof(T);
+  auto time_of = [&](int s) { return d.reverse ? s : nt - 1 - s; };
+  // sweep step s's residuals into stage s % 3 (an empty group past the
+  // sweep)
+  auto stage = [&](int s) {
+    if (s >= nt) {
+      sm90::cp_async_commit();
+      return;
+    }
+    const int t = time_of(s);
+    if (planned)
+      plan.issue(st0 + (s % 3) * sb, t, d.reverse ? t < nt - 1 : t > 0);
+    else
+      lstm_stage(stages + (s % 3) * se, d, H, nt, n0, nr, t, threadIdx.x,
+                 kMmaThreads);
+  };
+  stage(0);
+  stage(1);
+
+  uint32_t wf[1][kRes ? 32 : 1][4];  // resident W: unit tile warp
+  if constexpr (kRes) {
 #pragma unroll
-      for (int kk = 0; kk < kDwK; ++kk) acc[kk] = 0.f;
-      for (int m0 = 0; m0 < m_total; m0 += kDwRows) {
-        __syncthreads();
-        for (int i = threadIdx.x; i < kDwRows * kDwK; i += kThreads) {
-          const int m = m0 + i / kDwK, k = k0 + i % kDwK;
-          float v = 0.f;
-          if (m < m_total && k < H) {
-            const int t = m / nr, r = m - (m / nr) * nr;
-            const int prev = d.reverse ? t + 1 : t - 1;
-            const bool live = d.reverse ? (t < nt - 1) : (t > 0);
-            if (live)
-              v = round_to<T>(
-                  to_f32(d.ys[((size_t)(n0 + r) * nt + prev) * H + k]));
-          }
-          hs[i] = v;
-        }
-        __syncthreads();
-        if (j < H4) {
-          const int mend = min(kDwRows, m_total - m0);
-          for (int mm = 0; mm < mend; ++mm) {
-            const int m = m0 + mm;
-            const int t = m / nr, r = m - t * nr;
-            const float dz =
-                to_f32(d.dzx[((size_t)(n0 + r) * nt + t) * H4 + j]);
-            fma_rows<kDwK>(acc, hs + mm * kDwK, dz);
-          }
-        }
+    for (int ks = 0; ks < 32; ++ks)
+      load_frag(wf[0][ks], 16 * warp, 16 * ks, at_w);
+  }
+  // dzx from the B tile: in 16-byte pieces (piece e of a row is gate e /
+  // (H / 8), units 8 (e % (H / 8)) ..) when H % 8 == 0, else by element
+  OutPlan<kRes ? 1 : 4> out;
+  if (planned)
+    out.init(d.dzx, H4, nt, n0, nr, threadIdx.x, kMmaThreads,
+             [&](int r, int e) {
+               const int k = e / (H / 8);
+               return r * ld + k * hp + 8 * (e - k * (H / 8));
+             });
+  auto copy_out = [&](const unsigned short* o, int t) {
+    if (planned)
+      out.copy(o, t);
+    else
+      copy_rows(d.dzx, o, H4, nt, n0, nr, t, threadIdx.x, kMmaThreads,
+                [&](int r, int e) { return r * ld + e / H * hp + e % H; });
+  };
+
+  // The per-tile loops (i) run as straight-line code when W is resident
+  // (one tile, whose entries then stay in registers) and as a loop when W
+  // is streamed (the per-tile state in local memory, as in K11).
+  // Entry j of unit tile i is unit 16 (warp + 8 i) + g + 8 (j >> 1) of row
+  // 2 q + (j & 1). The epilogue runs for every entry, reading in-range
+  // copies (row rc(j) = row mod 4, unit uc(i, j) capped at H - 1), and
+  // stores without a branch: an entry of a real row (< 4) and padded unit
+  // (< hp) stores in place — rows past nr and units past H only feed
+  // product columns and W columns that nothing reads — and every other
+  // entry stores into the tile's unread rows 4..7 (dst_row, dst_unit).
+  auto rc = [&](int j) { return (2 * q + (j & 1)) & 3; };
+  auto uc = [&](int i, int j) {
+    return min(16 * (warp + kMmaWarps * i) + g + 8 * (j >> 1), H - 1);
+  };
+  auto dst = [&](int i, int j) {
+    const int u = 16 * (warp + kMmaWarps * i) + g + 8 * (j >> 1);
+    const bool real = q < 2 && u < hp;
+    return (real ? 2 * q + (j & 1) : 4 + 2 * (q & 1) + (j & 1)) * ld +
+           (real ? u : g);
+  };
+  float acc[kMT][4], dc[kMT][4];
+  // an entry's staged inputs, two bf16 a register: (i, f), (g, o) gates,
+  // (c, c_prev); dy as fp32
+  uint32_t vif[kMT][4], vgo[kMT][4], vcc[kMT][4];
+  float vy[kMT][4];
+#pragma unroll (kMT == 1 ? 2 : 1)
+  for (int i = 0; i < kMT; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = dc[i][j] = 0.f;
+  auto load_res = [&](int s) {
+    const unsigned short* st =
+        reinterpret_cast<const unsigned short*>(stages + (s % 3) * se);
+    auto two = [](unsigned short lo, unsigned short hi) {
+      return (uint32_t)lo | (uint32_t)hi << 16;
+    };
+#pragma unroll (kMT == 1 ? 2 : 1)
+    for (int i = 0; i < kMT; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int r = rc(j), u = uc(i, j);
+        const unsigned short* gr = st + r * 4 * lr + u;
+        vif[i][j] = two(gr[0], gr[lr]);
+        vgo[i][j] = two(gr[2 * lr], gr[3 * lr]);
+        vcc[i][j] = two(st[(4 * BN + r) * lr + u], st[(5 * BN + r) * lr + u]);
+        vy[i][j] = __uint_as_float((uint32_t)st[(6 * BN + r) * lr + u] << 16);
       }
-      if (j < H4) {
-        for (int kk = 0; kk < kDwK && k0 + kk < H; ++kk)
-          dw[(size_t)(k0 + kk) * H4 + j] = acc[kk];
+  };
+  auto lo = [](uint32_t x) { return __uint_as_float(x << 16); };
+  auto hi = [](uint32_t x) { return __uint_as_float(x & 0xffff0000u); };
+  // sweep step s from the dh carry in acc: the entries' dz into the B
+  // tile o
+  auto epilogue = [&](unsigned short* o) {
+#pragma unroll (kMT == 1 ? 2 : 1)
+    for (int i = 0; i < kMT; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float gi = lo(vif[i][j]), gf = hi(vif[i][j]);
+        const float gg = lo(vgo[i][j]), go = hi(vgo[i][j]);
+        const float dh = vy[i][j] + acc[i][j];
+        const float tc = tanhf(lo(vcc[i][j]));
+        const float do_pre = dh * tc * go * (1.f - go);
+        const float dcv = dc[i][j] + dh * go * (1.f - tc * tc);
+        const float di_pre = dcv * gg * gi * (1.f - gi);
+        const float df_pre = dcv * hi(vcc[i][j]) * gf * (1.f - gf);
+        const float dg_pre = dcv * gi * (1.f - gg * gg);
+        dc[i][j] = dcv * gf;
+        unsigned short* p = o + dst(i, j);
+        p[0] = bf16_bits(di_pre);
+        p[hp] = bf16_bits(df_pre);
+        p[2 * hp] = bf16_bits(dg_pre);
+        p[3 * hp] = bf16_bits(do_pre);
+      }
+  };
+  // acc = the B tile o's dz . W^T for this thread's entries
+  auto product = [&](const unsigned short* o) {
+    if constexpr (kRes) {
+      mma_res<1, 32>(acc, wf, b_lane(o, ld, zero16));
+    } else {
+      const unsigned short* pb = g < BN ? o + g * ld + 2 * q : nullptr;
+#pragma unroll (kMT == 1 ? 2 : 1)
+      for (int i = 0; i < kMT; ++i) {
+        const int u0 = 16 * (warp + kMmaWarps * i);
+        float c4[4] = {0.f, 0.f, 0.f, 0.f};
+        if (u0 < hp)
+          mma_stream(c4, hp / 4, pb, [&](uint32_t(&f)[4], int ks) {
+            load_frag(f, u0, 16 * ks, at_w);
+          });
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = c4[j];
       }
     }
+  };
+
+  // the residuals are read after the product, where the registers of its
+  // accumulator chains are free (W takes 128 a thread)
+  sm90::cp_async_wait<1>();
+  __syncthreads();  // step 0's stage and the zeroed tiles
+  for (int s = 0; s < nt; ++s) {
+    unsigned short* o = op + (s & 1) * kTileRows * ld;
+    load_res(s);
+    epilogue(o);
+    stage(s + 2);
+    sm90::cp_async_wait<1>();  // step s + 1's stage
+    __syncthreads();           // o holds step s's dz; the stage landed
+    copy_out(o, time_of(s));
+    if (s + 1 < nt) product(o);
   }
 }
 
 size_t fwd_smem(int h) { return (size_t)6 * h * kBlockN * sizeof(float); }
-
-size_t bwd_smem(int h) {
-  const int parts = dh_parts(h);
-  return ((size_t)4 * h * kBlockN + 2 * (size_t)kBlockN * h +
-          kDwRows * kDwK + (parts > 1 ? (size_t)parts * kBlockN * h : 0)) *
-         sizeof(float);
-}
 
 template <typename T, bool SAVE>
 cudaError_t launch_fwd(const FwdArgs<T>& a, int ndir, cudaStream_t s) {
@@ -376,19 +880,6 @@ cudaError_t launch_fwd(const FwdArgs<T>& a, int ndir, cudaStream_t s) {
   if (e != cudaSuccess) return e;
   const dim3 grid((a.n + kBlockN - 1) / kBlockN, ndir);
   lstm_fwd_kernel<T, SAVE><<<grid, kThreads, smem, s>>>(a);
-  return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t launch_bwd(const BwdArgs<T>& a, int ndir, cudaStream_t s) {
-  const size_t smem = bwd_smem(a.h);
-  if (smem > (size_t)kMaxSmem) return cudaErrorInvalidValue;
-  const cudaError_t e = cudaFuncSetAttribute(
-      lstm_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (e != cudaSuccess) return e;
-  const dim3 grid((a.n + kBlockN - 1) / kBlockN, ndir);
-  lstm_bwd_kernel<T><<<grid, kThreads, smem, s>>>(a);
   return cudaGetLastError();
 }
 
@@ -415,37 +906,14 @@ cudaError_t fwd_typed(const void* const* zx, const void* const* w,
               : launch_fwd<T, false>(a, ndir, s);
 }
 
-template <typename T>
-cudaError_t bwd_typed(const void* const* wt, const void* const* ys,
-                      const void* const* c, const void* const* g,
-                      const void* const* dy, void* const* dzx,
-                      void* const* dw, const int* rev, int ndir, int n,
-                      int t, int h, cudaStream_t s) {
-  BwdArgs<T> a;
-  for (int i = 0; i < 2; ++i) {
-    const int k = i < ndir ? i : 0;
-    a.d[i] = BwdDir<T>{static_cast<const T*>(wt[k]),
-                       static_cast<const T*>(ys[k]),
-                       static_cast<const T*>(c[k]),
-                       static_cast<const T*>(g[k]),
-                       static_cast<const T*>(dy[k]),
-                       static_cast<T*>(dzx[k]),
-                       static_cast<float*>(dw[k]),
-                       rev[k]};
-  }
-  a.n = n;
-  a.t = t;
-  a.h = h;
-  return launch_bwd<T>(a, ndir, s);
-}
-
 // ------------------------------------------------------------------ GRU
 // Persistent GRU scan, one direction a launch (BiRecurrent runs one
 // launch per direction on time-flipped input, as the JAX package does):
-//   * gru_fwd_kernel<T, SAVE=true>  <- _gru_fwd_kernel (K10);
-//   * gru_fwd_kernel<T, SAVE=false> <- _gru_fwd_infer_kernel;
+//   * gru_fwd_mma_kernel<kMT, SAVE> (bf16) / gru_fwd_simt_kernel<float,
+//     SAVE> (fp32), SAVE=true  <- _gru_fwd_kernel (K10), SAVE=false <-
+//     _gru_fwd_infer_kernel;
 //   * gru_bwd_mma_kernel<kMT> (bf16) / gru_bwd_simt_kernel<float> (fp32),
-//     then gru_dw_kernel<T>           <- _gru_bwd_kernel (K11).
+//     then rnn_dw_kernel<T>     <- _gru_bwd_kernel (K11).
 //
 // Layout: zg, zr, dzg (N, T, 2H), gates z then r; zc, cand, ys, dy, dzc
 // (N, T, H); wg (H, 2H) and wc (H, H) row-major (the fp32 backward takes
@@ -467,16 +935,16 @@ cudaError_t bwd_typed(const void* const* wt, const void* const* ys,
 // the backward ~17 MB and twice the flops: a few us of the card's rates
 // each. As for the LSTM, the recurrence sets the time: T dependent
 // steps, each two dependent products — r must be complete before
-// (r h) . W_c reads it. The forward is the LSTM kernels' design (one CTA
-// of kThreads owns kBlockN batch rows for the whole sequence, carries in
-// shared memory, no grid-wide barrier, both weights read from L2 every
-// step; a product's K terms split over up to 4 thread groups and the
-// partial sums added in a fixed order, rows_times_w). The backward
-// (below) keeps the batch tile and the no-atomics, fixed-order rule, and
-// takes each step's loads off its critical path (residuals prefetched
-// into shared memory with cp.async), puts the bf16 step products on the
-// tensor cores with W held on chip, and computes dW after the sweep as
-// one GEMM over all (t, row) pairs.
+// (r h) . W_c reads it. Every kernel keeps the batch tile (kBlockN rows a
+// CTA, no grid-wide barrier) and the no-atomics, fixed-order rule. The
+// bf16 kernels put the step products on the tensor cores with W held in
+// registers, each thread owning its (row, unit) pairs' carries, and take
+// each step's loads off its critical path (inputs or residuals staged
+// ahead with cp.async); the fp32 kernels keep SIMT products
+// (rows_times_w: one column per thread, the K terms split over up to 4
+// thread groups and the partial sums added in a fixed order) with the
+// same staging. The backward computes dW after the sweep as one GEMM over
+// all (t, row) pairs.
 
 // dst[r * C + j] = base[r * C + j] + sum over k < K of op[k * BN + r] *
 // w[k * C + j], for the BN rows and C columns (base may be null): op
@@ -533,16 +1001,68 @@ struct GruFwdArgs {
   int n, t, h;
 };
 
-// Forward. Shared memory: hs (BN, H) the h carry, hop (H, BN) h rounded
-// to T, zrs (BN, 2H) h . W_g and then the activated z, r; rhop (H, BN)
-// r * h rounded to T, cs (BN, H) (r h) . W_c; red the split sums.
+// A forward step's inputs staged in shared memory: rows zg (2H: z then
+// r) and zc (H) of the tile's kBlockN rows, each H-run padded to lr =
+// stage_row<T>(H) elements: z of unit u of row r at r * 2 lr + u, r at r
+// * 2 lr + lr + u, zc at (2 BN + r) lr + u.
+template <typename T>
+__host__ __device__ __forceinline__ int gru_fwd_stage_elems(int h) {
+  return kBlockN * 3 * stage_row<T>(h);
+}
+
+// step t's inputs into `st` by plain loads and stores (rows that are not
+// whole 16-byte pieces); commits an empty cp.async group. Out of line.
+template <typename T>
+__device__ __noinline__ void gru_fwd_stage(T* st, const GruFwdArgs<T>& a,
+                                           int n0, int nr, int t, int tid,
+                                           int nthr) {
+  const int H = a.h, lr = stage_row<T>(a.h);
+  for (int i = tid; i < nr * 3 * H; i += nthr) {
+    const int r = i / (3 * H), e = i - r * 3 * H;
+    const size_t row = (size_t)(n0 + r) * a.t + t;
+    if (e < 2 * H)
+      st[r * 2 * lr + (e < H ? e : lr + e - H)] = a.zg[row * 2 * H + e];
+    else
+      st[(2 * kBlockN + r) * lr + e - 2 * H] = a.zc[row * H + e - 2 * H];
+  }
+  sm90::cp_async_commit();
+}
+
+// the per-thread cp.async plan of gru_fwd_stage's copies (lr == H)
+template <typename T, int kMaxC>
+__device__ __forceinline__ void gru_fwd_plan(CopyPlan<kMaxC>& plan,
+                                             const GruFwdArgs<T>& a, int n0,
+                                             int nr, int tid, int nthr) {
+  const int H = a.h, pr = a.h * (int)sizeof(T) / 16;
+  plan.init(nr * 3 * pr, tid, nthr,
+            [&](int c, const char*& src, int& rb, uint32_t& dst, bool&) {
+              const int r = c / (3 * pr), rest = c - r * 3 * pr;
+              const size_t row0 = (size_t)(n0 + r) * a.t;
+              const bool gates = rest < 2 * pr;
+              const int piece = gates ? rest : rest - 2 * pr;
+              src = reinterpret_cast<const char*>(
+                        gates ? a.zg + row0 * 2 * H : a.zc + row0 * H) +
+                    16 * piece;
+              rb = (gates ? 2 * H : H) * (int)sizeof(T);
+              dst = (gates ? r * 2 * H : (2 * kBlockN + r) * H) *
+                        (uint32_t)sizeof(T) +
+                    16 * piece;
+            });
+}
+
+// Forward, fp32: SIMT products (rows_times_w: W_g, W_c from L2). Shared
+// memory: hs (BN, H) the h carry, hop (H, BN) h, zrs (BN, 2H) h . W_g
+// and then the activated z, r; rhop (H, BN) r * h, cs (BN, H) (r h) .
+// W_c; red the split sums; then two input stages (step t + 1's copied
+// while step t runs), so zg and zc are off the steps' critical path.
 template <typename T, bool SAVE>
-__global__ void __launch_bounds__(kThreads)
-    gru_fwd_kernel(GruFwdArgs<T> a) {
+__global__ void __launch_bounds__(kThreads, 1)
+    gru_fwd_simt_kernel(GruFwdArgs<T> a) {
   constexpr int BN = kBlockN;
-  const int H = a.h, H2 = 2 * a.h, nt = a.t;
+  const int H = a.h, H2 = 2 * a.h, nt = a.t, lr = stage_row<T>(a.h);
   const int n0 = blockIdx.x * BN;
   const int nr = min(BN, a.n - n0);
+  const int se = gru_fwd_stage_elems<T>(H);
   extern __shared__ __align__(16) float smem[];
   float* hs = smem;
   float* hop = hs + BN * H;
@@ -550,21 +1070,40 @@ __global__ void __launch_bounds__(kThreads)
   float* rhop = zrs + BN * H2;
   float* cs = rhop + H * BN;
   float* red = cs + BN * H;
+  T* stages = reinterpret_cast<T*>(red + kThreads * BN);
   for (int i = threadIdx.x; i < BN * H; i += kThreads) {
     hs[i] = 0.f;
     hop[i] = 0.f;
     rhop[i] = 0.f;
   }
+  const bool planned = H * (int)sizeof(T) % 16 == 0;
+  CopyPlan<3> plan;
+  if (planned) gru_fwd_plan(plan, a, n0, nr, threadIdx.x, kThreads);
+  const uint32_t st0 = sm90::smem_u32(stages);
+  const uint32_t sb = se * (uint32_t)sizeof(T);
+  auto stage = [&](int t) {
+    if (t >= nt)
+      sm90::cp_async_commit();
+    else if (planned)
+      plan.issue(st0 + (t & 1) * sb, t, true);
+    else
+      gru_fwd_stage(stages + (t & 1) * se, a, n0, nr, t, threadIdx.x,
+                    kThreads);
+  };
+  stage(0);
+  sm90::cp_async_wait<0>();
   __syncthreads();
   for (int t = 0; t < nt; ++t) {
+    const T* st = stages + (t & 1) * se;
+    stage(t + 1);
     rows_times_w<T>(zrs, nullptr, hop, a.wg, H, H2, red);
     // z and r, and the second product's operand r * h
     for (int p = threadIdx.x; p < nr * H; p += kThreads) {
       const int r = p / H, u = p - r * H;
       const size_t row = (size_t)(n0 + r) * nt + t;
-      const T* zg = a.zg + row * H2;
-      const float z = sigmoid(to_f32(zg[u]) + zrs[r * H2 + u]);
-      const float rg = sigmoid(to_f32(zg[H + u]) + zrs[r * H2 + H + u]);
+      const float z = sigmoid(to_f32(st[r * 2 * lr + u]) + zrs[r * H2 + u]);
+      const float rg =
+          sigmoid(to_f32(st[r * 2 * lr + lr + u]) + zrs[r * H2 + H + u]);
       zrs[r * H2 + u] = z;
       zrs[r * H2 + H + u] = rg;
       rhop[u * BN + r] = round_to<T>(rg * hs[r * H + u]);
@@ -579,7 +1118,8 @@ __global__ void __launch_bounds__(kThreads)
     for (int p = threadIdx.x; p < nr * H; p += kThreads) {
       const int r = p / H, u = p - r * H;
       const size_t row = (size_t)(n0 + r) * nt + t;
-      const float cand = tanhf(to_f32(a.zc[row * H + u]) + cs[r * H + u]);
+      const float cand =
+          tanhf(to_f32(st[(2 * BN + r) * lr + u]) + cs[r * H + u]);
       const float z = zrs[r * H2 + u];
       const float h = (1.f - z) * hs[r * H + u] + z * cand;
       hs[r * H + u] = h;
@@ -587,7 +1127,239 @@ __global__ void __launch_bounds__(kThreads)
       a.ys[row * H + u] = from_f32<T>(h);
       if (SAVE) a.cand[row * H + u] = from_f32<T>(cand);
     }
+    sm90::cp_async_wait<0>();  // step t + 1's stage, published below
     __syncthreads();
+  }
+}
+
+// Forward, bf16, on the tensor cores. Two dependent products a step, both
+// mma.sync m16n8k16 with N = 8 batch rows (the tile's 4 and 4 zero rows)
+// and B the h or r * h operand rounded to bf16 in shared memory:
+//   1. zr^T (2H, BN) = W_g^T . h^T, K = H. W_g's columns are taken so that
+//      16-row tile p holds z (rows 0-7) and r (rows 8-15) of units 8p ..
+//      8p + 7: a lane's (u, u + 8) accumulator then holds z_u and r_u of
+//      its rows (2q, 2q + 1), and r h is formed in registers;
+//   2. cand^T (H, BN) = W_c^T . (r h)^T, K = H: one warp owns product 1's
+//      tiles 2j, 2j + 1 and product 2's tile j (units 16j .. 16j + 15),
+//      so the update h = (1 - z) h + z cand is register-local.
+// Lanes with q < 2 own their (row, unit) pairs' h carry (fp32) for the
+// whole sweep. A fragments are W_g / W_c read transposed (A[m][k] =
+// W[k][m]) once, at kernel start, when the units padded to hp = mma_hp(H)
+// are 128 (kMT = 1: W_g 64 and W_c 32 registers a thread); above, each
+// warp takes unit groups j = warp, warp + 8, ... (kMT = 4) and streams
+// the fragments from L2. Units past H (the padding) are zero rows and
+// columns. Two barriers a step; zg and zc copied two steps ahead by a
+// per-thread cp.async plan; ys (from the h operand tile, which holds
+// exactly its bf16 values), and zr and cand when SAVE (from out tiles),
+// leave as 16-byte pieces when H % 8 == 0. Shared memory: 16 zero bytes,
+// op1 / op2 (kTileRows, hp + 8) the h / r h operands as bf16 bits, zro
+// (kTileRows, 2H) and cno (kTileRows, H) the stored zr and cand, three
+// input stages.
+template <int kMT, bool SAVE>
+__global__ void __launch_bounds__(kMmaThreads, 1)
+    gru_fwd_mma_kernel(GruFwdArgs<__nv_bfloat16> a) {
+  using T = __nv_bfloat16;
+  constexpr int BN = kBlockN;
+  constexpr bool kRes = kMT == 1;
+  const int H = a.h, H2 = 2 * a.h, nt = a.t, lr = stage_row<T>(a.h);
+  const int hp = mma_hp(H), ld = hp + 8;
+  const int n0 = blockIdx.x * BN;
+  const int nr = min(BN, a.n - n0);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, q = lane & 3;
+  const int se = gru_fwd_stage_elems<T>(H);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  uint4* zero16 = reinterpret_cast<uint4*>(smem_raw);  // rows 4..7 of B
+  unsigned short* op1 = reinterpret_cast<unsigned short*>(zero16 + 1);
+  unsigned short* op2 = op1 + kTileRows * ld;
+  unsigned short* zro = op2 + kTileRows * ld;
+  unsigned short* cno = zro + kTileRows * H2;
+  T* stages = reinterpret_cast<T*>(cno + kTileRows * H);
+  const unsigned short* wg = reinterpret_cast<const unsigned short*>(a.wg);
+  const unsigned short* wc = reinterpret_cast<const unsigned short*>(a.wc);
+  // A of product 1: row m of tile m / 16 is gate (m / 8) % 2 of unit 8
+  // (m / 16) + m % 8
+  auto at_g = [&](int m, int k) -> unsigned short {
+    const int u = 8 * (m >> 4) + (m & 7);
+    return u < H && k < H ? wg[(size_t)k * H2 + ((m >> 3) & 1) * H + u] : 0;
+  };
+  auto at_c = [&](int m, int k) -> unsigned short {
+    return m < H && k < H ? wc[(size_t)k * H + m] : 0;
+  };
+  for (int i = threadIdx.x; i < 2 * kTileRows * ld; i += kMmaThreads)
+    op1[i] = 0;
+  if (threadIdx.x == 0) *zero16 = make_uint4(0, 0, 0, 0);
+  const bool planned = H % 8 == 0;
+  CopyPlan<kRes ? 1 : 3> plan;
+  if (planned) gru_fwd_plan(plan, a, n0, nr, threadIdx.x, kMmaThreads);
+  const uint32_t st0 = sm90::smem_u32(stages);
+  const uint32_t sb = se * (uint32_t)sizeof(T);
+  auto stage = [&](int t) {
+    if (t >= nt)
+      sm90::cp_async_commit();
+    else if (planned)
+      plan.issue(st0 + (t % 3) * sb, t, true);
+    else
+      gru_fwd_stage(stages + (t % 3) * se, a, n0, nr, t, threadIdx.x,
+                    kMmaThreads);
+  };
+  stage(0);
+  stage(1);
+
+  uint32_t fg[2][kRes ? 8 : 1][4], fc[1][kRes ? 8 : 1][4];  // resident W
+  if constexpr (kRes) {
+#pragma unroll
+    for (int ks = 0; ks < 8; ++ks) {
+      load_frag(fg[0][ks], 32 * warp, 16 * ks, at_g);
+      load_frag(fg[1][ks], 32 * warp + 16, 16 * ks, at_g);
+      load_frag(fc[0][ks], 16 * warp, 16 * ks, at_c);
+    }
+  }
+  // ys from op1, zr and cand from zro / cno: in 16-byte pieces when H %
+  // 8 == 0, else by element
+  OutPlan<1> out_ys, out_cand;
+  OutPlan<kRes ? 1 : 2> out_zr;
+  if (planned) {
+    out_ys.init(a.ys, H, nt, n0, nr, threadIdx.x, kMmaThreads,
+                [&](int r, int e) { return r * ld + 8 * e; });
+    if (SAVE) {
+      out_zr.init(a.zr, H2, nt, n0, nr, threadIdx.x, kMmaThreads,
+                  [&](int r, int e) { return r * H2 + 8 * e; });
+      out_cand.init(a.cand, H, nt, n0, nr, threadIdx.x, kMmaThreads,
+                    [&](int r, int e) { return r * H + 8 * e; });
+    }
+  }
+  auto copy_out = [&](const auto& plan, const unsigned short* tile, T* seq,
+                      int C, int ldt, int t) {
+    if (planned)
+      plan.copy(tile, t);
+    else
+      copy_rows(seq, tile, C, nt, n0, nr, t, threadIdx.x, kMmaThreads,
+                [&](int r, int e) { return r * ldt + e; });
+  };
+
+  // The per-tile loops (i) run as straight-line code when W is resident
+  // (one tile, whose entries then stay in registers) and as a loop when W
+  // is streamed (the per-tile state in local memory, as in K11).
+  // Entry j of unit group i is unit 16 (warp + 8 i) + g + 8 (j >> 1) of
+  // row 2 q + (j & 1); every entry computes from in-range copies (row
+  // rc(j), unit uc(i, j)) and stores without a branch, as the LSTM
+  // sweep's: at its place in a real row (< 4) where its unit is < lim
+  // (hp for the operand tiles, whose padded units meet zero W rows; H for
+  // zro / cno), else in the tiles' unread rows 4..7.
+  auto rc = [&](int j) { return (2 * q + (j & 1)) & 3; };
+  auto uc = [&](int i, int j) {
+    return min(16 * (warp + kMmaWarps * i) + g + 8 * (j >> 1), H - 1);
+  };
+  auto dst = [&](int i, int j, int lim, int ldt) {
+    const int u = 16 * (warp + kMmaWarps * i) + g + 8 * (j >> 1);
+    const bool real = q < 2 && u < lim;
+    return (real ? 2 * q + (j & 1) : 4 + 2 * (q & 1) + (j & 1)) * ldt +
+           (real ? u : 0);
+  };
+  float h[kMT][4], z[kMT][4], acc1[kMT][2][4], acc2[kMT][4];
+  float xz[kMT][4], xr[kMT][4], xc[kMT][4];  // staged inputs
+#pragma unroll (kMT == 1 ? 2 : 1)
+  for (int i = 0; i < kMT; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) h[i][j] = 0.f;
+  auto load_in = [&](int t) {
+    const T* st = stages + (t % 3) * se;
+#pragma unroll (kMT == 1 ? 2 : 1)
+    for (int i = 0; i < kMT; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int r = rc(j), u = uc(i, j);
+        xz[i][j] = to_f32(st[r * 2 * lr + u]);
+        xr[i][j] = to_f32(st[r * 2 * lr + lr + u]);
+        xc[i][j] = to_f32(st[(2 * BN + r) * lr + u]);
+      }
+  };
+  const unsigned short* pb1 = g < BN ? op1 + g * ld + 2 * q : nullptr;
+  const unsigned short* pb2 = g < BN ? op2 + g * ld + 2 * q : nullptr;
+  auto product1 = [&]() {
+    if constexpr (kRes) {
+      mma_res<2, 8>(acc1[0], fg, b_lane(op1, ld, zero16));
+    } else {
+#pragma unroll (kMT == 1 ? 2 : 1)
+      for (int i = 0; i < kMT; ++i) {
+        const int p0 = 2 * (warp + kMmaWarps * i);
+#pragma unroll
+        for (int x = 0; x < 2; ++x) {
+          float c4[4] = {0.f, 0.f, 0.f, 0.f};
+          if (8 * (p0 + x) < hp)
+            mma_stream(c4, hp / 16, pb1, [&](uint32_t(&f)[4], int ks) {
+              load_frag(f, 16 * (p0 + x), 16 * ks, at_g);
+            });
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc1[i][x][j] = c4[j];
+        }
+      }
+    }
+  };
+  auto product2 = [&]() {
+    if constexpr (kRes) {
+      float c[1][4];
+      mma_res<1, 8>(c, fc, b_lane(op2, ld, zero16));
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc2[0][j] = c[0][j];
+    } else {
+#pragma unroll (kMT == 1 ? 2 : 1)
+      for (int i = 0; i < kMT; ++i) {
+        const int u0 = 16 * (warp + kMmaWarps * i);
+        float c4[4] = {0.f, 0.f, 0.f, 0.f};
+        if (u0 < hp)
+          mma_stream(c4, hp / 16, pb2, [&](uint32_t(&f)[4], int ks) {
+            load_frag(f, u0, 16 * ks, at_c);
+          });
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc2[i][j] = c4[j];
+      }
+    }
+  };
+
+  sm90::cp_async_wait<1>();
+  __syncthreads();  // step 0's stage and the zeroed tiles
+  load_in(0);
+  for (int t = 0; t < nt; ++t) {
+    product1();
+    // z and r, and the second product's operand r * h
+#pragma unroll (kMT == 1 ? 2 : 1)
+    for (int i = 0; i < kMT; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float zv = sigmoid_fast(xz[i][j] + acc1[i][j >> 1][j & 1]);
+        const float rg =
+            sigmoid_fast(xr[i][j] + acc1[i][j >> 1][2 + (j & 1)]);
+        z[i][j] = zv;
+        op2[dst(i, j, hp, ld)] = bf16_bits(rg * h[i][j]);
+        if (SAVE) {
+          unsigned short* o = zro + dst(i, j, H, H2);
+          o[0] = bf16_bits(zv);
+          o[H] = bf16_bits(rg);
+        }
+      }
+    __syncthreads();  // op2 holds r h; zro step t's zr
+    if (SAVE) copy_out(out_zr, zro, a.zr, H2, H2, t);
+    product2();
+    // candidate, carry and stores
+#pragma unroll (kMT == 1 ? 2 : 1)
+    for (int i = 0; i < kMT; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float cand = tanhf(xc[i][j] + acc2[i][j]);
+        const float zv = z[i][j];
+        const float hv = (1.f - zv) * h[i][j] + zv * cand;
+        h[i][j] = hv;
+        op1[dst(i, j, hp, ld)] = bf16_bits(hv);
+        if (SAVE) cno[dst(i, j, H, H)] = bf16_bits(cand);
+      }
+    stage(t + 2);
+    sm90::cp_async_wait<1>();  // step t + 1's stage
+    __syncthreads();           // op1 holds h; cno step t's cand
+    copy_out(out_ys, op1, a.ys, H, ld, t);
+    if (SAVE) copy_out(out_cand, cno, a.cand, H, H, t);
+    if (t + 1 < nt) load_in(t + 1);
   }
 }
 
@@ -614,28 +1386,6 @@ __host__ __device__ __forceinline__ int gru_row(int h) {
 }
 __host__ __device__ __forceinline__ int gru_stage_elems(int h) {
   return kBlockN * 5 * gru_row(h);
-}
-
-// Copy n elements device -> shared by threads tid of nthr, asynchronously
-// in 16- or 4-byte pieces where both ends allow, else with plain loads
-// and stores; either way visible to the block after the waiting thread's
-// cp_async_wait and the next barrier.
-template <typename T>
-__device__ __forceinline__ void copy_async(T* dst, const T* src, int n,
-                                           int tid, int nthr) {
-  const int bytes = n * (int)sizeof(T);
-  const uintptr_t a = reinterpret_cast<uintptr_t>(src) | (uintptr_t)bytes;
-  const char* s = reinterpret_cast<const char*>(src);
-  const uint32_t d = sm90::smem_u32(dst);
-  if ((a & 15) == 0) {
-    for (int i = tid; i < bytes / 16; i += nthr)
-      sm90::cp_async16(d + 16 * i, s + 16 * i, true);
-  } else if ((a & 3) == 0) {
-    for (int i = tid; i < bytes / 4; i += nthr)
-      sm90::cp_async4(d + 4 * i, s + 4 * i, true);
-  } else {
-    for (int i = tid; i < n; i += nthr) dst[i] = src[i];
-  }
 }
 
 // Stage step t's residuals of rows n0 .. n0 + nr - 1 into `st` and commit
@@ -667,69 +1417,40 @@ __device__ __noinline__ void gru_stage(T* st, const T* zr, const T* cand,
   sm90::cp_async_commit();
 }
 
-// The same copies as gru_stage, planned once per thread: when every
-// staged row is a whole number of 16-byte pieces (H * sizeof(T) % 16 ==
-// 0), thread tid of nthr copies pieces tid, tid + nthr, ... of a stage
-// (at most kMaxC), and a step's copy is one cp.async each from the
-// piece's source advanced by t rows. Otherwise the sweeps call
-// gru_stage.
+// The same copies as gru_stage, planned once per thread (H * sizeof(T) %
+// 16 == 0): a step's copy is one cp.async a piece; h_prev (ys at t - 1)
+// is not copied at t = 0. Otherwise the sweeps call gru_stage.
 template <typename T, int kMaxC>
-struct StagePlan {
-  const char* src[kMaxC];  // the piece at t = 0 (h_prev: at t = -1)
-  int rb[kMaxC];           // bytes a row of the piece's tensor
-  uint32_t dst[kMaxC];     // byte offset in a stage
-  unsigned hp = 0;         // bit k: piece k is h_prev (none at t = 0)
-  int n = 0;
-
-  __device__ __forceinline__ void init(const GruBwdArgs<T>& a, int n0,
-                                       int nr, int tid, int nthr) {
-    const int H = a.h, hs = gru_row(a.h);
-    const int pr = H * (int)sizeof(T) / 16;  // pieces a row of H
-    const int total = nr * 5 * pr;           // zr rows count twice
-#pragma unroll
-    for (int k = 0; k < kMaxC; ++k) {
-      const int c = tid + k * nthr;
-      src[k] = nullptr;
-      rb[k] = 0;
-      dst[k] = 0;
-      if (c >= total) continue;
-      n = k + 1;
-      const int r = c / (5 * pr), rest = c % (5 * pr);
-      const int which = rest < 2 * pr ? 0 : 1 + (rest - 2 * pr) / pr;
-      const int piece = which == 0 ? rest : (rest - 2 * pr) % pr;
-      const size_t row0 = (size_t)(n0 + r) * a.t;
-      const T* base;
-      int elems;
-      uint32_t off;
-      if (which == 0) {
-        base = a.zr + row0 * 2 * H;
-        elems = 2 * H;
-        off = r * 2 * hs;
-      } else {
-        base = which == 1 ? a.cand : which == 2 ? a.ys - H : a.dy;
-        base += row0 * H;
-        elems = H;
-        off = (2 * kBlockN + (which - 1) * kBlockN + r) * hs;
-      }
-      src[k] = reinterpret_cast<const char*>(base) + 16 * piece;
-      rb[k] = elems * (int)sizeof(T);
-      dst[k] = off * (uint32_t)sizeof(T) + 16 * piece;
-      if (which == 2) hp |= 1u << k;
-    }
-  }
-
-  // step t's pieces into the stage at shared address st; commits a group
-  __device__ __forceinline__ void issue(uint32_t st, int t) const {
-#pragma unroll
-    for (int k = 0; k < kMaxC; ++k)
-      if (k < n) {
-        const bool live = !(hp >> k & 1) || t > 0;
-        sm90::cp_async16(st + dst[k], src[k] + (live ? (size_t)t * rb[k] : 0),
-                         live);
-      }
-    sm90::cp_async_commit();
-  }
-};
+__device__ __forceinline__ void gru_bwd_plan(CopyPlan<kMaxC>& plan,
+                                             const GruBwdArgs<T>& a, int n0,
+                                             int nr, int tid, int nthr) {
+  const int H = a.h, hs = gru_row(a.h);
+  const int pr = H * (int)sizeof(T) / 16;  // pieces a row of H
+  plan.init(nr * 5 * pr, tid, nthr,  // zr rows count twice
+            [&](int c, const char*& src, int& rb, uint32_t& dst, bool& pv) {
+              const int r = c / (5 * pr), rest = c % (5 * pr);
+              const int which = rest < 2 * pr ? 0 : 1 + (rest - 2 * pr) / pr;
+              const int piece = which == 0 ? rest : (rest - 2 * pr) % pr;
+              const size_t row0 = (size_t)(n0 + r) * a.t;
+              const T* base;
+              int elems;
+              uint32_t off;
+              if (which == 0) {
+                base = a.zr + row0 * 2 * H;
+                elems = 2 * H;
+                off = r * 2 * hs;
+              } else {
+                base = which == 1 ? a.cand : which == 2 ? a.ys - H : a.dy;
+                base += row0 * H;
+                elems = H;
+                off = (2 * kBlockN + (which - 1) * kBlockN + r) * hs;
+              }
+              src = reinterpret_cast<const char*>(base) + 16 * piece;
+              rb = elems * (int)sizeof(T);
+              dst = off * (uint32_t)sizeof(T) + 16 * piece;
+              pv = which == 2;
+            });
+}
 
 // Backward sweep, fp32: SIMT products (rows_times_w over the transposed
 // weights). Shared memory: dhs (BN, H) the dh carry, dhp (BN, H) dh_prev
@@ -760,15 +1481,15 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
   for (int i = threadIdx.x; i < H2 * BN; i += kThreads) dzrn[i] = 0.f;
   const bool planned = H * (int)sizeof(T) % 16 == 0;
-  StagePlan<T, 5> plan;
-  if (planned) plan.init(a, n0, nr, threadIdx.x, kThreads);
+  CopyPlan<5> plan;
+  if (planned) gru_bwd_plan(plan, a, n0, nr, threadIdx.x, kThreads);
   const uint32_t st0 = sm90::smem_u32(stages);
   const uint32_t sb = gru_stage_elems(H) * (uint32_t)sizeof(T);
   auto stage = [&](int t) {
     if (t < 0)
       sm90::cp_async_commit();
     else if (planned)
-      plan.issue(st0 + (t & 1) * sb, t);
+      plan.issue(st0 + (t & 1) * sb, t, t > 0);
     else
       gru_stage(stages + (t & 1) * gru_stage_elems(H), a.zr, a.cand, a.ys,
                 a.dy, H, nt, n0, nr, t, kThreads / 32);
@@ -834,40 +1555,6 @@ __global__ void __launch_bounds__(kThreads, 1)
 // (BN, 2 hp + 8) dzr (z half at 0, r half at hp), as bf16 bits, rows
 // padded against bank conflicts; three residual stages (step t - 2's is
 // copied while step t runs).
-constexpr int kMmaWarps = 8;
-constexpr int kMmaThreads = 32 * kMmaWarps;
-
-// A fragment of rows u0 .. u0 + 15 of a row-major bf16 W (ldw columns, H
-// rows) at padded columns kb .. kb + 15; col(k) is W's column of padded
-// column k, or -1 for a zero.
-template <typename Col>
-__device__ __forceinline__ void load_w_frag(uint32_t (&f)[4],
-                                            const unsigned short* w, int ldw,
-                                            int H, int u0, int kb, Col col) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int u = u0 + g + 8 * (i & 1);
-    const int k = kb + 2 * q + 8 * (i >> 1);
-    uint32_t lo = 0, hi = 0;
-    if (u < H) {
-      const int c0 = col(k), c1 = col(k + 1);
-      if (c0 >= 0) lo = w[(size_t)u * ldw + c0];
-      if (c1 >= 0) hi = w[(size_t)u * ldw + c1];
-    }
-    f[i] = lo | (hi << 16);
-  }
-}
-
-__device__ __forceinline__ unsigned short bf16_bits(float x) {
-  return __bfloat16_as_ushort(__float2bfloat16(x));
-}
-
-// padded K of the resident instantiation: W_c's K, and each half of W_g's
-__host__ __device__ __forceinline__ int gru_mma_hp(int h) {
-  return h <= 16 * kMmaWarps ? 16 * kMmaWarps : (h + 15) / 16 * 16;
-}
-
 template <int kMT>
 __global__ void __launch_bounds__(kMmaThreads, 1)
     gru_bwd_mma_kernel(GruBwdArgs<__nv_bfloat16> a) {
@@ -875,7 +1562,7 @@ __global__ void __launch_bounds__(kMmaThreads, 1)
   constexpr int BN = kBlockN;
   constexpr bool kRes = kMT == 1;  // W resident: hp = 128, fixed k-steps
   const int H = a.h, H2 = 2 * a.h, nt = a.t, hs = gru_row(a.h);
-  const int hp = gru_mma_hp(H);
+  const int hp = mma_hp(H);
   const int ld1 = hp + 8, ld2 = 2 * hp + 8;
   const int n0 = blockIdx.x * BN;
   const int nr = min(BN, a.n - n0);
@@ -889,16 +1576,21 @@ __global__ void __launch_bounds__(kMmaThreads, 1)
   const int se = gru_stage_elems(H);
   const unsigned short* wc = reinterpret_cast<const unsigned short*>(a.wc);
   const unsigned short* wg = reinterpret_cast<const unsigned short*>(a.wg);
-  auto col_c = [H](int k) { return k < H ? k : -1; };
-  auto col_g = [H, hp](int k) {
-    return k < hp ? (k < H ? k : -1) : (k - hp < H ? H + k - hp : -1);
+  // A = W_c / W_g as stored at padded column k; W_g's K runs over [z
+  // units | r units], each half padded to hp
+  auto at_c = [&](int u, int k) -> unsigned short {
+    return u < H && k < H ? wc[(size_t)u * H + k] : 0;
+  };
+  auto at_g = [&](int u, int k) -> unsigned short {
+    const int v = k < hp ? k : k - hp;
+    return u < H && v < H ? wg[(size_t)u * H2 + (k < hp ? 0 : H) + v] : 0;
   };
   for (int i = threadIdx.x; i < BN * (ld1 + ld2); i += kMmaThreads)
     op1[i] = 0;
   if (threadIdx.x == 0) *zero16 = make_uint4(0, 0, 0, 0);
   const bool planned = H * (int)sizeof(T) % 16 == 0;
-  StagePlan<T, kRes ? 2 : 5> plan;
-  if (planned) plan.init(a, n0, nr, threadIdx.x, kMmaThreads);
+  CopyPlan<kRes ? 2 : 5> plan;
+  if (planned) gru_bwd_plan(plan, a, n0, nr, threadIdx.x, kMmaThreads);
   const uint32_t st0 = sm90::smem_u32(stages);
   const uint32_t sb = se * (uint32_t)sizeof(T);
   // step t's residuals into stage t % 3 (t >= 0; an empty group else)
@@ -906,7 +1598,7 @@ __global__ void __launch_bounds__(kMmaThreads, 1)
     if (t < 0)
       sm90::cp_async_commit();
     else if (planned)
-      plan.issue(st0 + (t % 3) * sb, t);
+      plan.issue(st0 + (t % 3) * sb, t, t > 0);
     else
       gru_stage(stages + (t % 3) * se, a.zr, a.cand, a.ys, a.dy, H, nt, n0,
                 nr, t, kMmaWarps);
@@ -918,30 +1610,29 @@ __global__ void __launch_bounds__(kMmaThreads, 1)
   if constexpr (kRes) {
 #pragma unroll
     for (int ks = 0; ks < 8; ++ks)
-      load_w_frag(fc[ks], wc, H, H, 16 * warp, 16 * ks, col_c);
+      load_frag(fc[ks], 16 * warp, 16 * ks, at_c);
 #pragma unroll
     for (int ks = 0; ks < 16; ++ks)
-      load_w_frag(fg[ks], wg, H2, H, 16 * warp, 16 * ks, col_g);
+      load_frag(fg[ks], 16 * warp, 16 * ks, at_g);
   }
 
   // acc[i] = W rows of tile warp + 8 i times the operand op (ld): with W
   // resident, all 8 (W_c) or 16 (W_g) k-steps, every B fragment loaded
   // first, the k-steps in 4 accumulator chains (k-step ks in chain
-  // ks % 4); streamed, hp / 16 or 2 hp / 16 k-steps in 2 chains, the
-  // next k-step's W fragment loaded while the current one multiplies.
+  // ks % 4); streamed, hp / 16 or 2 hp / 16 k-steps through mma_stream.
   // The chains are added in a fixed order.
   auto product = [&](float (&acc)[kMT][4], const unsigned short* op, int ld,
                      auto gates) {
     constexpr bool kG = decltype(gates)::value;
 #pragma unroll 1
     for (int i = 0; i < kMT; ++i) {
-      float c[4][4];
-#pragma unroll
-      for (int x = 0; x < 4; ++x)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) c[x][j] = 0.f;
       const int u0 = 16 * (warp + kMmaWarps * i);
       if constexpr (kRes) {
+        float c[4][4];
+#pragma unroll
+        for (int x = 0; x < 4; ++x)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) c[x][j] = 0.f;
         constexpr int kKS = kG ? 16 : 8;
         // B fragments of two k-steps an ldmatrix: matrix m of lane l is
         // k-step 2 p + m / 2, columns 8 (m % 2) .. + 7, row l % 8 (a zero
@@ -967,37 +1658,23 @@ __global__ void __launch_bounds__(kMmaThreads, 1)
           else
             sm90::mma_bf16_16816(c[ks & 3], fc[ks], b[ks][0], b[ks][1]);
         }
-      } else if (u0 < hp) {
-        const int ks_n = (kG ? 2 * hp : hp) / 16;
-        auto load = [&](uint32_t(&f)[4], int ks) {
-          if constexpr (kG)
-            load_w_frag(f, wg, H2, H, u0, 16 * ks, col_g);
-          else
-            load_w_frag(f, wc, H, H, u0, 16 * ks, col_c);
-        };
-        const unsigned short* pb = op + (g & 3) * ld + 2 * q;
-        auto bfrag = [&](int ks, uint32_t& b0, uint32_t& b1) {
-          b0 = g < BN ? *reinterpret_cast<const uint32_t*>(pb + 16 * ks) : 0u;
-          b1 = g < BN ? *reinterpret_cast<const uint32_t*>(pb + 16 * ks + 8)
-                      : 0u;
-        };
-        uint32_t fa[4], fb[4];
-        load(fa, 0);
-        for (int ks = 0; ks < ks_n; ks += 2) {
-          uint32_t b0, b1;
-          if (ks + 1 < ks_n) load(fb, ks + 1);
-          bfrag(ks, b0, b1);
-          sm90::mma_bf16_16816(c[0], fa, b0, b1);
-          if (ks + 1 < ks_n) {
-            if (ks + 2 < ks_n) load(fa, ks + 2);
-            bfrag(ks + 1, b0, b1);
-            sm90::mma_bf16_16816(c[1], fb, b0, b1);
-          }
-        }
-      }
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-        acc[i][j] = (c[0][j] + c[1][j]) + (c[2][j] + c[3][j]);
+        for (int j = 0; j < 4; ++j)
+          acc[i][j] = (c[0][j] + c[1][j]) + (c[2][j] + c[3][j]);
+      } else {
+        float c4[4] = {0.f, 0.f, 0.f, 0.f};
+        if (u0 < hp)
+          mma_stream(c4, (kG ? 2 * hp : hp) / 16,
+                     g < BN ? op + g * ld + 2 * q : nullptr,
+                     [&](uint32_t(&f)[4], int ks) {
+                       if constexpr (kG)
+                         load_frag(f, u0, 16 * ks, at_g);
+                       else
+                         load_frag(f, u0, 16 * ks, at_c);
+                     });
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = c4[j];
+      }
     }
   };
 
@@ -1167,26 +1844,44 @@ __global__ void __launch_bounds__(kMmaThreads, 1)
   }
 }
 
-// dW after the sweep, one GEMM over all N * T (t, row) pairs m:
-//   dW_g (H, 2H) = sum_m h_prev[m]^T . dzg[m],
-//   dW_c (H, H)  = sum_m rh[m]^T . dzc[m],  rh = r * h_prev rounded to T,
-// h_prev = ys[m - 1] (zero at t = 0), r from zr: the operands and
-// rounding points of the tail of _gru_bwd_kernel. A CTA owns a 64 x 64
-// tile of one dW and a contiguous range of pairs; the `splits` CTAs of a
-// tile form a cluster, and after a cluster barrier rank r sums slice r
-// of the tile over every rank's partial in rank order (distributed
-// shared memory) and writes it: no atomics, no scratch in device memory.
-// Pairs stream through a kDwStages ring of kDwPairs pairs (h_prev, r,
-// dz tiles; r * h_prev formed in place by the thread that copied them).
-// bf16: mma.sync m16n8k16 (A = the operand tile, B = dz, both read with
-// ldmatrix.trans), each of 4 warps 16 units x 64 columns; fp32: SIMT, a
-// thread 8 units x 4 columns.
+// ----------------------------------------------------------------- dW
+// dW after a sweep, one GEMM over all N * T (t, row) pairs m of each job:
+//   dW (H, C) = sum_m op[m]^T . dz[m],
+// op[m] = hs at the pair's neighbouring step t + shift (shift -1: h_prev
+// of a forward sweep, zero at t = 0; +1: of a reverse one, zero at t = T
+// - 1), times r[m] and rounded to T when the job has r. The LSTM
+// backward's jobs are its directions (dW = sum h_prev^T . dzx); the GRU
+// backward's are dW_g (h_prev, dzg) and dW_c (r h_prev, dzc): the
+// operands and rounding points of the Pallas kernels' dW tails. A CTA
+// owns a 64 x 64 tile of one dW and a contiguous range of pairs; the
+// `splits` CTAs of a tile form a cluster, and after a cluster barrier
+// rank r sums slice r of the tile over every rank's partial in rank
+// order (distributed shared memory) and writes it: no atomics, no
+// scratch in device memory. Pairs stream through a kDwStages ring of
+// kDwPairs pairs (op, r, dz tiles; r * op formed in place by the thread
+// that copied them). bf16: mma.sync m16n8k16 (A = the operand tile, B =
+// dz, both read with ldmatrix.trans), each of 4 warps 16 units x 64
+// columns; fp32: SIMT, a thread 8 units x 4 columns.
 constexpr int kDwTile = 64;
 constexpr int kDwPairs = 64;
 constexpr int kDwStages = 3;
 constexpr int kDwThreads = 128;
 constexpr int kDwMaxSplits = 16;  // a non-portable cluster size
-constexpr int kDwMinPairs = 512;  // pairs a split takes at least
+
+template <typename T>
+struct DwJob {
+  const T* hs;  // (N, T, H)
+  const T* rs;  // r: element (m, k) at rs[m * rld + k], or null
+  const T* dz;  // (N, T, C)
+  float* dw;    // (H, C)
+  int c, shift, rld;
+};
+
+template <typename T>
+struct DwArgs {
+  DwJob<T> job[2];
+  int njobs, n, t, h;
+};
 
 template <typename T>
 struct DwGeo {
@@ -1194,29 +1889,30 @@ struct DwGeo {
   static constexpr int kCPR = kDwTile / kEPC;       // chunks a tile row
   static constexpr int kLd = kDwTile + kEPC;        // padded row
   static constexpr int kTile = kDwPairs * kLd;
-  static constexpr int kStage = 3 * kTile;  // h_prev (then rh), r, dz
+  static constexpr int kStage = 3 * kTile;  // op (then r op), r, dz
 };
 
-__host__ __device__ __forceinline__ int dw_col_tiles(int h) {
-  return (2 * h + kDwTile - 1) / kDwTile + (h + kDwTile - 1) / kDwTile;
+__host__ __device__ __forceinline__ int dw_tiles(int h, int c) {
+  return ((h + kDwTile - 1) / kDwTile) * ((c + kDwTile - 1) / kDwTile);
 }
 
 template <typename T>
 __global__ void __launch_bounds__(kDwThreads)
-    gru_dw_kernel(GruBwdArgs<T> a, int splits, int span) {
+    rnn_dw_kernel(DwArgs<T> a, int splits, int span) {
   using G = DwGeo<T>;
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
   const int H = a.h, nt = a.t, M = a.n * a.t;
   const int tiles_k = (H + kDwTile - 1) / kDwTile;
-  const int tiles_g = (2 * H + kDwTile - 1) / kDwTile;
-  const int tile = blockIdx.x / splits;
+  int tile = blockIdx.x / splits;
+  const bool second = tile >= dw_tiles(H, a.job[0].c);
+  const DwJob<T> jb = second ? a.job[1] : a.job[0];
+  if (second) tile -= dw_tiles(H, a.job[0].c);
   const int k0 = (tile % tiles_k) * kDwTile;
-  const int jt = tile / tiles_k;
-  const bool rh = jt >= tiles_g;  // a dW_c tile
-  const int j0 = (rh ? jt - tiles_g : jt) * kDwTile;
-  const int C = rh ? H : 2 * H;
-  const T* dz = rh ? a.dzc : a.dzg;
+  const int j0 = (tile / tiles_k) * kDwTile;
+  const int C = jb.c;
+  const bool rh = jb.rs != nullptr;
+  const int edge = jb.shift < 0 ? 0 : nt - 1;  // the step without a neighbour
   const int m0 = rank * span, m1 = min(m0 + span, M);
   const int nst = (m1 - m0 + kDwPairs - 1) / kDwPairs;
   const bool vec = H % G::kEPC == 0;
@@ -1226,7 +1922,7 @@ __global__ void __launch_bounds__(kDwThreads)
   float* part = reinterpret_cast<float*>(ring + kDwStages * G::kStage);
 
   // copy stage s (pairs m0 + s * kDwPairs ...); out-of-range pairs,
-  // units and columns, and h_prev at t = 0, are zeros
+  // units and columns, and op at the edge step, are zeros
   auto issue = [&](int s) {
     if (s < nst) {
       T* st = ring + (s % kDwStages) * G::kStage;
@@ -1235,32 +1931,33 @@ __global__ void __launch_bounds__(kDwThreads)
         const int m = m0 + s * kDwPairs + p;
         const int k = k0 + c * G::kEPC, j = j0 + c * G::kEPC;
         const int o = p * G::kLd + c * G::kEPC;
-        const bool live = m < m1 && m % nt != 0;
+        const bool live = m < m1 && m % nt != edge;
         if (vec) {
-          sm90::cp_async16(sm90::smem_u32(st + o),
-                           a.ys + (live && k < H ? (size_t)(m - 1) * H + k : 0),
-                           live && k < H);
+          sm90::cp_async16(
+              sm90::smem_u32(st + o),
+              jb.hs + (live && k < H ? (size_t)(m + jb.shift) * H + k : 0),
+              live && k < H);
           if (rh)
             sm90::cp_async16(
                 sm90::smem_u32(st + G::kTile + o),
-                a.zr + (live && k < H ? (size_t)m * 2 * H + H + k : 0),
+                jb.rs + (live && k < H ? (size_t)m * jb.rld + k : 0),
                 live && k < H);
           const bool dv = m < m1 && j + G::kEPC <= C;
           sm90::cp_async16(sm90::smem_u32(st + 2 * G::kTile + o),
-                           dz + (dv ? (size_t)m * C + j : 0), dv);
+                           jb.dz + (dv ? (size_t)m * C + j : 0), dv);
         } else {
 #pragma unroll
           for (int e = 0; e < G::kEPC; ++e) {
             float h = 0.f;
             if (live && k + e < H) {
-              h = to_f32(a.ys[(size_t)(m - 1) * H + k + e]);
+              h = to_f32(jb.hs[(size_t)(m + jb.shift) * H + k + e]);
               if (rh)
-                h = round_to<T>(to_f32(a.zr[(size_t)m * 2 * H + H + k + e]) *
+                h = round_to<T>(to_f32(jb.rs[(size_t)m * jb.rld + k + e]) *
                                 h);
             }
             st[o + e] = from_f32<T>(h);
             st[2 * G::kTile + o + e] =
-                m < m1 && j + e < C ? dz[(size_t)m * C + j + e]
+                m < m1 && j + e < C ? jb.dz[(size_t)m * C + j + e]
                                     : from_f32<T>(0.f);
           }
         }
@@ -1268,7 +1965,7 @@ __global__ void __launch_bounds__(kDwThreads)
     }
     sm90::cp_async_commit();
   };
-  // r * h_prev, rounded to T, over the h_prev chunks this thread copied
+  // r * op, rounded to T, over the op chunks this thread copied
   auto form_rh = [&](int s) {
     if (!rh || !vec) return;
     T* st = ring + (s % kDwStages) * G::kStage;
@@ -1353,7 +2050,7 @@ __global__ void __launch_bounds__(kDwThreads)
         part[(8 * tk + i) * kDwTile + 4 * tj + j] = acc[i][j];
   }
   cluster.sync();  // every rank's partial is written
-  float* dw = rh ? a.dwc : a.dwg;
+  float* dw = jb.dw;
   for (int e = rank * kDwThreads + tid; e < kDwTile * kDwTile;
        e += splits * kDwThreads) {
     float v = 0.f;
@@ -1364,8 +2061,15 @@ __global__ void __launch_bounds__(kDwThreads)
   cluster.sync();  // no rank leaves while others read its partial
 }
 
-size_t gru_fwd_smem(int h) {
-  return ((size_t)6 * kBlockN * h + kThreads * kBlockN) * sizeof(float);
+size_t gru_fwd_simt_smem(int h) {
+  return ((size_t)6 * kBlockN * h + kThreads * kBlockN) * sizeof(float) +
+         2 * (size_t)gru_fwd_stage_elems<float>(h) * sizeof(float);
+}
+
+size_t gru_fwd_mma_smem(int h) {
+  return 16 + ((size_t)2 * kTileRows * (mma_hp(h) + 8) + 3 * kTileRows * h +
+               3 * (size_t)gru_fwd_stage_elems<__nv_bfloat16>(h)) *
+                  sizeof(__nv_bfloat16);
 }
 
 size_t gru_bwd_simt_smem(int h) {
@@ -1375,43 +2079,171 @@ size_t gru_bwd_simt_smem(int h) {
 }
 
 size_t gru_bwd_mma_smem(int h) {
-  const int hp = gru_mma_hp(h);
+  const int hp = mma_hp(h);
   return 16 + ((size_t)kBlockN * (3 * hp + 16) +
                3 * (size_t)gru_stage_elems(h)) *
                   sizeof(__nv_bfloat16);
 }
 
+size_t lstm_bwd_simt_smem(int h) {
+  return ((size_t)4 * h * kBlockN + kBlockN * h +
+          (size_t)dh_parts(h) * kBlockN * h +
+          2 * (size_t)lstm_stage_elems<float>(h)) *
+         sizeof(float);
+}
+
+size_t lstm_bwd_mma_smem(int h) {
+  return 16 + (size_t)2 * kTileRows * (4 * mma_hp(h) + 8) * 2 +
+         3 * (size_t)lstm_stage_elems<__nv_bfloat16>(h) * 2;
+}
+
 template <typename T>
-size_t gru_dw_smem() {
+size_t dw_smem() {
   return sizeof(T) * kDwStages * DwGeo<T>::kStage +
          sizeof(float) * kDwTile * kDwTile;
 }
 
-template <typename T, bool SAVE>
-cudaError_t launch_gru_fwd(GruFwdArgs<T> a, cudaStream_t s) {
-  const size_t smem = gru_fwd_smem(a.h);
-  if (smem > (size_t)kMaxSmem) return cudaErrorInvalidValue;
-  const cudaError_t e = cudaFuncSetAttribute(
-      gru_fwd_kernel<T, SAVE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (e != cudaSuccess) return e;
-  gru_fwd_kernel<T, SAVE>
-      <<<(a.n + kBlockN - 1) / kBlockN, kThreads, smem, s>>>(a);
+// Whether a cluster of kDwMaxSplits dW CTAs fits on this card: the
+// largest `splits` a dW launch may take (kDwMaxSplits, else the portable
+// 8), or a negative CUDA error.
+template <typename T>
+int dw_max_splits() {
+  cudaError_t e;
+  if ((e = set_smem(rnn_dw_kernel<T>, dw_smem<T>())) != cudaSuccess ||
+      (e = cudaFuncSetAttribute(
+           rnn_dw_kernel<T>, cudaFuncAttributeNonPortableClusterSizeAllowed,
+           1)) != cudaSuccess)
+    return -(int)e;
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  cfg.gridDim = dim3(kDwMaxSplits);
+  cfg.blockDim = dim3(kDwThreads);
+  cfg.dynamicSmemBytes = dw_smem<T>();
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kDwMaxSplits;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int n = 0;
+  const bool ok = cudaOccupancyMaxActiveClusters(&n, rnn_dw_kernel<T>,
+                                                 &cfg) == cudaSuccess;
+  cudaGetLastError();  // a refused query leaves no error behind
+  return ok && n >= 1 ? kDwMaxSplits : 8;
+}
+
+// How a dW launch splits each job's N * T pairs: `splits` CTAs a tile
+// (one cluster), rank r taking pairs [r span, (r + 1) span). The caller
+// plans it (ops/fused_rnn.py dw_split_plan) from the pair count and
+// dw_max_splits alone.
+struct DwSplit {
+  int splits, span;
+};
+
+// The dW GEMM of a's jobs on stream s, split as sp says.
+template <typename T>
+cudaError_t launch_dw(const DwArgs<T>& a, DwSplit sp, cudaStream_t s) {
+  const long long m = (long long)a.n * a.t;
+  if (sp.splits < 1 || sp.splits > kDwMaxSplits || sp.span < 1 ||
+      sp.span % kDwPairs || (long long)(sp.splits - 1) * sp.span >= m ||
+      (long long)sp.splits * sp.span < m)
+    return cudaErrorInvalidValue;
+  const size_t smem = dw_smem<T>();
+  cudaError_t e;
+  if ((e = set_smem(rnn_dw_kernel<T>, smem)) != cudaSuccess) return e;
+  if (sp.splits > 8 &&
+      (e = cudaFuncSetAttribute(
+           rnn_dw_kernel<T>, cudaFuncAttributeNonPortableClusterSizeAllowed,
+           1)) != cudaSuccess)
+    return e;
+  int tiles = 0;
+  for (int j = 0; j < a.njobs; ++j) tiles += dw_tiles(a.h, a.job[j].c);
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  cfg.gridDim = dim3((unsigned)(sp.splits * tiles));
+  cfg.blockDim = dim3(kDwThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)sp.splits;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  if ((e = cudaLaunchKernelEx(&cfg, rnn_dw_kernel<T>, a, sp.splits,
+                              sp.span)) != cudaSuccess)
+    return e;
   return cudaGetLastError();
 }
 
-template <typename K>
-cudaError_t set_smem(K kernel, size_t smem) {
-  if (smem > (size_t)kMaxSmem) return cudaErrorInvalidValue;
-  return cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+// The LSTM backward over ndir directions: the sweep (fp32: SIMT; bf16:
+// mma.sync, W resident in registers when H rounded up to 16 is at most
+// 128, streamed from L2 above), then one dW GEMM over both directions,
+// on one stream.
+template <typename T>
+cudaError_t launch_lstm_bwd(const BwdArgs<T>& a, int ndir, DwSplit sp,
+                            cudaStream_t s) {
+  const dim3 grid((a.n + kBlockN - 1) / kBlockN, ndir);
+  cudaError_t e;
+  if constexpr (sizeof(T) == 4) {
+    const size_t smem = lstm_bwd_simt_smem(a.h);
+    if ((e = set_smem(lstm_bwd_simt_kernel<T>, smem)) != cudaSuccess)
+      return e;
+    lstm_bwd_simt_kernel<T><<<grid, kThreads, smem, s>>>(a);
+  } else if (a.h <= 16 * kMmaWarps) {
+    const size_t smem = lstm_bwd_mma_smem(a.h);
+    if ((e = set_smem(lstm_bwd_mma_kernel<1>, smem)) != cudaSuccess)
+      return e;
+    lstm_bwd_mma_kernel<1><<<grid, kMmaThreads, smem, s>>>(a);
+  } else {
+    const size_t smem = lstm_bwd_mma_smem(a.h);
+    if ((e = set_smem(lstm_bwd_mma_kernel<4>, smem)) != cudaSuccess)
+      return e;
+    lstm_bwd_mma_kernel<4><<<grid, kMmaThreads, smem, s>>>(a);
+  }
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  DwArgs<T> dw;
+  for (int i = 0; i < 2; ++i) {
+    const BwdDir<T>& d = a.d[i];
+    dw.job[i] = DwJob<T>{d.ys, nullptr, d.dzx, d.dw, 4 * a.h,
+                         d.reverse ? 1 : -1, 0};
+  }
+  dw.njobs = ndir;
+  dw.n = a.n;
+  dw.t = a.t;
+  dw.h = a.h;
+  return launch_dw(dw, sp, s);
 }
 
-// The sweep (fp32: SIMT; bf16: mma.sync, W resident in registers when H
-// rounded up to 16 is at most 128, streamed from L2 above), then the dW
-// GEMM, on one stream.
+template <typename T, bool SAVE>
+cudaError_t launch_gru_fwd(GruFwdArgs<T> a, cudaStream_t s) {
+  const int tiles = (a.n + kBlockN - 1) / kBlockN;
+  cudaError_t e;
+  if constexpr (sizeof(T) == 4) {
+    const size_t smem = gru_fwd_simt_smem(a.h);
+    if ((e = set_smem(gru_fwd_simt_kernel<T, SAVE>, smem)) != cudaSuccess)
+      return e;
+    gru_fwd_simt_kernel<T, SAVE><<<tiles, kThreads, smem, s>>>(a);
+  } else {
+    const size_t smem = gru_fwd_mma_smem(a.h);
+    if (a.h <= 16 * kMmaWarps) {
+      if ((e = set_smem(gru_fwd_mma_kernel<1, SAVE>, smem)) != cudaSuccess)
+        return e;
+      gru_fwd_mma_kernel<1, SAVE><<<tiles, kMmaThreads, smem, s>>>(a);
+    } else {
+      if ((e = set_smem(gru_fwd_mma_kernel<4, SAVE>, smem)) != cudaSuccess)
+        return e;
+      gru_fwd_mma_kernel<4, SAVE><<<tiles, kMmaThreads, smem, s>>>(a);
+    }
+  }
+  return cudaGetLastError();
+}
+
+// The GRU backward: the sweep (fp32: SIMT; bf16: mma.sync, W resident in
+// registers when H rounded up to 16 is at most 128, streamed from L2
+// above), then the dW GEMM, on one stream.
 template <typename T>
-cudaError_t launch_gru_bwd(GruBwdArgs<T> a, cudaStream_t s) {
+cudaError_t launch_gru_bwd(GruBwdArgs<T> a, DwSplit sp, cudaStream_t s) {
   const int tiles = (a.n + kBlockN - 1) / kBlockN;
   cudaError_t e;
   if constexpr (sizeof(T) == 4) {
@@ -1429,54 +2261,38 @@ cudaError_t launch_gru_bwd(GruBwdArgs<T> a, cudaStream_t s) {
     }
   }
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  // dW: `splits` CTAs a tile (one cluster), each a range of `span` pairs;
-  // 16-CTA clusters where the card can place one, else 8 (portable)
-  const long long m = (long long)a.n * a.t;
-  const size_t smem = gru_dw_smem<T>();
-  if ((e = set_smem(gru_dw_kernel<T>, smem)) != cudaSuccess) return e;
-  int splits = 0, span = 0;
-  cudaLaunchConfig_t cfg = {};
-  cudaLaunchAttribute attr[1];
-  auto plan = [&](int max_splits) {
-    splits = (int)std::min<long long>(
-        max_splits, std::max<long long>(1, (m + kDwMinPairs - 1) / kDwMinPairs));
-    span = (int)((m + splits - 1) / splits);
-    span = (span + kDwPairs - 1) / kDwPairs * kDwPairs;
-    splits = (int)((m + span - 1) / span);
-    cfg.gridDim = dim3((unsigned)(splits * ((a.h + kDwTile - 1) / kDwTile) *
-                                  dw_col_tiles(a.h)));
-    cfg.blockDim = dim3(kDwThreads);
-    cfg.dynamicSmemBytes = smem;
-    cfg.stream = s;
-    attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = (unsigned)splits;
-    attr[0].val.clusterDim.y = 1;
-    attr[0].val.clusterDim.z = 1;
-    cfg.attrs = attr;
-    cfg.numAttrs = 1;
-  };
-  plan(kDwMaxSplits);
-  if (splits > 8) {
-    if ((e = cudaFuncSetAttribute(
-             gru_dw_kernel<T>, cudaFuncAttributeNonPortableClusterSizeAllowed,
-             1)) != cudaSuccess)
-      return e;
-    // whether a cluster of this size fits depends on the card and the
-    // kernel only: asked once
-    static const bool fits = [&] {
-      int n = 0;
-      const bool ok =
-          cudaOccupancyMaxActiveClusters(&n, gru_dw_kernel<T>, &cfg) ==
-          cudaSuccess;
-      cudaGetLastError();  // a refused query leaves no error behind
-      return ok && n >= 1;
-    }();
-    if (!fits) plan(8);
+  DwArgs<T> dw;
+  dw.job[0] = DwJob<T>{a.ys, nullptr, a.dzg, a.dwg, 2 * a.h, -1, 0};
+  dw.job[1] = DwJob<T>{a.ys, a.zr + a.h, a.dzc, a.dwc, a.h, -1, 2 * a.h};
+  dw.njobs = 2;
+  dw.n = a.n;
+  dw.t = a.t;
+  dw.h = a.h;
+  return launch_dw(dw, sp, s);
+}
+
+template <typename T>
+cudaError_t bwd_typed(const void* const* w, const void* const* ys,
+                      const void* const* c, const void* const* g,
+                      const void* const* dy, void* const* dzx,
+                      void* const* dw, const int* rev, int ndir, int n,
+                      int t, int h, DwSplit sp, cudaStream_t s) {
+  BwdArgs<T> a;
+  for (int i = 0; i < 2; ++i) {
+    const int k = i < ndir ? i : 0;
+    a.d[i] = BwdDir<T>{static_cast<const T*>(w[k]),
+                       static_cast<const T*>(ys[k]),
+                       static_cast<const T*>(c[k]),
+                       static_cast<const T*>(g[k]),
+                       static_cast<const T*>(dy[k]),
+                       static_cast<T*>(dzx[k]),
+                       static_cast<float*>(dw[k]),
+                       rev[k]};
   }
-  if ((e = cudaLaunchKernelEx(&cfg, gru_dw_kernel<T>, a, splits, span)) !=
-      cudaSuccess)
-    return e;
-  return cudaGetLastError();
+  a.n = n;
+  a.t = t;
+  a.h = h;
+  return launch_lstm_bwd<T>(a, ndir, sp, s);
 }
 
 template <typename T>
@@ -1495,7 +2311,7 @@ template <typename T>
 cudaError_t gru_bwd_typed(const void* wg, const void* wc, const void* ys,
                           const void* zr, const void* cand, const void* dy,
                           void* dzg, void* dzc, void* dwg, void* dwc, int n,
-                          int t, int h, cudaStream_t s) {
+                          int t, int h, DwSplit sp, cudaStream_t s) {
   const GruBwdArgs<T> a{
       static_cast<const T*>(wg),  static_cast<const T*>(wc),
       static_cast<const T*>(ys),  static_cast<const T*>(zr),
@@ -1503,7 +2319,7 @@ cudaError_t gru_bwd_typed(const void* wg, const void* wc, const void* ys,
       static_cast<T*>(dzg),       static_cast<T*>(dzc),
       static_cast<float*>(dwg),   static_cast<float*>(dwc),
       n, t, h};
-  return launch_gru_bwd<T>(a, s);
+  return launch_gru_bwd<T>(a, sp, s);
 }
 
 }  // namespace
@@ -1531,18 +2347,23 @@ extern "C" int bigdl_lstm_fwd(const void* zx0, const void* zx1,
   return (int)fwd_typed<float>(zx, w, ys, c, g, rev, ndir, n, t, h, save, s);
 }
 
-// The backward over one or two directions in one launch: dzx, and each
-// batch tile's fp32 dW in dw (tiles, H, 4H) — the caller sums the tiles.
-extern "C" int bigdl_lstm_bwd(const void* wt0, const void* wt1,
+// The backward over one or two directions: dzx, and each direction's
+// fp32 dW (H, 4H), summed, in dw; two launches (the sweep over both
+// directions, then the dW GEMM) on `stream`. w: W as stored for bf16 (the
+// tensor-core products read it K-major), transposed for fp32 (the SIMT
+// products read one column per thread). dw_splits, dw_span: the dW
+// GEMM's split of the N * T pairs (DwSplit).
+extern "C" int bigdl_lstm_bwd(const void* w0, const void* w1,
                               const void* ys0, const void* ys1,
                               const void* c0, const void* c1,
                               const void* g0, const void* g1,
                               const void* dy0, const void* dy1, void* dzx0,
                               void* dzx1, void* dw0, void* dw1, int rev0,
                               int rev1, int ndir, int n, int t, int h,
-                              int is_bf16, void* stream) {
+                              int dw_splits, int dw_span, int is_bf16,
+                              void* stream) {
   if (bad_shape(ndir, n, t, h)) return (int)cudaErrorInvalidValue;
-  const void* wt[2] = {wt0, wt1};
+  const void* w[2] = {w0, w1};
   const void* ys[2] = {ys0, ys1};
   const void* c[2] = {c0, c1};
   const void* g[2] = {g0, g1};
@@ -1550,12 +2371,13 @@ extern "C" int bigdl_lstm_bwd(const void* wt0, const void* wt1,
   void* dzx[2] = {dzx0, dzx1};
   void* dw[2] = {dw0, dw1};
   const int rev[2] = {rev0, rev1};
+  const DwSplit sp{dw_splits, dw_span};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return (int)bwd_typed<__nv_bfloat16>(wt, ys, c, g, dy, dzx, dw, rev,
-                                         ndir, n, t, h, s);
-  return (int)bwd_typed<float>(wt, ys, c, g, dy, dzx, dw, rev, ndir, n, t, h,
-                               s);
+    return (int)bwd_typed<__nv_bfloat16>(w, ys, c, g, dy, dzx, dw, rev,
+                                         ndir, n, t, h, sp, s);
+  return (int)bwd_typed<float>(w, ys, c, g, dy, dzx, dw, rev, ndir, n, t, h,
+                               sp, s);
 }
 
 // The GRU forward over one direction; zr and cand may be null when
@@ -1577,18 +2399,27 @@ extern "C" int bigdl_gru_fwd(const void* zg, const void* zc, const void* wg,
 // dW_g (H, 2H) in dwg and dW_c (H, H) in dwc; two launches (the sweep,
 // then the dW GEMM) on `stream`. wg, wc: W_g and W_c as stored for bf16
 // (the tensor-core products read them K-major), transposed for fp32 (the
-// SIMT products read one column per thread, coalesced).
+// SIMT products read one column per thread, coalesced). dw_splits,
+// dw_span: the dW GEMM's split of the N * T pairs (DwSplit).
 extern "C" int bigdl_gru_bwd(const void* wg, const void* wc, const void* ys,
                              const void* zr, const void* cand, const void* dy,
                              void* dzg, void* dzc, void* dwg, void* dwc, int n,
-                             int t, int h, int is_bf16, void* stream) {
+                             int t, int h, int dw_splits, int dw_span,
+                             int is_bf16, void* stream) {
   if (bad_shape(1, n, t, h)) return (int)cudaErrorInvalidValue;
+  const DwSplit sp{dw_splits, dw_span};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
     return (int)gru_bwd_typed<__nv_bfloat16>(wg, wc, ys, zr, cand, dy, dzg,
-                                             dzc, dwg, dwc, n, t, h, s);
+                                             dzc, dwg, dwc, n, t, h, sp, s);
   return (int)gru_bwd_typed<float>(wg, wc, ys, zr, cand, dy, dzg, dzc, dwg,
-                                   dwc, n, t, h, s);
+                                   dwc, n, t, h, sp, s);
+}
+
+// The largest dW split this card takes (dw_max_splits), or a negative
+// CUDA error.
+extern "C" int bigdl_dw_max_splits(int is_bf16) {
+  return is_bf16 ? dw_max_splits<__nv_bfloat16>() : dw_max_splits<float>();
 }
 
 extern "C" const char* bigdl_lstm_error_string(int err) {

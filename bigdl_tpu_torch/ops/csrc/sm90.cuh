@@ -1,7 +1,7 @@
 // PTX wrappers for Hopper (sm_90a): cp.async, wgmma and the swizzled
 // shared-memory tiles that wgmma's descriptors read, mma.sync and
 // ldmatrix. Used by flash_attention.cu's bf16 kernels, paged_decode.cu
-// (cp.async) and fused_rnn.cu's GRU backward.
+// (cp.async) and fused_rnn.cu's recurrent sweeps and dW GEMM.
 //
 // Tile layout. A tile of R rows x D bf16 columns (row-major in device
 // memory, D = 32, 64 or 128) is held in shared memory as D / 64 sub-tiles

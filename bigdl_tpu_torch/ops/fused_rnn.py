@@ -37,9 +37,9 @@ or plain versions alike). Its forward runs the training variant, which
 saves the residuals (LSTM: ys, c and the activated gates; GRU: ys, zr
 and cand), only when autograd records and an input requires grad;
 otherwise the inference variant writes ys alone, as the JAX
-`custom_vjp` primal does. The LSTM backward sums the per-tile fp32 dW
-in a fixed order; the GRU backward's kernels return dW summed. Either
-is cast to W's dtype.
+`custom_vjp` primal does. Both backwards return one fp32 dW a weight,
+summed over the batch in a fixed order (the backward's second kernel,
+a GEMM over all (t, row) pairs), and cast it to W's dtype.
 
 The plain versions round where the kernels round. LSTM
 (`lstm_forward_reference`, `lstm_backward_reference`): h and c carries
@@ -73,6 +73,7 @@ from bigdl_tpu_torch.ops import _build
 IMPLS = ("cuda", "torch")
 MAX_HIDDEN = 512            # kMaxHidden of csrc/fused_rnn.cu (the JAX cap)
 BLOCK_N = 4                 # kBlockN of csrc/fused_rnn.cu: rows per CTA
+DW_PAIRS = 64               # kDwPairs: (t, row) pairs a dW stage holds
 
 fwd_train_launches = 0
 fwd_infer_launches = 0
@@ -187,7 +188,7 @@ def _forward_plain(zxs, ws, reverses):
 def _backward_plain(ws, res, dys, reverses):
     out = [lstm_backward_reference(w, ys, c, g, dy, rev)
            for w, (ys, c, g), dy, rev in zip(ws, res, dys, reverses)]
-    return [o[0] for o in out], [o[1][None] for o in out]
+    return [o[0] for o in out], [o[1] for o in out]
 
 
 # ------------------------------------------------------------- CUDA
@@ -198,14 +199,16 @@ def _lib() -> ctypes.CDLL:
             [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
         lib.bigdl_lstm_fwd.restype = ctypes.c_int
         lib.bigdl_lstm_bwd.argtypes = (
-            [ctypes.c_void_p] * 14 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+            [ctypes.c_void_p] * 14 + [ctypes.c_int] * 9 + [ctypes.c_void_p])
         lib.bigdl_lstm_bwd.restype = ctypes.c_int
         lib.bigdl_gru_fwd.argtypes = (
             [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
         lib.bigdl_gru_fwd.restype = ctypes.c_int
         lib.bigdl_gru_bwd.argtypes = (
-            [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+            [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
         lib.bigdl_gru_bwd.restype = ctypes.c_int
+        lib.bigdl_dw_max_splits.argtypes = [ctypes.c_int]
+        lib.bigdl_dw_max_splits.restype = ctypes.c_int
         lib.bigdl_lstm_error_string.argtypes = [ctypes.c_int]
         lib.bigdl_lstm_error_string.restype = ctypes.c_char_p
     return lib
@@ -243,6 +246,33 @@ def _check(zxs: Sequence[torch.Tensor], ws: Sequence[torch.Tensor]
     if n < 1 or n_t < 1:
         raise ValueError(f"fused_rnn: empty batch or sequence "
                          f"{tuple(ref.shape)}")
+
+
+def dw_split_plan(pairs: int, max_splits: int) -> Tuple[int, int]:
+    """How the dW GEMM after a backward sweep splits a direction's
+    `pairs` = N * T (t, row) pairs over the CTAs of a cluster: (splits,
+    span), rank r summing pairs [r * span, min((r + 1) * span, pairs)),
+    span a whole number of DW_PAIRS stages, at most `max_splits` ranks
+    (the card's cluster limit for the dW kernel) and at most one a
+    stage. A function of the pair count and that limit alone, so the
+    order of dW's sums, and its bits, follow from the shape."""
+    splits = min(max_splits, -(-pairs // DW_PAIRS))
+    span = -(-pairs // splits)
+    span = -(-span // DW_PAIRS) * DW_PAIRS
+    return -(-pairs // span), span
+
+
+_MAX_SPLITS = {}
+
+
+def _dw_split(lib: ctypes.CDLL, pairs: int, bf16: bool,
+              device: torch.device) -> Tuple[int, int]:
+    key = (device.index, bf16)
+    if key not in _MAX_SPLITS:
+        got = lib.bigdl_dw_max_splits(int(bf16))
+        _raise_on(max(0, -got), lib, "dW cluster query")
+        _MAX_SPLITS[key] = got
+    return dw_split_plan(pairs, _MAX_SPLITS[key])
 
 
 def _raise_on(err: int, lib: ctypes.CDLL, what: str) -> None:
@@ -289,9 +319,11 @@ def lstm_fwd_cuda(zxs: Sequence[torch.Tensor], ws: Sequence[torch.Tensor],
 
 def lstm_bwd_cuda(ws: Sequence[torch.Tensor], res, dys: Sequence[torch.Tensor],
                   reverses: Sequence[bool]):
-    """One backward launch over the directions of `res` ((ys, c, gates)
-    per direction). Returns (dzx per direction, dW per direction as
-    (tiles, H, 4H) fp32 — one slice per batch tile)."""
+    """One backward call over the directions of `res` ((ys, c, gates)
+    per direction): the sweep over every direction and the dW GEMM, two
+    launches on the current stream, counted as one. Returns (dzx per
+    direction, dW per direction as one (H, 4H) fp32, summed over the
+    batch)."""
     global bwd_launches
     ws = [w.contiguous() for w in ws]
     res = [tuple(x.contiguous() for x in r) for r in res]
@@ -306,20 +338,23 @@ def lstm_bwd_cuda(ws: Sequence[torch.Tensor], res, dys: Sequence[torch.Tensor],
                 raise ValueError(f"fused_rnn backward: {name} "
                                  f"{tuple(t.shape)} {t.dtype} does not "
                                  f"match gates {tuple(gates[0].shape)}")
-    wts = [w.t().contiguous() for w in ws]     # (4H, H) for dz . W^T
-    tiles = (n + BLOCK_N - 1) // BLOCK_N
+    bf16 = gates[0].dtype == torch.bfloat16
+    # the bf16 tensor-core product reads W as stored (K-major), the fp32
+    # SIMT product one column of W^T per thread
+    ws = [w if bf16 else w.t().contiguous() for w in ws]
     dzxs = [torch.empty_like(g) for g in gates]
-    dws = [torch.empty(tiles, hidden, h4, dtype=torch.float32,
-                       device=g.device) for g in gates]
+    dws = [torch.empty(hidden, h4, dtype=torch.float32, device=g.device)
+           for g in gates]
     revs = [int(r) for r in reverses] + [0] * (2 - len(gates))
     lib = _lib()
     with torch.cuda.device(gates[0].device):
+        split = _dw_split(lib, n * n_t, bf16, gates[0].device)
         stream = torch.cuda.current_stream(gates[0].device).cuda_stream
         err = lib.bigdl_lstm_bwd(
-            *_pair(wts), *_pair([r[0] for r in res]),
+            *_pair(ws), *_pair([r[0] for r in res]),
             *_pair([r[1] for r in res]), *_pair(gates), *_pair(dys),
             *_pair(dzxs), *_pair(dws), *revs, len(gates), n, n_t, hidden,
-            int(gates[0].dtype == torch.bfloat16), stream)
+            *split, int(bf16), stream)
     _raise_on(err, lib, "backward")
     bwd_launches += 1
     return dzxs, dws
@@ -336,8 +371,9 @@ def _forward(impl, zxs, ws, reverses, save):
 class _LSTMScan(torch.autograd.Function):
     """ys per direction, differentiable in every zx and w_hh. Forward
     saves (w, ys, c, gates) per direction, as `_lstm_core_fwd` /
-    `_bilstm_core_fwd` do; backward is one backward launch (or the
-    plain backward) and a fixed-order sum of the per-tile dW."""
+    `_bilstm_core_fwd` do; backward is one backward call (or the plain
+    backward), whose fp32 dW, summed over the batch, is cast to W's
+    dtype."""
 
     @staticmethod
     def forward(ctx, impl, reverses, *tensors):
@@ -361,7 +397,7 @@ class _LSTMScan(torch.autograd.Function):
             dzxs, dws = _backward_plain(ws, res, dys, ctx.reverses)
         else:
             dzxs, dws = lstm_bwd_cuda(ws, res, dys, ctx.reverses)
-        dws = [dw.sum(dim=0).to(w.dtype) for dw, w in zip(dws, ws)]
+        dws = [dw.to(w.dtype) for dw, w in zip(dws, ws)]
         return (None, None, *dzxs, *dws)
 
 
@@ -565,12 +601,13 @@ def gru_bwd_cuda(wg: torch.Tensor, wc: torch.Tensor, ys: torch.Tensor,
     dwc = torch.empty(hidden, hidden, dtype=torch.float32, device=zr.device)
     lib = _lib()
     with torch.cuda.device(zr.device):
+        split = _dw_split(lib, n * n_t, bf16, zr.device)
         stream = torch.cuda.current_stream(zr.device).cuda_stream
         err = lib.bigdl_gru_bwd(
             wg.data_ptr(), wc.data_ptr(), ys.data_ptr(), zr.data_ptr(),
             cand.data_ptr(), dy.data_ptr(), dzg.data_ptr(), dzc.data_ptr(),
-            dwg.data_ptr(), dwc.data_ptr(), n, n_t, hidden, int(bf16),
-            stream)
+            dwg.data_ptr(), dwc.data_ptr(), n, n_t, hidden, *split,
+            int(bf16), stream)
     _raise_on(err, lib, "GRU backward")
     gru_bwd_launches += 1
     return dzg, dzc, dwg, dwc

@@ -11,11 +11,11 @@ It drives `bigdl_tpu_torch` only (never JAX or the JAX package):
 2. build  — compiles every CUDA kernel from the sources in the checkout
    (`bigdl_tpu_torch/ops/_build.py`: one nvcc per source for sm_90a, all
    started together) and reports ptxas registers/spills; for each flash,
-   paged-decode and GRU kernel also its tensor-core instructions in the
-   built SASS (`cuobjdump -sass`: HGMMA for wgmma, HMMA for mma.sync).
-   Fails if one of those kernels spills, or a bf16 flash kernel, bf16
-   GRU backward sweep or bf16 GRU dW kernel has no tensor-core
-   instruction;
+   paged-decode, LSTM and GRU kernel also its tensor-core instructions
+   in the built SASS (`cuobjdump -sass`: HGMMA for wgmma, HMMA for
+   mma.sync). Fails if one of those kernels spills or is missing
+   (RNN_BUILT_KERNELS), or a bf16 flash kernel, bf16 LSTM backward or
+   GRU sweep, or bf16 dW kernel has no tensor-core instruction;
 3. kernel — the paged-decode kernel against its plain PyTorch version
    on DECODE_CASES: the engine's shape (B=8, H=8, 37 blocks of 16,
    D=64) with ragged clocks including 0 and S-1, one key, and a 4096-key
@@ -306,6 +306,40 @@ GRU_BWD_DESIGN = ("sweep: bf16 step products on mma.sync m16n8k16 (M = "
                   "pairs after the sweep (bf16 mma.sync with ldmatrix, fp32 "
                   "SIMT), split over a cluster, reduced in rank order "
                   "through distributed shared memory; no atomics")
+# the designs of the K7/K9 and K10 rows of the kernels line
+LSTM_BWD_DESIGN = ("sweep: bf16 step product dh^T = W . dz^T on mma.sync "
+                   "m16n8k16 (M = units, N = 4 rows + 4 zero rows, K = 4H, "
+                   "A = W as stored, in registers at H <= 128, streamed "
+                   "from L2 above), each thread owning its (row, unit) "
+                   "pairs' dc carry and gate-derivative chain, dz double-"
+                   "buffered (one barrier a step), residuals prefetched two "
+                   "steps ahead with cp.async, dzx out in 16-byte pieces; "
+                   "fp32 SIMT products. dW: one GEMM over all (t, row) "
+                   "pairs of each direction after the sweep (rnn_dw_kernel, "
+                   "shared with K11), split over a cluster, reduced in rank "
+                   "order through distributed shared memory; no atomics")
+GRU_FWD_DESIGN = ("bf16: both step products on mma.sync m16n8k16 with W_g "
+                  "and W_c in registers at H <= 128 (streamed from L2 "
+                  "above), W_g's columns ordered so a lane holds z and r of "
+                  "its units, r h and the h update register-local (h carry "
+                  "fp32 per owned (row, unit) pair), zg/zc prefetched two "
+                  "steps ahead with cp.async, ys/zr/cand out in 16-byte "
+                  "pieces, 2 barriers a step; fp32: SIMT products, zg/zc "
+                  "prefetched")
+# kernels the build phase must find in the fused_rnn report (none may
+# spill), and those of them that must have tensor-core instructions
+RNN_BUILT_KERNELS = (
+    "lstm_fwd_kernel<float,true>", "lstm_fwd_kernel<bf16,true>",
+    "lstm_bwd_mma_kernel<1>", "lstm_bwd_mma_kernel<4>",
+    "lstm_bwd_simt_kernel<float>",
+    "gru_fwd_mma_kernel<1,true>", "gru_fwd_mma_kernel<1,false>",
+    "gru_fwd_mma_kernel<4,true>", "gru_fwd_mma_kernel<4,false>",
+    "gru_fwd_simt_kernel<float,true>", "gru_fwd_simt_kernel<float,false>",
+    "gru_bwd_mma_kernel<1>", "gru_bwd_mma_kernel<4>",
+    "gru_bwd_simt_kernel<float>", "rnn_dw_kernel<bf16>",
+    "rnn_dw_kernel<float>")
+RNN_TENSOR_CORE_KERNELS = ("lstm_bwd_mma_kernel", "gru_fwd_mma_kernel",
+                           "gru_bwd_mma_kernel", "rnn_dw_kernel<bf16")
 # The GRU's bf16 outputs are also held to the free-running plain
 # versions, which carry their own state: there a one-ulp difference in a
 # stored value feeds the next step, so the order of a product's sums
@@ -377,10 +411,11 @@ _TEMPLATE_ARG = re.compile(r"Li(\d+)E|Lb([01])E|13__nv_bfloat16|f")
 
 
 def _kernel_label(mangled: str) -> str:
-    """`fa_fwd_bf16_kernel<64>`, `gru_dw_kernel<bf16>`,
+    """`fa_fwd_bf16_kernel<64>`, `rnn_dw_kernel<bf16>`,
     `paged_decode_kernel<float,64>` from a kernel's mangled name (other
     names pass through)."""
-    m = re.search(r"\d+((?:fa|gru|lstm|paged)_\w*?kernel)I(\w+)", mangled)
+    m = re.search(r"\d+((?:fa|gru|lstm|paged|rnn)_\w*?kernel)I(\w+)",
+                  mangled)
     if not m:
         return mangled
     args, rest = [], m.group(2)
@@ -396,7 +431,10 @@ def _kernel_label(mangled: str) -> str:
 
 def _ptxas_report(log: str) -> dict:
     """Registers and spilled bytes (stores + loads) of each kernel in
-    an `nvcc -Xptxas -v` log."""
+    an `nvcc -Xptxas -v` log. ptxas reports the out-of-line device
+    functions a kernel calls after the kernel itself, before the next
+    "Compiling entry function" line; their spills are added to the
+    kernel's, so a spill in a callee fails the kernel's gate."""
     out, name = {}, None
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", ln)
@@ -407,7 +445,8 @@ def _ptxas_report(log: str) -> dict:
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       ln)
         if m and name:
-            out[name]["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+            out[name]["spill_bytes"] = (out[name].get("spill_bytes", 0) +
+                                        int(m.group(1)) + int(m.group(2)))
         m = re.search(r"Used (\d+) registers", ln)
         if m and name:
             out[name]["registers"] = int(m.group(1))
@@ -437,10 +476,10 @@ def _tensor_core_counts(so: Path) -> dict:
 
 def phase_build():
     """Build every kernel source; report ptxas registers and spills, and
-    for the flash, paged-decode and GRU kernels their tensor-core
-    instructions. Fails if a flash, paged-decode or GRU kernel spills, or
-    a bf16 flash kernel, bf16 GRU backward sweep or bf16 dW kernel has no
-    tensor-core instruction."""
+    for the flash, paged-decode, LSTM and GRU kernels their tensor-core
+    instructions. Fails if one of those kernels spills, or a bf16 flash
+    kernel, bf16 LSTM or GRU sweep (backward, and the GRU forward) or bf16
+    dW kernel has no tensor-core instruction."""
     from bigdl_tpu_torch.ops import _build
     from bigdl_tpu_torch.ops import flash_attention as fa
 
@@ -467,25 +506,23 @@ def phase_build():
         if "bf16" in name:
             check(r["HGMMA"] + r["HMMA"] > 0,
                   f"{name} has no tensor-core instruction")
-    # the paged-decode and GRU kernels: no spills; the bf16 GRU backward
-    # sweeps and dW GEMM on the tensor cores
+    # the paged-decode and recurrent kernels: no spills; the bf16 LSTM
+    # backward and GRU sweeps and the bf16 dW GEMM on the tensor cores
     others = {}
-    for src, prefix in (("paged_decode", "paged_decode_"),
-                        ("fused_rnn", "gru_")):
+    for src, prefix in (("paged_decode", ("paged_decode_",)),
+                        ("fused_rnn", ("gru_", "lstm_", "rnn_"))):
         tc = _tensor_core_counts(_build.library_path(src))
         others.update({name: {**r, **tc.get(name, {})} for name, r in
                        _ptxas_report(_build.BUILD_LOG[src]).items()
                        if name.startswith(prefix)})
     for name in ("paged_decode_kernel<float,64>",
-                 "paged_decode_kernel<bf16,64>", "gru_bwd_mma_kernel<1>",
-                 "gru_bwd_mma_kernel<4>", "gru_bwd_simt_kernel<float>",
-                 "gru_dw_kernel<bf16>", "gru_dw_kernel<float>"):
+                 "paged_decode_kernel<bf16,64>", *RNN_BUILT_KERNELS):
         check(name in others, f"no {name} in the ptxas report")
     for name, r in others.items():
         check(r.get("spill_bytes") == 0,
               f"{name} spills ({r.get('spill_bytes')} bytes) or has no "
               f"ptxas report")
-        if name.startswith(("gru_bwd_mma_kernel", "gru_dw_kernel<bf16")):
+        if name.startswith(RNN_TENSOR_CORE_KERNELS):
             check(r.get("HGMMA", 0) + r.get("HMMA", 0) > 0,
                   f"{name} has no tensor-core instruction")
     RESULTS["build_log"] = _build.BUILD_LOG
@@ -1260,10 +1297,11 @@ def _rnn_bound(n, t, h, ndir, itemsize, kind, cell="lstm"):
     """Least time for one launch's work: each input read once, each
     output written once; the recurrent products (2 flops a multiply-add:
     h . W forward; dz . W^T and h_prev^T . dz backward) at the fp32 SIMT
-    peak, or the dense bf16 tensor-core peak for bf16. The backward's
-    output is one fp32 dW a direction (what the function returns), not
-    the per-tile partials this design writes. A GRU (`cell="gru"`) has
-    W_g (H, 2H) and W_c (H, H): 6 N T H^2 flops forward, 12 backward."""
+    peak, or the dense bf16 tensor-core peak for bf16. The backward
+    writes one fp32 dW a direction, summed over the batch by its dW
+    GEMM (the Pallas kernels wrote one partial a batch tile). A GRU
+    (`cell="gru"`) has W_g (H, 2H) and W_c (H, H): 6 N T H^2 flops
+    forward, 12 backward."""
     seq = n * t * h
     if cell == "gru":
         w = 3 * h * h
@@ -1311,7 +1349,7 @@ def phase_rnn(flush):
     """The persistent-LSTM kernels against their plain versions on every
     case of RNN_CASES, fp32 and bf16: forward (training variant: ys, c,
     gates; the inference variant's ys bitwise the training variant's)
-    and backward (dzx, dW summed over the batch tiles) from the kernel's
+    and backward (dzx, and dW summed over the batch) from the kernel's
     own residuals; two backward runs bitwise equal; in bf16 element by
     element against the plain versions that round where the kernels
     round, with the unrounded control, and bf16 dW against the plain
@@ -1333,7 +1371,6 @@ def phase_rnn(flush):
             dzx, dw = fr.lstm_bwd_cuda(ws, res, dys, revs)
             dzx2, dw2 = fr.lstm_bwd_cuda(ws, res, dys, revs)
             torch.cuda.synchronize()
-            dw = [x.sum(dim=0) for x in dw]
             plain_f = [fr.lstm_forward_reference(z, w, r)
                        for z, w, r in zip(zxs, ws, revs)]
             plain_b = [fr.lstm_backward_reference(w, *rk, dy, r)
@@ -1344,8 +1381,7 @@ def phase_rnn(flush):
             check(all(torch.equal(a[0], b[0]) for a, b in zip(res, infer)),
                   f"{where}: inference ys differ from the training ys")
             check(all(torch.equal(a, b) for a, b in zip(dzx, dzx2))
-                  and all(torch.equal(a.sum(0), b)
-                          for a, b in zip(dw2, dw)),
+                  and all(torch.equal(a, b) for a, b in zip(dw2, dw)),
                   f"{where}: two backward runs differ")
             r = {
                 "fwd_max_abs_err": max(float((a.float() - b.float()).abs()
@@ -1772,7 +1808,8 @@ def phase_rnn_trainer():
 def phase_rnn_profile():
     """Where one BiLSTM trainer step's device time goes (`--profile`
     only): the step after two warm-up steps under torch.profiler; the
-    LSTM kernels' share of the device time."""
+    LSTM kernels' share of the device time (the dW GEMM, rnn_dw_kernel,
+    included)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1809,7 +1846,8 @@ def phase_rnn_profile():
         emit("rnn_profile", device_ms_per_step="not measured")
         return
     dev_ms = sum(r[0] for r in rows) / 1e3
-    lstm_ms = sum(r[0] for r in rows if "lstm_" in r[2]) / 1e3
+    lstm_ms = sum(r[0] for r in rows
+                  if "lstm_" in r[2] or "rnn_dw_" in r[2]) / 1e3
     wall_ms = (marks["t1"] - marks["t0"]) * 1e3
     emit("rnn_profile", steps=1, profiled_wall_ms_per_step=wall_ms,
          device_ms_per_step=dev_ms, lstm_kernels_ms_per_step=lstm_ms,
@@ -2241,7 +2279,8 @@ def _profile_gru_step(model, samples):
     prof.export_chrome_trace(str(OUT_DIR / "gru_train_trace.json"))
     return ((marks["t1"] - marks["t0"]) * 1e3,
             sum(r[0] for r in rows) / 1e3,
-            sum(r[0] for r in rows if "gru_" in r[2]) / 1e3,
+            sum(r[0] for r in rows
+                if "gru_" in r[2] or "rnn_dw_" in r[2]) / 1e3,
             sum(r[1] for r in rows), rows[:12])
 
 
@@ -2495,6 +2534,7 @@ def main() -> int:
         kernels.append({
             "name": ("bilstm_" if case == "train_bi" else "lstm_") + kind,
             "route": "cuda", "source": src,
+            **({"design": LSTM_BWD_DESIGN} if kind == "bwd" else {}),
             "replaces": {"K6": "bigdl_tpu/ops/fused_rnn.py:189 :200",
                          "K7": "bigdl_tpu/ops/fused_rnn.py:211",
                          "K8": "bigdl_tpu/ops/fused_rnn.py:375 :392",
@@ -2517,7 +2557,7 @@ def main() -> int:
         bound = r["train_bound" if kind == "fwd" else "bwd_bound"]
         kernels.append({
             "name": "gru_" + kind, "route": "cuda", "source": src,
-            **({"design": GRU_BWD_DESIGN} if kind == "bwd" else {}),
+            "design": GRU_BWD_DESIGN if kind == "bwd" else GRU_FWD_DESIGN,
             "replaces": {"K10": "bigdl_tpu/ops/fused_rnn.py:611 :637",
                          "K11": "bigdl_tpu/ops/fused_rnn.py:643"}[num],
             "launches": launch,

@@ -246,3 +246,87 @@ def test_block_n_is_fixed():
         trnn.lstm_scan(z, wt, block_n=2 * trnn.BLOCK_N)
     with pytest.raises(ValueError, match="fixed"):
         trnn.bilstm_scan(z, z, wt, wt, block_n=2 * trnn.BLOCK_N)
+
+
+def _pallas_tile_dw(ws, res, dys, ndir, block_n):
+    """The Pallas backward kernels' per-tile dW (interpret mode), from the
+    given residuals in the port's (N, T, .) layout: one (tiles, H, 4H)
+    array a direction."""
+    def tm(x):          # (N, T, .) torch -> (T, N, .) jax, dtype kept
+        dt = jnp.bfloat16 if x.dtype == torch.bfloat16 else jnp.float32
+        return jnp.swapaxes(_j(x.float().numpy(), dt), 0, 1)
+
+    jw = [_j(w.float().numpy(), jnp.bfloat16 if w.dtype == torch.bfloat16
+             else jnp.float32) for w in ws]
+    jres = [tuple(tm(x) for x in r) for r in res]
+    jdy = [tm(dy) for dy in dys]
+    if ndir == 1:
+        fn = jax.jit(lambda *a: jrnn._lstm_bwd_pallas(*a, block_n, True))
+        return [fn(jw[0], *jres[0], jdy[0])[1]]
+    fn = jax.jit(lambda *a: jrnn._bilstm_bwd_pallas(*a, block_n, True))
+    out = fn(*jw, *jres, *jdy)
+    return [out[2], out[3]]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("ndir", [1, 2], ids=["uni", "bi"])
+def test_backward_returns_one_summed_dw(ndir, dtype):
+    """The backward's contract: one fp32 (H, 4H) dW a direction, summed
+    over the batch — the Pallas kernels' per-tile dW summed over its
+    tiles — and the gradient autograd hands W is that dW in W's dtype."""
+    n, t, h = 8, 5, 8
+    zxs, ws = _inputs(n, t, h, seed=9, ndir=ndir)
+    zxs = [_t(z, dtype) for z in zxs]
+    ws = [_t(w, dtype) for w in ws]
+    revs = [d == 1 for d in range(ndir)]
+    rng = np.random.RandomState(10)
+    dys = [_t(rng.randn(n, t, h).astype(np.float32), dtype)
+           for _ in range(ndir)]
+    res = trnn._forward_plain(zxs, ws, revs)
+    _, dws = trnn._backward_plain(ws, res, dys, revs)
+    tiles = _pallas_tile_dw(ws, res, dys, ndir, trnn.BLOCK_N)
+    for dw, tile in zip(dws, tiles):
+        assert dw.shape == (h, 4 * h) and dw.dtype == torch.float32
+        assert tile.shape == (n // trnn.BLOCK_N, h, 4 * h)
+        ref = _np(jnp.sum(tile, axis=0))
+        tol = FP32_GRAD if dtype == torch.float32 else BF16
+        scale = max(1.0, float(np.abs(ref).max()))
+        np.testing.assert_allclose(_np(dw) / scale, ref / scale, **tol)
+    leaves = [z.clone().requires_grad_() for z in zxs] + [
+        w.clone().requires_grad_() for w in ws]
+    outs = _torch_scan(leaves[:ndir], leaves[ndir:], ndir)
+    grads = torch.autograd.grad(outs, leaves[ndir:], dys)
+    for g, dw, w in zip(grads, dws, ws):
+        assert g.dtype == w.dtype and torch.equal(g, dw.to(w.dtype))
+
+
+@pytest.mark.parametrize("max_splits", [8, 16])
+@pytest.mark.parametrize("pairs", [1, 63, 64, 511, 512, 513, 2048, 4096,
+                                   16383, 16384, 100000])
+def test_dw_split_plan_covers_each_pair_once(pairs, max_splits):
+    """Rank r of the dW GEMM's cluster sums pairs [r span, (r + 1) span):
+    every (t, row) pair once, no rank empty, spans whole dW stages."""
+    splits, span = trnn.dw_split_plan(pairs, max_splits)
+    assert 1 <= splits <= max_splits and span % trnn.DW_PAIRS == 0
+    ranges = [range(r * span, min((r + 1) * span, pairs))
+              for r in range(splits)]
+    assert all(len(rg) > 0 for rg in ranges)
+    assert [m for rg in ranges for m in rg] == list(range(pairs))
+    if pairs >= max_splits * trnn.DW_PAIRS:
+        assert splits > max_splits // 2
+    else:
+        assert span == trnn.DW_PAIRS
+
+
+def test_dw_split_plan_depends_on_the_shape_alone():
+    """The split, and so the order of dW's sums, follows from the pair
+    count (N * T) and the card's cluster limit, nothing else."""
+    import inspect
+
+    assert list(inspect.signature(trnn.dw_split_plan).parameters) == [
+        "pairs", "max_splits"]
+    assert trnn.dw_split_plan(128 * 128, 16) == (16, 1024)   # train_bi
+    assert trnn.dw_split_plan(32 * 64, 16) == (16, 128)      # lm_uni
+    assert trnn.dw_split_plan(128 * 128, 8) == (8, 2048)
+    assert trnn.dw_split_plan(20, 16) == (1, 64)
