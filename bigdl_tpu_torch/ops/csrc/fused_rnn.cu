@@ -3,9 +3,9 @@
 // the GRU section below.
 //
 // Replaces the Pallas kernels of bigdl_tpu/ops/fused_rnn.py:
-//   * lstm_fwd_kernel<T, SAVE=true>  <- _lstm_fwd_kernel (K6) and
-//     _bilstm_fwd_kernel (K8);
-//   * lstm_fwd_kernel<T, SAVE=false> <- _lstm_fwd_infer_kernel and
+//   * lstm_fwd_mma_kernel<kMT, SAVE> (bf16) / lstm_fwd_simt_kernel<kWS,
+//     SAVE> (fp32), SAVE=true <- _lstm_fwd_kernel (K6) and
+//     _bilstm_fwd_kernel (K8); SAVE=false <- _lstm_fwd_infer_kernel and
 //     _bilstm_fwd_infer_kernel (the no-residual variants);
 //   * lstm_bwd_mma_kernel<kMT> (bf16) / lstm_bwd_simt_kernel<float>
 //     (fp32), then rnn_dw_kernel<T>  <- _lstm_bwd_kernel (K7) and
@@ -39,13 +39,20 @@
 // rates both are a few to ~30 us of work. The real limit is the
 // recurrence: T dependent steps, each a small (BN, H) x (H, 4H) product,
 // so a step's latency, not the card's rate, sets the time.
-// * The forward (first design): one CTA of 512 threads owns kBlockN = 4
-//   batch rows of one direction for the whole sequence (tiles of 8 and
-//   16 rows were slower: fewer CTAs for the same per-step latency;
-//   PERF.md); rows never mix, so no grid-wide barrier is needed; the h/c
-//   carries live in shared memory; W is streamed from L2 every step; each
-//   thread computes whole gate-columns of z for the BN rows, then each
-//   thread applies the gate math to (row, unit) pairs.
+// * The forward keeps a batch tile of kBlockN = 4 rows of one direction
+//   for the whole sequence (tiles of 8 and 16 rows were slower: fewer
+//   CTAs for the same per-step latency; PERF.md); rows never mix, so no
+//   grid-wide barrier is needed. bf16: the step product h . W on the
+//   tensor cores (mma.sync) with W in registers, each warp's four M tiles
+//   the four gates of its units, so the gate math runs as the product's
+//   epilogue with the c carry in registers; zx two steps ahead by a
+//   per-thread cp.async plan; ys, c and the gates out in 16-byte pieces;
+//   one barrier a step. fp32: SIMT, the tile's units split over a
+//   cluster of 4 CTAs, each keeping its units' columns of W in shared
+//   memory (out of the per-step L2 stream), a thread summing one unit's
+//   four gates for the tile's rows over a quarter of K, the quarters
+//   added across lanes in a fixed order, h sent into every peer's h tile
+//   by st.async and awaited on an mbarrier (no cluster barrier a step).
 // * The backward keeps the batch tile and takes the recipe of the GRU
 //   backward (below): the bf16 step product on the tensor cores with W
 //   in registers, each thread owning its (row, unit) pairs' dc carry and
@@ -110,6 +117,7 @@ __device__ __forceinline__ float sigmoid(float x) {
 __device__ __forceinline__ float sigmoid_fast(float x) {
   return __fdividef(1.f, 1.f + expf(-x));
 }
+
 
 template <typename T>
 struct FwdDir {
@@ -343,8 +351,8 @@ __device__ __forceinline__ uint2 b_lane(const unsigned short* tile, int ld,
       sm90::smem_u32(tile + ri * ld + 16 * (mi >> 1) + 8 * (mi & 1)), 64u);
 }
 
-// acc[n] = A_n . B for NT (1 or 2) row tiles that share one B (K = 16
-// KS): A_n's fragments w[n] held in registers, B fragments read with
+// acc[n] = A_n . B for NT (1, 2 or 4) row tiles that share one B (K =
+// 16 KS): A_n's fragments w[n] held in registers, B fragments read with
 // ldmatrix from b = b_lane(...) (x: address, y: bytes a pair of k-steps).
 // Four accumulator chains in all: k-step ks of tile n goes to chain ks %
 // (4 / NT) of the tile's; a tile's chains are added in a fixed order.
@@ -375,9 +383,10 @@ __device__ __forceinline__ void mma_res(float (&acc)[NT][4],
   for (int n = 0; n < NT; ++n)
 #pragma unroll
     for (int j = 0; j < 4; ++j)
-      acc[n][j] = CH == 4 ? (c[n][0][j] + c[n][1][j]) +
-                                (c[n][2 % CH][j] + c[n][3 % CH][j])
-                          : c[n][0][j] + c[n][1 % CH][j];
+      acc[n][j] = CH == 4   ? (c[n][0][j] + c[n][1][j]) +
+                                  (c[n][2 % CH][j] + c[n][3 % CH][j])
+                  : CH == 2 ? c[n][0][j] + c[n][1 % CH][j]
+                            : c[n][0][j];
 }
 
 // acc = A . B over ks_n k-steps with A's fragments streamed from device
@@ -419,67 +428,558 @@ __device__ __forceinline__ void mma_stream(float (&acc)[4], int ks_n,
              ((c[4][j] + c[5][j]) + (c[6][j] + c[7][j]));
 }
 
-// Forward. Shared memory: hop (H, BN) the h operand rounded to T,
-// cs (BN, H) the c carry, zs (BN, 4H) the step's recurrent products.
-template <typename T, bool SAVE>
-__global__ void __launch_bounds__(kThreads)
-    lstm_fwd_kernel(FwdArgs<T> a) {
+// ------------------------------------------------------- LSTM forward
+// the row of the resident bf16 forward's staged W (4 x 128 units, padded
+// so ldmatrix's 8 rows fall in distinct banks)
+constexpr int kFwdWLd = 4 * 128 + 8;
+
+// A bf16 forward step's inputs staged in shared memory: zx (4H) of the
+// tile's kBlockN rows, each gate's H-run padded to lr = stage_row<T>(H)
+// elements, so gate k of unit u of row r sits at (4 r + k) lr + u.
+template <typename T>
+__host__ __device__ __forceinline__ int lstm_fwd_stage_elems(int h) {
+  return kBlockN * 4 * stage_row<T>(h);
+}
+
+// step t's zx rows n0 .. n0 + nr - 1 into `st` by plain loads and stores
+// (rows that are not whole 16-byte pieces); commits an empty cp.async
+// group. Out of line, so the sweep stays small.
+template <typename T>
+__device__ __noinline__ void lstm_fwd_stage(T* st, const FwdDir<T>& d,
+                                            int H, int nt, int n0, int nr,
+                                            int t, int tid, int nthr) {
+  const int lr = stage_row<T>(H);
+  for (int i = tid; i < nr * 4 * H; i += nthr) {
+    const int r = i / (4 * H), e = i - r * 4 * H, k = e / H;
+    st[(4 * r + k) * lr + e - k * H] =
+        d.zx[((size_t)(n0 + r) * nt + t) * 4 * H + e];
+  }
+  sm90::cp_async_commit();
+}
+
+// the per-thread cp.async plan of lstm_fwd_stage's copies (H * sizeof(T)
+// a multiple of 16, so lr == H and a row's zx is one contiguous run)
+template <typename T, int kMaxC>
+__device__ __forceinline__ void lstm_fwd_plan(CopyPlan<kMaxC>& plan,
+                                              const FwdDir<T>& d, int H,
+                                              int nt, int n0, int nr,
+                                              int tid, int nthr) {
+  const int pr = 4 * H * (int)sizeof(T) / 16;  // pieces a row of zx
+  plan.init(nr * pr, tid, nthr,
+            [&](int c, const char*& src, int& rb, uint32_t& dst, bool&) {
+              const int r = c / pr;
+              src = reinterpret_cast<const char*>(
+                        d.zx + (size_t)(n0 + r) * nt * 4 * H) +
+                    16 * (c - r * pr);
+              rb = 4 * H * (int)sizeof(T);
+              dst = 16 * (uint32_t)c;
+            });
+}
+
+// step t's ys, c and the gates (save) from their tiles by element (rows
+// that are not whole 16-byte pieces): unit u of row r at r ld + u of the
+// h and c tiles, gate k of it at r ldg + k hp + u of the gate tile. Out
+// of line, so the sweep stays small.
+__device__ __noinline__ void lstm_fwd_copy_rows(
+    const FwdDir<__nv_bfloat16>& d, const unsigned short* ho,
+    const unsigned short* co, const unsigned short* go, int H, int hp,
+    int nt, int n0, int nr, int t, bool save) {
+  const int ld = hp + 8, ldg = 4 * hp + 8;
+  auto row = [&](int r, int e) { return r * ld + e; };
+  copy_rows(d.ys, ho, H, nt, n0, nr, t, threadIdx.x, kMmaThreads, row);
+  if (save) {
+    copy_rows(d.c, co, H, nt, n0, nr, t, threadIdx.x, kMmaThreads, row);
+    copy_rows(d.g, go, 4 * H, nt, n0, nr, t, threadIdx.x, kMmaThreads,
+              [&](int r, int e) { return r * ldg + e / H * hp + e % H; });
+  }
+}
+
+// Forward, bf16, on the tensor cores. The step product z^T (4H, BN) =
+// W^T (4H, H) . h^T (H, BN) is mma.sync m16n8k16 with M = the 4H gate
+// columns, N = 8 batch rows (the tile's 4 rows and 4 zero rows), K = H,
+// A = W read transposed (A[m][k] = W[k][m], zero past H), B = h rounded
+// to bf16 in a double-buffered shared tile, so a step has one barrier.
+// Warp w owns units 16 w .. 16 w + 15 (and 16 (w + 8 i) when streamed);
+// its four M tiles are gates i, f, g, o of those units, so a lane's four
+// accumulators hold all four pre-activations of units u, u + 8 of rows
+// 2q, 2q + 1: the gate math is the product's epilogue, with the c carry
+// in fp32 registers. Rows 4..7 (q >= 2) are B's zero rows, so those
+// lanes take over unit u + 8 from lane q - 2 (one shuffle a gate and
+// row) and every lane runs two real entries. kMT = 1 (H <= 128): A's
+// fragments (4 tiles x 8 k-steps, 128 registers a thread) are loaded
+// once, at kernel start, by ldmatrix.trans from a zero-padded copy of W
+// staged in shared memory (gathering them from device memory left the
+// prologue spilling); kMT = 4 (H <= 512): each warp takes unit groups
+// warp, warp + 8, ... and streams their fragments from L2 (mma_stream, 8
+// chains). zx is copied two steps ahead by a per-thread cp.async plan;
+// ys leaves from the next h tile (which holds exactly its bf16 values),
+// c and the gates (SAVE) from double-buffered out tiles, as 16-byte
+// pieces when H % 8 == 0 and by element otherwise. Entries of units past
+// the padded hp store into the tiles' unread rows 4..7, so the epilogue
+// has no branch on ownership. Shared memory: 16 zero bytes, two h tiles
+// and two c tiles (kTileRows, hp + 8), two gate tiles (kTileRows, 4 hp +
+// 8, gate k of unit u at k hp + u), as bf16 bits; three zx stages; W's
+// staging copy (kMT = 1).
+template <int kMT, bool SAVE>
+__global__ void __launch_bounds__(kMmaThreads, 1)
+    lstm_fwd_mma_kernel(FwdArgs<__nv_bfloat16> a) {
+  using T = __nv_bfloat16;
   constexpr int BN = kBlockN;
-  FwdDir<T> d = a.d[0];
-  if (blockIdx.y == 1) d = a.d[1];
-  const int H = a.h, H4 = 4 * a.h, nt = a.t;
+  constexpr bool kRes = kMT == 1;  // W resident: hp = 128, 8 k-steps
+  const FwdDir<T> d = blockIdx.y == 1 ? a.d[1] : a.d[0];
+  const int H = a.h, nt = a.t, lr = stage_row<T>(a.h);
+  const int hp = mma_hp(H), ld = hp + 8, ldg = 4 * hp + 8;
   const int n0 = blockIdx.x * BN;
   const int nr = min(BN, a.n - n0);
-  extern __shared__ __align__(16) float smem[];
-  float* hop = smem;
-  float* cs = hop + H * BN;
-  float* zs = cs + BN * H;
-  for (int i = threadIdx.x; i < BN * H; i += kThreads) {
-    hop[i] = 0.f;
-    cs[i] = 0.f;
-  }
-  __syncthreads();
-  for (int s = 0; s < nt; ++s) {
-    const int t = d.reverse ? nt - 1 - s : s;
-    // z's recurrent half, one gate-column per thread and pass
-    for (int j = threadIdx.x; j < H4; j += kThreads) {
-      float acc[BN];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, q = lane & 3;
+  const int se = lstm_fwd_stage_elems<T>(H);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  uint4* zero16 = reinterpret_cast<uint4*>(smem_raw);  // rows 4..7 of B
+  unsigned short* hop = reinterpret_cast<unsigned short*>(zero16 + 1);
+  unsigned short* cto = hop + 2 * kTileRows * ld;
+  unsigned short* gto = cto + 2 * kTileRows * ld;
+  T* stages = reinterpret_cast<T*>(gto + 2 * kTileRows * ldg);
+  // resident W's staging copy (kRes): W zero-padded to (128, 4 x 128),
+  // rows kFwdWLd elements apart
+  unsigned short* wst = reinterpret_cast<unsigned short*>(stages + 3 * se);
+  const unsigned short* w = reinterpret_cast<const unsigned short*>(d.w);
+  // A of gate tile k: row m is unit m, column j is W's row j
+  auto at_w = [&](int k, int m, int j) -> unsigned short {
+    return m < H && j < H ? w[(size_t)j * 4 * H + k * H + m] : 0;
+  };
+  for (int i = threadIdx.x; i < 2 * kTileRows * ld; i += kMmaThreads)
+    hop[i] = 0;
+  if (threadIdx.x == 0) *zero16 = make_uint4(0, 0, 0, 0);
+  const bool planned = H % 8 == 0;
+  CopyPlan<kRes ? 1 : 4> plan;
+  if (planned) lstm_fwd_plan(plan, d, H, nt, n0, nr, threadIdx.x, kMmaThreads);
+  const uint32_t st0 = sm90::smem_u32(stages);
+  const uint32_t sb = se * (uint32_t)sizeof(T);
+  auto time_of = [&](int s) { return d.reverse ? nt - 1 - s : s; };
+  // sweep step s's zx into stage s % 3 (an empty group past the sweep)
+  auto stage = [&](int s) {
+    if (s >= nt) {
+      sm90::cp_async_commit();
+      return;
+    }
+    const int t = time_of(s);
+    if (planned)
+      plan.issue(st0 + (s % 3) * sb, t, true);
+    else
+      lstm_fwd_stage(stages + (s % 3) * se, d, H, nt, n0, nr, t, threadIdx.x,
+                     kMmaThreads);
+  };
+  stage(0);
+  stage(1);
+
+  // resident W: the warp's 4 gate tiles, from the zero-padded staging copy
+  // by ldmatrix.trans: matrix mi of lane l is W rows 16 ks + 8 (mi / 2) +
+  // l % 8, units 16 warp + 8 (mi % 2) .. + 7 of the gate
+  uint32_t wf[4][kRes ? 8 : 1][4];
+  if constexpr (kRes) {
+    const int cols = 4 * 128 / 8;  // 8-element pieces a staged row
+    for (int i = threadIdx.x; i < 128 * cols; i += kMmaThreads) {
+      const int j = i / cols, c = i - j * cols, k = c >> 4, u = 8 * (c & 15);
+      uint4 v = make_uint4(0, 0, 0, 0);
+      if (j < H && u + 8 <= H && H % 8 == 0) {
+        v = *reinterpret_cast<const uint4*>(w + (size_t)j * 4 * H + k * H +
+                                            u);
+      } else if (j < H) {
+        unsigned short e[8];
 #pragma unroll
-      for (int r = 0; r < BN; ++r) acc[r] = 0.f;
-      const T* wcol = d.w + j;
-#pragma unroll 4
-      for (int k = 0; k < H; ++k)
-        fma_rows<BN>(acc, hop + k * BN, to_f32(wcol[(size_t)k * H4]));
-#pragma unroll
-      for (int r = 0; r < BN; ++r) zs[r * H4 + j] = acc[r];
+        for (int x = 0; x < 8; ++x)
+          e[x] = u + x < H ? w[(size_t)j * 4 * H + k * H + u + x] : 0;
+        v = *reinterpret_cast<const uint4*>(e);
+      }
+      *reinterpret_cast<uint4*>(wst + j * kFwdWLd + 8 * c) = v;
     }
     __syncthreads();
-    // gates, carries and stores over the (row, unit) pairs
-    for (int p = threadIdx.x; p < nr * H; p += kThreads) {
-      const int r = p / H, u = p - r * H;
-      const size_t row = (size_t)(n0 + r) * nt + t;
-      const T* zx = d.zx + row * H4;
-      const float* z = zs + r * H4;
-      const float gi = sigmoid(to_f32(zx[u]) + z[u]);
-      const float gf = sigmoid(to_f32(zx[H + u]) + z[H + u]);
-      const float gg = tanhf(to_f32(zx[2 * H + u]) + z[2 * H + u]);
-      const float go = sigmoid(to_f32(zx[3 * H + u]) + z[3 * H + u]);
-      const float c = gf * cs[r * H + u] + gi * gg;
-      const float h = go * tanhf(c);
-      cs[r * H + u] = c;
-      hop[u * BN + r] = round_to<T>(h);
-      d.ys[row * H + u] = from_f32<T>(h);
+    const uint32_t wa = sm90::smem_u32(
+        wst + ((lane & 7) + 8 * (lane >> 4)) * kFwdWLd + 16 * warp +
+        8 * ((lane >> 3) & 1));
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+#pragma unroll
+      for (int ks = 0; ks < 8; ++ks)
+        sm90::ldmatrix_x4_trans(wf[k][ks],
+                                wa + 2 * (16 * ks * kFwdWLd + 128 * k));
+  }
+  // ys, c and the gates out of their tiles: in 16-byte pieces (piece e of
+  // a gate row is gate e / (H / 8), units 8 (e % (H / 8)) ..) when H % 8
+  // == 0, else by element
+  OutPlan<1> out_ys, out_c;
+  OutPlan<kRes ? 1 : 4> out_g;
+  if (planned) {
+    auto row = [&](int r, int e) { return r * ld + 8 * e; };
+    out_ys.init(d.ys, H, nt, n0, nr, threadIdx.x, kMmaThreads, row);
+    if (SAVE) {
+      out_c.init(d.c, H, nt, n0, nr, threadIdx.x, kMmaThreads, row);
+      out_g.init(d.g, 4 * H, nt, n0, nr, threadIdx.x, kMmaThreads,
+                 [&](int r, int e) {
+                   const int k = e / (H / 8);
+                   return r * ldg + k * hp + 8 * (e - k * (H / 8));
+                 });
+    }
+  }
+  // step s's outputs, at time t: h in h tile (s + 1) % 2, c and the gates
+  // in out tiles s % 2
+  auto copy_out = [&](int s, int t) {
+    const unsigned short* ho = hop + ((s + 1) & 1) * kTileRows * ld;
+    const unsigned short* co = cto + (s & 1) * kTileRows * ld;
+    const unsigned short* go = gto + (s & 1) * kTileRows * ldg;
+    if (planned) {
+      out_ys.copy(ho, t);
       if (SAVE) {
-        d.c[row * H + u] = from_f32<T>(c);
-        T* g = d.g + row * H4;
-        g[u] = from_f32<T>(gi);
-        g[H + u] = from_f32<T>(gf);
-        g[2 * H + u] = from_f32<T>(gg);
-        g[3 * H + u] = from_f32<T>(go);
+        out_c.copy(co, t);
+        out_g.copy(go, t);
+      }
+    } else {
+      lstm_fwd_copy_rows(d, ho, co, go, H, hp, nt, n0, nr, t, SAVE);
+    }
+  };
+
+  // A lane's accumulators hold units u, u + 8 (u = 16 (warp + 8 i) + g)
+  // of rows 2q, 2q + 1; rows 4..7 (q >= 2) are the zero rows of B. So
+  // lanes q >= 2 take over unit u + 8 from lane q - 2 (a shuffle a gate
+  // and row) and every lane runs two real entries: entry e of unit group
+  // i is unit uo(i) = u + 8 (q >> 1) of row 2 (q & 1) + e. An entry
+  // computes from in-range inputs (unit min(uo, H - 1)) and stores
+  // without a branch: in place for a padded unit (< hp) — rows past nr
+  // and units past H only feed product columns and W rows that nothing
+  // reads — and into the tiles' unread rows 4..7 otherwise.
+  auto uo = [&](int i) {
+    return 16 * (warp + kMmaWarps * i) + g + 8 * (q >> 1);
+  };
+  auto dst = [&](int i, int e, int ldt) {
+    const int u = uo(i);
+    return (u < hp ? 2 * (q & 1) + e : 4 + 2 * (q & 1) + e) * ldt +
+           (u < hp ? u : g);
+  };
+  float acc[kMT][4][4], cc[kMT][2];
+  uint32_t xif[kMT][2], xgo[kMT][2];  // staged zx, two bf16 a register
+#pragma unroll (kMT == 1 ? 2 : 1)
+  for (int i = 0; i < kMT; ++i)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) cc[i][e] = 0.f;
+  auto load_in = [&](int s) {
+    const unsigned short* st =
+        reinterpret_cast<const unsigned short*>(stages + (s % 3) * se);
+    auto two = [](unsigned short lo, unsigned short hi) {
+      return (uint32_t)lo | (uint32_t)hi << 16;
+    };
+#pragma unroll (kMT == 1 ? 2 : 1)
+    for (int i = 0; i < kMT; ++i)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const unsigned short* x =
+            st + 4 * (2 * (q & 1) + e) * lr + min(uo(i), H - 1);
+        xif[i][e] = two(x[0], x[lr]);
+        xgo[i][e] = two(x[2 * lr], x[3 * lr]);
+      }
+  };
+  auto lo = [](uint32_t x) { return __uint_as_float(x << 16); };
+  auto hi = [](uint32_t x) { return __uint_as_float(x & 0xffff0000u); };
+  // acc = the h tile o's h . W for this thread's entries, all four gates
+  // (resident: one accumulator chain a gate tile, its 8 k-steps in order)
+  auto product = [&](const unsigned short* o) {
+    if constexpr (kRes) {
+      mma_res<4, 8>(acc[0], wf, b_lane(o, ld, zero16));
+    } else {
+      const unsigned short* pb = g < BN ? o + g * ld + 2 * q : nullptr;
+#pragma unroll 1
+      for (int i = 0; i < kMT; ++i) {
+        const int u0 = 16 * (warp + kMmaWarps * i);
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          float c4[4] = {0.f, 0.f, 0.f, 0.f};
+          if (u0 < hp)
+            mma_stream(c4, hp / 16, pb, [&](uint32_t(&f)[4], int ks) {
+              load_frag(f, u0, 16 * ks,
+                        [&](int m, int j) { return at_w(k, m, j); });
+            });
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc[i][k][j] = c4[j];
+        }
       }
     }
-    __syncthreads();
+  };
+  // sweep step s from acc and the staged zx: the entries' gates, c carry
+  // and h into h tile (s + 1) % 2 and out tiles s % 2
+  auto epilogue = [&](int s) {
+    unsigned short* ho = hop + ((s + 1) & 1) * kTileRows * ld;
+    unsigned short* co = cto + (s & 1) * kTileRows * ld;
+    unsigned short* go = gto + (s & 1) * kTileRows * ldg;
+#pragma unroll (kMT == 1 ? 2 : 1)
+    for (int i = 0; i < kMT; ++i) {
+      float z[4][2];  // this lane's entries' pre-activations, gate k
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float mine = acc[i][k][e], other = acc[i][k][2 + e];
+          const float got =
+              __shfl_xor_sync(0xffffffffu, q < 2 ? other : mine, 2);
+          z[k][e] = q < 2 ? mine : got;
+        }
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float gi = sigmoid_fast(lo(xif[i][e]) + z[0][e]);
+        const float gf = sigmoid_fast(hi(xif[i][e]) + z[1][e]);
+        const float gg = tanhf(lo(xgo[i][e]) + z[2][e]);
+        const float gout = sigmoid_fast(hi(xgo[i][e]) + z[3][e]);
+        const float c = gf * cc[i][e] + gi * gg;
+        cc[i][e] = c;
+        ho[dst(i, e, ld)] = bf16_bits(gout * tanhf(c));
+        if (SAVE) {
+          co[dst(i, e, ld)] = bf16_bits(c);
+          unsigned short* p = go + dst(i, e, ldg);
+          p[0] = bf16_bits(gi);
+          p[hp] = bf16_bits(gf);
+          p[2 * hp] = bf16_bits(gg);
+          p[3 * hp] = bf16_bits(gout);
+        }
+      }
+    }
+  };
+
+  // zx is read after the product, where the registers of its accumulator
+  // chains are free (W takes 128 a thread)
+  sm90::cp_async_wait<1>();
+  __syncthreads();  // step 0's stage and the zeroed h tiles
+  for (int s = 0; s < nt; ++s) {
+    product(hop + (s & 1) * kTileRows * ld);
+    load_in(s);
+    epilogue(s);
+    stage(s + 2);              // zx of step s + 2
+    sm90::cp_async_wait<1>();  // zx of step s + 1
+    __syncthreads();           // step s's h, c and gates in their tiles
+    copy_out(s, time_of(s));
   }
+}
+
+// The fp32 forward splits a tile's units over a cluster of kFwdCluster
+// CTAs; each CTA runs 4 threads a unit (the 4 K parts of its products).
+constexpr int kFwdCluster = 4;
+
+__host__ __device__ __forceinline__ int round4(int x) {
+  return (x + 3) / 4 * 4;
+}
+// units a CTA of the fp32 forward owns, and its threads
+__host__ __device__ __forceinline__ int fwd_units(int h) {
+  return (h + kFwdCluster - 1) / kFwdCluster;
+}
+__host__ __device__ __forceinline__ int fwd_threads(int h) {
+  return (4 * fwd_units(h) + 31) / 32 * 32;
+}
+
+// step t's zx of the CTA's units u0 .. u0 + us - 1 (rows n0 .. n0 + nr -
+// 1) into `st` by plain loads and stores, gate k of unit u0 + v of row r
+// at (4 r + k) lus + v; commits an empty cp.async group. Out of line.
+__device__ __noinline__ void lstm_fwd_slice_stage(float* st,
+                                                  const FwdDir<float>& d,
+                                                  int H, int nt, int n0,
+                                                  int nr, int u0, int us,
+                                                  int t, int tid, int nthr) {
+  const int lus = round4(us);
+  for (int i = tid; i < nr * 4 * us; i += nthr) {
+    const int rk = i / us, v = i - rk * us, r = rk / 4, k = rk - 4 * r;
+    if (u0 + v < H)
+      st[rk * lus + v] =
+          d.zx[((size_t)(n0 + r) * nt + t) * 4 * H + k * H + u0 + v];
+  }
+  sm90::cp_async_commit();
+}
+
+// Forward, fp32: SIMT products, a tile's units split over a cluster of
+// kFwdCluster CTAs. CTA rank r owns units r us .. (r + 1) us - 1 (us =
+// fwd_units(H)) and, when kWS, keeps their columns of W in shared memory
+// (ws (hq, us) as float4s: the 4 gates of a unit at W's row k), else
+// reads them from L2 (H too large for the slice to fit). Quarter-warp p
+// of warp w owns units 8 w .. 8 w + 7 of the slice for K part p: a
+// thread sums the product terms k = 4 i + p of its unit's four gates for
+// the tile's 4 rows (16 fp32 chains), the 4 parts are added by a
+// reduce-scatter over the unit's 4 lanes (a fixed order that depends on H
+// alone, so the bits do not depend on the cluster or where W lives), and
+// part p is left with row p's four pre-activations: the gate math is
+// register-local, the c carry of (row p, unit) in a register. The thread
+// writes h (fp32) into every cluster CTA's next h tile with st.async,
+// which completes 4 bytes on that CTA's mbarrier of the tile; a CTA
+// starts a step once its mbarrier has all 16 H bytes of the last step's
+// h, so the step needs no cluster barrier (a peer cannot refill a tile
+// before this CTA's h of the step that reads it). ys, c and the gates are
+// stored from registers; zx is copied two steps ahead (a per-thread
+// cp.async plan when the slice's runs are 16-byte pieces) and published
+// by the step's CTA barrier. Shared memory: two h tiles (hq, BN),
+// hq = H rounded up to 4 (rows past H zero), three zx stages (BN, 4,
+// round4(us)), then ws; the two mbarriers are static.
+template <bool kWS, bool SAVE>
+__global__ void __launch_bounds__(kThreads, 1)
+    lstm_fwd_simt_kernel(FwdArgs<float> a) {
+  constexpr int BN = kBlockN;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const FwdDir<float> d = blockIdx.y == 1 ? a.d[1] : a.d[0];
+  const int H = a.h, H4 = 4 * a.h, nt = a.t, hq = round4(a.h);
+  const int us = fwd_units(H), lus = round4(us), u0 = rank * us;
+  const int n0 = (blockIdx.x / kFwdCluster) * BN;
+  const int nr = min(BN, a.n - n0);
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  // lane v of quarter-warp p of warp w: unit 8 w + v, K part p (a
+  // quarter-warp's W reads are 8 neighbouring units, one 128-byte row)
+  const int p = (tid >> 3) & 3, uv = (tid & 7) + 8 * (tid >> 5);
+  const int ul = min(uv, us - 1), u = u0 + ul;
+  const bool own = uv < us && u < H;  // stores for (row p, u)
+  const int uw = min(u, H - 1);
+  const int se = BN * 4 * lus;
+  extern __shared__ __align__(16) float smem[];
+  float* hop = smem;
+  float* stages = hop + 2 * hq * BN;
+  float4* ws = reinterpret_cast<float4*>(stages + 3 * se);
+  for (int i = tid; i < 2 * hq * BN; i += nthr) hop[i] = 0.f;
+  // mbar[b]: the h of a step landing in h tile b, 16 H bytes from the
+  // cluster's st.async stores; armed (one arrival and the bytes) before
+  // each use by thread 0
+  __shared__ __align__(8) unsigned long long mbar[2];
+  const uint32_t mb0 = sm90::smem_u32(&mbar[0]);
+  if (tid == 0) {
+    sm90::mbarrier_init(mb0, 1);
+    sm90::mbarrier_init(mb0 + 8, 1);
+    sm90::fence_mbarrier_init();
+    sm90::mbarrier_arrive_expect_tx(mb0, 16 * H);
+    sm90::mbarrier_arrive_expect_tx(mb0 + 8, 16 * H);
+  }
+  if constexpr (kWS) {
+    for (int i = tid; i < hq * us; i += nthr) {
+      const int k = i / us, uu = u0 + i - k * us;
+      float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (k < H && uu < H) {
+        const float* wr = d.w + (size_t)k * H4 + uu;
+        x = make_float4(wr[0], wr[H], wr[2 * H], wr[3 * H]);
+      }
+      ws[i] = x;
+    }
+  }
+  // zx of the slice: in 16-byte pieces when every run is whole pieces
+  // (then us == H / 4 and u0 is a multiple of 4)
+  const bool planned = H % 4 == 0 && us % 4 == 0;
+  CopyPlan<1> plan;
+  if (planned) {
+    const int pr = us / 4;  // pieces a (row, gate) run
+    plan.init(nr * 4 * pr, tid, nthr,
+              [&](int c, const char*& src, int& rb, uint32_t& dst, bool&) {
+                const int rk = c / pr, r = rk / 4, k = rk - 4 * r;
+                src = reinterpret_cast<const char*>(
+                          d.zx + (size_t)(n0 + r) * nt * H4 + k * H + u0) +
+                      16 * (c - rk * pr);
+                rb = H4 * (int)sizeof(float);
+                dst = (uint32_t)(rk * lus) * sizeof(float) +
+                      16 * (c - rk * pr);
+              });
+  }
+  const uint32_t st0 = sm90::smem_u32(stages);
+  const uint32_t sb = se * (uint32_t)sizeof(float);
+  auto time_of = [&](int s) { return d.reverse ? nt - 1 - s : s; };
+  auto stage = [&](int s) {
+    if (s >= nt) {
+      sm90::cp_async_commit();
+      return;
+    }
+    const int t = time_of(s);
+    if (planned)
+      plan.issue(st0 + (s % 3) * sb, t, true);
+    else
+      lstm_fwd_slice_stage(stages + (s % 3) * se, d, H, nt, n0, nr, u0, us,
+                           t, tid, nthr);
+  };
+  stage(0);
+  stage(1);
+  sm90::cp_async_wait<1>();
+  cluster.sync();  // every CTA's h tiles zeroed, ws and step 0's stage in
+
+  float cv = 0.f;
+  for (int s = 0; s < nt; ++s) {
+    const int t = time_of(s);
+    const float* hb = hop + (s & 1) * hq * BN;
+    if (s > 0) {  // h of step s - 1 landed in tile s % 2; re-arm it
+      sm90::mbarrier_wait(mb0 + 8 * (s & 1), ((s - 1) >> 1) & 1);
+      if (tid == 0) sm90::mbarrier_arrive_expect_tx(mb0 + 8 * (s & 1), 16 * H);
+    }
+    float acc[4][BN];
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+#pragma unroll
+      for (int r = 0; r < BN; ++r) acc[k][r] = 0.f;
+#pragma unroll 4
+    for (int k = p; k < hq; k += 4) {
+      const float4 hv = *reinterpret_cast<const float4*>(hb + k * BN);
+      float4 wv;
+      if constexpr (kWS) {
+        wv = ws[k * us + ul];
+      } else {
+        const float* wr = d.w + (size_t)min(k, H - 1) * H4 + uw;
+        const bool live = k < H;
+        wv = make_float4(live ? wr[0] : 0.f, live ? wr[H] : 0.f,
+                         live ? wr[2 * H] : 0.f, live ? wr[3 * H] : 0.f);
+      }
+      const float wk[4] = {wv.x, wv.y, wv.z, wv.w};
+      const float hr[BN] = {hv.x, hv.y, hv.z, hv.w};
+#pragma unroll
+      for (int k4 = 0; k4 < 4; ++k4)
+#pragma unroll
+        for (int r = 0; r < BN; ++r) acc[k4][r] += wk[k4] * hr[r];
+    }
+    // reduce-scatter over the unit's 4 lanes (v, 8 + v, 16 + v, 24 + v):
+    // parts p and p ^ 2 swap the halves of the rows, then p and p ^ 1
+    // the rows of the kept half; part p ends with row p's sums
+    float z[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      float h2[2];
+#pragma unroll
+      for (int x = 0; x < 2; ++x) {
+        const float keep = p & 2 ? acc[k][2 + x] : acc[k][x];
+        const float send = p & 2 ? acc[k][x] : acc[k][2 + x];
+        h2[x] = keep + __shfl_xor_sync(0xffffffffu, send, 16);
+      }
+      const float keep = p & 1 ? h2[1] : h2[0];
+      const float send = p & 1 ? h2[0] : h2[1];
+      z[k] = keep + __shfl_xor_sync(0xffffffffu, send, 8);
+    }
+    const float* x = stages + (s % 3) * se + 4 * p * lus + ul;
+    const float gi = sigmoid(x[0] + z[0]);
+    const float gf = sigmoid(x[lus] + z[1]);
+    const float gg = tanhf(x[2 * lus] + z[2]);
+    const float go = sigmoid(x[3 * lus] + z[3]);
+    cv = gf * cv + gi * gg;
+    const float h = go * tanhf(cv);
+    if (own && s + 1 < nt) {
+      const uint32_t hn =
+          sm90::smem_u32(hop + ((s + 1) & 1) * hq * BN + u * BN + p);
+      const uint32_t bn = mb0 + 8 * ((s + 1) & 1);
+#pragma unroll
+      for (int r = 0; r < kFwdCluster; ++r)
+        sm90::st_async(sm90::mapa(hn, r), h, sm90::mapa(bn, r));
+    }
+    if (own) {
+      if (p < nr) {
+        const size_t row = (size_t)(n0 + p) * nt + t;
+        d.ys[row * H + u] = h;
+        if (SAVE) {
+          d.c[row * H + u] = cv;
+          float* gr = d.g + row * H4 + u;
+          gr[0] = gi;
+          gr[H] = gf;
+          gr[2 * H] = gg;
+          gr[3 * H] = go;
+        }
+      }
+    }
+    stage(s + 2);              // zx of step s + 2, the slice's
+    sm90::cp_async_wait<1>();  // zx of step s + 1, the slice's
+    __syncthreads();           // ... for every thread; stage s % 3 free
+  }
+  cluster.sync();  // no CTA leaves while a peer may still signal it
 }
 
 // Groups the K terms of a SIMT product split over (fixed order).
@@ -867,19 +1367,67 @@ __global__ void __launch_bounds__(kMmaThreads, 1)
   }
 }
 
-size_t fwd_smem(int h) { return (size_t)6 * h * kBlockN * sizeof(float); }
+size_t lstm_fwd_mma_smem(int h) {
+  const int hp = mma_hp(h);
+  const bool resident = h <= 16 * kMmaWarps;
+  return 16 + ((size_t)2 * kTileRows * (2 * (hp + 8) + 4 * hp + 8) +
+               3 * (size_t)lstm_fwd_stage_elems<__nv_bfloat16>(h) +
+               (resident ? (size_t)128 * kFwdWLd : 0)) *
+                  sizeof(__nv_bfloat16);
+}
 
-template <typename T, bool SAVE>
-cudaError_t launch_fwd(const FwdArgs<T>& a, int ndir, cudaStream_t s) {
-  const size_t smem = fwd_smem(a.h);
-  if (smem > (size_t)kMaxSmem) return cudaErrorInvalidValue;
-  const cudaError_t e =
-      cudaFuncSetAttribute(lstm_fwd_kernel<T, SAVE>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)smem);
-  if (e != cudaSuccess) return e;
+// the fp32 forward's shared memory, with (ws) or without W's slice
+size_t lstm_fwd_simt_smem(int h, bool ws) {
+  const int hq = round4(h), us = fwd_units(h);
+  return ((size_t)2 * hq * kBlockN + 3 * (size_t)kBlockN * 4 * round4(us)) *
+             sizeof(float) +
+         (ws ? (size_t)hq * us * sizeof(float4) : 0);
+}
+
+// The forward over ndir directions: bf16 on the tensor cores (W resident
+// in registers when H rounded up to 16 is at most 128, streamed from L2
+// above), fp32 SIMT over a cluster of kFwdCluster CTAs a tile (W's slice
+// in shared memory where it fits).
+template <bool SAVE>
+cudaError_t launch_fwd(const FwdArgs<__nv_bfloat16>& a, int ndir,
+                       cudaStream_t s) {
   const dim3 grid((a.n + kBlockN - 1) / kBlockN, ndir);
-  lstm_fwd_kernel<T, SAVE><<<grid, kThreads, smem, s>>>(a);
+  const size_t smem = lstm_fwd_mma_smem(a.h);
+  cudaError_t e;
+  if (a.h <= 16 * kMmaWarps) {
+    if ((e = set_smem(lstm_fwd_mma_kernel<1, SAVE>, smem)) != cudaSuccess)
+      return e;
+    lstm_fwd_mma_kernel<1, SAVE><<<grid, kMmaThreads, smem, s>>>(a);
+  } else {
+    if ((e = set_smem(lstm_fwd_mma_kernel<4, SAVE>, smem)) != cudaSuccess)
+      return e;
+    lstm_fwd_mma_kernel<4, SAVE><<<grid, kMmaThreads, smem, s>>>(a);
+  }
+  return cudaGetLastError();
+}
+
+template <bool SAVE>
+cudaError_t launch_fwd(const FwdArgs<float>& a, int ndir, cudaStream_t s) {
+  const bool ws = lstm_fwd_simt_smem(a.h, true) <= (size_t)kMaxSmem;
+  const size_t smem = lstm_fwd_simt_smem(a.h, ws);
+  auto kernel =
+      ws ? lstm_fwd_simt_kernel<true, SAVE> : lstm_fwd_simt_kernel<false, SAVE>;
+  cudaError_t e;
+  if ((e = set_smem(kernel, smem)) != cudaSuccess) return e;
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  cfg.gridDim = dim3((unsigned)((a.n + kBlockN - 1) / kBlockN * kFwdCluster),
+                     (unsigned)ndir);
+  cfg.blockDim = dim3((unsigned)fwd_threads(a.h));
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kFwdCluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  if ((e = cudaLaunchKernelEx(&cfg, kernel, a)) != cudaSuccess) return e;
   return cudaGetLastError();
 }
 
@@ -902,8 +1450,7 @@ cudaError_t fwd_typed(const void* const* zx, const void* const* w,
   a.n = n;
   a.t = t;
   a.h = h;
-  return save ? launch_fwd<T, true>(a, ndir, s)
-              : launch_fwd<T, false>(a, ndir, s);
+  return save ? launch_fwd<true>(a, ndir, s) : launch_fwd<false>(a, ndir, s);
 }
 
 // ------------------------------------------------------------------ GRU

@@ -60,6 +60,61 @@ __device__ __forceinline__ void cp_async_wait() {
 // Shared-memory writes of the generic proxy (cp.async, st.shared) made
 // visible to wgmma, which reads through the async proxy. Each writing
 // thread fences before the CTA barrier that publishes its writes.
+// mbarriers in shared memory (addresses as from smem_u32): init with an
+// arrival count (then fence_mbarrier_init and a cluster barrier before a
+// peer signals it), arrive with a number of transaction bytes to expect,
+// and wait until the phase of the given parity has completed (acquire).
+__device__ __forceinline__ void mbarrier_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void fence_mbarrier_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbarrier_arrive_expect_tx(uint32_t bar,
+                                                          uint32_t bytes) {
+  asm volatile(
+      "{\n.reg .b64 st;\n"
+      "mbarrier.arrive.expect_tx.shared::cta.b64 st, [%0], %1;\n}\n" ::"r"(
+          bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbarrier_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred p;\nWAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// The shared::cluster address, in CTA `rank` of the cluster, of this
+// CTA's shared address `addr`.
+__device__ __forceinline__ uint32_t mapa(uint32_t addr, uint32_t rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(out)
+               : "r"(addr), "r"(rank));
+  return out;
+}
+
+// A 4-byte store into a peer CTA's shared memory (shared::cluster
+// addresses, from mapa) that completes 4 transaction bytes on the peer's
+// mbarrier `bar` once the value is there.
+__device__ __forceinline__ void st_async(uint32_t addr, float v,
+                                         uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, "
+      "[%2];\n" ::"r"(addr),
+      "r"(__float_as_uint(v)), "r"(bar)
+      : "memory");
+}
+
 __device__ __forceinline__ void fence_view_async_shared() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }

@@ -8,12 +8,14 @@ Pallas launch: `_lstm_fwd_kernel` / `_lstm_fwd_infer_kernel` and
 `_bilstm_bwd_kernel` for both directions in one launch (K8/K9),
 `_gru_fwd_kernel` / `_gru_fwd_infer_kernel` and `_gru_bwd_kernel` for
 one GRU direction (K10/K11). Here they are the templated kernels of
-`csrc/fused_rnn.cu`: for the LSTM one forward (with or without
-residuals) and one backward, each running one or two directions per
-launch — the reverse direction walks time backwards over true-time
-slots, so nothing is flipped and both outputs come back in true time
-order; for the GRU one forward (with or without residuals) and one
-backward, one direction a launch.
+`csrc/fused_rnn.cu`: for the LSTM one forward call (with or without
+residuals: bf16 on the tensor cores with W in registers, fp32 SIMT over
+a 4-CTA cluster a batch tile with W's columns in shared memory) and one
+backward call, each running one or two directions per launch — the
+reverse direction walks time backwards over true-time slots, so
+nothing is flipped and both outputs come back in true time order; for
+the GRU one forward (with or without residuals) and one backward, one
+direction a launch.
 
 Public functions keep the JAX signatures and the (N, T, .) layouts:
 `lstm_scan(zx, w_hh)`, `bilstm_scan(zx_f, zx_b, w_f, w_b)` and

@@ -7,6 +7,7 @@ time goes. A measuring tool: nothing in the port uses it.
     git show <rev>:bigdl_tpu_torch/ops/csrc/paged_decode.cu > .cmp/old/paged_decode.cu
     python3 -m bigdl_tpu_torch.ops.kernel_study --old .cmp/old \
         --parts k9,k10,layouts,phases              # repository root
+    python3 -m bigdl_tpu_torch.ops.kernel_study --old .cmp/old --parts k8,k8_phases
 
 `--parts` picks what runs (default k9,k10,layouts,phases), each part
 printing one JSON line; old and new always run in turns (old, new, new,
@@ -41,9 +42,33 @@ old; `chip_smoke.cuda_ms`, L2 flushed):
   the GRU trainer's, with `k11_old_split`;
 * `k11_phases`: clock cycles a step in each phase of this tree's bf16
   GRU backward sweep (`clock64` written into a copy of
-  csrc/fused_rnn.cu), warps 0, 3 and 7 of CTA 0.
+  csrc/fused_rnn.cu), warps 0, 3 and 7 of CTA 0;
+* `k8` (old: the LSTM forward of commit d5456b1 or earlier, its first
+  design): old and new K8 at `train_bi` and K6 at `lm_uni`, bf16 and
+  fp32, training and inference variants, the new kernels' profiler
+  times; the unkept layouts of ops/study/lstm_fwd_*.diff
+  (`_fwd_layout_sources`) each in turns with the shipped kernel, and
+  whether they give its bits: in fp32 one CTA a tile with W from L2
+  (`one_cta`) and a cluster barrier a step for the h exchange
+  (`cluster_barrier`), in bf16 2 or 4 of each gate tile's k-steps from
+  shared memory and the four-entry epilogue; cuDNN's fp32
+  `torch.nn.LSTM` at each shape (training and no-grad forward); the
+  forward kernels' ptxas reports, new, unkept layouts and old (the bf16
+  loop reading a step's zx ahead, `inputs_first`, is timed as a layout
+  too);
+* `e2e` (`--old-tree DIR`: a checkout of the earlier commit, e.g. from
+  `git archive`): the BiLSTM trainer's main path, chip_smoke's
+  rnn_trainer phase warmed once and then timed over E2E_STEPS steps
+  (step, predict pass a batch, LSTM LM step) and its profiled step
+  (device work, busy share), one process a run from each checkout, in
+  turns (old, new, new, old), E2E_PAIRS pairs;
+* `k8_phases`: clock cycles a step in each phase of this tree's LSTM
+  forward, training variant, as `phases`: bf16 at `train_bi`
+  (`k8_phases`), fp32 at `lm_uni` (`k8_fp32_phases`, cluster rank 0 of
+  tile 0).
 
-Builds go to <old>/build (.cmp/build without --old).
+Builds go to <old>/build (.cmp/build without --old). Every JSON line
+is also appended to chiprun_out/kernel_study.jsonl.
 """
 
 from __future__ import annotations
@@ -58,6 +83,17 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[2]
 VOID = ctypes.c_void_p
+
+
+def _emit(obj: dict) -> None:
+    """Print one JSON line, and append it to chiprun_out/kernel_study.jsonl
+    (the long lines outgrow a terminal's tail)."""
+    line = json.dumps(obj)
+    print(line, flush=True)
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    with open(out / "kernel_study.jsonl", "a") as f:
+        f.write(line + "\n")
 
 
 def _nvcc(src: Path, out: Path, include: Path = None) -> subprocess.Popen:
@@ -205,6 +241,45 @@ _PHASES = {
           "0.f"),
          ("load inputs", "    if (t + 1 < nt) load_in(t + 1);\n", True,
           "xz[0][0]"))),
+    "k8_phases": (
+        "kernel_study_lstm_fwd_clk",
+        "  sm90::cp_async_wait<1>();\n  __syncthreads();  // step 0's stage "
+        "and the zeroed h tiles\n  for (int s = 0; s < nt; ++s) {\n",
+        "    copy_out(s, time_of(s));\n  }\n}\n", "kMT == 1 && SAVE",
+        (("product", "    product(hop + (s & 1) * kTileRows * ld);\n", True,
+          "acc[0][3][3]"),
+         ("input reads", "    load_in(s);\n", True, "xgo[0][3]"),
+         ("epilogue", "    epilogue(s);\n", True, "cc[0][3]"),
+         ("staging", "    stage(s + 2);              // zx of step s + 2\n",
+          True, "0.f"),
+         ("wait", "    sm90::cp_async_wait<1>();  // zx of step s + 1\n",
+          True, "0.f"),
+         ("barrier", "    __syncthreads();           // step s's h, c and "
+          "gates in their tiles\n", True, "0.f"),
+         ("copy out", "    copy_out(s, time_of(s));\n", True, "0.f"))),
+    "k8_fp32_phases": (
+        "kernel_study_lstm_fwd32_clk",
+        "  float cv = 0.f;\n  for (int s = 0; s < nt; ++s) {\n",
+        "    __syncthreads();           // ... for every thread; stage s % 3 "
+        "free\n  }\n  cluster.sync();  // no CTA leaves while a peer may still"
+        " signal it\n}\n", "kWS && SAVE",
+        (("h wait", "      if (tid == 0) sm90::mbarrier_arrive_expect_tx(mb0 + "
+          "8 * (s & 1), 16 * H);\n    }\n", True, "0.f"),
+         ("product", "    // reduce-scatter over the unit's 4 lanes", False,
+          "acc[3][3]"),
+         ("reduce", "    const float* x = stages + (s % 3) * se + 4 * p * lus"
+          " + ul;\n", False, "z[3]"),
+         ("gate math", "    if (own && s + 1 < nt) {\n", False, "h"),
+         ("h to the cluster", "    if (own) {\n      if (p < nr) {", False,
+          "0.f"),
+         ("stores", "    stage(s + 2);              // zx of step s + 2, the "
+          "slice's\n", False, "0.f"),
+         ("staging", "    stage(s + 2);              // zx of step s + 2, the "
+          "slice's\n", True, "0.f"),
+         ("stage wait", "    sm90::cp_async_wait<1>();  // zx of step s + 1, "
+          "the slice's\n", True, "0.f"),
+         ("barrier", "    __syncthreads();           // ... for every thread; "
+          "stage s % 3 free\n", True, "0.f"))),
 }
 
 
@@ -212,8 +287,8 @@ def _clock_source(src: str) -> str:
     """csrc/fused_rnn.cu with clock64 deltas summed per phase of the
     _PHASES sweeps, on lane 0 of each warp of CTA 0 (the mark waits for
     the phase's result register), readable through an added
-    `kernel_study_read(which, out)` (which: 0 the LSTM sweep, 1 the GRU
-    forward; 8 warps x 16 phases)."""
+    `kernel_study_read(which, out)` (which: the sweep's index in _PHASES;
+    8 warps x 16 phases)."""
     on = ("blockIdx.x == 0 && blockIdx.y == 0 && (threadIdx.x & 31) == 0")
     mark = ("    if (" + on + ") {{ asm volatile(\"\" :: \"f\"("
             "(float)({dep}))); long long c_ = clock64(); clk_[{i}] += c_ -"
@@ -232,13 +307,11 @@ def _clock_source(src: str) -> str:
                                 else line + anchor)
     src = _replace_once(src, "namespace {\n\nconstexpr int kThreads = 512;",
                         head + "namespace {\n\nconstexpr int kThreads = 512;")
-    syms = [v[0] for v in _PHASES.values()]
+    read = "".join(f"  if (which == {i}) return (int)cudaMemcpyFromSymbol("
+                   f"h, {v[0]}, sizeof({v[0]}));\n"
+                   for i, v in enumerate(_PHASES.values()))
     return src + ('\nextern "C" int kernel_study_read(int which, '
-                  'long long* h) {\n'
-                  f"  return which ? (int)cudaMemcpyFromSymbol(h, {syms[1]}, "
-                  f"sizeof({syms[1]}))\n"
-                  f"               : (int)cudaMemcpyFromSymbol(h, {syms[0]}, "
-                  f"sizeof({syms[0]}));\n}}\n")
+                  'long long* h) {\n' + read + "  return -1;\n}\n")
 
 
 def _profile(torch, fn, flush, reps: int, match) -> dict:
@@ -408,8 +481,8 @@ def part_k9(torch, cs, fr, build: Path, flush, stream) -> None:
                 split[key] = {w: [cs.cuda_ms(lambda: call(w), flush,
                                              **reps) * 1e3
                                   for _ in range(3)] for w in bwd}
-    print(json.dumps({"k9": k9}), flush=True)
-    print(json.dumps({"k9_old_split": split}), flush=True)
+    _emit({"k9": k9})
+    _emit({"k9_old_split": split})
 
 
 def part_k10(torch, cs, fr, build: Path, logs, flush, stream) -> None:
@@ -446,7 +519,7 @@ def part_k10(torch, cs, fr, build: Path, logs, flush, stream) -> None:
         "old_sass": _sass_counts(build / "old_lstm_whole.so",
                                  "gru_fwd_kernelIf"),
         "new_sass": _sass_counts(new_so, "gru_fwd_simt_kernelIf")}
-    print(json.dumps({"k10": k10}), flush=True)
+    _emit({"k10": k10})
 
 
 _RES_AFTER = ("  for (int s = 0; s < nt; ++s) {\n"
@@ -513,7 +586,7 @@ def part_layouts(torch, cs, fr, build: Path, logs, flush, stream) -> None:
         for name in order:
             report[name].setdefault("us", []).append(
                 cs.cuda_ms(calls[name], flush, reps=10, warmup=2) * 1e3)
-    print(json.dumps({"layouts": report}), flush=True)
+    _emit({"layouts": report})
 
 
 def part_k1_k11(torch, cs, fr, build: Path, flush, stream) -> None:
@@ -543,7 +616,7 @@ def part_k1_k11(torch, cs, fr, build: Path, flush, stream) -> None:
                     "one_key_device_us": _profile(
                         torch, lambda: pd.paged_decode_attention(
                             *one, impl="cuda"), flush, 10, "paged")}
-    print(json.dumps({"k1": k1}), flush=True)
+    _emit({"k1": k1})
 
     bwd = {}
     for name in variants:
@@ -578,8 +651,8 @@ def part_k1_k11(torch, cs, fr, build: Path, flush, stream) -> None:
                                       "_kernel")}
         split[name] = {w: [cs.cuda_ms(lambda: old_call(w), flush, **reps)
                            * 1e3 for _ in range(3)] for w in variants}
-    print(json.dumps({"k11": k11}), flush=True)
-    print(json.dumps({"k11_old_split": split}), flush=True)
+    _emit({"k11": k11})
+    _emit({"k11_old_split": split})
 
 
 def part_k11_phases(torch, cs, fr, build: Path, stream) -> None:
@@ -604,21 +677,37 @@ def part_k11_phases(torch, cs, fr, build: Path, stream) -> None:
         raise RuntimeError("could not read the phase clocks")
     names = ("barrier 1", "product 1", "second phase", "staging",
              "wait", "barrier 2", "product 2", "first phase")
-    print(json.dumps({"k11_phases": {
+    _emit({"k11_phases": {
         f"warp {w}": {n: clocks[8 * w + i] / 128 for i, n in
-                      enumerate(names)} for w in (0, 3, 7)}}), flush=True)
+                      enumerate(names)} for w in (0, 3, 7)}})
 
 
-def part_phases(torch, cs, fr, build: Path, stream) -> None:
+def part_phases(torch, cs, fr, build: Path, stream,
+                keys=("k9_phases", "k10_phases")) -> None:
+    """The `clock64` phases of the _PHASES sweeps named by `keys`, after
+    three runs of each instrumented kernel at its trainer's shape."""
     lib = ctypes.CDLL(str(build / "clocks.so"))
+    lib.bigdl_lstm_fwd.argtypes = [VOID] * 10 + [ctypes.c_int] * 8 + [VOID]
     lib.bigdl_lstm_bwd.argtypes = [VOID] * 14 + [ctypes.c_int] * 9 + [VOID]
     lib.bigdl_gru_fwd.argtypes = [VOID] * 7 + [ctypes.c_int] * 5 + [VOID]
     zxs, ws, dys, revs = cs._rnn_inputs(128, 128, 128, 2, torch.bfloat16, 1)
     res = fr.lstm_fwd_cuda(zxs, ws, revs, True)
+    fwd_out = [tuple(torch.empty_like(x) for x in r) for r in res]
     dzx = [torch.empty_like(r[2]) for r in res]
     dws = [torch.empty(128, 512, device="cuda") for _ in range(2)]
     zg, zc, wg, wc, _ = cs._gru_inputs(128, 128, 128, torch.bfloat16, 1)
     ys, zr, cand = (torch.empty_like(x) for x in (zc, zg, zc))
+    f32 = cs._rnn_inputs(32, 64, 128, 1, torch.float32, 1)
+    f32_out = [torch.empty(32, 64, 128, device="cuda"),
+               torch.empty(32, 64, 128, device="cuda"),
+               torch.empty(32, 64, 512, device="cuda")]
+    for _ in range(3):
+        err = lib.bigdl_lstm_fwd(
+            *_ptrs(f32[0]), *_ptrs(f32[1]), *_ptrs(f32_out[:1]),
+            *_ptrs(f32_out[1:2]), *_ptrs(f32_out[2:]), 0, 0, 1, 32, 64, 128,
+            1, 0, stream)
+        if err:
+            raise RuntimeError(f"instrumented fp32 forward: cudaError {err}")
     for _ in range(3):
         err = lib.bigdl_lstm_bwd(
             *_ptrs(ws), *_ptrs([r[0] for r in res]),
@@ -629,20 +718,198 @@ def part_phases(torch, cs, fr, build: Path, stream) -> None:
             zg.data_ptr(), zc.data_ptr(), wg.data_ptr(), wc.data_ptr(),
             ys.data_ptr(), zr.data_ptr(), cand.data_ptr(), 128, 128, 128, 1,
             1, stream)
+        err = err or lib.bigdl_lstm_fwd(
+            *_ptrs(zxs), *_ptrs(ws), *_ptrs([o[0] for o in fwd_out]),
+            *_ptrs([o[1] for o in fwd_out]), *_ptrs([o[2] for o in fwd_out]),
+            0, 1, 2, 128, 128, 128, 1, 1, stream)
         if err:
             raise RuntimeError(f"instrumented kernels: cudaError {err}")
     torch.cuda.synchronize()
     for which, (key, spec) in enumerate(_PHASES.items()):
+        if key not in keys:
+            continue
         clocks = (ctypes.c_longlong * 128)()
         if lib.kernel_study_read(which, clocks):
             raise RuntimeError("could not read the phase clocks")
         names = [m[0] for m in spec[4]]
-        print(json.dumps({key: {
-            f"warp {w}": {n: clocks[16 * w + i] / 128 for i, n in
-                          enumerate(names)} for w in (0, 3, 7)}}), flush=True)
+        steps = 64 if key == "k8_fp32_phases" else 128
+        _emit({key: {
+            f"warp {w}": {n: clocks[16 * w + i] / steps for i, n in
+                          enumerate(names)} for w in (0, 3, 7)
+            if any(clocks[16 * w:16 * w + 16])}})
 
 
-PARTS = ("k9", "k10", "layouts", "phases", "k1_k11", "k11_phases")
+# the bf16 forward's loop with a step's zx read after its product
+# (shipped), and read ahead, right after the previous step's copy-out
+_IN_AFTER = ("  for (int s = 0; s < nt; ++s) {\n"
+             "    product(hop + (s & 1) * kTileRows * ld);\n"
+             "    load_in(s);\n",
+             "    copy_out(s, time_of(s));\n  }\n}\n")
+_IN_FIRST = ("  load_in(0);\n  for (int s = 0; s < nt; ++s) {\n"
+             "    product(hop + (s & 1) * kTileRows * ld);\n",
+             "    copy_out(s, time_of(s));\n    if (s + 1 < nt) "
+             "load_in(s + 1);\n  }\n}\n")
+
+
+def _fwd_layout_sources(src: str) -> dict:
+    """This tree's LSTM forward with the layouts that were measured and
+    not kept, from the patches in ops/study/: in fp32, one CTA a tile
+    with W's columns read from L2 every step (`one_cta`), and h exchanged
+    by plain stores and a cluster barrier a step (`cluster_barrier`); in
+    bf16, 2 or 4 of each gate tile's 8 k-steps read from shared memory
+    (`shared_ksteps_2`, `shared_ksteps_4`), every lane running its four
+    accumulator entries, those of B's zero rows included
+    (`four_entries`), and a step's zx read ahead (`inputs_first`, from
+    _IN_FIRST)."""
+    study = Path(__file__).parent / "study"
+
+    def patch(name):
+        return _apply_diff(src, (study / f"lstm_fwd_{name}.diff").read_text())
+
+    out = {k: patch(k) for k in ("one_cta", "cluster_barrier",
+                                 "four_entries")}
+    out["inputs_first"] = _replace_once(
+        _replace_once(src, _IN_AFTER[0], _IN_FIRST[0]), _IN_AFTER[1],
+        _IN_FIRST[1])
+    shared = patch("shared_ksteps")
+    for k in (2, 4):
+        out[f"shared_ksteps_{k}"] = _replace_once(
+            shared, "constexpr int kFwdSharedKSteps = 2;",
+            f"constexpr int kFwdSharedKSteps = {k};")
+    return out
+
+
+# the unkept forward layouts part_k8 times beside the shipped one, and
+# the dtype whose kernel each changes
+_FWD_LAYOUTS = {"one_cta": "fp32", "cluster_barrier": "fp32",
+                "shared_ksteps_2": "bf16", "shared_ksteps_4": "bf16",
+                "four_entries": "bf16", "inputs_first": "bf16"}
+
+
+def part_k8(torch, cs, fr, build: Path, logs, flush, stream) -> None:
+    from bigdl_tpu_torch.ops import _build
+
+    fns = {}
+    for name in ("old_rnn_fwd", *(f"layout_fwd_{k}" for k in _FWD_LAYOUTS)):
+        fn = ctypes.CDLL(str(build / f"{name}.so")).bigdl_lstm_fwd
+        fn.argtypes = [VOID] * 10 + [ctypes.c_int] * 8 + [VOID]
+        fns[name] = fn
+    k8 = {}
+    reps = dict(reps=10, warmup=2)
+    for case, n, t, h, ndir in (("train_bi", 128, 128, 128, 2),
+                                ("lm_uni", 32, 64, 128, 1)):
+        for name, dtype in (("bf16", torch.bfloat16),
+                            ("fp32", torch.float32)):
+            zxs, ws, _, revs = cs._rnn_inputs(n, t, h, ndir, dtype, 1)
+            out = [(z.new_empty(n, t, h), z.new_empty(n, t, h),
+                    torch.empty_like(z)) for z in zxs]
+            rv = [int(r) for r in revs] + [0] * (2 - ndir)
+
+            def raw(fn, save):
+                def call():
+                    err = fn(*_ptrs(zxs), *_ptrs(ws),
+                             *(p for i in range(3)
+                               for p in _ptrs([o[i] for o in out])),
+                             *rv, ndir, n, t, h, int(save),
+                             int(dtype == torch.bfloat16), stream)
+                    if err:
+                        raise RuntimeError(f"LSTM forward: cudaError {err}")
+                return call
+
+            for save in (True, False):
+                new = (lambda save=save:
+                       fr.lstm_fwd_cuda(zxs, ws, revs, save))
+                calls = {"old": raw(fns["old_rnn_fwd"], save), "new": new}
+                r = {"us": _turns(cs, calls, flush, **reps),
+                     "new_device_us": _profile(torch, new, flush, 10,
+                                               "lstm_fwd")}
+                # the unkept layouts, each in turns with the shipped one
+                for lay_name in (k for k, v in _FWD_LAYOUTS.items()
+                                 if v == name):
+                    other = raw(fns[f"layout_fwd_{lay_name}"], save)
+                    lay = _turns(cs, {"old": other, "new": new}, flush,
+                                 **reps)
+                    got = new()
+                    other()
+                    torch.cuda.synchronize()
+                    r[lay_name] = {
+                        "us": lay["old"], "shipped_us": lay["new"],
+                        "same_bits": all(
+                            torch.equal(a, b) for g, o in zip(got, out)
+                            for a, b in zip(g, o) if a is not None)}
+                k8[f"{case}/{name}/{'train' if save else 'infer'}"] = r
+        # the yardstick: cuDNN's fp32 LSTM (input projection included)
+        lstm = torch.nn.LSTM(h, h, batch_first=True,
+                             bidirectional=ndir == 2).cuda()
+        x = torch.randn(n, t, h, device="cuda", requires_grad=True)
+
+        def infer():
+            with torch.no_grad():
+                lstm(x)
+
+        k8[f"{case}/cudnn_fp32"] = {
+            "train_us": [cs.cuda_ms(lambda: lstm(x), flush, **reps) * 1e3
+                         for _ in range(2)],
+            "infer_us": [cs.cuda_ms(infer, flush, **reps) * 1e3
+                         for _ in range(2)]}
+    k8["ptxas"] = {
+        "new": _ptxas_lines(_build.BUILD_LOG["fused_rnn"], "lstm_fwd_"),
+        **{k: _ptxas_lines(logs[f"layout_fwd_{k}"], "lstm_fwd_")
+           for k in _FWD_LAYOUTS},
+        "old": _ptxas_lines(logs["old_rnn_fwd"], "lstm_fwd_kernel")}
+    _emit({"k8": k8})
+
+
+# one run of the BiLSTM trainer's main path from the checkout in argv[1]:
+# chip_smoke's rnn_trainer phase warmed once and then measured over
+# E2E_STEPS steps, and its profiled step
+_E2E_RUN = """
+import json, os, sys
+tree = os.path.abspath(sys.argv[1])
+os.chdir(tree)
+sys.path.insert(0, tree)
+import torch
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+import chip_smoke as cs
+cs.TRAIN_STEPS = int(sys.argv[2])
+cs.phase_rnn_trainer()
+cs.phase_rnn_trainer()
+t = cs.RESULTS["rnn_trainer"]
+cs.phase_rnn_profile()
+p = cs.RESULTS.get("rnn_profile", {})
+print("E2E " + json.dumps({
+    "step_ms": t["step_ms"], "lm_step_ms": t["lm"]["step_ms"],
+    "infer_ms_per_batch": t["infer"]["seconds"] / t["infer"]["batches"] * 1e3,
+    "device_ms": p.get("device_ms_per_step"),
+    "busy": p.get("device_busy_share")}))
+"""
+E2E_STEPS, E2E_PAIRS = 20, 4
+
+
+def part_e2e(old_tree: Path) -> None:
+    """The BiLSTM trainer's main path (step, predict pass, LSTM LM step,
+    profiled device work) from the checkout at `old_tree` and from this
+    one, one process a run, in turns (old, new, new, old) E2E_PAIRS
+    times."""
+    runs = {"old": [], "new": []}
+    for _ in range(E2E_PAIRS // 2):
+        for who in ("old", "new", "new", "old"):
+            tree = old_tree if who == "old" else ROOT
+            out = subprocess.run(
+                [sys.executable, "-c", _E2E_RUN, str(tree), str(E2E_STEPS)],
+                capture_output=True, text=True, timeout=900)
+            line = [ln for ln in out.stdout.splitlines()
+                    if ln.startswith("E2E ")]
+            if out.returncode or not line:
+                raise RuntimeError(f"e2e run in {tree} failed:\n"
+                                   f"{out.stdout[-2000:]}{out.stderr[-2000:]}")
+            runs[who].append(json.loads(line[0][4:]))
+    _emit({"e2e": {"steps": E2E_STEPS, "order": "old new new old", **runs}})
+
+
+PARTS = ("k9", "k10", "layouts", "phases", "k1_k11", "k11_phases", "k8",
+         "k8_phases", "e2e")
 
 
 def main(argv=None) -> int:
@@ -652,13 +919,17 @@ def main(argv=None) -> int:
                          "paged_decode.cu for k1_k11)")
     ap.add_argument("--parts", default="k9,k10,layouts,phases",
                     help=f"comma-separated, of {','.join(PARTS)}")
+    ap.add_argument("--old-tree", type=Path,
+                    help="a checkout of the earlier commit, for e2e")
     args = ap.parse_args(argv)
     parts = args.parts.split(",")
     for p in parts:
         if p not in PARTS:
             ap.error(f"unknown part {p!r}")
-    if args.old is None and set(parts) & {"k9", "k10", "k1_k11"}:
-        ap.error("--old is needed for k9, k10 and k1_k11")
+    if args.old is None and set(parts) & {"k9", "k10", "k1_k11", "k8"}:
+        ap.error("--old is needed for k9, k10, k1_k11 and k8")
+    if args.old_tree is None and "e2e" in parts:
+        ap.error("--old-tree is needed for e2e")
     sys.path.insert(0, str(ROOT))
     import torch
 
@@ -697,7 +968,18 @@ def main(argv=None) -> int:
             procs[f"old_rnn_{name}"] = _nvcc(build / f"old_rnn_{name}.cu",
                                              build / f"old_rnn_{name}.so",
                                              include=_build.CSRC)
-    if "phases" in parts:
+    if "k8" in parts:
+        (build / "old_rnn_fwd.cu").write_text(
+            (old / "fused_rnn.cu").read_text())
+        procs["old_rnn_fwd"] = _nvcc(build / "old_rnn_fwd.cu",
+                                     build / "old_rnn_fwd.so",
+                                     include=_build.CSRC)
+        for name, text in _fwd_layout_sources(rnn).items():
+            (build / f"layout_fwd_{name}.cu").write_text(text)
+            procs[f"layout_fwd_{name}"] = _nvcc(
+                build / f"layout_fwd_{name}.cu",
+                build / f"layout_fwd_{name}.so", include=_build.CSRC)
+    if {"phases", "k8_phases"} & set(parts):
         (build / "clocks.cu").write_text(_clock_source(rnn))
         procs["clocks"] = _nvcc(build / "clocks.cu", build / "clocks.so",
                                 include=_build.CSRC)
@@ -707,8 +989,8 @@ def main(argv=None) -> int:
                                 include=_build.CSRC)
     _build.build(["paged_decode", "fused_rnn"])
     logs = _wait(procs)
-    print(json.dumps({"device": torch.cuda.get_device_name(0),
-                      "nvidia_smi": cs.nvidia_smi()}), flush=True)
+    _emit({"device": torch.cuda.get_device_name(0),
+           "nvidia_smi": cs.nvidia_smi()})
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32,
                         device="cuda")
     stream = torch.cuda.current_stream().cuda_stream
@@ -721,6 +1003,13 @@ def main(argv=None) -> int:
             part_layouts(torch, cs, fr, build, logs, flush, stream)
         elif p == "phases":
             part_phases(torch, cs, fr, build, stream)
+        elif p == "k8":
+            part_k8(torch, cs, fr, build, logs, flush, stream)
+        elif p == "k8_phases":
+            part_phases(torch, cs, fr, build, stream,
+                        keys=("k8_phases", "k8_fp32_phases"))
+        elif p == "e2e":
+            part_e2e(args.old_tree.resolve())
         elif p == "k1_k11":
             part_k1_k11(torch, cs, fr, build, flush, stream)
         else:

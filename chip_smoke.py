@@ -242,8 +242,9 @@ TRAIN_GRAD_FLOOR = 1e-3
 # direction of it; "lm_uni" the LSTM LM trainer's shape (LM_BATCH x
 # LM_SEQ, one direction: where the main path launches K6/K7); then a
 # ragged batch (37 rows, not a tile multiple), T = 1 (init and emit in
-# one step), the hidden-size cap H = 512, and H = 200 (not a multiple of
-# 128). fp32 and bf16 each.
+# one step), the hidden-size cap H = 512, H = 200 (not a multiple of
+# 128) and H = 100 (not a multiple of 8: the kernels' by-element copies).
+# fp32 and bf16 each.
 RNN_CASES = (
     ("train_bi", 128, 128, 128, 2),
     ("train_uni", 128, 128, 128, 1),
@@ -252,6 +253,7 @@ RNN_CASES = (
     ("t1", 16, 1, 64, 2),
     ("h512", 32, 16, 512, 2),
     ("h200", 24, 20, 200, 1),
+    ("h100", 24, 20, 100, 2),
 )
 RNN_TIMED = ("train_bi", "train_uni", "lm_uni")
 # kernel vs plain in fp32: forward max abs (ys, c, gates), gradients max
@@ -318,6 +320,19 @@ LSTM_BWD_DESIGN = ("sweep: bf16 step product dh^T = W . dz^T on mma.sync "
                    "pairs of each direction after the sweep (rnn_dw_kernel, "
                    "shared with K11), split over a cluster, reduced in rank "
                    "order through distributed shared memory; no atomics")
+LSTM_FWD_DESIGN = ("bf16: step product z^T = W^T . h^T on mma.sync m16n8k16 "
+                   "(M = 4H gate columns, a warp's 4 M tiles the 4 gates of "
+                   "its 16 units, N = 4 rows + 4 zero rows, W in registers "
+                   "at H <= 128 from a shared-memory copy by "
+                   "ldmatrix.trans, streamed from L2 above), the gate math "
+                   "as its epilogue with the c carry in registers (the zero "
+                   "rows' lanes take over half the entries), h double-"
+                   "buffered (one barrier a step), zx prefetched two steps "
+                   "ahead with cp.async, ys/c/gates out in 16-byte pieces; "
+                   "fp32: SIMT over a 4-CTA cluster a tile (units split, "
+                   "each CTA's columns of W in shared memory), K in 4 parts "
+                   "summed across lanes in a fixed order, h sent to every "
+                   "CTA by st.async and awaited on an mbarrier")
 GRU_FWD_DESIGN = ("bf16: both step products on mma.sync m16n8k16 with W_g "
                   "and W_c in registers at H <= 128 (streamed from L2 "
                   "above), W_g's columns ordered so a lane holds z and r of "
@@ -329,7 +344,10 @@ GRU_FWD_DESIGN = ("bf16: both step products on mma.sync m16n8k16 with W_g "
 # kernels the build phase must find in the fused_rnn report (none may
 # spill), and those of them that must have tensor-core instructions
 RNN_BUILT_KERNELS = (
-    "lstm_fwd_kernel<float,true>", "lstm_fwd_kernel<bf16,true>",
+    "lstm_fwd_mma_kernel<1,true>", "lstm_fwd_mma_kernel<1,false>",
+    "lstm_fwd_mma_kernel<4,true>", "lstm_fwd_mma_kernel<4,false>",
+    "lstm_fwd_simt_kernel<true,true>", "lstm_fwd_simt_kernel<true,false>",
+    "lstm_fwd_simt_kernel<false,true>", "lstm_fwd_simt_kernel<false,false>",
     "lstm_bwd_mma_kernel<1>", "lstm_bwd_mma_kernel<4>",
     "lstm_bwd_simt_kernel<float>",
     "gru_fwd_mma_kernel<1,true>", "gru_fwd_mma_kernel<1,false>",
@@ -338,7 +356,8 @@ RNN_BUILT_KERNELS = (
     "gru_bwd_mma_kernel<1>", "gru_bwd_mma_kernel<4>",
     "gru_bwd_simt_kernel<float>", "rnn_dw_kernel<bf16>",
     "rnn_dw_kernel<float>")
-RNN_TENSOR_CORE_KERNELS = ("lstm_bwd_mma_kernel", "gru_fwd_mma_kernel",
+RNN_TENSOR_CORE_KERNELS = ("lstm_fwd_mma_kernel", "lstm_bwd_mma_kernel",
+                           "gru_fwd_mma_kernel",
                            "gru_bwd_mma_kernel", "rnn_dw_kernel<bf16")
 # The GRU's bf16 outputs are also held to the free-running plain
 # versions, which carry their own state: there a one-ulp difference in a
@@ -1520,8 +1539,9 @@ def _rnn_times(fr, flush, zxs, ws, dys, revs, res):
     }
     n, t, h4 = zxs[0].shape
     h = h4 // 4
-    lib = None
-    for dtype in (zxs[0].dtype, torch.float32):
+    lib = {}
+    for dtype in dict.fromkeys((zxs[0].dtype, torch.float32)):
+        name = str(dtype).replace("torch.", "")
         try:        # yardstick only, never called by the port
             lstm = torch.nn.LSTM(h, h, batch_first=True,
                                  bidirectional=len(zxs) == 2).cuda().to(
@@ -1535,23 +1555,64 @@ def _rnn_times(fr, flush, zxs, ws, dys, revs, res):
             torch.autograd.grad(y, params, dy, retain_graph=True)
             torch.cuda.synchronize()
         except RuntimeError as err:   # cuDNN without this dtype
-            times.setdefault("cudnn_refused", []).append(
-                f"{dtype}: {str(err)[:120]}")
+            lib[name] = {"refused": str(err)[:120]}
             continue
 
         def fwd_bwd():
             yy, _ = lstm(x)
             torch.autograd.grad(yy, params, dy)
 
-        lib = {"cudnn_dtype": str(dtype).replace("torch.", ""),
-               "cudnn_fwd_ms": cuda_ms(lambda: lstm(x), flush, **reps),
-               "cudnn_bwd_ms": cuda_ms(lambda: torch.autograd.grad(
-                   y, params, dy, retain_graph=True), flush, **reps),
-               "cudnn_fwd_bwd_ms": cuda_ms(fwd_bwd, flush, **reps)}
-        break
-    times.update(lib or {"cudnn_fwd_ms": None, "cudnn_bwd_ms": None,
-                         "cudnn_fwd_bwd_ms": None})
+        lib[name] = {"fwd_ms": cuda_ms(lambda: lstm(x), flush, **reps),
+                     "bwd_ms": cuda_ms(lambda: torch.autograd.grad(
+                         y, params, dy, retain_graph=True), flush, **reps),
+                     "fwd_bwd_ms": cuda_ms(fwd_bwd, flush, **reps),
+                     "kernels": _device_kernels(fwd_bwd)}
+        lib[name]["runs"] = _lstm_library_label(lib[name]["kernels"])
+    same = lib.get(str(zxs[0].dtype).replace("torch.", ""), {})
+    times.update({f"cudnn_{k}_ms": same.get(f"{k}_ms")
+                  for k in ("fwd", "bwd", "fwd_bwd")})
+    times["library"] = lib
     return times
+
+
+def _device_kernels(fn) -> list:
+    """The CUDA kernels one call of `fn` launches, from a torch.profiler
+    pass (a second one if the first saw none, as a process that profiled
+    before sometimes does): name (cut to 90 characters), launches, device
+    us; the largest first."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    rows = []
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        rows = sorted(((e.self_device_time_total, e.count, e.key)
+                       for e in prof.key_averages()
+                       if e.device_type == DeviceType.CUDA
+                       and e.self_device_time_total > 0), reverse=True)
+        if rows:
+            break
+    return [{"name": k[:90], "calls": c, "us": us} for us, c, k in rows]
+
+
+def _lstm_library_label(kernels) -> str:
+    """What torch.nn.LSTM ran, from its kernels' names: cuDNN's
+    persistent RNN kernel, cuDNN's per-step path (a gemm and an
+    element-wise cell kernel each step), or ATen's fallback (a gemm and
+    the fused LSTM cell kernel each step)."""
+    names = " ".join(k["name"] for k in kernels)
+    if not names:
+        return "not measured: the profiler saw no kernel"
+    if "lstm_cell" in names:
+        return "ATen per-step fallback (gemm + lstm_cell kernels each step)"
+    if "RNN_blockPersist" in names:
+        return "cuDNN persistent RNN kernels"
+    if "elemWiseRNNcell" in names or "LSTM_elementWise" in names:
+        return "cuDNN per-step path (gemm + element-wise cell each step)"
+    return "not recognised: see the kernel names"
 
 
 def _rnn_model(key, impl):
@@ -1797,6 +1858,7 @@ def phase_rnn_trainer():
          tokens_per_sec=TRAIN_STEPS * RNN_BATCH * RNN_SEQ / dt,
          peak_mem_gib=peak, launches=launches, losses=losses,
          infer={"batches": RNN_INFER_BATCHES, "seconds": t_inf,
+                "ms_per_batch": t_inf / RNN_INFER_BATCHES * 1e3,
                 "launches": infer[0], "accuracy": accuracy},
          lm={"steps": LM_STEPS, "batch": LM_BATCH, "seq": LM_SEQ,
              "layers": LM_LAYERS, "step_ms": lm_dt / LM_STEPS * 1e3,
@@ -2534,7 +2596,7 @@ def main() -> int:
         kernels.append({
             "name": ("bilstm_" if case == "train_bi" else "lstm_") + kind,
             "route": "cuda", "source": src,
-            **({"design": LSTM_BWD_DESIGN} if kind == "bwd" else {}),
+            "design": LSTM_BWD_DESIGN if kind == "bwd" else LSTM_FWD_DESIGN,
             "replaces": {"K6": "bigdl_tpu/ops/fused_rnn.py:189 :200",
                          "K7": "bigdl_tpu/ops/fused_rnn.py:211",
                          "K8": "bigdl_tpu/ops/fused_rnn.py:375 :392",
@@ -2544,6 +2606,8 @@ def main() -> int:
             "ms": r[f"{kind}_ms"], "plain_ms": r[f"plain_{kind}_ms"],
             "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
             "library_ms": r[f"cudnn_{kind}_ms"],
+            "library": "torch.nn.LSTM, bf16: " + r["library"].get(
+                "bfloat16", {}).get("runs", "refused"),
         })
     # the GRU rows (K10/K11) at the BiGRU trainer's shape (N = T = H =
     # 128, one direction a launch) in bf16; K10's launches count the

@@ -330,3 +330,39 @@ def test_dw_split_plan_depends_on_the_shape_alone():
     assert trnn.dw_split_plan(32 * 64, 16) == (16, 128)      # lm_uni
     assert trnn.dw_split_plan(128 * 128, 8) == (8, 2048)
     assert trnn.dw_split_plan(20, 16) == (1, 64)
+
+
+def test_kernel_study_sources_apply_to_the_shipped_kernels():
+    """The measuring tool's copies of csrc/fused_rnn.cu (the unkept
+    layouts from ops/study/, the clock64 phases) are built from the
+    shipped source by anchors each found once: they still apply, and each
+    unkept forward layout changes only the kernel it names."""
+    from pathlib import Path
+
+    from bigdl_tpu_torch.ops import kernel_study as ks
+
+    src = (Path(trnn.__file__).parent / "csrc" / "fused_rnn.cu").read_text()
+    assert set(ks._layout_sources(src)) == {
+        "two_parts", "shared_4", "shared_8", "shared_16", "residuals_first"}
+    clocks = ks._clock_source(src)
+    for sym, *_ in ks._PHASES.values():
+        assert f"__device__ long long {sym}[128];" in clocks
+    layouts = ks._fwd_layout_sources(src)
+    assert set(layouts) == set(ks._FWD_LAYOUTS)
+    one = layouts["one_cta"]
+    diff = [(a, b) for a, b in zip(src.splitlines(), one.splitlines())
+            if a != b]
+    assert diff == [("constexpr int kFwdCluster = 4;",
+                     "constexpr int kFwdCluster = 1;")]
+    # each changes its own kernel's part of the source: the bf16 forward
+    # section, or the fp32 forward's from its cluster constant on
+    bf16 = src.index("-- LSTM forward")
+    fp32 = src.index("constexpr int kFwdCluster")
+    end = src.index("-- LSTM backward")
+    for name, dtype in ks._FWD_LAYOUTS.items():
+        text = layouts[name]
+        first = next(i for i, (a, b) in enumerate(zip(src, text)) if a != b)
+        last = len(src) - next(i for i, (a, b) in enumerate(
+            zip(src[::-1], text[::-1])) if a != b)
+        lo, hi = (fp32, end) if dtype == "fp32" else (bf16, fp32)
+        assert lo <= first and last <= hi, name
