@@ -1,5 +1,7 @@
 """Models of the port (counterpart: bigdl_tpu/models/):
 `transformer` (the Transformer-LM), `rnn` (`simple_rnn`, `lstm_lm`,
-`bilstm_sentiment`) and `convert` (parameter trees across packages and
-devices). Import them as submodules; this package imports none of
-them, since `nn` itself uses `convert`."""
+`bilstm_sentiment`), `lenet` (LeNet-5), `resnet` (the CIFAR and
+ImageNet ResNets), `perf` (the synthetic-data throughput harness) and
+`convert` (parameter trees across packages and devices). Import them
+as submodules; this package imports none of them, since `nn` itself
+uses `convert`."""

@@ -90,3 +90,16 @@ def params_from_jax(tree: Dict[str, Any],
                                       for layer in blocks])
                          for k in blocks[0]}
     return tree_map(lambda a: _to_tensor(a, dev), out)
+
+
+def variables_from_jax(variables: Dict[str, Any],
+                       device: DeviceLike = None) -> Dict[str, Any]:
+    """The port's whole variable tree `{"params": ..., "state": ...}`
+    from the JAX package's `variables` as host arrays (e.g.
+    `jax.device_get(model.init(key))`), on `device` (None → the GPU):
+    the params as `params_from_jax` carries them, and the state — batch
+    norm's running statistics — leaf for leaf beside them."""
+    dev = resolve_device(device)
+    return {"params": params_from_jax(variables["params"], dev),
+            "state": tree_map(lambda a: _to_tensor(a, dev),
+                              variables.get("state", {}))}

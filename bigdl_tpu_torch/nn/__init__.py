@@ -7,7 +7,14 @@ from bigdl_tpu_torch.nn.activation import (Abs, Clamp, ELU, Exp, GELU,
                                            ReLU, ReLU6, Sigmoid, SoftMax,
                                            SoftPlus, SoftSign, Sqrt, Square,
                                            Swish, Tanh)
-from bigdl_tpu_torch.nn.container import Container, Sequential
+from bigdl_tpu_torch.nn.container import (Bottle, Concat, ConcatTable,
+                                         Container, MapTable, ParallelTable,
+                                         Sequential)
+from bigdl_tpu_torch.nn.conv import (SpatialConvolution,
+                                    SpatialDilatedConvolution,
+                                    SpatialFullConvolution,
+                                    SpatialShareConvolution,
+                                    TemporalConvolution)
 from bigdl_tpu_torch.nn.criterion import (ChunkedSoftmaxCE,
                                           ClassNLLCriterion,
                                           CrossEntropyCriterion,
@@ -19,9 +26,23 @@ from bigdl_tpu_torch.nn.initialization import (ConstInitMethod,
                                                RandomNormal, RandomUniform,
                                                Xavier, Zeros)
 from bigdl_tpu_torch.nn.linear import Linear
-from bigdl_tpu_torch.nn.normalization import layer_norm
+from bigdl_tpu_torch.nn.normalization import (BatchNormalization, LayerNorm,
+                                             Normalize, RMSNorm,
+                                             SpatialBatchNormalization,
+                                             SpatialCrossMapLRN, layer_norm)
+from bigdl_tpu_torch.nn.pooling import (SpatialAveragePooling,
+                                       SpatialMaxPooling, TemporalMaxPooling)
 from bigdl_tpu_torch.nn.recurrent import (BiRecurrent, Cell,
                                           ConvLSTMPeephole, GRU, LSTM,
                                           LSTMPeephole, Recurrent, RnnCell,
                                           TimeDistributed)
-from bigdl_tpu_torch.nn.table_ops import Max, Mean, Min, Sum
+from bigdl_tpu_torch.nn.reshape import (AddConstant, Contiguous, Echo,
+                                       GradientReversal, Identity, Masking,
+                                       MulConstant, Narrow, Padding, Replicate,
+                                       Reshape, Select, SpaceToDepth,
+                                       SpatialZeroPadding, Squeeze, Transpose,
+                                       Unsqueeze, View)
+from bigdl_tpu_torch.nn.table_ops import (CAddTable, CDivTable, CMaxTable,
+                                          CMinTable, CMulTable, CSubTable,
+                                          FlattenTable, JoinTable, Max, Mean,
+                                          Min, SelectTable, SplitTable, Sum)

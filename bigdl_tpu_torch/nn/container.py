@@ -1,13 +1,13 @@
-"""Containers: `Container` and `Sequential`.
+"""Containers.
 
-Ports those two classes of bigdl_tpu/nn/container.py (reference:
-nn/Container.scala, nn/Sequential.scala). Child variables sit under
-`f"{i}_{child.key_name()}"`, the JAX package's keys, so a JAX tree
-lines up leaf for leaf. Children draw their weights from the
-container's generator folded with their index (`_fold_rng`), the
-counterpart of `jax.random.fold_in`. The table containers (Concat,
-ConcatTable, ParallelTable, MapTable, Bottle) come with the slices
-that use them (ROADMAP.md queue A.4).
+Ports bigdl_tpu/nn/container.py (reference: nn/Container.scala,
+nn/Sequential.scala, nn/Concat.scala, nn/ConcatTable.scala,
+nn/ParallelTable.scala, nn/MapTable.scala, nn/Bottle.scala). Every
+container keys its children's variables `f"{i}_{child.key_name()}"`,
+the JAX package's keys, so a JAX tree lines up leaf for leaf. Children
+draw their weights from the container's generator folded with their
+index (`_fold_rng`), the counterpart of `jax.random.fold_in`. The table
+containers return a `utils.table.Table` of their children's outputs.
 """
 
 from __future__ import annotations
@@ -17,6 +17,7 @@ from typing import List, Optional
 import torch
 
 from bigdl_tpu_torch.nn.module import Module, _fold_rng
+from bigdl_tpu_torch.utils.table import Table
 
 
 class Container(Module):
@@ -71,3 +72,93 @@ class Sequential(Container):
                            training=training, rng=_fold_rng(rng, i))
             new_state[k] = s
         return x, new_state
+
+
+def _table_elems(input) -> list:
+    """A table input's elements, a dict's in insertion order (the JAX
+    package's ParallelTable/MapTable read `input.values()`)."""
+    return list(input.values()) if isinstance(input, dict) else list(input)
+
+
+class ConcatTable(Container):
+    """Apply every child to the same input; the output is a Table of
+    their results (reference: nn/ConcatTable.scala)."""
+
+    def apply(self, variables, input, training=False, rng=None):
+        outs, new_state = Table(), {}
+        for i, (k, m) in enumerate(zip(self._keys, self.modules_)):
+            o, s = m.apply(self._child_vars(variables, k), input,
+                           training=training, rng=_fold_rng(rng, i))
+            outs.insert(o)
+            new_state[k] = s
+        return outs, new_state
+
+
+class ParallelTable(Container):
+    """The i-th child consumes the i-th element of the input table
+    (reference: nn/ParallelTable.scala)."""
+
+    def apply(self, variables, input, training=False, rng=None):
+        outs, new_state = Table(), {}
+        for i, (k, m, x) in enumerate(zip(self._keys, self.modules_,
+                                          _table_elems(input))):
+            o, s = m.apply(self._child_vars(variables, k), x,
+                           training=training, rng=_fold_rng(rng, i))
+            outs.insert(o)
+            new_state[k] = s
+        return outs, new_state
+
+
+class Concat(Container):
+    """Apply every child to the input and concatenate the outputs along
+    `dimension` (reference: nn/Concat.scala; 1-based, batch included)."""
+
+    def __init__(self, dimension: int, *modules: Module,
+                 name: Optional[str] = None):
+        super().__init__(*modules, name=name)
+        self.dimension = dimension
+
+    def apply(self, variables, input, training=False, rng=None):
+        outs, new_state = [], {}
+        for i, (k, m) in enumerate(zip(self._keys, self.modules_)):
+            o, s = m.apply(self._child_vars(variables, k), input,
+                           training=training, rng=_fold_rng(rng, i))
+            outs.append(o)
+            new_state[k] = s
+        return torch.cat(outs, dim=self.dimension - 1), new_state
+
+
+class MapTable(Container):
+    """Apply the single child, its weights shared, to every element of
+    the input table (reference: nn/MapTable.scala); its state threads
+    through the elements in order."""
+
+    def apply(self, variables, input, training=False, rng=None):
+        k, m = self._keys[0], self.modules_[0]
+        outs = Table()
+        s = variables["state"][k]
+        for i, x in enumerate(_table_elems(input)):
+            o, s = m.apply({"params": variables["params"][k], "state": s},
+                           x, training=training, rng=_fold_rng(rng, i))
+            outs.insert(o)
+        return outs, {k: s}
+
+
+class Bottle(Container):
+    """Collapse the leading dims, apply the child, restore them
+    (reference: nn/Bottle.scala)."""
+
+    def __init__(self, module: Module, n_input_dim: int = 2,
+                 n_output_dim: int = 2, name: Optional[str] = None):
+        super().__init__(module, name=name)
+        self.n_input_dim = n_input_dim
+        self.n_output_dim = n_output_dim
+
+    def apply(self, variables, input, training=False, rng=None):
+        k, m = self._keys[0], self.modules_[0]
+        split = input.ndim - self.n_input_dim + 1
+        flat = input.reshape((-1,) + tuple(input.shape[split:]))
+        out, s = m.apply(self._child_vars(variables, k), flat,
+                         training=training, rng=rng)
+        return out.reshape(tuple(input.shape[:split])
+                           + tuple(out.shape[1:])), {k: s}

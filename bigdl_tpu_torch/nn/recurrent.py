@@ -253,13 +253,13 @@ class GRU(Cell):
 
 
 class ConvLSTMPeephole(Cell):
-    """Not ported: its gates are convolutions, which wait for the conv
-    layers (ROADMAP.md queue A.4)."""
+    """Not ported yet: a cell whose gates are convolutions (ROADMAP.md
+    queue A.4)."""
 
     def __init__(self, *args, **kwargs):
         raise NotImplementedError(
-            "ConvLSTMPeephole needs the convolution layers, which are not "
-            "ported to bigdl_tpu_torch yet (ROADMAP.md queue A.4)")
+            "ConvLSTMPeephole is not ported to bigdl_tpu_torch yet "
+            "(ROADMAP.md queue A.4)")
 
 
 class Recurrent(Module):

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Run the PyTorch/CUDA port's serving, training and recurrent paths on
-one NVIDIA GPU and check them.
+"""Run the PyTorch/CUDA port's serving, training, recurrent and CNN paths
+on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py            # from the repository root, one CUDA card
-    python3 chip_smoke.py --profile  # also: where decode and train steps go
+    python3 chip_smoke.py --profile  # also: where decode, train and
+                                     # ResNet-50 steps go
 
 It drives `bigdl_tpu_torch` only (never JAX or the JAX package):
 
@@ -114,7 +115,37 @@ It drives `bigdl_tpu_torch` only (never JAX or the JAX package):
    step time), then `Predictor.predict` over 4 batches (2 inference
    forwards a batch) and `predict_class`, then one step under
    torch.profiler (device busy share, where the step's time goes);
-15. kernels — one JSON line per the port's kernel table.
+15. cnn_layers — the CNN slice's layers (BASELINE configs 1 and 2; no
+   TPU kernel lies on this path: convolutions run on cuDNN): every
+   ported conv (grouped, dilated, transposed, SAME, the s2d stem's
+   asymmetric (2, 1) pads, temporal), pooling (ceil mode,
+   count_include_pad=False, SAME, window sums), batch-norm, LRN and norm
+   layer and every table container and table op on the card against
+   the same module on the CPU, fp32, seeded variables with random
+   batch-norm gammas (forward and new running statistics <= 1e-5 of
+   each output's largest entry, gradients <= 1e-4 of each gradient's);
+16. resnet_model — a full-width ResNet-50 (build_imagenet(50, 1000),
+   seed 0, seeded batch-norm gammas) training step at batch 2 on the
+   card against the port's CPU route: in fp32 the loss <= 1e-4 relative
+   and the new running statistics <= 1e-3 of each leaf's largest entry;
+   every gradient <= 1e-3 of its leaf's largest entry in fp64 (fp32
+   gradients, discontinuous at their rounding level, are reported);
+17. lenet_trainer — BASELINE config 1: LeNet-5 through `Optimizer(...)
+   .set_validation(Trigger.every_epoch(), ...).optimize()` on
+   synthetic_mnist(512), batch 64, Adam(2e-3), 3 epochs, then
+   `Evaluator` over synthetic_mnist(128, seed=9): top-1 > 0.9; each
+   epoch's wall time;
+18. resnet_trainer — BASELINE config 2: `models.perf.run_perf(
+   "resnet50", 256, 10, optimizer="sgd", precision="bf16")` (images/s,
+   step ms, peak memory, the forward counted from the conv and linear
+   shapes and checked against ~4.1 GMAC an image, the model-flops share
+   at the dense bf16 peak), then the CIFAR ResNet-20 through Optimizer
+   for 12 steps (batch 128, SGD(0.1, momentum 0.9), validation after
+   steps 6 and 12): losses finite and falling, running statistics
+   changed, validation counts whole; `--profile` adds resnet_profile,
+   one ResNet-50 step under torch.profiler (busy share, top device
+   operations, copy and relayout kernels);
+19. kernels — one JSON line per the port's kernel table.
 
 Every phase prints one JSON line; any failed check raises and the
 script exits non-zero. The last lines are the `nvidia-smi` name/power
@@ -2479,6 +2510,555 @@ def phase_gru_trainer():
     return launches
 
 
+# ------------------------------------------------------------ CNN slice
+# BASELINE configs 1 and 2 (LeNet-5 MNIST, ResNet-50 ImageNet). The JAX
+# package runs these layers outside Pallas (lax.conv_general_dilated,
+# lax.reduce_window, jnp batch norm), so no kernel of the port's table
+# lies on this path: convolutions go to cuDNN through torch.
+CNN_FWD_TOL, CNN_GRAD_TOL = 1e-5, 1e-4      # card vs CPU, fp32
+RESNET_LOSS_TOL, RESNET_GRAD_TOL = 1e-4, 1e-3
+RESNET_MODEL_BATCH = 2
+RESNET_PERF = dict(model_name="resnet50", batch_size=256, iterations=10,
+                   optimizer="sgd", precision="bf16")
+# the canonical ResNet-50 forward: ~4.1 GMAC an image
+RESNET50_GMAC = (3.9, 4.2)
+CIFAR_BATCH, CIFAR_STEPS, CIFAR_VALID_EVERY = 128, 12, 6
+CIFAR_HELD_OUT = 256
+LENET_EPOCHS, LENET_BATCH, LENET_MIN_TOP1 = 3, 64, 0.9
+# a ResNet-50 profile's device operations by kind, the first match wins:
+# convolutions and gemms (cuDNN's xmma/cutlass kernels, cuBLAS's nvjet),
+# copies, casts and relayouts (ATen copies, device memcpy, cuDNN layout
+# transforms), reductions (batch-norm statistics), pooling, element-wise
+PROFILE_KINDS = (
+    ("conv_gemm", re.compile(r"xmma|nvjet|cutlass|[Gg]emm|conv|cudnn|"
+                             r"nhwcAddPadding")),
+    ("copy", re.compile(r"copy|Copy|Memcpy|nchwToNhwc|nhwcToNchw|"
+                        r"[Tt]ranspose")),
+    ("reduce", re.compile(r"reduce_kernel")),
+    ("pool", re.compile(r"pool")),
+    ("elementwise", re.compile(r"elementwise|Memset")),
+)
+
+
+def _cnn_cases():
+    """(name, module factory, input shapes, table packing, training):
+    every ported conv, pooling, batch-norm and table module, at shapes
+    big enough for cuDNN's real algorithms."""
+    from bigdl_tpu_torch import nn
+
+    return [
+        ("conv", lambda: nn.SpatialConvolution(16, 32, 3, 3, 1, 1, 1, 1),
+         [(4, 16, 16, 16)], None, False),
+        ("conv_strided_rect", lambda: nn.SpatialConvolution(
+            16, 24, 3, 5, 2, 1, 1, 2), [(4, 17, 18, 16)], None, False),
+        ("conv_grouped", lambda: nn.SpatialConvolution(
+            32, 64, 3, 3, 1, 1, 1, 1, n_group=4), [(4, 14, 14, 32)], None,
+         False),
+        ("conv_same", lambda: nn.SpatialConvolution(16, 32, 4, 4, 2, 2, -1),
+         [(4, 17, 18, 16)], None, False),
+        ("conv_s2d_stem", lambda: nn.SpatialConvolution(
+            12, 64, 4, 4, 1, 1, (2, 1), (2, 1), with_bias=False),
+         [(4, 28, 28, 12)], None, False),
+        ("conv_share", lambda: nn.SpatialShareConvolution(16, 32, 1, 1),
+         [(4, 16, 16, 16)], None, False),
+        ("conv_dilated", lambda: nn.SpatialDilatedConvolution(
+            16, 16, 3, 3, 1, 1, 2, 2, dilation_w=2), [(4, 16, 16, 16)],
+         None, False),
+        ("conv_dilated_same", lambda: nn.SpatialDilatedConvolution(
+            16, 16, 3, 3, 2, 2, -1, dilation_w=2), [(4, 15, 16, 16)], None,
+         False),
+        ("conv_transposed", lambda: nn.SpatialFullConvolution(
+            16, 8, 3, 3, 2, 2, 1, 1, adj_w=1, adj_h=1), [(4, 9, 9, 16)],
+         None, False),
+        ("conv_transposed_grouped", lambda: nn.SpatialFullConvolution(
+            16, 24, 3, 3, 2, 2, 0, 0, n_group=4, dilation_w=2),
+         [(4, 8, 9, 16)], None, False),
+        ("conv_temporal", lambda: nn.TemporalConvolution(32, 48, 3, 2),
+         [(4, 33, 32)], None, False),
+        ("max_pool_stem", lambda: nn.SpatialMaxPooling(3, 3, 2, 2, 1, 1),
+         [(4, 32, 32, 16)], None, False),
+        ("max_pool_ceil", lambda: nn.SpatialMaxPooling(
+            3, 3, 2, 2, ceil_mode=True), [(4, 16, 16, 16)], None, False),
+        ("max_pool_same", lambda: nn.SpatialMaxPooling(3, 3, 2, 2, -1),
+         [(4, 15, 16, 16)], None, False),
+        ("avg_pool_ceil", lambda: nn.SpatialAveragePooling(
+            3, 3, 2, 2, ceil_mode=True), [(4, 16, 16, 16)], None, False),
+        ("avg_pool_exclude_pad", lambda: nn.SpatialAveragePooling(
+            3, 3, 2, 2, 1, 1, ceil_mode=True, count_include_pad=False),
+         [(4, 16, 16, 16)], None, False),
+        ("avg_pool_sum", lambda: nn.SpatialAveragePooling(
+            3, 2, 1, 2, 1, 0, divide=False), [(4, 12, 13, 16)], None, False),
+        ("avg_pool_global", lambda: nn.SpatialAveragePooling(7, 7, 1, 1),
+         [(4, 7, 7, 64)], None, False),
+        ("temporal_max_pool", lambda: nn.TemporalMaxPooling(3, 2),
+         [(4, 33, 16)], None, False),
+        ("batch_norm_train", lambda: nn.BatchNormalization(64),
+         [(32, 64)], None, True),
+        ("batch_norm_eval", lambda: nn.BatchNormalization(64),
+         [(32, 64)], None, False),
+        ("spatial_batch_norm_train", lambda: nn.SpatialBatchNormalization(
+            32), [(4, 14, 14, 32)], None, True),
+        ("spatial_batch_norm_eval", lambda: nn.SpatialBatchNormalization(
+            32), [(4, 14, 14, 32)], None, False),
+        ("lrn", lambda: nn.SpatialCrossMapLRN(5, 1e-4, 0.75, 1.0),
+         [(4, 14, 14, 32)], None, False),
+        ("normalize", lambda: nn.Normalize(2.0), [(16, 64)], None, False),
+        ("layer_norm", lambda: nn.LayerNorm(64), [(16, 64)], None, False),
+        ("rms_norm", lambda: nn.RMSNorm(64), [(16, 64)], None, False),
+        # no conv bias before a batch norm: its exact gradient is 0
+        ("concat_table", lambda: nn.ConcatTable(
+            nn.Sequential(nn.SpatialConvolution(16, 16, 3, 3, 1, 1, 1, 1,
+                                                with_bias=False),
+                          nn.SpatialBatchNormalization(16)),
+            nn.Identity()), [(4, 14, 14, 16)], None, True),
+        ("parallel_table", lambda: nn.ParallelTable(
+            nn.Linear(32, 16), nn.Linear(8, 16)), [(16, 32), (16, 8)],
+         "list", False),
+        ("concat", lambda: nn.Concat(4, nn.SpatialConvolution(16, 8, 1, 1),
+                                     nn.SpatialMaxPooling(1, 1)),
+         [(4, 14, 14, 16)], None, False),
+        ("map_table", lambda: nn.MapTable(nn.Linear(32, 16)),
+         [(16, 32)] * 3, "list", False),
+        ("bottle", lambda: nn.Bottle(nn.Linear(32, 16), 2, 2),
+         [(4, 9, 32)], None, False),
+        ("cadd_table", lambda: nn.CAddTable(), [(4, 14, 14, 16)] * 3,
+         "list", False),
+        ("cmul_table", lambda: nn.CMulTable(), [(4, 14, 14, 16)] * 2,
+         "list", False),
+        ("csub_table", lambda: nn.CSubTable(), [(4, 14, 14, 16)] * 2,
+         "list", False),
+        ("cdiv_table", lambda: nn.CDivTable(), [(4, 14, 14, 16)] * 2,
+         "positive", False),
+        ("cmax_table", lambda: nn.CMaxTable(), [(4, 14, 14, 16)] * 3,
+         "list", False),
+        ("cmin_table", lambda: nn.CMinTable(), [(4, 14, 14, 16)] * 3,
+         "list", False),
+        ("join_table", lambda: nn.JoinTable(4), [(4, 7, 7, 16)] * 11,
+         "table", False),
+        ("split_table", lambda: nn.SplitTable(2), [(4, 5, 32)], None, False),
+        ("select_table", lambda: nn.SelectTable(10), [(4, 7, 7, 16)] * 11,
+         "table", False),
+        ("flatten_table", lambda: nn.FlattenTable(), [(4, 32)] * 4,
+         "nested", False),
+    ]
+
+
+def _seeded_variables(tree, seed: int):
+    """A CPU variable tree with every leaf redrawn from `seed`: running
+    variances in [0.5, 1.5), batch-norm gammas (a 1-D 'weight') 1 +
+    N(0, 0.5^2), so that no branch is scaled by exactly 0 or 1, weights
+    N(0, 2 / fan_in), other 1-D leaves N(0, 0.1^2)."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+
+    def draw(node, name=""):
+        if isinstance(node, dict):
+            return {k: draw(v, k) for k, v in node.items()}
+        if name == "running_var":
+            return 0.5 + torch.rand(node.shape, generator=g)
+        if node.ndim == 1:
+            v = torch.randn(node.shape, generator=g)
+            return 1.0 + 0.5 * v if name == "weight" else 0.1 * v
+        return torch.randn(node.shape, generator=g) \
+            * math.sqrt(2.0 / math.prod(node.shape[:-1]))
+
+    return draw(tree)
+
+
+def _pack(xs, table):
+    """The inputs as the module takes them: one tensor, a list, a Table
+    of keys 1..n inserted out of order, or a nested table."""
+    import torch
+
+    from bigdl_tpu_torch.utils.table import T, Table
+
+    if table in ("list", "positive"):
+        return list(xs)
+    if table == "table":
+        order = torch.randperm(len(xs),
+                               generator=torch.Generator().manual_seed(5))
+        return Table({i + 1: xs[i] for i in order.tolist()})
+    if table == "nested":
+        return [xs[0], T(xs[1], [xs[2], xs[3]])]
+    return xs[0]
+
+
+def _cnn_pass(module, variables, xs, table, training, device, cts=None):
+    """The module's forward on `device` with gradients of sum(out * ct)
+    with respect to every parameter and input: (outputs, new state
+    leaves, gradients, cotangents)."""
+    import torch
+
+    from bigdl_tpu_torch.models.convert import tree_leaves, tree_map
+
+    params = tree_map(lambda t: t.to(device).requires_grad_(),
+                      variables["params"])
+    state = tree_map(lambda t: t.to(device), variables["state"])
+    xs = [x.to(device).requires_grad_() for x in xs]
+    out, new_state = module.apply({"params": params, "state": state},
+                                  _pack(xs, table), training=training)
+    outs = tree_leaves(out)
+    if cts is None:
+        g = torch.Generator().manual_seed(7)
+        cts = [torch.randn(o.shape, generator=g) for o in outs]
+    loss = sum((o * c.to(device)).sum() for o, c in zip(outs, cts))
+    leaves = tree_leaves(params) + xs
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    grads = [torch.zeros_like(t) if gr is None else gr
+             for t, gr in zip(leaves, grads)]
+    return ([o.detach().cpu() for o in outs],
+            [s.cpu() for s in tree_leaves(new_state)],
+            [gr.cpu() for gr in grads], cts)
+
+
+def phase_cnn_layers():
+    """Every ported conv, pooling, batch-norm and table module on the
+    card (cuDNN and ATen's CUDA kernels) against the same module on the
+    CPU, fp32 with TF32 off, on seeded variables and inputs: forward
+    and new running statistics <= CNN_FWD_TOL of each output's largest
+    entry, gradients (every parameter and input) <= CNN_GRAD_TOL of
+    each gradient's largest entry."""
+    import torch
+
+    t0 = time.perf_counter()
+    results = {}
+    for i, (name, factory, shapes, table, training) in enumerate(
+            _cnn_cases()):
+        module = factory()
+        variables = _seeded_variables(
+            module.init(torch.Generator().manual_seed(i), "cpu"), i)
+        g = torch.Generator().manual_seed(100 + i)
+        xs = [torch.randn(s, generator=g) for s in shapes]
+        if table == "positive":
+            xs = [x.abs() + 0.5 for x in xs]
+        ref_out, ref_state, ref_grads, cts = _cnn_pass(
+            module, variables, xs, table, training, "cpu")
+        out, state, grads, _ = _cnn_pass(module, variables, xs, table,
+                                         training, "cuda", cts)
+        fwd = max([_rel_err(a, b) for a, b in zip(out, ref_out)]
+                  + [_rel_err(a, b) for a, b in zip(state, ref_state)])
+        grad = max(_rel_err(a, b) for a, b in zip(grads, ref_grads))
+        results[name] = {"fwd_rel_err": fwd, "grad_rel_err": grad}
+        check(len(out) == len(ref_out) and all(
+            a.shape == b.shape for a, b in zip(out, ref_out)),
+            f"cnn_layers {name}: output shapes differ")
+        check(fwd <= CNN_FWD_TOL,
+              f"cnn_layers {name}: forward {fwd:.3g} > {CNN_FWD_TOL}")
+        check(grad <= CNN_GRAD_TOL,
+              f"cnn_layers {name}: gradients {grad:.3g} > {CNN_GRAD_TOL}")
+    emit("cnn_layers", cases=len(results), seconds=time.perf_counter() - t0,
+         max_fwd_rel_err=max(r["fwd_rel_err"] for r in results.values()),
+         max_grad_rel_err=max(r["grad_rel_err"] for r in results.values()),
+         results=results)
+
+
+def phase_resnet_model():
+    """Full-width ResNet-50 (build_imagenet(50, 1000), seed 0, seeded
+    batch-norm gammas), one training-mode loss-and-grad step at batch
+    RESNET_MODEL_BATCH on the card against the port's CPU route on the
+    same variables and images. In fp32: the loss <= RESNET_LOSS_TOL
+    relative, the new running statistics <= RESNET_GRAD_TOL of each
+    leaf's largest entry. The gradients are held in fp64 (batch-norm
+    statistics in fp64 too): every gradient <= RESNET_GRAD_TOL of its
+    leaf's largest entry. In fp32 the network's gradient is
+    discontinuous at its rounding level: a forward difference of ~1e-4
+    relative, which fp32 reaches by the last stage (a block's 1/sigma
+    with gammas near 1 amplifies it), flips ReLUs whose input sits that
+    close to zero, and a flip reaches every earlier leaf. The CPU route
+    alone, fp32 against fp64 or at two thread counts, reads 4-12% apart,
+    and fp64 with fp32 statistics reads 11% between the card and the
+    CPU. So the fp32 gradients are reported beside the CPU's own
+    fp32-vs-fp64 distance, not gated."""
+    import torch
+
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.models import resnet
+    from bigdl_tpu_torch.models.convert import tree_leaves, tree_map
+
+    t0 = time.perf_counter()
+    model = resnet.build_imagenet(50, 1000)
+    variables = _seeded_variables(
+        model.init(torch.Generator().manual_seed(0), "cpu"), 0)
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn((RESNET_MODEL_BATCH, 224, 224, 3), generator=g)
+    y = torch.randint(0, 1000, (RESNET_MODEL_BATCH,), generator=g)
+
+    def step(device, dtype):
+        params = tree_map(lambda t: t.to(device, dtype).requires_grad_(),
+                          variables["params"])
+        state = tree_map(lambda t: t.to(device), variables["state"])
+        out, new_state = model.apply({"params": params, "state": state},
+                                     x.to(device, dtype), training=True)
+        loss = nn.ClassNLLCriterion()(out, y.to(device))
+        grads = torch.autograd.grad(loss, tree_leaves(params))
+        return (float(loss.detach()), [gr.cpu() for gr in grads],
+                [s.cpu() for s in tree_leaves(new_state)])
+
+    ref_loss, ref_grads, ref_state = step("cpu", torch.float32)
+    loss, grads, state = step("cuda", torch.float32)
+    ref_loss64, ref_grads64, _ = step("cpu", torch.float64)
+    loss64, grads64, _ = step("cuda", torch.float64)
+    torch.cuda.synchronize()
+    loss_err = abs(loss - ref_loss) / abs(ref_loss)
+    state_err = max(_rel_err(a, b) for a, b in zip(state, ref_state))
+    grad_err = max(_rel_err(a, b) for a, b in zip(grads64, ref_grads64))
+    fp32_grad_err = max(_rel_err(a, b) for a, b in zip(grads, ref_grads))
+    cpu_fp32_vs_fp64 = max(_rel_err(a, b)
+                           for a, b in zip(ref_grads, ref_grads64))
+    changed = all(not torch.equal(a, b) for a, b in zip(
+        state, tree_leaves(variables["state"])))
+    check(math.isfinite(loss) and loss_err <= RESNET_LOSS_TOL,
+          f"resnet_model: loss {loss} vs {ref_loss} ({loss_err:.3g})")
+    check(state_err <= RESNET_GRAD_TOL and changed,
+          f"resnet_model: running statistics {state_err:.3g}, "
+          f"changed {changed}")
+    check(grad_err <= RESNET_GRAD_TOL,
+          f"resnet_model: fp64 gradients {grad_err:.3g} > "
+          f"{RESNET_GRAD_TOL}")
+    emit("resnet_model", batch=RESNET_MODEL_BATCH,
+         params=sum(t.numel() for t in tree_leaves(variables["params"])),
+         loss=loss, cpu_loss=ref_loss, loss_rel_err=loss_err,
+         state_rel_err=state_err, fp64_loss=loss64, fp64_cpu_loss=ref_loss64,
+         fp64_grad_rel_err=grad_err, fp32_grad_rel_err=fp32_grad_err,
+         cpu_fp32_vs_fp64_grad_rel_err=cpu_fp32_vs_fp64,
+         seconds=time.perf_counter() - t0)
+
+
+def phase_lenet_trainer():
+    """BASELINE config 1 as tests/test_training_e2e.py runs it (no
+    checkpoints or summaries): LeNet-5 on synthetic_mnist(512, seed=0),
+    batch 64, Adam(2e-3), 3 epochs, validated every epoch on
+    synthetic_mnist(128, seed=9) with Top1Accuracy; then Evaluator over
+    the held-out set: top-1 > LENET_MIN_TOP1. Each epoch's wall time
+    (its validation included)."""
+    import torch
+
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.dataset import DataSet
+    from bigdl_tpu_torch.dataset.mnist import synthetic_mnist
+    from bigdl_tpu_torch.models import lenet
+    from bigdl_tpu_torch.optim import (Adam, Evaluator, Optimizer,
+                                       Top1Accuracy, Trigger)
+
+    t0 = time.perf_counter()
+    train, test = synthetic_mnist(512, seed=0), synthetic_mnist(128, seed=9)
+    model = lenet.build(10).build(torch.Generator().manual_seed(7))
+    stop = Trigger.max_epoch(LENET_EPOCHS)
+    marks = {"epoch": 1, "t": time.perf_counter(), "epoch_s": [],
+             "validation": []}
+
+    def end_when(state):
+        if state["epoch"] != marks["epoch"]:     # an epoch and its check
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            marks["epoch_s"].append(now - marks["t"])
+            marks["epoch"], marks["t"] = state["epoch"], now
+            marks["validation"].append(
+                state["validation"]["Top1Accuracy"].result())
+        return stop(state)
+
+    trained = Optimizer(model, DataSet.array(train), nn.ClassNLLCriterion(),
+                        batch_size=LENET_BATCH) \
+        .set_optim_method(Adam(learningrate=2e-3)) \
+        .set_end_when(Trigger(end_when)) \
+        .set_validation(Trigger.every_epoch(), DataSet.array(test),
+                        [Top1Accuracy()], LENET_BATCH).optimize()
+    top1, count = Evaluator(trained).test(
+        DataSet.array(test), [Top1Accuracy()], LENET_BATCH)[
+        "Top1Accuracy"].result()
+    check(len(marks["epoch_s"]) == LENET_EPOCHS
+          and all(c == len(test) for _, c in marks["validation"]),
+          f"lenet_trainer: epochs {marks['epoch_s']}, validations "
+          f"{marks['validation']}")
+    check(count == len(test) and top1 > LENET_MIN_TOP1,
+          f"lenet_trainer: held-out top-1 {top1} ({count})")
+    emit("lenet_trainer", epochs=LENET_EPOCHS, batch=LENET_BATCH,
+         epoch_seconds=marks["epoch_s"],
+         validation_top1=[v for v, _ in marks["validation"]],
+         top1=top1, seconds=time.perf_counter() - t0)
+
+
+def _forward_flops(model, variables, shape) -> float:
+    """Forward flops an image of the model's convolutions and linear
+    layers, counted from the shapes of a batch-1 forward on the card:
+    2·Ho·Wo·Cout·kh·kw·Cin/groups a convolution, 2·in·out a linear."""
+    import torch
+
+    from bigdl_tpu_torch.nn.conv import SpatialConvolution
+    from bigdl_tpu_torch.nn.linear import Linear
+
+    flops = []
+    conv_apply, linear_apply = SpatialConvolution.apply, Linear.apply
+
+    def conv(self, v, x, **kw):
+        y, s = conv_apply(self, v, x, **kw)
+        kh, kw_, cin, cout = v["params"]["weight"].shape
+        flops.append(2 * y.shape[1] * y.shape[2] * cout * kh * kw_ * cin)
+        return y, s
+
+    def linear(self, v, x, **kw):
+        flops.append(2 * math.prod(v["params"]["weight"].shape))
+        return linear_apply(self, v, x, **kw)
+
+    SpatialConvolution.apply, Linear.apply = conv, linear
+    try:
+        with torch.no_grad():
+            model.apply(variables, torch.zeros((1,) + shape, device="cuda"))
+    finally:
+        SpatialConvolution.apply, Linear.apply = conv_apply, linear_apply
+    return float(sum(flops))
+
+
+def phase_resnet_trainer():
+    """BASELINE config 2: `perf.run_perf("resnet50", 256, 10,
+    optimizer="sgd", precision="bf16")` on the card (images/s, step ms,
+    peak memory, the model-flops share: 3 x the forward flops counted
+    from the conv and linear shapes, over the step time, over the card's
+    dense bf16 peak; the forward checked against ~4.1 GMAC an image);
+    then Optimizer for CIFAR_STEPS steps on build_cifar(20, 10) over
+    synthetic_cifar10, batch 128, SGD(0.1, momentum 0.9), validated
+    after steps 6 and 12. Gates: losses finite, the ResNet-20 loss
+    falling (the mean of the last 3 below the first 3), running
+    statistics changed, validation counts whole."""
+    import torch
+
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.dataset import DataSet
+    from bigdl_tpu_torch.dataset.cifar import synthetic_cifar10
+    from bigdl_tpu_torch.models import perf, resnet
+    from bigdl_tpu_torch.models.convert import tree_leaves
+    from bigdl_tpu_torch.optim import (SGD, Loss, Optimizer, Top1Accuracy,
+                                       Trigger)
+
+    t0 = time.perf_counter()
+    fmodel = resnet.build_imagenet(50, 1000)
+    fwd_flops = _forward_flops(
+        fmodel, fmodel.init(torch.Generator().manual_seed(0)), (224, 224, 3))
+    gmac = fwd_flops / 2e9
+    check(RESNET50_GMAC[0] < gmac < RESNET50_GMAC[1],
+          f"resnet_trainer: ResNet-50 forward {gmac:.3f} GMAC an image")
+    del fmodel
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    res = perf.run_perf(**RESNET_PERF)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    step_s = res["steady_wall_s"] / res["iterations"]
+    share = 3 * fwd_flops * res["batch_size"] / step_s / BF16_FLOPS_PER_S
+    check(math.isfinite(res["images_per_sec"]) and res["images_per_sec"] > 0,
+          f"resnet_trainer: {res}")
+    perf_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+
+    t1 = time.perf_counter()
+    model = resnet.build_cifar(20, 10).build(torch.Generator().manual_seed(0))
+    before = [t.clone() for t in tree_leaves(model.variables["state"])]
+    losses, validations = [], []
+
+    def end_when(state):
+        res_v = state.get("validation")
+        if res_v is not None and (not validations
+                                  or validations[-1][1] is not res_v):
+            validations.append((state["neval"], res_v))
+        if state["loss"] is not None:
+            losses.append(state["loss"])
+        return state["neval"] >= CIFAR_STEPS
+
+    Optimizer(model, DataSet.array(synthetic_cifar10(
+        CIFAR_BATCH * CIFAR_STEPS, seed=0)), nn.ClassNLLCriterion(),
+        batch_size=CIFAR_BATCH) \
+        .set_optim_method(SGD(learningrate=0.1, momentum=0.9)) \
+        .set_validation(Trigger.several_iteration(CIFAR_VALID_EVERY),
+                        DataSet.array(synthetic_cifar10(CIFAR_HELD_OUT,
+                                                        seed=1)),
+                        [Top1Accuracy(), Loss(nn.ClassNLLCriterion())]) \
+        .set_end_when(Trigger(end_when)).optimize()
+    losses = [float(v) for v in losses]
+    vals = [{"neval": n, **{k: {"value": v, "count": c} for k, (v, c) in
+                            ((k, r.result()) for k, r in res_v.items())}}
+            for n, res_v in validations]
+    after = tree_leaves(model.variables["state"])
+    check(len(losses) == CIFAR_STEPS
+          and all(math.isfinite(v) for v in losses),
+          f"resnet_trainer: ResNet-20 losses {losses}")
+    check(sum(losses[-3:]) < sum(losses[:3]),
+          f"resnet_trainer: ResNet-20 loss did not fall: {losses}")
+    check(all(not torch.equal(a, b) for a, b in zip(after, before)),
+          "resnet_trainer: running statistics did not change")
+    check([v["neval"] for v in vals] == [CIFAR_VALID_EVERY, CIFAR_STEPS]
+          and all(v[k]["count"] == CIFAR_HELD_OUT for v in vals
+                  for k in ("Top1Accuracy", "Loss")),
+          f"resnet_trainer: validations {vals}")
+    emit("resnet_trainer", resnet50={
+        **res, "step_ms": step_s * 1e3, "peak_mem_gib": peak,
+        "forward_gflops_per_image": fwd_flops / 1e9,
+        "forward_gmac_per_image": gmac, "model_flops_share": share,
+        "seconds": perf_s},
+        resnet20={"steps": CIFAR_STEPS, "batch": CIFAR_BATCH,
+                  "losses": losses, "validations": vals,
+                  "seconds": time.perf_counter() - t1})
+
+
+def phase_resnet_profile():
+    """Where a ResNet-50 step goes (`--profile` only): the resnet_trainer
+    step (bf16, batch 256, SGD) once under torch.profiler after one
+    warm-up step: device-busy share, the top device operations, and
+    the device time and launches by kind (PROFILE_KINDS: convolutions,
+    copies and relayouts, reductions, pooling, element-wise), and the
+    ATen ops behind the copies (casts, relayouts, clones)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from bigdl_tpu_torch.models import perf
+
+    t0 = time.perf_counter()
+    kw = {k: v for k, v in RESNET_PERF.items() if k != "iterations"}
+    step = perf.train_step(**kw)
+    float(step(0))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t_wall = time.perf_counter()
+        float(step(1))
+        t_wall = time.perf_counter() - t_wall
+    averages = prof.key_averages()
+    rows = sorted(((e.self_device_time_total, e.count, e.key)
+                   for e in averages
+                   if e.device_type == DeviceType.CUDA
+                   and e.self_device_time_total > 0), reverse=True)
+    # where the copies come from: the ATen ops that launch them (dtype
+    # casts, relayouts to a memory format, clones), with the device time
+    # of what each launched
+    copy_ops = {e.key: {"calls": e.count, "device_ms": e.device_time_total
+                        / 1e3} for e in averages
+                if e.key in ("aten::_to_copy", "aten::contiguous",
+                             "aten::clone", "aten::copy_")}
+    OUT_DIR.mkdir(exist_ok=True)
+    prof.export_chrome_trace(str(OUT_DIR / "resnet_train_trace.json"))
+    if not rows:
+        emit("resnet_profile", device_ms="not measured")
+        return
+    dev_ms = sum(r[0] for r in rows) / 1e3
+    kinds = {}
+    for us, c, k in rows:
+        kind = next((n for n, rx in PROFILE_KINDS if rx.search(k)), "other")
+        calls, ms = kinds.get(kind, (0, 0.0))
+        kinds[kind] = (calls + c, ms + us / 1e3)
+    copies = [r for r in rows if PROFILE_KINDS[1][1].search(r[2])
+              and not PROFILE_KINDS[0][1].search(r[2])]
+    emit("resnet_profile", profiled_wall_ms=t_wall * 1e3, device_ms=dev_ms,
+         busy_share=dev_ms / (t_wall * 1e3),
+         kernels=sum(r[1] for r in rows),
+         by_kind={k: {"calls": c, "ms": ms} for k, (c, ms) in kinds.items()},
+         copy_ops=copy_ops,
+         copy_top=[{"name": k[:100], "calls": c, "ms": us / 1e3}
+                   for us, c, k in copies[:8]],
+         top=[{"name": k[:100], "calls": c, "ms": us / 1e3}
+              for us, c, k in rows[:15]],
+         seconds=time.perf_counter() - t0)
+
+
 def main() -> int:
     import torch
 
@@ -2537,6 +3117,17 @@ def main() -> int:
     phase_gru_model()
     torch.cuda.empty_cache()
     gru_launches = phase_gru_trainer()
+    torch.cuda.empty_cache()
+    phase_cnn_layers()
+    torch.cuda.empty_cache()
+    phase_resnet_model()
+    torch.cuda.empty_cache()
+    phase_lenet_trainer()
+    torch.cuda.empty_cache()
+    phase_resnet_trainer()
+    if "--profile" in sys.argv[1:]:
+        torch.cuda.empty_cache()
+        phase_resnet_profile()
     fp32 = kern["fp32"]
     # the flash rows: the trainer's shape in its compute dtype (bf16)
     row = flash["train/bf16"]

@@ -31,6 +31,9 @@ NEW_IN_SLICE_3 = ("nn/initialization.py", "nn/container.py",
                   "nn/recurrent.py", "ops/fused_rnn.py", "models/rnn.py")
 NEW_IN_SLICE_4 = ("nn/table_ops.py", "optim/validation.py",
                   "optim/evaluator.py")
+NEW_IN_SLICE_9 = ("utils/table.py", "nn/reshape.py", "nn/conv.py",
+                  "nn/pooling.py", "dataset/mnist.py", "dataset/cifar.py",
+                  "models/lenet.py", "models/resnet.py", "models/perf.py")
 
 
 def test_port_files_exist():
@@ -38,7 +41,8 @@ def test_port_files_exist():
     assert all(p.exists() for p in PORT_FILES)
     scanned = {str(p.relative_to(ROOT / "bigdl_tpu_torch"))
                for p in PORT_FILES if "bigdl_tpu_torch" in p.parts}
-    assert set(NEW_IN_SLICE_3) | set(NEW_IN_SLICE_4) <= scanned
+    assert set(NEW_IN_SLICE_3) | set(NEW_IN_SLICE_4) \
+        | set(NEW_IN_SLICE_9) <= scanned
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -61,7 +65,12 @@ def test_port_import_loads_no_jax():
             "bigdl_tpu_torch.ops.fused_rnn, bigdl_tpu_torch.nn.recurrent, "
             "bigdl_tpu_torch.models.rnn, bigdl_tpu_torch.nn.table_ops, "
             "bigdl_tpu_torch.optim.validation, "
-            "bigdl_tpu_torch.optim.evaluator; "
+            "bigdl_tpu_torch.optim.evaluator, bigdl_tpu_torch.utils.table, "
+            "bigdl_tpu_torch.nn.reshape, bigdl_tpu_torch.nn.conv, "
+            "bigdl_tpu_torch.nn.pooling, bigdl_tpu_torch.nn.normalization, "
+            "bigdl_tpu_torch.nn.container, bigdl_tpu_torch.dataset.mnist, "
+            "bigdl_tpu_torch.dataset.cifar, bigdl_tpu_torch.models.lenet, "
+            "bigdl_tpu_torch.models.resnet, bigdl_tpu_torch.models.perf; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{BANNED!r}]; "
             "assert not bad, bad")
