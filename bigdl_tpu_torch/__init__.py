@@ -27,7 +27,13 @@ Ported so far, slice by slice:
    linear, activations, criteria, `nn/recurrent.py`), trained through
    the same `Optimizer`, with the LSTM time loop — one or two
    directions, forward and backward — in the persistent CUDA kernels of
-   `ops/csrc/fused_rnn.cu`.
+   `ops/csrc/fused_rnn.cu`;
+4. GRU, validation and prediction — the GRU kernels of the same file,
+   `set_validation`, `Evaluator` and `Predictor`;
+5. CNNs — LeNet-5 and the ResNets, Inception v1/v2, VGG and
+   AlexNet through `models/perf.py`, `nn.Graph`, dropout, the
+   `ml/estimator.py` pipeline API and the TreeLSTM (`models/treelstm.py`),
+   on cuDNN and ATen (no Pallas kernel lies on that path).
 """
 
 __version__ = "0.1.0"

@@ -7,11 +7,11 @@ Runs on the card by default:
     python -m bigdl_tpu_torch.models.perf --model resnet50 -b 256 -i 10 \\
         --precision bf16
 
-The models are those of the JAX package's table that the port has:
-lenet, resnet50, resnet18 and resnet20-cifar (inception, vgg and
-alexnet join with their slices). Data-parallel runs (`--mesh`) are not
-ported (ROADMAP.md queue A.8). The result is logged as one JSON line
-through the `bigdl_tpu_torch.models` logger, on stdout.
+The models are the JAX package's table: lenet, resnet50, resnet18,
+resnet20-cifar, inception-v1, inception-v2, vgg16 and alexnet.
+Data-parallel runs (`--mesh`) are not ported (ROADMAP.md queue A.8).
+The result is logged as one JSON line through the
+`bigdl_tpu_torch.models` logger, on stdout.
 """
 
 from __future__ import annotations
@@ -30,7 +30,7 @@ from bigdl_tpu_torch.utils.device import DeviceLike
 
 
 def _build_model(name: str, class_num: int):
-    from bigdl_tpu_torch.models import lenet, resnet
+    from bigdl_tpu_torch.models import alexnet, inception, lenet, resnet, vgg
 
     name = name.lower()
     table = {
@@ -41,6 +41,14 @@ def _build_model(name: str, class_num: int):
                      (224, 224, 3), class_num),
         "resnet20-cifar": (lambda: resnet.build_cifar(20, 10),
                            (32, 32, 3), 10),
+        "inception-v1": (lambda: inception.build(class_num),
+                         (224, 224, 3), class_num),
+        "inception-v2": (lambda: inception.build_v2(class_num),
+                         (224, 224, 3), class_num),
+        "vgg16": (lambda: vgg.build(16, class_num), (224, 224, 3),
+                  class_num),
+        "alexnet": (lambda: alexnet.build(class_num), (224, 224, 3),
+                    class_num),
     }
     if name not in table:
         raise SystemExit(f"unknown model {name!r}; choices: {sorted(table)}")
@@ -58,7 +66,9 @@ def train_step(model_name: str = "resnet50", batch_size: int = 32,
     the fp32 master weights and the optim method's in-place update:
     SGD(0.01, momentum 0.9, dampening 0) or Adam(1e-3).
     `precision="bf16"` (or "mixed") computes in bf16 over fp32 master
-    weights. Builds on `device` (None: the card)."""
+    weights. Builds on `device` (None: the card). The step keeps its
+    model as `step.model` and returns the trained variables from
+    `step.variables()`."""
     from bigdl_tpu_torch import nn
     from bigdl_tpu_torch.models.convert import tree_leaves
     from bigdl_tpu_torch.nn.module import _fold_rng
@@ -92,6 +102,8 @@ def train_step(model_name: str = "resnet50", batch_size: int = 32,
         method.update(grads, leaves, slots, 0.01, i)
         return loss.detach()
 
+    step.model = model
+    step.variables = lambda: {"params": params, "state": state}
     return step
 
 
@@ -99,20 +111,24 @@ def run_perf(model_name: str = "resnet50", batch_size: int = 32,
              iterations: int = 10, mesh_axes: Optional[str] = None,
              optimizer: str = "sgd", class_num: int = 1000,
              precision: Optional[str] = None,
-             device: DeviceLike = None) -> dict:
+             device: DeviceLike = None,
+             step: Optional[Callable[[int], torch.Tensor]] = None
+             ) -> dict:
     """Steady-state throughput of `train_step`: one untimed warm-up
     step, then `iterations` timed steps. The timing is fenced by a host
     read of the last loss, which depends on every earlier step's
     weights. `compile_s` is the warm-up step's wall time (the JAX
     package's compile; here the first step's allocations and cuDNN's
     first calls); the rates are not rounded. Runs on `device` (None:
-    the card)."""
+    the card). `step`, a `train_step` of the same arguments, is timed
+    in place of a new one, so its caller keeps the trained weights
+    (`step.variables()`)."""
     if mesh_axes:
         raise NotImplementedError(
             f"--mesh {mesh_axes!r}: data-parallel training is not ported "
             "to bigdl_tpu_torch yet (ROADMAP.md, queue A.8)")
-    run_one = train_step(model_name, batch_size, optimizer, class_num,
-                         precision, device)
+    run_one = step or train_step(model_name, batch_size, optimizer,
+                                 class_num, precision, device)
 
     t0 = time.perf_counter()
     float(run_one(0))  # warm-up; the host read is the fence

@@ -32,16 +32,15 @@ def lstm_lm(vocab_size: int, embed_dim: int = 128, hidden_size: int = 128,
             num_layers: int = 1, dropout: float = 0.0) -> nn.Sequential:
     """LSTM language model (reference: example/languagemodel PTB
     config). Each layer's time loop runs through ops/fused_rnn.lstm_scan
-    (the CUDA kernel on the card). `dropout > 0` is not ported."""
-    if dropout > 0:
-        raise NotImplementedError(
-            "lstm_lm(dropout > 0) needs nn/dropout.py, which is not ported "
-            "to bigdl_tpu_torch yet (ROADMAP.md queue A.4)")
+    (the CUDA kernel on the card); `dropout > 0` adds an `nn.Dropout`
+    after each layer."""
     m = nn.Sequential(nn.LookupTable(vocab_size, embed_dim)
                       .set_name("embedding"))
     in_size = embed_dim
     for i in range(num_layers):
         m.add(nn.Recurrent(nn.LSTM(in_size, hidden_size)).set_name(f"lstm{i}"))
+        if dropout > 0:
+            m.add(nn.Dropout(dropout))
         in_size = hidden_size
     m.add(nn.TimeDistributed(nn.Linear(hidden_size, vocab_size))
           .set_name("proj"))

@@ -18,8 +18,12 @@ from bigdl_tpu_torch.nn.conv import (SpatialConvolution,
 from bigdl_tpu_torch.nn.criterion import (ChunkedSoftmaxCE,
                                           ClassNLLCriterion,
                                           CrossEntropyCriterion,
+                                          MSECriterion,
                                           TimeDistributedCriterion)
+from bigdl_tpu_torch.nn.dropout import (Dropout, GaussianDropout,
+                                        GaussianNoise, SpatialDropout2D)
 from bigdl_tpu_torch.nn.embedding import LookupTable
+from bigdl_tpu_torch.nn.graph import Graph, Input, Node
 from bigdl_tpu_torch.nn.initialization import (ConstInitMethod,
                                                InitializationMethod,
                                                MsraFiller, Ones,

@@ -6,7 +6,7 @@ nn/SoftMax.scala, nn/LogSoftMax.scala, ...). The reference's `ip`
 (in-place) flags are accepted and ignored. GELU is the tanh
 approximation (`jax.nn.gelu`'s default). The layers with parameters or
 randomness (PReLU, SReLU, RReLU) come with the slices that use them
-(ROADMAP.md queue A.4).
+(ROADMAP.md queue A.7).
 """
 
 from __future__ import annotations

@@ -16,9 +16,10 @@ channels-last strided, so cuDNN may relayout it at each call.
 
 The JAX package runs these as `lax.conv_general_dilated` outside any
 Pallas kernel; the port's counterpart is the library call (cuDNN on the
-card). `F.conv2d` pads symmetrically only, so the SAME padding of
-`pad_w == -1` and the (low, high) tuples of the s2d stem are applied
-with an explicit `F.pad` first.
+card). `F.conv2d` pads symmetrically and never negatively, so the
+SAME padding of `pad_w == -1`, the (low, high) tuples of the s2d stem
+and negative pads (which crop) are applied with an explicit `F.pad`
+first.
 """
 
 from __future__ import annotations
@@ -55,10 +56,11 @@ def _conv2d_nhwc(x: torch.Tensor, w_hwio: torch.Tensor,
                  dilation: Tuple[int, int] = (1, 1),
                  groups: int = 1) -> torch.Tensor:
     """NHWC conv with an HWIO weight and explicit ((top, bottom), (left,
-    right)) padding: symmetric pads go to `F.conv2d`, others through
-    `F.pad` on the NHWC input first."""
+    right)) padding: symmetric non-negative pads go to `F.conv2d`,
+    others through `F.pad` on the NHWC input first (a negative pad
+    crops, as `lax.conv_general_dilated` does)."""
     (pt, pb), (pl, pr) = pads
-    if pt == pb and pl == pr:
+    if pt == pb and pl == pr and pt >= 0 and pl >= 0:
         padding = (pt, pl)
     else:
         x = F.pad(x, (0, 0, pl, pr, pt, pb))

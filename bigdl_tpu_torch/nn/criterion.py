@@ -1,12 +1,13 @@
 """Loss functions.
 
-Ports `ClassNLLCriterion`, `CrossEntropyCriterion`,
+Ports `ClassNLLCriterion`, `CrossEntropyCriterion`, `MSECriterion`,
 `TimeDistributedCriterion` and `ChunkedSoftmaxCE` from
 bigdl_tpu/nn/criterion.py (reference: nn/ClassNLLCriterion.scala,
-nn/CrossEntropyCriterion.scala, nn/TimeDistributedCriterion.scala), with
+nn/CrossEntropyCriterion.scala, nn/MSECriterion.scala,
+nn/TimeDistributedCriterion.scala), with
 the JAX package's `size_average` semantics. Class targets are 0-based
 integers, as in the JAX package. The file's other criteria come with
-the slices that use them (ROADMAP.md queue A.4).
+the slices that use them (ROADMAP.md queue A.5).
 """
 
 from __future__ import annotations
@@ -57,6 +58,16 @@ class CrossEntropyCriterion(Criterion):
     def forward(self, input, target):
         return ClassNLLCriterion(self.weights, self.size_average).forward(
             torch.log_softmax(input, dim=-1), target)
+
+
+class MSECriterion(Criterion):
+    """Mean (or, without `size_average`, summed) squared error."""
+
+    def __init__(self, size_average: bool = True):
+        self.size_average = size_average
+
+    def forward(self, input, target):
+        return _reduce((input - target) ** 2, self.size_average)
 
 
 class TimeDistributedCriterion(Criterion):

@@ -4,7 +4,7 @@ Ports `Linear` from bigdl_tpu/nn/linear.py (reference: nn/Linear.scala).
 The weight is stored (in, out), the JAX package's layout, so the
 forward is `x @ W + b`. The file's other layers (CMul, CAdd, Bilinear,
 Cosine, Euclidean) come with the slices that use them (ROADMAP.md
-queue A.4).
+queue A.7).
 """
 
 from __future__ import annotations

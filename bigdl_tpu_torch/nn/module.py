@@ -31,11 +31,13 @@ do not work on a port model, and `.to()`/`.cuda()`/`.cpu()` raise
 rather than return a module whose variables stayed where they were:
 move the variables with `models.convert.tree_map`. `evaluate(dataset,
 methods)`, `predict(dataset)` and `predict_class(dataset)` run
-optim/evaluator.py over the stored variables. Not ported: constructor
-capture for the module serializer, `save_module`/`load_module`, the
-graph `__call__`, `get_parameters` and the eager `forward`/
-`training()` facade with the no-argument `evaluate()` that switches it
-to eval mode (torch's own `training` flag is left alone).
+optim/evaluator.py over the stored variables. Called on `nn.graph.Node`s,
+a module wires itself into a graph (`Linear(4, 2)(x)`, nn/graph.py);
+any other call is torch's own. Not ported: constructor capture for the
+module serializer, `save_module`/`load_module`, `get_parameters` and
+the eager `forward`/`training()` facade with the no-argument
+`evaluate()` that switches it to eval mode (torch's own `training`
+flag is left alone).
 """
 
 from __future__ import annotations
@@ -152,6 +154,15 @@ class Module(torch.nn.Module):
         from bigdl_tpu_torch.optim.evaluator import Predictor
 
         return Predictor(self, batch_size=batch_size).predict_class(dataset)
+
+    def __call__(self, *args, **kwargs):
+        """Graph wiring when every argument is a `Node`; otherwise
+        torch's own call (which runs `forward`)."""
+        from bigdl_tpu_torch.nn.graph import Node  # graph imports module
+
+        if args and all(isinstance(a, Node) for a in args):
+            return Node.wire(self, args)
+        return super().__call__(*args, **kwargs)
 
     def set_name(self, name: str) -> "Module":
         self.name = name

@@ -10,7 +10,7 @@ and its padded rows are masked out of the metrics and cut from the
 predictions (`real_size`).
 
 Evaluating over a device mesh (`Evaluator(model, mesh=...)`) is not
-ported (ROADMAP.md queue A.6). The JAX Predictor pads ragged batches up
+ported (ROADMAP.md queue A.8). The JAX Predictor pads ragged batches up
 to an already-compiled shape (`bucket_sizes`) and counts compilations
 (`n_traces`): both serve XLA's retracing, which eager PyTorch does not
 have, so they are left out and a batch runs at its own size.
@@ -80,7 +80,7 @@ class Evaluator:
         if mesh is not None:
             raise NotImplementedError(
                 "Evaluator(mesh=...): evaluation over a device mesh is not "
-                "ported to bigdl_tpu_torch yet (ROADMAP.md, queue A.6)")
+                "ported to bigdl_tpu_torch yet (ROADMAP.md, queue A.8)")
         self.model = model
 
     def test(self, dataset: AbstractDataSet,

@@ -58,10 +58,10 @@ from bigdl_tpu_torch.utils.precision import DEFAULT_MIXED, Policy
 logger = logging.getLogger("bigdl_tpu_torch.optim")
 
 
-def _not_ported(what: str):
+def _not_ported(what: str, queue: str = "A.5"):
     raise NotImplementedError(
         f"Optimizer: {what} is not ported to bigdl_tpu_torch yet "
-        "(ROADMAP.md, queue A.2)")
+        f"(ROADMAP.md, queue {queue})")
 
 
 def _batch_iterator(dataset: AbstractDataSet, train: bool,
@@ -167,7 +167,8 @@ class Optimizer:
         _not_ported("the anomaly guard (set_anomaly_guard)")
 
     def set_mesh(self, *args, **kwargs) -> "Optimizer":
-        _not_ported("distributed training (set_mesh, DistriOptimizer)")
+        _not_ported("distributed training (set_mesh, DistriOptimizer)",
+                    "A.8")
 
     def optimize(self) -> Module:
         return LocalOptimizer(self).run()

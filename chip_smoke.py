@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
-"""Run the PyTorch/CUDA port's serving, training, recurrent and CNN paths
-on one NVIDIA GPU and check them.
+"""Run the PyTorch/CUDA port's serving, training, recurrent, CNN and
+TreeLSTM paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py            # from the repository root, one CUDA card
-    python3 chip_smoke.py --profile  # also: where decode, train and
-                                     # ResNet-50 steps go
+    python3 chip_smoke.py --profile  # also: where decode, train,
+                                     # ResNet-50 and Inception steps go
 
 It drives `bigdl_tpu_torch` only (never JAX or the JAX package):
 
@@ -145,7 +145,32 @@ It drives `bigdl_tpu_torch` only (never JAX or the JAX package):
    changed, validation counts whole; `--profile` adds resnet_profile,
    one ResNet-50 step under torch.profiler (busy share, top device
    operations, copy and relayout kernels);
-19. kernels — one JSON line per the port's kernel table.
+19. inception_trainer — BASELINE config 3: `models.perf.run_perf(
+   "inception-v1", 256, 10, optimizer="sgd", precision="bf16")` (the
+   resnet_trainer fields, the forward checked against ~1.58 GMAC an
+   image, and the busy share of one more profiled step), the
+   branch-fused `inception.build(fused_branches=True)` (nn.Graph
+   layers) forward on the card against the CPU, fp32, batch 2 (<= 1e-4
+   of the largest log-probability), and one short run_perf of AlexNet
+   and of Inception-v2; `--profile` adds inception_profile, the LRN and
+   concat share of a step's device time;
+20. vgg_estimator — BASELINE config 5: run_perf("vgg16", 128, 10, bf16)
+   as above (~15.47 GMAC), then VGG-16's body with the weights that run
+   trained under a new 10-class head, fit by `ml.DLClassifier` over a
+   dict-of-lists frame of seeded 224 x 224 x 3 images (batch 128, 3
+   steps, fp32) and `transform`ed: the body starts from the trained
+   weights, losses finite, predictions in [0, 10), one a row;
+21. treelstm_trainer — BASELINE config 4's TreeLSTM half at
+   bench_treelstm's widths (vocab 20000, d 300, h 150, 5 classes, batch
+   128, 64 nodes, Adam(3e-3), bf16) through `Optimizer(...)
+   .set_validation(..., [TreeNNAccuracy(), Loss(...)]).optimize()` on
+   the wavefront schedule, 2 warm-up + 10 timed steps (samples/s, busy
+   share of one more profiled step): losses finite and falling,
+   validation counts whole; then one batch in fp32 through both
+   schedules, the wavefront's loss and gradients against the slot
+   scan's (rtol 1e-5, atol 1e-6), and each schedule's bf16 loss and
+   backward time;
+22. kernels — one JSON line per the port's kernel table.
 
 Every phase prints one JSON line; any failed check raises and the
 script exits non-zero. The last lines are the `nvidia-smi` name/power
@@ -3023,10 +3048,6 @@ def phase_resnet_profile():
         float(step(1))
         t_wall = time.perf_counter() - t_wall
     averages = prof.key_averages()
-    rows = sorted(((e.self_device_time_total, e.count, e.key)
-                   for e in averages
-                   if e.device_type == DeviceType.CUDA
-                   and e.self_device_time_total > 0), reverse=True)
     # where the copies come from: the ATen ops that launch them (dtype
     # casts, relayouts to a memory format, clones), with the device time
     # of what each launched
@@ -3034,29 +3055,560 @@ def phase_resnet_profile():
                         / 1e3} for e in averages
                 if e.key in ("aten::_to_copy", "aten::contiguous",
                              "aten::clone", "aten::copy_")}
+    copies = sorted(((e.self_device_time_total, e.count, e.key)
+                     for e in averages
+                     if e.device_type == DeviceType.CUDA
+                     and e.self_device_time_total > 0
+                     and PROFILE_KINDS[1][1].search(e.key)
+                     and not PROFILE_KINDS[0][1].search(e.key)),
+                    reverse=True)
     OUT_DIR.mkdir(exist_ok=True)
     prof.export_chrome_trace(str(OUT_DIR / "resnet_train_trace.json"))
+    emit("resnet_profile", **_profile_rows(prof, t_wall, n_top=15),
+         copy_ops=copy_ops,
+         copy_top=[{"name": k[:100], "calls": c, "ms": us / 1e3}
+                   for us, c, k in copies[:8]],
+         seconds=time.perf_counter() - t0)
+
+
+# ------------------------------------------------- CNN zoo and TreeLSTM
+# BASELINE configs 3 (Inception-v1), 5 (VGG-16 transfer learning through
+# the estimator) and 4's TreeLSTM half. No Pallas kernel of the JAX
+# package lies on these paths: convolutions run on cuDNN, pooling on
+# ATen, the TreeLSTM is plain PyTorch.
+INCEPTION_PERF = dict(model_name="inception-v1", batch_size=256,
+                      iterations=10, optimizer="sgd", precision="bf16")
+VGG_PERF = dict(model_name="vgg16", batch_size=128, iterations=10,
+                optimizer="sgd", precision="bf16")
+# one short run each, so that every entry of perf.py's table runs here
+SHORT_PERF = (dict(model_name="alexnet", batch_size=128, iterations=3,
+                   optimizer="sgd", precision="bf16"),
+              dict(model_name="inception-v2", batch_size=64, iterations=3,
+                   optimizer="sgd", precision="bf16"))
+# forward MACs an image counted from the conv and linear shapes
+# (`_forward_flops`; 1.583 and 15.470 GMAC on the CPU)
+INCEPTION_GMAC, VGG16_GMAC = (1.5, 1.65), (15.4, 15.55)
+INCEPTION_MODEL_BATCH, INCEPTION_FWD_TOL = 2, 1e-4
+VGG_TRANSFER = dict(classes=10, batch=128, steps=3)
+# bench.py:602 bench_treelstm's widths
+TREE_VOCAB, TREE_EMBED, TREE_HIDDEN, TREE_CLASSES = 20000, 300, 150, 5
+TREE_BATCH, TREE_NODES, TREE_LR = 128, 64, 3e-3
+TREE_POOL_BATCHES, TREE_HELD_OUT, TREE_VALID_EVERY = 4, 256, 6
+TREE_WARMUP, TREE_STEPS = 2, 10
+# wavefront vs slot scan on the card: tests/test_torch_treelstm.py's
+# SCHEDULE_TOL (the JAX package's own, tests/test_treelstm.py:148-174)
+TREE_SCHEDULE_TOL = dict(rtol=1e-5, atol=1e-6)
+
+
+def _profile_rows(prof, wall_s, n_top=10):
+    """Device time of a profiled window: busy share against the
+    window's wall time, launches, by kind (PROFILE_KINDS) and the
+    `n_top` largest device operations."""
+    from torch.autograd import DeviceType
+
+    rows = sorted(((e.self_device_time_total, e.count, e.key)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and e.self_device_time_total > 0), reverse=True)
     if not rows:
-        emit("resnet_profile", device_ms="not measured")
-        return
+        return {"device_ms": "not measured"}
     dev_ms = sum(r[0] for r in rows) / 1e3
     kinds = {}
     for us, c, k in rows:
         kind = next((n for n, rx in PROFILE_KINDS if rx.search(k)), "other")
         calls, ms = kinds.get(kind, (0, 0.0))
         kinds[kind] = (calls + c, ms + us / 1e3)
-    copies = [r for r in rows if PROFILE_KINDS[1][1].search(r[2])
-              and not PROFILE_KINDS[0][1].search(r[2])]
-    emit("resnet_profile", profiled_wall_ms=t_wall * 1e3, device_ms=dev_ms,
-         busy_share=dev_ms / (t_wall * 1e3),
-         kernels=sum(r[1] for r in rows),
-         by_kind={k: {"calls": c, "ms": ms} for k, (c, ms) in kinds.items()},
-         copy_ops=copy_ops,
-         copy_top=[{"name": k[:100], "calls": c, "ms": us / 1e3}
-                   for us, c, k in copies[:8]],
-         top=[{"name": k[:100], "calls": c, "ms": us / 1e3}
-              for us, c, k in rows[:15]],
+    return {"profiled_wall_ms": wall_s * 1e3, "device_ms": dev_ms,
+            "busy_share": dev_ms / (wall_s * 1e3),
+            "kernels": sum(r[1] for r in rows),
+            "by_kind": {k: {"calls": c, "ms": ms}
+                        for k, (c, ms) in kinds.items()},
+            "top": [{"name": k[:100], "calls": c, "ms": us / 1e3}
+                    for us, c, k in rows[:n_top]]}
+
+
+def _profile_call(fn, trace: str) -> dict:
+    """One call of `fn` (ending in a host read) under torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        t = time.perf_counter() - t
+    OUT_DIR.mkdir(exist_ok=True)
+    prof.export_chrome_trace(str(OUT_DIR / trace))
+    return _profile_rows(prof, t)
+
+
+def _perf_cell(spec, gmac_range=None, step=None, profile_trace=None):
+    """`perf.run_perf(**spec)` on the card (with `step` timed in place
+    of a new one): images/s, step ms, peak memory; with `gmac_range`
+    the forward counted from the conv and linear shapes, checked, and
+    the model-flops share (3 x forward flops a step over the card's
+    dense bf16 peak); with `profile_trace` one more step under
+    torch.profiler (busy share, device time by kind)."""
+    import torch
+
+    from bigdl_tpu_torch.models import perf
+
+    t0 = time.perf_counter()
+    out = {}
+    if gmac_range is not None:
+        fmodel, shape, _ = perf._build_model(spec["model_name"], 1000)
+        fwd_flops = _forward_flops(
+            fmodel, fmodel.init(torch.Generator().manual_seed(0)), shape)
+        gmac = fwd_flops / 2e9
+        check(gmac_range[0] < gmac < gmac_range[1],
+              f"{spec['model_name']}: forward {gmac:.3f} GMAC an image")
+        del fmodel
+        out.update(forward_gflops_per_image=fwd_flops / 1e9,
+                   forward_gmac_per_image=gmac)
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    res = perf.run_perf(**spec, step=step)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    step_s = res["steady_wall_s"] / res["iterations"]
+    check(math.isfinite(res["images_per_sec"]) and res["images_per_sec"] > 0,
+          f"{spec['model_name']}: {res}")
+    out.update(res, step_ms=step_s * 1e3, peak_mem_gib=peak)
+    if gmac_range is not None:
+        out["model_flops_share"] = 3 * out["forward_gflops_per_image"] \
+            * 1e9 * res["batch_size"] / step_s / BF16_FLOPS_PER_S
+    if profile_trace is not None:
+        i = res["iterations"] + 1
+        out["profile"] = _profile_call(lambda: float(step(i)),
+                                       profile_trace)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def phase_inception_trainer():
+    """BASELINE config 3: `perf.run_perf("inception-v1", 256, 10,
+    optimizer="sgd", precision="bf16")` at bench.py:2056's batch, 224 x
+    224 x 3, 1000 classes (Dropout(0.4) drawing its masks on the card):
+    images/s, step ms, peak memory, the forward counted from the conv
+    and linear shapes (checked against INCEPTION_GMAC), the model-flops
+    share and, from one more step under torch.profiler, the device-busy
+    share. Then `build(fused_branches=True)` (its inception layers are
+    nn.Graphs) forward in fp32 on the card against the same forward on
+    the CPU at batch INCEPTION_MODEL_BATCH (<= INCEPTION_FWD_TOL of the
+    largest log-probability); then AlexNet and Inception-v2, one short
+    `run_perf` each (SHORT_PERF)."""
+    import torch
+
+    from bigdl_tpu_torch.models import inception, perf
+    from bigdl_tpu_torch.models.convert import tree_map
+
+    t0 = time.perf_counter()
+    kw = {k: v for k, v in INCEPTION_PERF.items() if k != "iterations"}
+    step = perf.train_step(**kw)
+    v1 = _perf_cell(INCEPTION_PERF, INCEPTION_GMAC, step,
+                    "inception_train_trace.json")
+    del step
+    torch.cuda.empty_cache()
+
+    model = inception.build(1000, fused_branches=True)
+    variables = model.init(torch.Generator().manual_seed(3), "cpu")
+    x = torch.rand((INCEPTION_MODEL_BATCH, 224, 224, 3),
+                   generator=torch.Generator().manual_seed(4))
+    with torch.no_grad():
+        ref, _ = model.apply(variables, x)
+        out, _ = model.apply(tree_map(lambda t: t.cuda(), variables),
+                             x.cuda())
+    out = out.cpu()
+    fused_err = _rel_err(out, ref)
+    check(tuple(out.shape) == (INCEPTION_MODEL_BATCH, 1000)
+          and bool(torch.isfinite(out).all())
+          and fused_err <= INCEPTION_FWD_TOL,
+          f"inception_trainer: fused forward {fused_err:.3g}")
+    torch.cuda.empty_cache()
+    short = {spec["model_name"]: _perf_cell(spec) for spec in SHORT_PERF}
+    emit("inception_trainer", inception_v1=v1,
+         fused_forward={"batch": INCEPTION_MODEL_BATCH,
+                        "graph_layers": sum(
+                            type(m).__name__ == "Graph"
+                            for m in model.modules_),
+                        "rel_err_vs_cpu": fused_err},
+         **{k.replace("-", "_"): v for k, v in short.items()},
          seconds=time.perf_counter() - t0)
+
+
+def _layer_inputs(model, variables, shape, classes) -> dict:
+    """{class name: [the input of each call]} for `classes`, recorded
+    from a batch-1 forward on the card (inputs detached, on the card)."""
+    import torch
+
+    seen = {c.__name__: [] for c in classes}
+    applies = {c: c.apply for c in classes}
+
+    def spy(cls):
+        def apply(self, v, x, **kw):
+            seen[cls.__name__].append(x)
+            return applies[cls](self, v, x, **kw)
+        return apply
+
+    for c in classes:
+        c.apply = spy(c)
+    try:
+        with torch.no_grad():
+            model.apply(variables, torch.zeros((1,) + shape, device="cuda"))
+    finally:
+        for c in classes:
+            c.apply = applies[c]
+    return seen
+
+
+def phase_inception_profile():
+    """Inception-v1's LRN and concat share (`--profile` only): the two
+    SpatialCrossMapLRN layers and the nine inception Concats (their
+    branches' outputs joined by torch.cat), forward and backward at the
+    bf16 step's shapes (INCEPTION_PERF's batch), each timed alone with
+    CUDA events (`cuda_ms`), against the device time of one profiled
+    inception_trainer step."""
+    import torch
+
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.models import perf
+
+    t0 = time.perf_counter()
+    kw = {k: v for k, v in INCEPTION_PERF.items() if k != "iterations"}
+    step = perf.train_step(**kw)
+    float(step(0))
+    prof = _profile_call(lambda: float(step(1)), "inception_step_trace.json")
+    model = step.model
+    del step
+    torch.cuda.empty_cache()
+    seen = _layer_inputs(model, model.init(torch.Generator().manual_seed(0)),
+                         (224, 224, 3), (nn.SpatialCrossMapLRN, nn.Concat))
+    b = INCEPTION_PERF["batch_size"]
+    lrn = [m for m in model.modules_ if isinstance(m, nn.SpatialCrossMapLRN)]
+    concats = [m for m in model.modules_ if isinstance(m, nn.Concat)]
+    empty = {"params": {}, "state": {}}
+    flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device="cuda")
+
+    def fwd_bwd(fn, xs):
+        xs = [torch.randn((b,) + tuple(x.shape[1:]), device="cuda",
+                          dtype=torch.bfloat16, requires_grad=True)
+              for x in xs]
+        y = fn(xs)
+        g = torch.randn_like(y)
+        return cuda_ms(lambda: torch.autograd.grad(fn(xs), xs, g), flush,
+                       reps=10, warmup=2)
+
+    lrn_ms = [fwd_bwd(lambda xs, m=m: m.apply(empty, xs[0])[0], [x])
+              for m, x in zip(lrn, seen["SpatialCrossMapLRN"])]
+    # a Concat's inputs: the branches' outputs, recorded by one forward
+    cat_shapes = []
+    for m, x in zip(concats, seen["Concat"]):
+        with torch.no_grad():
+            v = m.init(torch.Generator().manual_seed(0))
+            cat_shapes.append([c.apply(m._child_vars(v, k), x)[0]
+                               for k, c in zip(m._keys, m.modules_)])
+    cat_ms = [fwd_bwd(lambda xs: torch.cat(xs, dim=-1), outs)
+              for outs in cat_shapes]
+    del flush
+    dev = prof.get("device_ms")
+    share = (lambda ms: sum(ms) / dev) if isinstance(dev, float) \
+        else (lambda ms: "not measured")
+    emit("inception_profile", batch=b, step=prof,
+         lrn_ms=lrn_ms, lrn_share_of_step_device=share(lrn_ms),
+         concat_ms=cat_ms, concat_share_of_step_device=share(cat_ms),
+         seconds=time.perf_counter() - t0)
+
+
+def _vgg_frame(n, classes, seed):
+    """A dict-of-lists DataFrame of seeded synthetic 224 x 224 x 3
+    images with labels in [0, classes) (the card's machine has no
+    pandas)."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    images = rng.rand(n, 224, 224, 3).astype(np.float32)
+    return {"features": list(images),
+            "label": [int(v) for v in rng.randint(0, classes, n)]}
+
+
+def phase_vgg_estimator():
+    """BASELINE config 5. First `perf.run_perf("vgg16", 128, 10,
+    optimizer="sgd", precision="bf16")` at bench.py:2060's batch (the
+    same fields as inception_trainer). Then the transfer leg: VGG-16's
+    ImageNet body (every layer but the 1000-class Linear and its
+    LogSoftMax) with the weights that run trained, a new 10-class
+    Linear head, fit by `DLClassifier(...).set_batch_size(128)` over a
+    dict-of-lists frame of seeded synthetic images for
+    VGG_TRANSFER["steps"] steps (fp32, SGD(1e-2)), then `transform`.
+    Gates: the body's weights at the start of the fit are the trained
+    ones (and not the perf run's initial ones), losses finite, every
+    prediction in [0, 10), as many predictions as rows."""
+    import numpy as np
+    import torch
+
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.ml import DLClassifier
+    from bigdl_tpu_torch.models import perf
+    from bigdl_tpu_torch.models.convert import tree_map
+    from bigdl_tpu_torch.optim import Trigger
+
+    t0 = time.perf_counter()
+    kw = {k: v for k, v in VGG_PERF.items() if k != "iterations"}
+    step = perf.train_step(**kw)
+    first = "0_SpatialConvolution"
+    initial = step.variables()["params"][first]["weight"].detach().clone()
+    cell = _perf_cell(VGG_PERF, VGG16_GMAC, step, "vgg_train_trace.json")
+
+    t1 = time.perf_counter()
+    trained = step.variables()
+    trained_first = trained["params"][first]["weight"].detach().clone()
+    body = nn.Sequential(*step.model.modules_[:-2])
+    full = nn.Sequential(body, nn.Linear(4096, VGG_TRANSFER["classes"])
+                         .set_name("head"), nn.LogSoftMax())
+    variables = full.init(torch.Generator().manual_seed(5))
+    variables["params"]["0_Sequential"] = {
+        k: trained["params"][k] for k in body._keys}
+    variables["state"]["0_Sequential"] = {
+        k: trained["state"][k] for k in body._keys}
+    full.variables = tree_map(lambda t: t.detach(), variables)
+    del step, trained, variables
+    torch.cuda.empty_cache()
+    n = VGG_TRANSFER["batch"] * VGG_TRANSFER["steps"]
+    frame = _vgg_frame(n, VGG_TRANSFER["classes"], 6)
+    losses, start = [], {}
+
+    def end_when(state):
+        if state["neval"] == 0:     # what the fit starts from
+            w = full.variables["params"]["0_Sequential"][first]["weight"]
+            start["trained"] = torch.equal(w, trained_first)
+            start["initial"] = torch.equal(w, initial)
+        if state["loss"] is not None:
+            losses.append(state["loss"])
+        return state["neval"] >= VGG_TRANSFER["steps"]
+
+    torch.cuda.synchronize()
+    t_fit = time.perf_counter()
+    fitted = DLClassifier(full, nn.ClassNLLCriterion(), [224, 224, 3]) \
+        .set_batch_size(VGG_TRANSFER["batch"]) \
+        .set_end_when(Trigger(end_when)).fit(frame)
+    torch.cuda.synchronize()
+    t_fit = time.perf_counter() - t_fit
+    t_tr = time.perf_counter()
+    out = fitted.transform(frame)
+    t_tr = time.perf_counter() - t_tr
+    losses = [float(v) for v in losses]
+    preds = np.asarray(out["prediction"])
+    moved = not torch.equal(
+        fitted.model.variables["params"]["0_Sequential"][first]["weight"],
+        trained_first)
+    from_trained = start.get("trained") is True \
+        and start.get("initial") is False
+    check(from_trained, "vgg_estimator: the body does not start from the "
+          "perf run's trained weights")
+    check(len(losses) == VGG_TRANSFER["steps"]
+          and all(math.isfinite(v) for v in losses),
+          f"vgg_estimator: losses {losses}")
+    check(len(preds) == n and preds.dtype.kind == "i"
+          and bool(((preds >= 0) & (preds < VGG_TRANSFER["classes"])).all()),
+          f"vgg_estimator: predictions {preds[:8]} ({len(preds)} of {n})")
+    emit("vgg_estimator", vgg16=cell, transfer={
+        "rows": n, "batch": VGG_TRANSFER["batch"],
+        "steps": VGG_TRANSFER["steps"], "losses": losses,
+        "body_from_trained": from_trained, "body_moved_in_fit": moved,
+        "fit_s": t_fit, "transform_s": t_tr,
+        "prediction_counts": np.bincount(
+            preds, minlength=VGG_TRANSFER["classes"]).tolist(),
+        "seconds": time.perf_counter() - t1},
+        seconds=time.perf_counter() - t0)
+
+
+def _tree_samples(n, seed):
+    """Seeded random trees built as bench.py's bench_treelstm builds them
+    ((TREE_NODES + 1) // 2 leaves merged pairwise at random), each as a
+    (word, left, right, is_leaf, mask, level) Sample; class y draws its
+    leaves from its own block of the vocabulary, so the loss can fall
+    in a few steps (the bench's labels are random)."""
+    import numpy as np
+
+    from bigdl_tpu_torch.dataset.sample import Sample
+    from bigdl_tpu_torch.models.treelstm import encode_from_nested
+
+    rng = np.random.RandomState(seed)
+    block = TREE_VOCAB // TREE_CLASSES
+    keys = ("word", "left", "right", "is_leaf", "mask", "level")
+    out, levels = [], 0
+    for _ in range(n):
+        y = int(rng.randint(0, TREE_CLASSES))
+        nodes = [int(rng.randint(y * block, (y + 1) * block))
+                 for _ in range((TREE_NODES + 1) // 2)]
+        while len(nodes) > 1:
+            i = int(rng.randint(0, len(nodes) - 1))
+            nodes[i:i + 2] = [(nodes[i], nodes[i + 1])]
+        e = encode_from_nested(nodes[0], TREE_NODES)
+        levels = max(levels, e["n_levels"])
+        out.append(Sample(tuple(e[k] for k in keys), np.int32(y)))
+    return out, levels
+
+
+def _tree_model(max_levels):
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.models.treelstm import BinaryTreeLSTM
+
+    return nn.Sequential(BinaryTreeLSTM(
+        TREE_VOCAB, TREE_EMBED, TREE_HIDDEN, TREE_CLASSES,
+        max_levels=max_levels), nn.Select(2, 1))
+
+
+def _tree_schedules(samples, max_levels):
+    """One batch, one set of weights, fp32 on the card: the wavefront's
+    and the slot scan's loss and gradients (worst excess over
+    TREE_SCHEDULE_TOL, <= 0 passes), then each schedule's bf16
+    loss-and-backward time (3 calls after one warm-up)."""
+    import numpy as np
+    import torch
+
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.models.convert import tree_leaves
+    from bigdl_tpu_torch.ops.losses import build_train_loss
+    from bigdl_tpu_torch.utils.precision import DEFAULT_MIXED
+
+    model = _tree_model(max_levels)
+    v = model.init(torch.Generator().manual_seed(8))
+    batch = samples[:TREE_BATCH]
+    six = tuple(torch.as_tensor(np.stack([s.feature[i] for s in batch]))
+                .cuda() for i in range(6))
+    y = torch.as_tensor(np.stack([s.label for s in batch])).cuda()
+
+    def run(inputs, policy):
+        leaves = [t.requires_grad_() for t in tree_leaves(v["params"])]
+        loss, _ = build_train_loss(model, nn.ClassNLLCriterion(), policy)(
+            v["params"], v["state"], inputs, y, None)
+        return loss, torch.autograd.grad(loss, leaves)
+
+    wl, wg = run(six, None)
+    sl, sg = run(six[:5], None)
+    rtol, atol = TREE_SCHEDULE_TOL["rtol"], TREE_SCHEDULE_TOL["atol"]
+    excess = max(float(((a - b).abs() - (atol + rtol * b.abs())).max())
+                 for a, b in zip((wl.detach(),) + wg, (sl.detach(),) + sg))
+    check(math.isfinite(float(wl)) and excess <= 0,
+          f"treelstm_trainer: wavefront vs slot scan off by {excess:.3g} "
+          f"over {TREE_SCHEDULE_TOL}")
+    times = {}
+    for name, inputs in (("wavefront", six), ("slot_scan", six[:5])):
+        run(inputs, DEFAULT_MIXED)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(3):
+            run(inputs, DEFAULT_MIXED)
+        torch.cuda.synchronize()
+        times[name] = (time.perf_counter() - t) / 3 * 1e3
+    return {"loss": float(wl), "slot_scan_loss": float(sl),
+            "max_excess_over_tol": excess,
+            "max_rel_grad_err": max(_rel_err(a, b) for a, b in zip(wg, sg)),
+            "bf16_loss_and_backward_ms": times}
+
+
+def phase_treelstm_trainer():
+    """BASELINE config 4's TreeLSTM half at bench.py:602 bench_treelstm's
+    widths (vocab 20000, d 300, h 150, 5 classes, batch 128, max_nodes
+    64, Adam(3e-3), bf16 mixed): `Optimizer(Sequential(BinaryTreeLSTM(
+    ..., max_levels), Select(2, 1)), DataSet.array(...), ClassNLL,
+    batch_size=128).set_validation(Trigger.several_iteration(6),
+    held-out trees, [TreeNNAccuracy(), Loss(...)]).optimize()` on the
+    wavefront schedule over a pool of TREE_POOL_BATCHES batches of
+    seeded trees, TREE_WARMUP + TREE_STEPS steps (validation time kept
+    apart from the step time): samples/s, step ms. Gates: losses finite
+    and falling (the last 3 below the first 3), validations after steps
+    6 and 12 with whole counts. Then one more step under torch.profiler
+    (busy share) and the schedule check (`_tree_schedules`)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.dataset import DataSet
+    from bigdl_tpu_torch.optim import (Adam, Loss, Optimizer,
+                                       TreeNNAccuracy, Trigger)
+
+    t0 = time.perf_counter()
+    train, lv_train = _tree_samples(TREE_BATCH * TREE_POOL_BATCHES, 0)
+    held, lv_held = _tree_samples(TREE_HELD_OUT, 1)
+    max_levels = max(lv_train, lv_held)
+    data_s = time.perf_counter() - t0
+    steps = TREE_WARMUP + TREE_STEPS
+    losses, marks, validations = [], {"val_s": []}, []
+    every = Trigger.several_iteration(TREE_VALID_EVERY)
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+
+    def validate_now(state):
+        fire = every(state)
+        if fire and "t0" in marks and "t1" not in marks:
+            torch.cuda.synchronize()        # validation time, kept apart
+            marks["v0"] = time.perf_counter()
+        return fire
+
+    def end_when(state):
+        if "v0" in marks:
+            torch.cuda.synchronize()
+            marks["val_s"].append(time.perf_counter() - marks.pop("v0"))
+        res = state.get("validation")
+        if res is not None and res is not marks.get("seen"):
+            marks["seen"] = res                 # a validation just ran
+            validations.append((state["neval"], {
+                k: v.result() for k, v in res.items()}))
+        if state["loss"] is not None:
+            losses.append(state["loss"])
+        if state["neval"] == TREE_WARMUP:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            marks["t0"] = time.perf_counter()
+        elif state["neval"] == steps:
+            torch.cuda.synchronize()
+            marks["t1"] = time.perf_counter()
+            prof.start()                        # one more step, profiled
+            marks["p0"] = time.perf_counter()
+        elif state["neval"] == steps + 1:
+            torch.cuda.synchronize()
+            marks["p1"] = time.perf_counter()
+            prof.stop()
+        return state["neval"] > steps
+
+    model = _tree_model(max_levels).build(torch.Generator().manual_seed(0))
+    Optimizer(model, DataSet.array(train), nn.ClassNLLCriterion(),
+              batch_size=TREE_BATCH) \
+        .set_optim_method(Adam(TREE_LR)).set_precision("bf16") \
+        .set_validation(Trigger(validate_now), DataSet.array(held),
+                        [TreeNNAccuracy(), Loss(nn.ClassNLLCriterion())]) \
+        .set_end_when(Trigger(end_when)).optimize()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = [float(v) for v in losses][:steps]
+    dt = marks["t1"] - marks["t0"] - sum(marks["val_s"])
+    check(len(losses) == steps and all(math.isfinite(v) for v in losses),
+          f"treelstm_trainer: losses {losses}")
+    check(sum(losses[-3:]) < sum(losses[:3]),
+          f"treelstm_trainer: loss did not fall: {losses}")
+    check([n for n, _ in validations] == [TREE_VALID_EVERY, steps]
+          and all(r[k][1] == TREE_HELD_OUT and math.isfinite(r[k][0])
+                  for _, r in validations
+                  for k in ("TreeNNAccuracy", "Loss")),
+          f"treelstm_trainer: validations {validations}")
+    OUT_DIR.mkdir(exist_ok=True)
+    prof.export_chrome_trace(str(OUT_DIR / "treelstm_train_trace.json"))
+    profiled = _profile_rows(prof, marks["p1"] - marks["p0"])
+    schedules = _tree_schedules(train, max_levels)
+    emit("treelstm_trainer", steps=TREE_STEPS, warmup_steps=TREE_WARMUP,
+         batch=TREE_BATCH, max_nodes=TREE_NODES, max_levels=max_levels,
+         schedule="wavefront", seconds=dt, data_s=data_s,
+         validation_seconds=marks["val_s"],
+         step_ms=dt / TREE_STEPS * 1e3,
+         samples_per_sec=TREE_STEPS * TREE_BATCH / dt,
+         peak_mem_gib=peak, losses=losses,
+         validations=[{"neval": n, **{k: {"value": v, "count": c}
+                                     for k, (v, c) in r.items()}}
+                      for n, r in validations],
+         profile=profiled, schedules=schedules,
+         total_seconds=time.perf_counter() - t0)
 
 
 def main() -> int:
@@ -3128,6 +3680,15 @@ def main() -> int:
     if "--profile" in sys.argv[1:]:
         torch.cuda.empty_cache()
         phase_resnet_profile()
+    torch.cuda.empty_cache()
+    phase_inception_trainer()
+    if "--profile" in sys.argv[1:]:
+        torch.cuda.empty_cache()
+        phase_inception_profile()
+    torch.cuda.empty_cache()
+    phase_vgg_estimator()
+    torch.cuda.empty_cache()
+    phase_treelstm_trainer()
     fp32 = kern["fp32"]
     # the flash rows: the trainer's shape in its compute dtype (bf16)
     row = flash["train/bf16"]

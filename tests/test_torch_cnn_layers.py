@@ -217,6 +217,10 @@ CONV = {
     "s2d_stem": (lambda nn: nn.SpatialConvolution(12, 8, 4, 4, 1, 1, (2, 1),
                                                   (2, 1), with_bias=False),
                  [(2, 8, 8, 12)]),
+    # a negative symmetric pad crops (lax.conv_general_dilated's rule)
+    "negative_pad": (lambda nn: nn.SpatialConvolution(3, 4, 3, 3, 1, 1,
+                                                      -2, -2),
+                     [(1, 8, 8, 3)]),
     "share": (lambda nn: nn.SpatialShareConvolution(3, 4, 1, 1, 2, 2),
               [(2, 6, 6, 3)]),
     "dilated": (lambda nn: nn.SpatialDilatedConvolution(3, 4, 3, 3, 1, 1,

@@ -34,6 +34,10 @@ NEW_IN_SLICE_4 = ("nn/table_ops.py", "optim/validation.py",
 NEW_IN_SLICE_9 = ("utils/table.py", "nn/reshape.py", "nn/conv.py",
                   "nn/pooling.py", "dataset/mnist.py", "dataset/cifar.py",
                   "models/lenet.py", "models/resnet.py", "models/perf.py")
+NEW_IN_SLICE_10 = ("nn/dropout.py", "nn/graph.py", "models/inception.py",
+                   "models/vgg.py", "models/alexnet.py",
+                   "models/treelstm.py", "ml/__init__.py",
+                   "ml/estimator.py")
 
 
 def test_port_files_exist():
@@ -42,7 +46,7 @@ def test_port_files_exist():
     scanned = {str(p.relative_to(ROOT / "bigdl_tpu_torch"))
                for p in PORT_FILES if "bigdl_tpu_torch" in p.parts}
     assert set(NEW_IN_SLICE_3) | set(NEW_IN_SLICE_4) \
-        | set(NEW_IN_SLICE_9) <= scanned
+        | set(NEW_IN_SLICE_9) | set(NEW_IN_SLICE_10) <= scanned
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -70,7 +74,12 @@ def test_port_import_loads_no_jax():
             "bigdl_tpu_torch.nn.pooling, bigdl_tpu_torch.nn.normalization, "
             "bigdl_tpu_torch.nn.container, bigdl_tpu_torch.dataset.mnist, "
             "bigdl_tpu_torch.dataset.cifar, bigdl_tpu_torch.models.lenet, "
-            "bigdl_tpu_torch.models.resnet, bigdl_tpu_torch.models.perf; "
+            "bigdl_tpu_torch.models.resnet, bigdl_tpu_torch.models.perf, "
+            "bigdl_tpu_torch.nn.dropout, bigdl_tpu_torch.nn.graph, "
+            "bigdl_tpu_torch.models.inception, bigdl_tpu_torch.models.vgg, "
+            "bigdl_tpu_torch.models.alexnet, "
+            "bigdl_tpu_torch.models.treelstm, bigdl_tpu_torch.ml, "
+            "bigdl_tpu_torch.ml.estimator; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{BANNED!r}]; "
             "assert not bad, bad")

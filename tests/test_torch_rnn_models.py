@@ -204,5 +204,32 @@ def test_inference_pass_takes_no_residuals():
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="nn/dropout.py"):
-        trnn.lstm_lm(VOCAB, dropout=0.5)
+    """lstm_lm(dropout=0.5), which raised until nn/dropout.py was
+    ported: the JAX package's layers (a Dropout after each LSTM layer)
+    and the same log-probabilities in evaluation, and in training with
+    the Dropouts' p set to 0 (threefry is not ported, so masks drawn at
+    p > 0 differ by design)."""
+    jm = jrnn.lstm_lm(VOCAB, EMBED, HIDDEN, num_layers=2, dropout=0.5)
+    tm = trnn.lstm_lm(VOCAB, EMBED, HIDDEN, num_layers=2, dropout=0.5)
+    assert [type(m).__name__ for m in tm.modules_] \
+        == [type(m).__name__ for m in jm.modules] \
+        == ["LookupTable", "Recurrent", "Dropout", "Recurrent", "Dropout",
+            "TimeDistributed", "TimeDistributed"]
+    jv = jm.init(jax.random.PRNGKey(4))
+    tv = {"params": params_from_jax(jax.device_get(jv["params"]),
+                                    device="cpu"),
+          "state": tm.init_state()}
+    x, _ = _batch("lstm_lm", 5)
+    jout, _ = jm.apply(jv, jnp.asarray(x))
+    tout, _ = tm.apply(tv, torch.tensor(x))
+    np.testing.assert_allclose(tout.numpy(), np.asarray(jout), rtol=0,
+                               atol=TOL["fp32"])
+    for m in tm.modules_ + jm.modules:
+        if type(m).__name__ == "Dropout":
+            m.p = 0.0
+    jtrain, _ = jm.apply(jv, jnp.asarray(x), training=True,
+                         rng=jax.random.PRNGKey(5))
+    ttrain, _ = tm.apply(tv, torch.tensor(x), training=True,
+                         rng=torch.Generator().manual_seed(5))
+    np.testing.assert_allclose(ttrain.numpy(), np.asarray(jtrain), rtol=0,
+                               atol=TOL["fp32"])

@@ -228,7 +228,7 @@ def test_evaluation_runs_without_autograd_and_refuses_a_mesh():
         p.requires_grad_()
     out = topt.Predictor(tm, batch_size=4).predict(tdata)
     assert out.grad_fn is None and out.shape == (5, 2)
-    with pytest.raises(NotImplementedError, match="A.6"):
+    with pytest.raises(NotImplementedError, match="A.8"):
         topt.Evaluator(tm, mesh=object())
 
 
