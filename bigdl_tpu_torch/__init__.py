@@ -33,7 +33,12 @@ Ported so far, slice by slice:
 5. CNNs — LeNet-5 and the ResNets, Inception v1/v2, VGG and
    AlexNet through `models/perf.py`, `nn.Graph`, dropout, the
    `ml/estimator.py` pipeline API and the TreeLSTM (`models/treelstm.py`),
-   on cuDNN and ATen (no Pallas kernel lies on that path).
+   on cuDNN and ATen (no Pallas kernel lies on that path);
+6. long runs — checkpoints in the JAX package's format and resume
+   (`serialization/`), gradient accumulation, the anomaly guard
+   (`utils/anomaly.py`), fault plans (`utils/faults.py`), TensorBoard
+   summaries (`visualization/`, `obs/training.py`) and the other optim
+   methods, in `optim.Optimizer`.
 """
 
 __version__ = "0.1.0"

@@ -48,6 +48,27 @@ def tree_leaves(tree: Any) -> List[Any]:
     return [leaf for _, leaf in tree_leaves_with_path(tree)]
 
 
+def tree_unflatten(template: Any, leaves: List[Any]) -> Any:
+    """A tree shaped like `template` whose leaves are `leaves`, taken in
+    `tree_leaves` order (dict keys sorted) — the inverse of
+    `tree_leaves`."""
+    leaves = list(leaves)
+    if len(leaves) != len(tree_leaves(template)):
+        raise ValueError(f"{len(leaves)} leaves for a tree of "
+                         f"{len(tree_leaves(template))}")
+    it = iter(leaves)
+
+    def rec(node):
+        if isinstance(node, dict):
+            filled = {k: rec(node[k]) for k in sorted(node)}
+            return type(node)((k, filled[k]) for k in node)
+        if isinstance(node, (list, tuple)):
+            return type(node)(rec(v) for v in node)
+        return next(it)
+
+    return rec(template)
+
+
 def params_to_numpy(tree: Any) -> Any:
     """The same tree with every tensor leaf as a float32/int host numpy
     array (bf16 leaves are widened to float32) — the form the JAX

@@ -1,9 +1,11 @@
 """bigdl_tpu_torch.optim — training orchestration (counterpart:
-bigdl_tpu/optim/): the Optimizer builder and LocalOptimizer loop, SGD
-and Adam, schedules, triggers, metrics, validation methods, Evaluator
-and Predictor."""
+bigdl_tpu/optim/): the Optimizer builder and LocalOptimizer loop, SGD,
+Adam, Adagrad, Adamax, RMSprop, AdaDelta and Ftrl, schedules,
+triggers, metrics, validation methods, Evaluator and Predictor."""
 
-from bigdl_tpu_torch.optim.optim_method import OptimMethod, SGD, Adam
+from bigdl_tpu_torch.optim.optim_method import (
+    OptimMethod, SGD, Adam, Adagrad, Adamax, RMSprop, AdaDelta, Ftrl,
+)
 from bigdl_tpu_torch.optim.lr_schedule import (
     LearningRateSchedule, Default, Step, MultiStep, EpochStep, EpochDecay,
     Poly, Exponential, NaturalExp, Warmup, Plateau, SequentialSchedule,

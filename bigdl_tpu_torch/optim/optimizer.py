@@ -7,6 +7,7 @@ builder keeps the JAX package's surface:
     Optimizer(model, DataSet.array(samples), nn.ChunkedSoftmaxCE(),
               batch_size=8).set_optim_method(Adam(3e-4)) \\
         .set_precision("bf16").set_end_when(Trigger.max_iteration(10)) \\
+        .set_checkpoint("/ckpt", Trigger.several_iteration(1000)) \\
         .optimize()
 
 Where the JAX package jits one pure step, a step here is eager
@@ -15,22 +16,44 @@ nn.ChunkedSoftmaxCE fuses into the model), `torch.autograd.grad` with
 respect to the fp32 master weights, clipping, then the optim method's
 in-place update. The run loop keeps the JAX package's train state
 (`epoch`, `neval`, `nupdates`, `records`, `loss`), evaluates the
-schedule per step, rolls epochs over by records seen, and fetches
-step N's loss for the log line only after step N+1 is enqueued, so
-the host never waits on the card mid-loop.
+schedule per update, rolls epochs over by records seen, and fetches
+step N's loss for the log line and the summaries only after step N+1
+is enqueued, so an unguarded loop never waits on the card mid-run.
 
-Ported: `set_optim_method`, `set_end_when`, `set_precision`,
-`set_constant_gradient_clipping`, `set_gradient_clipping_by_l2_norm`,
-`set_validation` and `optimize`. When the validation trigger fires
-after a step, the loop runs the model over the validation set under
-`torch.no_grad()` in the compute dtype (outputs cast back to the
-output dtype), logs each method's result, keeps the first method's
-value in `train_state["score"]` (a schedule with `on_metric` sees it)
-and all of them, by method name, in `train_state["validation"]` —
-where an end trigger can read them. Checkpoints and resume, gradient
-accumulation, the anomaly guard and fault plans, summaries and obs
-telemetry, and `set_mesh` raise NotImplementedError; ROADMAP.md queues
-them.
+Ported:
+- `set_optim_method`, `set_end_when`, `set_precision`,
+  `set_constant_gradient_clipping`, `set_gradient_clipping_by_l2_norm`,
+  the attribute `log_every`, and `optimize`;
+- `set_validation`: after a step that fires the trigger, the model runs
+  over the validation set under `torch.no_grad()` in the compute dtype;
+  each method's result is logged (and written to the validation
+  summary), the first method's value is kept in `train_state["score"]`
+  (a schedule with `on_metric` sees it) and all of them, by name, in
+  `train_state["validation"]`;
+- `set_checkpoint(path, trigger, async_save=)` and
+  `resume_from_checkpoint`: the JAX package's checkpoint format
+  (serialization/checkpoint.py; the port's flat slot lists are saved
+  as trees shaped like the params and flattened again at load), with
+  the train state and a mid-cycle accumulator; resume fast-forwards the
+  deterministic batch stream (`_batch_iterator(skip=)`), so a resumed
+  run sees the batches the uninterrupted run would have;
+- `set_gradient_accumulation(n)`: grads-only micro-steps summed into an
+  fp32 accumulator, the mean applied every n-th micro-batch, a partial
+  cycle flushed when the end trigger fires mid-cycle;
+- `set_anomaly_guard`: the guarded step reads the loss's finiteness and
+  the pre-clip gradient norm on the host before it updates in place, so
+  an anomalous step leaves params, slots and module state bit for bit
+  (`skip_step`), reloads the newest valid checkpoint (`rollback`) or
+  raises (`halt`); schedules and Adam's step index advance per applied
+  update (`nupdates`), never per micro-batch or discarded step;
+- the fault points of utils/faults.py (`preempt`, `step`, `nan`,
+  `data`, and the checkpoint's `ckpt_torn`/`ckpt_corrupt`);
+- `set_train_summary`/`set_validation_summary` (visualization/): Loss,
+  Throughput and LearningRate through obs/training.StepTelemetry, and
+  parameter histograms under the summary's "Parameters" trigger.
+
+`set_mesh` and `set_checkpoint(sharded=True)` raise
+NotImplementedError (ROADMAP.md, queue A.8).
 """
 
 from __future__ import annotations
@@ -45,38 +68,69 @@ import torch
 from bigdl_tpu_torch.dataset.dataset import AbstractDataSet
 from bigdl_tpu_torch.dataset.sample import MiniBatch
 from bigdl_tpu_torch.dataset.transformer import SampleToMiniBatch
-from bigdl_tpu_torch.models.convert import tree_leaves, tree_map
+from bigdl_tpu_torch.models.convert import (tree_leaves,
+                                            tree_leaves_with_path, tree_map,
+                                            tree_unflatten)
 from bigdl_tpu_torch.nn.module import Criterion, Module
+from bigdl_tpu_torch.obs.training import StepTelemetry
 from bigdl_tpu_torch.ops.losses import build_train_loss
 from bigdl_tpu_torch.optim.metrics import Metrics, Timer
 from bigdl_tpu_torch.optim.optim_method import OptimMethod, SGD
 from bigdl_tpu_torch.optim.trigger import Trigger
 from bigdl_tpu_torch.optim.validation import (ValidationMethod,
                                               ValidationResult)
+from bigdl_tpu_torch.serialization.checkpoint import Checkpoint
+from bigdl_tpu_torch.utils import faults
+from bigdl_tpu_torch.utils.anomaly import (AnomalyError, AnomalyGuard,
+                                           global_norm, health_ok)
 from bigdl_tpu_torch.utils.precision import DEFAULT_MIXED, Policy
 
 logger = logging.getLogger("bigdl_tpu_torch.optim")
 
 
-def _not_ported(what: str, queue: str = "A.5"):
+def _not_ported(what: str, queue: str = "A.8"):
     raise NotImplementedError(
         f"Optimizer: {what} is not ported to bigdl_tpu_torch yet "
         f"(ROADMAP.md, queue {queue})")
 
 
 def _batch_iterator(dataset: AbstractDataSet, train: bool,
-                    batch_size: Optional[int]):
-    """MiniBatches from a dataset that yields Samples or MiniBatches."""
+                    batch_size: Optional[int], skip: int = 0):
+    """MiniBatches from a dataset that yields Samples or MiniBatches.
+
+    `skip` fast-forwards past the first `skip` batches (resume): the
+    training stream replays deterministic epoch permutations from its
+    seed, so skipping the batches a checkpointed run consumed re-aligns
+    it. Samples are skipped without stacking. A training stream passes
+    through the `data@<position>` fault point at global stream position
+    skip + local index; the skipped batches do not fire it."""
     it = dataset.data(train=train)
     first = next(it, None)
     if first is None:
         return iter(())
     chained = itertools.chain([first], it)
     if isinstance(first, MiniBatch):
-        return chained
+        for _ in range(skip):
+            next(chained, None)
+        return _fault_gate(chained, skip) if train else chained
     if batch_size is None:
         raise ValueError("dataset yields Samples; batch_size is required")
-    return SampleToMiniBatch(batch_size)(chained)
+    for _ in range(skip * batch_size):
+        next(chained, None)
+    batched = SampleToMiniBatch(batch_size)(chained)
+    return _fault_gate(batched, skip) if train else batched
+
+
+def _fault_gate(it, start: int):
+    """A training batch stream with the `data` fault point."""
+    def gen():
+        pos = start
+        for mb in it:
+            faults.get_plan().maybe_raise("data", pos)
+            pos += 1
+            yield mb
+
+    return gen()
 
 
 def _to_device(x, device: torch.device):
@@ -108,6 +162,14 @@ class Optimizer:
         self.validation_dataset: Optional[AbstractDataSet] = None
         self.validation_methods: List[ValidationMethod] = []
         self.validation_batch_size: Optional[int] = None
+        self.checkpoint: Optional[Checkpoint] = None
+        self.checkpoint_trigger: Optional[Trigger] = None
+        self.train_summary = None
+        self.validation_summary = None
+        self.log_every = 1
+        self.grad_accum = 1
+        self.anomaly_guard: Optional[AnomalyGuard] = None
+        self._resume = False
 
     # ------------------------------------------------------- builder surface
     def set_optim_method(self, method: OptimMethod) -> "Optimizer":
@@ -148,30 +210,102 @@ class Optimizer:
         self.validation_batch_size = batch_size or self.batch_size
         return self
 
-    def set_checkpoint(self, *args, **kwargs) -> "Optimizer":
-        _not_ported("checkpointing (set_checkpoint)")
+    def set_checkpoint(self, path: str, trigger: Trigger,
+                       sharded: bool = False,
+                       async_save: bool = False) -> "Optimizer":
+        """Save a checkpoint under `path` whenever `trigger` fires after
+        a step; `async_save=True` moves the disk writes to a background
+        thread (the host snapshot stays on the loop's thread).
+        `sharded=True` raises: sharded checkpoints wait for queue A.8."""
+        self.checkpoint = Checkpoint(path, sharded=sharded,
+                                     async_save=async_save)
+        self.checkpoint_trigger = trigger
+        return self
 
     def resume_from_checkpoint(self) -> "Optimizer":
-        _not_ported("resume (resume_from_checkpoint)")
+        """Continue from the newest valid checkpoint under the checkpoint
+        path, if there is one (reference: Optimizer resume)."""
+        self._resume = True
+        return self
+
+    @staticmethod
+    def _coerce_summary(summary, cls):
+        if isinstance(summary, str):
+            return cls(summary, "bigdl_tpu_torch")
+        if not hasattr(summary, "add_scalar"):
+            raise TypeError(
+                f"expected a {cls.__name__} (or a logdir string), got "
+                f"{type(summary).__name__}")
+        return summary
 
     def set_train_summary(self, summary) -> "Optimizer":
-        _not_ported("train summaries (set_train_summary)")
+        from bigdl_tpu_torch.visualization import TrainSummary
+
+        self.train_summary = self._coerce_summary(summary, TrainSummary)
+        return self
 
     def set_validation_summary(self, summary) -> "Optimizer":
-        _not_ported("validation summaries (set_validation_summary)")
+        from bigdl_tpu_torch.visualization import ValidationSummary
+
+        self.validation_summary = self._coerce_summary(summary,
+                                                       ValidationSummary)
+        return self
 
     def set_gradient_accumulation(self, n: int) -> "Optimizer":
-        _not_ported("gradient accumulation (set_gradient_accumulation)")
+        """Accumulate gradients over `n` micro-batches before each
+        update (effective batch n x batch_size)."""
+        if n < 1:
+            raise ValueError("accumulation steps must be >= 1")
+        self.grad_accum = n
+        return self
 
-    def set_anomaly_guard(self, *args, **kwargs) -> "Optimizer":
-        _not_ported("the anomaly guard (set_anomaly_guard)")
+    def set_anomaly_guard(self, guard="skip_step", **kwargs) -> "Optimizer":
+        """Arm the numeric-anomaly guard (utils/anomaly.py). `guard` is
+        an AnomalyGuard, a policy string ('skip_step' | 'rollback' |
+        'halt'; kwargs go to AnomalyGuard), or None to disarm."""
+        if isinstance(guard, str):
+            guard = AnomalyGuard(policy=guard, **kwargs)
+        elif guard is not None and not isinstance(guard, AnomalyGuard):
+            raise TypeError(
+                f"expected AnomalyGuard, policy str or None, got "
+                f"{type(guard).__name__}")
+        elif kwargs:
+            raise ValueError("kwargs only apply when guard is a policy str")
+        self.anomaly_guard = guard
+        return self
 
     def set_mesh(self, *args, **kwargs) -> "Optimizer":
-        _not_ported("distributed training (set_mesh, DistriOptimizer)",
-                    "A.8")
+        _not_ported("distributed training (set_mesh, DistriOptimizer)")
 
     def optimize(self) -> Module:
-        return LocalOptimizer(self).run()
+        try:
+            return LocalOptimizer(self).run()
+        except BaseException:
+            # a dying run drains the background checkpoint writer, so a
+            # restart never races a still-live write of this process; a
+            # writer error here is secondary to the one propagating
+            if self.checkpoint is not None:
+                try:
+                    self.checkpoint.wait()
+                except Exception:
+                    logger.exception("checkpoint writer failed while the "
+                                     "run was dying")
+            raise
+
+
+def _matched(what: str, template, loaded) -> List[torch.Tensor]:
+    """`loaded`'s leaves in `template`'s order, checked leaf by leaf:
+    the same key paths and shapes."""
+    want, got = tree_leaves_with_path(template), tree_leaves_with_path(loaded)
+    if [p for p, _ in want] != [p for p, _ in got]:
+        raise ValueError(
+            f"checkpoint {what} tree does not match the model's: "
+            f"{sorted(set(p for p, _ in want) ^ set(p for p, _ in got))[:4]}")
+    for (path, t), (_, a) in zip(want, got):
+        if tuple(t.shape) != tuple(a.shape):
+            raise ValueError(f"checkpoint {what} leaf {path}: shape "
+                             f"{tuple(a.shape)}, model {tuple(t.shape)}")
+    return [a for _, a in got]
 
 
 class LocalOptimizer:
@@ -181,32 +315,144 @@ class LocalOptimizer:
     def __init__(self, opt: Optimizer):
         self.o = opt
         self.metrics = Metrics()
+        self.telemetry = StepTelemetry(summary=opt.train_summary,
+                                       log_every=opt.log_every)
 
-    def _make_step(self, slots: Dict[str, Any]) -> Callable:
+    # ---------------------------------------------------------- the step
+    def _make_step(self, leaves: List[torch.Tensor],
+                   slots: Dict[str, Any]) -> Callable:
+        """`step(params, mod_state, bx, by, lr, stepno, rng, max_gnorm)
+        -> (loss, new_state, ok, gnorm)`: updates `leaves` and `slots`
+        in place. `ok`/`gnorm` are host values read on a guarded step
+        (True/None otherwise); an anomalous step returns the old module
+        state and updates nothing. With accumulation the step carries
+        `flush`, `micro_state`, `restore_micro` and `clear_micro`."""
         o = self.o
         method = o.optim_method
         clip_const, clip_norm = o.grad_clip_const, o.grad_clip_norm
+        accum = o.grad_accum
+        guarded = o.anomaly_guard is not None
         loss_call = build_train_loss(o.model, o.criterion, o.precision)
 
-        def step(params, leaves, mod_state, bx, by, lr, stepno, rng):
+        def grads_of(params, mod_state, bx, by, rng):
             loss, new_state = loss_call(params, mod_state, bx, by, rng)
             grads = list(torch.autograd.grad(loss, leaves))
-            with torch.no_grad():
-                if clip_const is not None:
-                    torch._foreach_clamp_min_(grads, clip_const[0])
-                    torch._foreach_clamp_max_(grads, clip_const[1])
-                if clip_norm is not None:
-                    gnorm = torch.stack(
-                        [(g.float() * g.float()).sum() for g in grads]
-                    ).sum().sqrt()
-                    scale = (clip_norm / gnorm.clamp_min(1e-12)).clamp_max(
-                        1.0)
-                    torch._foreach_mul_(grads, scale)
-                method.update(grads, leaves, slots, lr, stepno)
-            return loss.detach(), new_state
+            return loss.detach(), new_state, grads
 
+        @torch.no_grad()
+        def health(loss, grads, max_gnorm):
+            """ok and the pre-clip norm, in one read by the host."""
+            gnorm = global_norm(grads)
+            ok = health_ok(loss, gnorm, max_gnorm)
+            ok_f, gnorm_f = torch.stack([ok.to(gnorm.dtype), gnorm]).tolist()
+            return bool(ok_f), gnorm_f
+
+        @torch.no_grad()
+        def clip_and_update(grads, lr, stepno):
+            if clip_const is not None:
+                torch._foreach_clamp_min_(grads, clip_const[0])
+                torch._foreach_clamp_max_(grads, clip_const[1])
+            if clip_norm is not None:
+                gnorm = torch.stack(
+                    [(g.float() * g.float()).sum() for g in grads]
+                ).sum().sqrt()
+                scale = (clip_norm / gnorm.clamp_min(1e-12)).clamp_max(1.0)
+                torch._foreach_mul_(grads, scale)
+            method.update(grads, leaves, slots, lr, stepno)
+
+        # gradient accumulation: grads-only micro-steps, the mean applied
+        # every `accum`-th call; summed in fp32 and divided once, as the
+        # JAX package's upd_fn does
+        micro: Dict[str, Any] = {"acc": None, "n": 0}
+
+        def apply_mean(lr, stepno, n):
+            with torch.no_grad():
+                mean = torch._foreach_div(micro["acc"], float(n))
+            clip_and_update(mean, lr, stepno)
+            micro["acc"], micro["n"] = None, 0
+
+        def accumulate(grads, lr, stepno):
+            if micro["acc"] is None:
+                micro["acc"] = grads
+            else:
+                with torch.no_grad():
+                    torch._foreach_add_(micro["acc"], grads)
+            micro["n"] += 1
+            if micro["n"] == accum:
+                apply_mean(lr, stepno, accum)
+
+        consume = clip_and_update if accum == 1 else accumulate
+
+        def step(params, mod_state, bx, by, lr, stepno, rng,
+                 max_gnorm=None):
+            loss, new_state, grads = grads_of(params, mod_state, bx, by,
+                                              rng)
+            ok, gnorm = True, None
+            if guarded:
+                ok, gnorm = health(loss, grads, max_gnorm)
+                if not ok:
+                    # an anomalous step updates nothing and drops its
+                    # module state; under accumulation its gradients
+                    # never touch the accumulator and the cycle extends
+                    # by one batch
+                    return loss, mod_state, ok, gnorm
+            consume(grads, lr, stepno)
+            return loss, new_state, ok, gnorm
+
+        if accum == 1:
+            return step
+
+        def flush(lr, stepno):
+            """Apply a pending partial accumulator (end trigger fired
+            mid-cycle): the mean over the micro-batches actually seen."""
+            if micro["n"]:
+                apply_mean(lr, stepno, micro["n"])
+
+        def restore_micro(acc, n):
+            """Reinstall a checkpointed mid-cycle accumulator. A cycle
+            from a run with a larger grad_accum (n >= accum) would never
+            complete: refuse it and restart the cycle."""
+            if n >= accum:
+                logger.warning(
+                    "checkpointed accumulation cycle (%d micro-batches) "
+                    "does not fit grad_accum=%d; discarding the partial "
+                    "accumulator and restarting the cycle", n, accum)
+                return
+            micro["acc"], micro["n"] = acc, n
+
+        step.flush = flush
+        step.micro_state = lambda: (micro["acc"], micro["n"])
+        step.restore_micro = restore_micro
+        step.clear_micro = lambda: micro.update(acc=None, n=0)
         return step
 
+    # -------------------------------------------------------- checkpoints
+    def _require_rollback_checkpoint(self) -> None:
+        """The 'rollback' policy has nothing to roll back to without a
+        saved checkpoint."""
+        o = self.o
+        if o.checkpoint is None or not o.checkpoint.latest():
+            raise AnomalyError(
+                "anomaly policy 'rollback' needs a checkpoint "
+                "(set_checkpoint) with at least one save; none found")
+
+    @staticmethod
+    def _as_tree(params, flat: List[torch.Tensor]):
+        """A list over the trainable leaves as a tree shaped like
+        `params` (the JAX package's slot layout); a non-trainable leaf
+        gets zeros."""
+        it = iter(flat)
+        return tree_unflatten(params, [
+            next(it) if p.requires_grad else torch.zeros_like(p)
+            for p in tree_leaves(params)])
+
+    @staticmethod
+    def _as_flat(what: str, params, tree) -> List[torch.Tensor]:
+        """The inverse of `_as_tree`: a loaded tree's trainable leaves."""
+        return [a for a, p in zip(_matched(what, params, tree),
+                                  tree_leaves(params)) if p.requires_grad]
+
+    # ---------------------------------------------------------------- run
     def run(self) -> Module:
         o = self.o
         variables = dict(o.model.variables)  # existing build or default init
@@ -217,32 +463,127 @@ class LocalOptimizer:
             raise ValueError(f"{o.model!r} has no trainable parameters")
         device = leaves[0].device
         slots = o.optim_method.init_slots(leaves)
-        step = self._make_step(slots)
+        step = self._make_step(leaves, slots)
+        guard = o.anomaly_guard
+        plan = faults.get_plan()
+        # "nupdates" counts optimizer updates actually applied: the
+        # schedule's and the optim method's step clock. Without the
+        # guard it equals neval // grad_accum; with it, a discarded
+        # update or micro-batch does not advance it
         train_state: Dict[str, Any] = {"epoch": 1, "neval": 0,
                                        "nupdates": 0, "records": 0,
                                        "loss": None, "score": None}
+        batches = None
+
+        def restore_from_checkpoint(rebuild_stream=True):
+            """Reload params, slots, module state and train state from
+            the newest valid checkpoint, in place; returns the saved
+            mid-cycle accumulator (or None)."""
+            nonlocal batches
+            o.checkpoint.wait()  # surface any pending async-save error
+            loaded, slot_trees, saved, optim_meta = o.checkpoint.load(
+                with_optim_meta=True)
+            if (optim_meta or {}).get("layout") in ("zero1_flat",
+                                                    "zero2_flat"):
+                _not_ported("resuming a DistriOptimizer checkpoint "
+                            f"({optim_meta['layout']} slots)")
+            if set(slot_trees) != set(slots):
+                raise ValueError(
+                    f"checkpoint slots {sorted(slot_trees)} do not match "
+                    f"{type(o.optim_method).__name__}'s {sorted(slots)}")
+            with torch.no_grad():
+                for dst, src in zip(tree_leaves(params), _matched(
+                        "params", params, loaded["params"])):
+                    dst.copy_(src)
+                for key, flat in slots.items():
+                    for dst, src in zip(flat, self._as_flat(
+                            f"slot {key!r}", params, slot_trees[key])):
+                        dst.copy_(src)
+            variables["state"] = tree_map(lambda t: t.to(device),
+                                          loaded.get("state", {}))
+            saved_accum = o.checkpoint.load_accum()
+            train_state.update(saved)
+            if "nupdates" not in saved:  # pre-counter checkpoint
+                train_state["nupdates"] = \
+                    train_state["neval"] // o.grad_accum
+            if rebuild_stream:
+                batches = _batch_iterator(o.dataset, True, o.batch_size,
+                                          skip=train_state["neval"])
+            return saved_accum
+
+        # host mirror of the step's micro-batch count: drives the
+        # nupdates increment at each completed accumulation cycle
+        micro_seen = [0]
+
+        def install_accum(saved_accum):
+            micro_seen[0] = 0
+            if saved_accum is None:
+                return
+            n = int(saved_accum["micro_n"])
+            if not hasattr(step, "restore_micro"):
+                logger.warning(
+                    "checkpoint holds a mid-cycle accumulator (%d "
+                    "micro-batches) but this run has grad_accum=1; the "
+                    "partial gradients are discarded", n)
+                return
+            step.restore_micro(
+                [a.to(device) for a in self._as_flat(
+                    "accumulator", params, saved_accum["g_acc"])], n)
+            # mirror what restore_micro installed: it refuses (leaves 0)
+            # a cycle that does not fit this run's grad_accum
+            micro_seen[0] = step.micro_state()[1]
+
+        if o._resume and o.checkpoint is not None and o.checkpoint.latest():
+            install_accum(restore_from_checkpoint(rebuild_stream=False))
+            logger.info("resumed from %s at %s", o.checkpoint._last_loaded,
+                        train_state)
+
         dataset_size = o.dataset.size()
-        batches = _batch_iterator(o.dataset, True, o.batch_size)
+        batches = _batch_iterator(o.dataset, True, o.batch_size,
+                                  skip=train_state["neval"])
         pending = None  # step N's telemetry, emitted after step N+1
         epoch_start = iter_start = time.perf_counter()
 
         while not o.end_when(train_state):
+            plan.maybe_preempt(train_state["neval"])
+            plan.maybe_raise("step", train_state["neval"])
             with Timer(self.metrics, "data_fetch_s"):
                 mb = next(batches)
-            lr = o.optim_method.current_rate(train_state)
+            if plan.fires("nan", train_state["neval"]):
+                mb = faults.poison_minibatch(mb)
+            # schedules and the step index advance per applied update
+            eff_step = train_state["nupdates"]
+            lr_state = train_state if o.grad_accum == 1 and guard is None \
+                else {**train_state, "neval": eff_step}
+            lr = o.optim_method.current_rate(lr_state)
             # per-step dropout stream, the counterpart of fold_in(rng, neval)
             rng = torch.Generator(device=device).manual_seed(
                 o.seed * 1_000_003 + train_state["neval"])
             with Timer(self.metrics, "dispatch_s"):
-                loss, variables["state"] = step(
-                    params, leaves, variables["state"],
+                loss, variables["state"], ok, gnorm = step(
+                    params, variables["state"],
                     _to_device(mb.input, device),
-                    _to_device(mb.target, device), lr,
-                    train_state["nupdates"], rng)
+                    _to_device(mb.target, device), lr, eff_step, rng,
+                    None if guard is None else guard.threshold())
+            if guard is not None:
+                action = guard.observe(ok, gnorm, train_state["neval"])
+                if action == "rollback":
+                    self._require_rollback_checkpoint()
+                    saved_accum = restore_from_checkpoint()
+                    if hasattr(step, "clear_micro"):
+                        step.clear_micro()
+                    install_accum(saved_accum)
+                    continue
             # `loss` stays on the device: it is read one step late
             real = getattr(mb, "real_size", mb.size)
             train_state["neval"] += 1
-            train_state["nupdates"] += 1
+            if o.grad_accum == 1:
+                train_state["nupdates"] += int(ok)
+            elif ok:
+                micro_seen[0] += 1
+                if micro_seen[0] == o.grad_accum:
+                    train_state["nupdates"] += 1
+                    micro_seen[0] = 0
             train_state["records"] += real
             train_state["loss"] = loss
             now = time.perf_counter()
@@ -250,8 +591,17 @@ class LocalOptimizer:
             self.metrics.add("iter_s", iter_wall)
             if pending is not None:
                 self._emit(pending)
+            # histograms are read here, before the next step updates the
+            # params in place (a host sync, on the trigger's steps only)
+            hists = None
+            if o.train_summary is not None:
+                pt = o.train_summary.get_summary_trigger("Parameters")
+                if pt is not None and pt(train_state):
+                    hists = [(name, t.detach().to("cpu", copy=True).numpy())
+                             for name, t
+                             in o.model.parameters({"params": params})]
             pending = (dict(train_state), loss, lr,
-                       real / max(iter_wall, 1e-9))
+                       real / max(iter_wall, 1e-9), hists)
 
             # epoch rollover (the reference counts records vs dataset size)
             if train_state["records"] >= dataset_size:
@@ -268,6 +618,9 @@ class LocalOptimizer:
                 for name, r in res.items():
                     v, n = r.result()
                     logger.info("validation %s = %.6f (%d)", name, v, n)
+                    if o.validation_summary is not None:
+                        o.validation_summary.add_scalar(
+                            name, v, train_state["neval"])
                 train_state["validation"] = res
                 first = next(iter(res.values()), None)
                 if first is not None:
@@ -276,12 +629,50 @@ class LocalOptimizer:
                     if hasattr(sched, "on_metric"):
                         sched.on_metric(train_state["score"])
 
+            if (o.checkpoint is not None and o.checkpoint_trigger is not None
+                    and o.checkpoint_trigger(train_state)):
+                with Timer(self.metrics, "checkpoint_s"):
+                    path = self._save(step, params, variables["state"],
+                                      slots, train_state)
+                logger.info("checkpoint -> %s", path)
+
+        # the end trigger may fire mid-cycle: flush the partial
+        # accumulator so those micro-batches' gradients count
+        flush = getattr(step, "flush", None)
+        if flush is not None:
+            eff_step = train_state["nupdates"]
+            flush(o.optim_method.current_rate(
+                {**train_state, "neval": eff_step}), eff_step)
         if pending is not None:
             self._emit(pending)
+        if o.checkpoint is not None:
+            # a failed async save must fail the run, not vanish with
+            # the writer thread
+            o.checkpoint.wait()
+        for summary in (o.train_summary, o.validation_summary):
+            if summary is not None:
+                summary.writer.flush()
         o.model.variables = {"params": tree_map(lambda t: t.detach(),
                                                 params),
                              "state": variables["state"]}
         return o.model
+
+    def _save(self, step, params, mod_state, slots, train_state) -> str:
+        """One checkpoint: the model, the slots as param-shaped trees,
+        the train state and, mid-cycle, the partial accumulator."""
+        accum_state = None
+        micro_state = getattr(step, "micro_state", None)
+        if micro_state is not None:
+            acc, n = micro_state()
+            if n:
+                accum_state = {"g_acc": self._as_tree(params, acc),
+                               "micro_n": n}
+        return self.o.checkpoint.save(
+            train_state["neval"], {"params": params, "state": mod_state},
+            {k: self._as_tree(params, v) for k, v in slots.items()},
+            {k: train_state[k] for k in
+             ("epoch", "neval", "nupdates", "records")},
+            accum_state=accum_state)
 
     def _validate(self, params, mod_state
                   ) -> Dict[str, ValidationResult]:
@@ -296,9 +687,17 @@ class LocalOptimizer:
                         {"params": params, "state": mod_state}, o.precision)
 
     def _emit(self, pending) -> None:
-        """The log line of an already-enqueued step; `float(loss)` here
-        is the host's wait for step N, taken after step N+1 is queued."""
-        state, loss, lr, throughput = pending
-        logger.info("epoch %d iteration %d: loss %.6f lr %.3g "
-                    "%.1f records/s %s", state["epoch"], state["neval"],
-                    float(loss), lr, throughput, self.metrics.summary())
+        """Telemetry of an already-enqueued step through StepTelemetry;
+        `float(loss)` here is the host's wait for step N, taken after
+        step N+1 is queued, and only on a step that logs or writes a
+        summary."""
+        state, loss, lr, throughput, hists = pending
+        o = self.o
+        if o.train_summary is None and state["neval"] % o.log_every:
+            return
+        with Timer(self.metrics, "fence_s"):
+            loss = float(loss)
+        self.telemetry.emit_step(
+            epoch=state["epoch"], step=state["neval"], loss=loss,
+            lr=lr, throughput=throughput, hists=hists,
+            metrics_summary=self.metrics.summary())

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Run the PyTorch/CUDA port's serving, training, recurrent, CNN and
-TreeLSTM paths on one NVIDIA GPU and check them.
+"""Run the PyTorch/CUDA port's serving, training (with checkpoints,
+resume, gradient accumulation and the anomaly guard), recurrent, CNN
+and TreeLSTM paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py            # from the repository root, one CUDA card
     python3 chip_smoke.py --profile  # also: where decode, train,
@@ -61,7 +62,23 @@ It drives `bigdl_tpu_torch` only (never JAX or the JAX package):
    and read after 10 timed steps: forward launches == steps x layers,
    backward == steps x layers x 2; losses finite and falling; train
    tokens/s, ms a step and the model-flops share;
-9. rnn    — the persistent-LSTM kernels (forward with and without
+9. lm_resume — checkpoint and resume through the flash kernels: the
+   trainer's LM with `set_gradient_accumulation(2)`, four runs from the
+   same seeded weights and samples through `Optimizer(...).optimize()`:
+   U (8 micro-steps), U' (U again: the card repeats its own run bit for
+   bit, or the phase names where the runs part), R1 (async checkpoints
+   every 3 micro-steps, a train summary, the fault plan
+   "ckpt_corrupt@6,preempt@7": checkpoint 3 holds the accumulator, 6
+   is published and damaged, the run dies preempted) and R2 (another
+   seed's model, `resume_from_checkpoint()`, synchronous checkpoints:
+   it skips the damaged checkpoint and resumes from 3). Gates: R2's
+   params and U''s equal U's leaf for leaf (`torch.equal`), R2 ends at
+   neval 8 and nupdates 4, each run's flash launches exact, R1's Loss
+   scalars finite at steps 1-6. Reported: the checkpoint's GiB, each
+   save's stall (async and sync), load and fast-forward seconds, U's
+   micro-step against the trainer's step, and the step of the trainer's
+   configuration unguarded and guarded (skip_step, no fault) in turns;
+10. rnn    — the persistent-LSTM kernels (forward with and without
    residuals, backward; one or two directions a launch) against their
    plain versions on RNN_CASES: the BiLSTM trainer's shape (N = T = H =
    128) with one and two directions, the LSTM LM's shape (N = 32, T =
@@ -73,11 +90,11 @@ It drives `bigdl_tpu_torch` only (never JAX or the JAX package):
    backward's dW (RNN_BF16_DW_TOL relative); two backward runs bitwise
    equal; kernel, plain and cuDNN (`torch.nn.LSTM`, library yardstick)
    times at the trainer's and the LM's shapes;
-10. rnn_model — one fp32 loss-and-grad step of the full-width BiLSTM
+11. rnn_model — one fp32 loss-and-grad step of the full-width BiLSTM
    classifier (vocab 20000, 128/128, batch 128 x 128) and of a 2-layer
    LSTM LM (vocab 10000, batch 32 x 64) through the kernels against the
    same step through the plain versions;
-11. rnn_trainer — the recurrent path: `Optimizer(bilstm_sentiment(20000,
+12. rnn_trainer — the recurrent path: `Optimizer(bilstm_sentiment(20000,
    128, 128), DataSet.array(...), nn.ClassNLLCriterion(), batch_size=
    128).set_optim_method(Adam(1e-3)).set_precision("bf16").optimize()`
    on learnable token data, 2 warm-up + 10 timed steps (kernel launches
@@ -86,7 +103,7 @@ It drives `bigdl_tpu_torch` only (never JAX or the JAX package):
    batches (4 no-residual forward launches; accuracy), and the 2-layer
    LSTM LM through the same loop (2 launches a step each way);
    `--profile` adds a torch.profiler breakdown of one BiLSTM step;
-12. gru    — the persistent-GRU kernels (forward with and without
+13. gru    — the persistent-GRU kernels (forward with and without
    residuals, backward; one direction a launch) against their plain
    versions on GRU_CASES: the BiGRU trainer's shape (N = T = H = 128),
    T = 1, a ragged batch of 37 rows, H = 100 and H = 512; fp32 (forward
@@ -100,12 +117,12 @@ It drives `bigdl_tpu_torch` only (never JAX or the JAX package):
    training variant's; two backward runs bitwise equal; kernel and
    plain times at the trainer's shape, with cuDNN's torch.nn.GRU timed
    as a yardstick of a different function;
-13. gru_model — one fp32 loss-and-grad step of the full-width BiGRU
+14. gru_model — one fp32 loss-and-grad step of the full-width BiGRU
    classifier (LookupTable(20000, 128) -> BiRecurrent(GRU(128, 128)) ->
    Mean(2) -> Linear(256, 2) -> LogSoftMax, batch 128 x 128) through
    the kernels against the same step through the plain versions (2
    forward and 2 backward launches);
-14. gru_trainer — the slice's main path: `Optimizer(bigru, DataSet.
+15. gru_trainer — the slice's main path: `Optimizer(bigru, DataSet.
    array(...), nn.ClassNLLCriterion(), batch_size=128).set_optim_method(
    Adam(1e-3)).set_precision("bf16").set_validation(Trigger.
    several_iteration(6), held-out data, [Top1Accuracy(), Loss(...)])
@@ -115,7 +132,7 @@ It drives `bigdl_tpu_torch` only (never JAX or the JAX package):
    step time), then `Predictor.predict` over 4 batches (2 inference
    forwards a batch) and `predict_class`, then one step under
    torch.profiler (device busy share, where the step's time goes);
-15. cnn_layers — the CNN slice's layers (BASELINE configs 1 and 2; no
+16. cnn_layers — the CNN slice's layers (BASELINE configs 1 and 2; no
    TPU kernel lies on this path: convolutions run on cuDNN): every
    ported conv (grouped, dilated, transposed, SAME, the s2d stem's
    asymmetric (2, 1) pads, temporal), pooling (ceil mode,
@@ -124,18 +141,25 @@ It drives `bigdl_tpu_torch` only (never JAX or the JAX package):
    the same module on the CPU, fp32, seeded variables with random
    batch-norm gammas (forward and new running statistics <= 1e-5 of
    each output's largest entry, gradients <= 1e-4 of each gradient's);
-16. resnet_model — a full-width ResNet-50 (build_imagenet(50, 1000),
+17. resnet_model — a full-width ResNet-50 (build_imagenet(50, 1000),
    seed 0, seeded batch-norm gammas) training step at batch 2 on the
    card against the port's CPU route: in fp32 the loss <= 1e-4 relative
    and the new running statistics <= 1e-3 of each leaf's largest entry;
    every gradient <= 1e-3 of its leaf's largest entry in fp64 (fp32
    gradients, discontinuous at their rounding level, are reported);
-17. lenet_trainer — BASELINE config 1: LeNet-5 through `Optimizer(...)
+18. lenet_trainer — BASELINE config 1: LeNet-5 through `Optimizer(...)
    .set_validation(Trigger.every_epoch(), ...).optimize()` on
    synthetic_mnist(512), batch 64, Adam(2e-3), 3 epochs, then
    `Evaluator` over synthetic_mnist(128, seed=9): top-1 > 0.9; each
    epoch's wall time;
-18. resnet_trainer — BASELINE config 2: `models.perf.run_perf(
+19. lenet_guard — the anomaly guard's three policies on BASELINE
+   config 1 (the LM's integer tokens cannot carry a NaN batch): LeNet-5,
+   batch 64, Adam(2e-3), cuDNN's deterministic algorithms; skip_step
+   with "nan@3" (the params after step 3 equal those before it bit for
+   bit, one skip, nupdates == neval - 1), rollback with a checkpoint
+   every 2 steps and "nan@5" (final params equal a clean run's bit for
+   bit, one rollback), halt (raises AnomalyError);
+20. resnet_trainer — BASELINE config 2: `models.perf.run_perf(
    "resnet50", 256, 10, optimizer="sgd", precision="bf16")` (images/s,
    step ms, peak memory, the forward counted from the conv and linear
    shapes and checked against ~4.1 GMAC an image, the model-flops share
@@ -145,7 +169,7 @@ It drives `bigdl_tpu_torch` only (never JAX or the JAX package):
    changed, validation counts whole; `--profile` adds resnet_profile,
    one ResNet-50 step under torch.profiler (busy share, top device
    operations, copy and relayout kernels);
-19. inception_trainer — BASELINE config 3: `models.perf.run_perf(
+21. inception_trainer — BASELINE config 3: `models.perf.run_perf(
    "inception-v1", 256, 10, optimizer="sgd", precision="bf16")` (the
    resnet_trainer fields, the forward checked against ~1.58 GMAC an
    image, and the busy share of one more profiled step), the
@@ -154,13 +178,13 @@ It drives `bigdl_tpu_torch` only (never JAX or the JAX package):
    of the largest log-probability), and one short run_perf of AlexNet
    and of Inception-v2; `--profile` adds inception_profile, the LRN and
    concat share of a step's device time;
-20. vgg_estimator — BASELINE config 5: run_perf("vgg16", 128, 10, bf16)
+22. vgg_estimator — BASELINE config 5: run_perf("vgg16", 128, 10, bf16)
    as above (~15.47 GMAC), then VGG-16's body with the weights that run
    trained under a new 10-class head, fit by `ml.DLClassifier` over a
    dict-of-lists frame of seeded 224 x 224 x 3 images (batch 128, 3
    steps, fp32) and `transform`ed: the body starts from the trained
    weights, losses finite, predictions in [0, 10), one a row;
-21. treelstm_trainer — BASELINE config 4's TreeLSTM half at
+23. treelstm_trainer — BASELINE config 4's TreeLSTM half at
    bench_treelstm's widths (vocab 20000, d 300, h 150, 5 classes, batch
    128, 64 nodes, Adam(3e-3), bf16) through `Optimizer(...)
    .set_validation(..., [TreeNNAccuracy(), Loss(...)]).optimize()` on
@@ -170,7 +194,7 @@ It drives `bigdl_tpu_torch` only (never JAX or the JAX package):
    schedules, the wavefront's loss and gradients against the slot
    scan's (rtol 1e-5, atol 1e-6), and each schedule's bf16 loss and
    backward time;
-22. kernels — one JSON line per the port's kernel table.
+24. kernels — one JSON line per the port's kernel table.
 
 Every phase prints one JSON line; any failed check raises and the
 script exits non-zero. The last lines are the `nvidia-smi` name/power
@@ -1365,6 +1389,298 @@ def phase_train_profile():
          kernels_per_step=sum(r[1] for r in rows) / 2,
          top=[{"name": k[:80], "calls_per_step": c / 2,
                "ms_per_step": us / 1e3 / 2} for us, c, k in rows[:12]])
+
+
+# ----------------------------------------- checkpoint, resume, the guard
+# lm_resume: the trainer's LM with accumulation 2 (RESUME_MICRO micro-
+# steps, RESUME_MICRO / 2 updates); the checkpointed run R1 saves every
+# RESUME_CKPT_EVERY micro-steps in the background and dies under
+# RESUME_PLAN (checkpoint 6 published, then damaged; preempted before
+# micro-step 7); R2 resumes from checkpoint 3, the mid-cycle one
+RESUME_MICRO, RESUME_ACCUM, RESUME_CKPT_EVERY = 8, 2, 3
+RESUME_PLAN = "ckpt_corrupt@6,preempt@7"
+RESUME_TIMED_FROM = 2           # U's micro-steps timed from here to the end
+GUARD_WARMUP, GUARD_STEPS = 2, 6
+
+
+def _lm_optimizer(samples, micro, seed=0, accum=RESUME_ACCUM, watch=None):
+    """The trainer's configuration (TRAIN_CONFIG, batch 8 x 2048, bf16,
+    Adam(3e-4)) on a model built from `seed`, ending after `micro`
+    micro-steps; `watch(train_state)` sees the state before every
+    micro-step and at the end."""
+    import torch
+
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.dataset import DataSet
+    from bigdl_tpu_torch.optim import Adam, Optimizer, Trigger
+
+    model = _train_model()
+    model.build(torch.Generator().manual_seed(seed))
+    stop = Trigger.max_iteration(micro)
+
+    def end_when(state):
+        if watch is not None:
+            watch(state)
+        return stop(state)
+
+    o = Optimizer(model, DataSet.array(samples), nn.ChunkedSoftmaxCE(),
+                  batch_size=TRAIN_BATCH).set_optim_method(Adam(3e-4)) \
+        .set_precision("bf16").set_end_when(Trigger(end_when))
+    if accum > 1:
+        o.set_gradient_accumulation(accum)
+    return o
+
+
+def _timed_saves(ck, out: list) -> None:
+    """Record the loop's stall in each `Checkpoint.save` call: the host
+    snapshot, plus the write itself when it is synchronous, plus the
+    drain of the previous write when it is not."""
+    import torch
+
+    save = ck.save
+
+    def timed(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = save(*args, **kwargs)
+        out.append({"step": args[0], "s": time.perf_counter() - t0})
+        return path
+
+    ck.save = timed
+
+
+def _flash_counts():
+    from bigdl_tpu_torch.ops import flash_attention as fa
+
+    return fa.fwd_launches, fa.bwd_launches
+
+
+def _zero_flash_counts() -> None:
+    from bigdl_tpu_torch.ops import flash_attention as fa
+
+    fa.fwd_launches = fa.bwd_launches = 0
+
+
+def _check_flash_counts(run: str, micro: int) -> dict:
+    from bigdl_tpu_torch.ops import flash_attention as fa
+
+    layers = TRAIN_CONFIG["num_layers"]
+    fwd, bwd = _flash_counts()
+    check((fwd, bwd) == (micro * layers, micro * layers * fa.BWD_LAUNCHES),
+          f"lm_resume {run}: flash launches {(fwd, bwd)} != {micro} "
+          f"micro-steps x {layers} layers (x {fa.BWD_LAUNCHES} backward)")
+    return {"fwd": fwd, "bwd": bwd, "micro_steps": micro}
+
+
+def _dir_gib(d: Path) -> float:
+    return sum(f.stat().st_size for f in d.iterdir()) / 2 ** 30
+
+
+def _first_difference(a_params, b_params, a_losses, b_losses) -> str:
+    """Where two runs of one configuration part: the first micro-step
+    whose loss differs, the differing leaves, and whether the flash
+    kernels repeat themselves bit for bit at the trainer's shape."""
+    import torch
+
+    from bigdl_tpu_torch.models.convert import tree_leaves_with_path
+    from bigdl_tpu_torch.ops import flash_attention as fa
+
+    step = next((i + 1 for i, (x, y) in enumerate(zip(a_losses, b_losses))
+                 if x != y), None)
+    leaves = [".".join(map(str, p)) for (p, x), (_, y) in zip(
+        tree_leaves_with_path(a_params), tree_leaves_with_path(b_params))
+        if not torch.equal(x, y)]
+    g = torch.Generator(device="cuda").manual_seed(5)
+    q, k, v, do = (torch.randn(TRAIN_BATCH, HEADS, TRAIN_SEQ, DIM // HEADS,
+                               generator=g, device="cuda",
+                               dtype=torch.bfloat16) for _ in range(4))
+    outs = []
+    for _ in range(2):
+        qq, kk, vv = (t.clone().requires_grad_() for t in (q, k, v))
+        o = fa.flash_attention(qq, kk, vv, causal=True, impl="cuda")
+        outs.append((o.detach(), *torch.autograd.grad(o, (qq, kk, vv), do)))
+    same = [torch.equal(x, y) for x, y in zip(*outs)]
+    return (f"first loss difference at micro-step {step}; leaves "
+            f"{leaves[:6]} ({len(leaves)} differ); flash forward repeats "
+            f"bitwise: {same[0]}, backward dq/dk/dv: {same[1:]}")
+
+
+def phase_lm_resume():
+    """Checkpoint and resume through the flash kernels: the 43M LM
+    (TRAIN_CONFIG, batch 8 x 2048, bf16, Adam(3e-4),
+    set_gradient_accumulation(2)) through Optimizer(...).optimize(), four
+    runs from the same seeded weights and samples:
+    U (RESUME_MICRO micro-steps, no checkpoint), U' (U again: the card
+    must repeat its own run bit for bit), R1 (U with an async checkpoint
+    every RESUME_CKPT_EVERY micro-steps, a train summary and the fault
+    plan RESUME_PLAN: checkpoint 3 is mid-cycle, 6 is published and
+    then damaged, R1 dies preempted before micro-step 7) and R2 (a
+    model from another seed, resume_from_checkpoint(), synchronous
+    checkpoints, to RESUME_MICRO: it skips the damaged checkpoint,
+    resumes from 3 with its accumulator). Gates: every leaf of R2's and
+    U''s params equal to U's, R2 ends at neval 8 and nupdates 4, the
+    flash launches of each run exact, R1's Loss scalars finite at steps
+    1-6. Then the trainer's configuration without accumulation,
+    GUARD_WARMUP + GUARD_STEPS steps unguarded, guarded (skip_step, no
+    fault), guarded, unguarded: what the guard's per-step read costs."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from bigdl_tpu_torch.dataset.text import synthetic_next_token
+    from bigdl_tpu_torch.models.convert import tree_leaves
+    from bigdl_tpu_torch.optim import Trigger
+    from bigdl_tpu_torch.utils import faults
+    from bigdl_tpu_torch.visualization import TrainSummary
+
+    samples = synthetic_next_token(TRAIN_BATCH * RESUME_MICRO, VOCAB,
+                                   TRAIN_SEQ)
+    tmp = Path(tempfile.mkdtemp(prefix="lm_resume_"))
+    out: dict = {"micro_steps": RESUME_MICRO, "accum": RESUME_ACCUM,
+                 "checkpoint_every": RESUME_CKPT_EVERY, "plan": RESUME_PLAN}
+    try:
+        # U and U': the uninterrupted run, twice
+        runs = {}
+        for name in ("U", "U'"):
+            losses, marks = [], {}
+
+            def watch(state, losses=losses, marks=marks):
+                if state["loss"] is not None:
+                    losses.append(state["loss"])
+                if state["neval"] in (RESUME_TIMED_FROM, RESUME_MICRO):
+                    torch.cuda.synchronize()
+                    marks[state["neval"]] = time.perf_counter()
+
+            o = _lm_optimizer(samples, RESUME_MICRO, watch=watch)
+            _zero_flash_counts()                # main path starts here
+            o.optimize()
+            out[f"launches_{name}"] = _check_flash_counts(name,
+                                                          RESUME_MICRO)
+            runs[name] = (o.model.variables["params"],
+                          [float(v) for v in losses])
+            out[f"micro_step_ms_{name}"] = (
+                marks[RESUME_MICRO] - marks[RESUME_TIMED_FROM]) / (
+                RESUME_MICRO - RESUME_TIMED_FROM) * 1e3
+            del o
+        u_params, u_losses = runs["U"]
+        check(all(math.isfinite(v) for v in u_losses)
+              and len(u_losses) == RESUME_MICRO,
+              f"lm_resume U losses {u_losses}")
+        if not all(torch.equal(a, b) for a, b in zip(
+                tree_leaves(u_params), tree_leaves(runs["U'"][0]))):
+            check(False, "lm_resume: the card did not repeat its own run "
+                         "(U' != U): " + _first_difference(
+                             u_params, runs["U'"][0], u_losses,
+                             runs["U'"][1]))
+        del runs["U'"]
+        torch.cuda.empty_cache()
+
+        # R1: async checkpoints and a summary; damaged, then preempted
+        r1_saves = []
+        summary = TrainSummary(str(tmp / "logs"), "lm_resume")
+        o = _lm_optimizer(samples, RESUME_MICRO)
+        o.set_checkpoint(str(tmp / "ckpt"),
+                         Trigger.several_iteration(RESUME_CKPT_EVERY),
+                         async_save=True).set_train_summary(summary)
+        _timed_saves(o.checkpoint, r1_saves)
+        faults.set_plan(faults.FaultPlan(RESUME_PLAN))
+        preempted = None
+        _zero_flash_counts()
+        try:
+            o.optimize()
+        except faults.Preempted as e:           # the planned death
+            preempted = str(e)
+        finally:
+            faults.set_plan(faults.FaultPlan(""))
+        check(preempted is not None, "lm_resume R1 was not preempted")
+        out["launches_R1"] = _check_flash_counts("R1", 7)
+        ck3, ck6 = (tmp / "ckpt" / f"checkpoint-{n}" for n in (3, 6))
+        check((ck3 / "accum.json").exists()
+              and not (ck6 / "accum.json").exists(),
+              "lm_resume: checkpoint 3 must hold the accumulator, 6 not")
+        out["checkpoint_gib"] = _dir_gib(ck3)
+        out["async_save_stall_s"] = r1_saves
+        scalars = summary.read_scalar("Loss")
+        check([s for _, _, s in scalars] == list(range(1, 7))
+              and all(math.isfinite(v) for _, v, _ in scalars),
+              f"lm_resume R1 summary Loss scalars {scalars}")
+        out["summary_loss"] = [v for _, v, _ in scalars]
+        summary.close()
+        del o
+        torch.cuda.empty_cache()
+
+        # R2: a fresh model and Optimizer resume past the damage
+        r2_saves, states, marks = [], [], {}
+
+        def watch2(state):
+            if not states:
+                marks["first"] = time.perf_counter()
+            states.append({k: state[k] for k in ("neval", "nupdates")})
+
+        o = _lm_optimizer(samples, RESUME_MICRO, seed=1, watch=watch2)
+        o.set_checkpoint(str(tmp / "ckpt"),
+                         Trigger.several_iteration(RESUME_CKPT_EVERY)) \
+            .resume_from_checkpoint()
+        _timed_saves(o.checkpoint, r2_saves)
+        _zero_flash_counts()
+        t0 = time.perf_counter()
+        o.optimize()
+        out["launches_R2"] = _check_flash_counts("R2", RESUME_MICRO - 3)
+        out["load_and_fast_forward_s"] = marks["first"] - t0
+        out["sync_save_stall_s"] = r2_saves
+        check(o.checkpoint.corrupt_skipped == [str(ck6)]
+              and o.checkpoint._last_loaded == str(ck3),
+              f"lm_resume R2 loaded {o.checkpoint._last_loaded}, skipped "
+              f"{o.checkpoint.corrupt_skipped}")
+        check(states[0] == {"neval": 3, "nupdates": 1}
+              and states[-1] == {"neval": RESUME_MICRO,
+                                 "nupdates": RESUME_MICRO // RESUME_ACCUM},
+              f"lm_resume R2 clocks {states}")
+        r2 = tree_leaves(o.model.variables["params"])
+        differ = [i for i, (a, b) in enumerate(zip(tree_leaves(u_params),
+                                                   r2))
+                  if not torch.equal(a, b)]
+        check(not differ, f"lm_resume: R2's params differ from U's in "
+                          f"leaves {differ}")
+        out["r2_equals_u"] = True
+        out["checkpoint_gib_boundary"] = _dir_gib(ck6)  # R2's own save
+        out["r2_states"] = [states[0], states[-1]]
+        del o, u_params, runs
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # the guard's cost: the trainer's configuration without accumulation,
+    # unguarded and guarded (skip_step, no fault) in turns
+    for name, guard in (("unguarded", None), ("guarded", "skip_step"),
+                        ("guarded", "skip_step"), ("unguarded", None)):
+        losses, marks = [], {}
+
+        def watch3(state, losses=losses, marks=marks):
+            if state["loss"] is not None:
+                losses.append(state["loss"])
+            if state["neval"] in (GUARD_WARMUP, GUARD_WARMUP + GUARD_STEPS):
+                torch.cuda.synchronize()
+                marks[state["neval"]] = time.perf_counter()
+
+        o = _lm_optimizer(samples, GUARD_WARMUP + GUARD_STEPS, accum=1,
+                          watch=watch3)
+        if guard is not None:
+            o.set_anomaly_guard(guard)
+        o.optimize()
+        check(all(math.isfinite(float(v)) for v in losses),
+              f"lm_resume {name} losses")
+        if guard is not None:
+            check(o.anomaly_guard.anomalies == 0,
+                  f"lm_resume: the guard saw {o.anomaly_guard.stats()}")
+        out.setdefault(f"{name}_step_ms", []).append(
+            (marks[GUARD_WARMUP + GUARD_STEPS] - marks[GUARD_WARMUP])
+            / GUARD_STEPS * 1e3)
+        del o
+        torch.cuda.empty_cache()
+    out["trainer_step_ms"] = RESULTS.get("trainer", {}).get("step_ms")
+    emit("lm_resume", **out)
 
 
 # ------------------------------------------------------ persistent LSTM
@@ -2904,6 +3220,100 @@ def phase_lenet_trainer():
          top1=top1, seconds=time.perf_counter() - t0)
 
 
+def _lenet_guarded(train, end, policy, plan="", ckpt=None):
+    """BASELINE config 1's LeNet-5 (seed 7, batch 64, Adam(2e-3)) for
+    `end` steps under the anomaly guard `policy` and the fault plan
+    `plan`, checkpointing every 2 steps under `ckpt`; returns the
+    Optimizer and the train states its end trigger saw."""
+    import torch
+
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.dataset import DataSet
+    from bigdl_tpu_torch.models import lenet
+    from bigdl_tpu_torch.optim import Adam, Optimizer, Trigger
+    from bigdl_tpu_torch.utils import faults
+
+    states = []
+    stop = Trigger.max_iteration(end)
+
+    def end_when(state):
+        states.append({k: state[k] for k in ("neval", "nupdates")})
+        return stop(state)
+
+    o = Optimizer(lenet.build(10).build(torch.Generator().manual_seed(7)),
+                  DataSet.array(train), nn.ClassNLLCriterion(),
+                  batch_size=LENET_BATCH) \
+        .set_optim_method(Adam(learningrate=2e-3)) \
+        .set_end_when(Trigger(end_when)).set_anomaly_guard(policy)
+    if ckpt is not None:
+        o.set_checkpoint(str(ckpt), Trigger.several_iteration(2))
+    faults.set_plan(faults.FaultPlan(plan))
+    try:
+        o.optimize()
+    finally:
+        faults.set_plan(faults.FaultPlan(""))
+    return o, states
+
+
+def phase_lenet_guard():
+    """The anomaly guard's three policies on the card, on BASELINE
+    config 1 (the LM's integer tokens cannot carry a NaN batch):
+    skip_step with `nan@3` — the params after step 3 are the params
+    before it, bit for bit, one skip, nupdates == neval - 1; rollback
+    with a checkpoint every 2 steps and `nan@5` — the final params equal
+    a clean run's bit for bit, one rollback; halt raises AnomalyError.
+    cuDNN runs its deterministic algorithms here (restored afterwards):
+    bitwise replay needs a step that repeats itself."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from bigdl_tpu_torch.dataset.mnist import synthetic_mnist
+    from bigdl_tpu_torch.models.convert import tree_leaves
+    from bigdl_tpu_torch.utils.anomaly import AnomalyError
+
+    def same(a, b):
+        return all(torch.equal(x, y) for x, y in zip(
+            tree_leaves(a.model.variables["params"]),
+            tree_leaves(b.model.variables["params"])))
+
+    t0 = time.perf_counter()
+    train = synthetic_mnist(512, seed=0)
+    tmp = Path(tempfile.mkdtemp(prefix="lenet_guard_"))
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        ref, _ = _lenet_guarded(train, 3, "skip_step")
+        got, states = _lenet_guarded(train, 4, "skip_step", "nan@3")
+        check(same(got, ref), "lenet_guard skip_step: the params moved")
+        check(got.anomaly_guard.skipped == 1
+              and states[-1] == {"neval": 4, "nupdates": 3},
+              f"lenet_guard skip_step: {got.anomaly_guard.stats()}, "
+              f"{states[-1]}")
+        clean, _ = _lenet_guarded(train, 8, "rollback", ckpt=tmp / "clean")
+        rolled, rstates = _lenet_guarded(train, 8, "rollback", "nan@5",
+                                         ckpt=tmp / "faulted")
+        check(same(rolled, clean),
+              "lenet_guard rollback: params differ from the clean run")
+        check(rolled.anomaly_guard.rollbacks == 1
+              and rstates.count({"neval": 5, "nupdates": 5}) == 2,
+              f"lenet_guard rollback: {rolled.anomaly_guard.stats()}, "
+              f"{rstates}")
+        halted = None
+        try:
+            _lenet_guarded(train, 4, "halt", "nan@2")
+        except AnomalyError as e:               # the policy's answer
+            halted = str(e)
+        check(halted is not None, "lenet_guard: halt did not raise")
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit("lenet_guard", skip_step=got.anomaly_guard.stats(),
+         rollback=rolled.anomaly_guard.stats(), rollback_clock=rstates,
+         halt=halted, seconds=time.perf_counter() - t0)
+
+
 def _forward_flops(model, variables, shape) -> float:
     """Forward flops an image of the model's convolutions and linear
     layers, counted from the shapes of a batch-1 forward on the card:
@@ -3649,6 +4059,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         phase_train_profile()
     torch.cuda.empty_cache()
+    phase_lm_resume()
+    torch.cuda.empty_cache()
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32,
                         device="cuda")
     rnn = phase_rnn(flush)
@@ -3675,6 +4087,8 @@ def main() -> int:
     phase_resnet_model()
     torch.cuda.empty_cache()
     phase_lenet_trainer()
+    torch.cuda.empty_cache()
+    phase_lenet_guard()
     torch.cuda.empty_cache()
     phase_resnet_trainer()
     if "--profile" in sys.argv[1:]:

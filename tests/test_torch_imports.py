@@ -38,6 +38,11 @@ NEW_IN_SLICE_10 = ("nn/dropout.py", "nn/graph.py", "models/inception.py",
                    "models/vgg.py", "models/alexnet.py",
                    "models/treelstm.py", "ml/__init__.py",
                    "ml/estimator.py")
+NEW_IN_SLICE_11 = ("utils/faults.py", "serialization/__init__.py",
+                   "serialization/checkpoint.py",
+                   "visualization/__init__.py",
+                   "visualization/tensorboard.py", "obs/__init__.py",
+                   "obs/training.py")
 
 
 def test_port_files_exist():
@@ -46,7 +51,8 @@ def test_port_files_exist():
     scanned = {str(p.relative_to(ROOT / "bigdl_tpu_torch"))
                for p in PORT_FILES if "bigdl_tpu_torch" in p.parts}
     assert set(NEW_IN_SLICE_3) | set(NEW_IN_SLICE_4) \
-        | set(NEW_IN_SLICE_9) | set(NEW_IN_SLICE_10) <= scanned
+        | set(NEW_IN_SLICE_9) | set(NEW_IN_SLICE_10) \
+        | set(NEW_IN_SLICE_11) <= scanned
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -79,7 +85,11 @@ def test_port_import_loads_no_jax():
             "bigdl_tpu_torch.models.inception, bigdl_tpu_torch.models.vgg, "
             "bigdl_tpu_torch.models.alexnet, "
             "bigdl_tpu_torch.models.treelstm, bigdl_tpu_torch.ml, "
-            "bigdl_tpu_torch.ml.estimator; "
+            "bigdl_tpu_torch.ml.estimator, bigdl_tpu_torch.utils.faults, "
+            "bigdl_tpu_torch.utils.anomaly, "
+            "bigdl_tpu_torch.serialization.checkpoint, "
+            "bigdl_tpu_torch.visualization.tensorboard, "
+            "bigdl_tpu_torch.obs.training; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{BANNED!r}]; "
             "assert not bad, bad")

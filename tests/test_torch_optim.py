@@ -2,7 +2,8 @@
 (bigdl_tpu_torch/optim/) and its dataset plane (bigdl_tpu_torch/dataset/)
 against the JAX package's, inputs from a numpy seed.
 
-Tolerances: SGD and Adam parameters and slots within 1e-6 absolute over
+Tolerances: every optim method's parameters and slots (SGD, Adam,
+Adagrad, Adamax, RMSprop, AdaDelta, Ftrl) within 1e-6 absolute over
 3 steps (fp32 elementwise arithmetic in another order: the port's
 in-place foreach updates against jnp's fused expressions). Schedules,
 triggers, permutations, batches and synthetic data are copies of
@@ -34,6 +35,20 @@ METHODS = {
     "adam": lambda m: m.Adam(learningrate=1e-2),
     "adam_decay": lambda m: m.Adam(learningrate=1e-2, weightdecay=1e-2,
                                    beta1=0.8, epsilon=1e-6),
+    "adagrad": lambda m: m.Adagrad(learningrate=0.1),
+    "adagrad_decay": lambda m: m.Adagrad(learningrate=0.1,
+                                         learningrate_decay=0.1,
+                                         weightdecay=1e-2),
+    "adamax": lambda m: m.Adamax(learningrate=2e-2, beta1=0.8),
+    "rmsprop": lambda m: m.RMSprop(learningrate=1e-2, decayrate=0.9),
+    "adadelta": lambda m: m.AdaDelta(decayrate=0.8, epsilon=1e-4),
+    # Ftrl's linear slot grows like 1 / lr: at lr >= 0.5 its entries
+    # stay O(1), where 1e-6 absolute is a few fp32 ulps
+    "ftrl": lambda m: m.Ftrl(learningrate=1.0),
+    "ftrl_l1_l2": lambda m: m.Ftrl(learningrate=0.5,
+                                   learningrate_power=-0.7,
+                                   l1_regularization_strength=0.05,
+                                   l2_regularization_strength=0.1),
 }
 
 

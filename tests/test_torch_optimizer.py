@@ -104,12 +104,6 @@ def test_optimize_trajectory_matches_jax(name):
 
 
 @pytest.mark.parametrize("setter, args, what", [
-    ("set_checkpoint", ("/nonexistent", None), "checkpoint"),
-    ("resume_from_checkpoint", (), "resume"),
-    ("set_train_summary", ("logs",), "train summaries"),
-    ("set_validation_summary", ("logs",), "validation summaries"),
-    ("set_gradient_accumulation", (2,), "gradient accumulation"),
-    ("set_anomaly_guard", ("skip_step",), "anomaly guard"),
     ("set_mesh", (None,), "distributed training"),
 ])
 def test_unported_features_name_what_is_missing(setter, args, what):
@@ -117,7 +111,87 @@ def test_unported_features_name_what_is_missing(setter, args, what):
                        tnn.ChunkedSoftmaxCE())
     with pytest.raises(NotImplementedError, match=what) as err:
         getattr(o, setter)(*args)
-    assert "ROADMAP.md" in str(err.value)
+    assert "ROADMAP.md" in str(err.value) and "A.8" in str(err.value)
+
+
+def _opt(n=0):
+    return topt.Optimizer(tlm(**CFG, device="cpu"),
+                          TDataSet.array(tsyn(n, 61, 32)),
+                          tnn.ChunkedSoftmaxCE(chunk=8), batch_size=4)
+
+
+def test_set_checkpoint_builds_a_checkpoint(tmp_path):
+    from bigdl_tpu_torch.serialization import Checkpoint
+
+    o = _opt()
+    trig = topt.Trigger.several_iteration(3)
+    assert o.set_checkpoint(str(tmp_path / "ck"), trig,
+                            async_save=True) is o
+    assert isinstance(o.checkpoint, Checkpoint)
+    assert o.checkpoint.path == str(tmp_path / "ck")
+    assert o.checkpoint.async_save and o.checkpoint_trigger is trig
+    assert (tmp_path / "ck").is_dir()
+
+
+def test_set_checkpoint_sharded_names_a8(tmp_path):
+    with pytest.raises(NotImplementedError, match="A.8"):
+        _opt().set_checkpoint(str(tmp_path), topt.Trigger.every_epoch(),
+                              sharded=True)
+
+
+def test_resume_from_checkpoint_without_one_starts_fresh(tmp_path):
+    """Resume is a request: with no checkpoint under the path the run
+    starts at step 0 and saves its own."""
+    o = _opt(8).set_checkpoint(str(tmp_path),
+                               topt.Trigger.several_iteration(1))
+    assert o.resume_from_checkpoint() is o
+    seen = []
+    o.set_end_when(topt.Trigger(lambda s: seen.append(s["neval"])
+                                or s["neval"] >= 1)).optimize()
+    assert seen == [0, 1]
+    assert (tmp_path / "checkpoint-1" / "COMPLETE").exists()
+
+
+def test_set_gradient_accumulation_checks_n():
+    o = _opt()
+    with pytest.raises(ValueError, match=">= 1"):
+        o.set_gradient_accumulation(0)
+    assert o.set_gradient_accumulation(4) is o and o.grad_accum == 4
+
+
+def test_set_anomaly_guard_types():
+    from bigdl_tpu_torch.utils.anomaly import AnomalyGuard
+
+    o = _opt()
+    assert o.set_anomaly_guard("rollback", max_consecutive=2) is o
+    assert isinstance(o.anomaly_guard, AnomalyGuard)
+    assert (o.anomaly_guard.policy, o.anomaly_guard.max_consecutive) == (
+        "rollback", 2)
+    g = AnomalyGuard("halt")
+    assert o.set_anomaly_guard(g).anomaly_guard is g
+    with pytest.raises(TypeError, match="AnomalyGuard"):
+        o.set_anomaly_guard(3)
+    with pytest.raises(ValueError, match="kwargs"):
+        o.set_anomaly_guard(g, max_consecutive=2)
+    with pytest.raises(ValueError, match="policy"):
+        o.set_anomaly_guard("explode")
+    assert o.set_anomaly_guard(None).anomaly_guard is None
+
+
+@pytest.mark.parametrize("setter, suffix", [
+    ("set_train_summary", "train"),
+    ("set_validation_summary", "validation")])
+def test_set_summary_takes_a_path_or_a_summary(tmp_path, setter, suffix):
+    from bigdl_tpu_torch import visualization as vis
+
+    o = _opt()
+    assert getattr(o, setter)(str(tmp_path)) is o
+    summary = getattr(o, suffix + "_summary")
+    assert summary.log_dir == str(tmp_path / "bigdl_tpu_torch" / suffix)
+    mine = vis.TrainSummary(str(tmp_path), "mine")
+    assert getattr(getattr(o, setter)(mine), suffix + "_summary") is mine
+    with pytest.raises(TypeError, match="or a logdir string"):
+        getattr(o, setter)(object())
 
 
 def test_precision_strings_and_refusals():
