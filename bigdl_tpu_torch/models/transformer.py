@@ -35,6 +35,12 @@ an explicit `torch.Generator` (`rng`); its bits are not JAX's
 drawn outside any checkpointed region, so a recomputation sees the
 same mask.
 
+The serving trio honours the int8 layout of serving/quant.py: every
+gemm weight goes through `_deq` and the embedding lookup through
+`_embed_rows`, duck-typed hooks that pass fp32 tensors through
+untouched (as in the JAX package), so fp32 stays the bitwise reference
+layout and the training paths never see a `QuantWeight`.
+
 Not ported: the dense per-slot cache, mixture-of-experts FFNs, tensor
 and sequence parallelism — asking for any of them raises
 NotImplementedError.
@@ -65,6 +71,24 @@ from bigdl_tpu_torch.utils.device import DeviceLike, resolve_device
 
 Pools = Tuple[Dict[str, torch.Tensor], ...]
 REMAT_POLICIES = ("full", "dots", "attn_saved")
+
+
+def _deq(w):
+    """Duck-typed dequantize: a serving/quant.py QuantWeight knows how
+    to `deq()` itself back to fp32; a plain tensor passes through. The
+    serving paths call this at every gemm-weight use, so one code path
+    serves both weight layouts — and models/ never imports serving/."""
+    return w.deq() if hasattr(w, "deq") else w
+
+
+def _embed_rows(w, tokens: torch.Tensor) -> torch.Tensor:
+    """Embedding-table row lookup for either layout. The quantized
+    table is scaled PER ROW (scale (V, 1)), so a lookup gathers int8
+    rows and their scales and multiplies — never the (V, E) fp32
+    dequant `_deq` would materialize."""
+    if hasattr(w, "deq"):
+        return w.q[tokens].float() * w.scale[tokens]
+    return w[tokens]
 
 
 @dataclass
@@ -216,9 +240,11 @@ class TransformerLM(Module):
                      for i in range(self.cfg.num_layers))
 
     def head(self, variables: Dict[str, Any]) -> torch.Tensor:
-        """The (E, V) output projection: `embed.T` when tied."""
+        """The (E, V) output projection: `embed.T` when tied. A quantized
+        embedding or head (serving/quant.py) is dequantized here."""
         p = self._params(variables)
-        return p["embed"].T if self.cfg.tie_embeddings else p["head"]
+        return _deq(p["embed"]).T if self.cfg.tie_embeddings \
+            else _deq(p["head"])
 
     # ----------------------------------------------------------- helpers
     def _split_heads(self, x: torch.Tensor, heads: int) -> torch.Tensor:
@@ -228,8 +254,8 @@ class TransformerLM(Module):
     @staticmethod
     def _dense_ffn(y: torch.Tensor, bp: Dict[str, torch.Tensor]
                    ) -> torch.Tensor:
-        y = F.gelu(y @ bp["w1"] + bp["b1"], approximate="tanh")
-        return y @ bp["w2"] + bp["b2"]
+        y = F.gelu(y @ _deq(bp["w1"]) + bp["b1"], approximate="tanh")
+        return y @ _deq(bp["w2"]) + bp["b2"]
 
     # ---------------------------------------------------------- training
     def _attention(self, q, k, v):
@@ -367,7 +393,8 @@ class TransformerLM(Module):
                              f"the positional table ({self.cfg.max_len})")
         d = self.head_dim
         dev = tokens.device
-        x = p["embed"][tokens.long()] + p["pos"][start:start + s]
+        x = _embed_rows(p["embed"], tokens.long()) \
+            + p["pos"][start:start + s]
         bs = pools[0]["k"].shape[2]
         jpos = torch.arange(table.shape[1] * bs, device=dev)
         ipos = start + torch.arange(s, device=dev)
@@ -376,15 +403,15 @@ class TransformerLM(Module):
         for bp, pl in zip(self._layer_blocks(p), pools):
             h = bp["wq"].shape[-1] // d
             y = layer_norm(x, bp["ln1_g"], bp["ln1_b"])
-            q = self._split_heads(y @ bp["wq"] + bp["bq"], h)
-            k = self._split_heads(y @ bp["wk"] + bp["bk"], h)
-            v = self._split_heads(y @ bp["wv"] + bp["bv"], h)
+            q = self._split_heads(y @ _deq(bp["wq"]) + bp["bq"], h)
+            k = self._split_heads(y @ _deq(bp["wk"]) + bp["bk"], h)
+            v = self._split_heads(y @ _deq(bp["wv"]) + bp["bv"], h)
             write_prompt_blocks(pl["k"], pl["v"], k, v, block_ids)
             kc = gather_block_cache(pl["k"], table)     # (1, H, S, D)
             vc = gather_block_cache(pl["v"], table)
             a = block_attention(q, kc, vc, visible, valid)
             a = a.transpose(1, 2).reshape(bsz, s, h * d)
-            x = x + a @ bp["wo"] + bp["bo"]
+            x = x + a @ _deq(bp["wo"]) + bp["bo"]
             x = x + self._dense_ffn(
                 layer_norm(x, bp["ln2_g"], bp["ln2_b"]), bp)
         return pools
@@ -415,19 +442,20 @@ class TransformerLM(Module):
         rows = torch.arange(bsz, device=tokens.device)
         block_ids = table.long()[rows, pos_l // bs]          # (B,)
         offsets = pos_l % bs
-        x = p["embed"][tokens.long()] + p["pos"][pos_l]      # (B, E)
+        x = _embed_rows(p["embed"], tokens.long()) + p["pos"][pos_l]
         for bp, pl in zip(self._layer_blocks(p), pools):
             h = bp["wq"].shape[-1] // d
             y = layer_norm(x, bp["ln1_g"], bp["ln1_b"])[:, None, :]
-            q = self._split_heads(y @ bp["wq"] + bp["bq"], h)  # (B,h,1,D)
-            k = self._split_heads(y @ bp["wk"] + bp["bk"], h)
-            v = self._split_heads(y @ bp["wv"] + bp["bv"], h)
+            # (B, h, 1, D)
+            q = self._split_heads(y @ _deq(bp["wq"]) + bp["bq"], h)
+            k = self._split_heads(y @ _deq(bp["wk"]) + bp["bk"], h)
+            v = self._split_heads(y @ _deq(bp["wv"]) + bp["bv"], h)
             write_decode_blocks(pl["k"], pl["v"], k, v, block_ids,
                                 offsets)
             a = paged_decode_attention(q.contiguous(), pl["k"], pl["v"],
                                        table, pos, impl=attn_impl)
             a = a.reshape(bsz, h * d)
-            x = x + a @ bp["wo"] + bp["bo"]
+            x = x + a @ _deq(bp["wo"]) + bp["bo"]
             x = x + self._dense_ffn(
                 layer_norm(x, bp["ln2_g"], bp["ln2_b"]), bp)
         hid = layer_norm(x, p["lnf_g"], p["lnf_b"])

@@ -1,4 +1,5 @@
-"""bigdl_tpu_torch.obs — training telemetry (counterpart:
-bigdl_tpu/obs/). Only `training.StepTelemetry`'s summary sink and log
-line are ported; the metrics registry, the event log, spans and the
-live layer wait for ROADMAP.md queue A.9."""
+"""bigdl_tpu_torch.obs — telemetry (counterpart: bigdl_tpu/obs/). Ported
+so far: `training.StepTelemetry`'s summary sink and log line, and from
+`registry.py` the fixed-bucket latency histogram behind the serving
+engine's `health()` percentiles. The named metrics registry, the event
+log, spans and the live layer wait for ROADMAP.md queue A.9."""

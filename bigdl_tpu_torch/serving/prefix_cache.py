@@ -1,8 +1,9 @@
 """Content-hashed radix prefix cache over paged KV blocks — a copy of
 bigdl_tpu/serving/prefix_cache.py over the port's serving/kv_pool.py
-(pure Python; the port imports nothing of the JAX package). The host
-spill tier below comes along with the copy; the port's engine does not
-use it yet. The notes are the original's.
+(pure Python; the port imports nothing of the JAX package). The
+engine's host spill tier (`spill=True`) and tree migration
+(`export_tree`/`import_tree`) run on the host-tier half below. The
+notes are the original's.
 
 No reference counterpart: BigDL 2.0's Cluster Serving (arXiv
 2204.01715) argues the serving win at scale comes from reusing work

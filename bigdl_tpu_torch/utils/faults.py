@@ -1,4 +1,5 @@
-"""Deterministic fault injection for the training loop.
+"""Deterministic fault injection for the training loop and the serving
+engine.
 
 A copy of bigdl_tpu/utils/faults.py (pure Python and numpy). The
 recovery code — Checkpoint's atomic publish and newest-valid fallback
@@ -41,10 +42,16 @@ Fault kinds and where the port consults them:
                   here, consulted by no port code until sharded
                   checkpoints are ported (ROADMAP.md, queue A.8)
 
-The serving kinds `serve_nan`, `serve_err` and `serve_slow` are parsed
-as the JAX package parses them, but no port code consults them until
-the serving engine's step watchdog and retries are ported (ROADMAP.md,
-queue A.6).
+Serving kinds, consulted by `InferenceEngine.step`
+(serving/engine.py) with the engine's decode-step number, as the JAX
+engine consults them:
+
+    serve_nan     force the lowest active slot's logits to NaN: the
+                  request is evicted 'poisoned', its co-batch untouched
+    serve_err     raise before the decode dispatch: retried within
+                  `step_retries`, else the engine degrades
+    serve_slow    sleep (step_timeout_s or 0.05) * 5 s inside the
+                  watched region: trips an armed step watchdog
 
 The plan is process-global (`get_plan()`/`set_plan()`); `get_plan()`
 lazily builds one from `BIGDL_FAULTS`, so a subprocess inherits

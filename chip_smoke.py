@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Run the PyTorch/CUDA port's serving, training (with checkpoints,
-resume, gradient accumulation and the anomaly guard), recurrent, CNN
-and TreeLSTM paths on one NVIDIA GPU and check them.
+"""Run the PyTorch/CUDA port's serving (with its reliability layer,
+layouts, spill tier and disaggregated prefill), training (with
+checkpoints, resume, gradient accumulation and the anomaly guard),
+recurrent, CNN and TreeLSTM paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py            # from the repository root, one CUDA card
     python3 chip_smoke.py --profile  # also: where decode, train,
@@ -51,6 +52,35 @@ It drives `bigdl_tpu_torch` only (never JAX or the JAX package):
    read just after; it must equal decode steps x layers. Reported, not
    gated: token agreement with a plain-attention engine and whether a
    warm (prefix-cache) admission decodes bitwise like a cold one;
+6a. engine_lifecycle — the engine's request lifecycle on an injected
+   clock (1.0 a step): a scripted wave of 16 through 8 slots with
+   max_queue=4 and shed-lowest-priority — 4 deadlines that run out
+   mid-decode, 2 queue-wait TTLs that run out queued, a cancellation
+   queued and one in flight, a named shed victim — through the kernel
+   engine and the plain-attention engine: statuses, reasons, ttft_s and
+   latency_s equal and as scripted, done tokens equal, K1 launches ==
+   steps x 8;
+6b. engine_faults — serve_nan poisons slot 0 and every other request's
+   tokens equal the clean run's; serve_err retried once (tokens equal)
+   or twice (degraded, all failed, submit raises); serve_slow trips a
+   0.5 s step watchdog armed at construction (once, at the faulted
+   step); drain() mid-wave (draining, then drained, tokens equal);
+   health()'s decode p50/p95/p99;
+6c. engine_layouts — the timed wave under fp32/float32, fp32/bfloat16
+   and int8/bfloat16 (bf16 pools run K1's bf16 instantiation), in turns
+   on two waves: launches exact, bf16 kernel engines against plain bf16
+   engines (agreed prefix >= 0.9), lossy layouts against fp32 (agreed
+   prefix >= 0.25, first tokens >= 0.6); tokens/s, step ms, device ms a
+   step, pool GiB, weight bytes (per token); swap_params mid-wave to the
+   same weights leaves the tokens bitwise unchanged;
+6d. engine_spill_handoff — fp32, bitwise: a second wave of the first
+   wave's (sampled) prompts through the default 297-block pool with
+   spill=True spills and re-admits and decodes the cold wave's tokens;
+   export_tree into a fresh engine (import_tree) gives prefix hits and
+   the same tokens; a role="prefill" engine hands the timed wave to a
+   role="decode" engine (take_handoffs/import_handoff) with the engine
+   phase's tokens; seconds a spill and a re-admission (per MiB), export
+   and import a request, tree export and import;
 7. train_model — one fp32 loss-and-grad step of the 43M LM at B=8,
    S=2048 through the flash kernels against the same step through the
    plain versions (|dloss| <= 1e-4, gradients <= 1e-3 relative);
@@ -1061,10 +1091,32 @@ def _wave(seed: int):
             for i, n in enumerate(lens)]
 
 
-def phase_engine(model, params):
+def _timed_run(eng, reqs):
+    """(results, seconds, decode steps, K1 launches) of one wave; the
+    launch count is set to 0 just before and read just after."""
     import torch
 
     from bigdl_tpu_torch.ops import paged_decode
+    from bigdl_tpu_torch.serving import Request
+
+    torch.cuda.synchronize()
+    steps0 = eng.stats["decode_steps"]
+    paged_decode.launches = 0
+    t0 = time.perf_counter()
+    res = eng.run([Request(**r) for r in reqs])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = paged_decode.launches
+    return res, dt, eng.stats["decode_steps"] - steps0, launches
+
+
+def _check_launches(where, launches, steps):
+    check(launches > 0 and launches == steps * LAYERS,
+          f"{where}: kernel launches {launches} != decode steps {steps} "
+          f"x {LAYERS} layers")
+
+
+def phase_engine(model, params):
     from bigdl_tpu_torch.serving import InferenceEngine, Request
 
     knobs = ENGINE_KNOBS
@@ -1072,19 +1124,9 @@ def phase_engine(model, params):
     check(eng.attn_impl == "cuda", "engine default attn_impl is not cuda")
     eng.run([Request(**r) for r in _wave(0)])              # warm-up
     timed = _wave(100)
-    torch.cuda.synchronize()
-    steps0 = eng.stats["decode_steps"]
     hits0 = eng.stats["prefix_hits"]
-    paged_decode.launches = 0                     # main path starts here
-    t0 = time.perf_counter()
-    res = eng.run([Request(**r) for r in timed])
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    launches = paged_decode.launches              # main path ends here
-    steps = eng.stats["decode_steps"] - steps0
-    check(launches > 0 and launches == steps * LAYERS,
-          f"kernel launches {launches} != decode steps {steps} x "
-          f"{LAYERS} layers")
+    res, dt, steps, launches = _timed_run(eng, timed)     # the main path
+    _check_launches("engine", launches, steps)
     for r in res:
         check(r.status == "done" and len(r.tokens) == NEW_TOKENS
               and r.finish_reason == "max_tokens",
@@ -1122,7 +1164,7 @@ def phase_engine(model, params):
          warm_cold_agreed_prefix=next(
              (i for i, (x, y) in enumerate(zip(warm.tokens, cold.tokens))
               if x != y), len(cold.tokens)))
-    return launches
+    return launches, [r.tokens for r in res]
 
 
 def phase_profile(model, params):
@@ -1189,6 +1231,552 @@ def phase_profile(model, params):
          top=[{"name": k[:80], "calls_per_step": c / steps,
                "ms_per_step": us / 1e3 / steps}
               for us, c, k in rows[:10]])
+
+
+# --------------------------------------------- the engine's reliability slice
+# the agreed-prefix floors of the layouts phase: a bf16 engine through the
+# kernel against the plain bf16 engine (the same bf16 pools, fp32 math);
+# a lossy layout against fp32 — the JAX package's contract
+# (tests/test_quant_serving.py: agreed-prefix share >= 0.25; its 43M row,
+# bench.py lmdecode_quant: first tokens agree on >= 0.6 of the requests)
+BF16_KERNEL_AGREE = 0.9
+LOSSY_AGREE, LOSSY_FIRST = 0.25, 0.6
+WATCHDOG_S = 0.5                # the faults phase's real step budget
+FAULT_STEP = 5                  # the decode step each fault plan hits
+# the spill phase's pool: the default size, 8 x 37 blocks + scratch, holds
+# 8 slots at once (<= 37 blocks each) but not the 344 blocks of prefix the
+# 16 prompts of a wave leave in the tree
+SPILL_POOL_BLOCKS = SLOTS * (MAX_LEN // BLOCK) + 1
+
+
+class _Clock:
+    """An injected engine clock that moves only when told to."""
+
+    def __init__(self):
+        self.t = 0.0
+
+    def __call__(self) -> float:
+        return self.t
+
+
+def _agreement(got, ref):
+    """(share of the horizon inside each request's agreed prefix,
+    share of requests whose first tokens agree) of two token lists."""
+    agreed = sum(next((i for i, (a, b) in enumerate(zip(g, r)) if a != b),
+                      min(len(g), len(r))) for g, r in zip(got, ref))
+    first = sum(bool(g and r and g[0] == r[0]) for g, r in zip(got, ref))
+    return agreed / sum(len(r) for r in ref), first / len(ref)
+
+
+def _with_plan(spec: str, fn):
+    """Run fn() under the fault plan `spec`; restore the plan found."""
+    from bigdl_tpu_torch.utils import faults
+
+    found = faults.get_plan()
+    faults.set_plan(faults.FaultPlan(spec))
+    try:
+        return fn()
+    finally:
+        faults.set_plan(found)
+
+
+def _lifecycle_script(eng, clock):
+    """The lifecycle wave on one engine (8 slots, max_queue 4,
+    shed-lowest-priority), driven on an injected clock that moves 1.0
+    a step. R0-R7 fill the slots; R2-R5 carry a 30 s deadline that runs
+    out mid-decode; R8 and R9 a 3 s queue wait that runs out while the
+    slots are full; R10 is cancelled while queued; R11 (priority -1) is
+    the victim R12 (priority 1) sheds from the full queue; R1 is
+    cancelled in flight at step 10; R13-R15 arrive at step 6. Returns
+    the results in request order."""
+    from bigdl_tpu_torch.serving import Request
+
+    wave = _wave(200)
+    for i in (2, 3, 4, 5):
+        wave[i]["deadline_s"] = 30.0
+    for i in (8, 9):
+        wave[i]["max_queue_wait_s"] = 3.0
+    wave[11]["priority"] = -1
+    wave[12]["priority"] = 1
+    ids = [None] * len(wave)
+    done = {}
+
+    def submit(i):
+        ids[i] = eng.submit(Request(**wave[i]))
+
+    def step():
+        for r in eng.step():
+            done[r.id] = r
+        clock.t += 1.0
+
+    for i in range(4):
+        submit(i)
+    step()
+    for i in range(4, 8):
+        submit(i)
+    step()
+    for i in range(8, 13):          # R12 sheds R11 from the full queue
+        submit(i)
+    done[ids[10]] = eng.cancel(ids[10])
+    n = 2
+    while not eng.idle:
+        if n == 6:
+            for i in range(13, 16):
+                submit(i)
+        if n == 10:
+            done[ids[1]] = eng.cancel(ids[1])
+        step()
+        n += 1
+    done.update(eng.completed)
+    eng.completed.clear()
+    return [done[i] for i in ids]
+
+
+LIFECYCLE_EXPECTED = (["done", "shed"] + ["expired"] * 4 + ["done"] * 2
+                      + ["expired"] * 2 + ["shed"] * 2 + ["done"] * 4)
+
+
+def phase_engine_lifecycle(model, params):
+    """Deadlines, queue-wait TTLs, cancellation and shed-lowest-priority
+    on the card: the scripted wave through the kernel engine and the
+    plain-attention engine; every status, reason, clock-derived time and
+    the done requests' tokens must agree; K1 launches == steps x 8."""
+    import torch
+
+    from bigdl_tpu_torch.ops import paged_decode
+    from bigdl_tpu_torch.serving import InferenceEngine
+
+    knobs = dict(ENGINE_KNOBS, max_queue=4,
+                 overload_policy="shed-lowest-priority")
+    runs = {}
+    for impl in ("cuda", "torch"):
+        clock = _Clock()
+        eng = InferenceEngine(model, params, attn_impl=impl, clock=clock,
+                              **knobs)
+        torch.cuda.synchronize()
+        steps0 = eng.stats["decode_steps"]
+        paged_decode.launches = 0                 # main path starts here
+        t0 = time.perf_counter()
+        res = _lifecycle_script(eng, clock)
+        torch.cuda.synchronize()
+        runs[impl] = dict(res=res, seconds=time.perf_counter() - t0,
+                          launches=paged_decode.launches,
+                          steps=eng.stats["decode_steps"] - steps0,
+                          stats=eng.stats)
+    k, p = runs["cuda"], runs["torch"]
+    _check_launches("engine_lifecycle", k["launches"], k["steps"])
+    check(p["launches"] == 0, "the plain engine launched the kernel")
+    statuses = [r.status for r in k["res"]]
+    check(statuses == LIFECYCLE_EXPECTED,
+          f"engine_lifecycle statuses {statuses}")
+    check(k["res"][11].finish_reason == "shed"
+          and k["res"][10].finish_reason == "cancelled"
+          and k["res"][1].finish_reason == "cancelled",
+          "engine_lifecycle: shed victim or cancellations misreported")
+    for a, b in zip(k["res"], p["res"]):
+        check((a.status, a.finish_reason, a.ttft_s, a.latency_s)
+              == (b.status, b.finish_reason, b.ttft_s, b.latency_s),
+              f"request {a.id}: {a.status}/{a.finish_reason} "
+              f"({a.ttft_s}, {a.latency_s}) against the plain engine's "
+              f"{b.status}/{b.finish_reason} ({b.ttft_s}, {b.latency_s})")
+        if a.status == "done":
+            check(a.tokens == b.tokens,
+                  f"request {a.id}: done tokens differ from the plain "
+                  "engine's")
+    for key in ("shed", "deadline_misses", "cancelled", "requests_done"):
+        check(k["stats"][key] == p["stats"][key],
+              f"engine_lifecycle stats[{key}] differ")
+    expired_tokens = [len(r.tokens) for r in k["res"]
+                      if r.status == "expired"]
+    emit("engine_lifecycle", requests=len(statuses), statuses=statuses,
+         expired_tokens=expired_tokens,
+         expired_tokens_equal_plain=[
+             a.tokens == b.tokens for a, b in zip(k["res"], p["res"])
+             if a.status == "expired"],
+         decode_steps=k["steps"], kernel_launches=k["launches"],
+         seconds=k["seconds"], plain_seconds=p["seconds"],
+         stats={key: k["stats"][key] for key in (
+             "shed", "deadline_misses", "cancelled", "requests_done",
+             "prefill_calls")})
+    return k["launches"]
+
+
+def phase_engine_faults(model, params):
+    """The serving fault plans on the card: serve_nan poisons the lowest
+    slot and spares its co-batch bit for bit; serve_err is retried once
+    (tokens unchanged) or, twice, degrades the engine; serve_slow trips
+    a real step watchdog armed at construction (kernel warm); drain()
+    mid-wave finishes the accepted work. Prints health()'s p50/p95."""
+    import threading
+
+    import torch
+
+    from bigdl_tpu_torch.serving import (EngineDegraded, EngineDraining,
+                                         InferenceEngine, Request)
+
+    wave = _wave(300)
+
+    def engine(**kw):
+        return InferenceEngine(model, params, retry_backoff_s=0.0,
+                               **ENGINE_KNOBS, **kw)
+
+    clean_eng = engine()
+    clean, dt, steps, launches = _timed_run(clean_eng, wave)
+    _check_launches("engine_faults clean", launches, steps)
+    ref = [r.tokens for r in clean]
+    health = clean_eng.health()
+    out = {"clean_seconds": dt, "decode_steps": steps,
+           "kernel_launches": launches,
+           "decode_p50_ms": health["decode_p50_ms"],
+           "decode_p95_ms": health["decode_p95_ms"],
+           "decode_p99_ms": health["metrics"]["decode_step_seconds"][
+               "p99_ms"]}
+
+    eng = engine()
+    res = _with_plan(f"serve_nan@{FAULT_STEP}",
+                     lambda: _timed_run(eng, wave))[0]
+    check(res[0].status == "poisoned" and eng.stats["poisoned"] == 1,
+          "serve_nan: the lowest slot was not poisoned")
+    check(res[0].tokens == ref[0][:FAULT_STEP],
+          "serve_nan: the poisoned request lost its earlier tokens")
+    check(all(r.status == "done" and r.tokens == t
+              for r, t in zip(res[1:], ref[1:])),
+          "serve_nan: a co-batched request differs from the clean run")
+
+    eng = engine(step_retries=1)
+    res = _with_plan(f"serve_err@{FAULT_STEP}",
+                     lambda: _timed_run(eng, wave))[0]
+    check(eng.stats["retries"] == 1 and eng.degraded is None,
+          f"serve_err: retries {eng.stats['retries']}, degraded "
+          f"{eng.degraded}")
+    check([r.tokens for r in res] == ref,
+          "serve_err: a retried step changed the tokens")
+
+    eng = engine(step_retries=1)
+    res = _with_plan(f"serve_err@{FAULT_STEP}x2",
+                     lambda: _timed_run(eng, wave))[0]
+    check(eng.degraded is not None
+          and all(r.status == "failed" for r in res),
+          "serve_err twice: the engine did not degrade and fail all")
+    try:
+        eng.submit(Request(**wave[0]))
+        check(False, "submit on a degraded engine did not raise")
+    except EngineDegraded:
+        pass
+
+    t0 = time.perf_counter()
+    eng = engine(step_timeout_s=WATCHDOG_S)
+    out["watchdog_construct_seconds"] = time.perf_counter() - t0
+    check(eng.stats["watchdog_trips"] == 0, "the watchdog tripped at "
+          "construction")
+    res = _with_plan(f"serve_slow@{FAULT_STEP}",
+                     lambda: _timed_run(eng, wave))[0]
+    h = eng.health()
+    check(eng.stats["watchdog_trips"] == 1
+          and eng.stats["decode_steps"] == FAULT_STEP
+          and h["state"] == "degraded"
+          and all(r.status == "failed" for r in res),
+          f"serve_slow: trips {eng.stats['watchdog_trips']} at step "
+          f"{eng.stats['decode_steps']}, state {h['state']}")
+    check(all(r.tokens == t[:FAULT_STEP] for r, t in
+              zip(res[:SLOTS], ref[:SLOTS])),
+          "serve_slow: tokens before the trip differ from the clean run")
+    for th in threading.enumerate():     # the abandoned step sleeps out
+        if th.name == "bigdl-serving-step":
+            th.join(WATCHDOG_S * 10)
+            check(not th.is_alive(), "an abandoned step never returned")
+    out["watchdog_degraded_reason"] = h["degraded_reason"]
+
+    eng = engine()
+    ids = [eng.submit(Request(**r)) for r in wave]
+    for _ in range(3):
+        eng.step()
+    eng.drain()
+    states = [eng.health()["state"]]
+    try:
+        eng.submit(Request(**wave[0]))
+        check(False, "submit on a draining engine did not raise")
+    except EngineDraining:
+        pass
+    while not eng.idle:
+        for r in eng.step():
+            eng.completed[r.id] = r
+    torch.cuda.synchronize()
+    states.append(eng.health()["state"])
+    res = [eng.completed.pop(i) for i in ids]
+    check(states == ["draining", "drained"], f"drain states {states}")
+    check([r.tokens for r in res] == ref
+          and all(r.status == "done" for r in res),
+          "drain: accepted requests did not finish as in the clean run")
+    emit("engine_faults", fault_step=FAULT_STEP, watchdog_s=WATCHDOG_S,
+         poisoned_slot=0, retries=1, drain_states=states, **out)
+
+
+LAYOUTS = (("fp32/float32", "fp32", "float32"),
+           ("fp32/bfloat16", "fp32", "bfloat16"),
+           ("int8/bfloat16", "int8", "bfloat16"))
+
+
+def _device_ms_per_step(eng, seed, steps=16):
+    """Device kernel time a decode step, from torch.profiler over
+    `steps` steps with all slots decoding (the wave's admissions done
+    first); None when the profiler records no device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from bigdl_tpu_torch.serving import Request
+
+    for r in _wave(seed):
+        eng.submit(Request(**r))
+    for _ in range(4):                  # the 8 admissions land in step 1
+        eng.step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            eng.step()
+        torch.cuda.synchronize()
+    eng.run()                                             # drain
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA)
+    return us / 1e3 / steps if us > 0 else None
+
+
+def phase_engine_layouts(model, params, fp32_tokens):
+    """The timed wave under fp32/float32, fp32/bfloat16 and
+    int8/bfloat16 through the kernel (bf16 pools run K1's bf16
+    instantiation), in turns (each layout, then each again in reverse
+    order, on waves 100 and 101): launches exact, each bf16 engine
+    against the plain bf16 engine, each lossy layout against fp32 at the
+    contract's floors; tokens/s, step ms, device ms a step, pool GiB,
+    weight bytes. Then swap_params to the same weights mid-wave: tokens
+    bitwise unchanged."""
+    import torch
+
+    from bigdl_tpu_torch.serving import (InferenceEngine, Request,
+                                         params_bytes)
+
+    engines, out, tokens, launches_by = {}, {}, {}, {}
+    for family, wdt, cdt in LAYOUTS:
+        eng = InferenceEngine(model, params, weight_dtype=wdt,
+                              cache_dtype=getattr(torch, cdt),
+                              **ENGINE_KNOBS)
+        check(eng.layout_family == family and eng.attn_impl == "cuda",
+              f"{family}: layout {eng.layout_family}, {eng.attn_impl}")
+        eng.run([Request(**r) for r in _wave(0)])          # warm-up
+        engines[family] = eng
+        out[family] = {"tokens_per_sec": [], "step_ms": [],
+                       "decode_steps": [], "kernel_launches": []}
+    order = [f for f, _, _ in LAYOUTS]
+    for seed, family in zip([100] * 3 + [101] * 3, order + order[::-1]):
+        eng, row = engines[family], out[family]
+        res, dt, steps, launches = _timed_run(eng, _wave(seed))
+        _check_launches(f"engine_layouts {family}", launches, steps)
+        check(all(r.status == "done" and len(r.tokens) == NEW_TOKENS
+                  for r in res), f"{family}: a request did not finish")
+        n_tok = sum(len(r.tokens) for r in res)
+        row["tokens_per_sec"].append(n_tok / dt)
+        row["step_ms"].append(dt / steps * 1e3)
+        row["decode_steps"].append(steps)
+        row["kernel_launches"].append(launches)
+        if seed == 100:
+            tokens[family] = [r.tokens for r in res]
+            launches_by[family] = launches
+    for family, wdt, cdt in LAYOUTS:
+        eng, row = engines[family], out[family]
+        toks = tokens[family]
+        wbytes = params_bytes(eng._params)
+        row.update(
+            pool_gib=sum(t.numel() * t.element_size() for layer in eng.pool
+                         for t in layer.values()) / 2**30,
+            weight_bytes=wbytes,
+            weight_bytes_per_token=wbytes * row["decode_steps"][0]
+            / sum(len(t) for t in toks),
+            device_ms_per_step=_device_ms_per_step(eng, 500))
+        if row["device_ms_per_step"] is not None:
+            row["device_busy_share"] = row["device_ms_per_step"] \
+                / statistics.median(row["step_ms"])
+        if cdt == "bfloat16":
+            plain = InferenceEngine(model, params, attn_impl="torch",
+                                    weight_dtype=wdt,
+                                    cache_dtype=torch.bfloat16,
+                                    **ENGINE_KNOBS)
+            ref = [r.tokens for r in plain.run(
+                [Request(**r) for r in _wave(100)])]
+            agree, _ = _agreement(toks, ref)
+            check(agree >= BF16_KERNEL_AGREE,
+                  f"{family}: the kernel engine agrees with the plain "
+                  f"bf16 engine over {agree:.3f} < {BF16_KERNEL_AGREE}")
+            row.update(plain_agreed_prefix=agree,
+                       plain_same_requests=sum(a == b for a, b in
+                                               zip(toks, ref)))
+            del plain
+        if family != "fp32/float32":
+            agree, first = _agreement(toks, tokens["fp32/float32"])
+            check(agree >= LOSSY_AGREE and first >= LOSSY_FIRST,
+                  f"{family}: against fp32 agreed prefix {agree:.3f} "
+                  f"(floor {LOSSY_AGREE}), first tokens {first:.3f} "
+                  f"(floor {LOSSY_FIRST})")
+            row.update(fp32_agreed_prefix=agree, fp32_first_token=first)
+    del engines
+    torch.cuda.empty_cache()
+    check(tokens["fp32/float32"] == fp32_tokens,
+          "fp32/float32 layout tokens differ from the engine phase's")
+
+    eng = InferenceEngine(model, params, **ENGINE_KNOBS)
+    ids = [eng.submit(Request(**r)) for r in _wave(100)]
+    for _ in range(10):
+        for r in eng.step():
+            eng.completed[r.id] = r
+    eng.swap_params(params)
+    res = eng.run()
+    got = {r.id: r.tokens for r in res}
+    check([got[i] for i in ids] == tokens["fp32/float32"]
+          and eng.stats["weight_swaps"] == 1,
+          "swap_params to the same weights changed the tokens")
+    emit("engine_layouts", layouts=out, order=order + order[::-1],
+         bf16_kernel_floor=BF16_KERNEL_AGREE,
+         lossy_floors={"agreed_prefix": LOSSY_AGREE,
+                       "first_token": LOSSY_FIRST},
+         swap_tokens_unchanged=True)
+    return launches_by
+
+
+def _timed_method(eng, name, log, counter=None):
+    """Wrap eng.<name> to log (seconds, how far stats[counter] moved) of
+    each call, the card synchronised around it."""
+    import torch
+
+    real = getattr(eng, name)
+
+    def timed(*a, **k):
+        torch.cuda.synchronize()
+        n0 = eng.stats[counter] if counter else 0
+        t0 = time.perf_counter()
+        r = real(*a, **k)
+        torch.cuda.synchronize()
+        log.append((time.perf_counter() - t0,
+                    (eng.stats[counter] if counter else 0) - n0))
+        return r
+
+    setattr(eng, name, timed)
+
+
+def phase_engine_spill_handoff(model, params, fp32_tokens):
+    """The host spill tier, disaggregated prefill and tree migration on
+    the card, fp32 (bitwise contracts): a second wave of the first
+    wave's prompts through a 297-block pool spills and re-admits and its
+    tokens equal the cold wave's bit for bit; a prefill-role engine hands
+    every request of the timed wave to a decode-role engine with tokens
+    bit for bit the one-engine run's; export_tree into a fresh engine
+    gives prefix hits. Seconds per spill, readmission, export and
+    import."""
+    import torch
+
+    from bigdl_tpu_torch.ops import paged_decode
+    from bigdl_tpu_torch.serving import InferenceEngine, Request
+
+    block_mib = (2 * LAYERS * HEADS * BLOCK * (DIM // HEADS) * 4) / 2**20
+    wave = [dict(r, temperature=0.8, top_k=50) for r in _wave(400)]
+    eng = InferenceEngine(model, params, spill=True,
+                          pool_blocks=SPILL_POOL_BLOCKS, **ENGINE_KNOBS)
+    spills, readmits = [], []
+    _timed_method(eng, "_spill_blocks", spills, "kv_spill_blocks")
+    _timed_method(eng, "_readmit_chain", readmits, "kv_readmit_blocks")
+    cold, _, steps_c, launches_c = _timed_run(eng, wave)
+    _check_launches("engine_spill cold", launches_c, steps_c)
+    spilled_cold = eng.stats["kv_spill_blocks"]
+    readmits.clear()            # (the cold wave re-admits nothing)
+    warm, dt, steps, launches = _timed_run(eng, wave)
+    _check_launches("engine_spill warm", launches, steps)
+    s = eng.stats
+    check(s["kv_spill_blocks"] > 0 and s["kv_readmit_blocks"] > 0,
+          f"spill: spilled {s['kv_spill_blocks']}, re-admitted "
+          f"{s['kv_readmit_blocks']}")
+    check([r.tokens for r in warm] == [r.tokens for r in cold],
+          "spill: warm tokens differ from the cold run")
+    spill_calls = [(t, n) for t, n in spills if n]
+    readmit_calls = [(t, n) for t, n in readmits if n]
+    spill = {
+        "pool_blocks": SPILL_POOL_BLOCKS, "block_mib": block_mib,
+        "spilled_cold_wave": spilled_cold,
+        "spilled": s["kv_spill_blocks"], "readmitted":
+            s["kv_readmit_blocks"], "host_evictions":
+            s["kv_host_evictions"], "prefix_hits": s["prefix_hits"],
+        "spill_calls": len(spill_calls),
+        "spill_ms_per_call": 1e3 * sum(t for t, _ in spill_calls)
+        / max(len(spill_calls), 1),
+        "spill_ms_per_mib": 1e3 * sum(t for t, _ in spill_calls)
+        / max(sum(n for _, n in spill_calls) * block_mib, 1e-9),
+        "readmit_calls": len(readmit_calls),
+        "readmit_ms_per_call": 1e3 * sum(t for t, _ in readmit_calls)
+        / max(len(readmit_calls), 1),
+        "readmit_ms_per_mib": 1e3 * sum(t for t, _ in readmit_calls)
+        / max(sum(n for _, n in readmit_calls) * block_mib, 1e-9),
+        "warm_tokens_per_sec": sum(len(r.tokens) for r in warm) / dt,
+        "warm_equals_cold": True}
+
+    t0 = time.perf_counter()
+    entries = eng.export_tree()
+    export_s = time.perf_counter() - t0
+    del eng
+    torch.cuda.empty_cache()
+    fresh = InferenceEngine(model, params, spill=True,
+                            host_blocks=len(entries), **ENGINE_KNOBS)
+    t0 = time.perf_counter()
+    grafted = fresh.import_tree(entries)
+    import_s = time.perf_counter() - t0
+    moved, _, steps_m, launches_m = _timed_run(fresh, wave)
+    _check_launches("engine_tree", launches_m, steps_m)
+    check(grafted > 0 and fresh.stats["prefix_hits"] > 0
+          and fresh.stats["kv_readmit_blocks"] > 0,
+          f"import_tree: grafted {grafted}, hits "
+          f"{fresh.stats['prefix_hits']}")
+    check([r.tokens for r in moved] == [r.tokens for r in cold],
+          "import_tree: migrated-prefix tokens differ from the cold run")
+    tree = {"entries": len(entries), "grafted": grafted,
+            "export_seconds": export_s, "import_seconds": import_s,
+            "prefix_hits": fresh.stats["prefix_hits"],
+            "readmitted": fresh.stats["kv_readmit_blocks"]}
+    del fresh
+    torch.cuda.empty_cache()
+
+    timed = _wave(100)
+    pre = InferenceEngine(model, params, role="prefill", **ENGINE_KNOBS)
+    dec = InferenceEngine(model, params, role="decode", **ENGINE_KNOBS)
+    exports, imports = [], []
+    _timed_method(pre, "_export_handoff", exports)
+    _timed_method(dec, "import_handoff", imports)
+    ids = [pre.submit(Request(**r)) for r in timed]
+    while not pre.idle:
+        pre.step()
+    pkgs = pre.take_handoffs()
+    torch.cuda.synchronize()
+    steps0 = dec.stats["decode_steps"]
+    paged_decode.launches = 0
+    while pkgs or not dec.idle:
+        while pkgs and dec.import_handoff(pkgs[0]):
+            pkgs.pop(0)
+        for r in dec.step():
+            dec.completed[r.id] = r
+    torch.cuda.synchronize()
+    launches_h = paged_decode.launches
+    _check_launches("engine_handoff", launches_h,
+                    dec.stats["decode_steps"] - steps0)
+    res = [dec.completed.pop(i) for i in ids]
+    check([r.tokens for r in res] == fp32_tokens,
+          "handoff: tokens differ from the one-engine run")
+    handoff = {"requests": len(res), "handoffs_out":
+               pre.stats["handoffs_out"], "handoffs_in":
+               dec.stats["handoffs_in"],
+               "export_ms_per_request": 1e3 * sum(t for t, _ in exports)
+               / len(exports),
+               "import_ms_per_request": 1e3 * sum(t for t, _ in imports)
+               / len(imports),
+               "kernel_launches": launches_h}
+    emit("engine_spill_handoff", spill=spill, tree=tree, handoff=handoff)
+    return {"spill": launches, "tree": launches_m, "handoff": launches_h}
 
 
 def _train_model(attn_impl=None):
@@ -4047,9 +4635,16 @@ def main() -> int:
     del flush
     model, params = _model()
     phase_model(model, params)
-    launches = phase_engine(model, params)
+    launches, fp32_tokens = phase_engine(model, params)
     if "--profile" in sys.argv[1:]:
         phase_profile(model, params)
+    engine_launches = {"engine": launches,
+                       "engine_lifecycle": phase_engine_lifecycle(model,
+                                                                  params)}
+    phase_engine_faults(model, params)
+    engine_launches.update(phase_engine_layouts(model, params, fp32_tokens))
+    engine_launches.update(phase_engine_spill_handoff(model, params,
+                                                      fp32_tokens))
     del model, params
     torch.cuda.empty_cache()
     phase_train_model()
@@ -4112,6 +4707,8 @@ def main() -> int:
         "design": DECODE_DESIGN,
         "replaces": "bigdl_tpu/ops/paged_decode.py:95",
         "launches": launches,
+        # each serving path's own count, set to 0 just before it
+        "launches_by_path": engine_launches,
         "max_abs_err": max(kern["fp32"]["max_abs_err"],
                            kern["bf16"]["max_abs_err"]),
         "ms": fp32["kernel_ms"], "plain_ms": fp32["torch_ms"],
@@ -4199,7 +4796,8 @@ def main() -> int:
             "library_ms": None,
         })
     for k in kernels:
-        check(all(isinstance(v, str) or v is None and n == "library_ms"
+        check(all(isinstance(v, (str, dict))
+                  or v is None and n == "library_ms"
                   or math.isfinite(v) for n, v in k.items()),
               f"{k['name']}: non-finite field")
         check(k["launches"] > 0, f"{k['name']}: no launch on its main path")

@@ -92,6 +92,39 @@ def test_plan_from_env(monkeypatch):
     assert tfaults.get_plan() is planned
 
 
+def test_serving_kinds_fire_in_the_engine_like_jax():
+    """A plan arming every serving kind fires in the port's engine at
+    the decode steps where it fires in the JAX engine: serve_nan
+    poisons the lowest active slot, serve_err is retried once,
+    serve_slow (no watchdog armed) only slows its step."""
+    import jax
+
+    import test_torch_engine_lifecycle as lc
+
+    jm = lc.build_lm(**lc.CFG)
+    variables = jm.init(jax.random.PRNGKey(0))
+    tm = lc.TransformerLM(lc.TransformerConfig(**lc.CFG), device="cpu")
+    params = lc.params_from_jax(jax.device_get(variables["params"]),
+                                device="cpu")
+    spec = "serve_nan@1,serve_err@2,serve_slow@3"
+    fired, statuses = [], []
+    for s, mod in zip(lc.sides((jm, variables, tm, params)),
+                      (jfaults, tfaults)):
+        plan = mod.FaultPlan(spec)
+        mod.set_plan(plan)
+        eng = s.engine(step_retries=1, retry_backoff_s=0.0)
+        out = eng.run([s.m.Request(prompt=[i + 1, i + 2, i + 3],
+                                   max_new_tokens=5) for i in range(3)])
+        mod.set_plan(None)
+        fired.append(plan.fired)
+        statuses.append([(r.status, r.tokens) for r in out]
+                        + [eng.stats["retries"]])
+    assert fired[1] == fired[0] == [("serve_nan", 1), ("serve_err", 2),
+                                    ("serve_slow", 3)]
+    assert statuses[1] == statuses[0]
+    assert statuses[1][0][0] == "poisoned" and statuses[1][-1] == 1
+
+
 def test_poison_minibatch_like_jax():
     rng = np.random.RandomState(0)
     x = rng.rand(2, 3).astype(np.float32)
