@@ -1,17 +1,17 @@
-"""Transformer — preprocessing over iterators.
+"""Transformer — composable preprocessing over iterators.
 
-Ports `Transformer` and `SampleToMiniBatch` from
-bigdl_tpu/dataset/transformer.py (numpy only; reference:
+Ports bigdl_tpu/dataset/transformer.py (numpy only; reference:
 dataset/Transformer.scala, dataset/SampleToMiniBatch.scala). Each
 transformer is `Iterator[A] -> Iterator[B]`, so transforms stay
-streaming. Chaining (`>>`, `chain`) and `MapTransformer` are queued
-(ROADMAP.md).
+streaming. Python has no `->` operator: `a >> b` (and `chain(a, b,
+c)`) chains, flattening nested chains; `MapTransformer` lifts a
+per-element function.
 """
 
 from __future__ import annotations
 
 import itertools
-from typing import Iterable, Iterator
+from typing import Any, Callable, Iterable, Iterator, List
 
 from bigdl_tpu_torch.dataset.sample import MiniBatch
 
@@ -24,6 +24,43 @@ class Transformer:
 
     def __call__(self, it: Iterable) -> Iterator:
         return self.apply(iter(it))
+
+    def __rshift__(self, other: "Transformer") -> "ChainedTransformer":
+        """`a >> b` — the reference's `a -> b`."""
+        return ChainedTransformer(self, other)
+
+
+class ChainedTransformer(Transformer):
+    """Stages applied in order; a nested chain's stages are spliced in,
+    so `(a >> b) >> c` and `a >> (b >> c)` hold [a, b, c]."""
+
+    def __init__(self, *stages: Transformer):
+        flat: List[Transformer] = []
+        for s in stages:
+            if isinstance(s, ChainedTransformer):
+                flat.extend(s.stages)
+            else:
+                flat.append(s)
+        self.stages = flat
+
+    def apply(self, it: Iterator) -> Iterator:
+        for s in self.stages:
+            it = s.apply(it)
+        return it
+
+
+def chain(*stages: Transformer) -> ChainedTransformer:
+    return ChainedTransformer(*stages)
+
+
+class MapTransformer(Transformer):
+    """Lift a per-element function into a transformer."""
+
+    def __init__(self, fn: Callable[[Any], Any]):
+        self.fn = fn
+
+    def apply(self, it):
+        return map(self.fn, it)
 
 
 class SampleToMiniBatch(Transformer):

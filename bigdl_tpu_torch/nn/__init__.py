@@ -15,11 +15,14 @@ from bigdl_tpu_torch.nn.conv import (SpatialConvolution,
                                     SpatialFullConvolution,
                                     SpatialShareConvolution,
                                     TemporalConvolution)
-from bigdl_tpu_torch.nn.criterion import (ChunkedSoftmaxCE,
-                                          ClassNLLCriterion,
-                                          CrossEntropyCriterion,
-                                          MSECriterion,
-                                          TimeDistributedCriterion)
+from bigdl_tpu_torch.nn.criterion import (
+    AbsCriterion, BCECriterion, ChunkedSoftmaxCE, ClassNLLCriterion,
+    ClassSimplexCriterion, CosineEmbeddingCriterion, CosineProximityCriterion,
+    CrossEntropyCriterion, DistKLDivCriterion, HingeEmbeddingCriterion,
+    KLDCriterion, L1Cost, MarginCriterion, MarginRankingCriterion,
+    MSECriterion, MultiCriterion, MultiLabelMarginCriterion,
+    MultiMarginCriterion, ParallelCriterion, SmoothL1Criterion,
+    TimeDistributedCriterion)
 from bigdl_tpu_torch.nn.dropout import (Dropout, GaussianDropout,
                                         GaussianNoise, SpatialDropout2D)
 from bigdl_tpu_torch.nn.embedding import LookupTable

@@ -32,12 +32,20 @@ rather than return a module whose variables stayed where they were:
 move the variables with `models.convert.tree_map`. `evaluate(dataset,
 methods)`, `predict(dataset)` and `predict_class(dataset)` run
 optim/evaluator.py over the stored variables. Called on `nn.graph.Node`s,
-a module wires itself into a graph (`Linear(4, 2)(x)`, nn/graph.py);
-any other call is torch's own. Not ported: constructor capture for the
-module serializer, `save_module`/`load_module`, `get_parameters` and
-the eager `forward`/`training()` facade with the no-argument
-`evaluate()` that switches it to eval mode (torch's own `training`
-flag is left alone).
+a module wires itself into a graph (`Linear(4, 2)(x)`, nn/graph.py).
+
+The eager facade (reference: AbstractModule.forward, training,
+evaluate): `m(x)` and `m.forward(x, rng=None)` run `apply` over the
+stored variables in the module's mode and store the new state back;
+`get_parameters()` is every parameter in one flat vector. The mode is
+torch's own `training` attribute, which serves both packages' uses: it
+is truthy in training mode (the default) as torch's bool is, and
+callable — `m.training()` switches to training mode and returns the
+module, as the JAX package's method does; `m.evaluate()` with no
+arguments switches to eval mode and returns the module;
+`is_training()` reads it. torch's `train(mode)` and `eval()` set the
+same flag (on registered children too). Not ported: constructor
+capture for the module serializer and `save_module`/`load_module`.
 """
 
 from __future__ import annotations
@@ -52,6 +60,25 @@ from bigdl_tpu_torch.utils.device import DeviceLike, resolve_device
 
 _id_counter = itertools.count()
 _MASK64 = (1 << 64) - 1
+
+
+class _Mode(int):
+    """A module's mode as its `training` attribute reads it: 1 in
+    training mode, 0 in eval mode (so `if m.training:` works as on a
+    torch module), and callable: `m.training()` switches the module to
+    training mode and returns it."""
+
+    def __new__(cls, module: "Module", value: bool):
+        mode = super().__new__(cls, bool(value))
+        mode._module = module
+        return mode
+
+    def __call__(self) -> "Module":
+        self._module.training = True
+        return self._module
+
+    def __repr__(self) -> str:
+        return repr(bool(self))
 
 
 def _fold_rng(rng: Optional[torch.Generator], i: int
@@ -81,6 +108,18 @@ class Module(torch.nn.Module):
         self._explicit_name = name is not None
         self.name = name or f"{type(self).__name__}_{next(_id_counter)}"
         self._variables: Optional[Dict[str, Any]] = None
+
+    @property
+    def training(self) -> _Mode:
+        return _Mode(self, self.__dict__.get("_training", True))
+
+    @training.setter
+    def training(self, mode: bool) -> None:
+        # torch.nn.Module.__init__ and train(mode) set the mode here
+        self.__dict__["_training"] = bool(mode)
+
+    def is_training(self) -> bool:
+        return self.__dict__.get("_training", True)
 
     # ---------------------------------------------------------- functional
     def init_params(self, generator: Optional[torch.Generator] = None
@@ -118,6 +157,14 @@ class Module(torch.nn.Module):
         return [(".".join(str(k) for k in path), leaf)
                 for path, leaf in tree_leaves_with_path(variables["params"])]
 
+    def get_parameters(self, variables: Optional[Dict[str, Any]] = None
+                       ) -> torch.Tensor:
+        """Every trainable parameter flattened into one vector, in
+        `parameters()` order (reference: Module.getParameters)."""
+        leaves = [t.reshape(-1) for _, t in self.parameters(variables)]
+        return torch.cat(leaves) if leaves \
+            else torch.zeros((0,), dtype=torch.float32)
+
     # --------------------------------------------------------------- eager
     def build(self, generator: Optional[torch.Generator] = None,
               device: DeviceLike = None) -> "Module":
@@ -135,9 +182,14 @@ class Module(torch.nn.Module):
     def variables(self, v: Dict[str, Any]) -> None:
         self._variables = v
 
-    def evaluate(self, dataset, methods, batch_size: int = 32):
-        """{method name: ValidationResult} over `dataset` (reference:
-        AbstractModule.evaluate(rdd, methods))."""
+    def evaluate(self, dataset=None, methods=None, batch_size: int = 32):
+        """No arguments: switch the eager facade to eval mode and return
+        the module. With a dataset and validation methods: {method
+        name: ValidationResult} over `dataset`. Both overloads are the
+        reference's AbstractModule.evaluate."""
+        if dataset is None:
+            self.training = False
+            return self
         from bigdl_tpu_torch.optim.evaluator import Evaluator
 
         return Evaluator(self).test(dataset, methods, batch_size=batch_size)
@@ -155,9 +207,19 @@ class Module(torch.nn.Module):
 
         return Predictor(self, batch_size=batch_size).predict_class(dataset)
 
+    def forward(self, *inputs, rng: Optional[torch.Generator] = None):
+        """Eager forward: `apply` over the stored variables (built on
+        first use, on the card unless `build(device=...)` placed them)
+        in the module's mode, the new state stored back."""
+        out, new_state = self.apply(self.variables, *inputs,
+                                    training=self.is_training(), rng=rng)
+        self._variables = {"params": self._variables["params"],
+                           "state": new_state}
+        return out
+
     def __call__(self, *args, **kwargs):
         """Graph wiring when every argument is a `Node`; otherwise
-        torch's own call (which runs `forward`)."""
+        torch's own call, which runs the eager `forward`."""
         from bigdl_tpu_torch.nn.graph import Node  # graph imports module
 
         if args and all(isinstance(a, Node) for a in args):

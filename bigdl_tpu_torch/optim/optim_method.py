@@ -6,7 +6,8 @@ Ports bigdl_tpu/optim/optim_method.py with BigDL's formulas
 RMSprop.scala, Adadelta.scala, Ftrl.scala): Adam's `epsilon` sits
 outside `sqrt(v / bc2)` and the bias corrections use `t = step + 1` —
 which is why these are not `torch.optim`'s, whose formulas differ.
-LBFGS (bigdl_tpu/optim/lbfgs.py) is queued (ROADMAP.md, A.5).
+LBFGS, whose contract is a closure and not a gradient, is
+optim/lbfgs.py.
 
 Where the JAX package maps a pure function over parameter pytrees,
 the port updates flat lists of tensors IN PLACE with `torch._foreach_*`

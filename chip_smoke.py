@@ -2,7 +2,9 @@
 """Run the PyTorch/CUDA port's serving (with its reliability layer,
 layouts, spill tier and disaggregated prefill), training (with
 checkpoints, resume, gradient accumulation and the anomaly guard),
-recurrent, CNN and TreeLSTM paths on one NVIDIA GPU and check them.
+recurrent, CNN and TreeLSTM paths, its text, record-file and TFRecord
+input pipelines, LBFGS, criterions and eager facade on one NVIDIA GPU
+and check them.
 
     python3 chip_smoke.py            # from the repository root, one CUDA card
     python3 chip_smoke.py --profile  # also: where decode, train,
@@ -224,7 +226,39 @@ It drives `bigdl_tpu_torch` only (never JAX or the JAX package):
    schedules, the wavefront's loss and gradients against the slot
    scan's (rtol 1e-5, atol 1e-6), and each schedule's bf16 loss and
    backward time;
-24. kernels — one JSON line per the port's kernel table.
+24. text_lm — raw text to the LSTM LM (K6/K7): a generated corpus of
+   20000 sentences of 10-80 words, Zipf over 12000 words (PTB's size),
+   `Dictionary(..., vocab_size=9999)` and `DataSet.array(texts) >>
+   (SentenceTokenizer() >> SentenceBiPadding() >>
+   TextToLabeledSentence(d) >> LabeledSentenceToSample(64))` into
+   `Optimizer(rnn.lstm_lm(10000, 128, 128, num_layers=2), ...,
+   TimeDistributedCriterion(ClassNLLCriterion()), batch 32)` in bf16,
+   2 + 30 steps, `Loss` over 512 held-out sentences after the last:
+   K6 and K7 exactly 2 launches a step each, the first batch the card
+   got equal to a host run of the pipeline bit for bit, the first step's
+   loss and gradients equal to the plain recurrences' (fp32 1e-4 /
+   1e-3; bf16 2e-2), losses falling; tokens/s, the pipeline's host ms a
+   batch and share of the step, the busy share;
+25. records_trainer — disk to ResNet-20: 50000 32 x 32 x 3 images in 8
+   BDLS shards (153.8 MB) through `RecordFileDataSet(batch 128,
+   mean/std, pad=4, hflip=True)` into `Optimizer(resnet.build_cifar(20,
+   10), SGD(0.1, momentum 0.9))` for 5 + 200 steps, `Evaluator` over the
+   shards, the same steps fed from `DataSet.array`, and 1024 of the
+   images through `write_image_examples` and `TFRecordDataSet` for 4
+   steps: eval batches equal the in-memory normalisation bit for bit,
+   the loss falls; images/s from disk and memory, the host ms a batch of
+   the file prefetcher and of the TFRecord read, the busy share;
+26. lbfgs — `optim.LBFGS` on Rosenbrock (fp32) and on LeNet-5 over one
+   batch of 1024 synthetic MNIST images (20 iterations, history 10,
+   strong Wolfe; fp32 timed, fp64 card vs CPU within 1e-6); ms and
+   fevals an iteration;
+27. criterions — all 21 criterions, forward and gradient, card vs CPU,
+   fp32 (1e-5 of max(1, |CPU value|));
+28. eager_facade — LeNet-5 and ResNet-20 built on the card: the eager
+   forward in training mode stores `apply`'s new state, `evaluate()`'s
+   forward equals `apply(..., training=False)`, `get_parameters()` has
+   the parameter count;
+29. kernels — one JSON line per the port's kernel table.
 
 Every phase prints one JSON line; any failed check raises and the
 script exits non-zero. The last lines are the `nvidia-smi` name/power
@@ -4609,6 +4643,757 @@ def phase_treelstm_trainer():
          total_seconds=time.perf_counter() - t0)
 
 
+# -------------------------------------------------- the training plane
+# slice 13: the text, record-file and TFRecord input pipelines with
+# transformer chains, LBFGS, the criterions and the eager Module facade.
+# The text LM phase feeds rnn.lstm_lm (K6/K7) from raw text; the others
+# run no kernel of the table.
+TEXT_SENTENCES, TEXT_WORDS, TEXT_LEN = 20000, 12000, (10, 80)
+TEXT_HELD_OUT = 512
+TEXT_WARMUP, TEXT_STEPS = 2, 30
+TEXT_PIPE_BATCHES = 50          # batches the pipeline alone is timed over
+# bf16 first step, kernels vs plain recurrences: loss (absolute) and
+# gradients (relative, the rnn model tests' bf16 limit, the per-leaf
+# rule of TRAIN_GRAD_FLOOR). At initialisation the loss hardly depends
+# on the recurrence: on an H100 the kernels read 0 and 6.0e-3 off, a
+# control that reads every LSTM layer's h as 0 1.8e-3 and 1.0, and the
+# control must fail both limits.
+TEXT_BF16_LOSS_TOL, TEXT_BF16_GRAD_TOL = 5e-4, 5e-2
+RECORDS_N, RECORDS_SHARDS, RECORDS_BATCH = 50000, 8, 128
+RECORDS_WARMUP, RECORDS_STEPS = 5, 200
+RECORDS_PIPE_BATCHES = 50
+CIFAR_MEAN, CIFAR_STD = (125.3, 122.9, 113.8), (63.0, 62.1, 66.7)
+TFRECORD_N, TFRECORD_STEPS = 1024, 4
+LBFGS_ITERS, LBFGS_HISTORY, LBFGS_MNIST = 20, 10, 1024
+# Rosenbrock's minimizer within 1e-3 of (1, 1) on card and CPU (fp32:
+# the two runs part at rounding level, cuDNN and the CPU summing in
+# other orders, and the line search's branches follow); LeNet-5 in
+# fp64, card vs CPU, final losses within 1e-6 of each other
+LBFGS_X_TOL, LBFGS_LOSS_RTOL = 1e-3, 1e-6
+CRITERION_TOL = 1e-5            # card vs CPU, of max(1, |CPU value|)
+
+
+def _text_corpus(n, seed):
+    """`n` generated sentences of TEXT_LEN words (purely alphabetic,
+    first letter capitalised), the words drawn with Zipf frequencies
+    (p ~ 1 / rank) from TEXT_WORDS distinct ones: at 20000 sentences
+    the size of PTB's training text (~0.9M words)."""
+    import numpy as np
+
+    rng = np.random.RandomState(0)              # one vocabulary for all
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz"))
+    words = {}
+    while len(words) < TEXT_WORDS:
+        words.setdefault("".join(rng.choice(letters, rng.randint(2, 11))))
+    words = np.array(list(words))
+    p = 1.0 / np.arange(1, TEXT_WORDS + 1)
+    rng = np.random.RandomState(seed)
+    lens = rng.randint(TEXT_LEN[0], TEXT_LEN[1] + 1, n)
+    picks = words[rng.choice(TEXT_WORDS, int(lens.sum()), p=p / p.sum())]
+    ends = np.cumsum(lens)
+    return [" ".join(picks[e - k:e]).capitalize() for k, e in zip(lens, ends)]
+
+
+def _text_pipeline(texts, dictionary):
+    from bigdl_tpu_torch.dataset import DataSet
+    from bigdl_tpu_torch.dataset.text import (LabeledSentenceToSample,
+                                              SentenceBiPadding,
+                                              SentenceTokenizer,
+                                              TextToLabeledSentence)
+
+    return DataSet.array(texts) >> (
+        SentenceTokenizer() >> SentenceBiPadding()
+        >> TextToLabeledSentence(dictionary)
+        >> LabeledSentenceToSample(LM_SEQ))
+
+
+def _host_ms_per_batch(it, n):
+    """Host ms a batch of drawing `n` batches from the iterator `it`
+    (after one untimed batch)."""
+    next(it)
+    t = time.perf_counter()
+    for _ in range(n):
+        next(it)
+    return (time.perf_counter() - t) / n * 1e3
+
+
+def phase_text_lm():
+    """The slice's main path: raw text to the LSTM LM. A generated corpus
+    (TEXT_SENTENCES sentences, Zipf over TEXT_WORDS words), `Dictionary(
+    ..., vocab_size=LM_VOCAB - 1)` (PTB's 10000 with the unknown bucket),
+    the pipeline `DataSet.array(texts) >> (SentenceTokenizer() >>
+    SentenceBiPadding() >> TextToLabeledSentence(d) >>
+    LabeledSentenceToSample(LM_SEQ))` into `Optimizer(rnn.lstm_lm(
+    LM_VOCAB, 128, 128, num_layers=LM_LAYERS), ...,
+    TimeDistributedCriterion(ClassNLLCriterion(), size_average=True),
+    batch_size=LM_BATCH)` with Adam(1e-3) in bf16, TEXT_WARMUP +
+    TEXT_STEPS steps, validated by `Loss` over TEXT_HELD_OUT held-out
+    sentences after the last. Gates: K6 and K7 launch exactly LM_LAYERS
+    times a step each in the timed window (and the validation's
+    forwards run the inference variant only); the first batch the
+    Optimizer moved to the card (read where it moves it) equals a
+    second host run of the same pipeline bit for bit; on that batch
+    the first step through the kernels equals the same step through
+    the plain recurrences (fp32: loss TRAIN_LOSS_TOL, gradients
+    TRAIN_GRAD_TOL; bf16, the trainer's dtype and the mma kernels:
+    loss TEXT_BF16_LOSS_TOL and gradients TEXT_BF16_GRAD_TOL, both of
+    which a control with every LSTM layer's h read as 0 fails), and the
+    trainer's first loss equals the kernel step's within
+    TRAIN_LOSS_TOL; losses finite and falling. Reported: tokens/s, the
+    pipeline's host ms a batch alone and its share of the step, the
+    device's busy share over a profiled 3-step run."""
+    import numpy as np
+    import torch
+
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.dataset import SampleToMiniBatch
+    from bigdl_tpu_torch.dataset.text import Dictionary, SentenceBiPadding, \
+        SentenceTokenizer
+    from bigdl_tpu_torch.models import rnn
+    from bigdl_tpu_torch.models.convert import tree_leaves, tree_map
+    from bigdl_tpu_torch.ops import fused_rnn as fr
+    from bigdl_tpu_torch.ops.losses import build_train_loss
+    from bigdl_tpu_torch.optim import Adam, Loss, Optimizer, Trigger
+    from bigdl_tpu_torch.optim import optimizer as optimizer_module
+    from bigdl_tpu_torch.utils.precision import DEFAULT_MIXED
+
+    t0 = time.perf_counter()
+    texts = _text_corpus(TEXT_SENTENCES, 1)
+    held = _text_corpus(TEXT_HELD_OUT, 2)
+    tokens = list((SentenceTokenizer() >> SentenceBiPadding())(texts))
+    n_words = sum(len(s) - 2 for s in tokens)
+    d = Dictionary(tokens, vocab_size=LM_VOCAB - 1)
+    check(d.vocab_size() == LM_VOCAB, f"text_lm: vocab {d.vocab_size()}")
+    corpus_s = time.perf_counter() - t0
+
+    def crit():
+        return nn.TimeDistributedCriterion(nn.ClassNLLCriterion(),
+                                           size_average=True)
+
+    placed = []                                 # the first batch on the card
+    to_device = optimizer_module._to_device
+
+    def record(x, device):
+        out = to_device(x, device)
+        if len(placed) < 2 and isinstance(out, torch.Tensor):
+            placed.append(out.clone())
+        return out
+
+    train = _text_pipeline(texts, d)
+    lm = rnn.lstm_lm(LM_VOCAB, RNN_EMBED, RNN_HIDDEN, num_layers=LM_LAYERS)
+    lm.build(torch.Generator().manual_seed(0))
+    init = tree_map(lambda t: t.clone(), lm.variables["params"])
+    counters = ("fwd_train_launches", "fwd_infer_launches", "bwd_launches")
+    steps = TEXT_WARMUP + TEXT_STEPS
+    losses, marks, validations = [], {"val_s": []}, []
+    last = Trigger.several_iteration(steps)
+
+    def validate_now(state):
+        fire = last(state)
+        if fire:
+            torch.cuda.synchronize()            # validation time, kept apart
+            marks["v0"] = time.perf_counter()
+            marks["at_validation"] = {c: getattr(fr, c) for c in counters}
+        return fire
+
+    def end_when(state):
+        if "v0" in marks:
+            torch.cuda.synchronize()
+            marks["val_s"].append(time.perf_counter() - marks.pop("v0"))
+        res = state.get("validation")
+        if res is not None and not validations:
+            validations.append({k: v.result() for k, v in res.items()})
+        if state["loss"] is not None:
+            losses.append(state["loss"])
+        if state["neval"] == TEXT_WARMUP:
+            torch.cuda.synchronize()
+            for c in counters:                  # main path starts here
+                setattr(fr, c, 0)
+            marks["t0"] = time.perf_counter()
+        elif state["neval"] == steps:
+            torch.cuda.synchronize()
+            marks["t1"] = time.perf_counter()
+            marks["launches"] = {c: getattr(fr, c)   # main path ends here
+                                 for c in counters}
+        return state["neval"] >= steps
+
+    optimizer_module._to_device = record
+    try:
+        Optimizer(lm, train, crit(), batch_size=LM_BATCH) \
+            .set_optim_method(Adam(1e-3)).set_precision("bf16") \
+            .set_validation(Trigger(validate_now), _text_pipeline(held, d),
+                            [Loss(crit())], LM_BATCH) \
+            .set_end_when(Trigger(end_when)).optimize()
+    finally:
+        optimizer_module._to_device = to_device
+    losses = [float(v) for v in losses]
+    dt = marks["t1"] - marks["t0"] - sum(marks["val_s"])
+    launches = marks["launches"]
+    valid_batches = -(-TEXT_HELD_OUT // LM_BATCH)
+    train_part = {c: marks["at_validation"][c] for c in counters}
+    check(train_part == {"fwd_train_launches": TEXT_STEPS * LM_LAYERS,
+                         "bwd_launches": TEXT_STEPS * LM_LAYERS,
+                         "fwd_infer_launches": 0},
+          f"text_lm: launches before validation {train_part} != "
+          f"{TEXT_STEPS} steps x {LM_LAYERS} layers")
+    check(launches == {**train_part, "fwd_infer_launches":
+                       valid_batches * LM_LAYERS},
+          f"text_lm: launches {launches}")
+    check(len(losses) == steps and all(math.isfinite(v) for v in losses),
+          f"text_lm: losses {losses}")
+    check(sum(losses[-3:]) < sum(losses[:3]),
+          f"text_lm: loss did not fall: {losses}")
+    (vloss, vcount), = [validations[0]["Loss"]]
+    check(math.isfinite(vloss) and vcount == TEXT_HELD_OUT,
+          f"text_lm: validation {validations}")
+
+    # the first batch the Optimizer moved to the card against a second
+    # host run of the pipeline
+    host = next(iter(SampleToMiniBatch(LM_BATCH)(
+        _text_pipeline(texts, d).data(train=True))))
+    check(len(placed) == 2 and all(t.is_cuda for t in placed),
+          f"text_lm: the first batch on the card: "
+          f"{[(t.shape, t.device) for t in placed]}")
+    x, y = placed
+    check(np.array_equal(x.cpu().numpy(), host.input)
+          and np.array_equal(y.cpu().numpy(), host.target),
+          "text_lm: the first batch differs from a host run of the pipeline")
+
+    # the first step through the kernels, the plain versions and the
+    # control (plain, every LSTM layer's h read as 0)
+    def zero_h(m):
+        for layer in m:
+            if isinstance(layer, nn.Recurrent):
+                scan = layer.cell.fused_scan
+                layer.cell.fused_scan = (
+                    lambda p, zx, impl=None, scan=scan:
+                    scan(p, zx, impl=impl) * 0)
+        return m
+
+    def grad_rel(got, want):
+        top = max(float(g.abs().max()) for g in want)
+        return max(float((a - b).abs().max()) / max(
+            float(b.abs().max()), TRAIN_GRAD_FLOOR * top)
+            for a, b in zip(got, want))
+
+    step1 = {}
+    for impl in ("cuda", "torch", "control"):
+        m = zero_h(_rnn_model("lstm_lm", "torch")) if impl == "control" \
+            else _rnn_model("lstm_lm", impl)
+        for dtype, policy in (("fp32", None), ("bf16", DEFAULT_MIXED)):
+            if impl == "control" and policy is None:
+                continue
+            p = tree_map(lambda t: t.detach().requires_grad_(), init)
+            loss, _ = build_train_loss(m, crit(), policy)(
+                p, m.init_state(), x, y, None)
+            step1[impl, dtype] = (float(loss.detach()), torch.autograd.grad(
+                loss, tree_leaves(p)))
+    first = {"trainer_bf16_loss": losses[0]}
+    for dtype in ("fp32", "bf16"):
+        first[dtype] = {
+            "loss_cuda": step1["cuda", dtype][0],
+            "loss_torch": step1["torch", dtype][0],
+            "loss_abs_diff": abs(step1["cuda", dtype][0]
+                                 - step1["torch", dtype][0]),
+            "grad_max_rel_diff": grad_rel(step1["cuda", dtype][1],
+                                          step1["torch", dtype][1])}
+    first["bf16_control"] = {
+        "loss": step1["control", "bf16"][0],
+        "loss_abs_diff": abs(step1["control", "bf16"][0]
+                             - step1["torch", "bf16"][0]),
+        "grad_max_rel_diff": grad_rel(step1["control", "bf16"][1],
+                                      step1["torch", "bf16"][1])}
+    first["trainer_loss_abs_diff"] = abs(losses[0] - step1["cuda", "bf16"][0])
+    check(first["fp32"]["loss_abs_diff"] <= TRAIN_LOSS_TOL
+          and first["fp32"]["grad_max_rel_diff"] <= TRAIN_GRAD_TOL,
+          f"text_lm: first step fp32 {first['fp32']}")
+    check(first["bf16"]["loss_abs_diff"] <= TEXT_BF16_LOSS_TOL
+          and first["bf16"]["grad_max_rel_diff"] <= TEXT_BF16_GRAD_TOL,
+          f"text_lm: first step bf16 {first['bf16']}")
+    check(first["bf16_control"]["loss_abs_diff"] > TEXT_BF16_LOSS_TOL
+          and first["bf16_control"]["grad_max_rel_diff"] > TEXT_BF16_GRAD_TOL,
+          f"text_lm: the zero-h control passes the bf16 gate: "
+          f"{first['bf16_control']}")
+    check(first["trainer_loss_abs_diff"] <= TRAIN_LOSS_TOL,
+          f"text_lm: the trainer's first loss {losses[0]} against the "
+          f"kernel step's {step1['cuda', 'bf16'][0]}")
+
+    # the pipeline alone on the host, and a profiled 3-step run
+    pipe_ms = _host_ms_per_batch(iter(SampleToMiniBatch(LM_BATCH)(
+        _text_pipeline(texts, d).data(train=True))), TEXT_PIPE_BATCHES)
+    step_ms = dt / TEXT_STEPS * 1e3
+
+    def three_steps():
+        Optimizer(lm, _text_pipeline(texts, d), crit(), LM_BATCH) \
+            .set_optim_method(Adam(1e-3)).set_precision("bf16") \
+            .set_end_when(Trigger.max_iteration(3)).optimize()
+
+    profiled = _profile_call(three_steps, "text_lm_trace.json")
+    emit("text_lm", sentences=TEXT_SENTENCES, words=n_words,
+         distinct_words=TEXT_WORDS, vocab=d.vocab_size(),
+         corpus_and_dictionary_s=corpus_s, steps=TEXT_STEPS,
+         warmup_steps=TEXT_WARMUP, batch=LM_BATCH, seq=LM_SEQ,
+         layers=LM_LAYERS, seconds=dt, step_ms=step_ms,
+         tokens_per_sec=TEXT_STEPS * LM_BATCH * LM_SEQ / dt,
+         pipeline_ms_per_batch=pipe_ms,
+         pipeline_share_of_step=pipe_ms / step_ms,
+         validation_seconds=marks["val_s"],
+         validation={"loss": vloss, "count": vcount},
+         launches=launches, losses=losses,
+         first_step=first,
+         tolerance={"fp32": {"loss": TRAIN_LOSS_TOL, "grad_rel": TRAIN_GRAD_TOL},
+                    "bf16": {"loss": TEXT_BF16_LOSS_TOL,
+                             "grad_rel": TEXT_BF16_GRAD_TOL},
+                    "trainer_loss": TRAIN_LOSS_TOL},
+         profile=profiled, total_seconds=time.perf_counter() - t0)
+    return launches
+
+
+def _records_images(n, seed):
+    """`n` learnable 32 x 32 x 3 u8 images: class y's images are its own
+    colour (which no shift or flip changes) and its own pattern, plus
+    noise. Returns (images, labels)."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    classes = (rng.randint(0, 128, (10, 1, 1, 3))
+               + rng.randint(0, 64, (10, 32, 32, 3))).astype(np.uint8)
+    labels = rng.randint(0, 10, n).astype(np.int32)
+    images = rng.randint(0, 64, (n, 32, 32, 3), dtype=np.uint8)
+    images += classes[labels]
+    return images, labels
+
+
+def _timed_steps(model, dataset, batch, warmup, steps):
+    """`Optimizer(model, dataset, ClassNLLCriterion(), batch)` with
+    SGD(0.1, momentum 0.9) for warmup + steps steps; returns (losses,
+    seconds of the last `steps`)."""
+    import torch
+
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.optim import SGD, Optimizer, Trigger
+
+    losses, marks = [], {}
+
+    def end_when(state):
+        if state["loss"] is not None:
+            losses.append(float(state["loss"]))
+        if state["neval"] in (warmup, warmup + steps):
+            torch.cuda.synchronize()
+            marks[state["neval"]] = time.perf_counter()
+        return state["neval"] >= warmup + steps
+
+    Optimizer(model, dataset, nn.ClassNLLCriterion(), batch_size=batch) \
+        .set_optim_method(SGD(learningrate=0.1, momentum=0.9)) \
+        .set_end_when(Trigger(end_when)).optimize()
+    return losses, marks[warmup + steps] - marks[warmup]
+
+
+def phase_records_trainer():
+    """Disk to ResNet-20: RECORDS_N learnable 32 x 32 x 3 u8 images in
+    RECORDS_SHARDS BDLS shards (the CIFAR-10 train split's size) in a
+    temporary directory; `RecordFileDataSet(shards, batch 128, CIFAR's
+    mean/std, pad=4, hflip=True)` feeds `Optimizer(resnet.build_cifar(20,
+    10), ..., SGD(0.1, momentum 0.9))` for RECORDS_WARMUP +
+    RECORDS_STEPS steps, then `Evaluator` runs over the shards. The same
+    model for the same steps fed from memory twice: through
+    `PrefetchDataSet` with the same shifts, flips and queue (only the
+    source differs from the disk run), and from `DataSet.array` of
+    normalised Samples (no augmentation, batches stacked on the
+    training thread). TFRecord leg: TFRECORD_N of the images through
+    `write_image_examples` and `TFRecordDataSet(...) >> MapTransformer(
+    normalize)` for TFRECORD_STEPS steps. Gates: the eval-mode batches
+    equal the in-memory normalisation of the same arrays bit for bit;
+    the loss falls; the evaluation counts every image. Reported:
+    images/s from disk and from both memory feeds, the host ms a batch
+    of the file
+    prefetcher and of the TFRecord read (each alone), the busy share of
+    a profiled 3-step disk run."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.dataset import (DataSet, MapTransformer,
+                                         PrefetchDataSet, RecordFileDataSet,
+                                         Sample,
+                                         TFRecordDataSet, native,
+                                         write_image_examples, write_shards)
+    from bigdl_tpu_torch.models import resnet
+    from bigdl_tpu_torch.optim import Evaluator, Loss, Top1Accuracy
+
+    t0 = time.perf_counter()
+    images, labels = _records_images(RECORDS_N, 21)
+    mean = np.asarray(CIFAR_MEAN, np.float32)
+    std = np.asarray(CIFAR_STD, np.float32)
+    kw = dict(batch_size=RECORDS_BATCH, mean=CIFAR_MEAN, std=CIFAR_STD)
+    steps = RECORDS_WARMUP + RECORDS_STEPS
+    with tempfile.TemporaryDirectory(prefix="bdls-") as tmp:
+        t = time.perf_counter()
+        paths = write_shards(images, labels, tmp, RECORDS_SHARDS)
+        write_s = time.perf_counter() - t
+        shard_bytes = sum(Path(p).stat().st_size for p in paths)
+        ds = RecordFileDataSet(paths, pad=4, hflip=True, **kw)
+        try:
+            # eval mode: the in-memory normalisation, bit for bit
+            got = list(ds.data(train=False))
+            check(sum(len(b.target) for b in got) == RECORDS_N
+                  and np.array_equal(np.concatenate([b.target for b in got]),
+                                     labels)
+                  and all(np.array_equal(b.input, (images[i:i + len(
+                      b.target)].astype(np.float32) - mean) / std)
+                      for i, b in zip(np.cumsum([0] + [len(b.target)
+                                                      for b in got]), got)),
+                  "records_trainer: eval batches differ from the in-memory "
+                  "normalisation")
+            del got
+            model = resnet.build_cifar(20, 10).build(
+                torch.Generator().manual_seed(0))
+            disk_losses, disk_s = _timed_steps(model, ds, RECORDS_BATCH,
+                                               RECORDS_WARMUP, RECORDS_STEPS)
+            scores = Evaluator(model).test(
+                ds, [Top1Accuracy(), Loss(nn.ClassNLLCriterion())],
+                RECORDS_BATCH)
+            scores = {k: v.result() for k, v in scores.items()}
+            profiled = _profile_call(lambda: _timed_steps(
+                model, ds, RECORDS_BATCH, 0, 3), "records_trace.json")
+        finally:
+            ds.close()
+        # the file prefetcher alone, on an otherwise idle host
+        pf = native.FilePrefetcher(paths, pad=4, hflip=True, seed=1, **kw)
+        try:
+            prefetch_ms = _host_ms_per_batch(iter(pf), RECORDS_PIPE_BATCHES)
+        finally:
+            pf.close()
+    check(all(math.isfinite(v) for v in disk_losses)
+          and sum(disk_losses[-5:]) < sum(disk_losses[:5]),
+          f"records_trainer: disk losses {disk_losses}")
+    check(scores["Top1Accuracy"][1] == RECORDS_N
+          and scores["Loss"][1] == RECORDS_N,
+          f"records_trainer: evaluation {scores}")
+
+    # the same model and steps fed from memory: the same work but the
+    # source, then pre-normalised Samples
+    mem = PrefetchDataSet(images, labels, pad=4, hflip=True, capacity=3, **kw)
+    try:
+        mem_losses, mem_s = _timed_steps(
+            resnet.build_cifar(20, 10).build(torch.Generator().manual_seed(0)),
+            mem, RECORDS_BATCH, RECORDS_WARMUP, RECORDS_STEPS)
+    finally:
+        mem.close()
+    n_array = RECORDS_BATCH * steps
+    samples = [Sample((images[i].astype(np.float32) - mean) / std,
+                      labels[i]) for i in range(n_array)]
+    array_losses, array_s = _timed_steps(
+        resnet.build_cifar(20, 10).build(torch.Generator().manual_seed(0)),
+        DataSet.array(samples), RECORDS_BATCH, RECORDS_WARMUP, RECORDS_STEPS)
+    del samples
+    check(all(math.isfinite(v) for v in mem_losses + array_losses),
+          f"records_trainer: memory losses {mem_losses}, {array_losses}")
+
+    # TFRecord: TFRECORD_N images, normalised by a chained map
+    def normalize(s):
+        return Sample((s.feature - mean) / std, s.label)
+
+    with tempfile.TemporaryDirectory(prefix="tfrecord-") as tmp:
+        path = str(Path(tmp) / "train-00000.tfrecord")
+        t = time.perf_counter()
+        write_image_examples(path, images[:TFRECORD_N], labels[:TFRECORD_N])
+        tf_write_s = time.perf_counter() - t
+        tfds = TFRecordDataSet(path) >> MapTransformer(normalize)
+        check(tfds.size() == TFRECORD_N, f"tfrecord: size {tfds.size()}")
+        first = next(tfds.data(train=False))
+        check(np.array_equal(first.feature, (images[0].astype(np.float32)
+                                             - mean) / std)
+              and int(first.label) == int(labels[0]),
+              "tfrecord: the first record differs from its image")
+        tf_losses, tf_s = _timed_steps(
+            resnet.build_cifar(20, 10).build(torch.Generator().manual_seed(0)),
+            tfds, RECORDS_BATCH, 1, TFRECORD_STEPS)
+        t = time.perf_counter()                 # one pass: CRCs and decode
+        read = sum(1 for _ in tfds.data(train=False))
+        tf_ms = (time.perf_counter() - t) / (read / RECORDS_BATCH) * 1e3
+    check(all(math.isfinite(v) for v in tf_losses),
+          f"tfrecord: losses {tf_losses}")
+    disk_ips = RECORDS_STEPS * RECORDS_BATCH / disk_s
+    mem_ips = RECORDS_STEPS * RECORDS_BATCH / mem_s
+    array_ips = RECORDS_STEPS * RECORDS_BATCH / array_s
+    emit("records_trainer", images=RECORDS_N, shards=RECORDS_SHARDS,
+         shard_bytes=shard_bytes, write_s=write_s, batch=RECORDS_BATCH,
+         steps=RECORDS_STEPS, warmup_steps=RECORDS_WARMUP,
+         disk={"seconds": disk_s, "step_ms": disk_s / RECORDS_STEPS * 1e3,
+               "images_per_sec": disk_ips, "losses": disk_losses},
+         memory={"seconds": mem_s, "step_ms": mem_s / RECORDS_STEPS * 1e3,
+                 "images_per_sec": mem_ips, "losses": mem_losses},
+         array={"seconds": array_s, "step_ms": array_s / RECORDS_STEPS * 1e3,
+                "images_per_sec": array_ips, "losses": array_losses},
+         disk_over_memory=disk_ips / mem_ips,
+         disk_over_array=disk_ips / array_ips,
+         prefetcher_ms_per_batch=prefetch_ms,
+         evaluation={k: {"value": v, "count": c}
+                     for k, (v, c) in scores.items()},
+         tfrecord={"images": TFRECORD_N, "write_s": tf_write_s,
+                   "steps": TFRECORD_STEPS, "step_ms": tf_s / TFRECORD_STEPS
+                   * 1e3, "read_ms_per_batch": tf_ms, "losses": tf_losses},
+         profile=profiled, total_seconds=time.perf_counter() - t0)
+
+
+def _rosenbrock(p):
+    return (1 - p[0]) ** 2 + 100.0 * (p[1] - p[0] * p[0]) ** 2
+
+
+def phase_lbfgs():
+    """LBFGS (optim/lbfgs.py) on the card: Rosenbrock in fp32 from
+    (-1.2, 1) (100 iterations at most) on the card and on the CPU; then
+    LeNet-5 at full width fitted on one fixed batch of LBFGS_MNIST
+    synthetic MNIST images (LBFGS_ITERS iterations, history
+    LBFGS_HISTORY, strong Wolfe; feval = ClassNLL of the forward): in
+    fp32 on the card (timed), and in fp64 on the card and on the CPU,
+    where the two runs take the same decisions. Gates: Rosenbrock's
+    minimizer within LBFGS_X_TOL of (1, 1) on both devices; LeNet's
+    fp32 loss below half its first; the fp64 runs' final losses within
+    LBFGS_LOSS_RTOL of each other. Reported: ms an iteration and fevals
+    an iteration of the fp32 card run, one feval's ms and what an
+    iteration costs beyond its fevals (each decision reads a value on
+    the host)."""
+    import numpy as np
+    import torch
+
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.dataset.mnist import synthetic_mnist
+    from bigdl_tpu_torch.models import lenet
+    from bigdl_tpu_torch.models.convert import (tree_leaves, tree_map,
+                                                tree_unflatten)
+    from bigdl_tpu_torch.optim import LBFGS
+
+    t0 = time.perf_counter()
+    rosen = {}
+    for dev in ("cuda", "cpu"):
+        opt = LBFGS(max_iter=100, history_size=LBFGS_HISTORY)
+        x, loss, it = opt.minimize(_rosenbrock, torch.tensor(
+            [-1.2, 1.0], device=dev))
+        rosen[dev] = {"x": x.cpu().tolist(), "loss": float(loss),
+                      "iterations": it, "evals": opt.evals}
+        check(max(abs(v - 1.0) for v in rosen[dev]["x"]) <= LBFGS_X_TOL
+              and rosen[dev]["loss"] < 1e-6,
+              f"lbfgs: Rosenbrock on {dev} ended at {rosen[dev]}")
+
+    data = synthetic_mnist(LBFGS_MNIST, seed=3)
+    xs = np.stack([s.feature for s in data]).astype(np.float32)
+    ys = np.stack([s.label for s in data]).astype(np.int32)
+    model = lenet.build(10)
+    v0 = model.init(torch.Generator().manual_seed(1), device="cpu")
+    crit = nn.ClassNLLCriterion()
+    res = {}
+    for dev, dtype in (("cuda", torch.float32), ("cuda", torch.float64),
+                       ("cpu", torch.float64)):
+        x = torch.as_tensor(xs, device=dev, dtype=dtype)
+        y = torch.as_tensor(ys, device=dev)
+        state = tree_map(lambda t: t.to(dev, dtype), v0["state"])
+
+        def feval(p, x=x, y=y, state=state):
+            return crit(model.apply({"params": p, "state": state}, x)[0], y)
+
+        p0 = tree_map(lambda t: t.to(dev, dtype), v0["params"])
+        first = float(feval(p0))
+        opt = LBFGS(max_iter=LBFGS_ITERS, history_size=LBFGS_HISTORY,
+                    line_search="wolfe")
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        t = time.perf_counter()
+        _, loss, it = opt.minimize(feval, p0)
+        loss = float(loss)                      # ends in a host read
+        key = f"{dev}/{str(dtype)[6:]}"
+        res[key] = {"first_loss": first, "loss": loss, "iterations": it,
+                    "evals": opt.evals, "seconds": time.perf_counter() - t}
+        if key == "cuda/float32":               # one feval and its gradient
+            leaves = [t.detach().requires_grad_() for t in
+                      tree_leaves(p0)]
+            p = tree_unflatten(p0, leaves)
+            times = []
+            for _ in range(6):
+                t = time.perf_counter()
+                float(torch.autograd.grad(feval(p), leaves)[0].sum())
+                times.append(time.perf_counter() - t)
+            res[key]["feval_ms"] = statistics.median(times[1:]) * 1e3
+    g32, g64, c64 = res["cuda/float32"], res["cuda/float64"], \
+        res["cpu/float64"]
+    check(math.isfinite(g32["loss"]) and g32["loss"] < 0.5 * g32["first_loss"],
+          f"lbfgs: LeNet-5 fp32 loss did not fall: {g32}")
+    rel = abs(g64["loss"] - c64["loss"]) / c64["loss"]
+    check(rel <= LBFGS_LOSS_RTOL and g64["loss"] < 0.5 * g64["first_loss"],
+          f"lbfgs: LeNet-5 fp64 card {g64} against CPU {c64}")
+    emit("lbfgs", rosenbrock=rosen,
+         lenet={"images": LBFGS_MNIST, "history": LBFGS_HISTORY,
+                "max_iter": LBFGS_ITERS, **res,
+                "ms_per_iteration": g32["seconds"] / g32["iterations"] * 1e3,
+                "evals_per_iteration": g32["evals"] / g32["iterations"],
+                # what an iteration costs beyond its fevals: the two-loop
+                # recursion, the line search's arithmetic, the host reads
+                "ms_per_iteration_beyond_fevals": (
+                    g32["seconds"] - g32["evals"] * g32["feval_ms"] / 1e3)
+                / g32["iterations"] * 1e3,
+                "fp64_loss_rel_diff": rel,
+                "fp64_same_path": (g64["iterations"], g64["evals"]) == (
+                    c64["iterations"], c64["evals"])},
+         tolerance={"x": LBFGS_X_TOL, "fp64_loss_rel": LBFGS_LOSS_RTOL},
+         seconds=time.perf_counter() - t0)
+
+
+def _criterion_cases():
+    """Every criterion of nn/criterion.py with seeded fp32 inputs:
+    name -> (criterion, inputs, target, packing) as
+    tests/test_torch_criterions.py builds them, plus the five the
+    earlier slices ported."""
+    import numpy as np
+    import torch
+
+    from bigdl_tpu_torch import nn
+
+    rng = np.random.RandomState(31)
+    n, c = 64, 10
+
+    def f(*shape, scale=1.0):
+        return (rng.randn(*shape) * scale).astype(np.float32)
+
+    def pm1(*shape):
+        return np.where(rng.rand(*shape) < 0.5, -1.0, 1.0).astype(np.float32)
+
+    x, y = f(n, c), f(n, c)
+    ids = rng.randint(0, c, n).astype(np.int64)
+    logp = (x - np.log(np.exp(x).sum(-1, keepdims=True))).astype(np.float32)
+    probs = (1.0 / (1.0 + np.exp(-x))).astype(np.float32)
+    kl_t = rng.rand(n, c).astype(np.float32)
+    kl_t[kl_t < 0.3] = 0.0
+    seq = f(8, 16, c)
+    seq_logp = (seq - np.log(np.exp(seq).sum(-1, keepdims=True))).astype(
+        np.float32)
+    return {
+        "ClassNLL": (nn.ClassNLLCriterion(), [logp], ids, "one"),
+        "CrossEntropy": (nn.CrossEntropyCriterion(), [x], ids, "one"),
+        "MSE": (nn.MSECriterion(), [x], y, "one"),
+        "TimeDistributed": (nn.TimeDistributedCriterion(
+            nn.ClassNLLCriterion(), size_average=True), [seq_logp],
+            rng.randint(0, c, (8, 16)).astype(np.int64), "one"),
+        "ChunkedSoftmaxCE": (nn.ChunkedSoftmaxCE(), [seq_logp],
+                             rng.randint(0, c, (8, 16)).astype(np.int64),
+                             "one"),
+        "Abs": (nn.AbsCriterion(), [x], y, "one"),
+        "BCE": (nn.BCECriterion(torch.from_numpy(rng.rand(c).astype(
+            np.float32)), size_average=False), [probs],
+            (rng.rand(n, c) < 0.5).astype(np.float32), "one"),
+        "SmoothL1": (nn.SmoothL1Criterion(), [2.0 * x], y, "one"),
+        "Margin": (nn.MarginCriterion(0.5, squared=True), [x], pm1(n, c),
+                   "one"),
+        "MultiLabelMargin": (nn.MultiLabelMarginCriterion(), [x],
+                             (rng.rand(n, c) < 0.4).astype(np.float32),
+                             "one"),
+        "HingeEmbedding": (nn.HingeEmbeddingCriterion(1.5), [2.0 * x],
+                           pm1(n, c), "one"),
+        "CosineEmbedding": (nn.CosineEmbeddingCriterion(0.1),
+                            [x, x + 0.7 * y], pm1(n), "table"),
+        "DistKLDiv": (nn.DistKLDivCriterion(), [logp], kl_t, "one"),
+        "KLD": (nn.KLDCriterion(), [x, 0.5 * y], None, "table"),
+        "L1Cost": (nn.L1Cost(), [x], None, "one"),
+        "ClassSimplex": (nn.ClassSimplexCriterion(c), [x], ids, "one"),
+        "Parallel": (nn.ParallelCriterion().add(nn.AbsCriterion(), 0.7)
+                     .add(nn.SmoothL1Criterion(size_average=False), 1.3),
+                     [x, 2.0 * y], [y, f(n, c)], "table"),
+        "Multi": (nn.MultiCriterion().add(nn.CosineEmbeddingCriterion(0.1),
+                                          0.6).add(nn.KLDCriterion(), 0.4),
+                  [x, y], pm1(n), "table"),
+        "MultiMargin": (nn.MultiMarginCriterion(p=2, margin=0.8), [x], ids,
+                        "one"),
+        "MarginRanking": (nn.MarginRankingCriterion(0.3), [x[:, 0], y[:, 0]],
+                          pm1(n), "table"),
+        "CosineProximity": (nn.CosineProximityCriterion(), [x], y, "one"),
+    }
+
+
+def phase_criterions():
+    """All 21 criterions of nn/criterion.py, forward and the gradient with
+    respect to every input, on the card against the CPU, fp32: each
+    within CRITERION_TOL of max(1, the CPU value's largest entry). The
+    table criterions take `utils/table` Tables."""
+    import torch
+
+    from bigdl_tpu_torch.utils.table import T
+
+    report = {}
+    for name, (crit, xs, target, how) in _criterion_cases().items():
+        res = {}
+        for dev in ("cuda", "cpu"):
+            ts = [torch.as_tensor(a, device=dev).requires_grad_()
+                  for a in xs]
+            tgt = None if target is None else (
+                T(*(torch.as_tensor(a, device=dev) for a in target))
+                if isinstance(target, list)
+                else torch.as_tensor(target, device=dev))
+            loss = crit(T(*ts) if how == "table" else ts[0], tgt)
+            grads = torch.autograd.grad(loss, ts)
+            res[dev] = [loss.detach().cpu()] + [g.cpu() for g in grads]
+        err = max(float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
+                  for a, b in zip(res["cuda"], res["cpu"]))
+        check(err <= CRITERION_TOL and all(bool(torch.isfinite(a).all())
+                                           for a in res["cuda"]),
+              f"criterions: {name} card vs CPU {err}")
+        report[name] = {"loss": float(res["cuda"][0]), "max_rel_err": err}
+    check(len(report) == 21, f"criterions: {len(report)} of 21")
+    emit("criterions", tolerance=CRITERION_TOL, cases=report)
+
+
+def phase_eager_facade():
+    """The eager Module facade on the card: LeNet-5 and a batch-norm
+    model (the CIFAR ResNet-20) built on `cuda`; `m.evaluate()(x)`
+    equals `apply(..., training=False)` bit for bit; a training-mode
+    eager forward stores the new running statistics (those of `apply(
+    ..., training=True)`, bit for bit) and leaves the params in place;
+    `get_parameters()` has the model's parameter count."""
+    import torch
+
+    from bigdl_tpu_torch.models import lenet, resnet
+    from bigdl_tpu_torch.models.convert import tree_leaves
+
+    report = {}
+    g = torch.Generator(device="cuda").manual_seed(5)
+    for name, model, shape in (
+            ("lenet5", lenet.build(10), (16, 28, 28, 1)),
+            ("resnet20", resnet.build_cifar(20, 10), (16, 32, 32, 3))):
+        model.build(torch.Generator().manual_seed(0))
+        x = torch.randn(shape, device="cuda", generator=g)
+        check(model.is_training() and model.training() is model,
+              f"eager_facade {name}: not in training mode by default")
+        before = dict(model.variables)
+        ref_out, ref_state = model.apply(before, x, training=True)
+        out = model(x)
+        check(torch.equal(out, ref_out)
+              and model.variables["params"] is before["params"]
+              and all(torch.equal(a, b) for a, b in zip(
+                  tree_leaves(model.variables["state"]),
+                  tree_leaves(ref_state))),
+              f"eager_facade {name}: training forward")
+        moved = sum(not torch.equal(a, b) for a, b in zip(
+            tree_leaves(before["state"]), tree_leaves(model.variables[
+                "state"])))
+        check(moved == len(tree_leaves(before["state"])),
+              f"eager_facade {name}: {moved} state leaves moved")
+        check(model.evaluate() is model and not model.is_training(),
+              f"eager_facade {name}: evaluate()")
+        with torch.no_grad():
+            ev = model(x)
+        check(torch.equal(ev, model.apply(model.variables, x,
+                                          training=False)[0]),
+              f"eager_facade {name}: eval forward")
+        vec = model.get_parameters()
+        count = sum(t.numel() for _, t in model.parameters())
+        check(vec.numel() == count and vec.device.type == "cuda",
+              f"eager_facade {name}: get_parameters {vec.numel()} vs "
+              f"{count}")
+        report[name] = {"parameters": count, "state_leaves_moved": moved}
+    emit("eager_facade", **report)
+
+
 def main() -> int:
     import torch
 
@@ -4698,6 +5483,14 @@ def main() -> int:
     phase_vgg_estimator()
     torch.cuda.empty_cache()
     phase_treelstm_trainer()
+    torch.cuda.empty_cache()
+    text_launches = phase_text_lm()
+    torch.cuda.empty_cache()
+    phase_records_trainer()
+    torch.cuda.empty_cache()
+    phase_lbfgs()
+    phase_criterions()
+    phase_eager_facade()
     fp32 = kern["fp32"]
     # the flash rows: the trainer's shape in its compute dtype (bf16)
     row = flash["train/bf16"]
@@ -4747,15 +5540,19 @@ def main() -> int:
                   if k.endswith("/fp32"))
     err_bwd = max(r["grad_max_abs_err"] for k, r in rnn.items()
                   if k.endswith("/fp32"))
-    for num, case, kind, launch in (
-            ("K6", "lm_uni", "fwd", rnn_launches["uni"]
-             ["fwd_train_launches"]),
-            ("K7", "lm_uni", "bwd", rnn_launches["uni"]["bwd_launches"]),
-            ("K8", "train_bi", "fwd", rnn_launches["bi"]
-             ["fwd_train_launches"]),
-            ("K9", "train_bi", "bwd", rnn_launches["bi"]["bwd_launches"])):
+    for num, case, kind, counter in (
+            ("K6", "lm_uni", "fwd", "fwd_train_launches"),
+            ("K7", "lm_uni", "bwd", "bwd_launches"),
+            ("K8", "train_bi", "fwd", "fwd_train_launches"),
+            ("K9", "train_bi", "bwd", "bwd_launches")):
         r = rnn[f"{case}/bf16"]
         bound = r["train_bound" if kind == "fwd" else "bwd_bound"]
+        launch = rnn_launches["uni" if case == "lm_uni" else "bi"][counter]
+        # K6/K7 have two main paths: the LSTM LM on token ids
+        # (rnn_trainer) and on raw text (text_lm); each counted from 0
+        by_path = {"rnn_trainer": launch,
+                   "text_lm": text_launches[counter]} \
+            if case == "lm_uni" else {}
         kernels.append({
             "name": ("bilstm_" if case == "train_bi" else "lstm_") + kind,
             "route": "cuda", "source": src,
@@ -4765,6 +5562,7 @@ def main() -> int:
                          "K8": "bigdl_tpu/ops/fused_rnn.py:375 :392",
                          "K9": "bigdl_tpu/ops/fused_rnn.py:406"}[num],
             "launches": launch,
+            **({"launches_by_path": by_path} if by_path else {}),
             "max_abs_err": err_fwd if kind == "fwd" else err_bwd,
             "ms": r[f"{kind}_ms"], "plain_ms": r[f"plain_{kind}_ms"],
             "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
@@ -4800,7 +5598,9 @@ def main() -> int:
                   or v is None and n == "library_ms"
                   or math.isfinite(v) for n, v in k.items()),
               f"{k['name']}: non-finite field")
-        check(k["launches"] > 0, f"{k['name']}: no launch on its main path")
+        check(k["launches"] > 0 and all(
+            n > 0 for n in k.get("launches_by_path", {}).values()),
+            f"{k['name']}: no launch on a main path")
     RESULTS["kernels"] = kernels
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(RESULTS, indent=1))

@@ -316,8 +316,9 @@ def test_graph_errors_and_wiring():
     g = tnn.Graph(x, tnn.Linear(2, 2)(x))
     with pytest.raises(ValueError, match="expects 1 inputs"):
         g.apply(g.init(device="cpu"), torch.ones(1, 2), torch.ones(1, 2))
-    with pytest.raises(NotImplementedError, match="forward"):
-        tnn.Linear(2, 2)(torch.ones(1, 2))     # torch's own __call__
+    lin = tnn.Linear(2, 2).build(device="cpu")  # a tensor call: the eager
+    x = torch.ones(1, 2)                          # forward over `variables`
+    assert torch.equal(lin(x), lin.apply(lin.variables, x)[0])
 
 
 # ---------------------------------------------------------------- inception

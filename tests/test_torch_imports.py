@@ -43,6 +43,8 @@ NEW_IN_SLICE_11 = ("utils/faults.py", "serialization/__init__.py",
                    "visualization/__init__.py",
                    "visualization/tensorboard.py", "obs/__init__.py",
                    "obs/training.py")
+NEW_IN_SLICE_13 = ("dataset/native.py", "dataset/records.py",
+                   "dataset/tfrecord.py", "optim/lbfgs.py")
 
 
 def test_port_files_exist():
@@ -52,7 +54,7 @@ def test_port_files_exist():
                for p in PORT_FILES if "bigdl_tpu_torch" in p.parts}
     assert set(NEW_IN_SLICE_3) | set(NEW_IN_SLICE_4) \
         | set(NEW_IN_SLICE_9) | set(NEW_IN_SLICE_10) \
-        | set(NEW_IN_SLICE_11) <= scanned
+        | set(NEW_IN_SLICE_11) | set(NEW_IN_SLICE_13) <= scanned
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -89,7 +91,10 @@ def test_port_import_loads_no_jax():
             "bigdl_tpu_torch.utils.anomaly, "
             "bigdl_tpu_torch.serialization.checkpoint, "
             "bigdl_tpu_torch.visualization.tensorboard, "
-            "bigdl_tpu_torch.obs.training; "
+            "bigdl_tpu_torch.obs.training, bigdl_tpu_torch.dataset.native, "
+            "bigdl_tpu_torch.dataset.records, "
+            "bigdl_tpu_torch.dataset.tfrecord, bigdl_tpu_torch.dataset.text, "
+            "bigdl_tpu_torch.optim.lbfgs; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{BANNED!r}]; "
             "assert not bad, bad")
