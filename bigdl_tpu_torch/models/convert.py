@@ -86,8 +86,7 @@ def _to_tensor(a: Any, device: torch.device) -> torch.Tensor:
     arr = np.asarray(a)
     if arr.dtype == object or not np.issubdtype(arr.dtype, np.number):
         raise ValueError(f"parameter leaf of type {type(a).__name__} "
-                         f"(dtype {arr.dtype}) is not a numeric array; "
-                         "quantized leaves are not ported yet")
+                         f"(dtype {arr.dtype}) is not a numeric array")
     return torch.from_numpy(np.array(arr, copy=True)).to(device)
 
 
@@ -97,10 +96,11 @@ def params_from_jax(tree: Dict[str, Any],
     (or the whole `variables` dict), given as host arrays — e.g.
     `jax.device_get(variables["params"])` — on `device` (None → the
     GPU, see utils/device.py). Any tree of nested dicts of arrays
-    carries across unchanged (the `Sequential` trees of models/rnn.py,
-    say). A Transformer-LM's `blocks` may be stacked `(L, ...)` leaves
-    or a per-layer list of dicts (the serving layout); it comes out
-    stacked, the port's canonical layout."""
+    carries across unchanged, each leaf keeping its dtype (the
+    `Sequential` trees of models/rnn.py, `nn.quantize`'s int8
+    `qweight` leaves, say). A Transformer-LM's `blocks` may be stacked
+    `(L, ...)` leaves or a per-layer list of dicts (the serving
+    layout); it comes out stacked, the port's canonical layout."""
     dev = resolve_device(device)
     if "params" in tree:
         tree = tree["params"]

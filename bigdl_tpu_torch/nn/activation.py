@@ -1,12 +1,13 @@
-"""Activation layers: the elementwise family.
+"""Activation layers.
 
-Ports the `_Elementwise` layers of bigdl_tpu/nn/activation.py
-(reference: nn/ReLU.scala, nn/Tanh.scala, nn/Sigmoid.scala,
-nn/SoftMax.scala, nn/LogSoftMax.scala, ...). The reference's `ip`
-(in-place) flags are accepted and ignored. GELU is the tanh
-approximation (`jax.nn.gelu`'s default). The layers with parameters or
-randomness (PReLU, SReLU, RReLU) come with the slices that use them
-(ROADMAP.md queue A.7).
+Ports bigdl_tpu/nn/activation.py (reference: nn/ReLU.scala,
+nn/Tanh.scala, nn/Sigmoid.scala, nn/SoftMax.scala, nn/LogSoftMax.scala,
+nn/PReLU.scala, nn/SReLU.scala, nn/RReLU.scala, ...). The reference's
+`ip` (in-place) flags are accepted and ignored. GELU is the tanh
+approximation (`jax.nn.gelu`'s default). RReLU draws its training
+slopes from the `rng` generator, on the input's device (torch's
+stream, not threefry's: the packages agree in evaluation); in training
+`rng=None` raises ValueError, as in nn/dropout.py.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from bigdl_tpu_torch.nn.dropout import _need_rng
 from bigdl_tpu_torch.nn.module import Module
 
 
@@ -169,3 +171,68 @@ class Mish(_Elementwise):
 
     def _fn(self, x):
         return x * torch.tanh(F.softplus(x))
+
+
+class PReLU(Module):
+    """Learnable leaky slope (reference: nn/PReLU.scala); n_output_plane
+    0 gives one shared slope, else one a channel on the trailing axis.
+    Weight initialised to 0.25."""
+
+    def __init__(self, n_output_plane: int = 0, name: Optional[str] = None):
+        super().__init__(name=name)
+        self.n_output_plane = n_output_plane
+
+    def init_params(self, generator=None):
+        return {"weight": torch.full((max(self.n_output_plane, 1),), 0.25)}
+
+    def apply(self, variables, x, training=False, rng=None):
+        w = variables["params"]["weight"]
+        return torch.where(x >= 0, x, w * x), variables["state"]
+
+
+class SReLU(Module):
+    """S-shaped ReLU with four learnable parameters of `shape`
+    (reference: nn/SReLU.scala):
+    y = t_r + a_r (x - t_r)  if x >= t_r
+        x                    if t_l < x < t_r
+        t_l + a_l (x - t_l)  if x <= t_l
+    """
+
+    def __init__(self, shape, name: Optional[str] = None):
+        super().__init__(name=name)
+        self.shape = tuple(shape)
+
+    def init_params(self, generator=None):
+        return {"t_left": torch.zeros(self.shape),
+                "a_left": torch.full(self.shape, 0.2),
+                "t_right": torch.ones(self.shape),
+                "a_right": torch.full(self.shape, 0.2)}
+
+    def apply(self, variables, x, training=False, rng=None):
+        p = variables["params"]
+        tl, al, tr, ar = (p["t_left"], p["a_left"], p["t_right"],
+                          p["a_right"])
+        y = torch.where(x >= tr, tr + ar * (x - tr), x)
+        y = torch.where(x <= tl, tl + al * (x - tl), y)
+        return y, variables["state"]
+
+
+class RReLU(Module):
+    """Randomized leaky ReLU (reference: nn/RReLU.scala): negative slopes
+    drawn U(lower, upper) an element in training, the mean slope
+    (lower + upper) / 2 in evaluation."""
+
+    def __init__(self, lower: float = 1.0 / 8, upper: float = 1.0 / 3,
+                 name: Optional[str] = None):
+        super().__init__(name=name)
+        self.lower = lower
+        self.upper = upper
+
+    def apply(self, variables, x, training=False, rng=None):
+        if training:
+            _need_rng(self, rng)
+            a = torch.empty(x.shape, dtype=x.dtype, device=x.device) \
+                .uniform_(self.lower, self.upper, generator=rng)
+        else:
+            a = (self.lower + self.upper) / 2.0
+        return torch.where(x >= 0, x, a * x), variables["state"]

@@ -4,6 +4,7 @@ Ports bigdl_tpu/nn/table_ops.py (reference: nn/CAddTable.scala,
 nn/CMulTable.scala, nn/CSubTable.scala, nn/CDivTable.scala,
 nn/CMaxTable.scala, nn/CMinTable.scala, nn/JoinTable.scala,
 nn/SplitTable.scala, nn/SelectTable.scala, nn/FlattenTable.scala,
+nn/MM.scala, nn/MV.scala, nn/DotProduct.scala, nn/CosineDistance.scala,
 nn/Sum.scala, nn/Mean.scala, nn/Max.scala, nn/Min.scala). A table input
 is a `utils.table.Table` (any dict) or a sequence; a dict's elements
 are read in `sort_key` order (integer keys numerically, then strings),
@@ -12,8 +13,8 @@ join the same elements. For the reduce family, `dimension` is 1-based
 as in the reference, negative counts from the end; with `n_input_dims`
 > 0 an input of one more dim has a leading batch dim, which shifts the
 axis by one. `Max`/`Min` share the gradient among tied extremes, as
-JAX's reductions do (`torch.amax`/`amin`). MM, MV, DotProduct and
-CosineDistance wait for the slices that use them (ROADMAP.md queue A.7).
+JAX's reductions do (`torch.amax`/`amin`). CosineDistance floors each
+norm at 1e-12.
 """
 
 from __future__ import annotations
@@ -143,6 +144,56 @@ class FlattenTable(Module):
 
         rec(input)
         return out, variables["state"]
+
+
+class MM(Module):
+    """Batch matrix-matrix product of a 2-table (reference: nn/MM.scala)."""
+
+    def __init__(self, trans_a: bool = False, trans_b: bool = False,
+                 name: Optional[str] = None):
+        super().__init__(name=name)
+        self.trans_a, self.trans_b = trans_a, trans_b
+
+    def apply(self, variables, input, training=False, rng=None):
+        a, b = _elems(input)
+        if self.trans_a:
+            a = a.transpose(-1, -2)
+        if self.trans_b:
+            b = b.transpose(-1, -2)
+        return torch.matmul(a, b), variables["state"]
+
+
+class MV(Module):
+    """Batch matrix-vector product of a 2-table (reference: nn/MV.scala)."""
+
+    def __init__(self, trans: bool = False, name: Optional[str] = None):
+        super().__init__(name=name)
+        self.trans = trans
+
+    def apply(self, variables, input, training=False, rng=None):
+        m, v = _elems(input)
+        if self.trans:
+            m = m.transpose(-1, -2)
+        return torch.einsum("...ij,...j->...i", m, v), variables["state"]
+
+
+class DotProduct(Module):
+    """Row-wise dot product of a 2-table (reference: nn/DotProduct.scala)."""
+
+    def apply(self, variables, input, training=False, rng=None):
+        a, b = _elems(input)
+        return (a * b).sum(dim=-1), variables["state"]
+
+
+class CosineDistance(Module):
+    """Row-wise cosine similarity of a 2-table (reference:
+    nn/CosineDistance.scala)."""
+
+    def apply(self, variables, input, training=False, rng=None):
+        a, b = _elems(input)
+        na = torch.clamp(torch.linalg.vector_norm(a, dim=-1), min=1e-12)
+        nb = torch.clamp(torch.linalg.vector_norm(b, dim=-1), min=1e-12)
+        return (a * b).sum(dim=-1) / (na * nb), variables["state"]
 
 
 class _AxisReduce(Module):

@@ -34,6 +34,14 @@ rounds p. The bf16 kernels' asynchronous copies read 16-byte rows, so
 `_check` refuses a bf16 operand whose data does not start on a 16-byte
 boundary.
 
+The kernels are instantiated at head dims HEAD_DIMS. Any other D up to
+the largest is zero-padded to the next instantiation and the results
+sliced back (`pad_head_dim` / `unpad_head_dim`), as the JAX wrapper
+pads D to a multiple of 128 before its kernels: zero columns add exact
+zeros to every score and leave the padded output and gradient columns
+zero, and `sm_scale` stays that of the unpadded D. D beyond the largest
+instantiation raises.
+
 `impl`, in `flash_attention` and `flash_attention_with_lse` alike:
 None picks `"cuda"` for CUDA tensors and `"torch"` for CPU tensors;
 `"torch"` runs the plain version on whatever device the tensors are
@@ -76,7 +84,8 @@ bwd_launches = 0
 def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool = False,
                         sm_scale: Optional[float] = None,
-                        return_lse: bool = False):
+                        return_lse: bool = False, dropout: float = 0.0,
+                        dropout_generator: Optional[torch.Generator] = None):
     """Plain softmax attention over (..., S, D); materializes S x S.
 
     The oracle of the kernels and the `impl="torch"` forward. Scores
@@ -84,8 +93,13 @@ def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     `preferred_element_type=f32`; for fp32 inputs this is exactly the
     JAX reference), probabilities are rounded to v's dtype before the
     P.V product, which accumulates in fp32 and rounds once to q's dtype.
-    The JAX reference's attention dropout has no caller in the port and
-    is not ported."""
+
+    `dropout` > 0 applies inverted dropout to the normalized
+    probabilities, each kept with probability 1 - dropout by a draw
+    from `dropout_generator` (on the operands' device) — the one path
+    that needs the probabilities materialized (`nn.MultiHeadAttention`
+    in training). The mask is torch's stream, not threefry's, so the
+    JAX reference agrees at dropout 0 and in expectation."""
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
     s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * sm_scale
@@ -99,6 +113,13 @@ def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     l = p.sum(dim=-1, keepdim=True)
     # fully masked rows (causal with Sq > Sk) emit zeros
     probs = torch.where(m > NEG_INF / 2, p / l, 0.0)
+    if dropout > 0.0:
+        if dropout_generator is None:
+            raise ValueError("attention dropout needs dropout_generator")
+        keep = 1.0 - dropout
+        mask = torch.empty(probs.shape, device=probs.device).bernoulli_(
+            keep, generator=dropout_generator).bool()
+        probs = torch.where(mask, probs, 0.0) / keep
     out = torch.matmul(probs.to(v.dtype).float(), v.float()).to(q.dtype)
     if return_lse:
         return out, (m + torch.log(l))[..., 0]
@@ -109,7 +130,8 @@ def flash_attention_backward_reference(
         q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
         lse: torch.Tensor, do: torch.Tensor, causal: bool = False,
         sm_scale: Optional[float] = None,
-        dlse: Optional[torch.Tensor] = None
+        dlse: Optional[torch.Tensor] = None,
+        delta: Optional[torch.Tensor] = None
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain flash backward on (BH, S, D): (dq, dk, dv) from the
     forward's output and natural-log LSE, sweeping blocks of
@@ -118,13 +140,16 @@ def flash_attention_backward_reference(
     `_flash_bwd_blockwise`: fp32 throughout, gradients rounded to the
     input dtypes at the end. `dlse`, the gradient of the LSE output
     (None: zero), enters as delta - dlse, since d lse_i / d s_ij is
-    p_ij. The oracle of the backward kernels and the `impl="torch"`
-    backward."""
+    p_ij. `delta`, if given, is sum(do * o) already taken (fp32, before
+    dlse), as the kernels' wrapper takes it over the unpadded head dim
+    before padding (`pad_head_dim`). The oracle of the backward kernels
+    and the `impl="torch"` backward."""
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
     seq_q, seq_k = q.shape[1], k.shape[1]
     q32, do32 = q.float(), do.float()
-    delta = (do32 * o.float()).sum(dim=-1)                  # (BH, Sq)
+    if delta is None:
+        delta = (do32 * o.float()).sum(dim=-1)              # (BH, Sq)
     if dlse is not None:
         delta = delta - dlse.float()
     dq = torch.zeros_like(q32)
@@ -254,6 +279,37 @@ def flash_backward_tiled(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return dq, dk, dv
 
 
+# ------------------------------------------------- head-dim padding
+def kernel_head_dim(d: int) -> int:
+    """The instantiation a head dim `d` runs at: the least entry of
+    HEAD_DIMS that holds it. Raises beyond the largest."""
+    for dp in HEAD_DIMS:
+        if d <= dp:
+            return dp
+    raise ValueError(f"flash_attention impl='cuda' takes head_dim <= "
+                     f"{HEAD_DIMS[-1]} (kernels instantiated at "
+                     f"{HEAD_DIMS}), got {d}")
+
+
+def pad_head_dim(*tensors: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """The tensors zero-padded on their last axis to the kernels' head
+    dim (`kernel_head_dim`); a tensor already there passes through.
+    Zero columns add exact zeros to every q.k score and give zero
+    output, dq, dk and dv columns."""
+    dp = kernel_head_dim(tensors[0].shape[-1])
+    return tuple(t if t.shape[-1] == dp
+                 else torch.nn.functional.pad(t, (0, dp - t.shape[-1]))
+                 for t in tensors)
+
+
+def unpad_head_dim(d: int, *tensors: torch.Tensor
+                   ) -> Tuple[torch.Tensor, ...]:
+    """The first `d` columns of each tensor (the inverse of
+    `pad_head_dim` on the kernels' results)."""
+    return tuple(t if t.shape[-1] == d else t[..., :d].contiguous()
+                 for t in tensors)
+
+
 # ------------------------------------------------------------- CUDA
 def _lib() -> ctypes.CDLL:
     lib = _build.load("flash_attention")
@@ -274,7 +330,7 @@ def _lib() -> ctypes.CDLL:
 def _check(**tensors: torch.Tensor) -> None:
     """Devices, dtypes, alignment and shapes the kernels take: (BH, S,
     D), one CUDA device, fp32 or bf16 throughout, bf16 data starting on
-    a 16-byte boundary, D in HEAD_DIMS."""
+    a 16-byte boundary, D in HEAD_DIMS (the wrappers pad to it)."""
     q = tensors["q"]
     for name, t in tensors.items():
         if not t.is_cuda or t.device != q.device:
@@ -322,9 +378,11 @@ def flash_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(out, lse) through the forward kernel, on (BH, S, D). The
     operands are made contiguous first (a copy for the model's
-    head-transposed views)."""
+    head-transposed views); a D between instantiations is padded to the
+    next one and `out` sliced back (`pad_head_dim`)."""
     global fwd_launches
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    d_in = q.shape[-1]
+    q, k, v = pad_head_dim(q.contiguous(), k.contiguous(), v.contiguous())
     _check(q=q, k=k, v=v)
     bh, seq_q, d = q.shape
     out = torch.empty_like(q)
@@ -338,7 +396,7 @@ def flash_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             int(causal), int(q.dtype == torch.bfloat16), stream)
     _raise_on(err, lib, "forward")
     fwd_launches += 1
-    return out, lse
+    return unpad_head_dim(d_in, out)[0], lse
 
 
 def flash_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -350,21 +408,25 @@ def flash_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     delta = sum(do * o) * sm_scale is computed here in fp32, as the
     JAX package's `_bwd_prep` does, and handed to both kernels; the
     LSE's gradient `dlse`, if any, enters as (sum(do * o) - dlse) *
-    sm_scale, which is all the kernels need to serve it."""
+    sm_scale, which is all the kernels need to serve it. A D between
+    instantiations is padded and the gradients sliced back, as in the
+    forward; delta is taken over the unpadded columns."""
     global bwd_launches
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    do = do.to(q.dtype).contiguous()
-    _check(q=q, k=k, v=v, do=do)
-    bh, seq_q, d = q.shape
-    if o.shape != q.shape or lse.shape != (bh, seq_q):
+    d_in = q.shape[-1]
+    if o.shape != q.shape or lse.shape != q.shape[:2]:
         raise ValueError(f"flash_attention backward: o {tuple(o.shape)} "
                          f"/ lse {tuple(lse.shape)} do not match q "
                          f"{tuple(q.shape)}")
+    do = do.to(q.dtype)
     delta = (do.float() * o.float()).sum(dim=-1)
     if dlse is not None:
         delta = delta - dlse.float()
     delta = (delta * sm_scale).contiguous()
     lse = lse.float().contiguous()
+    q, k, v, do = pad_head_dim(q.contiguous(), k.contiguous(),
+                               v.contiguous(), do.contiguous())
+    _check(q=q, k=k, v=v, do=do)
+    bh, seq_q, d = q.shape
     dq = torch.empty_like(q)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
@@ -381,7 +443,7 @@ def flash_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             int(q.dtype == torch.bfloat16), stream)
     _raise_on(err, lib, "backward")
     bwd_launches += BWD_LAUNCHES
-    return dq, dk, dv
+    return unpad_head_dim(d_in, dq, dk, dv)
 
 
 # ------------------------------------------------------- autograd

@@ -1,10 +1,17 @@
-"""Paged KV-cache primitives for incremental decode.
+"""KV-cache primitives for incremental decode.
 
-Ports the paged half of bigdl_tpu/ops/kv_cache.py (`init_block_pool`
-through `paged_attention`); the dense per-slot cache of that file is
-not on the serving path and is not ported.
+Ports bigdl_tpu/ops/kv_cache.py: the dense per-layer cache
+(`init_layer_cache`, `write_prefill`, `update_cache`,
+`cached_attention`; `nn.MultiHeadAttention`'s decode path) and the
+paged pools of the serving engine (`init_block_pool` through
+`paged_attention`). Both are plain PyTorch, as the JAX package computes
+them outside any Pallas kernel; the paged read has a CUDA kernel of
+its own (ops/paged_decode.py).
 
-Layout: one preallocated `(num_blocks, H, block_size, D)` pool per
+Dense layout: (B, H, max_len, D) keys and values a layer, one clock a
+row; a read attends to positions <= the row's clock.
+
+Paged layout: one preallocated `(num_blocks, H, block_size, D)` pool per
 layer for keys and one for values. A sequence's cache is a BLOCK TABLE
 — a row of pool indices — so eviction and prefix sharing are integer
 surgery on the table (serving/kv_pool.py, serving/prefix_cache.py),
@@ -26,9 +33,10 @@ a prefix hit is the same tensor bit for bit (the warm == cold promise
 of the prefix cache, pinned inside the port by
 tests/test_torch_transformer_serving.py).
 
-The writes update the pools IN PLACE (`index_put_`) and return them:
-the JAX step donates its pools and gets new ones back, the port saves
-the copy. Callers that need the old content clone first.
+The writes update the caches and pools IN PLACE (`index_put_`) and
+return them: the JAX step donates its buffers and gets new ones back,
+the port saves the copy. Callers that need the old content clone
+first.
 """
 
 from __future__ import annotations
@@ -41,6 +49,62 @@ import torch.nn.functional as F
 _NEG_INF = -1e30
 
 
+# --------------------------------------------------------------- dense
+def init_layer_cache(batch: int, num_heads: int, max_len: int,
+                     head_dim: int, dtype: torch.dtype = torch.float32,
+                     device: Optional[torch.device] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One layer's (k, v) cache, each (B, H, max_len, D), zero-filled.
+    Zeros are safe: reads mask every position past the row's clock."""
+    shape = (batch, num_heads, max_len, head_dim)
+    return (torch.zeros(shape, dtype=dtype, device=device),
+            torch.zeros(shape, dtype=dtype, device=device))
+
+
+def write_prefill(k_cache: torch.Tensor, v_cache: torch.Tensor,
+                  k_new: torch.Tensor, v_new: torch.Tensor,
+                  start: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Write a prompt's (B, H, S_p, D) keys/values at [start, start +
+    S_p) of every row, in place."""
+    end = start + k_new.shape[2]
+    k_cache[:, :, start:end] = k_new.to(k_cache.dtype)
+    v_cache[:, :, start:end] = v_new.to(v_cache.dtype)
+    return k_cache, v_cache
+
+
+def update_cache(k_cache: torch.Tensor, v_cache: torch.Tensor,
+                 k_new: torch.Tensor, v_new: torch.Tensor,
+                 pos: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Write one decode step's (B, H, 1, D) keys/values at per-row
+    positions `pos` (B,), in place."""
+    rows = torch.arange(k_cache.shape[0], device=k_cache.device)
+    p = pos.long().to(k_cache.device)
+    k_cache[rows, :, p, :] = k_new[:, :, 0, :].to(k_cache.dtype)
+    v_cache[rows, :, p, :] = v_new[:, :, 0, :].to(v_cache.dtype)
+    return k_cache, v_cache
+
+
+def cached_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, pos: torch.Tensor,
+                     sm_scale: Optional[float] = None) -> torch.Tensor:
+    """One query row a sequence against the dense cache: q (B, H, 1,
+    D), caches (B, H, S, D), pos (B,) the row's clock (the index its
+    current token was just written at). Attends positions <= pos;
+    value rows past the clock are zeroed before the weighted sum, so a
+    NaN left there (a poisoned request's leftovers) never rides a
+    0-probability into the output. Returns (B, H, 1, D) in q's
+    dtype."""
+    if q.shape[-2] != 1:
+        raise ValueError(f"cached_attention decodes one row, got q "
+                         f"length {q.shape[-2]}")
+    seq = k_cache.shape[-2]
+    visible = (torch.arange(seq, device=q.device)[None, :]
+               <= pos.long().to(q.device)[:, None])            # (B, S)
+    return block_attention(q, k_cache, v_cache, visible[:, None, :],
+                           visible, sm_scale)
+
+
+# --------------------------------------------------------------- paged
 def init_block_pool(num_blocks: int, num_heads: int, block_size: int,
                     head_dim: int, dtype: torch.dtype = torch.float32,
                     device: Optional[torch.device] = None

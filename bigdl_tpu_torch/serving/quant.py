@@ -1,8 +1,8 @@
 """Quantized serving-weight layout.
 
-Ports bigdl_tpu/serving/quant.py (and the `_quantize_weight` scheme of
-bigdl_tpu/nn/quantized.py it uses): BigDL's low-precision inference —
-weights quantized offline, symmetric per output channel to int8, fp32
+Ports bigdl_tpu/serving/quant.py, on nn/quantized.py's
+`_quantize_weight` as the JAX module is on its package's: BigDL's
+low-precision inference — weights quantized offline, symmetric per output channel to int8, fp32
 restored by one scale multiply. `quantize_serving_params` repacks the
 gemm weights of a `TransformerLM.serving_params` dict into int8
 `QuantWeight` leaves (same dict/tuple structure), and the model
@@ -29,6 +29,8 @@ from typing import Any, Dict, NamedTuple
 
 import torch
 
+from bigdl_tpu_torch.nn.quantized import _quantize_weight
+
 # per-layer gemm weights quantized per OUTPUT channel (axis=0 of the
 # (in, out) layout): one scale per output column
 _BLOCK_GEMMS = ("wq", "wk", "wv", "wo", "w1", "w2")
@@ -52,12 +54,9 @@ class QuantWeight(NamedTuple):
 
 
 def quantize_weight(w: torch.Tensor, axis: int = 0) -> QuantWeight:
-    """Symmetric per-channel int8 repack of one fp32 weight: scale =
-    max|w| / 127 over `axis`, q = clip(round(w / scale), -127, 127)."""
-    amax = w.abs().amax(dim=axis, keepdim=True)
-    scale = amax.clamp_min(1e-8) / 127.0
-    q = torch.clamp(torch.round(w / scale), -127, 127).to(torch.int8)
-    return QuantWeight(q, scale)
+    """Symmetric per-channel int8 repack of one fp32 weight (the
+    nn/quantized.py scheme: scale = max|w| / 127 over `axis`)."""
+    return QuantWeight(*_quantize_weight(w, axis))
 
 
 def quantize_serving_params(params: Dict[str, Any]) -> Dict[str, Any]:

@@ -3,12 +3,14 @@
 layouts, spill tier and disaggregated prefill), training (with
 checkpoints, resume, gradient accumulation and the anomaly guard),
 recurrent, CNN and TreeLSTM paths, its text, record-file and TFRecord
-input pipelines, LBFGS, criterions and eager facade on one NVIDIA GPU
-and check them.
+input pipelines, LBFGS, criterions and eager facade, MultiHeadAttention,
+the rest of nn/ (int8, sparse, volumetric, ...) and the NCF,
+TextClassifier and autoencoder models on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py            # from the repository root, one CUDA card
     python3 chip_smoke.py --profile  # also: where decode, train,
-                                     # ResNet-50 and Inception steps go
+                                     # ResNet-50, Inception and MHA
+                                     # steps go
 
 It drives `bigdl_tpu_torch` only (never JAX or the JAX package):
 
@@ -258,7 +260,37 @@ It drives `bigdl_tpu_torch` only (never JAX or the JAX package):
    forward in training mode stores `apply`'s new state, `evaluate()`'s
    forward equals `apply(..., training=False)`, `get_parameters()` has
    the parameter count;
-29. kernels — one JSON line per the port's kernel table.
+29. mha — `nn.MultiHeadAttention` on the flash kernels at the 43M LM's
+   attention widths (E = 512, 8 heads of 64, batch 8 x 2048): one fp32
+   causal self-attention layer, forward and backward, kernels against
+   `impl="torch"` from the same weights (output and every parameter
+   gradient within the flash gates; the key bias's gradient, zero in
+   exact arithmetic, below the gradient gate in both), 1 forward and
+   2 backward launches; cross-attention over 512 encoder rows; 8 heads
+   of 80 (D padded to 128 by the wrapper); a Sequential of 4 causal
+   layers trained by Optimizer in bf16 with MSECriterion for 2 + 10
+   steps (loss falls, flash launches 40 / 80 in the timed steps;
+   tokens/s; with --profile one more step's busy share and flash ms);
+   fp32 incremental decode (a 512-token prompt, 64 `apply_decode`
+   steps) row for row `apply`'s within 1e-5, with NaN key and value
+   rows past one row's clock leaving every output finite;
+30. nn_extra — PReLU, SReLU, RReLU, CMul, CAdd, Bilinear, Cosine,
+   Euclidean, MM, MV, DotProduct, CosineDistance, the upsampling and
+   volumetric layers (a C3D clip: 8 x 16 x 112 x 112 x 3) and the sparse
+   layers (1,000,000 columns, capacity 64, batch 4096) on the card
+   against the CPU, as cnn_layers; RReLU's training slopes in bounds;
+   SparseTensor products card vs CPU;
+31. quantized — LeNet-5 from lenet_trainer quantized: held-out top-1 of
+   int8 within 1 point of fp32; ResNet-50 (224 x 224, batch 64, seeded)
+   int8 against fp32: top-1 agreement, logits' relative error,
+   images/s and weight bytes of both; int32 accumulators card vs CPU
+   bit for bit;
+32. ncf_textcls — NeuralCF at MovieLens-1M's sizes for one epoch
+   (batch 2048, validated on the held-out 10%), the TextClassifier at
+   news20's from a GloVe-shaped embedding and the autoencoder on MNIST
+   through Optimizer: losses falling, step ms, samples/s and the busy
+   share of one profiled step each;
+33. kernels — one JSON line per the port's kernel table.
 
 Every phase prints one JSON line; any failed check raises and the
 script exits non-zero. The last lines are the `nvidia-smi` name/power
@@ -3649,8 +3681,8 @@ def _pack(xs, table):
 
 def _cnn_pass(module, variables, xs, table, training, device, cts=None):
     """The module's forward on `device` with gradients of sum(out * ct)
-    with respect to every parameter and input: (outputs, new state
-    leaves, gradients, cotangents)."""
+    with respect to every parameter and float input (`xs` may nest
+    tuples): (outputs, new state leaves, gradients, cotangents)."""
     import torch
 
     from bigdl_tpu_torch.models.convert import tree_leaves, tree_map
@@ -3658,7 +3690,9 @@ def _cnn_pass(module, variables, xs, table, training, device, cts=None):
     params = tree_map(lambda t: t.to(device).requires_grad_(),
                       variables["params"])
     state = tree_map(lambda t: t.to(device), variables["state"])
-    xs = [x.to(device).requires_grad_() for x in xs]
+    # float inputs are differentiated, integer ones (ids) are not
+    xs = tree_map(lambda x: x.to(device).requires_grad_()
+                  if x.is_floating_point() else x.to(device), xs)
     out, new_state = module.apply({"params": params, "state": state},
                                   _pack(xs, table), training=training)
     outs = tree_leaves(out)
@@ -3666,7 +3700,8 @@ def _cnn_pass(module, variables, xs, table, training, device, cts=None):
         g = torch.Generator().manual_seed(7)
         cts = [torch.randn(o.shape, generator=g) for o in outs]
     loss = sum((o * c.to(device)).sum() for o, c in zip(outs, cts))
-    leaves = tree_leaves(params) + xs
+    leaves = tree_leaves(params) + [x for x in tree_leaves(xs)
+                                    if x.requires_grad]
     grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     grads = [torch.zeros_like(t) if gr is None else gr
              for t, gr in zip(leaves, grads)]
@@ -3794,7 +3829,8 @@ def phase_lenet_trainer():
     batch 64, Adam(2e-3), 3 epochs, validated every epoch on
     synthetic_mnist(128, seed=9) with Top1Accuracy; then Evaluator over
     the held-out set: top-1 > LENET_MIN_TOP1. Each epoch's wall time
-    (its validation included)."""
+    (its validation included). Returns the trained model (the quantized
+    phase's LeNet-5)."""
     import torch
 
     from bigdl_tpu_torch import nn
@@ -3840,6 +3876,7 @@ def phase_lenet_trainer():
          epoch_seconds=marks["epoch_s"],
          validation_top1=[v for v, _ in marks["validation"]],
          top1=top1, seconds=time.perf_counter() - t0)
+    return trained
 
 
 def _lenet_guarded(train, end, policy, plan="", ckpt=None):
@@ -5394,6 +5431,700 @@ def phase_eager_facade():
     emit("eager_facade", **report)
 
 
+# ----------------------------------------------------- MultiHeadAttention
+# the mha phase: nn.MultiHeadAttention at the 43M LM's attention widths
+# (TRAIN_CONFIG: E = DIM = 512, 8 heads of 64, batch TRAIN_BATCH x
+# TRAIN_SEQ) through the flash kernels (K2-K5), against the same layer
+# with impl="torch" from the same weights
+MHA_CROSS_SEQ = 512             # encoder rows of the cross-attention case
+MHA_PAD_DIM = 640               # 8 heads of 80: the wrapper pads D to 128
+MHA_LAYERS = 4                  # causal layers of the trained stack
+MHA_SAMPLES = 32                # distinct training samples (4 batches)
+MHA_PROMPT, MHA_NEW, MHA_CACHE = 512, 64, 640
+MHA_DECODE_TOL = 1e-5
+MHA_POISON_POS = 600            # a cache row past every decode clock
+
+
+def _mha_step(module, params, xs, ct):
+    """module.apply over `xs` (one tensor, or [queries, keys/values])
+    and the gradients of sum(y * ct) with respect to every parameter, in
+    the tree's order, with the flash launches the pair made."""
+    import torch
+
+    from bigdl_tpu_torch.models.convert import tree_leaves, tree_map
+
+    p = tree_map(lambda t: t.detach().requires_grad_(), params)
+    f0, b0 = _flash_counts()
+    y, _ = module.apply({"params": p, "state": {}}, xs)
+    grads = torch.autograd.grad((y * ct).sum(), tree_leaves(p))
+    torch.cuda.synchronize()
+    f1, b1 = _flash_counts()
+    return y.detach(), grads, (f1 - f0, b1 - b0)
+
+
+def _mha_case(name, embed, cross_seq, causal):
+    """One fp32 MHA layer, forward and backward, kernels (impl None on
+    CUDA tensors) against the plain version (impl "torch") from one set
+    of weights and inputs: the output within FLASH_TOL's fp32 "out" of
+    max(1, its largest entry), every parameter gradient within its
+    "grad" of the gradient's largest entry, except the key bias's, zero
+    in exact arithmetic (softmax is shift-invariant): there both routes
+    must stay below "grad" of the largest gradient. Exact launches."""
+    import torch
+
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.models.convert import tree_leaves_with_path
+    from bigdl_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator(device="cuda").manual_seed(len(name))
+    params = nn.MultiHeadAttention(embed, HEADS).init(
+        torch.Generator().manual_seed(3))["params"]
+    xq = torch.randn(TRAIN_BATCH, TRAIN_SEQ, embed, device="cuda",
+                     generator=g)
+    xs = xq if cross_seq is None else [xq, torch.randn(
+        TRAIN_BATCH, cross_seq, embed, device="cuda", generator=g)]
+    ct = torch.randn(xq.shape, device="cuda", generator=g)
+    runs = {impl: _mha_step(nn.MultiHeadAttention(embed, HEADS,
+                                                  causal=causal, impl=impl),
+                            params, xs, ct)
+            for impl in (None, "torch")}
+    (y, grads, launches), (y_ref, ref, ref_launches) = runs[None], \
+        runs["torch"]
+    tol = FLASH_TOL["fp32"]
+    out_err = float((y - y_ref).abs().max()) / max(
+        1.0, float(y_ref.abs().max()))
+    top = max(float(b.abs().max()) for b in ref)
+    errs = {}
+    for (path, _), a, b in zip(tree_leaves_with_path(params), grads, ref):
+        key = ".".join(map(str, path))
+        errs[key] = (max(float(a.abs().max()), float(b.abs().max())) / top
+                     if key == "bk" else _rel_err(a, b))
+    check(out_err <= tol["out"], f"mha {name}: output {out_err:.3g}")
+    check(max(errs.values()) <= tol["grad"],
+          f"mha {name}: gradients {errs}")
+    check(launches == (1, fa.BWD_LAUNCHES) and ref_launches == (0, 0),
+          f"mha {name}: launches {launches} (plain {ref_launches})")
+    return {"embed": embed, "head_dim": embed // HEADS,
+            "kernel_head_dim": fa.kernel_head_dim(embed // HEADS),
+            "kv_seq": cross_seq or TRAIN_SEQ, "causal": causal,
+            "out_err": out_err, "grad_rel_err": errs,
+            "launches": {"fwd": launches[0], "bwd": launches[1]}}
+
+
+def _mha_samples(n, seed):
+    """Seeded (S, E) sequences whose target is the sequence shifted by
+    one step (row t is row t - 1): causal attention can learn it."""
+    import numpy as np
+
+    from bigdl_tpu_torch.dataset.sample import Sample
+
+    x = np.random.RandomState(seed).randn(n, TRAIN_SEQ, DIM) \
+        .astype(np.float32)
+    y = np.roll(x, 1, axis=1)
+    return [Sample(x[i], y[i]) for i in range(n)]
+
+
+def _timed_optimize(model, samples, criterion, batch, warmup, steps,
+                    optim, precision=None, validation=None, counters=None,
+                    profile_trace=None, kernel_re=None):
+    """Optimizer(...).optimize() for `warmup` + `steps` steps (plus one
+    profiled step when `profile_trace` names a trace): the losses, the
+    timed window's step ms (validation time inside it taken out),
+    samples/s, the validations, the counts read over the window
+    (counters = (zero, read): zero() at its start, read() at its end),
+    and the profiled step's device rows (busy share, top device
+    operations, the device ms of the kernels `kernel_re` matches)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from bigdl_tpu_torch.dataset import DataSet
+    from bigdl_tpu_torch.optim import Optimizer, Trigger
+
+    end = warmup + steps
+    last = end + (profile_trace is not None)
+    losses, validations = [], []
+    marks = {"val_s": []}
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+
+    def validate_now(fire):
+        def trig(state):
+            f = fire(state)
+            if f and "t0" in marks and "t1" not in marks:
+                torch.cuda.synchronize()     # validation time, kept apart
+                marks["v0"] = time.perf_counter()
+            return f
+        return trig
+
+    def end_when(state):
+        if "v0" in marks:
+            torch.cuda.synchronize()
+            marks["val_s"].append(time.perf_counter() - marks.pop("v0"))
+        res = state.get("validation")
+        if res is not None and res is not marks.get("seen"):
+            marks["seen"] = res
+            validations.append({"neval": state["neval"], **{
+                k: v.result() for k, v in res.items()}})
+        if state["loss"] is not None:
+            losses.append(state["loss"])
+        n = state["neval"]
+        if n == warmup:
+            torch.cuda.synchronize()
+            if counters is not None:
+                counters[0]()                   # main path starts here
+            marks["t0"] = time.perf_counter()
+        if n == end:
+            torch.cuda.synchronize()
+            marks["t1"] = time.perf_counter()
+            if counters is not None:
+                marks["counts"] = counters[1]()  # main path ends here
+            if profile_trace is not None:
+                prof.start()
+                marks["p0"] = time.perf_counter()
+        if n == last and profile_trace is not None:
+            torch.cuda.synchronize()
+            marks["p1"] = time.perf_counter()
+            prof.stop()
+        return n >= last
+
+    o = Optimizer(model, DataSet.array(samples), criterion,
+                  batch_size=batch).set_optim_method(optim) \
+        .set_end_when(Trigger(end_when))
+    if precision is not None:
+        o.set_precision(precision)
+    if validation is not None:
+        trigger, held_out, methods = validation
+        o.set_validation(Trigger(validate_now(trigger)), held_out, methods,
+                         batch)
+    o.optimize()
+    losses = [float(v) for v in losses]
+    dt = marks["t1"] - marks["t0"] - sum(marks["val_s"])
+    check(len(losses) == last and all(math.isfinite(v) for v in losses),
+          f"losses not all finite: {losses[:4]}...{losses[-4:]}")
+    out = {"steps": steps, "warmup_steps": warmup, "batch": batch,
+           "seconds": dt, "step_ms": dt / steps * 1e3,
+           "samples_per_sec": steps * batch / dt,
+           "validation_seconds": marks["val_s"], "losses": losses,
+           "validations": validations, "counts": marks.get("counts")}
+    if profile_trace is not None:
+        OUT_DIR.mkdir(exist_ok=True)
+        prof.export_chrome_trace(str(OUT_DIR / profile_trace))
+        out["profile"] = _profile_rows(prof, marks["p1"] - marks["p0"])
+        if kernel_re is not None:
+            from torch.autograd import DeviceType
+
+            out["profile"]["kernel_ms"] = sum(
+                e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA
+                and re.search(kernel_re, e.key)) / 1e3
+    return out
+
+
+def phase_mha():
+    """The slice's main path: nn.MultiHeadAttention on the flash kernels
+    at the 43M LM's widths. (1) one causal self-attention layer, fp32,
+    forward and backward, kernels vs plain; (2) cross-attention, 2048
+    queries over MHA_CROSS_SEQ encoder rows, non-causal; (3) 8 heads of
+    80 (MHA_PAD_DIM), padded to the 128 instantiation; (4) a Sequential
+    of MHA_LAYERS causal layers trained by Optimizer in bf16 with
+    MSECriterion for TRAIN_WARMUP + TRAIN_STEPS steps: the loss falls,
+    the flash counts, zeroed after the warm-up, read layers x steps
+    forward and x BWD_LAUNCHES backward; with --profile one more step
+    under torch.profiler (busy share, flash ms a step); (5) fp32
+    incremental decode: apply_prefill of MHA_PROMPT tokens, then
+    MHA_NEW apply_decode steps, each row apply's row on the same tokens
+    within MHA_DECODE_TOL, with NaN key and value rows written past one
+    row's clock leaving every output finite."""
+    import torch
+
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.ops import flash_attention as fa
+    from bigdl_tpu_torch.optim import Adam
+
+    t_phase = time.perf_counter()
+    layers = {"self_causal": _mha_case("self_causal", DIM, None, True),
+              "cross": _mha_case("cross", DIM, MHA_CROSS_SEQ, False),
+              "padded_head_dim": _mha_case("padded_head_dim", MHA_PAD_DIM,
+                                           None, True)}
+    torch.cuda.empty_cache()
+
+    model = nn.Sequential(*[nn.MultiHeadAttention(DIM, HEADS, causal=True)
+                            for _ in range(MHA_LAYERS)])
+    model.build(torch.Generator().manual_seed(0))
+    profiled = "--profile" in sys.argv[1:]
+    train = _timed_optimize(
+        model, _mha_samples(MHA_SAMPLES, 21), nn.MSECriterion(),
+        TRAIN_BATCH, TRAIN_WARMUP, TRAIN_STEPS, Adam(1e-3), "bf16",
+        counters=(_zero_flash_counts, _flash_counts),
+        profile_trace="mha_train_trace.json" if profiled else None,
+        kernel_re=r"fa_(fwd|dkdv|dq)_(bf16_)?kernel")
+    fwd, bwd = train.pop("counts")
+    losses = train["losses"]
+    check(losses[-1] < losses[0], f"mha trainer loss did not fall: {losses}")
+    want = (MHA_LAYERS * TRAIN_STEPS, MHA_LAYERS * TRAIN_STEPS
+            * fa.BWD_LAUNCHES)
+    check((fwd, bwd) == want, f"mha trainer launches {(fwd, bwd)} != {want}")
+    train.update(layers=MHA_LAYERS, seq=TRAIN_SEQ,
+                 tokens_per_sec=train["samples_per_sec"] * TRAIN_SEQ,
+                 launches={"fwd": fwd, "bwd": bwd})
+    if profiled:                     # the flash kernels' ms a step
+        train["profile"]["flash_ms_per_step"] = train["profile"].pop(
+            "kernel_ms", "not measured")
+    del model
+    torch.cuda.empty_cache()
+
+    # (5) incremental decode, fp32
+    m = nn.MultiHeadAttention(DIM, HEADS, causal=True)
+    v = m.init(torch.Generator().manual_seed(5))
+    g = torch.Generator(device="cuda").manual_seed(6)
+    x = torch.randn(TRAIN_BATCH, MHA_PROMPT + MHA_NEW, DIM, device="cuda",
+                    generator=g)
+    with torch.no_grad():
+        _zero_flash_counts()
+        full, _ = m.apply(v, x)
+        cache = m.init_cache(TRAIN_BATCH, MHA_CACHE, device="cuda")
+        y, cache = m.apply_prefill(v, x[:, :MHA_PROMPT], cache)
+        cache["k"][0, :, MHA_POISON_POS] = float("nan")
+        cache["v"][0, :, MHA_POISON_POS] = float("nan")
+        rows = [y]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for t in range(MHA_PROMPT, MHA_PROMPT + MHA_NEW):
+            pos = torch.full((TRAIN_BATCH,), t, dtype=torch.int32,
+                             device="cuda")
+            yt, cache = m.apply_decode(v, x[:, t], cache, pos)
+            rows.append(yt[:, None])
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+        got = torch.cat(rows, dim=1)
+        decode_launches = _flash_counts()
+    err = float((got - full).abs().max())
+    check(bool(torch.isfinite(got).all()),
+          "mha decode: a NaN row past the clock reached the output")
+    check(err <= MHA_DECODE_TOL, f"mha decode: rows {err:.3g} from apply's")
+    check(decode_launches == (2, 0),
+          f"mha decode: flash launches {decode_launches} (apply + prefill)")
+    emit("mha", layers=layers, trainer=train,
+         decode={"batch": TRAIN_BATCH, "prompt": MHA_PROMPT,
+                 "new_tokens": MHA_NEW, "max_abs_err": err,
+                 "tolerance": MHA_DECODE_TOL, "poisoned_row": MHA_POISON_POS,
+                 "ms_per_step": decode_s / MHA_NEW * 1e3,
+                 "flash_launches": decode_launches[0]},
+         seconds=time.perf_counter() - t_phase)
+    return fwd, bwd
+
+
+# ------------------------------------------------------- the rest of nn/
+# nn_extra: every layer of the activation, linear, table, upsampling,
+# volumetric and sparse families the JAX package has, card vs CPU (no
+# TPU kernel: the JAX package computes them outside Pallas). Sizes: the
+# volumetric layers at a C3D clip (16 frames of 112 x 112 x 3, batch 8;
+# conv1a's 64 filters, pool1's 1 x 2 x 2), the sparse layers at a wide
+# model's 1,000,000 columns, capacity 64, batch 4096
+SPARSE_COLS, SPARSE_CAP, SPARSE_BATCH = 1_000_000, 64, 4096
+C3D_CLIP = (8, 16, 112, 112, 3)         # conv1a's input
+C3D_POOL = (8, 16, 56, 56, 64)          # a pooling input at 56 x 56
+
+
+def _sparse_batch(g):
+    """A COO batch of SPARSE_BATCH rows over SPARSE_COLS columns: each
+    row 1..SPARSE_CAP ids (pads at index 0, value 0)."""
+    import torch
+
+    cols, cap, batch = SPARSE_COLS, SPARSE_CAP, SPARSE_BATCH
+    idx = torch.randint(0, cols, (batch, cap), generator=g)
+    vals = torch.randn(batch, cap, generator=g)
+    keep = torch.arange(cap)[None, :] < torch.randint(1, cap + 1, (batch, 1),
+                                                      generator=g)
+    return [torch.where(keep, idx, 0).to(torch.int32),
+            torch.where(keep, vals, 0.0)]
+
+
+def _nn_extra_cases():
+    """(name, module factory, inputs(generator), table packing)."""
+    import torch
+
+    from bigdl_tpu_torch import nn
+
+    def dense(*shapes):
+        return lambda g: [torch.randn(s, generator=g) for s in shapes]
+
+    return [
+        ("prelu", lambda: nn.PReLU(64), dense((64, 28, 28, 64)), None),
+        ("srelu", lambda: nn.SReLU((64,)), dense((64, 28, 28, 64)), None),
+        ("rrelu_eval", lambda: nn.RReLU(), dense((64, 28, 28, 64)), None),
+        ("cmul", lambda: nn.CMul((1, 512)), dense((256, 512)), None),
+        ("cadd", lambda: nn.CAdd((512,)), dense((256, 512)), None),
+        ("bilinear", lambda: nn.Bilinear(128, 96, 64),
+         dense((256, 128), (256, 96)), "list"),
+        ("cosine", lambda: nn.Cosine(256, 128), dense((512, 256)), None),
+        ("euclidean", lambda: nn.Euclidean(256, 128), dense((512, 256)),
+         None),
+        ("mm", lambda: nn.MM(False, True), dense((16, 128, 64),
+                                                 (16, 96, 64)), "list"),
+        ("mv", lambda: nn.MV(True), dense((16, 128, 64), (16, 128)),
+         "list"),
+        ("dot_product", lambda: nn.DotProduct(), dense((512, 256),
+                                                       (512, 256)), "list"),
+        ("cosine_distance", lambda: nn.CosineDistance(),
+         dense((512, 256), (512, 256)), "list"),
+        ("upsample_nearest", lambda: nn.SpatialUpSamplingNearest(2),
+         dense((16, 28, 28, 64)), None),
+        ("upsample_bilinear_align", lambda: nn.SpatialUpSamplingBilinear(2),
+         dense((16, 28, 28, 64)), None),
+        ("upsample_bilinear_half", lambda: nn.SpatialUpSamplingBilinear(
+            2, align_corners=False), dense((16, 28, 28, 64)), None),
+        ("volumetric_conv_c3d", lambda: nn.VolumetricConvolution(
+            3, 64, 3, 3, 3, 1, 1, 1, 1, 1, 1), dense(C3D_CLIP), None),
+        ("volumetric_conv_same", lambda: nn.VolumetricConvolution(
+            64, 64, 3, 3, 3, 2, 2, 2, pad_w=-1), dense(
+                (C3D_POOL[0], C3D_POOL[1] // 2, C3D_POOL[2] // 2,
+                 C3D_POOL[3] // 2, 64)), None),
+        ("volumetric_max_pool_c3d", lambda: nn.VolumetricMaxPooling(
+            1, 2, 2), dense(C3D_POOL), None),
+        ("volumetric_avg_pool", lambda: nn.VolumetricAveragePooling(
+            2, 2, 2, 2, 2, 2, 1, 1, 1), dense(C3D_POOL), None),
+        ("sparse_linear", lambda: nn.SparseLinear(SPARSE_COLS, 16),
+         _sparse_batch, "list"),
+        ("lookup_sparse_mean", lambda: nn.LookupTableSparse(
+            SPARSE_COLS, 64, "mean"), _sparse_batch, "list"),
+        ("lookup_sparse_sqrtn", lambda: nn.LookupTableSparse(
+            SPARSE_COLS, 16, "sqrtn"), _sparse_batch, "list"),
+        ("lookup_sparse_sum", lambda: nn.LookupTableSparse(
+            SPARSE_COLS, 16, "sum"), _sparse_batch, "list"),
+        ("sparse_join_table", lambda: nn.SparseJoinTable(
+            [SPARSE_COLS, SPARSE_COLS]),
+         lambda g: [_sparse_batch(g), _sparse_batch(g)], "list"),
+    ]
+
+
+def phase_nn_extra():
+    """Every layer of the activation, linear, table, upsampling,
+    volumetric and sparse families on the card against the same layer
+    on the CPU, fp32 with TF32 off, from one set of seeded variables and
+    inputs (cnn_layers' pass: forward <= CNN_FWD_TOL, gradients of every
+    parameter and float input <= CNN_GRAD_TOL of each one's largest
+    entry); RReLU in evaluation, and in training its slopes within
+    [lower, upper]; the SparseTensor products (mm, mv, dot, addmm,
+    addmv) card vs CPU."""
+    import torch
+
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.nn.sparse import SparseTensor, addmm, addmv
+
+    t0 = time.perf_counter()
+    results = {}
+    for i, (name, factory, inputs, table) in enumerate(_nn_extra_cases()):
+        module = factory()
+        variables = _seeded_variables(
+            module.init(torch.Generator().manual_seed(i), "cpu"), i)
+        xs = inputs(torch.Generator().manual_seed(200 + i))
+        if name == "sparse_join_table":
+            xs = [tuple(p) for p in xs]
+        ref_out, _, ref_grads, cts = _cnn_pass(module, variables, xs, table,
+                                               False, "cpu")
+        out, _, grads, _ = _cnn_pass(module, variables, xs, table, False,
+                                     "cuda", cts)
+        fwd = max(_rel_err(a, b) for a, b in zip(out, ref_out))
+        grad = max((_rel_err(a, b) for a, b in zip(grads, ref_grads)),
+                   default=0.0)
+        results[name] = {"fwd_rel_err": fwd, "grad_rel_err": grad}
+        check(all(a.shape == b.shape for a, b in zip(out, ref_out)),
+              f"nn_extra {name}: output shapes differ")
+        check(fwd <= CNN_FWD_TOL,
+              f"nn_extra {name}: forward {fwd:.3g} > {CNN_FWD_TOL}")
+        check(grad <= CNN_GRAD_TOL,
+              f"nn_extra {name}: gradients {grad:.3g} > {CNN_GRAD_TOL}")
+        del module, variables, xs, ref_out, ref_grads, out, grads, cts
+    # RReLU in training: slopes drawn on the card, within the bounds
+    rr = nn.RReLU(0.1, 0.4)
+    x = -torch.rand(64, 28, 28, 64, device="cuda") - 0.5
+    y, _ = rr.apply({"params": {}, "state": {}}, x, training=True,
+                    rng=torch.Generator(device="cuda").manual_seed(1))
+    slopes = y / x
+    check(float(slopes.min()) >= 0.1 - 1e-6
+          and float(slopes.max()) <= 0.4 + 1e-6,
+          f"nn_extra rrelu_train: slopes in [{float(slopes.min())}, "
+          f"{float(slopes.max())}]")
+    # the SparseTensor math: (4096 x 100000) with 64 nonzeros a row
+    g = torch.Generator().manual_seed(9)
+    rows = torch.arange(SPARSE_BATCH).repeat_interleave(SPARSE_CAP)
+    cols = torch.randint(0, 100_000, (rows.numel(),), generator=g)
+    st = SparseTensor(torch.stack([rows, cols], 1),
+                      torch.randn(rows.numel(), generator=g),
+                      (SPARSE_BATCH, 100_000))
+    dense = torch.randn(100_000, 32, generator=g)
+    vec = torch.randn(100_000, generator=g)
+    c = torch.randn(SPARSE_BATCH, 32, generator=g)
+    yv = torch.randn(SPARSE_BATCH, generator=g)
+    full = torch.randn(SPARSE_BATCH, 100_000, generator=g)
+
+    def ops(s, dv, vv, cc, yy, ff):
+        return [s.mm(dv), s.mv(vv), s.dot(ff)[None],
+                addmm(0.5, cc, 2.0, s, dv), addmv(0.5, yy, 2.0, s, vv)]
+
+    ref = ops(st, dense, vec, c, yv, full)
+    cu = ops(st.to("cuda"), *(t.cuda() for t in (dense, vec, c, yv, full)))
+    st_err = max(_rel_err(a.cpu(), b) for a, b in zip(cu, ref))
+    check(st_err <= CNN_FWD_TOL, f"nn_extra sparse_tensor: {st_err:.3g}")
+    results["sparse_tensor_ops"] = {"fwd_rel_err": st_err}
+    emit("nn_extra", cases=len(results), seconds=time.perf_counter() - t0,
+         max_fwd_rel_err=max(r["fwd_rel_err"] for r in results.values()),
+         max_grad_rel_err=max(r.get("grad_rel_err", 0.0)
+                              for r in results.values()),
+         rrelu_train_slopes=[float(slopes.min()), float(slopes.max())],
+         results=results)
+
+
+# ---------------------------------------------------------------- int8
+QUANT_LENET_HELD_OUT = 2048     # held-out images for the int8 top-1
+QUANT_TOP1_GAP = 0.01           # int8 top-1 within 1 point of fp32's
+QUANT_RESNET_BATCH, QUANT_RESNET_ITERS = 64, 5
+
+
+def _images_per_sec(fn, batch, iters):
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return iters * batch / (time.perf_counter() - t0)
+
+
+def _param_bytes(tree) -> int:
+    from bigdl_tpu_torch.models.convert import tree_leaves
+
+    return int(sum(t.numel() * t.element_size() for t in tree_leaves(tree)))
+
+
+def phase_quantized(lenet_model):
+    """INT8 inference (nn/quantized.py; products on cuBLASLt's int8 gemm
+    through torch._int_mm). (1) The LeNet-5 lenet_trainer trained,
+    quantized: held-out top-1 (QUANT_LENET_HELD_OUT images) of int8
+    within QUANT_TOP1_GAP of fp32's; (2) ResNet-50 at 224 x 224, batch
+    QUANT_RESNET_BATCH, seeded weights (cnn_layers' draws), eval mode:
+    int8 against fp32 — top-1 agreement and the logits' relative error
+    — images/s of both and weight bytes of both; (3) the int32
+    accumulators of LeNet-5's and ResNet-50's first convolution and
+    last Linear on the card equal the CPU plain version's (the fp64
+    product) bit for bit, at row counts below _int_mm's minimum and K
+    and N off its multiple of 8."""
+    import torch
+
+    from bigdl_tpu_torch.dataset import DataSet
+    from bigdl_tpu_torch.dataset.mnist import synthetic_mnist
+    from bigdl_tpu_torch.models import resnet
+    from bigdl_tpu_torch.models.convert import tree_map
+    from bigdl_tpu_torch.nn import quantize
+    from bigdl_tpu_torch.optim import Evaluator, Top1Accuracy
+
+    t0 = time.perf_counter()
+    held = DataSet.array(synthetic_mnist(QUANT_LENET_HELD_OUT, seed=19))
+    qlenet, qvars = quantize(lenet_model, lenet_model.variables)
+    qlenet.variables = qvars
+    top1 = {}
+    for name, m in (("fp32", lenet_model), ("int8", qlenet)):
+        top1[name], count = Evaluator(m).test(
+            held, [Top1Accuracy()], LENET_BATCH)["Top1Accuracy"].result()
+        check(count == QUANT_LENET_HELD_OUT, f"quantized lenet: {count}")
+    gap = abs(top1["int8"] - top1["fp32"])
+    check(gap <= QUANT_TOP1_GAP,
+          f"quantized lenet: top-1 int8 {top1['int8']} vs fp32 "
+          f"{top1['fp32']}")
+    lenet_bytes = {"fp32": _param_bytes(lenet_model.variables["params"]),
+                   "int8": _param_bytes(qvars["params"])}
+
+    model = resnet.build_imagenet(50, 1000)
+    variables = _seeded_variables(
+        model.init(torch.Generator().manual_seed(0), "cpu"), 0)
+    variables = tree_map(lambda t: t.cuda(), variables)
+    qmodel, qv = quantize(model, variables)
+    x = torch.randn(QUANT_RESNET_BATCH, 224, 224, 3, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(2))
+    with torch.no_grad():
+        ref, _ = model.apply(variables, x)
+        got, _ = qmodel.apply(qv, x)
+        check(bool(torch.isfinite(got).all()), "quantized resnet: not finite")
+        agree = float((got.argmax(-1) == ref.argmax(-1)).float().mean())
+        # seeded weights may send every image to a few classes, which
+        # makes agreement easy: the spread of fp32's predictions says
+        classes = int(ref.argmax(-1).unique().numel())
+        logit_err = float((got - ref).norm() / ref.norm())
+        ips = {"fp32": _images_per_sec(lambda: model.apply(variables, x),
+                                       QUANT_RESNET_BATCH,
+                                       QUANT_RESNET_ITERS),
+               "int8": _images_per_sec(lambda: qmodel.apply(qv, x),
+                                       QUANT_RESNET_BATCH,
+                                       QUANT_RESNET_ITERS)}
+    resnet_bytes = {"fp32": _param_bytes(variables["params"]),
+                    "int8": _param_bytes(qv["params"])}
+    check(resnet_bytes["int8"] < 0.35 * resnet_bytes["fp32"],
+          f"quantized resnet: weights {resnet_bytes}")
+
+    # the accumulators, card vs CPU, bit for bit
+    def first_and_last(seq, params):
+        """The first conv and the last Linear of a Sequential, each
+        with its params."""
+        kinds = [type(m).__name__ for m in seq.modules_]
+        i = kinds.index("QuantizedSpatialConvolution")
+        j = len(kinds) - 1 - kinds[::-1].index("QuantizedLinear")
+        return [(seq[k], params[seq._keys[k]]) for k in (i, j)]
+
+    g = torch.Generator().manual_seed(4)
+    accs = {}
+    for name, (mod, mvars), shape in zip(
+            ("lenet_conv1", "lenet_score", "resnet_conv1", "resnet_fc"),
+            first_and_last(qlenet, qvars["params"])
+            + first_and_last(qmodel, qv["params"]),
+            ((64, 28, 28, 1), (3, 100), (2, 224, 224, 3), (5, 2048))):
+        xin = torch.randn(shape, generator=g)
+        cpu_vars = {"params": tree_map(lambda t: t.cpu(), mvars)}
+        acc_cpu, s_cpu = mod.accumulate(cpu_vars, xin)
+        acc_gpu, s_gpu = mod.accumulate({"params": mvars}, xin.cuda())
+        equal = torch.equal(acc_gpu.cpu(), acc_cpu) and float(s_gpu) \
+            == float(s_cpu)
+        check(acc_gpu.dtype == torch.int32 and equal,
+              f"quantized {name}: card accumulator differs from the CPU's")
+        accs[name] = {"shape": list(acc_cpu.shape), "bitwise": equal,
+                      "max_abs": int(acc_cpu.abs().max())}
+    emit("quantized",
+         lenet={"held_out": QUANT_LENET_HELD_OUT, "top1": top1,
+                "gap": gap, "tolerance": QUANT_TOP1_GAP,
+                "weight_bytes": lenet_bytes},
+         resnet50={"batch": QUANT_RESNET_BATCH, "top1_agreement": agree,
+                   "fp32_distinct_classes": classes,
+                   "logits_rel_err": logit_err, "images_per_sec": ips,
+                   "weight_bytes": resnet_bytes},
+         accumulators=accs, seconds=time.perf_counter() - t0)
+
+
+# --------------------------------------------- NCF, TextClassifier, AE
+# NeuralCF at MovieLens-1M's sizes (6040 users, 3706 items, 1,000,209
+# ratings in 5 classes with ML-1M's class shares), one epoch at batch
+# 2048 on 90% of the ratings, validated on the other 10%; the
+# TextClassifier at news20's (20 classes, vocabulary 20000, 500 tokens,
+# GloVe-shaped 100-wide embedding, 128 filters), batch 128; the
+# autoencoder at MNIST's 784 -> 32 -> 784, batch 256
+NCF_USERS, NCF_ITEMS, NCF_RATINGS = 6040, 3706, 1_000_209
+NCF_CLASS_SHARES = (0.0563, 0.1075, 0.2611, 0.3489, 0.2262)
+NCF_BATCH, NCF_HELD_OUT = 2048, 0.1
+TEXTCLS_CLASSES, TEXTCLS_VOCAB, TEXTCLS_LEN = 20, 20000, 500
+TEXTCLS_EMBED, TEXTCLS_BATCH, AE_BATCH = 100, 128, 256
+
+
+def _ncf_ratings(seed):
+    """Seeded (user, item) pairs and 5-class ratings: a rank-8 score
+    plus noise, cut at ML-1M's class shares."""
+    import numpy as np
+
+    from bigdl_tpu_torch.dataset.sample import Sample
+
+    rng = np.random.RandomState(seed)
+    u = rng.randn(NCF_USERS, 8).astype(np.float32)
+    v = rng.randn(NCF_ITEMS, 8).astype(np.float32)
+    pairs = np.stack([rng.randint(0, NCF_USERS, NCF_RATINGS),
+                      rng.randint(0, NCF_ITEMS, NCF_RATINGS)],
+                     1).astype(np.int32)
+    score = (u[pairs[:, 0]] * v[pairs[:, 1]]).sum(1) \
+        + rng.randn(NCF_RATINGS).astype(np.float32)
+    cuts = np.quantile(score, np.cumsum(NCF_CLASS_SHARES)[:-1])
+    labels = np.searchsorted(cuts, score).astype(np.int32)
+    return [Sample(p, y) for p, y in zip(pairs, labels)]
+
+
+def _news20_samples(n, seed):
+    """Seeded news20-like token ids: class c draws half its TEXTCLS_LEN
+    tokens from its own band of 200 ids, the rest from the vocabulary."""
+    import numpy as np
+
+    from bigdl_tpu_torch.dataset.sample import Sample
+
+    rng = np.random.RandomState(seed)
+    out = []
+    for c in rng.randint(0, TEXTCLS_CLASSES, n):
+        ids = rng.randint(0, TEXTCLS_VOCAB, TEXTCLS_LEN)
+        own = rng.rand(TEXTCLS_LEN) < 0.5
+        ids[own] = rng.randint(c * 200, (c + 1) * 200, int(own.sum()))
+        out.append(Sample(ids.astype(np.int32), np.int32(c)))
+    return out
+
+
+def phase_ncf_textcls():
+    """Three models trained through Optimizer (Adam), each with step ms,
+    samples/s and the busy share of one profiled step: NeuralCF
+    (ClassNLLCriterion) for one epoch of MovieLens-1M-sized ratings,
+    validated (Top1Accuracy, Loss) on the held-out 10% at the epoch's
+    end; the TextClassifier from a seeded GloVe-shaped embedding
+    (set_embedding), 2 + 10 steps; the autoencoder (MSECriterion) on
+    synthetic MNIST, 2 + 10 steps. Losses finite and falling;
+    validation counts whole."""
+    import math as _m
+
+    import numpy as np
+    import torch
+
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.dataset import DataSet
+    from bigdl_tpu_torch.dataset.mnist import synthetic_mnist
+    from bigdl_tpu_torch.dataset.sample import Sample
+    from bigdl_tpu_torch.models import autoencoder, ncf, textclassifier
+    from bigdl_tpu_torch.optim import Adam, Loss, Top1Accuracy, Trigger
+
+    t0 = time.perf_counter()
+    report = {}
+    ratings = _ncf_ratings(31)
+    n_held = int(round(NCF_RATINGS * NCF_HELD_OUT))
+    train, held = ratings[n_held:], ratings[:n_held]
+    steps = _m.ceil(len(train) / NCF_BATCH)     # one epoch
+    model = ncf.build(NCF_USERS, NCF_ITEMS)
+    model.build(torch.Generator().manual_seed(0))
+    res = _timed_optimize(
+        model, train, nn.ClassNLLCriterion(), NCF_BATCH, TRAIN_WARMUP,
+        steps - TRAIN_WARMUP, Adam(1e-3),
+        validation=(Trigger.every_epoch(), DataSet.array(held),
+                    [Top1Accuracy(), Loss(nn.ClassNLLCriterion())]),
+        profile_trace="ncf_trace.json")
+    check(len(res["validations"]) == 1 and all(
+        r[1] == n_held for k, r in res["validations"][0].items()
+        if k != "neval"), f"ncf validations {res['validations']}")
+    report["ncf"] = res
+    del ratings, train, held
+
+    tmodel = textclassifier.build(TEXTCLS_CLASSES, TEXTCLS_VOCAB,
+                                  TEXTCLS_LEN, TEXTCLS_EMBED)
+    tmodel.build(torch.Generator().manual_seed(0))
+    glove = np.random.RandomState(32).randn(TEXTCLS_VOCAB, TEXTCLS_EMBED) \
+        .astype(np.float32) * 0.3
+    tmodel.variables = textclassifier.set_embedding(tmodel.variables, glove)
+    check(torch.equal(tmodel.variables["params"]["0_embedding"]["weight"]
+                      .cpu(), torch.from_numpy(glove)),
+          "textclassifier: set_embedding")
+    report["textclassifier"] = _timed_optimize(
+        tmodel, _news20_samples(TEXTCLS_BATCH * 8, 33),
+        nn.ClassNLLCriterion(), TEXTCLS_BATCH, TRAIN_WARMUP, TRAIN_STEPS,
+        Adam(1e-3), profile_trace="textcls_trace.json")
+
+    amodel = autoencoder.build()
+    amodel.build(torch.Generator().manual_seed(0))
+    images = [Sample(s.feature, np.clip(s.feature, 0.0, 1.0).reshape(-1))
+              for s in synthetic_mnist(AE_BATCH * 8, seed=34)]
+    report["autoencoder"] = _timed_optimize(
+        amodel, images, nn.MSECriterion(), AE_BATCH, TRAIN_WARMUP,
+        TRAIN_STEPS, Adam(1e-3), profile_trace="autoencoder_trace.json")
+    for name, r in report.items():
+        losses = r["losses"]
+        check(losses[-1] < losses[0], f"{name} loss did not fall: "
+              f"{losses[:3]}...{losses[-3:]}")
+        r["losses"] = losses if len(losses) <= 16 else \
+            losses[:4] + losses[-4:]
+        r.pop("counts")
+    report["ncf"].update(users=NCF_USERS, items=NCF_ITEMS,
+                         ratings=NCF_RATINGS, held_out=n_held)
+    emit("ncf_textcls", seconds=time.perf_counter() - t0, **report)
+
+
 def main() -> int:
     import torch
 
@@ -5466,7 +6197,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_resnet_model()
     torch.cuda.empty_cache()
-    phase_lenet_trainer()
+    lenet_model = phase_lenet_trainer()
     torch.cuda.empty_cache()
     phase_lenet_guard()
     torch.cuda.empty_cache()
@@ -5491,6 +6222,15 @@ def main() -> int:
     phase_lbfgs()
     phase_criterions()
     phase_eager_facade()
+    torch.cuda.empty_cache()
+    mha_fwd, mha_bwd = phase_mha()
+    torch.cuda.empty_cache()
+    phase_nn_extra()
+    torch.cuda.empty_cache()
+    phase_quantized(lenet_model)
+    del lenet_model
+    torch.cuda.empty_cache()
+    phase_ncf_textcls()
     fp32 = kern["fp32"]
     # the flash rows: the trainer's shape in its compute dtype (bf16)
     row = flash["train/bf16"]
@@ -5513,6 +6253,9 @@ def main() -> int:
         "design": FLASH_DESIGN["fwd"],
         "replaces": "bigdl_tpu/ops/flash_attention.py:118",
         "launches": fwd_launches,
+        # two main paths: the LM trainer and the MHA stack (mha phase),
+        # each counted from 0
+        "launches_by_path": {"trainer": fwd_launches, "mha": mha_fwd},
         "max_abs_err": row["out_max_abs_err"],
         "ms": row["fwd_ms"], "plain_ms": row["plain_fwd_ms"],
         "bound_ms": row["fwd"]["bound_ms"],
@@ -5524,6 +6267,7 @@ def main() -> int:
         "design": FLASH_DESIGN["bwd"],
         "replaces": "bigdl_tpu/ops/flash_attention.py:450 :341 :374",
         "launches": bwd_launches,
+        "launches_by_path": {"trainer": bwd_launches, "mha": mha_bwd},
         "max_abs_err": row["grad_max_abs_err"],
         "ms": row["bwd_ms"], "plain_ms": row["plain_bwd_ms"],
         "bound_ms": row["bwd"]["bound_ms"],

@@ -45,6 +45,10 @@ NEW_IN_SLICE_11 = ("utils/faults.py", "serialization/__init__.py",
                    "obs/training.py")
 NEW_IN_SLICE_13 = ("dataset/native.py", "dataset/records.py",
                    "dataset/tfrecord.py", "optim/lbfgs.py")
+NEW_IN_SLICE_14 = ("nn/attention.py", "nn/sparse.py", "nn/quantized.py",
+                   "nn/upsampling.py", "nn/volumetric.py",
+                   "models/autoencoder.py", "models/textclassifier.py",
+                   "models/ncf.py")
 
 
 def test_port_files_exist():
@@ -54,7 +58,8 @@ def test_port_files_exist():
                for p in PORT_FILES if "bigdl_tpu_torch" in p.parts}
     assert set(NEW_IN_SLICE_3) | set(NEW_IN_SLICE_4) \
         | set(NEW_IN_SLICE_9) | set(NEW_IN_SLICE_10) \
-        | set(NEW_IN_SLICE_11) | set(NEW_IN_SLICE_13) <= scanned
+        | set(NEW_IN_SLICE_11) | set(NEW_IN_SLICE_13) \
+        | set(NEW_IN_SLICE_14) <= scanned
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -94,7 +99,12 @@ def test_port_import_loads_no_jax():
             "bigdl_tpu_torch.obs.training, bigdl_tpu_torch.dataset.native, "
             "bigdl_tpu_torch.dataset.records, "
             "bigdl_tpu_torch.dataset.tfrecord, bigdl_tpu_torch.dataset.text, "
-            "bigdl_tpu_torch.optim.lbfgs; "
+            "bigdl_tpu_torch.optim.lbfgs, bigdl_tpu_torch.nn.attention, "
+            "bigdl_tpu_torch.nn.sparse, bigdl_tpu_torch.nn.quantized, "
+            "bigdl_tpu_torch.nn.upsampling, bigdl_tpu_torch.nn.volumetric, "
+            "bigdl_tpu_torch.models.autoencoder, "
+            "bigdl_tpu_torch.models.textclassifier, "
+            "bigdl_tpu_torch.models.ncf; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{BANNED!r}]; "
             "assert not bad, bad")
