@@ -13,7 +13,9 @@ Format (one shard): 32-byte header
 then n records of [label i32 LE][h*w*c u8 HWC image].
 
 Shards are written `{prefix}-{i:05d}-of-{k:05d}.bdls`; readers accept a
-directory, a glob, or an explicit list.
+directory, a glob, or an explicit list. `RecordFileDataSet.for_rank`
+(no JAX counterpart: one JAX program feeds every device of its mesh)
+gives each rank of a data-parallel run its own shards.
 """
 
 from __future__ import annotations
@@ -109,6 +111,8 @@ class RecordFileDataSet(AbstractDataSet):
         self.batch_size = batch_size
         self.mean = np.asarray(mean, np.float32)
         self.std = np.asarray(std, np.float32)
+        self._opts = dict(pad=pad, hflip=hflip, n_threads=n_threads,
+                          capacity=capacity, seed=seed)
         self._prefetcher = native.FilePrefetcher(
             self.paths, batch_size, mean, std, pad=pad, hflip=hflip,
             n_threads=n_threads, capacity=capacity, seed=seed)
@@ -144,6 +148,26 @@ class RecordFileDataSet(AbstractDataSet):
                         (img.astype(np.float32) - self.mean) / self.std,
                         lbl.astype(np.int32))
         return once()
+
+    def for_rank(self, rank: int, world: int) -> "RecordFileDataSet":
+        """Rank `rank`'s partition of a data-parallel run over `world`
+        processes (parallel/distri_optimizer.py): the shards
+        `paths[rank::world]` at batch_size / world, its own stream
+        seeded with seed + rank. The C++ plane orders batches by its
+        worker threads, so ranks reading one stream would not see one
+        order; each reads only its own records instead."""
+        if len(self.paths) < world:
+            raise ValueError(
+                f"{len(self.paths)} record shards cannot be split over "
+                f"{world} ranks: write at least {world} "
+                "(records.write_shards(num_shards=))")
+        if self.batch_size % world:
+            raise ValueError(f"batch_size {self.batch_size} does not "
+                             f"divide by {world} ranks")
+        opts = dict(self._opts, seed=self._opts["seed"] + rank)
+        return RecordFileDataSet(self.paths[rank::world],
+                                 self.batch_size // world, self.mean,
+                                 self.std, **opts)
 
     def close(self) -> None:
         self._prefetcher.close()

@@ -9,7 +9,11 @@ Runs on the card by default:
 
 The models are the JAX package's table: lenet, resnet50, resnet18,
 resnet20-cifar, inception-v1, inception-v2, vgg16 and alexnet.
-Data-parallel runs (`--mesh`) are not ported (ROADMAP.md queue A.8).
+`--mesh data=N` times the data-parallel step of
+parallel/data_parallel.py (ZeRO-1, the bf16 gradient wire) on this
+rank's rows of the batch; N > 1 runs under `torchrun --nproc_per_node
+N`, and a `model`/`seq`/`expert`/`pipe` axis waits for ROADMAP.md queue
+A.8, step 5.
 The result is logged as one JSON line through the
 `bigdl_tpu_torch.models` logger, on stdout.
 """
@@ -107,6 +111,60 @@ def train_step(model_name: str = "resnet50", batch_size: int = 32,
     return step
 
 
+def dp_train_step(model_name: str, batch_size: int, mesh_axes: str,
+                  optimizer: str = "sgd", class_num: int = 1000,
+                  precision: Optional[str] = None,
+                  device: DeviceLike = None
+                  ) -> Callable[[int], torch.Tensor]:
+    """`step(i)`: one data-parallel train step (make_dp_train_step over
+    `make_mesh(parse_axes(mesh_axes))`) on this rank's rows of the same
+    seeded batch as `train_step`, returning the mean loss over the
+    mesh."""
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.optim import SGD, Adam
+    from bigdl_tpu_torch.parallel import (FlatParamSpec, host_to_global,
+                                          make_dp_train_step, make_mesh,
+                                          parse_axes, place_global)
+    from bigdl_tpu_torch.utils.precision import DEFAULT_MIXED
+
+    axes = parse_axes(mesh_axes)
+    if "data" not in axes:
+        raise SystemExit(
+            f"--mesh {mesh_axes!r} has no 'data' axis; the perf harness "
+            "benchmarks data-parallel training (e.g. --mesh data=8)")
+    mesh = make_mesh(axes, device)
+    policy = DEFAULT_MIXED if precision in ("bf16", "mixed") else None
+    model, shape, classes = _build_model(model_name, class_num)
+    variables = place_global(mesh, model.init(
+        torch.Generator().manual_seed(0), mesh.device))
+    method = (SGD(learningrate=0.01, momentum=0.9, dampening=0.0)
+              if optimizer == "sgd" else Adam(1e-3))
+    spec = FlatParamSpec(variables["params"], mesh.shape["data"])
+    dp_step = make_dp_train_step(model, nn.ClassNLLCriterion(), method,
+                                 mesh, spec, precision=policy)
+    rng = np.random.RandomState(0)
+    bx = host_to_global(mesh, rng.rand(batch_size, *shape)
+                        .astype(np.float32))
+    by = host_to_global(mesh, rng.randint(0, classes, batch_size)
+                        .astype(np.int32))
+    w = spec.flatten(variables["params"])
+    slots = method.init_slots([torch.zeros(spec.shard_size,
+                                           device=mesh.device)])
+    state = variables["state"]
+    base = torch.Generator(device=mesh.device).manual_seed(7)
+
+    def step(i: int) -> torch.Tensor:
+        nonlocal w, slots, state
+        w, slots, state, loss = dp_step(w, slots, state, bx, by, 0.01, i,
+                                        base)
+        return loss
+
+    step.model = model
+    step.mesh = mesh  # run_perf closes a group the mesh opened
+    step.variables = lambda: {"params": spec.unflatten(w), "state": state}
+    return step
+
+
 def run_perf(model_name: str = "resnet50", batch_size: int = 32,
              iterations: int = 10, mesh_axes: Optional[str] = None,
              optimizer: str = "sgd", class_num: int = 1000,
@@ -123,13 +181,21 @@ def run_perf(model_name: str = "resnet50", batch_size: int = 32,
     the card). `step`, a `train_step` of the same arguments, is timed
     in place of a new one, so its caller keeps the trained weights
     (`step.variables()`)."""
-    if mesh_axes:
-        raise NotImplementedError(
-            f"--mesh {mesh_axes!r}: data-parallel training is not ported "
-            "to bigdl_tpu_torch yet (ROADMAP.md, queue A.8)")
+    own_mesh = None
+    if step is None and mesh_axes:
+        step = dp_train_step(model_name, batch_size, mesh_axes, optimizer,
+                             class_num, precision, device)
+        own_mesh = step.mesh
     run_one = step or train_step(model_name, batch_size, optimizer,
                                  class_num, precision, device)
+    try:
+        return _timed(run_one, model_name, batch_size, iterations)
+    finally:
+        if own_mesh is not None:
+            own_mesh.close()
 
+
+def _timed(run_one, model_name, batch_size, iterations) -> dict:
     t0 = time.perf_counter()
     float(run_one(0))  # warm-up; the host read is the fence
     compile_s = time.perf_counter() - t0
@@ -157,7 +223,8 @@ def main(argv=None):
     ap.add_argument("-b", "--batch-size", type=int, default=32)
     ap.add_argument("-i", "--iterations", type=int, default=10)
     ap.add_argument("--mesh", default=None,
-                    help="data-parallel axes (not ported yet)")
+                    help="data-parallel axes, e.g. data=1 (data=N>1 under "
+                         "torchrun --nproc_per_node N)")
     ap.add_argument("--optimizer", default="sgd", choices=["sgd", "adam"])
     ap.add_argument("--class-num", type=int, default=1000)
     ap.add_argument("--precision", default=None,

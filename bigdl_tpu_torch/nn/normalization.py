@@ -16,8 +16,8 @@ in the running average `(1 − m)·r + m·batch`, scale and shift folded in
 fp32 and applied in the input's dtype. (An fp64 input, which the JAX
 package never sees, keeps fp64 statistics.)
 
-Statistics are per device (the reference's per-replica behaviour);
-`sync=True` averages them over a mesh, which is not ported yet.
+Statistics are per rank (the reference's per-replica behaviour);
+`sync=True` averages them over the data axis of a process mesh.
 """
 
 from __future__ import annotations
@@ -25,14 +25,32 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from bigdl_tpu_torch.nn.module import Module
 
 
+def _data_axis_mean(mean: torch.Tensor, mean2: torch.Tensor):
+    """E[x] and E[x^2] averaged over the ranks of the data axis (the
+    default process group; a single process is an axis of one) — the
+    exact global variance, as the JAX package's pmean of both gives. The
+    all-reduce is differentiable: its backward sums the gradients of
+    every rank's loss, as psum's transpose does."""
+    if not dist.is_initialized() or dist.get_world_size() == 1:
+        return mean, mean2
+    from torch.distributed.nn.functional import all_reduce
+
+    both = all_reduce(torch.stack([mean, mean2])) / dist.get_world_size()
+    return both[0], both[1]
+
+
 class BatchNormalization(Module):
     """BN over the last axis of (N, C) input (reference:
-    nn/BatchNormalization.scala)."""
+    nn/BatchNormalization.scala). `sync=True` takes the batch statistics
+    over the whole global batch of a data-parallel mesh
+    (parallel/mesh.py): the one-pass fp32 E[x] and E[x^2] averaged
+    across the ranks."""
 
     _reduce_axes = (0,)
 
@@ -41,11 +59,8 @@ class BatchNormalization(Module):
                  sync: bool = False, axis_name: str = "data",
                  name: Optional[str] = None):
         super().__init__(name=name)
-        if sync:
-            raise ValueError(
-                "BatchNormalization(sync=True) averages statistics over a "
-                "device mesh, which is not ported to bigdl_tpu_torch yet "
-                "(ROADMAP.md, queue A.8)")
+        self.sync = sync
+        self.axis_name = axis_name
         self.n_output = n_output
         self.eps = eps
         self.momentum = momentum
@@ -68,6 +83,8 @@ class BatchNormalization(Module):
             xf = x.to(acc)
             mean = torch.mean(xf, dim=self._reduce_axes)
             mean2 = torch.mean(torch.square(xf), dim=self._reduce_axes)
+            if self.sync:
+                mean, mean2 = _data_axis_mean(mean, mean2)
             var = torch.clamp_min(mean2 - torch.square(mean), 0.0)
             m = self.momentum
             new_state = {

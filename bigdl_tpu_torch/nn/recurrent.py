@@ -253,18 +253,67 @@ class GRU(Cell):
 
 
 class ConvLSTMPeephole(Cell):
-    """Not ported yet: a cell whose gates are convolutions (ROADMAP.md
-    queue A.4)."""
+    """Convolutional LSTM cell over image sequences (reference:
+    nn/ConvLSTMPeephole.scala): the gates are one fused convolution over
+    [x_t, h] giving 4·C_out channels (i, f, g, o), with optional
+    per-channel peepholes `w_ci`, `w_cf` on c_prev and `w_co` on the new
+    c. Frames are NHWC and the weight HWIO; the convolution runs on
+    cuDNN over the NHWC view (nn/conv.py) with stride 1 and the JAX
+    package's SAME padding, (k - 1) // 2 before and k // 2 after, so an
+    even kernel pads asymmetrically and the state keeps the frame's
+    spatial size. Use inside `Recurrent` over (N, T, H, W, C) input."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "ConvLSTMPeephole is not ported to bigdl_tpu_torch yet "
-            "(ROADMAP.md queue A.4)")
+    def __init__(self, input_size: int, output_size: int,
+                 kernel: int = 3, with_peephole: bool = True,
+                 name: Optional[str] = None):
+        super().__init__(name=name)
+        self.input_size = input_size
+        self.output_size = output_size
+        self.kernel = kernel
+        self.with_peephole = with_peephole
+        self.hidden_size = output_size
+
+    def init_params(self, generator=None):
+        k, ci, co = self.kernel, self.input_size, self.output_size
+        p = {"weight": Xavier()(generator, (k, k, ci + co, 4 * co),
+                                fan_in=(ci + co) * k * k,
+                                fan_out=4 * co * k * k),
+             "bias": torch.zeros(4 * co)}
+        if self.with_peephole:
+            for key in ("w_ci", "w_cf", "w_co"):
+                p[key] = torch.zeros(co)
+        return p
+
+    def init_carry_like(self, x_t):
+        b, h, w, _ = x_t.shape
+        z = torch.zeros(b, h, w, self.output_size, dtype=x_t.dtype,
+                        device=x_t.device)
+        return (z, z)  # (h, c)
+
+    def step(self, params, carry, x_t, training=False, rng=None):
+        from bigdl_tpu_torch.nn.conv import _conv2d_nhwc, _same_pads
+
+        h_prev, c_prev = carry
+        k = self.kernel
+        pad = _same_pads(x_t.shape[1], k, 1)
+        z = _conv2d_nhwc(torch.cat([x_t, h_prev], dim=-1), params["weight"],
+                         (1, 1), (pad, _same_pads(x_t.shape[2], k, 1))) \
+            + params["bias"]
+        i, f, g, o = torch.chunk(z, 4, dim=-1)
+        if self.with_peephole:
+            i = i + params["w_ci"] * c_prev
+            f = f + params["w_cf"] * c_prev
+        c = torch.sigmoid(f) * c_prev + torch.sigmoid(i) * torch.tanh(g)
+        if self.with_peephole:
+            o = o + params["w_co"] * c
+        h = torch.sigmoid(o) * torch.tanh(c)
+        return (h, c), h
 
 
 class Recurrent(Module):
     """Drive a cell across time (reference: nn/Recurrent.scala): input
-    (N, T, D) -> output (N, T, H); `return_state=True` returns
+    (N, T, D) -> output (N, T, H), or (N, T, H, W, C) frames for a
+    convolutional cell; `return_state=True` returns
     (output, final carry). `.add(cell)` mirrors the reference's
     `Recurrent().add(LSTM(...))`. `fused` and `unroll` as in the module
     docstring."""
@@ -303,7 +352,12 @@ class Recurrent(Module):
                 impl = self.fused if isinstance(self.fused, str) else None
                 return (self.cell.fused_scan(cell_params, feed, impl=impl),
                         variables["state"])
-        carry = self.cell.init_carry(x.shape[0], x)
+        if hasattr(self.cell, "init_carry_like"):
+            # a cell whose state is shaped by the frame (ConvLSTMPeephole:
+            # (N, H, W, C_out) from (N, T, H, W, C) input)
+            carry = self.cell.init_carry_like(x[:, 0])
+        else:
+            carry = self.cell.init_carry(x.shape[0], x)
         ys = []
         for t in range(feed.shape[1]):
             carry, y = step_fn(cell_params, carry, feed[:, t], training,

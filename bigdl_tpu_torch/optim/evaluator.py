@@ -10,15 +10,17 @@ and its padded rows are masked out of the metrics and cut from the
 predictions (`real_size`).
 
 Evaluating over a device mesh (`Evaluator(model, mesh=...)`) is not
-ported (ROADMAP.md queue A.8). The JAX Predictor pads ragged batches up
-to an already-compiled shape (`bucket_sizes`) and counts compilations
-(`n_traces`): both serve XLA's retracing, which eager PyTorch does not
-have, so they are left out and a batch runs at its own size.
+ported (ROADMAP.md queue A.8, step 5). `Predictor(bucket_sizes=...)`
+pads a batch up to the smallest bucket that covers it, repeating its
+last row as the JAX Predictor does, and cuts the padded rows from the
+output; without buckets a batch runs at its own size (eager PyTorch
+does not retrace, so the JAX Predictor's learned buckets and its
+compile counter `n_traces` have nothing to save here).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
 
 import torch
 
@@ -28,6 +30,7 @@ from bigdl_tpu_torch.nn.module import Module
 from bigdl_tpu_torch.optim.optimizer import _batch_iterator, _to_device
 from bigdl_tpu_torch.optim.validation import (ValidationMethod,
                                               ValidationResult, reduce_stats)
+from bigdl_tpu_torch.serving.bucketing import bucket_for, pad_rows
 
 
 def _device_of(variables) -> torch.device:
@@ -37,11 +40,13 @@ def _device_of(variables) -> torch.device:
 
 
 def _forward_batches(model: Module, dataset: AbstractDataSet,
-                     batch_size: int, variables=None, policy=None):
+                     batch_size: int, variables=None, policy=None,
+                     rows_for=None):
     """(output, minibatch, device) for each batch of `dataset` in order,
     the forward under torch.no_grad() with `variables` (the model's own
     by default); with a precision `policy` the params and inputs are cast
-    to its compute dtype and the output back."""
+    to its compute dtype and the output back. `rows_for(n)` gives the
+    row count a batch of n rows is padded up to (edge rows)."""
     variables = model.variables if variables is None else variables
     device = _device_of(variables)
     with torch.no_grad():
@@ -50,7 +55,10 @@ def _forward_batches(model: Module, dataset: AbstractDataSet,
                          "params": policy.cast_to_compute(
                              variables["params"])}
         for mb in _batch_iterator(dataset, False, batch_size):
-            x = _to_device(mb.input, device)
+            x = mb.input
+            if rows_for is not None:
+                x = pad_rows(x, rows_for(mb.size))
+            x = _to_device(x, device)
             out, _ = model.apply(
                 variables, x if policy is None else policy.cast_to_compute(x),
                 training=False)
@@ -80,7 +88,8 @@ class Evaluator:
         if mesh is not None:
             raise NotImplementedError(
                 "Evaluator(mesh=...): evaluation over a device mesh is not "
-                "ported to bigdl_tpu_torch yet (ROADMAP.md, queue A.8)")
+                "ported to bigdl_tpu_torch yet (ROADMAP.md, queue A.8, "
+                "step 5)")
         self.model = model
 
     def test(self, dataset: AbstractDataSet,
@@ -92,16 +101,30 @@ class Evaluator:
 class Predictor:
     """Batch inference (reference: optim/Predictor.scala). `predict`
     returns the per-sample outputs stacked along the batch axis, on the
-    model's device; `predict_class` their argmax ids."""
+    model's device; `predict_class` their argmax ids. With
+    `bucket_sizes` a batch is padded to its bucket; a pre-batched
+    MiniBatch larger than every bucket runs at its own size."""
 
-    def __init__(self, model: Module, batch_size: int = 32):
+    def __init__(self, model: Module, batch_size: int = 32,
+                 bucket_sizes: Optional[Sequence[int]] = None):
         self.model = model
         self.batch_size = batch_size
+        self.bucket_sizes = tuple(sorted(bucket_sizes)) \
+            if bucket_sizes else None
+        if self.bucket_sizes and max(self.bucket_sizes) < batch_size:
+            raise ValueError("largest bucket must cover batch_size")
+
+    def _rows_for(self, n: int) -> int:
+        if n > max(self.bucket_sizes):
+            return n
+        return bucket_for(n, self.bucket_sizes)
 
     def predict(self, dataset: AbstractDataSet) -> torch.Tensor:
+        rows_for = self._rows_for if self.bucket_sizes else None
         outs = [out[:getattr(mb, "real_size", mb.size)]
                 for out, mb, _ in _forward_batches(self.model, dataset,
-                                                   self.batch_size)]
+                                                   self.batch_size,
+                                                   rows_for=rows_for)]
         return torch.cat(outs, dim=0)
 
     def predict_class(self, dataset: AbstractDataSet) -> torch.Tensor:

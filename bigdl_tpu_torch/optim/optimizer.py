@@ -50,10 +50,14 @@ Ported:
   `data`, and the checkpoint's `ckpt_torn`/`ckpt_corrupt`);
 - `set_train_summary`/`set_validation_summary` (visualization/): Loss,
   Throughput and LearningRate through obs/training.StepTelemetry, and
-  parameter histograms under the summary's "Parameters" trigger.
+  parameter histograms under the summary's "Parameters" trigger;
+- `set_mesh(mesh, axis, zero)`: `optimize()` dispatches to
+  parallel/distri_optimizer.DistriOptimizer (data parallelism with
+  ZeRO-1/2); LocalOptimizer resumes its `zero1_flat`/`zero2_flat`
+  checkpoints, unflattening the flat slots.
 
-`set_mesh` and `set_checkpoint(sharded=True)` raise
-NotImplementedError (ROADMAP.md, queue A.8).
+`set_checkpoint(sharded=True)` raises NotImplementedError (ROADMAP.md,
+queue A.8, step 4).
 """
 
 from __future__ import annotations
@@ -86,12 +90,6 @@ from bigdl_tpu_torch.utils.anomaly import (AnomalyError, AnomalyGuard,
 from bigdl_tpu_torch.utils.precision import DEFAULT_MIXED, Policy
 
 logger = logging.getLogger("bigdl_tpu_torch.optim")
-
-
-def _not_ported(what: str, queue: str = "A.8"):
-    raise NotImplementedError(
-        f"Optimizer: {what} is not ported to bigdl_tpu_torch yet "
-        f"(ROADMAP.md, queue {queue})")
 
 
 def _batch_iterator(dataset: AbstractDataSet, train: bool,
@@ -169,6 +167,10 @@ class Optimizer:
         self.log_every = 1
         self.grad_accum = 1
         self.anomaly_guard: Optional[AnomalyGuard] = None
+        self.mesh = None
+        self.mesh_axis = "data"
+        self.mesh_zero = 1
+        self.train_state: Optional[Dict[str, Any]] = None  # after optimize()
         self._resume = False
 
     # ------------------------------------------------------- builder surface
@@ -274,11 +276,27 @@ class Optimizer:
         self.anomaly_guard = guard
         return self
 
-    def set_mesh(self, *args, **kwargs) -> "Optimizer":
-        _not_ported("distributed training (set_mesh, DistriOptimizer)")
+    def set_mesh(self, mesh, axis: str = "data",
+                 zero: int = 1) -> "Optimizer":
+        """Train data-parallel over a process mesh
+        (parallel/mesh.make_mesh): `optimize()` then runs
+        DistriOptimizer. `zero=2` also shards the fp32 master weights
+        across the axis (bit for bit the ZeRO-1 result in fp32)."""
+        if zero not in (1, 2):
+            raise ValueError(f"zero must be 1 or 2, got {zero!r}")
+        self.mesh = mesh
+        self.mesh_axis = axis
+        self.mesh_zero = zero
+        return self
 
     def optimize(self) -> Module:
         try:
+            if self.mesh is not None:
+                from bigdl_tpu_torch.parallel.distri_optimizer import \
+                    DistriOptimizer
+
+                return DistriOptimizer(self, self.mesh, self.mesh_axis,
+                                       zero=self.mesh_zero).run()
             return LocalOptimizer(self).run()
         except BaseException:
             # a dying run drains the background checkpoint writer, so a
@@ -311,6 +329,12 @@ def _matched(what: str, template, loaded) -> List[torch.Tensor]:
 class LocalOptimizer:
     """Single-device eager training loop (reference:
     optim/LocalOptimizer.scala)."""
+
+    # a step exception reloads the newest checkpoint this many times in
+    # a row before it propagates (DistriOptimizer sets it)
+    max_retries = 0
+    # whether this process writes the validation summary
+    writer = True
 
     def __init__(self, opt: Optimizer):
         self.o = opt
@@ -454,16 +478,13 @@ class LocalOptimizer:
 
     # ---------------------------------------------------------------- run
     def run(self) -> Module:
+        """The training loop of every optimizer. This class and
+        DistriOptimizer differ only in the pieces below it: `_setup`,
+        `_train_batches`, `_step_rng`, `_train_step`, `_rows`,
+        `_load_checkpoint`, `_save`, `_validate`, `_param_tree`,
+        `_flush`, `_final_params` and `_close`."""
         o = self.o
-        variables = dict(o.model.variables)  # existing build or default init
-        params = tree_map(lambda t: t.detach().clone().requires_grad_(
-            t.is_floating_point()), variables["params"])
-        leaves = [t for t in tree_leaves(params) if t.requires_grad]
-        if not leaves:
-            raise ValueError(f"{o.model!r} has no trainable parameters")
-        device = leaves[0].device
-        slots = o.optim_method.init_slots(leaves)
-        step = self._make_step(leaves, slots)
+        self._setup()
         guard = o.anomaly_guard
         plan = faults.get_plan()
         # "nupdates" counts optimizer updates actually applied: the
@@ -473,209 +494,263 @@ class LocalOptimizer:
         train_state: Dict[str, Any] = {"epoch": 1, "neval": 0,
                                        "nupdates": 0, "records": 0,
                                        "loss": None, "score": None}
-        batches = None
 
-        def restore_from_checkpoint(rebuild_stream=True):
-            """Reload params, slots, module state and train state from
-            the newest valid checkpoint, in place; returns the saved
-            mid-cycle accumulator (or None)."""
-            nonlocal batches
+        def restore():
+            """Reload the newest valid checkpoint (the reference's
+            reload-last-checkpoint recovery)."""
             o.checkpoint.wait()  # surface any pending async-save error
-            loaded, slot_trees, saved, optim_meta = o.checkpoint.load(
-                with_optim_meta=True)
-            if (optim_meta or {}).get("layout") in ("zero1_flat",
-                                                    "zero2_flat"):
-                _not_ported("resuming a DistriOptimizer checkpoint "
-                            f"({optim_meta['layout']} slots)")
-            if set(slot_trees) != set(slots):
-                raise ValueError(
-                    f"checkpoint slots {sorted(slot_trees)} do not match "
-                    f"{type(o.optim_method).__name__}'s {sorted(slots)}")
-            with torch.no_grad():
-                for dst, src in zip(tree_leaves(params), _matched(
-                        "params", params, loaded["params"])):
-                    dst.copy_(src)
-                for key, flat in slots.items():
-                    for dst, src in zip(flat, self._as_flat(
-                            f"slot {key!r}", params, slot_trees[key])):
-                        dst.copy_(src)
-            variables["state"] = tree_map(lambda t: t.to(device),
-                                          loaded.get("state", {}))
-            saved_accum = o.checkpoint.load_accum()
+            saved = self._load_checkpoint()
             train_state.update(saved)
             if "nupdates" not in saved:  # pre-counter checkpoint
                 train_state["nupdates"] = \
                     train_state["neval"] // o.grad_accum
-            if rebuild_stream:
-                batches = _batch_iterator(o.dataset, True, o.batch_size,
-                                          skip=train_state["neval"])
-            return saved_accum
 
-        # host mirror of the step's micro-batch count: drives the
-        # nupdates increment at each completed accumulation cycle
-        micro_seen = [0]
+        try:
+            if (o._resume and o.checkpoint is not None
+                    and o.checkpoint.latest()):
+                restore()
+                logger.info("resumed from %s at %s",
+                            o.checkpoint._last_loaded, train_state)
+            dataset_size = o.dataset.size()
+            batches = self._train_batches(train_state["neval"])
+            pending = None  # step N's telemetry, emitted after step N+1
+            epoch_start = iter_start = time.perf_counter()
+            retries = 0
 
-        def install_accum(saved_accum):
-            micro_seen[0] = 0
-            if saved_accum is None:
-                return
+            while not o.end_when(train_state):
+                plan.maybe_preempt(train_state["neval"])
+                try:
+                    plan.maybe_raise("step", train_state["neval"])
+                    with Timer(self.metrics, "data_fetch_s"):
+                        mb = next(batches)
+                    if plan.fires("nan", train_state["neval"]):
+                        mb = faults.poison_minibatch(mb)
+                    # schedules and the step index advance per applied
+                    # update
+                    eff_step = train_state["nupdates"]
+                    lr = o.optim_method.current_rate(
+                        train_state if o.grad_accum == 1 and guard is None
+                        else {**train_state, "neval": eff_step})
+                    rng = self._step_rng(train_state["neval"])
+                    with Timer(self.metrics, "dispatch_s"):
+                        loss, ok, gnorm, applied = self._train_step(
+                            mb, lr, eff_step, rng,
+                            None if guard is None else guard.threshold())
+                except Exception:
+                    if (retries < self.max_retries
+                            and o.checkpoint is not None
+                            and o.checkpoint.latest()):
+                        retries += 1
+                        logger.exception(
+                            "step failed; recovering from checkpoint "
+                            "(retry %d/%d)", retries, self.max_retries)
+                        restore()
+                        batches = self._train_batches(train_state["neval"])
+                        continue
+                    raise
+                if guard is not None:
+                    action = guard.observe(ok, gnorm, train_state["neval"])
+                    if action == "rollback":
+                        self._require_rollback_checkpoint()
+                        restore()
+                        batches = self._train_batches(train_state["neval"])
+                        continue
+                # a consecutive-failure budget, not a lifetime cap
+                retries = 0
+                # `loss` stays on the device: it is read one step late
+                real = self._rows(mb)
+                train_state["neval"] += 1
+                train_state["nupdates"] += int(applied)
+                train_state["records"] += real
+                train_state["loss"] = loss
+                now = time.perf_counter()
+                iter_wall, iter_start = now - iter_start, now
+                self.metrics.add("iter_s", iter_wall)
+                if pending is not None:
+                    self._emit(pending)
+                # histograms are read here, before the next step updates
+                # the params in place (a host sync, on the trigger's
+                # steps only)
+                hists = None
+                if o.train_summary is not None:
+                    pt = o.train_summary.get_summary_trigger("Parameters")
+                    if pt is not None and pt(train_state):
+                        hists = [(name, t.detach().to("cpu", copy=True)
+                                  .numpy()) for name, t in
+                                 o.model.parameters(
+                                     {"params": self._param_tree()})]
+                pending = (dict(train_state), loss, lr,
+                           real / max(iter_wall, 1e-9), hists)
+
+                # epoch rollover (the reference counts records vs
+                # dataset size)
+                if train_state["records"] >= dataset_size:
+                    train_state["epoch"] += 1
+                    train_state["records"] = 0
+                    logger.info("epoch %d done in %.1fs",
+                                train_state["epoch"] - 1,
+                                time.perf_counter() - epoch_start)
+                    epoch_start = time.perf_counter()
+
+                if (o.validation_trigger is not None
+                        and o.validation_trigger(train_state)):
+                    res = self._validate()
+                    for name, r in res.items():
+                        v, n = r.result()
+                        logger.info("validation %s = %.6f (%d)", name, v, n)
+                        if o.validation_summary is not None and self.writer:
+                            o.validation_summary.add_scalar(
+                                name, v, train_state["neval"])
+                    train_state["validation"] = res
+                    first = next(iter(res.values()), None)
+                    if first is not None:
+                        train_state["score"] = first.result()[0]
+                        sched = o.optim_method.schedule
+                        if hasattr(sched, "on_metric"):
+                            sched.on_metric(train_state["score"])
+
+                if (o.checkpoint is not None
+                        and o.checkpoint_trigger is not None
+                        and o.checkpoint_trigger(train_state)):
+                    with Timer(self.metrics, "checkpoint_s"):
+                        path = self._save(train_state)
+                    logger.info("checkpoint -> %s", path)
+
+            # the end trigger may fire mid-cycle: flush the partial
+            # accumulator so those micro-batches' gradients count
+            if o.grad_accum > 1:
+                eff_step = train_state["nupdates"]
+                self._flush(o.optim_method.current_rate(
+                    {**train_state, "neval": eff_step}), eff_step)
+            if pending is not None:
+                self._emit(pending)
+            if o.checkpoint is not None:
+                # a failed async save must fail the run, not vanish with
+                # the writer thread
+                o.checkpoint.wait()
+            for summary in (o.train_summary, o.validation_summary):
+                if summary is not None:
+                    summary.writer.flush()
+            o.model.variables = {"params": self._final_params(),
+                                 "state": self.mod_state}
+        finally:
+            self._close()
+        o.train_state = train_state
+        return o.model
+
+    # ------------------------------------------------ this loop's pieces
+    def _setup(self) -> None:
+        """The weights (a param tree whose trainable leaves the step
+        updates in place), the slots, the module state and the step."""
+        o = self.o
+        variables = dict(o.model.variables)  # existing build or default init
+        self.params = tree_map(lambda t: t.detach().clone().requires_grad_(
+            t.is_floating_point()), variables["params"])
+        leaves = [t for t in tree_leaves(self.params) if t.requires_grad]
+        if not leaves:
+            raise ValueError(f"{o.model!r} has no trainable parameters")
+        self.device = leaves[0].device
+        self.slots = o.optim_method.init_slots(leaves)
+        self.step = self._make_step(leaves, self.slots)
+        self.mod_state = variables["state"]
+
+    def _train_batches(self, skip: int):
+        """The training batch stream, `skip` batches in."""
+        return _batch_iterator(self.o.dataset, True, self.o.batch_size,
+                               skip=skip)
+
+    def _step_rng(self, neval: int) -> torch.Generator:
+        """The step's dropout stream, the counterpart of
+        fold_in(rng, neval)."""
+        return torch.Generator(device=self.device).manual_seed(
+            self.o.seed * 1_000_003 + neval)
+
+    def _train_step(self, mb, lr, stepno, rng, max_gnorm):
+        """One batch -> (loss, ok, gnorm, applied): `applied` when an
+        optimizer update was applied (a good step, or the one that
+        completes an accumulation cycle)."""
+        loss, self.mod_state, ok, gnorm = self.step(
+            self.params, self.mod_state, _to_device(mb.input, self.device),
+            _to_device(mb.target, self.device), lr, stepno, rng, max_gnorm)
+        if self.o.grad_accum == 1:
+            return loss, ok, gnorm, ok
+        # a completed cycle leaves the step's micro-batch count at 0
+        return loss, ok, gnorm, ok and self.step.micro_state()[1] == 0
+
+    def _rows(self, mb) -> int:
+        """The records a batch trains on."""
+        return getattr(mb, "real_size", mb.size)
+
+    def _load_checkpoint(self) -> Dict[str, Any]:
+        """Install the newest valid checkpoint's params, slots, module
+        state and mid-cycle accumulator in place; returns its train
+        state."""
+        o, params, device = self.o, self.params, self.device
+        loaded, slot_trees, saved, optim_meta = o.checkpoint.load(
+            with_optim_meta=True)
+        saved_accum = o.checkpoint.load_accum()
+        if (optim_meta or {}).get("layout") in ("zero1_flat", "zero2_flat"):
+            # a DistriOptimizer checkpoint: each slot (and a mid-cycle
+            # accumulator) is one flat (padded,) vector over the whole
+            # parameter set
+            from bigdl_tpu_torch.parallel.param_layout import FlatParamSpec
+
+            spec = FlatParamSpec(loaded["params"], optim_meta["num_shards"])
+            slot_trees = {k: spec.unflatten(torch.as_tensor(v))
+                          for k, v in slot_trees.items()}
+            if saved_accum is not None:
+                saved_accum = {"g_acc": spec.unflatten(torch.as_tensor(
+                    saved_accum["g_acc"])),
+                    "micro_n": saved_accum["micro_n"]}
+        if set(slot_trees) != set(self.slots):
+            raise ValueError(
+                f"checkpoint slots {sorted(slot_trees)} do not match "
+                f"{type(o.optim_method).__name__}'s {sorted(self.slots)}")
+        with torch.no_grad():
+            for dst, src in zip(tree_leaves(params), _matched(
+                    "params", params, loaded["params"])):
+                dst.copy_(src)
+            for key, flat in self.slots.items():
+                for dst, src in zip(flat, self._as_flat(
+                        f"slot {key!r}", params, slot_trees[key])):
+                    dst.copy_(src)
+        self.mod_state = tree_map(lambda t: t.to(device),
+                                  loaded.get("state", {}))
+        if hasattr(self.step, "clear_micro"):
+            self.step.clear_micro()
+        if saved_accum is not None:
             n = int(saved_accum["micro_n"])
-            if not hasattr(step, "restore_micro"):
+            if not hasattr(self.step, "restore_micro"):
                 logger.warning(
                     "checkpoint holds a mid-cycle accumulator (%d "
                     "micro-batches) but this run has grad_accum=1; the "
                     "partial gradients are discarded", n)
-                return
-            step.restore_micro(
-                [a.to(device) for a in self._as_flat(
-                    "accumulator", params, saved_accum["g_acc"])], n)
-            # mirror what restore_micro installed: it refuses (leaves 0)
-            # a cycle that does not fit this run's grad_accum
-            micro_seen[0] = step.micro_state()[1]
+            else:
+                self.step.restore_micro(
+                    [a.to(device) for a in self._as_flat(
+                        "accumulator", params, saved_accum["g_acc"])], n)
+        return saved
 
-        if o._resume and o.checkpoint is not None and o.checkpoint.latest():
-            install_accum(restore_from_checkpoint(rebuild_stream=False))
-            logger.info("resumed from %s at %s", o.checkpoint._last_loaded,
-                        train_state)
-
-        dataset_size = o.dataset.size()
-        batches = _batch_iterator(o.dataset, True, o.batch_size,
-                                  skip=train_state["neval"])
-        pending = None  # step N's telemetry, emitted after step N+1
-        epoch_start = iter_start = time.perf_counter()
-
-        while not o.end_when(train_state):
-            plan.maybe_preempt(train_state["neval"])
-            plan.maybe_raise("step", train_state["neval"])
-            with Timer(self.metrics, "data_fetch_s"):
-                mb = next(batches)
-            if plan.fires("nan", train_state["neval"]):
-                mb = faults.poison_minibatch(mb)
-            # schedules and the step index advance per applied update
-            eff_step = train_state["nupdates"]
-            lr_state = train_state if o.grad_accum == 1 and guard is None \
-                else {**train_state, "neval": eff_step}
-            lr = o.optim_method.current_rate(lr_state)
-            # per-step dropout stream, the counterpart of fold_in(rng, neval)
-            rng = torch.Generator(device=device).manual_seed(
-                o.seed * 1_000_003 + train_state["neval"])
-            with Timer(self.metrics, "dispatch_s"):
-                loss, variables["state"], ok, gnorm = step(
-                    params, variables["state"],
-                    _to_device(mb.input, device),
-                    _to_device(mb.target, device), lr, eff_step, rng,
-                    None if guard is None else guard.threshold())
-            if guard is not None:
-                action = guard.observe(ok, gnorm, train_state["neval"])
-                if action == "rollback":
-                    self._require_rollback_checkpoint()
-                    saved_accum = restore_from_checkpoint()
-                    if hasattr(step, "clear_micro"):
-                        step.clear_micro()
-                    install_accum(saved_accum)
-                    continue
-            # `loss` stays on the device: it is read one step late
-            real = getattr(mb, "real_size", mb.size)
-            train_state["neval"] += 1
-            if o.grad_accum == 1:
-                train_state["nupdates"] += int(ok)
-            elif ok:
-                micro_seen[0] += 1
-                if micro_seen[0] == o.grad_accum:
-                    train_state["nupdates"] += 1
-                    micro_seen[0] = 0
-            train_state["records"] += real
-            train_state["loss"] = loss
-            now = time.perf_counter()
-            iter_wall, iter_start = now - iter_start, now
-            self.metrics.add("iter_s", iter_wall)
-            if pending is not None:
-                self._emit(pending)
-            # histograms are read here, before the next step updates the
-            # params in place (a host sync, on the trigger's steps only)
-            hists = None
-            if o.train_summary is not None:
-                pt = o.train_summary.get_summary_trigger("Parameters")
-                if pt is not None and pt(train_state):
-                    hists = [(name, t.detach().to("cpu", copy=True).numpy())
-                             for name, t
-                             in o.model.parameters({"params": params})]
-            pending = (dict(train_state), loss, lr,
-                       real / max(iter_wall, 1e-9), hists)
-
-            # epoch rollover (the reference counts records vs dataset size)
-            if train_state["records"] >= dataset_size:
-                train_state["epoch"] += 1
-                train_state["records"] = 0
-                logger.info("epoch %d done in %.1fs",
-                            train_state["epoch"] - 1,
-                            time.perf_counter() - epoch_start)
-                epoch_start = time.perf_counter()
-
-            if (o.validation_trigger is not None
-                    and o.validation_trigger(train_state)):
-                res = self._validate(params, variables["state"])
-                for name, r in res.items():
-                    v, n = r.result()
-                    logger.info("validation %s = %.6f (%d)", name, v, n)
-                    if o.validation_summary is not None:
-                        o.validation_summary.add_scalar(
-                            name, v, train_state["neval"])
-                train_state["validation"] = res
-                first = next(iter(res.values()), None)
-                if first is not None:
-                    train_state["score"] = first.result()[0]
-                    sched = o.optim_method.schedule
-                    if hasattr(sched, "on_metric"):
-                        sched.on_metric(train_state["score"])
-
-            if (o.checkpoint is not None and o.checkpoint_trigger is not None
-                    and o.checkpoint_trigger(train_state)):
-                with Timer(self.metrics, "checkpoint_s"):
-                    path = self._save(step, params, variables["state"],
-                                      slots, train_state)
-                logger.info("checkpoint -> %s", path)
-
-        # the end trigger may fire mid-cycle: flush the partial
-        # accumulator so those micro-batches' gradients count
-        flush = getattr(step, "flush", None)
-        if flush is not None:
-            eff_step = train_state["nupdates"]
-            flush(o.optim_method.current_rate(
-                {**train_state, "neval": eff_step}), eff_step)
-        if pending is not None:
-            self._emit(pending)
-        if o.checkpoint is not None:
-            # a failed async save must fail the run, not vanish with
-            # the writer thread
-            o.checkpoint.wait()
-        for summary in (o.train_summary, o.validation_summary):
-            if summary is not None:
-                summary.writer.flush()
-        o.model.variables = {"params": tree_map(lambda t: t.detach(),
-                                                params),
-                             "state": variables["state"]}
-        return o.model
-
-    def _save(self, step, params, mod_state, slots, train_state) -> str:
+    def _save(self, train_state) -> str:
         """One checkpoint: the model, the slots as param-shaped trees,
         the train state and, mid-cycle, the partial accumulator."""
+        params = self.params
         accum_state = None
-        micro_state = getattr(step, "micro_state", None)
+        micro_state = getattr(self.step, "micro_state", None)
         if micro_state is not None:
             acc, n = micro_state()
             if n:
                 accum_state = {"g_acc": self._as_tree(params, acc),
                                "micro_n": n}
         return self.o.checkpoint.save(
-            train_state["neval"], {"params": params, "state": mod_state},
-            {k: self._as_tree(params, v) for k, v in slots.items()},
+            train_state["neval"], {"params": params,
+                                   "state": self.mod_state},
+            {k: self._as_tree(params, v) for k, v in self.slots.items()},
             {k: train_state[k] for k in
              ("epoch", "neval", "nupdates", "records")},
             accum_state=accum_state)
 
-    def _validate(self, params, mod_state
-                  ) -> Dict[str, ValidationResult]:
+    def _validate(self) -> Dict[str, ValidationResult]:
         """The validation methods over the validation set, the forward
         under torch.no_grad() in the compute dtype."""
         # imported here: the evaluator imports this module's batching
@@ -684,7 +759,22 @@ class LocalOptimizer:
         o = self.o
         return evaluate(o.model, o.validation_dataset, o.validation_methods,
                         o.validation_batch_size,
-                        {"params": params, "state": mod_state}, o.precision)
+                        {"params": self.params, "state": self.mod_state},
+                        o.precision)
+
+    def _param_tree(self):
+        """The current params as a tree (the histograms' source)."""
+        return self.params
+
+    def _flush(self, lr, stepno) -> None:
+        """Apply a pending partial accumulator (grad_accum > 1)."""
+        self.step.flush(lr, stepno)
+
+    def _final_params(self):
+        return tree_map(lambda t: t.detach(), self.params)
+
+    def _close(self) -> None:
+        """Release what `_setup` opened."""
 
     def _emit(self, pending) -> None:
         """Telemetry of an already-enqueued step through StepTelemetry;

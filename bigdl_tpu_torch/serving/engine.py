@@ -303,6 +303,7 @@ class InferenceEngine:
     >>> eng = InferenceEngine(model, params, slots=8)
     >>> results = eng.run([Request(prompt=[1, 2, 3], max_new_tokens=16)])
 
+    `variables` defaults to `model.variables`, as in the JAX engine.
     `device`: None → the GPU (raises without CUDA; pass device="cpu" for
     the plain path on the host); it must be the model's device.
     `attn_impl`: None → "cuda" on a CUDA device, "torch" on the CPU.
@@ -322,7 +323,8 @@ class InferenceEngine:
     `tp_mesh`, `tenant_kv_quotas` and `obs_label` are refused: their
     features wait for ROADMAP.md queues A.8 and A.9."""
 
-    def __init__(self, model, variables: Dict[str, Any], slots: int = 4,
+    def __init__(self, model, variables: Optional[Dict[str, Any]] = None,
+                 slots: int = 4,
                  max_len: Optional[int] = None,
                  prefill_buckets: Optional[Sequence[int]] = None,
                  cache_dtype: torch.dtype = torch.float32,
@@ -391,6 +393,8 @@ class InferenceEngine:
         self.cache_dtype = cache_dtype
         self.model_tag = model_tag
         self.model = model
+        if variables is None:
+            variables = model.variables
         self.variables = variables
         self._params = self._build_params(variables)
         self.slots = slots

@@ -14,13 +14,15 @@ from typing import Any
 
 import torch
 
-from bigdl_tpu_torch.models.convert import tree_map
-
 
 def cast_floats(tree: Any, dtype: torch.dtype) -> Any:
     """Cast every floating-point tensor leaf of a nested dict/list/tuple
     to `dtype`; integer leaves (token ids, labels) and non-tensors pass
     through untouched."""
+    # imported here: models/convert imports utils/, whose package
+    # exports this module
+    from bigdl_tpu_torch.models.convert import tree_map
+
     def cast(x):
         if isinstance(x, torch.Tensor) and x.is_floating_point():
             return x.to(dtype)

@@ -301,6 +301,8 @@ TF32 is off for matmuls and cuDNN, so fp32 means fp32 throughout.
 
 from __future__ import annotations
 
+import contextlib
+import importlib
 import json
 import math
 import re
@@ -676,7 +678,7 @@ def phase_build():
     kernel, bf16 LSTM or GRU sweep (backward, and the GRU forward) or bf16
     dW kernel has no tensor-core instruction."""
     from bigdl_tpu_torch.ops import _build
-    from bigdl_tpu_torch.ops import flash_attention as fa
+    fa = importlib.import_module("bigdl_tpu_torch.ops.flash_attention")
 
     t0 = time.perf_counter()
     _build.build(KERNEL_SOURCES)             # one nvcc per source, together
@@ -960,7 +962,7 @@ def phase_flash(flush):
     import torch
     import torch.nn.functional as F
 
-    from bigdl_tpu_torch.ops import flash_attention as fa
+    fa = importlib.import_module("bigdl_tpu_torch.ops.flash_attention")
 
     out = {}
     for name, bh, sq, sk, d, causal, scale in FLASH_CASES:
@@ -1866,7 +1868,7 @@ def phase_train_model():
                                                 tree_leaves_with_path,
                                                 tree_map)
     from bigdl_tpu_torch.nn import ChunkedSoftmaxCE
-    from bigdl_tpu_torch.ops import flash_attention as fa
+    fa = importlib.import_module("bigdl_tpu_torch.ops.flash_attention")
     from bigdl_tpu_torch.ops.losses import build_train_loss
     from bigdl_tpu_torch.utils.precision import FULL_PRECISION
 
@@ -1948,7 +1950,7 @@ def phase_trainer():
 
     from bigdl_tpu_torch.models.transformer import (
         TransformerConfig, lm_train_matmul_flops_per_token)
-    from bigdl_tpu_torch.ops import flash_attention as fa
+    fa = importlib.import_module("bigdl_tpu_torch.ops.flash_attention")
 
     losses, marks = [], {}
 
@@ -2104,19 +2106,19 @@ def _timed_saves(ck, out: list) -> None:
 
 
 def _flash_counts():
-    from bigdl_tpu_torch.ops import flash_attention as fa
+    fa = importlib.import_module("bigdl_tpu_torch.ops.flash_attention")
 
     return fa.fwd_launches, fa.bwd_launches
 
 
 def _zero_flash_counts() -> None:
-    from bigdl_tpu_torch.ops import flash_attention as fa
+    fa = importlib.import_module("bigdl_tpu_torch.ops.flash_attention")
 
     fa.fwd_launches = fa.bwd_launches = 0
 
 
 def _check_flash_counts(run: str, micro: int) -> dict:
-    from bigdl_tpu_torch.ops import flash_attention as fa
+    fa = importlib.import_module("bigdl_tpu_torch.ops.flash_attention")
 
     layers = TRAIN_CONFIG["num_layers"]
     fwd, bwd = _flash_counts()
@@ -2137,7 +2139,7 @@ def _first_difference(a_params, b_params, a_losses, b_losses) -> str:
     import torch
 
     from bigdl_tpu_torch.models.convert import tree_leaves_with_path
-    from bigdl_tpu_torch.ops import flash_attention as fa
+    fa = importlib.import_module("bigdl_tpu_torch.ops.flash_attention")
 
     step = next((i + 1 for i, (x, y) in enumerate(zip(a_losses, b_losses))
                  if x != y), None)
@@ -5474,7 +5476,7 @@ def _mha_case(name, embed, cross_seq, causal):
 
     from bigdl_tpu_torch import nn
     from bigdl_tpu_torch.models.convert import tree_leaves_with_path
-    from bigdl_tpu_torch.ops import flash_attention as fa
+    fa = importlib.import_module("bigdl_tpu_torch.ops.flash_attention")
 
     g = torch.Generator(device="cuda").manual_seed(len(name))
     params = nn.MultiHeadAttention(embed, HEADS).init(
@@ -5637,7 +5639,7 @@ def phase_mha():
     import torch
 
     from bigdl_tpu_torch import nn
-    from bigdl_tpu_torch.ops import flash_attention as fa
+    fa = importlib.import_module("bigdl_tpu_torch.ops.flash_attention")
     from bigdl_tpu_torch.optim import Adam
 
     t_phase = time.perf_counter()
@@ -6125,6 +6127,506 @@ def phase_ncf_textcls():
     emit("ncf_textcls", seconds=time.perf_counter() - t0, **report)
 
 
+# ---------------------------------------------------------------- PR 16
+# the C++ data plane, data-parallel training (DistriOptimizer over a
+# one-rank NCCL mesh) through the training CLI, and ConvLSTMPeephole
+NATIVE_CHECK_N, NATIVE_CHECK_BATCHES = 4096, 4   # index-labelled shards
+NATIVE_PIPE_BATCHES, NATIVE_WARMUP, NATIVE_STEPS = 30, 5, 50
+DIST_N, DIST_SHARDS, DIST_BATCH, DIST_SIZE = 1024, 4, 128, 224
+DIST_WARMUP, DIST_STEPS, DIST_PROFILED = 2, 6, 3
+DPAR_LENET_STEPS, DPAR_LENET_BATCH, DPAR_LM_STEPS = 5, 128, 3
+DPAR_EXACT_TOL = 1e-5          # exact wire vs LocalOptimizer, LeNet-5 fp32
+DPAR_BF16_TOL = 1e-4           # bf16 wire vs LocalOptimizer, LeNet-5 fp32
+DPAR_LM_LOSS_TOL = 1e-2        # bf16 wire vs LocalOptimizer, LM losses
+DPAR_LM_PARAM_TOL = 0.0        # the LM's final fp32 masters, bit for bit
+CONVLSTM_BATCH, CONVLSTM_FRAMES, CONVLSTM_SIZE = 8, 10, 64
+CONVLSTM_HIDDEN, CONVLSTM_KERNEL, CONVLSTM_CHECK_ROWS = 64, 5, 2
+CONVLSTM_TOL = 1e-4            # card vs CPU, fp32, relative to the max
+
+
+def _shift_flip_match(img, raw_norm, pad):
+    """Whether the f32 image `img` is `raw_norm` shifted by some (dy, dx)
+    in [-pad, pad] (zero fill) and maybe flipped, bit for bit — the
+    Python plane's output for that record and that draw."""
+    import numpy as np
+
+    h, w = raw_norm.shape[:2]
+    for dy in range(-pad, pad + 1):
+        for dx in range(-pad, pad + 1):
+            out = np.zeros_like(raw_norm)
+            y0, y1 = max(0, dy), min(h, h + dy)
+            x0, x1 = max(0, dx), min(w, w + dx)
+            out[y0:y1, x0:x1] = raw_norm[y0 - dy:y1 - dy, x0 - dx:x1 - dx]
+            if np.array_equal(img, out) or np.array_equal(img, out[:, ::-1]):
+                return True
+    return False
+
+
+def phase_native_plane():
+    """The C++ data plane (dataset/csrc/dataplane.cpp, built with g++
+    at first use). Gates: it builds (`.native` is True); every record of
+    NATIVE_CHECK_BATCHES C++ batches (PR 14's ResNet-20 images, labels
+    set to the record index, CIFAR's mean/std, pad 4, hflip) is the
+    Python plane's normalisation of that record under one of its shifts
+    and flips, bit for bit; eval batches and `normalize_u8` equal numpy.
+    Reported: host ms a batch of the C++ and Python file prefetchers
+    (each alone, RECORDS_N images in RECORDS_SHARDS shards, batch 128),
+    and ResNet-20's images/s from disk through the C++ plane."""
+    import tempfile
+    import unittest.mock as mock
+
+    import numpy as np
+    import torch
+
+    from bigdl_tpu_torch.dataset import RecordFileDataSet, native, write_shards
+    from bigdl_tpu_torch.models import resnet
+
+    t0 = time.perf_counter()
+    check(native.available(), "native_plane: the C++ plane did not build")
+    build_s = time.perf_counter() - t0
+    images, labels = _records_images(RECORDS_N, 21)
+    mean = np.asarray(CIFAR_MEAN, np.float32)
+    std = np.asarray(CIFAR_STD, np.float32)
+    kw = dict(batch_size=RECORDS_BATCH, mean=CIFAR_MEAN, std=CIFAR_STD)
+    check(np.array_equal(native.normalize_u8(images[:256], mean, std),
+                         (images[:256].astype(np.float32) - mean) / std),
+          "native_plane: normalize_u8 differs from numpy")
+    with tempfile.TemporaryDirectory(prefix="bdls-native-") as tmp:
+        idx = np.arange(NATIVE_CHECK_N, dtype=np.int32)
+        cpaths = write_shards(images[:NATIVE_CHECK_N], idx,
+                              f"{tmp}/check", 2)
+        pf = native.FilePrefetcher(cpaths, pad=4, hflip=True, seed=5, **kw)
+        try:
+            check(pf.native, "native_plane: FilePrefetcher is not native")
+            seen = 0
+            for _ in range(NATIVE_CHECK_BATCHES):
+                img, lbl = pf.next()
+                for j, i in enumerate(lbl):
+                    raw = (images[i].astype(np.float32) - mean) / std
+                    check(_shift_flip_match(img[j], raw, 4),
+                          f"native_plane: record {i} is no shift/flip of "
+                          "the Python plane's")
+                    seen += 1
+        finally:
+            pf.close()
+        paths = write_shards(images, labels, f"{tmp}/train", RECORDS_SHARDS)
+        ms = {}
+        for plane in ("cpp", "python"):
+            with mock.patch.object(native, "_load", return_value=None) \
+                    if plane == "python" else contextlib.nullcontext():
+                pf = native.FilePrefetcher(paths, pad=4, hflip=True,
+                                           seed=1, **kw)
+            try:
+                check(pf.native == (plane == "cpp"),
+                      f"native_plane: {plane} plane not selected")
+                ms[plane] = _host_ms_per_batch(iter(pf), NATIVE_PIPE_BATCHES)
+            finally:
+                pf.close()
+        ds = RecordFileDataSet(paths, pad=4, hflip=True, **kw)
+        try:
+            check(ds.native, "native_plane: RecordFileDataSet not native")
+            model = resnet.build_cifar(20, 10).build(
+                torch.Generator().manual_seed(0))
+            losses, disk_s = _timed_steps(model, ds, RECORDS_BATCH,
+                                          NATIVE_WARMUP, NATIVE_STEPS)
+        finally:
+            ds.close()
+    check(all(math.isfinite(v) for v in losses),
+          f"native_plane: losses {losses}")
+    emit("native_plane", build_or_load_s=build_s, checked_records=seen,
+         host_ms_per_batch={"cpp": ms["cpp"], "python": ms["python"]},
+         cpp_speedup=ms["python"] / ms["cpp"], batch=RECORDS_BATCH,
+         resnet20_disk_images_per_sec=NATIVE_STEPS * RECORDS_BATCH / disk_s,
+         resnet20_steps=NATIVE_STEPS,
+         total_seconds=time.perf_counter() - t0)
+
+
+def _dist_images(n, seed):
+    """`n` seeded 224 x 224 x 3 u8 images over 1000 classes."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    return (rng.randint(0, 256, (n, DIST_SIZE, DIST_SIZE, 3), np.uint8),
+            rng.randint(0, 1000, n).astype(np.int32))
+
+
+def _distri_steps(model, ds, mesh, warmup, steps, profile=None):
+    """ResNet-50 through `Optimizer(...).set_precision("bf16")`, SGD(0.1,
+    momentum 0.9), with `set_mesh(mesh)` unless mesh is None; returns
+    (losses, seconds of the last `steps`); with `profile` the last
+    `steps` run under torch.profiler and its rows are returned too."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.optim import SGD, Optimizer, Trigger
+
+    losses, marks = [], {}
+    prof = tprofile(activities=[ProfilerActivity.CPU,
+                                ProfilerActivity.CUDA]) if profile else None
+
+    def end_when(state):
+        if state["loss"] is not None:
+            losses.append(state["loss"])
+        if state["neval"] in (warmup, warmup + steps):
+            torch.cuda.synchronize()
+            marks[state["neval"]] = time.perf_counter()
+            if prof is not None:
+                (prof.start if state["neval"] == warmup else prof.stop)()
+        return state["neval"] >= warmup + steps
+
+    opt = Optimizer(model, ds, nn.ClassNLLCriterion(),
+                    batch_size=DIST_BATCH).set_precision("bf16") \
+        .set_optim_method(SGD(learningrate=0.1, momentum=0.9)) \
+        .set_end_when(Trigger(end_when))
+    if mesh is not None:
+        opt.set_mesh(mesh)
+    opt.optimize()
+    dt = marks[warmup + steps] - marks[warmup]
+    rows = None
+    if prof is not None:
+        OUT_DIR.mkdir(exist_ok=True)
+        prof.export_chrome_trace(str(OUT_DIR / profile))
+        rows = _profile_rows(prof, dt)
+        from torch.autograd import DeviceType
+        rows["nccl_ms"] = sum(
+            e.self_device_time_total for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and "nccl" in e.key.lower()) / 1e3
+    return [float(v) for v in losses], dt, rows
+
+
+def phase_distri_cli():
+    """The slice's main path: `python -m bigdl_tpu_torch.models.train
+    --model resnet50 --records DIR --recordsAug hflip --mesh data=1
+    --precision bf16 -b 128 --maxEpoch 1 --checkpoint CK` (as
+    `train.main(argv, device="cuda")`) on DIST_N seeded 224 x 224 x 3
+    images in DIST_SHARDS BDLS shards: the C++ plane feeds
+    DistriOptimizer (ZeRO-1, bf16 gradient wire) over a one-rank NCCL
+    mesh for one epoch, then validation and a checkpoint. Gates: the
+    plane is native; the backend is NCCL; the losses are finite; the
+    checkpoint's slots carry layout zero1_flat, and LocalOptimizer
+    resumes from it for one more step. Reported: the CLI's seconds, and
+    images/s over DIST_STEPS steps (after DIST_WARMUP) of the same
+    shards through DistriOptimizer and through LocalOptimizer, and the
+    NCCL device ms a step of a profiled DIST_PROFILED-step window."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.dataset import RecordFileDataSet, write_shards
+    from bigdl_tpu_torch.models import resnet, train
+    from bigdl_tpu_torch.optim import SGD, Optimizer, Trigger
+    from bigdl_tpu_torch.parallel import make_mesh
+    from bigdl_tpu_torch.serialization.checkpoint import Checkpoint
+
+    t0 = time.perf_counter()
+    images, labels = _dist_images(DIST_N, 16)
+    with tempfile.TemporaryDirectory(prefix="bdls-dist-") as tmp:
+        paths = write_shards(images, labels, f"{tmp}/shards", DIST_SHARDS)
+        shard_bytes = sum(Path(p).stat().st_size for p in paths)
+        del images
+        ck = f"{tmp}/ck"
+        t = time.perf_counter()
+        opt = train.main(["--model", "resnet50", "--records",
+                          f"{tmp}/shards", "--recordsAug", "hflip",
+                          "--mesh", "data=1", "--precision", "bf16",
+                          "-b", str(DIST_BATCH), "--maxEpoch", "1",
+                          "--checkpoint", ck], device="cuda")
+        cli_s = time.perf_counter() - t
+        state = opt.train_state
+        check(opt.dataset.native,
+              "distri_cli: the records did not ride the C++ plane")
+        check(opt.mesh.backend == "nccl",
+              f"distri_cli: backend {opt.mesh.backend}, not NCCL")
+        check(state["neval"] == DIST_N // DIST_BATCH
+              and math.isfinite(float(state["loss"]))
+              and math.isfinite(state["score"]),
+              f"distri_cli: final state {state}")
+        cpt = Checkpoint(ck)
+        _, slots, saved_ts, meta = cpt.load(with_optim_meta=True)
+        check(meta["layout"] == "zero1_flat" and meta["num_shards"] == 1
+              and set(slots) == {"velocity"}
+              and tuple(slots["velocity"].shape) == (meta["padded"],),
+              f"distri_cli: checkpoint layout {meta}")
+        # LocalOptimizer resumes the flat checkpoint: one more step
+        kw = dict(batch_size=DIST_BATCH, mean=[127.5] * 3, std=[127.5] * 3,
+                  hflip=True)
+        ds = RecordFileDataSet(paths, **kw)
+        try:
+            model = resnet.build_imagenet(50, 1000).build(
+                torch.Generator().manual_seed(1))
+            resumed = Optimizer(model, ds, nn.ClassNLLCriterion(),
+                                batch_size=DIST_BATCH) \
+                .set_precision("bf16") \
+                .set_optim_method(SGD(learningrate=0.01, momentum=0.9)) \
+                .set_checkpoint(ck, Trigger.max_iteration(10 ** 9)) \
+                .resume_from_checkpoint() \
+                .set_end_when(Trigger.max_iteration(saved_ts["neval"] + 1))
+            resumed.optimize()
+            check(resumed.train_state["neval"] == saved_ts["neval"] + 1
+                  and math.isfinite(float(resumed.train_state["loss"])),
+                  f"distri_cli: resume {resumed.train_state}")
+            del model, resumed
+            torch.cuda.empty_cache()
+            rates, profiled = {}, None
+            for kind in ("distri", "local"):
+                mesh = make_mesh({"data": 1}) if kind == "distri" else None
+                model = resnet.build_imagenet(50, 1000).build(
+                    torch.Generator().manual_seed(0))
+                try:
+                    losses, dt, _ = _distri_steps(model, ds, mesh,
+                                                  DIST_WARMUP, DIST_STEPS)
+                    if kind == "distri":
+                        _, pdt, profiled = _distri_steps(
+                            model, ds, mesh, 1, DIST_PROFILED,
+                            profile="distri_trace.json")
+                finally:
+                    if mesh is not None:
+                        mesh.close()
+                check(all(math.isfinite(v) for v in losses),
+                      f"distri_cli: {kind} losses {losses}")
+                rates[kind] = DIST_STEPS * DIST_BATCH / dt
+                del model
+                torch.cuda.empty_cache()
+        finally:
+            ds.close()
+    nccl_ms = profiled.get("nccl_ms") if isinstance(profiled, dict) else None
+    emit("distri_cli", images=DIST_N, shards=DIST_SHARDS,
+         shard_bytes=shard_bytes, batch=DIST_BATCH, cli_seconds=cli_s,
+         cli_steps=state["neval"], cli_loss=float(state["loss"]),
+         cli_top1=state["score"], checkpoint_layout=meta["layout"],
+         backend=opt.mesh.backend, images_per_sec=rates,
+         distri_over_local=rates["distri"] / rates["local"],
+         nccl_ms_per_step=("not measured" if nccl_ms is None
+                           else nccl_ms / DIST_PROFILED),
+         profile={k: v for k, v in (profiled or {}).items() if k != "top"},
+         total_seconds=time.perf_counter() - t0)
+
+
+def _flat_params(model):
+    import torch
+
+    from bigdl_tpu_torch.models.convert import tree_leaves
+
+    return torch.cat([t.detach().reshape(-1).float()
+                      for t in tree_leaves(model.variables["params"])])
+
+
+def phase_distri_parity():
+    """DistriOptimizer against LocalOptimizer on the card, world size 1
+    under NCCL. LeNet-5 in fp32 (cuDNN deterministic), DPAR_LENET_STEPS
+    steps of SGD with momentum from the same init and batches: the exact
+    wire within DPAR_EXACT_TOL of LocalOptimizer and the bf16 wire (the
+    default) within DPAR_BF16_TOL, each the largest difference of the
+    final weights over their largest; ZeRO-2 bit for bit ZeRO-1, on the
+    exact and on the bf16 wire. Then the 43M LM through
+    `set_mesh(make_mesh({"data": 1}), zero=2)` (bf16 compute, bf16
+    wire) for DPAR_LM_STEPS steps: its final fp32 masters within
+    DPAR_LM_PARAM_TOL of LocalOptimizer's, its losses within
+    DPAR_LM_LOSS_TOL, with K2/K3 launched TRAIN_CONFIG's layers (x
+    BWD_LAUNCHES) times a step — the flash kernels on the data-parallel
+    path, counted from 0. The controls, which the same limits must
+    refuse: the bf16 wire one LeNet step short, and LocalOptimizer one
+    LM step short (an update skipped)."""
+    import numpy as np
+    import torch
+
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.dataset import DataSet
+    from bigdl_tpu_torch.dataset.mnist import synthetic_mnist
+    from bigdl_tpu_torch.dataset.text import synthetic_next_token
+    from bigdl_tpu_torch.models import lenet
+    from bigdl_tpu_torch.optim import SGD, Adam, Optimizer, Trigger
+    from bigdl_tpu_torch.parallel import DistriOptimizer, make_mesh
+    fa = importlib.import_module("bigdl_tpu_torch.ops.flash_attention")
+
+    t0 = time.perf_counter()
+    samples = synthetic_mnist(DPAR_LENET_BATCH * DPAR_LENET_STEPS, seed=3)
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    finals = {}
+    try:
+        for run in ("local", "exact/1", "exact/2", "bf16/1", "bf16/2",
+                    "bf16/1/short"):
+            model = lenet.build(10).build(torch.Generator().manual_seed(4))
+            steps = DPAR_LENET_STEPS - run.endswith("/short")
+            opt = Optimizer(model, DataSet.array(samples),
+                            nn.ClassNLLCriterion(),
+                            batch_size=DPAR_LENET_BATCH) \
+                .set_optim_method(SGD(learningrate=0.05, momentum=0.9)) \
+                .set_end_when(Trigger.max_iteration(steps))
+            if run == "local":
+                opt.optimize()
+            else:
+                wire, zero = run.split("/")[:2]
+                mesh = make_mesh({"data": 1})
+                try:
+                    check(mesh.backend == "nccl",
+                          f"distri_parity: backend {mesh.backend}")
+                    DistriOptimizer(opt, mesh, zero=int(zero),
+                                    grad_dtype=None if wire == "exact"
+                                    else "bfloat16").run()
+                finally:
+                    mesh.close()
+            finals[run] = _flat_params(model)
+    finally:
+        torch.backends.cudnn.deterministic = det
+    ref = finals["local"]
+
+    def lenet_err(run):
+        return float((finals[run] - ref).abs().max() / ref.abs().max())
+
+    exact_err, bf16_err = lenet_err("exact/1"), lenet_err("bf16/1")
+    bf16_short = lenet_err("bf16/1/short")
+    check(exact_err <= DPAR_EXACT_TOL,
+          f"distri_parity: exact wire {exact_err} from LocalOptimizer")
+    check(bf16_err <= DPAR_BF16_TOL < bf16_short,
+          f"distri_parity: bf16 wire {bf16_err} from LocalOptimizer, one "
+          f"step short {bf16_short} (limit {DPAR_BF16_TOL})")
+    check(torch.equal(finals["exact/1"], finals["exact/2"])
+          and torch.equal(finals["bf16/1"], finals["bf16/2"]),
+          "distri_parity: ZeRO-2 differs from ZeRO-1")
+    lenet_s = time.perf_counter() - t0
+
+    lm_losses, lm_finals, launches = {}, {}, None
+    lm_samples = synthetic_next_token(TRAIN_BATCH * DPAR_LM_STEPS, VOCAB,
+                                      TRAIN_SEQ)
+    for run in ("local", "distri", "local/short"):
+        model = _train_model()
+        model.build(torch.Generator().manual_seed(0))
+        losses = []
+        steps = DPAR_LM_STEPS - run.endswith("/short")
+
+        def end_when(state, losses=losses, steps=steps):
+            if state["loss"] is not None:
+                losses.append(state["loss"])
+            return state["neval"] >= steps
+
+        opt = Optimizer(model, DataSet.array(lm_samples),
+                        nn.ChunkedSoftmaxCE(), batch_size=TRAIN_BATCH) \
+            .set_optim_method(Adam(3e-4)).set_precision("bf16") \
+            .set_end_when(Trigger(end_when))
+        mesh = None
+        if run == "distri":
+            mesh = make_mesh({"data": 1})
+            opt.set_mesh(mesh, zero=2)
+        try:
+            torch.cuda.synchronize()
+            fa.fwd_launches = fa.bwd_launches = 0  # main path starts here
+            opt.optimize()
+            torch.cuda.synchronize()
+            if run == "distri":
+                launches = (fa.fwd_launches, fa.bwd_launches)  # ends here
+        finally:
+            if mesh is not None:
+                mesh.close()
+        lm_losses[run] = [float(v) for v in losses]
+        lm_finals[run] = _flat_params(model)
+        del model, opt
+        torch.cuda.empty_cache()
+    lm_ref = lm_finals["local"]
+
+    def master_err(run):
+        return float((lm_finals[run] - lm_ref).abs().max()
+                     / lm_ref.abs().max())
+
+    lm_param_err, lm_short = master_err("distri"), master_err("local/short")
+    check(lm_param_err <= DPAR_LM_PARAM_TOL < lm_short,
+          f"distri_parity: LM masters {lm_param_err} from LocalOptimizer's, "
+          f"one step short {lm_short} (limit {DPAR_LM_PARAM_TOL})")
+    layers = TRAIN_CONFIG["num_layers"]
+    check(launches == (DPAR_LM_STEPS * layers,
+                       DPAR_LM_STEPS * layers * fa.BWD_LAUNCHES),
+          f"distri_parity: flash launches {launches} over {DPAR_LM_STEPS} "
+          f"steps of {layers} layers")
+    lm_err = max(abs(a - b) / abs(b) for a, b in
+                 zip(lm_losses["distri"], lm_losses["local"]))
+    check(len(lm_losses["distri"]) == DPAR_LM_STEPS and lm_err
+          <= DPAR_LM_LOSS_TOL,
+          f"distri_parity: LM losses {lm_losses}")
+    emit("distri_parity", lenet_steps=DPAR_LENET_STEPS,
+         exact_wire_rel_err=exact_err, bf16_wire_rel_err=bf16_err,
+         bf16_one_step_short_rel_err=bf16_short,
+         zero2_equals_zero1=True, exact_tol=DPAR_EXACT_TOL,
+         bf16_tol=DPAR_BF16_TOL, lenet_seconds=lenet_s,
+         lm_steps=DPAR_LM_STEPS, lm_param_rel_err=lm_param_err,
+         lm_one_step_short_rel_err=lm_short,
+         lm_param_tol=DPAR_LM_PARAM_TOL,
+         lm_losses=lm_losses, lm_loss_rel_err=lm_err,
+         lm_loss_tol=DPAR_LM_LOSS_TOL,
+         launches={"fwd": launches[0], "bwd": launches[1]},
+         total_seconds=time.perf_counter() - t0)
+    return launches
+
+
+def phase_convlstm():
+    """ConvLSTMPeephole at Moving-MNIST-like widths (CONVLSTM_BATCH
+    sequences of CONVLSTM_FRAMES 64 x 64 x 1 frames, 64 hidden
+    channels, kernel 5) inside `Recurrent`, fp32: forward and backward
+    on the card against `device="cpu"` on the same weights and the
+    first CONVLSTM_CHECK_ROWS sequences (outputs and every gradient,
+    relative to their largest entry, within CONVLSTM_TOL); ms a
+    forward + backward step at the full batch (CUDA events)."""
+    import numpy as np
+    import torch
+
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.models.convert import tree_leaves, tree_map
+
+    t0 = time.perf_counter()
+    model = nn.Recurrent(nn.ConvLSTMPeephole(1, CONVLSTM_HIDDEN,
+                                             kernel=CONVLSTM_KERNEL))
+    v_cpu = model.init(torch.Generator().manual_seed(0), device="cpu")
+    # non-zero peepholes, so that the check reaches them
+    g = torch.Generator().manual_seed(1)
+    for k in ("w_ci", "w_cf", "w_co"):
+        v_cpu["params"]["cell"][k] = 0.1 * torch.randn(CONVLSTM_HIDDEN,
+                                                       generator=g)
+    rng = np.random.RandomState(2)
+    x = rng.rand(CONVLSTM_BATCH, CONVLSTM_FRAMES, CONVLSTM_SIZE,
+                 CONVLSTM_SIZE, 1).astype(np.float32)
+
+    def fwd_bwd(variables, xs, device):
+        params = tree_map(lambda t: t.to(device).requires_grad_(),
+                          variables["params"])
+        out, _ = model.apply({"params": params, "state": {}},
+                             torch.as_tensor(xs).to(device))
+        grads = torch.autograd.grad((out * out).mean(), tree_leaves(params))
+        return out, grads
+
+    rows = CONVLSTM_CHECK_ROWS
+    out_c, g_c = fwd_bwd(v_cpu, x[:rows], "cpu")
+    out_g, g_g = fwd_bwd(v_cpu, x[:rows], "cuda")
+
+    def rel(a, b):
+        return float((a.cpu() - b).abs().max() / b.abs().max())
+
+    errs = [rel(out_g, out_c)] + [rel(a, b) for a, b in zip(g_g, g_c)]
+    check(max(errs) <= CONVLSTM_TOL,
+          f"convlstm: card vs CPU relative errors {errs}")
+    full = x
+    step_ms = []
+    for i in range(4):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out, grads = fwd_bwd(v_cpu, full, "cuda")
+        end.record()
+        torch.cuda.synchronize()
+        if i:  # the first call warms cuDNN up
+            step_ms.append(start.elapsed_time(end))
+    check(all(torch.isfinite(t).all() for t in (out, *grads)),
+          "convlstm: non-finite full-batch output or gradient")
+    emit("convlstm", batch=CONVLSTM_BATCH, frames=CONVLSTM_FRAMES,
+         size=CONVLSTM_SIZE, hidden=CONVLSTM_HIDDEN, kernel=CONVLSTM_KERNEL,
+         check_rows=rows, max_rel_err=max(errs), tol=CONVLSTM_TOL,
+         step_ms=step_ms, step_ms_min=min(step_ms),
+         total_seconds=time.perf_counter() - t0)
+
+
 def main() -> int:
     import torch
 
@@ -6231,6 +6733,14 @@ def main() -> int:
     del lenet_model
     torch.cuda.empty_cache()
     phase_ncf_textcls()
+    torch.cuda.empty_cache()
+    phase_native_plane()
+    torch.cuda.empty_cache()
+    phase_distri_cli()
+    torch.cuda.empty_cache()
+    dist_fwd, dist_bwd = phase_distri_parity()
+    torch.cuda.empty_cache()
+    phase_convlstm()
     fp32 = kern["fp32"]
     # the flash rows: the trainer's shape in its compute dtype (bf16)
     row = flash["train/bf16"]
@@ -6253,9 +6763,11 @@ def main() -> int:
         "design": FLASH_DESIGN["fwd"],
         "replaces": "bigdl_tpu/ops/flash_attention.py:118",
         "launches": fwd_launches,
-        # two main paths: the LM trainer and the MHA stack (mha phase),
-        # each counted from 0
-        "launches_by_path": {"trainer": fwd_launches, "mha": mha_fwd},
+        # three main paths: the LM trainer, the MHA stack (mha phase)
+        # and the LM under DistriOptimizer (distri_parity), each counted
+        # from 0
+        "launches_by_path": {"trainer": fwd_launches, "mha": mha_fwd,
+                             "distri_lm": dist_fwd},
         "max_abs_err": row["out_max_abs_err"],
         "ms": row["fwd_ms"], "plain_ms": row["plain_fwd_ms"],
         "bound_ms": row["fwd"]["bound_ms"],
@@ -6267,7 +6779,8 @@ def main() -> int:
         "design": FLASH_DESIGN["bwd"],
         "replaces": "bigdl_tpu/ops/flash_attention.py:450 :341 :374",
         "launches": bwd_launches,
-        "launches_by_path": {"trainer": bwd_launches, "mha": mha_bwd},
+        "launches_by_path": {"trainer": bwd_launches, "mha": mha_bwd,
+                             "distri_lm": dist_bwd},
         "max_abs_err": row["grad_max_abs_err"],
         "ms": row["bwd_ms"], "plain_ms": row["plain_bwd_ms"],
         "bound_ms": row["bwd"]["bound_ms"],

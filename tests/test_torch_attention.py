@@ -19,6 +19,7 @@ bit the undropped attention, at p > 0 a kept share within 3 sigma of
 """
 
 import functools
+import importlib
 import math
 
 import jax
@@ -33,7 +34,7 @@ from bigdl_tpu.ops.flash_attention import \
     attention_reference as j_attention_reference
 from bigdl_tpu_torch import nn as tnn
 from bigdl_tpu_torch.models.convert import params_from_jax, tree_leaves
-from bigdl_tpu_torch.ops import flash_attention as tfa
+tfa = importlib.import_module("bigdl_tpu_torch.ops.flash_attention")
 from bigdl_tpu_torch.ops import kv_cache as tkv
 
 TOL = 1e-5

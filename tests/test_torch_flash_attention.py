@@ -19,7 +19,7 @@ import pytest
 import torch
 
 import chip_smoke
-from bigdl_tpu_torch.ops import flash_attention as tfa
+tfa = importlib.import_module("bigdl_tpu_torch.ops.flash_attention")
 
 jfa = importlib.import_module("bigdl_tpu.ops.flash_attention")
 

@@ -49,6 +49,11 @@ NEW_IN_SLICE_14 = ("nn/attention.py", "nn/sparse.py", "nn/quantized.py",
                    "nn/upsampling.py", "nn/volumetric.py",
                    "models/autoencoder.py", "models/textclassifier.py",
                    "models/ncf.py")
+NEW_IN_SLICE_15 = ("parallel/__init__.py", "parallel/mesh.py",
+                   "parallel/param_layout.py", "parallel/data_parallel.py",
+                   "parallel/distri_optimizer.py", "parallel/launch.py",
+                   "dataset/image.py", "dataset/vision.py",
+                   "models/train.py")
 
 
 def test_port_files_exist():
@@ -59,7 +64,7 @@ def test_port_files_exist():
     assert set(NEW_IN_SLICE_3) | set(NEW_IN_SLICE_4) \
         | set(NEW_IN_SLICE_9) | set(NEW_IN_SLICE_10) \
         | set(NEW_IN_SLICE_11) | set(NEW_IN_SLICE_13) \
-        | set(NEW_IN_SLICE_14) <= scanned
+        | set(NEW_IN_SLICE_14) | set(NEW_IN_SLICE_15) <= scanned
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -104,7 +109,9 @@ def test_port_import_loads_no_jax():
             "bigdl_tpu_torch.nn.upsampling, bigdl_tpu_torch.nn.volumetric, "
             "bigdl_tpu_torch.models.autoencoder, "
             "bigdl_tpu_torch.models.textclassifier, "
-            "bigdl_tpu_torch.models.ncf; "
+            "bigdl_tpu_torch.models.ncf, bigdl_tpu_torch.parallel, "
+            "bigdl_tpu_torch.parallel.launch, bigdl_tpu_torch.dataset.image, "
+            "bigdl_tpu_torch.dataset.vision, bigdl_tpu_torch.models.train; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{BANNED!r}]; "
             "assert not bad, bad")

@@ -104,14 +104,17 @@ def test_optimize_trajectory_matches_jax(name):
 
 
 @pytest.mark.parametrize("setter, args, what", [
-    ("set_mesh", (None,), "distributed training"),
+    ("set_mesh", (None,), "zero must be 1 or 2"),
 ])
 def test_unported_features_name_what_is_missing(setter, args, what):
+    # set_mesh refused here until queue A.8 steps 1-3 were ported: it now
+    # records the mesh for DistriOptimizer and checks its ZeRO stage
     o = topt.Optimizer(tlm(**CFG, device="cpu"), TDataSet.array([]),
                        tnn.ChunkedSoftmaxCE())
-    with pytest.raises(NotImplementedError, match=what) as err:
-        getattr(o, setter)(*args)
-    assert "ROADMAP.md" in str(err.value) and "A.8" in str(err.value)
+    assert getattr(o, setter)(*args, zero=2) is o
+    assert (o.mesh, o.mesh_axis, o.mesh_zero) == (None, "data", 2)
+    with pytest.raises(ValueError, match=what):
+        getattr(o, setter)(*args, zero=3)
 
 
 def _opt(n=0):

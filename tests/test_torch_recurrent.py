@@ -158,8 +158,10 @@ def test_refusals():
     gru = tnn.Recurrent(tnn.GRU(D, H), fused="cuda")
     with pytest.raises(ValueError, match="CUDA tensor"):
         gru.apply(gru.init(device="cpu"), x)
-    with pytest.raises(NotImplementedError, match="A.4"):
-        tnn.ConvLSTMPeephole(3, 4)
+    # ConvLSTMPeephole (once refused here, queue A.4) now runs over frames
+    conv = tnn.Recurrent(tnn.ConvLSTMPeephole(3, 4, kernel=2))
+    out, _ = conv.apply(conv.init(device="cpu"), torch.zeros(2, 3, 5, 5, 3))
+    assert out.shape == (2, 3, 5, 5, 4)
     with pytest.raises(ValueError, match="fused"):
         tnn.Recurrent(tnn.LSTM(D, H), fused="pallas")
     lstm = tnn.Recurrent(tnn.LSTM(D, H), fused="cuda")
