@@ -8,8 +8,9 @@ returns a `DLModel`; `DLModel.transform(df)` appends a prediction
 column. The "DataFrame" is columnar host data: a pandas DataFrame or a
 dict of numpy arrays or lists (pandas is optional). Training runs on
 the device of the model's weights (a model not yet built is built on
-the card). Distributed fitting (`set_mesh`) is not ported (ROADMAP.md
-queue A.8).
+the card). `set_mesh(mesh)` fits data-parallel over a process mesh
+(parallel/mesh.make_mesh) through `Optimizer.set_mesh`, exactly like
+any other training.
 """
 
 from __future__ import annotations
@@ -65,6 +66,7 @@ class DLEstimator:
         self.optim_method: OptimMethod = SGD(learningrate=1e-2)
         self._learning_rate: Optional[float] = None
         self.end_trigger: Optional[Trigger] = None
+        self.mesh = None
 
     # setters (reference: setBatchSize/setMaxEpoch/setLearningRate)
     def set_batch_size(self, v: int) -> "DLEstimator":
@@ -91,9 +93,8 @@ class DLEstimator:
         return self
 
     def set_mesh(self, mesh) -> "DLEstimator":
-        raise NotImplementedError(
-            "DLEstimator.set_mesh: distributed fitting is not ported to "
-            "bigdl_tpu_torch yet (ROADMAP.md, queue A.8)")
+        self.mesh = mesh
+        return self
 
     # ------------------------------------------------------------------ fit
     def _make_sample(self, feat, label) -> Sample:
@@ -109,12 +110,14 @@ class DLEstimator:
         feats = _get_column(df, self.features_col)
         labels = _get_column(df, self.label_col)
         samples = [self._make_sample(f, l) for f, l in zip(feats, labels)]
-        trained = Optimizer(self.model, DataSet.array(samples),
-                            self.criterion, batch_size=self.batch_size) \
+        opt = Optimizer(self.model, DataSet.array(samples), self.criterion,
+                        batch_size=self.batch_size) \
             .set_optim_method(self.optim_method) \
             .set_end_when(self.end_trigger
-                          or Trigger.max_epoch(self.max_epoch)).optimize()
-        return self._make_model(trained)
+                          or Trigger.max_epoch(self.max_epoch))
+        if self.mesh is not None:
+            opt.set_mesh(self.mesh)
+        return self._make_model(opt.optimize())
 
     def _make_model(self, trained: Module) -> "DLModel":
         return DLModel(trained, self.feature_size,

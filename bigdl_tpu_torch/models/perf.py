@@ -12,8 +12,9 @@ resnet20-cifar, inception-v1, inception-v2, vgg16 and alexnet.
 `--mesh data=N` times the data-parallel step of
 parallel/data_parallel.py (ZeRO-1, the bf16 gradient wire) on this
 rank's rows of the batch; N > 1 runs under `torchrun --nproc_per_node
-N`, and a `model`/`seq`/`expert`/`pipe` axis waits for ROADMAP.md queue
-A.8, step 5.
+N`. Other mesh axes build as parallel/mesh.py allows, but the harness
+times the data axis only, and a mesh without one is refused, as the
+JAX harness refuses it.
 The result is logged as one JSON line through the
 `bigdl_tpu_torch.models` logger, on stdout.
 """
@@ -124,7 +125,8 @@ def dp_train_step(model_name: str, batch_size: int, mesh_axes: str,
     from bigdl_tpu_torch.optim import SGD, Adam
     from bigdl_tpu_torch.parallel import (FlatParamSpec, host_to_global,
                                           make_dp_train_step, make_mesh,
-                                          parse_axes, place_global)
+                                          parse_axes)
+    from bigdl_tpu_torch.parallel.mesh import place_global
     from bigdl_tpu_torch.utils.precision import DEFAULT_MIXED
 
     axes = parse_axes(mesh_axes)

@@ -18,8 +18,9 @@ plane when g++ builds it), `--tfrecords` TFRecord shards through
 dataset/tfrecord.py. `--mesh data=N` trains through
 `Optimizer.set_mesh` (parallel/distri_optimizer.DistriOptimizer): N = 1
 opens its own one-rank group (NCCL on the card, gloo on the CPU); N > 1
-runs under `torchrun --nproc_per_node N`. `--moeExperts` other than 0
-waits for ROADMAP.md queue A.8, step 5, and raises.
+runs under `torchrun --nproc_per_node N`. `--moeExperts E` (with
+`--moeTopK`, `--moeRouting`) gives the transformer a mixture-of-experts
+FFN of E experts (parallel/moe.py).
 """
 
 from __future__ import annotations
@@ -61,8 +62,8 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--recordsAug", default="",
                     help="comma subset of: hflip,pad<N> (e.g. hflip,pad4)")
     ap.add_argument("--moeExperts", type=int, default=0,
-                    help="transformer only: MoE FFN experts (0 = dense; "
-                         "others wait for ROADMAP.md queue A.8, step 5)")
+                    help="transformer only: Switch/GShard-MoE FFN with "
+                         "this many experts (0 = dense)")
     ap.add_argument("--moeTopK", type=int, default=1, choices=[1, 2])
     ap.add_argument("--moeRouting", default="top_k",
                     choices=["top_k", "expert_choice"])
@@ -224,10 +225,6 @@ def main(argv=None, device=None):
     from bigdl_tpu_torch.visualization import (TrainSummary,
                                                ValidationSummary)
 
-    if args.moeExperts:
-        raise NotImplementedError(
-            f"--moeExperts {args.moeExperts}: MoE training is not ported "
-            "to bigdl_tpu_torch yet (ROADMAP.md queue A.8, step 5)")
     if args.records and args.tfrecords:
         raise SystemExit("--records and --tfrecords are exclusive")
     if (args.records or args.tfrecords) and args.model in (

@@ -41,9 +41,24 @@ gemm weight goes through `_deq` and the embedding lookup through
 untouched (as in the JAX package), so fp32 stays the bitwise reference
 layout and the training paths never see a `QuantWeight`.
 
-Not ported: the dense per-slot cache, mixture-of-experts FFNs, tensor
-and sequence parallelism — asking for any of them raises
-NotImplementedError.
+Mixture-of-experts FFNs (`moe_experts > 0`) replace every block's MLP
+with the routed experts of parallel/moe.py (Switch top-1, GShard top-2
+or expert choice; the expert-stacked leaves `router (L, E, EX)`, `w1
+(L, EX, E, F)`, `b1`, `w2`, `b2`); `apply_hidden(with_aux=True)`
+returns the summed load-balancing aux and `loss()` adds
+`moe_aux_weight · aux`. The parallel variants run on a process mesh
+bound by parallel/collectives.bind (the step builders of
+parallel/tensor_parallel.py, pipeline.py and moe.py bind it): with
+`tp_axis` the block takes column- and row-split weights, with
+`tp_identity` before the column-parallel gemms and `tp_reduce` after
+the row-parallel ones; with `sp_axis` attention is ring or zigzag
+attention (parallel/ring_attention.py) and the positional rows are
+this rank's chunk's; with `ep_axis` the experts are split over that
+axis. The serving trio refuses MoE and `sp_axis` models as the JAX
+package does, and serves `tp_axis` only through serving/tp.py, which
+waits for ROADMAP.md queue A.8, step 6.
+
+Not ported: the dense per-slot cache.
 """
 
 from __future__ import annotations
@@ -67,6 +82,8 @@ from bigdl_tpu_torch.ops.kv_cache import (block_attention,
                                           write_decode_blocks,
                                           write_prompt_blocks)
 from bigdl_tpu_torch.ops.paged_decode import paged_decode_attention
+from bigdl_tpu_torch.parallel.collectives import (axis_index, axis_size,
+                                                  tp_identity, tp_reduce)
 from bigdl_tpu_torch.utils.device import DeviceLike, resolve_device
 
 Pools = Tuple[Dict[str, torch.Tensor], ...]
@@ -107,17 +124,42 @@ class TransformerConfig:
     # (checkpoint only the FFN half)
     remat: bool = False
     remat_policy: str = "full"
-    # kept so a JAX configuration maps field for field; only 0 is ported
+    # Switch/GShard-MoE FFN: moe_experts > 0 replaces every block's MLP
+    # with a routed mixture of moe_experts expert MLPs
+    # (parallel/moe.py); the load-balancing aux, summed over layers, is
+    # added to .loss() scaled by moe_aux_weight
     moe_experts: int = 0
+    moe_top_k: int = 1
+    moe_capacity_factor: float = 1.25
+    moe_aux_weight: float = 0.01
+    # "top_k" (Switch/GShard, capacity dropping) or "expert_choice"
+    # (dropless, aux 0, not causally masked — see parallel/moe.py)
+    moe_routing: str = "top_k"
 
     def __post_init__(self):
         if self.remat_policy not in REMAT_POLICIES:
             raise ValueError(
                 f"remat_policy {self.remat_policy!r}: expected 'full', "
                 "'dots' or 'attn_saved'")
-        if self.moe_experts:
-            raise NotImplementedError(
-                "mixture-of-experts FFNs are not ported yet")
+        if self.moe_experts and self.moe_top_k not in (1, 2):
+            raise ValueError("moe_top_k must be 1 or 2")
+        if self.moe_routing not in ("top_k", "expert_choice"):
+            raise ValueError(
+                f"moe_routing {self.moe_routing!r}: expected 'top_k' "
+                "or 'expert_choice'")
+        if (self.moe_experts and self.moe_routing == "expert_choice"
+                and self.causal):
+            # expert-choice routing selects tokens per expert over the
+            # whole sequence: at train time an expert's choice for
+            # position t depends on tokens after t
+            import logging
+
+            logging.getLogger("bigdl_tpu_torch.models").warning(
+                "moe_routing='expert_choice' with causal=True: "
+                "expert-choice token selection reads the full sequence, "
+                "leaking future tokens into the routing decision at "
+                "train time; causal-LM eval/teacher-forcing metrics may "
+                "be optimistic (see parallel/moe.py)")
         if self.dim % self.num_heads:
             raise ValueError("dim must be divisible by num_heads")
 
@@ -156,23 +198,58 @@ class TransformerLM(Module):
     utils/device.py). `attn_impl` selects the training attention
     (ops/flash_attention.py: None → the kernels on CUDA tensors, the
     plain version on CPU tensors; "cuda" or "torch" explicitly).
-    `sp_axis` / `tp_axis` exist to refuse the JAX package's parallel
-    variants explicitly."""
+
+    `sp_axis`: attention runs as ring attention over that mesh axis,
+    on this rank's sequence chunk (positional rows offset by the
+    chunk's global position); `sp_mode` "ring" (contiguous chunks) or
+    "zigzag" (the causal load-balanced layout: callers feed tokens and
+    targets permuted into it, as make_transformer_train_step does).
+    `tp_axis`: the Megatron split (parallel/tensor_parallel.py).
+    `ep_axis`: the MoE experts split over that axis (parallel/moe.py).
+    Each needs its mesh bound (parallel/collectives.bind)."""
 
     def __init__(self, config: TransformerConfig,
                  device: DeviceLike = None,
                  sp_axis: Optional[str] = None,
                  tp_axis: Optional[str] = None,
                  attn_impl: Optional[str] = None,
+                 sp_mode: str = "ring",
+                 ep_axis: Optional[str] = None,
                  name: Optional[str] = None):
         super().__init__(name=name)
-        if sp_axis is not None or tp_axis is not None:
-            raise NotImplementedError(
-                "sequence and tensor parallelism are not ported yet")
         self.cfg = config
         self.device = resolve_device(device)
+        self.sp_axis = sp_axis
+        self.tp_axis = tp_axis
         self.attn_impl = attn_impl
+        self.ep_axis = ep_axis
+        if ep_axis is not None and not config.moe_experts:
+            raise ValueError("ep_axis requires moe_experts > 0")
+        if sp_mode not in ("ring", "zigzag"):
+            raise ValueError(f"sp_mode must be ring|zigzag, got {sp_mode}")
+        if sp_mode == "zigzag" and not config.causal:
+            raise ValueError("zigzag sp_mode requires a causal model")
+        self.sp_mode = sp_mode
+        self._moe = None
+        if config.moe_experts:
+            if tp_axis is not None:
+                raise NotImplementedError(
+                    "MoE FFN under tensor parallelism (expert "
+                    "parallelism shards experts instead; see "
+                    "parallel/moe.py)")
+            from bigdl_tpu_torch.parallel.moe import MoE
+
+            # routing/dispatch only; its params are the per-layer
+            # slices of the stacked block weights
+            self._moe = MoE(config.dim, config.dim * config.mlp_ratio,
+                            config.moe_experts,
+                            capacity_factor=config.moe_capacity_factor,
+                            top_k=config.moe_top_k,
+                            routing=config.moe_routing,
+                            expert_axis=ep_axis, name="moe_ffn")
         self.head_dim = config.dim // config.num_heads
+        # per-layer routing records of the last MoE forward
+        self.moe_routes = []
 
     # ------------------------------------------------------------ params
     def init_params(self, generator: Optional[torch.Generator] = None
@@ -199,9 +276,19 @@ class TransformerLM(Module):
             "bq": torch.zeros(n, e), "bk": torch.zeros(n, e),
             "bv": torch.zeros(n, e), "bo": torch.zeros(n, e),
             "ln2_g": torch.ones(n, e), "ln2_b": torch.zeros(n, e),
-            "w1": norm((n, e, f), e), "b1": torch.zeros(n, f),
-            "w2": norm((n, f, e), f), "b2": torch.zeros(n, e),
         }
+        if c.moe_experts:
+            ex = c.moe_experts
+            blocks.update({
+                "router": norm((n, e, ex), e),
+                "w1": norm((n, ex, e, f), e), "b1": torch.zeros(n, ex, f),
+                "w2": norm((n, ex, f, e), f), "b2": torch.zeros(n, ex, e),
+            })
+        else:
+            blocks.update({
+                "w1": norm((n, e, f), e), "b1": torch.zeros(n, f),
+                "w2": norm((n, f, e), f), "b2": torch.zeros(n, e),
+            })
         p = {
             "embed": torch.randn(c.vocab_size, e, generator=g) * 0.02,
             "pos": torch.randn(c.max_len, e, generator=g) * 0.02,
@@ -259,15 +346,27 @@ class TransformerLM(Module):
 
     # ---------------------------------------------------------- training
     def _attention(self, q, k, v):
+        from bigdl_tpu_torch.parallel.ring_attention import (
+            ring_attention, zigzag_ring_attention)
+
+        if self.sp_axis is not None:
+            if self.sp_mode == "zigzag":
+                return zigzag_ring_attention(q, k, v, axis=self.sp_axis)
+            return ring_attention(q, k, v, axis=self.sp_axis,
+                                  causal=self.cfg.causal)
         return flash_attention(q, k, v, causal=self.cfg.causal,
                                impl=self.attn_impl)
 
     def _block(self, x: torch.Tensor, bp: Dict[str, torch.Tensor],
                masks: Tuple[Optional[torch.Tensor], ...],
-               remat_mlp: bool = False) -> torch.Tensor:
-        """One pre-LN block; `masks` are the block's two dropout
-        multipliers (None: no dropout). remat_mlp=True (the
-        "attn_saved" policy) checkpoints ONLY the FFN half: the
+               remat_mlp: bool = False
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One pre-LN block → (x, MoE aux); `masks` are the block's two
+        dropout multipliers (None: no dropout). With `tp_axis` the
+        column-split wq/wk/wv/w1 and row-split wo/w2 of this rank
+        arrive (the local head count comes from wq's shape) and each
+        row-parallel gemm is followed by `tp_reduce`. remat_mlp=True
+        (the "attn_saved" policy) checkpoints ONLY the FFN half: the
         attention half runs outside any checkpoint, so the flash
         forward's saved tensors stay and the backward does not re-run
         the forward kernel."""
@@ -275,34 +374,71 @@ class TransformerLM(Module):
         d = self.head_dim
         h = bp["wq"].shape[-1] // d
         y = layer_norm(x, bp["ln1_g"], bp["ln1_b"])
+        if self.tp_axis is not None:
+            y = tp_identity(y, self.tp_axis)
         q = self._split_heads(y @ bp["wq"] + bp["bq"], h)
         k = self._split_heads(y @ bp["wk"] + bp["bk"], h)
         v = self._split_heads(y @ bp["wv"] + bp["bv"], h)
         a = self._attention(q, k, v)
-        a = a.transpose(1, 2).reshape(b, s, h * d) @ bp["wo"] + bp["bo"]
+        a = a.transpose(1, 2).reshape(b, s, h * d) @ bp["wo"]
+        if self.tp_axis is not None:
+            a = tp_reduce(a, self.tp_axis)   # row-parallel partial sums
+        a = a + bp["bo"]
         if masks[0] is not None:
             a = a * masks[0]
         x = x + a
 
         def ffn(xres):
-            y = self._dense_ffn(layer_norm(xres, bp["ln2_g"], bp["ln2_b"]),
-                                bp)
-            return y if masks[1] is None else y * masks[1]
+            y = layer_norm(xres, bp["ln2_g"], bp["ln2_b"])
+            aux = y.new_zeros((), dtype=torch.float32)
+            if self._moe is not None:
+                moe_p = {k: bp[k] for k in ("router", "w1", "b1", "w2",
+                                            "b2")}
+                (y, aux), _ = self._moe.apply({"params": moe_p}, y)
+            elif self.tp_axis is not None:
+                y = tp_identity(y, self.tp_axis)
+                y = F.gelu(y @ bp["w1"] + bp["b1"], approximate="tanh")
+                y = tp_reduce(y @ bp["w2"], self.tp_axis) + bp["b2"]
+            else:
+                y = self._dense_ffn(y, bp)
+            return (y if masks[1] is None else y * masks[1]), aux
 
-        return x + (_remat(ffn, x) if remat_mlp else ffn(x))
+        y, aux = _remat(ffn, x) if remat_mlp else ffn(x)
+        return x + y, aux
+
+    def _positions(self, p: Dict[str, Any], s: int) -> torch.Tensor:
+        """The positional rows of this rank's (B, s) tokens: the first s
+        rows, or under `sp_axis` the rows of this rank's sequence chunk
+        (contiguous, or its two zigzag half-chunks)."""
+        if self.sp_axis is None:
+            return p["pos"][:s]
+        n, my = axis_size(self.sp_axis), axis_index(self.sp_axis)
+        if self.sp_mode == "zigzag":
+            from bigdl_tpu_torch.parallel.ring_attention import \
+                zigzag_positions
+
+            if s % 2:
+                raise ValueError(
+                    f"zigzag sp_mode needs an even local sequence "
+                    f"length, got {s}")
+            return p["pos"][zigzag_positions(n, s)[my].to(
+                p["pos"].device)]
+        return p["pos"][my * s:(my + 1) * s]
 
     def apply_hidden(self, variables: Dict[str, Any], tokens: torch.Tensor,
                      training: bool = False,
-                     rng: Optional[torch.Generator] = None):
-        """Forward up to the final LayerNorm: (B, S) int → (B, S, E).
-        The training hot path: pair
+                     rng: Optional[torch.Generator] = None,
+                     with_aux: bool = False):
+        """Forward up to the final LayerNorm: (B, S) int → (B, S, E);
+        `with_aux=True` also returns the summed MoE load-balancing aux
+        (0.0 for dense configs). The training hot path: pair
         with `head(variables)` and
         `ops.losses.softmax_cross_entropy_chunked`, so (B, S, V) is
         never held."""
         c = self.cfg
         p = self._params(variables)
         s = tokens.shape[-1]
-        x = p["embed"][tokens.long()] + p["pos"][:s]
+        x = p["embed"][tokens.long()] + self._positions(p, s)
         drop = training and c.dropout > 0.0
         if drop and rng is None:
             raise ValueError(f"{self.name}: dropout needs rng in training")
@@ -311,17 +447,23 @@ class TransformerLM(Module):
         layers = [dict(zip(names, vals)) for vals in
                   zip(*(blocks[n].unbind(0) for n in names))]
         remat = c.remat_policy if c.remat else None
+        self.moe_routes = []
+        aux = x.new_zeros((), dtype=torch.float32)
         for bp in layers:
             masks = ((_dropout_mask(x.shape, 1.0 - c.dropout, x, rng),
                       _dropout_mask(x.shape, 1.0 - c.dropout, x, rng))
                      if drop else (None, None))
             if remat in ("full", "dots"):
-                x = _remat(functools.partial(self._block, masks=masks), x,
-                           bp, policy=remat)
+                x, a = _remat(functools.partial(self._block, masks=masks),
+                              x, bp, policy=remat)
             else:
-                x = self._block(x, bp, masks,
-                                remat_mlp=remat == "attn_saved")
-        return layer_norm(x, p["lnf_g"], p["lnf_b"])
+                x, a = self._block(x, bp, masks,
+                                   remat_mlp=remat == "attn_saved")
+            aux = aux + a
+            if self._moe is not None:
+                self.moe_routes.append(self._moe.last_route)
+        h = layer_norm(x, p["lnf_g"], p["lnf_b"])
+        return (h, aux) if with_aux else h
 
     def loss(self, variables: Dict[str, Any], tokens: torch.Tensor,
              targets: torch.Tensor, training: bool = False,
@@ -331,10 +473,14 @@ class TransformerLM(Module):
         log-probs (ops/losses.softmax_cross_entropy_chunked)."""
         from bigdl_tpu_torch.ops.losses import softmax_cross_entropy_chunked
 
-        hidden = self.apply_hidden(variables, tokens, training=training,
-                                   rng=rng)
-        return softmax_cross_entropy_chunked(hidden, self.head(variables),
-                                             targets, chunk=chunk)
+        hidden, aux = self.apply_hidden(variables, tokens,
+                                        training=training, rng=rng,
+                                        with_aux=True)
+        nll = softmax_cross_entropy_chunked(hidden, self.head(variables),
+                                            targets, chunk=chunk)
+        if self.cfg.moe_experts:
+            return nll + self.cfg.moe_aux_weight * aux
+        return nll
 
     def apply(self, variables: Dict[str, Any], tokens: torch.Tensor,
               training: bool = False,
@@ -348,6 +494,20 @@ class TransformerLM(Module):
 
     # ------------------------------------------------------- paged KV
     def _serving_guard(self) -> None:
+        if self.tp_axis is not None:
+            raise NotImplementedError(
+                "tensor-parallel serving runs through serving/tp.py, "
+                "which is not ported to bigdl_tpu_torch yet (ROADMAP.md, "
+                "queue A.8, step 6)")
+        if self.sp_axis is not None:
+            raise NotImplementedError(
+                "incremental decode runs single-mesh (no sp axis; tp "
+                "only on the paged trio via serving/tp.py); build a "
+                "plain TransformerLM for dense-cache serving")
+        if self.cfg.moe_experts:
+            raise NotImplementedError(
+                "incremental decode for MoE FFNs (routing is per-token; "
+                "not wired yet)")
         if not self.cfg.causal:
             raise ValueError("incremental decode requires causal=True")
 

@@ -9,8 +9,12 @@ padded by the batching (`SampleToMiniBatch` repeats the last sample)
 and its padded rows are masked out of the metrics and cut from the
 predictions (`real_size`).
 
-Evaluating over a device mesh (`Evaluator(model, mesh=...)`) is not
-ported (ROADMAP.md queue A.8, step 5). `Predictor(bucket_sizes=...)`
+`Evaluator(model, mesh=...)` evaluates data-parallel over a process
+mesh (parallel/mesh.make_mesh), as the JAX package's `_test_mesh`:
+each batch is padded to a multiple of the axis size by repeating its
+last row, each rank runs `make_dp_eval_step` on its rows with a row
+mask, and the masked statistics are summed over the axis, so padded
+rows never count. `Predictor(bucket_sizes=...)`
 pads a batch up to the smallest bucket that covers it, repeating its
 last row as the JAX Predictor does, and cuts the padded rows from the
 output; without buckets a batch runs at its own size (eager PyTorch
@@ -85,17 +89,46 @@ class Evaluator:
     """(reference: optim/Evaluator.scala#Evaluator.test)"""
 
     def __init__(self, model: Module, mesh=None, axis: str = "data"):
-        if mesh is not None:
-            raise NotImplementedError(
-                "Evaluator(mesh=...): evaluation over a device mesh is not "
-                "ported to bigdl_tpu_torch yet (ROADMAP.md, queue A.8, "
-                "step 5)")
         self.model = model
+        self.mesh = mesh
+        self.axis = axis
 
     def test(self, dataset: AbstractDataSet,
              methods: Sequence[ValidationMethod],
              batch_size: int = 32) -> Dict[str, ValidationResult]:
+        if self.mesh is not None:
+            return self._test_mesh(dataset, methods, batch_size)
         return evaluate(self.model, dataset, methods, batch_size)
+
+    def _test_mesh(self, dataset, methods, batch_size):
+        import numpy as np
+
+        from bigdl_tpu_torch.dataset.sample import MiniBatch
+        from bigdl_tpu_torch.parallel.data_parallel import make_dp_eval_step
+        from bigdl_tpu_torch.parallel.mesh import host_to_global
+
+        model, mesh, axis = self.model, self.mesh, self.axis
+        n = mesh.shape[axis]
+        variables = model.variables
+        eval_fn = make_dp_eval_step(model, methods, mesh, axis)
+        results = [ValidationResult(0.0, 0.0, m.name) for m in methods]
+        for mb in _batch_iterator(dataset, False, batch_size):
+            real = getattr(mb, "real_size", mb.size)
+            rows = -(-mb.size // n) * n
+            if rows != mb.size:
+                # filler rows repeat the batch's last row, so Loss-style
+                # metrics' edge correction cancels them exactly
+                mb = MiniBatch(pad_rows(mb.input, rows),
+                               pad_rows(mb.target, rows))
+            mask = (np.arange(rows) < real).astype(np.float32)
+            stats = eval_fn(variables["params"], variables["state"],
+                            host_to_global(mesh, mb.input, axis),
+                            host_to_global(mesh, mb.target, axis),
+                            host_to_global(mesh, mask, axis))
+            for i, (s, c) in enumerate(stats):
+                results[i] = results[i] + ValidationResult(float(s),
+                                                           float(c))
+        return {m.name: r for m, r in zip(methods, results)}
 
 
 class Predictor:

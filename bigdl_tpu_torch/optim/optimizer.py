@@ -56,8 +56,9 @@ Ported:
   ZeRO-1/2); LocalOptimizer resumes its `zero1_flat`/`zero2_flat`
   checkpoints, unflattening the flat slots.
 
-`set_checkpoint(sharded=True)` raises NotImplementedError (ROADMAP.md,
-queue A.8, step 4).
+`set_checkpoint(sharded=True)` writes the ZeRO flat optimizer state as
+per-shard units under a mesh (DistriOptimizer); a mesh-less run refuses
+to write them, and resumes from them (the flat layout unflattens).
 """
 
 from __future__ import annotations
@@ -218,7 +219,9 @@ class Optimizer:
         """Save a checkpoint under `path` whenever `trigger` fires after
         a step; `async_save=True` moves the disk writes to a background
         thread (the host snapshot stays on the loop's thread).
-        `sharded=True` raises: sharded checkpoints wait for queue A.8."""
+        `sharded=True` saves the ZeRO flat optimizer state as per-shard
+        units with a manifest-last publish (mesh runs only; resume
+        reshards across world sizes)."""
         self.checkpoint = Checkpoint(path, sharded=sharded,
                                      async_save=async_save)
         self.checkpoint_trigger = trigger
@@ -297,6 +300,12 @@ class Optimizer:
 
                 return DistriOptimizer(self, self.mesh, self.mesh_axis,
                                        zero=self.mesh_zero).run()
+            if self.checkpoint is not None and self.checkpoint.sharded:
+                raise ValueError(
+                    "sharded checkpoints shard the ZeRO flat optimizer "
+                    "state — they need a mesh (set_mesh); a local run "
+                    "can still RESUME from one (the flat layout "
+                    "unflattens)")
             return LocalOptimizer(self).run()
         except BaseException:
             # a dying run drains the background checkpoint writer, so a

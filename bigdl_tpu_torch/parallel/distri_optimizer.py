@@ -32,8 +32,14 @@ after a step exception (`max_retries`); and validation through
 by the axis padded with copies of its last row (the JAX package's
 `tile_first`, which keeps the Loss edge correction exact).
 
-Sharded checkpoints (`set_checkpoint(sharded=True)`, `save_sharded`)
-wait for ROADMAP.md queue A.8, step 4, and raise there.
+Sharded checkpoints (`set_checkpoint(sharded=True)`): each rank hands
+`Checkpoint.save_sharded` its own slice of the flat slots — no slot
+gather, no full optimizer state on any one rank — and rank 0 also the
+gathered model and accumulator; every rank then drains its writer and
+meets the others at a barrier, so none runs ahead of a checkpoint it
+might recover from. A sharded checkpoint loads as the full flat
+vectors, so a resume at another world size re-pads them
+(param_layout.adapt_flat_tree) as it does the full format's.
 """
 
 from __future__ import annotations
@@ -264,36 +270,45 @@ class DistriOptimizer(LocalOptimizer):
         self.micro_n = int(saved["micro_n"])
 
     def _save(self, train_state) -> Optional[str]:
-        """One checkpoint in the JAX package's format: the flat slots and
-        accumulator gathered from every rank, written by rank 0; the
-        other ranks wait at a barrier until the write is complete."""
+        """One checkpoint in the JAX package's format. Full format: the
+        flat slots and accumulator gathered from every rank, written by
+        rank 0. Sharded: each rank writes its own slot slice, rank 0
+        the model, the accumulator and the manifest. Either way the
+        ranks then wait at a barrier until the write is complete."""
         o, mesh, spec = self.o, self.mesh, self.spec
+        ck = o.checkpoint
         flat_full = self._full_w()
         group = mesh.group
-        full_slots = {k: _all_gather(v[0], self.n, group)
-                      for k, v in self.slots.items()}
         accum_state = None
         if self.micro_n:  # mid-cycle: persist the partial accumulator
             accum_state = {"g_acc": _all_gather(self.g_acc, self.n, group),
                            "micro_n": self.micro_n}
-        path = None
-        if mesh.rank == 0:
-            path = o.checkpoint.save(
-                train_state["neval"],
-                {"params": spec.unflatten(flat_full),
-                 "state": self.mod_state},
-                full_slots,
-                {k: train_state[k] for k in
-                 ("epoch", "neval", "nupdates", "records")},
-                optim_meta={"layout": f"zero{self.zero}_flat",
-                            "num_shards": self.n, "total": spec.total,
-                            "padded": spec.padded},
-                accum_state=accum_state)
+        model = {"params": spec.unflatten(flat_full),
+                 "state": self.mod_state}
+        train_meta = {k: train_state[k] for k in
+                      ("epoch", "neval", "nupdates", "records")}
+        optim_meta = {"layout": f"zero{self.zero}_flat",
+                      "num_shards": self.n, "total": spec.total,
+                      "padded": spec.padded}
+        if ck.sharded:
+            path = ck.save_sharded(
+                train_state["neval"], model if mesh.rank == 0 else None,
+                {mesh.rank: {k: v[0] for k, v in self.slots.items()}},
+                nshards=self.n, train_state=train_meta,
+                optim_meta=optim_meta, accum_state=accum_state)
+        else:
+            full_slots = {k: _all_gather(v[0], self.n, group)
+                          for k, v in self.slots.items()}
+            path = None
+            if mesh.rank == 0:
+                path = ck.save(train_state["neval"], model, full_slots,
+                               train_meta, optim_meta=optim_meta,
+                               accum_state=accum_state)
         if self.n > 1:
             # no rank may run ahead (and recover from this checkpoint)
-            # before the write is complete
-            if mesh.rank == 0:
-                o.checkpoint.wait()
+            # before the write is complete everywhere
+            if mesh.rank == 0 or ck.sharded:
+                ck.wait()
             dist.barrier(group=mesh.group)
         return path
 

@@ -33,11 +33,24 @@ pure-I/O write to one background thread; a new save first drains the
 previous write, so writer errors surface at the next `save`/`wait()`
 in a fixed order.
 
-Not ported: the sharded (ZeRO) format and its manifest-last publish,
-and multi-host writes — `save_sharded`, `Checkpoint(sharded=True)` and
-loading a sharded directory raise NotImplementedError (ROADMAP.md,
-queue A.8); the `checkpoint_save`/`checkpoint_load` events and the
-save-time histogram wait for `obs/` (queue A.9).
+Sharded checkpoints (`Checkpoint(sharded=True)`, `save_sharded`): a
+ZeRO-sharded run saves the flat optimizer-state vectors as per-shard
+save units (`optim-shard<i>of<n>.{npz,json}`, `shard_unit_name`), each
+with its own integrity manifest, plus a checkpoint-level
+`MANIFEST.json` written last. Every rank writes the shard units it
+owns; rank 0 (the JAX package's process 0) also writes the model and
+accumulator units and publishes the MANIFEST only after every shard's
+unit manifest is on disk, then swaps the staging dir over the final
+name. A kill at any point mid-save (the `ckpt_async_torn` fault kills
+the writer after a shard unit) strands only the staging dir, and its
+error surfaces at the next `save()`/`wait()`. On load the shards are
+verified and concatenated back into the full padded flat vectors, so a
+checkpoint written at one world size resumes at another
+(param_layout.adapt_flat_tree). Ranks share the checkpoint directory
+(one filesystem). The format is the JAX package's both ways.
+
+Not ported: the `checkpoint_save`/`checkpoint_load` events and the
+save-time histogram, which wait for `obs/` (queue A.9).
 """
 
 from __future__ import annotations
@@ -55,6 +68,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from bigdl_tpu_torch.utils import faults
 from bigdl_tpu_torch.utils.table import Table, sort_key
@@ -64,10 +78,9 @@ logger = logging.getLogger("bigdl_tpu_torch.optim")
 _SEP = "/"
 
 
-def _sharded_not_ported(what: str):
-    raise NotImplementedError(
-        f"Checkpoint: {what} is not ported to bigdl_tpu_torch yet "
-        f"(ROADMAP.md, queue A.8)")
+def _rank() -> int:
+    """This process's rank (the JAX package's process index)."""
+    return dist.get_rank() if dist.is_initialized() else 0
 
 
 class CheckpointCorruptError(Exception):
@@ -153,13 +166,17 @@ def _host_tree(tree, path=()):
 
 
 def save_pytree(directory: str, name: str, tree: Any,
-                metadata: Optional[Dict] = None) -> str:
+                metadata: Optional[Dict] = None,
+                only_host0: bool = False) -> str:
+    if only_host0 and _rank() != 0:
+        return os.path.join(directory, name)
     os.makedirs(directory, exist_ok=True)
     leaves, structure = _flatten(_host_tree(tree))
     npz_path = os.path.join(directory, f"{name}.npz")
     json_path = os.path.join(directory, f"{name}.json")
     np.savez(npz_path, **leaves)
-    # the .json is the unit's completion marker, so it must appear
+    # the .json is the unit's completion marker (sharded saves await
+    # its existence across ranks before publishing), so it must appear
     # atomically — a bare open('w') would be visible while still empty
     tmp_path = json_path + ".tmp"
     with open(tmp_path, "w") as f:
@@ -235,6 +252,12 @@ def verify_pytree(directory: str, name: str) -> None:
     load_pytree(directory, name, as_torch=False, verify=True)
 
 
+def shard_unit_name(index: int, nshards: int) -> str:
+    """Save-unit name of shard `index` of `nshards`
+    (`optim-shard003of008`)."""
+    return f"optim-shard{index:03d}of{nshards:03d}"
+
+
 class _AsyncSaver:
     """One daemon writer thread, one write in flight: `submit` first
     drains the previous write, then hands over the new snapshot. At
@@ -286,9 +309,11 @@ class Checkpoint:
     """Numbered training checkpoints with latest-discovery (reference:
     DistriOptimizer's checkpointPath + getLatestFile).
 
-    `async_save` moves the disk writes onto a background thread (the
+    `sharded` marks the intent to save per-shard units (the training
+    loops consult it to route through `save_sharded`); `async_save`
+    moves the disk writes of both formats onto a background thread (the
     host snapshot happens on the caller's thread, the I/O does not).
-    `sharded=True` raises: sharded checkpoints wait for queue A.8."""
+    Either way `load()` reads both formats."""
 
     MODEL = "model"
     OPTIM = "optim"
@@ -298,9 +323,8 @@ class Checkpoint:
 
     def __init__(self, path: str, sharded: bool = False,
                  async_save: bool = False):
-        if sharded:
-            _sharded_not_ported("sharded checkpoints (sharded=True)")
         self.path = path
+        self.sharded = sharded
         self.async_save = async_save
         os.makedirs(path, exist_ok=True)
         # last directory load() actually used — keeps load_accum() on
@@ -345,6 +369,9 @@ class Checkpoint:
         ({'g_acc': ..., 'micro_n': n}) — saved so a mid-cycle checkpoint
         resumes the cycle instead of dropping the partial gradients."""
         d = os.path.join(self.path, f"checkpoint-{step}")
+        if _rank() != 0:
+            # the full format is replicated: rank 0 writes for everyone
+            return d
         model_h = self._host_snapshot(model_variables)
         optim_h = self._host_snapshot(optim_state)
         accum_h = self._host_snapshot(accum_state)
@@ -389,8 +416,104 @@ class Checkpoint:
             # survive — load() must detect this and fall back
             faults.corrupt_file(os.path.join(d, f"{self.MODEL}.npz"))
 
-    def save_sharded(self, *args, **kwargs) -> str:
-        _sharded_not_ported("sharded checkpoints (save_sharded)")
+    # ------------------------------------------------------ sharded save
+    def save_sharded(self, step: int, model_variables: Any,
+                     shards: Dict[int, Any], nshards: int,
+                     train_state: Optional[Dict] = None,
+                     optim_meta: Optional[Dict] = None,
+                     accum_state: Optional[Any] = None) -> str:
+        """Save a ZeRO-sharded checkpoint: per-shard optimizer-state
+        units + a checkpoint-level MANIFEST published last.
+
+        `shards` maps shard index -> that shard's slot tree; each rank
+        passes only the shards it owns. Rank 0 also writes the model
+        (`model_variables`, the full tree; other ranks may pass None)
+        and accumulator units and, once every shard's unit manifest is
+        on disk, the MANIFEST. `optim_meta` carries the flat-layout
+        fields (layout/num_shards/total/padded) of elastic resume."""
+        d = os.path.join(self.path, f"checkpoint-{step}")
+        primary = _rank() == 0
+        model_h = self._host_snapshot(model_variables) if primary else None
+        accum_h = self._host_snapshot(accum_state) if primary else None
+        shards_h = {int(i): self._host_snapshot(t)
+                    for i, t in sorted(shards.items())}
+        self._dispatch(lambda: self._write_sharded(
+            d, step, model_h, shards_h, int(nshards), train_state,
+            optim_meta, accum_h, primary))
+        return d
+
+    @staticmethod
+    def _await(predicate, timeout_s: float = 120.0, what: str = "") -> None:
+        deadline = time.monotonic() + timeout_s
+        while not predicate():
+            if time.monotonic() > deadline:
+                raise TimeoutError(
+                    f"sharded checkpoint coordination timed out: {what}")
+            time.sleep(0.02)
+
+    def _write_sharded(self, d: str, step: int, model_h, shards_h,
+                       nshards: int, train_state, optim_meta, accum_h,
+                       primary: bool) -> None:
+        plan = faults.get_plan()
+        staging = d + ".inprogress"
+        old = d + ".old"
+        if primary:
+            # staging-then-swap, like _write_full; a leftover same-step
+            # staging dir from a crashed run is adopted, not deleted: a
+            # rank that raced ahead may already be writing into it, and
+            # a deterministic replay writes the same bytes
+            if os.path.isdir(old):
+                shutil.rmtree(old)
+            os.makedirs(staging, exist_ok=True)
+            save_pytree(staging, self.MODEL, model_h,
+                        metadata={"train_state": train_state or {}})
+            if accum_h is not None:
+                save_pytree(staging, self.ACCUM, accum_h)
+        else:
+            # the other ranks wait for rank 0 to open the staging dir
+            self._await(
+                lambda: os.path.isdir(staging),
+                what=f"host waiting for {staging} to open for writing")
+        for i, tree in shards_h.items():
+            save_pytree(staging, shard_unit_name(i, nshards), tree,
+                        metadata={"shard": i, "nshards": nshards,
+                                  **(optim_meta or {})})
+            if plan.fires("ckpt_async_torn", step):
+                # kill-during-background-save model: the writer dies
+                # with units in staging and no published dir — latest()
+                # never surfaces it, and the error surfaces at the next
+                # save()/wait()
+                raise faults.FaultInjected(
+                    f"injected fault ckpt_async_torn@{step}: writer "
+                    f"killed mid-save, torn units left in {staging}")
+        if primary:
+            self._await(
+                lambda: all(os.path.exists(os.path.join(
+                    staging, shard_unit_name(i, nshards) + ".json"))
+                    for i in range(nshards)),
+                what=f"waiting for all {nshards} shard units in "
+                     f"{staging}")
+            tmp = os.path.join(staging, self.MANIFEST + ".tmp")
+            with open(tmp, "w") as f:
+                json.dump({"format": 3, "step": int(step),
+                           "nshards": nshards,
+                           "optim_meta": optim_meta or {},
+                           "units": [shard_unit_name(i, nshards)
+                                     for i in range(nshards)],
+                           "has_accum": accum_h is not None,
+                           "saved_at": time.time()}, f)
+            os.rename(tmp, os.path.join(staging, self.MANIFEST))
+            # the publish: swap staging over the final name
+            if os.path.isdir(d):
+                os.rename(d, old)
+            os.rename(staging, d)
+            if os.path.isdir(old):
+                shutil.rmtree(old)
+            if plan.fires("ckpt_corrupt", step):
+                # bit-rot one published shard: load() must catch the
+                # crc mismatch and fall back
+                faults.corrupt_file(os.path.join(
+                    d, shard_unit_name(nshards // 2, nshards) + ".npz"))
 
     def load_accum(self, directory: Optional[str] = None):
         """The pending accumulation cycle saved alongside a checkpoint,
@@ -416,7 +539,8 @@ class Checkpoint:
         """Complete checkpoint dirs, newest step first. Completeness is
         the cheap structural check only (marker, both manifests, or a
         sharded MANIFEST); content integrity is verified by load(). A
-        `checkpoint-N.inprogress` staging dir never matches."""
+        sharded save whose writer died mid-write leaves only a
+        `checkpoint-N.inprogress` staging dir, which never matches."""
         if not os.path.isdir(self.path):
             return []
         found = []
@@ -446,13 +570,48 @@ class Checkpoint:
 
     def _load_dir(self, d: str, with_optim_meta: bool):
         if os.path.exists(os.path.join(d, self.MANIFEST)):
-            _sharded_not_ported(f"loading the sharded checkpoint {d}")
+            return self._load_sharded_dir(d, with_optim_meta)
         model_variables, meta = load_pytree(d, self.MODEL)
         optim_state, optim_meta = load_pytree(d, self.OPTIM)
         self._last_loaded = d
         if with_optim_meta:
             return (model_variables, optim_state, meta.get("train_state", {}),
                     optim_meta)
+        return model_variables, optim_state, meta.get("train_state", {})
+
+    def _load_sharded_dir(self, d: str, with_optim_meta: bool):
+        """Verify and concatenate the per-shard flat slot slices back
+        into the full (padded,) vectors. The result carries the
+        save-time layout (optim_meta from the MANIFEST); another world
+        size re-pads through param_layout.adapt_flat_tree. A damaged or
+        missing shard raises (CheckpointCorruptError /
+        FileNotFoundError), which load() turns into a fallback."""
+        from bigdl_tpu_torch.models.convert import tree_leaves, tree_map
+        from bigdl_tpu_torch.parallel.param_layout import concat_shard_trees
+
+        mpath = os.path.join(d, self.MANIFEST)
+        try:
+            with open(mpath) as f:
+                man = json.load(f)
+            nshards = int(man["nshards"])
+        except (ValueError, OSError, KeyError, TypeError) as e:
+            # a manifest that parses but lost its fields falls back like
+            # an unreadable one
+            raise CheckpointCorruptError(
+                f"unreadable sharded manifest {mpath}: {e}") from e
+        model_variables, meta = load_pytree(d, self.MODEL)
+        parts = [load_pytree(d, shard_unit_name(i, nshards),
+                             as_torch=False)[0] for i in range(nshards)]
+        if parts and tree_leaves(parts[0]):
+            optim_state = tree_map(torch.from_numpy,
+                                   concat_shard_trees(parts))
+        else:  # slot-less method (plain SGD): every shard tree is empty
+            optim_state = parts[0] if parts else {}
+        self._last_loaded = d
+        optim_meta = man.get("optim_meta") or {}
+        if with_optim_meta:
+            return (model_variables, optim_state,
+                    meta.get("train_state", {}), optim_meta)
         return model_variables, optim_state, meta.get("train_state", {})
 
     def load(self, directory: Optional[str] = None,

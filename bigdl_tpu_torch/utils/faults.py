@@ -38,9 +38,10 @@ Fault kinds and where the port consults them:
                   dispatching train step `step`; recovery is a fresh
                   process with `resume_from_checkpoint()`
     ckpt_async_torn
-                  kill the writer mid-way through a sharded save; parsed
-                  here, consulted by no port code until sharded
-                  checkpoints are ported (ROADMAP.md, queue A.8)
+                  kill the writer mid-way through a sharded save
+                  (Checkpoint._write_sharded, after a shard unit): the
+                  staging dir is never published, and the error
+                  surfaces at the next save()/wait()
 
 Serving kinds, consulted by `InferenceEngine.step`
 (serving/engine.py) with the engine's decode-step number, as the JAX

@@ -4,8 +4,10 @@ layouts, spill tier and disaggregated prefill), training (with
 checkpoints, resume, gradient accumulation and the anomaly guard),
 recurrent, CNN and TreeLSTM paths, its text, record-file and TFRecord
 input pipelines, LBFGS, criterions and eager facade, MultiHeadAttention,
-the rest of nn/ (int8, sparse, volumetric, ...) and the NCF,
-TextClassifier and autoencoder models on one NVIDIA GPU and check them.
+the rest of nn/ (int8, sparse, volumetric, ...), the NCF,
+TextClassifier and autoencoder models, data-parallel training, the
+MoE-FFN LM, the tensor/pipeline/sequence/expert-parallel steps at world
+size 1 and sharded checkpoints on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py            # from the repository root, one CUDA card
     python3 chip_smoke.py --profile  # also: where decode, train,
@@ -290,7 +292,27 @@ It drives `bigdl_tpu_torch` only (never JAX or the JAX package):
    news20's from a GloVe-shaped embedding and the autoencoder on MNIST
    through Optimizer: losses falling, step ms, samples/s and the busy
    share of one profiled step each;
-33. kernels — one JSON line per the port's kernel table.
+33. native_plane, distri_cli, distri_parity, convlstm (PR 16) — the
+   C++ data plane, ResNet-50 through the training CLI's `--mesh data=1`
+   under NCCL, DistriOptimizer against LocalOptimizer (LeNet-5 and the
+   LM under ZeRO-2), ConvLSTMPeephole card vs CPU;
+34. moe_lm — the MoE-FFN LM at the 43M LM's widths (8 experts, top-2,
+   capacity 1.25, bf16) through `Optimizer(...).optimize()`: 2 warm-up
+   and 10 timed steps, K2/K3 exactly 8 / 16 a step, one profiled step
+   (busy share); first batch through the kernels vs plain attention
+   (loss within 2e-2, the first layer's routing 98% alike); the MoE
+   layer alone in fp32,
+   card vs CPU; tokens/s, step ms, peak memory, dropped share a layer;
+35. parallel_w1 — one NCCL rank, every mesh axis 1, fp32 full
+   log-softmax: the dp x tp step and the pipeline step (4 microbatches)
+   against LocalOptimizer (loss, params after a step), Ulysses against
+   ops.flash_attention, the expert-parallel step against moe_lm's loss;
+   launches and ms a step;
+36. sharded_ckpt — the 43M LM under DistriOptimizer(zero=2) with async
+   sharded checkpoints, preempted and resumed from another seed's
+   weights: masters bit for bit the uninterrupted run's; save stalls,
+   resume seconds;
+37. kernels — one JSON line per the port's kernel table.
 
 Every phase prints one JSON line; any failed check raises and the
 script exits non-zero. The last lines are the `nvidia-smi` name/power
@@ -6627,6 +6649,539 @@ def phase_convlstm():
          total_seconds=time.perf_counter() - t0)
 
 
+# --------------------------------------------------------------------
+# PR 17: A.8 steps 4-5 — the MoE-FFN LM, the parallel steps at world
+# size 1, sharded checkpoints
+# the MoE LM: the trainer's 43M widths with 8 experts, top-2 (the JAX
+# CLI's --moeExperts/--moeTopK switches), capacity 1.25
+MOE_CONFIG = dict(TRAIN_CONFIG, moe_experts=8, moe_top_k=2,
+                  moe_capacity_factor=1.25)
+MOE_WARMUP, MOE_STEPS = 2, 10
+# kernel vs plain attention, first batch, bf16: the loss within the bf16
+# tolerance the dense LM is held to (tests/test_torch_optimizer.py, 2e-2
+# relative); the share of tokens the first MoE layer routes alike (its
+# input differs by one bf16 attention; deeper layers compound earlier
+# flips, their shares are reported)
+MOE_LOSS_TOL, MOE_ROUTE_AGREE = 2e-2, 0.98
+# the MoE layer alone, fp32, card vs CPU: tokens whose top two gates
+# (and second and third) are more than MOE_GATE_GAP apart route alike;
+# their outputs agree within MOE_LAYER_TOL
+MOE_LAYER_TOKENS, MOE_GATE_GAP, MOE_LAYER_TOL = 2048, 1e-5, 1e-4
+# the parallel steps at world size 1: fp32, full log-softmax
+PAR_STEPS = 3                   # timed steps after one warm-up
+PAR_LOSS_TOL = 1e-5             # relative: tp and pipeline vs local
+PAR_PARAM_TOL = 1e-5            # after a step, of the largest master
+PAR_MICRO = 4                   # the pipeline's microbatches
+PAR_LR = 0.1                    # SGD, momentum 0.9 (_par_method)
+PAR_ULYSSES_SHAPE = (8, 8, 2048, 64)
+# sharded checkpoints: the 43M LM under DistriOptimizer(zero=2)
+SCK_STEPS, SCK_EVERY, SCK_PLAN = 4, 2, "preempt@3"
+
+
+def _moe_model(attn_impl=None, ep_axis=None):
+    from bigdl_tpu_torch.models.transformer import (TransformerConfig,
+                                                    TransformerLM)
+
+    return TransformerLM(TransformerConfig(**MOE_CONFIG),
+                         attn_impl=attn_impl, ep_axis=ep_axis)
+
+
+def _moe_layer_check():
+    """The MoE layer alone (the LM's widths) in fp32 on MOE_LAYER_TOKENS
+    seeded tokens, card vs CPU: routing and outputs."""
+    import torch
+
+    from bigdl_tpu_torch.models.transformer import TransformerConfig
+    from bigdl_tpu_torch.parallel import MoE
+
+    c = TransformerConfig(**MOE_CONFIG)
+    moe = MoE(c.dim, c.dim * c.mlp_ratio, c.moe_experts,
+              capacity_factor=c.moe_capacity_factor, top_k=c.moe_top_k)
+    p = moe.init_params(torch.Generator().manual_seed(7))
+    x = torch.randn(MOE_LAYER_TOKENS, c.dim,
+                    generator=torch.Generator().manual_seed(8))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        (y, aux), _ = moe.apply({"params": {k: v.to(dev)
+                                            for k, v in p.items()}},
+                                x.to(dev))
+        out[dev] = (y.cpu(), float(aux),
+                    [e.cpu() for e in moe.last_route["experts"]])
+    gates = torch.softmax(x @ p["router"], -1).sort(-1, descending=True)[0]
+    clear = ((gates[:, 0] - gates[:, 1]) > MOE_GATE_GAP) & (
+        (gates[:, 1] - gates[:, 2]) > MOE_GATE_GAP)
+    same = torch.ones_like(clear)
+    for a, b in zip(out["cuda"][2], out["cpu"][2]):
+        same &= a == b
+    routed_alike = bool(same[clear].all())
+    # a token routed differently moves the queue positions after it:
+    # outputs are compared where every token was routed alike
+    err = float((out["cuda"][0] - out["cpu"][0])[clear].abs().max()) \
+        if bool(same.all()) else float((out["cuda"][0] - out["cpu"][0])[
+            clear & same].abs().max())
+    check(routed_alike, "moe_lm: the MoE layer routed a clearly-gated "
+                        "token differently on the card")
+    check(err <= MOE_LAYER_TOL, f"moe_lm: MoE layer card vs CPU {err}")
+    return {"tokens": MOE_LAYER_TOKENS, "clear_tokens": int(clear.sum()),
+            "routed_alike_share": float(same.float().mean()),
+            "max_abs_err": err, "aux_card": out["cuda"][1],
+            "aux_cpu": out["cpu"][1], "tol": MOE_LAYER_TOL,
+            "gate_gap": MOE_GATE_GAP}
+
+
+def _moe_first_batch(params, x, y):
+    """The bf16 (DEFAULT_MIXED) loss of the first batch through the
+    flash kernels and through the plain attention, and the share of
+    (token, layer) routing decisions the two routes take alike."""
+    import torch
+
+    from bigdl_tpu_torch.nn import ChunkedSoftmaxCE
+    from bigdl_tpu_torch.ops.losses import build_train_loss
+    from bigdl_tpu_torch.utils.precision import DEFAULT_MIXED
+
+    res = {}
+    for impl in ("cuda", "torch"):
+        model = _moe_model(impl)
+        with torch.no_grad():
+            loss, _ = build_train_loss(model, ChunkedSoftmaxCE(),
+                                       DEFAULT_MIXED)(params, {}, x, y, None)
+        res[impl] = (float(loss), [[e.clone() for e in r["experts"]]
+                                   for r in model.moe_routes])
+    agree = [float(torch.stack([a == b for a, b in zip(ra, rb)]).all(0)
+                   .float().mean())
+             for ra, rb in zip(res["cuda"][1], res["torch"][1])]
+    return res["cuda"][0], res["torch"][0], agree
+
+
+def phase_moe_lm():
+    """The MoE-FFN Transformer-LM at the 43M LM's widths (MOE_CONFIG:
+    vocabulary 32000, dim 512, 8 heads, 8 layers, seq 2048, batch 8, 8
+    experts, top-2, capacity 1.25) through `Optimizer(...).optimize()`
+    with ChunkedSoftmaxCE, Adam(3e-4), DEFAULT_MIXED: MOE_WARMUP steps,
+    then MOE_STEPS timed steps whose flash launches are counted from 0
+    (8 forward, 16 backward a step, as the dense LM), then one step
+    under torch.profiler (device-busy share). Before it, on the first
+    batch: the bf16 loss through the kernels against the plain
+    attention (MOE_LOSS_TOL relative) and their routing decisions
+    (MOE_ROUTE_AGREE of the tokens alike in the first MoE layer, every
+    layer's share reported); the MoE layer
+    alone in fp32, card vs CPU (_moe_layer_check). Reported: tokens/s,
+    step ms, peak memory, the dropped share of the routing choices per
+    layer, the busy share. Returns the timed window's (fwd, bwd)
+    launches, the first batch and its loss through the kernels."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.dataset import DataSet
+    from bigdl_tpu_torch.dataset.text import synthetic_next_token
+    from bigdl_tpu_torch.optim import Adam, Optimizer, Trigger
+    fa = importlib.import_module("bigdl_tpu_torch.ops.flash_attention")
+
+    t0 = time.perf_counter()
+    layer = _moe_layer_check()
+    steps = MOE_WARMUP + MOE_STEPS + 1
+    samples = synthetic_next_token(TRAIN_BATCH * steps, VOCAB, TRAIN_SEQ)
+    model = _moe_model()
+    model.build(torch.Generator().manual_seed(0))
+    x = torch.as_tensor(np.stack([s.feature for s in
+                                  samples[:TRAIN_BATCH]])).cuda()
+    y = torch.as_tensor(np.stack([s.label for s in
+                                  samples[:TRAIN_BATCH]])).cuda()
+    loss_k, loss_p, agree = _moe_first_batch(model.variables["params"],
+                                             x, y)
+    rel = abs(loss_k - loss_p) / abs(loss_p)
+    check(rel <= MOE_LOSS_TOL, f"moe_lm: first-batch loss kernels "
+                               f"{loss_k} vs plain {loss_p}")
+    check(agree[0] >= MOE_ROUTE_AGREE,
+          f"moe_lm: routing alike {agree} (limit {MOE_ROUTE_AGREE} in the "
+          "first MoE layer)")
+    torch.cuda.empty_cache()
+
+    losses, marks = [], {}
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+
+    def watch(state):
+        if state["loss"] is not None:
+            losses.append(state["loss"])
+        n = state["neval"]
+        if n == MOE_WARMUP:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            fa.fwd_launches = fa.bwd_launches = 0  # main path starts here
+            marks["t0"] = time.perf_counter()
+        elif n == MOE_WARMUP + MOE_STEPS:
+            torch.cuda.synchronize()
+            marks["t1"] = time.perf_counter()
+            marks["launches"] = (fa.fwd_launches,  # main path ends here
+                                 fa.bwd_launches)
+            marks["peak"] = torch.cuda.max_memory_allocated() / 2 ** 30
+            prof.start()
+            marks["p0"] = time.perf_counter()
+        elif n == steps:
+            torch.cuda.synchronize()
+            marks["p1"] = time.perf_counter()
+            prof.stop()
+        return n >= steps
+
+    Optimizer(model, DataSet.array(samples), nn.ChunkedSoftmaxCE(),
+              batch_size=TRAIN_BATCH).set_optim_method(Adam(3e-4)) \
+        .set_precision("bf16").set_end_when(Trigger(watch)).optimize()
+    losses = [float(v) for v in losses]
+    dt = marks["t1"] - marks["t0"]
+    fwd, bwd = marks["launches"]
+    layers = MOE_CONFIG["num_layers"]
+    check(len(losses) == steps and all(math.isfinite(v) for v in losses),
+          f"moe_lm losses not all finite: {losses}")
+    # not gated on falling: in its first dozen Adam steps the router's
+    # updates move many tokens between experts (the loss rose for 4
+    # steps on the card, then fell); reported with the losses
+    check((fwd, bwd) == (MOE_STEPS * layers,
+                         MOE_STEPS * layers * fa.BWD_LAUNCHES),
+          f"moe_lm flash launches {(fwd, bwd)} over {MOE_STEPS} steps of "
+          f"{layers} layers")
+    k = MOE_CONFIG["moe_top_k"]
+    dropped = [(int(r["dropped_first"]) + int(r.get("dropped_second", 0)))
+               / (r["tokens"] * k) for r in model.moe_routes]
+    check(len(dropped) == layers, f"moe_lm: {len(dropped)} route records")
+    tokens = MOE_STEPS * TRAIN_BATCH * TRAIN_SEQ
+    busy = _profile_rows(prof, marks["p1"] - marks["p0"])
+    if isinstance(busy.get("device_ms"), float):
+        # the profiler slows the host: the share of an unprofiled step
+        busy["busy_share_of_timed_step"] = busy["device_ms"] / (
+            dt / MOE_STEPS * 1e3)
+    emit("moe_lm", steps=MOE_STEPS, warmup_steps=MOE_WARMUP,
+         batch=TRAIN_BATCH, seq=TRAIN_SEQ, experts=MOE_CONFIG["moe_experts"],
+         top_k=k, capacity_factor=MOE_CONFIG["moe_capacity_factor"],
+         seconds=dt, step_ms=dt / MOE_STEPS * 1e3,
+         tokens_per_sec=tokens / dt, peak_mem_gib=marks["peak"],
+         dropped_share_by_layer=dropped, busy=busy,
+         first_batch={"loss_kernels": loss_k, "loss_plain": loss_p,
+                      "rel_diff": rel, "tol": MOE_LOSS_TOL,
+                      "routing_alike_by_layer": agree,
+                      "routing_limit": MOE_ROUTE_AGREE},
+         layer_check=layer, launches={"fwd": fwd, "bwd": bwd},
+         losses=losses, total_seconds=time.perf_counter() - t0)
+    return {"launches": (fwd, bwd), "first_loss": loss_k,
+            "first_batch": (x, y)}
+
+
+def _par_method():
+    """SGD: a step moves each weight by lr times its gradient, so two
+    steps' params differ as their gradients do (Adam's first step is
+    lr x sign(g), which turns the rounding noise of a gradient that is
+    zero in exact arithmetic — the key bias's — into lr-sized moves)."""
+    from bigdl_tpu_torch.optim import SGD
+
+    return SGD(learningrate=PAR_LR, momentum=0.9, dampening=0.0)
+
+
+def _full_nll():
+    """Mean NLL of full log-probs — the JAX tp step's loss — as a
+    criterion without the chunked fusion."""
+    from bigdl_tpu_torch.nn.module import Criterion
+
+    class FullLogSoftmaxNLL(Criterion):
+        def forward(self, input, target):
+            return -input.gather(-1, target.long()[..., None]).mean()
+
+    return FullLogSoftmaxNLL()
+
+
+def _par_local(params, samples, steps):
+    """LocalOptimizer's fp32 SGD steps with the full-log-softmax loss
+    from `params`: (losses, final params, ms a step after the first)."""
+    import torch
+
+    from bigdl_tpu_torch.dataset import DataSet
+    from bigdl_tpu_torch.models.convert import tree_map
+    from bigdl_tpu_torch.optim import Optimizer, Trigger
+
+    model = _train_model()
+    model.variables = {"params": tree_map(lambda t: t.clone(), params),
+                       "state": {}}
+    losses, marks = [], {}
+
+    def watch(state):
+        if state["loss"] is not None:
+            losses.append(float(state["loss"]))
+        if state["neval"] in (1, steps):
+            torch.cuda.synchronize()
+            marks[state["neval"]] = time.perf_counter()
+        return state["neval"] >= steps
+
+    Optimizer(model, DataSet.array(samples), _full_nll(),
+              batch_size=TRAIN_BATCH).set_optim_method(_par_method()) \
+        .set_precision("fp32").set_end_when(Trigger(watch)).optimize()
+    ms = (marks[steps] - marks[1]) / (steps - 1) * 1e3 if steps > 1 \
+        else None
+    return losses, model.variables["params"], ms
+
+
+def _par_step(step, params, slots, samples, steps):
+    """`steps` calls of a parallel step from `params`: (losses, ms a
+    step after the first, the first step's K2/K3 launches, the params
+    after the first step, copied)."""
+    import numpy as np
+    import torch
+
+    from bigdl_tpu_torch.models.convert import tree_map
+
+    losses, launches, first, t = [], None, None, None
+    for i in range(steps):
+        batch = samples[i * TRAIN_BATCH:(i + 1) * TRAIN_BATCH]
+        x = torch.as_tensor(np.stack([b.feature for b in batch])).cuda()
+        y = torch.as_tensor(np.stack([b.label for b in batch])).cuda()
+        if i == 0:
+            torch.cuda.synchronize()
+            _zero_flash_counts()                # main path starts here
+        params, slots, loss = step(params, slots, x, y, PAR_LR, i, None)
+        losses.append(float(loss))
+        if i == 0:
+            launches = _flash_counts()          # main path ends here
+            first = tree_map(lambda t: t.detach().clone(), params)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+    torch.cuda.synchronize()
+    return (losses, (time.perf_counter() - t) / (steps - 1) * 1e3,
+            launches, first)
+
+
+def _max_rel(a_tree, b_tree) -> float:
+    from bigdl_tpu_torch.models.convert import tree_leaves
+
+    top = max(float(b.abs().max()) for b in tree_leaves(b_tree))
+    return max(float((a - b).abs().max()) for a, b in zip(
+        tree_leaves(a_tree), tree_leaves(b_tree))) / top
+
+
+def phase_parallel_w1(moe):
+    """The parallel strategies at world size 1 under NCCL (every mesh
+    axis 1: one card holds one rank; multi-rank parity is in the CPU
+    tests). On the 43M LM in fp32 with the full log-softmax loss and
+    SGD (_par_method), PAR_STEPS + 1 steps each from the same weights and
+    batches: make_transformer_train_step at {data: 1, model: 1} against
+    LocalOptimizer (first loss within PAR_LOSS_TOL relative, params after
+    the first step within PAR_PARAM_TOL of the largest master; K2/K3 8 /
+    16 a step); make_pipeline_train_step at pipe 1 with PAR_MICRO
+    microbatches (first loss against LocalOptimizer's, the unpipelined
+    mean; K2 PAR_MICRO ticks x 8 layers a step); make_ring_attention
+    (mode="ulysses") at seq 1 on PAR_ULYSSES_SHAPE bf16 (one K2 launch,
+    bitwise ops.flash_attention); make_moe_lm_train_step at expert 1 on
+    the MoE LM and moe_lm's first batch (its fp32 loss within
+    MOE_LOSS_TOL of moe_lm's bf16 first-batch loss). `moe`: what
+    phase_moe_lm returned. Returns each path's (fwd, bwd) launches."""
+    import torch
+
+    from bigdl_tpu_torch.dataset.text import synthetic_next_token
+    from bigdl_tpu_torch.models.convert import tree_leaves
+    from bigdl_tpu_torch.models.transformer import (TransformerConfig,
+                                                    TransformerLM)
+    from bigdl_tpu_torch.ops.flash_attention import flash_attention
+    from bigdl_tpu_torch.optim import Adam
+    from bigdl_tpu_torch.parallel import (make_mesh, make_moe_lm_train_step,
+                                          make_pipeline_train_step,
+                                          make_ring_attention,
+                                          make_transformer_train_step,
+                                          shard_params)
+    fa = importlib.import_module("bigdl_tpu_torch.ops.flash_attention")
+
+    t0 = time.perf_counter()
+    steps = PAR_STEPS + 1
+    layers = TRAIN_CONFIG["num_layers"]
+    samples = synthetic_next_token(TRAIN_BATCH * steps, VOCAB, TRAIN_SEQ,
+                                   seed=5)
+    init = _train_model().init_params(torch.Generator().manual_seed(0))
+    # the timed run (Optimizer shuffles the samples), and the first
+    # batch alone: the loss and the params after one step to hold to
+    local_losses, _, local_ms = _par_local(init, samples, steps)
+    (local_loss,), local_one, _ = _par_local(init, samples[:TRAIN_BATCH],
+                                             1)
+    torch.cuda.empty_cache()
+    mesh = make_mesh({"data": 1, "model": 1, "seq": 1, "expert": 1,
+                      "pipe": 1})
+    out, launches = {}, {}
+    try:
+        check(mesh.backend == "nccl",
+              f"parallel_w1: backend {mesh.backend}")
+        cfg = TransformerConfig(**TRAIN_CONFIG)
+        for name, model, build in (
+                ("tp", TransformerLM(cfg, tp_axis="model"),
+                 lambda m, meth: make_transformer_train_step(
+                     m, meth, mesh, "data", "model")),
+                ("pipeline", TransformerLM(cfg),
+                 lambda m, meth: make_pipeline_train_step(
+                     m, meth, mesh, "pipe", microbatches=PAR_MICRO))):
+            method = _par_method()
+            step = build(model, method)
+            p = shard_params(mesh, step.specs, init)
+            losses, ms, lc, first = _par_step(
+                step, p, method.init_slots(tree_leaves(p)), samples, steps)
+            rel = abs(losses[0] - local_loss) / abs(local_loss)
+            ticks = PAR_MICRO if name == "pipeline" else 1
+            check(rel <= PAR_LOSS_TOL,
+                  f"parallel_w1 {name}: first loss {losses[0]} vs local "
+                  f"{local_loss}")
+            check(lc == (ticks * layers, ticks * layers * fa.BWD_LAUNCHES),
+                  f"parallel_w1 {name}: flash launches {lc}")
+            row = {"step_ms": ms, "losses": losses, "loss_rel_diff": rel,
+                   "launches": {"fwd": lc[0], "bwd": lc[1]}}
+            if name == "tp":
+                err = _max_rel(first, local_one)
+                check(err <= PAR_PARAM_TOL,
+                      f"parallel_w1 tp: params after a step {err}")
+                row["param_rel_err"] = err
+            else:
+                row["bubble_fraction"] = step.bubble_fraction
+            out[name], launches[name] = row, lc
+            del step, p, first, model
+            torch.cuda.empty_cache()
+
+        # Ulysses at seq 1: the flash kernel on the whole sequence
+        g = torch.Generator(device="cuda").manual_seed(9)
+        q, k, v = (torch.randn(PAR_ULYSSES_SHAPE, generator=g,
+                               device="cuda", dtype=torch.bfloat16)
+                   for _ in range(3))
+        fn = make_ring_attention(mesh, "seq", causal=True, mode="ulysses")
+        _zero_flash_counts()                    # main path starts here
+        got = fn(q, k, v)
+        lc = _flash_counts()                    # main path ends here
+        check(lc == (1, 0), f"parallel_w1 ulysses: launches {lc}")
+        check(torch.equal(got, flash_attention(q, k, v, causal=True)),
+              "parallel_w1 ulysses: differs from ops.flash_attention")
+        out["ulysses"], launches["ulysses"] = {
+            "shape": list(PAR_ULYSSES_SHAPE), "equal_to_flash": True,
+            "launches": {"fwd": lc[0], "bwd": lc[1]}}, lc
+
+        # the expert-parallel step at expert 1 on moe_lm's first batch
+        model = _moe_model(ep_axis="expert")
+        method = Adam(3e-4)
+        step = make_moe_lm_train_step(model, method, mesh, "expert")
+        p = shard_params(mesh, step.specs, _moe_model().init_params(
+            torch.Generator().manual_seed(0)))
+        x, y = moe["first_batch"]
+        _zero_flash_counts()                    # main path starts here
+        p, _, loss = step(p, method.init_slots(tree_leaves(p)), x, y, 3e-4,
+                          0, None)
+        loss = float(loss)
+        lc = _flash_counts()                    # main path ends here
+        rel = abs(loss - moe["first_loss"]) / abs(moe["first_loss"])
+        check(rel <= MOE_LOSS_TOL, f"parallel_w1 ep: fp32 loss {loss} vs "
+                                   f"moe_lm's bf16 {moe['first_loss']}")
+        check(lc == (layers, layers * fa.BWD_LAUNCHES),
+              f"parallel_w1 ep: flash launches {lc}")
+        out["ep"], launches["ep"] = {
+            "loss_fp32": loss, "moe_lm_loss_bf16": moe["first_loss"],
+            "rel_diff": rel, "tol": MOE_LOSS_TOL,
+            "launches": {"fwd": lc[0], "bwd": lc[1]}}, lc
+        del step, p, model
+    finally:
+        mesh.close()
+    torch.cuda.empty_cache()
+    emit("parallel_w1", mesh="data=1,model=1,seq=1,expert=1,pipe=1 (NCCL)",
+         local={"step_ms": local_ms, "losses": local_losses,
+                "first_batch_loss": local_loss},
+         loss_tol=PAR_LOSS_TOL, param_tol=PAR_PARAM_TOL, **out,
+         total_seconds=time.perf_counter() - t0)
+    return launches
+
+
+def phase_sharded_ckpt():
+    """Sharded checkpoints on the card: the 43M LM (TRAIN_CONFIG, batch
+    8 x 2048, bf16, Adam(3e-4)) under DistriOptimizer(zero=2) on a
+    one-rank NCCL mesh, SCK_STEPS steps through Optimizer.optimize():
+    U uninterrupted; R1 with set_checkpoint(sharded=True,
+    async_save=True) every SCK_EVERY steps, preempted by SCK_PLAN; R2 a
+    model from another seed, resume_from_checkpoint(). Gates: R2's fp32
+    masters equal U's bit for bit, R2 resumed from checkpoint-2 (a
+    MANIFEST and one shard unit), U's flash launches exact. Reported:
+    each save's stall (the host snapshot and enqueue), the resume's
+    load seconds, the checkpoint's GiB. Returns U's (fwd, bwd)."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from bigdl_tpu_torch.dataset.text import synthetic_next_token
+    from bigdl_tpu_torch.optim import Trigger
+    from bigdl_tpu_torch.parallel import make_mesh
+    from bigdl_tpu_torch.serialization.checkpoint import shard_unit_name
+    from bigdl_tpu_torch.utils import faults
+
+    t0 = time.perf_counter()
+    samples = synthetic_next_token(TRAIN_BATCH * SCK_STEPS, VOCAB,
+                                   TRAIN_SEQ, seed=6)
+    tmp = Path(tempfile.mkdtemp(prefix="sharded_ckpt_"))
+    mesh = make_mesh({"data": 1})
+    out, finals = {}, {}
+    try:
+        for run, seed in (("U", 0), ("R1", 0), ("R2", 1)):
+            o = _lm_optimizer(samples, SCK_STEPS, seed=seed, accum=1)
+            o.set_mesh(mesh, zero=2)
+            stalls, loads = [], []
+            if run != "U":
+                o.set_checkpoint(str(tmp / "ckpt"),
+                                 Trigger.several_iteration(SCK_EVERY),
+                                 sharded=True, async_save=True)
+                ck = o.checkpoint
+                save, load = ck.save_sharded, ck.load
+
+                def timed_save(*a, save=save, **kw):
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    path = save(*a, **kw)
+                    stalls.append({"step": a[0],
+                                   "s": time.perf_counter() - t})
+                    return path
+
+                def timed_load(*a, load=load, **kw):
+                    t = time.perf_counter()
+                    res = load(*a, **kw)
+                    loads.append(time.perf_counter() - t)
+                    return res
+
+                ck.save_sharded, ck.load = timed_save, timed_load
+            if run == "R2":
+                o.resume_from_checkpoint()
+            faults.set_plan(faults.FaultPlan(SCK_PLAN) if run == "R1"
+                            else None)
+            _zero_flash_counts()                # main path starts here
+            try:
+                o.optimize()
+            except faults.Preempted:
+                check(run == "R1", f"sharded_ckpt {run} was preempted")
+            finally:
+                faults.set_plan(None)
+            if run == "U":
+                out["launches"] = _check_flash_counts("sharded_ckpt U",
+                                                      SCK_STEPS)
+            if run != "R1":
+                finals[run] = _flat_params(o.model)
+            out[f"save_stalls_{run}"] = stalls
+            if loads:
+                out["resume_load_s"] = loads[0]
+                out["resumed_from"] = Path(o.checkpoint._last_loaded).name
+            del o
+            torch.cuda.empty_cache()
+    finally:
+        mesh.close()
+    d = tmp / "ckpt" / "checkpoint-2"
+    units = sorted(f.name for f in d.iterdir()) if d.is_dir() else []
+    out["checkpoint_gib"] = _dir_gib(d) if d.is_dir() else None
+    shutil.rmtree(tmp, ignore_errors=True)
+    check(out.get("resumed_from") == "checkpoint-2",
+          f"sharded_ckpt: R2 resumed from {out.get('resumed_from')}")
+    check("MANIFEST.json" in units and f"{shard_unit_name(0, 1)}.npz"
+          in units, f"sharded_ckpt: checkpoint-2 holds {units}")
+    check(torch.equal(finals["R2"], finals["U"]),
+          "sharded_ckpt: the resumed masters differ from U's")
+    emit("sharded_ckpt", steps=SCK_STEPS, checkpoint_every=SCK_EVERY,
+         plan=SCK_PLAN, units=units, masters_bitwise=True, **out,
+         total_seconds=time.perf_counter() - t0)
+    return out["launches"]["fwd"], out["launches"]["bwd"]
+
+
 def main() -> int:
     import torch
 
@@ -6741,6 +7296,14 @@ def main() -> int:
     dist_fwd, dist_bwd = phase_distri_parity()
     torch.cuda.empty_cache()
     phase_convlstm()
+    torch.cuda.empty_cache()
+    moe = phase_moe_lm()
+    torch.cuda.empty_cache()
+    par = phase_parallel_w1(moe)
+    moe_fwd, moe_bwd = moe["launches"]
+    del moe
+    torch.cuda.empty_cache()
+    sck_fwd, sck_bwd = phase_sharded_ckpt()
     fp32 = kern["fp32"]
     # the flash rows: the trainer's shape in its compute dtype (bf16)
     row = flash["train/bf16"]
@@ -6763,11 +7326,16 @@ def main() -> int:
         "design": FLASH_DESIGN["fwd"],
         "replaces": "bigdl_tpu/ops/flash_attention.py:118",
         "launches": fwd_launches,
-        # three main paths: the LM trainer, the MHA stack (mha phase)
-        # and the LM under DistriOptimizer (distri_parity), each counted
-        # from 0
+        # the main paths: the LM trainer, the MHA stack (mha phase),
+        # the LM under DistriOptimizer (distri_parity), the MoE LM
+        # (moe_lm), the parallel steps at world size 1 (parallel_w1:
+        # tp, pipeline, ulysses, ep) and the ZeRO-2 LM checkpointed
+        # sharded (sharded_ckpt), each counted from 0
         "launches_by_path": {"trainer": fwd_launches, "mha": mha_fwd,
-                             "distri_lm": dist_fwd},
+                             "distri_lm": dist_fwd, "moe_lm": moe_fwd,
+                             **{f"parallel_w1_{k}": v[0]
+                                for k, v in par.items()},
+                             "sharded_ckpt": sck_fwd},
         "max_abs_err": row["out_max_abs_err"],
         "ms": row["fwd_ms"], "plain_ms": row["plain_fwd_ms"],
         "bound_ms": row["fwd"]["bound_ms"],
@@ -6780,7 +7348,10 @@ def main() -> int:
         "replaces": "bigdl_tpu/ops/flash_attention.py:450 :341 :374",
         "launches": bwd_launches,
         "launches_by_path": {"trainer": bwd_launches, "mha": mha_bwd,
-                             "distri_lm": dist_bwd},
+                             "distri_lm": dist_bwd, "moe_lm": moe_bwd,
+                             **{f"parallel_w1_{k}": v[1]
+                                for k, v in par.items() if v[1]},
+                             "sharded_ckpt": sck_bwd},
         "max_abs_err": row["grad_max_abs_err"],
         "ms": row["bwd_ms"], "plain_ms": row["plain_bwd_ms"],
         "bound_ms": row["bwd"]["bound_ms"],

@@ -147,18 +147,23 @@ def test_bf16_leaf_refused_by_name(tmp_path):
 
 
 def test_sharded_checkpoints_name_a8(tmp_path):
-    with pytest.raises(NotImplementedError, match="A.8"):
-        tck.Checkpoint(str(tmp_path), sharded=True)
-    ck = tck.Checkpoint(str(tmp_path))
-    with pytest.raises(NotImplementedError, match="A.8"):
-        ck.save_sharded(1, {}, {}, 1)
-    # a sharded directory written by the JAX package is a candidate, and
-    # loading it names the queue rather than skipping it as corrupt
+    """Sharded checkpoints are ported (A.8 step 4; their cases are in
+    test_torch_sharded_checkpoint.py): `sharded=True` is recorded, and
+    a sharded directory whose shard units are missing is a candidate
+    that fails verification, so load() falls back past it."""
+    ck = tck.Checkpoint(str(tmp_path), sharded=True)
+    assert ck.sharded
+    ck.save_sharded(1, {"params": {"w": np.ones(2, np.float32)},
+                        "state": {}},
+                    {0: {"m": np.arange(2, dtype=np.float32)}}, 1,
+                    train_state={"neval": 1})
     d = tmp_path / "checkpoint-4"
     d.mkdir()
     (d / tck.Checkpoint.MANIFEST).write_text('{"nshards": 2}')
-    with pytest.raises(NotImplementedError, match="A.8"):
-        ck.load()
+    assert ck.latest() == str(d)
+    _, optim, ts = ck.load()
+    assert ts["neval"] == 1 and ck.corrupt_skipped == [str(d)]
+    np.testing.assert_array_equal(optim["m"].numpy(), [0.0, 1.0])
 
 
 # ------------------------------------------------------------ integrity

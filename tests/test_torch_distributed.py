@@ -649,7 +649,8 @@ def test_jax_zero1_checkpoint_resumes_in_the_port(w2):
 def test_make_mesh_axes_and_refusals():
     """parse_axes is the JAX package's; a one-rank data axis opens (and
     closes) its own gloo group on the CPU; a larger axis without a
-    launched group, and the axes of A.8 step 5, refuse by name."""
+    launched group, and an unknown axis, refuse by name; the axes of
+    A.8 step 5 build (a one-rank world has every axis 1)."""
     import torch.distributed as dist
     from bigdl_tpu.parallel import parse_axes as jparse
 
@@ -659,10 +660,21 @@ def test_make_mesh_axes_and_refusals():
         assert parse_axes(spec) == jparse(spec)
     with pytest.raises(ValueError, match="expected name=size"):
         parse_axes("data")
-    with pytest.raises(NotImplementedError, match="A.8, step 5"):
+    with pytest.raises(RuntimeError, match="torchrun --nproc_per_node 2"):
         make_mesh({"data": 1, "model": 2}, device="cpu")
+    with pytest.raises(ValueError, match="unknown mesh axis"):
+        make_mesh({"data": 1, "tensor": 1}, device="cpu")
     with pytest.raises(RuntimeError, match="torchrun --nproc_per_node 2"):
         make_mesh({"data": 2}, device="cpu")
+    mesh = make_mesh({"model": 1, "seq": 1, "expert": 1, "pipe": 1},
+                     device="cpu")
+    try:
+        assert mesh.shape == {"model": 1, "seq": 1, "expert": 1,
+                              "pipe": 1, "data": 1}
+        assert all(mesh.coord(a) == 0 and mesh.size_of(a) == 1
+                   for a in mesh.shape)
+    finally:
+        mesh.close()
     assert not dist.is_initialized()
     mesh = make_mesh({"data": 1}, device="cpu")
     try:

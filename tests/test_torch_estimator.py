@@ -167,6 +167,31 @@ def test_frames_without_pandas(monkeypatch):
 
 
 def test_set_mesh_names_its_queue():
-    _, tm = _pair(lambda nn: nn.Sequential(nn.Linear(4, 2)))
-    with pytest.raises(NotImplementedError, match="A.8"):
-        TDLEstimator(tm, tnn.MSECriterion(), [4], [2]).set_mesh(object())
+    """set_mesh is ported (A.8): a fit over a one-rank data mesh trains
+    the weights the fit without a mesh trains, within the bf16 gradient
+    wire of DistriOptimizer's default (2e-3, as test_torch_distributed.py
+    holds it)."""
+    import torch.distributed as dist
+
+    from bigdl_tpu_torch.models.convert import tree_leaves
+    from bigdl_tpu_torch.parallel import make_mesh
+
+    df, _, _ = _toy_df(8)
+    finals = []
+    for use_mesh in (False, True):
+        _, tm = _pair(lambda nn: nn.Sequential(nn.Linear(4, 1)))
+        est = TDLEstimator(tm, tnn.MSECriterion(), [4], [1]) \
+            .set_batch_size(4).set_max_epoch(2)
+        mesh = make_mesh({"data": 1}, device="cpu") if use_mesh else None
+        try:
+            if mesh is not None:
+                assert est.set_mesh(mesh) is est and est.mesh is mesh
+            model = est.fit(df)
+        finally:
+            if mesh is not None:
+                mesh.close()
+        finals.append([t.detach().clone() for t in
+                       tree_leaves(model.model.variables["params"])])
+    assert not dist.is_initialized()
+    for a, b in zip(*finals):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=2e-3, rtol=0)

@@ -140,3 +140,35 @@ def test_predictor_bucket_sizes_as_jax(n, buckets):
     if buckets:
         with pytest.raises(ValueError, match="cover batch_size"):
             TPredictor(tm, batch_size=64, bucket_sizes=buckets)
+
+
+def test_parallel_exports_equal_jax():
+    """`bigdl_tpu_torch.parallel` exports the JAX package's names, each
+    a function where the JAX one is a function and a class where it is
+    a class (its submodules aside)."""
+    import inspect
+
+    import bigdl_tpu.parallel as jparallel
+
+    import bigdl_tpu_torch.parallel as tparallel
+
+    jnames = {n for n in dir(jparallel) if not n.startswith("_")
+              and not isinstance(getattr(jparallel, n), types.ModuleType)}
+    assert set(tparallel.__all__) == jnames
+    for n in jnames:
+        jv, tv = getattr(jparallel, n), getattr(tparallel, n)
+        assert inspect.isclass(jv) == inspect.isclass(tv), n
+        assert callable(jv) == callable(tv), n
+
+
+def test_transformer_config_fields_equal_jax():
+    import dataclasses
+
+    from bigdl_tpu.models.transformer import TransformerConfig as JCfg
+
+    from bigdl_tpu_torch.models.transformer import TransformerConfig
+
+    def fields(cls):
+        return [(f.name, f.default) for f in dataclasses.fields(cls)]
+
+    assert fields(TransformerConfig) == fields(JCfg)

@@ -54,6 +54,9 @@ NEW_IN_SLICE_15 = ("parallel/__init__.py", "parallel/mesh.py",
                    "parallel/distri_optimizer.py", "parallel/launch.py",
                    "dataset/image.py", "dataset/vision.py",
                    "models/train.py")
+NEW_IN_SLICE_16 = ("parallel/collectives.py", "parallel/ring_attention.py",
+                   "parallel/moe.py", "parallel/tensor_parallel.py",
+                   "parallel/pipeline.py", "parallel/multichip.py")
 
 
 def test_port_files_exist():
@@ -64,7 +67,8 @@ def test_port_files_exist():
     assert set(NEW_IN_SLICE_3) | set(NEW_IN_SLICE_4) \
         | set(NEW_IN_SLICE_9) | set(NEW_IN_SLICE_10) \
         | set(NEW_IN_SLICE_11) | set(NEW_IN_SLICE_13) \
-        | set(NEW_IN_SLICE_14) | set(NEW_IN_SLICE_15) <= scanned
+        | set(NEW_IN_SLICE_14) | set(NEW_IN_SLICE_15) \
+        | set(NEW_IN_SLICE_16) <= scanned
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -111,7 +115,13 @@ def test_port_import_loads_no_jax():
             "bigdl_tpu_torch.models.textclassifier, "
             "bigdl_tpu_torch.models.ncf, bigdl_tpu_torch.parallel, "
             "bigdl_tpu_torch.parallel.launch, bigdl_tpu_torch.dataset.image, "
-            "bigdl_tpu_torch.dataset.vision, bigdl_tpu_torch.models.train; "
+            "bigdl_tpu_torch.dataset.vision, bigdl_tpu_torch.models.train, "
+            "bigdl_tpu_torch.parallel.collectives, "
+            "bigdl_tpu_torch.parallel.ring_attention, "
+            "bigdl_tpu_torch.parallel.moe, "
+            "bigdl_tpu_torch.parallel.tensor_parallel, "
+            "bigdl_tpu_torch.parallel.pipeline, "
+            "bigdl_tpu_torch.parallel.multichip; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{BANNED!r}]; "
             "assert not bad, bad")

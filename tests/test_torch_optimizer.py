@@ -137,9 +137,14 @@ def test_set_checkpoint_builds_a_checkpoint(tmp_path):
 
 
 def test_set_checkpoint_sharded_names_a8(tmp_path):
-    with pytest.raises(NotImplementedError, match="A.8"):
-        _opt().set_checkpoint(str(tmp_path), topt.Trigger.every_epoch(),
-                              sharded=True)
+    """Sharded checkpoints are ported (A.8 step 4): the setter records
+    the format, and a mesh-less run refuses to write it, as the JAX
+    package's test_zero2.py::test_sharded_needs_mesh pins."""
+    o = _opt(8).set_checkpoint(str(tmp_path), topt.Trigger.every_epoch(),
+                               sharded=True)
+    assert o.checkpoint.sharded
+    with pytest.raises(ValueError, match="need a mesh"):
+        o.optimize()
 
 
 def test_resume_from_checkpoint_without_one_starts_fresh(tmp_path):

@@ -131,9 +131,12 @@ def test_tfrecords_and_mesh_and_moe(tmp_path):
                     tree_leaves(runs["local"][1][0])):
         np.testing.assert_allclose(a.numpy(), b.numpy(), atol=2e-3, rtol=0)
 
-    with pytest.raises(NotImplementedError, match="A.8, step 5"):
-        ttrain.main(["--model", "transformer", "--moeExperts", "2"],
-                    device="cpu")
+    # --moeExperts trains the MoE FFN transformer (A.8 step 5 ported)
+    opt = ttrain.main(["--model", "transformer", "--moeExperts", "2",
+                       "--moeTopK", "2", "-b", "4", "--maxEpoch", "1"],
+                      device="cpu")
+    assert opt.model.cfg.moe_experts == 2 and opt.model.cfg.moe_top_k == 2
+    assert np.isfinite(float(opt.train_state["loss"]))
     with pytest.raises(SystemExit):
         ttrain.main(["--model", "ncf", "--records", str(tmp_path)],
                     device="cpu")

@@ -83,14 +83,21 @@ def test_init_params_layout_matches_jax(models):
 
 
 def test_unported_variants_raise():
-    with pytest.raises(NotImplementedError):
-        TransformerConfig(moe_experts=4)
-    with pytest.raises(NotImplementedError):
-        TransformerLM(TransformerConfig(**CFG), device="cpu",
-                      sp_axis="seq")
-    with pytest.raises(NotImplementedError):
-        TransformerLM(TransformerConfig(**CFG), device="cpu",
-                      tp_axis="model")
+    """An MoE config builds now; decoding an MoE or `sp_axis` model
+    raises as the JAX package's does, and a `tp_axis` model's decode
+    names serving/tp.py's queue (A.8 step 6)."""
+    moe = TransformerLM(TransformerConfig(**CFG, moe_experts=4),
+                        device="cpu")
+    with pytest.raises(NotImplementedError, match="MoE"):
+        moe.init_block_pool(NB + 1, BS)
+    sp = TransformerLM(TransformerConfig(**CFG), device="cpu",
+                       sp_axis="seq")
+    with pytest.raises(NotImplementedError, match="single-mesh"):
+        sp.init_block_pool(NB + 1, BS)
+    tp = TransformerLM(TransformerConfig(**CFG), device="cpu",
+                       tp_axis="model")
+    with pytest.raises(NotImplementedError, match="A.8, step 6"):
+        tp.init_block_pool(NB + 1, BS)
 
 
 def test_prefill_paged_pools_match_jax(models):

@@ -161,12 +161,38 @@ def test_module_surface():
 
 @pytest.mark.parametrize("what", ["moe", "sp", "tp"])
 def test_unported_training_variants_raise(what):
-    with pytest.raises(NotImplementedError):
-        if what == "moe":
-            TransformerConfig(**CFG, moe_experts=4)
-        else:
-            TransformerLM(TransformerConfig(**CFG), device="cpu",
-                          **{f"{what}_axis": "x"})
+    """The variants that raised before queue A.8 step 5 was ported now
+    build (their parity with the JAX package is held in
+    test_torch_moe_lm.py, test_torch_ring_attention.py and
+    test_torch_tensor_parallel.py); what still raises raises as the
+    JAX package does."""
+    if what == "moe":
+        kw = dict(moe_experts=4, moe_top_k=2)
+        tm = TransformerLM(TransformerConfig(**CFG, **kw), device="cpu")
+        jm = JLM(JCfg(**CFG, **kw))
+        want = jax.eval_shape(jm.init_params, jax.random.PRNGKey(0))
+        got = tm.init_params()
+        assert [tuple(t.shape) for t in tree_leaves(got)] == \
+            [tuple(a.shape) for a in jax.tree_util.tree_leaves(want)]
+        with pytest.raises(NotImplementedError, match="tensor "
+                           "parallelism"):
+            TransformerLM(TransformerConfig(**CFG, **kw), device="cpu",
+                          tp_axis="model")
+        with pytest.raises(ValueError, match="moe_top_k"):
+            TransformerConfig(**CFG, moe_experts=4, moe_top_k=3)
+        return
+    tm = TransformerLM(TransformerConfig(**CFG), device="cpu",
+                       **{f"{what}_axis": "x"})
+    assert getattr(tm, f"{what}_axis") == "x"
+    x, _ = _tokens()
+    # the axis resolves through a bound mesh, as shard_map binds it
+    with pytest.raises(RuntimeError, match="no mesh is bound"):
+        tm.apply_hidden({"params": tm.init_params()}, torch.from_numpy(x))
+    with pytest.raises(ValueError, match="ep_axis requires"):
+        TransformerLM(TransformerConfig(**CFG), device="cpu", ep_axis="x")
+    with pytest.raises(ValueError, match="zigzag sp_mode requires"):
+        TransformerLM(TransformerConfig(**CFG, causal=False),
+                      device="cpu", sp_axis="x", sp_mode="zigzag")
 
 
 def test_model_without_cuda_raises():

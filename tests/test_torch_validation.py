@@ -228,8 +228,24 @@ def test_evaluation_runs_without_autograd_and_refuses_a_mesh():
         p.requires_grad_()
     out = topt.Predictor(tm, batch_size=4).predict(tdata)
     assert out.grad_fn is None and out.shape == (5, 2)
-    with pytest.raises(NotImplementedError, match="A.8"):
-        topt.Evaluator(tm, mesh=object())
+    # Evaluator(mesh) is ported (A.8): over a one-rank data mesh it gives
+    # the single-process results; at data 2 the gloo ranks of
+    # test_torch_collectives.py hold it with padded, masked batches
+    import torch.distributed as dist
+
+    from bigdl_tpu_torch.parallel import make_mesh
+
+    methods = [topt.Top1Accuracy(), topt.Loss(tnn.ClassNLLCriterion())]
+    want = topt.Evaluator(tm).test(tdata, methods, 4)
+    mesh = make_mesh({"data": 1}, device="cpu")
+    try:
+        got = topt.Evaluator(tm, mesh=mesh).test(tdata, methods, 4)
+    finally:
+        mesh.close()
+    assert not dist.is_initialized()
+    for name, r in want.items():
+        np.testing.assert_allclose(got[name].result(), r.result(),
+                                   rtol=1e-6)
 
 
 # ----------------------------------------------------------- trajectory
