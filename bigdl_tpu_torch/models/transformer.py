@@ -4,11 +4,11 @@ Ports bigdl_tpu/models/transformer.py: `TransformerConfig`, the
 training forward of `TransformerLM` (`apply_hidden`, `loss`, `apply`,
 with flash attention and the remat policies), the paged serving trio
 (`init_block_pool`, `prefill_paged`, `decode_step_paged`) with
-`init_params`, `serving_params` and the tied `head`, and
-`lm_train_matmul_flops_per_token`. Same architecture: pre-LayerNorm
-residual blocks, GELU MLP (the tanh approximation, which is what
-`jax.nn.gelu` computes by default), learned positional embedding,
-output head tied to the embedding.
+`init_params`, `serving_params` and the tied `head`,
+`lm_train_matmul_flops_per_token` and `tp_shard_gather`. Same
+architecture: pre-LayerNorm residual blocks, GELU MLP (the tanh
+approximation, which is what `jax.nn.gelu` computes by default),
+learned positional embedding, output head tied to the embedding.
 
 The parameter tree keeps the JAX package's names, shapes and layouts,
 so weights carry across unchanged (models/convert.py): `Linear`
@@ -55,8 +55,12 @@ the row-parallel ones; with `sp_axis` attention is ring or zigzag
 attention (parallel/ring_attention.py) and the positional rows are
 this rank's chunk's; with `ep_axis` the experts are split over that
 axis. The serving trio refuses MoE and `sp_axis` models as the JAX
-package does, and serves `tp_axis` only through serving/tp.py, which
-waits for ROADMAP.md queue A.8, step 6.
+package does. A `tp_axis` model's trio is the tensor-parallel serving
+step (serving/tp.py binds the mesh): this rank's pools hold H/tp heads,
+wq/wk/wv/w1 arrive split by column, and `tp_shard_gather` rebuilds the
+attention output and the FFN hidden whole before the replicated wo/w2
+gemms, so every contraction keeps its unsharded extent and the logits
+are bitwise the unsharded step's.
 
 Not ported: the dense per-slot cache.
 """
@@ -82,8 +86,9 @@ from bigdl_tpu_torch.ops.kv_cache import (block_attention,
                                           write_decode_blocks,
                                           write_prompt_blocks)
 from bigdl_tpu_torch.ops.paged_decode import paged_decode_attention
-from bigdl_tpu_torch.parallel.collectives import (axis_index, axis_size,
-                                                  tp_identity, tp_reduce)
+from bigdl_tpu_torch.parallel.collectives import (all_gather, axis_index,
+                                                  axis_size, tp_identity,
+                                                  tp_reduce)
 from bigdl_tpu_torch.utils.device import DeviceLike, resolve_device
 
 Pools = Tuple[Dict[str, torch.Tensor], ...]
@@ -106,6 +111,17 @@ def _embed_rows(w, tokens: torch.Tensor) -> torch.Tensor:
     if hasattr(w, "deq"):
         return w.q[tokens].float() * w.scale[tokens]
     return w[tokens]
+
+
+def tp_shard_gather(x: torch.Tensor, axis: str) -> torch.Tensor:
+    """The whole activation from disjoint per-rank column slabs: one
+    all-gather over `axis` (parallel/collectives.all_gather), placed on
+    the serving path where Megatron's row-parallel all-reduce would sit.
+    An all-reduce of PARTIAL gemm sums changes the fp32 accumulation
+    order against the unsharded gemm; concatenating disjoint slabs is a
+    copy, so the replicated wo/w2 gemm that follows runs over the same
+    operands as the unsharded step and gives its bits."""
+    return all_gather(x, axis, dim=x.dim() - 1)
 
 
 @dataclass
@@ -338,10 +354,15 @@ class TransformerLM(Module):
         b, s, _ = x.shape
         return x.reshape(b, s, heads, self.head_dim).transpose(1, 2)
 
-    @staticmethod
-    def _dense_ffn(y: torch.Tensor, bp: Dict[str, torch.Tensor]
+    def _dense_ffn(self, y: torch.Tensor, bp: Dict[str, torch.Tensor]
                    ) -> torch.Tensor:
+        """The dense FFN. On the serving path of a `tp_axis` model
+        (w1/b1 split by column) the GELU hidden is this rank's slab,
+        gathered whole before the replicated w2 gemm; the training
+        block has its own tp branch and never comes here with one."""
         y = F.gelu(y @ _deq(bp["w1"]) + bp["b1"], approximate="tanh")
+        if self.tp_axis is not None:
+            y = tp_shard_gather(y, self.tp_axis)
         return y @ _deq(bp["w2"]) + bp["b2"]
 
     # ---------------------------------------------------------- training
@@ -494,11 +515,6 @@ class TransformerLM(Module):
 
     # ------------------------------------------------------- paged KV
     def _serving_guard(self) -> None:
-        if self.tp_axis is not None:
-            raise NotImplementedError(
-                "tensor-parallel serving runs through serving/tp.py, "
-                "which is not ported to bigdl_tpu_torch yet (ROADMAP.md, "
-                "queue A.8, step 6)")
         if self.sp_axis is not None:
             raise NotImplementedError(
                 "incremental decode runs single-mesh (no sp axis; tp "
@@ -515,12 +531,21 @@ class TransformerLM(Module):
                         dtype: torch.dtype = torch.float32) -> Pools:
         """Per-layer paged KV pools on the model's device: a tuple of L
         dicts {'k', 'v'}, each (num_blocks, H, block_size, D). Block 0
-        is the reserved scratch block (ops/kv_cache.py)."""
+        is the reserved scratch block (ops/kv_cache.py). A `tp_axis`
+        model (under the mesh serving/tp.py binds) holds this rank's
+        heads only: (num_blocks, H/tp, block_size, D)."""
         self._serving_guard()
         c = self.cfg
+        heads = c.num_heads
+        if self.tp_axis is not None:
+            tp = axis_size(self.tp_axis)
+            if heads % tp:
+                raise ValueError(f"num_heads {heads} not divisible by the "
+                                 f"{self.tp_axis!r} axis size {tp}")
+            heads //= tp
         return tuple(
             dict(zip(("k", "v"), init_block_pool(
-                num_blocks, c.num_heads, block_size, self.head_dim,
+                num_blocks, heads, block_size, self.head_dim,
                 dtype, self.device)))
             for _ in range(c.num_layers))
 
@@ -540,7 +565,9 @@ class TransformerLM(Module):
         Suffix queries attend through the gathered table over the FULL
         table extent with mask j <= start + i, so the written KV is
         bitwise the same whether a position is computed cold or warm
-        (ops/kv_cache.py)."""
+        (ops/kv_cache.py). With `tp_axis` each rank writes and attends
+        its own heads through the same (replicated) table, and
+        `tp_shard_gather` rebuilds the attention output before wo."""
         self._serving_guard()
         p = self._params(variables)
         bsz, s = tokens.shape
@@ -571,6 +598,8 @@ class TransformerLM(Module):
             vc = gather_block_cache(pl["v"], table)
             a = block_attention(q, kc, vc, visible, valid)
             a = a.transpose(1, 2).reshape(bsz, s, h * d)
+            if self.tp_axis is not None:
+                a = tp_shard_gather(a, self.tp_axis)
             x = x + a @ _deq(bp["wo"]) + bp["bo"]
             x = x + self._dense_ffn(
                 layer_norm(x, bp["ln2_g"], bp["ln2_b"]), bp)
@@ -592,7 +621,11 @@ class TransformerLM(Module):
         `attn_impl` selects the decode attention
         (ops/paged_decode.py): None → the CUDA kernel for CUDA
         tensors, the plain version for CPU tensors; "cuda" or
-        "torch" explicitly."""
+        "torch" explicitly. With `tp_axis` each rank attends its H/tp
+        heads against its own pools (the kernel's split plan depends
+        on the table width and block size, never on H, so each (row,
+        head) runs the same CTAs at H and at H/tp) and
+        `tp_shard_gather` rebuilds the attention output before wo."""
         self._serving_guard()
         p = self._params(variables)
         bsz = tokens.shape[0]
@@ -615,6 +648,8 @@ class TransformerLM(Module):
             a = paged_decode_attention(q.contiguous(), pl["k"], pl["v"],
                                        table, pos, impl=attn_impl)
             a = a.reshape(bsz, h * d)
+            if self.tp_axis is not None:
+                a = tp_shard_gather(a, self.tp_axis)
             x = x + a @ _deq(bp["wo"]) + bp["bo"]
             x = x + self._dense_ffn(
                 layer_norm(x, bp["ln2_g"], bp["ln2_b"]), bp)

@@ -31,6 +31,7 @@ class Container(Module):
             self.add(m)
 
     def add(self, module: Module) -> "Container":
+        self._record_mutation("add", module)
         self._keys.append(f"{len(self.modules_)}_{module.key_name()}")
         self.modules_.append(module)
         return self

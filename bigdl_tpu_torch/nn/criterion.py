@@ -271,6 +271,7 @@ class ParallelCriterion(Criterion):
 
     def add(self, criterion: Criterion, weight: float = 1.0
             ) -> "ParallelCriterion":
+        self._record_mutation("add", criterion, weight)
         self.criterions.append(criterion)
         self.weights.append(weight)
         return self
@@ -294,6 +295,7 @@ class MultiCriterion(Criterion):
 
     def add(self, criterion: Criterion, weight: float = 1.0
             ) -> "MultiCriterion":
+        self._record_mutation("add", criterion, weight)
         self.criterions.append(criterion)
         self.weights.append(weight)
         return self

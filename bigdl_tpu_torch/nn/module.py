@@ -44,8 +44,14 @@ callable — `m.training()` switches to training mode and returns the
 module, as the JAX package's method does; `m.evaluate()` with no
 arguments switches to eval mode and returns the module;
 `is_training()` reads it. torch's `train(mode)` and `eval()` set the
-same flag (on registered children too). Not ported: constructor
-capture for the module serializer and `save_module`/`load_module`.
+same flag (on registered children too).
+
+Constructor capture (the JAX package's `_SpecCaptured`): constructing
+any Module or Criterion records `self._ctor = (type(self), args,
+kwargs)`, and the post-construction mutators (`set_name`, pooling's
+`ceil`, the containers' and criterions' `add`, `Recurrent.add`) append
+to `self._mutations`; serialization/module_serializer.py turns both
+into the architecture spec and replays them on load.
 """
 
 from __future__ import annotations
@@ -81,6 +87,40 @@ class _Mode(int):
         return repr(bool(self))
 
 
+def _wrap_ctor_capture(cls) -> None:
+    """Wrap `cls.__init__` so that constructing an instance records
+    `_ctor = (type(self), args, kwargs)` once (the outermost call: a
+    subclass's super().__init__ does not overwrite it)."""
+    orig = cls.__dict__.get("__init__")
+    if orig is None or getattr(orig, "_spec_wrapped", False):
+        return
+
+    def __init__(self, *args, _orig=orig, **kwargs):
+        first = "_ctor" not in self.__dict__
+        if first:
+            self.__dict__["_ctor"] = (type(self), args, kwargs)
+            self.__dict__["_ctor_done"] = False
+        _orig(self, *args, **kwargs)
+        if first:
+            self.__dict__["_ctor_done"] = True
+
+    __init__._spec_wrapped = True
+    __init__.__wrapped__ = orig
+    cls.__init__ = __init__
+
+
+class _SpecCaptured:
+    """Mixin: capture the constructor arguments of every subclass."""
+
+    def __init_subclass__(cls, **kw):
+        super().__init_subclass__(**kw)
+        _wrap_ctor_capture(cls)
+
+    def _record_mutation(self, method: str, *args) -> None:
+        if self.__dict__.get("_ctor_done", False):
+            self.__dict__.setdefault("_mutations", []).append((method, args))
+
+
 def _fold_rng(rng: Optional[torch.Generator], i: int
               ) -> Optional[torch.Generator]:
     """A generator derived from `rng` and `i`, on rng's device: a pure
@@ -97,7 +137,7 @@ def _fold_rng(rng: Optional[torch.Generator], i: int
     return torch.Generator(device=rng.device).manual_seed(x >> 1)
 
 
-class Module(torch.nn.Module):
+class Module(_SpecCaptured, torch.nn.Module):
     """Base class of the port's modules. Subclasses override
     `init_params(generator) -> dict`, `init_state() -> dict` and
     `apply(variables, *inputs, training=False, rng=None) ->
@@ -227,6 +267,7 @@ class Module(torch.nn.Module):
         return super().__call__(*args, **kwargs)
 
     def set_name(self, name: str) -> "Module":
+        self._record_mutation("set_name", name)
         self.name = name
         self._explicit_name = True
         return self
@@ -247,7 +288,7 @@ class Module(torch.nn.Module):
         return f"{type(self).__name__}(name={self.name!r})"
 
 
-class Criterion:
+class Criterion(_SpecCaptured):
     """Loss-function base: pure and parameter-free,
     `loss = criterion(input, target)`; its gradient is autograd's."""
 

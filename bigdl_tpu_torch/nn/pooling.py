@@ -74,6 +74,7 @@ class _SpatialPool(Module):
 
     def ceil(self):
         self.ceil_mode = True
+        self._record_mutation("ceil")
         return self
 
     def _pads(self, x):

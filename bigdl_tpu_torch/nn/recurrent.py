@@ -333,6 +333,7 @@ class Recurrent(Module):
         self.fused = fused
 
     def add(self, cell: Cell) -> "Recurrent":
+        self._record_mutation("add", cell)
         self.cell = cell
         return self
 

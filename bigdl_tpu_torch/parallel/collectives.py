@@ -23,6 +23,10 @@ is a `torch.autograd.Function` over the process group of one axis
                            received are concatenated along `concat_dim`
                            in coordinate order; the backward is the
                            inverse exchange
+    all_gather(x, axis, dim)  the tiled `lax.all_gather`: every rank's
+                           `x` concatenated along `dim` in coordinate
+                           order (forward only: the serving path's
+                           tp_shard_gather, models/transformer.py)
     axis_index / axis_size this rank's coordinate and the axis size
 
 `tp_reduce` is not `torch.distributed.nn.functional.all_reduce`: that
@@ -53,7 +57,7 @@ import torch.distributed as dist
 
 __all__ = ["bind", "bound_mesh", "axis_size", "axis_index", "tp_identity",
            "tp_reduce", "psum", "pmean", "ppermute", "all_to_all",
-           "psum_leaves"]
+           "all_gather", "psum_leaves"]
 
 _BOUND: List = []
 
@@ -237,6 +241,21 @@ def all_to_all(x: torch.Tensor, axis: str, split_dim: int,
     concat_dim %= x.dim()
     return x if n == 1 else _AllToAll.apply(x, group, n, split_dim,
                                             concat_dim)
+
+
+@torch.no_grad()
+def all_gather(x: torch.Tensor, axis: str, dim: int = -1) -> torch.Tensor:
+    """The tiled `lax.all_gather(x, axis, axis=dim, tiled=True)`: the
+    ranks' `x` (same shape on each) concatenated along `dim` in
+    coordinate order. Disjoint shards come back as the whole array bit
+    for bit: a copy, no arithmetic."""
+    group, n, _ = _axis(axis)
+    if n == 1:
+        return x
+    x = x.contiguous()
+    parts = [torch.empty_like(x) for _ in range(n)]
+    dist.all_gather(parts, x, group=group)
+    return torch.cat(parts, dim=dim)
 
 
 @torch.no_grad()

@@ -9,11 +9,10 @@ slots — lines up element for element. `shard_slice` is the ZeRO slice
 rule, `repad_flat`/`adapt_flat_tree` the elastic-resume reshard,
 `concat_shard_trees` the load-side inverse of the slices, and
 `unstack_blocks`/`map_block_leaves`/`gather_tree` the serving-layout
-walks.
-
-Not ported: `TP_COL`, `TP_COL_BIAS`, `tp_serving_block_specs` and
-`tp_serving_specs`, the PartitionSpec trees of tensor-parallel serving
-(`serving/tp.py`), which wait for ROADMAP.md queue A.8, step 6.
+walks. `TP_COL`, `TP_COL_BIAS`, `tp_serving_block_specs` and
+`tp_serving_specs` are the spec trees (parallel/mesh.P) of
+tensor-parallel serving (serving/tp.py): wq/wk/wv/w1 split by column,
+their biases with them, everything else replicated.
 """
 
 from __future__ import annotations
@@ -26,10 +25,12 @@ import torch.nn.functional as F
 
 from bigdl_tpu_torch.models.convert import (tree_leaves, tree_map,
                                             tree_unflatten)
+from bigdl_tpu_torch.parallel.mesh import P
 
 __all__ = ["FlatParamSpec", "repad_flat", "adapt_flat_tree",
            "concat_shard_trees", "unstack_blocks", "map_block_leaves",
-           "gather_tree"]
+           "gather_tree", "TP_COL", "TP_COL_BIAS",
+           "tp_serving_block_specs", "tp_serving_specs"]
 
 
 class FlatParamSpec:
@@ -131,6 +132,39 @@ def map_block_leaves(params: Dict[str, Any], fn) -> Dict[str, Any]:
     out["blocks"] = tuple({k: fn(k, v) for k, v in bp.items()}
                           for bp in params["blocks"])
     return out
+
+
+# per-layer serving-layout leaves: which are column-sharded (last dim)
+TP_COL = frozenset({"wq", "wk", "wv", "w1"})
+TP_COL_BIAS = frozenset({"bq", "bk", "bv", "b1"})
+
+
+def tp_serving_block_specs(axis: str = "model") -> Dict[str, Any]:
+    """PartitionSpecs of ONE per-layer serving block (the unstacked
+    dict `serving_params` produces): wq/wk/wv split by head column, w1
+    by FFN column, their biases alike; wo/w2/the norms and the row
+    gemms' biases replicated (the bit-identity construction of
+    serving/tp.py)."""
+    spec: Dict[str, Any] = {}
+    for k in ("ln1_g", "ln1_b", "ln2_g", "ln2_b", "wo", "bo", "w2",
+              "b2"):
+        spec[k] = P()
+    for k in TP_COL:
+        spec[k] = P(None, axis)
+    for k in TP_COL_BIAS:
+        spec[k] = P(axis)
+    return spec
+
+
+def tp_serving_specs(params, axis: str = "model") -> Dict[str, Any]:
+    """The spec tree of a serving-layout params tree (a per-layer tuple
+    of blocks, as `TransformerLM.serving_params` returns), derived from
+    the tree's own structure so that a checkpoint-loaded tree reshards
+    without the model object."""
+    block = tp_serving_block_specs(axis)
+    specs: Dict[str, Any] = {k: P() for k in params if k != "blocks"}
+    specs["blocks"] = tuple(dict(block) for _ in params["blocks"])
+    return specs
 
 
 def gather_tree(params):

@@ -94,19 +94,43 @@ The reliability layer, as in the JAX package:
   package whose arrays carry a numpy `bfloat16` dtype is read by its
   bits too.
 
+* **Tensor parallelism.** `tp_mesh=` (with `tp_axis`, default
+  "model") serves through the memoized serving/tp.py wrapper: this
+  rank's pools hold H/tp heads, wq/wk/wv/w1 are split by column, and
+  the tokens are bitwise the unsharded engine's. Each rank of the axis
+  is a process running its own engine over identically submitted
+  requests. The engine's clock is rank 0's on every rank: a step,
+  submit or cancel that reads it takes one shared reading (the
+  wrapper's `lockstep_clock`; `run()` one for all its submissions),
+  and a decode step's end reading rides on the all-reduce that agrees
+  on its watchdog or retry verdict before any rank acts on it, so
+  every rank's host decisions, and so its collectives, stay in step,
+  and ttft and latency are the unsharded engine's. An agreed watchdog
+  trip also retires the wrapper (`TPServingLM.abandon`): a worker may
+  wait in a gather no peer joins, and the next engine builds a fresh
+  wrapper. (The step-latency histogram reads the clock itself: it
+  measures, it decides nothing.) Host
+  block arrays (spill, handoff packages, export_tree) hold every head,
+  gathered over the axis, so they move between layouts. A `tp_axis`
+  model without `tp_mesh`, and `weight_dtype="int8"` under `tp_mesh`,
+  are refused as in the JAX engine.
+
 On the card the decode attention is the CUDA paged-decode kernel
 (`attn_impl="cuda"`, the default for a CUDA device — unlike the JAX
 engine, whose default is its XLA oracle: here the kernel IS the main
 path), for fp32 and bf16 pools alike. `attn_impl="torch"` runs the
 plain PyTorch version instead, for comparison.
 `stats["attn_kernel_launches"]` counts the kernel launches this
-engine's decode steps made.
+engine's decode steps made. One deliberate difference under `tp_mesh`:
+the JAX engine refuses its Pallas kernel there (the kernel inside
+shard_map was never measured on a TPU); the port has no shard_map —
+each rank launches the kernel on its own H/tp heads — so a sharded
+engine serves through the kernel too, with "torch" as the oracle.
 
-Not in this slice (ROADMAP.md): tensor parallelism (`tp_mesh`, queue
-A.8); per-tenant KV quotas (`tenant_kv_quotas`), telemetry events,
-spans and registry series (`obs_label`), the router's `steal_queued`
-and speculative decoding's `rollback_slot` (queue A.9). The
-constructor refuses the first three by name.
+Not in this slice (ROADMAP.md queue A.9): per-tenant KV quotas
+(`tenant_kv_quotas`), telemetry events, spans and registry series
+(`obs_label`), the router's `steal_queued` and speculative decoding's
+`rollback_slot`. The constructor refuses the first two by name.
 """
 
 from __future__ import annotations
@@ -126,6 +150,7 @@ import torch
 
 from bigdl_tpu_torch.obs.registry import LatencyHistogram
 from bigdl_tpu_torch.ops import paged_decode
+from bigdl_tpu_torch.parallel.collectives import all_gather
 from bigdl_tpu_torch.serving.bucketing import (bucket_for, bucket_histogram,
                                                default_buckets, pad_tokens)
 from bigdl_tpu_torch.serving.kv_pool import BlockPool
@@ -154,6 +179,10 @@ WEIGHT_DTYPES = ("fp32", "int8")
 
 # per-process engine index — the `metrics.engine` label of health()
 _ENGINE_IDS = itertools.count()
+
+# a decode step's outcome, worst last: the ranks of a sharded engine
+# act on the largest of theirs (serving/tp.py TPServingLM.agree)
+_STEP_OK, _STEP_ERROR, _STEP_STICKY, _STEP_TIMEOUT = range(4)
 
 
 class OverloadError(RuntimeError):
@@ -319,9 +348,10 @@ class InferenceEngine:
     `max_queue` / `overload_policy`, `step_timeout_s`, `step_retries` /
     `retry_backoff_s`, `clock` (monotonic seconds for deadlines),
     `role` ("both", "prefill" or "decode"; "decode" serves like
-    "both"), `weight_dtype` ("fp32" or "int8") and `model_tag`.
-    `tp_mesh`, `tenant_kv_quotas` and `obs_label` are refused: their
-    features wait for ROADMAP.md queues A.8 and A.9."""
+    "both"), `weight_dtype` ("fp32" or "int8"), `model_tag`, and
+    `tp_mesh`/`tp_axis` (serving/tp.py; every rank of the axis runs an
+    engine over the same requests). `tenant_kv_quotas` and `obs_label`
+    are refused: their features wait for ROADMAP.md queue A.9."""
 
     def __init__(self, model, variables: Optional[Dict[str, Any]] = None,
                  slots: int = 4,
@@ -341,17 +371,33 @@ class InferenceEngine:
                  retry_backoff_s: float = 0.05,
                  clock: Callable[[], float] = time.monotonic,
                  obs_label: Optional[str] = None,
-                 tp_mesh=None,
+                 tp_mesh=None, tp_axis: str = "model",
                  role: str = "both",
                  attn_impl: Optional[str] = None,
                  weight_dtype: str = "fp32",
                  model_tag: Optional[str] = None,
                  tenant_kv_quotas: Optional[Dict[str, int]] = None,
                  device: DeviceLike = None):
+        if weight_dtype != "fp32" and tp_mesh is not None:
+            raise ValueError(
+                "weight_dtype='int8' under tp_mesh: the sharded path "
+                "pins BITWISE tp==unsharded tokens, which a lossy "
+                "weight layout cannot honor — quantize unsharded "
+                "engines only")
         if tp_mesh is not None:
-            raise NotImplementedError(
-                "tp_mesh: tensor-parallel serving is not ported yet "
-                "(ROADMAP.md queue A.8)")
+            # memoized: engines over one (model, mesh, axis) share one
+            # wrapper (serving/tp.py); a wrapper passed as `model` with
+            # its own mesh passes through
+            from bigdl_tpu_torch.serving.tp import tp_serving_model
+
+            model = tp_serving_model(model, tp_mesh, tp_axis)
+        elif getattr(model, "tp_axis", None) is not None:
+            raise ValueError(
+                f"model has tp_axis={model.tp_axis!r} armed (training "
+                "tensor parallelism): serve it sharded via "
+                "InferenceEngine(tp_mesh=...), which wraps it through "
+                "serving/tp.py — or build a plain TransformerLM for "
+                "unsharded serving")
         if tenant_kv_quotas:
             raise NotImplementedError(
                 "tenant_kv_quotas: tenancy is not ported yet (ROADMAP.md "
@@ -393,6 +439,16 @@ class InferenceEngine:
         self.cache_dtype = cache_dtype
         self.model_tag = model_tag
         self.model = model
+        # tp degree (1 = unsharded); the serving/tp.py wrapper carries
+        # it and the lockstep channel, plain models neither
+        self.tp = int(getattr(model, "tp", 1))
+        self._tp_mesh = getattr(model, "mesh", None)
+        self._tp_axis = getattr(model, "axis", None)
+        self._agree = getattr(model, "agree", None)
+        # a sharded engine decides on rank 0's clock readings, shared
+        # over the model axis (serving/tp.py)
+        self._read_shared = model.lockstep_clock(clock) \
+            if self.tp > 1 else None
         if variables is None:
             variables = model.variables
         self.variables = variables
@@ -443,9 +499,13 @@ class InferenceEngine:
         self._pool_mgr = BlockPool(pool_blocks, block_size)
         self._prefix = RadixPrefixCache(self._pool_mgr,
                                         host_blocks=self.host_blocks)
-        # KV bytes one token occupies across all layers
+        # one block's (H, block_size, D) over every head — a host block
+        # array's shape, whatever this rank's share of the heads
+        ref = self.pool[0]["k"]
+        self._block_shape = (ref.shape[1] * self.tp,) + tuple(ref.shape[2:])
+        # KV bytes one token occupies across all layers and heads
         self._kv_bytes_per_token = int(sum(
-            leaf.element_size() * leaf.shape[1] * leaf.shape[3]
+            leaf.element_size() * leaf.shape[1] * self.tp * leaf.shape[3]
             for layer in self.pool for leaf in layer.values()))
         self.buckets = tuple(sorted(
             prefill_buckets if prefill_buckets is not None
@@ -465,7 +525,11 @@ class InferenceEngine:
         self.step_timeout_s = step_timeout_s
         self.step_retries = step_retries
         self.retry_backoff_s = retry_backoff_s
-        self._clock = clock
+        # measurements (the step-latency histogram) read the clock itself
+        self._local_clock = clock
+        self._now: Optional[float] = None
+        self._clock = clock if self._read_shared is None \
+            else self._shared_now
         self._stats: Dict[str, int] = {
             "prefill_calls": 0, "decode_steps": 0, "requests_done": 0,
             "shed": 0, "rejected": 0, "deadline_misses": 0,
@@ -598,7 +662,7 @@ class InferenceEngine:
         depth and per-bucket composition, p50/p95 decode-step latency
         (from the lifetime fixed-bucket histogram; None before the first
         decode step) and every reliability counter. The key set is the
-        JAX engine's; `tp` is 1."""
+        JAX engine's; `tp` is the tensor-parallel degree."""
         def pct(q):
             v = self._lat.quantile(q)
             return None if v is None else round(v * 1e3, 3)
@@ -613,7 +677,7 @@ class InferenceEngine:
         return {
             "state": state,
             "degraded_reason": self._degraded,
-            "tp": 1,
+            "tp": self.tp,
             "role": self.role,
             "attn_impl": self.attn_impl,
             "weight_dtype": self.weight_dtype,
@@ -664,12 +728,34 @@ class InferenceEngine:
         }
 
     # --------------------------------------------------------------- host
+    def _tick(self) -> None:
+        """Start a step, submit or cancel: a sharded engine's next clock
+        read takes a fresh shared reading. An unsharded engine reads its
+        clock wherever it needs it."""
+        self._now = None
+
+    def _shared_now(self) -> float:
+        """A sharded engine's clock: rank 0's reading, broadcast over the
+        model axis at the first read since `_tick` (every rank's host
+        decisions reach it at the same point), so that every rank's
+        deadlines, TTLs, shedding, ttft and latency come out alike. The
+        decode step's end reading comes with its agreed verdict."""
+        if self._now is None:
+            self._now = self._read_shared()
+        return self._now
+
     def _in_flight(self) -> set:
         return {r.id for r in self._queue} \
             | {r.id for r in self._req if r is not None} \
             | set(self.completed)
 
     def submit(self, request: Request) -> int:
+        self._tick()
+        return self._submit(request)
+
+    def _submit(self, request: Request) -> int:
+        """`submit` on the current clock reading (`run` submits a batch
+        on one)."""
         n = len(request.prompt)
         if self._degraded:
             raise EngineDegraded(
@@ -730,6 +816,7 @@ class InferenceEngine:
         result (status 'shed', finish_reason 'cancelled', partial tokens
         if it was decoding) lands in `completed` and is returned.
         KeyError if the id is not queued or in flight."""
+        self._tick()
         for r in self._queue:
             if r.id == request_id:
                 self._queue.remove(r)
@@ -820,19 +907,28 @@ class InferenceEngine:
     def _gather_blocks(self, blocks: Sequence[int]) -> np.ndarray:
         """The pools' content of `blocks` as one host array (2L, n, H,
         bs, D) — keys then values of each layer — in ONE device-to-host
-        copy, whatever the number of layers and blocks."""
+        copy, whatever the number of layers and blocks. A sharded
+        engine gathers every rank's heads first (one all-gather)."""
         idx = torch.tensor(list(blocks), dtype=torch.long,
                            device=self.device)
-        return _to_host(torch.stack([leaf[idx] for layer in self.pool
-                                     for leaf in (layer["k"],
-                                                  layer["v"])]))
+        data = torch.stack([leaf[idx] for layer in self.pool
+                            for leaf in (layer["k"], layer["v"])])
+        if self.tp > 1:
+            with self.model.bound():
+                data = all_gather(data, self._tp_axis, dim=2)
+        return _to_host(data)
 
     def _scatter_blocks(self, blocks: Sequence[int],
                         host: np.ndarray) -> None:
         """Write one host array (2L, n, H, bs, D) into the pools' rows
-        `blocks` — one host-to-device copy, then a scatter per leaf."""
+        `blocks` — one host-to-device copy, then a scatter per leaf. A
+        sharded engine takes its own heads' slice."""
         idx = torch.tensor(list(blocks), dtype=torch.long,
                            device=self.device)
+        if self.tp > 1:
+            h = self._block_shape[0] // self.tp
+            c = self._tp_mesh.coord(self._tp_axis)
+            host = host[:, :, c * h:(c + 1) * h]
         data = _to_device(host, self.cache_dtype, self.device)
         for li, layer in enumerate(self.pool):
             layer["k"][idx] = data[2 * li]
@@ -909,6 +1005,8 @@ class InferenceEngine:
 
     # --------------------------------------------------------- admission
     def _admit(self) -> None:
+        if not self._queue:
+            return
         self._expire_queued(self._clock())
         for slot in self._free_slots():
             while self._queue:
@@ -1193,6 +1291,7 @@ class InferenceEngine:
         and returns every in-flight request as 'failed'."""
         if self._degraded:
             return []
+        self._tick()
         if self.role == "prefill":
             return self._step_prefill()
         self._admit()
@@ -1208,33 +1307,54 @@ class InferenceEngine:
         launches0 = paged_decode.launches
         try:
             for attempt in range(self.step_retries + 1):
+                # the step's verdict, agreed across a sharded engine's
+                # ranks before anyone acts on it (the worst one wins)
+                err: Optional[BaseException] = None
+                verdict = _STEP_OK
                 try:
                     plan.maybe_raise("serve_err", stepno)
                     slow_s = 0.0
                     if plan.fires("serve_slow", stepno):
                         slow_s = (self.step_timeout_s or 0.05) * 5
-                    tc0 = self._clock()
+                    tc0 = self._local_clock()
                     nxt, finite = self._dispatch_and_fetch(poison, slow_s)
-                    self._lat.observe(self._clock() - tc0)
-                    break
                 except StepTimeout as e:
-                    self._stats["watchdog_trips"] += 1
-                    return done + self._degrade(
-                        f"watchdog trip at decode step {stepno}: {e}")
+                    err, verdict = e, _STEP_TIMEOUT
                 except Exception as e:          # noqa: BLE001
-                    if _sticky_device_error(e):
-                        return done + self._degrade(
-                            f"decode step {stepno} failed with a CUDA "
-                            f"error (sticky, not retryable): {e}")
-                    if attempt >= self.step_retries:
-                        return done + self._degrade(
-                            f"decode step {stepno} failed after "
-                            f"{attempt + 1} attempt(s): {e}")
-                    self._stats["retries"] += 1
-                    logger.warning("decode step %d attempt %d failed "
-                                   "(%s); retrying", stepno, attempt + 1, e)
-                    if self.retry_backoff_s:
-                        time.sleep(self.retry_backoff_s * (2 ** attempt))
+                    err = e
+                    verdict = _STEP_STICKY if _sticky_device_error(e) \
+                        else _STEP_ERROR
+                t1 = self._local_clock()
+                agreed = verdict
+                if self._agree is not None:
+                    # rank 0's end-of-step reading rides on the verdict
+                    agreed, self._now = self._agree(verdict, t1)
+                if agreed == _STEP_OK:
+                    self._lat.observe(t1 - tc0)
+                    break
+                if agreed != verdict:
+                    err = RuntimeError("a peer rank's step failed")
+                if agreed == _STEP_TIMEOUT:
+                    self._stats["watchdog_trips"] += 1
+                    if self.tp > 1:
+                        # a worker may wait in a gather no peer joins
+                        self.model.abandon(f"watchdog trip at decode "
+                                           f"step {stepno}")
+                    return done + self._degrade(
+                        f"watchdog trip at decode step {stepno}: {err}")
+                if agreed == _STEP_STICKY:
+                    return done + self._degrade(
+                        f"decode step {stepno} failed with a CUDA "
+                        f"error (sticky, not retryable): {err}")
+                if attempt >= self.step_retries:
+                    return done + self._degrade(
+                        f"decode step {stepno} failed after "
+                        f"{attempt + 1} attempt(s): {err}")
+                self._stats["retries"] += 1
+                logger.warning("decode step %d attempt %d failed "
+                               "(%s); retrying", stepno, attempt + 1, err)
+                if self.retry_backoff_s:
+                    time.sleep(self.retry_backoff_s * (2 ** attempt))
         finally:
             self._stats["attn_kernel_launches"] += \
                 paged_decode.launches - launches0
@@ -1262,7 +1382,8 @@ class InferenceEngine:
                 "HandoffPackages instead of decoding — step() it and "
                 "hand take_handoffs() to a decode engine's "
                 "import_handoff()")
-        ids = [self.submit(r) for r in requests] if requests else None
+        self._tick()
+        ids = [self._submit(r) for r in requests] if requests else None
         while not self.idle:
             for res in self.step():
                 self.completed[res.id] = res
@@ -1340,13 +1461,13 @@ class InferenceEngine:
         k0 = pkg.kv[0]["k"]
         ref = self.pool[0]["k"]
         if len(pkg.kv) != len(self.pool) \
-                or tuple(k0.shape[1:]) != tuple(ref.shape[1:]) \
+                or tuple(k0.shape[1:]) != self._block_shape \
                 or not self._host_layout_ok(k0):
             raise ValueError(
                 f"handoff package layout {len(pkg.kv)} layers x "
                 f"{tuple(k0.shape[1:])} (block_size {k0.shape[2]}, "
                 f"{k0.dtype}) does not match this engine's "
-                f"{len(self.pool)} layers x {tuple(ref.shape[1:])} "
+                f"{len(self.pool)} layers x {self._block_shape} "
                 f"(block_size {self.block_size}, {ref.dtype}) — "
                 "prefill and decode tiers must share model, "
                 "block_size and cache_dtype")
@@ -1427,13 +1548,13 @@ class InferenceEngine:
         for e in entries:
             kv = e["kv"]
             if len(kv) != len(self.pool) \
-                    or tuple(kv[0]["k"].shape) != tuple(ref.shape[1:]) \
+                    or tuple(kv[0]["k"].shape) != self._block_shape \
                     or not self._host_layout_ok(kv[0]["k"]):
                 raise ValueError(
                     f"migrated tree entry layout {len(kv)} layers x "
                     f"{tuple(kv[0]['k'].shape)} ({kv[0]['k'].dtype}) "
                     f"does not match this engine's {len(self.pool)} "
-                    f"layers x {tuple(ref.shape[1:])} ({ref.dtype}) — "
+                    f"layers x {self._block_shape} ({ref.dtype}) — "
                     "migration requires a same-layout fleet")
         grafted = 0
         for e in sorted(entries, key=lambda e: len(e["tokens"])):

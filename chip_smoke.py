@@ -7,7 +7,8 @@ input pipelines, LBFGS, criterions and eager facade, MultiHeadAttention,
 the rest of nn/ (int8, sparse, volumetric, ...), the NCF,
 TextClassifier and autoencoder models, data-parallel training, the
 MoE-FFN LM, the tensor/pipeline/sequence/expert-parallel steps at world
-size 1 and sharded checkpoints on one NVIDIA GPU and check them.
+size 1, sharded checkpoints, tensor-parallel serving at world size 1,
+the keras surface and module files on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py            # from the repository root, one CUDA card
     python3 chip_smoke.py --profile  # also: where decode, train,
@@ -312,7 +313,24 @@ It drives `bigdl_tpu_torch` only (never JAX or the JAX package):
    sharded checkpoints, preempted and resumed from another seed's
    weights: masters bit for bit the uninterrupted run's; save stalls,
    resume seconds;
-37. kernels — one JSON line per the port's kernel table.
+37. tp_serve (after engine_spill_handoff) — the engine's timed wave
+   through `InferenceEngine(model, tp_mesh=mesh)` on a one-rank NCCL
+   mesh {model: 1} (serving/tp.py): tokens and statuses bitwise the
+   engine phase's, K1 launches exact, gather_serving_params ->
+   shard_serving_params -> gather bitwise; decode ms a step and
+   tokens/s beside the unsharded engine's;
+38. keras — at config 4's widths: `keras.Sequential([Embedding,
+   Bidirectional(LSTM), Dense])`, a keras GRU model and a two-input
+   functional `Model` (BiLSTM and GRU branches merged by concat),
+   compiled with Adam, fit 2 epochs in bf16, evaluated and predicted:
+   first step kernels vs plain in fp32, K8/K9 and K10/K11 launches
+   exact (fit, evaluate, predict each counted from 0), held-out loss
+   falls; samples/s beside rnn_trainer's;
+39. module_io — save_module/load_module of ResNet-50 and of the trained
+   keras model, save_t7/load_t7 of LeNet-5 (reloaded outputs bitwise),
+   `from_torch` of a torch conv/BN/pool/Linear Sequential against its
+   own output (fp32, 1e-5); save/load seconds and file sizes;
+40. kernels — one JSON line per the port's kernel table.
 
 Every phase prints one JSON line; any failed check raises and the
 script exits non-zero. The last lines are the `nvidia-smi` name/power
@@ -7182,6 +7200,379 @@ def phase_sharded_ckpt():
     return out["launches"]["fwd"], out["launches"]["bwd"]
 
 
+# ------------------------------------------- tensor-parallel serving
+TP_AXES = {"model": 1}          # one card holds one NCCL rank
+
+
+def phase_tp_serve(model, params, fp32_tokens):
+    """The engine's timed wave through `InferenceEngine(model,
+    tp_mesh=mesh)` on a one-rank NCCL mesh (serving/tp.py): the same
+    warm-up and timed waves as phase_engine, K1 per rank on its H/tp
+    heads. Gates: the timed wave's tokens and statuses bitwise equal to
+    phase_engine's fp32 tokens, K1's launches exact, and the serving
+    tree through gather_serving_params -> shard_serving_params ->
+    gather_serving_params bitwise (and equal to the unsharded layout).
+    Reported: decode ms a step and tokens/s beside the unsharded
+    engine's. Returns the timed wave's K1 launches."""
+    import numpy as np
+
+    from bigdl_tpu_torch.models.convert import tree_leaves
+    from bigdl_tpu_torch.parallel import make_mesh
+    from bigdl_tpu_torch.serving import (InferenceEngine, Request,
+                                         gather_serving_params,
+                                         shard_serving_params)
+
+    mesh = make_mesh(TP_AXES)
+    try:
+        eng = InferenceEngine(model, params, tp_mesh=mesh, **ENGINE_KNOBS)
+        check(eng.tp == 1 and eng.attn_impl == "cuda",
+              f"tp engine: tp {eng.tp}, attn_impl {eng.attn_impl}")
+        eng.run([Request(**r) for r in _wave(0)])          # warm-up
+        res, dt, steps, launches = _timed_run(eng, _wave(100))
+        _check_launches("tp_serve", launches, steps)
+        check(all(r.status == "done" and r.finish_reason == "max_tokens"
+                  for r in res), "tp_serve: a request did not finish done")
+        same = [r.tokens == t for r, t in zip(res, fp32_tokens)]
+        check(all(same), f"tp_serve: {same.count(False)} of {len(same)} "
+              "requests' tokens differ from the unsharded engine's")
+        host = gather_serving_params(eng._params, mesh)
+        back = gather_serving_params(shard_serving_params(mesh, host),
+                                     mesh)
+        plain = gather_serving_params(model.serving_params(params))
+        check(all(np.array_equal(a, b) and np.array_equal(a, c)
+                  for a, b, c in zip(tree_leaves(host), tree_leaves(back),
+                                     tree_leaves(plain))),
+              "tp_serve: the gather -> shard -> gather round trip moved "
+              "a bit")
+        pool_bytes = sum(leaf.numel() * leaf.element_size()
+                         for layer in eng.pool for leaf in layer.values())
+        n_tok = sum(len(r.tokens) for r in res)
+        ref = RESULTS["engine"]
+        emit("tp_serve", mesh=TP_AXES, backend=mesh.backend,
+             requests=len(res), new_tokens=n_tok, seconds=dt,
+             decode_steps=steps, step_ms=dt / steps * 1e3,
+             tokens_per_sec=n_tok / dt,
+             unsharded_step_ms=ref["step_ms"],
+             unsharded_tokens_per_sec=ref["tokens_per_sec"],
+             kernel_launches=launches, tokens_bitwise=True,
+             reshard_bitwise=True, pool_bytes_per_rank=pool_bytes)
+    finally:
+        mesh.close()
+    return launches
+
+
+# --------------------------------------------------- the keras surface
+# BASELINE config 4's widths (RNN_VOCAB, RNN_EMBED, RNN_HIDDEN) at the
+# BiLSTM trainer's batch and sequence (RNN_BATCH x RNN_SEQ)
+KERAS_TRAIN_BATCHES = 6         # batches an epoch
+KERAS_EPOCHS = 2
+KERAS_HELD_OUT_BATCHES = 2
+
+
+def _keras_data(batches, seed):
+    import numpy as np
+
+    samples = _sentiment_samples(RNN_BATCH * batches, seed)
+    return (np.stack([s.feature for s in samples]).astype(np.float32),
+            np.stack([s.label for s in samples]))
+
+
+def _keras_recurrences(module):
+    """The nn.Recurrent / nn.BiRecurrent modules inside a built keras
+    module (containers and graphs walked)."""
+    from bigdl_tpu_torch import nn
+
+    found, todo = [], [module]
+    while todo:
+        m = todo.pop()
+        if isinstance(m, (nn.Recurrent, nn.BiRecurrent)):
+            found.append(m)
+        todo.extend(getattr(m, "modules_", []))
+        todo.extend(n.module for n in getattr(m, "_order", [])
+                    if n.module is not None)
+    return found
+
+
+def _keras_first_step(kmodel, x, y):
+    """One fp32 loss-and-grad step of a keras model's module through the
+    kernels and through the plain versions (every recurrence forced to
+    each), as phase_rnn_model holds the BiLSTM: |dloss| and the
+    gradients' max relative difference."""
+    import torch
+
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.models.convert import tree_leaves, tree_map
+    from bigdl_tpu_torch.ops.losses import build_train_loss
+    from bigdl_tpu_torch.utils.precision import FULL_PRECISION
+
+    module = kmodel.module
+    params = module.variables["params"]
+    xs = tuple(torch.as_tensor(a).cuda() for a in x) \
+        if isinstance(x, (list, tuple)) else torch.as_tensor(x).cuda()
+    yt = torch.as_tensor(y).cuda()
+    out = {}
+    for impl in ("cuda", "torch"):
+        for r in _keras_recurrences(module):
+            r.fused = impl
+        p = tree_map(lambda t: t.detach().requires_grad_(), params)
+        loss_call = build_train_loss(module, nn.ClassNLLCriterion(),
+                                     FULL_PRECISION)
+        loss, _ = loss_call(p, module.variables["state"], xs, yt, None)
+        out[impl] = (float(loss.detach()),
+                     torch.autograd.grad(loss, tree_leaves(p)))
+    for r in _keras_recurrences(module):
+        r.fused = None
+    torch.cuda.synchronize()
+    top = max(float(b.abs().max()) for b in out["torch"][1])
+    rel = max(float((a - b).abs().max()) / max(float(b.abs().max()),
+                                               TRAIN_GRAD_FLOOR * top)
+              for a, b in zip(out["cuda"][1], out["torch"][1]))
+    return abs(out["cuda"][0] - out["torch"][0]), rel
+
+
+def _keras_leg(name, kmodel, x, y, vx, vy, counters, per_step):
+    """compile -> first step kernel vs plain -> fit (bf16, counted and
+    timed) -> evaluate and predict (each counted from 0)."""
+    import numpy as np
+    import torch
+
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.ops import fused_rnn as fr
+    from bigdl_tpu_torch.optim import Adam, Loss, Top1Accuracy
+
+    def expect(n_train, n_infer):
+        return {c: n_infer if "infer" in c else n_train for c in counters}
+
+    kmodel.compile(Adam(1e-3), "nll",
+                   [Top1Accuracy(), Loss(nn.ClassNLLCriterion())])
+    kmodel.module.build(torch.Generator().manual_seed(0))
+    first = x[:RNN_BATCH] if not isinstance(x, list) \
+        else [a[:RNN_BATCH] for a in x]
+    dloss, grad_rel = _keras_first_step(kmodel, first, y[:RNN_BATCH])
+    check(dloss <= TRAIN_LOSS_TOL and grad_rel <= TRAIN_GRAD_TOL,
+          f"keras {name}: kernels vs plain first step |dloss| {dloss}, "
+          f"grad rel {grad_rel}")
+    before = kmodel.evaluate(vx, vy, batch_size=RNN_BATCH)
+
+    def zero():
+        torch.cuda.synchronize()
+        for c in counters:
+            setattr(fr, c, 0)
+
+    def read():
+        torch.cuda.synchronize()
+        return {c: getattr(fr, c) for c in counters}
+
+    zero()                                      # main path starts here
+    t0 = time.perf_counter()
+    kmodel.fit(x, y, batch_size=RNN_BATCH, epochs=KERAS_EPOCHS,
+               precision="bf16")
+    fit_launches = read()                       # main path ends here
+    fit_s = time.perf_counter() - t0
+    steps = KERAS_EPOCHS * KERAS_TRAIN_BATCHES
+    check(fit_launches == expect(steps * per_step, 0),
+          f"keras {name} fit launches {fit_launches}, {steps} steps")
+    zero()
+    after = kmodel.evaluate(vx, vy, batch_size=RNN_BATCH)
+    eval_launches = read()
+    zero()
+    probs = kmodel.predict(vx, batch_size=RNN_BATCH)
+    pred_launches = read()
+    want = expect(0, KERAS_HELD_OUT_BATCHES * per_step)
+    check(eval_launches == want and pred_launches == want,
+          f"keras {name}: evaluate launched {eval_launches}, predict "
+          f"{pred_launches}, expected {want}")
+    check(math.isfinite(after["Loss"]) and after["Loss"] < before["Loss"],
+          f"keras {name}: held-out loss {before['Loss']} -> "
+          f"{after['Loss']} did not fall")
+    check(probs.shape == (len(vy), 2) and np.isfinite(probs).all(),
+          f"keras {name}: predict gave {probs.shape}")
+    # the first fit pays one-time costs (the allocator's first requests
+    # after the previous phase's empty_cache, the optimizer's setup);
+    # one more epoch, warm, is the steady rate
+    zero()
+    t0 = time.perf_counter()
+    kmodel.fit(x, y, batch_size=RNN_BATCH, epochs=1, precision="bf16")
+    warm_launches = read()
+    warm_s = time.perf_counter() - t0
+    check(warm_launches == expect(KERAS_TRAIN_BATCHES * per_step, 0),
+          f"keras {name} second fit launched {warm_launches}")
+    return {"first_step": {"loss_abs_diff": dloss,
+                           "grad_max_rel_diff": grad_rel},
+            "fit_seconds": fit_s, "steps": steps,
+            "samples_per_sec": steps * RNN_BATCH / fit_s,
+            "warm_epoch_samples_per_sec":
+                KERAS_TRAIN_BATCHES * RNN_BATCH / warm_s,
+            "held_out_before": before, "held_out_after": after,
+            "launches": {"fit": fit_launches, "evaluate": eval_launches,
+                         "predict": pred_launches}}
+
+
+def phase_keras():
+    """The keras surface (bigdl_tpu_torch/keras/) at BASELINE config 4's
+    widths: `Sequential([Embedding, Bidirectional(LSTM), Dense])` (K8/K9
+    in training, K8's inference variant in evaluate/predict), a
+    `Sequential([Embedding, GRU, Dense])` (K10/K11, K10's inference
+    variant) and a two-input functional `Model` — a BiLSTM branch and a
+    GRU branch merged by concatenation — each compiled with Adam and
+    fit KERAS_EPOCHS epochs in bf16 over KERAS_TRAIN_BATCHES batches of
+    RNN_BATCH x RNN_SEQ, then evaluated and predicted over
+    KERAS_HELD_OUT_BATCHES, then fit one more epoch, warm. Gates: the
+    first step through the kernels against the plain versions in fp32
+    (phase_rnn_model's tolerances), every launch count exact (counted
+    from 0 around each fit, evaluate and predict), the held-out loss
+    falls. Reported: samples/s of the first fit (its setup included)
+    and of the warm epoch, beside phase_rnn_trainer's. Returns the trained BiLSTM model and
+    the launch counts."""
+    from bigdl_tpu_torch import keras
+
+    x, y = _keras_data(KERAS_TRAIN_BATCHES, 21)
+    vx, vy = _keras_data(KERAS_HELD_OUT_BATCHES, 22)
+    lstm_c = ("fwd_train_launches", "fwd_infer_launches", "bwd_launches")
+    gru_c = ("gru_fwd_train_launches", "gru_fwd_infer_launches",
+             "gru_bwd_launches")
+    bilstm = keras.Sequential([
+        keras.Embedding(RNN_VOCAB, RNN_EMBED, input_length=RNN_SEQ),
+        keras.Bidirectional(keras.LSTM(RNN_HIDDEN)),
+        keras.Dense(2, activation="log_softmax")])
+    out = {"bilstm": _keras_leg("bilstm", bilstm, x, y, vx, vy, lstm_c, 1)}
+    gru = keras.Sequential([
+        keras.Embedding(RNN_VOCAB, RNN_EMBED, input_length=RNN_SEQ),
+        keras.GRU(RNN_HIDDEN), keras.Dense(2, activation="log_softmax")])
+    out["gru"] = _keras_leg("gru", gru, x, y, vx, vy, gru_c, 1)
+
+    a, b = keras.Input((RNN_SEQ,)), keras.Input((RNN_SEQ,))
+    ha = keras.Bidirectional(keras.LSTM(RNN_HIDDEN))(
+        keras.Embedding(RNN_VOCAB, RNN_EMBED)(a))
+    hb = keras.GRU(RNN_HIDDEN)(keras.Embedding(RNN_VOCAB, RNN_EMBED)(b))
+    two = keras.Model([a, b], keras.Dense(2, activation="log_softmax")(
+        keras.merge([ha, hb], mode="concat")))
+    out["functional"] = _keras_leg(
+        "functional", two, [x, x[:, ::-1].copy()], y,
+        [vx, vx[:, ::-1].copy()], vy, lstm_c + gru_c, 1)
+    ref = RESULTS["rnn_trainer"]
+    emit("keras", batch=RNN_BATCH, seq=RNN_SEQ, vocab=RNN_VOCAB,
+         embed=RNN_EMBED, hidden=RNN_HIDDEN, epochs=KERAS_EPOCHS,
+         tolerance={"loss": TRAIN_LOSS_TOL, "grad_rel": TRAIN_GRAD_TOL},
+         rnn_trainer_samples_per_sec=ref["samples_per_sec"], **out)
+    return bilstm, {k: v["launches"] for k, v in out.items()}
+
+
+# ------------------------------------------------------ module files
+MODIO_RESNET_BATCH = 2
+MODIO_LENET_BATCH = 64
+MODIO_INTEROP_TOL = 1e-5        # from_torch vs the torch module, fp32
+
+
+def _module_file_round_trip(tag, module, variables, xs, tmp):
+    """save_module -> load_module on the card: seconds, file MiB, and
+    whether the reloaded module's outputs equal the saved one's bit for
+    bit on `xs` (eval mode, no autograd)."""
+    import torch
+
+    from bigdl_tpu_torch.serialization import load_module, save_module
+
+    d = tmp / tag
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    save_module(str(d), module, variables)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loaded, lv = load_module(str(d))
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    with torch.no_grad():
+        a, _ = module.apply(variables, *xs, training=False)
+        b, _ = loaded.apply(lv, *xs, training=False)
+    torch.cuda.synchronize()
+    check(type(loaded) is type(module) and torch.equal(a, b),
+          f"module_io {tag}: the reloaded module's outputs differ")
+    return {"save_s": save_s, "load_s": load_s, "mib": _dir_gib(d) * 1024,
+            "bitwise": True}
+
+
+def phase_module_io(keras_bilstm):
+    """Module files on the card. save_module/load_module round trips of
+    ResNet-50 (fp32, batch MODIO_RESNET_BATCH at 224) and of the keras
+    phase's trained BiLSTM (its held-out batches), each reloaded
+    module's outputs bitwise equal to the saved one's; save_t7/load_t7
+    of LeNet-5 alike; from_torch of a conv/BN/ReLU/pool/Linear
+    torch.nn.Sequential built here against that module's own output on
+    the card (fp32, MODIO_INTEROP_TOL; the pool reduces to 1 x 1, so
+    the NHWC and NCHW flattens agree). Reported: save and load seconds
+    and file sizes."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from bigdl_tpu_torch.models import lenet, resnet
+    from bigdl_tpu_torch.utils.torch_file import load_t7, save_t7
+    from bigdl_tpu_torch.utils.torch_interop import from_torch
+
+    tmp = Path(tempfile.mkdtemp(prefix="bigdl-modio-"))
+    out = {}
+    try:
+        g = torch.Generator().manual_seed(0)
+        r50 = resnet.build_imagenet(50, 1000)
+        x = torch.randn(MODIO_RESNET_BATCH, 224, 224, 3, generator=g).cuda()
+        out["resnet50"] = _module_file_round_trip(
+            "resnet50", r50, r50.init(torch.Generator().manual_seed(1)),
+            (x,), tmp)
+        del r50, x
+        vx, _ = _keras_data(KERAS_HELD_OUT_BATCHES, 22)
+        km = keras_bilstm.module
+        out["keras_bilstm"] = _module_file_round_trip(
+            "keras_bilstm", km, km.variables,
+            (torch.as_tensor(vx).cuda(),), tmp)
+
+        le = lenet.build(10)
+        lv = le.init(torch.Generator().manual_seed(2))
+        xs = torch.randn(MODIO_LENET_BATCH, 28, 28, 1, generator=g).cuda()
+        path = tmp / "lenet.t7"
+        t0 = time.perf_counter()
+        save_t7(str(path), le, lv)
+        t7_save = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        lm, lmv = load_t7(str(path))
+        torch.cuda.synchronize()
+        t7_load = time.perf_counter() - t0
+        with torch.no_grad():
+            a, _ = le.apply(lv, xs)
+            b, _ = lm.apply(lmv, xs)
+        check(torch.equal(a, b), "module_io lenet .t7: outputs differ")
+        out["lenet_t7"] = {"save_s": t7_save, "load_s": t7_load,
+                           "mib": path.stat().st_size / 2 ** 20,
+                           "bitwise": True}
+
+        tnn = torch.nn
+        torch.manual_seed(3)
+        tm = tnn.Sequential(
+            tnn.Conv2d(3, 16, 3, padding=1), tnn.BatchNorm2d(16),
+            tnn.ReLU(), tnn.MaxPool2d(2), tnn.Conv2d(16, 32, 3, padding=1),
+            tnn.BatchNorm2d(32), tnn.ReLU(), tnn.AvgPool2d(16),
+            tnn.Flatten(), tnn.Linear(32, 10)).cuda()
+        with torch.no_grad():            # non-trivial running statistics
+            tm(torch.randn(16, 3, 32, 32, device="cuda"))
+        tm.eval()
+        xi = torch.randn(8, 3, 32, 32, device="cuda")
+        with torch.no_grad():
+            want = tm(xi)
+            m, v = from_torch(tm, input_layout="NCHW")
+            got, _ = m.apply(v, xi, training=False)
+        err = float((got - want).abs().max())
+        check(err <= MODIO_INTEROP_TOL,
+              f"module_io from_torch: {err} > {MODIO_INTEROP_TOL}")
+        out["from_torch"] = {"max_abs_err": err,
+                             "tolerance": MODIO_INTEROP_TOL,
+                             "output": list(got.shape)}
+        check(np.isfinite(err), "module_io from_torch: non-finite")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit("module_io", **out)
+
+
 def main() -> int:
     import torch
 
@@ -7218,6 +7609,7 @@ def main() -> int:
     engine_launches.update(phase_engine_layouts(model, params, fp32_tokens))
     engine_launches.update(phase_engine_spill_handoff(model, params,
                                                       fp32_tokens))
+    engine_launches["tp_serve"] = phase_tp_serve(model, params, fp32_tokens)
     del model, params
     torch.cuda.empty_cache()
     phase_train_model()
@@ -7304,6 +7696,11 @@ def main() -> int:
     del moe
     torch.cuda.empty_cache()
     sck_fwd, sck_bwd = phase_sharded_ckpt()
+    torch.cuda.empty_cache()
+    keras_model, keras_launches = phase_keras()
+    torch.cuda.empty_cache()
+    phase_module_io(keras_model)
+    del keras_model
     fp32 = kern["fp32"]
     # the flash rows: the trainer's shape in its compute dtype (bf16)
     row = flash["train/bf16"]
@@ -7377,10 +7774,16 @@ def main() -> int:
         bound = r["train_bound" if kind == "fwd" else "bwd_bound"]
         launch = rnn_launches["uni" if case == "lm_uni" else "bi"][counter]
         # K6/K7 have two main paths: the LSTM LM on token ids
-        # (rnn_trainer) and on raw text (text_lm); each counted from 0
+        # (rnn_trainer) and on raw text (text_lm); K8/K9 the BiLSTM
+        # trainer and the keras BiLSTM and two-input models' fit; each
+        # counted from 0
         by_path = {"rnn_trainer": launch,
                    "text_lm": text_launches[counter]} \
-            if case == "lm_uni" else {}
+            if case == "lm_uni" else {
+                "rnn_trainer": launch,
+                "keras": keras_launches["bilstm"]["fit"][counter],
+                "keras_functional":
+                    keras_launches["functional"]["fit"][counter]}
         kernels.append({
             "name": ("bilstm_" if case == "train_bi" else "lstm_") + kind,
             "route": "cuda", "source": src,
@@ -7414,6 +7817,13 @@ def main() -> int:
             "replaces": {"K10": "bigdl_tpu/ops/fused_rnn.py:611 :637",
                          "K11": "bigdl_tpu/ops/fused_rnn.py:643"}[num],
             "launches": launch,
+            # the BiGRU trainer and the keras GRU and two-input models'
+            # fit, each counted from 0
+            "launches_by_path": {
+                "gru_trainer": launch,
+                **{f"keras_{k}": keras_launches[k]["fit"][
+                    "gru_" + ("fwd_train" if kind == "fwd" else "bwd")
+                    + "_launches"] for k in ("gru", "functional")}},
             "max_abs_err": max(
                 g["fwd_max_abs_err" if kind == "fwd" else "grad_max_abs_err"]
                 for k, g in gru.items() if k.endswith("/fp32")),

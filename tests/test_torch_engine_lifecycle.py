@@ -332,10 +332,34 @@ def test_requests_carry_their_model_tag_and_engine_its_own(models):
 
 
 @pytest.mark.parametrize("kw, queue", [
-    (dict(tp_mesh=object()), "A.8"),
     (dict(tenant_kv_quotas={"a": 4}), "A.9"),
     (dict(obs_label="e0"), "A.9")])
 def test_waiting_features_name_their_queue(models, kw, queue):
     _, pt = sides(models)
     with pytest.raises(NotImplementedError, match=queue):
         pt.engine(**kw)
+
+
+def test_engine_with_tp_mesh_serves_as_unsharded(models):
+    """`tp_mesh` (A.8 step 6) serves through serving/tp.py: on a
+    one-rank mesh the engine's results equal the unsharded engine's
+    and the JAX engine's (the multi-rank cases are
+    tests/test_torch_tp_serving.py)."""
+    from bigdl_tpu_torch.parallel import make_mesh
+
+    jx, pt = sides(models)
+    reqs = [dict(prompt=[1, 2, 3], max_new_tokens=5),
+            dict(prompt=[7, 5, 3, 9, 4, 2, 8], max_new_tokens=4)]
+    mesh = make_mesh({"model": 1}, device="cpu")
+    try:
+        eng = pt.engine(tp_mesh=mesh)
+        got = [result(r) for r in eng.run(
+            [pt.m.Request(**r) for r in reqs])]
+        assert eng.tp == 1 and eng.health()["tp"] == 1
+    finally:
+        mesh.close()
+    plain = [result(r) for r in pt.engine().run(
+        [pt.m.Request(**r) for r in reqs])]
+    ref = [result(r) for r in jx.engine().run(
+        [jx.m.Request(**r) for r in reqs])]
+    assert got == plain == ref

@@ -57,6 +57,12 @@ NEW_IN_SLICE_15 = ("parallel/__init__.py", "parallel/mesh.py",
 NEW_IN_SLICE_16 = ("parallel/collectives.py", "parallel/ring_attention.py",
                    "parallel/moe.py", "parallel/tensor_parallel.py",
                    "parallel/pipeline.py", "parallel/multichip.py")
+NEW_IN_SLICE_17 = ("serving/tp.py", "keras/__init__.py", "keras/layers.py",
+                   "keras/layers_extra.py", "keras/models.py",
+                   "keras/functional.py",
+                   "serialization/module_serializer.py",
+                   "utils/torch_interop.py", "utils/interop.py",
+                   "utils/torch_file.py")
 
 
 def test_port_files_exist():
@@ -68,7 +74,7 @@ def test_port_files_exist():
         | set(NEW_IN_SLICE_9) | set(NEW_IN_SLICE_10) \
         | set(NEW_IN_SLICE_11) | set(NEW_IN_SLICE_13) \
         | set(NEW_IN_SLICE_14) | set(NEW_IN_SLICE_15) \
-        | set(NEW_IN_SLICE_16) <= scanned
+        | set(NEW_IN_SLICE_16) | set(NEW_IN_SLICE_17) <= scanned
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -121,7 +127,12 @@ def test_port_import_loads_no_jax():
             "bigdl_tpu_torch.parallel.moe, "
             "bigdl_tpu_torch.parallel.tensor_parallel, "
             "bigdl_tpu_torch.parallel.pipeline, "
-            "bigdl_tpu_torch.parallel.multichip; "
+            "bigdl_tpu_torch.parallel.multichip, "
+            "bigdl_tpu_torch.serving.tp, bigdl_tpu_torch.keras, "
+            "bigdl_tpu_torch.serialization.module_serializer, "
+            "bigdl_tpu_torch.utils.torch_interop, "
+            "bigdl_tpu_torch.utils.interop, "
+            "bigdl_tpu_torch.utils.torch_file; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{BANNED!r}]; "
             "assert not bad, bad")

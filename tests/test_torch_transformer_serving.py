@@ -12,6 +12,8 @@ cold promise of the prefix cache holds BITWISE on the CPU: a suffix
 prefill after a cached prefix writes the same KV bits as a cold
 prefill, and decode over either pool gives the same logits bits."""
 
+from types import SimpleNamespace
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -20,6 +22,7 @@ import torch
 
 from bigdl_tpu.models.transformer import build_lm
 from bigdl_tpu_torch.models.convert import params_from_jax
+from bigdl_tpu_torch.parallel.collectives import bind
 from bigdl_tpu_torch.models.transformer import (TransformerConfig,
                                                 TransformerLM)
 
@@ -84,8 +87,9 @@ def test_init_params_layout_matches_jax(models):
 
 def test_unported_variants_raise():
     """An MoE config builds now; decoding an MoE or `sp_axis` model
-    raises as the JAX package's does, and a `tp_axis` model's decode
-    names serving/tp.py's queue (A.8 step 6)."""
+    raises as the JAX package's does, and a `tp_axis` model's pool
+    (A.8 step 6, under the mesh serving/tp.py binds) holds this rank's
+    heads only."""
     moe = TransformerLM(TransformerConfig(**CFG, moe_experts=4),
                         device="cpu")
     with pytest.raises(NotImplementedError, match="MoE"):
@@ -96,8 +100,16 @@ def test_unported_variants_raise():
         sp.init_block_pool(NB + 1, BS)
     tp = TransformerLM(TransformerConfig(**CFG), device="cpu",
                        tp_axis="model")
-    with pytest.raises(NotImplementedError, match="A.8, step 6"):
-        tp.init_block_pool(NB + 1, BS)
+    whole = TransformerLM(TransformerConfig(**CFG), device="cpu")
+    full = whole.init_block_pool(NB + 1, BS)[0]["k"].shape
+    for coord in (0, 1):
+        mesh = SimpleNamespace(shape={"model": 2}, coords={"model": coord},
+                               groups={"model": None})
+        with bind(mesh):
+            pools = tp.init_block_pool(NB + 1, BS)
+        assert len(pools) == CFG["num_layers"]
+        for leaf in pools[0].values():
+            assert leaf.shape == (full[0], full[1] // 2) + full[2:]
 
 
 def test_prefill_paged_pools_match_jax(models):
