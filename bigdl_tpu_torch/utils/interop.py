@@ -1,18 +1,25 @@
-"""Shared interop helpers: flatten a module tree into a linear op list.
+"""Shared interop helpers: flatten a module tree into a linear op list,
+and gather an imported graph's variables.
 
 Ports bigdl_tpu/utils/interop.py (used by the Caffe and TensorFlow
 persisters; reference: the per-format `Converter` hierarchies under
 utils/caffe/ and utils/tf/ walk the module graph the same way). The
-port's containers hold their children as `modules_`.
+port's containers hold their children as `modules_`. `graph_variables`
+is port-only: the JAX loaders draw `graph.init(...)` for every node and
+overwrite the imported ones.
 """
 
 from __future__ import annotations
 
 from typing import Any, Dict, List, Tuple
 
+import numpy as np
+import torch
+
 from bigdl_tpu_torch import nn
+from bigdl_tpu_torch.models.convert import tree_map
 from bigdl_tpu_torch.nn.graph import Graph
-from bigdl_tpu_torch.nn.module import Module
+from bigdl_tpu_torch.nn.module import Module, _fold_rng
 
 
 def linearize(module: Module, variables: Dict[str, Any],
@@ -58,3 +65,35 @@ def linearize(module: Module, variables: Dict[str, Any],
 
     out_ids = walk(module, variables, [-(i + 1) for i in range(n_inputs)])
     return entries, out_ids
+
+
+def graph_variables(graph: Graph, node_vars: Dict[int, Dict[str, Any]],
+                    device: torch.device) -> Dict[str, Any]:
+    """An imported graph's variables on `device`: each converted node's
+    own (host arrays, keyed by `id(node)`; their state over the module's
+    initial state), and for every other node the draws `graph.init`
+    (seed 0) gives it — only those are drawn, so importing VGG-16 draws
+    nothing."""
+    g = torch.Generator().manual_seed(0)
+    params: Dict[str, Any] = {}
+    state: Dict[str, Any] = {}
+    for i, n in enumerate(graph._order):
+        if n.module is None:
+            continue
+        key = graph._keys[id(n)]
+        if key in params:
+            continue
+        v = node_vars.get(id(n))
+        state[key] = n.module.init_state()
+        if v is None:
+            params[key] = n.module.init_params(_fold_rng(g, i))
+        else:
+            params[key] = v["params"]
+            state[key].update(v["state"])
+
+    def put(a):
+        if isinstance(a, torch.Tensor):
+            return a.to(device)
+        return torch.from_numpy(np.array(a, np.float32, order="C")).to(device)
+
+    return tree_map(put, {"params": params, "state": state})

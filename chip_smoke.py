@@ -8,7 +8,8 @@ the rest of nn/ (int8, sparse, volumetric, ...), the NCF,
 TextClassifier and autoencoder models, data-parallel training, the
 MoE-FFN LM, the tensor/pipeline/sequence/expert-parallel steps at world
 size 1, sharded checkpoints, tensor-parallel serving at world size 1,
-the keras surface and module files on one NVIDIA GPU and check them.
+the keras surface, module files and Caffe/TensorFlow model import on
+one NVIDIA GPU and check them.
 
     python3 chip_smoke.py            # from the repository root, one CUDA card
     python3 chip_smoke.py --profile  # also: where decode, train,
@@ -330,7 +331,16 @@ It drives `bigdl_tpu_torch` only (never JAX or the JAX package):
    keras model, save_t7/load_t7 of LeNet-5 (reloaded outputs bitwise),
    `from_torch` of a torch conv/BN/pool/Linear Sequential against its
    own output (fp32, 1e-5); save/load seconds and file sizes;
-40. kernels — one JSON line per the port's kernel table.
+40. model_import — VGG-16 (config 5, 138.4M parameters, seeded) through
+   Caffe (the VGG_ILSVRC_16 form: the loader's flatten idiom, SoftMax)
+   and through a TensorFlow GraphDef (`vgg.build(16)` as it is), each
+   saved and reloaded on the card by the port's own protobuf codec:
+   reloaded variables bitwise, the fp32 forward at 128 x 224 x 224 x 3
+   within 1e-5 of max(1, |output|), 10 bf16 SGD steps at 128 of the
+   built model and then of the import (images/s beside vgg_estimator's
+   native step); Engine's device count and kind, a profiler.trace of
+   two import steps holding conv kernels, debug_nans on a card NaN;
+41. kernels — one JSON line per the port's kernel table.
 
 Every phase prints one JSON line; any failed check raises and the
 script exits non-zero. The last lines are the `nvidia-smi` name/power
@@ -345,6 +355,7 @@ import contextlib
 import importlib
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -7573,6 +7584,275 @@ def phase_module_io(keras_bilstm):
     emit("module_io", **out)
 
 
+MI_DEVICE = "cuda"
+MI_IMAGE, MI_CLASSES = 224, 1000  # BASELINE config 5: VGG-16 at ImageNet's
+MI_BATCH, MI_STEPS = 128, 10      # vgg_estimator's batch; timed SGD steps
+MI_LR = 0.01                      # SGD, momentum 0.9 (perf.train_step's)
+MI_FWD_TOL = 1e-5                 # reloaded vs source forward, fp32, of
+                                  # max(1, |source output|)
+MI_SEED = 19
+MI_CONV_KERNEL = re.compile(r"fprop|dgrad|wgrad|[Cc]onv|implicit")
+# VGG_ILSVRC_16_layers' layer names, in build(16)'s order
+MI_NAMES = ("conv1_1 relu1_1 conv1_2 relu1_2 pool1 conv2_1 relu2_1 conv2_2 "
+            "relu2_2 pool2 conv3_1 relu3_1 conv3_2 relu3_2 conv3_3 relu3_3 "
+            "pool3 conv4_1 relu4_1 conv4_2 relu4_2 conv4_3 relu4_3 pool4 "
+            "conv5_1 relu5_1 conv5_2 relu5_2 conv5_3 relu5_3 pool5 flatten "
+            "fc6 relu6 drop6 fc7 relu7 drop7 fc8 prob").split()
+
+
+def _mi_vgg(caffe_form: bool):
+    """`models/vgg.build(16, MI_CLASSES)` with the reference's layer
+    names; `caffe_form` swaps its NHWC Reshape for the Caffe loader's
+    flatten idiom (Transpose((2,4),(3,4)) + Reshape((-1,)): InnerProduct
+    reads C,H,W) and its LogSoftMax for SoftMax — the form a
+    VGG_ILSVRC_16 caffemodel imports as."""
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.models import vgg
+
+    base = vgg.build(16, MI_CLASSES, image_size=MI_IMAGE)
+    if not caffe_form:
+        for mod, name in zip(base.modules_, MI_NAMES):
+            mod.set_name(name)
+        return base
+    m = nn.Sequential()
+    for mod, name in zip(base.modules_, MI_NAMES):
+        if isinstance(mod, nn.Reshape):
+            m.add(nn.Transpose(((2, 4), (3, 4))).set_name(name))
+            m.add(nn.Reshape((-1,), batch_mode=True).set_name(name + "_2d"))
+        elif isinstance(mod, nn.LogSoftMax):
+            m.add(nn.SoftMax().set_name(name))
+        else:
+            m.add(mod.set_name(name))
+    return m
+
+
+def _mi_params(module, variables) -> list:
+    """Every parameter and state tensor in the graph's op order
+    (utils/interop.linearize): a Caffe or TF import against its source,
+    whatever containers and bias modules each wraps them in."""
+    from bigdl_tpu_torch.models.convert import tree_leaves
+    from bigdl_tpu_torch.utils.interop import linearize
+
+    entries, _ = linearize(module, variables)
+    out = [v[part][k] for _, v, _ in entries for part in ("params", "state")
+           for k in ("weight", "bias", "running_mean", "running_var")
+           if k in v[part]]
+    n = len(tree_leaves(variables))
+    check(len(out) == n, f"model_import: {len(out)} of {n} leaves in "
+          "linearize order")
+    return out
+
+
+def _mi_trainer(model, variables, criterion, x, y):
+    """`step(i)`: perf.train_step's step (bf16 compute over fp32
+    masters, SGD(MI_LR, momentum 0.9), a loss read one step late by
+    the caller) on `model`'s own variables, updated in place."""
+    import torch
+
+    from bigdl_tpu_torch.models.convert import tree_leaves
+    from bigdl_tpu_torch.nn.module import _fold_rng
+    from bigdl_tpu_torch.ops.losses import build_train_loss
+    from bigdl_tpu_torch.optim import SGD
+    from bigdl_tpu_torch.utils.precision import DEFAULT_MIXED
+
+    method = SGD(learningrate=MI_LR, momentum=0.9, dampening=0.0)
+    leaves = [t.requires_grad_() for t in tree_leaves(variables["params"])]
+    slots = method.init_slots(leaves)
+    loss_call = build_train_loss(model, criterion, DEFAULT_MIXED)
+    params, state = variables["params"], variables["state"]
+    base = torch.Generator(device=x.device).manual_seed(7)
+
+    def step(i):
+        nonlocal state
+        loss, state = loss_call(params, state, x, y, _fold_rng(base, i))
+        grads = torch.autograd.grad(loss, leaves)
+        method.update(grads, leaves, slots, MI_LR, i)
+        return loss.detach()
+
+    return step
+
+
+def _mi_timed(step) -> dict:
+    t0 = time.perf_counter()
+    first = float(step(0))            # warm-up; the host read fences
+    warm_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for i in range(1, MI_STEPS + 1):
+        loss = step(i)
+    last = float(loss)                # depends on every step: the fence
+    steady = time.perf_counter() - t0
+    check(math.isfinite(first) and math.isfinite(last),
+          f"model_import: losses {first}, {last}")
+    return {"first_loss": first, "last_loss": last, "warmup_s": warm_s,
+            "step_ms": steady / MI_STEPS * 1e3,
+            "images_per_sec": MI_STEPS * MI_BATCH / steady}
+
+
+def _mi_leg(tag, save, load, caffe_form, x, y, tmp, trace_dir=None):
+    """One format: build the seeded source, save it to `tmp` (timed),
+    reload it on the card (timed), gate the reloaded variables bit for
+    bit and the fp32 forward within MI_FWD_TOL, then fine-tune the
+    source and then the import, MI_STEPS steps each (with `trace_dir`,
+    two more steps of the import under utils/profiler.trace)."""
+    import torch
+
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.utils import profiler
+
+    src = _mi_vgg(caffe_form)
+    sv = src.init(torch.Generator().manual_seed(MI_SEED), MI_DEVICE)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    files = save(src, sv, tmp)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    model, mv = load(files)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    a, b = _mi_params(src, sv), _mi_params(model, mv)
+    check(len(a) == len(b) and all(
+        p.shape == q.shape and p.device == q.device and torch.equal(p, q)
+        for p, q in zip(a, b)),
+        f"model_import {tag}: a reloaded variable differs from its source")
+    with torch.no_grad():
+        want, _ = src.apply(sv, x, training=False)
+        got, _ = model.apply(mv, x, training=False)
+    err = float((got - want).abs().max())
+    scale = max(1.0, float(want.abs().max()))
+    check(math.isfinite(err) and err <= MI_FWD_TOL * scale,
+          f"model_import {tag}: forward {err} > {MI_FWD_TOL} x {scale}")
+    out = {"files_mib": sum(os.path.getsize(f) for f in files) / 2 ** 20,
+           "save_s": save_s, "load_s": load_s,
+           "variables": len(a), "parameters": sum(t.numel() for t in a),
+           "bitwise_variables": True, "fwd_max_abs_err": err,
+           "fwd_bitwise": bool(torch.equal(got, want)),
+           "fwd_tolerance": MI_FWD_TOL * scale,
+           "imported_layers": [type(n.module).__name__
+                               for n in model._order if n.module][:3]}
+    del want, got
+    crit = nn.ClassNLLCriterion(logProbAsInput=not caffe_form)
+    out["built"] = _mi_timed(_mi_trainer(src, sv, crit, x, y))
+    del src, sv
+    torch.cuda.empty_cache()
+    step = _mi_trainer(model, mv, crit, x, y)
+    out["imported"] = _mi_timed(step)
+    if trace_dir is not None:
+        with profiler.trace(trace_dir):
+            for i in (MI_STEPS + 1, MI_STEPS + 2):
+                with profiler.step(i):
+                    loss = step(i)
+            float(loss)
+    return out
+
+
+def phase_model_import():
+    """A.10's interop at VGG-16's width (BASELINE config 5, 138.4M
+    parameters), on the card. (a) Caffe: the VGG_ILSVRC_16 form of
+    `models/vgg.build(16)` (`_mi_vgg`) with seeded weights, persisted
+    by `utils/caffe.persist` to .prototxt + .caffemodel and reloaded by
+    `utils/caffe.load(device="cuda")`; (b) TensorFlow: `vgg.build(16)`
+    as it is, through `utils/tf.save` to a frozen GraphDef and
+    `utils/tf.load`. Both through the port's own protobuf codec. Gates
+    for each: every reloaded variable equal to its source bit for bit;
+    the fp32 forward of a MI_BATCH x 224 x 224 x 3 batch within
+    MI_FWD_TOL of the source's (bitwise reported); MI_STEPS SGD steps
+    in bf16 at MI_BATCH of the built model and then of the import, in
+    this call, losses finite. Reported: save and load seconds, file
+    MiB, images/s of both against vgg_estimator's native VGG-16 step.
+    (c) The small utils: `Engine.device_count()` is 1 and the device of
+    `Engine.default_mesh()` is this card; `profiler.trace` around two
+    of (a)'s import steps writes a trace holding convolution kernels;
+    `debug_nans` raises on a NaN made on the card, naming the op."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from bigdl_tpu_torch.utils import Engine, caffe, tf
+    from bigdl_tpu_torch.utils.debug import debug_nans
+
+    t_phase = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="bigdl-mi-"))
+    g = torch.Generator().manual_seed(MI_SEED)
+    x = torch.rand(MI_BATCH, MI_IMAGE, MI_IMAGE, 3, generator=g) \
+        .to(MI_DEVICE)
+    y = torch.randint(0, MI_CLASSES, (MI_BATCH,), generator=g,
+                      dtype=torch.int32).to(MI_DEVICE)
+
+    def caffe_save(m, v, d):
+        files = (str(d / "vgg16.prototxt"), str(d / "vgg16.caffemodel"))
+        caffe.persist(*files, m, v, (1, 3, MI_IMAGE, MI_IMAGE),
+                      name="VGG_ILSVRC_16_layers")
+        return files
+
+    def tf_save(m, v, d):
+        path = str(d / "vgg16.pb")
+        tf.save(m, v, path, (1, MI_IMAGE, MI_IMAGE, 3))
+        return (path,)
+
+    out = {"batch": MI_BATCH, "steps": MI_STEPS, "image": MI_IMAGE}
+    try:
+        trace_dir = tmp / "trace"
+        out["caffe"] = _mi_leg(
+            "caffe", caffe_save,
+            lambda f: caffe.load(f[0], f[1], device=MI_DEVICE), True, x, y,
+            tmp, trace_dir)
+        torch.cuda.empty_cache()
+        out["tf"] = _mi_leg(
+            "tf", tf_save, lambda f: tf.load(f[0], device=MI_DEVICE), False,
+            x, y, tmp)
+        torch.cuda.empty_cache()
+        # (c) the small utils on the card
+        Engine.init()
+        mesh = Engine.default_mesh(device=MI_DEVICE)
+        try:
+            kind = torch.cuda.get_device_name(mesh.device)
+            check(Engine.device_count() == 1
+                  and Engine.local_device_count() == 1
+                  and kind == torch.cuda.get_device_name(0),
+                  f"model_import: Engine sees {Engine.device_count()} "
+                  f"devices of kind {kind!r}")
+        finally:
+            mesh.close()
+        traces = [p for p in trace_dir.rglob("*.pt.trace.json")]
+        check(len(traces) == 1, f"model_import: traces {traces}")
+        events = json.loads(traces[0].read_text())["traceEvents"]
+        kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+        convs = sorted({k for k in kernels if MI_CONV_KERNEL.search(k)})
+        steps = [e for e in events if str(e.get("name", "")).startswith(
+            "train_step#")]
+        check(convs and len(steps) >= 2,
+              f"model_import: trace has {len(kernels)} kernels, conv "
+              f"kernels {convs[:3]}, step ranges {len(steps)}")
+        nan_msg = None
+        z = torch.zeros(8, device=MI_DEVICE)
+        try:
+            with debug_nans():
+                z / z
+        except FloatingPointError as e:
+            nan_msg = str(e)
+        check(nan_msg is not None and "aten.div" in nan_msg
+              and MI_DEVICE in nan_msg,
+              f"model_import: debug_nans raised {nan_msg!r}")
+        native = RESULTS.get("vgg_estimator", {}).get("vgg16", {}).get(
+            "images_per_sec")
+        for leg in ("caffe", "tf"):
+            for run in ("built", "imported"):
+                r = out[leg][run]
+                r["vs_native"] = (r["images_per_sec"] / native
+                                  if native else None)
+        out["utils"] = {
+            "device_count": Engine.device_count(), "device_kind": kind,
+            "trace_mib": traces[0].stat().st_size / 2 ** 20,
+            "trace_kernels": len(kernels),
+            "trace_conv_kernels": [k[:100] for k in convs[:6]],
+            "trace_step_ranges": len(steps), "debug_nans": nan_msg}
+        out["native_vgg16_images_per_sec"] = native
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit("model_import", **out, seconds=time.perf_counter() - t_phase)
+
+
 def main() -> int:
     import torch
 
@@ -7701,6 +7981,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_module_io(keras_model)
     del keras_model
+    torch.cuda.empty_cache()
+    phase_model_import()
     fp32 = kern["fp32"]
     # the flash rows: the trainer's shape in its compute dtype (bf16)
     row = flash["train/bf16"]

@@ -31,7 +31,8 @@ TOL = 1e-5
              "flash_attention_with_lse", "bilstm_scan", "gru_scan",
              "lstm_scan"]),
     ("utils", ["Table", "T", "AnomalyError", "AnomalyGuard",
-               "FaultInjected", "FaultPlan", "precision"]),
+               "FaultInjected", "FaultPlan", "precision", "Engine", "Shape",
+               "redirect_logs", "profiler"]),
     ("serving", ["bucket_for", "default_buckets", "pad_tokens", "pad_rows",
                  "sample_logits", "filter_logits", "InferenceEngine"]),
 ])

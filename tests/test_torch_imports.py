@@ -1,7 +1,8 @@
 """The PyTorch port stands alone: no file under bigdl_tpu_torch/, and not
-chip_smoke.py, imports `jax` or the JAX package `bigdl_tpu` (static
-AST scan), and importing the port's modules loads neither (a fresh
-interpreter)."""
+chip_smoke.py, imports `jax`, the JAX package `bigdl_tpu` or
+`google.protobuf` (the port has its own codec, utils/protowire.py)
+(static AST scan), and importing the port's modules loads none of them
+(a fresh interpreter)."""
 
 import ast
 import subprocess
@@ -14,6 +15,7 @@ ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "bigdl_tpu_torch").rglob("*.py")) \
     + [ROOT / "chip_smoke.py"]
 BANNED = ("jax", "jaxlib", "bigdl_tpu")
+BANNED_MODULES = ("google.protobuf",)
 
 
 def _imported(path: Path):
@@ -63,6 +65,18 @@ NEW_IN_SLICE_17 = ("serving/tp.py", "keras/__init__.py", "keras/layers.py",
                    "serialization/module_serializer.py",
                    "utils/torch_interop.py", "utils/interop.py",
                    "utils/torch_file.py")
+NEW_IN_SLICE_18 = ("utils/protowire.py", "utils/caffe/__init__.py",
+                   "utils/caffe/bigdl_caffe_pb2.py", "utils/caffe/loader.py",
+                   "utils/tf/__init__.py", "utils/tf/bigdl_tf_pb2.py",
+                   "utils/tf/loader.py", "utils/tf/saver.py",
+                   "dataset/spark_adapter.py", "utils/shape.py",
+                   "utils/engine.py", "utils/logger_filter.py",
+                   "utils/file.py", "utils/debug.py", "utils/profiler.py")
+
+
+def _banned(module: str) -> bool:
+    return module.split(".")[0] in BANNED or module == "google" or any(
+        module == b or module.startswith(b + ".") for b in BANNED_MODULES)
 
 
 def test_port_files_exist():
@@ -74,14 +88,14 @@ def test_port_files_exist():
         | set(NEW_IN_SLICE_9) | set(NEW_IN_SLICE_10) \
         | set(NEW_IN_SLICE_11) | set(NEW_IN_SLICE_13) \
         | set(NEW_IN_SLICE_14) | set(NEW_IN_SLICE_15) \
-        | set(NEW_IN_SLICE_16) | set(NEW_IN_SLICE_17) <= scanned
+        | set(NEW_IN_SLICE_16) | set(NEW_IN_SLICE_17) \
+        | set(NEW_IN_SLICE_18) <= scanned
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_imports(path):
-    bad = [m for m in _imported(path)
-           if m.split(".")[0] in BANNED]
+    bad = [m for m in _imported(path) if _banned(m)]
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
@@ -132,9 +146,15 @@ def test_port_import_loads_no_jax():
             "bigdl_tpu_torch.serialization.module_serializer, "
             "bigdl_tpu_torch.utils.torch_interop, "
             "bigdl_tpu_torch.utils.interop, "
-            "bigdl_tpu_torch.utils.torch_file; "
+            "bigdl_tpu_torch.utils.torch_file, "
+            "bigdl_tpu_torch.utils.protowire, bigdl_tpu_torch.utils.caffe, "
+            "bigdl_tpu_torch.utils.tf, bigdl_tpu_torch.utils.engine, "
+            "bigdl_tpu_torch.utils.shape, bigdl_tpu_torch.utils.file, "
+            "bigdl_tpu_torch.utils.debug, bigdl_tpu_torch.utils.profiler, "
+            "bigdl_tpu_torch.utils.logger_filter, "
+            "bigdl_tpu_torch.dataset.spark_adapter; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            f"{BANNED!r}]; "
+            f"{BANNED!r} or m.startswith('google.protobuf')]; "
             "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], check=True, cwd=ROOT,
                    timeout=120)

@@ -191,7 +191,6 @@ def test_dataset_exports_equal_jax_but_spark_adapter():
     import bigdl_tpu.dataset as jd
     import bigdl_tpu_torch.dataset as td
 
-    jnames = {n for n in dir(jd) if not n.startswith("_")} - {
-        "spark_adapter"}
+    jnames = {n for n in dir(jd) if not n.startswith("_")}
     tnames = {n for n in dir(td) if not n.startswith("_")}
     assert jnames <= tnames, sorted(jnames - tnames)
