@@ -113,6 +113,35 @@ def _embed_rows(w, tokens: torch.Tensor) -> torch.Tensor:
     return w[tokens]
 
 
+def _by_row_tiles(op, tile: int, x: torch.Tensor, *args) -> torch.Tensor:
+    """op(x, *args), for an op whose rows' bits depend on how many rows
+    it is given (a product, a row reduction), over `tile`-row tiles of
+    x (its rows a multiple of `tile`), each call one shape, the tiles'
+    results joined. One tile is one call."""
+    n = x.shape[0]
+    if n == tile:
+        return op(x, *args)
+    return torch.cat([op(x[i:i + tile], *args)
+                      for i in range(0, n, tile)])
+
+
+def _row_mean(x: torch.Tensor) -> torch.Tensor:
+    return x.mean(dim=-1, keepdim=True)
+
+
+def _tiled_layer_norm(x: torch.Tensor, weight: torch.Tensor,
+                      bias: torch.Tensor, tile: int,
+                      eps: float = 1e-5) -> torch.Tensor:
+    """nn/normalization.py `layer_norm`, step for step, with its two row
+    means over `tile`-row tiles; the elementwise steps give each element
+    the same bits at any row count, so they run over all rows at once."""
+    if x.shape[0] == tile:
+        return layer_norm(x, weight, bias, eps)
+    mu = _by_row_tiles(_row_mean, tile, x)
+    var = _by_row_tiles(_row_mean, tile, (x - mu) ** 2)
+    return (x - mu) * torch.rsqrt(var + eps) * weight + bias
+
+
 def tp_shard_gather(x: torch.Tensor, axis: str) -> torch.Tensor:
     """The whole activation from disjoint per-rank column slabs: one
     all-gather over `axis` (parallel/collectives.all_gather), placed on
@@ -354,16 +383,17 @@ class TransformerLM(Module):
         b, s, _ = x.shape
         return x.reshape(b, s, heads, self.head_dim).transpose(1, 2)
 
-    def _dense_ffn(self, y: torch.Tensor, bp: Dict[str, torch.Tensor]
-                   ) -> torch.Tensor:
-        """The dense FFN. On the serving path of a `tp_axis` model
-        (w1/b1 split by column) the GELU hidden is this rank's slab,
-        gathered whole before the replicated w2 gemm; the training
-        block has its own tp branch and never comes here with one."""
-        y = F.gelu(y @ _deq(bp["w1"]) + bp["b1"], approximate="tanh")
+    def _dense_ffn(self, y: torch.Tensor, bp: Dict[str, torch.Tensor],
+                   mm=torch.matmul) -> torch.Tensor:
+        """The dense FFN, its products through `mm` (the decode step's
+        row tiles). On the serving path of a `tp_axis` model (w1/b1
+        split by column) the GELU hidden is this rank's slab, gathered
+        whole before the replicated w2 gemm; the training block has its
+        own tp branch and never comes here with one."""
+        y = F.gelu(mm(y, _deq(bp["w1"])) + bp["b1"], approximate="tanh")
         if self.tp_axis is not None:
             y = tp_shard_gather(y, self.tp_axis)
-        return y @ _deq(bp["w2"]) + bp["b2"]
+        return mm(y, _deq(bp["w2"])) + bp["b2"]
 
     # ---------------------------------------------------------- training
     def _attention(self, q, k, v):
@@ -608,7 +638,8 @@ class TransformerLM(Module):
     def decode_step_paged(self, variables: Dict[str, Any],
                           tokens: torch.Tensor, pos: torch.Tensor,
                           pools: Pools, table: torch.Tensor,
-                          attn_impl: Optional[str] = None
+                          attn_impl: Optional[str] = None,
+                          row_tile: Optional[int] = None
                           ) -> Tuple[torch.Tensor, Pools]:
         """One incremental step over the paged pools: tokens (B,) the
         current token per row, written at the row clocks pos (B,)
@@ -625,24 +656,51 @@ class TransformerLM(Module):
         heads against its own pools (the kernel's split plan depends
         on the table width and block size, never on H, so each (row,
         head) runs the same CTAs at H and at H/tp) and
-        `tp_shard_gather` rebuilds the attention output before wo."""
+        `tp_shard_gather` rebuilds the attention output before wo.
+
+        `row_tile` (the rows a multiple of it; None: all of them) is
+        the row count of every computation whose rows' bits depend on
+        how many rows it is given: the products and the layer norms'
+        row means run over tiles of exactly that many rows (elementwise
+        steps, over all rows at once, give each element the same bits
+        at any row count). cuBLAS (and oneDNN on the CPU) pick a
+        product's algorithm, and ATen a reduction's launch shape, and so
+        a row's summation order, from the problem's shape: at the 43M
+        widths on an H100 no row decoded among 8 matched its copy among
+        32. With one tile shape a row's logits do not depend on how many
+        rows the call holds. A serving engine passes its slot count, so
+        its own step is one tile and a speculative verify pass of
+        slots·(k+1) rows runs k+1 tiles of the same shape. Attention
+        needs no tiles: the kernel's split plan depends on the table
+        width and block size, never on the row count."""
         self._serving_guard()
         p = self._params(variables)
         bsz = tokens.shape[0]
+        tile = bsz if row_tile is None else row_tile
+        if bsz % tile:
+            raise ValueError(f"decode_step_paged: {bsz} rows are not a "
+                             f"multiple of row_tile {tile}")
         d = self.head_dim
         bs = pools[0]["k"].shape[2]
         pos_l = pos.long()
         rows = torch.arange(bsz, device=tokens.device)
         block_ids = table.long()[rows, pos_l // bs]          # (B,)
         offsets = pos_l % bs
+
+        def mm(a, w):
+            return _by_row_tiles(torch.matmul, tile, a, w)
+
+        def ln(a, g, b):
+            return _tiled_layer_norm(a, g, b, tile)
+
         x = _embed_rows(p["embed"], tokens.long()) + p["pos"][pos_l]
         for bp, pl in zip(self._layer_blocks(p), pools):
             h = bp["wq"].shape[-1] // d
-            y = layer_norm(x, bp["ln1_g"], bp["ln1_b"])[:, None, :]
+            y = ln(x, bp["ln1_g"], bp["ln1_b"])[:, None, :]
             # (B, h, 1, D)
-            q = self._split_heads(y @ _deq(bp["wq"]) + bp["bq"], h)
-            k = self._split_heads(y @ _deq(bp["wk"]) + bp["bk"], h)
-            v = self._split_heads(y @ _deq(bp["wv"]) + bp["bv"], h)
+            q = self._split_heads(mm(y, _deq(bp["wq"])) + bp["bq"], h)
+            k = self._split_heads(mm(y, _deq(bp["wk"])) + bp["bk"], h)
+            v = self._split_heads(mm(y, _deq(bp["wv"])) + bp["bv"], h)
             write_decode_blocks(pl["k"], pl["v"], k, v, block_ids,
                                 offsets)
             a = paged_decode_attention(q.contiguous(), pl["k"], pl["v"],
@@ -650,11 +708,10 @@ class TransformerLM(Module):
             a = a.reshape(bsz, h * d)
             if self.tp_axis is not None:
                 a = tp_shard_gather(a, self.tp_axis)
-            x = x + a @ _deq(bp["wo"]) + bp["bo"]
-            x = x + self._dense_ffn(
-                layer_norm(x, bp["ln2_g"], bp["ln2_b"]), bp)
-        hid = layer_norm(x, p["lnf_g"], p["lnf_b"])
-        return hid @ self.head(p), pools
+            x = x + mm(a, _deq(bp["wo"])) + bp["bo"]
+            x = x + self._dense_ffn(ln(x, bp["ln2_g"], bp["ln2_b"]), bp, mm)
+        hid = ln(x, p["lnf_g"], p["lnf_b"])
+        return mm(hid, self.head(p)), pools
 
 
 def lm_train_matmul_flops_per_token(cfg: TransformerConfig) -> float:

@@ -4,9 +4,10 @@ Ports `StepTelemetry` from bigdl_tpu/obs/training.py: the training
 loop hands it one already-fetched step record and it writes the
 TrainSummary scalars (Loss, Throughput, LearningRate) and parameter
 histograms, if a summary is configured, and the log line. The JAX
-package's class also feeds its metrics registry and event log; those
-halves wait for the port of `obs/` (ROADMAP.md, queue A.9), so until
-then this behaves as the reference does with `obs.enabled()` false.
+package's class also feeds its metrics registry and event log; the
+port has both (obs/), but the training plane's series and events wait
+for ROADMAP.md queue A.9's next slice, so until then this behaves as
+the reference does with `obs.enabled()` false.
 
 Sync discipline: callers pass host floats they already fetched (the
 loop reads a step's loss one step late, so the read overlaps the next

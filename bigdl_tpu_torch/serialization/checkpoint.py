@@ -50,7 +50,8 @@ checkpoint written at one world size resumes at another
 (one filesystem). The format is the JAX package's both ways.
 
 Not ported: the `checkpoint_save`/`checkpoint_load` events and the
-save-time histogram, which wait for `obs/` (queue A.9).
+save-time histogram, which wait for the training plane's telemetry
+(ROADMAP.md queue A.9).
 """
 
 from __future__ import annotations

@@ -127,10 +127,34 @@ shard_map was never measured on a TPU); the port has no shard_map —
 each rank launches the kernel on its own H/tp heads — so a sharded
 engine serves through the kernel too, with "torch" as the oracle.
 
-Not in this slice (ROADMAP.md queue A.9): per-tenant KV quotas
-(`tenant_kv_quotas`), telemetry events, spans and registry series
-(`obs_label`), the router's `steal_queued` and speculative decoding's
-`rollback_slot`. The constructor refuses the first two by name.
+The fleet and telemetry hooks, as in the JAX engine:
+
+* **Telemetry.** Every `stats` increment also lands in the process-wide
+  registry (obs/registry.py) under the engine's `obs_label` (default
+  `engine<N>`, the same counter as the JAX package's); the decode-step
+  latency histogram behind `health()` is a registry series; each
+  lifecycle transition emits an event (obs/events.py) that carries the
+  request's `trace_id`, `hop` and `tenant`, and with a tracer on, the
+  queued, prefill, decode-step and whole-request spans land on the
+  engine clock. `BIGDL_OBS=off` turns all of it off but the histogram.
+* **Tenancy.** `tenant_kv_quotas` bounds the exclusive pool blocks a
+  tenant's active requests hold; admission sets a blocked request aside
+  (one `tenant_throttled` event per request) and admits the others
+  past it.
+* **Router and speculation hooks.** `steal_queued`/`_requeue` move
+  queued work between engines (serving/router.py); `_emit_multi`
+  applies a round of several tokens to a slot, `_ensure_blocks(
+  horizons=...)` pre-grows a slot's table for them and `rollback_slot`
+  detaches the lookahead blocks a rejected suffix left
+  (serving/speculative.py).
+* **Decode over explicit rows.** `_decode_rows` is one decode step
+  over row arrays (token, clock, sampling knobs, poison flag and table
+  row per row), the JAX package's `_decode_step`: the engine's step
+  hands it its slots, the speculative verify pass B·(k+1)
+  chain-position rows. It runs the model's layer norms and products
+  over tiles of the engine's slot count (`decode_step_paged(row_tile=)`),
+  so the engine's own step is one tile and a row's logits are bitwise
+  the same at either extent.
 """
 
 from __future__ import annotations
@@ -148,7 +172,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from bigdl_tpu_torch.obs.registry import LatencyHistogram
+from bigdl_tpu_torch import obs
 from bigdl_tpu_torch.ops import paged_decode
 from bigdl_tpu_torch.parallel.collectives import all_gather
 from bigdl_tpu_torch.serving.bucketing import (bucket_for, bucket_histogram,
@@ -173,6 +197,38 @@ OVERLOAD_POLICIES = ("reject", "shed-oldest", "shed-lowest-priority")
 _STATUS_COUNTER = {"done": "requests_done", "shed": "shed",
                    "expired": "deadline_misses", "poisoned": "poisoned",
                    "failed": "failed"}
+# reverse view: stats key → terminal status (registry label)
+_COUNTER_STATUS = {v: k for k, v in _STATUS_COUNTER.items()}
+
+# the registry counter and help line of every operational stats key
+_OP_HELP = {
+    "prefill_calls": "prefill dispatches",
+    "decode_steps": "batched decode steps",
+    "retries": "decode-step retries",
+    "watchdog_trips": "step-watchdog trips",
+    "rejected": "submissions rejected under overload",
+    "cancelled": "host-side cancellations",
+    "prefix_hits": "admissions that reused a cached prefix",
+    "prefix_blocks_reused": "KV blocks reused from the prefix cache",
+    "prefix_tokens_saved": "prompt tokens whose prefill was skipped by "
+                           "a prefix hit",
+    "prefix_bytes_saved": "KV bytes not recomputed thanks to prefix "
+                          "hits",
+    "pool_evictions": "LRU prefix blocks evicted under pool pressure",
+    "kv_spill_blocks": "refcount-0 KV blocks spilled to the host-RAM "
+                       "tier",
+    "kv_readmit_blocks": "host-tier KV blocks re-admitted to device on "
+                         "a prefix hit",
+    "kv_host_evictions": "host-tier KV blocks evicted to oblivion under "
+                         "host pressure",
+    "admit_requeue_exhausted": "admissions abandoned after exhausting "
+                               "the requeue budget",
+    "handoffs_out": "prefilled requests exported for disaggregated "
+                    "decode",
+    "handoffs_in": "prefilled requests imported from a prefill tier",
+    "weight_swaps": "weight hot-swaps re-placed into the live serving "
+                    "layout",
+}
 
 CACHE_DTYPES = (torch.float32, torch.bfloat16)
 WEIGHT_DTYPES = ("fp32", "int8")
@@ -277,8 +333,15 @@ class Request:
     a priority. `deadline_s`: TTL in clock seconds from submission,
     enforced while queued and while decoding (expiry → status
     'expired', partial tokens kept). `max_queue_wait_s`: a bound on the
-    time spent queued only. `model_tag`: a label (engine groups and
-    tenancy wait for the router, ROADMAP.md queue A.9)."""
+    time spent queued only. `trace_id` and `hop`: the journey stamp —
+    set at first admission (router or engine, from the admitting
+    component's obs label and the request id, never a clock or RNG),
+    `hop` counting the engine-to-engine moves (failover, rebalance,
+    handoff import); every lifecycle event carries both
+    (obs/journey.py). `tenant`: the consumer the request bills against
+    (the router's TenancyController, the engine's `tenant_kv_quotas`).
+    `model_tag`: the engine group that may serve the request (None →
+    'default'; serving/router.py)."""
     prompt: Sequence[int]
     max_new_tokens: int = 32
     temperature: float = 0.0
@@ -290,6 +353,9 @@ class Request:
     priority: int = 0
     deadline_s: Optional[float] = None
     max_queue_wait_s: Optional[float] = None
+    trace_id: Optional[str] = None
+    hop: int = 0
+    tenant: Optional[str] = None
     model_tag: Optional[str] = None
 
 
@@ -350,8 +416,11 @@ class InferenceEngine:
     `role` ("both", "prefill" or "decode"; "decode" serves like
     "both"), `weight_dtype` ("fp32" or "int8"), `model_tag`, and
     `tp_mesh`/`tp_axis` (serving/tp.py; every rank of the axis runs an
-    engine over the same requests). `tenant_kv_quotas` and `obs_label`
-    are refused: their features wait for ROADMAP.md queue A.9."""
+    engine over the same requests), `obs_label` (the engine's registry
+    and event label; a replacement engine passes its predecessor's
+    `health()["metrics"]["engine"]` to continue its series) and
+    `tenant_kv_quotas` (tenant → most exclusive pool blocks its active
+    requests may hold here)."""
 
     def __init__(self, model, variables: Optional[Dict[str, Any]] = None,
                  slots: int = 4,
@@ -398,14 +467,14 @@ class InferenceEngine:
                 "InferenceEngine(tp_mesh=...), which wraps it through "
                 "serving/tp.py — or build a plain TransformerLM for "
                 "unsharded serving")
-        if tenant_kv_quotas:
-            raise NotImplementedError(
-                "tenant_kv_quotas: tenancy is not ported yet (ROADMAP.md "
-                "queue A.9)")
-        if obs_label is not None:
-            raise NotImplementedError(
-                "obs_label: the metrics registry and event log are not "
-                "ported yet (ROADMAP.md queue A.9)")
+        # per-tenant KV quotas: admission SKIPS (never blocks behind) a
+        # quota-exceeded request — it stays queued and other tenants
+        # keep admitting past it
+        for t, qn in (tenant_kv_quotas or {}).items():
+            if qn < 1:
+                raise ValueError(f"tenant_kv_quotas[{t!r}] must be >= 1")
+        self.tenant_kv_quotas = dict(tenant_kv_quotas or {})
+        self._quota_noted: set = set()
         self.device = resolve_device(device)
         if self.device != model.device:
             raise ValueError(f"engine device {self.device} differs from "
@@ -543,13 +612,17 @@ class InferenceEngine:
             "handoffs_out": 0, "handoffs_in": 0,
             "weight_swaps": 0, "attn_kernel_launches": 0,
         }
-        self._name = f"engine{next(_ENGINE_IDS)}"
-        # lifetime decode dispatch+fetch seconds (health() percentiles)
-        self._lat = LatencyHistogram()
-        # the stream every decode step runs on, also from the watchdog's
-        # worker thread (the current stream is thread-local)
-        self._stream = torch.cuda.current_stream(self.device) \
-            if self.device.type == "cuda" else None
+        self._init_telemetry(obs_label)
+        # the engine's own stream: every device entry (prefill, decode
+        # — also from the watchdog's worker thread, the current stream
+        # being thread-local — block copies and scrubs) runs on it, so
+        # engines sharing a card never order their work through one
+        # another's; it first waits for the weights and pools the
+        # caller's stream made
+        self._stream = None
+        if self.device.type == "cuda":
+            self._stream = torch.cuda.Stream(self.device)
+            self._stream.wait_stream(torch.cuda.current_stream(self.device))
         self.completed: Dict[int, GenerationResult] = {}
         self._queue: deque = deque()
         self._ids = itertools.count()
@@ -581,6 +654,77 @@ class InferenceEngine:
             self._dispatch_and_fetch(np.zeros(slots, bool), 0.0,
                                      watchdog=False)
 
+    def _init_telemetry(self, obs_label: Optional[str]) -> None:
+        """Resolve this engine's registry children once, in the ACTIVE
+        registry (install custom telemetry before building engines).
+        Every series carries the tensor-parallel degree as a label."""
+        self._obs_name = obs_label or f"engine{next(_ENGINE_IDS)}"
+        self._obs_tp = str(self.tp)
+        labels = dict(engine=self._obs_name, tp=self._obs_tp)
+        reg = obs.get_registry()
+        self._m_requests = reg.counter(
+            "serving_requests_total",
+            "requests reaching a terminal status",
+            labelnames=("engine", "status", "tp"))
+        self._m_ops = {
+            key: reg.counter(f"serving_{key}_total", help_,
+                             labelnames=("engine", "tp")).labels(**labels)
+            for key, help_ in _OP_HELP.items()}
+        # lifetime decode dispatch+fetch seconds: fed whatever the
+        # telemetry switch says (health() percentiles read it)
+        self._m_lat = reg.histogram(
+            "serving_decode_step_seconds",
+            "decode dispatch+fetch wall seconds",
+            labelnames=("engine", "tp")).labels(**labels)
+        self._m_pool_gauge = reg.gauge(
+            "serving_kv_pool_blocks_in_use",
+            "KV pool blocks held by live requests or cached prefixes",
+            labelnames=("engine", "tp")).labels(**labels)
+        self._m_pool_bytes_gauge = reg.gauge(
+            "serving_kv_pool_bytes",
+            "KV pool bytes held by live requests or cached prefixes "
+            "(block count x cache-dtype block footprint)",
+            labelnames=("engine", "tp")).labels(**labels)
+        self._m_tier_gauges = {
+            tier: reg.gauge(
+                "serving_kv_tier_blocks_in_use",
+                "KV blocks resident per tier (device pool in-use vs "
+                "host-RAM spill tier)",
+                labelnames=("engine", "tier", "tp")).labels(
+                    engine=self._obs_name, tier=tier, tp=self._obs_tp)
+            for tier in ("device", "host")}
+        self._m_tp_gauge = reg.gauge(
+            "serving_tp_shards",
+            "tensor-parallel shard count serving this engine",
+            labelnames=("engine",)).labels(engine=self._obs_name)
+        if obs.enabled():
+            self._m_tp_gauge.set(self.tp)
+
+    def _bump(self, key: str, n: int = 1) -> None:
+        """One increment path: the engine's stats dict (always) plus the
+        registry mirror (telemetry on). Terminal-status keys land in
+        serving_requests_total{engine,status,tp}, the others in their
+        own counters."""
+        self._stats[key] += n
+        if not obs.enabled():
+            return
+        status = _COUNTER_STATUS.get(key)
+        if status is not None:
+            self._m_requests.labels(engine=self._obs_name, status=status,
+                                    tp=self._obs_tp).inc(n)
+        else:
+            self._m_ops[key].inc(n)
+
+    def _update_pool_gauge(self) -> None:
+        if obs.enabled():
+            in_use = self._pool_mgr.capacity - self._pool_mgr.free_count
+            self._m_pool_gauge.set(in_use)
+            self._m_pool_bytes_gauge.set(
+                in_use * self._kv_bytes_per_token * self.block_size)
+            self._m_tier_gauges["device"].set(in_use)
+            self._m_tier_gauges["host"].set(self._prefix.host_in_use)
+            self._m_tp_gauge.set(self.tp)
+
     # ------------------------------------------------------------ params
     def _build_params(self, variables):
         """The serving weight layout for `variables`: per-layer views
@@ -610,7 +754,10 @@ class InferenceEngine:
                 "config cannot hot-swap into a live engine")
         self.variables = variables
         self._params = params
-        self._stats["weight_swaps"] += 1
+        if self._stream is not None:
+            # the new weights were made on the caller's stream
+            self._stream.wait_stream(torch.cuda.current_stream(self.device))
+        self._bump("weight_swaps")
 
     # -------------------------------------------------------------- views
     @property
@@ -642,6 +789,11 @@ class InferenceEngine:
         return len(self._queue)
 
     @property
+    def obs_name(self) -> str:
+        """This engine's registry and event label (see `obs_label`)."""
+        return self._obs_name
+
+    @property
     def layout_family(self) -> str:
         """'{weight_dtype}/{cache dtype}' — the numerics contract a
         request's tokens were produced under: fp32 engines pin bitwise
@@ -655,7 +807,12 @@ class InferenceEngine:
         keep stepping to their normal terminal status. health()['state']
         reports 'draining' until the engine empties, then 'drained'.
         Idempotent; there is no undrain."""
+        if self._draining:
+            return
         self._draining = True
+        obs.emit_event("engine_drain", plane="serving",
+                       engine=self._obs_name, queued=len(self._queue),
+                       active=sum(r is not None for r in self._req))
 
     def health(self) -> Dict[str, object]:
         """Operational snapshot: engine state, slot occupancy, queue
@@ -664,7 +821,7 @@ class InferenceEngine:
         decode step) and every reliability counter. The key set is the
         JAX engine's; `tp` is the tensor-parallel degree."""
         def pct(q):
-            v = self._lat.quantile(q)
+            v = self._m_lat.quantile(q)
             return None if v is None else round(v * 1e3, 3)
 
         if self._degraded:
@@ -716,10 +873,10 @@ class InferenceEngine:
                 "host_evictions": s["kv_host_evictions"],
             },
             "metrics": {
-                "engine": self._name,
+                "engine": self._obs_name,
                 "decode_step_seconds": {
-                    "count": self._lat.count,
-                    "sum": round(self._lat.sum, 6),
+                    "count": self._m_lat.count,
+                    "sum": round(self._m_lat.sum, 6),
                     "p50_ms": pct(0.50), "p95_ms": pct(0.95),
                     "p99_ms": pct(0.99)},
                 "requests_total": {
@@ -780,6 +937,12 @@ class InferenceEngine:
         elif request.id in in_flight:
             raise ValueError(f"request id {request.id} already in flight "
                              "or completed-unclaimed")
+        if request.trace_id is None:
+            # first admission anywhere opens the journey; stamped before
+            # the overload gate, so a request shed on arrival carries
+            # its trace on the terminal
+            request.trace_id = f"{self._obs_name}/{request.id}"
+            request.hop = 0
         # expire stale queued requests BEFORE the overload check: dead
         # TTLs must not reject (or shed a victim from) fresh traffic
         self._expire_queued(self._clock())
@@ -790,6 +953,11 @@ class InferenceEngine:
                 return request.id
         self._meta[request.id] = {"t": self._clock()}
         self._queue.append(request)
+        obs.emit_event("request_submit", plane="serving",
+                       engine=self._obs_name, request=request.id,
+                       prompt_len=n, priority=request.priority,
+                       tp=self.tp, role=self.role,
+                       **self._trace_fields(request))
         return request.id
 
     def _overload(self, request: Request) -> None:
@@ -797,7 +965,11 @@ class InferenceEngine:
         shed `request` itself (shed-lowest-priority when it IS the
         lowest — its result lands in `completed`)."""
         if self.overload_policy == "reject":
-            self._stats["rejected"] += 1
+            self._bump("rejected")
+            obs.emit_event("request_rejected", plane="serving",
+                           engine=self._obs_name, request=request.id,
+                           queue_depth=len(self._queue),
+                           **self._trace_fields(request))
             raise OverloadError(
                 f"queue full ({self.max_queue}); request {request.id} "
                 "rejected (overload_policy='reject')")
@@ -820,15 +992,46 @@ class InferenceEngine:
         for r in self._queue:
             if r.id == request_id:
                 self._queue.remove(r)
-                self._stats["cancelled"] += 1
+                self._bump("cancelled")
                 return self._terminal(r, "cancelled", "shed")
         for i, r in enumerate(self._req):
             if r is not None and r.id == request_id:
-                self._stats["cancelled"] += 1
+                self._bump("cancelled")
                 res = self._finish(i, "cancelled", "shed")
                 self.completed[res.id] = res
                 return res
         raise KeyError(f"request {request_id} is not queued or in flight")
+
+    def steal_queued(self, k: int) -> List[Tuple[Request, float]]:
+        """Give up to `k` queued requests, with their original submit
+        stamps, to the fleet router for rebalancing — the ones this
+        engine would serve last (lowest priority, youngest within a
+        priority: the inverse of `_pop_next`). A request that moves is
+        restamped by the receiver's submit; one that bounces comes home
+        through `_requeue` with its original stamp. Never touches
+        in-flight slots."""
+        self._tick()
+        out: List[Tuple[Request, float]] = []
+        for _ in range(min(k, len(self._queue))):
+            best_i, best_p = 0, None
+            for i, r in enumerate(self._queue):
+                if best_p is None or r.priority <= best_p:
+                    best_i, best_p = i, r.priority
+            req = self._queue[best_i]
+            del self._queue[best_i]
+            meta = self._meta.pop(req.id, None)
+            out.append((req, meta["t"] if meta else self._clock()))
+        return out
+
+    def _requeue(self, request: Request,
+                 t: Optional[float] = None) -> None:
+        """Router-only undo of a steal that found no taker: back onto
+        the queue past the admission gates; `t` restores the original
+        submit stamp, so a bounced move never restarts the TTL."""
+        self._tick()
+        self._meta[request.id] = {"t": self._clock() if t is None
+                                  else t}
+        self._queue.append(request)
 
     def _free_slots(self) -> List[int]:
         return [i for i, r in enumerate(self._req) if r is None]
@@ -837,6 +1040,18 @@ class InferenceEngine:
         if req.deadline_s is None or req.id not in self._meta:
             return math.inf
         return self._meta[req.id]["t"] + req.deadline_s
+
+    @staticmethod
+    def _trace_fields(req: Request) -> Dict[str, object]:
+        """Journey fields of a request-lifecycle event: `trace` and
+        `hop` once the request is stamped, and its `tenant`."""
+        out: Dict[str, object] = {}
+        if req.trace_id is not None:
+            out["trace"] = req.trace_id
+            out["hop"] = int(req.hop)
+        if req.tenant is not None:
+            out["tenant"] = req.tenant
+        return out
 
     def _lifecycle_times(self, req: Request
                          ) -> Tuple[Optional[float], Optional[float]]:
@@ -849,14 +1064,38 @@ class InferenceEngine:
         tf = meta.get("t_first")
         return (None if tf is None else tf - meta["t"]), latency
 
+    def _observe_terminal(self, req: Request, reason: str, status: str,
+                          tokens: int, ttft_s: Optional[float],
+                          latency_s: Optional[float]) -> None:
+        """Telemetry of a terminal transition: the `request_terminal`
+        event and, with a tracer on, the whole-lifecycle span on the
+        engine clock."""
+        if not obs.enabled():
+            return
+        now = self._clock()
+        obs.emit_event("request_terminal", plane="serving",
+                       engine=self._obs_name, request=req.id,
+                       status=status, reason=reason, tokens=tokens,
+                       ttft_s=ttft_s, latency_s=latency_s,
+                       tp=self.tp, role=self.role,
+                       **self._trace_fields(req))
+        tracer = obs.get_tracer()
+        if tracer.enabled:
+            t0 = self._meta.get(req.id, {}).get("t", now)
+            tracer.complete(f"request[{status}]", "serving", t0, now,
+                            args={"request": req.id, "reason": reason,
+                                  "tokens": tokens})
+
     def _terminal(self, req: Request, reason: str, status: str
                   ) -> GenerationResult:
         """Terminal event for a request not (or no longer) in a slot —
         the result goes straight to `completed`."""
         ttft, latency = self._lifecycle_times(req)
+        self._observe_terminal(req, reason, status, 0, ttft, latency)
         self._meta.pop(req.id, None)
         self._admit_fails.pop(req.id, None)
-        self._stats[_STATUS_COUNTER[status]] += 1
+        self._quota_noted.discard(req.id)
+        self._bump(_STATUS_COUNTER[status])
         res = GenerationResult(req.id, list(req.prompt), [], reason,
                                status, ttft_s=ttft, latency_s=latency)
         self.completed[req.id] = res
@@ -895,13 +1134,18 @@ class InferenceEngine:
         later hit), falling back to plain LRU eviction when the tier is
         off or full; None when nothing can free enough. `protect`
         excludes the chain an in-flight re-admission holds."""
+        evicted = 0
         while self._pool_mgr.free_count < n:
             if self._spill_blocks(n - self._pool_mgr.free_count,
                                   protect):
                 continue
             if self._prefix.evict_one() is None:
                 break
-            self._stats["pool_evictions"] += 1
+            evicted += 1
+        if evicted:
+            self._bump("pool_evictions", evicted)
+            obs.emit_event("prefix_evict", plane="serving",
+                           engine=self._obs_name, blocks=evicted)
         return self._pool_mgr.alloc(n)
 
     def _gather_blocks(self, blocks: Sequence[int]) -> np.ndarray:
@@ -909,30 +1153,32 @@ class InferenceEngine:
         bs, D) — keys then values of each layer — in ONE device-to-host
         copy, whatever the number of layers and blocks. A sharded
         engine gathers every rank's heads first (one all-gather)."""
-        idx = torch.tensor(list(blocks), dtype=torch.long,
-                           device=self.device)
-        data = torch.stack([leaf[idx] for layer in self.pool
-                            for leaf in (layer["k"], layer["v"])])
-        if self.tp > 1:
-            with self.model.bound():
-                data = all_gather(data, self._tp_axis, dim=2)
-        return _to_host(data)
+        with self._device_ctx():
+            idx = torch.tensor(list(blocks), dtype=torch.long,
+                               device=self.device)
+            data = torch.stack([leaf[idx] for layer in self.pool
+                                for leaf in (layer["k"], layer["v"])])
+            if self.tp > 1:
+                with self.model.bound():
+                    data = all_gather(data, self._tp_axis, dim=2)
+            return _to_host(data)
 
     def _scatter_blocks(self, blocks: Sequence[int],
                         host: np.ndarray) -> None:
         """Write one host array (2L, n, H, bs, D) into the pools' rows
         `blocks` — one host-to-device copy, then a scatter per leaf. A
         sharded engine takes its own heads' slice."""
-        idx = torch.tensor(list(blocks), dtype=torch.long,
-                           device=self.device)
         if self.tp > 1:
             h = self._block_shape[0] // self.tp
             c = self._tp_mesh.coord(self._tp_axis)
             host = host[:, :, c * h:(c + 1) * h]
-        data = _to_device(host, self.cache_dtype, self.device)
-        for li, layer in enumerate(self.pool):
-            layer["k"][idx] = data[2 * li]
-            layer["v"][idx] = data[2 * li + 1]
+        with self._device_ctx():
+            idx = torch.tensor(list(blocks), dtype=torch.long,
+                               device=self.device)
+            data = _to_device(host, self.cache_dtype, self.device)
+            for li, layer in enumerate(self.pool):
+                layer["k"][idx] = data[2 * li]
+                layer["v"][idx] = data[2 * li + 1]
 
     @staticmethod
     def _layer_views(data: np.ndarray, j) -> Tuple[Dict[str, np.ndarray],
@@ -968,13 +1214,19 @@ class InferenceEngine:
             host_evicted += 1
             room += 1
         victims = victims[:max(room, 0)]
-        self._stats["kv_host_evictions"] += host_evicted
+        if host_evicted:
+            self._bump("kv_host_evictions", host_evicted)
         if not victims:
             return 0
         data = self._gather_blocks([v.block for v in victims])
         for j, v in enumerate(victims):
             self._prefix.park(v, self._layer_views(data, j))
-        self._stats["kv_spill_blocks"] += len(victims)
+        self._bump("kv_spill_blocks", len(victims))
+        obs.emit_event("kv_spill", plane="serving",
+                       engine=self._obs_name, blocks=len(victims),
+                       host_in_use=self._prefix.host_in_use,
+                       host_evicted=host_evicted, tp=self.tp)
+        self._update_pool_gauge()
         return len(victims)
 
     def _readmit_chain(self, nodes) -> Optional[List[int]]:
@@ -1000,33 +1252,72 @@ class InferenceEngine:
                                                        len(self.pool)))
             for b in new:
                 self._pool_mgr.mark_cached(b)
-            self._stats["kv_readmit_blocks"] += len(new)
+            self._bump("kv_readmit_blocks", len(new))
+            obs.emit_event("kv_readmit", plane="serving",
+                           engine=self._obs_name, blocks=len(new),
+                           host_in_use=self._prefix.host_in_use,
+                           tp=self.tp)
+            self._update_pool_gauge()
         return [n.block for n in nodes]
 
     # --------------------------------------------------------- admission
+    def _tenant_kv_blocks(self, tenant: str) -> int:
+        """Exclusive pool blocks `tenant` holds across the active slots
+        (shared prefix-hit blocks are not billed)."""
+        return sum(len(self._slot_blocks[i][1])
+                   for i, r in enumerate(self._req)
+                   if r is not None and r.tenant == tenant)
+
+    def _quota_blocked(self, req: Request) -> bool:
+        """Whether admitting `req` now would exceed its tenant's KV
+        quota; one `tenant_throttled(action='kv_quota')` event per
+        request id, not per retry round."""
+        quota = self.tenant_kv_quotas.get(req.tenant) \
+            if req.tenant is not None else None
+        if quota is None or self._tenant_kv_blocks(req.tenant) < quota:
+            return False
+        if req.id not in self._quota_noted:
+            self._quota_noted.add(req.id)
+            obs.emit_event("tenant_throttled", plane="serving",
+                           tenant=req.tenant, action="kv_quota",
+                           engine=self._obs_name, request=req.id)
+        return True
+
     def _admit(self) -> None:
         if not self._queue:
             return
         self._expire_queued(self._clock())
-        for slot in self._free_slots():
-            while self._queue:
-                req = self._pop_next()
-                if self._admit_into(slot, req):
-                    self._admit_fails.pop(req.id, None)
-                    break
-                # pool pressure: requeue at the FRONT, a bounded number
-                # of times — a pool that never frees must not spin the
-                # request through the queue forever
-                fails = self._admit_fails.pop(req.id, 0) + 1
-                if fails > self.admit_requeue_budget:
-                    self._stats["admit_requeue_exhausted"] += 1
-                    self._terminal(req, "pool_exhausted", "done")
-                    continue
-                self._admit_fails[req.id] = fails
-                self._queue.appendleft(req)
-                return
-            if not self._queue:
-                return
+        # quota-blocked requests are set aside and restored to the
+        # queue front afterwards, in order: a blocked tenant never
+        # blocks the other tenants' admissions
+        skipped: List[Request] = []
+        try:
+            for slot in self._free_slots():
+                while self._queue:
+                    req = self._pop_next()
+                    if self._quota_blocked(req):
+                        skipped.append(req)
+                        continue
+                    if self._admit_into(slot, req):
+                        self._admit_fails.pop(req.id, None)
+                        self._quota_noted.discard(req.id)
+                        break
+                    # pool pressure: requeue at the FRONT, a bounded
+                    # number of times — a pool that never frees must
+                    # not spin the request through the queue forever
+                    fails = self._admit_fails.pop(req.id, 0) + 1
+                    if fails > self.admit_requeue_budget:
+                        self._bump("admit_requeue_exhausted")
+                        self._terminal(req, "pool_exhausted", "done")
+                        continue
+                    self._admit_fails[req.id] = fails
+                    self._queue.appendleft(req)
+                    return
+                if not self._queue:
+                    return
+        finally:
+            for r in reversed(skipped):
+                self._queue.appendleft(r)
 
     def _point_table_row(self, slot: int, hit: List[int],
                          new: List[int]) -> np.ndarray:
@@ -1099,19 +1390,36 @@ class InferenceEngine:
             return False
         row = self._point_table_row(slot, hit, new)
         dev = self.device
-        with torch.no_grad():
+        tracer = obs.get_tracer()
+        t_admit = self._clock()
+        if tracer.enabled:
+            # the queued phase closes when the slot is granted
+            t_sub = self._meta.get(req.id, {}).get("t", t_admit)
+            tracer.complete("queued", "serving", t_sub, t_admit,
+                            args={"request": req.id, "slot": slot})
+        with torch.no_grad(), self._device_ctx():
             self.model.prefill_paged(
                 self._params,
                 torch.from_numpy(pad_tokens(suffix, b)[None, :]).to(dev),
                 self.pool, torch.from_numpy(row[None, :].copy()).to(dev),
                 torch.tensor(new, dtype=torch.int32, device=dev), start)
-        self._stats["prefill_calls"] += 1
+        if tracer.enabled:
+            tracer.complete("prefill", "serving", t_admit, self._clock(),
+                            args={"request": req.id, "slot": slot,
+                                  "bucket": int(b),
+                                  "prefix_tokens": int(start)})
+        self._bump("prefill_calls")
         if start:
-            self._stats["prefix_hits"] += 1
-            self._stats["prefix_blocks_reused"] += len(hit)
-            self._stats["prefix_tokens_saved"] += start
-            self._stats["prefix_bytes_saved"] += \
-                start * self._kv_bytes_per_token
+            self._bump("prefix_hits")
+            self._bump("prefix_blocks_reused", len(hit))
+            self._bump("prefix_tokens_saved", start)
+            self._bump("prefix_bytes_saved",
+                       start * self._kv_bytes_per_token)
+            obs.emit_event("prefix_hit", plane="serving",
+                           engine=self._obs_name, request=req.id,
+                           matched_tokens=start, blocks=len(hit),
+                           prompt_len=n, **self._trace_fields(req))
+        self._update_pool_gauge()
         self._seat_slot(slot, req, hit, new)
         return True
 
@@ -1123,12 +1431,17 @@ class InferenceEngine:
         res = GenerationResult(req.id, list(req.prompt), self._gen[slot],
                                reason, status, ttft_s=ttft,
                                latency_s=latency)
+        self._observe_terminal(req, reason, status, len(self._gen[slot]),
+                               ttft, latency)
         self._meta.pop(req.id, None)
         self._clear_slot(slot, poisoned=(status == "poisoned"))
-        self._stats[_STATUS_COUNTER[status]] += 1
+        self._bump(_STATUS_COUNTER[status])
         return res
 
     def _clear_slot(self, slot: int, poisoned: bool = False) -> None:
+        """Release one slot's state and blocks with no lifecycle side
+        effect — the tail of `_finish`, and the speculative engine's
+        release of a draft shadow, which is not a request."""
         self._req[slot] = None
         self._gen[slot] = []
         self._temp[slot] = 0.0
@@ -1149,57 +1462,99 @@ class InferenceEngine:
                 self._prefix.forget_block(b)
             freed += pool.unref([b])
         if poisoned and freed:
-            idx = torch.tensor(freed, dtype=torch.long, device=self.device)
-            for layer in self.pool:
-                for leaf in layer.values():
-                    leaf[idx] = 0
+            with self._device_ctx():
+                idx = torch.tensor(freed, dtype=torch.long,
+                                   device=self.device)
+                for layer in self.pool:
+                    for leaf in layer.values():
+                        leaf[idx] = 0
         self._slot_blocks[slot] = [[], []]
         self._table[slot, :] = 0
+        self._update_pool_gauge()
 
-    def _emit(self, slot: int, tok: int, finite: bool, now: float
-              ) -> Optional[GenerationResult]:
-        """Apply one sampled token to `slot`: advance the sampling
-        clock, evict on a non-finite row, finish on a stop id (not
-        emitted), append (stamping TTFT on the first), then max_tokens /
-        deadline / cache_full checks, else advance the row clock."""
+    def _emit_multi(self, slot: int, tokens: Sequence[int],
+                    finites: Sequence[bool], now: float
+                    ) -> List[GenerationResult]:
+        """Apply one round's sampled tokens to `slot` — one path for the
+        single-token step and the speculative multi-token round. Per
+        token: advance the sampling clock, evict on a non-finite row,
+        finish on a stop id (not emitted), append (stamping TTFT on the
+        first), then the max_tokens / deadline / cache_full checks,
+        else advance the row clock. A terminal mid-list drops the rest,
+        which a single-token engine would never have sampled. All
+        tokens share the round's `now`."""
         req = self._req[slot]
-        self._nout[slot] += 1
-        if not finite:
-            return self._finish(slot, "poisoned", "poisoned")
-        if tok in req.stop_ids:
-            return self._finish(slot, "stop_id")
-        self._gen[slot].append(tok)
-        if len(self._gen[slot]) == 1 and req.id in self._meta:
-            self._meta[req.id]["t_first"] = now
-        if len(self._gen[slot]) >= req.max_new_tokens:
-            return self._finish(slot, "max_tokens")
-        if now >= self._deadline_at(req):
-            return self._finish(slot, "expired", "expired")
-        if self._pos[slot] + 1 >= self.cache_len:
-            return self._finish(slot, "cache_full")
-        self._pos[slot] += 1
-        self._tok[slot] = tok
-        return None
+        for tok, fin in zip(tokens, finites):
+            self._nout[slot] += 1
+            if not fin:
+                return [self._finish(slot, "poisoned", "poisoned")]
+            if tok in req.stop_ids:
+                return [self._finish(slot, "stop_id")]
+            self._gen[slot].append(tok)
+            if len(self._gen[slot]) == 1 and req.id in self._meta:
+                self._meta[req.id]["t_first"] = now
+            if len(self._gen[slot]) >= req.max_new_tokens:
+                return [self._finish(slot, "max_tokens")]
+            if now >= self._deadline_at(req):
+                return [self._finish(slot, "expired", "expired")]
+            if self._pos[slot] + 1 >= self.cache_len:
+                return [self._finish(slot, "cache_full")]
+            self._pos[slot] += 1
+            self._tok[slot] = tok
+        return []
 
-    def _ensure_blocks(self) -> List[GenerationResult]:
+    def _ensure_blocks(self, horizons: Optional[Sequence[int]] = None,
+                       exhaust: str = "finish"
+                       ) -> Optional[List[GenerationResult]]:
         """A row whose next write position crossed into an uncovered
         block gets a fresh exclusive one; if the pool cannot supply it
         the request finishes 'pool_exhausted' (impossible at the
-        default pool size)."""
+        default pool size). `horizons` (per slot): the table must also
+        cover positions pos..pos+horizon, so a verify round's k+1
+        position rows land in owned blocks. `exhaust="abort"` (the
+        speculative engine's draft): return None on exhaustion instead
+        of finishing the slot, since a shadow must never emit a
+        terminal."""
         done: List[GenerationResult] = []
         for i, req in enumerate(self._req):
             if req is None:
                 continue
-            bi = int(self._pos[i]) // self.block_size
-            if self._table[i, bi] != 0:
-                continue
-            new = self._alloc_blocks(1)
-            if new is None:
-                done.append(self._finish(i, "pool_exhausted"))
-                continue
-            self._table[i, bi] = new[0]
-            self._slot_blocks[i][1].append(new[0])
+            h = 0 if horizons is None else int(horizons[i])
+            lo = int(self._pos[i]) // self.block_size
+            hi = (int(self._pos[i]) + h) // self.block_size
+            for bi in range(lo, hi + 1):
+                if self._table[i, bi] != 0:
+                    continue
+                new = self._alloc_blocks(1)
+                if new is None:
+                    if exhaust == "abort":
+                        return None
+                    done.append(self._finish(i, "pool_exhausted"))
+                    break
+                self._table[i, bi] = new[0]
+                self._slot_blocks[i][1].append(new[0])
         return done
+
+    def rollback_slot(self, slot: int) -> int:
+        """Detach and free the slot's exclusive table blocks past the
+        block of its next write position — a table edit, never a scrub:
+        a rejected draft suffix's k/v sit past the row clock, masked on
+        read and overwritten in place. Returns the blocks freed."""
+        bi = int(self._pos[slot]) // self.block_size
+        row = self._table[slot]
+        own = self._slot_blocks[slot][1]
+        freed = 0
+        for j in range(bi + 1, row.shape[0]):
+            b = int(row[j])
+            if not b:
+                continue
+            own.remove(b)
+            self._pool_mgr.unref([b])
+            row[j] = 0
+            freed += 1
+        if freed:
+            self._update_pool_gauge()
+        return freed
 
     # ------------------------------------------------------ degradation
     def quiesce(self, reason: str, watchdog: bool = False) -> None:
@@ -1209,9 +1564,11 @@ class InferenceEngine:
         if self._degraded:
             return
         if watchdog:
-            self._stats["watchdog_trips"] += 1
+            self._bump("watchdog_trips")
         self._degraded = reason
         logger.error("serving engine quiesced: %s", reason)
+        obs.emit_event("engine_degraded", plane="serving",
+                       engine=self._obs_name, reason=reason)
 
     def _degrade(self, reason: str) -> List[GenerationResult]:
         """Fail every in-flight and queued request and refuse new
@@ -1219,6 +1576,8 @@ class InferenceEngine:
         failures go straight to `completed`."""
         self._degraded = reason
         logger.error("serving engine degraded: %s", reason)
+        obs.emit_event("engine_degraded", plane="serving",
+                       engine=self._obs_name, reason=reason)
         out = [self._finish(i, "failed", "failed")
                for i, r in enumerate(self._req) if r is not None]
         for r in list(self._queue):
@@ -1237,30 +1596,49 @@ class InferenceEngine:
         stack.enter_context(torch.cuda.stream(self._stream))
         return stack
 
-    def _decode(self, poison: np.ndarray):
-        """One decode step over all slots; returns host (tokens,
-        finite) arrays — the step's one device-to-host fetch, which
-        fences the step. `poison` (B,) forces those rows' logits to NaN
-        (the serve_nan fault)."""
+    def _decode_rows(self, tok: np.ndarray, pos: np.ndarray,
+                     seed: np.ndarray, nout: np.ndarray, temp: np.ndarray,
+                     topk: np.ndarray, topp: np.ndarray, poison: np.ndarray,
+                     table: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+        """One decode step over explicit row arrays, plus per-row
+        sampling and the per-row finite flag — the JAX package's
+        `_decode_step`. Row r carries token tok[r] written at clock
+        pos[r] through block-table row table[r]; a row with temp[r] > 0
+        samples from `row_generator(seed[r], nout[r])`, the others take
+        the argmax; poison[r] forces the row's logits to NaN (the
+        serve_nan fault). Rows are independent: the engine's step hands
+        it its slots, the speculative verify pass B·(k+1) chain-position
+        rows (a multiple of the slot count), and a row's logits are
+        bitwise the same either way: the layer norms and products run
+        over tiles of `slots` rows. Returns host (tokens, finite) arrays — the
+        one device-to-host fetch, which fences the step. The pools are
+        written in place."""
         dev = self.device
         logits, _ = self.model.decode_step_paged(
-            self._params, torch.from_numpy(self._tok).to(dev),
-            torch.from_numpy(self._pos).to(dev), self.pool,
-            torch.from_numpy(self._table).to(dev),
-            attn_impl=self.attn_impl)
+            self._params, torch.from_numpy(tok).to(dev),
+            torch.from_numpy(pos).to(dev), self.pool,
+            torch.from_numpy(table).to(dev), attn_impl=self.attn_impl,
+            row_tile=self.slots)
         if poison.any():
             logits = torch.where(
                 torch.from_numpy(poison).to(dev)[:, None],
                 torch.tensor(float("nan"), device=dev), logits)
         finite = rows_finite(logits)
-        gens = [row_generator(int(self._seed[i]), int(self._nout[i]), dev)
-                if r is not None and self._temp[i] > 0 else None
-                for i, r in enumerate(self._req)]
-        nxt = sample_logits(
-            logits, gens, torch.from_numpy(self._temp).to(dev),
-            torch.from_numpy(self._topk).to(dev),
-            torch.from_numpy(self._topp).to(dev))
+        gens = [row_generator(int(seed[r]), int(nout[r]), dev)
+                if temp[r] > 0 else None for r in range(tok.shape[0])]
+        nxt = sample_logits(logits, gens, torch.from_numpy(temp).to(dev),
+                            torch.from_numpy(topk).to(dev),
+                            torch.from_numpy(topp).to(dev))
         return nxt.cpu().numpy(), finite.cpu().numpy()
+
+    def _decode(self, poison: np.ndarray):
+        """One decode step over all slots (an empty slot's temperature
+        is 0 and its table row the scratch block); returns host
+        (tokens, finite) arrays. `poison` (B,) forces those rows'
+        logits to NaN (the serve_nan fault)."""
+        return self._decode_rows(self._tok, self._pos, self._seed,
+                                 self._nout, self._temp, self._topk,
+                                 self._topp, poison, self._table)
 
     def _dispatch_and_fetch(self, poison: np.ndarray, slow_s: float,
                             watchdog: bool = True
@@ -1330,12 +1708,19 @@ class InferenceEngine:
                     # rank 0's end-of-step reading rides on the verdict
                     agreed, self._now = self._agree(verdict, t1)
                 if agreed == _STEP_OK:
-                    self._lat.observe(t1 - tc0)
+                    self._m_lat.observe(t1 - tc0)
+                    if obs.enabled():
+                        tracer = obs.get_tracer()
+                        if tracer.enabled:
+                            tracer.complete(
+                                "decode_step", "serving", tc0, t1,
+                                args={"step": stepno,
+                                      "active": self.slots_active})
                     break
                 if agreed != verdict:
                     err = RuntimeError("a peer rank's step failed")
                 if agreed == _STEP_TIMEOUT:
-                    self._stats["watchdog_trips"] += 1
+                    self._bump("watchdog_trips")
                     if self.tp > 1:
                         # a worker may wait in a gather no peer joins
                         self.model.abandon(f"watchdog trip at decode "
@@ -1350,7 +1735,7 @@ class InferenceEngine:
                     return done + self._degrade(
                         f"decode step {stepno} failed after "
                         f"{attempt + 1} attempt(s): {err}")
-                self._stats["retries"] += 1
+                self._bump("retries")
                 logger.warning("decode step %d attempt %d failed "
                                "(%s); retrying", stepno, attempt + 1, err)
                 if self.retry_backoff_s:
@@ -1358,13 +1743,12 @@ class InferenceEngine:
         finally:
             self._stats["attn_kernel_launches"] += \
                 paged_decode.launches - launches0
-        self._stats["decode_steps"] += 1
+        self._bump("decode_steps")
         now = self._clock()
         for i, req in enumerate(self._req):
             if req is not None:
-                res = self._emit(i, int(nxt[i]), bool(finite[i]), now)
-                if res is not None:
-                    done.append(res)
+                done.extend(self._emit_multi(i, [int(nxt[i])],
+                                             [bool(finite[i])], now))
         return done
 
     def run(self, requests: Optional[Sequence[Request]] = None
@@ -1416,10 +1800,14 @@ class InferenceEngine:
         meta = self._meta.pop(req.id, None)
         pkg = HandoffPackage(req, self._layer_views(data, slice(None)),
                              meta["t"] if meta else self._clock(),
-                             self._name)
+                             self._obs_name)
         self._clear_slot(slot)
         self._handoffs.append(pkg)
-        self._stats["handoffs_out"] += 1
+        self._bump("handoffs_out")
+        obs.emit_event("handoff_export", plane="serving",
+                       engine=self._obs_name, request=req.id,
+                       prompt_len=n, blocks=nb,
+                       **self._trace_fields(req))
         return pkg
 
     def take_handoffs(self) -> List[HandoffPackage]:
@@ -1492,6 +1880,10 @@ class InferenceEngine:
             self._pool_mgr.unref(hit)
             return False
         slot = free[0]
+        if req.trace_id is not None:
+            # the request crossed the disaggregation boundary: the seat
+            # here opens a new journey hop
+            req.hop += 1
         if new:
             self._scatter_blocks(new, np.stack(
                 [_host_bits(layer[k])[nh:] for layer in pkg.kv
@@ -1500,9 +1892,20 @@ class InferenceEngine:
         self._seat_slot(slot, req, hit, new)
         self._meta[req.id] = {"t": pkg.submit_t}
         if nh:
-            self._stats["prefix_hits"] += 1
-            self._stats["prefix_blocks_reused"] += nh
-        self._stats["handoffs_in"] += 1
+            self._bump("prefix_hits")
+            self._bump("prefix_blocks_reused", nh)
+            obs.emit_event("prefix_hit", plane="serving",
+                           engine=self._obs_name, request=req.id,
+                           matched_tokens=nh * self.block_size,
+                           blocks=nh, prompt_len=n,
+                           **self._trace_fields(req))
+        self._update_pool_gauge()
+        self._bump("handoffs_in")
+        obs.emit_event("handoff_import", plane="serving",
+                       engine=self._obs_name, request=req.id,
+                       prompt_len=n, blocks=nb, source=pkg.source,
+                       tp=self.tp, role=self.role,
+                       **self._trace_fields(req))
         return True
 
     # ------------------------------------------------- tree migration
@@ -1560,6 +1963,8 @@ class InferenceEngine:
         for e in sorted(entries, key=lambda e: len(e["tokens"])):
             if self._prefix.graft_host(e["tokens"], e["kv"]):
                 grafted += 1
+        if grafted:
+            self._update_pool_gauge()
         return grafted
 
 

@@ -239,14 +239,16 @@ class TPServingLM:
                 variables, tokens, pools, table, block_ids, start)
 
     def decode_step_paged(self, variables, tokens, pos, pools, table,
-                          attn_impl: Optional[str] = None):
+                          attn_impl: Optional[str] = None,
+                          row_tile: Optional[int] = None):
         """Per-head attention against this rank's pools (the paged-decode
         kernel on the card), gathers that keep every contraction
         full-extent; the logits come out replicated and bitwise those
         of the unsharded step."""
         with self.bound():
             return self._tp_model.decode_step_paged(
-                variables, tokens, pos, pools, table, attn_impl=attn_impl)
+                variables, tokens, pos, pools, table, attn_impl=attn_impl,
+                row_tile=row_tile)
 
     # ------------------------------------------------------- lockstep
     def lockstep_clock(self, clock: Callable[[], float]

@@ -38,7 +38,8 @@ Split of responsibilities:
 The guard is opt-in (`Optimizer.set_anomaly_guard(...)`). Its cost is
 two reductions and one device-to-host fetch a step — a micro-batch
 under gradient accumulation. The JAX guard's registry counter and
-structured events wait for `obs/` (ROADMAP.md, queue A.9).
+structured events wait for the training plane's telemetry (ROADMAP.md,
+queue A.9).
 """
 
 from __future__ import annotations

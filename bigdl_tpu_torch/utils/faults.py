@@ -56,9 +56,8 @@ engine consults them:
 
 The plan is process-global (`get_plan()`/`set_plan()`); `get_plan()`
 lazily builds one from `BIGDL_FAULTS`, so a subprocess inherits
-injection through the environment. The JAX package also records each
-shot as a structured event; the port logs it (the event log waits for
-`obs/`, queue A.9).
+injection through the environment. Each shot is logged and recorded
+as a `fault_injected` event (obs/events.py), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -121,6 +120,9 @@ class FaultPlan:
         self._budget[key] = left - 1
         self.fired.append(key)
         logger.warning("fault injected: %s@%d", kind, step)
+        from bigdl_tpu_torch import obs
+
+        obs.emit_event("fault_injected", fault=kind, step=int(step))
         return True
 
     def maybe_raise(self, kind: str, step: int) -> None:

@@ -36,6 +36,14 @@ from torch.utils._pytree import tree_flatten
 
 __all__ = ["trace", "step", "annotate", "FencedTimer", "device_sync"]
 
+# open trace() captures; obs/spans.py mirrors spans into a capture
+_captures = 0
+
+
+def capturing() -> bool:
+    """True while a `trace()` capture is open in this process."""
+    return _captures > 0
+
 
 @contextlib.contextmanager
 def trace(log_dir: str) -> Iterator[None]:
@@ -50,10 +58,13 @@ def trace(log_dir: str) -> Iterator[None]:
         activities.append(ProfilerActivity.CUDA)
     prof = profile(activities=activities,
                    on_trace_ready=tensorboard_trace_handler(log_dir))
+    global _captures
     prof.start()
+    _captures += 1
     try:
         yield
     finally:
+        _captures -= 1
         if torch.cuda.is_available():
             torch.cuda.synchronize()
         prof.stop()

@@ -8,8 +8,9 @@ the rest of nn/ (int8, sparse, volumetric, ...), the NCF,
 TextClassifier and autoencoder models, data-parallel training, the
 MoE-FFN LM, the tensor/pipeline/sequence/expert-parallel steps at world
 size 1, sharded checkpoints, tensor-parallel serving at world size 1,
-the keras surface, module files and Caffe/TensorFlow model import on
-one NVIDIA GPU and check them.
+the serving fleet (router, tenancy, autoscaler, the telemetry plane)
+and speculative decoding, the keras surface, module files and
+Caffe/TensorFlow model import on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py            # from the repository root, one CUDA card
     python3 chip_smoke.py --profile  # also: where decode, train,
@@ -320,6 +321,25 @@ It drives `bigdl_tpu_torch` only (never JAX or the JAX package):
    engine phase's, K1 launches exact, gather_serving_params ->
    shard_serving_params -> gather bitwise; decode ms a step and
    tokens/s beside the unsharded engine's;
+37a. fleet (after tp_serve) — an EngineRouter over two engines with a
+   TenancyController (a steady and a flooding tenant), an Autoscaler
+   (max_engines=3), a MetricsSampler and an AlertEngine on a p99
+   objective, a ScrapeServer on port 0 and a FlightRecorder, on one
+   virtual clock: 32 shared-prompt requests (256 tokens, 90% shared,
+   greedy and seeded) and a trickle; serve_slow trips engine e0's
+   0.5 s watchdog and its requests fail over. Gates: one terminal a
+   request, served tokens bitwise a single engine's, no lost journey
+   hop, the alert fires and resolves, /metrics is render_prometheus()'s
+   bytes, one engine_degraded bundle, K1 launches = decode steps x 8;
+   router host ms a round;
+37b. spec — row bits: 8 rows decoded alone bitwise their copies among
+   the 32 of a verify-shaped call (fp32 and bf16 pools; 8-row tiles,
+   as the engine runs the step; untiled, the control, reported); a
+   SpeculativeEngine (k = 3; the 43M target with planted
+   predictability, a 64-wide 2-layer draft) on the same burst: tokens
+   bitwise the target-only engine's, K1 once a layer a round over 32
+   verify rows, a draft watchdog trip falling back with the tokens
+   unchanged; accept rate and tokens/s against target-only;
 38. keras — at config 4's widths: `keras.Sequential([Embedding,
    Bidirectional(LSTM), Dense])`, a keras GRU model and a two-input
    functional `Model` (BiLSTM and GRU branches merged by concat),
@@ -7272,6 +7292,489 @@ def phase_tp_serve(model, params, fp32_tokens):
     return launches
 
 
+# ------------------------------------------- the serving fleet (A.9)
+# the fleet and speculative phases share the bench's shared-prompt burst
+# (bench.py bench_lm_decode_spec, CPU configuration): 256-token prompts,
+# 90% of each prompt one shared prefix, prefill buckets (32, 256)
+FLEET_CONTEXT, FLEET_TAIL, FLEET_NEW = 256, 26, 16
+FLEET_MAX_LEN = FLEET_CONTEXT + 32 + 8 + (-(FLEET_CONTEXT + 40)) % BLOCK
+FLEET_BUCKETS = (2 * BLOCK, FLEET_CONTEXT)
+FLEET_REQUESTS = 32             # the burst: 24 steady, 8 flooding
+FLEET_FLOOD = 8
+FLEET_TARGET_P99_S = 4.0        # the SLO, in virtual seconds
+FLEET_STEP_S = 0.5              # virtual seconds a scheduling round
+FLEET_SLOW_STEP = 6             # the decode step serve_slow hangs on e0
+
+
+def _fleet_burst(seed, n, new, sampled_every=2):
+    """`n` requests of FLEET_CONTEXT tokens, the first
+    FLEET_CONTEXT - FLEET_TAIL of them shared; every `sampled_every`-th
+    seeded (temperature 0.8, top-k 50), the others greedy."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    shared = [int(t) for t in rng.randint(1, VOCAB,
+                                          FLEET_CONTEXT - FLEET_TAIL)]
+    out = []
+    for i in range(n):
+        tail = [int(t) for t in rng.randint(1, VOCAB, FLEET_TAIL)]
+        sampled = sampled_every and i % sampled_every == 1
+        out.append(dict(prompt=shared + tail, max_new_tokens=new,
+                        temperature=0.8 if sampled else 0.0,
+                        top_k=50 if sampled else 0, seed=seed * 100 + i))
+    return out
+
+
+def _fleet_wall(obj, name, box):
+    """Wrap obj.name to add its wall seconds to box[name], without a
+    synchronise: the decode fetch fences each step, and an admission's
+    prefill lands in the next fetch, so the two together hold the
+    engines' device work and the rest of a round is the host's."""
+    fn = getattr(obj, name)
+
+    def timed(*a, **k):
+        t0 = time.perf_counter()
+        try:
+            return fn(*a, **k)
+        finally:
+            box[name] = box.get(name, 0.0) + time.perf_counter() - t0
+
+    setattr(obj, name, timed)
+
+
+def phase_fleet(model, params):
+    """The serving fleet on the card (serving/router.py, tenancy.py,
+    autoscaler.py; obs/ whole): an EngineRouter over two engines on
+    cuda, a TenancyController with a steady and a flooding tenant, an
+    Autoscaler (max_engines=3), a MetricsSampler and an AlertEngine
+    carrying a p99 objective, a ScrapeServer on port 0 and a
+    FlightRecorder, all on one virtual clock (FLEET_STEP_S a round).
+    Traffic: FLEET_REQUESTS shared-prompt requests at once, greedy and
+    seeded mixed, then a recovery trickle; serve_slow hangs engine e0's
+    decode step FLEET_SLOW_STEP past its real 0.5 s watchdog, and its
+    requests fail over. Gates: every request ends in exactly one
+    terminal; each one served (failed over or not) has the tokens of a
+    single-engine run, bitwise; journeys show no lost hop; the alert
+    fires and resolves; /metrics serves render_prometheus()'s bytes;
+    one engine_degraded incident bundle; K1's launches equal the
+    engines' decode steps x layers. Reported: router host ms a round
+    (router.step wall less the engines' decode and admission wall).
+    Returns K1's launches."""
+    import tempfile
+    import urllib.request
+
+    import torch
+
+    from bigdl_tpu_torch import obs
+    from bigdl_tpu_torch.ops import paged_decode
+    from bigdl_tpu_torch.serving import (Autoscaler, EngineRouter,
+                                         InferenceEngine, Request,
+                                         TenancyController, TenantSpec)
+
+    knobs = dict(slots=SLOTS, max_len=FLEET_MAX_LEN,
+                 prefill_buckets=FLEET_BUCKETS, block_size=BLOCK)
+    specs = _fleet_burst(21, FLEET_REQUESTS, FLEET_NEW)
+    for i, s in enumerate(specs):
+        s["tenant"] = "flood" if i >= FLEET_REQUESTS - FLEET_FLOOD \
+            else "steady"
+    trickle = [dict(s, max_new_tokens=1, tenant="steady")
+               for s in _fleet_burst(22, 6, 1)]
+    ref_eng = InferenceEngine(model, params, **knobs)
+    ref = {i: r.tokens for i, r in enumerate(ref_eng.run(
+        [Request(**{k: v for k, v in s.items() if k != "tenant"})
+         for s in specs]))}
+    clk = _Clock()
+    prev = obs.set_enabled(True)
+    obs.reset_all(clock=clk)
+    outdir = tempfile.mkdtemp(prefix="fleet_incidents_")
+    made, wall = [], {}
+
+    def engine(**kw):
+        e = InferenceEngine(model, params, clock=clk,
+                            obs_label=f"e{len(made)}", **knobs, **kw)
+        for name in ("_dispatch_and_fetch", "_admit_into"):
+            _fleet_wall(e, name, wall)
+        made.append(e)
+        return e
+
+    e0 = engine(step_timeout_s=WATCHDOG_S)      # warmed at construction
+    e1 = engine()
+    ctl = TenancyController(
+        [TenantSpec("steady", weight=4.0, bucket_capacity=64.0,
+                    refill_rate=8.0),
+         TenantSpec("flood", weight=1.0, bucket_capacity=2.0,
+                    refill_rate=0.5, max_pending=4)], clock=clk)
+    router = EngineRouter([e0, e1], engine_factory=engine, clock=clk,
+                          obs_label="r0", tenancy=ctl)
+    asc = Autoscaler(router, target_p99_s=FLEET_TARGET_P99_S,
+                     max_engines=3, evaluate_every_s=FLEET_STEP_S,
+                     backlog_high=2.0)
+    sampler = obs.MetricsSampler(interval_s=FLEET_STEP_S, capacity=512,
+                                 clock=clk)
+    objective = obs.SLOObjective(
+        name="p99", kind="latency_quantile",
+        metric="router_request_latency_seconds",
+        target=FLEET_TARGET_P99_S, q=0.99, labels={"router": "r0"})
+    alerts = obs.AlertEngine(sampler, [obs.AlertRule(
+        name="p99_burn", objective=objective, kind="burn_rate",
+        long_window_s=8.0, short_window_s=2.0, clear_s=6.0)], clock=clk)
+    scrape = obs.ScrapeServer(sampler=sampler, alert_engine=alerts)
+    port = scrape.start()
+    rec = obs.FlightRecorder(outdir, clock=clk)
+    for e in (e0, e1):
+        rec.register_health_source(e.obs_name, e.health)
+    rec.install()
+    got, rounds, step_wall = {}, 0, 0.0
+
+    def run_until(done, limit):
+        nonlocal rounds, step_wall
+        n = 0
+        while not done():
+            n += 1
+            check(n <= limit, f"fleet: stalled, {len(got)} settled")
+            clk.t += FLEET_STEP_S
+            t0 = time.perf_counter()
+            for res in router.step():
+                check(res.id not in got, f"fleet: request {res.id} "
+                      "reached a second terminal")
+                got[res.id] = res
+            step_wall += time.perf_counter() - t0
+            rounds += 1
+            asc.observe()
+            sampler.tick()
+            alerts.evaluate()
+
+    def traffic():
+        ids = [router.submit(Request(**s)) for s in specs]
+        run_until(lambda: all(i in got for i in ids), 400)
+        tids = []
+        for s in trickle:
+            tids.append(router.submit(Request(**s)))
+            run_until(lambda: tids[-1] in got, 50)
+        run_until(lambda: not alerts.firing(), 50)
+        return ids, tids
+
+    try:
+        torch.cuda.synchronize()
+        paged_decode.launches = 0
+        t0 = time.perf_counter()
+        ids, tids = _with_plan(f"serve_slow@{FLEET_SLOW_STEP}", traffic)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = paged_decode.launches
+        rec.close()
+        metrics = urllib.request.urlopen(
+            f"http://127.0.0.1:{port}/metrics", timeout=30).read()
+        health = json.loads(urllib.request.urlopen(
+            f"http://127.0.0.1:{port}/health", timeout=30).read())
+        events = obs.get_event_log().events()
+        text = obs.get_registry().render_prometheus().encode()
+    finally:
+        scrape.close()
+        obs.reset_all()
+        obs.set_enabled(prev)
+    steps = sum(e.stats["decode_steps"] for e in made)
+    check(launches > 0 and launches == steps * LAYERS,
+          f"fleet: K1 launches {launches} != decode steps {steps} x "
+          f"{LAYERS}")
+    check(e0.degraded is not None and "watchdog" in e0.degraded,
+          f"fleet: e0 did not trip its watchdog ({e0.degraded})")
+    statuses = {}
+    for i in ids + tids:
+        statuses[got[i].status] = statuses.get(got[i].status, 0) + 1
+    check(set(statuses) <= {"done", "shed"} and all(
+        got[i].status == "done" for i in ids[:FLEET_REQUESTS
+                                             - FLEET_FLOOD] + tids),
+          f"fleet: statuses {statuses}")
+    served = [i for i, rid in enumerate(ids) if got[rid].status == "done"]
+    check(all(got[ids[i]].tokens == ref[i] for i in served),
+          "fleet: a served request's tokens differ from the single-engine "
+          "run's")
+    journeys = obs.build_journeys(events)
+    jsum = obs.summarize_journeys(journeys)
+    check(jsum["count"] == len(ids) + len(tids)
+          and jsum["complete"] == jsum["count"] and jsum["lost_hops"] == 0,
+          f"fleet: journeys {jsum}")
+    kinds = {}
+    for e in events:
+        kinds[e["kind"]] = kinds.get(e["kind"], 0) + 1
+    failed_over = sum(1 for e in events if e["kind"] == "router_failover")
+    check(failed_over >= 1, "fleet: nothing failed over")
+    fired = kinds.get("alert_firing", 0)
+    check(fired >= 1 and kinds.get("alert_resolved") == fired,
+          f"fleet: the alert fired {fired} times and resolved "
+          f"{kinds.get('alert_resolved')} times")
+    check(metrics == text, "fleet: /metrics is not render_prometheus()'s "
+          "bytes")
+    degraded_bundles = [b for b in rec.bundles
+                        if b.endswith("engine_degraded")]
+    check(len(degraded_bundles) == 1, f"fleet: bundles {rec.bundles}")
+    check(os.path.exists(os.path.join(outdir, degraded_bundles[0],
+                                      "manifest.json")),
+          "fleet: the incident bundle has no manifest")
+    decode_admit = sum(wall.values())
+    emit("fleet", requests=len(ids) + len(tids), statuses=statuses,
+         rounds=rounds, seconds=seconds, decode_steps=steps,
+         kernel_launches=launches, engines_built=len(made),
+         autoscale=[d["action"] for d in asc.decisions
+                    if d["action"] != "hold"],
+         failovers=failed_over,
+         throttled=kinds.get("tenant_throttled", 0),
+         tenants={t: ctl.stats(t) for t in ctl.tenants},
+         journeys=jsum, bundles=rec.bundles,
+         alert_fired=fired,
+         scrape_health_keys=sorted(health),
+         tokens_bitwise_single_engine=len(served),
+         router_step_ms=step_wall / rounds * 1e3,
+         decode_and_admit_ms_a_round=decode_admit / rounds * 1e3,
+         router_host_ms_a_round=(step_wall - decode_admit) / rounds * 1e3,
+         card=nvidia_smi())
+    return launches
+
+
+# ----------------------------------------- speculative decoding (A.9)
+SPEC_K = 3
+SPEC_REQUESTS = 32
+SPEC_NEW = 32
+SPEC_EPS = 0.07                 # bench.py's planted predictability
+SPEC_DRAFT = dict(dim=64, num_heads=2, num_layers=2)
+SPEC_SLOW_STEP = 3              # the draft chain step serve_slow hangs
+
+
+def _spec_models(model, params):
+    """(target params, draft model, draft params): the 43M target with
+    its blocks' output projections (wo, w2) scaled by SPEC_EPS — full
+    shapes and weight traffic, but greedy chains that repeat, as a
+    trained target's are predictable (bench.py bench_lm_decode_spec) —
+    and a 64-wide, 2-layer, 2-head draft whose blocks and positional
+    table are zero, so its argmax is the current token."""
+    import torch
+
+    from bigdl_tpu_torch.models.transformer import (TransformerConfig,
+                                                    TransformerLM)
+
+    tp = dict(params)
+    tb = dict(tp["blocks"])
+    tb["wo"] = tb["wo"] * SPEC_EPS
+    tb["w2"] = tb["w2"] * SPEC_EPS
+    tp["blocks"] = tb
+    draft = TransformerLM(TransformerConfig(
+        vocab_size=VOCAB, max_len=MAX_LEN, **SPEC_DRAFT))
+    dp = draft.init_params(torch.Generator().manual_seed(1))
+    dp["blocks"] = {k: torch.zeros_like(v) for k, v in dp["blocks"].items()}
+    dp["pos"] = torch.zeros_like(dp["pos"])
+    return tp, draft, dp
+
+
+def _row_bits(model, params, cache_dtype, tiled=True):
+    """Do SLOTS rows' logits decoded alone equal, bitwise, the same rows
+    inside a SLOTS*(SPEC_K+1)-row verify-shaped call over copies of the
+    same pools? (rows equal, rows, max abs difference). Both calls run
+    the layer norms and products over SLOTS-row tiles, as the engine
+    calls the step (`row_tile=SLOTS`); `tiled=False` runs the verify
+    call's over all its rows at once: the control."""
+    import torch
+
+    sp = model.serving_params(params)
+    nb = MAX_LEN // BLOCK
+    pools = model.init_block_pool(SLOTS * nb + 1, BLOCK, cache_dtype)
+    dev = model.device
+    table = (1 + torch.arange(SLOTS * nb, dtype=torch.int32)).reshape(
+        SLOTS, nb).to(dev)
+    g = torch.Generator().manual_seed(5)
+    lens = [512, 253, 495, 170, 100, 300, 20, 400]
+    for r, n in enumerate(lens):
+        bucket = 256 if n <= 256 else 512
+        toks = torch.zeros(1, bucket, dtype=torch.int32)
+        toks[0, :n] = torch.randint(1, VOCAB, (n,), generator=g)
+        model.prefill_paged(sp, toks.to(dev), pools, table[r:r + 1],
+                            table[r, :bucket // BLOCK], 0)
+    clone = [{k: t.clone() for k, t in layer.items()} for layer in pools]
+    k1 = SPEC_K + 1
+    tok = torch.randint(1, VOCAB, (SLOTS,), generator=g).int()
+    vtok = torch.randint(1, VOCAB, (SLOTS * k1,), generator=g).int()
+    vtok[::k1] = tok
+    pos = torch.tensor([n - 1 for n in lens], dtype=torch.int32)
+    vpos = (pos[:, None] + torch.arange(k1, dtype=torch.int32)).reshape(-1)
+    with torch.no_grad():
+        alone, _ = model.decode_step_paged(sp, tok.to(dev), pos.to(dev),
+                                           pools, table, row_tile=SLOTS)
+        within, _ = model.decode_step_paged(
+            sp, vtok.to(dev), vpos.to(dev), clone,
+            table.repeat_interleave(k1, 0),
+            row_tile=SLOTS if tiled else None)
+    torch.cuda.synchronize()
+    within = within[::k1]
+    return (int((alone == within).all(-1).sum()), SLOTS,
+            float((alone - within).abs().max()))
+
+
+def phase_spec(model, params):
+    """Speculative decoding on the card (serving/speculative.py): a
+    SpeculativeEngine with k = SPEC_K over the 43M target (planted
+    predictability, SPEC_EPS) and a 64-wide 2-layer draft, SLOTS slots,
+    on the fleet's shared-prompt burst (half greedy, half seeded).
+    Gates: the row bits of trouble spot 1 — SLOTS rows decoded alone
+    equal, bitwise, the same rows among SLOTS*(k+1) (fp32 and bf16
+    pools; the untiled products, reported only, are the control);
+    the speculative tokens bitwise the target-only engine's; the verify
+    pass launches K1 once a layer a round over SLOTS*(k+1) rows; a
+    serve_slow trip of the draft's watchdog falls back to target-only
+    with the tokens unchanged; the target as its own draft accepts every
+    seeded proposal (coupled sampling). Reported: accept rate (also of the
+    seeded and the greedy rows apart), tokens a round,
+    speculative and target-only tokens/s (also for the same burst all
+    greedy), beside the card's name and power limit. Returns K1's
+    launches in the speculative run."""
+    import torch
+
+    from bigdl_tpu_torch.ops import paged_decode
+    from bigdl_tpu_torch.serving import (InferenceEngine, Request,
+                                         SpeculativeEngine)
+
+    bits = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).replace("torch.", "")
+        bits[name] = _row_bits(model, params, dtype)
+        bits[name + "_untiled"] = _row_bits(model, params, dtype,
+                                            tiled=False)
+        check(bits[name][0] == bits[name][1],
+              f"spec: {name} rows differ across extents {bits[name]}")
+    tp, draft, dp = _spec_models(model, params)
+    knobs = dict(slots=SLOTS, max_len=FLEET_MAX_LEN,
+                 prefill_buckets=FLEET_BUCKETS, block_size=BLOCK)
+
+    def target(**kw):
+        return InferenceEngine(model, tp, **knobs, **kw)
+
+    def spec(**kw):
+        return SpeculativeEngine(InferenceEngine(draft, dp, **knobs, **kw),
+                                 target(), k=SPEC_K)
+
+    def burst(seed, sampled_every=2):
+        return [Request(**s) for s in
+                _fleet_burst(seed, SPEC_REQUESTS, SPEC_NEW, sampled_every)]
+
+    spec().run(burst(99)[:SLOTS + 1])              # warm-up, both models
+    target().run(burst(99)[:2])
+
+    def timed(eng, sampled_every=2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = eng.run(burst(1, sampled_every))
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    tgt = target()
+    ref, ref_dt = timed(tgt)
+    eng = spec()
+    t, d = eng.target_engine, eng.draft_engine
+    rows = {"target": [], "draft": []}
+    for name, e in (("target", t), ("draft", d)):
+        real = e._decode_rows
+
+        def counted(tok, *a, real=real, log=rows[name]):
+            log.append(int(tok.shape[0]))
+            return real(tok, *a)
+
+        e._decode_rows = counted
+    paged_decode.launches = 0
+    res, dt = timed(eng)
+    launches = paged_decode.launches
+    check([r.tokens for r in res] == [r.tokens for r in ref]
+          and all(r.status == "done" for r in res),
+          "spec: the speculative tokens differ from the target-only "
+          "engine's")
+    verify_rows = SLOTS * (SPEC_K + 1)
+    h = eng.health()["speculative"]
+    check(t.stats["decode_steps"] == h["rounds"] and h["rounds"] > 0,
+          f"spec: {t.stats['decode_steps']} target steps for "
+          f"{h['rounds']} rounds")
+    check(rows["target"] == [verify_rows] * h["rounds"]
+          and rows["draft"] == [SLOTS] * h["draft_steps"],
+          f"spec: decode calls by rows: target {sorted(set(rows['target']))}"
+          f" x {len(rows['target'])}, draft {sorted(set(rows['draft']))} x "
+          f"{len(rows['draft'])}, for {h['rounds']} rounds")
+    check(t.stats["attn_kernel_launches"] == h["rounds"] * LAYERS
+          and d.stats["attn_kernel_launches"] == h["draft_steps"]
+          * SPEC_DRAFT["num_layers"]
+          and launches == t.stats["attn_kernel_launches"]
+          + d.stats["attn_kernel_launches"],
+          f"spec: K1 launches {launches}: target "
+          f"{t.stats['attn_kernel_launches']} for {h['rounds']} rounds, "
+          f"draft {d.stats['attn_kernel_launches']} for "
+          f"{h['draft_steps']} steps")
+    fb = spec(step_timeout_s=WATCHDOG_S)
+    fres = _with_plan(f"serve_slow@{SPEC_SLOW_STEP}",
+                      lambda: fb.run(burst(1)))
+    check(fb.fallback is not None and "watchdog" in fb.fallback
+          and fb.draft_engine.degraded is not None,
+          f"spec: the draft's watchdog trip did not fall back "
+          f"({fb.fallback})")
+    check([r.tokens for r in fres] == [r.tokens for r in ref],
+          "spec: the fallback run's tokens differ from target-only")
+    # the mixed burst's seeded and greedy rows apart: a row's proposals
+    # and verdicts depend only on its own request (rows are independent
+    # and k is fixed), so each half run alone earns what its rows earned
+    # in the mixed run, and the halves' tallies add up to the mixed one
+    halves = {}
+    for kind in ("seeded", "greedy"):
+        reqs = [r for r in burst(1) if (r.temperature > 0) == (kind ==
+                                                               "seeded")]
+        he = spec()
+        he.run(reqs)
+        hh = he.health()["speculative"]
+        halves[kind] = {"requests": len(reqs), "proposed": hh["proposed"],
+                        "accepted": hh["accepted"],
+                        "accept_rate": hh["accept_rate"]}
+    halves["tallies_add_up"] = all(
+        sum(halves[kind][n] for kind in ("seeded", "greedy")) == h[n]
+        for n in ("proposed", "accepted"))
+    # coupled sampling on the card: the target as its own draft proposes
+    # the target's own samples (the same generator state at each output
+    # index), so every seeded proposal is accepted
+    sel = [i for i, r in enumerate(burst(1)) if r.temperature > 0]
+    own = SpeculativeEngine(target(), target(), k=SPEC_K)
+    ores = own.run([burst(1)[i] for i in sel])
+    oh = own.health()["speculative"]
+    check([r.tokens for r in ores] == [ref[i].tokens for i in sel],
+          "spec: the target-as-draft run's tokens differ from target-only")
+    check(oh["proposed"] > 0 and oh["accepted"] == oh["proposed"],
+          f"spec: the target as its own draft had {oh['accepted']} of "
+          f"{oh['proposed']} seeded proposals accepted")
+    halves["target_as_draft_seeded"] = {"proposed": oh["proposed"],
+                                        "accepted": oh["accepted"]}
+    # the same burst all greedy: the accept rate the draft earns on
+    # greedy rows alone
+    gref, gref_dt = timed(target(), sampled_every=0)
+    geng = spec()
+    gres, gdt = timed(geng, sampled_every=0)
+    check([r.tokens for r in gres] == [r.tokens for r in gref],
+          "spec: the greedy burst's speculative tokens differ")
+    gh = geng.health()["speculative"]
+    n_tok = sum(len(r.tokens) for r in res)
+    g_tok = sum(len(r.tokens) for r in gres)
+    emit("spec", k=SPEC_K, slots=SLOTS, requests=len(res),
+         new_tokens=n_tok, draft=SPEC_DRAFT, eps=SPEC_EPS,
+         row_bits=bits, accept_rate=h["accept_rate"],
+         accept_by_kind=halves,
+         tokens_per_round=h["tokens_per_round"], rounds=h["rounds"],
+         draft_steps=h["draft_steps"], verify_rows=verify_rows,
+         kernel_launches=launches, spec_seconds=dt,
+         target_only_seconds=ref_dt,
+         spec_tokens_per_sec=n_tok / dt,
+         target_only_tokens_per_sec=n_tok / ref_dt,
+         speedup=ref_dt / dt,
+         greedy_accept_rate=gh["accept_rate"],
+         greedy_tokens_per_round=gh["tokens_per_round"],
+         greedy_spec_tokens_per_sec=g_tok / gdt,
+         greedy_target_only_tokens_per_sec=g_tok / gref_dt,
+         greedy_speedup=gref_dt / gdt, fallback=fb.fallback,
+         fallback_rounds=fb.health()["speculative"]["rounds"],
+         card=nvidia_smi())
+    return launches
+
+
 # --------------------------------------------------- the keras surface
 # BASELINE config 4's widths (RNN_VOCAB, RNN_EMBED, RNN_HIDDEN) at the
 # BiLSTM trainer's batch and sequence (RNN_BATCH x RNN_SEQ)
@@ -7890,6 +8393,8 @@ def main() -> int:
     engine_launches.update(phase_engine_spill_handoff(model, params,
                                                       fp32_tokens))
     engine_launches["tp_serve"] = phase_tp_serve(model, params, fp32_tokens)
+    engine_launches["fleet"] = phase_fleet(model, params)
+    engine_launches["spec"] = phase_spec(model, params)
     del model, params
     torch.cuda.empty_cache()
     phase_train_model()

@@ -331,13 +331,79 @@ def test_requests_carry_their_model_tag_and_engine_its_own(models):
     assert eng.health()["model_tag"] == "lm-43m"
 
 
+def _quota_scenario(s, events):
+    """Tenant "a" (quota 4 exclusive blocks) floods two long prompts,
+    tenant "b" sends one short one: a's second request waits for the
+    first one's blocks, b's admits past it."""
+    eng = s.engine(tenant_kv_quotas={"a": 4}, prefill_buckets=(8, 16))
+    held = []
+    ids = [eng.submit(s.m.Request(prompt=list(range(1, 14)),
+                                  max_new_tokens=3, tenant="a")),
+           eng.submit(s.m.Request(prompt=list(range(2, 15)),
+                                  max_new_tokens=3, tenant="a")),
+           eng.submit(s.m.Request(prompt=[7, 8, 9], max_new_tokens=3,
+                                  tenant="b"))]
+    order = []
+    while not eng.idle:
+        for res in eng.step():
+            eng.completed[res.id] = res
+            order.append(res.id)
+        held.append(eng._tenant_kv_blocks("a"))
+    throttled = [(e["tenant"], e["request"]) for e in events()
+                 if e["kind"] == "tenant_throttled"]
+    return ([result(eng.completed[i]) for i in ids], order, held,
+            throttled)
+
+
+def _label_scenario(s, events):
+    """An engine built with obs_label names its series and events."""
+    eng = s.engine(obs_label="e0")
+    res = eng.run([s.m.Request(prompt=[1, 2, 3], max_new_tokens=3)])
+    from bigdl_tpu_torch import obs as tobs
+    from bigdl_tpu import obs as jobs
+    reg = (tobs if s.name == "port" else jobs).get_registry()
+    series = sorted(k for k in reg.snapshot()["metrics"]
+                    if reg.get(k)._children and any(
+                        "e0" in key for key in reg.get(k)._children))
+    kinds = sorted({(e["kind"], e.get("engine"), e.get("trace"))
+                    for e in events()})
+    return ([result(r) for r in res], eng.obs_name,
+            eng.health()["metrics"]["engine"], series, kinds)
+
+
 @pytest.mark.parametrize("kw, queue", [
     (dict(tenant_kv_quotas={"a": 4}), "A.9"),
     (dict(obs_label="e0"), "A.9")])
 def test_waiting_features_name_their_queue(models, kw, queue):
-    _, pt = sides(models)
-    with pytest.raises(NotImplementedError, match=queue):
-        pt.engine(**kw)
+    """The two engine features queue A.9 ported, once refused by name:
+    `tenant_kv_quotas` bounds a tenant's exclusive KV blocks (its
+    blocked request waits while another tenant's admits), and
+    `obs_label` names the engine's registry series and events. Each
+    scenario runs through both packages on fresh telemetry; statuses,
+    tokens, admission order, held blocks, throttle events, series and
+    event kinds are equal."""
+    from bigdl_tpu import obs as jobs
+    from bigdl_tpu_torch import obs as tobs
+
+    scenario = _quota_scenario if "tenant_kv_quotas" in kw \
+        else _label_scenario
+    out = []
+    for s, ob in zip(sides(models), (jobs, tobs)):
+        ob.reset_all(clock=_still)
+        try:
+            out.append(scenario(s, lambda: ob.get_event_log().events()))
+        finally:
+            ob.reset_all()
+    assert out[1] == out[0]
+    if scenario is _quota_scenario:
+        results, order, held, throttled = out[1]
+        assert all(r[1] == "done" for r in results)
+        assert max(held) <= 4
+        assert order.index(results[2][0]) < order.index(results[1][0])
+        assert throttled == [("a", results[1][0])]
+    else:
+        assert out[1][1] == out[1][2] == "e0"
+        assert "serving_requests_total" in out[1][3]
 
 
 def test_engine_with_tp_mesh_serves_as_unsharded(models):

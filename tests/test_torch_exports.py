@@ -70,6 +70,35 @@ def test_ops_flash_attention_is_the_function(causal):
     assert mod.flash_attention is flash_attention
 
 
+# the JAX serving plane's names whose modules wait for ROADMAP.md queue
+# A.9's next slice (distill, vision, scenarios, sim)
+SERVING_WAITING = {"DraftDistiller", "VisionEngine", "CostModel",
+                   "SimulatedEngine", "BUILTIN_SCENARIOS",
+                   "compile_scenario", "load_scenario", "list_scenarios"}
+
+
+@pytest.mark.parametrize("pkg", ["obs", "serving"])
+def test_obs_and_serving_export_the_reference_names(pkg):
+    """`obs` exports exactly the JAX package's names; `serving` every
+    one of them but the modules still waiting, and each is the same kind
+    of object (class, function, module, constant) in both."""
+    j = importlib.import_module(f"bigdl_tpu.{pkg}")
+    t = importlib.import_module(f"bigdl_tpu_torch.{pkg}")
+    want = set(j.__all__) - (SERVING_WAITING if pkg == "serving" else set())
+    have = set(t.__all__)
+    if pkg == "obs":
+        assert have == want
+    else:
+        assert want <= have
+        assert SERVING_WAITING.isdisjoint(have)
+    for name in sorted(want):
+        jv, tv = getattr(j, name), getattr(t, name)
+        assert isinstance(jv, type) == isinstance(tv, type), name
+        assert callable(jv) == callable(tv), name
+        if not callable(jv) and not isinstance(jv, types.ModuleType):
+            assert jv == tv, name
+
+
 def test_utils_and_serving_exports_work():
     t = tutils.T(1, 2, a=3)
     assert t[1] == 1 and t["a"] == 3

@@ -72,6 +72,11 @@ NEW_IN_SLICE_18 = ("utils/protowire.py", "utils/caffe/__init__.py",
                    "dataset/spark_adapter.py", "utils/shape.py",
                    "utils/engine.py", "utils/logger_filter.py",
                    "utils/file.py", "utils/debug.py", "utils/profiler.py")
+NEW_IN_SLICE_19 = ("obs/events.py", "obs/exposition.py",
+                   "obs/flightrecorder.py", "obs/journey.py", "obs/slo.py",
+                   "obs/spans.py", "obs/timeseries.py", "serving/router.py",
+                   "serving/tenancy.py", "serving/autoscaler.py",
+                   "serving/speculative.py")
 
 
 def _banned(module: str) -> bool:
@@ -89,7 +94,7 @@ def test_port_files_exist():
         | set(NEW_IN_SLICE_11) | set(NEW_IN_SLICE_13) \
         | set(NEW_IN_SLICE_14) | set(NEW_IN_SLICE_15) \
         | set(NEW_IN_SLICE_16) | set(NEW_IN_SLICE_17) \
-        | set(NEW_IN_SLICE_18) <= scanned
+        | set(NEW_IN_SLICE_18) | set(NEW_IN_SLICE_19) <= scanned
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -152,7 +157,13 @@ def test_port_import_loads_no_jax():
             "bigdl_tpu_torch.utils.shape, bigdl_tpu_torch.utils.file, "
             "bigdl_tpu_torch.utils.debug, bigdl_tpu_torch.utils.profiler, "
             "bigdl_tpu_torch.utils.logger_filter, "
-            "bigdl_tpu_torch.dataset.spark_adapter; "
+            "bigdl_tpu_torch.dataset.spark_adapter, bigdl_tpu_torch.obs, "
+            "bigdl_tpu_torch.obs.exposition, "
+            "bigdl_tpu_torch.obs.flightrecorder, "
+            "bigdl_tpu_torch.serving.router, "
+            "bigdl_tpu_torch.serving.tenancy, "
+            "bigdl_tpu_torch.serving.autoscaler, "
+            "bigdl_tpu_torch.serving.speculative; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{BANNED!r} or m.startswith('google.protobuf')]; "
             "assert not bad, bad")
