@@ -15,8 +15,8 @@ rank's rows of the batch; N > 1 runs under `torchrun --nproc_per_node
 N`. Other mesh axes build as parallel/mesh.py allows, but the harness
 times the data axis only, and a mesh without one is refused, as the
 JAX harness refuses it.
-The result is logged as one JSON line through the
-`bigdl_tpu_torch.models` logger, on stdout.
+The result is emitted as one `perf_result` event (obs/) and logged as
+one JSON line through the `bigdl_tpu_torch.models` logger, on stdout.
 """
 
 from __future__ import annotations
@@ -31,6 +31,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from bigdl_tpu_torch import obs
 from bigdl_tpu_torch.utils.device import DeviceLike
 
 
@@ -236,6 +237,9 @@ def main(argv=None):
     result = run_perf(args.model, args.batch_size, args.iterations,
                       args.mesh, args.optimizer, args.class_num,
                       args.precision)
+    # the result goes through the obs plane and the logger, as the JAX
+    # harness sends it
+    obs.emit_event("perf_result", plane="training", **result)
     result["device"] = torch.cuda.get_device_name(0)
     logging.basicConfig(level=logging.INFO, format="%(message)s",
                         stream=sys.stdout, force=True)

@@ -14,7 +14,8 @@ training loop report:
 * `exposition` — the stdlib HTTP scrape endpoint;
 * `journey`    — per-request cross-engine timelines from the events;
 * `flightrecorder` — post-mortem bundles on incidents;
-* `training`   — `StepTelemetry`'s summary sink and log line.
+* `training`   — `StepTelemetry`: the training loop's one emission
+  path (registry series, `train_step` events, summary sink, log line).
 
 Copied from the JAX package, pure Python: the two packages emit the
 same records, series and bundles for the same calls under the same
@@ -23,9 +24,11 @@ fetched; it never synchronises the device. `BIGDL_OBS=off` (read at
 import) or `set_enabled(False)` turns every emission path off; the
 engines' own bookkeeping (`stats`, `health()`) does not depend on it.
 `BIGDL_OBS_EVENTS=<path>` attaches a JSONL file sink to the default
-event log. The training loop's registry series and events
-(`StepTelemetry`'s, the anomaly guard's, the checkpoint writer's) wait
-for ROADMAP.md queue A.9.
+event log. The training plane emits here too: the loop's
+`StepTelemetry` and phase stopwatches, the anomaly guard's
+`training_anomalies_total` and `anomaly` events, the checkpoint
+writer's save histogram and `checkpoint_*` events, `preempted`, and
+the perf harness's `perf_result`.
 """
 
 from __future__ import annotations

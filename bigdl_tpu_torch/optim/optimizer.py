@@ -51,6 +51,11 @@ Ported:
 - `set_train_summary`/`set_validation_summary` (visualization/): Loss,
   Throughput and LearningRate through obs/training.StepTelemetry, and
   parameter histograms under the summary's "Parameters" trigger;
+- the training plane's telemetry (obs/): StepTelemetry's registry
+  series and one `train_step` event a step, the phase stopwatches'
+  `training_phase_seconds` and host spans, and a `preempted` event
+  before a preemption propagates; all from host values the loop
+  already holds, so telemetry adds no device read;
 - `set_mesh(mesh, axis, zero)`: `optimize()` dispatches to
   parallel/distri_optimizer.DistriOptimizer (data parallelism with
   ZeRO-1/2); LocalOptimizer resumes its `zero1_flat`/`zero2_flat`
@@ -70,6 +75,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import torch
 
+from bigdl_tpu_torch import obs
 from bigdl_tpu_torch.dataset.dataset import AbstractDataSet
 from bigdl_tpu_torch.dataset.sample import MiniBatch
 from bigdl_tpu_torch.dataset.transformer import SampleToMiniBatch
@@ -344,6 +350,10 @@ class LocalOptimizer:
     max_retries = 0
     # whether this process writes the validation summary
     writer = True
+    # whether a run that raises records its last completed step first
+    # (DistriOptimizer sets it: the JAX DistriOptimizer records each step
+    # as it completes, where this loop records a step one step late)
+    record_on_raise = False
 
     def __init__(self, opt: Optimizer):
         self.o = opt
@@ -514,6 +524,7 @@ class LocalOptimizer:
                 train_state["nupdates"] = \
                     train_state["neval"] // o.grad_accum
 
+        pending = None  # step N's telemetry, emitted after step N+1
         try:
             if (o._resume and o.checkpoint is not None
                     and o.checkpoint.latest()):
@@ -522,12 +533,19 @@ class LocalOptimizer:
                             o.checkpoint._last_loaded, train_state)
             dataset_size = o.dataset.size()
             batches = self._train_batches(train_state["neval"])
-            pending = None  # step N's telemetry, emitted after step N+1
             epoch_start = iter_start = time.perf_counter()
             retries = 0
 
             while not o.end_when(train_state):
-                plan.maybe_preempt(train_state["neval"])
+                try:
+                    plan.maybe_preempt(train_state["neval"])
+                except faults.Preempted:
+                    # the worker is dead, not retryable: record the
+                    # incident (a flight-recorder trigger) and let it
+                    # propagate, outside the retry budget
+                    obs.emit_event("preempted", plane="training",
+                                   step=train_state["neval"])
+                    raise
                 try:
                     plan.maybe_raise("step", train_state["neval"])
                     with Timer(self.metrics, "data_fetch_s"):
@@ -589,7 +607,8 @@ class LocalOptimizer:
                                  o.model.parameters(
                                      {"params": self._param_tree()})]
                 pending = (dict(train_state), loss, lr,
-                           real / max(iter_wall, 1e-9), hists)
+                           real / max(iter_wall, 1e-9), real, hists,
+                           gnorm, ok)
 
                 # epoch rollover (the reference counts records vs
                 # dataset size)
@@ -633,6 +652,7 @@ class LocalOptimizer:
                     {**train_state, "neval": eff_step}), eff_step)
             if pending is not None:
                 self._emit(pending)
+                pending = None
             if o.checkpoint is not None:
                 # a failed async save must fail the run, not vanish with
                 # the writer thread
@@ -642,6 +662,10 @@ class LocalOptimizer:
                     summary.writer.flush()
             o.model.variables = {"params": self._final_params(),
                                  "state": self.mod_state}
+        except BaseException:
+            if self.record_on_raise and pending is not None:
+                self._emit(pending)
+            raise
         finally:
             self._close()
         o.train_state = train_state
@@ -786,17 +810,25 @@ class LocalOptimizer:
         """Release what `_setup` opened."""
 
     def _emit(self, pending) -> None:
-        """Telemetry of an already-enqueued step through StepTelemetry;
-        `float(loss)` here is the host's wait for step N, taken after
-        step N+1 is queued, and only on a step that logs or writes a
-        summary."""
-        state, loss, lr, throughput, hists = pending
+        """Telemetry of an already-enqueued step through StepTelemetry
+        (registry, events, TrainSummary sink, log line). `float(loss)`
+        here is the host's wait for step N, taken after step N+1 is
+        queued, and only on a step that logs or writes a summary:
+        telemetry alone never reads the card, so on any other step the
+        `train_step` event omits the loss."""
+        state, loss, lr, throughput, real, hists, gnorm, ok = pending
         o = self.o
-        if o.train_summary is None and state["neval"] % o.log_every:
+        fence = (o.train_summary is not None
+                 or state["neval"] % o.log_every == 0)
+        if not (fence or obs.enabled()):
             return
-        with Timer(self.metrics, "fence_s"):
-            loss = float(loss)
+        if fence:
+            with Timer(self.metrics, "fence_s"):
+                loss = float(loss)
+        else:
+            loss = None
         self.telemetry.emit_step(
             epoch=state["epoch"], step=state["neval"], loss=loss,
-            lr=lr, throughput=throughput, hists=hists,
+            lr=lr, throughput=throughput, records=real,
+            update_applied=ok, gnorm=gnorm, hists=hists,
             metrics_summary=self.metrics.summary())

@@ -75,6 +75,8 @@ class DistriOptimizer(LocalOptimizer):
     optim/DistriOptimizer.scala): LocalOptimizer's loop over this
     class's weights, step, checkpoints and validation."""
 
+    record_on_raise = True
+
     def __init__(self, opt: Optimizer, mesh: Mesh, axis: str = "data",
                  grad_dtype: Optional[str] = "bfloat16",
                  max_retries: int = 3, zero: int = 1):
@@ -291,6 +293,16 @@ class DistriOptimizer(LocalOptimizer):
                       "num_shards": self.n, "total": spec.total,
                       "padded": spec.padded}
         if ck.sharded:
+            if self.n > 1:
+                # a torn save of this step (a writer that died) left its
+                # staging dir behind: rank 0 removes it before any rank
+                # writes, or rank 0 could publish it on the stale units'
+                # manifests while another rank still rewrites its unit
+                # there (the previous save is complete on every rank:
+                # the barrier below)
+                if mesh.rank == 0:
+                    ck.discard_staging(train_state["neval"])
+                dist.barrier(group=group)
             path = ck.save_sharded(
                 train_state["neval"], model if mesh.rank == 0 else None,
                 {mesh.rank: {k: v[0] for k, v in self.slots.items()}},

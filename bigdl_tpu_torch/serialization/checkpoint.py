@@ -49,9 +49,11 @@ checkpoint written at one world size resumes at another
 (param_layout.adapt_flat_tree). Ranks share the checkpoint directory
 (one filesystem). The format is the JAX package's both ways.
 
-Not ported: the `checkpoint_save`/`checkpoint_load` events and the
-save-time histogram, which wait for the training plane's telemetry
-(ROADMAP.md queue A.9).
+Telemetry (obs/): one `checkpoint_save` event a published checkpoint
+(and one a shard unit), timed by the `training_checkpoint_seconds`
+histogram (`mode` sync or async); one `checkpoint_load` event a load;
+one `checkpoint_corrupt_skipped` event for each candidate that failed
+verification and was passed over.
 """
 
 from __future__ import annotations
@@ -71,6 +73,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from bigdl_tpu_torch import obs
 from bigdl_tpu_torch.utils import faults
 from bigdl_tpu_torch.utils.table import Table, sort_key
 
@@ -352,6 +355,27 @@ class Checkpoint:
         else:
             write_fn()
 
+    def _observe_save(self, step: int, path: str, duration_s: float,
+                      nshards: int, mid_cycle: bool,
+                      shard: Optional[int] = None) -> None:
+        fields = {"step": int(step), "path": path,
+                  "async": bool(self.async_save),
+                  "duration_s": round(duration_s, 6),
+                  "nshards": int(nshards)}
+        if shard is not None:
+            fields["shard"] = int(shard)
+        else:
+            fields["mid_cycle"] = mid_cycle
+            if obs.enabled():
+                obs.get_registry().histogram(
+                    "training_checkpoint_seconds",
+                    "wall seconds to write one training checkpoint "
+                    "(shard events excluded)",
+                    labelnames=("mode",),
+                ).labels(mode="async" if self.async_save else "sync") \
+                    .observe(duration_s)
+        obs.emit_event("checkpoint_save", **fields)
+
     @staticmethod
     def _host_snapshot(tree):
         """Host-numpy copy taken on the caller's thread, before the
@@ -386,6 +410,7 @@ class Checkpoint:
         # dir, then rename over the final name; latest() never matches
         # the staging or the .old name
         plan = faults.get_plan()
+        t0 = time.perf_counter()
         tmp = d + ".inprogress"
         old = d + ".old"
         for leftover in (tmp, old):
@@ -412,6 +437,8 @@ class Checkpoint:
         os.rename(tmp, d)
         if os.path.isdir(old):
             shutil.rmtree(old)
+        self._observe_save(step, d, time.perf_counter() - t0, nshards=1,
+                           mid_cycle=accum_h is not None)
         if plan.fires("ckpt_corrupt", step):
             # bit-rot model: the publish succeeded, the bytes did not
             # survive — load() must detect this and fall back
@@ -443,6 +470,13 @@ class Checkpoint:
             optim_meta, accum_h, primary))
         return d
 
+    def discard_staging(self, step: int) -> None:
+        """Remove the staging dir a torn save of `step` left behind. A
+        multi-rank caller does it on one rank, with no save in flight,
+        before every rank writes that step again."""
+        shutil.rmtree(os.path.join(self.path, f"checkpoint-{step}"
+                                   ".inprogress"), ignore_errors=True)
+
     @staticmethod
     def _await(predicate, timeout_s: float = 120.0, what: str = "") -> None:
         deadline = time.monotonic() + timeout_s
@@ -456,13 +490,16 @@ class Checkpoint:
                        nshards: int, train_state, optim_meta, accum_h,
                        primary: bool) -> None:
         plan = faults.get_plan()
+        t0 = time.perf_counter()
         staging = d + ".inprogress"
         old = d + ".old"
         if primary:
             # staging-then-swap, like _write_full; a leftover same-step
-            # staging dir from a crashed run is adopted, not deleted: a
-            # rank that raced ahead may already be writing into it, and
-            # a deterministic replay writes the same bytes
+            # staging dir is adopted, not deleted here: a rank that
+            # raced ahead may already be writing into it. A multi-rank
+            # caller removes a torn save's leftover before any rank
+            # writes (`discard_staging`), so the manifests awaited below
+            # are this save's
             if os.path.isdir(old):
                 shutil.rmtree(old)
             os.makedirs(staging, exist_ok=True)
@@ -476,9 +513,12 @@ class Checkpoint:
                 lambda: os.path.isdir(staging),
                 what=f"host waiting for {staging} to open for writing")
         for i, tree in shards_h.items():
+            u0 = time.perf_counter()
             save_pytree(staging, shard_unit_name(i, nshards), tree,
                         metadata={"shard": i, "nshards": nshards,
                                   **(optim_meta or {})})
+            self._observe_save(step, d, time.perf_counter() - u0,
+                               nshards=nshards, mid_cycle=False, shard=i)
             if plan.fires("ckpt_async_torn", step):
                 # kill-during-background-save model: the writer dies
                 # with units in staging and no published dir — latest()
@@ -510,6 +550,9 @@ class Checkpoint:
             os.rename(staging, d)
             if os.path.isdir(old):
                 shutil.rmtree(old)
+            self._observe_save(step, d, time.perf_counter() - t0,
+                               nshards=nshards,
+                               mid_cycle=accum_h is not None)
             if plan.fires("ckpt_corrupt", step):
                 # bit-rot one published shard: load() must catch the
                 # crc mismatch and fall back
@@ -575,6 +618,7 @@ class Checkpoint:
         model_variables, meta = load_pytree(d, self.MODEL)
         optim_state, optim_meta = load_pytree(d, self.OPTIM)
         self._last_loaded = d
+        obs.emit_event("checkpoint_load", path=d)
         if with_optim_meta:
             return (model_variables, optim_state, meta.get("train_state", {}),
                     optim_meta)
@@ -609,6 +653,8 @@ class Checkpoint:
         else:  # slot-less method (plain SGD): every shard tree is empty
             optim_state = parts[0] if parts else {}
         self._last_loaded = d
+        obs.emit_event("checkpoint_load", path=d, sharded=True,
+                       nshards=nshards)
         optim_meta = man.get("optim_meta") or {}
         if with_optim_meta:
             return (model_variables, optim_state,
@@ -638,6 +684,8 @@ class Checkpoint:
             except (CheckpointCorruptError, FileNotFoundError) as e:
                 self.corrupt_skipped.append(d)
                 last_err = e
+                obs.emit_event("checkpoint_corrupt_skipped", path=d,
+                               error=str(e))
                 logger.warning(
                     "checkpoint %s failed verification (%s); falling "
                     "back to the previous checkpoint", d, e)

@@ -1,0 +1,869 @@
+"""Calibrated fleet simulator: the real control plane over modeled
+decode.
+
+Ports `CostModel` and `SimulatedEngine` from bigdl_tpu/serving/sim.py.
+The serving control plane — EngineRouter, Autoscaler,
+TenancyController, the SLO and alert engine, journeys, the flight
+recorder — is host-side and clock-injected, but a real engine decodes
+every request. `SimulatedEngine` removes exactly one thing: the decode
+dispatch. It stands behind the same `submit()/step()/health()` surface
+as `InferenceEngine` (the router cannot tell them apart) and advances
+requests by a cost model instead, so a 10^5-request day replays through
+the unchanged control plane in wall-clock seconds, deterministically.
+
+Calibration: the port's default is a reading of the port on the card,
+never a TPU number. `bigdl_tpu_torch/serving/sim_calibration.json`
+holds the 43M LM engine's decode milliseconds a token (one steady
+decode step of its slots: each slot gains one token a step) and prefill
+milliseconds a prompt token, measured by `serving/step_study.py`'s
+`calibration` in chip_smoke.py's sim_calibration phase, with the
+card's name and power limit, the torch version and the run that took
+it. `CostModel.default()` reads it; `CostModel.from_card_reading(path)`
+reads another such file. `CostModel.from_bench_artifacts(paths)` keeps
+the JAX package's derivation from BENCH-style artifacts, for parity
+tests on the CPU, and takes explicit paths only. Whichever source was
+used is named by `provenance()` and by the one `sim_calibration` event
+each engine emits.
+
+Determinism: simulated time is the injected clock (the constructor
+requires `clock=`; there is no wall-clock fallback and no RNG).
+Simulated tokens are a pure integer hash of (request.seed, position),
+so two replays of one trace are identical.
+"""
+
+from __future__ import annotations
+
+import itertools
+import json
+import math
+import os
+from collections import deque
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
+
+from bigdl_tpu_torch import obs
+from bigdl_tpu_torch.serving.bucketing import bucket_for, bucket_histogram
+from bigdl_tpu_torch.serving.engine import (_STATUS_COUNTER, EngineDegraded,
+                                            EngineDraining,
+                                            GenerationResult,
+                                            InferenceEngine,
+                                            OverloadError, Request)
+
+__all__ = ["CostModel", "SimulatedEngine"]
+
+_SIM_IDS = itertools.count()
+
+# the committed card reading (chip_smoke.py, phase sim_calibration)
+CARD_CALIBRATION = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                "sim_calibration.json")
+
+
+def _bench_rows(path: str) -> List[dict]:
+    """Rows from one BENCH-style artifact: a JSON object whose "tail"
+    field holds one JSON row a line; a row is a dict with a string
+    "metric" and a numeric "value". Anything else is ignored, never an
+    error."""
+    with open(path) as f:
+        try:
+            doc = json.load(f)
+        except json.JSONDecodeError:
+            return []
+    text = doc.get("tail", "") if isinstance(doc, dict) else ""
+    out = []
+    for line in str(text).splitlines():
+        line = line.strip()
+        if not line:
+            continue
+        try:
+            row = json.loads(line)
+        except json.JSONDecodeError:
+            continue
+        if isinstance(row, dict) and isinstance(row.get("metric"), str) \
+                and isinstance(row.get("value"), (int, float)):
+            out.append(row)
+    return out
+
+
+class CostModel:
+    """ms a token of decode and prefill: the simulator's only latency
+    source.
+
+    - `decode_ms(bucket, tp, layout_family, spec_accept)` is
+      `base_decode_ms * (1 + bucket / CONTEXT_REF)` (attention reads the
+      KV written so far, so a token's cost grows with the context; it
+      doubles at a 1024-token bucket), divided by `tp`, by
+      `int8_speedup` for int8 layouts, and by (1 + accept rate) under
+      speculative decoding.
+    - `prefill_ms(prompt_len, ...)` is `base_prefill_ms * prompt_len`,
+      divided by `tp` and the layout factor.
+
+    Sources (`provenance()["source"]`):
+
+    - "card_reading" (`default()`, `from_card_reading`): a reading of
+      the port's engine on the card. The file holds
+      `decode_ms_per_token` and `prefill_ms_per_token` as measured at
+      its `context_bucket`, and `spread_frac`, half the range of the
+      decode readings over their median; `base_decode_ms` divides the
+      context factor back out. int8 layouts take `int8_speedup` 1.0:
+      the reading has no int8 engine.
+    - "bench_artifacts" (`from_bench_artifacts`): the JAX package's
+      derivation. The median of the
+      `transformer_lm_43m_train_tokens_per_sec_per_chip*` rows is the
+      calibration throughput and their (hi-lo)/2/median the spread;
+      TRAIN_FWD_FACTOR = 3 (a forward is a third of a train step) makes
+      it the prefill rate; DECODE_EFFICIENCY = 0.02 of it is the decode
+      rate; int8 layouts divide by the `int8_vs_bf16_speedup` of the
+      int8 row.
+    """
+
+    CALIBRATION_METRIC = "transformer_lm_43m_train_tokens_per_sec_per_chip"
+    INT8_METRIC = "resnet50_int8_infer_images_per_sec_per_chip"
+    TRAIN_FWD_FACTOR = 3.0
+    DECODE_EFFICIENCY = 0.02
+    CONTEXT_REF = 1024.0
+
+    def __init__(self, *, base_decode_ms: float, base_prefill_ms: float,
+                 int8_speedup: float, sources: List[dict],
+                 spread_frac: float, source: str = "explicit"):
+        if base_decode_ms <= 0 or base_prefill_ms <= 0:
+            raise ValueError("cost model needs positive ms/token")
+        self.base_decode_ms = float(base_decode_ms)
+        self.base_prefill_ms = float(base_prefill_ms)
+        self.int8_speedup = float(int8_speedup)
+        self.sources = list(sources)
+        self.spread_frac = float(spread_frac)
+        self.source = str(source)
+
+    # ----------------------------------------------------- calibration
+    @classmethod
+    def default(cls) -> "CostModel":
+        """The committed card reading of the port
+        (`CARD_CALIBRATION`)."""
+        return cls.from_card_reading(CARD_CALIBRATION)
+
+    @classmethod
+    def from_card_reading(cls, path: str) -> "CostModel":
+        """Calibrate from a card-reading file (see the class
+        docstring)."""
+        with open(path) as f:
+            doc = json.load(f)
+        for key in ("decode_ms_per_token", "prefill_ms_per_token",
+                    "context_bucket", "spread_frac", "card"):
+            if key not in doc:
+                raise ValueError(f"{path}: card reading lacks {key!r}")
+        decode = float(doc["decode_ms_per_token"])
+        bucket = float(doc["context_bucket"])
+        src = {"file": os.path.basename(path), "card": doc["card"]}
+        for key in ("torch", "pr", "tool", "engine"):
+            if key in doc:
+                src[key] = doc[key]
+        src.update(decode_ms_per_token=decode,
+                   prefill_ms_per_token=float(doc["prefill_ms_per_token"]),
+                   context_bucket=int(bucket))
+        return cls(base_decode_ms=decode / (1.0 + bucket / cls.CONTEXT_REF),
+                   base_prefill_ms=float(doc["prefill_ms_per_token"]),
+                   int8_speedup=1.0, sources=[src],
+                   spread_frac=float(doc["spread_frac"]),
+                   source="card_reading")
+
+    @classmethod
+    def from_bench_artifacts(cls, paths: Sequence[str]) -> "CostModel":
+        """Calibrate from BENCH-style artifacts by the JAX package's
+        derivation (CPU parity tests); `paths` is required."""
+        if paths is None:
+            raise ValueError("from_bench_artifacts needs explicit paths; "
+                             "the default calibration is "
+                             "CostModel.default()")
+        sources: List[dict] = []
+        lm_vals: List[float] = []
+        int8_speedup = 1.0
+        int8_src: Optional[dict] = None
+        for p in paths:
+            for row in _bench_rows(p):
+                metric = row["metric"]
+                if metric.startswith(cls.CALIBRATION_METRIC):
+                    lm_vals.append(float(row["value"]))
+                    sources.append({"artifact": os.path.basename(p),
+                                    "metric": metric,
+                                    "value": float(row["value"])})
+                elif metric.startswith(cls.INT8_METRIC) \
+                        and "int8_vs_bf16_speedup" in row:
+                    int8_speedup = float(row["int8_vs_bf16_speedup"])
+                    int8_src = {"artifact": os.path.basename(p),
+                                "metric": metric,
+                                "value": int8_speedup}
+        if not lm_vals:
+            raise ValueError(
+                "no calibration rows: expected "
+                f"{cls.CALIBRATION_METRIC}* in {list(paths)!r}")
+        if int8_src is not None:
+            sources.append(int8_src)
+        vals = sorted(lm_vals)
+        n = len(vals)
+        med = vals[n // 2] if n % 2 else (vals[n // 2 - 1]
+                                          + vals[n // 2]) / 2.0
+        spread = (vals[-1] - vals[0]) / 2.0 / med if med else 0.0
+        fwd_tps = med * cls.TRAIN_FWD_FACTOR
+        return cls(
+            base_decode_ms=1e3 / (fwd_tps * cls.DECODE_EFFICIENCY),
+            base_prefill_ms=1e3 / fwd_tps,
+            int8_speedup=int8_speedup,
+            sources=sources, spread_frac=spread,
+            source="bench_artifacts")
+
+    # --------------------------------------------------------- queries
+    def _layout_factor(self, layout_family: str) -> float:
+        return self.int8_speedup \
+            if layout_family.startswith("int8") else 1.0
+
+    def decode_ms(self, *, bucket: int = 128, tp: int = 1,
+                  layout_family: str = "fp32/float32",
+                  spec_accept: float = 0.0) -> float:
+        """Modeled milliseconds per emitted token for one slot."""
+        ms = self.base_decode_ms * (1.0 + bucket / self.CONTEXT_REF)
+        ms /= max(int(tp), 1)
+        ms /= self._layout_factor(layout_family)
+        ms /= 1.0 + max(0.0, min(1.0, float(spec_accept)))
+        return ms
+
+    def prefill_ms(self, prompt_len: int, *, tp: int = 1,
+                   layout_family: str = "fp32/float32") -> float:
+        """Modeled milliseconds to prefill a prompt."""
+        ms = self.base_prefill_ms * max(int(prompt_len), 0)
+        ms /= max(int(tp), 1)
+        ms /= self._layout_factor(layout_family)
+        return ms
+
+    def provenance(self) -> dict:
+        """Where the numbers came from: the source kind, its rows or
+        reading, and the transformation constants (the sim_calibration
+        event carries them)."""
+        bench = self.source == "bench_artifacts"
+        return {
+            "source": self.source,
+            "sources": list(self.sources),
+            "factors": {
+                "train_fwd_factor": self.TRAIN_FWD_FACTOR if bench
+                else None,
+                "decode_efficiency": self.DECODE_EFFICIENCY if bench
+                else None,
+                "context_ref": self.CONTEXT_REF,
+                "int8_speedup": self.int8_speedup,
+                "calibration_spread_frac": round(self.spread_frac, 6),
+            },
+            "decode_ms_per_token": round(self.base_decode_ms, 9),
+            "prefill_ms_per_token": round(self.base_prefill_ms, 9),
+        }
+
+
+class _Slot:
+    """One in-flight simulated request (host bookkeeping only)."""
+
+    __slots__ = ("req", "t0", "t_start", "tokens", "t_first")
+
+    def __init__(self, req: Request, t0: float, t_start: float):
+        self.req = req
+        self.t0 = t0                # submit stamp (meta t)
+        self.t_start = t_start      # service start (throughput mode)
+        self.tokens: List[int] = []
+        self.t_first: Optional[float] = None
+
+
+def _sim_token(seed: int, k: int, vocab: int) -> int:
+    """Deterministic token stream: a pure integer hash of the
+    request's sampling seed and the emission index — no RNG object,
+    no global state, stable across platforms."""
+    return 1 + (int(seed) + (k + 1) * 2654435761) % (vocab - 1)
+
+
+class SimulatedEngine:
+    """`InferenceEngine`'s host-side twin: same surface, modeled decode.
+
+    The router, autoscaler, tenancy controller, SLO plane, journeys,
+    flight recorder, and ops console all drive this class UNCHANGED —
+    it mirrors the real engine's submit-gate order (degraded →
+    draining → validation → bucket fit → duplicate id → trace stamp →
+    queue expiry → overload policy), terminal statuses, lifecycle
+    stamps, health() shape, and host-side stats keys. What it does NOT
+    do: allocate device memory, compile, or decode — `step()` advances
+    requests by the injected CostModel instead.
+
+    Pacing modes:
+
+    - 'per_step' (structural parity): every step() emits at most ONE
+      token per active slot, exactly like the real engine's scheduling
+      round — the mode the sim-vs-real divergence test runs, where
+      virtual latency is round-quantized on both sides.
+    - 'throughput' (fluid, the 10⁵-request mode): a slot serves
+      requests back-to-back; a request completes when the virtual
+      clock passes t_start + prefill_ms + max_new*decode_ms, and one
+      slot can settle MANY requests per scheduling round. Lifecycle
+      stamps come from the modeled times, so latency distributions
+      reflect the calibrated costs, not the round grid. Requires an
+      advancing clock (run() guards against a frozen one).
+
+    Knobs are constructor arguments, never the environment; `clock` is
+    required — simulated time is the injected virtual
+    clock, full stop. Engines meant to share a router group must share
+    ONE CostModel object (`self.model` is the group-identity the
+    router checks). `degrade(reason)` is the chaos hook: it parks
+    every queued/in-flight request as 'failed' in `completed` (the
+    router's failover path harvests them) and emits engine_degraded —
+    a FlightRecorder trigger, same as a real watchdog trip."""
+
+    def __init__(self, cost_model: CostModel, *,
+                 clock: Callable[[], float],
+                 slots: int = 4, prefill_buckets=(8, 16, 32),
+                 max_queue: Optional[int] = None,
+                 overload_policy: str = "reject",
+                 pacing: str = "per_step",
+                 vocab: int = 50,
+                 tp: int = 1,
+                 layout_family: str = "fp32/float32",
+                 spec_accept: float = 0.0,
+                 model_tag: Optional[str] = None,
+                 obs_label: Optional[str] = None):
+        if clock is None:
+            raise ValueError("SimulatedEngine requires an injected "
+                             "clock= (virtual time is the whole point)")
+        if pacing not in ("per_step", "throughput"):
+            raise ValueError(f"pacing {pacing!r}: expected "
+                             "per_step|throughput")
+        if overload_policy not in ("reject", "shed-oldest",
+                                   "shed-lowest-priority"):
+            raise ValueError(f"unknown overload_policy "
+                             f"{overload_policy!r}")
+        self.model = cost_model
+        self._clock = clock
+        self.slots = int(slots)
+        self.buckets = tuple(sorted(prefill_buckets))
+        self.max_queue = max_queue
+        self.overload_policy = overload_policy
+        self.pacing = pacing
+        self.vocab = int(vocab)
+        self.tp = int(tp)
+        self.role = "both"
+        self._layout = layout_family
+        self.spec_accept = float(spec_accept)
+        self.model_tag = model_tag
+        self.spill_enabled = False
+        self.host_blocks = 0
+        self._obs_name = obs_label or f"sim{next(_SIM_IDS)}"
+        self._queue: deque = deque()
+        self._slots: List[Optional[_Slot]] = [None] * self.slots
+        self._free_at = [0.0] * self.slots    # throughput-mode handback
+        self._meta: Dict[int, dict] = {}
+        self._ids = itertools.count()
+        self.completed: Dict[int, GenerationResult] = {}
+        self._degraded: Optional[str] = None
+        self._draining = False
+        self._steps = 0
+        # the real engine's stats key set (loadgen's _report and
+        # obs_report read these with .get — keep the names identical)
+        self._stats: Dict[str, int] = {
+            "prefill_calls": 0, "decode_steps": 0, "requests_done": 0,
+            "shed": 0, "rejected": 0, "deadline_misses": 0,
+            "poisoned": 0, "failed": 0, "retries": 0,
+            "watchdog_trips": 0, "cancelled": 0,
+            "prefix_hits": 0, "prefix_blocks_reused": 0,
+            "prefix_tokens_saved": 0, "prefix_bytes_saved": 0,
+            "pool_evictions": 0,
+            "kv_spill_blocks": 0, "kv_readmit_blocks": 0,
+            "kv_host_evictions": 0, "admit_requeue_exhausted": 0,
+            "handoffs_out": 0, "handoffs_in": 0,
+            "weight_swaps": 0,
+        }
+        prov = cost_model.provenance()
+        obs.emit_event("sim_calibration", plane="serving",
+                       engine=self._obs_name,
+                       sources=prov["sources"],
+                       decode_ms_per_token=prov["decode_ms_per_token"],
+                       prefill_ms_per_token=prov[
+                           "prefill_ms_per_token"],
+                       factors=prov["factors"])
+
+    # ------------------------------------------------- modeled costs
+    def _tok_s(self, prompt_len: int) -> float:
+        b = bucket_for(prompt_len, self.buckets)
+        return self.model.decode_ms(
+            bucket=b, tp=self.tp, layout_family=self._layout,
+            spec_accept=self.spec_accept) / 1e3
+
+    def _prefill_s(self, prompt_len: int) -> float:
+        return self.model.prefill_ms(
+            prompt_len, tp=self.tp, layout_family=self._layout) / 1e3
+
+    # ------------------------------------------------------ properties
+    @property
+    def stats(self) -> Dict[str, int]:
+        d = dict(self._stats)
+        d["prefill_traces"] = 0       # modeled decode compiles nothing
+        d["decode_traces"] = 0
+        return d
+
+    @property
+    def degraded(self) -> Optional[str]:
+        return self._degraded
+
+    @property
+    def draining(self) -> bool:
+        return self._draining
+
+    @property
+    def idle(self) -> bool:
+        return not self._queue and all(s is None for s in self._slots)
+
+    @property
+    def slots_active(self) -> int:
+        return sum(s is not None for s in self._slots)
+
+    @property
+    def queue_depth(self) -> int:
+        return len(self._queue)
+
+    @property
+    def obs_name(self) -> str:
+        return self._obs_name
+
+    @property
+    def layout_family(self) -> str:
+        return self._layout
+
+    # ----------------------------------------------------------- admin
+    def drain(self) -> None:
+        if self._draining:
+            return
+        self._draining = True
+        obs.emit_event("engine_drain", plane="serving",
+                       engine=self._obs_name,
+                       queued=len(self._queue),
+                       active=self.slots_active)
+
+    def degrade(self, reason: str) -> List[GenerationResult]:
+        """Chaos hook (scenario schedules / drills): quiesce exactly
+        like a real watchdog trip — every in-flight and queued request
+        fails, the results land in `completed` for the router's
+        failover harvest, and the engine_degraded event (a
+        FlightRecorder trigger) fires."""
+        if self._degraded is not None:
+            return []
+        self._degraded = reason
+        obs.emit_event("engine_degraded", plane="serving",
+                       engine=self._obs_name, reason=reason)
+        out = []
+        for i, st in enumerate(self._slots):
+            if st is None:
+                continue
+            out.append(self._finish_slot(i, "failed", "failed",
+                                         self._clock()))
+        for r in list(self._queue):
+            out.append(self._terminal(r, "failed", "failed"))
+        self._queue.clear()
+        for res in out:
+            self.completed[res.id] = res
+        return out
+
+    def health(self) -> Dict[str, object]:
+        """The real engine's health() shape with modeled values —
+        consumers (router probes, autoscaler, ops_console, obs_report)
+        read the same keys either way."""
+        if self._degraded:
+            state = "degraded"
+        elif self._draining:
+            state = "drained" if self.idle else "draining"
+        else:
+            state = "ok"
+        tok_ms = round(self.model.decode_ms(
+            bucket=max(self.buckets), tp=self.tp,
+            layout_family=self._layout,
+            spec_accept=self.spec_accept), 6)
+        pct = tok_ms if self._stats["decode_steps"] else None
+        s = self._stats
+        return {
+            "state": state,
+            "degraded_reason": self._degraded,
+            "tp": self.tp,
+            "role": self.role,
+            "attn_impl": "simulated",
+            "weight_dtype": self._layout.split("/")[0],
+            "cache_dtype": self._layout.split("/")[-1],
+            "model_tag": self.model_tag,
+            "handoffs_out": s["handoffs_out"],
+            "handoffs_in": s["handoffs_in"],
+            "slots": self.slots,
+            "slots_active": self.slots_active,
+            "queue_depth": self.queue_depth,
+            "queue_buckets": bucket_histogram(
+                [len(r.prompt) for r in self._queue], self.buckets),
+            "decode_p50_ms": pct,
+            "decode_p95_ms": pct,
+            "deadline_misses": s["deadline_misses"], "shed": s["shed"],
+            "rejected": s["rejected"], "poisoned": s["poisoned"],
+            "retries": s["retries"],
+            "watchdog_trips": s["watchdog_trips"],
+            "failed": s["failed"], "cancelled": s["cancelled"],
+            "requests_done": s["requests_done"],
+            "decode_steps": s["decode_steps"],
+            "prefix": {
+                "enabled": False, "hits": 0, "blocks_reused": 0,
+                "tokens_saved": 0, "bytes_saved": 0, "evictions": 0,
+                "tree_blocks": 0, "pool": {}, "spill": False,
+                "host_blocks": 0, "host_in_use": 0, "spilled": 0,
+                "readmitted": 0, "host_evictions": 0,
+            },
+            "metrics": {
+                "engine": self._obs_name,
+                "decode_step_seconds": {
+                    "count": s["decode_steps"],
+                    "sum": round(s["decode_steps"] * (pct or 0.0)
+                                 / 1e3, 6),
+                    "p50_ms": pct, "p95_ms": pct, "p99_ms": pct},
+                "requests_total": {
+                    st: s[_STATUS_COUNTER[st]]
+                    for st in ("done", "shed", "expired", "poisoned",
+                               "failed")},
+            },
+        }
+
+    # ------------------------------------------------------------ host
+    def submit(self, request: Request) -> int:
+        """The real engine's admission gates, in the real order —
+        divergence tests lean on this parity."""
+        n = len(request.prompt)
+        if self._degraded:
+            raise EngineDegraded(
+                f"simulated engine degraded ({self._degraded})")
+        if self._draining:
+            raise EngineDraining(
+                "simulated engine is draining (stop-admission)")
+        if n == 0:
+            raise ValueError("empty prompt")
+        if request.max_new_tokens < 1:
+            raise ValueError("max_new_tokens must be >= 1")
+        bucket_for(n, self.buckets)       # raises if no bucket fits
+        in_flight = {r.id for r in self._queue} \
+            | {s.req.id for s in self._slots if s is not None} \
+            | set(self.completed)
+        if request.id is None:
+            rid = next(self._ids)
+            while rid in in_flight:
+                rid = next(self._ids)
+            request.id = rid
+        elif request.id in in_flight:
+            raise ValueError(f"request id {request.id} already in "
+                             "flight or completed-unclaimed")
+        if request.trace_id is None:
+            request.trace_id = f"{self._obs_name}/{request.id}"
+            request.hop = 0
+        self._expire_queued(self._clock())
+        if self.max_queue is not None \
+                and len(self._queue) >= self.max_queue:
+            self._overload(request)
+            if request.id in self.completed:
+                return request.id
+        self._meta[request.id] = {"t": self._clock()}
+        self._queue.append(request)
+        obs.emit_event("request_submit", plane="serving",
+                       engine=self._obs_name, request=request.id,
+                       prompt_len=n, priority=request.priority,
+                       tp=self.tp, role=self.role,
+                       **InferenceEngine._trace_fields(request))
+        return request.id
+
+    def _overload(self, request: Request) -> None:
+        if self.overload_policy == "reject":
+            self._stats["rejected"] += 1
+            obs.emit_event("request_rejected", plane="serving",
+                           engine=self._obs_name, request=request.id,
+                           queue_depth=len(self._queue),
+                           **InferenceEngine._trace_fields(request))
+            raise OverloadError(
+                f"queue full ({self.max_queue}); request "
+                f"{request.id} rejected (overload_policy='reject')")
+        if self.overload_policy == "shed-lowest-priority":
+            victim = min(self._queue, key=lambda r: r.priority)
+            if request.priority <= victim.priority:
+                self._terminal(request, "shed", "shed")
+                return
+            self._queue.remove(victim)
+        else:                                      # shed-oldest
+            victim = self._queue.popleft()
+        self._terminal(victim, "shed", "shed")
+
+    def steal_queued(self, k: int) -> List[Tuple[Request, float]]:
+        """Lowest-priority-youngest first — the real engine's
+        rebalance-donor order."""
+        out: List[Tuple[Request, float]] = []
+        for _ in range(min(k, len(self._queue))):
+            best_i, best_p = 0, None
+            for i, r in enumerate(self._queue):
+                if best_p is None or r.priority <= best_p:
+                    best_i, best_p = i, r.priority
+            req = self._queue[best_i]
+            del self._queue[best_i]
+            meta = self._meta.pop(req.id, None)
+            out.append((req, meta["t"] if meta else self._clock()))
+        return out
+
+    def _requeue(self, request: Request,
+                 t: Optional[float] = None) -> None:
+        self._meta[request.id] = {"t": self._clock() if t is None
+                                  else t}
+        self._queue.append(request)
+
+    def cancel(self, request_id: int) -> GenerationResult:
+        for r in self._queue:
+            if r.id == request_id:
+                self._queue.remove(r)
+                self._stats["cancelled"] += 1
+                res = self._terminal(r, "cancelled", "shed")
+                return res
+        for i, st in enumerate(self._slots):
+            if st is not None and st.req.id == request_id:
+                self._stats["cancelled"] += 1
+                res = self._finish_slot(i, "cancelled", "shed",
+                                        self._clock())
+                self.completed[res.id] = res
+                return res
+        raise KeyError(f"request {request_id} is not queued or in "
+                       "flight")
+
+    # ---------------------------------------------- KV / handoff stubs
+    def prefix_match_tokens(self, prompt: Sequence[int]) -> int:
+        return 0          # no radix tree: affinity scores it cold
+
+    def export_tree(self) -> List[Dict[str, object]]:
+        return []
+
+    def import_tree(self, entries: Sequence[Dict[str, object]]) -> int:
+        return 0
+
+    def import_handoff(self, pkg) -> bool:
+        return False      # no device pools to seat a package into
+
+    def take_handoffs(self) -> list:
+        return []
+
+    # ------------------------------------------------------- lifecycle
+    def _pop_next(self) -> Request:
+        best_i, best_p = 0, None
+        for i, r in enumerate(self._queue):
+            if best_p is None or r.priority > best_p:
+                best_i, best_p = i, r.priority
+        req = self._queue[best_i]
+        del self._queue[best_i]
+        return req
+
+    def _deadline_at(self, req: Request, t0: float) -> float:
+        return math.inf if req.deadline_s is None \
+            else t0 + req.deadline_s
+
+    def _expire_queued(self, now: float) -> None:
+        keep: deque = deque()
+        for r in self._queue:
+            t0 = self._meta[r.id]["t"]
+            dl = self._deadline_at(r, t0)
+            qw = t0 + r.max_queue_wait_s \
+                if r.max_queue_wait_s is not None else math.inf
+            if now >= min(dl, qw):
+                self._terminal(r, "expired", "expired")
+            else:
+                keep.append(r)
+        self._queue = keep
+
+    def _observe_terminal(self, req: Request, reason: str, status: str,
+                          tokens: int, ttft_s: Optional[float],
+                          latency_s: Optional[float]) -> None:
+        if not obs.enabled():
+            return
+        obs.emit_event("request_terminal", plane="serving",
+                       engine=self._obs_name, request=req.id,
+                       status=status, reason=reason, tokens=tokens,
+                       ttft_s=ttft_s, latency_s=latency_s,
+                       tp=self.tp, role=self.role,
+                       **InferenceEngine._trace_fields(req))
+
+    def _terminal(self, req: Request, reason: str,
+                  status: str) -> GenerationResult:
+        """Queue-path terminal: straight to `completed`, like the real
+        engine's _terminal."""
+        meta = self._meta.get(req.id)
+        latency = None if meta is None \
+            else round(self._clock() - meta["t"], 9)
+        self._observe_terminal(req, reason, status, 0, None, latency)
+        self._meta.pop(req.id, None)
+        self._stats[_STATUS_COUNTER[status]] += 1
+        res = GenerationResult(req.id, list(req.prompt), [], reason,
+                               status, ttft_s=None, latency_s=latency)
+        self.completed[req.id] = res
+        return res
+
+    def _finish_slot(self, slot: int, reason: str, status: str,
+                     t_end: float) -> GenerationResult:
+        st = self._slots[slot]
+        ttft = None if st.t_first is None \
+            else round(st.t_first - st.t0, 9)
+        latency = round(t_end - st.t0, 9)
+        self._observe_terminal(st.req, reason, status, len(st.tokens),
+                               ttft, latency)
+        self._meta.pop(st.req.id, None)
+        self._stats[_STATUS_COUNTER[status]] += 1
+        res = GenerationResult(st.req.id, list(st.req.prompt),
+                               st.tokens, reason, status,
+                               ttft_s=ttft, latency_s=latency)
+        self._slots[slot] = None
+        self._free_at[slot] = t_end
+        return res
+
+    # ------------------------------------------------------------- step
+    def step(self) -> List[GenerationResult]:
+        """One scheduling round on the virtual clock: expire stale
+        queue entries, seat free slots, advance in-flight requests by
+        the cost model, return this round's terminals (the router
+        settles them — nothing lands in `completed` on this path,
+        mirroring the real step())."""
+        if self._degraded:
+            return []
+        now = self._clock()
+        self._expire_queued(now)
+        out: List[GenerationResult] = []
+        if self.pacing == "per_step":
+            self._step_per_step(now, out)
+        else:
+            self._step_throughput(now, out)
+        return out
+
+    def _seat(self, slot: int, req: Request, t_start: float) -> None:
+        t0 = self._meta.get(req.id, {}).get("t", t_start)
+        self._slots[slot] = _Slot(req, t0, t_start)
+        self._stats["prefill_calls"] += 1
+
+    def _step_per_step(self, now: float,
+                       out: List[GenerationResult]) -> None:
+        """Structural parity: seat, then ONE token per active slot —
+        the real engine's round, with the decode dispatch replaced by
+        arithmetic."""
+        for i in range(self.slots):
+            if self._slots[i] is None and self._queue:
+                self._seat(i, self._pop_next(), now)
+        any_active = False
+        for i in range(self.slots):
+            st = self._slots[i]
+            if st is None:
+                continue
+            any_active = True
+            k = len(st.tokens)
+            st.tokens.append(_sim_token(st.req.seed, k, self.vocab))
+            if st.t_first is None:
+                st.t_first = now
+            if len(st.tokens) >= st.req.max_new_tokens:
+                out.append(self._finish_slot(i, "max_tokens", "done",
+                                             now))
+            elif now >= self._deadline_at(st.req, st.t0):
+                out.append(self._finish_slot(i, "expired", "expired",
+                                             now))
+        if any_active:
+            self._stats["decode_steps"] += 1
+
+    def _step_throughput(self, now: float,
+                         out: List[GenerationResult]) -> None:
+        """Fluid mode: each slot serves back-to-back; one round can
+        settle many requests per slot. Lifecycle stamps come from the
+        MODELED times (t_start + prefill + k*tok_s), so latency
+        distributions carry the calibration, not the round grid."""
+        progressed = False
+        for i in range(self.slots):
+            while True:
+                st = self._slots[i]
+                if st is None:
+                    if not self._queue:
+                        break
+                    req = self._pop_next()
+                    t0 = self._meta.get(req.id, {}).get("t", now)
+                    t_start = max(self._free_at[i], t0)
+                    if t_start > now:
+                        # the slot frees in the future (a completion
+                        # this round already booked it past `now`)
+                        self._requeue_front(req, t0)
+                        break
+                    self._seat(i, req, t_start)
+                    st = self._slots[i]
+                fin = st.t_start + self._prefill_s(len(st.req.prompt)) \
+                    + st.req.max_new_tokens * self._tok_s(
+                        len(st.req.prompt))
+                dl = self._deadline_at(st.req, st.t0)
+                if dl < fin and dl <= now:
+                    got = self._tokens_by(st, dl)
+                    self._materialize(st, got, dl)
+                    out.append(self._finish_slot(i, "expired",
+                                                 "expired", dl))
+                    progressed = True
+                    continue
+                if fin <= now:
+                    self._materialize(st, st.req.max_new_tokens, fin)
+                    out.append(self._finish_slot(i, "max_tokens",
+                                                 "done", fin))
+                    progressed = True
+                    continue
+                break                     # still in flight next round
+        if progressed:
+            self._stats["decode_steps"] += 1
+
+    def _requeue_front(self, req: Request, t0: float) -> None:
+        """Undo a premature _pop_next (throughput mode: the slot is
+        booked past `now`) — back to the queue FRONT so priority
+        order is preserved next round."""
+        self._meta.setdefault(req.id, {"t": t0})
+        self._queue.appendleft(req)
+
+    def _tokens_by(self, st: _Slot, t: float) -> int:
+        """Tokens a slot has emitted by virtual time `t` under the
+        cost model (clipped to [0, max_new])."""
+        tok_s = self._tok_s(len(st.req.prompt))
+        lead = t - st.t_start - self._prefill_s(len(st.req.prompt))
+        if lead <= 0 or tok_s <= 0:
+            return 0
+        return max(0, min(st.req.max_new_tokens,
+                          int(lead / tok_s)))
+
+    def _materialize(self, st: _Slot, n: int, t_end: float) -> None:
+        """Fill a slot's token list to `n` and stamp TTFT from the
+        modeled first-token time."""
+        tok_s = self._tok_s(len(st.req.prompt))
+        first = st.t_start + self._prefill_s(len(st.req.prompt)) \
+            + tok_s
+        while len(st.tokens) < n:
+            st.tokens.append(_sim_token(st.req.seed, len(st.tokens),
+                                        self.vocab))
+        if st.tokens and st.t_first is None:
+            st.t_first = min(first, t_end)
+
+    def run(self, requests: Optional[Sequence[Request]] = None
+            ) -> List[GenerationResult]:
+        """Submit then step until drained — the bare-engine surface.
+        Throughput pacing needs an ADVANCING clock; a frozen clock
+        raises instead of spinning."""
+        ids = [self.submit(r) for r in requests] if requests else None
+        stuck = 0
+        last_t = None
+        while self._queue or any(s is not None for s in self._slots):
+            t = self._clock()
+            for res in self.step():
+                self.completed[res.id] = res
+            if self.pacing == "throughput":
+                if last_t is not None and t == last_t:
+                    stuck += 1
+                    if stuck > 10_000:
+                        raise RuntimeError(
+                            "SimulatedEngine.run(): throughput pacing "
+                            "needs an advancing clock (virtual time "
+                            "is frozen)")
+                else:
+                    stuck = 0
+                last_t = t
+            if self._degraded:
+                break
+        if ids is None:
+            out = sorted(self.completed.values(), key=lambda r: r.id)
+            self.completed = {}
+            return out
+        return [self.completed.pop(i) for i in ids]

@@ -33,6 +33,15 @@ the engine's row tile where the tree's decode step takes one
 (`row_tile`: four 8-row tiles) and as one 32-row call where it does
 not. Every variant's wave takes the same seeds in a round, so their
 tokens are compared too. One JSON object is printed and written to `--out`.
+
+`calibration(cs, eng, runs)` is the fleet simulator's card reading
+(serving/sim.py, `CostModel.from_card_reading`): over `runs` rounds, the
+host ms of a steady decode step with every slot decoding (one token a
+slot: the decode ms a token) and the ms a prompt token of prefilling
+`eng.slots` distinct prompts of `cs.CONTEXT` tokens (one token each, so
+no decode step), both fenced by a synchronise; their medians, and the
+decode readings' spread (half their range over their median).
+chip_smoke.py's sim_calibration phase takes it.
 """
 from __future__ import annotations
 
@@ -175,6 +184,47 @@ def _measure(cs, eng, seed: int) -> dict:
                               / (steady * 1e3) if rows else "not measured"),
         **_verify(cs, eng),
     }
+
+
+def _prefill_ms_per_token(cs, eng, seed: int) -> float:
+    """ms a prompt token of admitting `eng.slots` distinct prompts of
+    cs.CONTEXT tokens, each asking for one token (the prefill emits it,
+    so the round runs no decode step)."""
+    import numpy as np
+    import torch
+
+    from bigdl_tpu_torch.serving import Request
+
+    rng = np.random.RandomState(seed)
+    reqs = [Request(prompt=[int(t) for t in rng.randint(1, cs.VOCAB,
+                                                        cs.CONTEXT)],
+                    max_new_tokens=1) for _ in range(eng.slots)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.run(reqs)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / (eng.slots * cs.CONTEXT)
+
+
+def calibration(cs, eng, runs: int = 3, seed: int = 3000) -> dict:
+    """The simulator's card reading (see the module docstring): one
+    untimed round, then `runs` timed ones."""
+    _window(cs, eng, seed)
+    _prefill_ms_per_token(cs, eng, seed)
+    decode, prefill = [], []
+    for i in range(runs):
+        decode.append(_window(cs, eng, seed + 10 * (i + 1))
+                      / STEADY_STEPS * 1e3)
+        prefill.append(_prefill_ms_per_token(cs, eng, seed + 10 * i + 5))
+    med = statistics.median(decode)
+    return {"decode_ms_per_token": med,
+            "prefill_ms_per_token": statistics.median(prefill),
+            "spread_frac": (max(decode) - min(decode)) / 2.0 / med,
+            "context_bucket": cs.CONTEXT,
+            "decode_ms_runs": decode, "prefill_ms_runs": prefill,
+            "engine": {"slots": eng.slots, "layers": cs.LAYERS,
+                       "dim": cs.DIM, "vocab": cs.VOCAB,
+                       "steady_steps": STEADY_STEPS}}
 
 
 def _worker(root: Path, variant: str) -> None:

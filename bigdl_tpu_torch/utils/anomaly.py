@@ -37,9 +37,9 @@ Split of responsibilities:
 
 The guard is opt-in (`Optimizer.set_anomaly_guard(...)`). Its cost is
 two reductions and one device-to-host fetch a step — a micro-batch
-under gradient accumulation. The JAX guard's registry counter and
-structured events wait for the training plane's telemetry (ROADMAP.md,
-queue A.9).
+under gradient accumulation. Each anomaly counts in the
+`training_anomalies_total{action}` series and emits one `anomaly`
+event (obs/), from the host values `observe` was handed.
 """
 
 from __future__ import annotations
@@ -120,6 +120,12 @@ class AnomalyGuard:
         self.last_anomaly_step: Optional[int] = None
         self._rollback_step: Optional[int] = None
         self._rollback_streak = 0
+        from bigdl_tpu_torch import obs
+
+        self._anomaly_counter = obs.get_registry().counter(
+            "training_anomalies_total",
+            "anomaly-guard observations by resulting action",
+            labelnames=("action",))
 
     # ------------------------------------------------------------- threshold
     def threshold(self) -> float:
@@ -149,8 +155,10 @@ class AnomalyGuard:
         detail = (f"step {step}: non-finite or spiking update "
                   f"(grad norm {gnorm:g}, threshold {self.threshold():g})")
         if self.policy == "halt":
+            self._note("halt", step, gnorm)
             raise AnomalyError(detail)
         if self.consecutive > self.max_consecutive:
+            self._note("budget_exhausted", step, gnorm)
             raise AnomalyError(
                 f"{detail} — {self.consecutive} consecutive anomalies "
                 f"exceed max_consecutive={self.max_consecutive}")
@@ -160,6 +168,7 @@ class AnomalyGuard:
             else:
                 self._rollback_step, self._rollback_streak = step, 1
             if self._rollback_streak > self.max_consecutive:
+                self._note("budget_exhausted", step, gnorm)
                 raise AnomalyError(
                     f"{detail} — step {step} re-triggered rollback on "
                     f"{self._rollback_streak} consecutive replays "
@@ -167,16 +176,31 @@ class AnomalyGuard:
                     f"anomaly is deterministic, rolling back again "
                     f"cannot recover")
             self.rollbacks += 1
+            self._note("rollback", step, gnorm)
             logger.warning("anomaly guard: %s; rolling back to the "
                            "latest checkpoint (replay %d/%d for this "
                            "step)", detail, self._rollback_streak,
                            self.max_consecutive)
             return "rollback"
         self.skipped += 1
+        self._note("skipped", step, gnorm)
         logger.warning("anomaly guard: %s; update skipped "
                        "(%d/%d consecutive)", detail, self.consecutive,
                        self.max_consecutive)
         return "skipped"
+
+    def _note(self, action: str, step: int, gnorm: float) -> None:
+        """Telemetry for one anomaly: the counter and one structured
+        event. `gnorm` is already a host float (the loop read it to call
+        `observe`)."""
+        from bigdl_tpu_torch import obs
+
+        if not obs.enabled():
+            return
+        self._anomaly_counter.labels(action=action).inc()
+        obs.emit_event("anomaly", plane="training", step=int(step),
+                       action=action, policy=self.policy,
+                       gnorm=float(gnorm))
 
     def stats(self) -> dict:
         return {"policy": self.policy, "anomalies": self.anomalies,

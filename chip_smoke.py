@@ -8,8 +8,10 @@ the rest of nn/ (int8, sparse, volumetric, ...), the NCF,
 TextClassifier and autoencoder models, data-parallel training, the
 MoE-FFN LM, the tensor/pipeline/sequence/expert-parallel steps at world
 size 1, sharded checkpoints, tensor-parallel serving at world size 1,
-the serving fleet (router, tenancy, autoscaler, the telemetry plane)
-and speculative decoding, the keras surface, module files and
+the serving fleet (router, tenancy, autoscaler, the telemetry plane),
+speculative decoding with a distilled, hot-swapped draft, a vision
+group beside the LM pool, the fleet simulator's card calibration, the
+training plane's telemetry, the keras surface, module files and
 Caffe/TensorFlow model import on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py            # from the repository root, one CUDA card
@@ -101,6 +103,11 @@ It drives `bigdl_tpu_torch` only (never JAX or the JAX package):
    and read after 10 timed steps: forward launches == steps x layers,
    backward == steps x layers x 2; losses finite and falling; train
    tokens/s, ms a step and the model-flops share;
+8a. train_telemetry — the same loop with obs on and off in turns: the
+   loss streams bitwise equal, one train_step event and the registry
+   series a step with obs on, none with it off, checkpoint_save and
+   checkpoint_load on a save and a resume; step ms of both and the
+   telemetry's host ms a step;
 9. lm_resume — checkpoint and resume through the flash kernels: the
    trainer's LM with `set_gradient_accumulation(2)`, four runs from the
    same seeded weights and samples through `Optimizer(...).optimize()`:
@@ -340,6 +347,23 @@ It drives `bigdl_tpu_torch` only (never JAX or the JAX package):
    bitwise the target-only engine's, K1 once a layer a round over 32
    verify rows, a draft watchdog trip falling back with the tokens
    unchanged; accept rate and tokens/s against target-only;
+37c. distill — the spec setup's target-only streams distilled into the
+   draft (serving/distill.py: ZeRO-2 on a one-rank mesh, K2-K5 counted
+   exactly), two distills bitwise equal, the draft hot-swapped into a
+   live adaptive SpeculativeEngine serving a second burst: tokens
+   bitwise target-only, K1 exact; accept rates (seeded, greedy) and
+   tokens/s before and after the swap;
+37d. vision_fleet — a `model_tag="vision"` group of LeNet-5
+   VisionEngines beside the fleet's LM pool under one EngineRouter, one
+   mixed burst: classes equal Predictor.predict_class, LM tokens
+   bitwise the LM-only fleet's, none lost, K1 exact; images/s, router
+   host ms a round, forward builds;
+37e. sim_calibration — the simulator's card reading (step_study's
+   decode and prefill ms a token, card and power limit) written to
+   chiprun_out/sim_calibration.json, then one seeded 24-request trace
+   through a real one-engine fleet and a SimulatedEngine fleet (per-step
+   pacing): terminal counts and goodput equal, K1 exact; latency, TTFT
+   and makespan divergence beside the tolerance;
 38. keras — at config 4's widths: `keras.Sequential([Embedding,
    Bidirectional(LSTM), Dense])`, a keras GRU model and a two-input
    functional `Model` (BiLSTM and GRU branches merged by concat),
@@ -7775,6 +7799,710 @@ def phase_spec(model, params):
     return launches
 
 
+# ------------------------------- the training plane's telemetry (A.9)
+TELEM_WARMUP, TELEM_STEPS = 2, 10  # phase_trainer's window
+TELEM_ORDER = ("on", "off", "off", "on")    # runs in turns
+
+
+def _telem_run(obs_on, ckpt=None, resume=False, steps=None):
+    """The 43M LM's Optimizer loop (`_trainer`'s configuration) for
+    TELEM_WARMUP + TELEM_STEPS steps with obs on or off: (the losses, as
+    the loop holds them, the timed window's seconds, the host seconds
+    spent in StepTelemetry.emit_step, the events, the registry
+    snapshot). `ckpt` checkpoints every TELEM_WARMUP steps under it;
+    `resume` resumes from it first."""
+    import torch
+
+    from bigdl_tpu_torch import nn, obs
+    from bigdl_tpu_torch.dataset import DataSet
+    from bigdl_tpu_torch.dataset.text import synthetic_next_token
+    from bigdl_tpu_torch.obs.training import StepTelemetry
+    from bigdl_tpu_torch.optim import Adam, Optimizer, Trigger
+
+    steps = steps or TELEM_WARMUP + TELEM_STEPS
+    model = _train_model()
+    model.build(torch.Generator().manual_seed(0))
+    samples = synthetic_next_token(TRAIN_BATCH * steps, VOCAB, TRAIN_SEQ)
+    losses, marks = [], {}
+    stop = Trigger.max_iteration(steps)
+
+    def end_when(state):
+        if state["loss"] is not None:
+            losses.append(state["loss"])
+        if state["neval"] == TELEM_WARMUP:
+            torch.cuda.synchronize()
+            marks["t0"] = time.perf_counter()
+            marks["emit0"] = box["emit"]
+        elif state["neval"] == TELEM_WARMUP + TELEM_STEPS:
+            torch.cuda.synchronize()
+            marks["t1"] = time.perf_counter()
+            marks["emit1"] = box["emit"]
+        return stop(state)
+
+    box = {"emit": 0.0}
+    real = StepTelemetry.emit_step
+
+    def timed(self, **kw):
+        t0 = time.perf_counter()
+        try:
+            return real(self, **kw)
+        finally:
+            box["emit"] += time.perf_counter() - t0
+
+    prev = obs.set_enabled(obs_on)
+    obs.reset_all()
+    StepTelemetry.emit_step = timed
+    try:
+        opt = Optimizer(model, DataSet.array(samples), nn.ChunkedSoftmaxCE(),
+                        batch_size=TRAIN_BATCH) \
+            .set_optim_method(Adam(3e-4)).set_precision("bf16") \
+            .set_end_when(Trigger(end_when))
+        if ckpt is not None:
+            opt.set_checkpoint(str(ckpt),
+                               Trigger.several_iteration(TELEM_WARMUP))
+        if resume:
+            opt.resume_from_checkpoint()
+        opt.optimize()
+        events = obs.get_event_log().events()
+        snap = obs.get_registry().snapshot()["metrics"]
+    finally:
+        StepTelemetry.emit_step = real
+        obs.reset_all()
+        obs.set_enabled(prev)
+    window = marks["t1"] - marks["t0"] if "t1" in marks else None
+    emit_s = marks["emit1"] - marks["emit0"] if "emit1" in marks else None
+    return losses, window, emit_s, events, snap
+
+
+def _telem_counter(snap, name):
+    series = snap.get(name, {}).get("series", [])
+    return sum(s.get("value", s.get("count", 0)) for s in series)
+
+
+def phase_train_telemetry():
+    """The training plane's telemetry on the card (obs/training.py,
+    optim/metrics.py, utils/anomaly.py, serialization/checkpoint.py):
+    the 43M LM's Optimizer loop, TELEM_WARMUP + TELEM_STEPS steps (the
+    trainer phase's configuration and window), with obs enabled and
+    disabled in turns (TELEM_ORDER). Gates: the loss streams of every
+    run bitwise equal (telemetry reads only host values the loop
+    already holds, so it cannot move a step); with obs on, one
+    `train_step` event a step, `training_steps_total` and
+    `training_records_total` equal to the steps and the records, the
+    `training_phase_seconds` series present; with obs off, no event and
+    no series; a save (checkpoint every TELEM_WARMUP steps) records
+    `checkpoint_save` and its histogram, a resume from it one
+    `checkpoint_load`. Reported: step ms of each run (median, min, max
+    by setting), the host ms a step inside StepTelemetry.emit_step, and
+    flash launches of the timed window of each run."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    fa = importlib.import_module("bigdl_tpu_torch.ops.flash_attention")
+    t_phase = time.perf_counter()
+    runs = {"on": [], "off": []}
+    streams, launches = [], []
+    for mode in TELEM_ORDER:
+        torch.cuda.empty_cache()
+        fa.fwd_launches = fa.bwd_launches = 0
+        losses, window, emit_s, events, snap = _telem_run(mode == "on")
+        launches.append((fa.fwd_launches, fa.bwd_launches))
+        steps = TELEM_WARMUP + TELEM_STEPS
+        streams.append(torch.stack(losses).float().cpu())
+        n_ev = sum(e["kind"] == "train_step" for e in events)
+        if mode == "on":
+            check(n_ev == steps and _telem_counter(
+                snap, "training_steps_total") == steps
+                and _telem_counter(snap, "training_records_total")
+                == steps * TRAIN_BATCH
+                and snap.get("training_phase_seconds", {}).get("series"),
+                f"train_telemetry: obs on recorded {n_ev} train_step "
+                f"events and {sorted(snap)} for {steps} steps")
+        else:
+            series = {k for k, f in snap.items() if f["series"]}
+            check(not events and not series,
+                  f"train_telemetry: obs off recorded {len(events)} "
+                  f"events and the series {sorted(series)}")
+        runs[mode].append({"step_ms": window / TELEM_STEPS * 1e3,
+                           "emit_host_ms_a_step":
+                               emit_s / TELEM_STEPS * 1e3,
+                           "train_step_events": n_ev})
+    check(all(torch.equal(s, streams[0]) for s in streams[1:]),
+          "train_telemetry: the loss streams differ between obs on and "
+          "off")
+    layers = TRAIN_CONFIG["num_layers"]
+    check(all(f == steps * layers and b == steps * layers * fa.BWD_LAUNCHES
+              for f, b in launches),
+          f"train_telemetry: flash launches {launches}")
+    # a save, then a resume: the checkpoint writer's records
+    tmp = tempfile.mkdtemp(prefix="telemetry_ckpt_")
+    try:
+        torch.cuda.empty_cache()
+        _, _, _, saved_ev, saved_snap = _telem_run(
+            True, ckpt=tmp, steps=TELEM_WARMUP)
+        torch.cuda.empty_cache()
+        _, _, _, resumed_ev, _ = _telem_run(
+            True, ckpt=tmp, resume=True, steps=TELEM_WARMUP + 1)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    def kinds(evs):
+        out = {}
+        for e in evs:
+            out[e["kind"]] = out.get(e["kind"], 0) + 1
+        return out
+
+    saves = [e for e in saved_ev if e["kind"] == "checkpoint_save"]
+    loads = [e for e in resumed_ev if e["kind"] == "checkpoint_load"]
+    check(len(saves) == 1 and saves[0]["step"] == TELEM_WARMUP
+          and _telem_counter(saved_snap, "training_checkpoint_seconds") == 1
+          and len(loads) == 1 and loads[0]["path"].endswith(
+              f"checkpoint-{TELEM_WARMUP}")
+          and kinds(resumed_ev).get("train_step") == 1,
+          f"train_telemetry: save events {kinds(saved_ev)}, resume "
+          f"events {kinds(resumed_ev)}")
+
+    def spread(mode, key):
+        vals = [r[key] for r in runs[mode]]
+        return {"median": statistics.median(vals), "min": min(vals),
+                "max": max(vals), "runs": vals}
+
+    emit("train_telemetry", order=list(TELEM_ORDER), steps=TELEM_STEPS,
+         warmup_steps=TELEM_WARMUP, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+         step_ms={m: spread(m, "step_ms") for m in runs},
+         emit_host_ms_a_step={m: spread(m, "emit_host_ms_a_step")
+                              for m in runs},
+         losses_bitwise_equal=True,
+         launches={"fwd": launches[0][0], "bwd": launches[0][1]},
+         checkpoint={"save": kinds(saved_ev), "resume": kinds(resumed_ev),
+                     "save_seconds": saves[0]["duration_s"]},
+         seconds=time.perf_counter() - t_phase, card=nvidia_smi())
+    return launches[0]
+
+
+# ----------------------------------------- draft distillation (A.9)
+DISTILL_EPOCHS = 2              # the JAX DraftDistiller's defaults
+DISTILL_SEQ = 16
+DISTILL_BATCH = 32
+DISTILL_LR = 3e-3
+# a study beside the main path: windows that span a stream, so the
+# draft trains at the positions it serves (the new tokens sit at 256 to
+# 287); 280 = 2 x 140 splits into loss chunks (a 287-token window would
+# not), and a 288-token stream holds two such windows
+DISTILL_FULL_SEQ = 280
+DISTILL_FULL_BATCH = 8
+DISTILL_FULL_EPOCHS = 4
+
+
+def _distill_accept(make_spec, reqs):
+    """Accept rates of the seeded and the greedy rows of `reqs`, each
+    half run alone on a fresh speculative engine (a row's proposals and
+    verdicts depend only on its own request)."""
+    out = {}
+    for kind in ("seeded", "greedy"):
+        half = [r for r in reqs if (r.temperature > 0) == (kind == "seeded")]
+        eng = make_spec()
+        eng.run(half)
+        h = eng.health()["speculative"]
+        out[kind] = {"requests": len(half), "proposed": h["proposed"],
+                     "accepted": h["accepted"],
+                     "accept_rate": h["accept_rate"]}
+    return out
+
+
+def phase_distill(model, params):
+    """Draft distillation on the card (serving/distill.py): the spec
+    phase's setup (the 43M target with SPEC_EPS's planted
+    predictability, the SPEC_DRAFT draft, k = SPEC_K, the same
+    SPEC_REQUESTS-request burst). The target-only engine's emitted
+    streams are ingested into a DraftDistiller (the JAX distiller's
+    defaults), which trains the draft on copies through
+    `Optimizer(...).set_mesh(make_mesh({"data": 1}), zero=2)` on the
+    card: the flash kernels K2-K5, launched exactly the draft's layers
+    (x BWD_LAUNCHES) times a step, counted from 0. A second distill
+    from the same weights over the same streams gives bitwise-equal
+    variables. The distilled draft is hot-swapped (`swap_draft`) into a
+    live adaptive SpeculativeEngine, which serves a second burst: its
+    tokens bitwise the target-only engine's, greedy and seeded rows, and
+    K1 launched once a layer a verify pass (its LAYERS) and a draft step
+    (the draft's), counted from 0. Reported: accept rate before and
+    after the swap, seeded and greedy rows apart, on the second burst;
+    spec and target-only tokens/s before and after; the distill's
+    seconds."""
+    import torch
+
+    from bigdl_tpu_torch import obs
+    from bigdl_tpu_torch.models.convert import tree_leaves, tree_map
+    from bigdl_tpu_torch.ops import paged_decode
+    from bigdl_tpu_torch.serving import (DraftDistiller, InferenceEngine,
+                                         Request, SpeculativeEngine)
+
+    fa = importlib.import_module("bigdl_tpu_torch.ops.flash_attention")
+    tp, draft, dp = _spec_models(model, params)
+    draft.variables = {"params": dp, "state": {}}
+    knobs = dict(slots=SLOTS, max_len=FLEET_MAX_LEN,
+                 prefill_buckets=FLEET_BUCKETS, block_size=BLOCK)
+
+    def target():
+        return InferenceEngine(model, tp, **knobs)
+
+    def spec(variables, **kw):
+        return SpeculativeEngine(InferenceEngine(draft, variables, **knobs),
+                                 target(), k=SPEC_K, **kw)
+
+    def burst(seed):
+        return [Request(**s) for s in
+                _fleet_burst(seed, SPEC_REQUESTS, SPEC_NEW)]
+
+    def timed(eng, seed):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = eng.run(burst(seed))
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    spec(dp).run(burst(99)[:SLOTS + 1])               # warm-up
+    # the corpus: the target-only engine's streams of the first burst
+    ref1, ref1_dt = timed(target(), 1)
+    ref2, ref2_dt = timed(target(), 2)
+    before_res, before_dt = timed(spec(dp), 2)
+    check([r.tokens for r in before_res] == [r.tokens for r in ref2],
+          "distill: the planted draft's tokens differ from target-only")
+    before = _distill_accept(lambda: spec(dp), burst(2))
+
+    def distiller():
+        d = DraftDistiller(draft, seq_len=DISTILL_SEQ,
+                           batch_size=DISTILL_BATCH,
+                           learningrate=DISTILL_LR, epochs=DISTILL_EPOCHS)
+        windows = sum(d.ingest(r) for r in ref1)
+        return d, windows
+
+    start = tree_map(lambda t: t.detach().clone(), draft.variables)
+    d, windows = distiller()
+    prev = obs.set_enabled(True)
+    obs.reset_all()
+    try:
+        torch.cuda.synchronize()
+        fa.fwd_launches = fa.bwd_launches = 0        # main path starts
+        t0 = time.perf_counter()
+        distilled = d.distill()
+        torch.cuda.synchronize()
+        distill_s = time.perf_counter() - t0
+        k2, k3 = fa.fwd_launches, fa.bwd_launches    # main path ends
+        steps = sum(e["kind"] == "train_step"
+                    for e in obs.get_event_log().events())
+    finally:
+        obs.reset_all()
+        obs.set_enabled(prev)
+    layers = SPEC_DRAFT["num_layers"]
+    check(steps > 0 and k2 == steps * layers
+          and k3 == steps * layers * fa.BWD_LAUNCHES,
+          f"distill: flash launches {k2} / {k3} for {steps} steps of "
+          f"{layers} layers")
+    again = tree_map(lambda t: t.detach().clone(), start)
+    draft.variables = again
+    d2, _ = distiller()
+    redone = d2.distill()
+    bitwise = all(torch.equal(a, b) for a, b in
+                  zip(tree_leaves(distilled), tree_leaves(redone)))
+    check(bitwise, "distill: two distills over the same streams differ: "
+          + str([float((a - b).abs().max()) for a, b in
+                 zip(tree_leaves(distilled), tree_leaves(redone))]))
+    served = {t.data_ptr() for t in tree_leaves(dp)}
+    check(not any(t.data_ptr() in served for t in tree_leaves(distilled)),
+          "distill: the distilled draft shares storage with the served "
+          "draft")
+    # hot-swap into a live adaptive engine, then the second burst
+    live = spec(dp, adapt_k=True)
+    live.run(burst(99)[:SLOTS])
+    live.swap_draft(distilled)
+    t, dr = live.target_engine, live.draft_engine
+    t0_launch = t.stats["attn_kernel_launches"]
+    d0_launch = dr.stats["attn_kernel_launches"]
+    t0_steps = t.stats["decode_steps"]
+    h0 = dict(live.health()["speculative"])
+    paged_decode.launches = 0                         # main path starts
+    after_res, after_dt = timed(live, 2)
+    launches = paged_decode.launches                  # main path ends
+    h = live.health()["speculative"]
+    check([r.tokens for r in after_res] == [r.tokens for r in ref2]
+          and all(r.status == "done" for r in after_res),
+          "distill: the swapped draft's tokens differ from target-only")
+    # verify passes and, where the adaptive ladder suspended
+    # speculation, the target's own cruise steps: each a decode step
+    rounds = h["rounds"] - h0["rounds"]
+    tsteps = t.stats["decode_steps"] - t0_steps
+    dsteps = h["draft_steps"] - h0["draft_steps"]
+    tl = t.stats["attn_kernel_launches"] - t0_launch
+    dl = dr.stats["attn_kernel_launches"] - d0_launch
+    check(rounds > 0 and tl == tsteps * LAYERS
+          and dl == dsteps * SPEC_DRAFT["num_layers"]
+          and launches == tl + dl,
+          f"distill: K1 launches {launches}: target {tl} for {tsteps} "
+          f"decode steps ({rounds} verify passes), draft {dl} for "
+          f"{dsteps} draft steps")
+    after = _distill_accept(lambda: spec(distilled), burst(2))
+    # the study: the same corpus in whole-stream windows, from the same
+    # start
+    draft.variables = tree_map(lambda t: t.detach().clone(), start)
+    full = DraftDistiller(draft, seq_len=DISTILL_FULL_SEQ,
+                          batch_size=DISTILL_FULL_BATCH,
+                          learningrate=DISTILL_LR,
+                          epochs=DISTILL_FULL_EPOCHS)
+    full_windows = sum(full.ingest(r) for r in ref1)
+    t0 = time.perf_counter()
+    full_vars = full.distill()
+    full_s = time.perf_counter() - t0
+    full_res, full_dt = timed(spec(full_vars), 2)
+    check([r.tokens for r in full_res] == [r.tokens for r in ref2],
+          "distill: the whole-stream draft's tokens differ from "
+          "target-only")
+    full_accept = _distill_accept(lambda: spec(full_vars), burst(2))
+    n_tok = sum(len(r.tokens) for r in ref2)
+    emit("distill", windows=windows, seq_len=DISTILL_SEQ,
+         batch=DISTILL_BATCH, epochs=DISTILL_EPOCHS, lr=DISTILL_LR,
+         train_steps=steps, distill_seconds=distill_s,
+         flash_launches={"fwd": k2, "bwd": k3},
+         two_distills_bitwise=bitwise,
+         accept_before=before, accept_after=after,
+         swapped_engine={"rounds": rounds, "target_steps": tsteps,
+                         "draft_steps": dsteps,
+                         "k_live": h.get("k_live"),
+                         "last_swap": h.get("last_swap")},
+         kernel_launches=launches,
+         target_only_tokens_per_sec=n_tok / ref2_dt,
+         spec_tokens_per_sec_before=n_tok / before_dt,
+         spec_tokens_per_sec_after=n_tok / after_dt,
+         speedup_before=ref2_dt / before_dt,
+         speedup_after=ref2_dt / after_dt,
+         whole_stream_windows={
+             "seq_len": DISTILL_FULL_SEQ, "windows": full_windows,
+             "batch": DISTILL_FULL_BATCH, "epochs": DISTILL_FULL_EPOCHS,
+             "distill_seconds": full_s, "accept": full_accept,
+             "spec_tokens_per_sec": n_tok / full_dt,
+             "speedup": ref2_dt / full_dt},
+         card=nvidia_smi())
+    return launches, (k2, k3)
+
+
+# --------------------------------- a vision group beside the LM pool (A.9)
+VFLEET_IMAGES = 64              # LeNet-5 requests in the mixed burst
+VFLEET_BATCH = 8                # a vision engine's fixed batch
+VFLEET_ENGINES = 2              # the vision group
+VFLEET_FEATURES = 28 * 28       # BASELINE config 1's flattened image
+
+
+def _vfleet_images(n, seed):
+    """`n` synthetic_mnist images as pixel ints in [0, 255] (the
+    features a vision request carries) and their labels."""
+    import numpy as np
+
+    from bigdl_tpu_torch.dataset.mnist import synthetic_mnist
+
+    imgs = np.stack([s.feature for s in synthetic_mnist(n, seed=seed)])
+    return np.clip(np.round(imgs * 64.0 + 64.0), 0, 255).astype(np.int64)
+
+
+def phase_vision_fleet(model, params):
+    """The vision engine on the card (serving/vision.py): one
+    EngineRouter over the fleet phase's LM pool (two 43M engines on K1)
+    and a `model_tag="vision"` group of VFLEET_ENGINES VisionEngines
+    over one LeNet-5 (BASELINE config 1, feature_len 784, batch
+    VFLEET_BATCH, cuDNN deterministic), serving one mixed burst — the
+    fleet phase's FLEET_REQUESTS LM requests interleaved with
+    VFLEET_IMAGES images — on a virtual clock. Gates: argmax ties break
+    to the lowest index on the card; every request
+    settles once (none lost); the classes equal
+    `Predictor.predict_class` on the same images and weights at the same
+    batch; the LM tokens bitwise the LM-only fleet's on the same
+    requests; K1 launches equal the LM engines' decode steps x LAYERS;
+    the vision group built its forward once (`forward_traces`).
+    Reported: images/s (the vision engines' step wall), the router's
+    host ms a round (router.step wall less every engine's decode,
+    admission and vision step wall), forward_traces."""
+    import torch
+
+    from bigdl_tpu_torch.dataset import DataSet
+    from bigdl_tpu_torch.dataset.sample import Sample
+    from bigdl_tpu_torch.models import lenet
+    from bigdl_tpu_torch.ops import paged_decode
+    from bigdl_tpu_torch.optim import Predictor
+    from bigdl_tpu_torch.serving import (EngineRouter, InferenceEngine,
+                                         Request, VisionEngine)
+
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        net = lenet.build(10).build(torch.Generator().manual_seed(7))
+        weights = net.variables
+        imgs = _vfleet_images(VFLEET_IMAGES, seed=11)
+
+        def predict_fn(feats):
+            return net.apply(weights, feats.reshape(-1, 28, 28, 1))[0]
+
+        want = Predictor(net, batch_size=VFLEET_BATCH).predict_class(
+            DataSet.array([Sample(im.astype("float32"), 0) for im in imgs])
+        ).cpu().tolist()
+        knobs = dict(slots=SLOTS, max_len=FLEET_MAX_LEN,
+                     prefill_buckets=FLEET_BUCKETS, block_size=BLOCK)
+        specs = _fleet_burst(21, FLEET_REQUESTS, FLEET_NEW)
+
+        def serve(with_vision):
+            clk = _Clock()
+            wall = {}
+            lm = [InferenceEngine(model, params, clock=clk,
+                                  obs_label=f"vl{i}", **knobs)
+                  for i in range(2)]
+            for e in lm:
+                for name in ("_dispatch_and_fetch", "_admit_into"):
+                    _fleet_wall(e, name, wall)
+            vis = []
+            if with_vision:
+                vis = [VisionEngine(predict_fn, batch=VFLEET_BATCH,
+                                    feature_len=VFLEET_FEATURES,
+                                    model_tag="vision", clock=clk,
+                                    obs_label=f"vv{i}")
+                       for i in range(VFLEET_ENGINES)]
+                for e in vis:
+                    _fleet_wall(e, "step", wall)
+            router = EngineRouter(lm + vis, clock=clk, obs_label="rv")
+            reqs = [("lm", i, Request(**s)) for i, s in enumerate(specs)]
+            if with_vision:
+                per = VFLEET_IMAGES // FLEET_REQUESTS
+                mixed = []
+                for i, r in enumerate(reqs):
+                    mixed.append(r)
+                    mixed.extend(("vision", i * per + j, Request(
+                        prompt=[int(p) for p in imgs[i * per + j].ravel()],
+                        max_new_tokens=1, model_tag="vision"))
+                        for j in range(per))
+                reqs = mixed
+            ids = {router.submit(r): (kind, i) for kind, i, r in reqs}
+            got, rounds, step_wall = {}, 0, 0.0
+            torch.cuda.synchronize()
+            paged_decode.launches = 0
+            t0 = time.perf_counter()
+            while len(got) < len(ids):
+                rounds += 1
+                check(rounds <= 2000, f"vision_fleet: stalled at "
+                      f"{len(got)} of {len(ids)}")
+                clk.t += FLEET_STEP_S
+                s0 = time.perf_counter()
+                for res in router.step():
+                    check(res.id not in got, f"vision_fleet: request "
+                          f"{res.id} settled twice")
+                    got[res.id] = res
+                step_wall += time.perf_counter() - s0
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            out = {"lm": {}, "vision": {}}
+            for rid, (kind, i) in ids.items():
+                out[kind][i] = got[rid]
+            steps = sum(e.stats["decode_steps"] for e in lm)
+            return {"results": out, "launches": paged_decode.launches,
+                    "decode_steps": steps, "rounds": rounds,
+                    "seconds": seconds, "step_wall": step_wall,
+                    "wall": wall, "vision": vis}
+
+        mixed = serve(True)
+        alone = serve(False)
+    finally:
+        torch.backends.cudnn.deterministic = det
+    res = mixed["results"]
+    check(len(res["lm"]) == FLEET_REQUESTS
+          and len(res["vision"]) == VFLEET_IMAGES
+          and all(r.status == "done" for k in res for r in res[k].values()),
+          "vision_fleet: a request was lost or not done")
+    classes = [res["vision"][i].tokens[0] for i in range(VFLEET_IMAGES)]
+    check(classes == want, "vision_fleet: classes differ from "
+          "Predictor.predict_class")
+    check(all(res["lm"][i].tokens == alone["results"]["lm"][i].tokens
+              for i in range(FLEET_REQUESTS)),
+          "vision_fleet: LM tokens differ from the LM-only fleet's")
+    for run in (mixed, alone):
+        check(run["launches"] == run["decode_steps"] * LAYERS,
+              f"vision_fleet: K1 launches {run['launches']} for "
+              f"{run['decode_steps']} decode steps")
+    # argmax ties break to the lowest index on the card, as the JAX
+    # engine's jnp.argmax does: rows of equal maxima, one wide
+    ties = torch.zeros(4, 1000, device="cuda")
+    ties[1, [300, 700]] = 1.0
+    ties[2, 999] = 1.0
+    ties[3, [5, 6, 998]] = 2.0
+    check(torch.argmax(ties, dim=-1).tolist() == [0, 300, 999, 5],
+          f"vision_fleet: argmax ties {torch.argmax(ties, dim=-1)}")
+    traces = [e.stats["forward_traces"] for e in mixed["vision"]]
+    forwards = sum(e.stats["forwards"] for e in mixed["vision"])
+    # the build count is process-wide, each engine's a delta since its
+    # creation: one shared forward built once reads 1 on each
+    check(traces == [1] * VFLEET_ENGINES,
+          f"vision_fleet: forward builds {traces}")
+    vis_wall = mixed["wall"].get("step", 0.0)
+    engines_wall = sum(mixed["wall"].values())
+    emit("vision_fleet", lm_requests=FLEET_REQUESTS,
+         images=VFLEET_IMAGES, vision_engines=VFLEET_ENGINES,
+         vision_batch=VFLEET_BATCH, feature_len=VFLEET_FEATURES,
+         classes_equal_predictor=True, lm_tokens_bitwise_lm_only=True,
+         rounds=mixed["rounds"], lm_only_rounds=alone["rounds"],
+         seconds=mixed["seconds"], lm_only_seconds=alone["seconds"],
+         kernel_launches=mixed["launches"],
+         decode_steps=mixed["decode_steps"], forwards=forwards,
+         forward_traces=traces,
+         images_per_sec=VFLEET_IMAGES / vis_wall,
+         images_per_sec_of_the_burst=VFLEET_IMAGES / mixed["seconds"],
+         router_host_ms_a_round=(mixed["step_wall"] - engines_wall)
+         / mixed["rounds"] * 1e3,
+         lm_only_router_host_ms_a_round=(
+             alone["step_wall"] - sum(alone["wall"].values()))
+         / alone["rounds"] * 1e3,
+         card=nvidia_smi())
+    return mixed["launches"]
+
+
+# ------------------------------ the fleet simulator's calibration (A.9)
+SIMCAL_RUNS = 3                 # step_study.calibration's timed rounds
+SIMCAL_SLOTS = 4                # the JAX divergence test's fleet
+SIMCAL_BUCKETS = (8, 16, 32)
+SIMCAL_MAX_LEN = 96
+SIMCAL_STEP_DT = 0.25           # virtual seconds a round (the replay's)
+SIMCAL_TRACE = {"name": "simcal", "seed": 3, "shapes": [
+    {"kind": "steady", "n": 24, "t0": 0.0, "rate": 6.0}]}
+
+
+def _simcal_pctl(xs, q):
+    """The load report's nearest-rank percentile."""
+    if not xs:
+        return None
+    s = sorted(xs)
+    return round(s[min(len(s) - 1, max(0, math.ceil(q * len(s)) - 1))], 6)
+
+
+def _simcal_replay(router, trace, clk):
+    """The load generator's replay loop for a trace with no sessions or
+    timeline: submit what is due, jump idle gaps to the next arrival,
+    else advance the virtual clock SIMCAL_STEP_DT and step the router;
+    then the report's statuses, goodput, latency and TTFT percentiles
+    and makespan."""
+    import heapq
+
+    from bigdl_tpu_torch.serving import Request
+
+    heap = [(a.t, i, a) for i, a in enumerate(trace["arrivals"])]
+    heapq.heapify(heap)
+    results, n = {}, len(heap)
+    while len(results) < n:
+        while heap and heap[0][0] <= clk.t + 1e-9:
+            _, _, a = heapq.heappop(heap)
+            router.submit(Request(**a.spec))
+        if heap and heap[0][0] > clk.t \
+                and all(e.idle for e in router.engines):
+            clk.t = heap[0][0]
+            continue
+        clk.t = round(clk.t + SIMCAL_STEP_DT, 9)
+        for res in router.step():
+            results[res.id] = res
+    done = [r for r in results.values() if r.status == "done"]
+    by_status = {}
+    for r in results.values():
+        by_status[r.status] = by_status.get(r.status, 0) + 1
+    lat = [r.latency_s for r in done if r.latency_s is not None]
+    ttft = [r.ttft_s for r in done if r.ttft_s is not None]
+    return {"by_status": by_status,
+            "goodput_tokens": sum(len(r.tokens) for r in done),
+            "latency_p50_s": _simcal_pctl(lat, 0.50),
+            "latency_p99_s": _simcal_pctl(lat, 0.99),
+            "ttft_p50_s": _simcal_pctl(ttft, 0.50),
+            "makespan_s": round(clk.t, 6)}
+
+
+def phase_sim_calibration(model, params):
+    """The fleet simulator (serving/sim.py) calibrated on the card: the
+    43M engine's decode ms a token and prefill ms a prompt token, read
+    by serving/step_study.py's `calibration` (SIMCAL_RUNS rounds), with
+    the card's name and power limit and the torch version, written to
+    chiprun_out/sim_calibration.json (the committed
+    bigdl_tpu_torch/serving/sim_calibration.json is such a reading).
+    Then one 24-request seeded trace (scenarios.compile_scenario of
+    SIMCAL_TRACE: Poisson at 6/s, the load generator's request fields)
+    replays through a real one-engine fleet of the 43M LM (SIMCAL_SLOTS
+    slots, K1) and through a SimulatedEngine fleet over this reading
+    with per-step pacing, on the same virtual clock discipline. Gates:
+    the terminal counts and the goodput tokens agree exactly; K1
+    launches equal the real engine's decode steps x LAYERS. Reported:
+    the relative divergence of the p50 and p99 latency, the p50 TTFT
+    and the makespan, beside the JAX divergence test's tolerance
+    max(0.25, 1.5 x the reading's spread)."""
+    import torch
+
+    from bigdl_tpu_torch.ops import paged_decode
+    from bigdl_tpu_torch.serving import (CostModel, EngineRouter,
+                                         InferenceEngine, SimulatedEngine,
+                                         compile_scenario, step_study)
+
+    t_phase = time.perf_counter()
+    eng = InferenceEngine(model, params, **ENGINE_KNOBS)
+    reading = step_study.calibration(sys.modules[__name__], eng,
+                                     SIMCAL_RUNS)
+    reading.update(card=nvidia_smi(), torch=torch.__version__,
+                   pr=21, tool="bigdl_tpu_torch/serving/step_study.py "
+                   "calibration, chip_smoke.py phase sim_calibration")
+    del eng
+    OUT_DIR.mkdir(exist_ok=True)
+    path = OUT_DIR / "sim_calibration.json"
+    path.write_text(json.dumps(reading, indent=1))
+    cost = CostModel.from_card_reading(str(path))
+    prov = cost.provenance()
+    check(prov["source"] == "card_reading"
+          and prov["sources"][0]["card"] == reading["card"],
+          f"sim_calibration: provenance {prov}")
+    from bigdl_tpu_torch.serving.sim import CARD_CALIBRATION
+
+    committed = CostModel.default().provenance() \
+        if os.path.exists(CARD_CALIBRATION) else None
+    reports = {}
+    for mode in ("real", "sim"):
+        trace = compile_scenario(SIMCAL_TRACE)
+        clk = _Clock()
+        if mode == "real":
+            e = InferenceEngine(model, params, slots=SIMCAL_SLOTS,
+                                prefill_buckets=SIMCAL_BUCKETS,
+                                max_len=SIMCAL_MAX_LEN, block_size=BLOCK,
+                                clock=clk, obs_label="simcal_real")
+        else:
+            e = SimulatedEngine(cost, clock=clk, slots=SIMCAL_SLOTS,
+                                prefill_buckets=SIMCAL_BUCKETS,
+                                pacing="per_step", obs_label="sim0")
+        router = EngineRouter([e], clock=clk, obs_label=f"simcal_{mode}")
+        torch.cuda.synchronize()
+        paged_decode.launches = 0
+        t0 = time.perf_counter()
+        reports[mode] = _simcal_replay(router, trace, clk)
+        torch.cuda.synchronize()
+        reports[mode]["wall_seconds"] = time.perf_counter() - t0
+        reports[mode]["kernel_launches"] = paged_decode.launches
+        reports[mode]["decode_steps"] = e.stats["decode_steps"]
+    real, sim = reports["real"], reports["sim"]
+    check(real["by_status"] == sim["by_status"] == {"done": 24}
+          and real["goodput_tokens"] == sim["goodput_tokens"],
+          f"sim_calibration: real {real} against simulated {sim}")
+    check(real["kernel_launches"] == real["decode_steps"] * LAYERS
+          and sim["kernel_launches"] == 0,
+          f"sim_calibration: K1 launches {real['kernel_launches']} for "
+          f"{real['decode_steps']} decode steps")
+    tol = max(0.25, 1.5 * cost.spread_frac)
+    div = {k: abs(sim[k] - real[k]) / max(abs(real[k]), 1e-9)
+           for k in ("latency_p50_s", "latency_p99_s", "ttft_p50_s",
+                     "makespan_s")}
+    emit("sim_calibration", reading=reading, provenance=prov,
+         committed_provenance=committed, reports=reports,
+         divergence=div, tolerance=tol,
+         within_tolerance={k: v <= tol for k, v in div.items()},
+         seconds=time.perf_counter() - t_phase, card=reading["card"])
+    return real["kernel_launches"]
+
+
 # --------------------------------------------------- the keras surface
 # BASELINE config 4's widths (RNN_VOCAB, RNN_EMBED, RNN_HIDDEN) at the
 # BiLSTM trainer's batch and sequence (RNN_BATCH x RNN_SEQ)
@@ -8395,11 +9123,17 @@ def main() -> int:
     engine_launches["tp_serve"] = phase_tp_serve(model, params, fp32_tokens)
     engine_launches["fleet"] = phase_fleet(model, params)
     engine_launches["spec"] = phase_spec(model, params)
+    engine_launches["distill"], distill_flash = phase_distill(model, params)
+    torch.cuda.empty_cache()
+    engine_launches["vision_fleet"] = phase_vision_fleet(model, params)
+    engine_launches["sim_calibration"] = phase_sim_calibration(model, params)
     del model, params
     torch.cuda.empty_cache()
     phase_train_model()
     torch.cuda.empty_cache()
     fwd_launches, bwd_launches = phase_trainer()
+    torch.cuda.empty_cache()
+    telem_fwd, telem_bwd = phase_train_telemetry()
     if "--profile" in sys.argv[1:]:
         torch.cuda.empty_cache()
         phase_train_profile()
@@ -8515,7 +9249,9 @@ def main() -> int:
         # (moe_lm), the parallel steps at world size 1 (parallel_w1:
         # tp, pipeline, ulysses, ep) and the ZeRO-2 LM checkpointed
         # sharded (sharded_ckpt), each counted from 0
-        "launches_by_path": {"trainer": fwd_launches, "mha": mha_fwd,
+        "launches_by_path": {"trainer": fwd_launches,
+                             "train_telemetry": telem_fwd,
+                             "distill": distill_flash[0], "mha": mha_fwd,
                              "distri_lm": dist_fwd, "moe_lm": moe_fwd,
                              **{f"parallel_w1_{k}": v[0]
                                 for k, v in par.items()},
@@ -8531,7 +9267,9 @@ def main() -> int:
         "design": FLASH_DESIGN["bwd"],
         "replaces": "bigdl_tpu/ops/flash_attention.py:450 :341 :374",
         "launches": bwd_launches,
-        "launches_by_path": {"trainer": bwd_launches, "mha": mha_bwd,
+        "launches_by_path": {"trainer": bwd_launches,
+                             "train_telemetry": telem_bwd,
+                             "distill": distill_flash[1], "mha": mha_bwd,
                              "distri_lm": dist_bwd, "moe_lm": moe_bwd,
                              **{f"parallel_w1_{k}": v[1]
                                 for k, v in par.items() if v[1]},

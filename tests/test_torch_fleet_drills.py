@@ -26,9 +26,11 @@ rather than to the JAX package's.
 two-device JAX mesh; the port's tensor-parallel engine needs one
 process a rank (tests/test_torch_tp_serving.py), so here both packages
 run the leg with that engine unsharded (the leg's cross-layout gate
-then cannot hold on either side and is not asserted). `spec_adapt`
-fails on the reference itself, and `scenario_chaos` needs the
-scenario plane, which waits for ROADMAP.md queue A.9.
+then cannot hold on either side and is not asserted). `scenario_chaos`
+and `spec_adapt` (which fails on the reference itself, so the port is
+held to its other gates) are in tests/test_torch_fleet_drills_d.py;
+the training legs in tests/test_torch_training_drills.py and
+tests/test_torch_training_drills_mesh.py.
 """
 
 import importlib.util

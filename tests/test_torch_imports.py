@@ -77,6 +77,8 @@ NEW_IN_SLICE_19 = ("obs/events.py", "obs/exposition.py",
                    "obs/spans.py", "obs/timeseries.py", "serving/router.py",
                    "serving/tenancy.py", "serving/autoscaler.py",
                    "serving/speculative.py")
+NEW_IN_SLICE_20 = ("serving/distill.py", "serving/vision.py",
+                   "serving/scenarios.py", "serving/sim.py")
 
 
 def _banned(module: str) -> bool:
@@ -94,7 +96,8 @@ def test_port_files_exist():
         | set(NEW_IN_SLICE_11) | set(NEW_IN_SLICE_13) \
         | set(NEW_IN_SLICE_14) | set(NEW_IN_SLICE_15) \
         | set(NEW_IN_SLICE_16) | set(NEW_IN_SLICE_17) \
-        | set(NEW_IN_SLICE_18) | set(NEW_IN_SLICE_19) <= scanned
+        | set(NEW_IN_SLICE_18) | set(NEW_IN_SLICE_19) \
+        | set(NEW_IN_SLICE_20) <= scanned
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -163,7 +166,11 @@ def test_port_import_loads_no_jax():
             "bigdl_tpu_torch.serving.router, "
             "bigdl_tpu_torch.serving.tenancy, "
             "bigdl_tpu_torch.serving.autoscaler, "
-            "bigdl_tpu_torch.serving.speculative; "
+            "bigdl_tpu_torch.serving.speculative, "
+            "bigdl_tpu_torch.serving.distill, "
+            "bigdl_tpu_torch.serving.vision, "
+            "bigdl_tpu_torch.serving.scenarios, "
+            "bigdl_tpu_torch.serving.sim; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{BANNED!r} or m.startswith('google.protobuf')]; "
             "assert not bad, bad")

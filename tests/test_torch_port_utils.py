@@ -17,7 +17,9 @@ share a meaning, on the CPU.
   a group, its CUDA devices, the JAX Engine's refusal of a partial
   launcher environment, a one-rank default mesh; under a two-rank gloo
   group, two nodes and two devices, and the Spark adapter's default
-  shard is the rank's;
+  shard is the rank's (the ranks' body is in
+  tests/test_torch_port_utils_ranks.py, which imports no JAX: spawn
+  re-imports it in every rank);
 - `rdd_to_dataset` and `dataframe_to_dataset` give the JAX adapter's
   samples for RDD-like objects, dicts of columns and rows.
 """
@@ -32,6 +34,7 @@ import numpy as np
 import pytest
 import torch
 
+import test_torch_port_utils_ranks as ranks
 from bigdl_tpu.dataset import spark_adapter as jspark
 from bigdl_tpu.utils import debug as jdebug
 from bigdl_tpu.utils import file as jfile
@@ -205,18 +208,8 @@ def test_engine_on_one_process(monkeypatch):
             engine.init_distributed()
 
 
-def _rank_view(rank, world):
-    """Engine's and the Spark adapter's view from one rank of a gloo
-    group (runs in a process of its own)."""
-    rows = [(np.ones(3) * i, i % 2) for i in range(10)]
-    Engine.init_distributed()           # a group exists: left as it is
-    ds = pspark.rdd_to_dataset(rows)
-    return (Engine.node_number(), Engine.device_count(),
-            [float(s.feature[0]) for s in ds.elements])
-
-
 def test_engine_and_spark_shard_under_a_group(tmp_path):
-    views = spawn(_rank_view, 2, str(tmp_path / "w"))
+    views = spawn(ranks.rank_view, 2, str(tmp_path / "w"))
     assert [v[:2] for v in views] == [(2, 2), (2, 2)]
     assert views[0][2] == [0.0, 2.0, 4.0, 6.0, 8.0]
     assert views[1][2] == [1.0, 3.0, 5.0, 7.0, 9.0]
