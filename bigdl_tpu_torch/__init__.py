@@ -1,8 +1,8 @@
 """bigdl_tpu_torch — the PyTorch/CUDA port of `bigdl_tpu`.
 
-A second package beside the JAX one, with the same layout and names so
-each module's counterpart is easy to find (every module's docstring
-names the file it ports). It imports `torch` and numpy only, never
+A second package beside the JAX one (bigdl_tpu/), with the same layout
+and names so each module's counterpart is easy to find (every module's
+docstring names the file it ports). It imports `torch` and numpy only, never
 `jax` or `bigdl_tpu`; the host-side pure-Python modules it needs are
 copied, not imported.
 

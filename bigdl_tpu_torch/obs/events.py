@@ -456,7 +456,7 @@ def _jsonable(o):
     if isinstance(o, np.generic) or (isinstance(o, np.ndarray)
                                      and o.ndim == 0):
         # host-memory numpy scalar: .item() is a pure host conversion
-        return o.item()
+        return o.item()  # graftlint: disable=hidden-device-sync
     return repr(o)
 
 

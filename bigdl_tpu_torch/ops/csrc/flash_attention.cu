@@ -14,9 +14,9 @@
 //
 // Layout: q (BH, Sq, D), k and v (BH, Sk, D), all contiguous, fp32 or
 // bf16 (one dtype for all; bf16 rows 16-byte aligned); out and dq/dk/dv
-// in that dtype; lse and delta (BH, Sq) fp32. D is 32, 64 or 128; Sq and
-// Sk are any positive lengths (tiles past the end are zero-filled and
-// masked).
+// in that dtype; lse and delta (BH, Sq) fp32. D is 32, 64, 128 or 256;
+// Sq and Sk are any positive lengths (tiles past the end are
+// zero-filled and masked).
 //
 // Numeric conventions (those of the Pallas kernels and of the port's
 // plain versions in bigdl_tpu_torch/ops/flash_attention.py):
@@ -44,6 +44,8 @@
 // against 67-135 MB forward and 135-269 MB backward (bf16-fp32) of inputs
 // and outputs: far above the card's flop/byte balance, so operations
 // bound it — the tensor cores' rate in bf16, the SIMT cores' in fp32.
+// The trainer's LM at two heads (BH = 16, S = 2048, D = 256) does the
+// same work.
 //
 // Two designs, one a dtype:
 // * bf16 runs its products on the tensor cores (wgmma, sm90.cuh). A
@@ -64,14 +66,20 @@
 //   ds. dk/dv gives each warpgroup one 64-column slice of dK and dV, so
 //   at D = 128 two warpgroups share the 64 keys and each recomputes S^T
 //   and dP^T (two fewer accumulators of 64 floats a thread: no
-//   spills).
+//   spills). D = 256 keeps the tiles and gives a thread at most 255
+//   registers: the forward's CTA as at D = 128 (O alone is 128
+//   registers); dk/dv two warpgroups of two slices each, taking p and ds
+//   before it issues dV and dK; dq two warpgroups of 128 columns each,
+//   both computing S and dP.
 // * fp32 stays on the SIMT cores (tensor cores would round its operands
 //   to TF32): tiles of 64 query rows x 64 keys, 256 threads as a 16 x 16
 //   grid; each thread owns a 4 x 4 block of the score tile (rows
 //   ty*4+i, columns tx+16j) and a 4 x D/16 block of the output or
 //   gradient tile (columns tx+16jj); row max and row sum are xor
 //   shuffles inside a half-warp; operands staged as fp32 with a padded
-//   row stride (D + 1), loaded synchronously.
+//   row stride (D + 1), loaded synchronously. At D = 256 the backward
+//   kernels' own tiles (keys of dk/dv, queries of dq) are 32 rows, 2 a
+//   thread, so that their staging fits the 227 KB of shared memory.
 // Both skip the tiles wholly above the causal diagonal, mask only the
 // tiles that need it, and sum in a fixed order: bitwise reproducible.
 
@@ -113,15 +121,15 @@ __device__ __forceinline__ float row_sum(float x) {
   return x;
 }
 
-// Stage 64 rows [row0, row0 + 64) of a (rows, D) matrix into shared
-// memory as fp32 with row stride D + 1; rows past `nrows` are zero.
-// With kScale, each element becomes x * scale — the pre-scaled do of
-// the backward.
-template <int D, bool kScale>
+// Stage kRows rows [row0, row0 + kRows) of a (rows, D) matrix into
+// shared memory as fp32 with row stride D + 1; rows past `nrows` are
+// zero. With kScale, each element becomes x * scale — the pre-scaled do
+// of the backward.
+template <int D, bool kScale, int kRows = 64>
 __device__ __forceinline__ void load_tile(float* dst, const float* src, int row0,
                                           int nrows, float scale) {
 #pragma unroll 4
-  for (int idx = threadIdx.x; idx < 64 * D; idx += kThreads) {
+  for (int idx = threadIdx.x; idx < kRows * D; idx += kThreads) {
     const int r = idx / D;
     const int c = idx % D;
     const int gr = row0 + r;
@@ -132,6 +140,16 @@ __device__ __forceinline__ void load_tile(float* dst, const float* src, int row0
     }
     dst[r * (D + 1) + c] = x;
   }
+}
+
+// Rows a thread owns in the backward kernels' own tile (keys of dk/dv,
+// queries of dq), which is 16 of them tall: 4 up to D = 128, 2 at
+// D = 256, where two 64-row tiles of fp32 operands and two 64-row
+// staging tiles of K, V, Q and dO would not fit in the 227 KB of shared
+// memory a block may hold.
+template <int D>
+constexpr __host__ __device__ int simt_rows() {
+  return D == 256 ? 2 : 4;
 }
 
 // Number of kv tiles a q tile starting at q_start can see.
@@ -271,8 +289,9 @@ fa_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ------------------------------------------------------------ backward
-// dk/dv of one kv tile, sweeping the q tiles that can see it. The thread
-// owns kv rows ty*4+i of the transposed score tile and q columns tx+16j.
+// dk/dv of one kv tile of BK = 16 R keys, sweeping the q tiles that can
+// see it. The thread owns kv rows ty*R+i of the transposed score tile
+// and q columns tx+16j.
 template <int D>
 __global__ void __launch_bounds__(kThreads)
 fa_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
@@ -283,34 +302,36 @@ fa_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                float do_scale, float dv_scale, int ds_zero, int causal) {
   constexpr int LD = D + 1;
   constexpr int DJ = D / 16;
+  constexpr int R = simt_rows<D>();
+  constexpr int BK = 16 * R;
   extern __shared__ float smem[];
-  float* ks = smem;              // [kBK][LD]
-  float* vs = ks + kBK * LD;     // [kBK][LD]
-  float* qs = vs + kBK * LD;     // [kBQ][LD]
+  float* ks = smem;              // [BK][LD]
+  float* vs = ks + BK * LD;      // [BK][LD]
+  float* qs = vs + BK * LD;      // [kBQ][LD]
   float* dos = qs + kBQ * LD;    // [kBQ][LD] pre-scaled do
-  float* pts = dos + kBQ * LD;   // [kBK][kLP] p^T
-  float* dsts = pts + kBK * kLP; // [kBK][kLP] ds^T
-  float* lses = dsts + kBK * kLP;  // [kBQ]
-  float* dels = lses + kBQ;        // [kBQ]
+  float* pts = dos + kBQ * LD;   // [BK][kLP] p^T
+  float* dsts = pts + BK * kLP;  // [BK][kLP] ds^T
+  float* lses = dsts + BK * kLP;  // [kBQ]
+  float* dels = lses + kBQ;       // [kBQ]
 
   const int tx = threadIdx.x & 15;
   const int ty = threadIdx.x >> 4;
   const int bh = blockIdx.y;
-  const int k_start = blockIdx.x * kBK;
+  const int k_start = blockIdx.x * BK;
   const int off = seq_k - seq_q;
   const float* qb = q + (size_t)bh * seq_q * D;
   const float* dob = dout + (size_t)bh * seq_q * D;
   const float* lb = lse + (size_t)bh * seq_q;
   const float* db = delta + (size_t)bh * seq_q;
 
-  load_tile<D, false>(ks, k + (size_t)bh * seq_k * D, k_start, seq_k,
-                         1.f);
-  load_tile<D, false>(vs, v + (size_t)bh * seq_k * D, k_start, seq_k,
-                         1.f);
+  load_tile<D, false, BK>(ks, k + (size_t)bh * seq_k * D, k_start, seq_k,
+                          1.f);
+  load_tile<D, false, BK>(vs, v + (size_t)bh * seq_k * D, k_start, seq_k,
+                          1.f);
 
-  float adk[4][DJ], adv[4][DJ];
+  float adk[R][DJ], adv[R][DJ];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < R; ++i)
 #pragma unroll
     for (int jj = 0; jj < DJ; ++jj) adk[i][jj] = adv[i][jj] = 0.f;
 
@@ -330,18 +351,18 @@ fa_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
     __syncthreads();
 
-    float s[4][4], dp[4][4];
+    float s[R][4], dp[R][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < R; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
 #pragma unroll 4
     for (int d = 0; d < D; ++d) {
-      float kr[4], vr[4], qr[4], dr[4];
+      float kr[R], vr[R], qr[4], dr[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        kr[i] = ks[(ty * 4 + i) * LD + d];
-        vr[i] = vs[(ty * 4 + i) * LD + d];
+      for (int i = 0; i < R; ++i) {
+        kr[i] = ks[(ty * R + i) * LD + d];
+        vr[i] = vs[(ty * R + i) * LD + d];
       }
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
@@ -349,7 +370,7 @@ fa_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
         dr[j] = dos[(tx + 16 * j) * LD + d];
       }
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < R; ++i)
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           s[i][j] = fmaf(kr[i], qr[j], s[i][j]);
@@ -357,11 +378,11 @@ fa_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
         }
     }
 
-    const bool full = k_start + kBK <= seq_k && q_start + kBQ <= seq_q &&
-                      (!causal || k_start + kBK - 1 <= q_start + off);
+    const bool full = k_start + BK <= seq_k && q_start + kBQ <= seq_q &&
+                      (!causal || k_start + BK - 1 <= q_start + off);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int col = k_start + ty * 4 + i;
+    for (int i = 0; i < R; ++i) {
+      const int col = k_start + ty * R + i;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int qc = tx + 16 * j;
@@ -371,19 +392,19 @@ fa_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      (!causal || col <= row + off));
         const float p = vis ? expf(s[i][j] * sm_scale - lses[qc]) : 0.f;
         const float ds = ds_zero ? 0.f : p * (dp[i][j] - dels[qc]);
-        pts[(ty * 4 + i) * kLP + qc] = p;
-        dsts[(ty * 4 + i) * kLP + qc] = ds;
+        pts[(ty * R + i) * kLP + qc] = p;
+        dsts[(ty * R + i) * kLP + qc] = ds;
       }
     }
     __syncthreads();
 
 #pragma unroll 8
     for (int qq = 0; qq < kBQ; ++qq) {
-      float pr[4], sr[4], dor[DJ], qr[DJ];
+      float pr[R], sr[R], dor[DJ], qr[DJ];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        pr[i] = pts[(ty * 4 + i) * kLP + qq];
-        sr[i] = dsts[(ty * 4 + i) * kLP + qq];
+      for (int i = 0; i < R; ++i) {
+        pr[i] = pts[(ty * R + i) * kLP + qq];
+        sr[i] = dsts[(ty * R + i) * kLP + qq];
       }
 #pragma unroll
       for (int jj = 0; jj < DJ; ++jj) {
@@ -391,7 +412,7 @@ fa_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
         qr[jj] = qs[qq * LD + tx + 16 * jj];
       }
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < R; ++i)
 #pragma unroll
         for (int jj = 0; jj < DJ; ++jj) {
           adv[i][jj] = fmaf(pr[i], dor[jj], adv[i][jj]);
@@ -401,8 +422,8 @@ fa_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = k_start + ty * 4 + i;
+  for (int i = 0; i < R; ++i) {
+    const int row = k_start + ty * R + i;
     if (row >= seq_k) continue;
     float* dkr = dk + ((size_t)bh * seq_k + row) * D;
     float* dvr = dv + ((size_t)bh * seq_k + row) * D;
@@ -414,8 +435,9 @@ fa_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// dq of one q tile, sweeping the kv tiles it can see. The thread owns
-// q rows ty*4+i of the score tile and kv columns tx+16j.
+// dq of one q tile of BQ = 16 R rows, sweeping the kv tiles it can see.
+// The thread owns q rows ty*R+i of the score tile and kv columns
+// tx+16j.
 template <int D>
 __global__ void __launch_bounds__(kThreads)
 fa_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
@@ -425,36 +447,38 @@ fa_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
              float do_scale, int ds_zero, int causal) {
   constexpr int LD = D + 1;
   constexpr int DJ = D / 16;
+  constexpr int R = simt_rows<D>();
+  constexpr int BQ = 16 * R;
   extern __shared__ float smem[];
-  float* qs = smem;             // [kBQ][LD]
-  float* dos = qs + kBQ * LD;   // [kBQ][LD] pre-scaled do
-  float* ks = dos + kBQ * LD;   // [kBK][LD]
+  float* qs = smem;             // [BQ][LD]
+  float* dos = qs + BQ * LD;    // [BQ][LD] pre-scaled do
+  float* ks = dos + BQ * LD;    // [kBK][LD]
   float* vs = ks + kBK * LD;    // [kBK][LD]
-  float* dss = vs + kBK * LD;   // [kBQ][kLP] ds
+  float* dss = vs + kBK * LD;   // [BQ][kLP] ds
 
   const int tx = threadIdx.x & 15;
   const int ty = threadIdx.x >> 4;
   const int bh = blockIdx.y;
-  const int q_start = blockIdx.x * kBQ;
+  const int q_start = blockIdx.x * BQ;
   const int off = seq_k - seq_q;
   const float* kb = k + (size_t)bh * seq_k * D;
   const float* vb = v + (size_t)bh * seq_k * D;
 
-  load_tile<D, false>(qs, q + (size_t)bh * seq_q * D, q_start, seq_q,
-                         1.f);
-  load_tile<D, true>(dos, dout + (size_t)bh * seq_q * D, q_start, seq_q,
-                        do_scale);
-  float lr[4], dl[4], adq[4][DJ];
+  load_tile<D, false, BQ>(qs, q + (size_t)bh * seq_q * D, q_start, seq_q,
+                          1.f);
+  load_tile<D, true, BQ>(dos, dout + (size_t)bh * seq_q * D, q_start,
+                         seq_q, do_scale);
+  float lr[R], dl[R], adq[R][DJ];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q_start + ty * 4 + i;
+  for (int i = 0; i < R; ++i) {
+    const int row = q_start + ty * R + i;
     lr[i] = row < seq_q ? lse[(size_t)bh * seq_q + row] : 0.f;
     dl[i] = row < seq_q ? delta[(size_t)bh * seq_q + row] : 0.f;
 #pragma unroll
     for (int jj = 0; jj < DJ; ++jj) adq[i][jj] = 0.f;
   }
 
-  const int n_kv = kv_tiles(q_start, kBQ, seq_q, seq_k, causal);
+  const int n_kv = kv_tiles(q_start, BQ, seq_q, seq_k, causal);
   for (int t = 0; t < n_kv; ++t) {
     const int k_start = t * kBK;
     __syncthreads();  // the previous tile's reads are done
@@ -462,18 +486,18 @@ fa_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     load_tile<D, false>(vs, vb, k_start, seq_k, 1.f);
     __syncthreads();
 
-    float s[4][4], dp[4][4];
+    float s[R][4], dp[R][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < R; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
 #pragma unroll 4
     for (int d = 0; d < D; ++d) {
-      float qr[4], dr[4], kr[4], vr[4];
+      float qr[R], dr[R], kr[4], vr[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        qr[i] = qs[(ty * 4 + i) * LD + d];
-        dr[i] = dos[(ty * 4 + i) * LD + d];
+      for (int i = 0; i < R; ++i) {
+        qr[i] = qs[(ty * R + i) * LD + d];
+        dr[i] = dos[(ty * R + i) * LD + d];
       }
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
@@ -481,7 +505,7 @@ fa_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
         vr[j] = vs[(tx + 16 * j) * LD + d];
       }
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < R; ++i)
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           s[i][j] = fmaf(qr[i], kr[j], s[i][j]);
@@ -489,11 +513,11 @@ fa_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
         }
     }
 
-    const bool full = k_start + kBK <= seq_k && q_start + kBQ <= seq_q &&
+    const bool full = k_start + kBK <= seq_k && q_start + BQ <= seq_q &&
                       (!causal || k_start + kBK - 1 <= q_start + off);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q_start + ty * 4 + i;
+    for (int i = 0; i < R; ++i) {
+      const int row = q_start + ty * R + i;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int col = k_start + tx + 16 * j;
@@ -502,20 +526,20 @@ fa_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      (!causal || col <= row + off));
         const float p = vis ? expf(s[i][j] * sm_scale - lr[i]) : 0.f;
         const float ds = ds_zero ? 0.f : p * (dp[i][j] - dl[i]);
-        dss[(ty * 4 + i) * kLP + tx + 16 * j] = ds;
+        dss[(ty * R + i) * kLP + tx + 16 * j] = ds;
       }
     }
     __syncthreads();
 
 #pragma unroll 8
     for (int kk = 0; kk < kBK; ++kk) {
-      float sr[4], kr[DJ];
+      float sr[R], kr[DJ];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) sr[i] = dss[(ty * 4 + i) * kLP + kk];
+      for (int i = 0; i < R; ++i) sr[i] = dss[(ty * R + i) * kLP + kk];
 #pragma unroll
       for (int jj = 0; jj < DJ; ++jj) kr[jj] = ks[kk * LD + tx + 16 * jj];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < R; ++i)
 #pragma unroll
         for (int jj = 0; jj < DJ; ++jj)
           adq[i][jj] = fmaf(sr[i], kr[jj], adq[i][jj]);
@@ -523,8 +547,8 @@ fa_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q_start + ty * 4 + i;
+  for (int i = 0; i < R; ++i) {
+    const int row = q_start + ty * R + i;
     if (row >= seq_q) continue;
     float* dqr = dq + ((size_t)bh * seq_q + row) * D;
 #pragma unroll
@@ -863,13 +887,41 @@ __device__ __forceinline__ void transposed_ds(const float (&pT)[32],
                      : pT[i] * (dpT[i] - dels[8 * (i >> 2) + 2 * tq + (i & 1)]);
 }
 
-// dk/dv of 64 keys, sweeping the q tiles that can see them. Warpgroup wg
-// computes S^T = K.Q^T and dP^T = V.dO^T in full and accumulates columns
-// [wg * kSubCols, (wg + 1) * kSubCols) of dK and dV: one warpgroup a
-// sub-tile (two at D = 128). Shared memory: K, V, then 2 stages of
-// [Q, dO] and 2 of [lse, delta] (64 floats each).
+// 64-column sub-tiles of dK and dV a warpgroup of the dk/dv kernel
+// accumulates: one up to D = 128 (a warpgroup a sub-tile), two at
+// D = 256 (two warpgroups: four, 512 threads, would cap a thread at 128
+// registers, below S^T, dP^T and the accumulators together).
 template <int D>
-__global__ void __launch_bounds__(kWGThreads * sm90::Tile<D>::kSubs)
+constexpr __host__ __device__ int dkdv_wg_subs() {
+  return D == 256 ? 2 : 1;
+}
+template <int D>
+constexpr __host__ __device__ int dkdv_threads() {
+  return kWGThreads * sm90::Tile<D>::kSubs / dkdv_wg_subs<D>();
+}
+
+// Warpgroups of the dq kernel: one up to D = 128; at D = 256 two, each
+// computing S and dP in full and accumulating 128 of dQ's columns (one
+// warpgroup would hold all 256, 128 registers a thread, beside S and
+// dP: 251 registers, against 193 for two).
+template <int D>
+constexpr __host__ __device__ int dq_wgs() {
+  return D == 256 ? 2 : 1;
+}
+
+// dk/dv of 64 keys, sweeping the q tiles that can see them. Warpgroup wg
+// computes S^T = K.Q^T and dP^T = V.dO^T in full and accumulates its
+// dkdv_wg_subs 64-column sub-tiles of dK and dV, from column
+// wg * 64 * dkdv_wg_subs: two warpgroups at D = 128, one sub-tile each;
+// two at D = 256, two sub-tiles each. Up to D = 128 the dV product is
+// issued while dP^T is still computing; at D = 256 (kLate) the
+// warpgroup waits for dP^T, takes p and ds, and issues dV and dK
+// together, so that p's operand fragments are not live beside S^T,
+// dP^T and the 128 accumulator registers (the early schedule spilled
+// there). Shared memory: K, V, then 2 stages of [Q, dO] and 2 of [lse,
+// delta] (64 floats each).
+template <int D>
+__global__ void __launch_bounds__(dkdv_threads<D>())
 fa_dkdv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, const bf16* __restrict__ dout,
                     const float* __restrict__ lse,
@@ -878,7 +930,9 @@ fa_dkdv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     float sm_scale, float do_scale, float dv_scale,
                     int ds_zero, int causal) {
   using L = sm90::Tile<D>;
-  constexpr int kCta = kWGThreads * L::kSubs;
+  constexpr int kCta = dkdv_threads<D>();
+  constexpr int kWS = dkdv_wg_subs<D>();
+  constexpr bool kLate = D == 256;
   constexpr int kAcc = L::kSwB / 4;
   constexpr uint32_t kT = L::bytes(64);
   extern __shared__ uint8_t smem_bytes[];
@@ -925,9 +979,40 @@ fa_dkdv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
   sm90::cp_async_commit();
 
-  float adk[1][kAcc], adv[1][kAcc];
+  float adk[kWS][kAcc], adv[kWS][kAcc];
 #pragma unroll
-  for (int i = 0; i < kAcc; ++i) adk[0][i] = adv[0][i] = 0.f;
+  for (int sb = 0; sb < kWS; ++sb)
+#pragma unroll
+    for (int i = 0; i < kAcc; ++i) adk[sb][i] = adv[sb][i] = 0.f;
+
+  // dV += P^T.dO and dK += dS^T.Q over the warpgroup's sub-tiles, the A
+  // operands from registers
+  auto issue_dv = [&](uint32_t (&pa)[4][4], uint32_t dosm) {
+#pragma unroll
+    for (int sb = 0; sb < kWS; ++sb) sm90::fence_regs(adv[sb]);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) sm90::fence_regs(pa[kk]);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int sb = 0; sb < kWS; ++sb)
+        sm90::wgmma_rs(adv[sb], pa[kk],
+                       sm90::desc_mn<D>(dosm, kBQ, wg * kWS + sb, kk));
+  };
+  auto issue_dk = [&](uint32_t (&da)[4][4], uint32_t qsm) {
+#pragma unroll
+    for (int sb = 0; sb < kWS; ++sb) sm90::fence_regs(adk[sb]);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) sm90::fence_regs(da[kk]);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int sb = 0; sb < kWS; ++sb)
+        sm90::wgmma_rs(adk[sb], da[kk],
+                       sm90::desc_mn<D>(qsm, kBQ, wg * kWS + sb, kk));
+  };
 
   for (int qt = qt0; qt < n_q; ++qt) {
     const int q_start = qt * kBQ;
@@ -972,45 +1057,44 @@ fa_dkdv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       transposed_probs<true>(sT, lses, k_start, q_start, seq_q, seq_k, off,
                              causal, sm_scale * kLog2e);
     uint32_t pa[4][4];
-    to_a_operand(sT, pa);
-    sm90::fence_regs(adv[0]);
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) sm90::fence_regs(pa[kk]);
-    sm90::wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      sm90::wgmma_rs(adv[0], pa[kk], sm90::desc_mn<D>(dosm, kBQ, wg, kk));
-    sm90::wgmma_commit();
-    sm90::wgmma_wait<1>();  // dP^T
+    if (!kLate) {
+      to_a_operand(sT, pa);
+      issue_dv(pa, dosm);
+      sm90::wgmma_commit();
+    }
+    sm90::wgmma_wait<kLate ? 0 : 1>();  // dP^T
     sm90::fence_regs(dpT);
 
     transposed_ds(sT, dpT, dels, ds_zero);
+    if (kLate) {
+      to_a_operand(sT, pa);
+      issue_dv(pa, dosm);
+    }
     uint32_t da[4][4];
     to_a_operand(dpT, da);
-    sm90::fence_regs(adk[0]);
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) sm90::fence_regs(da[kk]);
-    sm90::wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      sm90::wgmma_rs(adk[0], da[kk], sm90::desc_mn<D>(qsm, kBQ, wg, kk));
+    issue_dk(da, qsm);
     sm90::wgmma_commit();
     sm90::wgmma_wait<0>();
-    sm90::fence_regs(adk[0]);
-    sm90::fence_regs(adv[0]);
+#pragma unroll
+    for (int sb = 0; sb < kWS; ++sb) {
+      sm90::fence_regs(adk[sb]);
+      sm90::fence_regs(adv[sb]);
+    }
   }
 
   const float one[2] = {1.f, 1.f}, dvs[2] = {dv_scale, dv_scale};
   const size_t o = (size_t)bh * seq_k * D;
-  store_rows<D, false>(dk + o, adk, one, k_start, wg * L::kSubCols, seq_k);
-  store_rows<D, false>(dv + o, adv, dvs, k_start, wg * L::kSubCols, seq_k);
+  const int col0 = wg * kWS * L::kSubCols;
+  store_rows<D, false>(dk + o, adk, one, k_start, col0, seq_k);
+  store_rows<D, false>(dv + o, adv, dvs, k_start, col0, seq_k);
 }
 
 // dq of 64 query rows, sweeping the kv tiles they can see: S = Q.K^T and
-// dP = dO.V^T, ds in registers, dQ += dS.K. Shared memory: Q, dO, then 2
-// stages of [K, V].
+// dP = dO.V^T, ds in registers, dQ += dS.K; with dq_wgs warpgroups each
+// computes S and dP in full and accumulates its share of dQ's columns.
+// Shared memory: Q, dO, then 2 stages of [K, V].
 template <int D>
-__global__ void __launch_bounds__(kWGThreads)
+__global__ void __launch_bounds__(kWGThreads * dq_wgs<D>())
 fa_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                   const bf16* __restrict__ v, const bf16* __restrict__ dout,
                   const float* __restrict__ lse,
@@ -1018,6 +1102,8 @@ fa_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                   int seq_q, int seq_k, float sm_scale, float do_scale,
                   int ds_zero, int causal) {
   using L = sm90::Tile<D>;
+  constexpr int kCta = kWGThreads * dq_wgs<D>();
+  constexpr int kWS = L::kSubs / dq_wgs<D>();  // sub-tiles a warpgroup
   constexpr int kAcc = L::kSwB / 4;
   constexpr uint32_t kT = L::bytes(64);
   extern __shared__ uint8_t smem_bytes[];
@@ -1027,7 +1113,8 @@ fa_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const uint32_t kv0 = dos + kT;               // stage s: K, then V
 
   const int tid = threadIdx.x;
-  const int warp = tid >> 5;
+  const int wg = tid / kWGThreads;
+  const int warp = (tid >> 5) & 3;
   const int g = (tid & 31) >> 2;
   const int bh = blockIdx.y;
   const int q_start = (gridDim.x - 1 - blockIdx.x) * kBQ;  // heaviest first
@@ -1046,17 +1133,17 @@ fa_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int n_kv = kv_tiles(q_start, kBQ, seq_q, seq_k, causal);
   if (n_kv > 0) {
     sm90::load_tile<D>(qs, q + (size_t)bh * seq_q * D, q_start, kBQ, seq_q,
-                       tid, kWGThreads);
+                       tid, kCta);
     sm90::load_tile<D>(dos, dout + (size_t)bh * seq_q * D, q_start, kBQ,
-                       seq_q, tid, kWGThreads);
-    sm90::load_tile<D>(kv0, kb, 0, kBK, seq_k, tid, kWGThreads);
-    sm90::load_tile<D>(kv0 + kT, vb, 0, kBK, seq_k, tid, kWGThreads);
+                       seq_q, tid, kCta);
+    sm90::load_tile<D>(kv0, kb, 0, kBK, seq_k, tid, kCta);
+    sm90::load_tile<D>(kv0 + kT, vb, 0, kBK, seq_k, tid, kCta);
   }
   sm90::cp_async_commit();
 
-  float adq[L::kSubs][kAcc];
+  float adq[kWS][kAcc];
 #pragma unroll
-  for (int s = 0; s < L::kSubs; ++s)
+  for (int s = 0; s < kWS; ++s)
 #pragma unroll
     for (int i = 0; i < kAcc; ++i) adq[s][i] = 0.f;
 
@@ -1065,14 +1152,14 @@ fa_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     __syncthreads();  // the stage t+1 refills is no longer read
     if (t + 1 < n_kv) {
       const uint32_t nxt = kv0 + ((t + 1) & 1) * 2 * kT;
-      sm90::load_tile<D>(nxt, kb, k_start + kBK, kBK, seq_k, tid, kWGThreads);
+      sm90::load_tile<D>(nxt, kb, k_start + kBK, kBK, seq_k, tid, kCta);
       sm90::load_tile<D>(nxt + kT, vb, k_start + kBK, kBK, seq_k, tid,
-                         kWGThreads);
+                         kCta);
     }
     sm90::cp_async_commit();
     sm90::cp_async_wait<1>();  // tile t (and Q, dO) landed
     if (t == 0)  // do * do_scale, rounded to bf16, over this thread's chunks
-      sm90::for_own_chunks<D>(base + kT, kBQ, tid, kWGThreads,
+      sm90::for_own_chunks<D>(base + kT, kBQ, tid, kCta,
                               [&](uint4* c) { scale_chunk(c, do_scale); });
     sm90::fence_view_async_shared();
     __syncthreads();
@@ -1109,24 +1196,25 @@ fa_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     uint32_t da[4][4];
     to_a_operand(dp, da);
 #pragma unroll
-    for (int sb = 0; sb < L::kSubs; ++sb) sm90::fence_regs(adq[sb]);
+    for (int sb = 0; sb < kWS; ++sb) sm90::fence_regs(adq[sb]);
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) sm90::fence_regs(da[kk]);
     sm90::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
-      for (int sb = 0; sb < L::kSubs; ++sb)
-        sm90::wgmma_rs(adq[sb], da[kk], sm90::desc_mn<D>(ks, kBK, sb, kk));
+      for (int sb = 0; sb < kWS; ++sb)
+        sm90::wgmma_rs(adq[sb], da[kk],
+                       sm90::desc_mn<D>(ks, kBK, wg * kWS + sb, kk));
     sm90::wgmma_commit();
     sm90::wgmma_wait<0>();
 #pragma unroll
-    for (int sb = 0; sb < L::kSubs; ++sb) sm90::fence_regs(adq[sb]);
+    for (int sb = 0; sb < kWS; ++sb) sm90::fence_regs(adq[sb]);
   }
 
   const float one[2] = {1.f, 1.f};
-  store_rows<D, false>(dq + (size_t)bh * seq_q * D, adq, one, q_start, 0,
-                       seq_q);
+  store_rows<D, false>(dq + (size_t)bh * seq_q * D, adq, one, q_start,
+                       wg * kWS * L::kSubCols, seq_q);
 }
 
 // ------------------------------------------------------------- launches
@@ -1136,12 +1224,14 @@ constexpr size_t fwd_smem() {
 }
 template <int D>
 constexpr size_t dkdv_smem() {
-  return sizeof(float) * ((size_t)(2 * kBK + 2 * kBQ) * (D + 1) +
-                          2 * kBK * kLP + 2 * kBQ);
+  constexpr int BK = 16 * simt_rows<D>();
+  return sizeof(float) * ((size_t)(2 * BK + 2 * kBQ) * (D + 1) +
+                          2 * BK * kLP + 2 * kBQ);
 }
 template <int D>
 constexpr size_t dq_smem() {
-  return sizeof(float) * ((size_t)(2 * kBQ + 2 * kBK) * (D + 1) + kBQ * kLP);
+  constexpr int BQ = 16 * simt_rows<D>();
+  return sizeof(float) * ((size_t)(2 * BQ + 2 * kBK) * (D + 1) + BQ * kLP);
 }
 // bf16: 1 KB of alignment slack, then the tiles (and dk/dv's lse/delta)
 template <int D>
@@ -1209,7 +1299,8 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v,
   size_t smem = dkdv_smem<D>();
   cudaError_t e = allow_smem(dkdv, smem);
   if (e != cudaSuccess) return e;
-  dkdv<<<dim3((seq_k + kBK - 1) / kBK, BH), kThreads, smem, stream>>>(
+  constexpr int rows = 16 * simt_rows<D>();  // the kernels' own tiles
+  dkdv<<<dim3((seq_k + rows - 1) / rows, BH), kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
@@ -1222,7 +1313,7 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v,
   smem = dq_smem<D>();
   e = allow_smem(dqk, smem);
   if (e != cudaSuccess) return e;
-  dqk<<<dim3((seq_q + kBQ - 1) / kBQ, BH), kThreads, smem, stream>>>(
+  dqk<<<dim3((seq_q + rows - 1) / rows, BH), kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
@@ -1242,8 +1333,8 @@ cudaError_t launch_bwd_bf16(const void* q, const void* k, const void* v,
   size_t smem = dkdv_bf16_smem<D>();
   cudaError_t e = allow_smem(dkdv, smem);
   if (e != cudaSuccess) return e;
-  dkdv<<<dim3((seq_k + kBK - 1) / kBK, BH),
-         kWGThreads * sm90::Tile<D>::kSubs, smem, stream>>>(
+  dkdv<<<dim3((seq_k + kBK - 1) / kBK, BH), dkdv_threads<D>(), smem,
+         stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
@@ -1256,7 +1347,8 @@ cudaError_t launch_bwd_bf16(const void* q, const void* k, const void* v,
   smem = dq_bf16_smem<D>();
   e = allow_smem(dqk, smem);
   if (e != cudaSuccess) return e;
-  dqk<<<dim3((seq_q + kBQ - 1) / kBQ, BH), kWGThreads, smem, stream>>>(
+  dqk<<<dim3((seq_q + kBQ - 1) / kBQ, BH), kWGThreads * dq_wgs<D>(), smem,
+        stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
@@ -1267,7 +1359,7 @@ cudaError_t launch_bwd_bf16(const void* q, const void* k, const void* v,
 
 bool bad_shape(int BH, int seq_q, int seq_k, int D) {
   return BH < 1 || BH > 65535 || seq_q < 1 || seq_k < 1 ||
-         (D != 32 && D != 64 && D != 128);
+         (D != 32 && D != 64 && D != 128 && D != 256);
 }
 
 }  // namespace
@@ -1290,11 +1382,13 @@ extern "C" int bigdl_flash_fwd(const void* q, const void* k, const void* v,
   if (is_bf16) {
     if (D == 32) BIGDL_FA_FWD(launch_fwd_bf16, 32);
     if (D == 64) BIGDL_FA_FWD(launch_fwd_bf16, 64);
-    BIGDL_FA_FWD(launch_fwd_bf16, 128);
+    if (D == 128) BIGDL_FA_FWD(launch_fwd_bf16, 128);
+    BIGDL_FA_FWD(launch_fwd_bf16, 256);
   }
   if (D == 32) BIGDL_FA_FWD(launch_fwd, 32);
   if (D == 64) BIGDL_FA_FWD(launch_fwd, 64);
-  BIGDL_FA_FWD(launch_fwd, 128);
+  if (D == 128) BIGDL_FA_FWD(launch_fwd, 128);
+  BIGDL_FA_FWD(launch_fwd, 256);
 #undef BIGDL_FA_FWD
 }
 
@@ -1318,11 +1412,13 @@ extern "C" int bigdl_flash_bwd(const void* q, const void* k, const void* v,
   if (is_bf16) {
     if (D == 32) BIGDL_FA_BWD(launch_bwd_bf16, 32);
     if (D == 64) BIGDL_FA_BWD(launch_bwd_bf16, 64);
-    BIGDL_FA_BWD(launch_bwd_bf16, 128);
+    if (D == 128) BIGDL_FA_BWD(launch_bwd_bf16, 128);
+    BIGDL_FA_BWD(launch_bwd_bf16, 256);
   }
   if (D == 32) BIGDL_FA_BWD(launch_bwd, 32);
   if (D == 64) BIGDL_FA_BWD(launch_bwd, 64);
-  BIGDL_FA_BWD(launch_bwd, 128);
+  if (D == 128) BIGDL_FA_BWD(launch_bwd, 128);
+  BIGDL_FA_BWD(launch_bwd, 256);
 #undef BIGDL_FA_BWD
 }
 

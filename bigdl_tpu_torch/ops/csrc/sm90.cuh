@@ -4,13 +4,13 @@
 // (cp.async) and fused_rnn.cu's recurrent sweeps and dW GEMM.
 //
 // Tile layout. A tile of R rows x D bf16 columns (row-major in device
-// memory, D = 32, 64 or 128) is held in shared memory as D / 64 sub-tiles
-// of 64 columns (one of 32 columns when D = 32). A sub-tile row is one
-// swizzle row of kSwB = 128 bytes (64 for D = 32), and the 16-byte chunk
-// at byte offset o of a sub-tile sits at o ^ ((o >> 3) & mask): bits 7-9
-// of the offset (bits 7-8 for 64-byte rows) XORed into bits 4-6 (4-5),
-// the 128B (64B) swizzle of wgmma and TMA. Sub-tiles start on 1024-byte
-// boundaries. The same bytes serve both operand forms:
+// memory, D = 32, 64, 128 or 256) is held in shared memory as D / 64
+// sub-tiles of 64 columns (one of 32 columns when D = 32). A sub-tile
+// row is one swizzle row of kSwB = 128 bytes (64 for D = 32), and the
+// 16-byte chunk at byte offset o of a sub-tile sits at o ^ ((o >> 3) &
+// mask): bits 7-9 of the offset (bits 7-8 for 64-byte rows) XORed into
+// bits 4-6 (4-5), the 128B (64B) swizzle of wgmma and TMA. Sub-tiles
+// start on 1024-byte boundaries. The same bytes serve both operand forms:
 //   * K-major (the product reduces over D, rows are M or N): a k-step of
 //     16 columns starts 32 bytes further along the row, or in the next
 //     sub-tile; 8-row groups lie SBO = 8 * kSwB bytes apart;

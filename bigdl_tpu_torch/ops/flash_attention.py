@@ -40,7 +40,8 @@ sliced back (`pad_head_dim` / `unpad_head_dim`), as the JAX wrapper
 pads D to a multiple of 128 before its kernels: zero columns add exact
 zeros to every score and leave the padded output and gradient columns
 zero, and `sm_scale` stays that of the unpadded D. D beyond the largest
-instantiation raises.
+instantiation (256) raises, where the JAX wrapper pads on to the next
+multiple of 128.
 
 `impl`, in `flash_attention` and `flash_attention_with_lse` alike:
 None picks `"cuda"` for CUDA tensors and `"torch"` for CPU tensors;
@@ -70,7 +71,7 @@ from bigdl_tpu_torch.ops import _build
 
 IMPLS = ("cuda", "torch")
 NEG_INF = -1e30
-HEAD_DIMS = (32, 64, 128)      # csrc/flash_attention.cu instantiations
+HEAD_DIMS = (32, 64, 128, 256)  # csrc/flash_attention.cu instantiations
 BWD_LAUNCHES = 2               # dk/dv kernel, then dq kernel
 MAX_BH = 65535                 # grid.y of every launch
 KERNEL_BLOCK_K = 64            # keys per tile of the kernels (kBK)

@@ -1,6 +1,7 @@
 """Compare this tree's recurrent and paged-decode CUDA kernels with
 their earlier designs on one CUDA card, and show where the new kernels'
-time goes. A measuring tool: nothing in the port uses it.
+time goes. A measuring tool: nothing in the port uses it, and it has
+no JAX counterpart.
 
     mkdir -p .cmp/old                # any directory; .cmp/ is git-ignored
     git show <rev>:bigdl_tpu_torch/ops/csrc/fused_rnn.cu > .cmp/old/fused_rnn.cu
@@ -70,6 +71,8 @@ old; `chip_smoke.cuda_ms`, L2 flushed):
 Builds go to <old>/build (.cmp/build without --old). Every JSON line
 is also appended to chiprun_out/kernel_study.jsonl.
 """
+
+# graftlint: disable-file=telemetry-bypass — a CLI owns its stdout
 
 from __future__ import annotations
 

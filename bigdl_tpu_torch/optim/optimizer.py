@@ -473,8 +473,7 @@ class LocalOptimizer:
     def _require_rollback_checkpoint(self) -> None:
         """The 'rollback' policy has nothing to roll back to without a
         saved checkpoint."""
-        o = self.o
-        if o.checkpoint is None or not o.checkpoint.latest():
+        if not self._has_checkpoint():
             raise AnomalyError(
                 "anomaly policy 'rollback' needs a checkpoint "
                 "(set_checkpoint) with at least one save; none found")
@@ -500,8 +499,9 @@ class LocalOptimizer:
         """The training loop of every optimizer. This class and
         DistriOptimizer differ only in the pieces below it: `_setup`,
         `_train_batches`, `_step_rng`, `_train_step`, `_rows`,
-        `_load_checkpoint`, `_save`, `_validate`, `_param_tree`,
-        `_flush`, `_final_params` and `_close`."""
+        `_has_checkpoint`, `_load_checkpoint`, `_drain_checkpoint`,
+        `_save`, `_validate`, `_param_tree`, `_flush`, `_final_params`
+        and `_close`."""
         o = self.o
         self._setup()
         guard = o.anomaly_guard
@@ -517,7 +517,7 @@ class LocalOptimizer:
         def restore():
             """Reload the newest valid checkpoint (the reference's
             reload-last-checkpoint recovery)."""
-            o.checkpoint.wait()  # surface any pending async-save error
+            self._drain_checkpoint()  # a pending write landed, or raised
             saved = self._load_checkpoint()
             train_state.update(saved)
             if "nupdates" not in saved:  # pre-counter checkpoint
@@ -565,8 +565,7 @@ class LocalOptimizer:
                             None if guard is None else guard.threshold())
                 except Exception:
                     if (retries < self.max_retries
-                            and o.checkpoint is not None
-                            and o.checkpoint.latest()):
+                            and self._has_checkpoint()):
                         retries += 1
                         logger.exception(
                             "step failed; recovering from checkpoint "
@@ -653,10 +652,9 @@ class LocalOptimizer:
             if pending is not None:
                 self._emit(pending)
                 pending = None
-            if o.checkpoint is not None:
-                # a failed async save must fail the run, not vanish with
-                # the writer thread
-                o.checkpoint.wait()
+            # a failed async save must fail the run, not vanish with the
+            # writer thread
+            self._drain_checkpoint()
             for summary in (o.train_summary, o.validation_summary):
                 if summary is not None:
                     summary.writer.flush()
@@ -763,6 +761,19 @@ class LocalOptimizer:
                     [a.to(device) for a in self._as_flat(
                         "accumulator", params, saved_accum["g_acc"])], n)
         return saved
+
+    def _has_checkpoint(self) -> bool:
+        """Whether a saved checkpoint is there to recover from: the
+        go/no-go of a step retry and of a rollback."""
+        ck = self.o.checkpoint
+        return ck is not None and bool(ck.latest())
+
+    def _drain_checkpoint(self) -> None:
+        """Wait until every pending background save has landed,
+        re-raising a writer's error: before a checkpoint is loaded and
+        at the end of a run."""
+        if self.o.checkpoint is not None:
+            self.o.checkpoint.wait()
 
     def _save(self, train_state) -> str:
         """One checkpoint: the model, the slots as param-shaped trees,

@@ -35,11 +35,21 @@ by the axis padded with copies of its last row (the JAX package's
 Sharded checkpoints (`set_checkpoint(sharded=True)`): each rank hands
 `Checkpoint.save_sharded` its own slice of the flat slots — no slot
 gather, no full optimizer state on any one rank — and rank 0 also the
-gathered model and accumulator; every rank then drains its writer and
-meets the others at a barrier, so none runs ahead of a checkpoint it
-might recover from. A sharded checkpoint loads as the full flat
-vectors, so a resume at another world size re-pads them
+gathered model and accumulator. A sharded checkpoint loads as the full
+flat vectors, so a resume at another world size re-pads them
 (param_layout.adapt_flat_tree) as it does the full format's.
+
+On more than one rank, an asynchronous save (`async_save=True`)
+overlaps the steps after it, as the JAX package's single writer does:
+a save first waits for the previous one on every rank (which raises a
+failed writer's error, as the JAX package's next save does) and meets
+the others at a barrier, and only then starts its own writes and
+returns. Before any rank decides whether there is a checkpoint to
+recover from, before it loads one, and at the end of a run, every rank
+drains its writer and the ranks agree on the outcome (one all-reduce:
+a writer's error on any rank raises on every rank), so no rank reads,
+decides on, or finishes past a save that another rank is still
+writing.
 """
 
 from __future__ import annotations
@@ -271,16 +281,57 @@ class DistriOptimizer(LocalOptimizer):
         self.g_acc = place_global(self.mesh, flat.to(self.device), self.axis)
         self.micro_n = int(saved["micro_n"])
 
+    def _has_checkpoint(self) -> bool:
+        """On more than one rank every rank's pending writes land first,
+        so that every rank reads the same newest checkpoint and takes
+        the same branch (a save still in flight could otherwise be
+        published between two ranks' reads)."""
+        if self.n > 1 and self.o.checkpoint is not None:
+            self._drain_checkpoint()
+        return super()._has_checkpoint()
+
+    def _drain_checkpoint(self) -> None:
+        """This rank's pending writes landed. On more than one rank the
+        ranks then agree: a writer's error on any rank raises on every
+        rank, and no rank goes on before every rank's writes landed."""
+        ck = self.o.checkpoint
+        if self.n == 1 or ck is None:
+            super()._drain_checkpoint()
+            return
+        err = None
+        try:
+            ck.wait()
+        except Exception as e:  # raised below, once every rank knows
+            err = e
+        failed = torch.tensor([int(err is not None)], device=self.device)
+        dist.all_reduce(failed, op=dist.ReduceOp.MAX, group=self.mesh.group)
+        if err is not None:
+            raise err
+        if bool(failed[0]):
+            raise RuntimeError("a checkpoint write failed on another rank")
+
     def _save(self, train_state) -> Optional[str]:
         """One checkpoint in the JAX package's format. Full format: the
         flat slots and accumulator gathered from every rank, written by
         rank 0. Sharded: each rank writes its own slot slice, rank 0
-        the model, the accumulator and the manifest. Either way the
-        ranks then wait at a barrier until the write is complete."""
+        the model, the accumulator and the manifest. On more than one
+        rank the previous save is first complete on every rank; this
+        one is left in flight (with `async_save`)."""
         o, mesh, spec = self.o, self.mesh, self.spec
         ck = o.checkpoint
-        flat_full = self._full_w()
         group = mesh.group
+        if self.n > 1:
+            self._drain_checkpoint()     # every rank's previous save
+            if ck.sharded:
+                # a torn save of this step (a writer that died) left its
+                # staging dir behind: rank 0 removes it before any rank
+                # writes, or rank 0 could publish it on the stale units'
+                # manifests while another rank still rewrites its unit
+                # there
+                if mesh.rank == 0:
+                    ck.discard_staging(train_state["neval"])
+                dist.barrier(group=group)
+        flat_full = self._full_w()
         accum_state = None
         if self.micro_n:  # mid-cycle: persist the partial accumulator
             accum_state = {"g_acc": _all_gather(self.g_acc, self.n, group),
@@ -293,16 +344,6 @@ class DistriOptimizer(LocalOptimizer):
                       "num_shards": self.n, "total": spec.total,
                       "padded": spec.padded}
         if ck.sharded:
-            if self.n > 1:
-                # a torn save of this step (a writer that died) left its
-                # staging dir behind: rank 0 removes it before any rank
-                # writes, or rank 0 could publish it on the stale units'
-                # manifests while another rank still rewrites its unit
-                # there (the previous save is complete on every rank:
-                # the barrier below)
-                if mesh.rank == 0:
-                    ck.discard_staging(train_state["neval"])
-                dist.barrier(group=group)
             path = ck.save_sharded(
                 train_state["neval"], model if mesh.rank == 0 else None,
                 {mesh.rank: {k: v[0] for k, v in self.slots.items()}},
@@ -316,12 +357,6 @@ class DistriOptimizer(LocalOptimizer):
                 path = ck.save(train_state["neval"], model, full_slots,
                                train_meta, optim_meta=optim_meta,
                                accum_state=accum_state)
-        if self.n > 1:
-            # no rank may run ahead (and recover from this checkpoint)
-            # before the write is complete everywhere
-            if mesh.rank == 0 or ck.sharded:
-                ck.wait()
-            dist.barrier(group=mesh.group)
         return path
 
     # ------------------------------------------------------------ validate

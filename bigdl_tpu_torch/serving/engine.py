@@ -1629,7 +1629,9 @@ class InferenceEngine:
         nxt = sample_logits(logits, gens, torch.from_numpy(temp).to(dev),
                             torch.from_numpy(topk).to(dev),
                             torch.from_numpy(topp).to(dev))
-        return nxt.cpu().numpy(), finite.cpu().numpy()
+        # THE one deliberate device-to-host fetch of a decode step: the
+        # sampled tokens and their rows' finite flags
+        return nxt.cpu().numpy(), finite.cpu().numpy()  # graftlint: disable=hidden-device-sync
 
     def _decode(self, poison: np.ndarray):
         """One decode step over all slots (an empty slot's temperature

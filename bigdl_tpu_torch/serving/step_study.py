@@ -1,7 +1,7 @@
 """Compare the serving engine's decode step across trees and variants on
 one CUDA card: host and device milliseconds a step at the 43M LM's
 widths (chip_smoke.py's engine shape). A measuring tool: nothing in the
-port uses it.
+port uses it, and it has no JAX counterpart.
 
     mkdir -p .cmp/parent             # any directory; .cmp/ is git-ignored
     git archive <rev> | tar -x -C .cmp/parent
@@ -43,6 +43,10 @@ no decode step), both fenced by a synchronise; their medians, and the
 decode readings' spread (half their range over their median).
 chip_smoke.py's sim_calibration phase takes it.
 """
+
+# graftlint: disable-file=telemetry-bypass,hidden-device-sync,nondeterministic-drill
+# — a measuring tool: its fences, wall-clock reads and printed lines
+# are the measurement
 from __future__ import annotations
 
 import argparse

@@ -11,8 +11,10 @@ size 1, sharded checkpoints, tensor-parallel serving at world size 1,
 the serving fleet (router, tenancy, autoscaler, the telemetry plane),
 speculative decoding with a distilled, hot-swapped draft, a vision
 group beside the LM pool, the fleet simulator's card calibration, the
-training plane's telemetry, the keras surface, module files and
-Caffe/TensorFlow model import on one NVIDIA GPU and check them.
+training plane's telemetry, the keras surface, module files,
+Caffe/TensorFlow model import, and the trainer's LM at two heads (head
+dim 256) trained and served, on one NVIDIA GPU and check them; then
+run the port's static analysis over the port.
 
     python3 chip_smoke.py            # from the repository root, one CUDA card
     python3 chip_smoke.py --profile  # also: where decode, train,
@@ -34,24 +36,27 @@ It drives `bigdl_tpu_torch` only (never JAX or the JAX package):
    on DECODE_CASES: the engine's shape (B=8, H=8, 37 blocks of 16,
    D=64) with ragged clocks including 0 and S-1, one key, and a 4096-key
    extent at D=128 with clocks 0, 2047 and 4095 (ranks of a cluster see
-   no key); shuffled tables, a NaN scratch block 0 and NaN rows past
-   each clock inside its last page; fp32 and bf16 pools (max abs err
-   <= 2e-5); each row of a launch must be BITWISE the same row launched
-   alone; times at the engine's shape with CUDA events, L2 flushed
-   before each launch;
+   no key), and the engine's shape at two heads of D=256; shuffled
+   tables, a NaN scratch block 0 and NaN rows past each clock inside
+   its last page; fp32 and bf16 pools (max abs err <= 2e-5); each row
+   of a launch must be BITWISE the same row launched alone; times at
+   the engine's shape and at its two-head shape with CUDA events, L2
+   flushed before each launch;
 4. flash  — the flash-attention kernels (forward; backward = dk/dv +
    dq launches) against their plain versions on FLASH_CASES: the
    training shape (BH=64, S=2048, D=64, causal), a long sequence
    (BH=8, S=8192), ragged lengths with Sq != Sk and fully masked rows,
-   D = 32/128, no mask, sm_scale = 0, one query over 65 keys, and 129
-   rows and keys at D = 128 (one past the bf16 forward's 128-row CTA);
-   fp32 and bf16 (bf16 on the tensor cores); bf16 also element
-   by element (in bf16 ulps) against the plain versions that round
-   where the kernels round, while the same versions without the
-   roundings must fail that check; two backward runs bitwise equal;
-   gradients through both outputs of flash_attention_with_lse, kernels
-   vs plain; kernel, plain and SDPA (library yardstick) times at the
-   first two;
+   D = 32/128, no mask, sm_scale = 0, one query over 65 keys, 129
+   rows and keys at D = 128 (one past the bf16 forward's 128-row CTA),
+   and at D = 256 the trainer's shape at two heads (BH=16, S=2048),
+   ragged lengths and D = 160 (padded to 256); fp32 and bf16 (bf16 on
+   the tensor cores); bf16 also element by element (in bf16 ulps)
+   against the plain versions that round where the kernels round, while
+   the same versions without the roundings must fail that check; two
+   backward runs bitwise equal; gradients through both outputs of
+   flash_attention_with_lse, kernels vs plain; kernel, plain and SDPA
+   (library yardstick) times at the two training shapes, the long
+   sequence and D = 160 (the padding's cost);
 5. model  — the 43M Transformer-LM at full width: `decode_step_paged`
    through the kernel against the plain version on the same pools and
    tokens for 8 steps (logits max abs diff <= 1e-4);
@@ -384,7 +389,17 @@ It drives `bigdl_tpu_torch` only (never JAX or the JAX package):
    built model and then of the import (images/s beside vgg_estimator's
    native step); Engine's device count and kind, a profiler.trace of
    two import steps holding conv kernels, debug_nans on a card NaN;
-41. kernels — one JSON line per the port's kernel table.
+41. lm2h — the trainer's 43M LM at two heads (head dim 256, the D = 256
+   kernels): one fp32 loss-and-grad step, kernels vs plain, at the
+   trainer's tolerances; 2 + 10 bf16 steps through
+   `Optimizer.optimize()` (flash launches exact, the loss falls); then
+   8 greedy requests served from the trained weights through
+   `InferenceEngine` at the engine's knobs (K1 launches exact), tokens
+   equal to a plain-attention engine's;
+42. lint — `python -m bigdl_tpu_torch.analysis` over the port's tree
+   (no JAX on this machine): clean against its baseline;
+43. kernels — one JSON line per the port's kernel table, the D = 256
+   instantiations in rows of their own.
 
 Every phase prints one JSON line; any failed check raises and the
 script exits non-zero. The last lines are the `nvidia-smi` name/power
@@ -424,17 +439,21 @@ ENGINE_KNOBS = dict(slots=SLOTS, prefill_buckets=(CONTEXT // 2, CONTEXT))
 
 KERNEL_TOL = 2e-5
 LOGIT_TOL = 1e-4
-# paged-decode cases: (name, B, blocks, block size, D, clocks or None for
-# ragged clocks with 0 and S - 1). "engine" is the engine's shape, the
-# timed one; "one_key" a table of one block with clock 0; "long" a 4096-
-# key extent at D = 128 with clocks 0, 2047 and 4095, so that ranks of a
-# cluster see no key. Every case has the NaN scratch block and NaN rows
-# past each clock inside its last page.
+# paged-decode cases: (name, B, H, blocks, block size, D, clocks or None
+# for ragged clocks with 0 and S - 1). "engine" is the engine's shape,
+# timed; "one_key" a table of one block with clock 0; "long" a 4096-key
+# extent at D = 128 with clocks 0, 2047 and 4095, so that ranks of a
+# cluster see no key; "heads2" the engine's shape for the LM at two
+# heads (D = 256, the lm2h phase's serving path), timed. Every case has
+# the NaN scratch block and NaN rows past each clock inside its last
+# page.
 DECODE_CASES = (
-    ("engine", SLOTS, MAX_LEN // BLOCK, BLOCK, DIM // HEADS, None),
-    ("one_key", 1, 1, BLOCK, DIM // HEADS, (0,)),
-    ("long", 3, 4096 // BLOCK, BLOCK, 128, (0, 2047, 4095)),
+    ("engine", SLOTS, HEADS, MAX_LEN // BLOCK, BLOCK, DIM // HEADS, None),
+    ("one_key", 1, HEADS, 1, BLOCK, DIM // HEADS, (0,)),
+    ("long", 3, HEADS, 4096 // BLOCK, BLOCK, 128, (0, 2047, 4095)),
+    ("heads2", SLOTS, 2, MAX_LEN // BLOCK, BLOCK, DIM // 2, None),
 )
+DECODE_TIMED = ("engine", "heads2")
 # the design of the K1 row of the kernels line
 DECODE_DESIGN = ("S split over a thread-block cluster (split_plan: <= 8 "
                  "CTAs a (row, head), by the table extent alone), pages "
@@ -452,7 +471,10 @@ BF16_FLOPS_PER_S = 989e12       # dense tensor-core bf16 peak (data sheet)
 # lengths (not multiples of the 64-row tile), Sq > Sk with fully masked
 # rows, D = 32/128, no causal mask, sm_scale == 0, one query over two kv
 # tiles (the second holding one key), and one row and one key past the
-# 128-row tile of the bf16 forward's CTA at D = 128.
+# 128-row tile of the bf16 forward's CTA at D = 128; then D = 256: the
+# trainer's shape with two heads (the lm2h phase's, B=8 x H=2, S=2048),
+# ragged lengths, and D = 160, which the wrapper pads to 256, ragged
+# and causal.
 FLASH_CASES = (
     ("train", 64, 2048, 2048, 64, True, None),
     ("long", 8, 8192, 8192, 64, True, None),
@@ -462,8 +484,11 @@ FLASH_CASES = (
     ("zero_scale", 2, 300, 300, 64, True, 0.0),
     ("one_query", 3, 1, 65, 64, True, None),
     ("tile_edge", 5, 129, 129, 128, True, None),
+    ("train_h2", 16, 2048, 2048, 256, True, None),
+    ("ragged_d256", 3, 1000, 1500, 256, True, None),
+    ("pad_d160", 4, 777, 900, 160, True, None),
 )
-FLASH_TIMED = ("train", "long")
+FLASH_TIMED = ("train", "long", "train_h2", "pad_d160")
 # the designs of the K2 and K3 rows of the kernels line
 FLASH_DESIGN = {
     "fwd": "bf16: wgmma (S = Q.K^T from shared memory, P.V with P from "
@@ -472,6 +497,16 @@ FLASH_DESIGN = {
     "bwd": "bf16: dk/dv + dq kernels, wgmma (S, dP from shared memory; "
            "dV, dK, dQ with P / dS from registers; p taken while dP "
            "computes), 2-stage cp.async ring, no atomics; fp32: SIMT"}
+# the D = 256 instantiations' layouts (rows of their own in the kernels
+# line): a thread holds at most 255 registers, and ptxas must report no
+# spill
+FLASH_D256_DESIGN = {
+    "fwd": "bf16: as at D = 128, a CTA of 2 warpgroups x 64 query rows "
+           "(O alone 128 registers a thread); fp32: SIMT, 64-row tiles",
+    "bwd": "bf16: dk/dv 2 warpgroups x two 64-column slices of dK and "
+           "dV, p and ds taken before dV and dK are issued; dq 2 "
+           "warpgroups x 128 columns, each computing S and dP; fp32: "
+           "SIMT, the kernels' own tiles 32 rows (shared memory)"}
 # kernel vs plain: forward out (max abs), lse (fp32, max abs), backward
 # (max abs relative to each gradient's max)
 FLASH_TOL = {"fp32": {"out": 2e-5, "lse": 2e-5, "grad": 1e-4},
@@ -481,13 +516,19 @@ FLASH_TOL = {"fp32": {"out": 2e-5, "lse": 2e-5, "grad": 1e-4},
 # flash_forward_tiled / flash_backward_tiled, fp32 results). At most
 # BF16_MISMATCH_TOL of the elements may differ from the plain value
 # rounded once to bf16, and every element lies within BF16_ULP_TOL bf16
-# ulps of it. The ulp is that of max(|value|, its row's RMS, 2^-8 of
-# the tensor's RMS): near-zero elements of a row that cancels, and rows
-# that are zero in exact arithmetic (dq of a query that sees one key),
-# are measured on a scale their fp32 noise cannot reach. The ulp limit
-# leaves room for one p or ds that the two fp32 sums round to
-# neighbouring bf16 values: in a row of few terms that moves the result
-# by up to about two ulps. The control is the same plain versions
+# ulps of it. The ulp is that of max(|value|, its largest term, its
+# row's RMS, 2^-8 of the tensor's RMS) — the largest term of out[i, d]
+# is max_j |p_ij v_jd|, of dq max_j |ds_ij k_jd|, of dk max_i |ds_ij
+# q_id|, of dv max_i |p_ij do_id| (`_largest_terms`): a rounding error
+# in a sum scales with its terms, not with the sum, so near-zero
+# elements of a row that cancels, and rows that are zero in exact
+# arithmetic (dq of a query that sees one key), are measured on a scale
+# their fp32 noise cannot reach. A p or ds that the two fp32 sums round
+# to neighbouring bf16 values moves an element by one ulp of that
+# operand times its other factor: up to two ulps of the element's
+# largest term, many more of a value its other terms cancel (and, on
+# the row's scale alone, 4.04 in dk of pad_d160; the reading is
+# reported as max_ulps_row). The control is the same plain versions
 # without the roundings: wherever a rounding changes a value (every
 # case but zero_scale) its mismatch share must exceed
 # BF16_MISMATCH_TOL, or the check could not see a rounding left out.
@@ -879,7 +920,8 @@ def phase_kernel(flush):
     """The paged-decode kernel against its plain version on DECODE_CASES,
     fp32 and bf16 pools: finite, max abs err <= KERNEL_TOL, each row of a
     launch bitwise the same row launched alone; kernel, plain and SDPA
-    (library yardstick) times at the engine's shape."""
+    (library yardstick) times at the DECODE_TIMED shapes (the engine's
+    shape keyed by dtype, the others by case/dtype)."""
     import torch
     import torch.nn.functional as F
 
@@ -888,12 +930,12 @@ def phase_kernel(flush):
                                                   split_plan)
 
     out, cases = {}, {}
-    for case, B, nb, bs, D, clocks in DECODE_CASES:
+    for case, B, H, nb, bs, D, clocks in DECODE_CASES:
         for name, dtype in (("fp32", torch.float32),
                             ("bf16", torch.bfloat16)):
             where = f"paged_decode {case} {name}"
             q, k, v, table, pos = _decode_case(dtype, flush.device, B=B,
-                                               nb=nb, bs=bs, D=D,
+                                               H=H, nb=nb, bs=bs, D=D,
                                                clocks=clocks)
             got = paged_decode_attention(q, k, v, table, pos, impl="cuda")
             ref = paged_decode_attention(q, k, v, table, pos, impl="torch")
@@ -911,11 +953,11 @@ def phase_kernel(flush):
                       f"{where}: row {r} alone differs from the B={B} "
                       "launch")
             cases[f"{case}/{name}"] = {
-                "B": B, "H": HEADS, "nb": nb, "bs": bs, "D": D,
+                "B": B, "H": H, "nb": nb, "bs": bs, "D": D,
                 "split_plan": split_plan(nb, bs), "max_abs_err": err,
                 "row_alone_bitwise": True,
                 "clocks": [int(x) for x in pos.tolist()]}
-            if case != "engine":
+            if case not in DECODE_TIMED:
                 continue
             kc = gather_block_cache(k, table).float()
             vc = gather_block_cache(v, table).float()
@@ -936,7 +978,7 @@ def phase_kernel(flush):
             }
             res.update(_bound(q, k, table, pos))
             res["bound_us"] = res["bound_ms"] * 1e3
-            out[name] = res
+            out[name if case == "engine" else f"{case}/{name}"] = res
     emit("kernel", shape={"B": SLOTS, "H": HEADS, "nb": MAX_LEN // BLOCK,
                           "bs": BLOCK, "D": DIM // HEADS},
          tolerance=KERNEL_TOL, cases=cases, **out)
@@ -978,18 +1020,71 @@ def _rel_err(got, ref) -> float:
                                                                  1e-30)
 
 
-def _ulp_stats(got, ref) -> dict:
+def _ulp_stats(got, ref, term=None) -> dict:
     """got (bf16) against ref (fp32): the largest error in bf16 ulps of
     max(|ref|, the RMS of ref's row, 2^-8 of ref's RMS), and the share
-    of elements unequal to ref rounded to bf16."""
+    of elements unequal to ref rounded to bf16. With `term` (each
+    element's largest term) the ulp is that of max(that scale, term),
+    and the reading on the scale without it is `max_ulps_row`."""
     import torch
+
+    def max_ulps(mag):
+        ulp = torch.exp2(torch.floor(torch.log2(mag.clamp_min(1e-30))) - 7)
+        return float(((got.float() - r).abs() / ulp).max())
 
     r = ref.float()
     mag = torch.maximum(r.abs(), r.pow(2).mean(-1, keepdim=True).sqrt())
     mag = torch.maximum(mag, 2.0 ** -8 * r.pow(2).mean().sqrt())
-    ulp = torch.exp2(torch.floor(torch.log2(mag.clamp_min(1e-30))) - 7)
-    return {"max_ulps": float(((got.float() - r).abs() / ulp).max()),
-            "mismatch": float((got != r.to(got.dtype)).float().mean())}
+    out = {"max_ulps": max_ulps(mag),
+           "mismatch": float((got != r.to(got.dtype)).float().mean())}
+    if term is not None:
+        out["max_ulps_row"] = out["max_ulps"]
+        out["max_ulps"] = max_ulps(torch.maximum(mag, term))
+    return out
+
+
+def _max_product(a, b, budget=2 ** 27):
+    """max_k |a[n, i, k]| |b[n, k, d]| for a (N, I, K), b (N, K, D): a
+    matrix product with max in place of the sum, over chunks of rows
+    of at most `budget` elements."""
+    import torch
+
+    a, b = a.abs(), b.abs()
+    n, rows, kk = a.shape
+    step = max(1, budget // (n * kk * b.shape[-1]))
+    return torch.cat([(a[:, i:i + step, :, None] * b[:, None]).amax(2)
+                      for i in range(0, rows, step)], 1)
+
+
+def _largest_terms(fa, q, k, v, o, lse, do, causal, scale):
+    """Each element's largest term, fp32, for out, dq, dk and dv, with
+    p and ds formed as `flash_backward_tiled` forms them (before their
+    bf16 rounding, which moves no term by more than its own ulp), over
+    tiles of KERNEL_BLOCK_K keys."""
+    import torch
+
+    seq_q, seq_k = q.shape[1], k.shape[1]
+    q32, do32 = q.float(), do.float()
+    delta = ((do32 * o.float()).sum(-1) * scale)[..., None]
+    out_t, dq_t = torch.zeros_like(q32), torch.zeros_like(q32)
+    dk_t = torch.empty(k.shape, dtype=torch.float32, device=k.device)
+    dv_t = torch.empty(v.shape, dtype=torch.float32, device=v.device)
+    for j0 in range(0, seq_k, fa.KERNEL_BLOCK_K):
+        kb = k[:, j0:j0 + fa.KERNEL_BLOCK_K].float()
+        vb = v[:, j0:j0 + fa.KERNEL_BLOCK_K].float()
+        p = torch.exp(torch.matmul(q32, kb.transpose(1, 2)) * scale
+                      - lse[..., None])
+        if causal:
+            p = torch.where(fa._visible(j0, kb.shape[1], seq_q, seq_k,
+                                        q.device), p, 0.0)
+        ds = p * (torch.matmul(do32 * scale, vb.transpose(1, 2)) - delta)
+        out_t = torch.maximum(out_t, _max_product(p, vb))
+        dq_t = torch.maximum(dq_t, _max_product(ds, kb))
+        dk_t[:, j0:j0 + fa.KERNEL_BLOCK_K] = _max_product(
+            ds.transpose(1, 2), q32)
+        dv_t[:, j0:j0 + fa.KERNEL_BLOCK_K] = _max_product(
+            p.transpose(1, 2), do32)
+    return out_t, dq_t, dk_t, dv_t
 
 
 def _bf16_rounding(fa, where, q, k, v, o, lse, do, grads, causal, scale,
@@ -997,15 +1092,16 @@ def _bf16_rounding(fa, where, q, k, v, o, lse, do, grads, causal, scale,
     """The bf16 kernels' out and dq/dk/dv against the tiled plain
     versions with the kernels' roundings ("matched") and without them
     ("control"), on the same inputs (the backward's o and lse are the
-    kernel's)."""
+    kernel's), each element on the scale of its largest term too."""
     res = {}
+    terms = _largest_terms(fa, q, k, v, o, lse, do, causal, scale)
     for label, rounded in (("matched", True), ("control", False)):
         fo, _ = fa.flash_forward_tiled(q, k, v, causal, scale,
                                        round_operands=rounded)
         fg = fa.flash_backward_tiled(q, k, v, o, lse, do, causal, scale,
                                      round_operands=rounded)
-        res[label] = {n: _ulp_stats(a, b) for n, a, b in zip(
-            ("out", "dq", "dk", "dv"), (o, *grads), (fo, *fg))}
+        res[label] = {n: _ulp_stats(a, b, t) for n, a, b, t in zip(
+            ("out", "dq", "dk", "dv"), (o, *grads), (fo, *fg), terms)}
     for n, st in res["matched"].items():
         check(st["max_ulps"] <= BF16_ULP_TOL,
               f"{where}: {n} {st['max_ulps']} bf16 ulps from the plain "
@@ -1137,7 +1233,7 @@ def phase_flash(flush):
             summary[key]["rounding"] = {
                 label: {st: max(x[st] for x in r["rounding"][label]
                                 .values())
-                        for st in ("max_ulps", "mismatch")}
+                        for st in ("max_ulps", "max_ulps_row", "mismatch")}
                 for label in ("matched", "control")}
     emit("flash", cases={c[0]: dict(zip(("BH", "Sq", "Sk", "D", "causal"),
                                         c[1:6])) for c in FLASH_CASES},
@@ -1942,12 +2038,13 @@ def phase_engine_spill_handoff(model, params, fp32_tokens):
     return {"spill": launches, "tree": launches_m, "handoff": launches_h}
 
 
-def _train_model(attn_impl=None):
-    """The trainer's 43M LM (TRAIN_CONFIG) on the card."""
+def _train_model(attn_impl=None, config=None):
+    """The trainer's 43M LM (`config`, default TRAIN_CONFIG) on the
+    card."""
     from bigdl_tpu_torch.models.transformer import (TransformerConfig,
                                                     TransformerLM)
 
-    return TransformerLM(TransformerConfig(**TRAIN_CONFIG),
+    return TransformerLM(TransformerConfig(**(config or TRAIN_CONFIG)),
                          attn_impl=attn_impl)
 
 
@@ -1955,6 +2052,14 @@ def phase_train_model():
     """One fp32 loss-and-grad step of the full-width LM through the
     flash kernels against the same step through the plain versions,
     from the same params and batch (FULL_PRECISION, TF32 off)."""
+    emit("train_model", **_kernel_step_check("train-model", TRAIN_CONFIG))
+
+
+def _kernel_step_check(where: str, config: dict) -> dict:
+    """phase_train_model's check of the LM built from `config`: loss
+    within TRAIN_LOSS_TOL, every gradient within TRAIN_GRAD_TOL of the
+    plain step's, one forward and BWD_LAUNCHES backward launches a
+    layer; returns the fields to emit."""
     import numpy as np
     import torch
 
@@ -1973,7 +2078,7 @@ def phase_train_model():
     params = None
     out = {}
     for impl in ("cuda", "torch"):
-        model = _train_model(impl)
+        model = _train_model(impl, config)
         if params is None:
             params = model.init_params(torch.Generator().manual_seed(0))
         p = tree_map(lambda t: t.detach().requires_grad_(), params)
@@ -1996,26 +2101,27 @@ def phase_train_model():
         for (path, _), a, b in zip(tree_leaves_with_path(params),
                                    out["cuda"][1], out["torch"][1])}
     rel = max(rels.values())
-    check(math.isfinite(out["cuda"][0]), "train-model loss not finite")
-    check(dloss <= TRAIN_LOSS_TOL, f"train-model |dloss| {dloss}")
-    check(rel <= TRAIN_GRAD_TOL, f"train-model grad rel diff {rel}")
-    layers = TRAIN_CONFIG["num_layers"]
+    check(math.isfinite(out["cuda"][0]), f"{where} loss not finite")
+    check(dloss <= TRAIN_LOSS_TOL, f"{where} |dloss| {dloss}")
+    check(rel <= TRAIN_GRAD_TOL, f"{where} grad rel diff {rel}")
+    layers = config["num_layers"]
     check(out["cuda"][2:] == (layers, layers * fa.BWD_LAUNCHES),
-          f"train-model cuda step launched {out['cuda'][2:]} kernels")
+          f"{where} cuda step launched {out['cuda'][2:]} kernels")
     check(out["torch"][2:] == (0, 0), "the plain step launched kernels")
-    emit("train_model", loss_cuda=out["cuda"][0], loss_torch=out["torch"][0],
-         loss_abs_diff=dloss, grad_max_rel_diff=rel,
-         tolerance={"loss": TRAIN_LOSS_TOL, "grad_rel": TRAIN_GRAD_TOL},
-         grad_rel_diff_by_leaf=rels, grad_floor=TRAIN_GRAD_FLOOR,
-         launches={"fwd": out["cuda"][2], "bwd": out["cuda"][3]},
-         params=int(sum(t.numel() for t in tree_leaves(params))))
+    return dict(loss_cuda=out["cuda"][0], loss_torch=out["torch"][0],
+                loss_abs_diff=dloss, grad_max_rel_diff=rel,
+                tolerance={"loss": TRAIN_LOSS_TOL,
+                           "grad_rel": TRAIN_GRAD_TOL},
+                grad_rel_diff_by_leaf=rels, grad_floor=TRAIN_GRAD_FLOOR,
+                launches={"fwd": out["cuda"][2], "bwd": out["cuda"][3]},
+                params=int(sum(t.numel() for t in tree_leaves(params))))
 
 
-def _trainer(steps: int, watch):
+def _trainer(steps: int, watch, config=None):
     """The main path: Optimizer(...).optimize() on the bench
-    configuration for `steps` steps (Trigger.max_iteration);
-    `watch(train_state)` sees the state before every step and at the
-    end."""
+    configuration (or `config`) for `steps` steps
+    (Trigger.max_iteration); `watch(train_state)` sees the state before
+    every step and at the end."""
     import torch
 
     from bigdl_tpu_torch import nn
@@ -2023,7 +2129,7 @@ def _trainer(steps: int, watch):
     from bigdl_tpu_torch.dataset.text import synthetic_next_token
     from bigdl_tpu_torch.optim import Adam, Optimizer, Trigger
 
-    model = _train_model()
+    model = _train_model(config=config)
     model.build(torch.Generator().manual_seed(0))
     samples = synthetic_next_token(TRAIN_BATCH * steps, VOCAB, TRAIN_SEQ)
     stop = Trigger.max_iteration(steps)
@@ -2041,6 +2147,16 @@ def _trainer(steps: int, watch):
 def phase_trainer():
     """TRAIN_WARMUP steps, then TRAIN_STEPS timed steps whose flash
     launches are counted from zero; losses read after the run."""
+    fwd, bwd, _ = _timed_trainer("trainer", TRAIN_CONFIG, TRAIN_WARMUP,
+                                 TRAIN_STEPS)
+    return fwd, bwd
+
+
+def _timed_trainer(phase: str, config: dict, warmup: int, steps: int):
+    """phase_trainer's run of the LM built from `config`: `warmup`
+    steps, then `steps` timed steps whose flash launches are counted
+    from zero, the loss gated to fall; emits `phase` and returns the
+    (forward, backward) launches and the trained model."""
     import torch
 
     from bigdl_tpu_torch.models.transformer import (
@@ -2053,41 +2169,42 @@ def phase_trainer():
         if state["loss"] is not None:
             losses.append(state["loss"])
         n = state["neval"]
-        if n == TRAIN_WARMUP:
+        if n == warmup:
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             fa.fwd_launches = fa.bwd_launches = 0  # main path starts here
             marks["t0"] = time.perf_counter()
-        elif n == TRAIN_WARMUP + TRAIN_STEPS:
+        elif n == warmup + steps:
             torch.cuda.synchronize()
             marks["t1"] = time.perf_counter()
             marks["launches"] = (fa.fwd_launches,  # main path ends here
                                  fa.bwd_launches)
 
-    _trainer(TRAIN_WARMUP + TRAIN_STEPS, on_step)
+    model = _trainer(warmup + steps, on_step, config)
     losses = [float(v) for v in losses]
     dt = marks["t1"] - marks["t0"]
     fwd, bwd = marks["launches"]
-    layers = TRAIN_CONFIG["num_layers"]
-    check(len(losses) == TRAIN_WARMUP + TRAIN_STEPS
+    layers = config["num_layers"]
+    check(len(losses) == warmup + steps
           and all(math.isfinite(v) for v in losses),
-          f"trainer losses not all finite: {losses}")
-    check(losses[-1] < losses[0], f"trainer loss did not fall: {losses}")
-    check(fwd == TRAIN_STEPS * layers,
-          f"forward launches {fwd} != {TRAIN_STEPS} steps x {layers}")
-    check(bwd == TRAIN_STEPS * layers * fa.BWD_LAUNCHES,
-          f"backward launches {bwd} != {TRAIN_STEPS} x {layers} x "
+          f"{phase} losses not all finite: {losses}")
+    check(losses[-1] < losses[0], f"{phase} loss did not fall: {losses}")
+    check(fwd == steps * layers,
+          f"forward launches {fwd} != {steps} steps x {layers}")
+    check(bwd == steps * layers * fa.BWD_LAUNCHES,
+          f"backward launches {bwd} != {steps} x {layers} x "
           f"{fa.BWD_LAUNCHES}")
-    tokens = TRAIN_STEPS * TRAIN_BATCH * TRAIN_SEQ
+    tokens = steps * TRAIN_BATCH * TRAIN_SEQ
     flops = lm_train_matmul_flops_per_token(
-        TransformerConfig(**TRAIN_CONFIG)) * tokens
-    emit("trainer", steps=TRAIN_STEPS, warmup_steps=TRAIN_WARMUP,
-         batch=TRAIN_BATCH, seq=TRAIN_SEQ, seconds=dt,
-         step_ms=dt / TRAIN_STEPS * 1e3, tokens_per_sec=tokens / dt,
+        TransformerConfig(**config)) * tokens
+    emit(phase, steps=steps, warmup_steps=warmup,
+         batch=TRAIN_BATCH, seq=TRAIN_SEQ, heads=config["num_heads"],
+         seconds=dt, step_ms=dt / steps * 1e3,
+         tokens_per_sec=tokens / dt,
          model_flops_share=flops / dt / BF16_FLOPS_PER_S,
          peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
          launches={"fwd": fwd, "bwd": bwd}, losses=losses)
-    return fwd, bwd
+    return fwd, bwd, model
 
 
 def phase_train_profile():
@@ -4481,6 +4598,7 @@ def phase_inception_profile():
     dev = prof.get("device_ms")
     share = (lambda ms: sum(ms) / dev) if isinstance(dev, float) \
         else (lambda ms: "not measured")
+    torch.cuda.synchronize()
     emit("inception_profile", batch=b, step=prof,
          lrn_ms=lrn_ms, lrn_share_of_step_device=share(lrn_ms),
          concat_ms=cat_ms, concat_share_of_step_device=share(cat_ms),
@@ -5063,6 +5181,7 @@ def phase_text_lm():
             .set_end_when(Trigger.max_iteration(3)).optimize()
 
     profiled = _profile_call(three_steps, "text_lm_trace.json")
+    torch.cuda.synchronize()
     emit("text_lm", sentences=TEXT_SENTENCES, words=n_words,
          distinct_words=TEXT_WORDS, vocab=d.vocab_size(),
          corpus_and_dictionary_s=corpus_s, steps=TEXT_STEPS,
@@ -7462,7 +7581,8 @@ def phase_fleet(model, params):
                 check(res.id not in got, f"fleet: request {res.id} "
                       "reached a second terminal")
                 got[res.id] = res
-            step_wall += time.perf_counter() - t0
+            # router.step() ends in each engine's per-step token fetch
+            step_wall += time.perf_counter() - t0  # graftlint: disable=unfenced-timing
             rounds += 1
             asc.observe()
             sampler.tick()
@@ -8294,7 +8414,8 @@ def phase_vision_fleet(model, params):
                     check(res.id not in got, f"vision_fleet: request "
                           f"{res.id} settled twice")
                     got[res.id] = res
-                step_wall += time.perf_counter() - s0
+                # router.step() ends in each engine's per-step fetch
+                step_wall += time.perf_counter() - s0  # graftlint: disable=unfenced-timing
             torch.cuda.synchronize()
             seconds = time.perf_counter() - t0
             out = {"lm": {}, "vision": {}}
@@ -9084,6 +9205,90 @@ def phase_model_import():
     emit("model_import", **out, seconds=time.perf_counter() - t_phase)
 
 
+# --------------------------------------------------- the LM at two heads
+# The trainer's 43M LM (TRAIN_CONFIG) at two heads: the same widths and
+# parameter count, head_dim 512 / 2 = 256, so its attention runs the
+# D = 256 instantiations of the flash kernels (K2-K5) in training and
+# of the paged-decode kernel (K1) in serving.
+LM2H_CONFIG = dict(TRAIN_CONFIG, num_heads=2)
+LM2H_WARMUP, LM2H_STEPS = 2, 10    # the trainer's
+LM2H_REQUESTS = 8                  # greedy requests served afterwards
+
+
+def phase_lm2h():
+    """The LM at two heads: one fp32 loss-and-grad step through the
+    kernels against the plain step (the trainer's tolerances), then
+    LM2H_WARMUP + LM2H_STEPS bf16 steps through
+    `Optimizer(...).optimize()` (flash launches counted from zero, the
+    loss must fall), then LM2H_REQUESTS greedy requests served from the
+    trained weights by `InferenceEngine` at the engine's knobs (K1
+    launches counted from zero, == decode steps x layers), whose tokens
+    must equal those of a plain-attention engine on the same weights.
+    Returns the launch counts of the three main paths."""
+    import torch
+
+    from bigdl_tpu_torch.serving import InferenceEngine, Request
+
+    t0 = time.perf_counter()
+    step = _kernel_step_check("lm2h", LM2H_CONFIG)
+    fwd, bwd, model = _timed_trainer("lm2h_trainer", LM2H_CONFIG,
+                                     LM2H_WARMUP, LM2H_STEPS)
+    params = model.variables["params"]
+    reqs = _wave(300)[:LM2H_REQUESTS]
+    eng = InferenceEngine(model, params, max_len=MAX_LEN, **ENGINE_KNOBS)
+    check(eng.attn_impl == "cuda", "lm2h: engine attn_impl is not cuda")
+    res, dt, steps, launches = _timed_run(eng, reqs)   # the main path
+    layers = LM2H_CONFIG["num_layers"]
+    check(launches > 0 and launches == steps * layers,
+          f"lm2h: K1 launches {launches} != decode steps {steps} x "
+          f"{layers} layers")
+    plain = InferenceEngine(model, params, max_len=MAX_LEN,
+                            attn_impl="torch", **ENGINE_KNOBS)
+    ref = plain.run([Request(**r) for r in reqs])
+    for a, b in zip(res, ref):
+        check(a.status == "done" and len(a.tokens) == NEW_TOKENS,
+              f"lm2h: request {a.id} {a.status}, {len(a.tokens)} tokens")
+        first = next((i for i, (x, y) in enumerate(zip(a.tokens, b.tokens))
+                      if x != y), None)
+        check(a.tokens == b.tokens,
+              f"lm2h: request {a.id}'s tokens differ from the plain "
+              f"engine's from token {first}")
+    n_tok = sum(len(r.tokens) for r in res)
+    torch.cuda.synchronize()
+    emit("lm2h", heads=LM2H_CONFIG["num_heads"],
+         head_dim=LM2H_CONFIG["dim"] // LM2H_CONFIG["num_heads"],
+         fp32_step=step, serving={
+             "requests": len(res), "new_tokens": n_tok, "seconds": dt,
+             "tokens_per_sec": n_tok / dt, "decode_steps": steps,
+             "step_ms": dt / steps * 1e3, "kernel_launches": launches,
+             "plain_engine_tokens_equal": True},
+         seconds=time.perf_counter() - t0)
+    return {"fwd": fwd, "bwd": bwd, "decode": launches}
+
+
+# ---------------------------------------------------------------- lint
+LINT_TIMEOUT_S = 120
+
+
+def phase_lint():
+    """The port's static analysis (`python -m bigdl_tpu_torch.analysis`,
+    pure stdlib) over the port's tree on this machine, which has no
+    JAX: it must exit 0, clean against its baseline."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "bigdl_tpu_torch.analysis", "--format",
+         "json", "--root", str(ROOT)], cwd=ROOT, capture_output=True,
+        text=True, timeout=LINT_TIMEOUT_S)
+    seconds = time.perf_counter() - t0
+    check(proc.returncode == 0,
+          f"lint: exit {proc.returncode}: {proc.stdout[-2000:]}"
+          f"{proc.stderr[-2000:]}")
+    report = json.loads(proc.stdout)
+    check(not report["findings"] and not report["stale_baseline"],
+          f"lint: findings {report['findings'][:5]}")
+    emit("lint", seconds=seconds, counts=report["counts"])
+
+
 def main() -> int:
     import torch
 
@@ -9222,6 +9427,10 @@ def main() -> int:
     del keras_model
     torch.cuda.empty_cache()
     phase_model_import()
+    torch.cuda.empty_cache()
+    lm2h = phase_lm2h()
+    torch.cuda.empty_cache()
+    phase_lint()
     fp32 = kern["fp32"]
     # the flash rows: the trainer's shape in its compute dtype (bf16)
     row = flash["train/bf16"]
@@ -9280,6 +9489,37 @@ def main() -> int:
         "bound_by": row["bwd"]["bound_by"],
         "library_ms": row["sdpa_bwd_ms"],
     }]
+    # the D = 256 instantiations at the LM-at-two-heads shapes: K2/K3 at
+    # its trainer's (BH = 16, S = 2048, bf16), K1 at its engine's (8
+    # slots, 2 heads, fp32 pool); launches from the lm2h phase's paths,
+    # each counted from 0
+    row, d256 = flash["train_h2/bf16"], kern["heads2/fp32"]
+    kernels += [{
+        "name": "paged_decode_d256", "route": "cuda",
+        "source": "bigdl_tpu_torch/ops/csrc/paged_decode.cu",
+        "design": DECODE_DESIGN,
+        "replaces": "bigdl_tpu/ops/paged_decode.py:95",
+        "launches": lm2h["decode"],
+        "max_abs_err": max(d256["max_abs_err"],
+                           kern["heads2/bf16"]["max_abs_err"]),
+        "ms": d256["kernel_ms"], "plain_ms": d256["torch_ms"],
+        "bound_ms": d256["bound_ms"], "bound_by": d256["bound_by"],
+        "library_ms": d256["library_ms"],
+    }] + [{
+        "name": f"flash_attention_{kind}_d256", "route": "cuda",
+        "source": "bigdl_tpu_torch/ops/csrc/flash_attention.cu",
+        "design": FLASH_D256_DESIGN[kind],
+        "replaces": {"fwd": "bigdl_tpu/ops/flash_attention.py:118",
+                     "bwd": "bigdl_tpu/ops/flash_attention.py:450 :341 "
+                            ":374"}[kind],
+        "launches": lm2h[kind],
+        "max_abs_err": row["out_max_abs_err" if kind == "fwd"
+                           else "grad_max_abs_err"],
+        "ms": row[f"{kind}_ms"], "plain_ms": row[f"plain_{kind}_ms"],
+        "bound_ms": row[kind]["bound_ms"],
+        "bound_by": row[kind]["bound_by"],
+        "library_ms": row[f"sdpa_{kind}_ms"],
+    } for kind in ("fwd", "bwd")]
     # the LSTM rows, each at the shape its main path gives it, in the
     # compute dtype (bf16): K6/K7 at the LSTM LM's (N = 32, T = 64, one
     # direction), K8/K9 at the BiLSTM trainer's (N = T = 128, two); errors

@@ -231,12 +231,13 @@ def test_padded_head_dim_is_bitwise_the_unpadded(d, causal):
 
 
 def test_head_dim_limit_names_it():
-    assert [tfa.kernel_head_dim(d) for d in (1, 32, 33, 64, 65, 128)] \
-        == [32, 32, 64, 64, 128, 128]
-    with pytest.raises(ValueError, match="head_dim <= 128"):
-        tfa.kernel_head_dim(160)
-    with pytest.raises(ValueError, match="head_dim <= 128"):
-        tfa.flash_fwd_cuda(*(torch.zeros(2, 4, 160) for _ in "qkv"),
+    assert [tfa.kernel_head_dim(d) for d in (1, 32, 33, 64, 65, 128, 129,
+                                             160, 255, 256)] \
+        == [32, 32, 64, 64, 128, 128, 256, 256, 256, 256]
+    with pytest.raises(ValueError, match="head_dim <= 256"):
+        tfa.kernel_head_dim(257)
+    with pytest.raises(ValueError, match="head_dim <= 256"):
+        tfa.flash_fwd_cuda(*(torch.zeros(2, 4, 257) for _ in "qkv"),
                            False, 0.1)
 
 

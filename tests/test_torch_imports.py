@@ -79,6 +79,19 @@ NEW_IN_SLICE_19 = ("obs/events.py", "obs/exposition.py",
                    "serving/speculative.py")
 NEW_IN_SLICE_20 = ("serving/distill.py", "serving/vision.py",
                    "serving/scenarios.py", "serving/sim.py")
+NEW_IN_SLICE_21 = ("analysis/__init__.py", "analysis/__main__.py",
+                   "analysis/astutil.py", "analysis/engine.py",
+                   "analysis/project.py", "analysis/rules/__init__.py",
+                   "analysis/rules/_common.py",
+                   "analysis/rules/event_kind_contract.py",
+                   "analysis/rules/hidden_device_sync.py",
+                   "analysis/rules/lock_discipline.py",
+                   "analysis/rules/metric_family_contract.py",
+                   "analysis/rules/missing_reference_docstring.py",
+                   "analysis/rules/nondeterministic_drill.py",
+                   "analysis/rules/telemetry_bypass.py",
+                   "analysis/rules/tf_import_in_core.py",
+                   "analysis/rules/unfenced_timing.py")
 
 
 def _banned(module: str) -> bool:
@@ -97,7 +110,7 @@ def test_port_files_exist():
         | set(NEW_IN_SLICE_14) | set(NEW_IN_SLICE_15) \
         | set(NEW_IN_SLICE_16) | set(NEW_IN_SLICE_17) \
         | set(NEW_IN_SLICE_18) | set(NEW_IN_SLICE_19) \
-        | set(NEW_IN_SLICE_20) <= scanned
+        | set(NEW_IN_SLICE_20) | set(NEW_IN_SLICE_21) <= scanned
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -170,7 +183,10 @@ def test_port_import_loads_no_jax():
             "bigdl_tpu_torch.serving.distill, "
             "bigdl_tpu_torch.serving.vision, "
             "bigdl_tpu_torch.serving.scenarios, "
-            "bigdl_tpu_torch.serving.sim; "
+            "bigdl_tpu_torch.serving.sim, bigdl_tpu_torch.analysis, "
+            "bigdl_tpu_torch.analysis.__main__, "
+            "bigdl_tpu_torch.analysis.project, "
+            "bigdl_tpu_torch.analysis.rules; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{BANNED!r} or m.startswith('google.protobuf')]; "
             "assert not bad, bad")

@@ -53,19 +53,15 @@ def test_port_mesh_leg_matches_the_reference(tmp_path, port_runs, leg):
     ref = td.jax_leg(tmp_path, leg)
     got = _over_ranks(port_runs, leg)
     if leg == "ckpt_async_torn":
-        # two structural differences, each held to its own count:
-        # - the JAX process's one writer dies after the first of its 8
-        #   shard units, each of the port's 8 writers after its own, so
-        #   the port records WORLD - 1 more shard events;
-        # - the port's DistriOptimizer on more than one rank waits for a
-        #   sharded save on every rank before any rank goes on, so the
-        #   torn writer's error surfaces at its own save (step 4), where
-        #   the JAX run surfaces it at the next save (step 6): the port
-        #   records 4 train_step events, the reference 6
+        # one structural difference, held to its own count: the JAX
+        # process's one writer dies after the first of its 8 shard
+        # units, each of the port's 8 writers after its own, so the
+        # port records WORLD - 1 more shard events. The save overlaps
+        # the next steps on every rank, so the torn writer's error
+        # surfaces at the next save (step 6) in both packages
         ev, want = dict(got["events"]), ref["events"]
         assert ev["checkpoint_save"] == want["checkpoint_save"] + WORLD - 1
-        assert (ev["train_step"], want["train_step"]) == (4, 6)
-        ev.update(checkpoint_save=want["checkpoint_save"],
-                  train_step=want["train_step"])
+        assert ev["train_step"] == want["train_step"]
+        ev.update(checkpoint_save=want["checkpoint_save"])
         got["events"] = ev
     td.check_training_leg(tmp_path, leg, got, ref)
