@@ -9,9 +9,10 @@ explicitly seeded (np.random.RandomState(seed), a seeded
 torch.Generator). A `time.time()` or bare `random.random()` on those
 paths reintroduces run-to-run drift. The scope is the serving plane
 (engine, router, autoscaler, tenancy, speculation, scenarios and the
-simulator, whose simulated time IS the injected clock), the fault plan
-and `obs/slo.py` (alert evaluation is a pure function of the sampler's
-window and the injected clock).
+simulator, whose simulated time IS the injected clock), the fault plan,
+`obs/slo.py` (alert evaluation is a pure function of the sampler's
+window and the injected clock) and the scripts that replay on the
+virtual clock, `scripts/fault_drill.py` and `scripts/loadgen.py`.
 
 Allowed: *references* to clock functions (e.g. the
 `clock: Callable = time.monotonic` default — that IS the injection
@@ -44,7 +45,9 @@ class NondeterministicDrill(Rule):
                    "code — use the injectable clock / seeded streams")
     scope = ("bigdl_tpu_torch/serving/",
              "bigdl_tpu_torch/utils/faults.py",
-             "bigdl_tpu_torch/obs/slo.py")
+             "bigdl_tpu_torch/obs/slo.py",
+             "bigdl_tpu_torch/scripts/fault_drill.py",
+             "bigdl_tpu_torch/scripts/loadgen.py")
 
     def check(self, ctx):
         for node in ast.walk(ctx.tree):

@@ -63,8 +63,9 @@ constexpr int kThreads = 128;
 constexpr int kStages = 4;
 constexpr int kMaxSplits = 8;  // portable cluster size
 
-// How a key row of D elements of T is read: kC 16-byte chunks a row,
-// kG threads a key (the largest power of two <= 32 dividing kC), kCPT
+// How a key row of D elements of T is read: kC 16-byte chunks a row
+// (1 for a bf16 row of D = 8), kG threads a key (the largest power of two
+// <= 32 dividing kC: 1 or 2 threads a key at D = 8 and 16), kCPT
 // chunks a thread; kP groups a CTA, each taking kKPG keys a stage of kSK
 // keys. Mirrored by ops/paged_decode.py `_stage_keys`.
 template <typename T, int D>
@@ -73,7 +74,9 @@ struct Geo {
   static constexpr int kG = kC % 32 == 0 ? 32
                             : kC % 16 == 0 ? 16
                             : kC % 8 == 0  ? 8
-                                           : 4;
+                            : kC % 4 == 0  ? 4
+                            : kC % 2 == 0  ? 2
+                                           : 1;
   static constexpr int kCPT = kC / kG;
   static constexpr int kEPC = 16 / (int)sizeof(T);  // elements a chunk
   static constexpr int kE = kCPT * kEPC;             // elements a thread
@@ -81,6 +84,11 @@ struct Geo {
   static constexpr int kKPG = kCPT <= 2 ? 2 : 1;
   static constexpr int kSK = kP * kKPG;
   static constexpr int kStageElems = 2 * kSK * D;  // K then V
+  static_assert(kC >= 1 && kC % kG == 0, "a key row is whole 16-byte chunks");
+  // after the sweep the ring holds the group partials (m, l, acc[D])
+  static_assert((2 + D) * kP * sizeof(float) <=
+                    kStages * kStageElems * sizeof(T),
+                "the ring holds the group partials");
 };
 
 // 16 bytes of T as fp32
@@ -347,6 +355,8 @@ cudaError_t launch_for_width(int D, const void* q, const void* k_pool,
   case W:                                                                  \
     return launch<T, W>(q, k_pool, v_pool, table, pos, out, B, H, nb, bs, \
                         splits, span, sm_scale, stream);
+    BIGDL_PD_CASE(8)
+    BIGDL_PD_CASE(16)
     BIGDL_PD_CASE(32)
     BIGDL_PD_CASE(64)
     BIGDL_PD_CASE(96)
@@ -364,8 +374,8 @@ cudaError_t launch_for_width(int D, const void* q, const void* k_pool,
 }  // namespace
 
 // C entry point, bound with ctypes by bigdl_tpu_torch/ops/paged_decode.py.
-// The wrapper checks device, dtypes, contiguity, D % 32 == 0, D <= 256
-// and the shared-memory size, and passes its split plan (splits CTAs of
+// The wrapper checks device, dtypes, contiguity, D in HEAD_DIMS (8, 16
+// and the multiples of 32 up to 256) and the shared-memory size, and passes its split plan (splits CTAs of
 // span keys a (row, head)), before calling. Returns the cudaError_t of
 // the launch (0 on success); the kernel runs on `stream` and nothing
 // here synchronises.
@@ -375,7 +385,8 @@ extern "C" int bigdl_paged_decode(const void* q, const void* k_pool,
                                   int nb, int bs, int D, int splits,
                                   int span, float sm_scale, int pool_is_bf16,
                                   void* stream) {
-  if (D % 32 != 0 || D < 32 || D > 256 || B < 1 || H < 1 || nb < 1 ||
+  if (!(D == 8 || D == 16 || (D % 32 == 0 && D >= 32 && D <= 256)) ||
+      B < 1 || H < 1 || nb < 1 ||
       bs < 1 || splits < 1 || splits > kMaxSplits || span < 1 ||
       (long long)splits * span < (long long)nb * bs ||
       (long long)(splits - 1) * span >= (long long)nb * bs)

@@ -21,7 +21,8 @@ batch extent or the clocks, and it has no tiles to choose.
 
 `launches` counts kernel launches (a plain int, incremented only where
 the kernel is launched), so a run can show that its decode path went
-through the kernel.
+through the kernel; `launches_by_head_dim` splits the same count by the
+head dim (the instantiation) launched.
 """
 
 from __future__ import annotations
@@ -35,6 +36,9 @@ from bigdl_tpu_torch.ops import _build
 from bigdl_tpu_torch.ops.kv_cache import paged_attention
 
 IMPLS = ("cuda", "torch")
+# the head dims csrc/paged_decode.cu instantiates: 8 and 16 (the tiny
+# serving LMs of bigdl_tpu_torch/scripts/) and the multiples of 32 to 256
+HEAD_DIMS = (8, 16) + tuple(range(32, 257, 32))
 # shared memory one CTA may use on Hopper (227 KB, opt-in above 48 KB)
 MAX_SHARED_BYTES = 232448
 # csrc/paged_decode.cu: threads a CTA, ring stages, the portable cluster
@@ -46,6 +50,7 @@ _THREADS, _STAGES, MAX_SPLITS = 128, 4, 8
 SPLIT_MIN_KEYS, SPLIT_ALIGN = 64, 16
 
 launches = 0
+launches_by_head_dim: dict = {}
 
 
 def _lib() -> ctypes.CDLL:
@@ -80,7 +85,7 @@ def _stage_keys(head_dim: int, itemsize: int) -> int:
     largest power of two <= 32 threads dividing that count; each group
     of threads takes 2 keys a stage (1 when a thread reads > 2 chunks)."""
     chunks = head_dim * itemsize // 16
-    group = next(g for g in (32, 16, 8, 4) if chunks % g == 0)
+    group = next(g for g in (32, 16, 8, 4, 2, 1) if chunks % g == 0)
     return _THREADS // group * (2 if chunks // group <= 2 else 1)
 
 
@@ -130,9 +135,9 @@ def _check(q, k_pool, v_pool, table, pos) -> None:
             f"paged_decode shapes disagree: q {tuple(q.shape)}, pools "
             f"{tuple(k_pool.shape)}/{tuple(v_pool.shape)}, table "
             f"{tuple(table.shape)}, pos {tuple(pos.shape)}")
-    if d % 32 or d > 256:
-        raise ValueError(f"paged_decode impl='cuda' needs head_dim a "
-                         f"multiple of 32 and <= 256, got {d}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"paged_decode impl='cuda' needs head_dim in "
+                         f"{HEAD_DIMS}, got {d}")
     smem = shared_bytes(table.shape[1], bs, d, k_pool.element_size())
     if smem > MAX_SHARED_BYTES:
         raise ValueError(f"paged_decode impl='cuda': a table extent of "
@@ -163,6 +168,7 @@ def _paged_decode_cuda(q, k_pool, v_pool, table, pos,
             f"{lib.bigdl_cuda_error_string(err).decode()} (cudaError "
             f"{err})")
     launches += 1
+    launches_by_head_dim[d] = launches_by_head_dim.get(d, 0) + 1
     return out
 
 

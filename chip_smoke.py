@@ -11,6 +11,7 @@ size 1, sharded checkpoints, tensor-parallel serving at world size 1,
 the serving fleet (router, tenancy, autoscaler, the telemetry plane),
 speculative decoding with a distilled, hot-swapped draft, a vision
 group beside the LM pool, the fleet simulator's card calibration, the
+command-line scripts (load generator, report surfaces, fault drill), the
 training plane's telemetry, the keras surface, module files,
 Caffe/TensorFlow model import, and the trainer's LM at two heads (head
 dim 256) trained and served, on one NVIDIA GPU and check them; then
@@ -36,12 +37,14 @@ It drives `bigdl_tpu_torch` only (never JAX or the JAX package):
    on DECODE_CASES: the engine's shape (B=8, H=8, 37 blocks of 16,
    D=64) with ragged clocks including 0 and S-1, one key, and a 4096-key
    extent at D=128 with clocks 0, 2047 and 4095 (ranks of a cluster see
-   no key), and the engine's shape at two heads of D=256; shuffled
-   tables, a NaN scratch block 0 and NaN rows past each clock inside
-   its last page; fp32 and bf16 pools (max abs err <= 2e-5); each row
-   of a launch must be BITWISE the same row launched alone; times at
-   the engine's shape and at its two-head shape with CUDA events, L2
-   flushed before each launch;
+   no key), the engine's shape at two heads of D=256, and the scripts'
+   tiny LMs (bigdl_tpu_torch/scripts/: 4 slots, H=2, 96 keys at D=16;
+   2 slots, 64 keys at D=8); shuffled tables, a NaN scratch block 0 and
+   NaN rows past each clock inside its last page; fp32 and bf16 pools
+   (max abs err <= 2e-5); each row of a launch must be BITWISE the same
+   row launched alone; times at the engine's shape, its two-head shape
+   and the scripts' two with CUDA events, L2 flushed before each
+   launch;
 4. flash  — the flash-attention kernels (forward; backward = dk/dv +
    dq launches) against their plain versions on FLASH_CASES: the
    training shape (BH=64, S=2048, D=64, causal), a long sequence
@@ -367,8 +370,25 @@ It drives `bigdl_tpu_torch` only (never JAX or the JAX package):
    decode and prefill ms a token, card and power limit) written to
    chiprun_out/sim_calibration.json, then one seeded 24-request trace
    through a real one-engine fleet and a SimulatedEngine fleet (per-step
-   pacing): terminal counts and goodput equal, K1 exact; latency, TTFT
-   and makespan divergence beside the tolerance;
+   pacing), both through the scripts' loadgen `replay`: terminal counts
+   and goodput equal, K1 exact; latency, TTFT and makespan divergence
+   beside the tolerance;
+37f. scripts_loadgen — the scripts' load generator
+   (bigdl_tpu_torch/scripts/loadgen.py) over the fleet's 43M LM (2
+   engines x 8 slots, the autoscaler up to 3, a p99 objective): 64
+   seeded requests (greedy bursts, sampled Poisson, shared prefixes)
+   replayed twice through K1 (reports byte-identical; events to
+   chiprun_out/scripts_loadgen.jsonl) and once on plain-path engines
+   (statuses and greedy tokens equal), K1 exact; then its CLI twice at
+   once (the tiny LM, K1 at D=16): byte-identical reports;
+37g. scripts_report — obs_report and ops_console over that JSONL, twice
+   each (byte-identical, every section present), and ops_console's
+   `--url` frame against an obs.ScrapeServer;
+37h. scripts_drill — the fault drill (scripts/fault_drill.py) in this
+   process: every serving leg and the six single-process training
+   legs on the card, each ok but spec_adapt (its resume gate fails on
+   the JAX package too: reported); with one card the two tensor-
+   parallel legs skip, with their reason; K1 launched at D=8 and 16;
 38. keras — at config 4's widths: `keras.Sequential([Embedding,
    Bidirectional(LSTM), Dense])`, a keras GRU model and a two-input
    functional `Model` (BiLSTM and GRU branches merged by concat),
@@ -398,12 +418,13 @@ It drives `bigdl_tpu_torch` only (never JAX or the JAX package):
    equal to a plain-attention engine's;
 42. lint — `python -m bigdl_tpu_torch.analysis` over the port's tree
    (no JAX on this machine): clean against its baseline;
-43. kernels — one JSON line per the port's kernel table, the D = 256
-   instantiations in rows of their own.
+43. kernels — one JSON line per the port's kernel table, the D = 256,
+   16 and 8 instantiations in rows of their own.
 
-Every phase prints one JSON line; any failed check raises and the
-script exits non-zero. The last lines are the `nvidia-smi` name/power
-limit and `{"ok": true, "device": {...}}`. Full results, with the
+Every phase prints one JSON line (`at_s`: the script's seconds when
+it ended); any failed check raises and the script exits non-zero. The
+last lines are the `nvidia-smi` name/power limit and `{"ok": true,
+"device": {...}}`. Full results, with the
 compiler's register report, go to chiprun_out/chip_smoke.json.
 TF32 is off for matmuls and cuDNN, so fp32 means fp32 throughout.
 """
@@ -444,16 +465,20 @@ LOGIT_TOL = 1e-4
 # timed; "one_key" a table of one block with clock 0; "long" a 4096-key
 # extent at D = 128 with clocks 0, 2047 and 4095, so that ranks of a
 # cluster see no key; "heads2" the engine's shape for the LM at two
-# heads (D = 256, the lm2h phase's serving path), timed. Every case has
-# the NaN scratch block and NaN rows past each clock inside its last
-# page.
+# heads (D = 256, the lm2h phase's serving path), timed; "d16" and "d8"
+# the scripts' tiny serving LMs (bigdl_tpu_torch/scripts/: the target,
+# 2 heads of 16, 4 slots over a 96-token cache; the speculative draft,
+# 2 heads of 8, 2 slots over 64), timed. Every case has the NaN scratch
+# block and NaN rows past each clock inside its last page.
 DECODE_CASES = (
     ("engine", SLOTS, HEADS, MAX_LEN // BLOCK, BLOCK, DIM // HEADS, None),
     ("one_key", 1, HEADS, 1, BLOCK, DIM // HEADS, (0,)),
     ("long", 3, HEADS, 4096 // BLOCK, BLOCK, 128, (0, 2047, 4095)),
     ("heads2", SLOTS, 2, MAX_LEN // BLOCK, BLOCK, DIM // 2, None),
+    ("d16", 4, 2, 96 // BLOCK, BLOCK, 16, None),
+    ("d8", 2, 2, 64 // BLOCK, BLOCK, 8, None),
 )
-DECODE_TIMED = ("engine", "heads2")
+DECODE_TIMED = ("engine", "heads2", "d16", "d8")
 # the design of the K1 row of the kernels line
 DECODE_DESIGN = ("S split over a thread-block cluster (split_plan: <= 8 "
                  "CTAs a (row, head), by the table extent alone), pages "
@@ -693,9 +718,14 @@ GRU_VALID_EVERY, GRU_VALID_BATCHES = 6, 2
 HOST_COVER_CYCLES = 500_000
 
 RESULTS: dict = {}
+_T0 = time.perf_counter()
 
 
 def emit(phase: str, **fields) -> None:
+    """Record and print a phase's result line; `at_s` is the script's
+    seconds when the phase ended (a phase's seconds: the difference to
+    the line before)."""
+    fields["at_s"] = time.perf_counter() - _T0
     RESULTS[phase] = fields
     print(json.dumps({"phase": phase, **fields}), flush=True)
 
@@ -848,8 +878,8 @@ def phase_build():
         others.update({name: {**r, **tc.get(name, {})} for name, r in
                        _ptxas_report(_build.BUILD_LOG[src]).items()
                        if name.startswith(prefix)})
-    for name in ("paged_decode_kernel<float,64>",
-                 "paged_decode_kernel<bf16,64>", *RNN_BUILT_KERNELS):
+    for name in (*(f"paged_decode_kernel<{t},{d}>" for t in ("float", "bf16")
+                   for d in (8, 16, 64)), *RNN_BUILT_KERNELS):
         check(name in others, f"no {name} in the ptxas report")
     for name, r in others.items():
         check(r.get("spill_bytes") == 0,
@@ -8492,52 +8522,6 @@ SIMCAL_TRACE = {"name": "simcal", "seed": 3, "shapes": [
     {"kind": "steady", "n": 24, "t0": 0.0, "rate": 6.0}]}
 
 
-def _simcal_pctl(xs, q):
-    """The load report's nearest-rank percentile."""
-    if not xs:
-        return None
-    s = sorted(xs)
-    return round(s[min(len(s) - 1, max(0, math.ceil(q * len(s)) - 1))], 6)
-
-
-def _simcal_replay(router, trace, clk):
-    """The load generator's replay loop for a trace with no sessions or
-    timeline: submit what is due, jump idle gaps to the next arrival,
-    else advance the virtual clock SIMCAL_STEP_DT and step the router;
-    then the report's statuses, goodput, latency and TTFT percentiles
-    and makespan."""
-    import heapq
-
-    from bigdl_tpu_torch.serving import Request
-
-    heap = [(a.t, i, a) for i, a in enumerate(trace["arrivals"])]
-    heapq.heapify(heap)
-    results, n = {}, len(heap)
-    while len(results) < n:
-        while heap and heap[0][0] <= clk.t + 1e-9:
-            _, _, a = heapq.heappop(heap)
-            router.submit(Request(**a.spec))
-        if heap and heap[0][0] > clk.t \
-                and all(e.idle for e in router.engines):
-            clk.t = heap[0][0]
-            continue
-        clk.t = round(clk.t + SIMCAL_STEP_DT, 9)
-        for res in router.step():
-            results[res.id] = res
-    done = [r for r in results.values() if r.status == "done"]
-    by_status = {}
-    for r in results.values():
-        by_status[r.status] = by_status.get(r.status, 0) + 1
-    lat = [r.latency_s for r in done if r.latency_s is not None]
-    ttft = [r.ttft_s for r in done if r.ttft_s is not None]
-    return {"by_status": by_status,
-            "goodput_tokens": sum(len(r.tokens) for r in done),
-            "latency_p50_s": _simcal_pctl(lat, 0.50),
-            "latency_p99_s": _simcal_pctl(lat, 0.99),
-            "ttft_p50_s": _simcal_pctl(ttft, 0.50),
-            "makespan_s": round(clk.t, 6)}
-
-
 def phase_sim_calibration(model, params):
     """The fleet simulator (serving/sim.py) calibrated on the card: the
     43M engine's decode ms a token and prefill ms a prompt token, read
@@ -8549,7 +8533,9 @@ def phase_sim_calibration(model, params):
     SIMCAL_TRACE: Poisson at 6/s, the load generator's request fields)
     replays through a real one-engine fleet of the 43M LM (SIMCAL_SLOTS
     slots, K1) and through a SimulatedEngine fleet over this reading
-    with per-step pacing, on the same virtual clock discipline. Gates:
+    with per-step pacing, both through the scripts' load generator
+    (bigdl_tpu_torch/scripts/loadgen.py `replay`, SIMCAL_STEP_DT virtual
+    seconds a round) and its report. Gates:
     the terminal counts and the goodput tokens agree exactly; K1
     launches equal the real engine's decode steps x LAYERS. Reported:
     the relative divergence of the p50 and p99 latency, the p50 TTFT
@@ -8558,6 +8544,7 @@ def phase_sim_calibration(model, params):
     import torch
 
     from bigdl_tpu_torch.ops import paged_decode
+    from bigdl_tpu_torch.scripts.loadgen import replay
     from bigdl_tpu_torch.serving import (CostModel, EngineRouter,
                                          InferenceEngine, SimulatedEngine,
                                          compile_scenario, step_study)
@@ -8585,7 +8572,11 @@ def phase_sim_calibration(model, params):
     reports = {}
     for mode in ("real", "sim"):
         trace = compile_scenario(SIMCAL_TRACE)
-        clk = _Clock()
+        cell = {"t": 0.0}
+
+        def clk():
+            return cell["t"]
+
         if mode == "real":
             e = InferenceEngine(model, params, slots=SIMCAL_SLOTS,
                                 prefill_buckets=SIMCAL_BUCKETS,
@@ -8599,7 +8590,8 @@ def phase_sim_calibration(model, params):
         torch.cuda.synchronize()
         paged_decode.launches = 0
         t0 = time.perf_counter()
-        reports[mode] = _simcal_replay(router, trace, clk)
+        reports[mode] = replay(router, trace, clock=cell,
+                               step_dt=SIMCAL_STEP_DT)
         torch.cuda.synchronize()
         reports[mode]["wall_seconds"] = time.perf_counter() - t0
         reports[mode]["kernel_launches"] = paged_decode.launches
@@ -8622,6 +8614,325 @@ def phase_sim_calibration(model, params):
          within_tolerance={k: v <= tol for k, v in div.items()},
          seconds=time.perf_counter() - t_phase, card=reading["card"])
     return real["kernel_launches"]
+
+
+# ------------------- the command-line scripts (bigdl_tpu_torch/scripts/)
+# scripts_loadgen: the load generator's replay over the fleet phase's 43M
+# LM (2 engines of SLOTS slots, the autoscaler up to 3, a p99 objective)
+# on a trace of two seeded arrival processes, each SCRIPTS_LG_REQUESTS
+# requests behind a shared prefix of SCRIPTS_LG_PREFIX tokens: a bursty
+# greedy one and a Poisson sampled one
+SCRIPTS_LG_REQUESTS = 32
+SCRIPTS_LG_PREFIX = FLEET_CONTEXT - 56          # + a tail of 3-8 tokens
+SCRIPTS_LG_NEW = (8, 12, 16)
+SCRIPTS_LG_STEP_S = 0.5                         # virtual seconds a round
+SCRIPTS_LG_TARGET_P99_S = 6.0
+SCRIPTS_LG_CLI = ("--requests", "32", "--engines", "2", "--arrival",
+                  "bursty", "--seed", "0")
+SCRIPTS_CLI_TIMEOUT_S = 240
+# the sections the report surfaces must render for scripts_loadgen's run
+SCRIPTS_REPORT_SECTIONS = ("events by kind:", "serving:", "serving SLO:",
+                           "request journeys:", "alerts / SLO:",
+                           "prefix cache:", "metrics (last snapshot):")
+SCRIPTS_CONSOLE_SECTIONS = ("── pool ", "── SLO ", "── alerts ",
+                            "── incidents ")
+SCRIPTS_URL_SECTIONS = ("── endpoint ", "── objectives ", "── alerts ",
+                        "── pool gauges ")
+
+
+def _scripts_trace():
+    """The merged trace (loadgen.make_trace twice, arrivals in time
+    order): greedy bursts and sampled Poisson arrivals."""
+    from bigdl_tpu_torch.scripts import loadgen
+
+    kw = dict(shared_prefix_len=SCRIPTS_LG_PREFIX, vocab=VOCAB,
+              prompt_len_choices=(3, 5, 8), max_new_choices=SCRIPTS_LG_NEW,
+              priorities=(0,))
+    bursty = loadgen.make_trace(SCRIPTS_LG_REQUESTS, seed=5,
+                                arrival="bursty", burst_size=16,
+                                burst_gap_s=3.0, temperature=0.0, **kw)
+    poisson = loadgen.make_trace(SCRIPTS_LG_REQUESTS, seed=6,
+                                 arrival="poisson", rate=4.0,
+                                 temperature=0.8, **kw)
+    arrivals = sorted(bursty["arrivals"] + poisson["arrivals"],
+                      key=lambda a: a.t)
+    return {"arrivals": arrivals, "sessions": bursty["sessions"]}
+
+
+def _scripts_replay(model, params, attn_impl, jsonl=None):
+    """One replay of _scripts_trace() through a fresh fleet with engines
+    of `attn_impl`, obs on its virtual clock (the event log's file sink
+    at `jsonl`, and a metrics snapshot at the end, when given). Returns
+    (report, {prompt: (status, tokens, greedy)}, K1 launches, decode
+    steps, the obs objects the report surfaces read)."""
+    import torch
+
+    from bigdl_tpu_torch import obs
+    from bigdl_tpu_torch.ops import paged_decode
+    from bigdl_tpu_torch.scripts import loadgen
+    from bigdl_tpu_torch.serving import (Autoscaler, EngineRouter,
+                                         InferenceEngine)
+
+    cell = {"t": 0.0}
+
+    def clk():
+        return cell["t"]
+
+    trace = _scripts_trace()
+    greedy = {tuple(a.spec["prompt"]): a.spec["temperature"] == 0.0
+              for a in trace["arrivals"]}
+    obs.reset_all(clock=clk)
+    if jsonl is not None:
+        obs.set_event_log(obs.EventLog(capacity=1 << 16, path=str(jsonl),
+                                       clock=clk))
+    made = []
+
+    def engine():
+        e = InferenceEngine(model, params, slots=SLOTS,
+                            max_len=FLEET_MAX_LEN,
+                            prefill_buckets=FLEET_BUCKETS, block_size=BLOCK,
+                            clock=clk, attn_impl=attn_impl,
+                            obs_label=f"lg{len(made)}")
+        made.append(e)
+        return e
+
+    router = EngineRouter([engine(), engine()], engine_factory=engine,
+                          clock=clk, obs_label="lg")
+    asc = Autoscaler(router, target_p99_s=SCRIPTS_LG_TARGET_P99_S,
+                     max_engines=3, evaluate_every_s=SCRIPTS_LG_STEP_S)
+    step = SCRIPTS_LG_STEP_S
+    sampler = obs.MetricsSampler(interval_s=step, capacity=4096, clock=clk)
+    alerts = obs.AlertEngine(sampler, [obs.AlertRule(
+        name="p99_burn", objective=obs.SLOObjective(
+            name="p99", kind="latency_quantile",
+            metric="router_request_latency_seconds",
+            target=SCRIPTS_LG_TARGET_P99_S, q=0.99, labels={"router": "lg"}),
+        kind="burn_rate", long_window_s=20 * step, short_window_s=5 * step,
+        clear_s=5 * step)], clock=clk)
+
+    def observer():
+        sampler.tick()
+        alerts.evaluate()
+
+    got = {}
+
+    def on_result(r):
+        key = tuple(r.prompt)
+        check(key not in got, "scripts_loadgen: two results of one prompt")
+        got[key] = (r.status, list(r.tokens), greedy[key])
+
+    torch.cuda.synchronize()
+    paged_decode.launches = 0
+    report = loadgen.replay(router, trace, clock=cell, step_dt=step,
+                            autoscaler=asc, observer=observer,
+                            on_result=on_result)
+    torch.cuda.synchronize()
+    launches = paged_decode.launches
+    sampler.sample()
+    report["slo"] = {"objectives": alerts.compliance(),
+                     "alerts": {"fired": alerts.fired,
+                                "resolved": alerts.resolved}}
+    if jsonl is not None:
+        obs.log_metrics_snapshot()
+    steps = sum(e.stats["decode_steps"] for e in made)
+    return report, got, launches, steps, {
+        "registry": obs.get_registry(), "sampler": sampler,
+        "alerts": alerts, "jsonl": jsonl}
+
+
+def phase_scripts_loadgen(model, params):
+    """The scripts' load generator (bigdl_tpu_torch/scripts/loadgen.py)
+    on the card. Its make_trace/replay/_report over an EngineRouter of
+    the 43M LM at full width (the fleet phase's model: 2 engines of
+    SLOTS slots, the Autoscaler up to 3, a p99 objective ticked each
+    round), on _scripts_trace()'s 64 requests: three replays, two
+    through K1 (the first writing its events to
+    chiprun_out/scripts_loadgen.jsonl) and one on plain-path engines
+    (attn_impl="torch"). Gates: the two K1 reports byte-identical; every
+    status equal to the plain run's, and every greedy request's tokens;
+    K1 launches == decode steps x LAYERS. Then the CLI (SCRIPTS_LG_CLI:
+    the tiny LM, K1 at head dim 16) twice as subprocesses, together: the
+    two JSON reports byte-identical. Returns what scripts_report reads."""
+    from bigdl_tpu_torch import obs
+
+    t_phase = time.perf_counter()
+    OUT_DIR.mkdir(exist_ok=True)
+    jsonl = OUT_DIR / "scripts_loadgen.jsonl"
+    if jsonl.exists():
+        jsonl.unlink()
+    prev = obs.set_enabled(True)
+    try:
+        walls, runs = {}, {}
+        for name, impl, sink in (("kernel", "cuda", jsonl),
+                                 ("kernel_again", "cuda", None),
+                                 ("plain", "torch", None)):
+            t0 = time.perf_counter()
+            runs[name] = _scripts_replay(model, params, impl, sink)
+            walls[name] = time.perf_counter() - t0
+        obs.reset_all()
+    finally:
+        obs.set_enabled(prev)
+    report, got, launches, steps, ctx = runs["kernel"]
+    text = json.dumps(report, sort_keys=True)
+    check(text == json.dumps(runs["kernel_again"][0], sort_keys=True),
+          "scripts_loadgen: two replays' reports differ")
+    check(launches > 0 and launches == steps * LAYERS,
+          f"scripts_loadgen: K1 launches {launches} != decode steps "
+          f"{steps} x {LAYERS}")
+    plain = runs["plain"][1]
+    check(runs["plain"][2] == 0, "scripts_loadgen: the plain engines "
+          "launched K1")
+    check(set(plain) == set(got) and all(
+        got[k][0] == plain[k][0] for k in got),
+          "scripts_loadgen: statuses differ from the plain engines'")
+    greedy = [k for k in got if got[k][2]]
+    check(greedy and all(got[k][1] == plain[k][1] for k in greedy),
+          "scripts_loadgen: greedy tokens differ from the plain engines' "
+          f"in {sum(got[k][1] != plain[k][1] for k in greedy)} requests")
+    sampled_equal = sum(got[k][1] == plain[k][1] for k in got
+                        if not got[k][2])
+    # the CLI: two runs at once, on the card
+    t0 = time.perf_counter()
+    cmd = [sys.executable, "-m", "bigdl_tpu_torch.scripts.loadgen",
+           *SCRIPTS_LG_CLI]
+    procs = [subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for _ in range(2)]
+    outs = []
+    for p in procs:
+        try:
+            out, err = p.communicate(timeout=SCRIPTS_CLI_TIMEOUT_S)
+        finally:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        check(p.returncode == 0, f"scripts_loadgen: the CLI exited "
+              f"{p.returncode}: {err[-2000:]}")
+        outs.append(out)
+    cli_seconds = time.perf_counter() - t0
+    check(outs[0] == outs[1], "scripts_loadgen: two CLI runs' reports "
+          "differ")
+    cli = json.loads(outs[0])
+    check(cli["by_status"] == {"done": 32}, f"scripts_loadgen: CLI "
+          f"statuses {cli['by_status']}")
+    emit("scripts_loadgen", requests=report["requests"],
+         by_status=report["by_status"],
+         goodput_tokens=report["goodput_tokens"],
+         makespan_s=report["makespan_s"],
+         latency_p99_s=report["latency_p99_s"],
+         ttft_p99_s=report["ttft_p99_s"], prefix=report["prefix"],
+         autoscale=report.get("autoscale"), slo=report["slo"],
+         engines_final=report["pool"]["engines_final"],
+         reports_byte_identical=True, decode_steps=steps,
+         kernel_launches=launches, greedy_requests=len(greedy),
+         greedy_tokens_equal_plain=True,
+         sampled_requests_tokens_equal_plain=sampled_equal,
+         sampled_requests=len(got) - len(greedy),
+         replay_seconds=walls, cli=" ".join(SCRIPTS_LG_CLI),
+         cli_by_status=cli["by_status"], cli_goodput=cli["goodput_tokens"],
+         cli_byte_identical=True, cli_seconds_two_at_once=cli_seconds,
+         seconds=time.perf_counter() - t_phase, card=nvidia_smi())
+    return ctx
+
+
+def phase_scripts_report(ctx):
+    """The scripts' report surfaces (bigdl_tpu_torch/scripts/
+    obs_report.py and ops_console.py) over scripts_loadgen's JSONL:
+    obs_report's render (the stream parser) and ops_console's frame,
+    each twice, byte-identical and holding SCRIPTS_REPORT_SECTIONS /
+    SCRIPTS_CONSOLE_SECTIONS; then ops_console's `--url` source against
+    an obs.ScrapeServer over the replay's registry, sampler and alert
+    engine (localhost, port 0)."""
+    import io
+
+    from bigdl_tpu_torch import obs
+    from bigdl_tpu_torch.scripts import obs_report, ops_console
+
+    t0 = time.perf_counter()
+    path = str(ctx["jsonl"])
+    texts = [obs_report.render(obs.stream_jsonl(path)) for _ in range(2)]
+    check(texts[0] == texts[1], "scripts_report: two renders differ")
+    missing = [s for s in SCRIPTS_REPORT_SECTIONS if s not in texts[0]]
+    check(not missing, f"scripts_report: report sections {missing} "
+          "missing")
+    frames = [ops_console.render_frame(obs.read_jsonl(path))
+              for _ in range(2)]
+    check(frames[0] == frames[1], "scripts_report: two frames differ")
+    missing = [s for s in SCRIPTS_CONSOLE_SECTIONS if s not in frames[0]]
+    check(not missing, f"scripts_report: console sections {missing} "
+          "missing")
+    srv = obs.ScrapeServer(registry=ctx["registry"],
+                           sampler=ctx["sampler"],
+                           alert_engine=ctx["alerts"])
+    port = srv.start()
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = ops_console.main(["--url", f"http://127.0.0.1:{port}"])
+    finally:
+        srv.close()
+    url_frame = buf.getvalue()
+    check(rc == 0 and all(s in url_frame for s in SCRIPTS_URL_SECTIONS),
+          f"scripts_report: the --url frame (exit {rc}): {url_frame[:400]}")
+    emit("scripts_report", events=sum(1 for _ in obs.stream_jsonl(path)),
+         report_lines=len(texts[0].splitlines()),
+         console_lines=len(frames[0].splitlines()),
+         url_frame_lines=len(url_frame.splitlines()),
+         renders_byte_identical=True,
+         seconds=time.perf_counter() - t0)
+
+
+def phase_scripts_drill():
+    """The scripts' fault drill (bigdl_tpu_torch/scripts/fault_drill.py)
+    on the card, in this process: every serving leg (the tiny LM at head
+    dim 16, its draft at 8) and the six single-process training legs.
+    Gates: every leg ok but spec_adapt, whose resume gate fails on the
+    JAX package too (reported, not gated); only the tensor-parallel legs
+    may skip, and with one card they must (each printed with its
+    reason); K1 launched at head dims 8 and 16, counted from 0 over the
+    drill. The mesh legs (8 ranks, one card each) are not run here.
+    Returns K1's launches by head dim."""
+    import torch
+
+    from bigdl_tpu_torch.ops import paged_decode
+    from bigdl_tpu_torch.scripts import fault_drill
+
+    names = list(fault_drill.SERVING_LEGS) \
+        + list(fault_drill.SINGLE_PROCESS_TRAINING_LEGS)
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    paged_decode.launches = 0
+    paged_decode.launches_by_head_dim.clear()
+    results = fault_drill.run_legs(names, "cuda")
+    torch.cuda.synchronize()
+    by_dim = dict(paged_decode.launches_by_head_dim)
+    seconds = time.perf_counter() - t0
+    skipped = {n: r["skipped"] for n, r in results.items()
+               if "skipped" in r}
+    for n, why in skipped.items():
+        print(f"scripts_drill: {n} skipped: {why}", flush=True)
+    tp_legs = {"fleet_tp_failover", "fleet_journey"}
+    check(set(skipped) <= tp_legs, f"scripts_drill: skipped {skipped}")
+    check(torch.cuda.device_count() > 1 or set(skipped) == tp_legs,
+          f"scripts_drill: with one card the tp legs must skip: {skipped}")
+    failed = [n for n, r in results.items()
+              if not r["ok"] and n != "spec_adapt"]
+    check(not failed, f"scripts_drill: legs failed: {failed}: "
+          + json.dumps({n: results[n] for n in failed}, default=str)[:3000])
+    check(by_dim.get(8, 0) > 0 and by_dim.get(16, 0) > 0,
+          f"scripts_drill: K1 launches by head dim {by_dim}")
+    sa = results["spec_adapt"]
+    emit("scripts_drill", legs={n: {"ok": r["ok"],
+                                    **({"skipped": r["skipped"]}
+                                       if "skipped" in r else {})}
+                                for n, r in results.items()},
+         spec_adapt={k: sa.get(k) for k in (
+             "ok", "bit_identical_to_target_only", "requests_lost",
+             "collapsed_mid_run", "swap", "report_byte_identical")},
+         kernel_launches_by_head_dim=by_dim, seconds=seconds,
+         mesh_legs="not run: 8 ranks need 8 cards",
+         card=nvidia_smi())
+    return by_dim
 
 
 # --------------------------------------------------- the keras surface
@@ -9332,7 +9643,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     engine_launches["vision_fleet"] = phase_vision_fleet(model, params)
     engine_launches["sim_calibration"] = phase_sim_calibration(model, params)
+    torch.cuda.empty_cache()
+    scripts_ctx = phase_scripts_loadgen(model, params)
+    engine_launches["scripts_loadgen"] = \
+        RESULTS["scripts_loadgen"]["kernel_launches"]
+    phase_scripts_report(scripts_ctx)
+    del scripts_ctx
     del model, params
+    torch.cuda.empty_cache()
+    drill_launches = phase_scripts_drill()
     torch.cuda.empty_cache()
     phase_train_model()
     torch.cuda.empty_cache()
@@ -9506,6 +9825,22 @@ def main() -> int:
         "bound_ms": d256["bound_ms"], "bound_by": d256["bound_by"],
         "library_ms": d256["library_ms"],
     }] + [{
+        # K1 at the scripts' head dims (bigdl_tpu_torch/scripts/: the
+        # tiny LM's 16, its speculative draft's 8) at their shapes, fp32
+        # pools; launches from the scripts_drill phase, counted from 0
+        "name": f"paged_decode_d{d}", "route": "cuda",
+        "source": "bigdl_tpu_torch/ops/csrc/paged_decode.cu",
+        "design": DECODE_DESIGN,
+        "replaces": "bigdl_tpu/ops/paged_decode.py:95",
+        "launches": drill_launches[d],
+        "max_abs_err": max(kern[f"d{d}/fp32"]["max_abs_err"],
+                           kern[f"d{d}/bf16"]["max_abs_err"]),
+        "ms": kern[f"d{d}/fp32"]["kernel_ms"],
+        "plain_ms": kern[f"d{d}/fp32"]["torch_ms"],
+        "bound_ms": kern[f"d{d}/fp32"]["bound_ms"],
+        "bound_by": kern[f"d{d}/fp32"]["bound_by"],
+        "library_ms": kern[f"d{d}/fp32"]["library_ms"],
+    } for d in (16, 8)] + [{
         "name": f"flash_attention_{kind}_d256", "route": "cuda",
         "source": "bigdl_tpu_torch/ops/csrc/flash_attention.cu",
         "design": FLASH_D256_DESIGN[kind],

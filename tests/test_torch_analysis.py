@@ -346,3 +346,15 @@ def test_cli_lists_the_rules_and_refuses_a_missing_path():
          "bigdl_tpu_torch/no_such_file.py"],
         cwd=ROOT, capture_output=True, text=True, timeout=120)
     assert bad.returncode == 2
+
+
+@pytest.mark.parametrize("name", ["fault_drill", "loadgen"])
+def test_drill_rule_covers_the_scripts_as_the_jax_rule_does(name):
+    # the JAX rule judges scripts/<name>.py; the port's, the script it
+    # carries into the package
+    src = "import time\n\n\ndef leg():\n    return time.time()\n"
+    rule = "nondeterministic-drill"
+    want = jengine.lint_source(f"scripts/{name}.py", src,
+                               rules=[janalysis.RULES[rule]])
+    got = _port_lint(rule, f"bigdl_tpu_torch/scripts/{name}.py", src)
+    assert want and _keys(got) == _keys(want)

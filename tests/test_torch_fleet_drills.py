@@ -1,148 +1,93 @@
-"""Port re-enactments of the serving fleet's fault-drill legs
-(scripts/fault_drill.py): serve_spec, fleet_failover and fleet_drain
-here; fleet_affinity_failover, fleet_autoscale and fleet_journey in
-tests/test_torch_fleet_drills_b.py, slo_alert and tenant_noisy in
-tests/test_torch_fleet_drills_c.py, which import this file's harness
-(three files keep each under 30 s on one core).
+"""Port re-enactments of the serving fleet's fault-drill legs: serve_spec,
+fleet_failover and fleet_drain here; fleet_affinity_failover,
+fleet_autoscale and fleet_journey in tests/test_torch_fleet_drills_b.py,
+slo_alert and tenant_noisy in tests/test_torch_fleet_drills_c.py,
+scenario_chaos and spec_adapt in tests/test_torch_fleet_drills_d.py,
+the serve_* legs and fleet_tp_failover in
+tests/test_torch_scripts_drill_*.py; all import this file's harness
+(several files keep each under 30 s on one core).
 
-Each leg runs twice in this process: once as the JAX package runs it,
-and once as the PORT runs it — the same leg code from a second copy of
-the drill module, with `bigdl_tpu.serving`, `bigdl_tpu.obs` (and its
-flightrecorder, slo, timeseries and journey modules) and
-`bigdl_tpu.utils.faults` resolved to `bigdl_tpu_torch`'s for the
-duration of the leg, its tiny LMs replaced by port models carrying the
-same weights (`params_from_jax`), and its engines built on the CPU.
-The leg's own gates must pass on the port (`ok`), and every digest
-field the two packages share must be equal: statuses, event counts by
-kind, failovers, migrations, drain states, autoscale decisions and
-their p99s, alert firings and bundles, throttle actions and per-tenant
-stats. Fields that depend on sampled token VALUES are the exception:
-the port's seeded streams are its own (serving/sampler.py), so sampled
-tokens, and the speculative accept tallies they move, are held to the
-port's own target-only run by the leg itself (its bit-identity gates)
-rather than to the JAX package's.
+Each leg runs twice in this process: once as the JAX package runs it
+(scripts/fault_drill.py), and once as the PORT's own script runs it
+(bigdl_tpu_torch/scripts/fault_drill.py), configured for the CPU with
+the JAX drill's tiny LMs' weights carried in (`configure(lm=, draft=)`,
+host arrays). The leg's own gates must pass on the port (`ok`), and
+every digest field the two packages share must be equal: statuses,
+event counts by kind, failovers, migrations, drain states, autoscale
+decisions and their p99s, alert firings and bundles, throttle actions
+and per-tenant stats. Fields that depend on sampled token VALUES are
+the exception: the port's seeded streams are its own
+(serving/sampler.py), so sampled tokens, and the speculative accept
+tallies they move, are held to the port's own target-only run by the
+leg itself (its bit-identity gates) rather than to the JAX package's.
 
-`fleet_journey` serves one of its engines tensor-parallel on a
-two-device JAX mesh; the port's tensor-parallel engine needs one
-process a rank (tests/test_torch_tp_serving.py), so here both packages
-run the leg with that engine unsharded (the leg's cross-layout gate
-then cannot hold on either side and is not asserted). `scenario_chaos`
-and `spec_adapt` (which fails on the reference itself, so the port is
-held to its other gates) are in tests/test_torch_fleet_drills_d.py;
-the training legs in tests/test_torch_training_drills.py and
-tests/test_torch_training_drills_mesh.py.
+The tensor-parallel legs (fleet_tp_failover, fleet_journey) run sharded
+in both packages: the JAX one over two of conftest's CPU devices, the
+port's on two gloo ranks that its script spawns, each running the leg
+(SPMD). Neither may report `skipped`.
 """
 
 import importlib.util
 import json
-import sys
-import types
 from pathlib import Path
-from unittest import mock
 
 import jax
 import pytest
 import torch
 
-import bigdl_tpu
 import bigdl_tpu.obs
-import bigdl_tpu.serving
-import bigdl_tpu.utils
 from bigdl_tpu.utils import faults as jfaults
 from bigdl_tpu_torch import obs as tobs
-from bigdl_tpu_torch import serving as tserving
-from bigdl_tpu_torch.models.convert import params_from_jax
-from bigdl_tpu_torch.models.transformer import (TransformerConfig,
-                                                TransformerLM)
-from bigdl_tpu_torch.obs import (flightrecorder, journey, slo,
-                                 timeseries)
+from bigdl_tpu_torch.scripts import fault_drill as pdrill
 from bigdl_tpu_torch.utils import faults as tfaults
 
 DRILL = Path(__file__).resolve().parent.parent / "scripts" / "fault_drill.py"
 _MODS: dict = {}
 
 
-def _load(name):
-    spec = importlib.util.spec_from_file_location(name, DRILL)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
-
-def _port_lm(jm):
-    """A port TransformerLM carrying the JAX model's weights."""
-    c = jm.cfg
-    tm = TransformerLM(TransformerConfig(
-        vocab_size=c.vocab_size, dim=c.dim, num_heads=c.num_heads,
-        num_layers=c.num_layers, max_len=c.max_len), device="cpu")
-    tm.variables = params_from_jax(jax.device_get(jm.variables["params"]),
-                                   device="cpu")
-    return tm
-
-
-class _CpuEngine(tserving.InferenceEngine):
-    """The port engine on the CPU (the drills pass no device)."""
-
-    def __init__(self, model, variables=None, **kw):
-        kw.setdefault("device", "cpu")
-        super().__init__(model, variables, **kw)
-
-
 def _drills():
-    """(the JAX drill module, the port's copy): the port copy's tiny
-    LMs are port models with the JAX ones' weights."""
+    """(the JAX drill module, the port's script)."""
     if not _MODS:
-        jd = _load("fault_drill_jax_side")
-        pd = _load("fault_drill_port_side")
-        pd._SERVE_LM = _port_lm(jd._serve_lm())
-        pd._SERVE_DRAFT_LM = _port_lm(jd._serve_draft_lm())
-        _MODS.update(jax=jd, port=pd)
+        spec = importlib.util.spec_from_file_location("fault_drill_jax_side",
+                                                      DRILL)
+        jd = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(jd)
+        _MODS.update(jax=jd, port=pdrill)
     return _MODS["jax"], _MODS["port"]
 
 
-def _no_mesh(*_a, **_k):
-    return None
+def jax_lm_weights() -> dict:
+    """The JAX drill's tiny LMs' weights as host arrays: configure()'s
+    `lm` and `draft`."""
+    jd = _drills()[0]
+    return {"lm": jax.device_get(jd._serve_lm().variables["params"]),
+            "draft": jax.device_get(
+                jd._serve_draft_lm().variables["params"])}
 
 
-def _port_side(unsharded: bool):
-    """Resolve the JAX package's serving, obs and faults names to the
-    port's for one leg."""
-    serving = types.ModuleType("bigdl_tpu.serving")
-    serving.__dict__.update({k: getattr(tserving, k)
-                             for k in tserving.__all__})
-    serving.InferenceEngine = _CpuEngine
-    mods = {"bigdl_tpu.serving": serving,
-            "bigdl_tpu.obs.flightrecorder": flightrecorder,
-            "bigdl_tpu.obs.slo": slo,
-            "bigdl_tpu.obs.timeseries": timeseries,
-            "bigdl_tpu.obs.journey": journey}
-    if unsharded:
-        mods["bigdl_tpu.parallel"] = types.SimpleNamespace(
-            make_mesh=_no_mesh)
-    stack = [mock.patch.dict(sys.modules, mods),
-             mock.patch.object(bigdl_tpu, "obs", tobs),
-             mock.patch.object(bigdl_tpu, "serving", serving),
-             mock.patch.object(bigdl_tpu.utils, "faults", tfaults)]
-    return stack
-
-
-def _jax_side(unsharded: bool):
-    if not unsharded:
-        return []
-    return [mock.patch.dict(sys.modules, {
-        "bigdl_tpu.parallel": types.SimpleNamespace(make_mesh=_no_mesh)})]
-
-
-def _run(mod, leg, workdir, patches):
-    for p in patches:
-        p.start()
+def jax_leg(leg, workdir, plane="serving"):
+    jd = _drills()[0]
+    legs = jd.SERVING_LEGS if plane == "serving" else jd.TRAINING_LEGS
     try:
-        return mod.SERVING_LEGS[leg](str(workdir))
+        return legs[leg](str(workdir))
     finally:
-        for p in reversed(patches):
-            p.stop()
         jfaults.set_plan(None)
+
+
+def port_leg(leg, workdir, plane="serving", **weights):
+    """One leg through the port's script on the CPU; `weights` are
+    configure()'s keywords (default: the JAX drill's tiny LMs)."""
+    if plane == "serving" and not weights:
+        weights = jax_lm_weights()
+    pdrill.configure("cpu", **weights)
+    legs = pdrill.SERVING_LEGS if plane == "serving" \
+        else pdrill.TRAINING_LEGS
+    try:
+        return legs[leg](str(workdir))
+    finally:
+        pdrill.join_step_threads()
         tfaults.set_plan(None)
+        pdrill.configure()
 
 
 @pytest.fixture(autouse=True)
@@ -163,31 +108,31 @@ def _fresh():
 
 # fields holding sampled token values, or the accept tallies they move
 _SAMPLED = {"serve_spec": {"accept_rate"}}
+# fields naming the decode step at which a real-time (50 ms) watchdog
+# tripped: the injected hang trips it at step 2, but a loaded host can
+# trip a tensor-parallel step earlier on either side (the JAX one over
+# two CPU devices tripped at step 0 under six test workers); both sides
+# must still name a watchdog trip, and every other field is held
+_WALL_CLOCK = {"fleet_tp_failover": {"degraded_engine"}}
 
 
-def check_leg(tmp_path, leg):
+def check_leg(tmp_path, leg, **weights):
     """Run `leg` through both packages and hold the port's run to the
     reference's (see the module docstring)."""
-    jd, pd = _drills()
-    unsharded = leg == "fleet_journey"
-    ref = _run(jd, leg, tmp_path / "jax", _jax_side(unsharded))
-    got = _run(pd, leg, tmp_path / "port", _port_side(unsharded))
-    if unsharded:
-        # e0 unsharded on both sides: every gate but the cross-layout one
-        for r in (ref, got):
-            j = r["journeys"]
-            assert j["count"] == j["complete"] == 6 and j["lost_hops"] == 0
-            assert r["handoff_journeys_ok"] and r["bundle_names_failing_step"]
-            assert r["journeys_byte_identical"] and r["bundles_byte_identical"]
-            assert all(s == "done" for s in r["statuses"])
-    else:
-        assert ref["ok"], ref
-        assert got["ok"], got
-    skip = _SAMPLED.get(leg, set())
+    ref = jax_leg(leg, tmp_path / "jax")
+    got = port_leg(leg, tmp_path / "port", **weights)
+    assert "skipped" not in ref and "skipped" not in got
+    assert ref["ok"], ref
+    assert got["ok"], got
+    clocked = _WALL_CLOCK.get(leg, set())
+    for r in (ref, got):
+        assert all("watchdog trip at decode step" in r[k] for k in clocked)
+    skip = _SAMPLED.get(leg, set()) | clocked
     want = {k: v for k, v in ref.items() if k not in skip}
     have = {k: v for k, v in got.items() if k not in skip}
     assert json.dumps(have, sort_keys=True, default=str) \
         == json.dumps(want, sort_keys=True, default=str)
+    return got
 
 
 @pytest.mark.parametrize("leg", ["serve_spec", "fleet_failover",

@@ -92,6 +92,9 @@ NEW_IN_SLICE_21 = ("analysis/__init__.py", "analysis/__main__.py",
                    "analysis/rules/telemetry_bypass.py",
                    "analysis/rules/tf_import_in_core.py",
                    "analysis/rules/unfenced_timing.py")
+NEW_IN_SLICE_22 = ("scripts/__init__.py", "scripts/loadgen.py",
+                   "scripts/obs_report.py", "scripts/ops_console.py",
+                   "scripts/fault_drill.py")
 
 
 def _banned(module: str) -> bool:
@@ -110,7 +113,8 @@ def test_port_files_exist():
         | set(NEW_IN_SLICE_14) | set(NEW_IN_SLICE_15) \
         | set(NEW_IN_SLICE_16) | set(NEW_IN_SLICE_17) \
         | set(NEW_IN_SLICE_18) | set(NEW_IN_SLICE_19) \
-        | set(NEW_IN_SLICE_20) | set(NEW_IN_SLICE_21) <= scanned
+        | set(NEW_IN_SLICE_20) | set(NEW_IN_SLICE_21) \
+        | set(NEW_IN_SLICE_22) <= scanned
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -186,9 +190,26 @@ def test_port_import_loads_no_jax():
             "bigdl_tpu_torch.serving.sim, bigdl_tpu_torch.analysis, "
             "bigdl_tpu_torch.analysis.__main__, "
             "bigdl_tpu_torch.analysis.project, "
-            "bigdl_tpu_torch.analysis.rules; "
+            "bigdl_tpu_torch.analysis.rules, "
+            "bigdl_tpu_torch.scripts.loadgen, "
+            "bigdl_tpu_torch.scripts.obs_report, "
+            "bigdl_tpu_torch.scripts.ops_console, "
+            "bigdl_tpu_torch.scripts.fault_drill; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{BANNED!r} or m.startswith('google.protobuf')]; "
             "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], check=True, cwd=ROOT,
                    timeout=120)
+
+
+@pytest.mark.parametrize("name", [p for p in NEW_IN_SLICE_22
+                                  if not p.endswith("__init__.py")])
+def test_scripts_load_no_file_by_path(name):
+    # the JAX scripts load their siblings from scripts/ by path; the
+    # port's import theirs as modules, so no script of the port can
+    # reach a scripts/*.py file (which would run JAX code)
+    path = ROOT / "bigdl_tpu_torch" / name
+    src = path.read_text()
+    assert "spec_from_file_location" not in src
+    assert "importlib.util" not in set(_imported(path))
+    assert not any(m.startswith("scripts") for m in _imported(path))

@@ -162,7 +162,7 @@ def test_split_plan_covers_each_key_once(nb, bs):
                for j in range(r * span, min((r + 1) * span, seq))]
     assert covered == list(range(seq))            # once each, in order
     assert (splits - 1) * span < seq              # no empty last rank
-    for d in range(32, 257, 32):
+    for d in paged_decode.HEAD_DIMS:
         for itemsize in (2, 4):
             assert paged_decode.shared_bytes(nb, bs, d, itemsize) \
                 <= paged_decode.MAX_SHARED_BYTES
@@ -224,3 +224,33 @@ def test_split_online_softmax_combine_matches_plain(nb, bs, pos):
     ref = paged_decode_attention(q, k, v, table, pos, impl="torch")
     assert torch.isfinite(out).all()
     np.testing.assert_allclose(out.numpy(), ref.numpy(), **FP32_TOL)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("cfg", [(4, 2, 6, 16, 16), (2, 2, 4, 16, 8)])
+def test_script_lm_shapes_match_jax_kernel(cfg, dtype):
+    # the scripts' tiny serving LMs (bigdl_tpu_torch/scripts/): two heads
+    # of 16 over a 96-token cache, the speculative draft's two heads of 8
+    # over 64; ragged clocks with 0 and the last key, a NaN scratch block
+    b, _, nb, bs, _ = cfg
+    out, ref = _both(_case(*cfg, seed=7, poison=True,
+                           pos=[0, nb * bs - 1, 17, 40][:b]), dtype=dtype)
+    assert np.isfinite(out).all()
+    np.testing.assert_allclose(out, ref, **(BF16_TOL if dtype == "bfloat16"
+                                            else FP32_TOL))
+
+
+def test_head_dims_name_the_kernel_instantiations():
+    # csrc/paged_decode.cu instantiates D = 8, 16 and the multiples of 32
+    # to 256; at D = 8 and 16 a key row is 1-4 chunks of 16 bytes, read
+    # by 1-4 threads, each group of threads taking 2 keys a stage
+    assert paged_decode.HEAD_DIMS == (8, 16, 32, 64, 96, 128, 160, 192,
+                                      224, 256)
+    assert [paged_decode._stage_keys(d, itemsize)
+            for d in (8, 16) for itemsize in (4, 2)] == [128, 256, 64, 128]
+    # the d16 case of chip_smoke: 6 blocks of 16 split 2 x 48 keys
+    assert paged_decode.split_plan(6, 16) == (2, 48)
+    assert paged_decode.shared_bytes(6, 16, 16, 4) == \
+        4 * (16 + 4) + 4 * 4 * 2 * 64 * 16 + 4 * (48 // 16 + 1)
+    assert paged_decode.shared_bytes(4, 16, 8, 2) == \
+        4 * (8 + 4) + 2 * 4 * 2 * 256 * 8 + 4 * (64 // 16 + 1)

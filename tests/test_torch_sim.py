@@ -11,11 +11,11 @@ the JAX package's (bigdl_tpu/serving/sim.py) on the CPU.
   power limit and the torch version, and `decode_ms` at the reading's
   context bucket gives back the reading;
 - a SimulatedEngine fleet (two engines, one shared CostModel, an
-  EngineRouter) replays one seeded trace (scripts/loadgen.py's
-  `make_trace` and `replay`, host-side; the port side's `bigdl_tpu`
-  names resolved to the port's, as tests/test_torch_fleet_drills.py
-  does) with the report, the engines' stats and health, and the events
-  counted by kind equal to the reference's, in both pacing modes;
+  EngineRouter) replays one seeded trace (the scripts' `make_trace`
+  and `replay`, host-side: scripts/loadgen.py for the JAX package,
+  bigdl_tpu_torch/scripts/loadgen.py for the port) with the report,
+  the engines' stats and health, and the events counted by kind equal
+  to the reference's, in both pacing modes;
 - the sim-vs-real divergence check of tests/test_sim.py on the port: the
   same 24-request trace through a real one-engine port fleet (a tiny LM,
   `device="cpu"`) and a simulated one with per-step pacing: statuses
@@ -33,13 +33,13 @@ import pytest
 import torch
 
 import bigdl_tpu.obs as jobs
-import test_torch_fleet_drills as fd
 from bigdl_tpu import serving as jserving
 from bigdl_tpu.serving import sim as jsim
 from bigdl_tpu_torch import obs as tobs
 from bigdl_tpu_torch import serving as tserving
 from bigdl_tpu_torch.models.transformer import (TransformerConfig,
                                                 TransformerLM)
+from bigdl_tpu_torch.scripts import loadgen as tloadgen
 from bigdl_tpu_torch.serving import sim as tsim
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -47,7 +47,11 @@ BENCH = sorted(glob.glob(str(ROOT / "BENCH_r0*.json")))
 PKG = {"jax": (jserving, jsim, jobs), "torch": (tserving, tsim, tobs)}
 
 
-def _loadgen():
+def _loadgen(pkg="jax"):
+    """The package's load generator (the JAX package's is loaded from
+    scripts/loadgen.py)."""
+    if pkg == "torch":
+        return tloadgen
     mod = sys.modules.get("bigdl_loadgen")
     if mod is None:
         spec = importlib.util.spec_from_file_location(
@@ -118,22 +122,15 @@ def _replay(pkg, engines_fn, trace_fn, tmp_path):
     in one package; (report, per-engine stats and health, events by
     kind)."""
     serving, _, o = PKG[pkg]
-    lg = _loadgen()
-    patches = fd._port_side(False) if pkg == "torch" else []
-    for p in patches:
-        p.start()
-    try:
-        clk = {"t": 0.0}
+    lg = _loadgen(pkg)
+    clk = {"t": 0.0}
 
-        def c():
-            return clk["t"]
+    def c():
+        return clk["t"]
 
-        pool = engines_fn(pkg, c)
-        router = serving.EngineRouter(pool, clock=c, obs_label="r0")
-        report = lg.replay(router, trace_fn(), clock=clk)
-    finally:
-        for p in reversed(patches):
-            p.stop()
+    pool = engines_fn(pkg, c)
+    router = serving.EngineRouter(pool, clock=c, obs_label="r0")
+    report = lg.replay(router, trace_fn(), clock=clk)
     counts = o.get_event_log().counts_by_kind()
     return (json.loads(json.dumps(report, sort_keys=True)),
             [(e.stats, e.health()) for e in pool], counts)
@@ -176,7 +173,7 @@ def _real_pool(pkg, clock):
 
 
 def test_divergence_vs_real_port_fleet(tmp_path):
-    lg = _loadgen()
+    lg = _loadgen("torch")
 
     def trace():
         return lg.make_trace(24, seed=3, arrival="poisson", rate=6.0)

@@ -1,12 +1,10 @@
 """Port re-enactments of scripts/fault_drill.py's training legs.
 
-Each leg runs twice: as the JAX package runs it, and on the port — the
-same leg code from a second copy of the drill module, its `_train`
-replaced by tests/test_torch_training_drills_ranks.py's `port_train`
-(the same MLP, data and calls through bigdl_tpu_torch, the JAX model's
-initial weights carried in) and its `bigdl_tpu.obs` and
-`bigdl_tpu.utils.faults` resolved to the port's. The leg's own gates
-must pass on the port (`ok`), and the digests must be equal: the
+Each leg runs twice: as the JAX package runs it, and as the port's own
+script runs it (bigdl_tpu_torch/scripts/fault_drill.py, on the CPU,
+the drill MLP carrying the JAX model's initial weights:
+`configure(train=)`). The leg's own gates must pass on the port
+(`ok`), and the digests must be equal: the
 bit-identity verdicts, the guard's statistics (its gradient-norm EMA
 within 1e-5: fp32 in another order), the checkpoint each resume reads
 and skips, and the structured events counted by kind.
@@ -23,7 +21,6 @@ import torch
 
 import bigdl_tpu.obs
 import test_torch_fleet_drills as fd
-import test_torch_training_drills_ranks as ranks
 from bigdl_tpu.utils import faults as jfaults
 from bigdl_tpu_torch import obs as tobs
 from bigdl_tpu_torch.utils import faults as tfaults
@@ -74,10 +71,15 @@ def jax_leg(tmp_path, leg):
     return fd._drills()[0].TRAINING_LEGS[leg](str(tmp_path / "jax"))
 
 
+def port_leg(tmp_path, leg):
+    return fd.port_leg(leg, tmp_path / "port", plane="training",
+                       train=jax_weights())
+
+
 def check_training_leg(tmp_path, leg, port_digest=None, ref=None):
     ref = ref if ref is not None else jax_leg(tmp_path, leg)
-    got = port_digest if port_digest is not None else ranks.run_leg(
-        leg, tmp_path / "port", jax_weights())
+    got = port_digest if port_digest is not None \
+        else port_leg(tmp_path, leg)
     assert ref["ok"], ref
     assert got["ok"], got
     _close(got, ref)
