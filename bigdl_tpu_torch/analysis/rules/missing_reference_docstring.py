@@ -6,8 +6,8 @@ port's own convention. The JAX package's rule holds each `nn/` layer
 class to a `reference: nn/Xxx.scala` citation of the framework it was
 modelled on; the port's traceability link is one step shorter: each
 module's docstring names the file of the JAX package it ports
-(`bigdl_tpu/<path>`, or the `scripts/<name>.py` it carries into the
-package), which is how a reader finds the reference a parity test
+(`bigdl_tpu/<path>`, or the `scripts/<name>.py` or
+`examples/<name>.py` it carries into the package), which is how a reader finds the reference a parity test
 holds it to. A module with no counterpart says so ("No JAX
 counterpart: <why>", or "No single JAX counterpart"). The docstring is
 the module's first statement; a file without one is a finding at its
@@ -22,7 +22,7 @@ import re
 from bigdl_tpu_torch.analysis.engine import Rule, register
 
 _OK_DOC = re.compile(
-    r"bigdl_tpu/[\w./]*|scripts/\w+\.py"
+    r"bigdl_tpu/[\w./]*|(?:scripts|examples)/\w+\.py"
     r"|no\s+(?:\w+\s+)?JAX\s+counterpart",
     re.IGNORECASE)
 
@@ -32,7 +32,8 @@ class MissingReferenceDocstring(Rule):
     name = "missing-reference-docstring"
     severity = "warning"
     description = ("port module whose docstring names no JAX file "
-                   "(`bigdl_tpu/...`, `scripts/...`) and no `No JAX "
+                   "(`bigdl_tpu/...`, `scripts/...`, `examples/...`) "
+                   "and no `No JAX "
                    "counterpart`")
     scope = ("bigdl_tpu_torch/",)
 

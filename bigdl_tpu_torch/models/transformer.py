@@ -714,6 +714,16 @@ class TransformerLM(Module):
         return mm(hid, self.head(p)), pools
 
 
+def build_lm(vocab_size: int = 256, dim: int = 128, num_heads: int = 4,
+             num_layers: int = 2, max_len: int = 512,
+             **kw) -> TransformerLM:
+    """A TransformerLM of the given sizes; `kw` goes to TransformerLM
+    (`device`, the parallel axes, `attn_impl`, `name`)."""
+    return TransformerLM(TransformerConfig(
+        vocab_size=vocab_size, dim=dim, num_heads=num_heads,
+        num_layers=num_layers, max_len=max_len), **kw)
+
+
 def lm_train_matmul_flops_per_token(cfg: TransformerConfig) -> float:
     """Training (fwd + bwd = 3x fwd) matmul FLOPs per token — the
     analytic model-flops count behind the model-flops share. Remat

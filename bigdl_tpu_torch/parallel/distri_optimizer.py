@@ -13,10 +13,17 @@ ZeRO-2), its step, its checkpoints and its validation. `batch_size` is
 global and must divide by the data axis. Each rank feeds its own rows
 of every global batch: of a stream that every rank reads alike (a
 seeded DataSet), the rank's slice, so a run at world size n sees the
-batches that the JAX package's n-device mesh sees; of a dataset with
-`for_rank` (RecordFileDataSet, whose C++ plane orders batches by its
-worker threads), its own partition at batch_size / n, as each process
-of the JAX package's multi-process path iterates its own.
+batches that the JAX package's n-device mesh sees; of a dataset
+already partitioned by rank — a `ShardedDataSet` over the process
+group (`DataSet.sharded`), or one with `for_rank` (RecordFileDataSet,
+whose C++ plane orders batches by its worker threads) — its own
+partition at batch_size / n, as each process of the JAX package's
+multi-process path iterates its own shard: a global batch is every
+rank's local batch side by side. Validation over a sharded set reads
+vbs / n rows a round from the rank's shard; the ranks exchange
+have-data flags every round (one all-reduce), and a rank whose shard
+is exhausted feeds an all-masked copy of its last batch, so shards
+whose batch counts differ never leave a rank alone in the collective.
 
 Kept from the JAX package: the batch-size divisibility errors; ZeRO-1
 and ZeRO-2 (`zero=`); the bf16 or exact gradient wire (`grad_dtype`);
@@ -55,12 +62,15 @@ writing.
 from __future__ import annotations
 
 import logging
+from functools import partial
 from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
+from bigdl_tpu_torch.dataset.dataset import (ShardedDataSet,
+                                             TransformedDataSet)
 from bigdl_tpu_torch.dataset.sample import MiniBatch
 from bigdl_tpu_torch.models.convert import tree_map
 from bigdl_tpu_torch.optim.optimizer import (LocalOptimizer, Optimizer,
@@ -155,10 +165,35 @@ class DistriOptimizer(LocalOptimizer):
         self.slots = o.optim_method.init_slots([self._fresh_acc()])
         self.g_acc = self._fresh_acc() if o.grad_accum > 1 else None
         self.micro_n = 0
-        if n > 1 and hasattr(o.dataset, "for_rank"):
+        # the records a rank's batch counts for against o.dataset.size()
+        self.row_scale = 1
+        if self._rank_partitioned(o.dataset):
+            # already this rank's shard, read at batch_size / n; its
+            # size() is the shard's, so an epoch is one pass over it (as
+            # each process of the JAX package counts its local rows)
+            self.rank_dataset = o.dataset
+        elif n > 1 and hasattr(o.dataset, "for_rank"):
             # a stream whose order is its own (the C++ plane's threads):
-            # each rank reads its own partition at batch_size / n
+            # each rank reads its own partition at batch_size / n, and
+            # the whole set's size() counts every rank's rows
             self.rank_dataset = o.dataset.for_rank(mesh.rank, n)
+            self.row_scale = n
+
+    def _rank_partitioned(self, dataset) -> bool:
+        """Whether `dataset` is this rank's shard of a set partitioned
+        over the process group (a ShardedDataSet, possibly under a
+        transformer chain), which then must be the data axis."""
+        base = dataset
+        while isinstance(base, TransformedDataSet):
+            base = base.base
+        if not isinstance(base, ShardedDataSet) or base.nproc == 1:
+            return False
+        if (base.nproc, base.pid) != (self.n, self.mesh.coord(self.axis)):
+            raise ValueError(
+                f"a dataset sharded as {base.pid} of {base.nproc} cannot "
+                f"feed rank {self.mesh.coord(self.axis)} of the "
+                f"{self.axis!r} axis of size {self.n}")
+        return True
 
     def _train_batches(self, skip: int):
         if self.rank_dataset is None:
@@ -167,8 +202,7 @@ class DistriOptimizer(LocalOptimizer):
                                self.o.batch_size // self.n, skip=skip)
 
     def _rows(self, mb) -> int:
-        rows = super()._rows(mb)
-        return rows * self.n if self.rank_dataset is not None else rows
+        return super()._rows(mb) * self.row_scale
 
     def _step_rng(self, neval: int) -> torch.Generator:
         return rank_generator(self.device, self.o.seed, neval,
@@ -361,25 +395,72 @@ class DistriOptimizer(LocalOptimizer):
 
     # ------------------------------------------------------------ validate
     def _validate(self):
-        o, mesh, n = self.o, self.mesh, self.n
+        """Validation over the whole set. Of a stream that every rank
+        reads alike, each rank evaluates its slice of every global
+        batch (a batch whose size does not divide by n padded with
+        copies of its last row). Of a set partitioned by rank, each
+        rank reads vbs / n rows a round of its own shard; every round
+        the ranks exchange (has a batch, has nothing at all) in one
+        all-reduce, and a rank whose shard ran out joins with an
+        all-masked copy of its last batch, every row the same so that
+        the Loss edge correction cancels it."""
+        o, n = self.o, self.n
         params = self._param_tree()
         results = [ValidationResult(0.0, 0.0, m.name)
                    for m in o.validation_methods]
         vbs = o.validation_batch_size or o.batch_size
-        for mb in _batch_iterator(o.validation_dataset, False, vbs):
-            real = getattr(mb, "real_size", mb.size)
-            rows = -(-mb.size // n) * n
-            if rows != mb.size:
-                # every filler row repeats the batch's last row, so the
-                # Loss edge correction cancels it exactly
+        sharded = self._rank_partitioned(o.validation_dataset)
+        if sharded:
+            vbs //= n
+            feed = partial(_to_device, device=self.device)
+        else:
+            feed = partial(host_to_global, self.mesh, axis=self.axis)
+        it = _batch_iterator(o.validation_dataset, False, vbs)
+        last = None
+        while True:
+            mb = next(it, None)
+            real = 0 if mb is None else getattr(mb, "real_size", mb.size)
+            if sharded:
+                if not self._any_rank_has_rows(mb, last):
+                    break
+                if mb is None:
+                    mb = MiniBatch(_tile_first(last.input, last.size),
+                                   _tile_first(last.target, last.size))
+                else:
+                    last = mb
+            elif mb is None:
+                break
+            elif mb.size % n:
+                rows = -(-mb.size // n) * n
                 mb = MiniBatch(pad_rows(mb.input, rows),
                                pad_rows(mb.target, rows))
-            mask = (np.arange(rows) < real).astype(np.float32)
-            stats = self.eval_fn(
-                params, self.mod_state,
-                host_to_global(mesh, mb.input, self.axis),
-                host_to_global(mesh, mb.target, self.axis),
-                host_to_global(mesh, mask, self.axis))
+            mask = (np.arange(mb.size) < real).astype(np.float32)
+            stats = self.eval_fn(params, self.mod_state, feed(mb.input),
+                                 feed(mb.target), feed(mask))
             for i, (s, c) in enumerate(stats):
                 results[i] = results[i] + ValidationResult(float(s), float(c))
         return {m.name: r for m, r in zip(o.validation_methods, results)}
+
+    def _any_rank_has_rows(self, mb, last) -> bool:
+        """A validation round's flag exchange over a partitioned set:
+        whether any rank has a batch left. A rank whose shard was empty
+        makes every rank raise, so that none waits alone."""
+        flags = torch.tensor([int(mb is not None),
+                              int(mb is None and last is None)],
+                             device=self.device)
+        dist.all_reduce(flags, op=dist.ReduceOp.MAX, group=self.mesh.group)
+        if not bool(flags[0]):
+            return False
+        if bool(flags[1]):
+            raise RuntimeError(
+                "a host has an empty validation shard; give every process "
+                "at least one batch (DataSet.sharded of >= nproc samples)")
+        return True
+
+
+def _tile_first(x, rows: int):
+    """`rows` copies of the first row of a batch (an array, a tensor or
+    a tuple of them)."""
+    if isinstance(x, tuple):
+        return tuple(_tile_first(e, rows) for e in x)
+    return np.repeat(np.asarray(x)[:1], rows, axis=0)

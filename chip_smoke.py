@@ -416,9 +416,20 @@ It drives `bigdl_tpu_torch` only (never JAX or the JAX package):
    8 greedy requests served from the trained weights through
    `InferenceEngine` at the engine's knobs (K1 launches exact), tokens
    equal to a plain-attention engine's;
-42. lint — `python -m bigdl_tpu_torch.analysis` over the port's tree
+42. multihost — `bigdl_tpu_torch/scripts/multihost_smoke.py`'s
+   kill_resume and zero2_resume legs at one NCCL process on the card:
+   the sole training process SIGKILLed once checkpoint-3 publishes and
+   restarted with --resume, its params' sha256 equal to the
+   uninterrupted run's;
+43. examples — 14 of the 15 `bigdl_tpu_torch/examples/` (all but the
+   4-stage pipeline_parallel_lm) through their `main(["--device",
+   "cuda"])` in this process, each gated on the accuracy, losses,
+   outputs or tokens it prints (NCF's metrics and the UDF's classes
+   against the example's plain CPU run) and on the launches of the
+   kernels its model reaches;
+44. lint — `python -m bigdl_tpu_torch.analysis` over the port's tree
    (no JAX on this machine): clean against its baseline;
-43. kernels — one JSON line per the port's kernel table, the D = 256,
+45. kernels — one JSON line per the port's kernel table, the D = 256,
    16 and 8 instantiations in rows of their own.
 
 Every phase prints one JSON line (`at_s`: the script's seconds when
@@ -9600,6 +9611,245 @@ def phase_lint():
     emit("lint", seconds=seconds, counts=report["counts"])
 
 
+# ------------------------------------------- the multi-process driver
+# bigdl_tpu_torch/scripts/multihost_smoke.py's kill legs at one process
+# on the card (the sole training process SIGKILLed once its first
+# checkpoint publishes, then restarted with --resume), the two legs side
+# by side, each launch under MH_LAUNCH_TIMEOUT_S
+MH_LEGS = ("kill_resume", "zero2_resume")
+MH_LAUNCH_TIMEOUT_S = 150
+
+
+def phase_multihost():
+    """The port driver's kill_resume and zero2_resume legs at one NCCL
+    process on the card: each an uninterrupted 12-step run, a paced run
+    SIGKILLed after checkpoint-3 publishes (zero2: its MANIFEST), and a
+    restart with --resume. Gates: every leg ok, the killed process the
+    sole one, the resumed sha256 equal to the uninterrupted run's,
+    resumed from checkpoint-3, and zero2's first checkpoint holding one
+    shard unit. The legs run concurrently, each in its own processes."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from bigdl_tpu_torch.scripts import multihost_smoke
+
+    t0 = time.perf_counter()
+    # each leg's work dir is removed once it passed (run_legs)
+    with ThreadPoolExecutor(len(MH_LEGS)) as pool:
+        futures = {leg: pool.submit(
+            multihost_smoke.run_legs, [leg], "cuda", processes=1,
+            timeout=MH_LAUNCH_TIMEOUT_S) for leg in MH_LEGS}
+        out = {leg: f.result()[leg] for leg, f in futures.items()}
+    for leg, r in out.items():
+        check(r["ok"] and r["bit_identical"] and r["killed_process"] == 0
+              and r["resumed_from"] == "checkpoint-3",
+              f"multihost {leg}: {json.dumps(r)}")
+    check(out["zero2_resume"]["shard_units_in_first_ckpt"] == 1,
+          f"multihost zero2_resume: {out['zero2_resume']}")
+    emit("multihost", processes=1, backend="nccl", legs=out,
+         seconds=time.perf_counter() - t0, card=nvidia_smi())
+
+
+# ------------------------------------------------------- the examples
+# bigdl_tpu_torch/examples/: every one that runs on one card, in this
+# process; the kernels each one's model reaches, by counter
+EX_NAMES = ("lenet_local_train", "transfer_learning", "recommendation_ncf",
+            "text_classification", "language_model", "transformer_lm",
+            "treelstm_sentiment", "load_caffe_model",
+            "load_tensorflow_model", "udf_predictor",
+            "imagenet_records_pipeline", "serve_lm",
+            "distributed_data_parallel", "moe_expert_parallel")
+EX_KERNELS = {
+    "language_model": ("fused_rnn.fwd_train_launches",
+                       "fused_rnn.bwd_launches"),
+    "transformer_lm": ("flash_attention.fwd_launches",
+                       "flash_attention.bwd_launches"),
+    "moe_expert_parallel": ("flash_attention.fwd_launches",
+                            "flash_attention.bwd_launches"),
+    "serve_lm": ("paged_decode.launches", "flash_attention.fwd_launches",
+                 "flash_attention.bwd_launches"),
+}
+# Top1Accuracy the synthetic tasks reach (the JAX examples' and the
+# port's on the CPU: 0.99-1.0)
+EX_MIN_ACCURACY = 0.9
+
+
+def _ex_counter(name: str, value=None):
+    mod, attr = name.split(".")
+    m = importlib.import_module(f"bigdl_tpu_torch.ops.{mod}")
+    if value is not None:
+        setattr(m, attr, value)
+    return getattr(m, attr)
+
+
+def _ex_cpu_stdout(name: str) -> str:
+    """What the example prints when run on the CPU: the plain
+    reference that a card run of the same seeded weights is held to."""
+    import io
+
+    mod = importlib.import_module(f"bigdl_tpu_torch.examples.{name}")
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        mod.main(["--device", "cpu"])
+    return text.getvalue()
+
+
+def _ex_gate(name: str, result, text: str, validations: list) -> dict:
+    """The example's own result: what it printed or validated."""
+    import torch
+
+    lines = text.splitlines()
+
+    def after(prefix):
+        return [line[len(prefix):].strip() for line in lines
+                if line.startswith(prefix)]
+
+    def acc(i=-1):
+        return validations[i]["Top1Accuracy"][0]
+
+    if name == "lenet_local_train":
+        check(len(validations) == 3 and acc() >= EX_MIN_ACCURACY
+              and after("done; checkpoints in"), f"lenet {validations}")
+        return {"top1": acc()}
+    if name == "transfer_learning":
+        a = float(after("transfer-learning accuracy:")[0])
+        check(a >= EX_MIN_ACCURACY, f"transfer_learning accuracy {a}")
+        return {"accuracy": a}
+    if name == "recommendation_ncf":
+        keys = ("Top1Accuracy", "HitRatio@2", "NDCG@2")
+        got = {k: float(after(k)[0]) for k in keys}
+        cpu_lines = _ex_cpu_stdout(name).splitlines()
+        cpu = {k: float(next(line for line in cpu_lines
+                             if line.startswith(k)).split()[1])
+               for k in keys}
+        # the plain CPU run of the same weights on the same batches: an
+        # accuracy within 2 of the 256 held-out rows, NDCG within 1e-3
+        # (the port's CPU test against the JAX example holds the same),
+        # and above the chance of 5 uniform ratings (0.2 and 0.4)
+        check(all(abs(got[k] - cpu[k]) <= tol for k, tol in
+                  zip(keys, (2 / 256, 2 / 256, 1e-3)))
+              and got["Top1Accuracy"] > 0.2 and got["HitRatio@2"] > 0.4,
+              f"recommendation_ncf {got}, on the CPU {cpu}")
+        return {**got, "cpu": cpu}
+    if name in ("text_classification", "treelstm_sentiment"):
+        check(len(validations) == 8 and acc() >= EX_MIN_ACCURACY,
+              f"{name} {validations}")
+        return {"top1": acc()}
+    if name in ("language_model", "transformer_lm"):
+        loss = [v["Loss"][0] for v in validations]
+        check(len(loss) == 6 and all(math.isfinite(x) for x in loss)
+              and loss[-1] < loss[0], f"{name} losses {loss}")
+        return {"val_loss": loss}
+    if name == "load_caffe_model":
+        check(after("imported caffe model output:") == ["(2, 5)"],
+              f"load_caffe_model: {text}")
+        return {"output": "(2, 5)"}
+    if name == "load_tensorflow_model":
+        check(after("imported TF model output:") == ["(2, 10)"]
+              and after("grad leaves:") == ["4"],
+              f"load_tensorflow_model: {text}")
+        return {"output": "(2, 10)", "grad_leaves": 4}
+    if name == "udf_predictor":
+        classes = [int(c) for c in result["predicted"]]
+        cpu = [int(line.split()[-1]) for line in
+               _ex_cpu_stdout(name).splitlines() if line.startswith("row ")]
+        # the plain CPU run of the same seeded weights classifies alike
+        check(len(after("row ")) == 6 and classes == cpu,
+              f"udf_predictor: {text}, on the CPU {cpu}")
+        return {"classes": classes, "cpu": cpu}
+    if name == "imagenet_records_pipeline":
+        check(result >= EX_MIN_ACCURACY, f"records accuracy {result}")
+        return {"accuracy": result}
+    if name == "serve_lm":
+        check(all(r.status == "done" for r in result) and sum(
+            len(r.tokens) for r in result) > 0
+            and after("speculative decode:"), f"serve_lm: {text[-2000:]}")
+        return {"tokens": sum(len(r.tokens) for r in result),
+                "speculative": after("speculative decode:")[0]}
+    if name == "distributed_data_parallel":
+        flat = torch.cat([t.detach().reshape(-1).float().cpu()
+                          for _, t in result.parameters()])
+        check(bool(torch.isfinite(flat).all()) and after(
+            "trained with ZeRO-1 DP over") == ["1 devices"],
+            f"distributed_data_parallel: {text}")
+        return {"params_finite": True}
+    if name == "moe_expert_parallel":
+        check(len(result) == 3 and all(
+            math.isfinite(x) and x < math.log(256) + 0.5 for x in result),
+            f"moe_expert_parallel losses {result}")
+        return {"final_losses": result}
+    raise AssertionError(name)
+
+
+def _ex_run(name: str) -> dict:
+    """One example through its `main(["--device", "cuda"])`, its output
+    captured and its validations recorded; its gates (_ex_gate and the
+    launches of each kernel counter of EX_KERNELS, counted from 0 over
+    the run) and its seconds."""
+    import io
+
+    import torch
+
+    from bigdl_tpu_torch.optim.optimizer import LocalOptimizer
+
+    mod = importlib.import_module(f"bigdl_tpu_torch.examples.{name}")
+    validations = []
+    validate = LocalOptimizer._validate
+
+    def recorded(self):
+        out = validate(self)
+        validations.append({k: r.result() for k, r in out.items()})
+        return out
+
+    LocalOptimizer._validate = recorded
+    counters = EX_KERNELS.get(name, ())
+    text = io.StringIO()
+    try:
+        torch.cuda.synchronize()
+        for c in counters:                  # main path starts here
+            _ex_counter(c, 0)
+        start = time.perf_counter()
+        with contextlib.redirect_stdout(text):
+            result = mod.main(["--device", "cuda"])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - start
+        launches = {c: _ex_counter(c) for c in counters}  # ends here
+    finally:
+        LocalOptimizer._validate = validate
+    check(all(n > 0 for n in launches.values()),
+          f"examples {name}: kernel launches {launches}")
+    entry = {"seconds": seconds, "launches": launches,
+             **_ex_gate(name, result, text.getvalue(), validations)}
+    del result
+    torch.cuda.empty_cache()
+    return entry
+
+
+def phase_examples():
+    """Each example of bigdl_tpu_torch/examples/ that runs on one card
+    (all but pipeline_parallel_lm, whose 4 stages need 4 ranks;
+    distributed_data_parallel and moe_expert_parallel at world size 1)
+    through _ex_run, in this process. Gates: its own result (_ex_gate:
+    the accuracy, losses, outputs or tokens it prints or validates),
+    and each kernel counter of EX_KERNELS launched. Reported: each
+    example's seconds. The temporary directories the examples make
+    (checkpoints, summaries, shards, model files) go under one that is
+    removed at the end."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    saved = tempfile.tempdir
+    with tempfile.TemporaryDirectory(prefix="chip_examples_") as tmp:
+        tempfile.tempdir = tmp
+        try:
+            report = {name: _ex_run(name) for name in EX_NAMES}
+        finally:
+            tempfile.tempdir = saved
+    emit("examples", examples=report,
+         not_run={"pipeline_parallel_lm": "4 stages need 4 ranks (the "
+                  "four-card run: torchrun --nproc_per_node 4)"},
+         seconds=time.perf_counter() - t0, card=nvidia_smi())
+
+
 def main() -> int:
     import torch
 
@@ -9748,6 +9998,9 @@ def main() -> int:
     phase_model_import()
     torch.cuda.empty_cache()
     lm2h = phase_lm2h()
+    torch.cuda.empty_cache()
+    phase_multihost()
+    phase_examples()
     torch.cuda.empty_cache()
     phase_lint()
     fp32 = kern["fp32"]

@@ -95,6 +95,15 @@ NEW_IN_SLICE_21 = ("analysis/__init__.py", "analysis/__main__.py",
 NEW_IN_SLICE_22 = ("scripts/__init__.py", "scripts/loadgen.py",
                    "scripts/obs_report.py", "scripts/ops_console.py",
                    "scripts/fault_drill.py")
+EXAMPLES = ("distributed_data_parallel", "imagenet_records_pipeline",
+            "language_model", "lenet_local_train", "load_caffe_model",
+            "load_tensorflow_model", "moe_expert_parallel",
+            "pipeline_parallel_lm", "recommendation_ncf", "serve_lm",
+            "text_classification", "transfer_learning", "transformer_lm",
+            "treelstm_sentiment", "udf_predictor")
+NEW_IN_SLICE_23 = ("scripts/multihost_smoke.py", "examples/__init__.py",
+                   "examples/_ranks.py") \
+    + tuple(f"examples/{n}.py" for n in EXAMPLES)
 
 
 def _banned(module: str) -> bool:
@@ -114,7 +123,7 @@ def test_port_files_exist():
         | set(NEW_IN_SLICE_16) | set(NEW_IN_SLICE_17) \
         | set(NEW_IN_SLICE_18) | set(NEW_IN_SLICE_19) \
         | set(NEW_IN_SLICE_20) | set(NEW_IN_SLICE_21) \
-        | set(NEW_IN_SLICE_22) <= scanned
+        | set(NEW_IN_SLICE_22) | set(NEW_IN_SLICE_23) <= scanned
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -194,7 +203,10 @@ def test_port_import_loads_no_jax():
             "bigdl_tpu_torch.scripts.loadgen, "
             "bigdl_tpu_torch.scripts.obs_report, "
             "bigdl_tpu_torch.scripts.ops_console, "
-            "bigdl_tpu_torch.scripts.fault_drill; "
+            "bigdl_tpu_torch.scripts.fault_drill, "
+            "bigdl_tpu_torch.scripts.multihost_smoke, "
+            + "".join(f"bigdl_tpu_torch.examples.{n}, " for n in EXAMPLES)
+            + "bigdl_tpu_torch.examples._ranks; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{BANNED!r} or m.startswith('google.protobuf')]; "
             "assert not bad, bad")
@@ -203,13 +215,17 @@ def test_port_import_loads_no_jax():
 
 
 @pytest.mark.parametrize("name", [p for p in NEW_IN_SLICE_22
+                                  + NEW_IN_SLICE_23
                                   if not p.endswith("__init__.py")])
 def test_scripts_load_no_file_by_path(name):
-    # the JAX scripts load their siblings from scripts/ by path; the
-    # port's import theirs as modules, so no script of the port can
-    # reach a scripts/*.py file (which would run JAX code)
+    # the JAX scripts and examples load their siblings from scripts/ or
+    # the repository root by path; the port's import theirs as modules,
+    # so no script or example of the port can reach a scripts/*.py or
+    # examples/*.py file (which would run JAX code)
     path = ROOT / "bigdl_tpu_torch" / name
     src = path.read_text()
     assert "spec_from_file_location" not in src
+    assert "sys.path.insert" not in src
     assert "importlib.util" not in set(_imported(path))
-    assert not any(m.startswith("scripts") for m in _imported(path))
+    assert not any(m.split(".")[0] in ("scripts", "examples")
+                   for m in _imported(path))
