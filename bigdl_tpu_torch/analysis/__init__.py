@@ -12,7 +12,7 @@ card is.
 
 from bigdl_tpu_torch.analysis.engine import (  # noqa: F401
     BaselineEntry, Finding, ProjectRule, Rule, RULES, apply_baseline,
-    format_baseline, iter_python_files, lint_source,
+    format_baseline, iter_python_files, lint_file, lint_source,
     load_baseline, parse_baseline, register, run_lint,
 )
 

@@ -375,6 +375,21 @@ def lint_source(rel_path: str, source: str,
     return out
 
 
+def lint_file(root: str, rel_path: str,
+              rules: Optional[Sequence[Rule]] = None) -> List[Finding]:
+    """The per-file rules over one file under `root` (a file that does
+    not parse gives its parse-error finding), sorted; no project pass
+    and no baseline."""
+    _ensure_rules_loaded()
+    ctx = _parse_file(root, rel_path)
+    if isinstance(ctx, Finding):
+        return [ctx]
+    if rules is None:
+        rules = list(RULES.values())
+    return sorted(_check_file(ctx, rules),
+                  key=lambda f: (f.path, f.line, f.col, f.rule))
+
+
 def _parse_file(root: str, rel_path: str
                 ) -> Union[FileContext, Finding]:
     with open(os.path.join(root, rel_path)) as f:

@@ -19,6 +19,14 @@ the embedding is untied). As in the JAX package the model object holds
 the configuration and the methods take the parameters as an argument,
 so one model serves any number of weight sets.
 
+The dense-cache decode trio (`init_cache`, `prefill`, `decode_step`)
+keeps one (B, H, max_len, D) key and value cache a layer and a clock a
+row (ops/kv_cache.py's dense half): `prefill` runs the right-padded
+prompt through `flash_attention` (the forward kernel on the card) and
+writes each layer's keys and values; `decode_step` attends one row a
+sequence against the cache in plain PyTorch, as the JAX package does in
+plain `jnp`. Both take the stacked layout and `serving_params`'.
+
 Training attention is `ops/flash_attention.flash_attention` (the CUDA
 kernels on the card, the plain version on the CPU; `attn_impl`
 overrides). The JAX package's `lax.scan` over the stacked blocks is a
@@ -54,15 +62,14 @@ parallel/tensor_parallel.py, pipeline.py and moe.py bind it): with
 the row-parallel ones; with `sp_axis` attention is ring or zigzag
 attention (parallel/ring_attention.py) and the positional rows are
 this rank's chunk's; with `ep_axis` the experts are split over that
-axis. The serving trio refuses MoE and `sp_axis` models as the JAX
-package does. A `tp_axis` model's trio is the tensor-parallel serving
+axis. The serving trios refuse MoE and `sp_axis` models as the JAX
+package does, and the dense trio `tp_axis` models too. A `tp_axis`
+model's paged trio is the tensor-parallel serving
 step (serving/tp.py binds the mesh): this rank's pools hold H/tp heads,
 wq/wk/wv/w1 arrive split by column, and `tp_shard_gather` rebuilds the
 attention output and the FFN hidden whole before the replicated wo/w2
 gemms, so every contraction keeps its unsharded extent and the logits
 are bitwise the unsharded step's.
-
-Not ported: the dense per-slot cache.
 """
 
 from __future__ import annotations
@@ -81,9 +88,12 @@ from bigdl_tpu_torch.nn.module import Module
 from bigdl_tpu_torch.nn.normalization import layer_norm
 from bigdl_tpu_torch.ops.flash_attention import flash_attention
 from bigdl_tpu_torch.ops.kv_cache import (block_attention,
+                                          cached_attention,
                                           gather_block_cache,
                                           init_block_pool,
+                                          init_layer_cache, update_cache,
                                           write_decode_blocks,
+                                          write_prefill,
                                           write_prompt_blocks)
 from bigdl_tpu_torch.ops.paged_decode import paged_decode_attention
 from bigdl_tpu_torch.parallel.collectives import (all_gather, axis_index,
@@ -92,6 +102,7 @@ from bigdl_tpu_torch.parallel.collectives import (all_gather, axis_index,
 from bigdl_tpu_torch.utils.device import DeviceLike, resolve_device
 
 Pools = Tuple[Dict[str, torch.Tensor], ...]
+Cache = Tuple[Dict[str, torch.Tensor], ...]
 REMAT_POLICIES = ("full", "dots", "attn_saved")
 
 
@@ -543,9 +554,12 @@ class TransformerLM(Module):
         logits = x @ self.head(variables)
         return torch.log_softmax(logits, dim=-1), variables.get("state", {})
 
-    # ------------------------------------------------------- paged KV
-    def _serving_guard(self) -> None:
-        if self.sp_axis is not None:
+    # ------------------------------------------------------- dense KV
+    def _serving_guard(self, tp_ok: bool = False) -> None:
+        """`tp_ok=True` on the paged trio, which is tp-aware
+        (serving/tp.py); the dense-cache trio runs single-mesh."""
+        if self.sp_axis is not None \
+                or (self.tp_axis is not None and not tp_ok):
             raise NotImplementedError(
                 "incremental decode runs single-mesh (no sp axis; tp "
                 "only on the paged trio via serving/tp.py); build a "
@@ -557,6 +571,100 @@ class TransformerLM(Module):
         if not self.cfg.causal:
             raise ValueError("incremental decode requires causal=True")
 
+    def init_cache(self, batch: int, max_len: Optional[int] = None,
+                   dtype: torch.dtype = torch.float32,
+                   device: DeviceLike = None) -> Cache:
+        """Per-layer KV cache: a tuple of L dicts {'k', 'v'}, each
+        (B, H, S, D) zeros, S = `max_len` (default the positional
+        table's length; more raises). `dtype` may be bf16 (half the
+        cache bytes; scores still accumulate in fp32). On `device`
+        (None: the model's; `utils/device.resolve_device`)."""
+        self._serving_guard()
+        c = self.cfg
+        s = c.max_len if max_len is None else max_len
+        if s > c.max_len:
+            raise ValueError(f"cache max_len {s} > positional table "
+                             f"{c.max_len}")
+        dev = self.device if device is None else resolve_device(device)
+        return tuple(
+            dict(zip(("k", "v"), init_layer_cache(
+                batch, c.num_heads, s, self.head_dim, dtype, dev)))
+            for _ in range(c.num_layers))
+
+    def prefill(self, variables: Dict[str, Any], tokens: torch.Tensor,
+                cache: Cache, lengths: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, Cache]:
+        """Fill cache positions [0, S_p) from a right-padded prompt
+        batch tokens (B, S_p) and return (logits (B, V) of each row's
+        last real token, cache). `lengths` (B,) int: the real prompt
+        lengths (default: all S_p). Causal attention makes positions
+        below a row's length independent of the padding after them; the
+        keys and values the pad positions write are never read (decode
+        masks past the row clock, then overwrites them). Attention is
+        `flash_attention(causal=True, impl=self.attn_impl)`: the forward
+        kernel on CUDA tensors. The cache is written in place and
+        returned (the JAX method returns a new one)."""
+        self._serving_guard()
+        c = self.cfg
+        p = self._params(variables)
+        bsz, s = tokens.shape
+        if s > c.max_len:
+            raise ValueError(f"prompt length {s} > positional table "
+                             f"{c.max_len}")
+        dev = tokens.device
+        if lengths is None:
+            lengths = torch.full((bsz,), s, dtype=torch.long, device=dev)
+        d = self.head_dim
+        x = p["embed"][tokens.long()] + p["pos"][:s]
+        for bp, lc in zip(self._layer_blocks(p), cache):
+            y = layer_norm(x, bp["ln1_g"], bp["ln1_b"])
+            q = self._split_heads(y @ bp["wq"] + bp["bq"], c.num_heads)
+            k = self._split_heads(y @ bp["wk"] + bp["bk"], c.num_heads)
+            v = self._split_heads(y @ bp["wv"] + bp["bv"], c.num_heads)
+            write_prefill(lc["k"], lc["v"], k, v)
+            a = flash_attention(q, k, v, causal=True, impl=self.attn_impl)
+            a = a.transpose(1, 2).reshape(bsz, s, c.num_heads * d)
+            x = x + a @ bp["wo"] + bp["bo"]
+            x = x + self._dense_ffn(
+                layer_norm(x, bp["ln2_g"], bp["ln2_b"]), bp)
+        h = layer_norm(x, p["lnf_g"], p["lnf_b"])
+        rows = torch.arange(bsz, device=dev)
+        last = h[rows, lengths.long().to(dev) - 1]
+        return last @ self.head(p), cache
+
+    def decode_step(self, variables: Dict[str, Any], tokens: torch.Tensor,
+                    pos: torch.Tensor, cache: Cache
+                    ) -> Tuple[torch.Tensor, Cache]:
+        """One incremental step: tokens (B,) the current token per row,
+        written at the row clocks `pos` (B,) int, attended against the
+        cache (`ops/kv_cache.cached_attention`, plain PyTorch: the JAX
+        step is plain `jnp`, no kernel). Returns (logits (B, V) for the
+        NEXT token, cache), the cache written in place. Every op is per
+        row, so a non-finite row contaminates only its own logits and
+        cache rows; value rows past a clock are zeroed before the
+        weighted sum, so a recycled slot's leftovers cannot leak."""
+        self._serving_guard()
+        c = self.cfg
+        p = self._params(variables)
+        bsz = tokens.shape[0]
+        d = self.head_dim
+        pos_l = pos.long()
+        x = p["embed"][tokens.long()] + p["pos"][pos_l]      # (B, E)
+        for bp, lc in zip(self._layer_blocks(p), cache):
+            y = layer_norm(x, bp["ln1_g"], bp["ln1_b"])[:, None, :]
+            q = self._split_heads(y @ bp["wq"] + bp["bq"], c.num_heads)
+            k = self._split_heads(y @ bp["wk"] + bp["bk"], c.num_heads)
+            v = self._split_heads(y @ bp["wv"] + bp["bv"], c.num_heads)
+            update_cache(lc["k"], lc["v"], k, v, pos)
+            a = cached_attention(q, lc["k"], lc["v"], pos)   # (B, H, 1, D)
+            a = a.reshape(bsz, c.num_heads * d)
+            x = x + a @ bp["wo"] + bp["bo"]
+            x = x + self._dense_ffn(
+                layer_norm(x, bp["ln2_g"], bp["ln2_b"]), bp)
+        h = layer_norm(x, p["lnf_g"], p["lnf_b"])
+        return h @ self.head(p), cache
+
+    # ------------------------------------------------------- paged KV
     def init_block_pool(self, num_blocks: int, block_size: int,
                         dtype: torch.dtype = torch.float32) -> Pools:
         """Per-layer paged KV pools on the model's device: a tuple of L
@@ -564,7 +672,7 @@ class TransformerLM(Module):
         is the reserved scratch block (ops/kv_cache.py). A `tp_axis`
         model (under the mesh serving/tp.py binds) holds this rank's
         heads only: (num_blocks, H/tp, block_size, D)."""
-        self._serving_guard()
+        self._serving_guard(tp_ok=True)
         c = self.cfg
         heads = c.num_heads
         if self.tp_axis is not None:
@@ -598,7 +706,7 @@ class TransformerLM(Module):
         (ops/kv_cache.py). With `tp_axis` each rank writes and attends
         its own heads through the same (replicated) table, and
         `tp_shard_gather` rebuilds the attention output before wo."""
-        self._serving_guard()
+        self._serving_guard(tp_ok=True)
         p = self._params(variables)
         bsz, s = tokens.shape
         if bsz != 1:
@@ -673,7 +781,7 @@ class TransformerLM(Module):
         slots·(k+1) rows runs k+1 tiles of the same shape. Attention
         needs no tiles: the kernel's split plan depends on the table
         width and block size, never on the row count."""
-        self._serving_guard()
+        self._serving_guard(tp_ok=True)
         p = self._params(variables)
         bsz = tokens.shape[0]
         tile = bsz if row_tile is None else row_tile

@@ -5,8 +5,8 @@ the JAX package's extension of the sequence stack). The projections
 are plain `torch.matmul`, as the JAX package computes them outside any
 Pallas kernel; the attention itself is `ops/flash_attention.
 flash_attention`, so on CUDA tensors it runs the flash kernels (K2
-forward, K3 backward; any head dim up to 256, padded to the kernels'
-instantiations) and on CPU tensors their plain versions.
+forward, K3 backward; any head dim, padded to the kernels' head dims)
+and on CPU tensors their plain versions.
 
 `impl` takes the port's flash values: None (the kernels for CUDA
 tensors, the plain version for CPU tensors), "cuda" (the kernels or an

@@ -14,9 +14,10 @@
 //
 // Layout: q (BH, Sq, D), k and v (BH, Sk, D), all contiguous, fp32 or
 // bf16 (one dtype for all; bf16 rows 16-byte aligned); out and dq/dk/dv
-// in that dtype; lse and delta (BH, Sq) fp32. D is 32, 64, 128 or 256;
-// Sq and Sk are any positive lengths (tiles past the end are
-// zero-filled and masked).
+// in that dtype; lse and delta (BH, Sq) fp32. D is 32, 64, 128 or 256,
+// or a multiple of 128 above 256 (the column-split kernels, "D > 256"
+// below; their forward writes D / 128 lse rows); Sq and Sk are any
+// positive lengths (tiles past the end are zero-filled and masked).
 //
 // Numeric conventions (those of the Pallas kernels and of the port's
 // plain versions in bigdl_tpu_torch/ops/flash_attention.py):
@@ -82,6 +83,16 @@
 //   thread, so that their staging fits the 227 KB of shared memory.
 // Both skip the tiles wholly above the causal diagonal, mask only the
 // tiles that need it, and sum in a fixed order: bitwise reproducible.
+//
+// Above D = 256 (the wrapper pads D to a multiple of 128) a thread cannot
+// hold a 64-row accumulator of D columns beside S: a CTA owns a 128-column
+// slice of the output instead (grid.z), and computes S (and dP) over the
+// full D in 128-column chunks streamed through shared memory. The work of
+// S and dP is done once a slice, so at D = 512 the forward's S costs 4x
+// and the backward's S and dP 4x what one CTA a tile would pay; at the
+// 43M LM's one-head shape (BH = 8, S = 2048, D = 512) that keeps it well
+// above the card's flop/byte balance, bound by operations. See "D > 256"
+// below.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -125,9 +136,12 @@ __device__ __forceinline__ float row_sum(float x) {
 // shared memory as fp32 with row stride D + 1; rows past `nrows` are
 // zero. With kScale, each element becomes x * scale — the pre-scaled do
 // of the backward.
+// load_block: the same for a D-column block of a matrix of row stride
+// `ld` (src at the block's first column).
 template <int D, bool kScale, int kRows = 64>
-__device__ __forceinline__ void load_tile(float* dst, const float* src, int row0,
-                                          int nrows, float scale) {
+__device__ __forceinline__ void load_block(float* dst, const float* src,
+                                           int ld, int row0, int nrows,
+                                           float scale) {
 #pragma unroll 4
   for (int idx = threadIdx.x; idx < kRows * D; idx += kThreads) {
     const int r = idx / D;
@@ -135,11 +149,17 @@ __device__ __forceinline__ void load_tile(float* dst, const float* src, int row0
     const int gr = row0 + r;
     float x = 0.f;
     if (gr < nrows) {
-      x = src[(size_t)gr * D + c];
+      x = src[(size_t)gr * ld + c];
       if (kScale) x *= scale;
     }
     dst[r * (D + 1) + c] = x;
   }
+}
+
+template <int D, bool kScale, int kRows = 64>
+__device__ __forceinline__ void load_tile(float* dst, const float* src, int row0,
+                                          int nrows, float scale) {
+  load_block<D, kScale, kRows>(dst, src, D, row0, nrows, scale);
 }
 
 // Rows a thread owns in the backward kernels' own tile (keys of dk/dv,
@@ -556,6 +576,423 @@ fa_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+// ------------------------------------------------------ D > 256 (fp32)
+// Head dims above 256 (a multiple of kWC, as the wrapper pads them) split
+// the output's columns over CTAs: grid.z is the slice, kWC columns of O
+// (forward) or of dK and dV, or dQ (backward) each. Every CTA computes S
+// (and dP) over the full D, streaming Q, K (V, dO) through shared memory
+// in kWC-column chunks, so its registers hold one slice's accumulator
+// whatever D is. The forward's slices take the chunks in one order, so
+// they compute the same S, m and l bit for bit: every slice writes its
+// lse row (lse is (D / kWC, BH, Sq)) and the wrapper returns the first.
+// The backward takes chunk `slice` last, and its dV/dK (dQ) products
+// read that chunk's Q and dO (K) from where the chunk loop left them.
+constexpr int kWC = 128;
+
+__device__ __forceinline__ int wide_chunk(int slice, int i, int nch) {
+  return (slice + 1 + i) % nch;  // the backward's order: `slice` last
+}
+
+__global__ void __launch_bounds__(kThreads)
+fa_fwd_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                   const float* __restrict__ v, float* __restrict__ out,
+                   float* __restrict__ lse, int seq_q, int seq_k, int D,
+                   float sm_scale, int causal) {
+  constexpr int LD = kWC + 1;
+  constexpr int DJ = kWC / 16;
+  extern __shared__ float smem[];
+  float* qs = smem;             // [kBQ][LD] a chunk of Q
+  float* ks = qs + kBQ * LD;    // [kBK][LD] a chunk of K
+  float* vs = ks + kBK * LD;    // [kBK][LD] the slice of V
+  float* ps = vs + kBK * LD;    // [kBQ][kLP]
+
+  const int tx = threadIdx.x & 15;
+  const int ty = threadIdx.x >> 4;
+  const int bh = blockIdx.y;
+  const int slice = blockIdx.z;
+  const int nch = D / kWC;
+  const int q_start = blockIdx.x * kBQ;
+  const int off = seq_k - seq_q;
+  const float* qb = q + (size_t)bh * seq_q * D;
+  const float* kb = k + (size_t)bh * seq_k * D;
+  const float* vb = v + (size_t)bh * seq_k * D + slice * kWC;
+
+  float m[4], l[4], acc[4][DJ];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = kNegInf;
+    l[i] = 0.f;
+#pragma unroll
+    for (int jj = 0; jj < DJ; ++jj) acc[i][jj] = 0.f;
+  }
+
+  const int n_kv = kv_tiles(q_start, kBQ, seq_q, seq_k, causal);
+  for (int t = 0; t < n_kv; ++t) {
+    const int k_start = t * kBK;
+    float s[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+    for (int c = 0; c < nch; ++c) {
+      __syncthreads();  // the previous chunk's (and tile's) reads are done
+      load_block<kWC, false>(qs, qb + c * kWC, D, q_start, seq_q, 1.f);
+      load_block<kWC, false>(ks, kb + c * kWC, D, k_start, seq_k, 1.f);
+      if (c == 0)
+        load_block<kWC, false>(vs, vb, D, k_start, seq_k, 1.f);
+      __syncthreads();
+#pragma unroll 8
+      for (int d = 0; d < kWC; ++d) {
+        float a[4], b[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) a[i] = qs[(ty * 4 + i) * LD + d];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) b[j] = ks[(tx + 16 * j) * LD + d];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], b[j], s[i][j]);
+      }
+    }
+
+    const bool full = k_start + kBK <= seq_k &&
+                      (!causal || k_start + kBK - 1 <= q_start + off);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = q_start + ty * 4 + i;
+      bool vis[4];
+      float mc = kNegInf;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int col = k_start + tx + 16 * j;
+        vis[j] = full || (col < seq_k && (!causal || col <= row + off));
+        s[i][j] = vis[j] ? s[i][j] * sm_scale : kNegInf;
+        mc = fmaxf(mc, s[i][j]);
+      }
+      mc = row_max(mc);
+      const float mn = fmaxf(m[i], mc);
+      const float alpha = expf(m[i] - mn);
+      float ls = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float p = vis[j] ? expf(s[i][j] - mn) : 0.f;
+        ls += p;
+        ps[(ty * 4 + i) * kLP + tx + 16 * j] = p;
+      }
+      ls = row_sum(ls);
+      l[i] = alpha * l[i] + ls;
+      m[i] = mn;
+#pragma unroll
+      for (int jj = 0; jj < DJ; ++jj) acc[i][jj] *= alpha;
+    }
+    __syncthreads();
+
+#pragma unroll 8
+    for (int kk = 0; kk < kBK; ++kk) {
+      float pr[4], vr[DJ];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) pr[i] = ps[(ty * 4 + i) * kLP + kk];
+#pragma unroll
+      for (int jj = 0; jj < DJ; ++jj) vr[jj] = vs[kk * LD + tx + 16 * jj];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int jj = 0; jj < DJ; ++jj)
+          acc[i][jj] = fmaf(pr[i], vr[jj], acc[i][jj]);
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q_start + ty * 4 + i;
+    if (row >= seq_q) continue;
+    const float safe = l[i] == 0.f ? 1.f : l[i];
+    float* orow = out + ((size_t)bh * seq_q + row) * D + slice * kWC;
+#pragma unroll
+    for (int jj = 0; jj < DJ; ++jj) orow[tx + 16 * jj] = acc[i][jj] / safe;
+    if (tx == 0)
+      lse[((size_t)slice * gridDim.y + bh) * seq_q + row] =
+          l[i] == 0.f ? kNegInf : m[i] + logf(safe);
+  }
+}
+
+// dk/dv of 64 keys (4 rows a thread), slice `slice` of their columns,
+// sweeping the q tiles that can see them.
+__global__ void __launch_bounds__(kThreads)
+fa_dkdv_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v,
+                    const float* __restrict__ dout,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta, float* __restrict__ dk,
+                    float* __restrict__ dv, int seq_q, int seq_k, int D,
+                    float sm_scale, float do_scale, float dv_scale,
+                    int ds_zero, int causal) {
+  constexpr int LD = kWC + 1;
+  constexpr int DJ = kWC / 16;
+  constexpr int R = 4;
+  constexpr int BK = 16 * R;
+  extern __shared__ float smem[];
+  float* ks = smem;              // [BK][LD] chunks of K, V, Q, pre-scaled dO
+  float* vs = ks + BK * LD;
+  float* qs = vs + BK * LD;      // [kBQ][LD]
+  float* dos = qs + kBQ * LD;    // [kBQ][LD]
+  float* pts = dos + kBQ * LD;   // [BK][kLP] p^T
+  float* dsts = pts + BK * kLP;  // [BK][kLP] ds^T
+  float* lses = dsts + BK * kLP;  // [kBQ]
+  float* dels = lses + kBQ;       // [kBQ]
+
+  const int tx = threadIdx.x & 15;
+  const int ty = threadIdx.x >> 4;
+  const int bh = blockIdx.y;
+  const int slice = blockIdx.z;
+  const int nch = D / kWC;
+  const int k_start = blockIdx.x * BK;
+  const int off = seq_k - seq_q;
+  const float* qb = q + (size_t)bh * seq_q * D;
+  const float* dob = dout + (size_t)bh * seq_q * D;
+  const float* kb = k + (size_t)bh * seq_k * D;
+  const float* vb = v + (size_t)bh * seq_k * D;
+  const float* lb = lse + (size_t)bh * seq_q;
+  const float* db = delta + (size_t)bh * seq_q;
+
+  float adk[R][DJ], adv[R][DJ];
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int jj = 0; jj < DJ; ++jj) adk[i][jj] = adv[i][jj] = 0.f;
+
+  const int need = causal ? k_start - off : 0;
+  const int qt0 = max(need, 0) / kBQ;
+  const int n_q = (seq_q + kBQ - 1) / kBQ;
+  for (int qt = qt0; qt < n_q; ++qt) {
+    const int q_start = qt * kBQ;
+    float s[R][4], dp[R][4];
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+    for (int ci = 0; ci < nch; ++ci) {
+      const int c = wide_chunk(slice, ci, nch) * kWC;
+      __syncthreads();  // the previous chunk's (and tile's) reads are done
+      load_block<kWC, false, BK>(ks, kb + c, D, k_start, seq_k, 1.f);
+      load_block<kWC, false, BK>(vs, vb + c, D, k_start, seq_k, 1.f);
+      load_block<kWC, false>(qs, qb + c, D, q_start, seq_q, 1.f);
+      load_block<kWC, true>(dos, dob + c, D, q_start, seq_q, do_scale);
+      if (ci == 0 && threadIdx.x < kBQ) {
+        const int r = q_start + threadIdx.x;
+        lses[threadIdx.x] = r < seq_q ? lb[r] : 0.f;
+        dels[threadIdx.x] = r < seq_q ? db[r] : 0.f;
+      }
+      __syncthreads();
+#pragma unroll 4
+      for (int d = 0; d < kWC; ++d) {
+        float kr[R], vr[R], qr[4], dr[4];
+#pragma unroll
+        for (int i = 0; i < R; ++i) {
+          kr[i] = ks[(ty * R + i) * LD + d];
+          vr[i] = vs[(ty * R + i) * LD + d];
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          qr[j] = qs[(tx + 16 * j) * LD + d];
+          dr[j] = dos[(tx + 16 * j) * LD + d];
+        }
+#pragma unroll
+        for (int i = 0; i < R; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            s[i][j] = fmaf(kr[i], qr[j], s[i][j]);
+            dp[i][j] = fmaf(vr[i], dr[j], dp[i][j]);
+          }
+      }
+    }
+    // qs and dos now hold chunk `slice`: the columns this CTA owns
+
+    const bool full = k_start + BK <= seq_k && q_start + kBQ <= seq_q &&
+                      (!causal || k_start + BK - 1 <= q_start + off);
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      const int col = k_start + ty * R + i;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int qc = tx + 16 * j;
+        const int row = q_start + qc;
+        const bool vis =
+            full || (col < seq_k && row < seq_q &&
+                     (!causal || col <= row + off));
+        const float p = vis ? expf(s[i][j] * sm_scale - lses[qc]) : 0.f;
+        const float ds = ds_zero ? 0.f : p * (dp[i][j] - dels[qc]);
+        pts[(ty * R + i) * kLP + qc] = p;
+        dsts[(ty * R + i) * kLP + qc] = ds;
+      }
+    }
+    __syncthreads();
+
+#pragma unroll 8
+    for (int qq = 0; qq < kBQ; ++qq) {
+      float pr[R], sr[R], dor[DJ], qr[DJ];
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        pr[i] = pts[(ty * R + i) * kLP + qq];
+        sr[i] = dsts[(ty * R + i) * kLP + qq];
+      }
+#pragma unroll
+      for (int jj = 0; jj < DJ; ++jj) {
+        dor[jj] = dos[qq * LD + tx + 16 * jj];
+        qr[jj] = qs[qq * LD + tx + 16 * jj];
+      }
+#pragma unroll
+      for (int i = 0; i < R; ++i)
+#pragma unroll
+        for (int jj = 0; jj < DJ; ++jj) {
+          adv[i][jj] = fmaf(pr[i], dor[jj], adv[i][jj]);
+          adk[i][jj] = fmaf(sr[i], qr[jj], adk[i][jj]);
+        }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int row = k_start + ty * R + i;
+    if (row >= seq_k) continue;
+    float* dkr = dk + ((size_t)bh * seq_k + row) * D + slice * kWC;
+    float* dvr = dv + ((size_t)bh * seq_k + row) * D + slice * kWC;
+#pragma unroll
+    for (int jj = 0; jj < DJ; ++jj) {
+      dkr[tx + 16 * jj] = adk[i][jj];
+      dvr[tx + 16 * jj] = adv[i][jj] * dv_scale;
+    }
+  }
+}
+
+// dq of kWideDqRows query rows (2 a thread: at 4, S, dP and the dQ
+// slice spilled), slice `slice` of its columns, sweeping the kv tiles
+// they can see.
+constexpr int kWideDqRows = 32;
+
+__global__ void __launch_bounds__(kThreads, 1)
+fa_dq_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                  const float* __restrict__ v, const float* __restrict__ dout,
+                  const float* __restrict__ lse,
+                  const float* __restrict__ delta, float* __restrict__ dq,
+                  int seq_q, int seq_k, int D, float sm_scale,
+                  float do_scale, int ds_zero, int causal) {
+  constexpr int LD = kWC + 1;
+  constexpr int DJ = kWC / 16;
+  constexpr int BQ = kWideDqRows;
+  constexpr int R = BQ / 16;
+  extern __shared__ float smem[];
+  float* qs = smem;             // [BQ][LD] chunks of Q, pre-scaled dO, K, V
+  float* dos = qs + BQ * LD;
+  float* ks = dos + BQ * LD;    // [kBK][LD]
+  float* vs = ks + kBK * LD;
+  float* dss = vs + kBK * LD;   // [BQ][kLP] ds
+
+  const int tx = threadIdx.x & 15;
+  const int ty = threadIdx.x >> 4;
+  const int bh = blockIdx.y;
+  const int slice = blockIdx.z;
+  const int nch = D / kWC;
+  const int q_start = blockIdx.x * BQ;
+  const int off = seq_k - seq_q;
+  const float* qb = q + (size_t)bh * seq_q * D;
+  const float* dob = dout + (size_t)bh * seq_q * D;
+  const float* kb = k + (size_t)bh * seq_k * D;
+  const float* vb = v + (size_t)bh * seq_k * D;
+
+  float lr[R], dl[R], adq[R][DJ];
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int row = q_start + ty * R + i;
+    lr[i] = row < seq_q ? lse[(size_t)bh * seq_q + row] : 0.f;
+    dl[i] = row < seq_q ? delta[(size_t)bh * seq_q + row] : 0.f;
+#pragma unroll
+    for (int jj = 0; jj < DJ; ++jj) adq[i][jj] = 0.f;
+  }
+
+  const int n_kv = kv_tiles(q_start, BQ, seq_q, seq_k, causal);
+  for (int t = 0; t < n_kv; ++t) {
+    const int k_start = t * kBK;
+    float s[R][4], dp[R][4];
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+    for (int ci = 0; ci < nch; ++ci) {
+      const int c = wide_chunk(slice, ci, nch) * kWC;
+      __syncthreads();  // the previous chunk's (and tile's) reads are done
+      load_block<kWC, false, BQ>(qs, qb + c, D, q_start, seq_q, 1.f);
+      load_block<kWC, true, BQ>(dos, dob + c, D, q_start, seq_q, do_scale);
+      load_block<kWC, false>(ks, kb + c, D, k_start, seq_k, 1.f);
+      load_block<kWC, false>(vs, vb + c, D, k_start, seq_k, 1.f);
+      __syncthreads();
+#pragma unroll 4
+      for (int d = 0; d < kWC; ++d) {
+        float qr[R], dr[R], kr[4], vr[4];
+#pragma unroll
+        for (int i = 0; i < R; ++i) {
+          qr[i] = qs[(ty * R + i) * LD + d];
+          dr[i] = dos[(ty * R + i) * LD + d];
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          kr[j] = ks[(tx + 16 * j) * LD + d];
+          vr[j] = vs[(tx + 16 * j) * LD + d];
+        }
+#pragma unroll
+        for (int i = 0; i < R; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            s[i][j] = fmaf(qr[i], kr[j], s[i][j]);
+            dp[i][j] = fmaf(dr[i], vr[j], dp[i][j]);
+          }
+      }
+    }
+    // ks now holds chunk `slice` of K: the columns this CTA owns
+
+    const bool full = k_start + kBK <= seq_k && q_start + BQ <= seq_q &&
+                      (!causal || k_start + kBK - 1 <= q_start + off);
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      const int row = q_start + ty * R + i;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int col = k_start + tx + 16 * j;
+        const bool vis =
+            full || (col < seq_k && row < seq_q &&
+                     (!causal || col <= row + off));
+        const float p = vis ? expf(s[i][j] * sm_scale - lr[i]) : 0.f;
+        const float ds = ds_zero ? 0.f : p * (dp[i][j] - dl[i]);
+        dss[(ty * R + i) * kLP + tx + 16 * j] = ds;
+      }
+    }
+    __syncthreads();
+
+#pragma unroll 8
+    for (int kk = 0; kk < kBK; ++kk) {
+      float sr[R], kr[DJ];
+#pragma unroll
+      for (int i = 0; i < R; ++i) sr[i] = dss[(ty * R + i) * kLP + kk];
+#pragma unroll
+      for (int jj = 0; jj < DJ; ++jj) kr[jj] = ks[kk * LD + tx + 16 * jj];
+#pragma unroll
+      for (int i = 0; i < R; ++i)
+#pragma unroll
+        for (int jj = 0; jj < DJ; ++jj)
+          adq[i][jj] = fmaf(sr[i], kr[jj], adq[i][jj]);
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int row = q_start + ty * R + i;
+    if (row >= seq_q) continue;
+    float* dqr = dq + ((size_t)bh * seq_q + row) * D + slice * kWC;
+#pragma unroll
+    for (int jj = 0; jj < DJ; ++jj) dqr[tx + 16 * jj] = adq[i][jj];
+  }
+}
+
 // ================================================================ bf16
 // Reductions over the 4 lanes of a quad (one accumulator row); the xor
 // butterfly leaves the same bits in every lane.
@@ -609,32 +1046,42 @@ __device__ __forceinline__ void scale_chunk(uint4* c, float scale) {
 }
 
 // Store the thread's two rows (h = 0, 1) of a warpgroup's 64-row fp32
-// accumulator (kSubs sub-tiles of kAcc registers), divided by (kDiv) or
-// times f[h], as bf16 into row-major (rows, D) `dst` from row `row0` and
-// column `col0`; rows at or past `nrows` are skipped.
-template <int D, bool kDiv, int kSubs, int kAcc>
-__device__ __forceinline__ void store_rows(bf16* dst,
-                                           const float (&acc)[kSubs][kAcc],
-                                           const float (&f)[2], int row0,
-                                           int col0, int nrows) {
-  using L = sm90::Tile<D>;
+// accumulator (kSubs sub-tiles of kAcc registers, kSubCols columns
+// each), divided by (kDiv) or times f[h], as bf16 into row-major `dst`
+// of row stride `ld` from row `row0` and column `col0`; rows at or past
+// `nrows` are skipped. store_rows: a (rows, D) matrix of Tile<D>
+// sub-tiles.
+template <int kSubCols, bool kDiv, int kSubs, int kAcc>
+__device__ __forceinline__ void store_rows_ld(bf16* dst,
+                                              const float (&acc)[kSubs][kAcc],
+                                              const float (&f)[2], int row0,
+                                              int col0, int nrows, int ld) {
   const int lane = threadIdx.x & 31;
   const int warp = (threadIdx.x >> 5) & 3;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int row = row0 + 16 * warp + (lane >> 2) + 8 * h;
     if (row >= nrows) continue;
-    bf16* r = dst + (size_t)row * D + col0 + 2 * (lane & 3);
+    bf16* r = dst + (size_t)row * ld + col0 + 2 * (lane & 3);
 #pragma unroll
     for (int s = 0; s < kSubs; ++s)
 #pragma unroll
       for (int j = 0; j < kAcc / 4; ++j)
-        *reinterpret_cast<__nv_bfloat162*>(r + s * L::kSubCols + 8 * j) =
+        *reinterpret_cast<__nv_bfloat162*>(r + s * kSubCols + 8 * j) =
             kDiv ? __floats2bfloat162_rn(acc[s][4 * j + 2 * h] / f[h],
                                          acc[s][4 * j + 2 * h + 1] / f[h])
                  : __floats2bfloat162_rn(acc[s][4 * j + 2 * h] * f[h],
                                          acc[s][4 * j + 2 * h + 1] * f[h]);
   }
+}
+
+template <int D, bool kDiv, int kSubs, int kAcc>
+__device__ __forceinline__ void store_rows(bf16* dst,
+                                           const float (&acc)[kSubs][kAcc],
+                                           const float (&f)[2], int row0,
+                                           int col0, int nrows) {
+  store_rows_ld<sm90::Tile<D>::kSubCols, kDiv>(dst, acc, f, row0, col0,
+                                               nrows, D);
 }
 
 // ------------------------------------------------------------- forward
@@ -1217,6 +1664,425 @@ fa_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                        wg * kWS * L::kSubCols, seq_q);
 }
 
+// ------------------------------------------------------ D > 256 (bf16)
+// The column split of the fp32 wide kernels on the tensor cores. One
+// warpgroup a CTA, 64 rows, one kWC-column slice of the output (64
+// accumulator registers a thread for O or dQ, 128 for dK and dV: the
+// D = 256 dk/dv layout's). A chunk step streams 64-row Tile<kWC> tiles
+// of the chunk's columns through a 2-stage cp.async ring and adds their
+// product to S (and dP) in registers; after the tile's last chunk the
+// softmax (or p and ds) runs as in the D <= 256 kernels, and the slice's
+// product reads the slice's V (forward, its own 2-tile ring loaded with
+// the tile's first chunk), or chunk `slice`'s Q and dO (dk/dv) or K
+// (dq), which the backward takes last. Every wgmma group is waited for
+// before the barrier that lets its stage be refilled.
+__global__ void __launch_bounds__(kWGThreads)
+fa_fwd_bf16_wide_kernel(const bf16* __restrict__ q,
+                        const bf16* __restrict__ k,
+                        const bf16* __restrict__ v, bf16* __restrict__ out,
+                        float* __restrict__ lse, int seq_q, int seq_k, int D,
+                        float sm_scale, int causal) {
+  using L = sm90::Tile<kWC>;
+  constexpr uint32_t kT = L::bytes(64);        // a 64-row chunk tile
+  extern __shared__ uint8_t smem_bytes[];
+  const uint32_t st0 = sm90::smem_u32(align_1k(smem_bytes));  // [Q, K] x 2
+  const uint32_t v0 = st0 + 4 * kT;                           // [V] x 2
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int g = (tid & 31) >> 2;
+  const int tq = tid & 3;
+  const int bh = blockIdx.y;
+  const int slice = blockIdx.z;
+  const int nch = D / kWC;
+  const int q_start = (gridDim.x - 1 - blockIdx.x) * kBQ;  // heaviest first
+  const int off = seq_k - seq_q;
+  const bf16* qb = q + (size_t)bh * seq_q * D;
+  const bf16* kb = k + (size_t)bh * seq_k * D;
+  const bf16* vb = v + (size_t)bh * seq_k * D + slice * kWC;
+  const int n = kv_tiles(q_start, kBQ, seq_q, seq_k, causal) * nch;
+
+  // chunk step u: chunk u % nch of kv tile u / nch, and the tile's V
+  // slice with its first chunk
+  auto issue = [&](int u) {
+    if (u < n) {
+      const int t = u / nch;
+      const int c = u - t * nch;
+      const uint32_t st = st0 + (u & 1) * 2 * kT;
+      sm90::load_tile_ld<kWC>(st, qb + c * kWC, D, q_start, kBQ, seq_q, tid,
+                              kWGThreads);
+      sm90::load_tile_ld<kWC>(st + kT, kb + c * kWC, D, t * kBK, kBK, seq_k,
+                              tid, kWGThreads);
+      if (c == 0)
+        sm90::load_tile_ld<kWC>(v0 + (t & 1) * kT, vb, D, t * kBK, kBK,
+                                seq_k, tid, kWGThreads);
+    }
+    sm90::cp_async_commit();
+  };
+  issue(0);
+
+  float o[L::kSubs][32];
+#pragma unroll
+  for (int sb = 0; sb < L::kSubs; ++sb)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[sb][i] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  float s[32] = {};
+
+  for (int u = 0; u < n; ++u) {
+    const int t = u / nch;
+    const int c = u - t * nch;
+    __syncthreads();  // stage u+1 and tile t+1's V slot are free
+    issue(u + 1);
+    sm90::cp_async_wait<1>();  // step u landed
+    sm90::fence_view_async_shared();
+    __syncthreads();
+    const uint32_t st = st0 + (u & 1) * 2 * kT;
+    sm90::fence_regs(s);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kWC / 16; ++kk)
+      sm90::wgmma_ss_n64(s, sm90::desc_k<kWC>(st, kBQ, 0, kk),
+                         sm90::desc_k<kWC>(st + kT, kBK, 0, kk),
+                         c > 0 || kk > 0);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(s);
+    if (c < nch - 1) continue;
+
+    const int k_start = t * kBK;
+    const bool full = k_start + kBK <= seq_k &&
+                      (!causal || k_start + kBK - 1 <= q_start + off);
+    if (full)
+      online_softmax<false>(s, m, l, o, q_start, k_start, seq_k, off, causal,
+                            sm_scale * kLog2e);
+    else
+      online_softmax<true>(s, m, l, o, q_start, k_start, seq_k, off, causal,
+                           sm_scale * kLog2e);
+    uint32_t pa[4][4];
+    to_a_operand(s, pa);
+#pragma unroll
+    for (int sb = 0; sb < L::kSubs; ++sb) sm90::fence_regs(o[sb]);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) sm90::fence_regs(pa[kk]);
+    sm90::wgmma_fence();
+    const uint32_t vs = v0 + (t & 1) * kT;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int sb = 0; sb < L::kSubs; ++sb)
+        sm90::wgmma_rs(o[sb], pa[kk], sm90::desc_mn<kWC>(vs, kBK, sb, kk));
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+#pragma unroll
+    for (int sb = 0; sb < L::kSubs; ++sb) sm90::fence_regs(o[sb]);
+  }
+
+  float safe[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    safe[h] = l[h] == 0.f ? 1.f : l[h];
+    const int row = q_start + 16 * warp + g + 8 * h;
+    if (tq == 0 && row < seq_q)
+      lse[((size_t)slice * gridDim.y + bh) * seq_q + row] =
+          l[h] == 0.f ? kNegInf : m[h] * kLn2 + logf(safe[h]);
+  }
+  store_rows_ld<L::kSubCols, true>(out + (size_t)bh * seq_q * D, o, safe,
+                                   q_start, slice * kWC, seq_q, D);
+}
+
+// dk/dv of 64 keys, slice `slice` of their columns. A chunk step holds
+// the chunk's K, V, Q and dO tiles (dO scaled by do_scale in place as it
+// lands); S^T and dP^T accumulate over the chunks, p and ds are taken
+// after the last (chunk `slice`), then dV and dK issue together, as the
+// D = 256 kernel's late schedule does. Shared memory: 2 stages of [K, V,
+// Q, dO], then 2 of [lse, delta] (64 floats each).
+__global__ void __launch_bounds__(kWGThreads)
+fa_dkdv_bf16_wide_kernel(const bf16* __restrict__ q,
+                         const bf16* __restrict__ k,
+                         const bf16* __restrict__ v,
+                         const bf16* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         bf16* __restrict__ dk, bf16* __restrict__ dv,
+                         int seq_q, int seq_k, int D, float sm_scale,
+                         float do_scale, float dv_scale, int ds_zero,
+                         int causal) {
+  using L = sm90::Tile<kWC>;
+  constexpr uint32_t kT = L::bytes(64);
+  extern __shared__ uint8_t smem_bytes[];
+  uint8_t* base = align_1k(smem_bytes);
+  const uint32_t st0 = sm90::smem_u32(base);
+  float* stats = reinterpret_cast<float*>(base + 8 * kT);  // [2][lse, delta][64]
+
+  const int tid = threadIdx.x;
+  const int bh = blockIdx.y;
+  const int slice = blockIdx.z;
+  const int nch = D / kWC;
+  const int k_start = blockIdx.x * kBK;
+  const int off = seq_k - seq_q;
+  const bf16* qb = q + (size_t)bh * seq_q * D;
+  const bf16* dob = dout + (size_t)bh * seq_q * D;
+  const bf16* kb = k + (size_t)bh * seq_k * D;
+  const bf16* vb = v + (size_t)bh * seq_k * D;
+  const float* lb = lse + (size_t)bh * seq_q;
+  const float* db = delta + (size_t)bh * seq_q;
+
+  const int need = causal ? k_start - off : 0;
+  const int qt0 = max(need, 0) / kBQ;
+  const int n_q = (seq_q + kBQ - 1) / kBQ;
+  const int n = max(n_q - qt0, 0) * nch;
+
+  // chunk step u: chunk wide_chunk(slice, u % nch) of q tile qt0 + u /
+  // nch, and the tile's lse and delta with its first chunk
+  auto issue = [&](int u) {
+    if (u < n) {
+      const int qi = u / nch;
+      const int ci = u - qi * nch;
+      const int c = wide_chunk(slice, ci, nch) * kWC;
+      const int q_start = (qt0 + qi) * kBQ;
+      const uint32_t st = st0 + (u & 1) * 4 * kT;
+      sm90::load_tile_ld<kWC>(st, kb + c, D, k_start, kBK, seq_k, tid,
+                              kWGThreads);
+      sm90::load_tile_ld<kWC>(st + kT, vb + c, D, k_start, kBK, seq_k, tid,
+                              kWGThreads);
+      sm90::load_tile_ld<kWC>(st + 2 * kT, qb + c, D, q_start, kBQ, seq_q,
+                              tid, kWGThreads);
+      sm90::load_tile_ld<kWC>(st + 3 * kT, dob + c, D, q_start, kBQ, seq_q,
+                              tid, kWGThreads);
+      if (ci == 0) {
+        const int r = q_start + (tid & (kBQ - 1));
+        const bool valid = r < seq_q;
+        sm90::cp_async4(sm90::smem_u32(stats + (qi & 1) * 2 * kBQ + tid),
+                        (tid < kBQ ? lb : db) + (valid ? r : 0), valid);
+      }
+    }
+    sm90::cp_async_commit();
+  };
+  issue(0);
+
+  float adk[L::kSubs][32], adv[L::kSubs][32];
+#pragma unroll
+  for (int sb = 0; sb < L::kSubs; ++sb)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) adk[sb][i] = adv[sb][i] = 0.f;
+  float sT[32] = {}, dpT[32] = {};
+
+  for (int u = 0; u < n; ++u) {
+    const int qi = u / nch;
+    const int ci = u - qi * nch;
+    __syncthreads();  // stage u+1 is free
+    issue(u + 1);
+    sm90::cp_async_wait<1>();  // step u landed
+    const uint32_t st = st0 + (u & 1) * 4 * kT;
+    const uint32_t qsm = st + 2 * kT;
+    const uint32_t dosm = st + 3 * kT;
+    // do * do_scale, rounded to bf16, over the chunks this thread copied
+    sm90::for_own_chunks<kWC>(base + (dosm - st0), kBQ, tid, kWGThreads,
+                              [&](uint4* c) { scale_chunk(c, do_scale); });
+    sm90::fence_view_async_shared();
+    __syncthreads();
+    sm90::fence_regs(sT);
+    sm90::fence_regs(dpT);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kWC / 16; ++kk)
+      sm90::wgmma_ss_n64(sT, sm90::desc_k<kWC>(st, kBK, 0, kk),
+                         sm90::desc_k<kWC>(qsm, kBQ, 0, kk), ci > 0 || kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < kWC / 16; ++kk)
+      sm90::wgmma_ss_n64(dpT, sm90::desc_k<kWC>(st + kT, kBK, 0, kk),
+                         sm90::desc_k<kWC>(dosm, kBQ, 0, kk),
+                         ci > 0 || kk > 0);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(sT);
+    sm90::fence_regs(dpT);
+    if (ci < nch - 1) continue;
+
+    const int q_start = (qt0 + qi) * kBQ;
+    const float* lses = stats + (qi & 1) * 2 * kBQ;
+    const float* dels = lses + kBQ;
+    const bool full = k_start + kBK <= seq_k && q_start + kBQ <= seq_q &&
+                      (!causal || k_start + kBK - 1 <= q_start + off);
+    if (full)
+      transposed_probs<false>(sT, lses, k_start, q_start, seq_q, seq_k, off,
+                              causal, sm_scale * kLog2e);
+    else
+      transposed_probs<true>(sT, lses, k_start, q_start, seq_q, seq_k, off,
+                             causal, sm_scale * kLog2e);
+    transposed_ds(sT, dpT, dels, ds_zero);
+    uint32_t pa[4][4], da[4][4];
+    to_a_operand(sT, pa);
+    to_a_operand(dpT, da);
+#pragma unroll
+    for (int sb = 0; sb < L::kSubs; ++sb) {
+      sm90::fence_regs(adk[sb]);
+      sm90::fence_regs(adv[sb]);
+    }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      sm90::fence_regs(pa[kk]);
+      sm90::fence_regs(da[kk]);
+    }
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int sb = 0; sb < L::kSubs; ++sb)
+        sm90::wgmma_rs(adv[sb], pa[kk], sm90::desc_mn<kWC>(dosm, kBQ, sb, kk));
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int sb = 0; sb < L::kSubs; ++sb)
+        sm90::wgmma_rs(adk[sb], da[kk], sm90::desc_mn<kWC>(qsm, kBQ, sb, kk));
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+#pragma unroll
+    for (int sb = 0; sb < L::kSubs; ++sb) {
+      sm90::fence_regs(adk[sb]);
+      sm90::fence_regs(adv[sb]);
+    }
+  }
+
+  const float one[2] = {1.f, 1.f}, dvs[2] = {dv_scale, dv_scale};
+  const size_t o = (size_t)bh * seq_k * D;
+  store_rows_ld<L::kSubCols, false>(dk + o, adk, one, k_start, slice * kWC,
+                                    seq_k, D);
+  store_rows_ld<L::kSubCols, false>(dv + o, adv, dvs, k_start, slice * kWC,
+                                    seq_k, D);
+}
+
+// dq of 64 query rows, slice `slice` of its columns: S and dP over the
+// chunks of [Q, dO, K, V] (dO scaled as it lands), ds after the last
+// (chunk `slice`), then dQ += dS.K from that chunk's K.
+__global__ void __launch_bounds__(kWGThreads)
+fa_dq_bf16_wide_kernel(const bf16* __restrict__ q,
+                       const bf16* __restrict__ k,
+                       const bf16* __restrict__ v,
+                       const bf16* __restrict__ dout,
+                       const float* __restrict__ lse,
+                       const float* __restrict__ delta,
+                       bf16* __restrict__ dq, int seq_q, int seq_k, int D,
+                       float sm_scale, float do_scale, int ds_zero,
+                       int causal) {
+  using L = sm90::Tile<kWC>;
+  constexpr uint32_t kT = L::bytes(64);
+  extern __shared__ uint8_t smem_bytes[];
+  uint8_t* base = align_1k(smem_bytes);
+  const uint32_t st0 = sm90::smem_u32(base);  // 2 stages of [Q, dO, K, V]
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int g = (tid & 31) >> 2;
+  const int bh = blockIdx.y;
+  const int slice = blockIdx.z;
+  const int nch = D / kWC;
+  const int q_start = (gridDim.x - 1 - blockIdx.x) * kBQ;  // heaviest first
+  const int off = seq_k - seq_q;
+  const bf16* qb = q + (size_t)bh * seq_q * D;
+  const bf16* dob = dout + (size_t)bh * seq_q * D;
+  const bf16* kb = k + (size_t)bh * seq_k * D;
+  const bf16* vb = v + (size_t)bh * seq_k * D;
+
+  float lr[2], dl[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = q_start + 16 * warp + g + 8 * h;
+    lr[h] = row < seq_q ? lse[(size_t)bh * seq_q + row] : 0.f;
+    dl[h] = row < seq_q ? delta[(size_t)bh * seq_q + row] : 0.f;
+  }
+  const int n = kv_tiles(q_start, kBQ, seq_q, seq_k, causal) * nch;
+
+  auto issue = [&](int u) {
+    if (u < n) {
+      const int t = u / nch;
+      const int c = wide_chunk(slice, u - t * nch, nch) * kWC;
+      const uint32_t st = st0 + (u & 1) * 4 * kT;
+      sm90::load_tile_ld<kWC>(st, qb + c, D, q_start, kBQ, seq_q, tid,
+                              kWGThreads);
+      sm90::load_tile_ld<kWC>(st + kT, dob + c, D, q_start, kBQ, seq_q, tid,
+                              kWGThreads);
+      sm90::load_tile_ld<kWC>(st + 2 * kT, kb + c, D, t * kBK, kBK, seq_k,
+                              tid, kWGThreads);
+      sm90::load_tile_ld<kWC>(st + 3 * kT, vb + c, D, t * kBK, kBK, seq_k,
+                              tid, kWGThreads);
+    }
+    sm90::cp_async_commit();
+  };
+  issue(0);
+
+  float adq[L::kSubs][32];
+#pragma unroll
+  for (int sb = 0; sb < L::kSubs; ++sb)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) adq[sb][i] = 0.f;
+  float s[32] = {}, dp[32] = {};
+
+  for (int u = 0; u < n; ++u) {
+    const int t = u / nch;
+    const int ci = u - t * nch;
+    __syncthreads();  // stage u+1 is free
+    issue(u + 1);
+    sm90::cp_async_wait<1>();  // step u landed
+    const uint32_t st = st0 + (u & 1) * 4 * kT;
+    sm90::for_own_chunks<kWC>(base + (st - st0) + kT, kBQ, tid, kWGThreads,
+                              [&](uint4* c) { scale_chunk(c, do_scale); });
+    sm90::fence_view_async_shared();
+    __syncthreads();
+    sm90::fence_regs(s);
+    sm90::fence_regs(dp);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kWC / 16; ++kk)
+      sm90::wgmma_ss_n64(s, sm90::desc_k<kWC>(st, kBQ, 0, kk),
+                         sm90::desc_k<kWC>(st + 2 * kT, kBK, 0, kk),
+                         ci > 0 || kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < kWC / 16; ++kk)
+      sm90::wgmma_ss_n64(dp, sm90::desc_k<kWC>(st + kT, kBQ, 0, kk),
+                         sm90::desc_k<kWC>(st + 3 * kT, kBK, 0, kk),
+                         ci > 0 || kk > 0);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(s);
+    sm90::fence_regs(dp);
+    if (ci < nch - 1) continue;
+
+    const int k_start = t * kBK;
+    const bool full = k_start + kBK <= seq_k && q_start + kBQ <= seq_q &&
+                      (!causal || k_start + kBK - 1 <= q_start + off);
+    if (full)
+      row_probs<false>(s, lr, q_start, k_start, seq_q, seq_k, off, causal,
+                       sm_scale * kLog2e);
+    else
+      row_probs<true>(s, lr, q_start, k_start, seq_q, seq_k, off, causal,
+                      sm_scale * kLog2e);
+    row_ds(s, dp, dl, ds_zero);
+    uint32_t da[4][4];
+    to_a_operand(dp, da);
+#pragma unroll
+    for (int sb = 0; sb < L::kSubs; ++sb) sm90::fence_regs(adq[sb]);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) sm90::fence_regs(da[kk]);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int sb = 0; sb < L::kSubs; ++sb)
+        sm90::wgmma_rs(adq[sb], da[kk],
+                       sm90::desc_mn<kWC>(st + 2 * kT, kBK, sb, kk));
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+#pragma unroll
+    for (int sb = 0; sb < L::kSubs; ++sb) sm90::fence_regs(adq[sb]);
+  }
+
+  const float one[2] = {1.f, 1.f};
+  store_rows_ld<L::kSubCols, false>(dq + (size_t)bh * seq_q * D, adq, one,
+                                    q_start, slice * kWC, seq_q, D);
+}
+
 // ------------------------------------------------------------- launches
 template <int D>
 constexpr size_t fwd_smem() {
@@ -1357,9 +2223,117 @@ cudaError_t launch_bwd_bf16(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// D > 256: the column-split kernels, grid.z the D / kWC slices
+constexpr size_t fwd_wide_smem() {
+  return sizeof(float) * ((size_t)(kBQ + 2 * kBK) * (kWC + 1) + kBQ * kLP);
+}
+constexpr size_t dkdv_wide_smem() {
+  return sizeof(float) * ((size_t)(2 * 64 + 2 * kBQ) * (kWC + 1) +
+                          2 * 64 * kLP + 2 * kBQ);
+}
+constexpr size_t dq_wide_smem() {
+  return sizeof(float) * ((size_t)(2 * kWideDqRows + 2 * kBK) * (kWC + 1) +
+                          kWideDqRows * kLP);
+}
+// bf16: 1 KB of slack, then 64-row Tile<kWC> tiles: 2 stages of [Q, K]
+// and 2 V tiles (forward); 2 stages of 4 tiles (backward; dk/dv's lse and
+// delta after them)
+constexpr size_t fwd_bf16_wide_smem() {
+  return 1024 + (size_t)6 * 64 * kWC * 2;
+}
+constexpr size_t dkdv_bf16_wide_smem() {
+  return 1024 + (size_t)8 * 64 * kWC * 2 + 2 * 2 * kBQ * sizeof(float);
+}
+constexpr size_t dq_bf16_wide_smem() {
+  return 1024 + (size_t)8 * 64 * kWC * 2;
+}
+
+cudaError_t launch_fwd_wide(const void* q, const void* k, const void* v,
+                            void* out, void* lse, int BH, int seq_q,
+                            int seq_k, int D, float sm_scale, int causal,
+                            int is_bf16, cudaStream_t stream) {
+  const dim3 grid((seq_q + kBQ - 1) / kBQ, BH, D / kWC);
+  cudaError_t e;
+  if (is_bf16) {
+    e = allow_smem(fa_fwd_bf16_wide_kernel, fwd_bf16_wide_smem());
+    if (e != cudaSuccess) return e;
+    fa_fwd_bf16_wide_kernel<<<grid, kWGThreads, fwd_bf16_wide_smem(),
+                              stream>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+        static_cast<const bf16*>(v), static_cast<bf16*>(out),
+        static_cast<float*>(lse), seq_q, seq_k, D, sm_scale, causal);
+  } else {
+    e = allow_smem(fa_fwd_wide_kernel, fwd_wide_smem());
+    if (e != cudaSuccess) return e;
+    fa_fwd_wide_kernel<<<grid, kThreads, fwd_wide_smem(), stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<float*>(out),
+        static_cast<float*>(lse), seq_q, seq_k, D, sm_scale, causal);
+  }
+  return cudaGetLastError();
+}
+
+cudaError_t launch_bwd_wide(const void* q, const void* k, const void* v,
+                            const void* dout, const void* lse,
+                            const void* delta, void* dq, void* dk, void* dv,
+                            int BH, int seq_q, int seq_k, int D,
+                            float sm_scale, float do_scale, float dv_scale,
+                            int ds_zero, int causal, int is_bf16,
+                            cudaStream_t stream) {
+  const dim3 gk((seq_k + 63) / 64, BH, D / kWC);
+  const dim3 gq((seq_q + 63) / 64, BH, D / kWC);
+  cudaError_t e;
+  if (is_bf16) {
+    e = allow_smem(fa_dkdv_bf16_wide_kernel, dkdv_bf16_wide_smem());
+    if (e != cudaSuccess) return e;
+    fa_dkdv_bf16_wide_kernel<<<gk, kWGThreads, dkdv_bf16_wide_smem(),
+                               stream>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+        static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
+        static_cast<const float*>(lse), static_cast<const float*>(delta),
+        static_cast<bf16*>(dk), static_cast<bf16*>(dv), seq_q, seq_k, D,
+        sm_scale, do_scale, dv_scale, ds_zero, causal);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+    e = allow_smem(fa_dq_bf16_wide_kernel, dq_bf16_wide_smem());
+    if (e != cudaSuccess) return e;
+    fa_dq_bf16_wide_kernel<<<gq, kWGThreads, dq_bf16_wide_smem(),
+                             stream>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+        static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
+        static_cast<const float*>(lse), static_cast<const float*>(delta),
+        static_cast<bf16*>(dq), seq_q, seq_k, D, sm_scale, do_scale,
+        ds_zero, causal);
+    return cudaGetLastError();
+  }
+  e = allow_smem(fa_dkdv_wide_kernel, dkdv_wide_smem());
+  if (e != cudaSuccess) return e;
+  fa_dkdv_wide_kernel<<<gk, kThreads, dkdv_wide_smem(), stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<float*>(dk), static_cast<float*>(dv), seq_q, seq_k, D,
+      sm_scale, do_scale, dv_scale, ds_zero, causal);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  e = allow_smem(fa_dq_wide_kernel, dq_wide_smem());
+  if (e != cudaSuccess) return e;
+  const dim3 gq32((seq_q + kWideDqRows - 1) / kWideDqRows, BH, D / kWC);
+  fa_dq_wide_kernel<<<gq32, kThreads, dq_wide_smem(), stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<float*>(dq), seq_q, seq_k, D, sm_scale, do_scale, ds_zero,
+      causal);
+  return cudaGetLastError();
+}
+
+bool wide(int D) { return D > 256 && D % kWC == 0; }
+
 bool bad_shape(int BH, int seq_q, int seq_k, int D) {
   return BH < 1 || BH > 65535 || seq_q < 1 || seq_k < 1 ||
-         (D != 32 && D != 64 && D != 128 && D != 256);
+         (D != 32 && D != 64 && D != 128 && D != 256 && !wide(D)) ||
+         D / kWC > 65535;
 }
 
 }  // namespace
@@ -1370,13 +2344,17 @@ bool bad_shape(int BH, int seq_q, int seq_k, int D) {
 // kernels run on `stream` and nothing here synchronises. is_bf16 picks
 // the tensor-core kernels, else the fp32 SIMT ones.
 
-// (out, lse) of the forward: one launch.
+// (out, lse) of the forward: one launch. Above D = 256 `lse` holds
+// D / 128 rows of (BH, Sq), one a column slice, each the same bits.
 extern "C" int bigdl_flash_fwd(const void* q, const void* k, const void* v,
                                void* out, void* lse, int BH, int seq_q,
                                int seq_k, int D, float sm_scale, int causal,
                                int is_bf16, void* stream) {
   if (bad_shape(BH, seq_q, seq_k, D)) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (wide(D))
+    return (int)launch_fwd_wide(q, k, v, out, lse, BH, seq_q, seq_k, D,
+                                sm_scale, causal, is_bf16, s);
 #define BIGDL_FA_FWD(F, DD) \
   return (int)F<DD>(q, k, v, out, lse, BH, seq_q, seq_k, sm_scale, causal, s)
   if (is_bf16) {
@@ -1405,6 +2383,10 @@ extern "C" int bigdl_flash_bwd(const void* q, const void* k, const void* v,
                                int is_bf16, void* stream) {
   if (bad_shape(BH, seq_q, seq_k, D)) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (wide(D))
+    return (int)launch_bwd_wide(q, k, v, dout, lse, delta, dq, dk, dv, BH,
+                                seq_q, seq_k, D, sm_scale, do_scale,
+                                dv_scale, ds_zero, causal, is_bf16, s);
 #define BIGDL_FA_BWD(F, DD)                                               \
   return (int)F<DD>(q, k, v, dout, lse, delta, dq, dk, dv, BH, seq_q,     \
                     seq_k, sm_scale, do_scale, dv_scale, ds_zero, causal, \

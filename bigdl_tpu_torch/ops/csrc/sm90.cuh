@@ -143,23 +143,34 @@ struct Tile {
 };
 
 // Asynchronous copy of rows [row0, row0 + rows) of a (nrows, D) bf16
-// matrix into a tile at shared address `dst`, by threads tid of
-// nthreads; rows past nrows become zeros. Thread tid copies chunks tid,
-// tid + nthreads, ... — `for_own_chunks` visits the same ones.
+// matrix with row stride `ld` elements (a multiple of 8; D for a whole
+// matrix, more for a column block of a wider one) into a tile at shared
+// address `dst`, by threads tid of nthreads; rows past nrows become
+// zeros. Thread tid copies chunks tid, tid + nthreads, ... —
+// `for_own_chunks` visits the same ones.
 template <int D>
-__device__ __forceinline__ void load_tile(uint32_t dst,
-                                          const __nv_bfloat16* src, int row0,
-                                          int rows, int nrows, int tid,
-                                          int nthreads) {
+__device__ __forceinline__ void load_tile_ld(uint32_t dst,
+                                             const __nv_bfloat16* src,
+                                             int ld, int row0, int rows,
+                                             int nrows, int tid,
+                                             int nthreads) {
   using L = Tile<D>;
   for (int i = tid; i < rows * L::kChunks; i += nthreads) {
     const int r = i / L::kChunks;
     const int c = i % L::kChunks;
     const bool valid = row0 + r < nrows;
     const __nv_bfloat16* g =
-        src + (valid ? (size_t)(row0 + r) * D + c * 8 : 0);
+        src + (valid ? (size_t)(row0 + r) * ld + c * 8 : 0);
     cp_async16(dst + L::chunk(rows, r, c), g, valid);
   }
+}
+
+template <int D>
+__device__ __forceinline__ void load_tile(uint32_t dst,
+                                          const __nv_bfloat16* src, int row0,
+                                          int rows, int nrows, int tid,
+                                          int nthreads) {
+  load_tile_ld<D>(dst, src, D, row0, rows, nrows, tid, nthreads);
 }
 
 // The chunks thread tid copied in load_tile, as generic pointers: after

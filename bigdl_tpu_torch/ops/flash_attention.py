@@ -34,14 +34,18 @@ rounds p. The bf16 kernels' asynchronous copies read 16-byte rows, so
 `_check` refuses a bf16 operand whose data does not start on a 16-byte
 boundary.
 
-The kernels are instantiated at head dims HEAD_DIMS. Any other D up to
-the largest is zero-padded to the next instantiation and the results
-sliced back (`pad_head_dim` / `unpad_head_dim`), as the JAX wrapper
-pads D to a multiple of 128 before its kernels: zero columns add exact
-zeros to every score and leave the padded output and gradient columns
-zero, and `sm_scale` stays that of the unpadded D. D beyond the largest
-instantiation (256) raises, where the JAX wrapper pads on to the next
-multiple of 128.
+The kernels take any head dim. They are instantiated at HEAD_DIMS; a
+D up to 256 is zero-padded to the next instantiation, a D above 256 to
+the next multiple of WIDE_COLS, and the results sliced back
+(`pad_head_dim` / `unpad_head_dim`), as the JAX wrapper pads D to a
+multiple of 128 before its kernels: zero columns add exact zeros to
+every score and leave the padded output and gradient columns zero, and
+`sm_scale` stays that of the unpadded D. Above 256 the column-split
+kernels run (`column_slices`): each CTA owns WIDE_COLS columns of the
+output (or of dq, dk and dv) and computes the scores over the full D,
+streamed in WIDE_COLS-column chunks, so no thread holds more than one
+slice's accumulator. Every slice writes its own lse row, the same bits
+(`flash_fwd_cuda(return_lse_slices=True)` returns them all).
 
 `impl`, in `flash_attention` and `flash_attention_with_lse` alike:
 None picks `"cuda"` for CUDA tensors and `"torch"` for CPU tensors;
@@ -72,6 +76,7 @@ from bigdl_tpu_torch.ops import _build
 IMPLS = ("cuda", "torch")
 NEG_INF = -1e30
 HEAD_DIMS = (32, 64, 128, 256)  # csrc/flash_attention.cu instantiations
+WIDE_COLS = 128                # columns a slice above 256 (csrc kWC)
 BWD_LAUNCHES = 2               # dk/dv kernel, then dq kernel
 MAX_BH = 65535                 # grid.y of every launch
 KERNEL_BLOCK_K = 64            # keys per tile of the kernels (kBK)
@@ -282,14 +287,27 @@ def flash_backward_tiled(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 # ------------------------------------------------- head-dim padding
 def kernel_head_dim(d: int) -> int:
-    """The instantiation a head dim `d` runs at: the least entry of
-    HEAD_DIMS that holds it. Raises beyond the largest."""
+    """The head dim `d` runs at: the least entry of HEAD_DIMS that holds
+    it, or above the largest the next multiple of WIDE_COLS."""
+    if d < 1:
+        raise ValueError(f"flash_attention takes head_dim >= 1, got {d}")
     for dp in HEAD_DIMS:
         if d <= dp:
             return dp
-    raise ValueError(f"flash_attention impl='cuda' takes head_dim <= "
-                     f"{HEAD_DIMS[-1]} (kernels instantiated at "
-                     f"{HEAD_DIMS}), got {d}")
+    return -(-d // WIDE_COLS) * WIDE_COLS
+
+
+def column_slices(dp: int) -> int:
+    """CTAs a (q tile, batch-head) takes at the kernel head dim `dp`
+    (`kernel_head_dim`): 1 at the instantiations of HEAD_DIMS, else one
+    a WIDE_COLS-column slice of the output, the column-split kernels."""
+    if dp in HEAD_DIMS:
+        return 1
+    if dp <= HEAD_DIMS[-1] or dp % WIDE_COLS:
+        raise ValueError(f"flash_attention kernels run at head dims "
+                         f"{HEAD_DIMS} or multiples of {WIDE_COLS} above "
+                         f"{HEAD_DIMS[-1]}, got {dp}")
+    return dp // WIDE_COLS
 
 
 def pad_head_dim(*tensors: torch.Tensor) -> Tuple[torch.Tensor, ...]:
@@ -331,7 +349,8 @@ def _lib() -> ctypes.CDLL:
 def _check(**tensors: torch.Tensor) -> None:
     """Devices, dtypes, alignment and shapes the kernels take: (BH, S,
     D), one CUDA device, fp32 or bf16 throughout, bf16 data starting on
-    a 16-byte boundary, D in HEAD_DIMS (the wrappers pad to it)."""
+    a 16-byte boundary, D in HEAD_DIMS or a multiple of WIDE_COLS above
+    them (the wrappers pad to it)."""
     q = tensors["q"]
     for name, t in tensors.items():
         if not t.is_cuda or t.device != q.device:
@@ -357,9 +376,7 @@ def _check(**tensors: torch.Tensor) -> None:
         raise ValueError(f"flash_attention shapes disagree: q "
                          f"{tuple(q.shape)}, k {tuple(k.shape)}, v "
                          f"{tuple(v.shape)}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash_attention impl='cuda' needs head_dim in "
-                         f"{HEAD_DIMS}, got {d}")
+    column_slices(d)
     if not 1 <= bh <= MAX_BH or seq_q < 1 or k.shape[1] < 1:
         raise ValueError(f"flash_attention impl='cuda': batch*heads "
                          f"{bh} must lie in [1, {MAX_BH}] and both "
@@ -375,19 +392,24 @@ def _raise_on(err: int, lib: ctypes.CDLL, what: str) -> None:
 
 
 def flash_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                   causal: bool, sm_scale: float
-                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+                   causal: bool, sm_scale: float,
+                   return_lse_slices: bool = False):
     """(out, lse) through the forward kernel, on (BH, S, D). The
     operands are made contiguous first (a copy for the model's
-    head-transposed views); a D between instantiations is padded to the
-    next one and `out` sliced back (`pad_head_dim`)."""
+    head-transposed views); any other D is padded to the kernels' head
+    dim and `out` sliced back (`pad_head_dim`). With
+    `return_lse_slices`, also the lse rows of every column slice
+    (`column_slices`, (slices, BH, S)): the first is `lse`, and the
+    kernels compute them all alike."""
     global fwd_launches
     d_in = q.shape[-1]
     q, k, v = pad_head_dim(q.contiguous(), k.contiguous(), v.contiguous())
     _check(q=q, k=k, v=v)
     bh, seq_q, d = q.shape
     out = torch.empty_like(q)
-    lse = torch.empty(bh, seq_q, dtype=torch.float32, device=q.device)
+    slices = torch.empty(column_slices(d), bh, seq_q, dtype=torch.float32,
+                         device=q.device)
+    lse = slices[0]
     lib = _lib()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -397,7 +419,8 @@ def flash_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             int(causal), int(q.dtype == torch.bfloat16), stream)
     _raise_on(err, lib, "forward")
     fwd_launches += 1
-    return unpad_head_dim(d_in, out)[0], lse
+    out = unpad_head_dim(d_in, out)[0]
+    return (out, lse, slices) if return_lse_slices else (out, lse)
 
 
 def flash_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -409,9 +432,9 @@ def flash_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     delta = sum(do * o) * sm_scale is computed here in fp32, as the
     JAX package's `_bwd_prep` does, and handed to both kernels; the
     LSE's gradient `dlse`, if any, enters as (sum(do * o) - dlse) *
-    sm_scale, which is all the kernels need to serve it. A D between
-    instantiations is padded and the gradients sliced back, as in the
-    forward; delta is taken over the unpadded columns."""
+    sm_scale, which is all the kernels need to serve it. D is padded
+    and the gradients sliced back, as in the forward; delta is taken
+    over the unpadded columns."""
     global bwd_launches
     d_in = q.shape[-1]
     if o.shape != q.shape or lse.shape != q.shape[:2]:

@@ -19,10 +19,21 @@ and its tile knobs have no counterpart: the CUDA kernel's split plan
 depends on the table extent alone, so its bits do not depend on the
 batch extent or the clocks, and it has no tiles to choose.
 
+Head dims: the kernel takes any D >= 1. It is instantiated at the
+tiers HEAD_DIMS and a call runs at the least tier that holds D
+(`kernel_head_dim`), with D itself passed at run time: the pools are
+read where they lie, at their own row stride, and never padded or
+copied. Rows of whole 16-byte chunks stream as 16-byte copies; any
+other row (a bf16 row of D = 20 is 40 bytes) element by element
+(`vector_rows`). Above the largest tier a row-split kernel runs (one
+CTA a (row, head), the scores through a scratch row the wrapper
+allocates, then the weighted V rows with the threads over the
+columns), in one launch too.
+
 `launches` counts kernel launches (a plain int, incremented only where
 the kernel is launched), so a run can show that its decode path went
 through the kernel; `launches_by_head_dim` splits the same count by the
-head dim (the instantiation) launched.
+head dim launched.
 """
 
 from __future__ import annotations
@@ -36,9 +47,10 @@ from bigdl_tpu_torch.ops import _build
 from bigdl_tpu_torch.ops.kv_cache import paged_attention
 
 IMPLS = ("cuda", "torch")
-# the head dims csrc/paged_decode.cu instantiates: 8 and 16 (the tiny
-# serving LMs of bigdl_tpu_torch/scripts/) and the multiples of 32 to 256
-HEAD_DIMS = (8, 16) + tuple(range(32, 257, 32))
+# the tiers csrc/paged_decode.cu instantiates: 8, 16, the multiples of
+# 32 to 256, then 384, 512, 768 and 1024; a head dim runs at the least
+# tier that holds it, above the largest on the row-split kernel
+HEAD_DIMS = (8, 16) + tuple(range(32, 257, 32)) + (384, 512, 768, 1024)
 # shared memory one CTA may use on Hopper (227 KB, opt-in above 48 KB)
 MAX_SHARED_BYTES = 232448
 # csrc/paged_decode.cu: threads a CTA, ring stages, the portable cluster
@@ -57,9 +69,13 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("paged_decode")
     fn = lib.bigdl_paged_decode
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [
             ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        wide = lib.bigdl_paged_decode_wide
+        wide.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [
+            ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        wide.restype = ctypes.c_int
         lib.bigdl_cuda_error_string.argtypes = [ctypes.c_int]
         lib.bigdl_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -79,25 +95,47 @@ def split_plan(num_blocks: int, block_size: int) -> tuple:
     return -(-seq // span), span
 
 
-def _stage_keys(head_dim: int, itemsize: int) -> int:
-    """Keys a ring stage holds (csrc/paged_decode.cu's Geo kSK): a key
-    row is head_dim * itemsize / 16 chunks of 16 bytes, read by the
-    largest power of two <= 32 threads dividing that count; each group
-    of threads takes 2 keys a stage (1 when a thread reads > 2 chunks)."""
-    chunks = head_dim * itemsize // 16
+def kernel_head_dim(head_dim: int) -> int:
+    """The tier a head dim runs at: the least entry of HEAD_DIMS that
+    holds it; above the largest the head dim itself (the row-split
+    kernel). Raises below 1."""
+    if head_dim < 1:
+        raise ValueError(f"paged_decode takes head_dim >= 1, got "
+                         f"{head_dim}")
+    return next((t for t in HEAD_DIMS if head_dim <= t), head_dim)
+
+
+def vector_rows(head_dim: int, itemsize: int, *pools: torch.Tensor
+                ) -> bool:
+    """Whether the pools' rows stream as 16-byte copies: a row of
+    head_dim elements is whole 16-byte chunks and every pool starts on
+    a 16-byte boundary. Otherwise the kernel copies element by
+    element."""
+    return (head_dim * itemsize % 16 == 0
+            and all(t.data_ptr() % 16 == 0 for t in pools))
+
+
+def _stage_keys(tier: int, itemsize: int) -> int:
+    """Keys a ring stage holds (csrc/paged_decode.cu's Geo kSK) at a
+    tier: a key row is tier * itemsize / 16 chunks of 16 bytes, read by
+    the largest power of two <= 32 threads dividing that count; each
+    group of threads takes 2 keys a stage (1 when a thread reads > 2
+    chunks)."""
+    chunks = tier * itemsize // 16
     group = next(g for g in (32, 16, 8, 4, 2, 1) if chunks % g == 0)
     return _THREADS // group * (2 if chunks // group <= 2 else 1)
 
 
 def shared_bytes(num_blocks: int, block_size: int, head_dim: int,
                  itemsize: int) -> int:
-    """Dynamic shared memory one CTA of the kernel takes: its result
-    (m, l and D floats, padded to 16 bytes), the ring of K and V stages
-    in the pools' dtype, and its slice of the table row."""
+    """Dynamic shared memory one CTA of the kernel takes at the tier of
+    `head_dim`: its result (m, l and a tier of floats), the ring of K
+    and V stages in the pools' dtype, laid out at the tier, and its
+    slice of the table row."""
     _, span = split_plan(num_blocks, block_size)
-    return (4 * (head_dim + 4)
-            + itemsize * _STAGES * 2 * _stage_keys(head_dim, itemsize)
-            * head_dim
+    tier = kernel_head_dim(head_dim)
+    return (4 * (tier + 4)
+            + itemsize * _STAGES * 2 * _stage_keys(tier, itemsize) * tier
             + 4 * (-(-span // block_size) + 1))
 
 
@@ -135,9 +173,8 @@ def _check(q, k_pool, v_pool, table, pos) -> None:
             f"paged_decode shapes disagree: q {tuple(q.shape)}, pools "
             f"{tuple(k_pool.shape)}/{tuple(v_pool.shape)}, table "
             f"{tuple(table.shape)}, pos {tuple(pos.shape)}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"paged_decode impl='cuda' needs head_dim in "
-                         f"{HEAD_DIMS}, got {d}")
+    if kernel_head_dim(d) > HEAD_DIMS[-1]:
+        return                        # the row-split kernel: static smem
     smem = shared_bytes(table.shape[1], bs, d, k_pool.element_size())
     if smem > MAX_SHARED_BYTES:
         raise ValueError(f"paged_decode impl='cuda': a table extent of "
@@ -157,11 +194,23 @@ def _paged_decode_cuda(q, k_pool, v_pool, table, pos,
     lib = _lib()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.bigdl_paged_decode(
-            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-            table.data_ptr(), pos.data_ptr(), out.data_ptr(), b, h,
-            table.shape[1], k_pool.shape[2], d, splits, span,
-            float(sm_scale), int(k_pool.dtype == torch.bfloat16), stream)
+        if kernel_head_dim(d) > HEAD_DIMS[-1]:
+            scratch = torch.empty(b * h * table.shape[1] * k_pool.shape[2],
+                                  dtype=torch.float32, device=q.device)
+            err = lib.bigdl_paged_decode_wide(
+                q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+                table.data_ptr(), pos.data_ptr(), out.data_ptr(),
+                scratch.data_ptr(), b, h, table.shape[1], k_pool.shape[2],
+                d, float(sm_scale), int(k_pool.dtype == torch.bfloat16),
+                stream)
+        else:
+            err = lib.bigdl_paged_decode(
+                q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+                table.data_ptr(), pos.data_ptr(), out.data_ptr(), b, h,
+                table.shape[1], k_pool.shape[2], kernel_head_dim(d), d,
+                int(vector_rows(d, k_pool.element_size(), k_pool, v_pool)),
+                splits, span, float(sm_scale),
+                int(k_pool.dtype == torch.bfloat16), stream)
     if err != 0:
         raise RuntimeError(
             "paged_decode kernel launch failed: "

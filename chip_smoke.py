@@ -13,8 +13,9 @@ speculative decoding with a distilled, hot-swapped draft, a vision
 group beside the LM pool, the fleet simulator's card calibration, the
 command-line scripts (load generator, report surfaces, fault drill), the
 training plane's telemetry, the keras surface, module files,
-Caffe/TensorFlow model import, and the trainer's LM at two heads (head
-dim 256) trained and served, on one NVIDIA GPU and check them; then
+Caffe/TensorFlow model import, the LM's dense-cache decode, and the
+trainer's LM at two heads (head dim 256) and at one (head dim 512)
+trained and served, on one NVIDIA GPU and check them; then
 run the port's static analysis over the port.
 
     python3 chip_smoke.py            # from the repository root, one CUDA card
@@ -37,14 +38,16 @@ It drives `bigdl_tpu_torch` only (never JAX or the JAX package):
    on DECODE_CASES: the engine's shape (B=8, H=8, 37 blocks of 16,
    D=64) with ragged clocks including 0 and S-1, one key, and a 4096-key
    extent at D=128 with clocks 0, 2047 and 4095 (ranks of a cluster see
-   no key), the engine's shape at two heads of D=256, and the scripts'
-   tiny LMs (bigdl_tpu_torch/scripts/: 4 slots, H=2, 96 keys at D=16;
-   2 slots, 64 keys at D=8); shuffled tables, a NaN scratch block 0 and
+   no key), the engine's shape at two heads of D=256 and at one head of
+   D=512, the scripts' tiny LMs (bigdl_tpu_torch/scripts/: 4 slots, H=2,
+   96 keys at D=16; 2 slots, 64 keys at D=8), and D = 20, 48, 80, 320
+   (between and above the kernel's tiers; D = 20 in bf16 copies its
+   40-byte rows element by element) and 1100 (the row-split kernel
+   above the tiers); shuffled tables, a NaN scratch block 0 and
    NaN rows past each clock inside its last page; fp32 and bf16 pools
    (max abs err <= 2e-5); each row of a launch must be BITWISE the same
-   row launched alone; times at the engine's shape, its two-head shape
-   and the scripts' two with CUDA events, L2 flushed before each
-   launch;
+   row launched alone; times at those shapes but one_key and long with
+   CUDA events, L2 flushed before each launch;
 4. flash  — the flash-attention kernels (forward; backward = dk/dv +
    dq launches) against their plain versions on FLASH_CASES: the
    training shape (BH=64, S=2048, D=64, causal), a long sequence
@@ -52,15 +55,27 @@ It drives `bigdl_tpu_torch` only (never JAX or the JAX package):
    D = 32/128, no mask, sm_scale = 0, one query over 65 keys, 129
    rows and keys at D = 128 (one past the bf16 forward's 128-row CTA),
    and at D = 256 the trainer's shape at two heads (BH=16, S=2048),
-   ragged lengths and D = 160 (padded to 256); fp32 and bf16 (bf16 on
+   ragged lengths and D = 160 (padded to 256), and above 256 on the
+   column-split kernels the trainer's shape at one head (BH=8, S=2048,
+   D=512), D = 320 ragged and D = 512 with fully masked rows, every
+   column slice's lse row bitwise the first's; fp32 and bf16 (bf16 on
    the tensor cores); bf16 also element by element (in bf16 ulps)
    against the plain versions that round where the kernels round, while
    the same versions without the roundings must fail that check; two
    backward runs bitwise equal; gradients through both outputs of
    flash_attention_with_lse, kernels vs plain; kernel, plain and SDPA
-   (library yardstick) times at the two training shapes, the long
-   sequence and D = 160 (the padding's cost);
-5. model  — the 43M Transformer-LM at full width: `decode_step_paged`
+   (library yardstick) times at the three training shapes, the long
+   sequence, D = 160 (the padding's cost) and D = 320;
+5. dense_decode (after engine) — `TransformerLM.init_cache` /
+   `prefill` / `decode_step` at bench.py bench_lm_decode's
+   configuration: the 43M LM (fp32 weights, serving_params layout), a
+   512-token prompt, 128 greedy tokens over an fp32 cache (the prefill
+   launching the flash forward once a layer, counted from 0), the
+   prefill's and five decode steps' logits within 1e-4 of the full
+   forward, 16 steps over a bf16 cache within 0.1; prefill ms and
+   decode ms a token; the greedy tokens against the paged
+   InferenceEngine's (equal, or where they part and the top-2 margin);
+5a. model — the 43M Transformer-LM at full width: `decode_step_paged`
    through the kernel against the plain version on the same pools and
    tokens for 8 steps (logits max abs diff <= 1e-4);
 6. engine — the serving path: `InferenceEngine.run` serves a warm-up
@@ -416,6 +431,8 @@ It drives `bigdl_tpu_torch` only (never JAX or the JAX package):
    8 greedy requests served from the trained weights through
    `InferenceEngine` at the engine's knobs (K1 launches exact), tokens
    equal to a plain-attention engine's;
+41a. lm1h — the same at one head (head dim 512: the column-split flash
+   kernels and the paged-decode kernel's 512 tier);
 42. multihost — `bigdl_tpu_torch/scripts/multihost_smoke.py`'s
    kill_resume and zero2_resume legs at one NCCL process on the card:
    the sole training process SIGKILLed once checkpoint-3 publishes and
@@ -430,7 +447,7 @@ It drives `bigdl_tpu_torch` only (never JAX or the JAX package):
 44. lint — `python -m bigdl_tpu_torch.analysis` over the port's tree
    (no JAX on this machine): clean against its baseline;
 45. kernels — one JSON line per the port's kernel table, the D = 256,
-   16 and 8 instantiations in rows of their own.
+   16, 8 and 512 instantiations in rows of their own.
 
 Every phase prints one JSON line (`at_s`: the script's seconds when
 it ended); any failed check raises and the script exits non-zero. The
@@ -479,7 +496,13 @@ LOGIT_TOL = 1e-4
 # heads (D = 256, the lm2h phase's serving path), timed; "d16" and "d8"
 # the scripts' tiny serving LMs (bigdl_tpu_torch/scripts/: the target,
 # 2 heads of 16, 4 slots over a 96-token cache; the speculative draft,
-# 2 heads of 8, 2 slots over 64), timed. Every case has the NaN scratch
+# 2 heads of 8, 2 slots over 64), timed; "heads1" the engine's shape for
+# the LM at one head (D = 512, the lm1h phase's serving path), timed;
+# "d20", "d48", "d80" head dims between the kernel's tiers and "d320"
+# one above 256 (run at the tiers 32, 64, 96 and 384, the pools read at
+# their own row stride; a bf16 row of D = 20 is 40 bytes, so its rows
+# are copied element by element), and "d1100" one above the largest
+# tier (the row-split kernel), timed. Every case has the NaN scratch
 # block and NaN rows past each clock inside its last page.
 DECODE_CASES = (
     ("engine", SLOTS, HEADS, MAX_LEN // BLOCK, BLOCK, DIM // HEADS, None),
@@ -488,8 +511,15 @@ DECODE_CASES = (
     ("heads2", SLOTS, 2, MAX_LEN // BLOCK, BLOCK, DIM // 2, None),
     ("d16", 4, 2, 96 // BLOCK, BLOCK, 16, None),
     ("d8", 2, 2, 64 // BLOCK, BLOCK, 8, None),
+    ("heads1", SLOTS, 1, MAX_LEN // BLOCK, BLOCK, DIM, None),
+    ("d20", 4, 2, 96 // BLOCK, BLOCK, 20, None),
+    ("d48", 4, 2, 96 // BLOCK, BLOCK, 48, None),
+    ("d80", 4, 2, 96 // BLOCK, BLOCK, 80, None),
+    ("d320", 4, 2, 96 // BLOCK, BLOCK, 320, None),
+    ("d1100", 4, 2, 96 // BLOCK, BLOCK, 1100, None),
 )
-DECODE_TIMED = ("engine", "heads2", "d16", "d8")
+DECODE_TIMED = ("engine", "heads2", "d16", "d8", "heads1", "d20", "d48",
+                "d80", "d320", "d1100")
 # the design of the K1 row of the kernels line
 DECODE_DESIGN = ("S split over a thread-block cluster (split_plan: <= 8 "
                  "CTAs a (row, head), by the table extent alone), pages "
@@ -510,7 +540,9 @@ BF16_FLOPS_PER_S = 989e12       # dense tensor-core bf16 peak (data sheet)
 # 128-row tile of the bf16 forward's CTA at D = 128; then D = 256: the
 # trainer's shape with two heads (the lm2h phase's, B=8 x H=2, S=2048),
 # ragged lengths, and D = 160, which the wrapper pads to 256, ragged
-# and causal.
+# and causal; then above 256, on the column-split kernels: the trainer's
+# shape at one head (the lm1h phase's, B=8 x H=1, S=2048, D = 512),
+# D = 320 (padded to 384) ragged, and D = 512 with fully masked rows.
 FLASH_CASES = (
     ("train", 64, 2048, 2048, 64, True, None),
     ("long", 8, 8192, 8192, 64, True, None),
@@ -523,8 +555,12 @@ FLASH_CASES = (
     ("train_h2", 16, 2048, 2048, 256, True, None),
     ("ragged_d256", 3, 1000, 1500, 256, True, None),
     ("pad_d160", 4, 777, 900, 160, True, None),
+    ("train_h1", 8, 2048, 2048, 512, True, None),
+    ("ragged_d320", 3, 1000, 1500, 320, True, None),
+    ("masked_d512", 2, 700, 500, 512, True, None),
 )
-FLASH_TIMED = ("train", "long", "train_h2", "pad_d160")
+FLASH_TIMED = ("train", "long", "train_h2", "pad_d160", "train_h1",
+               "ragged_d320")
 # the designs of the K2 and K3 rows of the kernels line
 FLASH_DESIGN = {
     "fwd": "bf16: wgmma (S = Q.K^T from shared memory, P.V with P from "
@@ -572,6 +608,19 @@ BF16_ULP_TOL, BF16_MISMATCH_TOL = 4.0, 0.02
 # fp32 gradients through both outputs of flash_attention_with_lse,
 # kernels vs plain, relative to each gradient's max (FLASH_TOL "grad")
 WITH_LSE_CASES = ("ragged", "masked_rows")
+
+# above D = 256 (rows of their own in the kernels line): the output's
+# columns split over CTAs, 128 a slice, each CTA computing the scores
+# over the full D; every slice writes its lse row, held bitwise equal
+FLASH_WIDE_DESIGN = {
+    "fwd": "D padded to a multiple of 128, one CTA a 128-column slice of "
+           "O (grid.z); S over the full D in 128-column chunks through a "
+           "2-stage cp.async ring. bf16: one warpgroup x 64 rows on wgmma; "
+           "fp32: SIMT, 64-row tiles",
+    "bwd": "as the forward: one CTA a 128-column slice of dK and dV (or "
+           "dQ), S and dP over the full D in chunks, its own slice's "
+           "chunk last; bf16: wgmma, p and ds before dV and dK; fp32: "
+           "SIMT, dQ 32-row tiles"}
 
 # the trainer: the repository's 43M training benchmark configuration
 # (bench.py bench_lm(512, 8, 8, 8, 2048, ..., "43m")) — batch 8 x 2048
@@ -786,13 +835,15 @@ _TEMPLATE_ARG = re.compile(r"Li(\d+)E|Lb([01])E|13__nv_bfloat16|f")
 
 def _kernel_label(mangled: str) -> str:
     """`fa_fwd_bf16_kernel<64>`, `rnn_dw_kernel<bf16>`,
-    `paged_decode_kernel<float,64>` from a kernel's mangled name (other
-    names pass through)."""
-    m = re.search(r"\d+((?:fa|gru|lstm|paged|rnn)_\w*?kernel)I(\w+)",
+    `paged_decode_kernel<float,64>`, `fa_fwd_wide_kernel` from a
+    kernel's mangled name (other names pass through)."""
+    m = re.search(r"\d+((?:fa|gru|lstm|paged|rnn)_\w*?kernel)(I\w+|E)",
                   mangled)
     if not m:
         return mangled
-    args, rest = [], m.group(2)
+    if m.group(2) == "E":                    # not a template
+        return m.group(1)
+    args, rest = [], m.group(2)[1:]
     while rest and rest[0] != "E":
         t = _TEMPLATE_ARG.match(rest)
         if not t:
@@ -855,6 +906,7 @@ def phase_build():
     kernel, bf16 LSTM or GRU sweep (backward, and the GRU forward) or bf16
     dW kernel has no tensor-core instruction."""
     from bigdl_tpu_torch.ops import _build
+    from bigdl_tpu_torch.ops import paged_decode as pd
     fa = importlib.import_module("bigdl_tpu_torch.ops.flash_attention")
 
     t0 = time.perf_counter()
@@ -873,6 +925,8 @@ def phase_build():
                 label = f"fa_{kind}{dtype}_kernel<{d}"
                 check(any(n.startswith(label) for n in flash),
                       f"no {label}...> in the library's SASS")
+            label = f"fa_{kind}{dtype}_wide_kernel"   # D > 256
+            check(label in flash, f"no {label} in the library's SASS")
     for name, r in flash.items():
         check(r.get("spill_bytes") == 0,
               f"{name} spills ({r.get('spill_bytes')} bytes) or has no "
@@ -890,7 +944,9 @@ def phase_build():
                        _ptxas_report(_build.BUILD_LOG[src]).items()
                        if name.startswith(prefix)})
     for name in (*(f"paged_decode_kernel<{t},{d}>" for t in ("float", "bf16")
-                   for d in (8, 16, 64)), *RNN_BUILT_KERNELS):
+                   for d in pd.HEAD_DIMS),
+                 "paged_decode_wide_kernel<float>",
+                 "paged_decode_wide_kernel<bf16>", *RNN_BUILT_KERNELS):
         check(name in others, f"no {name} in the ptxas report")
     for name, r in others.items():
         check(r.get("spill_bytes") == 0,
@@ -967,8 +1023,9 @@ def phase_kernel(flush):
     import torch.nn.functional as F
 
     from bigdl_tpu_torch.ops.kv_cache import gather_block_cache
-    from bigdl_tpu_torch.ops.paged_decode import (paged_decode_attention,
-                                                  split_plan)
+    from bigdl_tpu_torch.ops.paged_decode import (kernel_head_dim,
+                                                  paged_decode_attention,
+                                                  split_plan, vector_rows)
 
     out, cases = {}, {}
     for case, B, H, nb, bs, D, clocks in DECODE_CASES:
@@ -996,6 +1053,8 @@ def phase_kernel(flush):
             cases[f"{case}/{name}"] = {
                 "B": B, "H": H, "nb": nb, "bs": bs, "D": D,
                 "split_plan": split_plan(nb, bs), "max_abs_err": err,
+                "tier": kernel_head_dim(D),
+                "vector_rows": vector_rows(D, k.element_size(), k, v),
                 "row_alone_bitwise": True,
                 "clocks": [int(x) for x in pos.tolist()]}
             if case not in DECODE_TIMED:
@@ -1206,7 +1265,8 @@ def phase_flash(flush):
                                  dtype=dtype) for _ in range(2))
             k, v = (torch.randn(bh, sk, d, device="cuda", generator=g,
                                 dtype=dtype) for _ in range(2))
-            o, lse = fa.flash_fwd_cuda(q, k, v, causal, scale)
+            o, lse, slices = fa.flash_fwd_cuda(q, k, v, causal, scale,
+                                               return_lse_slices=True)
             ro, rlse = fa.attention_reference(q, k, v, causal, scale,
                                               return_lse=True)
             grads = fa.flash_bwd_cuda(q, k, v, o, lse, do, causal, scale)
@@ -1244,6 +1304,11 @@ def phase_flash(flush):
                       and bool((grads[0][:, :masked] == 0).all()),
                       f"{where}: fully masked rows not zero / -1e30")
             res["fully_masked_rows"] = masked
+            # above D = 256 every column slice computes the same scores
+            # in the same order: its lse row must be the first's bits
+            res["lse_slices"] = slices.shape[0]
+            check(all(torch.equal(t, lse) for t in slices),
+                  f"{where}: the column slices' lse rows differ")
             if dname == "bf16":
                 res["rounding"] = _bf16_rounding(
                     fa, where, q, k, v, o, lse, do, grads, causal, scale,
@@ -1262,10 +1327,10 @@ def phase_flash(flush):
                 res["bwd"] = _flash_bound(bh, sq, sk, d, causal,
                                           q.element_size(), True)
             out[f"{name}/{dname}"] = res
-            del q, k, v, do, o, lse, ro, rlse, grads, again, refs
+            del q, k, v, do, o, lse, slices, ro, rlse, grads, again, refs
     torch.cuda.empty_cache()
     summary = {key: {k: r[k] for k in (
-        "out_max_abs_err", "lse_max_abs_err", "grad_rel_err",
+        "out_max_abs_err", "lse_max_abs_err", "lse_slices", "grad_rel_err",
         "with_lse_grad_rel_err", "fwd_ms", "bwd_ms", "plain_fwd_ms",
         "plain_bwd_ms", "sdpa_fwd_ms", "sdpa_bwd_ms") if k in r}
         for key, r in out.items()}
@@ -1279,6 +1344,7 @@ def phase_flash(flush):
     emit("flash", cases={c[0]: dict(zip(("BH", "Sq", "Sk", "D", "causal"),
                                         c[1:6])) for c in FLASH_CASES},
          tolerance=FLASH_TOL, bitwise_backward=True,
+         lse_slices_bitwise=True,
          bf16_rounding_tolerance={"max_ulps": BF16_ULP_TOL,
                                   "mismatch": BF16_MISMATCH_TOL},
          summary=summary)
@@ -9535,57 +9601,217 @@ def phase_model_import():
 LM2H_CONFIG = dict(TRAIN_CONFIG, num_heads=2)
 LM2H_WARMUP, LM2H_STEPS = 2, 10    # the trainer's
 LM2H_REQUESTS = 8                  # greedy requests served afterwards
+# the LM at one head: D = 512, the column-split flash kernels and K1's
+# 512 tier
+LM1H_CONFIG = dict(TRAIN_CONFIG, num_heads=1)
+LM1H_WARMUP, LM1H_STEPS = 2, 10
+LM1H_REQUESTS = 8
 
 
-def phase_lm2h():
-    """The LM at two heads: one fp32 loss-and-grad step through the
-    kernels against the plain step (the trainer's tolerances), then
-    LM2H_WARMUP + LM2H_STEPS bf16 steps through
-    `Optimizer(...).optimize()` (flash launches counted from zero, the
-    loss must fall), then LM2H_REQUESTS greedy requests served from the
-    trained weights by `InferenceEngine` at the engine's knobs (K1
-    launches counted from zero, == decode steps x layers), whose tokens
-    must equal those of a plain-attention engine on the same weights.
-    Returns the launch counts of the three main paths."""
+def _lm_at_heads(phase: str, config: dict, warmup: int, steps: int,
+                 requests: int):
+    """The LM built from `config`: one fp32 loss-and-grad step through
+    the kernels against the plain step (the trainer's tolerances), then
+    `warmup` + `steps` bf16 steps through `Optimizer(...).optimize()`
+    (flash launches counted from zero, the loss must fall), then
+    `requests` greedy requests served from the trained weights by
+    `InferenceEngine` at the engine's knobs (K1 launches counted from
+    zero, == decode steps x layers), whose tokens must equal those of a
+    plain-attention engine on the same weights. Returns the launch
+    counts of the three main paths."""
     import torch
 
     from bigdl_tpu_torch.serving import InferenceEngine, Request
 
     t0 = time.perf_counter()
-    step = _kernel_step_check("lm2h", LM2H_CONFIG)
-    fwd, bwd, model = _timed_trainer("lm2h_trainer", LM2H_CONFIG,
-                                     LM2H_WARMUP, LM2H_STEPS)
+    step = _kernel_step_check(phase, config)
+    fwd, bwd, model = _timed_trainer(f"{phase}_trainer", config, warmup,
+                                     steps)
     params = model.variables["params"]
-    reqs = _wave(300)[:LM2H_REQUESTS]
+    reqs = _wave(300)[:requests]
     eng = InferenceEngine(model, params, max_len=MAX_LEN, **ENGINE_KNOBS)
-    check(eng.attn_impl == "cuda", "lm2h: engine attn_impl is not cuda")
-    res, dt, steps, launches = _timed_run(eng, reqs)   # the main path
-    layers = LM2H_CONFIG["num_layers"]
-    check(launches > 0 and launches == steps * layers,
-          f"lm2h: K1 launches {launches} != decode steps {steps} x "
+    check(eng.attn_impl == "cuda", f"{phase}: engine attn_impl is not cuda")
+    res, dt, n_steps, launches = _timed_run(eng, reqs)   # the main path
+    layers = config["num_layers"]
+    check(launches > 0 and launches == n_steps * layers,
+          f"{phase}: K1 launches {launches} != decode steps {n_steps} x "
           f"{layers} layers")
     plain = InferenceEngine(model, params, max_len=MAX_LEN,
                             attn_impl="torch", **ENGINE_KNOBS)
     ref = plain.run([Request(**r) for r in reqs])
     for a, b in zip(res, ref):
         check(a.status == "done" and len(a.tokens) == NEW_TOKENS,
-              f"lm2h: request {a.id} {a.status}, {len(a.tokens)} tokens")
+              f"{phase}: request {a.id} {a.status}, {len(a.tokens)} "
+              "tokens")
         first = next((i for i, (x, y) in enumerate(zip(a.tokens, b.tokens))
                       if x != y), None)
         check(a.tokens == b.tokens,
-              f"lm2h: request {a.id}'s tokens differ from the plain "
+              f"{phase}: request {a.id}'s tokens differ from the plain "
               f"engine's from token {first}")
     n_tok = sum(len(r.tokens) for r in res)
     torch.cuda.synchronize()
-    emit("lm2h", heads=LM2H_CONFIG["num_heads"],
-         head_dim=LM2H_CONFIG["dim"] // LM2H_CONFIG["num_heads"],
+    emit(phase, heads=config["num_heads"],
+         head_dim=config["dim"] // config["num_heads"],
          fp32_step=step, serving={
              "requests": len(res), "new_tokens": n_tok, "seconds": dt,
-             "tokens_per_sec": n_tok / dt, "decode_steps": steps,
-             "step_ms": dt / steps * 1e3, "kernel_launches": launches,
+             "tokens_per_sec": n_tok / dt, "decode_steps": n_steps,
+             "step_ms": dt / n_steps * 1e3, "kernel_launches": launches,
              "plain_engine_tokens_equal": True},
          seconds=time.perf_counter() - t0)
     return {"fwd": fwd, "bwd": bwd, "decode": launches}
+
+
+def phase_lm2h():
+    """The LM at two heads (D = 256), trained and served."""
+    return _lm_at_heads("lm2h", LM2H_CONFIG, LM2H_WARMUP, LM2H_STEPS,
+                        LM2H_REQUESTS)
+
+
+def phase_lm1h():
+    """The LM at one head (D = 512: the column-split flash kernels, K1
+    at its 512 tier), trained and served."""
+    return _lm_at_heads("lm1h", LM1H_CONFIG, LM1H_WARMUP, LM1H_STEPS,
+                        LM1H_REQUESTS)
+
+
+# -------------------------------------------------------- dense decode
+# TransformerLM's dense-cache decode (`init_cache`, `prefill`,
+# `decode_step`) at bench.py bench_lm_decode's configuration: the 43M
+# LM, one prompt of DD_CONTEXT seeded tokens, DD_NEW greedy tokens, fp32
+# weights in the serving_params layout and an fp32 cache; then DD_BF16_NEW
+# steps over a bf16 cache. Prefill runs K2's fp32 forward once a layer;
+# decode is plain PyTorch, as the JAX step is plain jnp.
+DD_CONTEXT, DD_NEW = 512, 128
+DD_MAX_LEN = DD_CONTEXT + DD_NEW
+DD_REPS = 3                     # timed runs after one warm-up
+DD_GATED = (0, 1, 2, 3, DD_NEW - 1)  # decode steps held to the full forward
+DD_LOGIT_TOL = LOGIT_TOL        # fp32 logits vs the full forward, abs
+DD_BF16_NEW = 16
+DD_BF16_TOL = 0.1               # a bf16 cache: TestDecodeParity's bound
+
+
+def _dd_run(model, variables, prompt, cache_dtype, new):
+    """One bench_lm_decode run: prefill the prompt into a fresh cache,
+    then re-decode its last token and chain `new` greedy steps from it
+    (the engine's protocol), each argmax on the card. Returns (prefill
+    logits (1, V), step logits (new, V), prefill seconds, decode seconds
+    a token)."""
+    import torch
+
+    cache = model.init_cache(1, DD_MAX_LEN, cache_dtype)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    first, cache = model.prefill(variables, prompt, cache)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    tok = prompt[:, -1]
+    pos = torch.full((1,), DD_CONTEXT - 1, dtype=torch.int32,
+                     device=prompt.device)
+    steps = []
+    for i in range(new):
+        logits, cache = model.decode_step(variables, tok, pos + i, cache)
+        tok = logits.argmax(-1).int()
+        steps.append(logits)
+    torch.cuda.synchronize()
+    return first, torch.cat(steps), t1 - t0, \
+        (time.perf_counter() - t1) / new
+
+
+def _dd_full_logits(model, params, prompt, tokens):
+    """The model's full forward (`apply_hidden` @ `head`) over the prompt
+    and the generated tokens: (S, V) logits, row p predicting p + 1."""
+    import torch
+
+    seq = torch.cat([prompt[0], torch.tensor(tokens, dtype=prompt.dtype,
+                                             device=prompt.device)])
+    hidden = model.apply_hidden({"params": params}, seq[None])
+    return (hidden @ model.head(params))[0]
+
+
+def phase_dense_decode():
+    """The dense trio on the card: K2 launches of one prefill (counted
+    from zero: one a layer), the prefill's logits and the gated decode
+    steps' against the full forward within DD_LOGIT_TOL, the bf16
+    cache's steps within DD_BF16_TOL; prefill ms and decode ms a token
+    (medians of DD_REPS runs); the greedy tokens against the paged
+    InferenceEngine's for the same prompt: equal, or where they first
+    part and the top-2 logit margin there. Returns the K2 launches of
+    one prefill."""
+    import torch
+
+    from bigdl_tpu_torch.models.transformer import (TransformerConfig,
+                                                    TransformerLM)
+    from bigdl_tpu_torch.serving import InferenceEngine, Request
+    fa = importlib.import_module("bigdl_tpu_torch.ops.flash_attention")
+
+    t0 = time.perf_counter()
+    model = TransformerLM(TransformerConfig(
+        vocab_size=VOCAB, max_len=DD_MAX_LEN, dim=DIM, num_heads=HEADS,
+        num_layers=LAYERS))
+    params = model.init_params(torch.Generator().manual_seed(0))
+    sp = {"params": model.serving_params(params)}
+    g = torch.Generator().manual_seed(5)
+    prompts = [torch.randint(1, VOCAB, (1, DD_CONTEXT), generator=g)
+               .int().cuda() for _ in range(DD_REPS + 1)]
+    with torch.no_grad():
+        _dd_run(model, sp, prompts[0], torch.float32, 8)       # warm-up
+        runs = []
+        for r in range(DD_REPS):
+            fa.fwd_launches = 0                  # the main path starts
+            runs.append(_dd_run(model, sp, prompts[1 + r], torch.float32,
+                                DD_NEW))
+            if r == 0:
+                launches = fa.fwd_launches       # ... and ends
+        first, steps, _, _ = runs[0]
+        tokens = steps.argmax(-1).tolist()
+        full = _dd_full_logits(model, params, prompts[1], tokens)
+        diffs = {"prefill": float((first[0] - full[DD_CONTEXT - 1]).abs()
+                                  .max())}
+        for i in DD_GATED:
+            diffs[f"step{i}"] = float(
+                (steps[i] - full[DD_CONTEXT - 1 + i]).abs().max())
+        check(bool(torch.isfinite(steps).all()), "dense decode logits not "
+              "finite")
+        check(launches == LAYERS, f"dense decode: a prefill launched "
+              f"{launches} flash forwards, not {LAYERS}")
+        check(max(diffs.values()) <= DD_LOGIT_TOL,
+              f"dense decode logits differ from the full forward: {diffs}")
+
+        bf_first, bf_steps, bf_pre, bf_dec = _dd_run(
+            model, sp, prompts[1], torch.bfloat16, DD_BF16_NEW)
+        bf_full = _dd_full_logits(model, params, prompts[1],
+                                  bf_steps.argmax(-1).tolist())
+        bf_diff = max(float((bf_steps[i] - bf_full[DD_CONTEXT - 1 + i])
+                            .abs().max()) for i in range(DD_BF16_NEW))
+        check(bf_diff <= DD_BF16_TOL, f"dense decode, bf16 cache: logits "
+              f"{bf_diff} from the full forward")
+
+    eng = InferenceEngine(model, params, max_len=DD_MAX_LEN, **ENGINE_KNOBS)
+    served = eng.run([Request(prompt=prompts[1][0].tolist(),
+                              max_new_tokens=DD_NEW)])[0]
+    part = next((i for i, (a, b) in enumerate(zip(tokens, served.tokens))
+                 if a != b), None)
+    margin = None
+    if part is not None:
+        top2 = steps[part].topk(2).values
+        margin = float(top2[0] - top2[1])
+    torch.cuda.synchronize()
+    emit("dense_decode", context=DD_CONTEXT, new_tokens=DD_NEW,
+         card=nvidia_smi(), prefill_launches=launches,
+         prefill_ms=statistics.median(r[2] for r in runs) * 1e3,
+         decode_ms_per_token=statistics.median(r[3] for r in runs) * 1e3,
+         tokens_per_sec=1.0 / statistics.median(r[3] for r in runs),
+         runs=[{"prefill_ms": r[2] * 1e3, "decode_ms_per_token": r[3] * 1e3}
+               for r in runs],
+         logits_max_abs_diff=diffs, tolerance=DD_LOGIT_TOL,
+         bf16_cache={"steps": DD_BF16_NEW, "prefill_ms": bf_pre * 1e3,
+                     "decode_ms_per_token": bf_dec * 1e3,
+                     "logits_max_abs_diff": bf_diff,
+                     "tolerance": DD_BF16_TOL},
+         engine_tokens_equal=part is None and len(served.tokens) == DD_NEW,
+         engine_first_difference=part, top2_margin_there=margin,
+         seconds=time.perf_counter() - t0)
+    return launches
 
 
 # ---------------------------------------------------------------- lint
@@ -9877,6 +10103,8 @@ def main() -> int:
     model, params = _model()
     phase_model(model, params)
     launches, fp32_tokens = phase_engine(model, params)
+    dense_launches = phase_dense_decode()
+    torch.cuda.empty_cache()
     if "--profile" in sys.argv[1:]:
         phase_profile(model, params)
     engine_launches = {"engine": launches,
@@ -9999,6 +10227,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     lm2h = phase_lm2h()
     torch.cuda.empty_cache()
+    lm1h = phase_lm1h()
+    torch.cuda.empty_cache()
     phase_multihost()
     phase_examples()
     torch.cuda.empty_cache()
@@ -10028,9 +10258,11 @@ def main() -> int:
         # the main paths: the LM trainer, the MHA stack (mha phase),
         # the LM under DistriOptimizer (distri_parity), the MoE LM
         # (moe_lm), the parallel steps at world size 1 (parallel_w1:
-        # tp, pipeline, ulysses, ep) and the ZeRO-2 LM checkpointed
-        # sharded (sharded_ckpt), each counted from 0
+        # tp, pipeline, ulysses, ep), the ZeRO-2 LM checkpointed
+        # sharded (sharded_ckpt) and the dense-cache prefill of one
+        # prompt (dense_decode, fp32), each counted from 0
         "launches_by_path": {"trainer": fwd_launches,
+                             "dense_decode": dense_launches,
                              "train_telemetry": telem_fwd,
                              "distill": distill_flash[0], "mha": mha_fwd,
                              "distri_lm": dist_fwd, "moe_lm": moe_fwd,
@@ -10101,6 +10333,41 @@ def main() -> int:
                      "bwd": "bigdl_tpu/ops/flash_attention.py:450 :341 "
                             ":374"}[kind],
         "launches": lm2h[kind],
+        "max_abs_err": row["out_max_abs_err" if kind == "fwd"
+                           else "grad_max_abs_err"],
+        "ms": row[f"{kind}_ms"], "plain_ms": row[f"plain_{kind}_ms"],
+        "bound_ms": row[kind]["bound_ms"],
+        "bound_by": row[kind]["bound_by"],
+        "library_ms": row[f"sdpa_{kind}_ms"],
+    } for kind in ("fwd", "bwd")]
+    # above D = 256, at the LM-at-one-head shapes (D = 512): K2/K3 on
+    # the column-split kernels at its trainer's (BH = 8, S = 2048,
+    # bf16), K1 at its 512 tier at its engine's (8 slots, 1 head, fp32
+    # pool); launches from the lm1h phase's paths, each counted from 0
+    row, d512 = flash["train_h1/bf16"], kern["heads1/fp32"]
+    kernels += [{
+        "name": "paged_decode_d512", "route": "cuda",
+        "source": "bigdl_tpu_torch/ops/csrc/paged_decode.cu",
+        "design": DECODE_DESIGN,
+        "replaces": "bigdl_tpu/ops/paged_decode.py:95",
+        "launches": lm1h["decode"],
+        "launches_by_path": {"lm1h": lm1h["decode"]},
+        "max_abs_err": max(kern[f"{c}/{t}"]["max_abs_err"]
+                           for c in ("heads1", "d20", "d48", "d80", "d320",
+                                     "d1100")
+                           for t in ("fp32", "bf16")),
+        "ms": d512["kernel_ms"], "plain_ms": d512["torch_ms"],
+        "bound_ms": d512["bound_ms"], "bound_by": d512["bound_by"],
+        "library_ms": d512["library_ms"],
+    }] + [{
+        "name": f"flash_attention_{kind}_d512", "route": "cuda",
+        "source": "bigdl_tpu_torch/ops/csrc/flash_attention.cu",
+        "design": FLASH_WIDE_DESIGN[kind],
+        "replaces": {"fwd": "bigdl_tpu/ops/flash_attention.py:118",
+                     "bwd": "bigdl_tpu/ops/flash_attention.py:450 :341 "
+                            ":374"}[kind],
+        "launches": lm1h[kind],
+        "launches_by_path": {"lm1h": lm1h[kind]},
         "max_abs_err": row["out_max_abs_err" if kind == "fwd"
                            else "grad_max_abs_err"],
         "ms": row[f"{kind}_ms"], "plain_ms": row[f"plain_{kind}_ms"],

@@ -97,6 +97,32 @@ def test_the_nine_rules_and_no_jax_tracing_rules():
                    for s in rule.scope), name
 
 
+@pytest.mark.parametrize("rule", sorted(SHARED_FILE_FIXTURES))
+def test_lint_file_agrees_with_the_jax_engine(rule, tmp_path):
+    """`lint_file` (one file under a root, every per-file rule or the
+    ones given) on a bad fixture laid at its rule's scope: the JAX
+    engine's findings, and `lint_source`'s on the same text; a file
+    that does not parse gives one parse-error finding in both."""
+    stem, path = SHARED_FILE_FIXTURES[rule]
+    src = _fixture(stem, "bad")
+    for rel in (path, _port_path(path)):
+        (tmp_path / rel).parent.mkdir(parents=True, exist_ok=True)
+        (tmp_path / rel).write_text(src)
+    want = jengine.lint_file(str(tmp_path), path,
+                             rules=[janalysis.RULES[rule]])
+    got = tanalysis.lint_file(str(tmp_path), _port_path(path),
+                              rules=[tanalysis.RULES[rule]])
+    assert want and _keys(got) == _keys(want)
+    assert got == _port_lint(rule, _port_path(path), src)
+    assert {f.rule for f in tanalysis.lint_file(
+        str(tmp_path), _port_path(path))} >= {rule}
+    (tmp_path / "broken.py").write_text("def f(:\n")
+    for engine in (jengine, tanalysis):
+        (bad,) = engine.lint_file(str(tmp_path), "broken.py")
+        assert (bad.rule, bad.path, bad.line) == ("parse-error",
+                                                  "broken.py", 1)
+
+
 @pytest.mark.parametrize("kind", ["bad", "clean"])
 @pytest.mark.parametrize("rule", sorted(SHARED_FILE_FIXTURES))
 def test_file_rules_agree_with_the_jax_engine(rule, kind):

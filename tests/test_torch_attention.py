@@ -231,12 +231,16 @@ def test_padded_head_dim_is_bitwise_the_unpadded(d, causal):
 
 
 def test_head_dim_limit_names_it():
+    """No head dim is refused: up to 256 the wrapper pads to an
+    instantiation, above it to a multiple of 128 (the column-split
+    kernels). What the kernels' wrapper does refuse, it names: a
+    CPU tensor, and a head dim below 1."""
     assert [tfa.kernel_head_dim(d) for d in (1, 32, 33, 64, 65, 128, 129,
-                                             160, 255, 256)] \
-        == [32, 32, 64, 64, 128, 128, 256, 256, 256, 256]
-    with pytest.raises(ValueError, match="head_dim <= 256"):
-        tfa.kernel_head_dim(257)
-    with pytest.raises(ValueError, match="head_dim <= 256"):
+                                             160, 255, 256, 257, 513)] \
+        == [32, 32, 64, 64, 128, 128, 256, 256, 256, 256, 384, 640]
+    with pytest.raises(ValueError, match="head_dim >= 1"):
+        tfa.kernel_head_dim(0)
+    with pytest.raises(ValueError, match="must be a CUDA tensor"):
         tfa.flash_fwd_cuda(*(torch.zeros(2, 4, 257) for _ in "qkv"),
                            False, 0.1)
 

@@ -56,8 +56,14 @@ def _rel(a, b):
 
 
 def test_instantiations_reach_256():
+    """The instantiations end at 256; past them every head dim runs at
+    the next multiple of 128 on the column-split kernels, one CTA a
+    128-column slice."""
     assert tfa.HEAD_DIMS[-1] == 256
     assert {tfa.kernel_head_dim(d) for d in range(129, 257)} == {256}
+    assert {tfa.kernel_head_dim(d) for d in range(257, 385)} == {384}
+    assert tfa.column_slices(256) == 1
+    assert tfa.column_slices(384) == 384 // tfa.WIDE_COLS == 3
 
 
 @pytest.mark.parametrize("case", CASES, ids=IDS)

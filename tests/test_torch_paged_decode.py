@@ -241,11 +241,15 @@ def test_script_lm_shapes_match_jax_kernel(cfg, dtype):
 
 
 def test_head_dims_name_the_kernel_instantiations():
-    # csrc/paged_decode.cu instantiates D = 8, 16 and the multiples of 32
-    # to 256; at D = 8 and 16 a key row is 1-4 chunks of 16 bytes, read
-    # by 1-4 threads, each group of threads taking 2 keys a stage
+    # csrc/paged_decode.cu instantiates the tiers D = 8, 16, the
+    # multiples of 32 to 256 and 384, 512, 768, 1024; any head dim runs
+    # at the least tier that holds it; at D = 8 and 16 a key row is 1-4
+    # chunks of 16 bytes, read by 1-4 threads, each group of threads
+    # taking 2 keys a stage
     assert paged_decode.HEAD_DIMS == (8, 16, 32, 64, 96, 128, 160, 192,
-                                      224, 256)
+                                      224, 256, 384, 512, 768, 1024)
+    assert [paged_decode.kernel_head_dim(d) for d in (5, 20, 256, 320)] \
+        == [8, 32, 256, 384]
     assert [paged_decode._stage_keys(d, itemsize)
             for d in (8, 16) for itemsize in (4, 2)] == [128, 256, 64, 128]
     # the d16 case of chip_smoke: 6 blocks of 16 split 2 x 48 keys
