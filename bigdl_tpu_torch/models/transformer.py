@@ -642,14 +642,21 @@ class TransformerLM(Module):
         NEXT token, cache), the cache written in place. Every op is per
         row, so a non-finite row contaminates only its own logits and
         cache rows; value rows past a clock are zeroed before the
-        weighted sum, so a recycled slot's leftovers cannot leak."""
+        weighted sum, so a recycled slot's leftovers cannot leak. A
+        clock at or past the table's end reads the last positional row
+        and writes the cache's last slot, as the JAX step's gather and
+        `dynamic_update_slice` clamp them (on the device, no host
+        read); the attention mask keeps the raw clock."""
         self._serving_guard()
         c = self.cfg
         p = self._params(variables)
         bsz = tokens.shape[0]
         d = self.head_dim
+        n = p["pos"].shape[0]
         pos_l = pos.long()
-        x = p["embed"][tokens.long()] + p["pos"][pos_l]      # (B, E)
+        # JAX's gather: a negative index counts from the end, then clamps
+        row = torch.where(pos_l < 0, pos_l + n, pos_l).clamp(0, n - 1)
+        x = p["embed"][tokens.long()] + p["pos"][row]         # (B, E)
         for bp, lc in zip(self._layer_blocks(p), cache):
             y = layer_norm(x, bp["ln1_g"], bp["ln1_b"])[:, None, :]
             q = self._split_heads(y @ bp["wq"] + bp["bq"], c.num_heads)

@@ -12,12 +12,13 @@
 // (q-tile, bh) that sweeps the kv-tiles. Both recompute p from the saved
 // log-sum-exp; neither uses atomics, so two runs give the same bits.
 //
-// Layout: q (BH, Sq, D), k and v (BH, Sk, D), all contiguous, fp32 or
-// bf16 (one dtype for all; bf16 rows 16-byte aligned); out and dq/dk/dv
-// in that dtype; lse and delta (BH, Sq) fp32. D is 32, 64, 128 or 256,
-// or a multiple of 128 above 256 (the column-split kernels, "D > 256"
-// below; their forward writes D / 128 lse rows); Sq and Sk are any
-// positive lengths (tiles past the end are zero-filled and masked).
+// Layout: q (BH, Sq, D), k and v (BH, Sk, D), all contiguous and
+// starting on 16-byte boundaries, fp32 or bf16 (one dtype for all); out
+// and dq/dk/dv in that dtype; lse and delta (BH, Sq) fp32. D is 32, 64,
+// 128 or 256, or a multiple of 128 above 256 (in bf16 the column-split
+// kernels, "D > 256" below, whose forward writes D / 128 lse rows; fp32
+// up to kMaxF32Dim, one lse row); Sq and Sk are any positive lengths
+// (tiles past the end are zero-filled and masked).
 //
 // Numeric conventions (those of the Pallas kernels and of the port's
 // plain versions in bigdl_tpu_torch/ops/flash_attention.py):
@@ -37,8 +38,10 @@
 //     wrapper, as _bwd_prep does), p = exp(s - lse),
 //     ds = p * (dp - delta) — already carrying sm_scale — rounded to the
 //     operand dtype at its dots, and dv divided by sm_scale at the end.
-//     sm_scale == 0 takes the Pallas kernel's degenerate branch: do is
-//     not scaled and ds is exactly 0.
+//     The fp32 kernels stage do as it is (cp.async copies) and scale the
+//     products instead: dp by do_scale, dv by do_scale * dv_scale, the
+//     same values to fp32 rounding. sm_scale == 0 takes the Pallas
+//     kernel's degenerate branch: do is not scaled and ds is exactly 0.
 //
 // What bounds it on the card: at the training shape (BH = 64, S = 2048,
 // D = 64, causal) the work is 34 GFLOP forward and 86 GFLOP backward,
@@ -73,30 +76,28 @@
 //   before it issues dV and dK; dq two warpgroups of 128 columns each,
 //   both computing S and dP.
 // * fp32 stays on the SIMT cores (tensor cores would round its operands
-//   to TF32): tiles of 64 query rows x 64 keys, 256 threads as a 16 x 16
-//   grid; each thread owns a 4 x 4 block of the score tile (rows
-//   ty*4+i, columns tx+16j) and a 4 x D/16 block of the output or
-//   gradient tile (columns tx+16jj); row max and row sum are xor
-//   shuffles inside a half-warp; operands staged as fp32 with a padded
-//   row stride (D + 1), loaded synchronously. At D = 256 the backward
-//   kernels' own tiles (keys of dk/dv, queries of dq) are 32 rows, 2 a
-//   thread, so that their staging fits the 227 KB of shared memory.
+//   to TF32, about three decimal digits against the 2e-5 the fp32
+//   kernels are held to): one design for every head dim, register-
+//   blocked products (8 x 8 a lane at RM = 8) from row-padded shared
+//   memory read as 128-bit vectors, a 2-stage cp.async ring, the CTA's
+//   own rows resident, and the score products split over the warps by
+//   their D reduction and summed through shared memory once a tile, so
+//   no CTA recomputes S for a column slice; see "fp32" below.
 // Both skip the tiles wholly above the causal diagonal, mask only the
 // tiles that need it, and sum in a fixed order: bitwise reproducible.
 //
-// Above D = 256 (the wrapper pads D to a multiple of 128) a thread cannot
-// hold a 64-row accumulator of D columns beside S: a CTA owns a 128-column
-// slice of the output instead (grid.z), and computes S (and dP) over the
-// full D in 128-column chunks streamed through shared memory. The work of
-// S and dP is done once a slice, so at D = 512 the forward's S costs 4x
-// and the backward's S and dP 4x what one CTA a tile would pay; at the
-// 43M LM's one-head shape (BH = 8, S = 2048, D = 512) that keeps it well
-// above the card's flop/byte balance, bound by operations. See "D > 256"
+// Above D = 256 (the wrapper pads D to a multiple of 128) a bf16 thread
+// cannot hold a 64-row accumulator of D columns beside S: a CTA owns a
+// 128-column slice of the output instead (grid.z), and computes S (and
+// dP) over the full D in 128-column chunks streamed through shared
+// memory. The work of S and dP is done once a slice. See "D > 256"
 // below.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include <algorithm>
 #include <stddef.h>
 #include <stdint.h>
 
@@ -108,8 +109,6 @@ using bf16 = __nv_bfloat16;
 
 constexpr int kBQ = 64;        // query rows per tile
 constexpr int kBK = 64;        // keys per tile
-constexpr int kThreads = 256;  // fp32 kernels: 16 x 16
-constexpr int kLP = 65;        // padded row stride of a 64-wide tile
 constexpr float kNegInf = -1e30f;
 constexpr unsigned kFullMask = 0xffffffffu;
 constexpr int kWGThreads = 128;   // a warpgroup
@@ -117,60 +116,79 @@ constexpr int kFwdWarpgroups = 2;  // the bf16 forward's CTA
 constexpr int kFwdRows = 64 * kFwdWarpgroups;
 
 // ================================================================ fp32
-// Reductions over the 16 lanes of a half-warp (one tile row). The xor
-// butterfly leaves the same bits in every lane.
-__device__ __forceinline__ float row_max(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(kFullMask, x, o));
-  return x;
-}
+// One design for every head dim: 256 threads (8 warps) a CTA, one CTA a
+// tile of the kernel's own rows (query rows: forward and dq; keys: dk/dv),
+// sweeping 64-row tiles of the other operand. Products run on the SIMT
+// cores in full fp32 FMAs.
+//
+// * Register-blocked products. A warp computes a (4 RM) x 64 score tile
+//   (`nt_product`) or a (4 RM) x (8 CN) accumulator tile (`nn_product`),
+//   its lanes a 4 x 8 grid: a lane owns rows ty + 4 i and columns tx +
+//   8 j, or 2 tx + 16 h + {0, 1}. Operands are read as 64-bit pairs along
+//   the reduction (and the right operand of nn_product as pairs of
+//   columns), a few registers a step, so the compiler keeps the next
+//   steps' loads in flight under the current step's FMAs; at RM = 8 a
+//   lane does 8 x 8 FMAs for every 16 words it reads. Row strides are
+//   4 (mod 32) words past a multiple of 32 (8 for the score tiles), so
+//   the lanes of a half-warp read distinct banks, and the rows they share
+//   are broadcast.
+// * Asynchronous staging. The swept operand streams through a ring of 2
+//   or 3 stages of cp.async copies, started NST - 1 steps ahead. The CTA's
+//   own rows (Q forward; Q and dO dq; K and V dk/dv) are staged once and
+//   stay resident. One barrier a step, plus two where the score tile is
+//   summed and the softmax (or p and ds) taken.
+// * Scores once a tile at every D. A tile's score products (S, and dP in
+//   the backward) reduce over D in chunks of DC columns (the whole row up
+//   to D = 64: one chunk holds both operands' tiles); the warps that
+//   compute them split each chunk's columns GS ways, and their partial
+//   tiles are summed through shared memory in a fixed order (split 0
+//   first). The mask and the softmax (or p and ds) run there, and p or ds
+//   is written back in place for the second product. That product's
+//   accumulator is split over the warps by rows, columns and, where the
+//   tile has more warps than accumulator tiles, by its reduction (keys or
+//   queries) GK ways, the partial accumulators summed at the end in a
+//   fixed order. Nothing is recomputed for a column slice: one CTA a
+//   tile, one lse row.
+// * The backward kernels give each half of the CTA (4 warps) one of the
+//   two score products (S and dP, or their transposes) and, in dk/dv,
+//   one of the two accumulators (dV and dK).
+// * The forward up to D = 64, where a grid of 128-row tiles fills the
+//   card, runs the same products on two sides of the CTA instead, S and
+//   P.V of successive tiles at once (fa_fwd_f32_pp_kernel, below the
+//   forward): with every warp owning whole rows, the split sums and two
+//   CTA-wide barriers a tile go, and the exponentials overlap the FMAs.
+// The host picks a Plan for each launch (`fwd_plan`, `dq_plan`,
+// `dkdv_plan`) and an instantiation: RM and CN (exact for the head dims
+// the repo's models run at and D = 384; a bound, with the columns a lane
+// read at run time, for the others), the chunking and the ring's depth
+// from what fits in the 227 KB of shared memory a CTA may hold, and the
+// tile's rows from the grid (128, 64 or 32 query rows up to D = 256,
+// the largest that still gives every SM a CTA). Under the causal mask
+// the forward and dq take their heaviest query tiles first (dk/dv's
+// order already is). Two runs give the same bits: every sum has one
+// order.
+constexpr int kThreads = 256;      // the fp32 kernels' CTA
+constexpr int kKeys = 64;          // rows a tile of the swept operand
+constexpr int kPS = kKeys + 8;     // row stride of score tiles
+constexpr int kMaxSplits = 8;      // GS <= 8
+constexpr int kMaxF32Dim = 2048;   // the largest head dim of the fp32 kernels
+constexpr size_t kMaxSmem = 227 * 1024;
 
-__device__ __forceinline__ float row_sum(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(kFullMask, x, o);
-  return x;
-}
-
-// Stage kRows rows [row0, row0 + kRows) of a (rows, D) matrix into
-// shared memory as fp32 with row stride D + 1; rows past `nrows` are
-// zero. With kScale, each element becomes x * scale — the pre-scaled do
-// of the backward.
-// load_block: the same for a D-column block of a matrix of row stride
-// `ld` (src at the block's first column).
-template <int D, bool kScale, int kRows = 64>
-__device__ __forceinline__ void load_block(float* dst, const float* src,
-                                           int ld, int row0, int nrows,
-                                           float scale) {
-#pragma unroll 4
-  for (int idx = threadIdx.x; idx < kRows * D; idx += kThreads) {
-    const int r = idx / D;
-    const int c = idx % D;
-    const int gr = row0 + r;
-    float x = 0.f;
-    if (gr < nrows) {
-      x = src[(size_t)gr * ld + c];
-      if (kScale) x *= scale;
-    }
-    dst[r * (D + 1) + c] = x;
-  }
-}
-
-template <int D, bool kScale, int kRows = 64>
-__device__ __forceinline__ void load_tile(float* dst, const float* src, int row0,
-                                          int nrows, float scale) {
-  load_block<D, kScale, kRows>(dst, src, D, row0, nrows, scale);
-}
-
-// Rows a thread owns in the backward kernels' own tile (keys of dk/dv,
-// queries of dq), which is 16 of them tall: 4 up to D = 128, 2 at
-// D = 256, where two 64-row tiles of fp32 operands and two 64-row
-// staging tiles of K, V, Q and dO would not fit in the 227 KB of shared
-// memory a block may hold.
-template <int D>
-constexpr __host__ __device__ int simt_rows() {
-  return D == 256 ? 2 : 4;
-}
+// A launch's layout.
+struct Plan {
+  int D;      // head dim, a multiple of 32
+  int NS;     // row tiles of 4 RM rows in the CTA's own tile
+  int GS;     // splits of each reduction chunk of the score products
+  int DC;     // columns a reduction chunk
+  int NKC;    // reduction chunks a tile: D / DC
+  int VK;     // rows of the swept operand a chunk of the second product
+  int NVC;    // those chunks a tile (0: read from the reduction chunk)
+  int CN;     // accumulator columns a lane (even)
+  int NOc;    // accumulator column tiles of 8 CN
+  int GK;     // splits of the second product's reduction
+  int NST;    // stages of the ring (2 or 3)
+  int stage;  // floats a ring stage
+};
 
 // Number of kv tiles a q tile starting at q_start can see.
 __device__ __forceinline__ int kv_tiles(int q_start, int rows, int seq_q,
@@ -183,159 +201,777 @@ __device__ __forceinline__ int kv_tiles(int q_start, int rows, int seq_q,
   return n;
 }
 
-// ------------------------------------------------------------- forward
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-fa_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-              const float* __restrict__ v, float* __restrict__ out,
-              float* __restrict__ lse, int seq_q, int seq_k, float sm_scale,
-              int causal) {
-  constexpr int LD = D + 1;
-  constexpr int DJ = D / 16;
-  extern __shared__ float smem[];
-  float* qs = smem;             // [kBQ][LD]
-  float* ks = qs + kBQ * LD;    // [kBK][LD]
-  float* vs = ks + kBK * LD;    // [kBK][LD]
-  float* ps = vs + kBK * LD;    // [kBQ][kLP] probabilities of the tile
-
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
-  const int bh = blockIdx.y;
-  const int q_start = blockIdx.x * kBQ;
-  const int off = seq_k - seq_q;
-  const float* kb = k + (size_t)bh * seq_k * D;
-  const float* vb = v + (size_t)bh * seq_k * D;
-
-  load_tile<D, false>(qs, q + (size_t)bh * seq_q * D, q_start, seq_q,
-                         1.f);
-
-  float m[4], l[4], acc[4][DJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int jj = 0; jj < DJ; ++jj) acc[i][jj] = 0.f;
-  }
-
-  const int n_kv = kv_tiles(q_start, kBQ, seq_q, seq_k, causal);
-  for (int t = 0; t < n_kv; ++t) {
-    const int k_start = t * kBK;
-    __syncthreads();  // the previous tile's reads of ks/vs/ps are done
-    load_tile<D, false>(ks, kb, k_start, seq_k, 1.f);
-    load_tile<D, false>(vs, vb, k_start, seq_k, 1.f);
-    __syncthreads();
-
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = qs[(ty * 4 + i) * LD + d];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = ks[(tx + 16 * j) * LD + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], b[j], s[i][j]);
-    }
-
-    // a tile inside the key range and (causal) wholly below the
-    // diagonal needs no mask
-    const bool full = k_start + kBK <= seq_k &&
-                      (!causal || k_start + kBK - 1 <= q_start + off);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q_start + ty * 4 + i;
-      bool vis[4];
-      float mc = kNegInf;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = k_start + tx + 16 * j;
-        vis[j] = full || (col < seq_k && (!causal || col <= row + off));
-        s[i][j] = vis[j] ? s[i][j] * sm_scale : kNegInf;
-        mc = fmaxf(mc, s[i][j]);
-      }
-      mc = row_max(mc);
-      const float mn = fmaxf(m[i], mc);
-      const float alpha = expf(m[i] - mn);
-      float ls = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = vis[j] ? expf(s[i][j] - mn) : 0.f;
-        ls += p;
-        ps[(ty * 4 + i) * kLP + tx + 16 * j] = p;
-      }
-      ls = row_sum(ls);
-      l[i] = alpha * l[i] + ls;
-      m[i] = mn;
-#pragma unroll
-      for (int jj = 0; jj < DJ; ++jj) acc[i][jj] *= alpha;
-    }
-    __syncthreads();
-
-#pragma unroll 8
-    for (int kk = 0; kk < kBK; ++kk) {
-      float pr[4], vr[DJ];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pr[i] = ps[(ty * 4 + i) * kLP + kk];
-#pragma unroll
-      for (int jj = 0; jj < DJ; ++jj) vr[jj] = vs[kk * LD + tx + 16 * jj];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int jj = 0; jj < DJ; ++jj)
-          acc[i][jj] = fmaf(pr[i], vr[jj], acc[i][jj]);
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q_start + ty * 4 + i;
-    if (row >= seq_q) continue;
-    const float safe = l[i] == 0.f ? 1.f : l[i];
-    float* orow = out + ((size_t)bh * seq_q + row) * D;
-#pragma unroll
-    for (int jj = 0; jj < DJ; ++jj)
-      orow[tx + 16 * jj] = acc[i][jj] / safe;
-    if (tx == 0)
-      lse[(size_t)bh * seq_q + row] =
-          l[i] == 0.f ? kNegInf : m[i] + logf(safe);
+// Rows [row0, row0 + rows), columns [col0, col0 + cols) of a row-major
+// matrix of `nrows` rows and row stride `ld`, into dst with row stride
+// cols + 4, as 16-byte cp.async copies; rows past nrows are zeros.
+__device__ __forceinline__ void stage_rows(float* dst, const float* src,
+                                           int ld, int row0, int rows,
+                                           int nrows, int col0, int cols) {
+  const int c4n = cols >> 2;
+  const int n = rows * c4n;
+  for (int idx = threadIdx.x; idx < n; idx += kThreads) {
+    const int r = idx / c4n;
+    const int c4 = idx - r * c4n;
+    const int gr = row0 + r;
+    const bool ok = gr < nrows;
+    sm90::cp_async16(sm90::smem_u32(dst + r * (cols + 4) + 4 * c4),
+                     src + (size_t)(ok ? gr : 0) * ld + col0 + 4 * c4, ok);
   }
 }
 
-// ------------------------------------------------------------ backward
-// dk/dv of one kv tile of BK = 16 R keys, sweeping the q tiles that can
-// see it. The thread owns kv rows ty*R+i of the transposed score tile
-// and q columns tx+16j.
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-fa_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-               const float* __restrict__ v, const float* __restrict__ dout,
-               const float* __restrict__ lse,
-               const float* __restrict__ delta, float* __restrict__ dk,
-               float* __restrict__ dv, int seq_q, int seq_k, float sm_scale,
-               float do_scale, float dv_scale, int ds_zero, int causal) {
-  constexpr int LD = D + 1;
-  constexpr int DJ = D / 16;
-  constexpr int R = simt_rows<D>();
-  constexpr int BK = 16 * R;
-  extern __shared__ float smem[];
-  float* ks = smem;              // [BK][LD]
-  float* vs = ks + BK * LD;      // [BK][LD]
-  float* qs = vs + BK * LD;      // [kBQ][LD]
-  float* dos = qs + kBQ * LD;    // [kBQ][LD] pre-scaled do
-  float* pts = dos + kBQ * LD;   // [BK][kLP] p^T
-  float* dsts = pts + BK * kLP;  // [BK][kLP] ds^T
-  float* lses = dsts + BK * kLP;  // [kBQ]
-  float* dels = lses + kBQ;       // [kBQ]
+// The ring: before step s's work, its stage has landed and every thread
+// is done with step s - 1, whose stage step s + NST - 1 then refills.
+// Every step commits one group (empty past the last), so waiting until
+// NST - 2 groups are in flight always means step s's has landed.
+__device__ __forceinline__ void ring_wait(int nst) {
+  if (nst == 3)
+    sm90::cp_async_wait<1>();
+  else
+    sm90::cp_async_wait<0>();
+  __syncthreads();
+}
 
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
+// acc[i][j] += sum over d < len of A[(ty + 4 i) lda + d] B[(tx + 8 j) ldb
+// + d]: a warp's (4 RM) x 64 score tile, operands read along their rows
+// as pairs, d ascending; the loop unrolled U times (1 where registers
+// are capped at 128 a thread).
+template <int RM, int U = 2>
+__device__ __forceinline__ void nt_product(float (&acc)[RM][8],
+                                           const float* A, int lda,
+                                           const float* B, int ldb,
+                                           int len) {
+  const int lane = threadIdx.x & 31;
+  const float* a = A + (lane >> 3) * lda;
+  const float* b = B + (lane & 7) * ldb;
+#pragma unroll (U)
+  for (int d = 0; d < len; d += 2) {
+    float2 av[RM], bv[8];
+#pragma unroll
+    for (int i = 0; i < RM; ++i)
+      av[i] = *reinterpret_cast<const float2*>(a + 4 * i * lda + d);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      bv[j] = *reinterpret_cast<const float2*>(b + 8 * j * ldb + d);
+#pragma unroll
+    for (int i = 0; i < RM; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        acc[i][j] = fmaf(av[i].x, bv[j].x, acc[i][j]);
+        acc[i][j] = fmaf(av[i].y, bv[j].y, acc[i][j]);
+      }
+  }
+}
+
+// acc[i][2 h + e] += sum over k < len of A[(ty + 4 i) lda + k] B[k ldb +
+// 2 tx + 16 h + e], for h < CN / 2 (with RT, for 2 h < cn only): a warp's
+// (4 RM) x (8 CN) accumulator tile, A read along its rows as pairs, B as
+// pairs of columns, k ascending; the loop unrolled U times.
+template <int RM, int CN, bool RT, int U = 2>
+__device__ __forceinline__ void nn_product(float (&acc)[RM][CN],
+                                           const float* A, int lda,
+                                           const float* B, int ldb, int len,
+                                           int cn) {
+  const int lane = threadIdx.x & 31;
+  const float* a = A + (lane >> 3) * lda;
+  const float* b = B + 2 * (lane & 7);
+#pragma unroll (U)
+  for (int k = 0; k < len; k += 2) {
+    float2 av[RM];
+#pragma unroll
+    for (int i = 0; i < RM; ++i)
+      av[i] = *reinterpret_cast<const float2*>(a + 4 * i * lda + k);
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const float* brow = b + (k + e) * ldb;
+#pragma unroll
+      for (int h = 0; h < CN / 2; ++h) {
+        if (RT && 2 * h >= cn) break;
+        const float2 bv = *reinterpret_cast<const float2*>(brow + 16 * h);
+#pragma unroll
+        for (int i = 0; i < RM; ++i) {
+          const float ai = e ? av[i].y : av[i].x;
+          acc[i][2 * h] = fmaf(ai, bv.x, acc[i][2 * h]);
+          acc[i][2 * h + 1] = fmaf(ai, bv.y, acc[i][2 * h + 1]);
+        }
+      }
+    }
+  }
+}
+
+// A warp's score tile (nt_product's layout) into a tile of row stride kPS.
+template <int RM>
+__device__ __forceinline__ void store_scores(float* dst,
+                                             const float (&acc)[RM][8]) {
+  const int lane = threadIdx.x & 31;
+  float* d = dst + (lane >> 3) * kPS + (lane & 7);
+#pragma unroll
+  for (int i = 0; i < RM; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) d[4 * i * kPS + 8 * j] = acc[i][j];
+}
+
+__device__ __forceinline__ float comp(const float4& v, int e) {
+  return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
+}
+
+// The sum of `splits` partial score tiles (`stride` floats apart) at a
+// float4 of one row, split 0 first.
+__device__ __forceinline__ float4 sum_splits(const float* p, int splits,
+                                             int stride) {
+  float4 a = *reinterpret_cast<const float4*>(p);
+#pragma unroll
+  for (int g = 1; g < kMaxSplits; ++g) {
+    if (g >= splits) break;
+    const float4 b = *reinterpret_cast<const float4*>(p + g * stride);
+    a.x += b.x;
+    a.y += b.y;
+    a.z += b.z;
+    a.w += b.w;
+  }
+  return a;
+}
+
+template <int RM, int CN>
+__device__ __forceinline__ void zero_acc(float (&acc)[RM][CN]) {
+#pragma unroll
+  for (int i = 0; i < RM; ++i)
+#pragma unroll
+    for (int j = 0; j < CN; ++j) acc[i][j] = 0.f;
+}
+
+// A lane's accumulator rows (nn_product's layout, tile origin `row0`,
+// column offset `col0`) into the rows of `dst` (row stride `ld`) below
+// `nrows`, each value times `scale`.
+template <int RM, int CN, bool RT>
+__device__ __forceinline__ void store_acc(float* dst, int ld, int row0,
+                                          int col0, int nrows, int cn,
+                                          const float (&acc)[RM][CN],
+                                          float scale) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int i = 0; i < RM; ++i) {
+    const int row = row0 + (lane >> 3) + 4 * i;
+    if (row >= nrows) continue;
+    float* r = dst + (size_t)row * ld + col0 + 2 * (lane & 7);
+#pragma unroll
+    for (int h = 0; h < CN / 2; ++h) {
+      if (RT && 2 * h >= cn) break;
+      *reinterpret_cast<float2*>(r + 16 * h) =
+          make_float2(acc[i][2 * h] * scale, acc[i][2 * h + 1] * scale);
+    }
+  }
+}
+
+// dst[r][c] = sum over g < splits of red[g][r][c] (row stride ld, `rows`
+// rows a split), divided by div[r] when div is given, for the rows below
+// nrows - row0; D / 4 float4 a row.
+__device__ __forceinline__ void sum_accs(float* dst, const float* red,
+                                         const float* div, int splits,
+                                         int rows, int ld, int D, int row0,
+                                         int nrows) {
+  const int d4 = D >> 2;
+  for (int idx = threadIdx.x; idx < rows * d4; idx += kThreads) {
+    const int r = idx / d4, c4 = idx - r * d4;
+    if (row0 + r >= nrows) continue;
+    float4 a = *reinterpret_cast<const float4*>(red + r * ld + 4 * c4);
+    for (int g = 1; g < splits; ++g) {
+      const float4 b = *reinterpret_cast<const float4*>(
+          red + ((size_t)g * rows + r) * ld + 4 * c4);
+      a.x += b.x;
+      a.y += b.y;
+      a.z += b.z;
+      a.w += b.w;
+    }
+    if (div) {
+      const float l = div[r];
+      const float safe = l == 0.f ? 1.f : l;
+      a.x /= safe;
+      a.y /= safe;
+      a.z /= safe;
+      a.w /= safe;
+    }
+    *reinterpret_cast<float4*>(dst + (size_t)(row0 + r) * D + 4 * c4) = a;
+  }
+}
+
+// ------------------------------------------------------------- forward
+// The CTA's BQ = 4 RM NS query rows against 64-key tiles. A tile's steps:
+// NKC chunks of K (64 keys x DC columns; the 8 warps as NS row tiles x GS
+// column splits of S), then NVC chunks of V (VK keys x D; the warps as NS
+// row tiles x NOc column tiles x GK key splits of O). Up to D = 128 one
+// step a tile: its stage holds K and V whole. After the last K chunk the
+// partial S tiles are summed and the online softmax runs on them, TPR
+// threads a row (running max and sum in registers, the row's rescale
+// factor through shared memory); p overwrites split 0's tile.
+template <int RM, int CN, bool RT>
+__global__ void __launch_bounds__(kThreads, 1)
+fa_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                  const float* __restrict__ v, float* __restrict__ out,
+                  float* __restrict__ lse, int seq_q, int seq_k,
+                  float sm_scale, int causal, Plan p) {
+  extern __shared__ __align__(16) float smem[];
+  const int D = p.D, LD = D + 4, NS = p.NS;
+  const int BQ = 4 * RM * NS;
+  float* alpha_s = smem;              // [128] the tile's rescale, a row
+  float* l_s = smem + 128;            // [128] the final row sums
+  float* qs = smem + 256;             // [BQ][LD], resident
+  float* ring = qs + BQ * LD;         // NST x [p.stage]
+  float* part = ring + p.NST * p.stage;  // [GS][BQ][kPS]; p in split 0
+  float* red = qs;                    // after the sweep: [GK][BQ][LD]
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int bh = blockIdx.y;
+  // under the causal mask the heaviest tiles (the last rows) go first
+  const int q_start =
+      (causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x) * BQ;
+  const int off = seq_k - seq_q;
+  const float* kb = k + (size_t)bh * seq_k * D;
+  const float* vb = v + (size_t)bh * seq_k * D;
+  const int rs = warp % NS, gs = warp / NS;  // S: row tile, column split
+  const int co = (warp / NS) % p.NOc;        // O: column tile, key split
+  const int gk = warp / (NS * p.NOc);
+  const int sw = p.DC / p.GS;
+  const bool fused = p.NVC == 0;             // K and V whole in a stage
+  const int tpr = min(kThreads / BQ, 16), kpt = kKeys / tpr;
+  const bool sm_on = tid < BQ * tpr;         // whole warps
+  const int sm_row = tid / tpr, sm_seg = tid % tpr;
+  float m_run = kNegInf, l_run = 0.f;
+
+  float sacc[RM][8], oacc[RM][CN];
+  zero_acc(oacc);
+  zero_acc(sacc);
+
+  const int per = fused ? 1 : p.NKC + p.NVC;
+  const int n_steps = kv_tiles(q_start, BQ, seq_q, seq_k, causal) * per;
+  auto stage_step = [&](int s) {
+    if (s < n_steps) {
+      const int t = s / per, sub = s - t * per;
+      float* dst = ring + (s % p.NST) * p.stage;
+      if (fused) {
+        stage_rows(dst, kb, D, t * kKeys, kKeys, seq_k, 0, D);
+        stage_rows(dst + kKeys * LD, vb, D, t * kKeys, kKeys, seq_k, 0, D);
+      } else if (sub < p.NKC) {
+        stage_rows(dst, kb, D, t * kKeys, kKeys, seq_k, sub * p.DC, p.DC);
+      } else {
+        stage_rows(dst, vb, D, t * kKeys + (sub - p.NKC) * p.VK, p.VK,
+                   seq_k, 0, D);
+      }
+    }
+    sm90::cp_async_commit();
+  };
+  if (n_steps > 0)
+    stage_rows(qs, q + (size_t)bh * seq_q * D, D, q_start, BQ, seq_q, 0, D);
+  for (int s = 0; s < p.NST - 1; ++s) stage_step(s);
+
+  for (int s = 0; s < n_steps; ++s) {
+    ring_wait(p.NST);
+    stage_step(s + p.NST - 1);
+    const float* buf = ring + (s % p.NST) * p.stage;
+    const int t = s / per, sub = s - t * per;
+    if (sub < p.NKC) {
+      if (sub == 0) zero_acc(sacc);
+      nt_product<RM>(sacc, qs + rs * 4 * RM * LD + sub * p.DC + gs * sw, LD,
+                     buf + gs * sw, p.DC + 4, sw);
+      if (sub == p.NKC - 1) {
+        store_scores<RM>(part + (gs * BQ + rs * 4 * RM) * kPS, sacc);
+        __syncthreads();
+        if (sm_on) {
+          const int k_start = t * kKeys;
+          const int row = q_start + sm_row;
+          // a tile inside the key range and (causal) wholly below the
+          // diagonal needs no mask
+          const bool full = k_start + kKeys <= seq_k &&
+                            (!causal || k_start + kKeys - 1 <= q_start + off);
+          float* prow = part + sm_row * kPS + sm_seg * kpt;
+          float sv[32];
+          float mc = kNegInf;
+#pragma unroll
+          for (int c = 0; c < 8; ++c) {
+            if (4 * c >= kpt) break;
+            const float4 a = sum_splits(prow + 4 * c, p.GS, BQ * kPS);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int col = k_start + sm_seg * kpt + 4 * c + e;
+              const bool vis =
+                  full || (col < seq_k && (!causal || col <= row + off));
+              sv[4 * c + e] = vis ? comp(a, e) * sm_scale : kNegInf;
+              mc = fmaxf(mc, sv[4 * c + e]);
+            }
+          }
+          for (int o = tpr >> 1; o > 0; o >>= 1)
+            mc = fmaxf(mc, __shfl_xor_sync(kFullMask, mc, o));
+          const float mn = fmaxf(m_run, mc);
+          const float alpha = expf(m_run - mn);
+          float ls = 0.f;
+#pragma unroll
+          for (int c = 0; c < 8; ++c) {
+            if (4 * c >= kpt) break;
+            float pe[4];
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int col = k_start + sm_seg * kpt + 4 * c + e;
+              const bool vis =
+                  full || (col < seq_k && (!causal || col <= row + off));
+              pe[e] = vis ? expf(sv[4 * c + e] - mn) : 0.f;
+              ls += pe[e];
+            }
+            *reinterpret_cast<float4*>(prow + 4 * c) =
+                make_float4(pe[0], pe[1], pe[2], pe[3]);
+          }
+          for (int o = tpr >> 1; o > 0; o >>= 1)
+            ls += __shfl_xor_sync(kFullMask, ls, o);
+          l_run = alpha * l_run + ls;
+          m_run = mn;
+          if (sm_seg == 0) alpha_s[sm_row] = alpha;
+        }
+        __syncthreads();
+#pragma unroll
+        for (int i = 0; i < RM; ++i) {
+          const float a = alpha_s[rs * 4 * RM + (lane >> 3) + 4 * i];
+#pragma unroll
+          for (int j = 0; j < CN; ++j) oacc[i][j] *= a;
+        }
+        if (fused) {
+          const int kl = kKeys / p.GK;
+          nn_product<RM, CN, RT>(oacc, part + rs * 4 * RM * kPS + gk * kl,
+                                 kPS, buf + (kKeys + gk * kl) * LD +
+                                          co * 8 * p.CN,
+                                 LD, kl, p.CN);
+        }
+      }
+    } else {
+      const int kl = p.VK / p.GK;
+      const int kk0 = (sub - p.NKC) * p.VK + gk * kl;
+      nn_product<RM, CN, RT>(oacc, part + rs * 4 * RM * kPS + kk0, kPS,
+                             buf + gk * kl * LD + co * 8 * p.CN, LD, kl,
+                             p.CN);
+    }
+  }
+
+  if (sm_on && sm_seg == 0) {
+    l_s[sm_row] = l_run;
+    const int row = q_start + sm_row;
+    if (row < seq_q)
+      lse[(size_t)bh * seq_q + row] =
+          l_run == 0.f ? kNegInf : m_run + logf(l_run);
+  }
+  sm90::cp_async_wait<0>();
+  __syncthreads();  // l_s written; every read of the ring and tiles done
+  float* ob = out + (size_t)bh * seq_q * D;
+  if (p.GK == 1) {
+#pragma unroll
+    for (int i = 0; i < RM; ++i) {
+      const float l = l_s[rs * 4 * RM + (lane >> 3) + 4 * i];
+      const float safe = l == 0.f ? 1.f : l;
+#pragma unroll
+      for (int j = 0; j < CN; ++j) oacc[i][j] /= safe;
+    }
+    store_acc<RM, CN, RT>(ob, D, q_start + rs * 4 * RM, co * 8 * p.CN, seq_q,
+                          p.CN, oacc, 1.f);
+    return;
+  }
+  // the GK key splits' accumulators, summed split 0 first
+  store_acc<RM, CN, RT>(red + (size_t)gk * BQ * LD, LD, rs * 4 * RM,
+                        co * 8 * p.CN, BQ, p.CN, oacc, 1.f);
+  __syncthreads();
+  sum_accs(ob, red, l_s, p.GK, BQ, LD, D, q_start, seq_q);
+}
+
+// -------------------------------------------- forward, up to D = 64
+// The same products and online softmax, with the CTA's 128 query rows
+// split between two groups of 4 warps that work on different tiles at
+// once: warps 0-3 (each owning 32 rows) take S of tile t, its mask and
+// its row maxima (a row in the 8 lanes of one ty: three xor shuffles),
+// while warps 4-7 (the same rows) take tile t - 1: p = expf(s - m) in
+// place, the row sums, and P.V. s - m (-1e30 where masked, whose expf is
+// exactly 0) and the rows' rescale factors pass through a
+// double-buffered tile: named barriers mark a buffer full (S side
+// arrives, P.V side waits) and empty again (the reverse), so the two
+// sides drift by up to a tile instead of stopping together. The
+// exponentials sit on the P.V side because S's side, with them, was the
+// slower of the two on the card. Each side streams its own operand (K,
+// V) through a 3-stage cp.async ring of its own, two tiles ahead. 8 x 8
+// register blocks on both sides; one CTA an SM (215 KB at D = 64).
+constexpr int kPPRows = 128;
+constexpr int kPPUnroll = 4;  // both sides' product loops (D is fixed here)
+
+__device__ __forceinline__ void named_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+__device__ __forceinline__ void named_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// stage_rows for the 128 threads of one side (`t` this thread's index
+// among them), rows of D = COLS columns.
+template <int COLS>
+__device__ __forceinline__ void stage_rows_part(float* dst, const float* src,
+                                                int row0, int rows,
+                                                int nrows, int t) {
+  constexpr int c4n = COLS / 4;
+  for (int idx = t; idx < rows * c4n; idx += 128) {
+    const int r = idx / c4n;
+    const int c4 = idx % c4n;
+    const int gr = row0 + r;
+    const bool ok = gr < nrows;
+    sm90::cp_async16(sm90::smem_u32(dst + r * (COLS + 4) + 4 * c4),
+                     src + (size_t)(ok ? gr : 0) * COLS + 4 * c4, ok);
+  }
+}
+
+// named barriers (0 is __syncthreads'): each side's own, then p buffer b
+// full (3 + b) and empty (5 + b), then the rows' final maxima written
+constexpr int kBarS = 1, kBarO = 2, kBarFull = 3, kBarEmpty = 5,
+              kBarMax = 7;
+
+template <int CN>
+__global__ void __launch_bounds__(kThreads, 1)
+fa_fwd_f32_pp_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ out,
+                     float* __restrict__ lse, int seq_q, int seq_k,
+                     float sm_scale, int causal) {
+  constexpr int D = 8 * CN, LD = D + 4, RM = 8;
+  extern __shared__ __align__(16) float smem[];
+  float* qs = smem;                          // [128][LD], resident
+  float* kring = qs + kPPRows * LD;          // 3 x [64][LD]
+  float* vring = kring + 3 * kKeys * LD;     // 3 x [64][LD]
+  float* pbuf = vring + 3 * kKeys * LD;      // 2 x [128][kPS]
+  float* abuf = pbuf + 2 * kPPRows * kPS;    // 2 x [128] rescale factors
+  float* lmax = abuf + 2 * kPPRows;          // [128] the rows' final max
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int side = warp >> 2, w = warp & 3;  // rows 32 w .. 32 w + 31
+  const int st = tid & 127;                  // index within the side
+  const int bh = blockIdx.y;
+  // under the causal mask the heaviest tiles (the last rows) go first
+  const int q_start =
+      (causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x) * kPPRows;
+  const int off = seq_k - seq_q;
+  const int n_kv = kv_tiles(q_start, kPPRows, seq_q, seq_k, causal);
+
+  if (side == 0) {  // ---------------------------------- S and the maxima
+    const float* kb = k + (size_t)bh * seq_k * D;
+    float acc[RM][8], m_run[RM];
+#pragma unroll
+    for (int i = 0; i < RM; ++i) m_run[i] = kNegInf;
+    if (n_kv > 0) {
+      stage_rows_part<D>(qs, q + (size_t)bh * seq_q * D, q_start, kPPRows,
+                         seq_q, st);
+      stage_rows_part<D>(kring, kb, 0, kKeys, seq_k, st);
+      if (n_kv > 1)
+        stage_rows_part<D>(kring + kKeys * LD, kb, kKeys, kKeys, seq_k, st);
+    }
+    sm90::cp_async_commit();
+    for (int t = 0; t < n_kv; ++t) {
+      // K(t) came with the first group (t < 2) or with step t - 2's
+      if (t == 0)
+        sm90::cp_async_wait<0>();
+      else
+        sm90::cp_async_wait<1>();
+      named_sync(kBarS, 128);  // K(t) landed; tile t - 1's reads done
+      if (t + 2 < n_kv)
+        stage_rows_part<D>(kring + ((t + 2) % 3) * kKeys * LD, kb,
+                           (t + 2) * kKeys, kKeys, seq_k, st);
+      sm90::cp_async_commit();
+      zero_acc(acc);
+      nt_product<RM, kPPUnroll>(acc, qs + 32 * w * LD, LD,
+                                kring + (t % 3) * kKeys * LD, LD, D);
+      const int k_start = t * kKeys;
+      const bool full = k_start + kKeys <= seq_k &&
+                        (!causal || k_start + kKeys - 1 <= q_start + off);
+      float alpha[RM];
+#pragma unroll
+      for (int i = 0; i < RM; ++i) {
+        const int row = q_start + 32 * w + (lane >> 3) + 4 * i;
+        unsigned vis = 0xffu;
+        if (!full) {
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const int col = k_start + (lane & 7) + 8 * j;
+            if (col >= seq_k || (causal && col > row + off))
+              vis &= ~(1u << j);
+          }
+        }
+        float mc = kNegInf;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          acc[i][j] = vis >> j & 1 ? acc[i][j] * sm_scale : kNegInf;
+          mc = fmaxf(mc, acc[i][j]);
+        }
+        // a row lives in the 8 lanes of one ty: xor 1, 2, 4
+#pragma unroll
+        for (int o = 1; o < 8; o <<= 1)
+          mc = fmaxf(mc, __shfl_xor_sync(kFullMask, mc, o));
+        const float mn = fmaxf(m_run[i], mc);
+        alpha[i] = expf(m_run[i] - mn);
+        m_run[i] = mn;
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          acc[i][j] = vis >> j & 1 ? acc[i][j] - mn : kNegInf;
+      }
+      const int b = t & 1;
+      if (t >= 2) named_sync(kBarEmpty + b, kThreads);  // P.V of t - 2 done
+      store_scores<RM>(pbuf + (b * kPPRows + 32 * w) * kPS, acc);
+      if ((lane & 7) == 0) {
+#pragma unroll
+        for (int i = 0; i < RM; ++i)
+          abuf[b * kPPRows + 32 * w + (lane >> 3) + 4 * i] = alpha[i];
+      }
+      named_arrive(kBarFull + b, kThreads);
+    }
+#pragma unroll
+    for (int i = 0; i < RM; ++i) {
+      const int r = 32 * w + (lane >> 3) + 4 * i;
+      if ((lane & 7) == 0) lmax[r] = m_run[i];  // for the P.V side's lse
+    }
+    named_arrive(kBarMax, kThreads);
+    return;
+  }
+
+  // ------------------------------------------------------------- P.V
+  const float* vb = v + (size_t)bh * seq_k * D;
+  float acc[RM][CN], l_run[RM];
+  zero_acc(acc);
+#pragma unroll
+  for (int i = 0; i < RM; ++i) l_run[i] = 0.f;
+  if (n_kv > 0) stage_rows_part<D>(vring, vb, 0, kKeys, seq_k, st);
+  if (n_kv > 1)
+    stage_rows_part<D>(vring + kKeys * LD, vb, kKeys, kKeys, seq_k, st);
+  sm90::cp_async_commit();
+  for (int t = 0; t < n_kv; ++t) {
+    if (t == 0)
+      sm90::cp_async_wait<0>();
+    else
+      sm90::cp_async_wait<1>();
+    named_sync(kBarO, 128);  // V(t) landed; tile t - 1's reads done
+    if (t + 2 < n_kv)
+      stage_rows_part<D>(vring + ((t + 2) % 3) * kKeys * LD, vb,
+                         (t + 2) * kKeys, kKeys, seq_k, st);
+    sm90::cp_async_commit();
+    const int b = t & 1;
+    named_sync(kBarFull + b, kThreads);  // p of tile t written
+    float* pw = pbuf + (b * kPPRows + 32 * w) * kPS;
+#pragma unroll
+    for (int i = 0; i < RM; ++i) {
+      const float a = abuf[b * kPPRows + 32 * w + (lane >> 3) + 4 * i];
+#pragma unroll
+      for (int j = 0; j < CN; ++j) acc[i][j] *= a;
+      // p = expf(s - m) of this warp's rows, in nt_product's layout
+      float* pr = pw + ((lane >> 3) + 4 * i) * kPS + (lane & 7);
+      float ls = 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float pe = expf(pr[8 * j]);
+        pr[8 * j] = pe;
+        ls += pe;
+      }
+#pragma unroll
+      for (int o = 1; o < 8; o <<= 1)
+        ls += __shfl_xor_sync(kFullMask, ls, o);
+      l_run[i] = a * l_run[i] + ls;
+    }
+    __syncwarp();  // the warp's p written before its P.V reads it
+    nn_product<RM, CN, false, kPPUnroll>(
+        acc, pbuf + (b * kPPRows + 32 * w) * kPS, kPS,
+        vring + (t % 3) * kKeys * LD, LD, kKeys, CN);
+    if (t + 2 < n_kv) named_arrive(kBarEmpty + b, kThreads);
+  }
+  named_sync(kBarMax, kThreads);
+  const float* mr = lmax + 32 * w;
+#pragma unroll
+  for (int i = 0; i < RM; ++i) {
+    const int r = (lane >> 3) + 4 * i;
+    const float l = l_run[i];
+    const float safe = l == 0.f ? 1.f : l;
+#pragma unroll
+    for (int j = 0; j < CN; ++j) acc[i][j] /= safe;
+    if ((lane & 7) == 0 && q_start + 32 * w + r < seq_q)
+      lse[(size_t)bh * seq_q + q_start + 32 * w + r] =
+          l == 0.f ? kNegInf : mr[r] + logf(l);
+  }
+  store_acc<RM, CN, false>(out + (size_t)bh * seq_q * D, D,
+                           q_start + 32 * w, 0, seq_q, CN, acc, 1.f);
+}
+
+// ------------------------------------------------------------ backward
+// dq: the CTA's BQ = 4 RM NS query rows (Q and dO resident) against
+// 64-key tiles. A tile's steps: NKC chunks of K and V side by side (64
+// keys x DC columns each; warps 0-3 take S, warps 4-7 dP, each half as NS
+// row tiles x GS column splits), then NVC chunks of K (VK keys x D) for
+// dQ += dS K (the 8 warps as NS row tiles x NOc column tiles x GK key
+// splits). With D <= 64 the one chunk holds K and V whole (DC = D) and dQ
+// reads K from it (NVC = 0). ds overwrites split 0 of the S partials.
+template <int RM, int CN, bool RT>
+__global__ void __launch_bounds__(kThreads, 1)
+fa_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, const float* __restrict__ dout,
+                 const float* __restrict__ lse,
+                 const float* __restrict__ delta, float* __restrict__ dq,
+                 int seq_q, int seq_k, float sm_scale, float do_scale,
+                 int ds_zero, int causal, Plan p) {
+  extern __shared__ __align__(16) float smem[];
+  const int D = p.D, LD = D + 4, NS = p.NS;
+  const int BQ = 4 * RM * NS;
+  float* lse_s = smem;                   // [128]
+  float* del_s = smem + 128;             // [128]
+  float* qs = smem + 256;                // [BQ][LD], resident
+  float* dos = qs + BQ * LD;             // [BQ][LD], resident
+  float* ring = dos + BQ * LD;           // NST x [p.stage]
+  float* part = ring + p.NST * p.stage;  // [2: S, dP][GS][BQ][kPS]
+  float* red = qs;                       // after the sweep: [GK][BQ][LD]
+
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int bh = blockIdx.y;
+  // under the causal mask the heaviest tiles (the last rows) go first
+  const int q_start =
+      (causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x) * BQ;
+  const int off = seq_k - seq_q;
+  const float* kb = k + (size_t)bh * seq_k * D;
+  const float* vb = v + (size_t)bh * seq_k * D;
+  const int side = warp >> 2, wl = warp & 3;
+  const int rs = wl % NS, gs = wl / NS;      // S / dP: row tile, split
+  const int ro = warp % NS, co = (warp / NS) % p.NOc;
+  const int gk = warp / (NS * p.NOc);        // dQ: row, column tile, split
+  const int sw = p.DC / p.GS;
+  const int ldc = p.DC + 4;
+  const int part_stride = BQ * kPS;
+
+  if (tid < BQ) {
+    const int row = q_start + tid;
+    lse_s[tid] = row < seq_q ? lse[(size_t)bh * seq_q + row] : 0.f;
+    del_s[tid] = row < seq_q ? delta[(size_t)bh * seq_q + row] : 0.f;
+  }
+  float sacc[RM][8], acc[RM][CN];
+  zero_acc(acc);
+  zero_acc(sacc);
+
+  const int per = p.NKC + p.NVC;
+  const int n_steps = kv_tiles(q_start, BQ, seq_q, seq_k, causal) * per;
+  auto stage_step = [&](int s) {
+    if (s < n_steps) {
+      const int t = s / per, sub = s - t * per;
+      float* dst = ring + (s % p.NST) * p.stage;
+      if (sub < p.NKC) {
+        stage_rows(dst, kb, D, t * kKeys, kKeys, seq_k, sub * p.DC, p.DC);
+        stage_rows(dst + kKeys * ldc, vb, D, t * kKeys, kKeys, seq_k,
+                   sub * p.DC, p.DC);
+      } else {
+        stage_rows(dst, kb, D, t * kKeys + (sub - p.NKC) * p.VK, p.VK,
+                   seq_k, 0, D);
+      }
+    }
+    sm90::cp_async_commit();
+  };
+  if (n_steps > 0) {
+    stage_rows(qs, q + (size_t)bh * seq_q * D, D, q_start, BQ, seq_q, 0, D);
+    stage_rows(dos, dout + (size_t)bh * seq_q * D, D, q_start, BQ, seq_q, 0,
+               D);
+  }
+  for (int s = 0; s < p.NST - 1; ++s) stage_step(s);
+
+  for (int s = 0; s < n_steps; ++s) {
+    ring_wait(p.NST);
+    stage_step(s + p.NST - 1);
+    const float* buf = ring + (s % p.NST) * p.stage;
+    const int t = s / per, sub = s - t * per;
+    if (sub < p.NKC) {
+      if (sub == 0) zero_acc(sacc);
+      nt_product<RM>(sacc,
+                     (side ? dos : qs) + rs * 4 * RM * LD + sub * p.DC +
+                         gs * sw,
+                     LD, buf + side * kKeys * ldc + gs * sw, ldc, sw);
+      if (sub == p.NKC - 1) {
+        store_scores<RM>(
+            part + ((side * p.GS + gs) * BQ + rs * 4 * RM) * kPS, sacc);
+        __syncthreads();
+        const int k_start = t * kKeys;
+        const bool full = k_start + kKeys <= seq_k &&
+                          q_start + BQ <= seq_q &&
+                          (!causal || k_start + kKeys - 1 <= q_start + off);
+        for (int idx = tid; idx < BQ * 16; idx += kThreads) {
+          const int r = idx >> 4, c = 4 * (idx & 15);
+          float* ps = part + r * kPS + c;
+          const float4 sv = sum_splits(ps, p.GS, part_stride);
+          const float4 dv = sum_splits(ps + p.GS * part_stride, p.GS,
+                                       part_stride);
+          const int row = q_start + r;
+          float de[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int col = k_start + c + e;
+            const bool vis = full || (col < seq_k && row < seq_q &&
+                                      (!causal || col <= row + off));
+            const float pe =
+                vis ? expf(comp(sv, e) * sm_scale - lse_s[r]) : 0.f;
+            de[e] = ds_zero ? 0.f
+                            : pe * (comp(dv, e) * do_scale - del_s[r]);
+          }
+          *reinterpret_cast<float4*>(ps) =
+              make_float4(de[0], de[1], de[2], de[3]);
+        }
+        __syncthreads();
+        if (p.NVC == 0) {  // K whole in this chunk
+          const int kl = kKeys / p.GK;
+          nn_product<RM, CN, RT>(acc, part + ro * 4 * RM * kPS + gk * kl,
+                                 kPS, buf + gk * kl * ldc + co * 8 * p.CN,
+                                 ldc, kl, p.CN);
+        }
+      }
+    } else {
+      const int kl = p.VK / p.GK;
+      const int kk0 = (sub - p.NKC) * p.VK + gk * kl;
+      nn_product<RM, CN, RT>(acc, part + ro * 4 * RM * kPS + kk0, kPS,
+                             buf + gk * kl * LD + co * 8 * p.CN, LD, kl,
+                             p.CN);
+    }
+  }
+
+  float* qb = dq + (size_t)bh * seq_q * D;
+  if (p.GK == 1) {
+    store_acc<RM, CN, RT>(qb, D, q_start + ro * 4 * RM, co * 8 * p.CN,
+                          seq_q, p.CN, acc, 1.f);
+    return;
+  }
+  sm90::cp_async_wait<0>();
+  __syncthreads();  // every read of the ring and tiles done
+  store_acc<RM, CN, RT>(red + (size_t)gk * BQ * LD, LD, ro * 4 * RM,
+                        co * 8 * p.CN, BQ, p.CN, acc, 1.f);
+  __syncthreads();
+  sum_accs(qb, red, nullptr, p.GK, BQ, LD, D, q_start, seq_q);
+}
+
+// dk/dv: the CTA's BK = 4 RM NS keys (K and V resident) against the
+// 64-query tiles that can see them. A tile's steps: NKC chunks of Q and
+// dO side by side (64 queries x DC columns each; warps 0-3 take S^T = K
+// Q^T, warps 4-7 dP^T = V dO^T, each half as NS row tiles x GS column
+// splits), then NVC chunks of Q and dO (VK queries x D each) for dV +=
+// P^T dO (warps 0-3) and dK += dS^T Q (warps 4-7), each half as NS row
+// tiles x NOc column tiles x GK query splits (NS NOc GK = 4; the GK
+// partial accumulators summed at the end). With D <= 64 the one chunk
+// holds Q and dO whole (NVC = 0). The last chunk's stage also brings the
+// q tile's lse and delta. p^T and ds^T overwrite split 0 of their
+// halves' partials.
+template <int RM, int CN, bool RT>
+__global__ void __launch_bounds__(kThreads, 1)
+fa_dkdv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                   const float* __restrict__ v,
+                   const float* __restrict__ dout,
+                   const float* __restrict__ lse,
+                   const float* __restrict__ delta, float* __restrict__ dk,
+                   float* __restrict__ dv, int seq_q, int seq_k,
+                   float sm_scale, float do_scale, float dv_scale,
+                   int ds_zero, int causal, Plan p) {
+  extern __shared__ __align__(16) float smem[];
+  const int D = p.D, LD = D + 4, NS = p.NS;
+  const int BK = 4 * RM * NS;
+  float* ks = smem;                      // [BK][LD], resident
+  float* vs = ks + BK * LD;              // [BK][LD], resident
+  float* ring = vs + BK * LD;            // NST x [p.stage]
+  float* part = ring + p.NST * p.stage;  // [2: S^T, dP^T][GS][BK][kPS]
+  float* red = smem;                     // after the sweep: [2][GK][BK][LD]
+
+  const int tid = threadIdx.x, warp = tid >> 5;
   const int bh = blockIdx.y;
   const int k_start = blockIdx.x * BK;
   const int off = seq_k - seq_q;
@@ -343,654 +979,468 @@ fa_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float* dob = dout + (size_t)bh * seq_q * D;
   const float* lb = lse + (size_t)bh * seq_q;
   const float* db = delta + (size_t)bh * seq_q;
+  const int side = warp >> 2, wl = warp & 3;
+  const int rs = wl % NS, gs = wl / NS;      // S^T / dP^T: row tile, split
+  const int co = (wl / NS) % p.NOc;          // dV / dK: column tile, split
+  const int gq = wl / (NS * p.NOc);
+  const int sw = p.DC / p.GS;
+  const int ldc = p.DC + 4;
+  const int part_stride = BK * kPS;
+  const int vq = p.NVC ? p.VK : kKeys;       // queries a second-product chunk
 
-  load_tile<D, false, BK>(ks, k + (size_t)bh * seq_k * D, k_start, seq_k,
-                          1.f);
-  load_tile<D, false, BK>(vs, v + (size_t)bh * seq_k * D, k_start, seq_k,
-                          1.f);
+  float sacc[RM][8], acc[RM][CN];
+  zero_acc(acc);
+  zero_acc(sacc);
 
-  float adk[R][DJ], adv[R][DJ];
-#pragma unroll
-  for (int i = 0; i < R; ++i)
-#pragma unroll
-    for (int jj = 0; jj < DJ; ++jj) adk[i][jj] = adv[i][jj] = 0.f;
-
-  // the first q tile holding a row that sees column k_start
+  // the first q tile holding a row that sees key k_start
   const int need = causal ? k_start - off : 0;
-  const int qt0 = max(need, 0) / kBQ;
-  const int n_q = (seq_q + kBQ - 1) / kBQ;
-  for (int qt = qt0; qt < n_q; ++qt) {
-    const int q_start = qt * kBQ;
-    __syncthreads();  // the previous tile's reads are done
-    load_tile<D, false>(qs, qb, q_start, seq_q, 1.f);
-    load_tile<D, true>(dos, dob, q_start, seq_q, do_scale);
-    if (threadIdx.x < kBQ) {
-      const int r = q_start + threadIdx.x;
-      lses[threadIdx.x] = r < seq_q ? lb[r] : 0.f;
-      dels[threadIdx.x] = r < seq_q ? db[r] : 0.f;
-    }
-    __syncthreads();
-
-    float s[R][4], dp[R][4];
-#pragma unroll
-    for (int i = 0; i < R; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float kr[R], vr[R], qr[4], dr[4];
-#pragma unroll
-      for (int i = 0; i < R; ++i) {
-        kr[i] = ks[(ty * R + i) * LD + d];
-        vr[i] = vs[(ty * R + i) * LD + d];
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        qr[j] = qs[(tx + 16 * j) * LD + d];
-        dr[j] = dos[(tx + 16 * j) * LD + d];
-      }
-#pragma unroll
-      for (int i = 0; i < R; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(kr[i], qr[j], s[i][j]);
-          dp[i][j] = fmaf(vr[i], dr[j], dp[i][j]);
+  const int qt0 = max(need, 0) / kKeys;
+  const int n_q = (seq_q + kKeys - 1) / kKeys;
+  const int per = p.NKC + p.NVC;
+  const int n_steps = max(n_q - qt0, 0) * per;
+  auto stage_step = [&](int s) {
+    if (s < n_steps) {
+      const int t = qt0 + s / per, sub = s % per;
+      float* dst = ring + (s % p.NST) * p.stage;
+      if (sub < p.NKC) {
+        stage_rows(dst, qb, D, t * kKeys, kKeys, seq_q, sub * p.DC, p.DC);
+        stage_rows(dst + kKeys * ldc, dob, D, t * kKeys, kKeys, seq_q,
+                   sub * p.DC, p.DC);
+        if (sub == p.NKC - 1 && tid < 2 * kKeys) {
+          // the q tile's lse and delta, beside its last chunk
+          const int row = t * kKeys + (tid & (kKeys - 1));
+          const bool ok = row < seq_q;
+          sm90::cp_async4(sm90::smem_u32(dst + 2 * kKeys * ldc + tid),
+                          (tid < kKeys ? lb : db) + (ok ? row : 0), ok);
         }
-    }
-
-    const bool full = k_start + BK <= seq_k && q_start + kBQ <= seq_q &&
-                      (!causal || k_start + BK - 1 <= q_start + off);
-#pragma unroll
-    for (int i = 0; i < R; ++i) {
-      const int col = k_start + ty * R + i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int qc = tx + 16 * j;
-        const int row = q_start + qc;
-        const bool vis =
-            full || (col < seq_k && row < seq_q &&
-                     (!causal || col <= row + off));
-        const float p = vis ? expf(s[i][j] * sm_scale - lses[qc]) : 0.f;
-        const float ds = ds_zero ? 0.f : p * (dp[i][j] - dels[qc]);
-        pts[(ty * R + i) * kLP + qc] = p;
-        dsts[(ty * R + i) * kLP + qc] = ds;
+      } else {
+        const int row0 = t * kKeys + (sub - p.NKC) * p.VK;
+        stage_rows(dst, qb, D, row0, p.VK, seq_q, 0, D);
+        stage_rows(dst + p.VK * LD, dob, D, row0, p.VK, seq_q, 0, D);
       }
     }
-    __syncthreads();
+    sm90::cp_async_commit();
+  };
+  if (n_steps > 0) {
+    stage_rows(ks, k + (size_t)bh * seq_k * D, D, k_start, BK, seq_k, 0, D);
+    stage_rows(vs, v + (size_t)bh * seq_k * D, D, k_start, BK, seq_k, 0, D);
+  }
+  for (int s = 0; s < p.NST - 1; ++s) stage_step(s);
 
-#pragma unroll 8
-    for (int qq = 0; qq < kBQ; ++qq) {
-      float pr[R], sr[R], dor[DJ], qr[DJ];
+  for (int s = 0; s < n_steps; ++s) {
+    ring_wait(p.NST);
+    stage_step(s + p.NST - 1);
+    const float* buf = ring + (s % p.NST) * p.stage;
+    const int t = qt0 + s / per, sub = s % per;
+    if (sub < p.NKC) {
+      if (sub == 0) zero_acc(sacc);
+      nt_product<RM>(sacc,
+                     (side ? vs : ks) + rs * 4 * RM * LD + sub * p.DC +
+                         gs * sw,
+                     LD, buf + side * kKeys * ldc + gs * sw, ldc, sw);
+      if (sub == p.NKC - 1) {
+        store_scores<RM>(
+            part + ((side * p.GS + gs) * BK + rs * 4 * RM) * kPS, sacc);
+        __syncthreads();
+        const int q_start = t * kKeys;
+        const bool full = k_start + BK <= seq_k &&
+                          q_start + kKeys <= seq_q &&
+                          (!causal || k_start + BK - 1 <= q_start + off);
+        const float* stats = buf + 2 * kKeys * ldc;  // lse, then delta
+        for (int idx = tid; idx < BK * 16; idx += kThreads) {
+          const int r = idx >> 4, c = 4 * (idx & 15);
+          float* ps = part + r * kPS + c;
+          const float4 sv = sum_splits(ps, p.GS, part_stride);
+          const float4 dv4 = sum_splits(ps + p.GS * part_stride, p.GS,
+                                        part_stride);
+          const int col = k_start + r;
+          float pe[4], de[4];
 #pragma unroll
-      for (int i = 0; i < R; ++i) {
-        pr[i] = pts[(ty * R + i) * kLP + qq];
-        sr[i] = dsts[(ty * R + i) * kLP + qq];
-      }
-#pragma unroll
-      for (int jj = 0; jj < DJ; ++jj) {
-        dor[jj] = dos[qq * LD + tx + 16 * jj];
-        qr[jj] = qs[qq * LD + tx + 16 * jj];
-      }
-#pragma unroll
-      for (int i = 0; i < R; ++i)
-#pragma unroll
-        for (int jj = 0; jj < DJ; ++jj) {
-          adv[i][jj] = fmaf(pr[i], dor[jj], adv[i][jj]);
-          adk[i][jj] = fmaf(sr[i], qr[jj], adk[i][jj]);
+          for (int e = 0; e < 4; ++e) {
+            const int row = q_start + c + e;
+            const bool in = row < seq_q;
+            const bool vis = full || (col < seq_k && in &&
+                                      (!causal || col <= row + off));
+            const float lq = stats[c + e];
+            const float dl = stats[kKeys + c + e];
+            pe[e] = vis ? expf(comp(sv, e) * sm_scale - lq) : 0.f;
+            de[e] = ds_zero ? 0.f : pe[e] * (comp(dv4, e) * do_scale - dl);
+          }
+          *reinterpret_cast<float4*>(ps) =
+              make_float4(pe[0], pe[1], pe[2], pe[3]);
+          *reinterpret_cast<float4*>(ps + p.GS * part_stride) =
+              make_float4(de[0], de[1], de[2], de[3]);
         }
+        __syncthreads();
+        if (p.NVC == 0) {  // Q and dO whole in this chunk
+          const int ql = kKeys / p.GK;
+          nn_product<RM, CN, RT>(
+              acc, part + (side * p.GS * BK + rs * 4 * RM) * kPS + gq * ql,
+              kPS, buf + (1 - side) * kKeys * ldc + gq * ql * ldc +
+                       co * 8 * p.CN,
+              ldc, ql, p.CN);
+        }
+      }
+    } else {
+      const int ql = vq / p.GK;
+      const int qq0 = (sub - p.NKC) * vq + gq * ql;
+      nn_product<RM, CN, RT>(
+          acc, part + (side * p.GS * BK + rs * 4 * RM) * kPS + qq0, kPS,
+          buf + (1 - side) * vq * LD + gq * ql * LD + co * 8 * p.CN, LD, ql,
+          p.CN);
     }
   }
 
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const int row = k_start + ty * R + i;
-    if (row >= seq_k) continue;
-    float* dkr = dk + ((size_t)bh * seq_k + row) * D;
-    float* dvr = dv + ((size_t)bh * seq_k + row) * D;
-#pragma unroll
-    for (int jj = 0; jj < DJ; ++jj) {
-      dkr[tx + 16 * jj] = adk[i][jj];
-      dvr[tx + 16 * jj] = adv[i][jj] * dv_scale;
-    }
+  // warps 0-3 hold dV (p^T against dO), warps 4-7 dK (ds^T against Q)
+  const float scale = side ? 1.f : dv_scale * do_scale;
+  float* dst = (side ? dk : dv) + (size_t)bh * seq_k * D;
+  if (p.GK == 1) {
+    store_acc<RM, CN, RT>(dst, D, k_start + rs * 4 * RM, co * 8 * p.CN,
+                          seq_k, p.CN, acc, scale);
+    return;
+  }
+  sm90::cp_async_wait<0>();
+  __syncthreads();  // every read of the ring and tiles done
+  store_acc<RM, CN, RT>(red + (size_t)(side * p.GK + gq) * BK * LD, LD,
+                        rs * 4 * RM, co * 8 * p.CN, BK, p.CN, acc, scale);
+  __syncthreads();
+  // each half's query splits, split 0 first
+  sum_accs(dv + (size_t)bh * seq_k * D, red, nullptr, p.GK, BK, LD, D,
+           k_start, seq_k);
+  sum_accs(dk + (size_t)bh * seq_k * D, red + (size_t)p.GK * BK * LD,
+           nullptr, p.GK, BK, LD, D, k_start, seq_k);
+}
+
+// ------------------------------------------------- the fp32 launches
+int sm_count() {
+  static int n = 0;
+  if (n <= 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess ||
+        n <= 0)
+      n = 132;
+  }
+  return n;
+}
+
+// The largest power of two <= 64 (and >= 4) of rows of `width` floats
+// that `floats` holds `copies` times.
+int chunk_rows(int floats, int width, int copies) {
+  int r = 64;
+  while (r > 4 && copies * r * (width + 4) > floats) r >>= 1;
+  return r;
+}
+
+// The chunking of the swept operand: up to D = `whole` one chunk a tile
+// holding `copies_k` whole 64-row tiles, else chunks of `dc` columns of
+// `copies_k` operands, then chunks of VK rows of `copies` operands; the
+// ring's stage is the larger.
+void plan_chunks(Plan* p, int whole, int dc, int copies_k, int copies) {
+  const int D = p->D;
+  if (D <= whole) {
+    p->DC = D;
+    p->NKC = 1;
+    p->VK = kKeys;
+    p->NVC = 0;
+    p->stage = copies_k * kKeys * (D + 4);
+    return;
+  }
+  p->DC = dc;
+  p->NKC = D / dc;
+  const int stage_k = copies_k * kKeys * (dc + 4);
+  p->VK = chunk_rows(stage_k, D, copies);
+  p->NVC = kKeys / p->VK;
+  p->stage = std::max(stage_k, copies * p->VK * (D + 4));
+}
+
+// Bytes of shared memory, with three stages in the ring where they fit
+// beside the rest (`rest` floats), else two; the accumulators' final
+// sum (`reduce` floats) reuses the same memory.
+size_t plan_ring(Plan* p, size_t rest, size_t reduce) {
+  p->NST = 3;
+  size_t f = rest + 3 * (size_t)p->stage;
+  if (f * sizeof(float) > kMaxSmem) {
+    p->NST = 2;
+    f = rest + 2 * (size_t)p->stage;
+  }
+  return std::max(f, reduce) * sizeof(float);
+}
+
+// Which instantiation: the exact column count (RT false) at the head dims
+// that have one, else the bound for RM, the column count read at run
+// time.
+enum class Inst { k8x8, k8x4, k8x6, k4x6, k4x8, k4x12, k4x16, k4x16rt,
+                  k2x32rt, k1x64rt, kPP8, kPP4 };
+
+// Up to D = 256, the CTA's own rows in NS blocks of 32 (RM = 8): the most
+// of 4, 2, 1 whose grid still gives every SM a CTA and whose shared
+// memory fits (`fill` lays out the plan for NS and returns its bytes).
+template <typename F>
+void plan_row_blocks(int BH, int seq, int NOc, Plan* p, size_t* smem,
+                     F fill) {
+  const int sms = sm_count();
+  for (int ns = 4; ns >= 1; ns >>= 1) {
+    if (NOc * ns > 8) continue;
+    Plan pl = *p;
+    pl.NS = ns;
+    pl.GK = 8 / (ns * NOc);
+    const size_t bytes = fill(&pl);
+    if (ns > 1 && ((seq + 32 * ns - 1) / (32 * ns) * BH < sms ||
+                   bytes > kMaxSmem))
+      continue;
+    *p = pl;
+    *smem = bytes;
+    return;
   }
 }
 
-// dq of one q tile of BQ = 16 R rows, sweeping the kv tiles it can see.
-// The thread owns q rows ty*R+i of the score tile and kv columns
-// tx+16j.
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-fa_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-             const float* __restrict__ v, const float* __restrict__ dout,
-             const float* __restrict__ lse, const float* __restrict__ delta,
-             float* __restrict__ dq, int seq_q, int seq_k, float sm_scale,
-             float do_scale, int ds_zero, int causal) {
-  constexpr int LD = D + 1;
-  constexpr int DJ = D / 16;
-  constexpr int R = simt_rows<D>();
-  constexpr int BQ = 16 * R;
-  extern __shared__ float smem[];
-  float* qs = smem;             // [BQ][LD]
-  float* dos = qs + BQ * LD;    // [BQ][LD] pre-scaled do
-  float* ks = dos + BQ * LD;    // [kBK][LD]
-  float* vs = ks + kBK * LD;    // [kBK][LD]
-  float* dss = vs + kBK * LD;   // [BQ][kLP] ds
-
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
-  const int bh = blockIdx.y;
-  const int q_start = blockIdx.x * BQ;
-  const int off = seq_k - seq_q;
-  const float* kb = k + (size_t)bh * seq_k * D;
-  const float* vb = v + (size_t)bh * seq_k * D;
-
-  load_tile<D, false, BQ>(qs, q + (size_t)bh * seq_q * D, q_start, seq_q,
-                          1.f);
-  load_tile<D, true, BQ>(dos, dout + (size_t)bh * seq_q * D, q_start,
-                         seq_q, do_scale);
-  float lr[R], dl[R], adq[R][DJ];
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const int row = q_start + ty * R + i;
-    lr[i] = row < seq_q ? lse[(size_t)bh * seq_q + row] : 0.f;
-    dl[i] = row < seq_q ? delta[(size_t)bh * seq_q + row] : 0.f;
-#pragma unroll
-    for (int jj = 0; jj < DJ; ++jj) adq[i][jj] = 0.f;
+// The forward: up to D = 64, where the grid of 128-row tiles fills the
+// card, the two-sided kernel (fa_fwd_f32_pp_kernel); else RM = 8 up to D
+// = 512 (128, 64 or 32 query rows up to 256, 32 above), RM = 4 to 1024,
+// RM = 2 to 2048. Up to D = 256 the accumulator columns are 64 a warp
+// tile (32 at D = 32) and the key splits fill the 8 warps; above it each
+// warp owns D / 8 columns. Up to D = 64 a stage holds a tile's K and V
+// whole.
+Inst fwd_plan(int D, int BH, int seq_q, Plan* p, size_t* smem) {
+  auto fill = [D](Plan* pl, int rm) {
+    const int bq = 4 * rm * pl->NS;
+    pl->GS = 8 / pl->NS;
+    plan_chunks(pl, 64, 128, 1, 1);
+    if (pl->NVC == 0) pl->stage = 2 * kKeys * (D + 4);
+    return plan_ring(
+        pl, 256 + (size_t)bq * (D + 4) + (size_t)pl->GS * bq * kPS,
+        pl->GK > 1 ? 256 + (size_t)pl->GK * bq * (D + 4) : 0);
+  };
+  *p = Plan{};
+  p->D = D;
+  if (D <= 256) {
+    p->CN = D < 64 ? D / 8 : 8;
+    p->NOc = D / (8 * p->CN);
+    if (D <= 64 && (seq_q + kPPRows - 1) / kPPRows * BH >= sm_count()) {
+      // S and P.V on two sides of the CTA, 128 rows a CTA
+      p->NS = 4;
+      *smem = sizeof(float) *
+              ((size_t)kPPRows * (D + 4) + 6 * (size_t)kKeys * (D + 4) +
+               2 * (size_t)kPPRows * kPS + 3 * (size_t)kPPRows);
+      return D < 64 ? Inst::kPP4 : Inst::kPP8;
+    }
+    plan_row_blocks(BH, seq_q, p->NOc, p, smem,
+                    [&](Plan* pl) { return fill(pl, 8); });
+    return D < 64 ? Inst::k8x4 : Inst::k8x8;
   }
+  const int rm = D <= 512 ? 8 : D <= 1024 ? 4 : 2;
+  p->NS = 1;
+  p->CN = D / 64;
+  p->NOc = 8;
+  p->GK = 1;
+  *smem = fill(p, rm);
+  return D == 384 ? Inst::k8x6 : D == 512 ? Inst::k8x8
+       : rm == 4 ? Inst::k4x16rt : Inst::k2x32rt;
+}
 
-  const int n_kv = kv_tiles(q_start, BQ, seq_q, seq_k, causal);
-  for (int t = 0; t < n_kv; ++t) {
-    const int k_start = t * kBK;
-    __syncthreads();  // the previous tile's reads are done
-    load_tile<D, false>(ks, kb, k_start, seq_k, 1.f);
-    load_tile<D, false>(vs, vb, k_start, seq_k, 1.f);
-    __syncthreads();
-
-    float s[R][4], dp[R][4];
-#pragma unroll
-    for (int i = 0; i < R; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float qr[R], dr[R], kr[4], vr[4];
-#pragma unroll
-      for (int i = 0; i < R; ++i) {
-        qr[i] = qs[(ty * R + i) * LD + d];
-        dr[i] = dos[(ty * R + i) * LD + d];
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        kr[j] = ks[(tx + 16 * j) * LD + d];
-        vr[j] = vs[(tx + 16 * j) * LD + d];
-      }
-#pragma unroll
-      for (int i = 0; i < R; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(qr[i], kr[j], s[i][j]);
-          dp[i][j] = fmaf(dr[i], vr[j], dp[i][j]);
-        }
-    }
-
-    const bool full = k_start + kBK <= seq_k && q_start + BQ <= seq_q &&
-                      (!causal || k_start + kBK - 1 <= q_start + off);
-#pragma unroll
-    for (int i = 0; i < R; ++i) {
-      const int row = q_start + ty * R + i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = k_start + tx + 16 * j;
-        const bool vis =
-            full || (col < seq_k && row < seq_q &&
-                     (!causal || col <= row + off));
-        const float p = vis ? expf(s[i][j] * sm_scale - lr[i]) : 0.f;
-        const float ds = ds_zero ? 0.f : p * (dp[i][j] - dl[i]);
-        dss[(ty * R + i) * kLP + tx + 16 * j] = ds;
-      }
-    }
-    __syncthreads();
-
-#pragma unroll 8
-    for (int kk = 0; kk < kBK; ++kk) {
-      float sr[R], kr[DJ];
-#pragma unroll
-      for (int i = 0; i < R; ++i) sr[i] = dss[(ty * R + i) * kLP + kk];
-#pragma unroll
-      for (int jj = 0; jj < DJ; ++jj) kr[jj] = ks[kk * LD + tx + 16 * jj];
-#pragma unroll
-      for (int i = 0; i < R; ++i)
-#pragma unroll
-        for (int jj = 0; jj < DJ; ++jj)
-          adq[i][jj] = fmaf(sr[i], kr[jj], adq[i][jj]);
-    }
+// dq: RM = 8 up to D = 256 (128, 64 or 32 query rows), RM = 4 to 512 (16
+// rows), RM = 2 to 2048 (8 rows): Q and dO stay resident. Up to D = 64 a
+// stage holds a tile's K and V whole.
+Inst dq_plan(int D, int BH, int seq_q, Plan* p, size_t* smem) {
+  auto fill = [D](Plan* pl, int rm) {
+    const int bq = 4 * rm * pl->NS;
+    pl->GS = 4 / pl->NS;
+    const size_t rest = 256 + 2 * (size_t)bq * (D + 4) +
+                        2 * (size_t)pl->GS * bq * kPS;
+    const size_t reduce =
+        pl->GK > 1 ? 256 + (size_t)pl->GK * bq * (D + 4) : 0;
+    // 128-column chunks (fewer, longer steps) where they fit
+    plan_chunks(pl, 64, 128, 2, 1);
+    const size_t bytes = plan_ring(pl, rest, reduce);
+    if (bytes <= kMaxSmem) return bytes;
+    plan_chunks(pl, 64, 64, 2, 1);
+    return plan_ring(pl, rest, reduce);
+  };
+  *p = Plan{};
+  p->D = D;
+  if (D <= 256) {
+    p->CN = D < 64 ? D / 8 : 8;
+    p->NOc = D / (8 * p->CN);
+    plan_row_blocks(BH, seq_q, p->NOc, p, smem,
+                    [&](Plan* pl) { return fill(pl, 8); });
+    return D < 64 ? Inst::k8x4 : Inst::k8x8;
   }
+  const int rm = D <= 512 ? 4 : 2;
+  const Inst inst =
+      D == 384 ? Inst::k4x6 : D == 512 ? Inst::k4x8 : Inst::k2x32rt;
+  p->NS = 1;
+  p->CN = D / 64;
+  p->NOc = 8;
+  p->GK = 1;
+  *smem = fill(p, rm);
+  return inst;
+}
 
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const int row = q_start + ty * R + i;
-    if (row >= seq_q) continue;
-    float* dqr = dq + ((size_t)bh * seq_q + row) * D;
-#pragma unroll
-    for (int jj = 0; jj < DJ; ++jj) dqr[tx + 16 * jj] = adq[i][jj];
+// dk/dv: RM = 8 up to D = 256 (128 keys up to D = 64, 64 to 128, 32 to
+// 256, fewer where the grid would not give every SM a CTA), RM = 4 to
+// 512 (16 keys), 2 to 1024, 1 to 2048: K and V stay resident, and each
+// half's accumulator (dV or dK) is 4 tiles (row tiles x column tiles x
+// query splits). Up to D = 64 a stage holds a q tile's Q and dO whole.
+Inst dkdv_plan(int D, int BH, int seq_k, Plan* p, size_t* smem) {
+  const int sms = sm_count();
+  Plan pl{};
+  pl.D = D;
+  int rm = 8;
+  Inst inst;
+  if (D <= 256) {
+    pl.CN = D < 64 ? D / 8 : 8;
+    pl.NS = D <= 64 ? 4 : D <= 128 ? 2 : 1;
+    while (pl.NS > 1 && (seq_k + 32 * pl.NS - 1) / (32 * pl.NS) * BH < sms)
+      pl.NS >>= 1;
+    inst = D < 64 ? Inst::k8x4 : Inst::k8x8;
+  } else {
+    rm = D <= 512 ? 4 : D <= 1024 ? 2 : 1;
+    pl.NS = 1;
+    pl.CN = D / 32;
+    inst = D == 384 ? Inst::k4x12 : D == 512 ? Inst::k4x16
+         : rm == 2 ? Inst::k2x32rt : Inst::k1x64rt;
+  }
+  pl.NOc = D / (8 * pl.CN);
+  pl.GK = 4 / (pl.NS * pl.NOc);
+  const int bk = 4 * rm * pl.NS;
+  pl.GS = 4 / pl.NS;
+  const size_t rest =
+      2 * (size_t)bk * (D + 4) + 2 * (size_t)pl.GS * bk * kPS;
+  const size_t reduce = pl.GK > 1 ? 2 * (size_t)pl.GK * bk * (D + 4) : 0;
+  // 128-column chunks (fewer, longer steps) where they fit; a stage
+  // also holds its q tile's lse and delta past the last chunk's tiles
+  plan_chunks(&pl, 64, 128, 2, 2);
+  pl.stage = std::max(pl.stage, 2 * kKeys * (pl.DC + 4) + 2 * kKeys);
+  *smem = plan_ring(&pl, rest, reduce);
+  if (*smem > kMaxSmem) {
+    plan_chunks(&pl, 64, 64, 2, 2);
+    pl.stage = std::max(pl.stage, 2 * kKeys * (pl.DC + 4) + 2 * kKeys);
+    *smem = plan_ring(&pl, rest, reduce);
+  }
+  *p = pl;
+  return inst;
+}
+
+// Lets `kernel` take `smem` bytes of dynamic shared memory (above 48 KB
+// only by asking); more than a CTA may hold is refused.
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t smem) {
+  if (smem > kMaxSmem) return cudaErrorInvalidValue;
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+struct F32Args {
+  const float *q, *k, *v, *dout, *lse, *delta;
+  float *out, *lse_out, *dq, *dk, *dv;
+  int BH, seq_q, seq_k;
+  float sm_scale, do_scale, dv_scale;
+  int ds_zero, causal;
+};
+
+template <int RM, int CN, bool RT>
+cudaError_t fwd_f32(const F32Args& a, const Plan& p, size_t smem,
+                    cudaStream_t stream) {
+  auto kern = fa_fwd_f32_kernel<RM, CN, RT>;
+  const cudaError_t e = allow_smem(kern, smem);
+  if (e != cudaSuccess) return e;
+  const int bq = 4 * RM * p.NS;
+  kern<<<dim3((a.seq_q + bq - 1) / bq, a.BH), kThreads, smem, stream>>>(
+      a.q, a.k, a.v, a.out, a.lse_out, a.seq_q, a.seq_k, a.sm_scale,
+      a.causal, p);
+  return cudaGetLastError();
+}
+
+template <int CN>
+cudaError_t fwd_f32_pp(const F32Args& a, size_t smem, cudaStream_t stream) {
+  auto kern = fa_fwd_f32_pp_kernel<CN>;
+  const cudaError_t e = allow_smem(kern, smem);
+  if (e != cudaSuccess) return e;
+  kern<<<dim3((a.seq_q + kPPRows - 1) / kPPRows, a.BH), kThreads, smem,
+         stream>>>(a.q, a.k, a.v, a.out, a.lse_out, a.seq_q, a.seq_k,
+                   a.sm_scale, a.causal);
+  return cudaGetLastError();
+}
+
+template <int RM, int CN, bool RT>
+cudaError_t dq_f32(const F32Args& a, const Plan& p, size_t smem,
+                   cudaStream_t stream) {
+  auto kern = fa_dq_f32_kernel<RM, CN, RT>;
+  const cudaError_t e = allow_smem(kern, smem);
+  if (e != cudaSuccess) return e;
+  const int bq = 4 * RM * p.NS;
+  kern<<<dim3((a.seq_q + bq - 1) / bq, a.BH), kThreads, smem, stream>>>(
+      a.q, a.k, a.v, a.dout, a.lse, a.delta, a.dq, a.seq_q, a.seq_k,
+      a.sm_scale, a.do_scale, a.ds_zero, a.causal, p);
+  return cudaGetLastError();
+}
+
+template <int RM, int CN, bool RT>
+cudaError_t dkdv_f32(const F32Args& a, const Plan& p, size_t smem,
+                     cudaStream_t stream) {
+  auto kern = fa_dkdv_f32_kernel<RM, CN, RT>;
+  const cudaError_t e = allow_smem(kern, smem);
+  if (e != cudaSuccess) return e;
+  const int bk = 4 * RM * p.NS;
+  kern<<<dim3((a.seq_k + bk - 1) / bk, a.BH), kThreads, smem, stream>>>(
+      a.q, a.k, a.v, a.dout, a.lse, a.delta, a.dk, a.dv, a.seq_q, a.seq_k,
+      a.sm_scale, a.do_scale, a.dv_scale, a.ds_zero, a.causal, p);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_fwd_f32(const F32Args& a, int D, cudaStream_t stream) {
+  if (D > kMaxF32Dim) return cudaErrorInvalidValue;
+  Plan p;
+  size_t smem;
+  switch (fwd_plan(D, a.BH, a.seq_q, &p, &smem)) {
+    case Inst::k8x8: return fwd_f32<8, 8, false>(a, p, smem, stream);
+    case Inst::k8x4: return fwd_f32<8, 4, false>(a, p, smem, stream);
+    case Inst::k8x6: return fwd_f32<8, 6, false>(a, p, smem, stream);
+    case Inst::k4x16rt: return fwd_f32<4, 16, true>(a, p, smem, stream);
+    case Inst::k2x32rt: return fwd_f32<2, 32, true>(a, p, smem, stream);
+    case Inst::kPP8: return fwd_f32_pp<8>(a, smem, stream);
+    case Inst::kPP4: return fwd_f32_pp<4>(a, smem, stream);
+    default: return cudaErrorInvalidValue;
   }
 }
 
-// ------------------------------------------------------ D > 256 (fp32)
+cudaError_t launch_bwd_f32(const F32Args& a, int D, cudaStream_t stream) {
+  if (D > kMaxF32Dim) return cudaErrorInvalidValue;
+  Plan p;
+  size_t smem;
+  cudaError_t e;
+  switch (dkdv_plan(D, a.BH, a.seq_k, &p, &smem)) {
+    case Inst::k8x8: e = dkdv_f32<8, 8, false>(a, p, smem, stream); break;
+    case Inst::k8x4: e = dkdv_f32<8, 4, false>(a, p, smem, stream); break;
+    case Inst::k4x12: e = dkdv_f32<4, 12, false>(a, p, smem, stream); break;
+    case Inst::k4x16: e = dkdv_f32<4, 16, false>(a, p, smem, stream); break;
+    case Inst::k2x32rt: e = dkdv_f32<2, 32, true>(a, p, smem, stream); break;
+    case Inst::k1x64rt: e = dkdv_f32<1, 64, true>(a, p, smem, stream); break;
+    default: e = cudaErrorInvalidValue;
+  }
+  if (e != cudaSuccess) return e;
+  switch (dq_plan(D, a.BH, a.seq_q, &p, &smem)) {
+    case Inst::k8x8: return dq_f32<8, 8, false>(a, p, smem, stream);
+    case Inst::k8x4: return dq_f32<8, 4, false>(a, p, smem, stream);
+    case Inst::k4x6: return dq_f32<4, 6, false>(a, p, smem, stream);
+    case Inst::k4x8: return dq_f32<4, 8, false>(a, p, smem, stream);
+    case Inst::k2x32rt: return dq_f32<2, 32, true>(a, p, smem, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// ------------------------------------------------ bf16 column slices
 // Head dims above 256 (a multiple of kWC, as the wrapper pads them) split
-// the output's columns over CTAs: grid.z is the slice, kWC columns of O
-// (forward) or of dK and dV, or dQ (backward) each. Every CTA computes S
-// (and dP) over the full D, streaming Q, K (V, dO) through shared memory
-// in kWC-column chunks, so its registers hold one slice's accumulator
-// whatever D is. The forward's slices take the chunks in one order, so
-// they compute the same S, m and l bit for bit: every slice writes its
-// lse row (lse is (D / kWC, BH, Sq)) and the wrapper returns the first.
-// The backward takes chunk `slice` last, and its dV/dK (dQ) products
-// read that chunk's Q and dO (K) from where the chunk loop left them.
+// the bf16 output's columns over CTAs: grid.z is the slice, kWC columns of
+// O (forward) or of dK and dV, or dQ (backward) each; see "D > 256" in the
+// bf16 kernels below.
 constexpr int kWC = 128;
 
 __device__ __forceinline__ int wide_chunk(int slice, int i, int nch) {
   return (slice + 1 + i) % nch;  // the backward's order: `slice` last
-}
-
-__global__ void __launch_bounds__(kThreads)
-fa_fwd_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                   const float* __restrict__ v, float* __restrict__ out,
-                   float* __restrict__ lse, int seq_q, int seq_k, int D,
-                   float sm_scale, int causal) {
-  constexpr int LD = kWC + 1;
-  constexpr int DJ = kWC / 16;
-  extern __shared__ float smem[];
-  float* qs = smem;             // [kBQ][LD] a chunk of Q
-  float* ks = qs + kBQ * LD;    // [kBK][LD] a chunk of K
-  float* vs = ks + kBK * LD;    // [kBK][LD] the slice of V
-  float* ps = vs + kBK * LD;    // [kBQ][kLP]
-
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
-  const int bh = blockIdx.y;
-  const int slice = blockIdx.z;
-  const int nch = D / kWC;
-  const int q_start = blockIdx.x * kBQ;
-  const int off = seq_k - seq_q;
-  const float* qb = q + (size_t)bh * seq_q * D;
-  const float* kb = k + (size_t)bh * seq_k * D;
-  const float* vb = v + (size_t)bh * seq_k * D + slice * kWC;
-
-  float m[4], l[4], acc[4][DJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int jj = 0; jj < DJ; ++jj) acc[i][jj] = 0.f;
-  }
-
-  const int n_kv = kv_tiles(q_start, kBQ, seq_q, seq_k, causal);
-  for (int t = 0; t < n_kv; ++t) {
-    const int k_start = t * kBK;
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-    for (int c = 0; c < nch; ++c) {
-      __syncthreads();  // the previous chunk's (and tile's) reads are done
-      load_block<kWC, false>(qs, qb + c * kWC, D, q_start, seq_q, 1.f);
-      load_block<kWC, false>(ks, kb + c * kWC, D, k_start, seq_k, 1.f);
-      if (c == 0)
-        load_block<kWC, false>(vs, vb, D, k_start, seq_k, 1.f);
-      __syncthreads();
-#pragma unroll 8
-      for (int d = 0; d < kWC; ++d) {
-        float a[4], b[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) a[i] = qs[(ty * 4 + i) * LD + d];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) b[j] = ks[(tx + 16 * j) * LD + d];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], b[j], s[i][j]);
-      }
-    }
-
-    const bool full = k_start + kBK <= seq_k &&
-                      (!causal || k_start + kBK - 1 <= q_start + off);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q_start + ty * 4 + i;
-      bool vis[4];
-      float mc = kNegInf;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = k_start + tx + 16 * j;
-        vis[j] = full || (col < seq_k && (!causal || col <= row + off));
-        s[i][j] = vis[j] ? s[i][j] * sm_scale : kNegInf;
-        mc = fmaxf(mc, s[i][j]);
-      }
-      mc = row_max(mc);
-      const float mn = fmaxf(m[i], mc);
-      const float alpha = expf(m[i] - mn);
-      float ls = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = vis[j] ? expf(s[i][j] - mn) : 0.f;
-        ls += p;
-        ps[(ty * 4 + i) * kLP + tx + 16 * j] = p;
-      }
-      ls = row_sum(ls);
-      l[i] = alpha * l[i] + ls;
-      m[i] = mn;
-#pragma unroll
-      for (int jj = 0; jj < DJ; ++jj) acc[i][jj] *= alpha;
-    }
-    __syncthreads();
-
-#pragma unroll 8
-    for (int kk = 0; kk < kBK; ++kk) {
-      float pr[4], vr[DJ];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pr[i] = ps[(ty * 4 + i) * kLP + kk];
-#pragma unroll
-      for (int jj = 0; jj < DJ; ++jj) vr[jj] = vs[kk * LD + tx + 16 * jj];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int jj = 0; jj < DJ; ++jj)
-          acc[i][jj] = fmaf(pr[i], vr[jj], acc[i][jj]);
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q_start + ty * 4 + i;
-    if (row >= seq_q) continue;
-    const float safe = l[i] == 0.f ? 1.f : l[i];
-    float* orow = out + ((size_t)bh * seq_q + row) * D + slice * kWC;
-#pragma unroll
-    for (int jj = 0; jj < DJ; ++jj) orow[tx + 16 * jj] = acc[i][jj] / safe;
-    if (tx == 0)
-      lse[((size_t)slice * gridDim.y + bh) * seq_q + row] =
-          l[i] == 0.f ? kNegInf : m[i] + logf(safe);
-  }
-}
-
-// dk/dv of 64 keys (4 rows a thread), slice `slice` of their columns,
-// sweeping the q tiles that can see them.
-__global__ void __launch_bounds__(kThreads)
-fa_dkdv_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v,
-                    const float* __restrict__ dout,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ delta, float* __restrict__ dk,
-                    float* __restrict__ dv, int seq_q, int seq_k, int D,
-                    float sm_scale, float do_scale, float dv_scale,
-                    int ds_zero, int causal) {
-  constexpr int LD = kWC + 1;
-  constexpr int DJ = kWC / 16;
-  constexpr int R = 4;
-  constexpr int BK = 16 * R;
-  extern __shared__ float smem[];
-  float* ks = smem;              // [BK][LD] chunks of K, V, Q, pre-scaled dO
-  float* vs = ks + BK * LD;
-  float* qs = vs + BK * LD;      // [kBQ][LD]
-  float* dos = qs + kBQ * LD;    // [kBQ][LD]
-  float* pts = dos + kBQ * LD;   // [BK][kLP] p^T
-  float* dsts = pts + BK * kLP;  // [BK][kLP] ds^T
-  float* lses = dsts + BK * kLP;  // [kBQ]
-  float* dels = lses + kBQ;       // [kBQ]
-
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
-  const int bh = blockIdx.y;
-  const int slice = blockIdx.z;
-  const int nch = D / kWC;
-  const int k_start = blockIdx.x * BK;
-  const int off = seq_k - seq_q;
-  const float* qb = q + (size_t)bh * seq_q * D;
-  const float* dob = dout + (size_t)bh * seq_q * D;
-  const float* kb = k + (size_t)bh * seq_k * D;
-  const float* vb = v + (size_t)bh * seq_k * D;
-  const float* lb = lse + (size_t)bh * seq_q;
-  const float* db = delta + (size_t)bh * seq_q;
-
-  float adk[R][DJ], adv[R][DJ];
-#pragma unroll
-  for (int i = 0; i < R; ++i)
-#pragma unroll
-    for (int jj = 0; jj < DJ; ++jj) adk[i][jj] = adv[i][jj] = 0.f;
-
-  const int need = causal ? k_start - off : 0;
-  const int qt0 = max(need, 0) / kBQ;
-  const int n_q = (seq_q + kBQ - 1) / kBQ;
-  for (int qt = qt0; qt < n_q; ++qt) {
-    const int q_start = qt * kBQ;
-    float s[R][4], dp[R][4];
-#pragma unroll
-    for (int i = 0; i < R; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-    for (int ci = 0; ci < nch; ++ci) {
-      const int c = wide_chunk(slice, ci, nch) * kWC;
-      __syncthreads();  // the previous chunk's (and tile's) reads are done
-      load_block<kWC, false, BK>(ks, kb + c, D, k_start, seq_k, 1.f);
-      load_block<kWC, false, BK>(vs, vb + c, D, k_start, seq_k, 1.f);
-      load_block<kWC, false>(qs, qb + c, D, q_start, seq_q, 1.f);
-      load_block<kWC, true>(dos, dob + c, D, q_start, seq_q, do_scale);
-      if (ci == 0 && threadIdx.x < kBQ) {
-        const int r = q_start + threadIdx.x;
-        lses[threadIdx.x] = r < seq_q ? lb[r] : 0.f;
-        dels[threadIdx.x] = r < seq_q ? db[r] : 0.f;
-      }
-      __syncthreads();
-#pragma unroll 4
-      for (int d = 0; d < kWC; ++d) {
-        float kr[R], vr[R], qr[4], dr[4];
-#pragma unroll
-        for (int i = 0; i < R; ++i) {
-          kr[i] = ks[(ty * R + i) * LD + d];
-          vr[i] = vs[(ty * R + i) * LD + d];
-        }
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          qr[j] = qs[(tx + 16 * j) * LD + d];
-          dr[j] = dos[(tx + 16 * j) * LD + d];
-        }
-#pragma unroll
-        for (int i = 0; i < R; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            s[i][j] = fmaf(kr[i], qr[j], s[i][j]);
-            dp[i][j] = fmaf(vr[i], dr[j], dp[i][j]);
-          }
-      }
-    }
-    // qs and dos now hold chunk `slice`: the columns this CTA owns
-
-    const bool full = k_start + BK <= seq_k && q_start + kBQ <= seq_q &&
-                      (!causal || k_start + BK - 1 <= q_start + off);
-#pragma unroll
-    for (int i = 0; i < R; ++i) {
-      const int col = k_start + ty * R + i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int qc = tx + 16 * j;
-        const int row = q_start + qc;
-        const bool vis =
-            full || (col < seq_k && row < seq_q &&
-                     (!causal || col <= row + off));
-        const float p = vis ? expf(s[i][j] * sm_scale - lses[qc]) : 0.f;
-        const float ds = ds_zero ? 0.f : p * (dp[i][j] - dels[qc]);
-        pts[(ty * R + i) * kLP + qc] = p;
-        dsts[(ty * R + i) * kLP + qc] = ds;
-      }
-    }
-    __syncthreads();
-
-#pragma unroll 8
-    for (int qq = 0; qq < kBQ; ++qq) {
-      float pr[R], sr[R], dor[DJ], qr[DJ];
-#pragma unroll
-      for (int i = 0; i < R; ++i) {
-        pr[i] = pts[(ty * R + i) * kLP + qq];
-        sr[i] = dsts[(ty * R + i) * kLP + qq];
-      }
-#pragma unroll
-      for (int jj = 0; jj < DJ; ++jj) {
-        dor[jj] = dos[qq * LD + tx + 16 * jj];
-        qr[jj] = qs[qq * LD + tx + 16 * jj];
-      }
-#pragma unroll
-      for (int i = 0; i < R; ++i)
-#pragma unroll
-        for (int jj = 0; jj < DJ; ++jj) {
-          adv[i][jj] = fmaf(pr[i], dor[jj], adv[i][jj]);
-          adk[i][jj] = fmaf(sr[i], qr[jj], adk[i][jj]);
-        }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const int row = k_start + ty * R + i;
-    if (row >= seq_k) continue;
-    float* dkr = dk + ((size_t)bh * seq_k + row) * D + slice * kWC;
-    float* dvr = dv + ((size_t)bh * seq_k + row) * D + slice * kWC;
-#pragma unroll
-    for (int jj = 0; jj < DJ; ++jj) {
-      dkr[tx + 16 * jj] = adk[i][jj];
-      dvr[tx + 16 * jj] = adv[i][jj] * dv_scale;
-    }
-  }
-}
-
-// dq of kWideDqRows query rows (2 a thread: at 4, S, dP and the dQ
-// slice spilled), slice `slice` of its columns, sweeping the kv tiles
-// they can see.
-constexpr int kWideDqRows = 32;
-
-__global__ void __launch_bounds__(kThreads, 1)
-fa_dq_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                  const float* __restrict__ v, const float* __restrict__ dout,
-                  const float* __restrict__ lse,
-                  const float* __restrict__ delta, float* __restrict__ dq,
-                  int seq_q, int seq_k, int D, float sm_scale,
-                  float do_scale, int ds_zero, int causal) {
-  constexpr int LD = kWC + 1;
-  constexpr int DJ = kWC / 16;
-  constexpr int BQ = kWideDqRows;
-  constexpr int R = BQ / 16;
-  extern __shared__ float smem[];
-  float* qs = smem;             // [BQ][LD] chunks of Q, pre-scaled dO, K, V
-  float* dos = qs + BQ * LD;
-  float* ks = dos + BQ * LD;    // [kBK][LD]
-  float* vs = ks + kBK * LD;
-  float* dss = vs + kBK * LD;   // [BQ][kLP] ds
-
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
-  const int bh = blockIdx.y;
-  const int slice = blockIdx.z;
-  const int nch = D / kWC;
-  const int q_start = blockIdx.x * BQ;
-  const int off = seq_k - seq_q;
-  const float* qb = q + (size_t)bh * seq_q * D;
-  const float* dob = dout + (size_t)bh * seq_q * D;
-  const float* kb = k + (size_t)bh * seq_k * D;
-  const float* vb = v + (size_t)bh * seq_k * D;
-
-  float lr[R], dl[R], adq[R][DJ];
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const int row = q_start + ty * R + i;
-    lr[i] = row < seq_q ? lse[(size_t)bh * seq_q + row] : 0.f;
-    dl[i] = row < seq_q ? delta[(size_t)bh * seq_q + row] : 0.f;
-#pragma unroll
-    for (int jj = 0; jj < DJ; ++jj) adq[i][jj] = 0.f;
-  }
-
-  const int n_kv = kv_tiles(q_start, BQ, seq_q, seq_k, causal);
-  for (int t = 0; t < n_kv; ++t) {
-    const int k_start = t * kBK;
-    float s[R][4], dp[R][4];
-#pragma unroll
-    for (int i = 0; i < R; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-    for (int ci = 0; ci < nch; ++ci) {
-      const int c = wide_chunk(slice, ci, nch) * kWC;
-      __syncthreads();  // the previous chunk's (and tile's) reads are done
-      load_block<kWC, false, BQ>(qs, qb + c, D, q_start, seq_q, 1.f);
-      load_block<kWC, true, BQ>(dos, dob + c, D, q_start, seq_q, do_scale);
-      load_block<kWC, false>(ks, kb + c, D, k_start, seq_k, 1.f);
-      load_block<kWC, false>(vs, vb + c, D, k_start, seq_k, 1.f);
-      __syncthreads();
-#pragma unroll 4
-      for (int d = 0; d < kWC; ++d) {
-        float qr[R], dr[R], kr[4], vr[4];
-#pragma unroll
-        for (int i = 0; i < R; ++i) {
-          qr[i] = qs[(ty * R + i) * LD + d];
-          dr[i] = dos[(ty * R + i) * LD + d];
-        }
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          kr[j] = ks[(tx + 16 * j) * LD + d];
-          vr[j] = vs[(tx + 16 * j) * LD + d];
-        }
-#pragma unroll
-        for (int i = 0; i < R; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            s[i][j] = fmaf(qr[i], kr[j], s[i][j]);
-            dp[i][j] = fmaf(dr[i], vr[j], dp[i][j]);
-          }
-      }
-    }
-    // ks now holds chunk `slice` of K: the columns this CTA owns
-
-    const bool full = k_start + kBK <= seq_k && q_start + BQ <= seq_q &&
-                      (!causal || k_start + kBK - 1 <= q_start + off);
-#pragma unroll
-    for (int i = 0; i < R; ++i) {
-      const int row = q_start + ty * R + i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = k_start + tx + 16 * j;
-        const bool vis =
-            full || (col < seq_k && row < seq_q &&
-                     (!causal || col <= row + off));
-        const float p = vis ? expf(s[i][j] * sm_scale - lr[i]) : 0.f;
-        const float ds = ds_zero ? 0.f : p * (dp[i][j] - dl[i]);
-        dss[(ty * R + i) * kLP + tx + 16 * j] = ds;
-      }
-    }
-    __syncthreads();
-
-#pragma unroll 8
-    for (int kk = 0; kk < kBK; ++kk) {
-      float sr[R], kr[DJ];
-#pragma unroll
-      for (int i = 0; i < R; ++i) sr[i] = dss[(ty * R + i) * kLP + kk];
-#pragma unroll
-      for (int jj = 0; jj < DJ; ++jj) kr[jj] = ks[kk * LD + tx + 16 * jj];
-#pragma unroll
-      for (int i = 0; i < R; ++i)
-#pragma unroll
-        for (int jj = 0; jj < DJ; ++jj)
-          adq[i][jj] = fmaf(sr[i], kr[jj], adq[i][jj]);
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const int row = q_start + ty * R + i;
-    if (row >= seq_q) continue;
-    float* dqr = dq + ((size_t)bh * seq_q + row) * D + slice * kWC;
-#pragma unroll
-    for (int jj = 0; jj < DJ; ++jj) dqr[tx + 16 * jj] = adq[i][jj];
-  }
 }
 
 // ================================================================ bf16
@@ -2084,21 +2534,6 @@ fa_dq_bf16_wide_kernel(const bf16* __restrict__ q,
 }
 
 // ------------------------------------------------------------- launches
-template <int D>
-constexpr size_t fwd_smem() {
-  return sizeof(float) * ((size_t)(kBQ + 2 * kBK) * (D + 1) + kBQ * kLP);
-}
-template <int D>
-constexpr size_t dkdv_smem() {
-  constexpr int BK = 16 * simt_rows<D>();
-  return sizeof(float) * ((size_t)(2 * BK + 2 * kBQ) * (D + 1) +
-                          2 * BK * kLP + 2 * kBQ);
-}
-template <int D>
-constexpr size_t dq_smem() {
-  constexpr int BQ = 16 * simt_rows<D>();
-  return sizeof(float) * ((size_t)(2 * BQ + 2 * kBK) * (D + 1) + BQ * kLP);
-}
 // bf16: 1 KB of alignment slack, then the tiles (and dk/dv's lse/delta)
 template <int D>
 constexpr size_t fwd_bf16_smem() {
@@ -2111,30 +2546,6 @@ constexpr size_t dkdv_bf16_smem() {
 template <int D>
 constexpr size_t dq_bf16_smem() {
   return 1024 + (size_t)6 * 64 * D * 2;
-}
-
-template <typename K>
-cudaError_t allow_smem(K kernel, size_t smem) {
-  if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)smem);
-}
-
-template <int D>
-cudaError_t launch_fwd(const void* q, const void* k, const void* v,
-                       void* out, void* lse, int BH, int seq_q, int seq_k,
-                       float sm_scale, int causal, cudaStream_t stream) {
-  auto kernel = fa_fwd_kernel<D>;
-  const size_t smem = fwd_smem<D>();
-  cudaError_t e = allow_smem(kernel, smem);
-  if (e != cudaSuccess) return e;
-  const dim3 grid((seq_q + kBQ - 1) / kBQ, BH);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out),
-      static_cast<float*>(lse), seq_q, seq_k, sm_scale, causal);
-  return cudaGetLastError();
 }
 
 template <int D>
@@ -2151,40 +2562,6 @@ cudaError_t launch_fwd_bf16(const void* q, const void* k, const void* v,
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(out),
       static_cast<float*>(lse), seq_q, seq_k, sm_scale, causal);
-  return cudaGetLastError();
-}
-
-template <int D>
-cudaError_t launch_bwd(const void* q, const void* k, const void* v,
-                       const void* dout, const void* lse, const void* delta,
-                       void* dq, void* dk, void* dv, int BH, int seq_q,
-                       int seq_k, float sm_scale, float do_scale,
-                       float dv_scale, int ds_zero, int causal,
-                       cudaStream_t stream) {
-  auto dkdv = fa_dkdv_kernel<D>;
-  size_t smem = dkdv_smem<D>();
-  cudaError_t e = allow_smem(dkdv, smem);
-  if (e != cudaSuccess) return e;
-  constexpr int rows = 16 * simt_rows<D>();  // the kernels' own tiles
-  dkdv<<<dim3((seq_k + rows - 1) / rows, BH), kThreads, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<const float*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<float*>(dk), static_cast<float*>(dv), seq_q, seq_k,
-      sm_scale, do_scale, dv_scale, ds_zero, causal);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-
-  auto dqk = fa_dq_kernel<D>;
-  smem = dq_smem<D>();
-  e = allow_smem(dqk, smem);
-  if (e != cudaSuccess) return e;
-  dqk<<<dim3((seq_q + rows - 1) / rows, BH), kThreads, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<const float*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<float*>(dq), seq_q, seq_k, sm_scale, do_scale, ds_zero,
-      causal);
   return cudaGetLastError();
 }
 
@@ -2223,18 +2600,6 @@ cudaError_t launch_bwd_bf16(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-// D > 256: the column-split kernels, grid.z the D / kWC slices
-constexpr size_t fwd_wide_smem() {
-  return sizeof(float) * ((size_t)(kBQ + 2 * kBK) * (kWC + 1) + kBQ * kLP);
-}
-constexpr size_t dkdv_wide_smem() {
-  return sizeof(float) * ((size_t)(2 * 64 + 2 * kBQ) * (kWC + 1) +
-                          2 * 64 * kLP + 2 * kBQ);
-}
-constexpr size_t dq_wide_smem() {
-  return sizeof(float) * ((size_t)(2 * kWideDqRows + 2 * kBK) * (kWC + 1) +
-                          kWideDqRows * kLP);
-}
 // bf16: 1 KB of slack, then 64-row Tile<kWC> tiles: 2 stages of [Q, K]
 // and 2 V tiles (forward); 2 stages of 4 tiles (backward; dk/dv's lse and
 // delta after them)
@@ -2248,82 +2613,51 @@ constexpr size_t dq_bf16_wide_smem() {
   return 1024 + (size_t)8 * 64 * kWC * 2;
 }
 
-cudaError_t launch_fwd_wide(const void* q, const void* k, const void* v,
-                            void* out, void* lse, int BH, int seq_q,
-                            int seq_k, int D, float sm_scale, int causal,
-                            int is_bf16, cudaStream_t stream) {
+// bf16 above D = 256: the column-split kernels, grid.z the D / kWC slices
+cudaError_t launch_fwd_wide_bf16(const void* q, const void* k, const void* v,
+                                 void* out, void* lse, int BH, int seq_q,
+                                 int seq_k, int D, float sm_scale, int causal,
+                                 cudaStream_t stream) {
   const dim3 grid((seq_q + kBQ - 1) / kBQ, BH, D / kWC);
-  cudaError_t e;
-  if (is_bf16) {
-    e = allow_smem(fa_fwd_bf16_wide_kernel, fwd_bf16_wide_smem());
-    if (e != cudaSuccess) return e;
-    fa_fwd_bf16_wide_kernel<<<grid, kWGThreads, fwd_bf16_wide_smem(),
-                              stream>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-        static_cast<const bf16*>(v), static_cast<bf16*>(out),
-        static_cast<float*>(lse), seq_q, seq_k, D, sm_scale, causal);
-  } else {
-    e = allow_smem(fa_fwd_wide_kernel, fwd_wide_smem());
-    if (e != cudaSuccess) return e;
-    fa_fwd_wide_kernel<<<grid, kThreads, fwd_wide_smem(), stream>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(out),
-        static_cast<float*>(lse), seq_q, seq_k, D, sm_scale, causal);
-  }
+  const cudaError_t e =
+      allow_smem(fa_fwd_bf16_wide_kernel, fwd_bf16_wide_smem());
+  if (e != cudaSuccess) return e;
+  fa_fwd_bf16_wide_kernel<<<grid, kWGThreads, fwd_bf16_wide_smem(),
+                            stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(out),
+      static_cast<float*>(lse), seq_q, seq_k, D, sm_scale, causal);
   return cudaGetLastError();
 }
 
-cudaError_t launch_bwd_wide(const void* q, const void* k, const void* v,
-                            const void* dout, const void* lse,
-                            const void* delta, void* dq, void* dk, void* dv,
-                            int BH, int seq_q, int seq_k, int D,
-                            float sm_scale, float do_scale, float dv_scale,
-                            int ds_zero, int causal, int is_bf16,
-                            cudaStream_t stream) {
+cudaError_t launch_bwd_wide_bf16(const void* q, const void* k, const void* v,
+                                 const void* dout, const void* lse,
+                                 const void* delta, void* dq, void* dk,
+                                 void* dv, int BH, int seq_q, int seq_k,
+                                 int D, float sm_scale, float do_scale,
+                                 float dv_scale, int ds_zero, int causal,
+                                 cudaStream_t stream) {
   const dim3 gk((seq_k + 63) / 64, BH, D / kWC);
   const dim3 gq((seq_q + 63) / 64, BH, D / kWC);
-  cudaError_t e;
-  if (is_bf16) {
-    e = allow_smem(fa_dkdv_bf16_wide_kernel, dkdv_bf16_wide_smem());
-    if (e != cudaSuccess) return e;
-    fa_dkdv_bf16_wide_kernel<<<gk, kWGThreads, dkdv_bf16_wide_smem(),
-                               stream>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-        static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
-        static_cast<const float*>(lse), static_cast<const float*>(delta),
-        static_cast<bf16*>(dk), static_cast<bf16*>(dv), seq_q, seq_k, D,
-        sm_scale, do_scale, dv_scale, ds_zero, causal);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return e;
-    e = allow_smem(fa_dq_bf16_wide_kernel, dq_bf16_wide_smem());
-    if (e != cudaSuccess) return e;
-    fa_dq_bf16_wide_kernel<<<gq, kWGThreads, dq_bf16_wide_smem(),
-                             stream>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-        static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
-        static_cast<const float*>(lse), static_cast<const float*>(delta),
-        static_cast<bf16*>(dq), seq_q, seq_k, D, sm_scale, do_scale,
-        ds_zero, causal);
-    return cudaGetLastError();
-  }
-  e = allow_smem(fa_dkdv_wide_kernel, dkdv_wide_smem());
+  cudaError_t e =
+      allow_smem(fa_dkdv_bf16_wide_kernel, dkdv_bf16_wide_smem());
   if (e != cudaSuccess) return e;
-  fa_dkdv_wide_kernel<<<gk, kThreads, dkdv_wide_smem(), stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<const float*>(dout),
+  fa_dkdv_bf16_wide_kernel<<<gk, kWGThreads, dkdv_bf16_wide_smem(),
+                             stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<float*>(dk), static_cast<float*>(dv), seq_q, seq_k, D,
+      static_cast<bf16*>(dk), static_cast<bf16*>(dv), seq_q, seq_k, D,
       sm_scale, do_scale, dv_scale, ds_zero, causal);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  e = allow_smem(fa_dq_wide_kernel, dq_wide_smem());
+  e = allow_smem(fa_dq_bf16_wide_kernel, dq_bf16_wide_smem());
   if (e != cudaSuccess) return e;
-  const dim3 gq32((seq_q + kWideDqRows - 1) / kWideDqRows, BH, D / kWC);
-  fa_dq_wide_kernel<<<gq32, kThreads, dq_wide_smem(), stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<const float*>(dout),
+  fa_dq_bf16_wide_kernel<<<gq, kWGThreads, dq_bf16_wide_smem(), stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<float*>(dq), seq_q, seq_k, D, sm_scale, do_scale, ds_zero,
+      static_cast<bf16*>(dq), seq_q, seq_k, D, sm_scale, do_scale, ds_zero,
       causal);
   return cudaGetLastError();
 }
@@ -2342,31 +2676,43 @@ bool bad_shape(int BH, int seq_q, int seq_k, int D) {
 // whose wrappers check devices, dtypes, alignment, contiguity and shapes
 // first. Each returns the cudaError_t of its launches (0 on success); the
 // kernels run on `stream` and nothing here synchronises. is_bf16 picks
-// the tensor-core kernels, else the fp32 SIMT ones.
+// the tensor-core kernels, else the fp32 SIMT ones, which take every
+// head dim the wrapper pads to up to kMaxF32Dim with one design (no
+// earlier fp32 kernel is kept at any head dim).
 
-// (out, lse) of the forward: one launch. Above D = 256 `lse` holds
-// D / 128 rows of (BH, Sq), one a column slice, each the same bits.
+// (out, lse) of the forward: one launch. For bf16 above D = 256 `lse`
+// holds D / 128 rows of (BH, Sq), one a column slice, each the same bits;
+// fp32 writes one row at every D.
 extern "C" int bigdl_flash_fwd(const void* q, const void* k, const void* v,
                                void* out, void* lse, int BH, int seq_q,
                                int seq_k, int D, float sm_scale, int causal,
                                int is_bf16, void* stream) {
   if (bad_shape(BH, seq_q, seq_k, D)) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (wide(D))
-    return (int)launch_fwd_wide(q, k, v, out, lse, BH, seq_q, seq_k, D,
-                                sm_scale, causal, is_bf16, s);
-#define BIGDL_FA_FWD(F, DD) \
-  return (int)F<DD>(q, k, v, out, lse, BH, seq_q, seq_k, sm_scale, causal, s)
-  if (is_bf16) {
-    if (D == 32) BIGDL_FA_FWD(launch_fwd_bf16, 32);
-    if (D == 64) BIGDL_FA_FWD(launch_fwd_bf16, 64);
-    if (D == 128) BIGDL_FA_FWD(launch_fwd_bf16, 128);
-    BIGDL_FA_FWD(launch_fwd_bf16, 256);
+  if (!is_bf16) {
+    F32Args a{};
+    a.q = static_cast<const float*>(q);
+    a.k = static_cast<const float*>(k);
+    a.v = static_cast<const float*>(v);
+    a.out = static_cast<float*>(out);
+    a.lse_out = static_cast<float*>(lse);
+    a.BH = BH;
+    a.seq_q = seq_q;
+    a.seq_k = seq_k;
+    a.sm_scale = sm_scale;
+    a.causal = causal;
+    return (int)launch_fwd_f32(a, D, s);
   }
-  if (D == 32) BIGDL_FA_FWD(launch_fwd, 32);
-  if (D == 64) BIGDL_FA_FWD(launch_fwd, 64);
-  if (D == 128) BIGDL_FA_FWD(launch_fwd, 128);
-  BIGDL_FA_FWD(launch_fwd, 256);
+  if (wide(D))
+    return (int)launch_fwd_wide_bf16(q, k, v, out, lse, BH, seq_q, seq_k, D,
+                                     sm_scale, causal, s);
+#define BIGDL_FA_FWD(DD)                                                   \
+  return (int)launch_fwd_bf16<DD>(q, k, v, out, lse, BH, seq_q, seq_k,     \
+                                  sm_scale, causal, s)
+  if (D == 32) BIGDL_FA_FWD(32);
+  if (D == 64) BIGDL_FA_FWD(64);
+  if (D == 128) BIGDL_FA_FWD(128);
+  BIGDL_FA_FWD(256);
 #undef BIGDL_FA_FWD
 }
 
@@ -2383,24 +2729,39 @@ extern "C" int bigdl_flash_bwd(const void* q, const void* k, const void* v,
                                int is_bf16, void* stream) {
   if (bad_shape(BH, seq_q, seq_k, D)) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (wide(D))
-    return (int)launch_bwd_wide(q, k, v, dout, lse, delta, dq, dk, dv, BH,
-                                seq_q, seq_k, D, sm_scale, do_scale,
-                                dv_scale, ds_zero, causal, is_bf16, s);
-#define BIGDL_FA_BWD(F, DD)                                               \
-  return (int)F<DD>(q, k, v, dout, lse, delta, dq, dk, dv, BH, seq_q,     \
-                    seq_k, sm_scale, do_scale, dv_scale, ds_zero, causal, \
-                    s)
-  if (is_bf16) {
-    if (D == 32) BIGDL_FA_BWD(launch_bwd_bf16, 32);
-    if (D == 64) BIGDL_FA_BWD(launch_bwd_bf16, 64);
-    if (D == 128) BIGDL_FA_BWD(launch_bwd_bf16, 128);
-    BIGDL_FA_BWD(launch_bwd_bf16, 256);
+  if (!is_bf16) {
+    F32Args a{};
+    a.q = static_cast<const float*>(q);
+    a.k = static_cast<const float*>(k);
+    a.v = static_cast<const float*>(v);
+    a.dout = static_cast<const float*>(dout);
+    a.lse = static_cast<const float*>(lse);
+    a.delta = static_cast<const float*>(delta);
+    a.dq = static_cast<float*>(dq);
+    a.dk = static_cast<float*>(dk);
+    a.dv = static_cast<float*>(dv);
+    a.BH = BH;
+    a.seq_q = seq_q;
+    a.seq_k = seq_k;
+    a.sm_scale = sm_scale;
+    a.do_scale = do_scale;
+    a.dv_scale = dv_scale;
+    a.ds_zero = ds_zero;
+    a.causal = causal;
+    return (int)launch_bwd_f32(a, D, s);
   }
-  if (D == 32) BIGDL_FA_BWD(launch_bwd, 32);
-  if (D == 64) BIGDL_FA_BWD(launch_bwd, 64);
-  if (D == 128) BIGDL_FA_BWD(launch_bwd, 128);
-  BIGDL_FA_BWD(launch_bwd, 256);
+  if (wide(D))
+    return (int)launch_bwd_wide_bf16(q, k, v, dout, lse, delta, dq, dk, dv,
+                                     BH, seq_q, seq_k, D, sm_scale, do_scale,
+                                     dv_scale, ds_zero, causal, s);
+#define BIGDL_FA_BWD(DD)                                                     \
+  return (int)launch_bwd_bf16<DD>(q, k, v, dout, lse, delta, dq, dk, dv, BH, \
+                                  seq_q, seq_k, sm_scale, do_scale, dv_scale, \
+                                  ds_zero, causal, s)
+  if (D == 32) BIGDL_FA_BWD(32);
+  if (D == 64) BIGDL_FA_BWD(64);
+  if (D == 128) BIGDL_FA_BWD(128);
+  BIGDL_FA_BWD(256);
 #undef BIGDL_FA_BWD
 }
 

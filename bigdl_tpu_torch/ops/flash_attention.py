@@ -28,24 +28,28 @@ LSE.
 The kernels take fp32 or bf16. bf16 runs its products on the tensor
 cores (wgmma, operands streamed into swizzled shared memory by
 cp.async); fp32 runs on the SIMT cores, since the tensor cores would
-round its operands to TF32. Both keep the conventions above and tiles
-of KERNEL_BLOCK_K keys, whose width decides where the bf16 forward
-rounds p. The bf16 kernels' asynchronous copies read 16-byte rows, so
-`_check` refuses a bf16 operand whose data does not start on a 16-byte
-boundary.
+round its operands to TF32: register-blocked products from shared
+memory, the swept operand streamed by cp.async, and the score products
+split over the warps by their D reduction and summed once a tile. Both
+keep the conventions above and tiles of KERNEL_BLOCK_K keys, whose
+width decides where the bf16 forward rounds p. The kernels'
+asynchronous copies read 16-byte rows, so `_check` refuses an operand
+whose data does not start on a 16-byte boundary.
 
-The kernels take any head dim. They are instantiated at HEAD_DIMS; a
-D up to 256 is zero-padded to the next instantiation, a D above 256 to
-the next multiple of WIDE_COLS, and the results sliced back
+The kernels take any head dim (fp32 up to F32_MAX_HEAD_DIM). A D up to
+256 is zero-padded to the next entry of HEAD_DIMS, a D above 256 to the
+next multiple of WIDE_COLS, and the results sliced back
 (`pad_head_dim` / `unpad_head_dim`), as the JAX wrapper pads D to a
 multiple of 128 before its kernels: zero columns add exact zeros to
 every score and leave the padded output and gradient columns zero, and
-`sm_scale` stays that of the unpadded D. Above 256 the column-split
-kernels run (`column_slices`): each CTA owns WIDE_COLS columns of the
-output (or of dq, dk and dv) and computes the scores over the full D,
-streamed in WIDE_COLS-column chunks, so no thread holds more than one
-slice's accumulator. Every slice writes its own lse row, the same bits
-(`flash_fwd_cuda(return_lse_slices=True)` returns them all).
+`sm_scale` stays that of the unpadded D. Above 256 the bf16 kernels
+split the output's columns (`column_slices`): each CTA owns WIDE_COLS
+columns of the output (or of dq, dk and dv) and computes the scores
+over the full D, streamed in WIDE_COLS-column chunks, so no thread holds
+more than one slice's accumulator; every slice writes its own lse row,
+the same bits (`flash_fwd_cuda(return_lse_slices=True)` returns them
+all). The fp32 kernels compute the scores once a tile at every D, one
+CTA a tile, and write one lse row.
 
 `impl`, in `flash_attention` and `flash_attention_with_lse` alike:
 None picks `"cuda"` for CUDA tensors and `"torch"` for CPU tensors;
@@ -76,7 +80,8 @@ from bigdl_tpu_torch.ops import _build
 IMPLS = ("cuda", "torch")
 NEG_INF = -1e30
 HEAD_DIMS = (32, 64, 128, 256)  # csrc/flash_attention.cu instantiations
-WIDE_COLS = 128                # columns a slice above 256 (csrc kWC)
+WIDE_COLS = 128                # bf16: columns a slice above 256 (csrc kWC)
+F32_MAX_HEAD_DIM = 2048        # fp32 kernels' largest head dim (kMaxF32Dim)
 BWD_LAUNCHES = 2               # dk/dv kernel, then dq kernel
 MAX_BH = 65535                 # grid.y of every launch
 KERNEL_BLOCK_K = 64            # keys per tile of the kernels (kBK)
@@ -297,17 +302,23 @@ def kernel_head_dim(d: int) -> int:
     return -(-d // WIDE_COLS) * WIDE_COLS
 
 
-def column_slices(dp: int) -> int:
+def column_slices(dp: int, dtype: torch.dtype) -> int:
     """CTAs a (q tile, batch-head) takes at the kernel head dim `dp`
-    (`kernel_head_dim`): 1 at the instantiations of HEAD_DIMS, else one
-    a WIDE_COLS-column slice of the output, the column-split kernels."""
-    if dp in HEAD_DIMS:
-        return 1
-    if dp <= HEAD_DIMS[-1] or dp % WIDE_COLS:
+    (`kernel_head_dim`) in `dtype`: 1 at the instantiations of HEAD_DIMS
+    and for fp32 at every D (one CTA a tile computes the scores once and
+    holds the whole output row; up to F32_MAX_HEAD_DIM), else one a
+    WIDE_COLS-column slice of the output, the bf16 column-split
+    kernels."""
+    if dp not in HEAD_DIMS and (dp <= HEAD_DIMS[-1] or dp % WIDE_COLS):
         raise ValueError(f"flash_attention kernels run at head dims "
                          f"{HEAD_DIMS} or multiples of {WIDE_COLS} above "
                          f"{HEAD_DIMS[-1]}, got {dp}")
-    return dp // WIDE_COLS
+    if dtype == torch.float32:
+        if dp > F32_MAX_HEAD_DIM:
+            raise ValueError(f"flash_attention's fp32 kernels take head "
+                             f"dims up to {F32_MAX_HEAD_DIM}, got {dp}")
+        return 1
+    return 1 if dp in HEAD_DIMS else dp // WIDE_COLS
 
 
 def pad_head_dim(*tensors: torch.Tensor) -> Tuple[torch.Tensor, ...]:
@@ -348,9 +359,9 @@ def _lib() -> ctypes.CDLL:
 
 def _check(**tensors: torch.Tensor) -> None:
     """Devices, dtypes, alignment and shapes the kernels take: (BH, S,
-    D), one CUDA device, fp32 or bf16 throughout, bf16 data starting on
-    a 16-byte boundary, D in HEAD_DIMS or a multiple of WIDE_COLS above
-    them (the wrappers pad to it)."""
+    D), one CUDA device, fp32 or bf16 throughout, data starting on a
+    16-byte boundary, D in HEAD_DIMS or a multiple of WIDE_COLS above
+    them (the wrappers pad to it; fp32 up to F32_MAX_HEAD_DIM)."""
     q = tensors["q"]
     for name, t in tensors.items():
         if not t.is_cuda or t.device != q.device:
@@ -359,7 +370,7 @@ def _check(**tensors: torch.Tensor) -> None:
         if t.dim() != 3:
             raise ValueError(f"flash_attention impl='cuda': {name} must be "
                              f"(BH, S, D), got {tuple(t.shape)}")
-        if t.dtype == torch.bfloat16 and t.data_ptr() % 16:
+        if t.data_ptr() % 16:
             raise ValueError(f"flash_attention impl='cuda': {name} must "
                              f"start on a 16-byte boundary (data_ptr "
                              f"{t.data_ptr():#x})")
@@ -376,7 +387,7 @@ def _check(**tensors: torch.Tensor) -> None:
         raise ValueError(f"flash_attention shapes disagree: q "
                          f"{tuple(q.shape)}, k {tuple(k.shape)}, v "
                          f"{tuple(v.shape)}")
-    column_slices(d)
+    column_slices(d, q.dtype)
     if not 1 <= bh <= MAX_BH or seq_q < 1 or k.shape[1] < 1:
         raise ValueError(f"flash_attention impl='cuda': batch*heads "
                          f"{bh} must lie in [1, {MAX_BH}] and both "
@@ -400,14 +411,16 @@ def flash_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dim and `out` sliced back (`pad_head_dim`). With
     `return_lse_slices`, also the lse rows of every column slice
     (`column_slices`, (slices, BH, S)): the first is `lse`, and the
-    kernels compute them all alike."""
+    kernels compute them all alike (one row in fp32, and in bf16 up to
+    D = 256)."""
     global fwd_launches
     d_in = q.shape[-1]
     q, k, v = pad_head_dim(q.contiguous(), k.contiguous(), v.contiguous())
     _check(q=q, k=k, v=v)
     bh, seq_q, d = q.shape
     out = torch.empty_like(q)
-    slices = torch.empty(column_slices(d), bh, seq_q, dtype=torch.float32,
+    slices = torch.empty(column_slices(d, q.dtype), bh, seq_q,
+                         dtype=torch.float32,
                          device=q.device)
     lse = slices[0]
     lib = _lib()

@@ -1,6 +1,6 @@
-"""Compare this tree's recurrent and paged-decode CUDA kernels with
-their earlier designs on one CUDA card, and show where the new kernels'
-time goes. A measuring tool: nothing in the port uses it, and it has
+"""Compare this tree's recurrent, paged-decode and flash-attention CUDA
+kernels with their earlier designs on one CUDA card, and show where the
+new kernels' time goes. A measuring tool: nothing in the port uses it, and it has
 no JAX counterpart.
 
     mkdir -p .cmp/old                # any directory; .cmp/ is git-ignored
@@ -9,6 +9,8 @@ no JAX counterpart.
     python3 -m bigdl_tpu_torch.ops.kernel_study --old .cmp/old \
         --parts k9,k10,layouts,phases              # repository root
     python3 -m bigdl_tpu_torch.ops.kernel_study --old .cmp/old --parts k8,k8_phases
+    git show <rev>:bigdl_tpu_torch/ops/csrc/flash_attention.cu > .cmp/old/flash_attention.cu
+    python3 -m bigdl_tpu_torch.ops.kernel_study --old .cmp/old --parts flash_f32
 
 `--parts` picks what runs (default k9,k10,layouts,phases), each part
 printing one JSON line; old and new always run in turns (old, new, new,
@@ -66,7 +68,15 @@ old; `chip_smoke.cuda_ms`, L2 flushed):
 * `k8_phases`: clock cycles a step in each phase of this tree's LSTM
   forward, training variant, as `phases`: bf16 at `train_bi`
   (`k8_phases`), fp32 at `lm_uni` (`k8_fp32_phases`, cluster rank 0 of
-  tile 0).
+  tile 0);
+* `flash_f32` (old: the flash-attention source of commit 0fe951a or
+  earlier, whose fp32 kernels are the 16 x 16 SIMT tiles and, above D =
+  256, the column-split ones): old and new fp32 forward and backward
+  (both backward launches) through the libraries' C entry points, on
+  the same padded operands, at chip_smoke's fp32 FLASH_TIMED cases
+  (prefill_d64 among them), in turns; their outputs' largest
+  difference; and each fp32 kernel's ptxas report (registers, spills)
+  and SASS counts (FFMA, LDS, LDS.128), old and new.
 
 Builds go to <old>/build (.cmp/build without --old). Every JSON line
 is also appended to chiprun_out/kernel_study.jsonl.
@@ -78,6 +88,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import importlib
 import json
 import re
 import subprocess
@@ -401,7 +412,8 @@ def _sass_counts(so: Path, match: str) -> dict:
     tool = Path(_build.nvcc_path()).parent / "cuobjdump"
     sass = subprocess.run([str(tool), "-sass", str(so)], capture_output=True,
                           text=True, timeout=300, check=True).stdout
-    kinds = ("LDG", "STG", "LDS", "STS", "BAR", "FFMA", "MUFU", "BRA")
+    kinds = ("LDG", "STG", "LDS", "LDS.128", "STS", "BAR", "FFMA", "MUFU",
+             "BRA")
     out, name = {}, None
     for ln in sass.splitlines():
         m = re.search(r"Function : (\w+)", ln)
@@ -409,7 +421,7 @@ def _sass_counts(so: Path, match: str) -> dict:
             name = m.group(1) if match in m.group(1) else None
             if name:
                 out[name] = {"all": 0, **{k: 0 for k in kinds}}
-        elif name and re.search(r"/\*[0-9a-f]{4}\*/", ln):
+        elif name and re.search(r"/\*[0-9a-f]{4,}\*/", ln):
             out[name]["all"] += 1
             op = ln.split("*/", 1)[1].strip().split(" ")[0]
             if op.startswith("@"):
@@ -911,15 +923,115 @@ def part_e2e(old_tree: Path) -> None:
     _emit({"e2e": {"steps": E2E_STEPS, "order": "old new new old", **runs}})
 
 
+def _flash_lib(path: Path) -> ctypes.CDLL:
+    """A flash-attention library's two entry points, typed as
+    ops/flash_attention.py types them."""
+    lib = ctypes.CDLL(str(path))
+    lib.bigdl_flash_fwd.argtypes = [VOID] * 5 + [ctypes.c_int] * 4 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_int, VOID]
+    lib.bigdl_flash_bwd.argtypes = [VOID] * 9 + [ctypes.c_int] * 4 + [
+        ctypes.c_float] * 3 + [ctypes.c_int] * 3 + [VOID]
+    return lib
+
+
+def part_flash_f32(torch, cs, build: Path, logs, flush, stream) -> None:
+    """Old and new fp32 flash kernels at chip_smoke's timed cases."""
+    from bigdl_tpu_torch.ops import _build
+    # the module; `bigdl_tpu_torch.ops.flash_attention` is also a function
+    fa = importlib.import_module("bigdl_tpu_torch.ops.flash_attention")
+
+    libs = {"old": _flash_lib(build / "old_fa.so"),
+            "new": _flash_lib(_build.library_path("flash_attention"))}
+    cases = {c[0]: c[1:] for c in cs.FLASH_CASES}
+    out = {}
+    for name in cs.FLASH_TIMED:
+        bh, sq, sk, d, causal, scale = cases[name]
+        scale = 1.0 / d ** 0.5 if scale is None else scale
+        g = torch.Generator(device="cuda").manual_seed(sq * 7 + sk)
+        q, do = (torch.randn(bh, sq, d, device="cuda", generator=g)
+                 for _ in range(2))
+        k, v = (torch.randn(bh, sk, d, device="cuda", generator=g)
+                for _ in range(2))
+        o, lse = fa.attention_reference(q, k, v, causal, scale,
+                                        return_lse=True)
+        delta = ((do * o).sum(-1) * scale).contiguous()
+        qp, kp, vp, dop = fa.pad_head_dim(q, k, v, do)
+        dp = qp.shape[-1]
+        # the old forward wrote one lse row a 128-column slice above 256
+        rows = dp // 128 if dp > 256 else 1
+        res = {}
+        for who, lib in libs.items():
+            fo = torch.empty_like(qp)
+            fl = torch.empty(rows, bh, sq, device="cuda")
+            dq, dk, dv = (torch.empty_like(t) for t in (qp, kp, vp))
+
+            def fwd(lib=lib, fo=fo, fl=fl):
+                err = lib.bigdl_flash_fwd(
+                    qp.data_ptr(), kp.data_ptr(), vp.data_ptr(),
+                    fo.data_ptr(), fl.data_ptr(), bh, sq, sk, dp, scale,
+                    int(causal), 0, stream)
+                if err:
+                    raise RuntimeError(f"{who} forward: cudaError {err}")
+
+            def bwd(lib=lib, dq=dq, dk=dk, dv=dv):
+                err = lib.bigdl_flash_bwd(
+                    qp.data_ptr(), kp.data_ptr(), vp.data_ptr(),
+                    dop.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                    dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), bh, sq, sk,
+                    dp, scale, scale, 1.0 / scale, 0, int(causal), 0,
+                    stream)
+                if err:
+                    raise RuntimeError(f"{who} backward: cudaError {err}")
+
+            fwd()
+            bwd()
+            torch.cuda.synchronize()
+            res[who] = {"fwd": fwd, "bwd": bwd,
+                        "outs": (fo[..., :d], fl[0], dq[..., :d],
+                                 dk[..., :d], dv[..., :d])}
+        reps = dict(reps=10, warmup=2)
+        out[name] = {
+            "shape": {"BH": bh, "Sq": sq, "Sk": sk, "D": d, "kernel_D": dp,
+                      "causal": causal},
+            "fwd_us": _turns(cs, {w: res[w]["fwd"] for w in libs}, flush,
+                             **reps),
+            "bwd_us": _turns(cs, {w: res[w]["bwd"] for w in libs}, flush,
+                             **reps),
+            "max_abs_diff": {n: float((a - b).abs().max()) for n, a, b in zip(
+                ("out", "lse", "dq", "dk", "dv"), res["old"]["outs"],
+                res["new"]["outs"])},
+        }
+        for kind in ("fwd", "bwd"):
+            us = out[name][f"{kind}_us"]
+            out[name][f"{kind}_speedup"] = (
+                min(us["old"]) / max(min(us["new"]), 1e-9))
+        del q, k, v, do, o, lse, delta, qp, kp, vp, dop, res
+        torch.cuda.empty_cache()
+    _emit({"flash_f32": out})
+    names = {"old": [f"fa_{k}_{w}kernel" for k in ("fwd", "dkdv", "dq")
+                     for w in ("", "wide_")],
+             "new": ["_f32_kernel", "_f32_pp_kernel"]}
+    build_out = {}
+    for who, log, so in (("old", logs["old_fa"], build / "old_fa.so"),
+                         ("new", _build.BUILD_LOG["flash_attention"],
+                          _build.library_path("flash_attention"))):
+        build_out[who] = {
+            "ptxas": [ln for m in names[who] for ln in _ptxas_lines(log, m)],
+            "sass": {k: c for m in names[who]
+                     for k, c in _sass_counts(so, m).items()}}
+    _emit({"flash_f32_build": build_out})
+
+
 PARTS = ("k9", "k10", "layouts", "phases", "k1_k11", "k11_phases", "k8",
-         "k8_phases", "e2e")
+         "k8_phases", "e2e", "flash_f32")
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--old", type=Path,
                     help="directory of the earlier fused_rnn.cu (and "
-                         "paged_decode.cu for k1_k11)")
+                         "paged_decode.cu for k1_k11, flash_attention.cu "
+                         "for flash_f32)")
     ap.add_argument("--parts", default="k9,k10,layouts,phases",
                     help=f"comma-separated, of {','.join(PARTS)}")
     ap.add_argument("--old-tree", type=Path,
@@ -929,8 +1041,9 @@ def main(argv=None) -> int:
     for p in parts:
         if p not in PARTS:
             ap.error(f"unknown part {p!r}")
-    if args.old is None and set(parts) & {"k9", "k10", "k1_k11", "k8"}:
-        ap.error("--old is needed for k9, k10, k1_k11 and k8")
+    if args.old is None and set(parts) & {"k9", "k10", "k1_k11", "k8",
+                                          "flash_f32"}:
+        ap.error("--old is needed for k9, k10, k1_k11, k8 and flash_f32")
     if args.old_tree is None and "e2e" in parts:
         ap.error("--old-tree is needed for e2e")
     sys.path.insert(0, str(ROOT))
@@ -990,7 +1103,11 @@ def main(argv=None) -> int:
         (build / "phases.cu").write_text(_phase_source(rnn))
         procs["phases"] = _nvcc(build / "phases.cu", build / "phases.so",
                                 include=_build.CSRC)
-    _build.build(["paged_decode", "fused_rnn"])
+    if "flash_f32" in parts:
+        procs["old_fa"] = _nvcc(old / "flash_attention.cu",
+                                build / "old_fa.so", include=_build.CSRC)
+    _build.build(["paged_decode", "fused_rnn"]
+                 + (["flash_attention"] if "flash_f32" in parts else []))
     logs = _wait(procs)
     _emit({"device": torch.cuda.get_device_name(0),
            "nvidia_smi": cs.nvidia_smi()})
@@ -1015,6 +1132,8 @@ def main(argv=None) -> int:
             part_e2e(args.old_tree.resolve())
         elif p == "k1_k11":
             part_k1_k11(torch, cs, fr, build, flush, stream)
+        elif p == "flash_f32":
+            part_flash_f32(torch, cs, build, logs, flush, stream)
         else:
             part_k11_phases(torch, cs, fr, build, stream)
     return 0

@@ -76,9 +76,13 @@ def update_cache(k_cache: torch.Tensor, v_cache: torch.Tensor,
                  k_new: torch.Tensor, v_new: torch.Tensor,
                  pos: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Write one decode step's (B, H, 1, D) keys/values at per-row
-    positions `pos` (B,), in place."""
+    positions `pos` (B,), in place. A position outside [0, S) writes at
+    the nearest end, as the JAX package's `lax.dynamic_update_slice`
+    clamps its start index: the clamp runs on the device, with no host
+    read, and no index put goes out of range (on the card that would be
+    a device-side assert that poisons the context)."""
     rows = torch.arange(k_cache.shape[0], device=k_cache.device)
-    p = pos.long().to(k_cache.device)
+    p = pos.long().to(k_cache.device).clamp(0, k_cache.shape[2] - 1)
     k_cache[rows, :, p, :] = k_new[:, :, 0, :].to(k_cache.dtype)
     v_cache[rows, :, p, :] = v_new[:, :, 0, :].to(v_cache.dtype)
     return k_cache, v_cache
@@ -89,7 +93,9 @@ def cached_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      sm_scale: Optional[float] = None) -> torch.Tensor:
     """One query row a sequence against the dense cache: q (B, H, 1,
     D), caches (B, H, S, D), pos (B,) the row's clock (the index its
-    current token was just written at). Attends positions <= pos;
+    current token was just written at). Attends positions <= pos, the
+    raw clock as the JAX package masks it (a clock past the cache sees
+    every position);
     value rows past the clock are zeroed before the weighted sum, so a
     NaN left there (a poisoned request's leftovers) never rides a
     0-probability into the output. Returns (B, H, 1, D) in q's

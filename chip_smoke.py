@@ -57,15 +57,18 @@ It drives `bigdl_tpu_torch` only (never JAX or the JAX package):
    and at D = 256 the trainer's shape at two heads (BH=16, S=2048),
    ragged lengths and D = 160 (padded to 256), and above 256 on the
    column-split kernels the trainer's shape at one head (BH=8, S=2048,
-   D=512), D = 320 ragged and D = 512 with fully masked rows, every
-   column slice's lse row bitwise the first's; fp32 and bf16 (bf16 on
-   the tensor cores); bf16 also element by element (in bf16 ulps)
+   D=512), D = 320 ragged and D = 512 with fully masked rows, and the
+   dense-cache prefill's shape (BH=8, S=512, D=64, causal), every bf16
+   column slice's lse row bitwise the first's and fp32's one lse row;
+   fp32 and bf16 (bf16 on the tensor cores, fp32 on one SIMT design at
+   every D); bf16 also element by element (in bf16 ulps)
    against the plain versions that round where the kernels round, while
    the same versions without the roundings must fail that check; two
    backward runs bitwise equal; gradients through both outputs of
    flash_attention_with_lse, kernels vs plain; kernel, plain and SDPA
    (library yardstick) times at the three training shapes, the long
-   sequence, D = 160 (the padding's cost) and D = 320;
+   sequence, D = 160 (the padding's cost), D = 320 and the dense
+   prefill's shape;
 5. dense_decode (after engine) — `TransformerLM.init_cache` /
    `prefill` / `decode_step` at bench.py bench_lm_decode's
    configuration: the 43M LM (fp32 weights, serving_params layout), a
@@ -540,9 +543,16 @@ BF16_FLOPS_PER_S = 989e12       # dense tensor-core bf16 peak (data sheet)
 # 128-row tile of the bf16 forward's CTA at D = 128; then D = 256: the
 # trainer's shape with two heads (the lm2h phase's, B=8 x H=2, S=2048),
 # ragged lengths, and D = 160, which the wrapper pads to 256, ragged
-# and causal; then above 256, on the column-split kernels: the trainer's
-# shape at one head (the lm1h phase's, B=8 x H=1, S=2048, D = 512),
-# D = 320 (padded to 384) ragged, and D = 512 with fully masked rows.
+# and causal; then above 256 (bf16 on the column-split kernels): the
+# trainer's shape at one head (the lm1h phase's, B=8 x H=1, S=2048, D =
+# 512), D = 320 (padded to 384) ragged, and D = 512 with fully masked
+# rows; the dense-cache prefill's (dense_decode: one 512-token prompt,
+# B=1 x H=8, D = 64, fp32 there), whose 64 query tiles of 64 rows would
+# leave half the card idle; and, untimed, the instantiations no model
+# reaches: D = 32 on a grid that fills the card (the fp32 forward's
+# warp-owned rows at D = 32) and D = 1000 and 2000 (padded to 1024 and
+# 2048: the fp32 kernels whose accumulator columns are read at run
+# time).
 FLASH_CASES = (
     ("train", 64, 2048, 2048, 64, True, None),
     ("long", 8, 8192, 8192, 64, True, None),
@@ -558,27 +568,61 @@ FLASH_CASES = (
     ("train_h1", 8, 2048, 2048, 512, True, None),
     ("ragged_d320", 3, 1000, 1500, 320, True, None),
     ("masked_d512", 2, 700, 500, 512, True, None),
+    ("prefill_d64", 8, 512, 512, 64, True, None),
+    ("grid_d32", 16, 2048, 2048, 32, True, None),
+    ("wide_d1000", 2, 200, 260, 1000, True, None),
+    ("wide_d2000", 1, 130, 130, 2000, True, None),
 )
 FLASH_TIMED = ("train", "long", "train_h2", "pad_d160", "train_h1",
-               "ragged_d320")
+               "ragged_d320", "prefill_d64")
 # the designs of the K2 and K3 rows of the kernels line
 FLASH_DESIGN = {
     "fwd": "bf16: wgmma (S = Q.K^T from shared memory, P.V with P from "
            "registers), 2-stage cp.async K/V ring, CTA of 2 warpgroups x "
-           "64 query rows, mask on edge tiles only, exp2f; fp32: SIMT",
+           "64 query rows, mask on edge tiles only, exp2f; fp32: SIMT, "
+           "8 x 8 register blocks a lane, Q resident; up to D = 64 on a "
+           "grid that fills the card two sides of 4 warps a CTA of 128 "
+           "rows, S and the max on one, expf, the row sums and P.V of the "
+           "tile before on the other, p through a double-buffered tile "
+           "and named barriers, K and V each through a 3-stage cp.async "
+           "ring; else S split over the warps by D and summed in shared "
+           "memory, O split by keys (128, 64 or 32 rows a CTA)",
     "bwd": "bf16: dk/dv + dq kernels, wgmma (S, dP from shared memory; "
            "dV, dK, dQ with P / dS from registers; p taken while dP "
-           "computes), 2-stage cp.async ring, no atomics; fp32: SIMT"}
+           "computes), 2-stage cp.async ring, no atomics; fp32: dk/dv + "
+           "dq kernels, SIMT 8 x 8 register blocks, the CTA's own rows "
+           "resident (K, V or Q, dO), half the warps on S (S^T), half on "
+           "dP (dP^T), each split by D and summed in shared memory, the "
+           "swept operand through a cp.async ring, dk/dv 128 keys a CTA "
+           "(fewer where the grid would not fill the card), dq 128 rows, "
+           "the heaviest q tiles first, no atomics"}
 # the D = 256 instantiations' layouts (rows of their own in the kernels
 # line): a thread holds at most 255 registers, and ptxas must report no
 # spill
 FLASH_D256_DESIGN = {
     "fwd": "bf16: as at D = 128, a CTA of 2 warpgroups x 64 query rows "
-           "(O alone 128 registers a thread); fp32: SIMT, 64-row tiles",
+           "(O alone 128 registers a thread); fp32: the SIMT design's "
+           "split plan, 64 query rows, K in two 128-column chunks and V "
+           "in two 32-key chunks a tile, O split by columns over the 8 "
+           "warps",
     "bwd": "bf16: dk/dv 2 warpgroups x two 64-column slices of dK and "
            "dV, p and ds taken before dV and dK are issued; dq 2 "
-           "warpgroups x 128 columns, each computing S and dP; fp32: "
-           "SIMT, the kernels' own tiles 32 rows (shared memory)"}
+           "warpgroups x 128 columns, each computing S and dP; fp32: the "
+           "SIMT design, 32 keys (dk/dv) or 32 query rows (dq) a CTA, "
+           "the swept operand in 64-column chunks, then 16- or 32-row "
+           "chunks for dV/dK or dQ"}
+# the fp32 kernels' instantiations <RM, CN, RT>: rows and accumulator
+# columns a lane, exact or (RT) a bound read at run time, by kernel
+# (csrc/flash_attention.cu fwd_plan, dq_plan, dkdv_plan); "pp" the
+# forward's two-sided kernel up to D = 64, <CN>
+FLASH_F32_INSTANCES = {
+    "fwd": ("8,8,false", "8,4,false", "8,6,false", "4,16,true",
+            "2,32,true"),
+    "fwd_f32_pp": ("8", "4"),
+    "dq": ("8,8,false", "8,4,false", "4,6,false", "4,8,false",
+           "2,32,true"),
+    "dkdv": ("8,8,false", "8,4,false", "4,12,false", "4,16,false",
+             "2,32,true", "1,64,true")}
 # kernel vs plain: forward out (max abs), lse (fp32, max abs), backward
 # (max abs relative to each gradient's max)
 FLASH_TOL = {"fp32": {"out": 2e-5, "lse": 2e-5, "grad": 1e-4},
@@ -609,18 +653,26 @@ BF16_ULP_TOL, BF16_MISMATCH_TOL = 4.0, 0.02
 # kernels vs plain, relative to each gradient's max (FLASH_TOL "grad")
 WITH_LSE_CASES = ("ragged", "masked_rows")
 
-# above D = 256 (rows of their own in the kernels line): the output's
-# columns split over CTAs, 128 a slice, each CTA computing the scores
-# over the full D; every slice writes its lse row, held bitwise equal
+# above D = 256 (rows of their own in the kernels line): in bf16 the
+# output's columns split over CTAs, 128 a slice, each CTA computing the
+# scores over the full D, every slice writing its lse row, held bitwise
+# equal; in fp32 one CTA a tile computes the scores once and writes one
+# lse row
 FLASH_WIDE_DESIGN = {
-    "fwd": "D padded to a multiple of 128, one CTA a 128-column slice of "
-           "O (grid.z); S over the full D in 128-column chunks through a "
-           "2-stage cp.async ring. bf16: one warpgroup x 64 rows on wgmma; "
-           "fp32: SIMT, 64-row tiles",
-    "bwd": "as the forward: one CTA a 128-column slice of dK and dV (or "
-           "dQ), S and dP over the full D in chunks, its own slice's "
-           "chunk last; bf16: wgmma, p and ds before dV and dK; fp32: "
-           "SIMT, dQ 32-row tiles"}
+    "fwd": "D padded to a multiple of 128. bf16: one CTA a 128-column "
+           "slice of O (grid.z), S over the full D in 128-column chunks "
+           "through a 2-stage cp.async ring, one warpgroup x 64 rows on "
+           "wgmma; fp32: one CTA a tile of 32 query rows (16 where 32 "
+           "would not fill the card, and above D = 512), Q resident, S "
+           "once a tile (K in 128-column chunks, each split over the 8 "
+           "warps, the partials summed in shared memory), each warp D / 8 "
+           "columns of O, V in 16-key chunks",
+    "bwd": "bf16: one CTA a 128-column slice of dK and dV (or dQ), S and "
+           "dP over the full D in chunks, its own slice's chunk last, "
+           "wgmma, p and ds before dV and dK; fp32: one CTA a tile (dk/dv "
+           "16 keys, dq 16 query rows), S^T and dP^T (S and dP) once a "
+           "tile from 128-column chunks (64 at D = 512), dV/dK over 8- "
+           "or 16-query chunks, dQ over 16- or 32-key chunks"}
 
 # the trainer: the repository's 43M training benchmark configuration
 # (bench.py bench_lm(512, 8, 8, 8, 2048, ..., "43m")) — batch 8 x 2048
@@ -920,13 +972,22 @@ def phase_build():
              _tensor_core_counts(_build.library_path("flash_attention"))
              .items() if name.startswith("fa_")}
     for kind in ("fwd", "dkdv", "dq"):
-        for dtype in ("", "_bf16"):
-            for d in fa.HEAD_DIMS:
-                label = f"fa_{kind}{dtype}_kernel<{d}"
-                check(any(n.startswith(label) for n in flash),
-                      f"no {label}...> in the library's SASS")
-            label = f"fa_{kind}{dtype}_wide_kernel"   # D > 256
+        for d in fa.HEAD_DIMS:
+            label = f"fa_{kind}_bf16_kernel<{d}"
+            check(any(n.startswith(label) for n in flash),
+                  f"no {label}...> in the library's SASS")
+        label = f"fa_{kind}_bf16_wide_kernel"   # D > 256
+        check(label in flash, f"no {label} in the library's SASS")
+        # fp32: one design at every D, its instantiations
+        for args in FLASH_F32_INSTANCES[kind]:
+            label = f"fa_{kind}_f32_kernel<{args}>"
             check(label in flash, f"no {label} in the library's SASS")
+    for args in FLASH_F32_INSTANCES["fwd_f32_pp"]:
+        label = f"fa_fwd_f32_pp_kernel<{args}>"
+        check(label in flash, f"no {label} in the library's SASS")
+    old = [n for n in flash if re.match(r"fa_(fwd|dkdv|dq)_(wide_)?kernel",
+                                        n)]
+    check(not old, f"earlier fp32 flash kernels still built: {old}")
     for name, r in flash.items():
         check(r.get("spill_bytes") == 0,
               f"{name} spills ({r.get('spill_bytes')} bytes) or has no "
@@ -1304,9 +1365,13 @@ def phase_flash(flush):
                       and bool((grads[0][:, :masked] == 0).all()),
                       f"{where}: fully masked rows not zero / -1e30")
             res["fully_masked_rows"] = masked
-            # above D = 256 every column slice computes the same scores
-            # in the same order: its lse row must be the first's bits
+            # bf16 above D = 256: every column slice computes the same
+            # scores in the same order, its lse row must be the first's
+            # bits; fp32 writes one row at every D
             res["lse_slices"] = slices.shape[0]
+            want = fa.column_slices(fa.kernel_head_dim(d), dtype)
+            check(slices.shape[0] == want and (dname == "bf16" or want == 1),
+                  f"{where}: {slices.shape[0]} lse rows, {want} expected")
             check(all(torch.equal(t, lse) for t in slices),
                   f"{where}: the column slices' lse rows differ")
             if dname == "bf16":
@@ -2158,8 +2223,11 @@ def _train_model(attn_impl=None, config=None):
 def phase_train_model():
     """One fp32 loss-and-grad step of the full-width LM through the
     flash kernels against the same step through the plain versions,
-    from the same params and batch (FULL_PRECISION, TF32 off)."""
-    emit("train_model", **_kernel_step_check("train-model", TRAIN_CONFIG))
+    from the same params and batch (FULL_PRECISION, TF32 off). Returns
+    the step's flash launches ({"fwd", "bwd"}), the fp32 kernels'."""
+    res = _kernel_step_check("train-model", TRAIN_CONFIG)
+    emit("train_model", **res)
+    return res["launches"]
 
 
 def _kernel_step_check(where: str, config: dict) -> dict:
@@ -2348,8 +2416,9 @@ def phase_train_profile():
         emit("train_profile", device_ms_per_step="not measured")
         return
     dev_ms = sum(r[0] for r in rows) / 1e3 / 2
-    # fa_{fwd,dkdv,dq}_kernel (fp32) and fa_{fwd,dkdv,dq}_bf16_kernel
-    flash = re.compile(r"fa_(fwd|dkdv|dq)_(bf16_)?kernel")
+    # fa_{fwd,dkdv,dq}_f32_kernel, fa_fwd_f32_pp_kernel and
+    # fa_{fwd,dkdv,dq}_bf16_kernel
+    flash = re.compile(r"fa_(fwd|dkdv|dq)_(bf16_|f32_|f32_pp_)?kernel")
     flash_ms = sum(r[0] for r in rows if flash.search(r[2])) / 1e3 / 2
     wall_ms = (marks["t1"] - marks["t0"]) / 2 * 1e3
     emit("train_profile", steps=2,
@@ -5979,7 +6048,7 @@ def phase_mha():
         TRAIN_BATCH, TRAIN_WARMUP, TRAIN_STEPS, Adam(1e-3), "bf16",
         counters=(_zero_flash_counts, _flash_counts),
         profile_trace="mha_train_trace.json" if profiled else None,
-        kernel_re=r"fa_(fwd|dkdv|dq)_(bf16_)?kernel")
+        kernel_re=r"fa_(fwd|dkdv|dq)_(bf16_|f32_|f32_pp_)?kernel")
     fwd, bwd = train.pop("counts")
     losses = train["losses"]
     check(losses[-1] < losses[0], f"mha trainer loss did not fall: {losses}")
@@ -10131,7 +10200,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     drill_launches = phase_scripts_drill()
     torch.cuda.empty_cache()
-    phase_train_model()
+    train_model_launches = phase_train_model()
     torch.cuda.empty_cache()
     fwd_launches, bwd_launches = phase_trainer()
     torch.cuda.empty_cache()
@@ -10375,6 +10444,31 @@ def main() -> int:
         "bound_by": row[kind]["bound_by"],
         "library_ms": row[f"sdpa_{kind}_ms"],
     } for kind in ("fwd", "bwd")]
+    # the fp32 routes of K2-K5 (one SIMT design at every D): the forward
+    # at the dense-cache prefill's shape (dense_decode's fp32 prefill, 8
+    # launches counted from 0), the backward at the trainer's (its fp32
+    # parity step, train_model); launches_by_path adds the fp32 step's
+    kernels += [{
+        "name": f"flash_attention_{kind}_f32", "route": "cuda",
+        "source": "bigdl_tpu_torch/ops/csrc/flash_attention.cu",
+        "design": FLASH_DESIGN[kind],
+        "replaces": {"fwd": "bigdl_tpu/ops/flash_attention.py:118",
+                     "bwd": "bigdl_tpu/ops/flash_attention.py:450 :341 "
+                            ":374"}[kind],
+        "launches": {"fwd": dense_launches,
+                     "bwd": train_model_launches["bwd"]}[kind],
+        "launches_by_path": {
+            "fwd": {"dense_decode": dense_launches,
+                    "train_model": train_model_launches["fwd"]},
+            "bwd": {"train_model": train_model_launches["bwd"]}}[kind],
+        "max_abs_err": row["out_max_abs_err" if kind == "fwd"
+                           else "grad_max_abs_err"],
+        "ms": row[f"{kind}_ms"], "plain_ms": row[f"plain_{kind}_ms"],
+        "bound_ms": row[kind]["bound_ms"],
+        "bound_by": row[kind]["bound_by"],
+        "library_ms": row[f"sdpa_{kind}_ms"],
+    } for kind, row in (("fwd", flash["prefill_d64/fp32"]),
+                        ("bwd", flash["train/fp32"]))]
     # the LSTM rows, each at the shape its main path gives it, in the
     # compute dtype (bf16): K6/K7 at the LSTM LM's (N = 32, T = 64, one
     # direction), K8/K9 at the BiLSTM trainer's (N = T = 128, two); errors

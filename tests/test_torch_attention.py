@@ -158,6 +158,36 @@ def test_decode_matches_full_forward_and_jax():
                                atol=1e-6, rtol=0)
 
 
+@pytest.mark.parametrize("past", [-1, 0, 3], ids=["last", "end", "past"])
+def test_decode_clock_at_and_past_the_cache(past):
+    """apply_decode with clocks at max_len - 1, max_len and max_len + 3
+    (the other rows inside the cache): the write lands in the cache's
+    last slot, as the JAX package's dynamic_update_slice clamps it, and
+    the read masks the raw clock. The port matches the JAX method,
+    output and cache, and raises nothing."""
+    e, heads, batch, prompt, max_len = 16, 2, 3, 6, 8
+    jm, tm, jp, tp = _mha_pair(e, heads, True, True, seed=5)
+    x = np.random.RandomState(6).randn(batch, prompt + 1,
+                                       e).astype(np.float32)
+    tx = torch.from_numpy(x)
+    cache = tm.init_cache(batch, max_len, device="cpu")
+    _, cache = tm.apply_prefill({"params": tp}, tx[:, :prompt], cache)
+    jcache = jm.init_cache(batch, max_len)
+    _, jcache = jm.apply_prefill({"params": jp}, jnp.asarray(x[:, :prompt]),
+                                 jcache)
+    pos = np.array([max_len + past, prompt, prompt], np.int32)
+    y, cache = tm.apply_decode({"params": tp}, tx[:, prompt], cache,
+                               torch.from_numpy(pos))
+    jy, jcache = jm.apply_decode({"params": jp}, jnp.asarray(x[:, prompt]),
+                                 jcache, jnp.asarray(pos))
+    assert bool(torch.isfinite(y).all())
+    np.testing.assert_allclose(y.numpy(), np.asarray(jy), atol=TOL, rtol=0)
+    for name in ("k", "v"):
+        np.testing.assert_allclose(cache[name].numpy(),
+                                   np.asarray(jcache[name]), atol=1e-6,
+                                   rtol=0)
+
+
 def test_dense_cache_functions_match_jax():
     """init_layer_cache, write_prefill, update_cache and cached_attention
     against the JAX package's, ragged clocks, with NaN key and value

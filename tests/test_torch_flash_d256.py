@@ -55,15 +55,19 @@ def _rel(a, b):
     return np.abs(a - b).max() / max(np.abs(b).max(), 1e-30)
 
 
-def test_instantiations_reach_256():
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
+def test_instantiations_reach_256(dtype):
     """The instantiations end at 256; past them every head dim runs at
-    the next multiple of 128 on the column-split kernels, one CTA a
-    128-column slice."""
+    the next multiple of 128: in bf16 on the column-split kernels, one
+    CTA a 128-column slice, in fp32 one CTA a tile (one slice)."""
     assert tfa.HEAD_DIMS[-1] == 256
     assert {tfa.kernel_head_dim(d) for d in range(129, 257)} == {256}
     assert {tfa.kernel_head_dim(d) for d in range(257, 385)} == {384}
-    assert tfa.column_slices(256) == 1
-    assert tfa.column_slices(384) == 384 // tfa.WIDE_COLS == 3
+    assert tfa.column_slices(256, dtype) == 1
+    want = 384 // tfa.WIDE_COLS if dtype == torch.bfloat16 else 1
+    assert tfa.column_slices(384, dtype) == want
+    assert want == (3 if dtype == torch.bfloat16 else 1)
 
 
 @pytest.mark.parametrize("case", CASES, ids=IDS)

@@ -189,21 +189,32 @@ def test_paged_decode_matches_jax_kernel(d, dtype):
                                   else FP32_TOL))
 
 
-def test_flash_dispatch():
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
+def test_flash_dispatch(dtype):
     """The head dim the flash kernels run at and their column slices:
-    the instantiations up to 256, multiples of 128 above, one CTA a
-    128-column slice there; the kernels' checks take nothing else."""
+    the instantiations up to 256, multiples of 128 above; in bf16 one CTA
+    a 128-column slice there, in fp32 one CTA a tile at every D (up to
+    F32_MAX_HEAD_DIM); the kernels' checks take nothing else."""
     assert [tfa.kernel_head_dim(d) for d in (1, 33, 200, 256, 257, 320,
                                              384, 385, 512, 1000)] \
         == [32, 64, 256, 256, 384, 384, 384, 512, 512, 1024]
-    assert [tfa.column_slices(dp) for dp in (32, 256, 384, 512, 1024)] \
-        == [1, 1, 3, 4, 8]
+    slices = [1, 1, 3, 4, 8] if dtype == torch.bfloat16 else [1] * 5
+    assert [tfa.column_slices(dp, dtype)
+            for dp in (32, 256, 384, 512, 1024)] == slices
     for bad in (300, 192, 640 + 64):
         with pytest.raises(ValueError, match="multiples of 128"):
-            tfa.column_slices(bad)
+            tfa.column_slices(bad, dtype)
     with pytest.raises(ValueError, match="head_dim >= 1"):
         tfa.kernel_head_dim(0)
     assert tfa.WIDE_COLS == 128
+    top = tfa.F32_MAX_HEAD_DIM + tfa.WIDE_COLS
+    if dtype == torch.float32:
+        assert tfa.column_slices(tfa.F32_MAX_HEAD_DIM, dtype) == 1
+        with pytest.raises(ValueError, match="fp32 kernels take head dims"):
+            tfa.column_slices(top, dtype)
+    else:
+        assert tfa.column_slices(top, dtype) == top // tfa.WIDE_COLS
 
 
 def test_paged_decode_dispatch():

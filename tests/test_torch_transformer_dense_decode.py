@@ -142,6 +142,36 @@ def test_ragged_prefill_lengths(models):
                                atol=ATOL)
 
 
+@pytest.mark.parametrize("past", [-1, 0, 3], ids=["last", "end", "past"])
+def test_clock_at_and_past_the_table(models, past):
+    """A decode clock at max_len - 1, max_len and max_len + 3 (row 0;
+    row 1 decodes at 12): the JAX step's gather reads the last
+    positional row and its dynamic_update_slice writes the cache's last
+    slot, while the mask keeps the raw clock. The port matches it,
+    logits and cache, and raises nothing."""
+    jm, variables, tm, params = models
+    toks = _tokens(5, (2, 13))
+    cache = tm.init_cache(2, 64, device="cpu")
+    jcache = jm.init_cache(2, 64)
+    _, cache = tm.prefill({"params": params},
+                          torch.from_numpy(toks[:, :12]), cache)
+    _, jcache = jm.prefill(variables, jnp.asarray(toks[:, :12]), jcache)
+    pos = np.array([CFG["max_len"] + past, 12], np.int32)
+    logits, cache = tm.decode_step({"params": params},
+                                   torch.from_numpy(toks[:, 12]),
+                                   torch.from_numpy(pos), cache)
+    jlogits, jcache = jm.decode_step(variables, jnp.asarray(toks[:, 12]),
+                                     jnp.asarray(pos), jcache)
+    assert bool(torch.isfinite(logits).all())
+    np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits),
+                               rtol=0, atol=ATOL)
+    for layer, jlayer in zip(cache, jcache):
+        for name in ("k", "v"):
+            np.testing.assert_allclose(layer[name].numpy(),
+                                       np.asarray(jlayer[name]), rtol=0,
+                                       atol=ATOL)
+
+
 def test_bf16_cache_loose(models):
     jm, variables, tm, params = models
     toks = _tokens(2, (1, 10))
