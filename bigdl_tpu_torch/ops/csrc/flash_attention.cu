@@ -14,11 +14,11 @@
 //
 // Layout: q (BH, Sq, D), k and v (BH, Sk, D), all contiguous and
 // starting on 16-byte boundaries, fp32 or bf16 (one dtype for all); out
-// and dq/dk/dv in that dtype; lse and delta (BH, Sq) fp32. D is 32, 64,
-// 128 or 256, or a multiple of 128 above 256 (in bf16 the column-split
-// kernels, "D > 256" below, whose forward writes D / 128 lse rows; fp32
-// up to kMaxF32Dim, one lse row); Sq and Sk are any positive lengths
-// (tiles past the end are zero-filled and masked).
+// and dq/dk/dv in that dtype; lse and delta (BH, Sq) fp32, one row at
+// every D. D is 32, 64, 128 or 256, or a multiple of 128 above 256 (in
+// bf16 "D > 256" below, up to 4096; fp32 up to kMaxF32Dim); Sq and Sk
+// are any positive lengths (tiles past the end are zero-filled and
+// masked).
 //
 // Numeric conventions (those of the Pallas kernels and of the port's
 // plain versions in bigdl_tpu_torch/ops/flash_attention.py):
@@ -87,12 +87,15 @@
 // tiles that need it, and sum in a fixed order: bitwise reproducible.
 //
 // Above D = 256 (the wrapper pads D to a multiple of 128) a bf16 thread
-// cannot hold a 64-row accumulator of D columns beside S: a CTA owns a
-// 128-column slice of the output instead (grid.z), and computes S (and
-// dP) over the full D in 128-column chunks streamed through shared
-// memory. The work of S and dP is done once a slice. See "D > 256"
-// below.
+// cannot hold a 64-row accumulator of D columns beside S. The forward
+// splits O's columns over the warpgroups of a CTA (over a cluster above
+// D = 512) and sums their partial S, so S is computed once a tile; the
+// backward's CTA owns a 128-column slice of dQ, or of dK and dV (grid.z),
+// and computes S and dP over the full D in 128-column chunks streamed
+// through shared memory, once a slice. See "D > 256" below.
 
+#include <cooperative_groups.h>
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -102,6 +105,8 @@
 #include <stdint.h>
 
 #include "sm90.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -1434,9 +1439,9 @@ cudaError_t launch_bwd_f32(const F32Args& a, int D, cudaStream_t stream) {
 
 // ------------------------------------------------ bf16 column slices
 // Head dims above 256 (a multiple of kWC, as the wrapper pads them) split
-// the bf16 output's columns over CTAs: grid.z is the slice, kWC columns of
-// O (forward) or of dK and dV, or dQ (backward) each; see "D > 256" in the
-// bf16 kernels below.
+// the bf16 backward's columns over CTAs: grid.z is the slice, kWC columns
+// of dK and dV, or dQ, each; the forward splits O's 64-column sub-tiles
+// over warpgroups; see "D > 256" in the bf16 kernels below.
 constexpr int kWC = 128;
 
 __device__ __forceinline__ int wide_chunk(int slice, int i, int nch) {
@@ -1540,7 +1545,7 @@ __device__ __forceinline__ void store_rows(bf16* dst,
 // them), update the running max m (log2 units) and sum l of the thread's
 // two rows, rescale o, and leave p = 2^(s - m) in s. Rows are
 // wq + 16 warp + g + 8h, columns k_start + 8j + 2tq + e.
-template <bool kMask, int kSubs, int kAcc>
+template <bool kMask, int kSubs, int kAcc, bool kSkipUnit = false>
 __device__ __forceinline__ void online_softmax(
     float (&s)[32], float (&m)[2], float (&l)[2], float (&o)[kSubs][kAcc],
     int wq, int k_start, int seq_k, int off, int causal, float scale_log2) {
@@ -1580,6 +1585,9 @@ __device__ __forceinline__ void online_softmax(
     ls = quad_sum(ls);
     l[h] = alpha * l[h] + ls;
     m[h] = mn;
+    // with kSkipUnit a warp whose rows all keep their max skips the
+    // rescale (a factor of exactly 1 changes no bits)
+    if (kSkipUnit && !__any_sync(kFullMask, alpha != 1.f)) continue;
 #pragma unroll
     for (int sb = 0; sb < kSubs; ++sb)
 #pragma unroll
@@ -2115,131 +2123,375 @@ fa_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 // ------------------------------------------------------ D > 256 (bf16)
-// The column split of the fp32 wide kernels on the tensor cores. One
-// warpgroup a CTA, 64 rows, one kWC-column slice of the output (64
-// accumulator registers a thread for O or dQ, 128 for dK and dV: the
-// D = 256 dk/dv layout's). A chunk step streams 64-row Tile<kWC> tiles
-// of the chunk's columns through a 2-stage cp.async ring and adds their
-// product to S (and dP) in registers; after the tile's last chunk the
-// softmax (or p and ds) runs as in the D <= 256 kernels, and the slice's
-// product reads the slice's V (forward, its own 2-tile ring loaded with
-// the tile's first chunk), or chunk `slice`'s Q and dO (dk/dv) or K
-// (dq), which the backward takes last. Every wgmma group is waited for
-// before the barrier that lets its stage be refilled.
-__global__ void __launch_bounds__(kWGThreads)
-fa_fwd_bf16_wide_kernel(const bf16* __restrict__ q,
-                        const bf16* __restrict__ k,
-                        const bf16* __restrict__ v, bf16* __restrict__ out,
-                        float* __restrict__ lse, int seq_q, int seq_k, int D,
-                        float sm_scale, int causal) {
-  using L = sm90::Tile<kWC>;
-  constexpr uint32_t kT = L::bytes(64);        // a 64-row chunk tile
-  extern __shared__ uint8_t smem_bytes[];
-  const uint32_t st0 = sm90::smem_u32(align_1k(smem_bytes));  // [Q, K] x 2
-  const uint32_t v0 = st0 + 4 * kT;                           // [V] x 2
+// The forward: S once a (q tile, kv tile) over the whole D. The D / 64
+// column sub-tiles of a 64-row q tile split over the NW warpgroups of a
+// CTA, SUBS of Q (resident, loaded once), K, V and O a warpgroup (O is
+// 32 x SUBS registers a thread). Each warpgroup adds the wgmma products
+// of its sub-tiles into its partial S (64 x 64 fp32); the partials are
+// summed in a fixed order, so every row's S, m, l and p (rounded to
+// bf16 as in the D <= 256 kernels) have the same bits wherever they are
+// taken; P.V runs into each warpgroup's own sub-tiles of O as one
+// m64n192 or m64n256 wgmma a k-step. The layouts (WideFwd, mirrored by
+// ops/flash_attention.py wide_fwd_plan):
+//   * D = 384: one CTA of 2 warpgroups x 3 sub-tiles, K double-buffered,
+//     and S of tile t + 1 issued behind P.V of tile t (both in flight on
+//     the tensor cores while the warpgroup waits once; issuing it before
+//     the softmax instead measured no faster): 225 KB;
+//   * D = 512: one CTA of 2 warpgroups x 4 sub-tiles (no registers for a
+//     second S): 225 KB;
+//   * above, up to D = 4096, a thread-block cluster of D / 256 CTAs
+//     (rounded up; above 8 a non-portable cluster of up to 16) of one
+//     warpgroup x 4 sub-tiles, the partials, double-buffered by tile
+//     parity, summed in rank order through distributed shared memory
+//     after one cluster barrier a tile: 129 KB. Distributed shared memory
+//     moves ~20 bytes a clock a CTA, so this layout is kept to head dims
+//     no model here reaches; at D = 384 and 512 a cluster of 3 or 4 such
+//     CTAs took 150 and 700 us where one CTA takes ~80 and ~180.
+// In a CTA of two warpgroups the rows' softmax splits between them: warp
+// w of warpgroup 0 and warp w of warpgroup 1 hold the same 16 rows'
+// partials; the one whose rows it is (warps 0-1 of warpgroup 0, 2-3 of
+// warpgroup 1) adds the other's partial after a CTA barrier, takes m, l
+// and p, and hands p (the P.V operand) and the rescale factors back
+// through shared memory and a two-warp named barrier. A warp whose rows
+// all keep their max skips O's rescale. Each element of Q, K and V is
+// read by one CTA a q tile. Q, K and V arrive by TMA (tensor maps of
+// (BH, S, D), 64 x 64 boxes in the 128-byte swizzle wgmma reads, rows
+// past S zero-filled), awaited on mbarriers: K for tile t + KBUF as soon
+// as every warpgroup's S of tile t is done, V for tile t + 1 at the start
+// of tile t + 1, each landing under the other's work, issued by a warp
+// that takes no softmax. One lse row.
+// A named barrier of two warps (64 threads): one arrives, releasing its
+// shared-memory writes, the other waits for it.
+__device__ __forceinline__ void pair_arrive(int id) {
+  asm volatile("bar.arrive %0, 64;\n" ::"r"(id) : "memory");
+}
+__device__ __forceinline__ void pair_sync(int id) {
+  asm volatile("bar.sync %0, 64;\n" ::"r"(id) : "memory");
+}
 
+template <int NW, int SUBS, int KBUF>
+struct WideFwd {
+  static_assert(SUBS == 3 || SUBS == 4, "P.V is one m64n192 or n256 wgmma");
+  static constexpr int kThreads = kWGThreads * NW;
+  static constexpr int kSubs = NW * SUBS;          // sub-tiles a CTA
+  static constexpr uint32_t kSub = sm90::Tile<64>::bytes(64);  // 8 KB
+  static constexpr uint32_t kOperand = kSubs * kSub;
+  static constexpr uint32_t kSx = 64 * 64 * sizeof(float);  // a partial S
+  static constexpr bool kOverlap = KBUF == 2;
+  // one warpgroup a CTA: the sub-tiles split over a cluster (D > 512)
+  static constexpr bool kCluster = NW == 1;
+  // 1 KB of slack, Q, V, K (KBUF buffers), the partials (twice over in a
+  // cluster), then the mbarriers (V's, K's)
+  static constexpr size_t kSmem = 1024 + (size_t)(2 + KBUF) * kOperand +
+                                  (size_t)(kCluster ? 2 : 1) * NW * kSx +
+                                  8 * (KBUF + 1);
+};
+
+template <int NW, int SUBS, int KBUF>
+__global__ void __launch_bounds__(kWGThreads * NW, 1)
+fa_fwd_bf16_wide_kernel(const __grid_constant__ CUtensorMap map_q,
+                        const __grid_constant__ CUtensorMap map_k,
+                        const __grid_constant__ CUtensorMap map_v,
+                        bf16* __restrict__ out, float* __restrict__ lse,
+                        int seq_q, int seq_k, int D, float sm_scale,
+                        int causal) {
+  using P = WideFwd<NW, SUBS, KBUF>;
+  extern __shared__ uint8_t smem_bytes[];
+  uint8_t* base = align_1k(smem_bytes);
+  const uint32_t qs = sm90::smem_u32(base);  // the CTA's Q sub-tiles
+  const uint32_t vs = qs + P::kOperand;
+  const uint32_t ks = vs + P::kOperand;      // KBUF buffers
+  float* sx = reinterpret_cast<float*>(base + (2 + KBUF) * P::kOperand);
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int ranks = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const uint32_t bar_v = sm90::smem_u32(sx + (P::kCluster ? 2 : 1) * NW * 4096);
+  const uint32_t bar_k = bar_v + 8;  // KBUF of them
   const int tid = threadIdx.x;
-  const int warp = tid >> 5;
+  const int wg = tid / kWGThreads;
+  const int wt = tid % kWGThreads;
+  const int warp = (tid >> 5) & 3;
   const int g = (tid & 31) >> 2;
   const int tq = tid & 3;
   const int bh = blockIdx.y;
-  const int slice = blockIdx.z;
-  const int nch = D / kWC;
-  const int q_start = (gridDim.x - 1 - blockIdx.x) * kBQ;  // heaviest first
+  const int nsub = D / 64;
+  const int cta0 = rank * P::kSubs;  // the CTA's first sub-tile
+  const int w0 = wg * SUBS;          // the warpgroup's first, in the CTA
+  const int valid = min(P::kSubs, nsub - cta0);  // the CTA's sub-tiles
+  const uint32_t op_bytes = valid * P::kSub;
+  // the last q tiles see the most keys: they start first
+  const int n_qt = gridDim.x / ranks;
+  const int q_start = (n_qt - 1 - (int)blockIdx.x / ranks) * kBQ;
   const int off = seq_k - seq_q;
-  const bf16* qb = q + (size_t)bh * seq_q * D;
-  const bf16* kb = k + (size_t)bh * seq_k * D;
-  const bf16* vb = v + (size_t)bh * seq_k * D + slice * kWC;
-  const int n = kv_tiles(q_start, kBQ, seq_q, seq_k, causal) * nch;
+  const int n = kv_tiles(q_start, kBQ, seq_q, seq_k, causal);
 
-  // chunk step u: chunk u % nch of kv tile u / nch, and the tile's V
-  // slice with its first chunk
-  auto issue = [&](int u) {
-    if (u < n) {
-      const int t = u / nch;
-      const int c = u - t * nch;
-      const uint32_t st = st0 + (u & 1) * 2 * kT;
-      sm90::load_tile_ld<kWC>(st, qb + c * kWC, D, q_start, kBQ, seq_q, tid,
-                              kWGThreads);
-      sm90::load_tile_ld<kWC>(st + kT, kb + c * kWC, D, t * kBK, kBK, seq_k,
-                              tid, kWGThreads);
-      if (c == 0)
-        sm90::load_tile_ld<kWC>(v0 + (t & 1) * kT, vb, D, t * kBK, kBK,
-                                seq_k, tid, kWGThreads);
-    }
-    sm90::cp_async_commit();
+  // the CTA's sub-tiles of rows [row0, row0 + 64) of an operand, one
+  // 64 x 64 box each, issued by one warp: lane 0 expects the bytes (with
+  // `extra` more), then lane i issues sub-tile i's box
+  const int lane = tid & 31;
+  auto load = [&](uint32_t dst, const CUtensorMap& map, int row0,
+                  uint32_t bar, uint32_t extra) {
+    if (lane == 0) sm90::mbarrier_arrive_expect_tx(bar, op_bytes + extra);
+    __syncwarp();
+    if (lane < valid)
+      sm90::tma_load_3d(dst + lane * P::kSub, &map, bar, (cta0 + lane) * 64,
+                        row0, bh);
   };
-  issue(0);
+  auto load_k = [&](int t) {
+    load(ks + (t % KBUF) * P::kOperand, map_k, t * kBK,
+         bar_k + 8 * (t % KBUF), 0);
+  };
+  if (tid == 0) {
+    for (int i = 0; i <= KBUF; ++i) sm90::mbarrier_init(bar_v + 8 * i, 1);
+    sm90::fence_mbarrier_init();
+  }
+  __syncthreads();
+  if (tid < 32 && n > 0) {
+    load(vs, map_v, 0, bar_v, 0);
+    // Q joins K_0's phase (one arrival: the barriers count one)
+    load(ks, map_k, 0, bar_k, op_bytes);
+    if (lane < valid)
+      sm90::tma_load_3d(qs + lane * P::kSub, &map_q, bar_k,
+                        (cta0 + lane) * 64, q_start, bh);
+    for (int t = 1; t < KBUF && t < n; ++t) load_k(t);
+  }
 
-  float o[L::kSubs][32];
+  float o[SUBS][32];
 #pragma unroll
-  for (int sb = 0; sb < L::kSubs; ++sb)
+  for (int j = 0; j < SUBS; ++j)
 #pragma unroll
-    for (int i = 0; i < 32; ++i) o[sb][i] = 0.f;
+    for (int i = 0; i < 32; ++i) o[j][i] = 0.f;
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
   float s[32] = {};
 
-  for (int u = 0; u < n; ++u) {
-    const int t = u / nch;
-    const int c = u - t * nch;
-    __syncthreads();  // stage u+1 and tile t+1's V slot are free
-    issue(u + 1);
-    sm90::cp_async_wait<1>();  // step u landed
-    sm90::fence_view_async_shared();
-    __syncthreads();
-    const uint32_t st = st0 + (u & 1) * 2 * kT;
-    sm90::fence_regs(s);
+  // this warpgroup's partial S of tile t over its sub-tiles (its first is
+  // never idle), issued (the caller commits and waits)
+  auto issue_s = [&](float(&acc)[32], int t) {
+    sm90::mbarrier_wait(bar_k + 8 * (t % KBUF), (t / KBUF) & 1);
+    const uint32_t kt = ks + (t % KBUF) * P::kOperand;
+    sm90::fence_regs(acc);
     sm90::wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < kWC / 16; ++kk)
-      sm90::wgmma_ss_n64(s, sm90::desc_k<kWC>(st, kBQ, 0, kk),
-                         sm90::desc_k<kWC>(st + kT, kBK, 0, kk),
-                         c > 0 || kk > 0);
+    for (int j = 0; j < SUBS; ++j) {
+      if (cta0 + w0 + j >= nsub) continue;
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        sm90::wgmma_ss_n64(
+            acc, sm90::desc_k<64>(qs + (w0 + j) * P::kSub, kBQ, 0, kk),
+            sm90::desc_k<64>(kt + (w0 + j) * P::kSub, kBK, 0, kk),
+            j > 0 || kk > 0);
+    }
     sm90::wgmma_commit();
+  };
+  if (n > 0) {
+    issue_s(s, 0);
     sm90::wgmma_wait<0>();
     sm90::fence_regs(s);
-    if (c < nch - 1) continue;
+  }
+
+  for (int t = 0; t < n; ++t) {
+    if (t > 0) {
+      __syncthreads();  // every P.V of tile t-1 is done: V's buffer free
+      if (tid >= 64 && tid < 96) load(vs, map_v, t * kBK, bar_v, 0);
+      if (!P::kOverlap) {
+        issue_s(s, t);
+        sm90::wgmma_wait<0>();
+        sm90::fence_regs(s);
+      }
+    }
 
     const int k_start = t * kBK;
     const bool full = k_start + kBK <= seq_k &&
                       (!causal || k_start + kBK - 1 <= q_start + off);
-    if (full)
-      online_softmax<false>(s, m, l, o, q_start, k_start, seq_k, off, causal,
-                            sm_scale * kLog2e);
-    else
-      online_softmax<true>(s, m, l, o, q_start, k_start, seq_k, off, causal,
-                           sm_scale * kLog2e);
     uint32_t pa[4][4];
-    to_a_operand(s, pa);
+    if constexpr (P::kCluster) {
+      // every rank's partial, summed in rank order after a cluster
+      // barrier, then every warp the softmax of its rows
+      const int par = (t & 1) * NW;
+      float4* mine = reinterpret_cast<float4*>(sx + par * 4096) + wt;
 #pragma unroll
-    for (int sb = 0; sb < L::kSubs; ++sb) sm90::fence_regs(o[sb]);
+      for (int j = 0; j < 8; ++j)
+        mine[j * kWGThreads] =
+            make_float4(s[4 * j], s[4 * j + 1], s[4 * j + 2], s[4 * j + 3]);
+      sm90::cluster_arrive();
+      sm90::cluster_wait();
+      // every S of tile t is done: K_{t+KBUF} into its buffer
+      if (tid < 32 && t + KBUF < n) load_k(t + KBUF);
+      for (int r = 0; r < ranks; ++r) {
+        const float4* part = cluster.map_shared_rank(mine, r);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float4 x[4];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) x[j] = part[(4 * h + j) * kWGThreads];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            float* d = &s[4 * (4 * h + j)];
+            d[0] = r == 0 ? x[j].x : d[0] + x[j].x;
+            d[1] = r == 0 ? x[j].y : d[1] + x[j].y;
+            d[2] = r == 0 ? x[j].z : d[2] + x[j].z;
+            d[3] = r == 0 ? x[j].w : d[3] + x[j].w;
+          }
+        }
+      }
+      if (full)
+        online_softmax<false, SUBS, 32, true>(
+            s, m, l, o, q_start, k_start, seq_k, off, causal,
+            sm_scale * kLog2e);
+      else
+        online_softmax<true, SUBS, 32, true>(
+            s, m, l, o, q_start, k_start, seq_k, off, causal,
+            sm_scale * kLog2e);
+      to_a_operand(s, pa);
+    } else {
+      // Two warps hold each 16 rows' partials, warp `warp` of either
+      // warpgroup: warpgroup 0's takes the softmax of rows 0-31, warpgroup
+      // 1's of rows 32-63. The other adds nothing: it writes its partial
+      // to its slot, and after the barrier its partner adds it (s + it is
+      // the sum in warpgroup order: IEEE addition commutes), takes m, l
+      // and p, rescales its own O, and writes p (as the P.V operand) and
+      // the rescale factors back into that slot for it.
+      const bool soft = (warp >> 1) == wg;
+      uint4* own = reinterpret_cast<uint4*>(sx + wg * 4096) + wt;
+      uint4* other = reinterpret_cast<uint4*>(sx + (wg ^ 1) * 4096) + wt;
+      if (!soft)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          reinterpret_cast<float4*>(own)[j * kWGThreads] = make_float4(
+              s[4 * j], s[4 * j + 1], s[4 * j + 2], s[4 * j + 3]);
+      __syncthreads();  // the partials are there; every S of tile t done
+      // K_{t+KBUF} into its buffer, from a warp that takes no softmax
+      if (tid >= 64 && tid < 96 && t + KBUF < n) load_k(t + KBUF);
+      if (soft) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float4 x = reinterpret_cast<const float4*>(
+              other)[j * kWGThreads];
+          s[4 * j] += x.x;
+          s[4 * j + 1] += x.y;
+          s[4 * j + 2] += x.z;
+          s[4 * j + 3] += x.w;
+        }
+        const float m0[2] = {m[0], m[1]};
+        if (full)
+          online_softmax<false, SUBS, 32, true>(
+              s, m, l, o, q_start, k_start, seq_k, off, causal,
+              sm_scale * kLog2e);
+        else
+          online_softmax<true, SUBS, 32, true>(
+              s, m, l, o, q_start, k_start, seq_k, off, causal,
+              sm_scale * kLog2e);
+        to_a_operand(s, pa);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          other[kk * kWGThreads] =
+              make_uint4(pa[kk][0], pa[kk][1], pa[kk][2], pa[kk][3]);
+        // the factor online_softmax rescaled by, recomputed bit for bit
+        other[4 * kWGThreads] = make_uint4(
+            __float_as_uint(exp2f(m0[0] - m[0])),
+            __float_as_uint(exp2f(m0[1] - m[1])), 0u, 0u);
+        pair_arrive(1 + warp);
+      } else {
+        pair_sync(1 + warp);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const uint4 x = own[kk * kWGThreads];
+          pa[kk][0] = x.x;
+          pa[kk][1] = x.y;
+          pa[kk][2] = x.z;
+          pa[kk][3] = x.w;
+        }
+        const uint4 f = own[4 * kWGThreads];
+        const float alpha[2] = {__uint_as_float(f.x), __uint_as_float(f.y)};
+        if (__any_sync(kFullMask, alpha[0] != 1.f || alpha[1] != 1.f))
+#pragma unroll
+          for (int j = 0; j < SUBS; ++j)
+#pragma unroll
+            for (int i = 0; i < 32; ++i) o[j][i] *= alpha[(i >> 1) & 1];
+      }
+    }
+
+    sm90::mbarrier_wait(bar_v, t & 1);  // V_t landed
+#pragma unroll
+    for (int j = 0; j < SUBS; ++j) sm90::fence_regs(o[j]);
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) sm90::fence_regs(pa[kk]);
     sm90::wgmma_fence();
-    const uint32_t vs = v0 + (t & 1) * kT;
+    // one wgmma a k-step over the warpgroup's SUBS sub-tiles of V (an
+    // MN-major operand of SUBS x 64 columns, sub-tiles kSub apart: the
+    // descriptor's leading byte offset); columns of a rank's idle sub-
+    // tiles are computed and never stored
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-      for (int sb = 0; sb < L::kSubs; ++sb)
-        sm90::wgmma_rs(o[sb], pa[kk], sm90::desc_mn<kWC>(vs, kBK, sb, kk));
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t dv = sm90::desc_mn<64>(vs + w0 * P::kSub, kBK, 0, kk);
+      if constexpr (SUBS == 3)
+        sm90::wgmma_rs_n192(*reinterpret_cast<float(*)[96]>(o), pa[kk], dv);
+      else
+        sm90::wgmma_rs_n256(*reinterpret_cast<float(*)[128]>(o), pa[kk], dv);
+    }
     sm90::wgmma_commit();
-    sm90::wgmma_wait<0>();
+    if (P::kOverlap && t + 1 < n) {
+      // S of tile t + 1 behind P.V of tile t
+      issue_s(s, t + 1);
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(s);
+    } else {
+      sm90::wgmma_wait<0>();
+    }
 #pragma unroll
-    for (int sb = 0; sb < L::kSubs; ++sb) sm90::fence_regs(o[sb]);
+    for (int j = 0; j < SUBS; ++j) sm90::fence_regs(o[j]);
+  }
+  // no rank leaves while another reads its partials
+  if constexpr (P::kCluster) {
+    sm90::cluster_arrive();
+    sm90::cluster_wait();
   }
 
+  // the warp that took the softmax of these rows writes their lse; in a
+  // CTA of two warpgroups it hands l to its partner first
+  bool soft = rank == 0;
+  if constexpr (!P::kCluster) {
+    soft = (warp >> 1) == wg;
+    __syncthreads();
+    if (soft)
+      reinterpret_cast<float2*>(sx + (wg ^ 1) * 4096)[wt] =
+          make_float2(l[0], l[1]);
+    __syncthreads();
+    if (!soft) {
+      const float2 x = reinterpret_cast<const float2*>(sx + wg * 4096)[wt];
+      l[0] = x.x;
+      l[1] = x.y;
+    }
+  }
   float safe[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     safe[h] = l[h] == 0.f ? 1.f : l[h];
     const int row = q_start + 16 * warp + g + 8 * h;
-    if (tq == 0 && row < seq_q)
-      lse[((size_t)slice * gridDim.y + bh) * seq_q + row] =
+    if (soft && tq == 0 && row < seq_q)
+      lse[(size_t)bh * seq_q + row] =
           l[h] == 0.f ? kNegInf : m[h] * kLn2 + logf(safe[h]);
   }
-  store_rows_ld<L::kSubCols, true>(out + (size_t)bh * seq_q * D, o, safe,
-                                   q_start, slice * kWC, seq_q, D);
+#pragma unroll
+  for (int j = 0; j < SUBS; ++j)
+    if (cta0 + w0 + j < nsub)
+      store_rows_ld<64, true>(
+          out + (size_t)bh * seq_q * D,
+          *reinterpret_cast<const float(*)[1][32]>(o[j]), safe, q_start,
+          (cta0 + w0 + j) * 64, seq_q, D);
 }
+
+// The backward's column split of the fp32 wide kernels on the tensor
+// cores. One warpgroup a CTA, 64 rows, one kWC-column slice (64
+// accumulator registers a thread for dQ, 128 for dK and dV: the D = 256
+// dk/dv layout's). A chunk step streams 64-row Tile<kWC> tiles of the
+// chunk's columns through a 2-stage cp.async ring and adds their product
+// to S and dP in registers; after the tile's last chunk p and ds are
+// taken as in the D <= 256 kernels, and the slice's product reads chunk
+// `slice`'s Q and dO (dk/dv) or K (dq), which the backward takes last.
+// Every wgmma group is waited for before the barrier that lets its
+// stage be refilled. Both read the forward's one lse row.
 
 // dk/dv of 64 keys, slice `slice` of their columns. A chunk step holds
 // the chunk's K, V, Q and dO tiles (dO scaled by do_scale in place as it
@@ -2600,12 +2852,8 @@ cudaError_t launch_bwd_bf16(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-// bf16: 1 KB of slack, then 64-row Tile<kWC> tiles: 2 stages of [Q, K]
-// and 2 V tiles (forward); 2 stages of 4 tiles (backward; dk/dv's lse and
-// delta after them)
-constexpr size_t fwd_bf16_wide_smem() {
-  return 1024 + (size_t)6 * 64 * kWC * 2;
-}
+// bf16: 1 KB of slack, then 64-row Tile<kWC> tiles: 2 stages of 4 tiles
+// (backward; dk/dv's lse and delta after them)
 constexpr size_t dkdv_bf16_wide_smem() {
   return 1024 + (size_t)8 * 64 * kWC * 2 + 2 * 2 * kBQ * sizeof(float);
 }
@@ -2613,21 +2861,110 @@ constexpr size_t dq_bf16_wide_smem() {
   return 1024 + (size_t)8 * 64 * kWC * 2;
 }
 
-// bf16 above D = 256: the column-split kernels, grid.z the D / kWC slices
+// The forward's layouts above D = 256 (WideFwd): D = 384 and 512 one CTA
+// of 2 warpgroups; up to 64 sub-tiles (D = 4096) a cluster of sub-tiles
+// / 4 (rounded up) CTAs of one warpgroup, non-portable above 8.
+constexpr int kWideFwdMaxSubs = 64;
+
+// cuTensorMapEncodeTiled from the driver, found at run time (the library
+// links only the runtime)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &found) == cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// The tensor map of a (BH, rows, D) bf16 operand: 64 x 64 boxes (64
+// columns: one 128-byte swizzle row), rows past `rows` zero-filled.
+cudaError_t tile_map(CUtensorMap* map, const void* ptr, int BH, int rows,
+                     int D) {
+  const EncodeTiled encode = encode_tiled();
+  if (!encode) return cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)rows,
+                              (cuuint64_t)BH};
+  const cuuint64_t strides[2] = {(cuuint64_t)D * 2,
+                                 (cuuint64_t)rows * D * 2};
+  const cuuint32_t box[3] = {64, 64, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                const_cast<void*>(ptr), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS
+             ? cudaSuccess
+             : cudaErrorInvalidValue;
+}
+
+template <int NW, int SUBS, int KBUF>
+cudaError_t launch_fwd_wide_plan(const void* q, const void* k, const void* v,
+                                 void* out, void* lse, int BH, int seq_q,
+                                 int seq_k, int D, float sm_scale,
+                                 int causal, cudaStream_t stream) {
+  using P = WideFwd<NW, SUBS, KBUF>;
+  auto kernel = fa_fwd_bf16_wide_kernel<NW, SUBS, KBUF>;
+  const int ranks = (D / 64 + P::kSubs - 1) / P::kSubs;
+  const size_t smem = P::kSmem;
+  if ((ranks > 1) != P::kCluster) return cudaErrorInvalidValue;
+  CUtensorMap tq, tk, tv;
+  cudaError_t e = tile_map(&tq, q, BH, seq_q, D);
+  if (e == cudaSuccess) e = tile_map(&tk, k, BH, seq_k, D);
+  if (e == cudaSuccess) e = tile_map(&tv, v, BH, seq_k, D);
+  if (e == cudaSuccess) e = allow_smem(kernel, smem);
+  if (e != cudaSuccess) return e;
+  if (ranks > 8) {
+    e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (e != cudaSuccess) return e;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)((seq_q + kBQ - 1) / kBQ * ranks),
+                     (unsigned)BH);
+  cfg.blockDim = dim3(P::kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)ranks;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, kernel, tq, tk, tv, static_cast<bf16*>(out),
+                         static_cast<float*>(lse), seq_q, seq_k, D, sm_scale,
+                         causal);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
+// bf16 above D = 256: S once a tile over the whole D, one lse row
 cudaError_t launch_fwd_wide_bf16(const void* q, const void* k, const void* v,
                                  void* out, void* lse, int BH, int seq_q,
                                  int seq_k, int D, float sm_scale, int causal,
                                  cudaStream_t stream) {
-  const dim3 grid((seq_q + kBQ - 1) / kBQ, BH, D / kWC);
-  const cudaError_t e =
-      allow_smem(fa_fwd_bf16_wide_kernel, fwd_bf16_wide_smem());
-  if (e != cudaSuccess) return e;
-  fa_fwd_bf16_wide_kernel<<<grid, kWGThreads, fwd_bf16_wide_smem(),
-                            stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(out),
-      static_cast<float*>(lse), seq_q, seq_k, D, sm_scale, causal);
-  return cudaGetLastError();
+  const int nsub = D / 64;
+  if (nsub > kWideFwdMaxSubs) return cudaErrorInvalidValue;
+  if (nsub == 6)
+    return launch_fwd_wide_plan<2, 3, 2>(q, k, v, out, lse, BH, seq_q, seq_k,
+                                         D, sm_scale, causal, stream);
+  if (nsub == 8)
+    return launch_fwd_wide_plan<2, 4, 1>(q, k, v, out, lse, BH, seq_q, seq_k,
+                                         D, sm_scale, causal, stream);
+  return launch_fwd_wide_plan<1, 4, 1>(q, k, v, out, lse, BH, seq_q, seq_k, D,
+                                       sm_scale, causal, stream);
 }
 
 cudaError_t launch_bwd_wide_bf16(const void* q, const void* k, const void* v,
@@ -2680,9 +3017,8 @@ bool bad_shape(int BH, int seq_q, int seq_k, int D) {
 // head dim the wrapper pads to up to kMaxF32Dim with one design (no
 // earlier fp32 kernel is kept at any head dim).
 
-// (out, lse) of the forward: one launch. For bf16 above D = 256 `lse`
-// holds D / 128 rows of (BH, Sq), one a column slice, each the same bits;
-// fp32 writes one row at every D.
+// (out, lse) of the forward: one launch, one lse row of (BH, Sq) at
+// every D (bf16 up to D = 4096, fp32 up to kMaxF32Dim).
 extern "C" int bigdl_flash_fwd(const void* q, const void* k, const void* v,
                                void* out, void* lse, int BH, int seq_q,
                                int seq_k, int D, float sm_scale, int causal,

@@ -31,7 +31,9 @@
 // bf16 row of d = 20 is 40 bytes, so every other row starts 8 bytes off
 // a 16-byte boundary) each element is copied on its own, with plain
 // loads and shared-memory stores. Above the largest tier the row-split
-// kernel of "D > 1024" below takes any head dim.
+// kernel of "D > 1024" below (a cluster split like the tiers', each row
+// over a whole CTA) takes the head dims up to 8192 (fp32) or 16384
+// (bf16).
 //
 // What bounds it: HBM bytes. Each (b, h) reads its visible K and V rows
 // once and does 4 flops per element read, far below the card's
@@ -66,6 +68,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
+
+#include <type_traits>
 
 #include "sm90.cuh"
 
@@ -425,92 +429,353 @@ cudaError_t launch_for_width(int D, const void* q, const void* k_pool,
 }
 
 // ------------------------------------------------------------ D > 1024
-// Above the largest tier a key row does not fit the registers of a group
-// of threads, so the row is split over the whole CTA instead: one CTA a
-// (row, head), no cluster. Pass 1: each warp takes keys w, w + 8, ...,
-// its lanes stride over the row's columns (coalesced), and writes the
-// scaled dot to this (row, head)'s row of `scratch` (S floats); pass 2:
-// the max and the sum of exp(s - max) over the CTA, p written back in
-// place; pass 3: each thread owns columns tid, tid + 256, ... and sums
-// p_j v_j over the visible keys in key order. Keys j > pos are never
-// read. Bound by bytes like the tiers; it reads K and V once and each
-// score three times from L2.
+// Above the largest tier a key row is 2-32 KB: too wide for the registers
+// of a group of threads. The row is split over the whole CTA instead, and
+// the keys over a thread-block cluster, as the tiers split them.
+//
+// * Plan (ops/paged_decode.py wide_plan, from the table extent, the head
+//   dim and the pools' dtype alone, never B or the clocks): `splits` <= 8
+//   CTAs a (row, head), each at least ~32 KB of K and V rows, rank `rank`
+//   taking the keys [rank * span, (rank + 1) * span).
+// * A CTA's 256 threads own a row's 16-byte chunks tid, tid + 256, ...
+//   (NCH of them: NCH * 256 * 16 bytes hold the row), so q and the
+//   weighted V row sit in registers split over the CTA: at most 8 chunks,
+//   32 fp32 or 64 bf16 columns, a thread. Up to D = 8192 (fp32) or 16384
+//   (bf16); the wrapper refuses wider rows.
+// * K and V rows stream through a ring of kWideStages stages of kSK =
+//   8 / NCH keys (<= 192 KB), kWideStages - 1 stages in flight ahead of
+//   the one being used, rows past the clock never copied. Copy width by
+//   row bytes (wide_copy_bytes): whole 16-byte chunks as 16-byte
+//   cp.async copies; rows of whole 8-byte pieces (a bf16 row of
+//   D = 1100 is 2200 bytes) as 8-byte copies; any other fp32 row as
+//   4-byte copies; any other bf16 row element by element (plain loads).
+//   Shared rows are padded to 16 bytes, the padding zero-filled.
+// * One pass, online softmax: a stage's kSK dots are summed by each
+//   thread over its chunks, then over each warp (xor butterfly), then
+//   over the 8 warps in order through shared memory, so every thread
+//   holds the same scores, running max m and sum l; each thread then
+//   rescales and adds p_j v_j to its own columns.
+// * The ranks combine through distributed shared memory after a cluster
+//   barrier: every rank reads all ranks' (m, l) and combines its own
+//   slice of the columns over the ranks in rank order. No atomics, no
+//   global scratch; a row's bits do not depend on its co-batch.
 constexpr int kWideThreads = 256;
+constexpr int kWideWarps = kWideThreads / 32;
+constexpr int kWideStages = 3;
 
-__device__ __forceinline__ float block_reduce(float x, float* red, bool max) {
-  for (int o = 16; o > 0; o >>= 1) {
-    const float y = __shfl_xor_sync(0xffffffffu, x, o);
-    x = max ? fmaxf(x, y) : x + y;
-  }
-  const int warp = threadIdx.x >> 5;
-  __syncthreads();  // red is free
-  if ((threadIdx.x & 31) == 0) red[warp] = x;
-  __syncthreads();
-  float r = red[0];
-  for (int w = 1; w < kWideThreads / 32; ++w)
-    r = max ? fmaxf(r, red[w]) : r + red[w];
-  return r;
+// Stage keys a CTA takes at NCH chunks a thread (the ring stays <= 192
+// KB: kWideStages x 2 x kSK rows of <= NCH x 4 KB). Mirrored by
+// ops/paged_decode.py wide_plan.
+template <int NCH>
+constexpr __host__ __device__ int wide_stage_keys() {
+  return 8 / NCH;
 }
 
-template <typename T>
-__device__ __forceinline__ float to_f32(T x);
-template <>
-__device__ __forceinline__ float to_f32(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
+template <int W>
+__device__ __forceinline__ void cp_async_w(uint32_t dst, const void* src,
+                                           bool valid) {
+  if constexpr (W == 16)
+    sm90::cp_async16(dst, src, valid);
+  else if constexpr (W == 8)
+    sm90::cp_async8(dst, src, valid);
+  else
+    sm90::cp_async4(dst, src, valid);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kWideThreads)
+// Shared memory: the ring (kWideStages stages of kSK K rows then kSK V
+// rows, `rowb` bytes a row), reused after the sweep for this rank's
+// result (m, l, then acc from float 4 on), then red (kWideWarps x kSK
+// partial dots), then tab (the CTA's slice of the table row). `copy` is
+// the copy width in bytes (16, 8, or the element: 4 fp32, 2 bf16).
+template <typename T, int NCH>
+__global__ void __launch_bounds__(kWideThreads, 1)
 paged_decode_wide_kernel(const float* __restrict__ q,
                          const T* __restrict__ k_pool,
                          const T* __restrict__ v_pool,
                          const int* __restrict__ table,
                          const int* __restrict__ pos,
-                         float* __restrict__ out,
-                         float* __restrict__ scratch, int H, int nb, int bs,
-                         int hd, float sm_scale) {
-  __shared__ float red[kWideThreads / 32];
-  const int bh = blockIdx.x;
+                         float* __restrict__ out, int H, int nb, int bs,
+                         int splits, int span, float sm_scale, int hd,
+                         int copy) {
+  constexpr int kEPC = 16 / (int)sizeof(T);  // elements a chunk
+  constexpr int kSK = wide_stage_keys<NCH>();
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int gb = hd * (int)sizeof(T);  // bytes a row in the pools
+  const int rowb = (gb + 15) / 16 * 16;
+  const int nc = rowb / 16;            // chunks a shared row
+  const int stage_bytes = 2 * kSK * rowb;
+  unsigned char* ring = smem;
+  float* red = reinterpret_cast<float*>(ring + kWideStages * stage_bytes);
+  int* tab = reinterpret_cast<int*>(red + kWideWarps * kSK);
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int bh = blockIdx.x / splits;
   const int b = bh / H;
   const int h = bh - b * H;
   const int seq = nb * bs;
+  const int k0 = rank * span;
+  const int p0 = k0 / bs;
+  const int np = (min(k0 + span, seq) - 1) / bs - p0 + 1;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  for (int i = tid; i < np; i += kWideThreads)
+    tab[i] = table[(size_t)b * nb + p0 + i];
   const int n = min(pos[b], seq - 1) + 1;  // visible keys: j <= pos[b]
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
+  const int k1 = min(k0 + span, n);        // this CTA's visible keys
+  const int nkeys = max(k1 - k0, 0);
+  const int nstage = (nkeys + kSK - 1) / kSK;
+  float qr[NCH][kEPC];
   const float* qp = q + (size_t)bh * hd;
-  float* sc = scratch + (size_t)bh * seq;
-  auto row = [&](const T* pool, int j) {
-    return pool + (((size_t)table[(size_t)b * nb + j / bs] * H + h) * bs +
-                   j % bs) * hd;
+#pragma unroll
+  for (int i = 0; i < NCH; ++i)
+#pragma unroll
+    for (int e = 0; e < kEPC; ++e) {
+      const int col = (tid + i * kWideThreads) * kEPC + e;
+      qr[i][e] = col < hd ? qp[col] : 0.f;
+    }
+  __syncthreads();  // the table slice is staged
+
+  // element offset of key j's row in a pool
+  auto row_of = [&](int j) {
+    return (((size_t)tab[j / bs - p0] * H + h) * bs + j % bs) * hd;
+  };
+  // copy stage s (keys k0 + s * kSK ...) into ring slot s % kWideStages:
+  // rows past k1 are not copied (their scores are masked and their V
+  // rows never read), the padding past gb bytes is zero-filled. The
+  // element-wise copy lands at once; the barrier that starts the step
+  // reading slot s publishes it, as it does the cp.async ones.
+  auto issue_w = [&](auto width, int s) {
+    constexpr int W = decltype(width)::value;
+    unsigned char* dst = ring + (s % kWideStages) * stage_bytes;
+    const uint32_t dbase = sm90::smem_u32(dst);
+    const int pieces = rowb / W;
+    for (int i = tid; i < 2 * kSK * pieces; i += kWideThreads) {
+      const int kv = i / (kSK * pieces);
+      const int row = (i / pieces) % kSK;
+      const int pc = i % pieces;
+      const int j = k0 + s * kSK + row;
+      if (j >= k1) continue;
+      const bool valid = pc * W < gb;
+      const T* src = (kv ? v_pool : k_pool) + row_of(j);
+      cp_async_w<W>(dbase + (uint32_t)((kv * kSK + row) * rowb + pc * W),
+                    reinterpret_cast<const unsigned char*>(src) +
+                        (valid ? pc * W : 0),
+                    valid);
+    }
+  };
+  auto issue = [&](int s) {
+    if (s < nstage) {
+      if (copy == 16) {
+        issue_w(std::integral_constant<int, 16>{}, s);
+      } else if (copy == 8) {
+        issue_w(std::integral_constant<int, 8>{}, s);
+      } else if (sizeof(T) == 4) {
+        issue_w(std::integral_constant<int, 4>{}, s);
+      } else {
+        using B = typename Bits<sizeof(T)>::type;
+        B* bits = reinterpret_cast<B*>(ring + (s % kWideStages) *
+                                                  stage_bytes);
+        const int per = rowb / (int)sizeof(T);
+        for (int i = tid; i < 2 * kSK * per; i += kWideThreads) {
+          const int kv = i / (kSK * per);
+          const int row = (i / per) % kSK;
+          const int e = i % per;
+          const int j = k0 + s * kSK + row;
+          if (j >= k1) continue;
+          bits[i] = e < hd ? reinterpret_cast<const B*>(
+                                 kv ? v_pool : k_pool)[row_of(j) + e]
+                           : (B)0;
+        }
+      }
+    }
+    sm90::cp_async_commit();
   };
 
-  float m = -INFINITY;
-  for (int j = warp; j < n; j += kWideThreads / 32) {
-    const T* kr = row(k_pool, j);
-    float dot = 0.f;
-    for (int d = lane; d < hd; d += 32) dot = fmaf(qp[d], to_f32(kr[d]), dot);
-    for (int o = 16; o > 0; o >>= 1)
-      dot += __shfl_xor_sync(0xffffffffu, dot, o);
-    dot *= sm_scale;
-    if (lane == 0) sc[j] = dot;
-    m = fmaxf(m, dot);
+  float m = -INFINITY, l = 0.f, acc[NCH][kEPC];
+#pragma unroll
+  for (int i = 0; i < NCH; ++i)
+#pragma unroll
+    for (int e = 0; e < kEPC; ++e) acc[i][e] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < kWideStages - 1; ++s) issue(s);
+  for (int s = 0; s < nstage; ++s) {
+    sm90::cp_async_wait<kWideStages - 2>();
+    __syncthreads();  // stage s landed; every thread is done with s - 1
+    issue(s + kWideStages - 1);
+    const unsigned char* ks = ring + (s % kWideStages) * stage_bytes;
+    const unsigned char* vs = ks + kSK * rowb;
+    float part[kSK];
+#pragma unroll
+    for (int r = 0; r < kSK; ++r) {
+      float dot = 0.f;
+#pragma unroll
+      for (int i = 0; i < NCH; ++i) {
+        const int c = tid + i * kWideThreads;
+        if (c < nc) {
+          float x[kEPC];
+          load16(reinterpret_cast<const T*>(ks + r * rowb + c * 16), x);
+#pragma unroll
+          for (int e = 0; e < kEPC; ++e) dot = fmaf(qr[i][e], x[e], dot);
+        }
+      }
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+        dot += __shfl_xor_sync(0xffffffffu, dot, o);
+      part[r] = dot;
+    }
+    if (lane == 0)
+#pragma unroll
+      for (int r = 0; r < kSK; ++r) red[warp * kSK + r] = part[r];
+    __syncthreads();  // every warp's partial dots are in red
+    // the warps in order: every thread the same scores
+    float sc[kSK];
+    float smax = -INFINITY;
+#pragma unroll
+    for (int r = 0; r < kSK; ++r) {
+      float dot = red[r];
+#pragma unroll
+      for (int w = 1; w < kWideWarps; ++w) dot += red[w * kSK + r];
+      // masked after the dot, as the plain version masks
+      sc[r] = k0 + s * kSK + r < k1 ? dot * sm_scale : -INFINITY;
+      smax = fmaxf(smax, sc[r]);
+    }
+    const float mn = fmaxf(m, smax);  // finite: the stage's first key
+    const float corr = expf(m - mn);
+    l *= corr;
+#pragma unroll
+    for (int i = 0; i < NCH; ++i)
+#pragma unroll
+      for (int e = 0; e < kEPC; ++e) acc[i][e] *= corr;
+#pragma unroll
+    for (int r = 0; r < kSK; ++r) {
+      if (sc[r] == -INFINITY) continue;  // a row past k1, never copied
+      const float p = expf(sc[r] - mn);
+      l += p;
+#pragma unroll
+      for (int i = 0; i < NCH; ++i) {
+        const int c = tid + i * kWideThreads;
+        if (c < nc) {
+          float x[kEPC];
+          load16(reinterpret_cast<const T*>(vs + r * rowb + c * 16), x);
+#pragma unroll
+          for (int e = 0; e < kEPC; ++e)
+            acc[i][e] = fmaf(p, x[e], acc[i][e]);
+        }
+      }
+    }
+    m = mn;
   }
-  m = block_reduce(m, red, true);  // its barriers publish the scores
-  float l = 0.f;
-  for (int j = threadIdx.x; j < n; j += kWideThreads) {
-    const float p = expf(sc[j] - m);
-    sc[j] = p;
-    l += p;
+  sm90::cp_async_wait<0>();
+  __syncthreads();  // the ring is free: it now holds this rank's result
+
+  float* res = reinterpret_cast<float*>(ring);
+#pragma unroll
+  for (int i = 0; i < NCH; ++i) {
+    const int c = tid + i * kWideThreads;
+    if (c < nc)
+#pragma unroll
+      for (int e = 0; e < kEPC; ++e) res[4 + c * kEPC + e] = acc[i][e];
   }
-  l = block_reduce(l, red, false);
-  for (int d = threadIdx.x; d < hd; d += kWideThreads) {
+  if (tid == 0) {
+    res[0] = m;
+    res[1] = l;
+  }
+  cluster.sync();  // every rank's result is written
+  // every rank's m and l, then this rank's slice of the columns over
+  // the ranks in order; a rank that saw no key adds nothing
+  float w[kMaxSplits];
+  float fm = -INFINITY;
+#pragma unroll
+  for (int r = 0; r < kMaxSplits; ++r) {
+    w[r] = r < splits ? cluster.map_shared_rank(res, r)[0] : -INFINITY;
+    fm = fmaxf(fm, w[r]);
+  }
+  float fl = 0.f;
+#pragma unroll
+  for (int r = 0; r < kMaxSplits; ++r) {
+    const float rm = w[r];
+    w[r] = rm != -INFINITY ? expf(rm - fm) : 0.f;
+    if (rm != -INFINITY) fl += cluster.map_shared_rank(res, r)[1] * w[r];
+  }
+  const int cs = (hd + splits - 1) / splits;
+  const int c1 = min(hd, (rank + 1) * cs);
+  for (int d = rank * cs + tid; d < c1; d += kWideThreads) {
+    float ra[kMaxSplits];
+#pragma unroll
+    for (int r = 0; r < kMaxSplits; ++r)
+      ra[r] = w[r] != 0.f ? cluster.map_shared_rank(res, r)[4 + d] : 0.f;
     float o = 0.f;
-    for (int j = 0; j < n; ++j) o = fmaf(sc[j], to_f32(row(v_pool, j)[d]), o);
-    out[(size_t)bh * hd + d] = o / l;
+#pragma unroll
+    for (int r = 0; r < kMaxSplits; ++r)
+      if (w[r] != 0.f) o += ra[r] * w[r];
+    out[(size_t)bh * hd + d] = o / fl;
+  }
+  cluster.sync();  // no rank leaves while another reads its memory
+}
+
+template <int NCH>
+size_t wide_smem_bytes(int hd, int elem, int bs, int span) {
+  const size_t rowb = ((size_t)hd * elem + 15) / 16 * 16;
+  return kWideStages * 2 * wide_stage_keys<NCH>() * rowb +
+         sizeof(float) * kWideWarps * wide_stage_keys<NCH>() +
+         sizeof(int) * ((size_t)(span + bs - 1) / bs + 1);
+}
+
+template <typename T, int NCH>
+cudaError_t launch_wide(const void* q, const void* k_pool,
+                        const void* v_pool, const void* table,
+                        const void* pos, void* out, int B, int H, int nb,
+                        int bs, int splits, int span, float sm_scale, int hd,
+                        int copy, cudaStream_t stream) {
+  auto kernel = paged_decode_wide_kernel<T, NCH>;
+  const size_t smem = wide_smem_bytes<NCH>(hd, (int)sizeof(T), bs, span);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(splits * B * H));
+  cfg.blockDim = dim3(kWideThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)splits;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(
+      &cfg, kernel, static_cast<const float*>(q),
+      static_cast<const T*>(k_pool), static_cast<const T*>(v_pool),
+      static_cast<const int*>(table), static_cast<const int*>(pos),
+      static_cast<float*>(out), H, nb, bs, splits, span, sm_scale, hd, copy);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_wide_for(int nch, const void* q, const void* k_pool,
+                            const void* v_pool, const void* table,
+                            const void* pos, void* out, int B, int H, int nb,
+                            int bs, int splits, int span, float sm_scale,
+                            int hd, int copy, cudaStream_t stream) {
+  switch (nch) {
+#define BIGDL_PDW_CASE(N)                                                    \
+  case N:                                                                    \
+    return launch_wide<T, N>(q, k_pool, v_pool, table, pos, out, B, H, nb, \
+                             bs, splits, span, sm_scale, hd, copy, stream);
+    BIGDL_PDW_CASE(1)
+    BIGDL_PDW_CASE(2)
+    BIGDL_PDW_CASE(4)
+    BIGDL_PDW_CASE(8)
+#undef BIGDL_PDW_CASE
+    default:
+      return cudaErrorInvalidValue;
   }
 }
 
@@ -552,31 +817,32 @@ extern "C" const char* bigdl_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// D > 1024 (any head dim above the tiers): one launch of the row-split
-// kernel, `scratch` a (B * H, nb * bs) fp32 buffer the wrapper allocates.
+// D > 1024 (any head dim above the tiers up to 8192 fp32 / 16384 bf16):
+// one launch of the row-split kernel, by the wrapper's wide_plan (splits
+// CTAs of span keys a (row, head), nch 16-byte chunks a thread) and copy
+// width (16, 8 or the element size in bytes).
 extern "C" int bigdl_paged_decode_wide(const void* q, const void* k_pool,
                                        const void* v_pool, const void* table,
-                                       const void* pos, void* out,
-                                       void* scratch, int B, int H, int nb,
-                                       int bs, int hd, float sm_scale,
+                                       const void* pos, void* out, int B,
+                                       int H, int nb, int bs, int hd,
+                                       int splits, int span, int nch,
+                                       int copy, float sm_scale,
                                        int pool_is_bf16, void* stream) {
-  if (hd < 1 || B < 1 || H < 1 || nb < 1 || bs < 1)
+  const int elem = pool_is_bf16 ? 2 : 4;
+  const int rowb = (hd * elem + 15) / 16 * 16;
+  if (hd < 1 || B < 1 || H < 1 || nb < 1 || bs < 1 || splits < 1 ||
+      splits > kMaxSplits || span < 1 ||
+      (long long)splits * span < (long long)nb * bs ||
+      (long long)(splits - 1) * span >= (long long)nb * bs ||
+      (copy != 16 && copy != 8 && copy != elem) || hd * elem % copy ||
+      rowb > nch * kWideThreads * 16)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid((unsigned)(B * H));
   if (pool_is_bf16)
-    paged_decode_wide_kernel<__nv_bfloat16><<<grid, kWideThreads, 0, s>>>(
-        static_cast<const float*>(q),
-        static_cast<const __nv_bfloat16*>(k_pool),
-        static_cast<const __nv_bfloat16*>(v_pool),
-        static_cast<const int*>(table), static_cast<const int*>(pos),
-        static_cast<float*>(out), static_cast<float*>(scratch), H, nb, bs,
-        hd, sm_scale);
-  else
-    paged_decode_wide_kernel<float><<<grid, kWideThreads, 0, s>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k_pool),
-        static_cast<const float*>(v_pool), static_cast<const int*>(table),
-        static_cast<const int*>(pos), static_cast<float*>(out),
-        static_cast<float*>(scratch), H, nb, bs, hd, sm_scale);
-  return (int)cudaGetLastError();
+    return (int)launch_wide_for<__nv_bfloat16>(
+        nch, q, k_pool, v_pool, table, pos, out, B, H, nb, bs, splits, span,
+        sm_scale, hd, copy, s);
+  return (int)launch_wide_for<float>(nch, q, k_pool, v_pool, table, pos, out,
+                                     B, H, nb, bs, splits, span, sm_scale,
+                                     hd, copy, s);
 }

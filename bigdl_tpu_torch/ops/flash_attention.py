@@ -42,14 +42,17 @@ next multiple of WIDE_COLS, and the results sliced back
 (`pad_head_dim` / `unpad_head_dim`), as the JAX wrapper pads D to a
 multiple of 128 before its kernels: zero columns add exact zeros to
 every score and leave the padded output and gradient columns zero, and
-`sm_scale` stays that of the unpadded D. Above 256 the bf16 kernels
-split the output's columns (`column_slices`): each CTA owns WIDE_COLS
-columns of the output (or of dq, dk and dv) and computes the scores
-over the full D, streamed in WIDE_COLS-column chunks, so no thread holds
-more than one slice's accumulator; every slice writes its own lse row,
-the same bits (`flash_fwd_cuda(return_lse_slices=True)` returns them
-all). The fp32 kernels compute the scores once a tile at every D, one
-CTA a tile, and write one lse row.
+`sm_scale` stays that of the unpadded D. Above 256 the bf16 forward
+splits D's 64-column sub-tiles over the warpgroups of a CTA (over a
+thread-block cluster above 512; `wide_fwd_plan`): each warpgroup holds
+its sub-tiles of Q, K, V and O, and the partial scores are summed in a
+fixed order, so the scores are computed once a tile over the whole D;
+it writes one lse row. The bf16 backward there splits its gradients'
+columns (`column_slices`): each CTA owns WIDE_COLS columns of dq, dk
+and dv and computes the scores over the full D, streamed in
+WIDE_COLS-column chunks. bf16 takes head dims up to BF16_MAX_HEAD_DIM.
+The fp32 kernels compute the scores once a tile at every D, one CTA a
+tile, and write one lse row.
 
 `impl`, in `flash_attention` and `flash_attention_with_lse` alike:
 None picks `"cuda"` for CUDA tensors and `"torch"` for CPU tensors;
@@ -82,6 +85,8 @@ NEG_INF = -1e30
 HEAD_DIMS = (32, 64, 128, 256)  # csrc/flash_attention.cu instantiations
 WIDE_COLS = 128                # bf16: columns a slice above 256 (csrc kWC)
 F32_MAX_HEAD_DIM = 2048        # fp32 kernels' largest head dim (kMaxF32Dim)
+BF16_MAX_HEAD_DIM = 4096       # bf16: the forward's 16 ranks x 4 sub-tiles
+MAX_SHARED_BYTES = 232448      # shared memory a CTA may use (227 KB)
 BWD_LAUNCHES = 2               # dk/dv kernel, then dq kernel
 MAX_BH = 65535                 # grid.y of every launch
 KERNEL_BLOCK_K = 64            # keys per tile of the kernels (kBK)
@@ -303,12 +308,12 @@ def kernel_head_dim(d: int) -> int:
 
 
 def column_slices(dp: int, dtype: torch.dtype) -> int:
-    """CTAs a (q tile, batch-head) takes at the kernel head dim `dp`
+    """CTAs a tile of the backward takes at the kernel head dim `dp`
     (`kernel_head_dim`) in `dtype`: 1 at the instantiations of HEAD_DIMS
     and for fp32 at every D (one CTA a tile computes the scores once and
-    holds the whole output row; up to F32_MAX_HEAD_DIM), else one a
-    WIDE_COLS-column slice of the output, the bf16 column-split
-    kernels."""
+    holds the whole gradient row; up to F32_MAX_HEAD_DIM), else one a
+    WIDE_COLS-column slice of dq, dk and dv, the bf16 column-split
+    backward kernels (up to BF16_MAX_HEAD_DIM)."""
     if dp not in HEAD_DIMS and (dp <= HEAD_DIMS[-1] or dp % WIDE_COLS):
         raise ValueError(f"flash_attention kernels run at head dims "
                          f"{HEAD_DIMS} or multiples of {WIDE_COLS} above "
@@ -318,7 +323,40 @@ def column_slices(dp: int, dtype: torch.dtype) -> int:
             raise ValueError(f"flash_attention's fp32 kernels take head "
                              f"dims up to {F32_MAX_HEAD_DIM}, got {dp}")
         return 1
+    if dp > BF16_MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention's bf16 kernels take head dims "
+                         f"up to {BF16_MAX_HEAD_DIM}, got {dp}")
     return 1 if dp in HEAD_DIMS else dp // WIDE_COLS
+
+
+def wide_fwd_plan(dp: int) -> dict:
+    """The bf16 forward's layout above D = 256 at the kernel head dim
+    `dp` (csrc/flash_attention.cu WideFwd and launch_fwd_wide_bf16): the
+    dp / 64 column sub-tiles of a 64-row q tile split over `warpgroups`
+    warpgroups a CTA, `subs` sub-tiles of Q (resident), K, V and O each,
+    and over a cluster of `ranks` CTAs; the warpgroups' partial scores
+    are summed in shared memory (through distributed shared memory
+    across the ranks). `k_buffers` K buffers (2: S of the next tile runs
+    behind P.V). `smem` is the CTA's dynamic shared memory: 1 KB of
+    alignment slack, Q, V and K of its sub-tiles, each warpgroup's
+    partial scores (twice over in a cluster) and the mbarriers. D = 384:
+    2 warpgroups x 3 sub-tiles, 2 K buffers; D = 512: 2 x 4, one; above,
+    up to BF16_MAX_HEAD_DIM, a cluster of dp / 256 (rounded up) CTAs of
+    one warpgroup x 4, non-portable (`portable` False) above 8."""
+    column_slices(dp, torch.bfloat16)
+    if dp in HEAD_DIMS:
+        raise ValueError(f"wide_fwd_plan is the layout above "
+                         f"{HEAD_DIMS[-1]}, got {dp}")
+    nsub = dp // 64
+    wgs, subs, kbuf = {6: (2, 3, 2), 8: (2, 4, 1)}.get(nsub, (1, 4, 1))
+    ranks = -(-nsub // (wgs * subs))
+    sub = 64 * 64 * 2
+    smem = (1024 + (2 + kbuf) * wgs * subs * sub
+            + (2 if ranks > 1 else 1) * wgs * 64 * KERNEL_BLOCK_K * 4
+            + 8 * (kbuf + 1))
+    return {"ranks": ranks, "warpgroups": wgs, "subs": subs,
+            "k_buffers": kbuf, "rows": 64, "smem": smem,
+            "portable": ranks <= 8}
 
 
 def pad_head_dim(*tensors: torch.Tensor) -> Tuple[torch.Tensor, ...]:
@@ -403,26 +441,18 @@ def _raise_on(err: int, lib: ctypes.CDLL, what: str) -> None:
 
 
 def flash_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                   causal: bool, sm_scale: float,
-                   return_lse_slices: bool = False):
-    """(out, lse) through the forward kernel, on (BH, S, D). The
-    operands are made contiguous first (a copy for the model's
-    head-transposed views); any other D is padded to the kernels' head
-    dim and `out` sliced back (`pad_head_dim`). With
-    `return_lse_slices`, also the lse rows of every column slice
-    (`column_slices`, (slices, BH, S)): the first is `lse`, and the
-    kernels compute them all alike (one row in fp32, and in bf16 up to
-    D = 256)."""
+                   causal: bool, sm_scale: float):
+    """(out, lse) through the forward kernel, on (BH, S, D): one lse row
+    (BH, S) at every D. The operands are made contiguous first (a copy
+    for the model's head-transposed views); any other D is padded to the
+    kernels' head dim and `out` sliced back (`pad_head_dim`)."""
     global fwd_launches
     d_in = q.shape[-1]
     q, k, v = pad_head_dim(q.contiguous(), k.contiguous(), v.contiguous())
     _check(q=q, k=k, v=v)
     bh, seq_q, d = q.shape
     out = torch.empty_like(q)
-    slices = torch.empty(column_slices(d, q.dtype), bh, seq_q,
-                         dtype=torch.float32,
-                         device=q.device)
-    lse = slices[0]
+    lse = torch.empty(bh, seq_q, dtype=torch.float32, device=q.device)
     lib = _lib()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -432,8 +462,7 @@ def flash_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             int(causal), int(q.dtype == torch.bfloat16), stream)
     _raise_on(err, lib, "forward")
     fwd_launches += 1
-    out = unpad_head_dim(d_in, out)[0]
-    return (out, lse, slices) if return_lse_slices else (out, lse)
+    return unpad_head_dim(d_in, out)[0], lse
 
 
 def flash_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -11,6 +11,8 @@ no JAX counterpart.
     python3 -m bigdl_tpu_torch.ops.kernel_study --old .cmp/old --parts k8,k8_phases
     git show <rev>:bigdl_tpu_torch/ops/csrc/flash_attention.cu > .cmp/old/flash_attention.cu
     python3 -m bigdl_tpu_torch.ops.kernel_study --old .cmp/old --parts flash_f32
+    python3 -m bigdl_tpu_torch.ops.kernel_study --old .cmp/old \
+        --parts k1_wide,flash_bf16_wide      # <rev> 5f8b0cf: both sources
 
 `--parts` picks what runs (default k9,k10,layouts,phases), each part
 printing one JSON line; old and new always run in turns (old, new, new,
@@ -76,7 +78,22 @@ old; `chip_smoke.cuda_ms`, L2 flushed):
   the same padded operands, at chip_smoke's fp32 FLASH_TIMED cases
   (prefill_d64 among them), in turns; their outputs' largest
   difference; and each fp32 kernel's ptxas report (registers, spills)
-  and SASS counts (FFMA, LDS, LDS.128), old and new.
+  and SASS counts (FFMA, LDS, LDS.128), old and new;
+* `k1_wide` (old: the paged-decode source of commit 5f8b0cf or earlier,
+  whose row-split kernel above D = 1024 is one CTA a (row, head) with a
+  global score row): old and new through their C entry points, on the
+  same pools, at chip_smoke's d1100 case (4 slots, H = 2, 96 keys) in
+  fp32 and bf16, in turns, and at D = 2049 (4- and 2-byte rows), their
+  outputs' largest difference; each row-split kernel's ptxas report and
+  SASS counts, old and new;
+* `flash_bf16_wide` (old: the flash-attention source of commit 5f8b0cf
+  or earlier, whose bf16 forward above D = 256 is one CTA a 128-column
+  slice, each recomputing S): old and new bf16 forward through the C
+  entry points on the same padded operands, in turns, at chip_smoke's
+  ragged_d320 and train_h1, and untimed at masked_d512, wide_d1000,
+  wide_d2000 and D = 4096 (a non-portable cluster of 16), their
+  outputs' and lse's largest difference; the forward kernels' ptxas
+  reports and SASS counts (HGMMA, UTMALDG: TMA loads), old and new.
 
 Builds go to <old>/build (.cmp/build without --old). Every JSON line
 is also appended to chiprun_out/kernel_study.jsonl.
@@ -413,7 +430,7 @@ def _sass_counts(so: Path, match: str) -> dict:
     sass = subprocess.run([str(tool), "-sass", str(so)], capture_output=True,
                           text=True, timeout=300, check=True).stdout
     kinds = ("LDG", "STG", "LDS", "LDS.128", "STS", "BAR", "FFMA", "MUFU",
-             "BRA")
+             "BRA", "HGMMA", "UTMALDG")
     out, name = {}, None
     for ln in sass.splitlines():
         m = re.search(r"Function : (\w+)", ln)
@@ -1022,16 +1039,157 @@ def part_flash_f32(torch, cs, build: Path, logs, flush, stream) -> None:
     _emit({"flash_f32_build": build_out})
 
 
+def _build_report(so: Path, log: str, match: str) -> dict:
+    return {"ptxas": _ptxas_lines(log, match),
+            "sass": _sass_counts(so, match)}
+
+
+def part_k1_wide(torch, cs, build: Path, logs, flush, stream) -> None:
+    """Old and new K1 row-split kernels (above D = 1024) at d1100."""
+    from bigdl_tpu_torch.ops import _build
+    from bigdl_tpu_torch.ops import paged_decode as pd
+
+    old = ctypes.CDLL(str(build / "old_pd_wide.so")).bigdl_paged_decode_wide
+    old.argtypes = [VOID] * 7 + [ctypes.c_int] * 5 + [
+        ctypes.c_float, ctypes.c_int, VOID]
+    new = pd._lib().bigdl_paged_decode_wide
+    out = {}
+    for D, timed in ((1100, True), (2049, False)):
+        for name, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+            q, k, v, table, pos = cs._decode_case(
+                dtype, flush.device, B=4, H=2, nb=96 // cs.BLOCK,
+                bs=cs.BLOCK, D=D)
+            b, h, _, d = q.shape
+            nb, bs = table.shape[1], k.shape[2]
+            bf16 = int(dtype == torch.bfloat16)
+            plan = pd.wide_plan(nb, bs, d, k.element_size())
+            copy = pd.wide_copy_bytes(d, k.element_size(), k, v)
+            outs = {w: torch.empty_like(q) for w in ("old", "new")}
+            scratch = torch.empty(b * h * nb * bs, device=q.device)
+
+            def run_old():
+                err = old(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                          table.data_ptr(), pos.data_ptr(),
+                          outs["old"].data_ptr(), scratch.data_ptr(), b, h,
+                          nb, bs, d, d ** -0.5, bf16, stream)
+                if err:
+                    raise RuntimeError(f"old K1 wide: cudaError {err}")
+
+            def run_new():
+                err = new(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                          table.data_ptr(), pos.data_ptr(),
+                          outs["new"].data_ptr(), b, h, nb, bs, d,
+                          plan["splits"], plan["span"], plan["chunks"], copy,
+                          d ** -0.5, bf16, stream)
+                if err:
+                    raise RuntimeError(f"new K1 wide: cudaError {err}")
+
+            run_old()
+            run_new()
+            torch.cuda.synchronize()
+            ref = pd.paged_decode_attention(q, k, v, table, pos,
+                                            impl="torch")
+            res = {"plan": plan, "copy_bytes": copy,
+                   "max_abs_diff": float((outs["old"] - outs["new"]).abs()
+                                         .max()),
+                   "new_vs_plain": float((outs["new"] - ref).abs().max())}
+            if timed:
+                res["us"] = _turns(cs, {"old": run_old, "new": run_new},
+                                   flush)
+                res["speedup"] = min(res["us"]["old"]) / max(
+                    min(res["us"]["new"]), 1e-9)
+            out[f"d{D}/{name}"] = res
+    _emit({"k1_wide": out})
+    so = _build.library_path("paged_decode")
+    _emit({"k1_wide_build": {
+        "old": _build_report(build / "old_pd_wide.so", logs["old_pd_wide"],
+                             "paged_decode_wide"),
+        "new": _build_report(so, _build.BUILD_LOG["paged_decode"],
+                             "paged_decode_wide")}})
+
+
+def part_flash_bf16_wide(torch, cs, build: Path, logs, flush,
+                         stream) -> None:
+    """Old and new bf16 flash forward above D = 256."""
+    from bigdl_tpu_torch.ops import _build
+    fa = importlib.import_module("bigdl_tpu_torch.ops.flash_attention")
+
+    libs = {"old": _flash_lib(build / "old_fa_wide.so"),
+            "new": _flash_lib(_build.library_path("flash_attention"))}
+    cases = {c[0]: c[1:] for c in cs.FLASH_CASES}
+    cases["d4096"] = (1, 100, 140, 4096, True, None)
+    out = {}
+    for name in ("ragged_d320", "train_h1", "masked_d512", "wide_d1000",
+                 "wide_d2000", "d4096"):
+        bh, sq, sk, d, causal, scale = cases[name]
+        scale = 1.0 / d ** 0.5 if scale is None else scale
+        g = torch.Generator(device="cuda").manual_seed(sq * 7 + sk)
+        q = torch.randn(bh, sq, d, device="cuda", generator=g,
+                        dtype=torch.bfloat16)
+        k, v = (torch.randn(bh, sk, d, device="cuda", generator=g,
+                            dtype=torch.bfloat16) for _ in range(2))
+        qp, kp, vp = fa.pad_head_dim(q, k, v)
+        dp = qp.shape[-1]
+        res = {}
+        for who, lib in libs.items():
+            fo = torch.empty_like(qp)
+            # the old forward wrote one lse row a 128-column slice
+            fl = torch.empty(dp // 128, bh, sq, device="cuda")
+
+            def fwd(lib=lib, fo=fo, fl=fl, who=who):
+                err = lib.bigdl_flash_fwd(
+                    qp.data_ptr(), kp.data_ptr(), vp.data_ptr(),
+                    fo.data_ptr(), fl.data_ptr(), bh, sq, sk, dp, scale,
+                    int(causal), 1, stream)
+                if err:
+                    raise RuntimeError(f"{who} forward: cudaError {err}")
+
+            fwd()
+            torch.cuda.synchronize()
+            res[who] = {"fwd": fwd, "outs": (fo[..., :d], fl[0])}
+        ro, rlse = fa.attention_reference(q, k, v, causal, scale,
+                                          return_lse=True)
+        out[name] = {
+            "shape": {"BH": bh, "Sq": sq, "Sk": sk, "D": d, "kernel_D": dp,
+                      "causal": causal},
+            "plan": fa.wide_fwd_plan(dp),
+            "max_abs_diff": {n: float((a.float() - b.float()).abs().max())
+                             for n, a, b in zip(("out", "lse"),
+                                                res["old"]["outs"],
+                                                res["new"]["outs"])},
+            "new_vs_plain": {
+                "out": float((res["new"]["outs"][0].float() - ro.float())
+                             .abs().max()),
+                "lse": float((res["new"]["outs"][1] - rlse).abs().max())},
+        }
+        if name in cs.FLASH_TIMED:
+            us = _turns(cs, {w: res[w]["fwd"] for w in libs}, flush,
+                        reps=10, warmup=2)
+            out[name]["fwd_us"] = us
+            out[name]["fwd_speedup"] = min(us["old"]) / max(min(us["new"]),
+                                                            1e-9)
+        del q, k, v, qp, kp, vp, res, ro, rlse
+        torch.cuda.empty_cache()
+    _emit({"flash_bf16_wide": out})
+    _emit({"flash_bf16_wide_build": {
+        "old": _build_report(build / "old_fa_wide.so", logs["old_fa_wide"],
+                             "fwd_bf16_wide"),
+        "new": _build_report(_build.library_path("flash_attention"),
+                             _build.BUILD_LOG["flash_attention"],
+                             "fwd_bf16_wide")}})
+
+
 PARTS = ("k9", "k10", "layouts", "phases", "k1_k11", "k11_phases", "k8",
-         "k8_phases", "e2e", "flash_f32")
+         "k8_phases", "e2e", "flash_f32", "k1_wide", "flash_bf16_wide")
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--old", type=Path,
                     help="directory of the earlier fused_rnn.cu (and "
-                         "paged_decode.cu for k1_k11, flash_attention.cu "
-                         "for flash_f32)")
+                         "paged_decode.cu for k1_k11 and k1_wide, "
+                         "flash_attention.cu for flash_f32 and "
+                         "flash_bf16_wide)")
     ap.add_argument("--parts", default="k9,k10,layouts,phases",
                     help=f"comma-separated, of {','.join(PARTS)}")
     ap.add_argument("--old-tree", type=Path,
@@ -1041,9 +1199,10 @@ def main(argv=None) -> int:
     for p in parts:
         if p not in PARTS:
             ap.error(f"unknown part {p!r}")
-    if args.old is None and set(parts) & {"k9", "k10", "k1_k11", "k8",
-                                          "flash_f32"}:
-        ap.error("--old is needed for k9, k10, k1_k11, k8 and flash_f32")
+    needs_old = {"k9", "k10", "k1_k11", "k8", "flash_f32", "k1_wide",
+                 "flash_bf16_wide"}
+    if args.old is None and set(parts) & needs_old:
+        ap.error(f"--old is needed for {', '.join(sorted(needs_old))}")
     if args.old_tree is None and "e2e" in parts:
         ap.error("--old-tree is needed for e2e")
     sys.path.insert(0, str(ROOT))
@@ -1106,8 +1265,17 @@ def main(argv=None) -> int:
     if "flash_f32" in parts:
         procs["old_fa"] = _nvcc(old / "flash_attention.cu",
                                 build / "old_fa.so", include=_build.CSRC)
+    if "k1_wide" in parts:
+        procs["old_pd_wide"] = _nvcc(old / "paged_decode.cu",
+                                     build / "old_pd_wide.so",
+                                     include=_build.CSRC)
+    if "flash_bf16_wide" in parts:
+        procs["old_fa_wide"] = _nvcc(old / "flash_attention.cu",
+                                     build / "old_fa_wide.so",
+                                     include=_build.CSRC)
     _build.build(["paged_decode", "fused_rnn"]
-                 + (["flash_attention"] if "flash_f32" in parts else []))
+                 + (["flash_attention"] if {"flash_f32", "flash_bf16_wide"}
+                    & set(parts) else []))
     logs = _wait(procs)
     _emit({"device": torch.cuda.get_device_name(0),
            "nvidia_smi": cs.nvidia_smi()})
@@ -1134,6 +1302,10 @@ def main(argv=None) -> int:
             part_k1_k11(torch, cs, fr, build, flush, stream)
         elif p == "flash_f32":
             part_flash_f32(torch, cs, build, logs, flush, stream)
+        elif p == "k1_wide":
+            part_k1_wide(torch, cs, build, logs, flush, stream)
+        elif p == "flash_bf16_wide":
+            part_flash_bf16_wide(torch, cs, build, logs, flush, stream)
         else:
             part_k11_phases(torch, cs, fr, build, stream)
     return 0

@@ -25,10 +25,13 @@ tiers HEAD_DIMS and a call runs at the least tier that holds D
 read where they lie, at their own row stride, and never padded or
 copied. Rows of whole 16-byte chunks stream as 16-byte copies; any
 other row (a bf16 row of D = 20 is 40 bytes) element by element
-(`vector_rows`). Above the largest tier a row-split kernel runs (one
-CTA a (row, head), the scores through a scratch row the wrapper
-allocates, then the weighted V rows with the threads over the
-columns), in one launch too.
+(`vector_rows`). Above the largest tier a row-split kernel runs, in one
+launch too: the keys split over a cluster as the tiers split them
+(`wide_plan`, from the table extent, the head dim and the dtype alone),
+each row over a whole CTA's threads, K and V through a ring of
+asynchronous copies 16, 8 bytes or an element wide (`wide_copy_bytes`),
+one online-softmax pass, the ranks combined through distributed shared
+memory; up to WIDE_MAX_HEAD_DIM.
 
 `launches` counts kernel launches (a plain int, incremented only where
 the kernel is launched), so a run can show that its decode path went
@@ -60,6 +63,13 @@ _THREADS, _STAGES, MAX_SPLITS = 128, 4, 8
 # keys, each a multiple of SPLIT_ALIGN keys (a 16-key page at the
 # engine's block size)
 SPLIT_MIN_KEYS, SPLIT_ALIGN = 64, 16
+# above the tiers (csrc/paged_decode.cu "D > 1024"): threads a CTA, ring
+# stages, the most 16-byte chunks of a row a thread holds, and the K and
+# V bytes a rank takes at least
+_WIDE_THREADS, _WIDE_STAGES, _WIDE_MAX_CHUNKS = 256, 3, 8
+WIDE_MIN_BYTES = 32 * 1024
+# the widest rows: 8 chunks of 16 bytes for each of 256 threads
+WIDE_MAX_HEAD_DIM = {4: 8192, 2: 16384}   # by the pools' itemsize
 
 launches = 0
 launches_by_head_dim: dict = {}
@@ -73,7 +83,7 @@ def _lib() -> ctypes.CDLL:
             ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         wide = lib.bigdl_paged_decode_wide
-        wide.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [
+        wide.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [
             ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
         wide.restype = ctypes.c_int
         lib.bigdl_cuda_error_string.argtypes = [ctypes.c_int]
@@ -95,6 +105,61 @@ def split_plan(num_blocks: int, block_size: int) -> tuple:
     return -(-seq // span), span
 
 
+def wide_plan(num_blocks: int, block_size: int, head_dim: int,
+              itemsize: int) -> dict:
+    """The row-split kernel's layout above the tiers (csrc/paged_decode.cu
+    "D > 1024"), a function of the table extent S = num_blocks *
+    block_size, the head dim and the pools' itemsize alone, so a row's
+    bits depend neither on B nor on the clocks:
+
+    * `splits` CTAs a (row, head), one cluster (<= MAX_SPLITS), each the
+      keys [rank * span, (rank + 1) * span) and at least WIDE_MIN_BYTES
+      of K and V rows (rows of 4-9 KB at D = 1100 split finer than
+      SPLIT_MIN_KEYS), the last range non-empty;
+    * `chunks`: 16-byte chunks of a (16-byte padded) row a thread holds,
+      a power of two <= 8, so q and the weighted V row stay in
+      registers;
+    * `stage_keys`: keys a ring stage holds (8 / chunks: the ring of
+      3 stages of K and V rows stays <= 192 KB);
+    * `smem`: the CTA's dynamic shared memory (ring, partial dots, table
+      slice).
+
+    Raises above WIDE_MAX_HEAD_DIM[itemsize]."""
+    top = WIDE_MAX_HEAD_DIM[itemsize]
+    if not HEAD_DIMS[-1] < head_dim <= top:
+        raise ValueError(f"paged_decode's row-split kernel takes head dims "
+                         f"{HEAD_DIMS[-1] + 1}..{top} at itemsize "
+                         f"{itemsize}, got {head_dim}")
+    seq = num_blocks * block_size
+    rowb = -(-head_dim * itemsize // 16) * 16
+    least = max(1, -(-WIDE_MIN_BYTES // (2 * head_dim * itemsize)))
+    splits = max(1, min(MAX_SPLITS, seq // least))
+    span = -(-seq // splits)
+    chunks = 1
+    while chunks * _WIDE_THREADS * 16 < rowb:
+        chunks *= 2
+    stage_keys = _WIDE_MAX_CHUNKS // chunks
+    return {"splits": -(-seq // span), "span": span, "chunks": chunks,
+            "stage_keys": stage_keys,
+            "smem": (_WIDE_STAGES * 2 * stage_keys * rowb
+                     + 4 * (_WIDE_THREADS // 32) * stage_keys
+                     + 4 * (-(-span // block_size) + 1))}
+
+
+def wide_copy_bytes(head_dim: int, itemsize: int, *pools: torch.Tensor
+                    ) -> int:
+    """The row-split kernel's copy width in bytes: 16 for rows of whole
+    16-byte chunks, 8 for rows of whole 8-byte pieces (a bf16 row of
+    D = 1100 is 2200 bytes: every other row starts 8 bytes off a 16-byte
+    boundary), else the element (4 fp32, 2 bf16: an odd bf16 D) — each
+    only where every pool starts on that many bytes."""
+    for width in (16, 8):
+        if head_dim * itemsize % width == 0 \
+                and all(t.data_ptr() % width == 0 for t in pools):
+            return width
+    return itemsize
+
+
 def kernel_head_dim(head_dim: int) -> int:
     """The tier a head dim runs at: the least entry of HEAD_DIMS that
     holds it; above the largest the head dim itself (the row-split
@@ -107,12 +172,11 @@ def kernel_head_dim(head_dim: int) -> int:
 
 def vector_rows(head_dim: int, itemsize: int, *pools: torch.Tensor
                 ) -> bool:
-    """Whether the pools' rows stream as 16-byte copies: a row of
-    head_dim elements is whole 16-byte chunks and every pool starts on
-    a 16-byte boundary. Otherwise the kernel copies element by
-    element."""
-    return (head_dim * itemsize % 16 == 0
-            and all(t.data_ptr() % 16 == 0 for t in pools))
+    """Whether the pools' rows stream as 16-byte copies in the tiers: a
+    row of head_dim elements is whole 16-byte chunks and every pool
+    starts on a 16-byte boundary (`wide_copy_bytes` 16). Otherwise the
+    kernel copies element by element."""
+    return wide_copy_bytes(head_dim, itemsize, *pools) == 16
 
 
 def _stage_keys(tier: int, itemsize: int) -> int:
@@ -174,8 +238,10 @@ def _check(q, k_pool, v_pool, table, pos) -> None:
             f"{tuple(k_pool.shape)}/{tuple(v_pool.shape)}, table "
             f"{tuple(table.shape)}, pos {tuple(pos.shape)}")
     if kernel_head_dim(d) > HEAD_DIMS[-1]:
-        return                        # the row-split kernel: static smem
-    smem = shared_bytes(table.shape[1], bs, d, k_pool.element_size())
+        smem = wide_plan(table.shape[1], bs, d,
+                         k_pool.element_size())["smem"]
+    else:
+        smem = shared_bytes(table.shape[1], bs, d, k_pool.element_size())
     if smem > MAX_SHARED_BYTES:
         raise ValueError(f"paged_decode impl='cuda': a table extent of "
                          f"{table.shape[1] * bs} keys needs {smem} bytes "
@@ -190,20 +256,22 @@ def _paged_decode_cuda(q, k_pool, v_pool, table, pos,
     out = torch.empty_like(q)
     if b == 0:
         return out
-    splits, span = split_plan(table.shape[1], k_pool.shape[2])
     lib = _lib()
+    itemsize = k_pool.element_size()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         if kernel_head_dim(d) > HEAD_DIMS[-1]:
-            scratch = torch.empty(b * h * table.shape[1] * k_pool.shape[2],
-                                  dtype=torch.float32, device=q.device)
+            plan = wide_plan(table.shape[1], k_pool.shape[2], d, itemsize)
             err = lib.bigdl_paged_decode_wide(
                 q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-                table.data_ptr(), pos.data_ptr(), out.data_ptr(),
-                scratch.data_ptr(), b, h, table.shape[1], k_pool.shape[2],
-                d, float(sm_scale), int(k_pool.dtype == torch.bfloat16),
+                table.data_ptr(), pos.data_ptr(), out.data_ptr(), b, h,
+                table.shape[1], k_pool.shape[2], d, plan["splits"],
+                plan["span"], plan["chunks"],
+                wide_copy_bytes(d, itemsize, k_pool, v_pool),
+                float(sm_scale), int(k_pool.dtype == torch.bfloat16),
                 stream)
         else:
+            splits, span = split_plan(table.shape[1], k_pool.shape[2])
             err = lib.bigdl_paged_decode(
                 q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
                 table.data_ptr(), pos.data_ptr(), out.data_ptr(), b, h,
