@@ -89,10 +89,13 @@
 // Above D = 256 (the wrapper pads D to a multiple of 128) a bf16 thread
 // cannot hold a 64-row accumulator of D columns beside S. The forward
 // splits O's columns over the warpgroups of a CTA (over a cluster above
-// D = 512) and sums their partial S, so S is computed once a tile; the
-// backward's CTA owns a 128-column slice of dQ, or of dK and dV (grid.z),
-// and computes S and dP over the full D in 128-column chunks streamed
-// through shared memory, once a slice. See "D > 256" below.
+// D = 512) and sums their partial S, so S is computed once a tile. The
+// backward at D = 384 and 512 splits dK and dV (dQ) over a cluster of two
+// CTAs of C = D / 2 columns, which exchange their partial S and dP, so
+// they too are computed once a tile pair; above D = 512 a CTA owns a
+// 128-column slice of dQ, or of dK and dV (grid.z), and computes S and
+// dP over the full D in 128-column chunks streamed through shared
+// memory, once a slice. See "D > 256" below.
 
 #include <cooperative_groups.h>
 #include <cuda.h>
@@ -1439,9 +1442,10 @@ cudaError_t launch_bwd_f32(const F32Args& a, int D, cudaStream_t stream) {
 
 // ------------------------------------------------ bf16 column slices
 // Head dims above 256 (a multiple of kWC, as the wrapper pads them) split
-// the bf16 backward's columns over CTAs: grid.z is the slice, kWC columns
-// of dK and dV, or dQ, each; the forward splits O's 64-column sub-tiles
-// over warpgroups; see "D > 256" in the bf16 kernels below.
+// the bf16 backward's columns over CTAs: above D = 512 grid.z is the
+// slice, kWC columns of dK and dV, or dQ, each (at 384 and 512 a cluster
+// of two CTAs of D / 2); the forward splits O's 64-column sub-tiles over
+// warpgroups; see "D > 256" in the bf16 kernels below.
 constexpr int kWC = 128;
 
 __device__ __forceinline__ int wide_chunk(int slice, int i, int nch) {
@@ -2482,8 +2486,9 @@ fa_fwd_bf16_wide_kernel(const __grid_constant__ CUtensorMap map_q,
           (cta0 + w0 + j) * 64, seq_q, D);
 }
 
-// The backward's column split of the fp32 wide kernels on the tensor
-// cores. One warpgroup a CTA, 64 rows, one kWC-column slice (64
+// The backward above D = 512 (no model here runs there; at 384 and 512
+// the clusters below): a column split on the tensor cores. One
+// warpgroup a CTA, 64 rows, one kWC-column slice (64
 // accumulator registers a thread for dQ, 128 for dK and dV: the D = 256
 // dk/dv layout's). A chunk step streams 64-row Tile<kWC> tiles of the
 // chunk's columns through a 2-stage cp.async ring and adds their product
@@ -2785,6 +2790,482 @@ fa_dq_bf16_wide_kernel(const bf16* __restrict__ q,
                                     q_start, slice * kWC, seq_q, D);
 }
 
+// The backward at D = 384 and 512: S and dP once a tile pair. A cluster
+// of two CTAs a tile (64 keys in dk/dv, 64 query rows in dq), rank r
+// owning columns [r C, (r + 1) C) of dK and dV, or of dQ (C = D / 2: 192
+// or 256), and reading only those columns of every operand. A CTA holds
+// its own operands (K and V, or Q and dO) resident and streams the swept
+// ones (Q and dO, or K and V) through 2 stages, all by TMA (64 x 64
+// boxes, 128-byte swizzle) on mbarriers. dO is scaled by do_scale once
+// as it lands: in dk/dv, with the tile's lse and delta staged beside it,
+// under the dV and dK products of the tile before. Its two warpgroups
+// split the products, not the columns: warpgroup 0 computes the CTA's
+// partial S^T (S in dq) over its C columns, warpgroup 1 the partial dP^T
+// (dP). Each pushes its fp32 partial (16 KB) into the partner CTA's
+// buffer with st.async, which completes on the partner's mbarrier by
+// byte count (no cluster barrier a tile), and adds the partner's partial
+// to its own in rank order (rank 0's, then rank 1's): both ranks hold
+// the same bits of S and dP, so of p and ds. Warpgroup 0 takes p, writes
+// it (fp32) over the partner's partial S it has read, and in dk/dv
+// accumulates dV += P^T.dO over the C columns (one m64n192 / m64n256
+// wgmma a k-step); warpgroup 1 takes ds from that p and accumulates dK
+// += dS^T.Q (dq: dQ += dS.K). Once warpgroup 1 has read both buffers it
+// signals the partner (a remote arrive on its mbarrier) that the next
+// partials may come. In dk/dv each warpgroup does two 64 x 64 x C
+// products a tile; in dq warpgroup 1 does two and warpgroup 0 one.
+// Distributed shared memory moved ~20 bytes a clock a CTA in the
+// forward's probes: the 32 KB a CTA sends a tile pair is the price of
+// computing S and dP once instead of D / 128 times. Shared memory: 1 KB
+// of slack, the two resident operands, 2 stages of the two swept ones,
+// the partner's two partials, dk/dv's 2 stages of [lse, delta], the
+// mbarriers (2 stages, 2 partials, the partner's release): 231,464
+// bytes at D = 512 (WideBwd), mirrored by ops/flash_attention.py
+// wide_bwd_plan.
+template <int C>
+struct WideBwd {
+  static_assert(C == 192 || C == 256, "one m64n192 or n256 wgmma");
+  static constexpr int kSubs = C / 64;                          // 3 or 4
+  static constexpr uint32_t kSub = sm90::Tile<64>::bytes(64);   // 8 KB
+  static constexpr uint32_t kOperand = kSubs * kSub;  // 64 rows, C columns
+  static constexpr uint32_t kX = 64 * 64 * sizeof(float);  // a partial
+  static constexpr int kThreads = 2 * kWGThreads;
+  static constexpr uint32_t kStats = 2 * 2 * 64 * sizeof(float);
+  static constexpr int kBars = 5;
+  static constexpr size_t kSmem =
+      1024 + 6 * (size_t)kOperand + 2 * kX + kStats + 8 * kBars;
+};
+
+constexpr int kBarP = 1;    // p written (warpgroup 0 arrives, 1 waits)
+constexpr int kBarWG1 = 2;  // warpgroup 1 has read both partials
+
+// acc (64 x C fp32, C / 64 sub-tiles) += a . b, one wgmma a k-step: a
+// 64 x 16 bf16 from registers, b the C columns of a 64-row MN-major tile
+template <int C>
+__device__ __forceinline__ void wgmma_rs_wide(float (&acc)[C / 2],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  if constexpr (C == 192)
+    sm90::wgmma_rs_n192(acc, a, db);
+  else
+    sm90::wgmma_rs_n256(acc, a, db);
+}
+
+// acc += A (64 x 64 bf16 from registers: p^T, ds^T or ds) . the C
+// columns of the 64-row tile at `b`, issued and committed
+template <int C>
+__device__ __forceinline__ void issue_rs_wide(float (&acc)[C / 2],
+                                              uint32_t (&a)[4][4],
+                                              uint32_t b) {
+  sm90::fence_regs(acc);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) sm90::fence_regs(a[kk]);
+  sm90::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_rs_wide<C>(acc, a[kk], sm90::desc_mn<C>(b, 64, 0, kk));
+  sm90::wgmma_commit();
+}
+
+// x (64 x 64 fp32) = the partial product of two 64-row tiles over their
+// C columns (both K-major), issued and committed
+template <int C>
+__device__ __forceinline__ void issue_ss_wide(float (&x)[32], uint32_t a,
+                                              uint32_t b) {
+  sm90::fence_regs(x);
+  sm90::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < C / 16; ++kk)
+    sm90::wgmma_ss_n64(x, sm90::desc_k<C>(a, 64, 0, kk),
+                       sm90::desc_k<C>(b, 64, 0, kk), kk);
+  sm90::wgmma_commit();
+}
+
+// The exchange of a warpgroup's partial x (the thread's 32 values of
+// it), in two halves around other work. push_partial: once the partner
+// has released its buffer (`free_bar`; nothing to wait for before the
+// first tile), push x into it (`peer_buf`, completing on the partner's
+// mbarrier `peer_bar`). add_partial: wait for the partner's partial in
+// this CTA's `buf` (mbarrier `bar`) and add it to x in rank order. Slot
+// j * 128 + wt (a float4) holds registers 4j..4j+3 of thread wt of the
+// warpgroup.
+__device__ __forceinline__ void push_partial(const float (&x)[32],
+                                             uint32_t peer_buf,
+                                             uint32_t peer_bar,
+                                             uint32_t free_bar, int tile) {
+  const int wt = threadIdx.x % kWGThreads;
+  if (tile > 0) sm90::mbarrier_wait_cluster(free_bar, (tile - 1) & 1);
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+    sm90::st_async_v4(peer_buf + (uint32_t)(j * kWGThreads + wt) * 16,
+                      x[4 * j], x[4 * j + 1], x[4 * j + 2], x[4 * j + 3],
+                      peer_bar);
+}
+
+__device__ __forceinline__ void add_partial(float (&x)[32], const float* buf,
+                                            uint32_t bar, int tile,
+                                            int rank) {
+  const int wt = threadIdx.x % kWGThreads;
+  sm90::mbarrier_wait_cluster(bar, tile & 1);
+  const float4* other = reinterpret_cast<const float4*>(buf) + wt;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const float4 y = other[j * kWGThreads];
+    const float o[4] = {y.x, y.y, y.z, y.w};
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      x[4 * j + c] = rank == 0 ? x[4 * j + c] + o[c] : o[c] + x[4 * j + c];
+  }
+}
+
+// x (the summed p, fp32) into this thread's slots of `buf`
+__device__ __forceinline__ void put_slots(float* buf, const float (&x)[32]) {
+  float4* dst = reinterpret_cast<float4*>(buf) + threadIdx.x % kWGThreads;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+    dst[j * kWGThreads] =
+        make_float4(x[4 * j], x[4 * j + 1], x[4 * j + 2], x[4 * j + 3]);
+}
+
+// ds = p (dp - stat) in x (0 when ds_zero), p from this thread's slots of
+// `buf`; stat(i) is the delta of register i's query
+template <typename F>
+__device__ __forceinline__ void ds_from_slots(float (&x)[32],
+                                              const float* buf, int ds_zero,
+                                              F stat) {
+  const float4* src =
+      reinterpret_cast<const float4*>(buf) + threadIdx.x % kWGThreads;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const float4 y = src[j * kWGThreads];
+    const float p[4] = {y.x, y.y, y.z, y.w};
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int i = 4 * j + c;
+      x[i] = ds_zero ? 0.f : p[c] * (x[i] - stat(i));
+    }
+  }
+}
+
+// every 16-byte chunk of a tile of `bytes` at `tile` times `scale`,
+// rounded to bf16, split over the CTA's threads (one chunk in flight a
+// thread: it runs beside the dk/dv kernel's 128 accumulator registers)
+__device__ __forceinline__ void scale_tile(uint8_t* tile, uint32_t bytes,
+                                           float scale) {
+  uint4* c = reinterpret_cast<uint4*>(tile);
+#pragma unroll 1
+  for (uint32_t i = threadIdx.x; i < bytes / 16; i += blockDim.x)
+    scale_chunk(c + i, scale);
+}
+
+// dk/dv of 64 keys, cluster rank r's C columns (see above). Shared
+// memory: K, V, 2 stages of [Q, dO], the partner's S^T (then p^T) and
+// dP^T, 2 stages of [lse, delta] (64 floats each), the mbarriers [full
+// 0, full 1, S^T, dP^T, free].
+template <int C>
+__global__ void __launch_bounds__(WideBwd<C>::kThreads, 1)
+fa_dkdv_bf16_cluster_kernel(const __grid_constant__ CUtensorMap map_q,
+                            const __grid_constant__ CUtensorMap map_k,
+                            const __grid_constant__ CUtensorMap map_v,
+                            const __grid_constant__ CUtensorMap map_do,
+                            const float* __restrict__ lse,
+                            const float* __restrict__ delta,
+                            bf16* __restrict__ dk, bf16* __restrict__ dv,
+                            int seq_q, int seq_k, float sm_scale,
+                            float do_scale, float dv_scale, int ds_zero,
+                            int causal) {
+  using P = WideBwd<C>;
+  constexpr int D = 2 * C;
+  extern __shared__ uint8_t smem_bytes[];
+  uint8_t* base = align_1k(smem_bytes);
+  const uint32_t ks = sm90::smem_u32(base);
+  const uint32_t vs = ks + P::kOperand;
+  const uint32_t st0 = vs + P::kOperand;   // stage s: Q, then dO
+  float* xs = reinterpret_cast<float*>(base + 6 * P::kOperand);
+  float* xp = xs + 64 * 64;
+  float* stats = xp + 64 * 64;             // [2][lse, delta][64]
+  const uint32_t bar_full = sm90::smem_u32(stats + 4 * kBQ);  // 2 stages
+  const uint32_t bar_x = bar_full + 16;                    // S^T, dP^T
+  const uint32_t bar_free = bar_full + 32;
+
+  const int rank = (int)blockIdx.x & 1;    // cluster (2, 1, 1)
+  const int tid = threadIdx.x;
+  const int wg = tid / kWGThreads;         // 0: S^T, p, dV; 1: dP^T, ds, dK
+  const int lane = tid & 31;
+  const int tq = tid & 3;
+  const int bh = blockIdx.y;
+  const int k_start = ((int)blockIdx.x >> 1) * kBK;  // heaviest first
+  const int off = seq_k - seq_q;
+  const int col0 = rank * C;
+  const int need = causal ? k_start - off : 0;
+  const int qt0 = max(need, 0) / kBQ;
+  const int n = max((seq_q + kBQ - 1) / kBQ - qt0, 0);
+
+  // q tile qt0 + i (and with the first, K and V) into stage i & 1, one
+  // box a lane of warp 0 an operand
+  auto load = [&](int i) {
+    const uint32_t st = st0 + (i & 1) * 2 * P::kOperand;
+    const uint32_t bar = bar_full + 8 * (i & 1);
+    const int q_start = (qt0 + i) * kBQ;
+    if (lane == 0)
+      sm90::mbarrier_arrive_expect_tx(bar, (i == 0 ? 4 : 2) * P::kOperand);
+    __syncwarp();
+    if (lane < P::kSubs) {
+      const int c = col0 + lane * 64;
+      const uint32_t o = lane * P::kSub;
+      if (i == 0) {
+        sm90::tma_load_3d(ks + o, &map_k, bar, c, k_start, bh);
+        sm90::tma_load_3d(vs + o, &map_v, bar, c, k_start, bh);
+      }
+      sm90::tma_load_3d(st + o, &map_q, bar, c, q_start, bh);
+      sm90::tma_load_3d(st + P::kOperand + o, &map_do, bar, c, q_start, bh);
+    }
+  };
+  if (tid == 0) {
+    for (int b = 0; b < P::kBars; ++b) sm90::mbarrier_init(bar_full + 8 * b, 1);
+    sm90::fence_mbarrier_init();
+  }
+  // both CTAs' mbarriers are there before either signals the other
+  sm90::cluster_arrive();
+  sm90::cluster_wait();
+  if (tid < 32 && n > 0) {
+    load(0);
+    if (n > 1) load(1);
+  }
+  // q tile qt0 + i's lse and delta into stats, and its dO times
+  // do_scale, rounded to bf16, once it lands (the first tile here, each
+  // next one under the dV and dK products of the tile before)
+  auto prepare = [&](int i) {
+    if (tid < 2 * kBQ) {
+      const int r = (qt0 + i) * kBQ + (tid & (kBQ - 1));
+      stats[(i & 1) * 2 * kBQ + tid] =
+          r < seq_q ? (tid < kBQ ? lse : delta)[(size_t)bh * seq_q + r]
+                    : 0.f;
+    }
+    sm90::mbarrier_wait(bar_full + 8 * (i & 1), (i >> 1) & 1);
+    scale_tile(base + (st0 - ks) + (i & 1) * 2 * P::kOperand + P::kOperand,
+               P::kOperand, do_scale);
+    sm90::fence_view_async_shared();
+  };
+  if (n > 0) prepare(0);
+  __syncthreads();
+
+  float* buf = wg == 0 ? xs : xp;          // where the partner's partial lands
+  const uint32_t my_bar = bar_x + 8 * wg;
+
+  float acc[C / 2];                        // dV (warpgroup 0) or dK (1)
+#pragma unroll
+  for (int i = 0; i < C / 2; ++i) acc[i] = 0.f;
+
+  for (int i = 0; i < n; ++i) {
+    const int q_start = (qt0 + i) * kBQ;
+    const uint32_t qsm = st0 + (i & 1) * 2 * P::kOperand;
+    const uint32_t dosm = qsm + P::kOperand;
+    const float* lses = stats + (i & 1) * 2 * kBQ;
+    const float* dels = lses + kBQ;
+    // arm this tile's phase of the partner's partial
+    if (tid % kWGThreads == 0) sm90::mbarrier_arrive_expect_tx(my_bar, P::kX);
+    sm90::mbarrier_wait(bar_full + 8 * (i & 1), (i >> 1) & 1);
+
+    float x[32];
+    // S^T = K.Q^T (warpgroup 0), dP^T = V.dO^T (1)
+    issue_ss_wide<C>(x, wg == 0 ? ks : vs, wg == 0 ? qsm : dosm);
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(x);
+    // the partner's addresses are mapped where they are used: held
+    // through the tile they cost dk/dv at D = 512 a spilled register
+    push_partial(x, sm90::mapa(sm90::smem_u32(buf), rank ^ 1),
+                 sm90::mapa(my_bar, rank ^ 1), bar_free, i);
+    add_partial(x, buf, my_bar, i, rank);
+
+    const bool full = k_start + kBK <= seq_k && q_start + kBQ <= seq_q &&
+                      (!causal || k_start + kBK - 1 <= q_start + off);
+    uint32_t a[4][4];
+    if (wg == 0) {
+      if (full)
+        transposed_probs<false>(x, lses, k_start, q_start, seq_q, seq_k,
+                                off, causal, sm_scale * kLog2e);
+      else
+        transposed_probs<true>(x, lses, k_start, q_start, seq_q, seq_k,
+                               off, causal, sm_scale * kLog2e);
+      put_slots(xs, x);                    // p^T over the partner's S^T
+      named_arrive(kBarP, P::kThreads);
+      to_a_operand(x, a);
+      issue_rs_wide<C>(acc, a, dosm);      // dV += P^T.dO
+    } else {
+      named_sync(kBarP, P::kThreads);
+      ds_from_slots(x, xs, ds_zero, [&](int r) {
+        return dels[8 * (r >> 2) + 2 * tq + (r & 1)];
+      });
+      named_sync(kBarWG1, kWGThreads);     // both partials read
+      if (tid == kWGThreads && i + 1 < n)
+        sm90::mbarrier_arrive_cluster(sm90::mapa(bar_free, rank ^ 1));
+      to_a_operand(x, a);
+      issue_rs_wide<C>(acc, a, qsm);       // dK += dS^T.Q
+    }
+    if (i + 1 < n) prepare(i + 1);         // under dV and dK
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(acc);
+    __syncthreads();  // stage i & 1 is free; the next tile's dO scaled
+    if (tid < 32 && i + 2 < n) load(i + 2);
+  }
+
+  const float f[2] = {wg == 0 ? dv_scale : 1.f, wg == 0 ? dv_scale : 1.f};
+  store_rows_ld<64, false>((wg == 0 ? dv : dk) + (size_t)bh * seq_k * D,
+                           *reinterpret_cast<const float(*)[C / 64][32]>(acc),
+                           f, k_start, col0, seq_k, D);
+  // no CTA leaves while its partner may still write to it
+  sm90::cluster_arrive();
+  sm90::cluster_wait();
+}
+
+// dq of 64 query rows, cluster rank r's C columns (see above), the
+// heaviest q tiles first: warpgroup 0 takes S and p, warpgroup 1 dP, ds
+// and dQ += dS.K and refills the stage dQ has read. Nothing but the
+// exchange ties the two warpgroups, so warpgroup 0's S of tile t + 1 and
+// its exchange run under warpgroup 1's ds and dQ of tile t (it cannot
+// run further ahead: the partner's next partial S lands only once
+// warpgroup 1 has read p). Shared memory: Q, dO, 2 stages of [K, V], the
+// partner's S (then p) and dP, the mbarriers as in dk/dv.
+template <int C>
+__global__ void __launch_bounds__(WideBwd<C>::kThreads, 1)
+fa_dq_bf16_cluster_kernel(const __grid_constant__ CUtensorMap map_q,
+                          const __grid_constant__ CUtensorMap map_k,
+                          const __grid_constant__ CUtensorMap map_v,
+                          const __grid_constant__ CUtensorMap map_do,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          bf16* __restrict__ dq, int seq_q, int seq_k,
+                          float sm_scale, float do_scale, int ds_zero,
+                          int causal) {
+  using P = WideBwd<C>;
+  constexpr int D = 2 * C;
+  extern __shared__ uint8_t smem_bytes[];
+  uint8_t* base = align_1k(smem_bytes);
+  const uint32_t qs = sm90::smem_u32(base);
+  const uint32_t dos = qs + P::kOperand;
+  const uint32_t st0 = dos + P::kOperand;  // stage s: K, then V
+  float* xs = reinterpret_cast<float*>(base + 6 * P::kOperand);
+  float* xp = xs + 64 * 64;
+  const uint32_t bar_full = sm90::smem_u32(xp + 64 * 64);
+  const uint32_t bar_x = bar_full + 16;
+  const uint32_t bar_free = bar_full + 32;
+
+  const int rank = (int)blockIdx.x & 1;
+  const int tid = threadIdx.x;
+  const int wg = tid / kWGThreads;         // 0: S, p; 1: dP, ds, dQ
+  const int lane = tid & 31;
+  const int warp = (tid >> 5) & 3;
+  const int g = lane >> 2;
+  const int bh = blockIdx.y;
+  const int n_qt = (int)gridDim.x >> 1;
+  const int q_start = (n_qt - 1 - ((int)blockIdx.x >> 1)) * kBQ;
+  const int off = seq_k - seq_q;
+  const int col0 = rank * C;
+  const int n = kv_tiles(q_start, kBQ, seq_q, seq_k, causal);
+
+  // kv tile t (and with the first, Q and dO) into stage t & 1
+  auto load = [&](int t) {
+    const uint32_t st = st0 + (t & 1) * 2 * P::kOperand;
+    const uint32_t bar = bar_full + 8 * (t & 1);
+    if (lane == 0)
+      sm90::mbarrier_arrive_expect_tx(bar, (t == 0 ? 4 : 2) * P::kOperand);
+    __syncwarp();
+    if (lane < P::kSubs) {
+      const int c = col0 + lane * 64;
+      const uint32_t o = lane * P::kSub;
+      if (t == 0) {
+        sm90::tma_load_3d(qs + o, &map_q, bar, c, q_start, bh);
+        sm90::tma_load_3d(dos + o, &map_do, bar, c, q_start, bh);
+      }
+      sm90::tma_load_3d(st + o, &map_k, bar, c, t * kBK, bh);
+      sm90::tma_load_3d(st + P::kOperand + o, &map_v, bar, c, t * kBK, bh);
+    }
+  };
+  if (tid == 0) {
+    for (int b = 0; b < P::kBars; ++b) sm90::mbarrier_init(bar_full + 8 * b, 1);
+    sm90::fence_mbarrier_init();
+  }
+  sm90::cluster_arrive();
+  sm90::cluster_wait();
+  if (tid < 32 && n > 0) {
+    load(0);
+    if (n > 1) load(1);
+  }
+  if (n > 0) {                             // dO * do_scale, once
+    sm90::mbarrier_wait(bar_full, 0);
+    scale_tile(base + P::kOperand, P::kOperand, do_scale);
+    sm90::fence_view_async_shared();
+  }
+  __syncthreads();
+
+  // lse (warpgroup 0) or delta (1) of the thread's two rows
+  float stat[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = q_start + 16 * warp + g + 8 * h;
+    stat[h] = row < seq_q ? (wg == 0 ? lse : delta)[(size_t)bh * seq_q + row]
+                          : 0.f;
+  }
+  float* buf = wg == 0 ? xs : xp;
+  const uint32_t my_bar = bar_x + 8 * wg;
+
+  float acc[C / 2];                        // dQ (warpgroup 1)
+#pragma unroll
+  for (int i = 0; i < C / 2; ++i) acc[i] = 0.f;
+
+  for (int t = 0; t < n; ++t) {
+    const int k_start = t * kBK;
+    const uint32_t kst = st0 + (t & 1) * 2 * P::kOperand;
+    if (tid % kWGThreads == 0) sm90::mbarrier_arrive_expect_tx(my_bar, P::kX);
+    sm90::mbarrier_wait(bar_full + 8 * (t & 1), (t >> 1) & 1);
+
+    float x[32];
+    // S = Q.K^T (warpgroup 0), dP = dO.V^T (1)
+    issue_ss_wide<C>(x, wg == 0 ? qs : dos, kst + wg * P::kOperand);
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(x);
+    push_partial(x, sm90::mapa(sm90::smem_u32(buf), rank ^ 1),
+                 sm90::mapa(my_bar, rank ^ 1), bar_free, t);
+    add_partial(x, buf, my_bar, t, rank);
+
+    const bool full = k_start + kBK <= seq_k && q_start + kBQ <= seq_q &&
+                      (!causal || k_start + kBK - 1 <= q_start + off);
+    if (wg == 0) {
+      if (full)
+        row_probs<false>(x, stat, q_start, k_start, seq_q, seq_k, off,
+                         causal, sm_scale * kLog2e);
+      else
+        row_probs<true>(x, stat, q_start, k_start, seq_q, seq_k, off,
+                        causal, sm_scale * kLog2e);
+      put_slots(xs, x);                    // p over the partner's S
+      named_arrive(kBarP, P::kThreads);
+    } else {
+      named_sync(kBarP, P::kThreads);
+      ds_from_slots(x, xs, ds_zero, [&](int r) { return stat[(r >> 1) & 1]; });
+      named_sync(kBarWG1, kWGThreads);     // both partials read
+      if (tid == kWGThreads && t + 1 < n)
+        sm90::mbarrier_arrive_cluster(sm90::mapa(bar_free, rank ^ 1));
+      uint32_t a[4][4];
+      to_a_operand(x, a);
+      issue_rs_wide<C>(acc, a, kst);       // dQ += dS.K
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(acc);
+      // stage t & 1 is free (warpgroup 0's S of tile t is long done)
+      if (tid < kWGThreads + 32 && t + 2 < n) load(t + 2);
+    }
+  }
+
+  if (wg == 1) {
+    const float one[2] = {1.f, 1.f};
+    store_rows_ld<64, false>(
+        dq + (size_t)bh * seq_q * D,
+        *reinterpret_cast<const float(*)[C / 64][32]>(acc), one, q_start,
+        col0, seq_q, D);
+  }
+  sm90::cluster_arrive();
+  sm90::cluster_wait();
+}
+
 // ------------------------------------------------------------- launches
 // bf16: 1 KB of alignment slack, then the tiles (and dk/dv's lse/delta)
 template <int D>
@@ -2967,6 +3448,60 @@ cudaError_t launch_fwd_wide_bf16(const void* q, const void* k, const void* v,
                                        sm_scale, causal, stream);
 }
 
+// The backward at D = 2 C (384 or 512): dk/dv, then dq, each a grid of
+// clusters of 2 CTAs, one cluster a 64-row tile
+template <int C>
+cudaError_t launch_bwd_cluster(const void* q, const void* k, const void* v,
+                               const void* dout, const void* lse,
+                               const void* delta, void* dq, void* dk,
+                               void* dv, int BH, int seq_q, int seq_k,
+                               float sm_scale, float do_scale,
+                               float dv_scale, int ds_zero, int causal,
+                               cudaStream_t stream) {
+  using P = WideBwd<C>;
+  constexpr int D = 2 * C;
+  auto dkdv = fa_dkdv_bf16_cluster_kernel<C>;
+  auto dqk = fa_dq_bf16_cluster_kernel<C>;
+  CUtensorMap tq, tk, tv, tdo;
+  cudaError_t e = tile_map(&tq, q, BH, seq_q, D);
+  if (e == cudaSuccess) e = tile_map(&tk, k, BH, seq_k, D);
+  if (e == cudaSuccess) e = tile_map(&tv, v, BH, seq_k, D);
+  if (e == cudaSuccess) e = tile_map(&tdo, dout, BH, seq_q, D);
+  if (e == cudaSuccess) e = allow_smem(dkdv, P::kSmem);
+  if (e == cudaSuccess) e = allow_smem(dqk, P::kSmem);
+  if (e != cudaSuccess) return e;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 2;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.blockDim = dim3(P::kThreads);
+  cfg.dynamicSmemBytes = P::kSmem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cfg.gridDim = dim3((unsigned)((seq_k + kBK - 1) / kBK * 2), (unsigned)BH);
+  e = cudaLaunchKernelEx(&cfg, dkdv, tq, tk, tv, tdo,
+                         static_cast<const float*>(lse),
+                         static_cast<const float*>(delta),
+                         static_cast<bf16*>(dk), static_cast<bf16*>(dv),
+                         seq_q, seq_k, sm_scale, do_scale, dv_scale, ds_zero,
+                         causal);
+  if (e == cudaSuccess) e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  cfg.gridDim = dim3((unsigned)((seq_q + kBQ - 1) / kBQ * 2), (unsigned)BH);
+  e = cudaLaunchKernelEx(&cfg, dqk, tq, tk, tv, tdo,
+                         static_cast<const float*>(lse),
+                         static_cast<const float*>(delta),
+                         static_cast<bf16*>(dq), seq_q, seq_k, sm_scale,
+                         do_scale, ds_zero, causal);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
+// bf16 above D = 256 (wide_bwd_plan): at D = 384 and 512 the clusters,
+// S and dP once a tile pair; above, one CTA a kWC-column slice
 cudaError_t launch_bwd_wide_bf16(const void* q, const void* k, const void* v,
                                  const void* dout, const void* lse,
                                  const void* delta, void* dq, void* dk,
@@ -2974,6 +3509,14 @@ cudaError_t launch_bwd_wide_bf16(const void* q, const void* k, const void* v,
                                  int D, float sm_scale, float do_scale,
                                  float dv_scale, int ds_zero, int causal,
                                  cudaStream_t stream) {
+  if (D == 384)
+    return launch_bwd_cluster<192>(q, k, v, dout, lse, delta, dq, dk, dv, BH,
+                                   seq_q, seq_k, sm_scale, do_scale,
+                                   dv_scale, ds_zero, causal, stream);
+  if (D == 512)
+    return launch_bwd_cluster<256>(q, k, v, dout, lse, delta, dq, dk, dv, BH,
+                                   seq_q, seq_k, sm_scale, do_scale,
+                                   dv_scale, ds_zero, causal, stream);
   const dim3 gk((seq_k + 63) / 64, BH, D / kWC);
   const dim3 gq((seq_q + 63) / 64, BH, D / kWC);
   cudaError_t e =

@@ -123,6 +123,40 @@ __device__ __forceinline__ void st_async(uint32_t addr, float v,
       : "memory");
 }
 
+// A 16-byte store into a peer CTA's shared memory (16-byte aligned), as
+// st_async: 16 transaction bytes on the peer's mbarrier `bar`.
+__device__ __forceinline__ void st_async_v4(uint32_t addr, float a, float b,
+                                            float c, float d, uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], "
+      "{%1, %2, %3, %4}, [%5];\n" ::"r"(addr),
+      "f"(a), "f"(b), "f"(c), "f"(d), "r"(bar)
+      : "memory");
+}
+
+// mbarrier_wait with acquire at cluster scope: for a phase completed by
+// a peer CTA (its st.async bytes, or its remote arrive).
+__device__ __forceinline__ void mbarrier_wait_cluster(uint32_t bar,
+                                                      uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred p;\nWAIT:\n"
+      "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%0], "
+      "%1;\n"
+      "@!p bra WAIT;\n}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// One arrival on a peer CTA's mbarrier (a shared::cluster address, from
+// mapa), releasing this thread's earlier shared-memory accesses to the
+// cluster.
+__device__ __forceinline__ void mbarrier_arrive_cluster(uint32_t bar) {
+  asm volatile(
+      "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(
+          bar)
+      : "memory");
+}
+
 // The cluster barrier in two halves: every thread of every CTA of the
 // cluster arrives (its earlier shared-memory writes released to the
 // cluster), then waits for all of them (acquiring theirs). A thread

@@ -27,7 +27,8 @@ LSE.
 
 The kernels take fp32 or bf16. bf16 runs its products on the tensor
 cores (wgmma, operands streamed into swizzled shared memory by
-cp.async); fp32 runs on the SIMT cores, since the tensor cores would
+cp.async, or by TMA in the forward above D = 256 and the backward at
+384 and 512); fp32 runs on the SIMT cores, since the tensor cores would
 round its operands to TF32: register-blocked products from shared
 memory, the swept operand streamed by cp.async, and the score products
 split over the warps by their D reduction and summed once a tile. Both
@@ -48,9 +49,12 @@ thread-block cluster above 512; `wide_fwd_plan`): each warpgroup holds
 its sub-tiles of Q, K, V and O, and the partial scores are summed in a
 fixed order, so the scores are computed once a tile over the whole D;
 it writes one lse row. The bf16 backward there splits its gradients'
-columns (`column_slices`): each CTA owns WIDE_COLS columns of dq, dk
-and dv and computes the scores over the full D, streamed in
-WIDE_COLS-column chunks. bf16 takes head dims up to BF16_MAX_HEAD_DIM.
+columns (`column_slices`, `wide_bwd_plan`): at D = 384 and 512 over a
+cluster of two CTAs of D / 2 columns each, which exchange their partial
+scores (summed in rank order), so the scores are computed once a tile
+pair; above 512 each CTA owns WIDE_COLS columns of dq, dk and dv and
+computes the scores over the full D, streamed in WIDE_COLS-column
+chunks. bf16 takes head dims up to BF16_MAX_HEAD_DIM.
 The fp32 kernels compute the scores once a tile at every D, one CTA a
 tile, and write one lse row.
 
@@ -86,6 +90,8 @@ HEAD_DIMS = (32, 64, 128, 256)  # csrc/flash_attention.cu instantiations
 WIDE_COLS = 128                # bf16: columns a slice above 256 (csrc kWC)
 F32_MAX_HEAD_DIM = 2048        # fp32 kernels' largest head dim (kMaxF32Dim)
 BF16_MAX_HEAD_DIM = 4096       # bf16: the forward's 16 ranks x 4 sub-tiles
+WIDE_BWD_RANKS = 2             # bf16 backward at 384 and 512: a cluster
+WIDE_BWD_MAX_DIM = 512         # of 2 CTAs of D / 2 columns (csrc WideBwd)
 MAX_SHARED_BYTES = 232448      # shared memory a CTA may use (227 KB)
 BWD_LAUNCHES = 2               # dk/dv kernel, then dq kernel
 MAX_BH = 65535                 # grid.y of every launch
@@ -311,9 +317,10 @@ def column_slices(dp: int, dtype: torch.dtype) -> int:
     """CTAs a tile of the backward takes at the kernel head dim `dp`
     (`kernel_head_dim`) in `dtype`: 1 at the instantiations of HEAD_DIMS
     and for fp32 at every D (one CTA a tile computes the scores once and
-    holds the whole gradient row; up to F32_MAX_HEAD_DIM), else one a
-    WIDE_COLS-column slice of dq, dk and dv, the bf16 column-split
-    backward kernels (up to BF16_MAX_HEAD_DIM)."""
+    holds the whole gradient row; up to F32_MAX_HEAD_DIM); in bf16 2 at
+    D = 384 and 512 (a cluster of two CTAs of D / 2 columns of dq, dk
+    and dv), else one a WIDE_COLS-column slice, the column-split
+    backward kernels (up to BF16_MAX_HEAD_DIM; `wide_bwd_plan`)."""
     if dp not in HEAD_DIMS and (dp <= HEAD_DIMS[-1] or dp % WIDE_COLS):
         raise ValueError(f"flash_attention kernels run at head dims "
                          f"{HEAD_DIMS} or multiples of {WIDE_COLS} above "
@@ -326,7 +333,49 @@ def column_slices(dp: int, dtype: torch.dtype) -> int:
     if dp > BF16_MAX_HEAD_DIM:
         raise ValueError(f"flash_attention's bf16 kernels take head dims "
                          f"up to {BF16_MAX_HEAD_DIM}, got {dp}")
-    return 1 if dp in HEAD_DIMS else dp // WIDE_COLS
+    if dp in HEAD_DIMS:
+        return 1
+    return WIDE_BWD_RANKS if dp <= WIDE_BWD_MAX_DIM else dp // WIDE_COLS
+
+
+def wide_bwd_plan(dp: int) -> dict:
+    """The bf16 backward's layout above D = 256 at the kernel head dim
+    `dp` (csrc/flash_attention.cu WideBwd and launch_bwd_wide_bf16), the
+    same for its two kernels (dk/dv, then dq). `route` "cluster" at D =
+    384 and 512: a cluster of `ranks` = 2 CTAs a 64-row tile, each
+    owning `cols` = dp / 2 columns of dK and dV (or dQ) and reading only
+    those of every operand, two warpgroups a CTA (one takes the partial
+    S, the other the partial dP, over the CTA's columns, each exchanged
+    with the partner CTA and summed in rank order), so a tile pair's S
+    and dP are computed once (`score_passes` 1). "slices" above: one
+    warpgroup a CTA a WIDE_COLS-column slice (grid.z), each computing S
+    and dP over the full D (`score_passes` dp / WIDE_COLS). `smem` is
+    the CTA's dynamic shared memory (the dk/dv kernel's, the larger):
+    1 KB of alignment slack, then for the cluster the two resident
+    operands, 2 stages of the two swept ones, the partner's two fp32
+    partials, the lse and delta of 2 q tiles and 5 mbarriers; for the
+    slices 2 stages of four 64-row chunk tiles and the lse and delta of
+    2 q tiles. `acc_registers` is the fp32 accumulator registers a
+    thread (a warpgroup's 64 rows x its columns of one gradient in the
+    cluster; dK and dV of a slice)."""
+    column_slices(dp, torch.bfloat16)
+    if dp in HEAD_DIMS:
+        raise ValueError(f"wide_bwd_plan is the layout above "
+                         f"{HEAD_DIMS[-1]}, got {dp}")
+    rows = KERNEL_BLOCK_K
+    if dp <= WIDE_BWD_MAX_DIM:
+        cols = dp // WIDE_BWD_RANKS
+        return {"route": "cluster", "ranks": WIDE_BWD_RANKS,
+                "warpgroups": 2, "cols": cols, "rows": rows,
+                "score_passes": 1,
+                "smem": (1024 + 6 * rows * cols * 2 + 2 * rows * rows * 4
+                         + 2 * 2 * rows * 4 + 8 * 5),
+                "acc_registers": rows * cols // 128}
+    return {"route": "slices", "ranks": dp // WIDE_COLS, "warpgroups": 1,
+            "cols": WIDE_COLS, "rows": rows,
+            "score_passes": dp // WIDE_COLS,
+            "smem": 1024 + 8 * rows * WIDE_COLS * 2 + 2 * 2 * rows * 4,
+            "acc_registers": 2 * rows * WIDE_COLS // 128}
 
 
 def wide_fwd_plan(dp: int) -> dict:

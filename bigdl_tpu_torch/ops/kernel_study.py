@@ -13,6 +13,8 @@ no JAX counterpart.
     python3 -m bigdl_tpu_torch.ops.kernel_study --old .cmp/old --parts flash_f32
     python3 -m bigdl_tpu_torch.ops.kernel_study --old .cmp/old \
         --parts k1_wide,flash_bf16_wide      # <rev> 5f8b0cf: both sources
+    python3 -m bigdl_tpu_torch.ops.kernel_study --old .cmp/old \
+        --parts flash_bf16_wide_bwd          # <rev> 96b28fd: flash_attention.cu
 
 `--parts` picks what runs (default k9,k10,layouts,phases), each part
 printing one JSON line; old and new always run in turns (old, new, new,
@@ -93,7 +95,25 @@ old; `chip_smoke.cuda_ms`, L2 flushed):
   ragged_d320 and train_h1, and untimed at masked_d512, wide_d1000,
   wide_d2000 and D = 4096 (a non-portable cluster of 16), their
   outputs' and lse's largest difference; the forward kernels' ptxas
-  reports and SASS counts (HGMMA, UTMALDG: TMA loads), old and new.
+  reports and SASS counts (HGMMA, UTMALDG: TMA loads), old and new;
+* `flash_bf16_wide_bwd` (old: the flash-attention source of commit
+  96b28fd or earlier, whose bf16 backward above D = 256 is one CTA a
+  128-column slice, each recomputing S and dP over the full D): old and
+  new bf16 backward (both launches) through the C entry points on the
+  same padded operands and the same forward's (o, lse), in turns, at
+  chip_smoke's ragged_d320, train_h1, masked_d512, wide_d1000 and
+  wide_d2000, and untimed at D = 4096; their gradients' largest
+  difference, the new one's bf16 ulps and mismatch share against
+  `flash_backward_tiled` (chip_smoke's `_ulp_stats` with each element's
+  largest term), whether two new calls give the same bits; the
+  backward kernels' ptxas reports and SASS counts (HGMMA, UTMALDG,
+  the SYNCS and st.async / bulk-copy opcodes: every opcode of the new
+  cluster kernels is listed), old and new; and, from a copy of this
+  tree's source with `clock64` counters (`_exchange_clock_source`), the
+  cluster kernels' cycles a tile at train_h1 and ragged_d320 (bh 0,
+  warp 0 of each warpgroup of each rank): the whole tile, and in the
+  exchange the wait for the partner's release, the push, the wait for
+  the partner's partial and the sum.
 
 Builds go to <old>/build (.cmp/build without --old). Every JSON line
 is also appended to chiprun_out/kernel_study.jsonl.
@@ -430,7 +450,7 @@ def _sass_counts(so: Path, match: str) -> dict:
     sass = subprocess.run([str(tool), "-sass", str(so)], capture_output=True,
                           text=True, timeout=300, check=True).stdout
     kinds = ("LDG", "STG", "LDS", "LDS.128", "STS", "BAR", "FFMA", "MUFU",
-             "BRA", "HGMMA", "UTMALDG")
+             "BRA", "HGMMA", "UTMALDG", "STAS", "UBLKCP", "SYNCS")
     out, name = {}, None
     for ln in sass.splitlines():
         m = re.search(r"Function : (\w+)", ln)
@@ -1179,8 +1199,218 @@ def part_flash_bf16_wide(torch, cs, build: Path, logs, flush,
                              "fwd_bf16_wide")}})
 
 
+def _sass_opcodes(so: Path, match: str) -> dict:
+    """Per kernel whose mangled name holds `match`: the count of every
+    SASS opcode (predicates dropped, modifiers kept)."""
+    from bigdl_tpu_torch.ops import _build
+
+    tool = Path(_build.nvcc_path()).parent / "cuobjdump"
+    sass = subprocess.run([str(tool), "-sass", str(so)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    out, name = {}, None
+    for ln in sass.splitlines():
+        m = re.search(r"Function : (\w+)", ln)
+        if m:
+            name = m.group(1) if match in m.group(1) else None
+            if name:
+                out[name] = {}
+        elif name and re.search(r"/\*[0-9a-f]{4,}\*/", ln):
+            ops = ln.split("*/", 1)[1].strip().rstrip(" ;").split(" ")
+            op = ops[1] if ops[0].startswith("@") and len(ops) > 1 else ops[0]
+            out[name][op] = out[name].get(op, 0) + 1
+    return out
+
+
+# clock64 counters in the cluster backward kernels: (anchor, text put
+# after it, or before it when the anchor starts with the text's place)
+_EXCHANGE_FIELDS = ("free_wait", "push", "partner_wait", "sum", "tiles",
+                    "tile_cycles")
+
+
+def _exchange_clock_source(src: str) -> str:
+    """csrc/flash_attention.cu with clock64 deltas of the cluster
+    backward's exchange (`push_partial`: the wait for the partner's
+    release, the push; `add_partial`: the wait for the partner's
+    partial, the sum) and of each tile, summed over the CTAs of bh 0 by
+    warp 0 of each warpgroup into ks_clk[((kind * 2 + rank) * 2 +
+    warpgroup) * 6 + field] (kind 0 dk/dv, 1 dq; fields
+    _EXCHANGE_FIELDS), read and zeroed through added
+    `kernel_study_clk(out)` / `kernel_study_clk_zero()`."""
+    on = "(blockIdx.y == 0 && (threadIdx.x & 127) == 0)"
+    slot = "((kind_ * 2 + (blockIdx.x & 1)) * 2 + threadIdx.x / 128) * 6"
+    push = "    uint32_t free_bar, int tile) {\n"
+    src = _replace_once(src, push, push[:-4] + (
+        ", long long& c0_, long long& cf_) {\n  c0_ = clock64();\n"))
+    wait_free = ("  if (tile > 0) sm90::mbarrier_wait_cluster(free_bar, "
+                 "(tile - 1) & 1);\n")
+    src = _replace_once(src, wait_free, wait_free + "  cf_ = clock64();\n")
+    add = ("    int rank) {\n  const int wt = threadIdx.x % kWGThreads;\n"
+           "  sm90::mbarrier_wait_cluster(bar, tile & 1);\n")
+    src = _replace_once(src, add, add.replace(
+        "int rank) {", "int rank, long long& cw_) {") + "  cw_ = clock64();\n")
+    src = _replace_once(src, "__device__ __forceinline__ void push_partial(",
+                        "__device__ unsigned long long ks_clk[48];\n"
+                        "__device__ __forceinline__ void push_partial(")
+    record = (
+        "    asm volatile(\"\" ::\"f\"(x[31]));\n"
+        f"    if {on} {{\n      const int s_ = {slot};\n"
+        "      atomicAdd(&ks_clk[s_ + 0], (unsigned long long)(cf_ - c0_));\n"
+        "      atomicAdd(&ks_clk[s_ + 1], (unsigned long long)(cp_ - cf_));\n"
+        "      atomicAdd(&ks_clk[s_ + 2], (unsigned long long)(cw_ - ca_));\n"
+        "      atomicAdd(&ks_clk[s_ + 3], (unsigned long long)(clock64() - "
+        "cw_));\n      atomicAdd(&ks_clk[s_ + 4], 1ull);\n    }\n")
+    for kind, var, loop, tail in (
+            (0, "i", "  for (int i = 0; i < n; ++i) {\n    const int q_start",
+             "    if (tid < 32 && i + 2 < n) load(i + 2);\n"),
+            (1, "t", "  for (int t = 0; t < n; ++t) {\n    const int k_start "
+             "= t * kBK;\n    const uint32_t kst",
+             "      if (tid < kWGThreads + 32 && t + 2 < n) load(t + 2);\n"
+             "    }\n")):
+        call = ("                 sm90::mapa(my_bar, rank ^ 1), bar_free, "
+                f"{var});\n")
+        src = _replace_once(src, call, call.replace(
+            f"{var});", f"{var}, c0_, cf_);") + "    const long long cp_ = "
+            "clock64();\n")
+        call = f"    add_partial(x, buf, my_bar, {var}, rank);\n"
+        src = _replace_once(src, call, (
+            "    const long long ca_ = clock64();\n"
+            + call.replace("rank);", "rank, cw_);") + record))
+        first = loop.split("\n", 1)
+        src = _replace_once(src, loop, first[0] + "\n    const long long it0_"
+                            " = clock64();\n    const int kind_ = "
+                            f"{kind};\n    long long c0_, cf_, cw_;\n"
+                            + first[1])
+        src = _replace_once(src, tail, tail + (
+            f"    if {on}\n      atomicAdd(&ks_clk[{slot} + 5], "
+            "(unsigned long long)(clock64() - it0_));\n"))
+    return src + (
+        '\nextern "C" int kernel_study_clk(unsigned long long* h) {\n'
+        "  return (int)cudaMemcpyFromSymbol(h, ks_clk, sizeof(ks_clk));\n}\n"
+        'extern "C" int kernel_study_clk_zero() {\n'
+        "  static const unsigned long long z[48] = {};\n"
+        "  return (int)cudaMemcpyToSymbol(ks_clk, z, sizeof(z));\n}\n")
+
+
+def part_flash_bf16_wide_bwd(torch, cs, build: Path, logs, flush,
+                             stream) -> None:
+    """Old and new bf16 flash backward above D = 256; the cluster
+    kernels' exchange cycles from a clock64 copy."""
+    from bigdl_tpu_torch.ops import _build
+    fa = importlib.import_module("bigdl_tpu_torch.ops.flash_attention")
+
+    libs = {"old": _flash_lib(build / "old_fa_bwd.so"),
+            "new": _flash_lib(_build.library_path("flash_attention")),
+            "clock": _flash_lib(build / "fa_clock.so")}
+    clk = ctypes.CDLL(str(build / "fa_clock.so"))
+    clk.kernel_study_clk.argtypes = [VOID]
+    cases = {c[0]: c[1:] for c in cs.FLASH_CASES}
+    cases["d4096"] = (1, 100, 140, 4096, True, None)
+    out, clocks = {}, {}
+    for name in ("ragged_d320", "train_h1", "masked_d512", "wide_d1000",
+                 "wide_d2000", "d4096"):
+        bh, sq, sk, d, causal, scale = cases[name]
+        scale = 1.0 / d ** 0.5 if scale is None else scale
+        g = torch.Generator(device="cuda").manual_seed(sq * 7 + sk)
+        q, do = (torch.randn(bh, sq, d, device="cuda", generator=g,
+                             dtype=torch.bfloat16) for _ in range(2))
+        k, v = (torch.randn(bh, sk, d, device="cuda", generator=g,
+                            dtype=torch.bfloat16) for _ in range(2))
+        o, lse = fa.flash_fwd_cuda(q, k, v, causal, scale)
+        delta = ((do.float() * o.float()).sum(-1) * scale).contiguous()
+        qp, kp, vp, dop = fa.pad_head_dim(q, k, v, do)
+        dp = qp.shape[-1]
+        res = {}
+        for who, lib in libs.items():
+            grads = [torch.empty_like(t) for t in (qp, kp, vp)]
+
+            def bwd(lib=lib, grads=grads, who=who):
+                err = lib.bigdl_flash_bwd(
+                    qp.data_ptr(), kp.data_ptr(), vp.data_ptr(),
+                    dop.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                    *(t.data_ptr() for t in grads), bh, sq, sk, dp, scale,
+                    scale, 1.0 / scale, 0, int(causal), 1, stream)
+                if err:
+                    raise RuntimeError(f"{who} backward: cudaError {err}")
+
+            if who == "clock":
+                if name not in ("train_h1", "ragged_d320"):
+                    continue
+                buf = (ctypes.c_ulonglong * 48)()
+                clk.kernel_study_clk_zero()
+                bwd()
+                torch.cuda.synchronize()
+                clk.kernel_study_clk(buf)
+                per = {}
+                for kind, kname in enumerate(("dkdv", "dq")):
+                    for rank in range(2):
+                        for wg in range(2):
+                            b = ((kind * 2 + rank) * 2 + wg) * 6
+                            f = dict(zip(_EXCHANGE_FIELDS, buf[b:b + 6]))
+                            tiles = max(f.pop("tiles"), 1)
+                            per[f"{kname}/rank{rank}/wg{wg}"] = {
+                                key: val / tiles for key, val in f.items()}
+                            per[f"{kname}/rank{rank}/wg{wg}"]["tiles"] = tiles
+                clocks[name] = per
+                continue
+            bwd()
+            torch.cuda.synchronize()
+            res[who] = {"bwd": bwd, "grads": [t[..., :d] for t in grads]}
+        again = [torch.empty_like(t) for t in (qp, kp, vp)]
+        err = libs["new"].bigdl_flash_bwd(
+            qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), dop.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), *(t.data_ptr() for t in again),
+            bh, sq, sk, dp, scale, scale, 1.0 / scale, 0, int(causal), 1,
+            stream)
+        torch.cuda.synchronize()
+        if err:
+            raise RuntimeError(f"new backward: cudaError {err}")
+        fg = fa.flash_backward_tiled(q, k, v, o, lse, do, causal, scale)
+        terms = cs._largest_terms(fa, q, k, v, o, lse, do, causal, scale)
+        names = ("dq", "dk", "dv")
+        out[name] = {
+            "shape": {"BH": bh, "Sq": sq, "Sk": sk, "D": d, "kernel_D": dp,
+                      "causal": causal},
+            "plan": fa.wide_bwd_plan(dp),
+            "max_abs_diff": {n: float((a.float() - b.float()).abs().max())
+                             for n, a, b in zip(names, res["old"]["grads"],
+                                                res["new"]["grads"])},
+            "new_vs_tiled": {n: cs._ulp_stats(a.contiguous(), b, t)
+                             for n, a, b, t in zip(
+                                 names, res["new"]["grads"], fg, terms[1:])},
+            "old_vs_tiled": {n: cs._ulp_stats(a.contiguous(), b, t)
+                             for n, a, b, t in zip(
+                                 names, res["old"]["grads"], fg, terms[1:])},
+            "new_bitwise_run_to_run": all(
+                torch.equal(a[..., :d], b)
+                for a, b in zip(again, res["new"]["grads"])),
+        }
+        if name != "d4096":
+            us = _turns(cs, {w: res[w]["bwd"] for w in ("old", "new")},
+                        flush, reps=10, warmup=2)
+            out[name]["bwd_us"] = us
+            out[name]["bwd_speedup"] = min(us["old"]) / max(min(us["new"]),
+                                                            1e-9)
+        del q, k, v, do, o, lse, delta, qp, kp, vp, dop, res, again, fg
+        del terms
+        torch.cuda.empty_cache()
+    _emit({"flash_bf16_wide_bwd": out})
+    _emit({"flash_bf16_wide_bwd_clocks": {
+        "note": "cycles a tile, means over the tiles of bh 0's CTAs, "
+                "warp 0 of each warpgroup", **clocks}})
+    so = _build.library_path("flash_attention")
+    log = _build.BUILD_LOG["flash_attention"]
+    _emit({"flash_bf16_wide_bwd_build": {
+        "old": {m: _build_report(build / "old_fa_bwd.so", logs["old_fa_bwd"],
+                                 m)
+                for m in ("dkdv_bf16_wide", "dq_bf16_wide")},
+        "new": {m: _build_report(so, log, m)
+                for m in ("bf16_cluster", "dkdv_bf16_wide", "dq_bf16_wide")},
+        "new_cluster_opcodes": _sass_opcodes(so, "bf16_cluster")}})
+
+
 PARTS = ("k9", "k10", "layouts", "phases", "k1_k11", "k11_phases", "k8",
-         "k8_phases", "e2e", "flash_f32", "k1_wide", "flash_bf16_wide")
+         "k8_phases", "e2e", "flash_f32", "k1_wide", "flash_bf16_wide",
+         "flash_bf16_wide_bwd")
 
 
 def main(argv=None) -> int:
@@ -1188,8 +1418,8 @@ def main(argv=None) -> int:
     ap.add_argument("--old", type=Path,
                     help="directory of the earlier fused_rnn.cu (and "
                          "paged_decode.cu for k1_k11 and k1_wide, "
-                         "flash_attention.cu for flash_f32 and "
-                         "flash_bf16_wide)")
+                         "flash_attention.cu for flash_f32, "
+                         "flash_bf16_wide and flash_bf16_wide_bwd)")
     ap.add_argument("--parts", default="k9,k10,layouts,phases",
                     help=f"comma-separated, of {','.join(PARTS)}")
     ap.add_argument("--old-tree", type=Path,
@@ -1200,7 +1430,7 @@ def main(argv=None) -> int:
         if p not in PARTS:
             ap.error(f"unknown part {p!r}")
     needs_old = {"k9", "k10", "k1_k11", "k8", "flash_f32", "k1_wide",
-                 "flash_bf16_wide"}
+                 "flash_bf16_wide", "flash_bf16_wide_bwd"}
     if args.old is None and set(parts) & needs_old:
         ap.error(f"--old is needed for {', '.join(sorted(needs_old))}")
     if args.old_tree is None and "e2e" in parts:
@@ -1273,8 +1503,17 @@ def main(argv=None) -> int:
         procs["old_fa_wide"] = _nvcc(old / "flash_attention.cu",
                                      build / "old_fa_wide.so",
                                      include=_build.CSRC)
+    if "flash_bf16_wide_bwd" in parts:
+        procs["old_fa_bwd"] = _nvcc(old / "flash_attention.cu",
+                                    build / "old_fa_bwd.so",
+                                    include=_build.CSRC)
+        (build / "fa_clock.cu").write_text(_exchange_clock_source(
+            (_build.CSRC / "flash_attention.cu").read_text()))
+        procs["fa_clock"] = _nvcc(build / "fa_clock.cu", build / "fa_clock.so",
+                                  include=_build.CSRC)
     _build.build(["paged_decode", "fused_rnn"]
-                 + (["flash_attention"] if {"flash_f32", "flash_bf16_wide"}
+                 + (["flash_attention"] if {"flash_f32", "flash_bf16_wide",
+                                            "flash_bf16_wide_bwd"}
                     & set(parts) else []))
     logs = _wait(procs)
     _emit({"device": torch.cuda.get_device_name(0),
@@ -1306,6 +1545,8 @@ def main(argv=None) -> int:
             part_k1_wide(torch, cs, build, logs, flush, stream)
         elif p == "flash_bf16_wide":
             part_flash_bf16_wide(torch, cs, build, logs, flush, stream)
+        elif p == "flash_bf16_wide_bwd":
+            part_flash_bf16_wide_bwd(torch, cs, build, logs, flush, stream)
         else:
             part_k11_phases(torch, cs, fr, build, stream)
     return 0

@@ -65,7 +65,9 @@ It drives `bigdl_tpu_torch` only (never JAX or the JAX package):
    every D); bf16 also element by element (in bf16 ulps)
    against the plain versions that round where the kernels round, while
    the same versions without the roundings must fail that check; two
-   backward runs bitwise equal; gradients through both outputs of
+   backward runs bitwise equal (in bf16 at FLASH_BITWISE_CASES, the
+   cluster backward at D = 512 and 384, a third run after an L2 flush
+   too); gradients through both outputs of
    flash_attention_with_lse, kernels vs plain; kernel, plain and SDPA
    (library yardstick) times at the three training shapes, the long
    sequence, D = 160 (the padding's cost), D = 320 and the dense
@@ -628,6 +630,14 @@ FLASH_D256_DESIGN = {
 # warpgroups a CTA, 64-column sub-tiles a warpgroup, K buffers
 # (csrc/flash_attention.cu WideFwd: D = 384, D = 512, a cluster above)
 FLASH_WIDE_FWD_INSTANCES = ("2,3,2", "2,4,1", "1,4,1")
+# the bf16 backward's cluster instantiations <C> at D = 384 and 512:
+# columns a CTA (csrc/flash_attention.cu WideBwd; above D = 512 the
+# column-split kernels)
+FLASH_WIDE_BWD_INSTANCES = ("192", "256")
+# the cases whose bf16 backward is also run a third time, after an L2
+# flush into fresh buffers, and held bitwise to the first: the cluster
+# backward at D = 512 and 384 exchanges partial scores between its CTAs
+FLASH_BITWISE_CASES = ("train_h1", "ragged_d320")
 # the fp32 kernels' instantiations <RM, CN, RT>: rows and accumulator
 # columns a lane, exact or (RT) a bound read at run time, by kernel
 # (csrc/flash_attention.cu fwd_plan, dq_plan, dkdv_plan); "pp" the
@@ -673,9 +683,11 @@ WITH_LSE_CASES = ("ragged", "masked_rows")
 # above D = 256 (rows of their own in the kernels line): the bf16
 # forward splits O's columns over warpgroups (a cluster above D = 512)
 # and computes S once a tile over the whole D, writing one lse row; the
-# bf16 backward splits dq, dk and dv's columns over CTAs, 128 a slice,
-# each computing the scores over the full D; in fp32 one CTA a tile
-# computes the scores once and writes one lse row
+# bf16 backward splits dq, dk and dv's columns over a cluster of two CTAs
+# at D = 384 and 512, which exchange their partial scores (S and dP once
+# a tile pair), and over CTAs of 128 columns above, each computing the
+# scores over the full D; in fp32 one CTA a tile computes the scores
+# once and writes one lse row
 FLASH_WIDE_DESIGN = {
     "fwd": "D padded to a multiple of 128. bf16: S once a tile over the "
            "whole D: O's 64-column sub-tiles split over the warpgroups of "
@@ -692,7 +704,18 @@ FLASH_WIDE_DESIGN = {
            "once a tile (K in 128-column chunks, each split over the 8 "
            "warps, the partials summed in shared memory), each warp D / 8 "
            "columns of O, V in 16-key chunks",
-    "bwd": "bf16: one CTA a 128-column slice of dK and dV (or dQ), S and "
+    "bwd": "bf16: D = 384 and 512 (<192>, <256>): a cluster of 2 CTAs "
+           "a 64-row tile, each owning D / 2 columns of dK and dV (or dQ) "
+           "and reading only those; its own operands resident, the swept "
+           "ones through 2 stages, all by TMA on mbarriers, dO scaled once "
+           "as it lands; warpgroup 0 takes the partial S^T (S), "
+           "warpgroup 1 the partial dP^T (dP), over the CTA's columns "
+           "(wgmma), each pushed to the partner CTA by st.async "
+           "completing on its mbarrier and summed in rank order, so S "
+           "and dP once a tile pair; p then dV (one m64n192/n256 wgmma a "
+           "k-step) on warpgroup 0, ds then dK (dQ) on warpgroup 1; 256 "
+           "threads, 231,464 bytes of shared memory at D = 512; above: "
+           "one CTA a 128-column slice of dK and dV (or dQ), S and "
            "dP over the full D in chunks, its own slice's chunk last, "
            "wgmma, p and ds before dV and dK; fp32: one CTA a tile (dk/dv "
            "16 keys, dq 16 query rows), S^T and dP^T (S and dP) once a "
@@ -1002,10 +1025,13 @@ def phase_build():
             check(any(n.startswith(label) for n in flash),
                   f"no {label}...> in the library's SASS")
         # D > 256: the forward's cluster layouts <WGS, CPW>, the
-        # backward's column-split kernels
+        # backward's clusters <C> (D = 384, 512) and column-split kernels
         for label in ([f"fa_fwd_bf16_wide_kernel<{a}>"
                        for a in FLASH_WIDE_FWD_INSTANCES]
-                      if kind == "fwd" else [f"fa_{kind}_bf16_wide_kernel"]):
+                      if kind == "fwd" else
+                      [f"fa_{kind}_bf16_wide_kernel"]
+                      + [f"fa_{kind}_bf16_cluster_kernel<{c}>"
+                         for c in FLASH_WIDE_BWD_INSTANCES]):
             check(label in flash, f"no {label} in the library's SASS")
         # fp32: one design at every D, its instantiations
         for args in FLASH_F32_INSTANCES[kind]:
@@ -1410,6 +1436,17 @@ def phase_flash(flush):
                 check(e <= tol["grad"], f"{where}: {n} rel err {e}")
             check(all(torch.equal(a, b) for a, b in zip(grads, again)),
                   f"{where}: two backward runs differ")
+            if dname == "bf16" and name in FLASH_BITWISE_CASES:
+                # a third call after an L2 flush, into fresh buffers
+                flush.zero_()
+                third = fa.flash_bwd_cuda(q, k, v, o, lse, do, causal, scale)
+                torch.cuda.synchronize()
+                res["bitwise_run_to_run"] = all(
+                    torch.equal(a, b) for a, b in zip(grads, third))
+                check(res["bitwise_run_to_run"],
+                      f"{where}: a backward call after an L2 flush differs "
+                      f"from the first")
+                del third
             masked = max(sq - sk, 0) if causal else 0
             if masked:
                 check(bool((o[:, :masked] == 0).all())
@@ -1443,6 +1480,7 @@ def phase_flash(flush):
     torch.cuda.empty_cache()
     summary = {key: {k: r[k] for k in (
         "out_max_abs_err", "lse_max_abs_err", "lse_rows", "grad_rel_err",
+        "bitwise_run_to_run",
         "with_lse_grad_rel_err", "fwd_ms", "bwd_ms", "plain_fwd_ms",
         "plain_bwd_ms", "sdpa_fwd_ms", "sdpa_bwd_ms") if k in r}
         for key, r in out.items()}
@@ -1456,6 +1494,7 @@ def phase_flash(flush):
     emit("flash", cases={c[0]: dict(zip(("BH", "Sq", "Sk", "D", "causal"),
                                         c[1:6])) for c in FLASH_CASES},
          tolerance=FLASH_TOL, bitwise_backward=True,
+         bitwise_run_to_run_cases=list(FLASH_BITWISE_CASES),
          lse_rows=1,
          bf16_rounding_tolerance={"max_ulps": BF16_ULP_TOL,
                                   "mismatch": BF16_MISMATCH_TOL},
@@ -10456,11 +10495,19 @@ def main() -> int:
         "bound_by": row[kind]["bound_by"],
         "library_ms": row[f"sdpa_{kind}_ms"],
     } for kind in ("fwd", "bwd")]
-    # above D = 256, at the LM-at-one-head shapes (D = 512): K2/K3 on
-    # the column-split kernels at its trainer's (BH = 8, S = 2048,
-    # bf16), K1 at its 512 tier at its engine's (8 slots, 1 head, fp32
-    # pool); launches from the lm1h phase's paths, each counted from 0
+    # above D = 256, at the LM-at-one-head shapes (D = 512): K2 on the
+    # wide forward and K3 on the cluster backward at its trainer's (BH =
+    # 8, S = 2048, bf16), K1 at its 512 tier at its engine's (8 slots, 1
+    # head, fp32 pool); launches from the lm1h phase's paths, each
+    # counted from 0. The K2/K3 rows list their instantiations'
+    # registers, spilled bytes and HGMMA counts (the build phase's)
     row, d512 = flash["train_h1/bf16"], kern["heads1/fp32"]
+    built = RESULTS["build"]["flash_kernels"]
+    wide_instances = {
+        "fwd": [f"fa_fwd_bf16_wide_kernel<{a}>"
+                for a in FLASH_WIDE_FWD_INSTANCES],
+        "bwd": [f"fa_{k}_bf16_cluster_kernel<{c}>"
+                for c in FLASH_WIDE_BWD_INSTANCES for k in ("dkdv", "dq")]}
     kernels += [{
         "name": "paged_decode_d512", "route": "cuda",
         "source": "bigdl_tpu_torch/ops/csrc/paged_decode.cu",
@@ -10486,6 +10533,9 @@ def main() -> int:
                             ":374"}[kind],
         "launches": lm1h[kind],
         "launches_by_path": {"lm1h": lm1h[kind]},
+        "instances": {n: {f: built[n].get(f) for f in (
+            "registers", "spill_bytes", "HGMMA")}
+            for n in wide_instances[kind]},
         "max_abs_err": row["out_max_abs_err" if kind == "fwd"
                            else "grad_max_abs_err"],
         "ms": row[f"{kind}_ms"], "plain_ms": row[f"plain_{kind}_ms"],

@@ -59,15 +59,15 @@ def _rel(a, b):
                          ids=["bf16", "fp32"])
 def test_instantiations_reach_256(dtype):
     """The instantiations end at 256; past them every head dim runs at
-    the next multiple of 128: in bf16 on the column-split kernels, one
-    CTA a 128-column slice, in fp32 one CTA a tile (one slice)."""
+    the next multiple of 128: in bf16 at 384 on a cluster of two CTAs of
+    192 columns each, in fp32 one CTA a tile (one slice)."""
     assert tfa.HEAD_DIMS[-1] == 256
     assert {tfa.kernel_head_dim(d) for d in range(129, 257)} == {256}
     assert {tfa.kernel_head_dim(d) for d in range(257, 385)} == {384}
     assert tfa.column_slices(256, dtype) == 1
-    want = 384 // tfa.WIDE_COLS if dtype == torch.bfloat16 else 1
+    want = tfa.WIDE_BWD_RANKS if dtype == torch.bfloat16 else 1
     assert tfa.column_slices(384, dtype) == want
-    assert want == (3 if dtype == torch.bfloat16 else 1)
+    assert want == (2 if dtype == torch.bfloat16 else 1)
 
 
 @pytest.mark.parametrize("case", CASES, ids=IDS)

@@ -193,13 +193,14 @@ def test_paged_decode_matches_jax_kernel(d, dtype):
                          ids=["bf16", "fp32"])
 def test_flash_dispatch(dtype):
     """The head dim the flash kernels run at and their column slices:
-    the instantiations up to 256, multiples of 128 above; in bf16 one CTA
-    a 128-column slice there, in fp32 one CTA a tile at every D (up to
+    the instantiations up to 256, multiples of 128 above; in bf16 a
+    cluster of two CTAs (D / 2 columns each) at 384 and 512 and one CTA
+    a 128-column slice above, in fp32 one CTA a tile at every D (up to
     F32_MAX_HEAD_DIM); the kernels' checks take nothing else."""
     assert [tfa.kernel_head_dim(d) for d in (1, 33, 200, 256, 257, 320,
                                              384, 385, 512, 1000)] \
         == [32, 64, 256, 256, 384, 384, 384, 512, 512, 1024]
-    slices = [1, 1, 3, 4, 8] if dtype == torch.bfloat16 else [1] * 5
+    slices = [1, 1, 2, 2, 8] if dtype == torch.bfloat16 else [1] * 5
     assert [tfa.column_slices(dp, dtype)
             for dp in (32, 256, 384, 512, 1024)] == slices
     for bad in (300, 192, 640 + 64):

@@ -3,9 +3,10 @@ card to check: K1's row-split kernel above D = 1024
 (bigdl_tpu_torch/ops/paged_decode.py `wide_plan`, `wide_copy_bytes`,
 mirroring csrc/paged_decode.cu "D > 1024") and the bf16 flash forward
 above D = 256 (bigdl_tpu_torch/ops/flash_attention.py `wide_fwd_plan`,
-mirroring csrc/flash_attention.cu WideFwd). The CUDA kernels cannot run
-here (no nvcc, no card): chip_smoke.py holds them to their plain versions
-on the card. The plain paged decode is held to the JAX kernel `_pd_kernel`
+mirroring csrc/flash_attention.cu WideFwd), and the bf16 flash backward
+above D = 256 (`wide_bwd_plan`, mirroring WideBwd and
+launch_bwd_wide_bf16). The CUDA kernels cannot run here (no nvcc, no
+card): chip_smoke.py holds them to their plain versions on the card. The plain paged decode is held to the JAX kernel `_pd_kernel`
 (interpret mode, as the JAX package's tests run it) at D = 2049 here,
 beside tests/test_torch_head_dims.py's D = 1100 (fp32 pools atol 1e-6,
 rtol 1e-5; bf16 pools atol 1e-5, rtol 1e-4, those of that file).
@@ -16,13 +17,21 @@ the clocks); its arithmetic — each rank's stages of keys through one
 online softmax, every score of a stage known before its V rows are
 weighted, the ranks combined in order — is run here in plain PyTorch
 against the plain version (fp32, atol 1e-6, rtol 1e-5: the same sums in
-another order)."""
+another order). The cluster backward's arithmetic at D = 384 and 512 —
+each rank's partial S and dP over its own columns, summed in rank order,
+then p, ds and each rank's columns of dq, dk and dv — is run here in
+plain PyTorch against the JAX package's fused Pallas backward
+(interpret mode) within FLASH_GRAD_RTOL of each gradient's max (fp32,
+tests/test_torch_head_dims.py's tolerance: two frameworks' fp32 sums
+over up to 512 columns)."""
 
 import importlib
 import inspect
+import math
 import re
 from pathlib import Path
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -33,9 +42,11 @@ from bigdl_tpu.ops.paged_decode import \
 from bigdl_tpu_torch.ops import paged_decode as pd
 
 tfa = importlib.import_module("bigdl_tpu_torch.ops.flash_attention")
+jfa = importlib.import_module("bigdl_tpu.ops.flash_attention")
 CSRC = Path(pd.__file__).resolve().parent / "csrc"
 FP32_TOL = dict(atol=1e-6, rtol=1e-5)
 BF16_TOL = dict(atol=1e-5, rtol=1e-4)
+FLASH_GRAD_RTOL = 1e-4
 
 WIDE_DIMS = (1025, 1100, 2049, 4096, 8192)
 EXTENTS = [(6, 16), (37, 16), (1, 16), (256, 16), (9, 4), (3, 1)]
@@ -280,10 +291,137 @@ def test_flash_forward_returns_one_lse_row():
     assert out.shape == q.shape and lse.shape == (2, 5)
 
 
+@pytest.mark.parametrize("dp", range(384, 4097, 128))
+def test_flash_wide_backward_plan(dp):
+    """The bf16 backward's layout at every padded head dim from 384 to
+    4096: at D = 384 and 512 a cluster of 2 CTAs of D / 2 columns, 2
+    warpgroups each, S and dP once a tile pair; above, one CTA of one
+    warpgroup a 128-column slice, S and dP once a slice. The ranks'
+    columns cover D once; the CTA fits the card's 227 KB; a thread's
+    accumulators, beside a 64 x 64 score tile (32 registers) and its
+    bf16 operand (16), stay under 255 registers, and one CTA's threads
+    under the SM's 65,536; the route is the one csrc/flash_attention.cu
+    dispatches, with the shared memory its WideBwd (or the slices')
+    arithmetic gives."""
+    plan = tfa.wide_bwd_plan(dp)
+    ranks, cols = plan["ranks"], plan["cols"]
+    covered = sorted(c for r in range(ranks)
+                     for c in range(r * cols, (r + 1) * cols))
+    assert covered == list(range(dp))
+    assert plan["smem"] <= tfa.MAX_SHARED_BYTES
+    assert plan["acc_registers"] + 32 + 16 <= 255
+    assert 128 * plan["warpgroups"] * 255 <= 65536
+    assert plan["rows"] == tfa.KERNEL_BLOCK_K == 64
+    assert tfa.column_slices(dp, torch.bfloat16) == ranks
+    src = (CSRC / "flash_attention.cu").read_text()
+    cluster = re.search(rf"if \(D == {dp}\)\s*return launch_bwd_cluster"
+                        rf"<{dp // 2}>", src)
+    if dp <= 512:
+        assert cluster
+        assert plan["route"] == "cluster" and ranks == 2
+        assert (plan["warpgroups"], cols) == (2, dp // 2)
+        assert plan["score_passes"] == 1
+        assert plan["acc_registers"] == 64 * cols // 128
+        assert "static constexpr int kBars = 5;" in src
+        assert "static constexpr uint32_t kStats = 2 * 2 * 64 *" in src
+        assert ("1024 + 6 * (size_t)kOperand + 2 * kX + kStats + 8 * kBars"
+                in src)
+        assert plan["smem"] == (1024 + 6 * 64 * cols * 2 + 2 * 64 * 64 * 4
+                                + 2 * 2 * 64 * 4 + 8 * 5)
+    else:
+        assert not cluster
+        assert plan["route"] == "slices"
+        assert (plan["warpgroups"], cols) == (1, tfa.WIDE_COLS)
+        assert ranks == plan["score_passes"] == dp // 128
+        assert "1024 + (size_t)8 * 64 * kWC * 2 + 2 * 2 * kBQ" in src
+        assert plan["smem"] == 1024 + 8 * 64 * 128 * 2 + 2 * 2 * 64 * 4
+    for bad in (256, 4096 + 128):
+        with pytest.raises(ValueError):
+            tfa.wide_bwd_plan(bad)
+
+
+def _cluster_backward(q, k, v, o, lse, do, causal, scale):
+    """The cluster backward's arithmetic (wide_bwd_plan "cluster") in
+    plain fp32 PyTorch on (BH, S, D): for each pair of 64-key and
+    64-query tiles each rank computes S^T and dP^T over its own
+    columns only, both ranks add the two partials in rank order (rank
+    0's, then rank 1's: the same bits on both, asserted), and each
+    takes p and ds from the sums and accumulates its columns of dv, dk
+    and dq. do is scaled by sm_scale, delta = sum(do * o) * sm_scale and
+    dv divided by sm_scale at the end, as the kernels take them."""
+    plan = tfa.wide_bwd_plan(q.shape[-1])
+    rows, sq, sk = plan["rows"], q.shape[1], k.shape[1]
+    cols = [slice(r * plan["cols"], (r + 1) * plan["cols"])
+            for r in range(plan["ranks"])]
+    dos = do * scale
+    delta = (do * o).sum(-1) * scale
+    dq, dk, dv = (torch.zeros_like(t) for t in (q, k, v))
+    for k0 in range(0, sk, rows):
+        for q0 in range(0, sq, rows):
+            ki, qi = slice(k0, k0 + rows), slice(q0, q0 + rows)
+            s_part = [k[:, ki, c] @ q[:, qi, c].transpose(1, 2)
+                      for c in cols]
+            dp_part = [v[:, ki, c] @ dos[:, qi, c].transpose(1, 2)
+                       for c in cols]
+            # rank 0 adds its own partial and then its partner's; rank 1
+            # its partner's (rank 0's) and then its own
+            by_rank = [(s_part[0] + s_part[1], dp_part[0] + dp_part[1]),
+                       (s_part[0] + s_part[1], dp_part[0] + dp_part[1])]
+            # IEEE addition commutes: whichever operand a rank holds in
+            # its registers, the two sums have the same bits
+            assert torch.equal(s_part[1] + s_part[0], by_rank[1][0])
+            assert torch.equal(dp_part[1] + dp_part[0], by_rank[1][1])
+            s_t, dp_t = by_rank[0]
+            p = torch.exp(s_t * scale - lse[:, None, qi])
+            if causal:
+                key = torch.arange(k0, k0 + s_t.shape[1])[:, None]
+                query = torch.arange(q0, q0 + s_t.shape[2])[None, :]
+                p = torch.where(key <= query + sk - sq, p, 0.0)
+            ds = p * (dp_t - delta[:, None, qi])
+            for c in cols:
+                dv[:, ki, c] += p @ dos[:, qi, c]
+                dk[:, ki, c] += ds @ q[:, qi, c]
+                dq[:, qi, c] += ds.transpose(1, 2) @ k[:, ki, c]
+    return dq, dk, dv / scale
+
+
+@pytest.mark.parametrize("bh,sq,sk,d,causal",
+                         [(2, 40, 24, 384, True), (1, 70, 90, 512, True)],
+                         ids=["d384_masked_rows", "d512_two_tiles"])
+def test_flash_cluster_backward_rank_order_matches_pallas(bh, sq, sk, d,
+                                                          causal):
+    """dq, dk and dv from each rank's partial S and dP, summed in rank
+    order (`_cluster_backward`), against the JAX package's fused Pallas
+    backward (interpret mode) fed the Pallas forward's (o, lse), at D =
+    384 (fully masked rows: Sq > Sk) and D = 512 (two tiles of keys and
+    of queries, ragged), on seeded numpy inputs as in
+    tests/test_torch_head_dims.py."""
+    rng = np.random.RandomState(0)
+    q, k, v, do = (rng.randn(bh, n, d).astype(np.float32)
+                   for n in (sq, sk, sk, sq))
+    scale = 1.0 / math.sqrt(d)
+
+    @jax.jit
+    def fwd_bwd(q, k, v, do):
+        o, lse = jfa._flash_fwd_pallas(q, k, v, causal, scale, 16, 16,
+                                       interpret=True)
+        return o, lse, jfa._flash_bwd_pallas_fused(
+            q, k, v, o, lse, do, causal, scale, 16, 16, interpret=True)
+
+    jo, jl, jg = fwd_bwd(*map(jnp.asarray, (q, k, v, do)))
+    got = _cluster_backward(*(torch.from_numpy(np.array(a)) for a in
+                              (q, k, v, jo, jl, do)), causal, scale)
+    for name, a, b in zip(("dq", "dk", "dv"), got, jg):
+        b = np.asarray(b, np.float64)
+        err = np.abs(a.numpy().astype(np.float64) - b).max()
+        assert err <= FLASH_GRAD_RTOL * np.abs(b).max(), (name, err)
+
+
 def test_kernel_study_wide_parts_need_the_old_sources():
     from bigdl_tpu_torch.ops import kernel_study as ks
 
-    assert {"k1_wide", "flash_bf16_wide"} <= set(ks.PARTS)
-    for part in ("k1_wide", "flash_bf16_wide"):
+    assert {"k1_wide", "flash_bf16_wide", "flash_bf16_wide_bwd"} \
+        <= set(ks.PARTS)
+    for part in ("k1_wide", "flash_bf16_wide", "flash_bf16_wide_bwd"):
         with pytest.raises(SystemExit):
             ks.main(["--parts", part])
